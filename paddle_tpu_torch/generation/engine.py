@@ -1,0 +1,704 @@
+"""GenerationEngine: continuous-batching autoregressive decode, ragged
+mode (counterpart of ``paddle_tpu/generation/engine.py:330``).
+
+Every step runs ONE [lanes, chunk] mixed batch (``RaggedStepModel``)
+in which each row is whatever its sequence needs: a prefill chunk, one
+decode token, or nothing (an idle lane). Prompts longer than
+``chunk_tokens`` prefill in chunks across steps. K/V lives in a paged
+pool (``PagedKVCache``) written in place by the step. Tokens stream
+out through ``GenerationStream``s; stop conditions are max_new_tokens,
+EOS, deadline, cancel and close.
+
+Backpressure and eviction as in the JAX engine: a full queue, or a
+prompt that could never fit the pool, raises ``Overloaded`` at
+``submit`` before any work; a pool that runs dry mid-decode evicts the
+youngest sequence (its request re-queues at the head and re-prefills
+prompt + generated tokens, which greedy decode continues identically).
+
+A step that raises turns into errors on that step's requests
+(``ServingError``), never a dead loop: the caller sees the failure on
+its stream. The loop thread owns all device work; client threads only
+read streams.
+
+Not ported yet, and refused with ``NotImplementedError`` naming the
+ROADMAP item when asked for: ``mode="two_lane"``, speculative decoding
+(``draft`` / ``spec_tokens``), ``kv_dtype="int8"``, ``prefix_cache``,
+``quantize_weights``, ``page_store`` and ``adapter_store``.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..flags import flag
+from ..kernels.ragged_paged_attention import MAX_CHUNK
+from ..serving.engine import (DeadlineExceeded, EngineClosed, Overloaded,
+                              RequestCancelled, ServingError)
+from ..serving.metrics import StreamingHistogram
+from .kvcache import PagedKVCache, PagePoolExhausted
+from .model import CacheGeometry, RaggedStepModel, step_feeds
+
+__all__ = ["GenerationEngine", "GenerationStream", "GenerationMetrics"]
+
+_DONE = object()  # stream sentinel
+
+# ctor options of the JAX engine this slice lacks -> their ROADMAP item
+_NOT_PORTED = {
+    "mode='two_lane'": "A5 (two_lane engine, K13 via K2 at C=1)",
+    "draft/spec_tokens": "A3 (speculative decoding)",
+    "kv_dtype='int8'": "A2 (int8 KV pages, K2q)",
+    "prefix_cache": "A4 (radix prefix cache)",
+    "quantize_weights": "A7 (quantized weights, K11)",
+    "page_store": "A9 (host tiers: disaggregated page store)",
+    "adapter_store": "A8 (LoRA adapters, K12)",
+}
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(
+        f"GenerationEngine({what}) is not ported to paddle_tpu_torch yet: "
+        f"ROADMAP queue {_NOT_PORTED[what]}")
+
+
+class GenerationStream:
+    """Per-request handle: an iterator over tokens as they are sampled,
+    plus future-style ``result()``/``cancel()``. One of
+    ``finish_reason`` in {"eos", "length", "deadline", "cancelled",
+    "closed", "capacity", "error"} is set by the time iteration ends."""
+
+    def __init__(self, engine: "GenerationEngine"):
+        self._engine = engine
+        self._q: "collections.deque" = collections.deque()
+        self._cond = threading.Condition()
+        self._done = threading.Event()
+        self._tokens: List[int] = []
+        self.finish_reason: Optional[str] = None
+        self.error: Optional[BaseException] = None
+        self._cancelled = False
+        self.first_token_at: Optional[float] = None
+
+    # -- engine side ---------------------------------------------------------
+    def _push(self, token: int) -> None:
+        if self.first_token_at is None:
+            self.first_token_at = time.monotonic()
+        self._tokens.append(int(token))
+        with self._cond:
+            self._q.append(int(token))
+            self._cond.notify_all()
+
+    def _finish(self, reason: str, error: Optional[BaseException] = None):
+        if self._done.is_set():
+            return
+        self.finish_reason = reason
+        self.error = error
+        self._done.set()
+        with self._cond:
+            self._q.append(_DONE)
+            self._cond.notify_all()
+
+    # -- caller side ---------------------------------------------------------
+    def __iter__(self):
+        while True:
+            with self._cond:
+                while not self._q:
+                    self._cond.wait(0.1)
+                item = self._q.popleft()
+            if item is _DONE:
+                if self.error is not None:
+                    raise self.error
+                return
+            yield item
+
+    def result(self, timeout: Optional[float] = None) -> List[int]:
+        """Block until the request finishes; the full generated token
+        list (raises the terminal error of a rejected/failed request)."""
+        if not self._done.wait(timeout):
+            raise TimeoutError(f"generation not finished within {timeout}s")
+        if self.error is not None:
+            raise self.error
+        return list(self._tokens)
+
+    @property
+    def tokens(self) -> List[int]:
+        """Tokens sampled so far (grows while streaming)."""
+        return list(self._tokens)
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def cancel(self) -> bool:
+        """Request cancellation; the step loop retires the sequence at
+        the next step boundary. False if already finished."""
+        if self._done.is_set():
+            return False
+        self._cancelled = True
+        self._engine._kick()
+        return True
+
+
+class _GenRequest:
+    __slots__ = ("prompt", "orig_prompt", "max_new", "eos_id", "deadline",
+                 "stream", "enqueue_t", "slot", "pending", "n_generated",
+                 "admit_seq", "last_tok_t", "prefill_off")
+
+    def __init__(self, prompt, max_new, eos_id, deadline, stream):
+        self.prompt = prompt            # context to prefill (grows on resume)
+        self.orig_prompt = prompt       # the caller's prompt, immutable
+        self.max_new = max_new
+        self.eos_id = eos_id
+        self.deadline = deadline        # absolute monotonic or None
+        self.stream = stream
+        self.enqueue_t = time.monotonic()
+        self.slot: Optional[int] = None
+        self.pending: Optional[int] = None   # sampled, K/V not yet cached
+        self.n_generated = 0                 # across evict/resume cycles
+        self.admit_seq = 0                   # admission order (evict victim)
+        self.last_tok_t: Optional[float] = None
+        self.prefill_off = 0            # prompt tokens already written
+
+
+class GenerationMetrics:
+    """Lock-protected counters + streaming histograms for the engine."""
+
+    _COUNTERS = ("requests_total", "responses_total", "rejected_total",
+                 "expired_total", "cancelled_total", "evicted_total",
+                 "prefill_batches_total",
+                 "decode_steps_total", "prefill_tokens_total",
+                 "decode_tokens_total", "decode_active_lane_steps_total",
+                 "decode_capacity_lane_steps_total", "ragged_steps_total",
+                 "prefill_chunks_total")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._c: Dict[str, int] = {k: 0 for k in self._COUNTERS}
+        self.ttft_ms = StreamingHistogram()
+        self.itl_ms = StreamingHistogram()
+        self.decode_step_ms = StreamingHistogram()
+        self.queue_wait_ms = StreamingHistogram()
+        self._queue_depth = 0
+        self._active = 0
+        self._decode_wall_s = 0.0
+
+    def inc(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._c[name] += n
+
+    def observe(self, hist: str, v: float) -> None:
+        with self._lock:
+            getattr(self, hist).record(v)
+
+    def observe_decode_step(self, ms: float, active: int, lanes: int,
+                            tokens: int) -> None:
+        """One ragged step: ``active`` lanes did real work out of
+        ``lanes`` and ``tokens`` tokens were emitted."""
+        with self._lock:
+            self.decode_step_ms.record(ms)
+            self._decode_wall_s += ms / 1e3
+            self._c["decode_steps_total"] += 1
+            self._c["decode_tokens_total"] += tokens
+            self._c["decode_active_lane_steps_total"] += active
+            self._c["decode_capacity_lane_steps_total"] += lanes
+
+    def set_gauges(self, queue_depth: int, active: int) -> None:
+        with self._lock:
+            self._queue_depth = queue_depth
+            self._active = active
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            out: Dict[str, Any] = dict(self._c)
+            out["queue_depth"] = self._queue_depth
+            out["active_seqs"] = self._active
+            out["ttft_ms"] = self.ttft_ms.snapshot()
+            out["itl_ms"] = self.itl_ms.snapshot()
+            out["decode_step_ms"] = self.decode_step_ms.snapshot()
+            out["queue_wait_ms"] = self.queue_wait_ms.snapshot()
+            cap = self._c["decode_capacity_lane_steps_total"]
+            out["decode_occupancy"] = (
+                round(self._c["decode_active_lane_steps_total"] / cap, 4)
+                if cap else 0.0)
+            out["decode_tokens_per_s"] = (
+                round(self._c["decode_tokens_total"] / self._decode_wall_s, 2)
+                if self._decode_wall_s > 0 else 0.0)
+            return out
+
+
+class GenerationEngine:
+    """Continuous-batching ragged decode over a Predictor's weights.
+
+        pred = create_predictor(Config(lm_model_dir))
+        eng = GenerationEngine(pred, pred.gpt_config)
+        stream = eng.submit([1, 5, 9], max_new_tokens=32, eos_id=2)
+        for tok in stream: ...                         # tokens as sampled
+        eng.generate([1, 5, 9])                        # sync helper
+        eng.close(drain=True)
+    """
+
+    def __init__(self, predictor, config, *,
+                 page_size: Optional[int] = None,
+                 num_pages: Optional[int] = None,
+                 max_decode_batch: Optional[int] = None,
+                 queue_capacity: Optional[int] = None,
+                 eos_id: Optional[int] = None,
+                 mode: Optional[str] = None,
+                 chunk_tokens: Optional[int] = None,
+                 spec_tokens: Optional[int] = None,
+                 draft=None,
+                 kv_dtype: Optional[str] = None,
+                 quantize_weights: Optional[str] = None,
+                 prefix_cache: Optional[bool] = None,
+                 page_store=None,
+                 adapter_store=None,
+                 warmup: bool = False, start: bool = True):
+        mode = str(mode or "ragged")
+        if mode == "two_lane":
+            _not_ported("mode='two_lane'")
+        if mode != "ragged":
+            raise ValueError(f"mode must be 'ragged' or 'two_lane', got "
+                             f"{mode!r}")
+        if draft is not None or spec_tokens:
+            _not_ported("draft/spec_tokens")
+        if kv_dtype == "int8":
+            _not_ported("kv_dtype='int8'")
+        if kv_dtype not in (None, "float32"):
+            raise ValueError(f"kv_dtype must be 'float32' (the model's "
+                             f"dtype) or 'int8'; got {kv_dtype!r}")
+        if prefix_cache:
+            _not_ported("prefix_cache")
+        if quantize_weights not in (None, "off"):
+            _not_ported("quantize_weights")
+        if page_store is not None:
+            _not_ported("page_store")
+        if adapter_store is not None:
+            _not_ported("adapter_store")
+        self.mode = mode
+        self.config = config
+        # the clone shares the weights; the engine's loop never contends
+        # with the caller's predictor lock
+        self._pred = predictor.clone()
+        lm = self._pred.lm
+        mine = self._pred.gpt_config
+        shape = ("vocab_size", "hidden_size", "num_layers", "num_heads",
+                 "ffn_size", "max_position")
+        if any(getattr(config, f) != getattr(mine, f) for f in shape):
+            raise ValueError(f"config {config} does not match the "
+                             f"predictor's model {mine}")
+        self.device = lm.device
+        self.page_size = int(page_size or flag("generation_page_size"))
+        self.num_pages = int(num_pages or flag("generation_num_pages"))
+        self.lanes = int(max_decode_batch
+                         or flag("generation_max_decode_batch"))
+        self.queue_capacity = int(queue_capacity
+                                  or flag("generation_queue_capacity"))
+        self.default_max_new = int(flag("generation_max_new_tokens"))
+        self.default_eos = eos_id
+        self.chunk_tokens = max(2, int(chunk_tokens
+                                       or flag("generation_chunk_tokens")))
+        if self.device.type == "cuda" and self.chunk_tokens > MAX_CHUNK:
+            raise ValueError(f"chunk_tokens {self.chunk_tokens} exceeds the "
+                             f"ragged attention kernel's {MAX_CHUNK}")
+        max_seq = int(config.max_position)
+        maxp = -(-max_seq // self.page_size)
+        self.geom = CacheGeometry(num_pages=self.num_pages,
+                                  page_size=self.page_size,
+                                  max_pages_per_seq=maxp)
+        self.cache = PagedKVCache(
+            config.num_layers, config.num_heads,
+            config.hidden_size // config.num_heads,
+            num_pages=self.num_pages, page_size=self.page_size,
+            max_seqs=self.lanes, max_pages_per_seq=maxp,
+            device=self.device, dtype=lm.dtype)
+        self.metrics = GenerationMetrics()
+        # THE step: one mixed prefill+decode model for the engine's life
+        self._step_model = RaggedStepModel(lm, self.geom, self.chunk_tokens)
+
+        self._cond = threading.Condition()
+        self._queue: "collections.deque[_GenRequest]" = collections.deque()
+        self._by_slot: Dict[int, _GenRequest] = {}
+        self._admit_counter = 0
+        self._closed = False
+        self._stop = False
+        self._loop_thread: Optional[threading.Thread] = None
+        self._started = False
+        if warmup:
+            self._warmup()
+        if start:
+            self.start()
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self) -> "GenerationEngine":
+        with self._cond:
+            if self._started:
+                return self
+            if self._closed:
+                raise EngineClosed("generation engine already closed")
+            self._started = True
+        self._loop_thread = threading.Thread(
+            target=self._loop, name="pt-torch-generation-loop", daemon=True)
+        self._loop_thread.start()
+        return self
+
+    def close(self, drain: bool = True, timeout: Optional[float] = 60.0):
+        """Stop admission. ``drain=True`` serves everything already
+        submitted (running sequences AND queued requests) to its stop
+        conditions, then exits; ``drain=False`` retires everything
+        immediately."""
+        with self._cond:
+            already = self._closed and self._stop
+            self._closed = True
+            if not drain:
+                self._stop = True
+            self._cond.notify_all()
+        if already:
+            return
+        if self._started:
+            self._loop_thread.join(timeout)
+        else:
+            self._fail_queued(EngineClosed("engine closed before start()"))
+
+    def __enter__(self) -> "GenerationEngine":
+        return self
+
+    def __exit__(self, *exc):
+        self.close(drain=exc[0] is None)
+
+    def _kick(self):
+        with self._cond:
+            self._cond.notify_all()
+
+    # -- submission ----------------------------------------------------------
+    def submit(self, prompt, max_new_tokens: Optional[int] = None,
+               eos_id: Optional[int] = "default",  # type: ignore[assignment]
+               deadline_ms: Optional[float] = None) -> GenerationStream:
+        """Admit one prompt (1-D int sequence). Raises ``Overloaded``
+        when the admission queue is full OR when the prompt + budget
+        could never fit the page pool, both before any prefill work;
+        raises ``EngineClosed`` after close()."""
+        prompt = np.asarray(prompt, dtype=np.int64).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("prompt must hold at least one token")
+        max_new = int(max_new_tokens if max_new_tokens is not None
+                      else self.default_max_new)
+        if max_new < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        eos = self.default_eos if eos_id == "default" else eos_id
+        total = int(prompt.size) + max_new
+        if total > self.config.max_position:
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new_tokens ({max_new}) "
+                f"exceeds max_position {self.config.max_position}")
+        if not self.cache.can_fit_ever(total):
+            self.metrics.inc("rejected_total")
+            raise Overloaded(
+                f"request needs {self.cache.pages_needed(total)} pages; "
+                f"pool holds {self.cache.usable_pages} "
+                f"(num_pages x page_size)")
+        deadline = (time.monotonic() + deadline_ms / 1e3
+                    if deadline_ms is not None else None)
+        stream = GenerationStream(self)
+        req = _GenRequest(prompt, max_new, eos, deadline, stream)
+        with self._cond:
+            if self._closed:
+                raise EngineClosed("GenerationEngine is closed")
+            if len(self._queue) >= self.queue_capacity:
+                self.metrics.inc("rejected_total")
+                raise Overloaded(
+                    f"generation queue full ({self.queue_capacity} pending); "
+                    "retry with backoff or raise queue_capacity")
+            self._queue.append(req)
+            self.metrics.inc("requests_total")
+            self._cond.notify_all()
+        return stream
+
+    def generate(self, prompt, max_new_tokens: Optional[int] = None,
+                 eos_id="default", deadline_ms: Optional[float] = None,
+                 timeout: Optional[float] = None) -> List[int]:
+        """Synchronous submit + result."""
+        return self.submit(prompt, max_new_tokens, eos_id,
+                           deadline_ms).result(timeout)
+
+    # -- introspection -------------------------------------------------------
+    def stats(self) -> Dict[str, Any]:
+        out = self.metrics.snapshot()
+        out["cache"] = self.cache.stats()
+        return out
+
+    # -- the step loop -------------------------------------------------------
+    def _loop(self):
+        try:
+            with torch.inference_mode():
+                while True:
+                    with self._cond:
+                        while (not self._queue and not self._by_slot
+                               and not self._stop and not self._closed):
+                            self._cond.wait(0.05)
+                        if self._stop or (self._closed and not self._queue
+                                          and not self._by_slot):
+                            break
+                    self._admit_ragged()
+                    if self._by_slot:
+                        self._ragged_step()
+                    self.metrics.set_gauges(len(self._queue),
+                                            len(self._by_slot))
+        finally:
+            # anything still live (hard close, or the loop dying on an
+            # unexpected exception) fails loudly, and later submits are
+            # refused instead of queueing work nobody will serve
+            with self._cond:
+                self._closed = True
+            self._fail_queued(EngineClosed(
+                "engine closed before the request was served"))
+            for slot, req in list(self._by_slot.items()):
+                self.cache.release(slot)
+                req.stream._finish("closed", EngineClosed(
+                    "engine closed mid-generation"))
+            self._by_slot.clear()
+            self.metrics.set_gauges(0, 0)
+
+    def _fail_queued(self, err: BaseException):
+        with self._cond:
+            while self._queue:
+                req = self._queue.popleft()
+                req.stream._finish("closed", err)
+
+    def _pop_admissible(self) -> List[_GenRequest]:
+        """FIFO admission: take queue-head requests while a lane AND
+        pages for the whole prompt are available (head-of-line blocking
+        is deliberate: pool pressure must never starve the oldest
+        request). Expired/cancelled requests drop here."""
+        admitted: List[_GenRequest] = []
+        now = time.monotonic()
+        with self._cond:
+            while self._queue:
+                req = self._queue[0]
+                if req.stream._cancelled:
+                    self._queue.popleft()
+                    self.metrics.inc("cancelled_total")
+                    req.stream._finish("cancelled", RequestCancelled(
+                        "cancelled while queued"))
+                    continue
+                if req.deadline is not None and now > req.deadline:
+                    self._queue.popleft()
+                    self.metrics.inc("expired_total")
+                    req.stream._finish("deadline", DeadlineExceeded(
+                        f"deadline passed after "
+                        f"{(now - req.enqueue_t) * 1e3:.1f}ms in queue"))
+                    continue
+                if (self.cache.free_slots() <= 0
+                        or not self.cache.can_allocate(int(req.prompt.size))):
+                    break
+                admitted.append(self._queue.popleft())
+                req.slot = self.cache.allocate_slot(int(req.prompt.size))
+                req.prefill_off = 0
+                if req.admit_seq == 0:
+                    # first admission only: a resumed request keeps its
+                    # seniority, or it would be the next eviction victim
+                    self._admit_counter += 1
+                    req.admit_seq = self._admit_counter
+                self.metrics.observe(
+                    "queue_wait_ms", (now - req.enqueue_t) * 1e3)
+        return admitted
+
+    def _admit_ragged(self):
+        """An admitted request takes a lane + pages for its whole prompt
+        and starts chunked prefill on the next step."""
+        for req in self._pop_admissible():
+            req.pending = None
+            self._by_slot[req.slot] = req
+
+    def _retire_dead_rows(self, now: float) -> None:
+        """Retire cancelled/expired sequences before spending a step on
+        them."""
+        for slot, req in list(self._by_slot.items()):
+            if req.stream._cancelled:
+                self._retire(slot, "cancelled")
+                self.metrics.inc("cancelled_total")
+            elif req.deadline is not None and now > req.deadline:
+                self._retire(slot, "deadline")
+                self.metrics.inc("expired_total")
+
+    def _grow_or_evict(self, slot: int) -> bool:
+        """Grow slot's page chain by one token; a dry pool evicts
+        (youngest first) and a truly stuck row finishes early
+        ("capacity"). False when the slot was retired."""
+        while True:
+            try:
+                self.cache.ensure_capacity(
+                    slot, int(self.cache.lengths[slot]) + 1)
+                return True
+            except PagePoolExhausted:
+                if not self._make_room(slot):
+                    self._retire(slot, "capacity")
+                    return False
+
+    def _make_room(self, slot: int) -> bool:
+        """The pool is dry and `slot` needs one more page: evict the
+        YOUNGEST other sequence holding pages (its request re-queues at
+        the queue head with prompt + generated tokens as its new
+        context). False when no eviction can free a page."""
+        victims = sorted(
+            (r for s, r in self._by_slot.items() if s != slot),
+            key=lambda r: -r.admit_seq)
+        victim = next((r for r in victims
+                       if self.cache.reclaimable_pages(r.slot) > 0), None)
+        if victim is None:
+            return False
+        vslot = victim.slot
+        del self._by_slot[vslot]
+        self.cache.evict(vslot)
+        self.metrics.inc("evicted_total")
+        victim.prompt = np.concatenate(
+            [victim.orig_prompt,
+             np.asarray(victim.stream._tokens, np.int64)])
+        victim.slot = None
+        victim.pending = None
+        victim.prefill_off = 0
+        with self._cond:
+            self._queue.appendleft(victim)
+            self._cond.notify_all()
+        return True
+
+    def _ragged_step(self):
+        """ONE mixed step: every active lane contributes a prefill chunk
+        or a decode token, and the whole batch attends raggedly over the
+        shared page pool."""
+        R, C = self.lanes, self.chunk_tokens
+        now = time.monotonic()
+        self._retire_dead_rows(now)
+        # page growth for decode rows; prefill rows were fully reserved
+        # at admission. A dry pool evicts (youngest first), then
+        # finishes the stuck row early.
+        for slot, req in list(self._by_slot.items()):
+            if slot not in self._by_slot:
+                continue
+            if req.prefill_off < int(req.prompt.size):
+                continue
+            self._grow_or_evict(slot)
+        if not self._by_slot:
+            return
+        tokens = np.zeros((R, C), np.int64)
+        pos_ids = np.zeros((R, C), np.int64)
+        positions = np.zeros(R, np.int32)
+        num_valid = np.zeros(R, np.int32)
+        for slot, req in self._by_slot.items():
+            if req.prefill_off < int(req.prompt.size):
+                off = req.prefill_off
+                c = min(C, int(req.prompt.size) - off)
+                tokens[slot, :c] = req.prompt[off:off + c]
+                pos_ids[slot, :c] = np.arange(off, off + c)
+                positions[slot] = off
+                num_valid[slot] = c
+            else:
+                L0 = int(self.cache.lengths[slot])
+                tokens[slot, 0] = req.pending
+                pos_ids[slot, 0] = L0
+                positions[slot] = L0
+                num_valid[slot] = 1
+        active = list(self._by_slot.items())
+        t0 = time.monotonic()
+        try:
+            feeds = step_feeds(tokens, pos_ids, positions, num_valid,
+                               self.cache.block_tables, self.device)
+            next_all = self._step_model(
+                *feeds, self.cache.k_pages, self.cache.v_pages)
+            next_all = next_all.cpu().numpy().reshape(R, C)
+        except Exception as e:  # noqa: BLE001 — a bad batch must not kill the loop
+            for slot, _req in active:
+                self._retire(slot, "error", ServingError(
+                    f"ragged step execution failed: {e!r}"))
+            return
+        now = time.monotonic()
+        self.metrics.inc("ragged_steps_total")
+        emitted = 0
+        for slot, req in active:
+            if slot not in self._by_slot:
+                continue
+            nv = int(num_valid[slot])
+            if nv <= 0:
+                continue
+            if req.prefill_off < int(req.prompt.size):
+                # a prefill chunk: its K/V is cached now; the FINAL chunk
+                # also samples the first token (TTFT)
+                self.cache.advance(slot, nv)
+                req.prefill_off += nv
+                self.metrics.inc("prefill_chunks_total")
+                self.metrics.inc("prefill_tokens_total", nv)
+                if req.prefill_off >= int(req.prompt.size):
+                    self.metrics.inc("prefill_batches_total")
+                    self._emit(req, int(next_all[slot, nv - 1]), now)
+                    emitted += 1
+            else:
+                # decode: the pending token's K/V is cached now
+                self.cache.advance(slot)
+                self._emit(req, int(next_all[slot, 0]), now)
+                emitted += 1
+        n_active = sum(1 for s, _ in active if num_valid[s] > 0)
+        self.metrics.observe_decode_step((now - t0) * 1e3, n_active, R,
+                                         tokens=emitted)
+
+    # -- token emission + retirement ----------------------------------------
+    def _emit(self, req: _GenRequest, token: int, now: float):
+        """A token was just sampled for req: stream it, update timing
+        metrics, apply stop conditions, otherwise leave it pending for
+        the next step."""
+        first = req.stream.first_token_at is None
+        if req.last_tok_t is not None:
+            self.metrics.observe("itl_ms", (now - req.last_tok_t) * 1e3)
+        req.stream._push(token)
+        req.last_tok_t = now
+        if first:
+            self.metrics.observe("ttft_ms", (now - req.enqueue_t) * 1e3)
+        req.pending = token
+        req.n_generated += 1
+        if req.eos_id is not None and token == req.eos_id:
+            self._retire(req.slot, "eos")
+        elif req.n_generated >= req.max_new:
+            self._retire(req.slot, "length")
+        elif (int(self.cache.lengths[req.slot]) + 1
+                >= self.config.max_position):
+            self._retire(req.slot, "length")
+        elif req.deadline is not None and now > req.deadline:
+            self._retire(req.slot, "deadline")
+            self.metrics.inc("expired_total")
+
+    def _retire(self, slot: int, reason: str,
+                error: Optional[BaseException] = None):
+        req = self._by_slot.pop(slot, None)
+        self.cache.release(slot)
+        if req is not None:
+            if error is None and reason in ("eos", "length", "capacity"):
+                self.metrics.inc("responses_total")
+            req.slot = None
+            req.stream._finish(reason, error)
+
+    # -- warmup --------------------------------------------------------------
+    def _warmup(self):
+        """Run a two-token request through the prefill-chunk and decode
+        phases of the step before serving traffic (first-call costs:
+        the kernel build and load, library handles), then reset the
+        metrics."""
+        slot = self.cache.allocate_slot(2)
+        req = _GenRequest(np.asarray([0, 0], np.int64), 2, None, None,
+                          GenerationStream(self))
+        req.slot = slot
+        self._by_slot[slot] = req
+        try:
+            with torch.inference_mode():
+                for _ in range(4):
+                    if slot not in self._by_slot:
+                        break
+                    self._ragged_step()
+        finally:
+            if slot in self._by_slot:
+                self._retire(slot, "length")
+            elif self.cache.is_active(slot):
+                self.cache.release(slot)
+        if req.stream.error is not None:
+            raise req.stream.error
+        self.metrics = GenerationMetrics()

@@ -1,0 +1,142 @@
+"""paddle_tpu_torch's CUDA kernels and engine on the card.
+
+Every test here needs an NVIDIA GPU and skips without one (the check
+runs inside a fixture, never at import). The file imports no JAX, so it
+runs on a machine without it; there the repository's conftest (which
+imports JAX) is left out:
+
+    python -m pytest tests/test_torch_gpu.py --noconftest -q
+
+Kernels are held against their plain PyTorch versions on the same CUDA
+inputs (float32 atol/rtol 2e-5, bfloat16 2e-2: summation order and the
+online softmax); the engine on CUDA against the same engine on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch import kernels as K
+from paddle_tpu_torch.generation import GenerationEngine
+from paddle_tpu_torch.inference import Config, create_predictor
+from paddle_tpu_torch.models.gpt import GPTConfig
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+       torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C", [(128, 2048), (300, 2048), (37, 96),
+                                 (5, 8192), (1, 1)])
+def test_layer_norm_kernel_matches_plain(cuda, R, C, dtype):
+    g = torch.Generator(device=cuda).manual_seed(R * 7 + C)
+    x = (2 * torch.randn(R, C, device=cuda, generator=g) + 0.5).to(dtype)
+    gamma = (1 + 0.1 * torch.randn(C, device=cuda, generator=g)).to(dtype)
+    beta = (0.1 * torch.randn(C, device=cuda, generator=g)).to(dtype)
+    before = K.layer_norm.launches
+    y = K.layer_norm(x, gamma, beta)
+    torch.cuda.synchronize()
+    assert K.layer_norm.launches == before + 1
+    torch.testing.assert_close(y, K.layer_norm_plain(x, gamma, beta),
+                               **TOL[dtype])
+
+
+# (B, C, H, KVH, D, P, ps, maxp, starts, num_valid)
+RAGGED = {
+    "mixed": (4, 5, 4, 4, 8, 24, 4, 5, [0, 6, 9, 0], [5, 1, 3, 0]),
+    "gqa": (4, 5, 8, 4, 64, 24, 4, 5, [0, 6, 9, 0], [5, 1, 3, 0]),
+    "slice": (8, 16, 16, 16, 128, 512, 16, 64,
+              [0, 100, 767, 400, 16, 250, 700, 0],
+              [16, 1, 1, 16, 16, 1, 1, 0]),
+    "wide": (2, 64, 4, 1, 256, 48, 4, 20, [3, 0], [64, 17]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(RAGGED))
+def test_ragged_kernel_matches_plain(cuda, case, dtype):
+    B, C, H, KVH, D, P, ps, maxp, starts, nvalid = RAGGED[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    rng = np.random.RandomState(1)
+    kp = torch.randn(KVH, P, ps, D, device=cuda, generator=g).to(dtype)
+    vp = torch.randn(KVH, P, ps, D, device=cuda, generator=g).to(dtype)
+    q = torch.randn(B, C, H, D, device=cuda, generator=g).to(dtype)
+    tables = np.zeros((B, maxp), np.int32)
+    free = list(rng.permutation(np.arange(1, P)))
+    for b in range(B):
+        n = -(-(starts[b] + nvalid[b]) // ps) if nvalid[b] else 0
+        tables[b, :n] = [free.pop() for _ in range(n)]
+    ints = [torch.as_tensor(np.asarray(a, np.int32), device=cuda)
+            for a in (starts, nvalid, tables)]
+    before = K.ragged_paged_attention.launches
+    out = K.ragged_paged_attention(q, kp, vp, *ints)
+    torch.cuda.synchronize()
+    assert K.ragged_paged_attention.launches == before + 1
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(
+        out, K.ragged_paged_attention_plain(q, kp, vp, *ints), **TOL[dtype])
+    for b, n in enumerate(nvalid):
+        assert (out[b, n:] == 0).all()
+
+
+def test_ragged_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 65, 2, 8, device=cuda)          # C > 64
+    pages = torch.zeros(2, 4, 4, 8, device=cuda)
+    ints = [torch.zeros(1, dtype=torch.int32, device=cuda)] * 2
+    tb = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="C <= 64"):
+        K.ragged_paged_attention(q, pages, pages, *ints, tb)
+    with pytest.raises(TypeError):
+        K.ragged_paged_attention(q[:, :4].half(), pages.half(), pages.half(),
+                                 *ints, tb)
+
+
+def _tiny_params(cfg, seed=0):
+    rng = np.random.RandomState(seed)
+    from paddle_tpu_torch.generation.model import GPTLM
+
+    params = {}
+    for name, p in GPTLM(cfg, device="meta").jax_params().items():
+        params[name] = (0.2 * rng.randn(*p.shape)).astype(np.float32)
+    return params
+
+
+def test_engine_on_cuda_matches_cpu(cuda):
+    cfg = GPTConfig(vocab_size=97, hidden_size=64, num_layers=2, num_heads=4,
+                    ffn_size=128, max_position=64, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    params = _tiny_params(cfg)
+    preds = {dev: create_predictor(Config().set_params(cfg, params), dev)
+             for dev in ("cpu", "cuda")}
+    rng = np.random.RandomState(2)
+    tokens = rng.randint(0, cfg.vocab_size, (2, 40))
+    np.testing.assert_allclose(preds["cuda"].run([tokens])[0],
+                               preds["cpu"].run([tokens])[0],
+                               rtol=1e-4, atol=1e-4)
+    prompts = [rng.randint(1, cfg.vocab_size, n) for n in (9, 23, 4, 14)]
+    out = {}
+    for dev, pred in preds.items():
+        with GenerationEngine(pred, cfg, page_size=4, num_pages=24,
+                              max_decode_batch=3, chunk_tokens=6) as eng:
+            K.reset_launch_counts()
+            streams = [eng.submit(p, max_new_tokens=10) for p in prompts]
+            out[dev] = [s.result(timeout=300) for s in streams]
+            st = eng.stats()
+        counts = K.launch_counts()
+        steps = st["ragged_steps_total"]
+        want = (0, 0) if dev == "cpu" else (
+            (2 * cfg.num_layers + 1) * steps, cfg.num_layers * steps)
+        assert (counts["layer_norm"],
+                counts["ragged_paged_attention"]) == want
+    assert out["cuda"] == out["cpu"]

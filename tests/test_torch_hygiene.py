@@ -1,0 +1,112 @@
+"""Import hygiene of the PyTorch port.
+
+``paddle_tpu_torch`` and ``chip_smoke.py`` must never import ``jax``,
+``jaxlib`` or any part of ``paddle_tpu`` (importing any ``paddle_tpu.*``
+runs ``paddle_tpu/__init__.py``, which imports JAX). Names are matched
+exactly: ``paddle_tpu_torch`` itself starts with ``paddle_tpu``.
+"""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "paddle_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+{imports}
+bad = sorted(n for n in sys.modules
+             if n in {forbidden!r} or n.startswith(tuple(f + "." for f in {forbidden!r})))
+print(json.dumps({{"bad": bad, "port": sorted(n for n in sys.modules
+                                              if n.startswith("paddle_tpu_torch"))}}))
+"""
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env["CUDA_VISIBLE_DEVICES"] = ""      # never reach a card from a test
+    return env
+
+
+def _probe(imports: str):
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(imports=imports,
+                                             forbidden=FORBIDDEN)],
+        cwd=REPO, env=_clean_env(), capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _imported_names(path: Path):
+    """Every module an ``import`` statement of the file names, at any
+    depth (lazy imports inside functions included)."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_port_package_imports_no_jax_or_paddle_tpu():
+    res = _probe(
+        "import paddle_tpu_torch\n"
+        "for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "
+        "'paddle_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)")
+    assert res["bad"] == []
+    for mod in ("paddle_tpu_torch.generation.engine",
+                "paddle_tpu_torch.inference.predictor",
+                "paddle_tpu_torch.kernels.ragged_paged_attention",
+                "paddle_tpu_torch.kernels._build"):
+        assert mod in res["port"]
+
+
+def test_chip_smoke_imports_no_jax_or_paddle_tpu():
+    names = sorted(set(_imported_names(REPO / "chip_smoke.py")))
+    assert any(n.startswith("paddle_tpu_torch") for n in names)
+    res = _probe("import chip_smoke\n" + "\n".join(
+        f"importlib.import_module({n!r})" for n in names))
+    assert res["bad"] == []
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"])
+def test_no_import_statement_names_jax_or_paddle_tpu(path):
+    bad = [n for n in _imported_names(REPO / path) if _forbidden(n)]
+    assert bad == [], f"{path} imports {bad}"
+
+
+def _run_smoke(cwd: Path):
+    return subprocess.run([sys.executable, str(cwd / "chip_smoke.py")],
+                          cwd=cwd, env=_clean_env(), capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = _run_smoke(REPO)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    assert "torch.cuda.is_available() is false" in out.stderr
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
