@@ -2,26 +2,39 @@
 """Drive the PyTorch port (``paddle_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, one card
-    python3 chip_smoke.py --profile  # + device time by kernel in phase 3
+    python3 chip_smoke.py --profile  # + device time by kernel group in
+                                     #   phases 3 and 4
 
 Phases, in order; any failure exits non-zero without the result line:
 
 0. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; TF32 is switched off for matmuls and cuDNN so the
-   float32 slice is comparable to the CPU parity tests.
+   float32 slices are comparable to the CPU parity tests.
 1. build: every ``paddle_tpu_torch/kernels/csrc/*.cu`` with nvcc.
 2. kernels against their plain PyTorch versions, float32 and bfloat16,
-   at the serving slice's shapes and on edge batches; times (CUDA
-   events, median of 21 runs) of the kernel, the plain version and one
-   PyTorch library call computing the same function, beside the least
-   time the card could take (``bound_ms``).
-3. the slice: ``GPTConfig.gpt3_1p3b()`` at full width (seeded random
+   at the shapes the serving and training paths give them and on edge
+   cases; times (CUDA events, median of 21 runs) of the kernel, the
+   plain version and one PyTorch library call computing the same
+   function, beside the least time the card could take (``bound_ms``).
+3. serving: ``GPTConfig.gpt3_1p3b()`` at full width (seeded random
    weights made on the card) served by the ragged ``GenerationEngine``
    at its default geometry; 16 requests from 4 client threads. Every
    stream must finish with its 32 tokens and no error; the launch
    counters must show 24 ragged attention and 49 layer-norm launches per
    engine step; two requests are checked token by token against the
    ``Predictor`` (teacher forced).
+4. training: ``build_gpt_lm(GPTConfig.gpt3_1p3b(), 1024,
+   AdamOptimizer(3e-4))`` (24 layers, hidden 2048, dropout 0.1) run by
+   the port's ``Executor`` on the card: the startup program, then 10
+   steps on one ``synthetic_lm_batch`` of 2 x 1024 tokens. Losses must
+   be finite and the last below the first; every step must launch
+   K1 = K3 = 49, K4 = K5 = 1 and K10 = 294 times. Prints the mean step
+   ms, training tokens/s and peak memory.
+5. card against CPU: a 2-layer GPT at full width (hidden 2048, vocab
+   32000, seq 128, batch 2, dropout 0) from the same numpy-seeded
+   parameters (``io.load_scope_arrays``), 3 fused-Adam steps on CUDA
+   (kernels) and on the CPU (plain versions): losses within rtol 1e-3,
+   parameters within 2 * lr per step taken.
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -30,6 +43,7 @@ Then one JSON line of per-kernel numbers, the card line, and last
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -39,6 +53,9 @@ import threading
 import time
 
 LANES, CHUNK, PAGE = 8, 16, 16     # the engine's defaults (generation_*)
+TRAIN_BATCH, TRAIN_SEQ = 2, 1024   # phase 4's batch of gpt3_1p3b
+TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
+VOCAB, HIDDEN = 32000, 2048        # gpt3_1p3b's widths
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}   # (atol, rtol)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # fp32 CUDA cores / bf16 MMA
@@ -101,8 +118,8 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(torch, got, want, dtype, what):
-    atol, rtol = TOL[dtype]
+def compare(torch, got, want, dtype, what, atol=None):
+    atol, rtol = (TOL[dtype][0] if atol is None else atol), TOL[dtype][1]
     require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     err = (got.float() - want.float()).abs()
     bad = err > atol + rtol * want.float().abs()
@@ -129,9 +146,11 @@ def check_layer_norm(torch, K, dtype_name, gen):
 
     dt = getattr(torch, dtype_name)
     results = {}
-    # the slice's [lanes * chunk, hidden], then R not a multiple of any
-    # block, a narrow row, and a row past the TPU kernel's MAX_C
-    for R, C in ((LANES * CHUNK, 2048), (300, 2048), (37, 96), (5, 8192)):
+    # the serving slice's [lanes * chunk, hidden], the training slice's
+    # [batch * seq, hidden], then R not a multiple of any block, a narrow
+    # row, and a row past the TPU kernel's MAX_C
+    for R, C in ((LANES * CHUNK, 2048), (TRAIN_ROWS, 2048), (300, 2048),
+                 (37, 96), (5, 8192)):
         x = torch.randn(R, C, device=DEVICE, generator=gen).to(dt)
         g = (1 + 0.1 * torch.randn(C, device=DEVICE, generator=gen)).to(dt)
         b = (0.1 * torch.randn(C, device=DEVICE, generator=gen)).to(dt)
@@ -139,21 +158,26 @@ def check_layer_norm(torch, K, dtype_name, gen):
         err = compare(torch, K.layer_norm(x, g, b, 1e-5),
                       K.layer_norm_plain(x, g, b, 1e-5), dtype_name, what)
         row = {"shape": [R, C], "max_abs_err": err}
-        if (R, C) == (LANES * CHUNK, 2048):
+        if R in (LANES * CHUNK, TRAIN_ROWS) and C == 2048:
+            # the training path runs layer_norm_fwd (the stats written
+            # too); the serving path layer_norm (y alone)
+            fwd = K.layer_norm_fwd if R == TRAIN_ROWS else K.layer_norm
             item = x.element_size()
             nbytes = (2 * R * C + 2 * C) * item
+            if R == TRAIN_ROWS:
+                nbytes += 2 * R * 4
             ops = 8 * R * C      # sum, center, square, sum, scale, shift
             bms, by = bound_ms(nbytes, ops, dtype_name)
             row.update(
-                ms=device_ms(torch, lambda: K.layer_norm(x, g, b, 1e-5)),
+                ms=device_ms(torch, lambda: fwd(x, g, b, 1e-5)),
                 plain_ms=device_ms(
                     torch, lambda: K.layer_norm_plain(x, g, b, 1e-5)),
                 library_ms=device_ms(
                     torch, lambda: F.layer_norm(x, (C,), g, b, 1e-5)),
                 bound_ms=bms, bound_by=by)
-            results["main"] = row
+            results["train" if R == TRAIN_ROWS else "main"] = row
         log(f"  {what}: {fmt(row, dtype_name)}")
-    return results["main"]
+    return dict(results["main"], train_shape=results["train"])
 
 
 # -- phase 2: ragged paged attention -------------------------------------------
@@ -249,6 +273,164 @@ def check_ragged(torch, np, K, dtype_name, gen, seed):
     return results["main"]
 
 
+# -- phase 2: the training kernels ----------------------------------------------
+
+
+def check_layer_norm_bwd(torch, K, dtype_name, gen):
+    """K3 against its plain version on the stats of K1's plain version."""
+    dt = getattr(torch, dtype_name)
+    results = {}
+    for R, C in ((TRAIN_ROWS, HIDDEN), (300, 2048), (37, 96), (5, 8192)):
+        x = (2 * torch.randn(R, C, device=DEVICE, generator=gen) + 0.5).to(dt)
+        g = (1 + 0.1 * torch.randn(C, device=DEVICE, generator=gen)).to(dt)
+        b = (0.1 * torch.randn(C, device=DEVICE, generator=gen)).to(dt)
+        dy = torch.randn(R, C, device=DEVICE, generator=gen).to(dt)
+        _, mean, rstd = K.layer_norm_fwd_plain(x, g, b, 1e-5)
+        got = K.layer_norm_bwd(x, g, dy, mean, rstd)
+        want = K.layer_norm_bwd_plain(x, g, dy, mean, rstd)
+        what = f"layer_norm_bwd {dtype_name} [{R}x{C}]"
+        # dgamma/dbeta sum R rows in another order than torch: a float32
+        # sum's error grows with its length, so they get 2e-5 * sqrt(R)
+        atols = (None, 2e-5 * R ** 0.5, 2e-5 * R ** 0.5)
+        err = max(compare(torch, a, w, dtype_name, f"{what} {n}", atol=t)
+                  for n, a, w, t in zip(("dx", "dgamma", "dbeta"), got, want,
+                                        atols))
+        row = {"shape": [R, C], "max_abs_err": err}
+        if (R, C) == (TRAIN_ROWS, HIDDEN):
+            item = x.element_size()
+            nbytes = 3 * R * C * item + 3 * C * item + 2 * R * 4
+            ops = 14 * R * C
+            bms, by = bound_ms(nbytes, ops, dtype_name)
+            # the library's own stats, in the dtype its backward takes
+            _, m2, r2 = torch.native_layer_norm(x, [C], g, b, 1e-5)
+            row.update(
+                ms=device_ms(torch, lambda: K.layer_norm_bwd(
+                    x, g, dy, mean, rstd)),
+                plain_ms=device_ms(torch, lambda: K.layer_norm_bwd_plain(
+                    x, g, dy, mean, rstd)),
+                library_ms=device_ms(
+                    torch, lambda: torch.ops.aten.native_layer_norm_backward(
+                        dy, x, [C], m2, r2, g, b, [True, True, True])),
+                bound_ms=bms, bound_by=by)
+            results["main"] = row
+        log(f"  {what}: {fmt(row, dtype_name)}")
+    return results["main"]
+
+
+def check_softmax_xent(torch, K, dtype_name, gen):
+    """K4 and K5 against their plain versions: the training slice's
+    [batch * seq, vocab], then rows not a multiple of any block over an
+    odd C (the scalar path), and logits of magnitude 1e4; labels at 0 and
+    C - 1, and ignore_index rows in the edge cases."""
+    import torch.nn.functional as F
+
+    dt = getattr(torch, dtype_name)
+    fwd, bwd = {}, {}
+    for name, R, C, scale in (("main", TRAIN_ROWS, VOCAB, 1.0),
+                              ("odd", 37, 333, 3.0), ("1e4", 64, 4001, 1e4)):
+        logits = (scale * torch.randn(R, C, device=DEVICE,
+                                      generator=gen)).to(dt)
+        labels = torch.randint(0, C, (R,), device=DEVICE, generator=gen)
+        labels[0], labels[-1] = 0, C - 1
+        if name != "main":
+            labels[1::7] = -100
+        dloss = torch.rand(R, device=DEVICE, generator=gen) + 0.5
+        what = f"softmax_xent {dtype_name} {name} [{R}x{C}]"
+        loss, lse = K.softmax_xent_fwd(logits, labels)
+        ploss, plse = K.softmax_xent_fwd_plain(logits, labels)
+        errf = max(compare(torch, loss, ploss, "float32", f"{what} loss"),
+                   compare(torch, lse, plse, "float32", f"{what} lse"))
+        if name != "main":
+            require(bool((loss[1::7] == 0).all()),
+                    f"{what}: ignore_index rows have a non-zero loss")
+        ds = K.softmax_xent_bwd(logits, labels, lse, dloss)
+        errb = compare(torch, ds, K.softmax_xent_bwd_plain(
+            logits, labels, lse, dloss), dtype_name, f"{what} dlogits")
+        rowf, rowb = {"max_abs_err": errf}, {"max_abs_err": errb}
+        if name == "main":
+            item = logits.element_size()
+            bf = bound_ms(R * C * item + R * 8 + 2 * R * 4, 4 * R * C,
+                          "float32")
+            bb = bound_ms(2 * R * C * item + R * 16, 5 * R * C, "float32")
+            lg = logits.detach().requires_grad_()
+            ce = F.cross_entropy(lg, labels, reduction="none")
+            dl = dloss.to(ce.dtype)
+            rowf.update(
+                ms=device_ms(torch, lambda: K.softmax_xent_fwd(
+                    logits, labels)),
+                plain_ms=device_ms(torch, lambda: K.softmax_xent_fwd_plain(
+                    logits, labels)),
+                library_ms=device_ms(torch, lambda: F.cross_entropy(
+                    logits, labels, reduction="none")),
+                bound_ms=bf[0], bound_by=bf[1])
+            rowb.update(
+                ms=device_ms(torch, lambda: K.softmax_xent_bwd(
+                    logits, labels, lse, dloss)),
+                plain_ms=device_ms(torch, lambda: K.softmax_xent_bwd_plain(
+                    logits, labels, lse, dloss)),
+                library_ms=device_ms(torch, lambda: torch.autograd.grad(
+                    ce, lg, dl, retain_graph=True)),
+                bound_ms=bb[0], bound_by=bb[1])
+            fwd["main"], bwd["main"] = rowf, rowb
+        log(f"  {what} fwd: {fmt(rowf, 'float32')}")
+        log(f"  {what} bwd: {fmt(rowb, dtype_name)}")
+    return fwd["main"], bwd["main"]
+
+
+def check_fused_adam(torch, K, dtype_name, gen):
+    """K10 against its plain version (both in place, on clones): an
+    embedding-sized [32000, 2048] parameter, a [2048] bias, an odd size
+    with a clip scale and AdamW decay, and a view 4 bytes off 16-byte
+    alignment (the scalar path)."""
+    dt = getattr(torch, dtype_name)
+    f32 = lambda v: torch.tensor([v], device=DEVICE)  # noqa: E731
+    lr, b1p, b2p = f32(3e-4), f32(0.9 ** 3), f32(0.999 ** 3)
+    results = {}
+    for name, n, clip, coeff in (("main", VOCAB * HIDDEN, None, 0.0),
+                                 ("bias", HIDDEN, None, 0.0),
+                                 ("clip_adamw", 4097, 0.37, 0.01),
+                                 ("unaligned", 8191, 2.5, 0.01)):
+        off = 1 if name == "unaligned" else 0
+
+        def make(std):
+            t = std * torch.randn(n + off, device=DEVICE, generator=gen)
+            return t.to(dt)[off:]
+
+        p, g, m = make(1.0), make(0.1), make(0.01)
+        v = make(1e-2).square()
+        cs = None if clip is None else f32(clip)
+        kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, clip_scale=cs,
+                  weight_decay=coeff)
+        got = [t.clone() for t in (p, g, m, v)]
+        want = [t.clone() for t in (p, g, m, v)]
+        if off:   # keep the clones 4 bytes off alignment too
+            got = [torch.cat([t[:1], t])[1:] for t in got]
+        K.fused_adam_update(*got, lr, b1p, b2p, **kw)
+        K.fused_adam_update_plain(*want, lr, b1p, b2p, **kw)
+        what = f"fused_adam {dtype_name} {name} [{n}]"
+        err = max(compare(torch, a, w, dtype_name, f"{what} {s}") for s, a, w
+                  in zip(("p", "m1", "m2"), (got[0], got[2], got[3]),
+                         (want[0], want[2], want[3])))
+        row = {"max_abs_err": err}
+        if name == "main":
+            item = p.element_size()
+            bms, by = bound_ms(7 * n * item, 16 * n, "float32")
+            step = torch.zeros((), device=DEVICE)
+            row.update(
+                ms=device_ms(torch, lambda: K.fused_adam_update(
+                    *got, lr, b1p, b2p, **kw)),
+                plain_ms=device_ms(torch, lambda: K.fused_adam_update_plain(
+                    *want, lr, b1p, b2p, **kw)),
+                library_ms=device_ms(torch, lambda: torch._fused_adam_(
+                    [want[0]], [want[1]], [want[2]], [want[3]], [], [step],
+                    lr=3e-4, beta1=0.9, beta2=0.999, weight_decay=0.0,
+                    eps=1e-8, amsgrad=False, maximize=False)),
+                bound_ms=bms, bound_by=by)
+            results["main"] = row
+        log(f"  {what}: {fmt(row, dtype_name)}")
+    return results["main"]
+
+
 # -- phase 3: the slice ------------------------------------------------------------
 
 
@@ -269,6 +451,11 @@ def make_params(torch, shapes, std, gen):
 
 KERNEL_GROUPS = (("ragged_paged_attention", "ragged_paged_attention (K2)"),
                  ("layer_norm_fwd", "layer_norm (K1)"),
+                 ("layer_norm_bwd", "layer_norm_bwd (K3)"),
+                 ("column_sum", "layer_norm_bwd (K3)"),
+                 ("softmax_xent_fwd", "softmax_xent_fwd (K4)"),
+                 ("softmax_xent_bwd", "softmax_xent_bwd (K5)"),
+                 ("adam_kernel", "fused_adam (K10)"),
                  ("gemm", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"),
                  ("index", "index/scatter/gather"),
                  ("scatter", "index/scatter/gather"),
@@ -311,6 +498,30 @@ def kernel_breakdown(trace_path, wall_s):
             "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3)}
 
 
+def trace_breakdown(prof, out_dir, name, wall):
+    """Export the profiler's chrome trace, parse it into the breakdown
+    and delete it (a whole phase's trace is tens of MB; the breakdown
+    goes to chip_smoke.json)."""
+    path = os.path.join(out_dir, f"{name}_trace.json")
+    prof.export_chrome_trace(path)
+    try:
+        out = kernel_breakdown(path, wall)
+    finally:
+        os.remove(path)
+    log(f"  profile ({name} times above include the profiler): "
+        + json.dumps(out))
+    return out
+
+
+def start_profile(torch):
+    from torch.profiler import ProfilerActivity
+
+    prof = torch.profiler.profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.__enter__()
+    return prof
+
+
 def serve(torch, np, seed, card, out_dir, profile=False):
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.generation import GenerationEngine
@@ -350,12 +561,7 @@ def serve(torch, np, seed, card, out_dir, profile=False):
         except Exception as e:  # noqa: BLE001 — recorded, fails the phase below
             errors.append(repr(e))
 
-    prof = None
-    if profile:
-        from torch.profiler import ProfilerActivity
-        prof = torch.profiler.profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        prof.__enter__()
+    prof = start_profile(torch) if profile else None
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t_serve = time.perf_counter()
@@ -399,16 +605,7 @@ def serve(torch, np, seed, card, out_dir, profile=False):
             "prompt_tokens": int(lengths.sum()), "generated_tokens": gen_tokens,
             "evicted": st["evicted_total"], "card": card}
     if prof is not None:
-        # the trace of a whole serving run is tens of MB: parse it and
-        # keep only the breakdown (in chip_smoke.json)
-        path = os.path.join(out_dir, "serve_trace.json")
-        prof.export_chrome_trace(path)
-        try:
-            perf["profile"] = kernel_breakdown(path, wall)
-        finally:
-            os.remove(path)
-        log("  profile (serving times above include the profiler): "
-            + json.dumps(perf["profile"]))
+        perf["profile"] = trace_breakdown(prof, out_dir, "serve", wall)
     log(f"  served 16 requests ({int(lengths.sum())} prompt tokens, "
         f"{gen_tokens} generated) in {wall:.3f} s: "
         f"{perf['tokens_per_s']:.2f} tokens/s, {steps} steps, "
@@ -438,6 +635,166 @@ def serve(torch, np, seed, card, out_dir, profile=False):
     return counts, perf
 
 
+# -- phase 4: training -------------------------------------------------------------
+
+
+def train(torch, np, seed, card, out_dir, profile=False, steps=10):
+    """gpt3_1p3b trained by the port's Executor through the K1, K3, K4,
+    K5 and K10 kernels; exact launch counts every step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models.gpt import (GPTConfig, build_gpt_lm,
+                                             synthetic_lm_batch)
+
+    cfg = GPTConfig.gpt3_1p3b()
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    fluid.set_flags({"optimizer_fuse": "auto"})   # on: a CUDA device exists
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_gpt_lm(
+            cfg, TRAIN_SEQ, fluid.optimizer.AdamOptimizer(3e-4))
+    main.random_seed = startup.random_seed = seed
+    types = [op.type for op in main.global_block().ops]
+    require(types.count("fused_adam") == 12 * L + 6 and "adam" not in types,
+            f"the program holds {types.count('fused_adam')} fused_adam ops")
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    build_s = time.perf_counter() - t0
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    log(f"  program built in {build_s:.1f} s ({len(types)} ops, {n_params} "
+        f"parameters), startup run in {time.perf_counter() - t0:.1f} s")
+    batch = synthetic_lm_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                               TRAIN_SEQ, cfg.vocab_size)
+    want = {name: 0 for name in K.KERNELS}
+    want.update(layer_norm=2 * L + 1, layer_norm_bwd=2 * L + 1,
+                softmax_xent_fwd=1, softmax_xent_bwd=1,
+                fused_adam_update=12 * L + 6)
+    totals = {name: 0 for name in K.KERNELS}
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    # host-side events a slow step may owe its time to: full (gen 2)
+    # Python GC passes and cudaMalloc calls of the caching allocator
+    def host_events():
+        return (gc.get_stats()[2]["collections"],
+                torch.cuda.memory_stats().get("num_device_alloc", 0))
+
+    for s in range(steps):
+        K.reset_launch_counts()
+        ev0 = host_events()
+        t = time.perf_counter()
+        (loss,) = exe.run(main, feed=batch, fetch_list=[fetches["loss"]],
+                          scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        ev = [b - a for a, b in zip(ev0, host_events())]
+        counts = K.launch_counts()
+        require(counts == want, f"step {s}: launches {counts}, want {want}")
+        for name, n in counts.items():
+            totals[name] += n
+        losses.append(float(loss))
+        log(f"  step {s}: loss {losses[-1]:.6f} in {step_ms[-1]:.3f} ms "
+            f"(gen-2 GC passes {ev[0]}, cudaMalloc calls {ev[1]})")
+    peak = torch.cuda.max_memory_allocated()
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    mean_ms = statistics.mean(step_ms[1:])
+    perf = {"losses": losses, "step_ms": step_ms, "first_step_ms": step_ms[0],
+            "step_ms_mean": mean_ms,
+            "tokens_per_s": TRAIN_ROWS / (mean_ms / 1e3),
+            "max_memory_allocated_gb": peak / 1e9, "parameters": n_params,
+            "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": steps,
+            "launches_per_step": want, "card": card}
+    log(f"  trained {steps} steps of {TRAIN_ROWS} tokens: mean step "
+        f"{mean_ms:.3f} ms over steps 1..{steps - 1} (first "
+        f"{step_ms[0]:.3f} ms), {perf['tokens_per_s']:.2f} tokens/s, "
+        f"max_memory_allocated {peak / 1e9:.2f} GB [{card}]")
+    if profile:
+        prof = start_profile(torch)
+        t = time.perf_counter()
+        for _ in range(2):
+            exe.run(main, feed=batch, fetch_list=[fetches["loss"]],
+                    scope=scope)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        prof.__exit__(None, None, None)
+        perf["profile"] = trace_breakdown(prof, out_dir, "train", wall)
+    return totals, perf
+
+
+# -- phase 5: card against CPU -------------------------------------------------------
+
+
+def card_vs_cpu(torch, np, seed, steps=3, lr=3e-4):
+    """A 2-layer GPT at full width trained from the same numpy-seeded
+    parameters on the card (kernels) and on the CPU (plain versions)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.core.framework import Parameter
+    from paddle_tpu_torch.io import load_scope_arrays
+    from paddle_tpu_torch.models.gpt import (GPTConfig, build_gpt_lm,
+                                             synthetic_lm_batch)
+
+    cfg = GPTConfig(vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=2,
+                    num_heads=16, ffn_size=8192, max_position=1024,
+                    hidden_dropout=0.0, attention_dropout=0.0)
+    seq = 128
+    fluid.set_flags({"optimizer_fuse": "on"})
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_gpt_lm(
+            cfg, seq, fluid.optimizer.AdamOptimizer(lr))
+    cpu, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    cpu.run(startup, scope=cpu_scope)      # moments, beta pows, lr
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for v in main.list_vars():
+        if not v.persistable or v.is_data:
+            continue
+        if not isinstance(v, Parameter):
+            arrays[v.name] = cpu_scope.get_numpy(v.name)
+        elif v.name.endswith(".scale"):
+            arrays[v.name] = np.ones(v.shape, np.float32)
+        elif v.name.endswith((".bias", ".b")):
+            arrays[v.name] = np.zeros(v.shape, np.float32)
+        else:
+            arrays[v.name] = cfg.initializer_range * rng.standard_normal(
+                v.shape, dtype=np.float32)
+    gpu, gpu_scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    load_scope_arrays(cpu_scope, arrays, main, "cpu")
+    load_scope_arrays(gpu_scope, arrays, main, DEVICE)
+    batch = synthetic_lm_batch(np.random.RandomState(seed), 2, seq, VOCAB)
+    losses = {}
+    for name, exe, scope in (("cuda", gpu, gpu_scope), ("cpu", cpu, cpu_scope)):
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        losses[name] = [float(exe.run(main, feed=batch,
+                                      fetch_list=[fetches["loss"]],
+                                      scope=scope)[0]) for _ in range(steps)]
+        log(f"  {name}: losses {losses[name]} in "
+            f"{time.perf_counter() - t:.1f} s; launches {K.launch_counts()}")
+        if name == "cuda":
+            require(K.launch_counts()["fused_adam_update"] == 30 * steps,
+                    "the card's run did not go through the kernels")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    require(rel <= 1e-3, f"card vs CPU losses differ by {rel:.3e} > 1e-3")
+    limit = 2 * lr * steps
+    worst, worst_name = 0.0, ""
+    for p in main.all_parameters():
+        d = float(np.abs(gpu_scope.get_numpy(p.name)
+                         - cpu_scope.get_numpy(p.name)).max())
+        if d > worst:
+            worst, worst_name = d, p.name
+    require(worst <= limit, f"card vs CPU parameter {worst_name} differs by "
+            f"{worst:.3e} > 2 * lr * steps = {limit:.1e}")
+    log(f"  losses agree within {rel:.3e} (rtol 1e-3); parameters within "
+        f"{worst:.3e} ({worst_name}; limit 2 * lr * steps = {limit:.1e})")
+    return {"losses": losses, "loss_rel_err": rel, "param_max_abs_err": worst,
+            "param_limit": limit}
+
+
 # -- main ---------------------------------------------------------------------------
 
 
@@ -447,8 +804,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chip_smoke_out",
                     help="directory for the build log and chip_smoke.json")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serving phase with torch.profiler and "
-                    "print device time by kernel group and the idle share")
+                    help="trace the serving run and two training steps "
+                    "with torch.profiler and print device time by kernel "
+                    "group and the idle share")
+    ap.add_argument("--phases", default="2345",
+                    help="phases to run after the build (a debugging aid: "
+                    "only a run of all of them prints the result line)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -477,44 +838,84 @@ def main(argv=None) -> int:
     log(f"  built {os.path.basename(str(info['path']))} in "
         f"{info['seconds']:.2f} s (log in {args.out}/kernel_build.log)")
 
-    log("phase 2: kernels vs plain")
-    gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
-    ln, rpa = {}, {}
-    for dt in ("float32", "bfloat16"):
-        ln[dt] = check_layer_norm(torch, K, dt, gen)
-        rpa[dt] = check_ragged(torch, np, K, dt, gen, args.seed)
+    record = {"card": card}
+    rows = {}
+    if "2" in args.phases:
+        log("phase 2: kernels vs plain")
+        gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
+        checks = (("layer_norm", check_layer_norm),
+                  ("ragged_paged_attention",
+                   lambda torch_, K_, dt_, gen_: check_ragged(
+                       torch_, np, K_, dt_, gen_, args.seed)),
+                  ("layer_norm_bwd", check_layer_norm_bwd),
+                  ("softmax_xent", check_softmax_xent),
+                  ("fused_adam_update", check_fused_adam))
+        for dt in ("float32", "bfloat16"):
+            for name, check in checks:
+                out = check(torch, K, dt, gen)
+                if name == "softmax_xent":
+                    rows.setdefault("softmax_xent_fwd", {})[dt] = out[0]
+                    rows.setdefault("softmax_xent_bwd", {})[dt] = out[1]
+                else:
+                    rows.setdefault(name, {})[dt] = out
+        record["kernels"] = rows
+    # launches of each kernel on the main paths, read just after each
+    paths = {}
+    if "3" in args.phases:
+        log("phase 3: gpt3_1p3b served by the ragged engine")
+        paths["serve"], record["serve"] = serve(
+            torch, np, args.seed, card, args.out, profile=args.profile)
+        torch.cuda.empty_cache()
+    if "4" in args.phases:
+        log("phase 4: gpt3_1p3b trained by the Executor")
+        paths["train"], record["train"] = train(
+            torch, np, args.seed, card, args.out, profile=args.profile)
+        torch.cuda.empty_cache()
+    if "5" in args.phases:
+        log("phase 5: a 2-layer gpt3_1p3b-width GPT, card against CPU")
+        record["card_vs_cpu"] = card_vs_cpu(torch, np, args.seed)
+    launches = {name: {p: c[name] for p, c in paths.items()}
+                for name in K.KERNELS}
+    record["launches"] = launches
+    with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1)
 
-    log("phase 3: gpt3_1p3b served by the ragged engine")
-    counts, perf = serve(torch, np, args.seed, card, args.out,
-                         profile=args.profile)
+    log("summary: kernels at the main paths' shapes (launches: phases 3 "
+        "and 4, which run in float32)")
+    for name, by_dt in rows.items():
+        for dt, row in by_dt.items():
+            log(f"  {name} {dt}: {fmt(row, dt)} launches={launches[name]} "
+                f"[{card}]")
+    if args.phases != "2345":
+        log(f"phases {args.phases} only: no result line")
+        return 0
 
-    log("summary: kernels at the slice's shapes (launches: phase 3, which "
-        "serves in float32)")
-    for name, rows in (("layer_norm", ln), ("ragged_paged_attention", rpa)):
-        for dt, row in rows.items():
-            log(f"  {name} {dt}: {fmt(row, dt)} launches="
-                f"{counts[name] if dt == 'float32' else 0} [{card}]")
-
-    def entry(name, src, replaces, row):
+    def entry(name, src, replaces):
+        row = rows[name]["float32"]
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": counts[name],
+                "replaces": replaces,
+                "launches": sum(launches[name].values()),
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
+    csrc = "paddle_tpu_torch/kernels/csrc/"
     kernels = [
-        entry("layer_norm", "paddle_tpu_torch/kernels/csrc/layer_norm.cu",
-              "paddle_tpu/kernels/layer_norm.py:117", ln["float32"]),
-        entry("ragged_paged_attention",
-              "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu",
-              "paddle_tpu/kernels/ragged_paged_attention.py:184",
-              rpa["float32"]),
+        entry("layer_norm", csrc + "layer_norm.cu",
+              "paddle_tpu/kernels/layer_norm.py:117"),
+        entry("ragged_paged_attention", csrc + "ragged_paged_attention.cu",
+              "paddle_tpu/kernels/ragged_paged_attention.py:184"),
+        entry("layer_norm_bwd", csrc + "layer_norm.cu",
+              "paddle_tpu/kernels/layer_norm.py:155"),
+        entry("softmax_xent_fwd", csrc + "softmax_xent.cu",
+              "paddle_tpu/kernels/softmax_xent.py:94"),
+        entry("softmax_xent_bwd", csrc + "softmax_xent.cu",
+              "paddle_tpu/kernels/softmax_xent.py:127"),
+        entry("fused_adam_update", csrc + "fused_optim.cu",
+              "paddle_tpu/kernels/fused_optim.py:134"),
     ]
-    record = {"card": card, "kernels": {"layer_norm": ln,
-                                        "ragged_paged_attention": rpa},
-              "launches": counts, "serve": perf}
-    with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump(record, f, indent=1)
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']} never launched on a main path")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {

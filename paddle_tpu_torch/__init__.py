@@ -6,20 +6,54 @@ tensors, an explicit ``device``, explicit ``torch.Generator``s). It
 never imports ``jax``, ``jaxlib`` or any part of ``paddle_tpu``: what
 it needs from there it keeps as its own copy.
 
-Ported so far (the serving slice): the ragged ``GenerationEngine``
-over a GPT ``Predictor``, with hand-written CUDA kernels for the
-ragged paged attention and the layer-norm forward.
+Ported so far:
 
-    from paddle_tpu_torch.inference import Config, create_predictor
-    from paddle_tpu_torch.generation import GenerationEngine
-    pred = create_predictor(Config(lm_model_dir))      # CUDA by default
-    eng = GenerationEngine(pred, pred.gpt_config)
-    eng.generate([1, 5, 9], max_new_tokens=32)
+* serving: the ragged ``GenerationEngine`` over a GPT ``Predictor``,
+  with hand-written CUDA kernels for the ragged paged attention and the
+  layer-norm forward;
 
-Entry points run on CUDA unless the caller passes ``device="cpu"``;
-with no GPU and no device given they raise instead of falling back.
+      from paddle_tpu_torch.inference import Config, create_predictor
+      from paddle_tpu_torch.generation import GenerationEngine
+      pred = create_predictor(Config(lm_model_dir))      # CUDA by default
+      eng = GenerationEngine(pred, pred.gpt_config)
+      eng.generate([1, 5, 9], max_new_tokens=32)
+
+* training: the Program IR, ``append_backward``, ``AdamOptimizer`` and
+  an eager ``Executor``, with CUDA kernels for the layer-norm backward,
+  softmax cross-entropy forward and backward, and the fused Adam update;
+
+      import paddle_tpu_torch as fluid
+      main, startup = fluid.Program(), fluid.Program()
+      with fluid.program_guard(main, startup):
+          x = fluid.layers.data("x", [8])
+          y = fluid.layers.data("y", [1], dtype="int64")
+          loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+              fluid.layers.fc(x, 3), y))
+          fluid.optimizer.Adam(1e-2).minimize(loss)
+      exe = fluid.Executor(fluid.CUDAPlace(0))    # or fluid.CPUPlace()
+      exe.run(startup)
+      exe.run(main, feed={...}, fetch_list=[loss])
+
+Entry points run on CUDA unless the caller names the CPU
+(``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of
+falling back.
 """
 
+from . import layers, nets, ops, optimizer  # ops: registers the lowerings
+from .core import framework
+from .core.backward import append_backward
+from .core.executor import Executor, Scope, global_scope, scope_guard
+from .core.framework import (Program, Variable, default_main_program,
+                             default_startup_program, program_guard,
+                             unique_name)
+from .core.places import CPUPlace, CUDAPlace
 from .device import resolve_device
+from .flags import get_flags, set_flags
+from .param_attr import ParamAttr
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "layers", "nets", "optimizer", "framework",
+           "append_backward", "Executor", "Scope", "global_scope",
+           "scope_guard", "Program", "Variable", "default_main_program",
+           "default_startup_program", "program_guard", "unique_name",
+           "CPUPlace", "CUDAPlace", "get_flags",
+           "set_flags", "ParamAttr"]

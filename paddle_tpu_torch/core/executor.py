@@ -1,0 +1,298 @@
+"""Scope and Executor: run a Program's global block op by op, eagerly.
+
+The port's counterpart of ``paddle_tpu/core/executor.py``: ``Scope``,
+``global_scope``, ``scope_guard`` and ``Executor(place).run(program,
+feed, fetch_list, scope)``. The reference lowers the whole block into
+one jitted JAX function (``_lower_block``, :164-205); the port runs the
+same ops in the same order over torch tensors on the executor's device,
+which is what PyTorch does best without a compiler. There is no jit,
+mesh, ``bind`` or program cache of executables here.
+
+What an eager run needs that a compiled one gets from XLA, worked out
+once per (program, version, feeds, fetches) in ``_Plan``:
+
+  * dead outputs: XLA drops outputs nothing reads. The plan's ``live``
+    set (read by an op, fetched, or persistable) lets a lowering skip an
+    output slot nobody reads (``LoweringContext.wants``): the Softmax of
+    softmax_with_cross_entropy, layer-norm Mean/Variance, XShape, Mask.
+  * lifetimes: a value leaves the run's environment after its last
+    reader, so activations and gradients do not pile up over a step.
+  * the tape: forward ops with an automatic grad op later in the block
+    run recorded (``registry.run_recorded``); everything else runs under
+    ``torch.no_grad()``. The tape must be empty when the run ends:
+    every record was consumed by its grad op before the optimizer ops
+    update parameters in place.
+
+Persistable outputs are written back to the scope. The error messages
+for a missing feed and for running main before startup are the
+reference's.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import framework
+from .framework import Block, Program, Variable
+from .places import CUDAPlace, Place
+from .registry import LoweringContext, get_op_def, run_recorded
+
+_TORCH_DTYPES = {
+    "float32": torch.float32, "float64": torch.float64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
+    "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a Program dtype spec."""
+    name = framework.convert_dtype(dtype)
+    try:
+        return _TORCH_DTYPES[name]
+    except KeyError:
+        raise ValueError(f"dtype {name!r} has no torch tensor mapping in "
+                         "paddle_tpu_torch") from None
+
+
+def to_numpy(v) -> np.ndarray:
+    """Host numpy copy of a tensor (bfloat16 widened to float32)."""
+    t = v.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+class Scope:
+    """name -> tensor store for persistable variables (parameters,
+    optimizer state), with a parent link (reference framework/scope.h)."""
+
+    def __init__(self, parent: Optional["Scope"] = None):
+        self.vars: Dict[str, Any] = {}
+        self.parent = parent
+
+    def find_var(self, name: str):
+        s: Optional[Scope] = self
+        while s is not None:
+            if name in s.vars:
+                return s.vars[name]
+            s = s.parent
+        return None
+
+    def has_var(self, name: str) -> bool:
+        return self.find_var(name) is not None
+
+    def set_var(self, name: str, value):
+        self.vars[name] = value
+
+    def erase(self, name: str):
+        self.vars.pop(name, None)
+
+    def new_scope(self) -> "Scope":
+        return Scope(parent=self)
+
+    def local_var_names(self) -> List[str]:
+        return list(self.vars)
+
+    def get_numpy(self, name: str):
+        v = self.find_var(name)
+        return None if v is None else to_numpy(v)
+
+
+_global_scope = Scope()
+_scope_stack: List[Scope] = [_global_scope]
+
+
+def global_scope() -> Scope:
+    return _scope_stack[-1]
+
+
+@contextlib.contextmanager
+def scope_guard(scope: Scope):
+    _scope_stack.append(scope)
+    try:
+        yield
+    finally:
+        _scope_stack.pop()
+
+
+class _Plan:
+    """What one (program version, feeds, fetches) run needs to know
+    about its block, computed once."""
+
+    def __init__(self, block: Block, feed_names: Sequence[str],
+                 fetch_names: Sequence[str]):
+        ops = [op for op in block.ops if op.type not in ("feed", "fetch")]
+        self.ops = ops
+        self.defs = [get_op_def(op.type) for op in ops]
+        # the slots each op reads: its OpDef's declared input slots (an
+        # automatic grad op declares only its cotangents)
+        self.reads = [[(s, op.inputs[s]) for s in d.input_slots
+                       if s in op.inputs] for op, d in zip(ops, self.defs)]
+
+        def persistable(n):
+            v = block._find_var_recursive(n)
+            return v is not None and v.persistable
+
+        produced = set(feed_names)
+        self.state_names: List[str] = []
+        self.written: List[str] = []
+        last_read: Dict[str, int] = {}
+        for i, (op, reads) in enumerate(zip(ops, self.reads)):
+            for _, names in reads:
+                for n in names:
+                    last_read[n] = i
+                    if n not in produced and n not in self.state_names:
+                        self.state_names.append(n)
+            for n in op.output_arg_names:
+                produced.add(n)
+                if persistable(n) and n not in self.written:
+                    self.written.append(n)
+        keep = set(fetch_names) | {n for n in produced if persistable(n)} \
+            | set(self.state_names)
+        self.live = set(last_read) | keep
+        # values to drop from the environment after op i: those whose
+        # last reader is i, and outputs of op i nobody reads later
+        self.free_after: List[List[str]] = [[] for _ in ops]
+        for n, i in last_read.items():
+            if n not in keep:
+                self.free_after[i].append(n)
+        for i, op in enumerate(ops):
+            for n in op.output_arg_names:
+                if n not in keep and last_read.get(n, -1) <= i \
+                        and n not in self.free_after[i]:
+                    self.free_after[i].append(n)
+        # forward ops to record: op_ident -> input slots their automatic
+        # grad op wants gradients for
+        self.record: Dict[int, set] = {}
+        for op, d in zip(ops, self.defs):
+            if d.auto_grad:
+                want = {s[: -len("@GRAD")] for s, ns in op.outputs.items()
+                        if s.endswith("@GRAD") and ns}
+                self.record[int(op.attrs.get("op_ident", 0))] = want
+
+
+class Executor:
+    """Reference API: ``Executor(place).run(program, feed, fetch_list,
+    scope)``. The place defaults to ``CUDAPlace(0)``, which raises when
+    there is no GPU: the CPU runs only when the caller names
+    ``CPUPlace()``."""
+
+    def __init__(self, place: Optional[Place] = None):
+        self.place = place if place is not None else CUDAPlace(0)
+        self.device = self.place.torch_device()
+        self._run_counter = 0
+        self._plans: Dict[tuple, _Plan] = {}
+        self._constants: Dict[int, Any] = {}
+
+    def _plan(self, program: Program, feed_names, fetch_names) -> _Plan:
+        block = program.global_block()
+        key = (program.uid, program.version, len(block.ops),
+               tuple(feed_names), tuple(fetch_names))
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = _Plan(block, feed_names, fetch_names)
+            self._plans[key] = plan
+        return plan
+
+    def _feed_tensor(self, block: Block, name: str, value) -> torch.Tensor:
+        if isinstance(value, torch.Tensor):
+            t = value.detach()
+        else:
+            arr = np.asarray(value)
+            if arr.dtype == np.float64 and not block.has_var(name):
+                arr = arr.astype(np.float32)
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        if block.has_var(name):
+            t = t.to(torch_dtype(block.var(name).dtype))
+        return t.to(self.device)
+
+    def run(
+        self,
+        program: Optional[Program] = None,
+        feed: Optional[Dict[str, Any]] = None,
+        fetch_list: Optional[Sequence] = None,
+        feed_var_name: str = "feed",
+        fetch_var_name: str = "fetch",
+        scope: Optional[Scope] = None,
+        return_numpy: bool = True,
+    ):
+        if program is None:
+            program = framework.default_main_program()
+        scope = scope or global_scope()
+        feed = dict(feed or {})
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in (fetch_list or [])]
+        block = program.global_block()
+        plan = self._plan(program, sorted(feed), fetch_names)
+
+        env: Dict[str, Any] = {}
+        for name in sorted(feed):
+            env[name] = self._feed_tensor(block, name, feed[name])
+        for n in plan.state_names:
+            v = scope.find_var(n)
+            if v is None:
+                if block.has_var(n) and block.var(n).is_data:
+                    raise RuntimeError(
+                        f"data var {n!r} was not fed — add it to the feed "
+                        "dict")
+                raise RuntimeError(
+                    f"persistable var {n!r} not found in scope — run the "
+                    "startup program first")
+            if v.device != self.device:
+                raise RuntimeError(
+                    f"scope var {n!r} lives on {v.device}, this executor "
+                    f"runs on {self.device}")
+            env[n] = v
+
+        self._run_counter += 1
+        ctx = LoweringContext(self.device, seed=program.random_seed or 0,
+                              step=self._run_counter, live=plan.live,
+                              constants=self._constants)
+        with torch.no_grad():
+            for i, (op, opdef) in enumerate(zip(plan.ops, plan.defs)):
+                ins = {}
+                for slot, names in plan.reads[i]:
+                    try:
+                        ins[slot] = [env[n] for n in names]
+                    except KeyError as e:
+                        raise KeyError(
+                            f"op {op.type!r} input {slot}={e.args[0]!r} is "
+                            "not defined; did you run the startup program / "
+                            "feed this var?") from None
+                ident = int(op.attrs.get("op_ident", 0))
+                if not opdef.auto_grad and ident in plan.record:
+                    outs = run_recorded(ctx, opdef, op, ins,
+                                        plan.record[ident])
+                else:
+                    outs = opdef.lower(ctx, op, ins)
+                for slot, names in op.outputs.items():
+                    vals = outs.get(slot, [])
+                    for j, n in enumerate(names):
+                        if j < len(vals):
+                            env[n] = vals[j]
+                for n in plan.free_after[i]:
+                    env.pop(n, None)
+        if ctx.tape:
+            raise RuntimeError(
+                f"{len(ctx.tape)} forward record(s) were never consumed by "
+                f"a grad op (op_idents {sorted(ctx.tape)})")
+        for n in plan.written:
+            if n in env:
+                scope.set_var(n, env[n])
+        fetched = []
+        for n in fetch_names:
+            if n not in env:
+                raise KeyError(f"fetch var {n!r} was never produced")
+            fetched.append(env[n])
+        if return_numpy:
+            return [to_numpy(v) for v in fetched]
+        return fetched
+
+    def close(self):
+        self._plans.clear()
+        self._constants.clear()

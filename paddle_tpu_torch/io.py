@@ -1,9 +1,14 @@
-"""Read an inference-model directory saved by the JAX package.
+"""Read an inference-model directory saved by the JAX package, and
+carry a JAX scope's arrays into a port scope.
 
 ``paddle_tpu.io.save_inference_model`` writes two files (``io.py:42,
 158-183`` there): ``__params__.npz``, every persistable by name, and
 ``__model__``, JSON with the pruned Program and the feed/fetch names.
 This module reads both with numpy and json alone.
+
+``load_scope_arrays`` takes the persistable arrays of a training
+program (parameters, Adam moments, beta pows, learning rate) as numpy,
+whoever made them, into the port's scope under the same names.
 """
 
 from __future__ import annotations
@@ -14,11 +19,13 @@ import re
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
+from .core.executor import torch_dtype
 from .models.gpt import GPTConfig
 
 __all__ = ["PARAMS_FILE", "MODEL_FILE", "load_params", "load_model_meta",
-           "gpt_config_from_model"]
+           "gpt_config_from_model", "load_scope_arrays"]
 
 PARAMS_FILE = "__params__.npz"
 MODEL_FILE = "__model__"
@@ -70,3 +77,29 @@ def gpt_config_from_model(params: Dict[str, Any],
                      num_layers=layers, num_heads=_num_heads(meta),
                      ffn_size=int(ffn), max_position=int(max_pos),
                      hidden_dropout=0.0, attention_dropout=0.0)
+
+
+def load_scope_arrays(scope, arrays: Dict[str, np.ndarray], program,
+                      device) -> None:
+    """Put ``arrays`` ({name: numpy array}) into ``scope`` as tensors on
+    ``device``, one for each persistable var of ``program`` (its
+    parameters and optimizer state), in the var's declared dtype.
+    Raises ValueError on a persistable the arrays lack, on an array the
+    program has no persistable for, and on a shape that differs from
+    the var's."""
+    want = {v.name: v for v in program.list_vars()
+            if v.persistable and not v.is_data}
+    missing = sorted(set(want) - set(arrays))
+    extra = sorted(set(arrays) - set(want))
+    if missing or extra:
+        raise ValueError(f"load_scope_arrays: missing {missing}, not "
+                         f"persistable in the program {extra}")
+    device = torch.device(device)
+    for name, var in want.items():
+        arr = np.asarray(arrays[name])
+        if var.shape is not None and tuple(arr.shape) != tuple(var.shape):
+            raise ValueError(f"load_scope_arrays: {name!r} has shape "
+                             f"{tuple(arr.shape)}, the program declares "
+                             f"{tuple(var.shape)}")
+        t = torch.tensor(arr)       # a copy: the arrays stay the caller's
+        scope.set_var(name, t.to(device=device, dtype=torch_dtype(var.dtype)))

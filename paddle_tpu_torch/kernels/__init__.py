@@ -1,29 +1,49 @@
 """Kernels of the port: hand-written CUDA for Hopper, each beside its
 plain PyTorch version (the CPU path and the numerics oracle).
 
-| kernel | CUDA source | replaces (TPU Pallas) |
-|---|---|---|
-| ``layer_norm`` | ``csrc/layer_norm.cu`` | ``kernels/layer_norm.py`` ``_fwd_impl`` |
-| ``ragged_paged_attention`` | ``csrc/ragged_paged_attention.cu`` | ``kernels/ragged_paged_attention.py`` ``_ragged_pallas`` |
+| # | kernel | CUDA source | replaces (TPU Pallas) |
+|---|---|---|---|
+| K1 | ``layer_norm`` / ``layer_norm_fwd`` | ``csrc/layer_norm.cu`` | ``kernels/layer_norm.py`` ``_fwd_impl`` |
+| K2 | ``ragged_paged_attention`` | ``csrc/ragged_paged_attention.cu`` | ``kernels/ragged_paged_attention.py`` ``_ragged_pallas`` |
+| K3 | ``layer_norm_bwd`` | ``csrc/layer_norm.cu`` | ``kernels/layer_norm.py`` ``_vjp_bwd`` |
+| K4 | ``softmax_xent_fwd`` | ``csrc/softmax_xent.cu`` | ``kernels/softmax_xent.py`` ``_fwd_impl`` |
+| K5 | ``softmax_xent_bwd`` | ``csrc/softmax_xent.cu`` | ``kernels/softmax_xent.py`` ``_vjp_bwd`` |
+| K10 | ``fused_adam_update`` | ``csrc/fused_optim.cu`` | ``kernels/fused_optim.py`` ``_run_fused`` + ``_adam_kernel`` |
 
 ``kv_cache_write`` is plain ``index_put_`` (an XLA scatter in JAX).
 The library is built by ``_build`` at the first launch on a CUDA
 tensor; importing this package builds nothing.
 """
 
-from .layer_norm import layer_norm, layer_norm_plain
+from .fused_optim import fused_adam_update, fused_adam_update_plain
+from .layer_norm import (fused_layer_norm, layer_norm, layer_norm_bwd,
+                         layer_norm_bwd_plain, layer_norm_fwd,
+                         layer_norm_fwd_plain, layer_norm_plain)
 from .paged_attention import kv_cache_write, kv_write_targets
 from .ragged_paged_attention import (ragged_paged_attention,
                                      ragged_paged_attention_plain)
+from .softmax_xent import (fused_softmax_xent, softmax_xent_bwd,
+                           softmax_xent_bwd_plain, softmax_xent_fwd,
+                           softmax_xent_fwd_plain)
 
-__all__ = ["layer_norm", "layer_norm_plain", "ragged_paged_attention",
-           "ragged_paged_attention_plain", "kv_cache_write",
+__all__ = ["layer_norm", "layer_norm_plain", "layer_norm_fwd",
+           "layer_norm_fwd_plain", "layer_norm_bwd", "layer_norm_bwd_plain",
+           "fused_layer_norm", "ragged_paged_attention",
+           "ragged_paged_attention_plain", "softmax_xent_fwd",
+           "softmax_xent_fwd_plain", "softmax_xent_bwd",
+           "softmax_xent_bwd_plain", "fused_softmax_xent",
+           "fused_adam_update", "fused_adam_update_plain", "kv_cache_write",
            "kv_write_targets", "KERNELS", "reset_launch_counts",
            "launch_counts"]
 
-# the launch-counted wrappers, by kernel name
+# the launch-counted wrappers, by kernel name (layer_norm_fwd counts in
+# layer_norm's counter: it is the same kernel, K1, with its stats out)
 KERNELS = {"layer_norm": layer_norm,
-           "ragged_paged_attention": ragged_paged_attention}
+           "ragged_paged_attention": ragged_paged_attention,
+           "layer_norm_bwd": layer_norm_bwd,
+           "softmax_xent_fwd": softmax_xent_fwd,
+           "softmax_xent_bwd": softmax_xent_bwd,
+           "fused_adam_update": fused_adam_update}
 
 
 def reset_launch_counts() -> None:

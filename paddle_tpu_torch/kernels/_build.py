@@ -37,11 +37,18 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 LIB_STEM = "libpaddle_tpu_torch_kernels"
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_i64 = ctypes.c_longlong
 # argtypes of every C entry of the library: pointers and the stream are
-# c_void_p (a bare int would be cut to 32 bits), sizes c_int
+# c_void_p (a bare int would be cut to 32 bits), sizes c_int, element
+# counts and label values c_longlong
 SIGNATURES: Dict[str, List] = {
-    "pt_layer_norm_fwd": [_vp, _vp, _vp, _vp, _int, _int, _float, _int, _vp],
+    "pt_layer_norm_fwd": [_vp] * 6 + [_int, _int, _float, _int, _vp],
+    "pt_layer_norm_bwd_scratch_rows": [_int],
+    "pt_layer_norm_bwd": [_vp] * 9 + [_int, _int, _int, _vp],
     "pt_ragged_paged_attention": [_vp] * 7 + [_int] * 8 + [_float, _int, _vp],
+    "pt_softmax_xent_fwd": [_vp] * 4 + [_int, _int, _i64, _int, _vp],
+    "pt_softmax_xent_bwd": [_vp] * 5 + [_int, _int, _i64, _int, _vp],
+    "pt_fused_adam": [_vp] * 8 + [_i64] + [_float] * 6 + [_int, _vp],
 }
 
 _lock = threading.Lock()

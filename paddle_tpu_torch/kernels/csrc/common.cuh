@@ -38,4 +38,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Sum over the block; every thread gets the total. blockDim.x is a
+// multiple of 32, at most 1024; shm holds 32 floats.
+__device__ __forceinline__ float block_sum(float v, float* shm) {
+  v = warp_sum(v);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  __syncthreads();  // shm may still be read by an earlier call
+  if (lane == 0) shm[warp] = v;
+  __syncthreads();
+  float t = lane < nwarps ? shm[lane] : 0.f;
+  return warp_sum(t);
+}
+
 }  // namespace pt

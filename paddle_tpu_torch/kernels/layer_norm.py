@@ -1,19 +1,31 @@
-"""Layer-norm forward: the CUDA kernel ``csrc/layer_norm.cu`` and its
-plain PyTorch version.
+"""Layer norm, forward and backward: the CUDA kernels of
+``csrc/layer_norm.cu`` and their plain PyTorch versions.
 
-Replaces ``paddle_tpu/kernels/layer_norm.py`` ``_fwd_impl`` (the
+K1 replaces ``paddle_tpu/kernels/layer_norm.py`` ``_fwd_impl`` (the
 Pallas forward, ``pallas_call`` at :124) as the ``layer_norm`` op of
 ``ops/nn.py:427-445`` reaches it: per row of ``[R, C]``,
 ``y = (x - mean) * rsqrt(var + eps) * gamma + beta`` with population
-variance and float32 accumulation; y has x's dtype.
+variance and float32 accumulation; y has x's dtype. It writes the
+per-row mean and rstd (float32 ``[R]``) when the backward will need
+them (``layer_norm_fwd``); the serving path asks for y alone
+(``layer_norm``).
 
-Bound on the H100: memory, ``2 * R * C * itemsize`` bytes (x read
-once, y written once) plus gamma and beta. The kernel runs one block
-per row and loops over the row, so C has no cap (the TPU's VMEM bound
-``MAX_C`` does not carry over); at the serving slice's ``[128, 2048]``
-float32 the work is 2 MB, so the launch sets its time. Forward only:
-the serving path needs neither Mean/Variance nor the backward (the
-backward, TPU kernel ``_vjp_bwd``, comes with the training slice).
+K3 replaces ``_vjp_bwd`` (:155, ``pallas_call`` at :164):
+``dx = rstd * (dy*g - mean(dy*g) - xhat * mean(dy*g*xhat))`` per row,
+``dgamma = sum_rows(dy * xhat)``, ``dbeta = sum_rows(dy)`` (float32
+sums, cast to gamma's dtype). The column sums are taken in two
+deterministic passes on the card, never with float atomics.
+
+``fused_layer_norm`` is the ``torch.autograd.Function`` over both, the
+counterpart of the reference's ``jax.custom_vjp`` of the same name: y
+only, as there, so the op's Mean/Variance outputs stay plain torch and
+their gradients exact (``layer_norm_pallas``, :194-215).
+
+Bound on the H100: memory. K1 moves ``2 * R * C * itemsize`` bytes
+plus gamma and beta; K3 ``3 * R * C * itemsize`` plus gamma, the
+stats, dgamma and dbeta. Each kernel runs one block per row (K3: per
+run of rows) and loops over the row, so C has no cap (the TPU's VMEM
+bound ``MAX_C`` does not carry over).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. There is no fallback from one to the other.
@@ -21,67 +33,193 @@ the kernel or raises. There is no fallback from one to the other.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from . import _build
 
-__all__ = ["layer_norm", "layer_norm_plain"]
+__all__ = ["layer_norm", "layer_norm_plain", "layer_norm_fwd",
+           "layer_norm_fwd_plain", "layer_norm_bwd", "layer_norm_bwd_plain",
+           "fused_layer_norm"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def layer_norm_fwd_plain(x: torch.Tensor, gamma: torch.Tensor,
+                         beta: torch.Tensor, eps: float = 1e-5
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version (and numerics oracle) of K1: y, and
+    the float32 per-row mean and rstd."""
+    xf = x.float()
+    mean = xf.mean(dim=-1)
+    var = (xf - mean[:, None]).square().mean(dim=-1)
+    rstd = torch.rsqrt(var + eps)
+    y = (xf - mean[:, None]) * rstd[:, None] * gamma.float() + beta.float()
+    return y.to(x.dtype), mean, rstd
+
+
 def layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """The plain PyTorch version (and numerics oracle) of the kernel."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
-    return y.to(x.dtype)
+    """K1's plain version, y only."""
+    return layer_norm_fwd_plain(x, gamma, beta, eps)[0]
 
 
-def _check(x, gamma, beta):
+def layer_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
+                         dy: torch.Tensor, mean: torch.Tensor,
+                         rstd: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of K3: (dx, dgamma, dbeta), the
+    reference ``_bwd_kernel``'s arithmetic in float32."""
+    xf, dyf = x.float(), dy.float()
+    xhat = (xf - mean[:, None]) * rstd[:, None]
+    dyg = dyf * gamma.float()
+    m1 = dyg.mean(dim=1, keepdim=True)
+    m2 = (dyg * xhat).mean(dim=1, keepdim=True)
+    dx = rstd[:, None] * (dyg - m1 - xhat * m2)
+    dgamma = (dyf * xhat).sum(dim=0)
+    dbeta = dyf.sum(dim=0)
+    return dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
+
+
+def _check(what, x, vecs, stats=()):
     if x.dim() != 2:
-        raise ValueError(f"layer_norm takes x [R, C]; got {tuple(x.shape)}")
-    C = x.shape[1]
-    for name, t in (("gamma", gamma), ("beta", beta)):
+        raise ValueError(f"{what} takes x [R, C]; got {tuple(x.shape)}")
+    R, C = x.shape
+    for name, t in vecs:
         if tuple(t.shape) != (C,):
-            raise ValueError(f"layer_norm: {name} must be [{C}], got "
+            raise ValueError(f"{what}: {name} must be [{C}], got "
                              f"{tuple(t.shape)}")
         if t.device != x.device:
-            raise ValueError(f"layer_norm: {name} on {t.device}, x on "
-                             f"{x.device}")
+            raise ValueError(f"{what}: {name} on {t.device}, x on {x.device}")
+    for name, t in stats:
+        if tuple(t.shape) != (R,) or t.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be float32 [{R}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} on {t.device}, x on {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def _kernel_dtype(what, x, *others):
+    code = _DTYPES.get(x.dtype)
+    if code is None or any(t.dtype != x.dtype for t in others):
+        raise TypeError(
+            f"{what} kernel takes float32 or bfloat16 tensors of one dtype; "
+            f"got {[t.dtype for t in (x,) + others]}")
+    if not all(t.is_contiguous() for t in (x,) + others):
+        raise ValueError(f"{what} kernel takes contiguous tensors")
+    return code
+
+
+def _launch_fwd(x, gamma, beta, eps, stats):
+    code = _kernel_dtype("layer_norm", x, gamma, beta)
+    R, C = x.shape
+    y = torch.empty_like(x)
+    mean = rstd = None
+    if stats:
+        mean = torch.empty(R, dtype=torch.float32, device=x.device)
+        rstd = torch.empty(R, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.pt_layer_norm_fwd(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            mean.data_ptr() if stats else None,
+            rstd.data_ptr() if stats else None, R, C, float(eps), code,
+            stream)
+    _build.check(err, "layer_norm")
+    layer_norm.launches += 1
+    return y, mean, rstd
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """y [R, C] for x [R, C] and gamma, beta [C] (float32 or bfloat16,
     one dtype). CPU tensors run ``layer_norm_plain``; CUDA tensors run
-    the kernel, counted in ``layer_norm.launches``."""
-    _check(x, gamma, beta)
+    K1, counted in ``layer_norm.launches``."""
+    _check("layer_norm", x, (("gamma", gamma), ("beta", beta)))
     if x.device.type == "cpu":
         return layer_norm_plain(x, gamma, beta, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"layer_norm: unsupported device {x.device}")
-    code = _DTYPES.get(x.dtype)
-    if code is None or gamma.dtype != x.dtype or beta.dtype != x.dtype:
-        raise TypeError(
-            f"layer_norm kernel takes float32 or bfloat16 x, gamma, beta of "
-            f"one dtype; got {x.dtype}, {gamma.dtype}, {beta.dtype}")
-    if not (x.is_contiguous() and gamma.is_contiguous()
-            and beta.is_contiguous()):
-        raise ValueError("layer_norm kernel takes contiguous tensors")
-    R, C = x.shape
-    y = torch.empty_like(x)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pt_layer_norm_fwd(x.data_ptr(), gamma.data_ptr(),
-                                    beta.data_ptr(), y.data_ptr(), R, C,
-                                    float(eps), code, stream)
-    _build.check(err, "layer_norm")
-    layer_norm.launches += 1
-    return y
+    return _launch_fwd(x, gamma, beta, eps, stats=False)[0]
 
 
 layer_norm.launches = 0
+
+
+def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   eps: float = 1e-5
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, mean, rstd): K1 with its per-row float32 stats written, the
+    forward of the training path. Counted in ``layer_norm.launches``
+    (the same kernel)."""
+    _check("layer_norm", x, (("gamma", gamma), ("beta", beta)))
+    if x.device.type == "cpu":
+        return layer_norm_fwd_plain(x, gamma, beta, eps)
+    return _launch_fwd(x, gamma, beta, eps, stats=True)
+
+
+def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                   mean: torch.Tensor, rstd: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dgamma, dbeta) for x, dy [R, C], gamma [C] (one dtype) and
+    the forward's float32 mean, rstd [R]. CPU tensors run
+    ``layer_norm_bwd_plain``; CUDA tensors run K3, counted in
+    ``layer_norm_bwd.launches``."""
+    _check("layer_norm_bwd", x, (("gamma", gamma),),
+           (("mean", mean), ("rstd", rstd)))
+    if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
+        raise ValueError(f"layer_norm_bwd: dy {tuple(dy.shape)} on "
+                         f"{dy.device}, x {tuple(x.shape)} on {x.device}")
+    if x.device.type == "cpu":
+        return layer_norm_bwd_plain(x, gamma, dy, mean, rstd)
+    code = _kernel_dtype("layer_norm_bwd", x, gamma, dy)
+    if not (mean.is_contiguous() and rstd.is_contiguous()):
+        raise ValueError("layer_norm_bwd kernel takes contiguous stats")
+    R, C = x.shape
+    if 8 * C > 227 * 1024:
+        raise ValueError(f"layer_norm_bwd kernel keeps 2 * C float32 "
+                         f"column sums in shared memory: C <= 29056, got {C}")
+    lib = _build.library()
+    dx = torch.empty_like(x)
+    dgamma = torch.empty_like(gamma)
+    dbeta = torch.empty_like(gamma)
+    scratch = torch.empty(lib.pt_layer_norm_bwd_scratch_rows(R), C,
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.pt_layer_norm_bwd(
+            x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+            dgamma.data_ptr(), dbeta.data_ptr(), R, C, code, stream)
+    _build.check(err, "layer_norm_bwd")
+    layer_norm_bwd.launches += 1
+    return dx, dgamma, dbeta
+
+
+layer_norm_bwd.launches = 0
+
+
+class _LayerNormFunction(torch.autograd.Function):
+    """y = layer_norm(x2, gamma, beta): forward K1, backward K3."""
+
+    @staticmethod
+    def forward(ctx, x2, gamma, beta, eps):
+        y, mean, rstd = layer_norm_fwd(x2, gamma, beta, eps)
+        ctx.save_for_backward(x2, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, gamma, mean, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_bwd(x2, gamma, dy.contiguous(), mean,
+                                           rstd)
+        return dx, dgamma, dbeta, None
+
+
+def fused_layer_norm(x2: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, eps: float) -> torch.Tensor:
+    """Differentiable y for x2 [R, C], gamma and beta [C]: K1 forward,
+    K3 backward (their plain versions on CPU tensors)."""
+    return _LayerNormFunction.apply(x2, gamma, beta, float(eps))

@@ -1,13 +1,25 @@
-"""GPT configuration (a copy of the ``GPTConfig`` dataclass of
-``paddle_tpu/models/gpt.py``). The torch modules that run it live in
-``generation/model.py``; the Program-IR model functions are the training
-slice's work."""
+"""GPT: the configuration (a copy of the ``GPTConfig`` dataclass of
+``paddle_tpu/models/gpt.py``) and ``build_gpt_lm``, which builds the
+Program-IR model, with its synthetic corpus ``synthetic_lm_batch``,
+copied so that the port builds the same program as the JAX package.
+The torch modules that serve a GPT live in ``generation/model.py``.
+
+Dense FFNs and the op-graph attention only: ``moe_every`` and
+``use_flash_attention`` raise until their slices are ported.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["GPTConfig"]
+import numpy as np
+
+from .. import layers, nets
+from ..core.framework import Program, program_guard
+from ..initializer import NormalInitializer
+from ..param_attr import ParamAttr
+
+__all__ = ["GPTConfig", "build_gpt_lm", "synthetic_lm_batch"]
 
 
 @dataclasses.dataclass
@@ -22,8 +34,8 @@ class GPTConfig:
     attention_dropout: float = 0.1
     initializer_range: float = 0.02
     use_flash_attention: bool = False
-    # MoE fields kept for a like-for-like config; the port serves
-    # dense FFNs only (moe_every must stay 0)
+    # MoE fields kept for a like-for-like config; the port runs dense
+    # FFNs only (moe_every must stay 0)
     moe_every: int = 0
     moe_experts: int = 8
     moe_capacity: float = 1.25
@@ -45,3 +57,127 @@ class GPTConfig:
         16 heads x 128; ~1.3B params."""
         return GPTConfig(hidden_size=2048, num_layers=24, num_heads=16,
                          ffn_size=8192, max_position=1024)
+
+
+def _attr(name, std, axes=None):
+    return ParamAttr(name=name, initializer=NormalInitializer(0.0, std),
+                     logical_axes=axes)
+
+
+def _decoder_layer(x, cfg: GPTConfig, idx: int, is_test=False):
+    h = cfg.hidden_size
+    std = cfg.initializer_range
+    pre = f"dec{idx}"
+    ln1 = layers.layer_norm(
+        x, begin_norm_axis=2,
+        param_attr=ParamAttr(name=f"{pre}_ln1.scale"),
+        bias_attr=ParamAttr(name=f"{pre}_ln1.bias"),
+    )
+    qkv = layers.fc(
+        ln1, 3 * h, num_flatten_dims=2,
+        param_attr=_attr(f"{pre}_qkv.w", std, axes=("embed", "heads")),
+        bias_attr=ParamAttr(name=f"{pre}_qkv.b",
+                            logical_axes=("heads",)),
+    )
+    q, k, v = layers.split(qkv, 3, dim=2)
+    ctx = nets.scaled_dot_product_attention(
+        q, k, v, num_heads=cfg.num_heads, causal=True,
+        dropout_rate=0.0 if is_test else cfg.attention_dropout,
+    )
+    proj = layers.fc(
+        ctx, h, num_flatten_dims=2,
+        param_attr=_attr(f"{pre}_proj.w", std, axes=("heads", "embed")),
+        bias_attr=ParamAttr(name=f"{pre}_proj.b"),
+    )
+    if not is_test and cfg.hidden_dropout:
+        proj = layers.dropout(proj, cfg.hidden_dropout,
+                              dropout_implementation="upscale_in_train")
+    x = layers.elementwise_add(x, proj)
+    ln2 = layers.layer_norm(
+        x, begin_norm_axis=2,
+        param_attr=ParamAttr(name=f"{pre}_ln2.scale"),
+        bias_attr=ParamAttr(name=f"{pre}_ln2.bias"),
+    )
+    ffn1 = layers.fc(
+        ln2, cfg.ffn_size, num_flatten_dims=2, act="gelu",
+        param_attr=_attr(f"{pre}_ffn1.w", std,
+                         axes=("embed", "mlp")),
+        bias_attr=ParamAttr(name=f"{pre}_ffn1.b",
+                            logical_axes=("mlp",)),
+    )
+    ffn2 = layers.fc(
+        ffn1, h, num_flatten_dims=2,
+        param_attr=_attr(f"{pre}_ffn2.w", std,
+                         axes=("mlp", "embed")),
+        bias_attr=ParamAttr(name=f"{pre}_ffn2.b"),
+    )
+    if not is_test and cfg.hidden_dropout:
+        ffn2 = layers.dropout(ffn2, cfg.hidden_dropout,
+                              dropout_implementation="upscale_in_train")
+    return layers.elementwise_add(x, ffn2)
+
+
+def build_gpt_lm(cfg: GPTConfig, seq_len: int, optimizer=None, is_test=False):
+    """Next-token LM: returns (main, startup, feeds, fetches).
+    tokens [B, S] int64 -> loss (shifted CE) + logits."""
+    if cfg.moe_every:
+        raise NotImplementedError(
+            "GPT MoE layers (moe_every > 0) are not ported to "
+            "paddle_tpu_torch yet (ROADMAP A1)")
+    if cfg.use_flash_attention:
+        raise NotImplementedError(
+            "use_flash_attention needs the flash-attention kernels K6-K9, "
+            "not ported to paddle_tpu_torch yet (ROADMAP A1)")
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        tokens = layers.data("tokens", [seq_len], dtype="int64")
+        labels = layers.data("labels", [seq_len], dtype="int64")
+        emb = layers.embedding(
+            tokens, size=[cfg.vocab_size, cfg.hidden_size],
+            param_attr=_attr("gpt_tok_emb", cfg.initializer_range,
+                             axes=("vocab", "embed")),
+        )
+        pos = layers.embedding(
+            layers.assign(np.arange(seq_len, dtype="int64")[None, :]),
+            size=[cfg.max_position, cfg.hidden_size],
+            param_attr=_attr("gpt_pos_emb", cfg.initializer_range,
+                             axes=("seq", "embed")),
+        )
+        x = layers.elementwise_add(emb, pos)
+        for i in range(cfg.num_layers):
+            x = _decoder_layer(x, cfg, i, is_test=is_test)
+        x = layers.layer_norm(
+            x, begin_norm_axis=2,
+            param_attr=ParamAttr(name="gpt_lnf.scale"),
+            bias_attr=ParamAttr(name="gpt_lnf.bias"),
+        )
+        logits = layers.fc(
+            x, cfg.vocab_size, num_flatten_dims=2,
+            param_attr=_attr("gpt_head.w", cfg.initializer_range,
+                             axes=("embed", "vocab")),
+            bias_attr=ParamAttr(name="gpt_head.b",
+                                logical_axes=("vocab",)),
+        )
+        loss = layers.mean(
+            layers.softmax_with_cross_entropy(
+                logits, layers.unsqueeze(labels, [2])
+            )
+        )
+        if optimizer is not None:
+            optimizer.minimize(loss)
+    return main, startup, {"tokens": tokens, "labels": labels}, {
+        "loss": loss, "logits": logits,
+    }
+
+
+def synthetic_lm_batch(rng: np.random.RandomState, batch: int, seq_len: int,
+                       vocab: int):
+    """Learnable synthetic corpus: next token = (3*cur + 7) % vocab with
+    occasional noise."""
+    toks = rng.randint(0, vocab, (batch, seq_len)).astype("int64")
+    for t in range(1, seq_len):
+        toks[:, t] = (3 * toks[:, t - 1] + 7) % vocab
+    labels = np.concatenate(
+        [toks[:, 1:], ((3 * toks[:, -1:] + 7) % vocab)], axis=1
+    ).astype("int64")
+    return {"tokens": toks, "labels": labels}

@@ -1,0 +1,104 @@
+"""Math ops: elementwise (with Fluid's ``axis`` broadcast), the matmul
+family, reductions and activations — torch lowerings with the semantics
+of ``paddle_tpu/ops/math.py``. Large matrix products are
+``torch.matmul``: the reference leaves them to XLA, outside any Pallas
+kernel."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.registry import register_op
+
+
+def _broadcast_y(x, y, axis):
+    """Reference elementwise_op_function.h: Y is broadcast against X
+    with Y's dims aligned starting at ``axis``; -1 aligns trailing."""
+    if axis is None or axis == -1 or x.dim() == y.dim():
+        return y
+    # trim trailing size-1 dims of y (reference does the same)
+    yshape = list(y.shape)
+    while yshape and yshape[-1] == 1:
+        yshape.pop()
+    pad_after = x.dim() - axis - len(yshape)
+    if pad_after < 0:
+        return y
+    return y.reshape([1] * axis + yshape + [1] * pad_after)
+
+
+def _register_elementwise(name, fn):
+    @register_op(name, inputs=("X", "Y"), outputs=("Out",))
+    def _lower(ctx, op, ins, _fn=fn):
+        x, y = ins["X"][0], ins["Y"][0]
+        y = _broadcast_y(x, y, int(op.attrs.get("axis", -1)))
+        return {"Out": [_fn(x, y)]}
+
+
+_register_elementwise("elementwise_add", lambda x, y: x + y)
+_register_elementwise("elementwise_sub", lambda x, y: x - y)
+_register_elementwise("elementwise_mul", lambda x, y: x * y)
+_register_elementwise("elementwise_div", lambda x, y: x / y)
+
+
+@register_op("matmul", inputs=("X", "Y"), outputs=("Out",))
+def _matmul(ctx, op, ins):
+    x, y = ins["X"][0], ins["Y"][0]
+    if op.attrs.get("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if op.attrs.get("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = float(op.attrs.get("alpha", 1.0))
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
+
+
+@register_op("mul", inputs=("X", "Y"), outputs=("Out",))
+def _mul(ctx, op, ins):
+    # reference mul_op.cc: flatten X to 2-D at x_num_col_dims, Y at
+    # y_num_col_dims, matmul, then restore X's leading dims
+    x, y = ins["X"][0], ins["Y"][0]
+    xnc = int(op.attrs.get("x_num_col_dims", 1))
+    ync = int(op.attrs.get("y_num_col_dims", 1))
+    lead = tuple(x.shape[:xnc])
+    x2 = x.reshape(int(np.prod(lead or (1,))), -1)
+    y2 = y.reshape(int(np.prod(y.shape[:ync])), -1)
+    return {"Out": [(x2 @ y2).reshape(lead + (y2.shape[1],))]}
+
+
+@register_op("mean", inputs=("X",), outputs=("Out",))
+def _mean(ctx, op, ins):
+    return {"Out": [torch.mean(ins["X"][0])]}
+
+
+@register_op("sum", inputs=("X",), outputs=("Out",))
+def _sum(ctx, op, ins):
+    # variadic add (grad accumulation, reference operators/sum_op.cc)
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
+@register_op("scale", inputs=("X",), outputs=("Out",))
+def _scale(ctx, op, ins):
+    x = ins["X"][0]
+    s = float(op.attrs.get("scale", 1.0))
+    b = float(op.attrs.get("bias", 0.0))
+    if op.attrs.get("bias_after_scale", True):
+        out = x * s
+        if b:
+            out = out + b
+    else:
+        out = (x + b) * s if b else x * s
+    return {"Out": [out]}
+
+
+@register_op("gelu", inputs=("X",), outputs=("Out",))
+def _gelu(ctx, op, ins):
+    approximate = "tanh" if op.attrs.get("approximate", False) else "none"
+    return {"Out": [F.gelu(ins["X"][0], approximate=approximate)]}

@@ -1,0 +1,137 @@
+"""Tensor creation / shape-manipulation ops: torch lowerings with the
+semantics of ``paddle_tpu/ops/tensor.py`` (Fluid's fill_constant_op,
+reshape_op, transpose_op, split_op, lookup_table_op, ...)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.executor import torch_dtype
+from ..core.registry import register_op
+
+
+def _xshape(ctx, op, x):
+    """The XShape bookkeeping output (a zero-size placeholder, as in
+    the reference), made only when something reads it."""
+    if ctx.wants(op, "XShape"):
+        return {"XShape": [torch.zeros((0,), dtype=x.dtype, device=x.device)]}
+    return {}
+
+
+@register_op("fill_constant", inputs=(), outputs=("Out",), stop_gradient=True)
+def _fill_constant(ctx, op, ins):
+    shape = tuple(int(s) for s in op.attrs.get("shape", []))
+    dtype = torch_dtype(op.attrs.get("dtype", "float32"))
+    value = op.attrs.get("value", 0.0)
+    return {"Out": [torch.full(shape, value, dtype=dtype, device=ctx.device)]}
+
+
+@register_op("fill_zeros_like", inputs=("X",), outputs=("Out",), stop_gradient=True)
+def _fill_zeros_like(ctx, op, ins):
+    return {"Out": [torch.zeros_like(ins["X"][0])]}
+
+
+@register_op("assign", inputs=("X",), outputs=("Out",))
+def _assign(ctx, op, ins):
+    return {"Out": [ins["X"][0]]}
+
+
+@register_op("assign_value", inputs=(), outputs=("Out",), stop_gradient=True)
+def _assign_value(ctx, op, ins):
+    # built once per op and kept: the causal masks of a 1024-token GPT
+    # carry a million values each in their attrs
+    def build():
+        shape = tuple(int(s) for s in op.attrs.get("shape", []))
+        dtype = torch_dtype(op.attrs.get("dtype", "float32"))
+        values = op.attrs.get("values", op.attrs.get("fp32_values", []))
+        arr = np.asarray(values).reshape(shape)
+        return torch.as_tensor(arr).to(device=ctx.device, dtype=dtype)
+
+    return {"Out": [ctx.constant(op, build)]}
+
+
+def _infer_reshape(x, shape):
+    shape = list(int(s) for s in shape)
+    # reference reshape_op.cc: 0 means "copy this dim from x", -1 infers
+    for i, s in enumerate(shape):
+        if s == 0:
+            shape[i] = x.shape[i]
+    return tuple(shape)
+
+
+@register_op("reshape2", inputs=("X",), outputs=("Out", "XShape"))
+def _reshape2(ctx, op, ins):
+    x = ins["X"][0]
+    out = x.reshape(_infer_reshape(x, op.attrs.get("shape", [])))
+    return {"Out": [out], **_xshape(ctx, op, x)}
+
+
+@register_op("transpose2", inputs=("X",), outputs=("Out", "XShape"))
+def _transpose2(ctx, op, ins):
+    x = ins["X"][0]
+    perm = tuple(int(a) for a in op.attrs.get("axis", []))
+    return {"Out": [x.permute(perm)], **_xshape(ctx, op, x)}
+
+
+@register_op("split", inputs=("X",), outputs=("Out",))
+def _split(ctx, op, ins):
+    x = ins["X"][0]
+    axis = int(op.attrs.get("axis", 0))
+    sections = op.attrs.get("sections", [])
+    num = int(op.attrs.get("num", 0))
+    if sections:
+        outs = torch.split(x, [int(s) for s in sections], dim=axis)
+    else:
+        outs = torch.split(x, x.shape[axis] // num, dim=axis)
+    return {"Out": list(outs)}
+
+
+@register_op("unsqueeze2", inputs=("X",), outputs=("Out", "XShape"))
+def _unsqueeze2(ctx, op, ins):
+    x = ins["X"][0]
+    out = x
+    for a in sorted(int(a) for a in op.attrs.get("axes", [])):
+        out = out.unsqueeze(a)
+    return {"Out": [out], **_xshape(ctx, op, x)}
+
+
+def _flat_ids(ids):
+    # reference lookup_table_op.cc: Ids has trailing dim 1
+    return ids.squeeze(-1) if ids.dim() > 1 and ids.shape[-1] == 1 else ids
+
+
+@register_op("lookup_table", inputs=("W", "Ids"), outputs=("Out",), no_grad=("Ids",))
+def _lookup_table(ctx, op, ins):
+    w, ids = ins["W"][0], _flat_ids(ins["Ids"][0])
+    out = w[ids]
+    pad = op.attrs.get("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        out = torch.where((ids == pad)[..., None],
+                          torch.zeros((), dtype=w.dtype, device=w.device), out)
+    return {"Out": [out]}
+
+
+@register_op(
+    "lookup_table_grad",
+    inputs=("W", "Ids", "Out@GRAD"),
+    outputs=("W@GRAD",),
+    stop_gradient=True,
+)
+def _lookup_table_grad(ctx, op, ins):
+    """Dense scatter-add of the output grad rows (the reference's
+    non-sparse branch of ``_embedding_grad``)."""
+    if op.attrs.get("is_sparse", False):
+        raise NotImplementedError(
+            "lookup_table with is_sparse=True needs SelectedRows gradients, "
+            "not ported yet (ROADMAP A1)")
+    w, og = ins["W"][0], ins["Out@GRAD"][0]
+    flat_ids = _flat_ids(ins["Ids"][0]).reshape(-1)
+    flat_g = og.reshape(-1, og.shape[-1])
+    pad = op.attrs.get("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        flat_g = torch.where((flat_ids == pad)[:, None],
+                             torch.zeros((), dtype=flat_g.dtype,
+                                         device=flat_g.device), flat_g)
+    wg = torch.zeros_like(w).index_add_(0, flat_ids, flat_g.to(w.dtype))
+    return {"W@GRAD": [wg]}

@@ -1,0 +1,227 @@
+"""Optimizers: the port's copy of ``Optimizer`` and ``AdamOptimizer``
+of ``paddle_tpu/optimizer.py`` (:66-292, :500-592; Fluid's
+python/paddle/fluid/optimizer.py). Each optimizer appends per-parameter
+update ops plus state-accumulator vars initialized in the startup
+program, with the same names and attrs as the reference, and
+AdamOptimizer emits ``fused_adam`` or ``adam`` exactly when the
+reference does (the ``optimizer_fuse`` flag).
+
+Not ported yet (ROADMAP A1): gradient clipping (``clip.py``, whose
+global-norm scale the fused op takes as ``ClipScale``), regularization
+(``regularizer.py``), the other optimizer classes and the dygraph path.
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Dict, List, Optional, Tuple
+
+from .core.backward import append_backward
+from .core.framework import (
+    OpRole,
+    Parameter,
+    Variable,
+    default_main_program,
+    unique_name,
+)
+from .flags import optimizer_fuse_enabled
+from .initializer import ConstantInitializer
+from .layer_helper import LayerHelper
+
+__all__ = ["Optimizer", "Adam", "AdamOptimizer"]
+
+
+def _not_ported(what: str, module: str):
+    raise NotImplementedError(
+        f"{what} is not ported to paddle_tpu_torch yet ({module}, "
+        "ROADMAP A1)")
+
+
+class Optimizer:
+    def __init__(
+        self,
+        learning_rate,
+        regularization=None,
+        name=None,
+        grad_clip=None,
+    ):
+        if grad_clip is not None:
+            _not_ported("grad_clip", "clip.py")
+        if regularization is not None:
+            _not_ported("regularization", "regularizer.py")
+        self._learning_rate = learning_rate
+        self.regularization = regularization
+        self._grad_clip = grad_clip
+        self._name = name
+        self._accumulators: Dict[str, Dict[str, Variable]] = defaultdict(dict)
+        self._lr_var: Optional[Variable] = None
+        self._fuse_active = False
+        self.type = getattr(self, "type", "sgd")
+        self.helper = None
+
+    # -- learning rate --------------------------------------------------------
+    def _create_global_learning_rate(self):
+        if isinstance(self._learning_rate, Variable):
+            self._lr_var = self._learning_rate
+            return
+        if self._lr_var is not None:
+            return
+        from .layers.tensor import create_global_var
+
+        self._lr_var = create_global_var(
+            shape=[1],
+            value=float(self._learning_rate),
+            dtype="float32",
+            persistable=True,
+            name=unique_name.generate("learning_rate"),
+        )
+
+    def _global_learning_rate(self) -> Variable:
+        return self._lr_var
+
+    def _create_param_lr(self, param: Parameter) -> Variable:
+        base = self._lr_var
+        plr = float(param.optimize_attr.get("learning_rate", 1.0)) if param.optimize_attr else 1.0
+        if plr == 1.0:
+            return base
+        from .layers.nn import scale
+
+        return scale(base, scale=plr)
+
+    # -- accumulators ---------------------------------------------------------
+    def _add_accumulator(
+        self, name: str, param: Parameter, dtype=None, fill_value=0.0, shape=None
+    ) -> Variable:
+        if param.name in self._accumulators[name]:
+            return self._accumulators[name][param.name]
+        helper = LayerHelper(self.type)
+        var_name = unique_name.generate(f"{param.name}_{name}")
+        gb = default_main_program().global_block()
+        var = gb.create_var(
+            name=var_name,
+            shape=shape if shape is not None else param.shape,
+            dtype=dtype or param.dtype,
+            persistable=True,
+            stop_gradient=True,
+        )
+        # structural tags, serialized with the program as the
+        # reference's are
+        var.is_accumulator = True
+        var.accumulator_owner = param.name
+        helper.set_variable_initializer(var, ConstantInitializer(fill_value))
+        self._accumulators[name][param.name] = var
+        return var
+
+    def _get_accumulator(self, name: str, param: Parameter) -> Variable:
+        return self._accumulators[name][param.name]
+
+    # -- hooks subclasses implement -------------------------------------------
+    def _create_accumulators(self, block, parameters):
+        pass
+
+    def _append_optimize_op(self, block, param_and_grad):
+        raise NotImplementedError
+
+    def _finish_update(self, block, params_grads):
+        pass
+
+    # -- reference API --------------------------------------------------------
+    def backward(
+        self, loss, startup_program=None, parameter_list=None, no_grad_set=None,
+        callbacks=None,
+    ):
+        return append_backward(loss, parameter_list, no_grad_set)
+
+    def _fusion_active(self, params_grads) -> bool:
+        # exact optimizer classes whose update the fused one-pass op can
+        # replace — exact, not isinstance, as in the reference
+        if type(self).__name__ not in ("AdamOptimizer", "MomentumOptimizer"):
+            return False
+        return optimizer_fuse_enabled()
+
+    def apply_gradients(self, params_grads) -> List:
+        params_grads = sorted(params_grads, key=lambda pg: pg[0].name)
+        for p, _ in params_grads:
+            if getattr(p, "gradient_clip_attr", None) is not None:
+                _not_ported("a per-parameter gradient_clip", "clip.py")
+            if getattr(p, "regularizer", None) is not None:
+                _not_ported("a per-parameter regularizer", "regularizer.py")
+        self._fuse_active = self._fusion_active(params_grads)
+
+        block = default_main_program().global_block()
+        self._create_accumulators(block, [pg[0] for pg in params_grads])
+        opt_ops = []
+        for pg in params_grads:
+            op = self._append_optimize_op(block, pg)
+            if op is not None:
+                op.attrs["op_role"] = OpRole.Optimize
+                opt_ops.append(op)
+        self._finish_update(block, params_grads)
+        default_main_program()._bump()
+        return opt_ops
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        return self.apply_gradients(params_grads)
+
+    def minimize(
+        self, loss, startup_program=None, parameter_list=None, no_grad_set=None,
+        grad_clip=None,
+    ) -> Tuple[List, List[Tuple[Variable, Variable]]]:
+        if grad_clip is not None:
+            _not_ported("grad_clip", "clip.py")
+        self._create_global_learning_rate()
+        params_grads = self.backward(loss, startup_program, parameter_list, no_grad_set)
+        opt_ops = self.apply_gradients(params_grads)
+        return opt_ops, params_grads
+
+
+class AdamOptimizer(Optimizer):
+    type = "adam"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                 lazy_mode=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment1", p)
+            self._add_accumulator("moment2", p)
+            self._add_accumulator("beta1_pow_acc", p, fill_value=self._beta1, shape=[1])
+            self._add_accumulator("beta2_pow_acc", p, fill_value=self._beta2, shape=[1])
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        m1 = self._get_accumulator("moment1", p)
+        m2 = self._get_accumulator("moment2", p)
+        b1p = self._get_accumulator("beta1_pow_acc", p)
+        b2p = self._get_accumulator("beta2_pow_acc", p)
+        inputs = {
+            "Param": [p],
+            "Grad": [g],
+            "LearningRate": [self._create_param_lr(p)],
+            "Moment1": [m1],
+            "Moment2": [m2],
+            "Beta1Pow": [b1p],
+            "Beta2Pow": [b2p],
+        }
+        # the one-pass fused update (the K10 kernel on CUDA) runs over
+        # the SAME accumulator vars as the unfused op; a folded
+        # global-norm clip would add a ClipScale input (clip.py)
+        return block.append_op(
+            type="fused_adam" if self._fuse_active else "adam",
+            inputs=inputs,
+            outputs={
+                "ParamOut": [p],
+                "Moment1Out": [m1],
+                "Moment2Out": [m2],
+                "Beta1PowOut": [b1p],
+                "Beta2PowOut": [b2p],
+            },
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon},
+        )
+
+
+# reference-compatible alias
+Adam = AdamOptimizer

@@ -140,3 +140,133 @@ def test_engine_on_cuda_matches_cpu(cuda):
         assert (counts["layer_norm"],
                 counts["ragged_paged_attention"]) == want
     assert out["cuda"] == out["cpu"]
+
+
+# -- the training slice's kernels (K3, K4, K5, K10) and Executor ------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C", [(2048, 2048), (300, 2048), (37, 96),
+                                 (5, 8192), (1, 1)])
+def test_layer_norm_bwd_kernel_matches_plain(cuda, R, C, dtype):
+    g = torch.Generator(device=cuda).manual_seed(R * 5 + C)
+    x = (2 * torch.randn(R, C, device=cuda, generator=g) + 0.5).to(dtype)
+    gamma = (1 + 0.1 * torch.randn(C, device=cuda, generator=g)).to(dtype)
+    beta = (0.1 * torch.randn(C, device=cuda, generator=g)).to(dtype)
+    dy = torch.randn(R, C, device=cuda, generator=g).to(dtype)
+    y, mean, rstd = K.layer_norm_fwd(x, gamma, beta)
+    py, pmean, prstd = K.layer_norm_fwd_plain(x, gamma, beta)
+    torch.testing.assert_close(y, py, **TOL[dtype])
+    torch.testing.assert_close(mean, pmean, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(rstd, prstd, atol=2e-5, rtol=2e-5)
+    before = K.layer_norm_bwd.launches
+    got = K.layer_norm_bwd(x, gamma, dy, pmean, prstd)
+    torch.cuda.synchronize()
+    assert K.layer_norm_bwd.launches == before + 1
+    want = K.layer_norm_bwd_plain(x, gamma, dy, pmean, prstd)
+    torch.testing.assert_close(got[0], want[0], **TOL[dtype])
+    # dgamma/dbeta sum R rows in another order than torch: a float32
+    # sum's error grows with its length, so they get 2e-5 * sqrt(R)
+    tol = dict(TOL[dtype], atol=max(TOL[dtype]["atol"], 2e-5 * R ** 0.5))
+    for a, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, w, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C,scale", [(2048, 32000, 1.0), (37, 333, 3.0),
+                                       (64, 4001, 1e4), (3, 1, 1.0)])
+def test_softmax_xent_kernels_match_plain(cuda, R, C, scale, dtype):
+    g = torch.Generator(device=cuda).manual_seed(R + C)
+    logits = (scale * torch.randn(R, C, device=cuda, generator=g)).to(dtype)
+    labels = torch.randint(0, C, (R,), device=cuda, generator=g)
+    labels[0], labels[-1] = 0, C - 1
+    labels[1::7] = -100
+    dloss = torch.rand(R, device=cuda, generator=g) + 0.5
+    loss, lse = K.softmax_xent_fwd(logits, labels)
+    ploss, plse = K.softmax_xent_fwd_plain(logits, labels)
+    torch.testing.assert_close(loss, ploss, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, plse, atol=2e-5, rtol=2e-5)
+    assert (loss[1::7] == 0).all()
+    ds = K.softmax_xent_bwd(logits, labels, lse, dloss)
+    torch.testing.assert_close(
+        ds, K.softmax_xent_bwd_plain(logits, labels, lse, dloss), **TOL[dtype])
+    assert (ds[1::7] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,clip,coeff,off", [(32000 * 2048, None, 0.0, 0),
+                                              (2048, None, 0.0, 0),
+                                              (4097, 0.37, 0.01, 0),
+                                              (8191, 2.5, 0.01, 1)])
+def test_fused_adam_kernel_matches_plain(cuda, n, clip, coeff, off, dtype):
+    """float32 bit for bit (the kernel keeps the reference's order of
+    roundings), bfloat16 within 2e-2; off=1 starts the tensors 4 bytes
+    past 16-byte alignment (the kernel's scalar path)."""
+    g = torch.Generator(device=cuda).manual_seed(n % 1000 + off)
+
+    def make(std, square=False):
+        t = std * torch.randn(n + off, device=cuda, generator=g)
+        return (t.square() if square else t).to(dtype)[off:]
+
+    state = [make(1.0), make(0.1), make(0.01), make(1e-2, square=True)]
+    plain = [t.clone() for t in state]
+    f32 = lambda v: torch.tensor([v], device=cuda)  # noqa: E731
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, weight_decay=coeff,
+              clip_scale=None if clip is None else f32(clip))
+    before = K.fused_adam_update.launches
+    K.fused_adam_update(*state, f32(3e-4), f32(0.9 ** 3), f32(0.999 ** 3), **kw)
+    K.fused_adam_update_plain(*plain, f32(3e-4), f32(0.9 ** 3),
+                              f32(0.999 ** 3), **kw)
+    torch.cuda.synchronize()
+    assert K.fused_adam_update.launches == before + 1
+    for i in (0, 2, 3):
+        if dtype == torch.float32:
+            assert torch.equal(state[i], plain[i])
+        else:
+            torch.testing.assert_close(state[i], plain[i], **TOL[dtype])
+
+
+def test_tiny_gpt_training_on_cuda_matches_cpu(cuda):
+    """The tiny GPT trained by the Executor on the card (kernels) and on
+    the CPU (plain versions) from the same parameters: losses within
+    rtol 1e-4, parameters within 2 * lr per step; exact launches."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import load_scope_arrays
+    from paddle_tpu_torch.models.gpt import build_gpt_lm, synthetic_lm_batch
+
+    cfg = GPTConfig.tiny()
+    lr, steps = 1e-3, 3
+    fluid.set_flags({"optimizer_fuse": "on"})
+    try:
+        with fluid.unique_name.guard():
+            main, startup, _, fetches = build_gpt_lm(
+                cfg, 16, fluid.optimizer.AdamOptimizer(lr))
+    finally:
+        fluid.set_flags({"optimizer_fuse": "auto"})
+    cpu_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu_scope)
+    arrays = {n: cpu_scope.get_numpy(n) for n in cpu_scope.local_var_names()}
+    gpu_scope = fluid.Scope()
+    load_scope_arrays(gpu_scope, arrays, main, cuda)
+    batch = synthetic_lm_batch(np.random.RandomState(0), 4, 16, cfg.vocab_size)
+    losses = {}
+    for name, place, scope in (("cuda", fluid.CUDAPlace(0), gpu_scope),
+                               ("cpu", fluid.CPUPlace(), cpu_scope)):
+        exe = fluid.Executor(place)
+        K.reset_launch_counts()
+        losses[name] = [float(exe.run(main, feed=batch,
+                                      fetch_list=[fetches["loss"]],
+                                      scope=scope)[0]) for _ in range(steps)]
+        counts = K.launch_counts()
+        L = cfg.num_layers
+        want = (0, 0, 0, 0, 0) if name == "cpu" else (
+            (2 * L + 1) * steps, (2 * L + 1) * steps, steps, steps,
+            (12 * L + 6) * steps)
+        assert (counts["layer_norm"], counts["layer_norm_bwd"],
+                counts["softmax_xent_fwd"], counts["softmax_xent_bwd"],
+                counts["fused_adam_update"]) == want
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    for p in main.all_parameters():
+        np.testing.assert_allclose(gpu_scope.get_numpy(p.name),
+                                   cpu_scope.get_numpy(p.name), rtol=0,
+                                   atol=2 * lr * steps, err_msg=p.name)

@@ -73,7 +73,18 @@ def test_port_package_imports_no_jax_or_paddle_tpu():
     for mod in ("paddle_tpu_torch.generation.engine",
                 "paddle_tpu_torch.inference.predictor",
                 "paddle_tpu_torch.kernels.ragged_paged_attention",
-                "paddle_tpu_torch.kernels._build"):
+                "paddle_tpu_torch.kernels._build",
+                # the training slice's subpackages and modules
+                "paddle_tpu_torch.core.framework",
+                "paddle_tpu_torch.core.registry",
+                "paddle_tpu_torch.core.backward",
+                "paddle_tpu_torch.core.executor",
+                "paddle_tpu_torch.layers.nn",
+                "paddle_tpu_torch.ops.nn",
+                "paddle_tpu_torch.ops.optim",
+                "paddle_tpu_torch.optimizer",
+                "paddle_tpu_torch.kernels.softmax_xent",
+                "paddle_tpu_torch.kernels.fused_optim"):
         assert mod in res["port"]
 
 

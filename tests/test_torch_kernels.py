@@ -217,8 +217,23 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert torch.equal(out, ref)
     x, g, b = (t(a) for a in _ln_inputs(9, 16))
     assert torch.equal(K.layer_norm(x, g, b), K.layer_norm_plain(x, g, b))
-    assert K.launch_counts() == {"layer_norm": 0,
-                                 "ragged_paged_attention": 0}
+    # the training slice's kernels too
+    y, mean, rstd = K.layer_norm_fwd(x, g, b)
+    for got, want in zip(K.layer_norm_bwd(x, g, y, mean, rstd),
+                         K.layer_norm_bwd_plain(x, g, y, mean, rstd)):
+        assert torch.equal(got, want)
+    labels = torch.tensor([0, 3, 15, 7, 1, 2, 3, 4, 5])
+    loss, lse = K.softmax_xent_fwd(x, labels)
+    assert torch.equal(loss, K.softmax_xent_fwd_plain(x, labels)[0])
+    assert torch.equal(K.softmax_xent_bwd(x, labels, lse, loss),
+                       K.softmax_xent_bwd_plain(x, labels, lse, loss))
+    one = torch.ones(1)
+    K.fused_adam_update(x, y, x.clone(), x.square(), one, 0.5 * one,
+                        0.5 * one)
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS}
+    assert sorted(K.KERNELS) == sorted([
+        "layer_norm", "ragged_paged_attention", "layer_norm_bwd",
+        "softmax_xent_fwd", "softmax_xent_bwd", "fused_adam_update"])
 
 
 def test_wrappers_refuse_other_devices_instead_of_falling_back():
@@ -258,10 +273,22 @@ def test_wrappers_check_their_inputs(bad):
 
 
 def test_build_sources_and_hash(tmp_path, monkeypatch):
-    """Both kernels are built from csrc/, and the library name follows
+    """Every kernel is built from csrc/, and the library name follows
     the sources: an edit gives a new hash (a rebuild)."""
     names = [p.name for p in _build.sources()]
-    assert names == ["layer_norm.cu", "ragged_paged_attention.cu"]
+    assert names == ["fused_optim.cu", "layer_norm.cu",
+                     "ragged_paged_attention.cu", "softmax_xent.cu"]
+    # every C entry the wrappers bind is declared with its argtypes
+    for src, entries in (("fused_optim.cu", ["pt_fused_adam"]),
+                         ("softmax_xent.cu", ["pt_softmax_xent_fwd",
+                                              "pt_softmax_xent_bwd"]),
+                         ("layer_norm.cu", ["pt_layer_norm_fwd",
+                                            "pt_layer_norm_bwd",
+                                            "pt_layer_norm_bwd_scratch_rows"])):
+        text = (_build.CSRC_DIR / src).read_text()
+        for entry in entries:
+            assert f'extern "C" int {entry}(' in text
+            assert entry in _build.SIGNATURES
     h0 = _build.source_hash()
     copy = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, copy)
