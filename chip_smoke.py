@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + device time by kernel group in
-                                     #   phases 3 and 4
+                                     #   phases 3, 4 and 6
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -16,6 +16,9 @@ Phases, in order; any failure exits non-zero without the result line:
    cases; times (CUDA events, median of 21 runs) of the kernel, the
    plain version and one PyTorch library call computing the same
    function, beside the least time the card could take (``bound_ms``).
+   Flash attention (K6-K9) at the gpt3_1p3b and BERT-large shapes, at
+   S = 4096, S = 1000, with a fully masked row and with the four bias
+   shapes (dbias checked too); SDPA is its yardstick.
 3. serving: ``GPTConfig.gpt3_1p3b()`` at full width (seeded random
    weights made on the card) served by the ragged ``GenerationEngine``
    at its default geometry; 16 requests from 4 client threads. Every
@@ -26,15 +29,22 @@ Phases, in order; any failure exits non-zero without the result line:
 4. training: ``build_gpt_lm(GPTConfig.gpt3_1p3b(), 1024,
    AdamOptimizer(3e-4))`` (24 layers, hidden 2048, dropout 0.1) run by
    the port's ``Executor`` on the card: the startup program, then 10
-   steps on one ``synthetic_lm_batch`` of 2 x 1024 tokens. Losses must
-   be finite and the last below the first; every step must launch
-   K1 = K3 = 49, K4 = K5 = 1 and K10 = 294 times. Prints the mean step
-   ms, training tokens/s and peak memory.
-5. card against CPU: a 2-layer GPT at full width (hidden 2048, vocab
-   32000, seq 128, batch 2, dropout 0) from the same numpy-seeded
-   parameters (``io.load_scope_arrays``), 3 fused-Adam steps on CUDA
-   (kernels) and on the CPU (plain versions): losses within rtol 1e-3,
-   parameters within 2 * lr per step taken.
+   steps on one ``synthetic_lm_batch`` of 2 x 1024 tokens; then 5 steps
+   with ``use_flash_attention=True``. Losses must be finite and the
+   last below the first; every step must launch K1 = K3 = 49,
+   K4 = K5 = 1 and K10 = 294 times, and with flash 24 forward and 24
+   backward flash launches (each of the backward's 3 kernels 24 times).
+   Prints the mean step ms, training tokens/s and peak memory.
+5. card against CPU: 2-layer models at full width from the same
+   numpy-seeded parameters (``io.load_scope_arrays``), 3 fused-Adam
+   steps on CUDA (kernels) and on the CPU (plain versions): GPT
+   (op-graph and flash, float32; losses within rtol 1e-3) and BERT
+   (flash, bfloat16 AMP; rtol 2e-3), parameters within 2 * lr per step.
+6. BERT-large pretraining: ``BertConfig.large()`` at full size, seq 512,
+   batch 8 of ``synthetic_batch(min_len=128)``, flash attention with the
+   key mask, ``decorate(AdamOptimizer(1e-4), init_loss_scaling=1.0,
+   use_dynamic_loss_scaling=False, dest_dtype="bfloat16")``, fused Adam,
+   10 steps with exact launches every step; mean step, tokens/s, peak.
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -431,6 +441,147 @@ def check_fused_adam(torch, K, dtype_name, gen):
     return results["main"]
 
 
+# -- phase 2: flash attention -----------------------------------------------------
+
+# (name, [B, H, S, D], causal, mask, dtypes, timed): the gpt3_1p3b and
+# BERT-large shapes of phases 4 and 6 (phase 6 feeds float32 q, k, v: its
+# qkv projection's bfloat16 output meets a float32 bias), the K7/K9
+# regime of the TPU (S > 2048), a ragged S, a fully masked row
+FLASH_CASES = (
+    ("gpt3_1p3b", (2, 16, 1024, 128), True, None,
+     ("float32", "bfloat16"), True),
+    ("bert_large", (8, 16, 512, 64), False, "batch",
+     ("float32", "bfloat16"), True),
+    ("long", (1, 16, 4096, 128), True, None, ("bfloat16",), True),
+    ("ragged", (2, 8, 1000, 64), False, "random", ("float32",), False),
+    ("fully_masked", (2, 4, 256, 64), False, "dead_row", ("float32",), False),
+)
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # sums over S keys
+FLASH_BIAS = ((2, 4, 384, 64), ((2, 4), (1, 4), (2, 1), (1, 1)))
+
+
+def flash_bytes_ops(q, causal, bwd):
+    """Bytes (q, k, v, o and lse; dO, dq, dk, dv too for the backward)
+    and flops (4 B H S^2 D forward, 10 B H S^2 D backward, half causal)."""
+    B, H, S, D = q.shape
+    item = q.element_size()
+    nbytes = (8 if bwd else 4) * B * H * S * D * item + 4 * B * H * S
+    ops = (10 if bwd else 4) * B * H * S * S * D
+    return nbytes, ops / 2 if causal else ops
+
+
+def flash_mask(torch, np, kind, B, S, seed):
+    if kind is None:
+        return None
+    if kind == "batch":    # phase 6's padded batch: lengths 128..512
+        from paddle_tpu_torch.models.bert import synthetic_batch
+
+        keep = synthetic_batch(np.random.RandomState(seed), B, S, 30522,
+                               min_len=128)["input_mask"] > 0.5
+    else:
+        keep = np.random.RandomState(seed).rand(B, S) > 0.3
+        keep[:, 0] = True
+        if kind == "dead_row":
+            keep[1] = False
+    return torch.as_tensor(np.where(keep, 0.0, -1e30).astype(np.float32)
+                           ).to(DEVICE)
+
+
+def check_flash(torch, np, K, gen, seed):
+    """K6-K9: the forward and backward kernels against their plain
+    versions (o, lse, dq, dk, dv, dbias), timed beside the plain
+    versions and SDPA with the same mask or causal setting."""
+    import torch.nn.functional as F
+
+    rows = {"flash_attention_fwd": {}, "flash_attention_bwd": {}}
+    for name, shape, causal, mkind, dtypes, timed in FLASH_CASES:
+        B, H, S, D = shape
+        mask = flash_mask(torch, np, mkind, B, S, seed)
+        for dt_name in dtypes:
+            dt = getattr(torch, dt_name)
+            q, k, v, do = (torch.randn(*shape, device=DEVICE, generator=gen)
+                           .to(dt) for _ in range(4))
+            scale = D ** -0.5
+            what = f"flash_attention {dt_name} {name} {list(shape)}"
+            o, lse = K.flash_attention_fwd(q, k, v, mask, None, scale, causal)
+            po, plse = K.flash_attention_fwd_plain(q, k, v, mask, None, scale,
+                                                   causal)
+            errf = max(compare(torch, o, po, dt_name, f"{what} o"),
+                       compare(torch, lse, plse, "float32", f"{what} lse",
+                               atol=1e-4))
+            if mkind == "dead_row":
+                mean_v = v[1].float().mean(dim=1, keepdim=True).expand(
+                    H, S, D)
+                compare(torch, o[1], mean_v, dt_name, f"{what} uniform row")
+            got = K.flash_attention_bwd(q, k, v, mask, None, o, lse, do,
+                                        scale, causal)
+            want = K.flash_attention_bwd_plain(q, k, v, mask, None, o, lse,
+                                               do, scale, causal)
+            errb = max(compare(torch, a, w, dt_name, f"{what} {n}",
+                               atol=FLASH_BWD_TOL[dt_name])
+                       for n, a, w in zip(("dq", "dk", "dv"), got, want))
+            rowf, rowb = {"max_abs_err": errf}, {"max_abs_err": errb}
+            if timed:
+                reps = 5 if name == "long" else 21
+                am = None if mask is None else mask[:, None, None, :].to(dt)
+                lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+                lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=am,
+                                                    is_causal=causal)
+                for row, bwd, kern, plain, lib in (
+                        (rowf, False,
+                         lambda: K.flash_attention_fwd(q, k, v, mask, None,
+                                                       scale, causal),
+                         lambda: K.flash_attention_fwd_plain(
+                             q, k, v, mask, None, scale, causal),
+                         lambda: F.scaled_dot_product_attention(
+                             q, k, v, attn_mask=am, is_causal=causal)),
+                        (rowb, True,
+                         lambda: K.flash_attention_bwd(
+                             q, k, v, mask, None, o, lse, do, scale, causal),
+                         lambda: K.flash_attention_bwd_plain(
+                             q, k, v, mask, None, o, lse, do, scale, causal),
+                         lambda: torch.autograd.grad(
+                             lo, (lq, lk, lv), do, retain_graph=True))):
+                    bms, by = bound_ms(*flash_bytes_ops(q, causal, bwd),
+                                       dt_name)
+                    row.update(ms=device_ms(torch, kern, reps=reps),
+                               plain_ms=device_ms(torch, plain, reps=reps),
+                               library_ms=device_ms(torch, lib, reps=reps),
+                               bound_ms=bms, bound_by=by)
+                del lo
+                key = name if dt_name == "float32" else f"{name}_{dt_name}"
+                rows["flash_attention_fwd"][key] = rowf
+                rows["flash_attention_bwd"][key] = rowb
+            log(f"  {what} fwd: {fmt(rowf, dt_name)}")
+            log(f"  {what} bwd: {fmt(rowb, dt_name)}")
+    # the four bias shapes, each with its dbias (a sum over the
+    # broadcast dims: its tolerance grows with their count)
+    shape, bshapes = FLASH_BIAS
+    B, H, S, D = shape
+    q, k, v, do = (torch.randn(*shape, device=DEVICE, generator=gen)
+                   for _ in range(4))
+    mask = flash_mask(torch, np, "random", B, S, seed)
+    for bs in bshapes:
+        bias = torch.randn(*bs, S, S, device=DEVICE, generator=gen)
+        what = f"flash_attention float32 bias {list(bs) + [S, S]}"
+        o, lse = K.flash_attention_fwd(q, k, v, mask, bias, D ** -0.5, False)
+        po, _ = K.flash_attention_fwd_plain(q, k, v, mask, bias, D ** -0.5,
+                                            False)
+        err = compare(torch, o, po, "float32", f"{what} o")
+        got = K.flash_attention_bwd(q, k, v, mask, bias, o, lse, do,
+                                    D ** -0.5, False)
+        want = K.flash_attention_bwd_plain(q, k, v, mask, bias, o, lse, do,
+                                           D ** -0.5, False)
+        summed = (B // bs[0]) * (H // bs[1])
+        for n, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+            require(tuple(a.shape) == tuple(w.shape), f"{what} {n} shape")
+            atol = 1e-4 * (summed if n == "dbias" else 1)
+            err = max(err, compare(torch, a, w, "float32", f"{what} {n}",
+                                   atol=atol))
+        log(f"  {what}: max_err={err:.3e} (dbias atol 1e-4 x {summed})")
+    return rows
+
+
 # -- phase 3: the slice ------------------------------------------------------------
 
 
@@ -456,6 +607,8 @@ KERNEL_GROUPS = (("ragged_paged_attention", "ragged_paged_attention (K2)"),
                  ("softmax_xent_fwd", "softmax_xent_fwd (K4)"),
                  ("softmax_xent_bwd", "softmax_xent_bwd (K5)"),
                  ("adam_kernel", "fused_adam (K10)"),
+                 ("flash_fwd", "flash_attention_fwd (K6/K7)"),
+                 ("flash_d", "flash_attention_bwd (K8/K9)"),
                  ("gemm", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"),
                  ("index", "index/scatter/gather"),
                  ("scatter", "index/scatter/gather"),
@@ -638,43 +791,18 @@ def serve(torch, np, seed, card, out_dir, profile=False):
 # -- phase 4: training -------------------------------------------------------------
 
 
-def train(torch, np, seed, card, out_dir, profile=False, steps=10):
-    """gpt3_1p3b trained by the port's Executor through the K1, K3, K4,
-    K5 and K10 kernels; exact launch counts every step."""
-    import paddle_tpu_torch as fluid
-    from paddle_tpu_torch import kernels as K
-    from paddle_tpu_torch.models.gpt import (GPTConfig, build_gpt_lm,
-                                             synthetic_lm_batch)
-
-    cfg = GPTConfig.gpt3_1p3b()
-    L = cfg.num_layers
-    t0 = time.perf_counter()
-    fluid.set_flags({"optimizer_fuse": "auto"})   # on: a CUDA device exists
-    with fluid.unique_name.guard():
-        main, startup, _, fetches = build_gpt_lm(
-            cfg, TRAIN_SEQ, fluid.optimizer.AdamOptimizer(3e-4))
-    main.random_seed = startup.random_seed = seed
-    types = [op.type for op in main.global_block().ops]
-    require(types.count("fused_adam") == 12 * L + 6 and "adam" not in types,
-            f"the program holds {types.count('fused_adam')} fused_adam ops")
-    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
-    build_s = time.perf_counter() - t0
-    scope = fluid.Scope()
-    exe = fluid.Executor(fluid.CUDAPlace(0))
-    t0 = time.perf_counter()
-    exe.run(startup, scope=scope)
-    torch.cuda.synchronize()
-    log(f"  program built in {build_s:.1f} s ({len(types)} ops, {n_params} "
-        f"parameters), startup run in {time.perf_counter() - t0:.1f} s")
-    batch = synthetic_lm_batch(np.random.RandomState(seed), TRAIN_BATCH,
-                               TRAIN_SEQ, cfg.vocab_size)
-    want = {name: 0 for name in K.KERNELS}
-    want.update(layer_norm=2 * L + 1, layer_norm_bwd=2 * L + 1,
-                softmax_xent_fwd=1, softmax_xent_bwd=1,
-                fused_adam_update=12 * L + 6)
-    totals = {name: 0 for name in K.KERNELS}
+def run_steps(torch, np, K, exe, main, scope, batch, loss, want, steps,
+              tokens, card, out_dir, name, profile=False):
+    """``steps`` Executor runs of ``main`` on one fixed batch: every step
+    must launch exactly ``want`` (per kernel; the flash backward's delta,
+    dq and dk/dv kernels each as often as the backward); losses finite
+    and falling. Returns the path's launch totals and its numbers."""
+    totals = {n: 0 for n in K.KERNELS}
+    want_bwd = {n: want["flash_attention_bwd"]
+                for n in K.flash_attention_bwd.kernel_launches}
     losses, step_ms = [], []
     torch.cuda.reset_peak_memory_stats()
+
     # host-side events a slow step may owe its time to: full (gen 2)
     # Python GC passes and cudaMalloc calls of the caching allocator
     def host_events():
@@ -685,29 +813,33 @@ def train(torch, np, seed, card, out_dir, profile=False, steps=10):
         K.reset_launch_counts()
         ev0 = host_events()
         t = time.perf_counter()
-        (loss,) = exe.run(main, feed=batch, fetch_list=[fetches["loss"]],
-                          scope=scope)
+        (lv,) = exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
         ev = [b - a for a, b in zip(ev0, host_events())]
         counts = K.launch_counts()
         require(counts == want, f"step {s}: launches {counts}, want {want}")
-        for name, n in counts.items():
-            totals[name] += n
-        losses.append(float(loss))
+        bwd = dict(K.flash_attention_bwd.kernel_launches)
+        require(bwd == want_bwd, f"step {s}: flash backward kernels {bwd}, "
+                f"want {want_bwd}")
+        for n, c in counts.items():
+            totals[n] += c
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
         log(f"  step {s}: loss {losses[-1]:.6f} in {step_ms[-1]:.3f} ms "
             f"(gen-2 GC passes {ev[0]}, cudaMalloc calls {ev[1]})")
     peak = torch.cuda.max_memory_allocated()
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    log(f"  launches, exactly, every step: "
+        f"{ {n: c for n, c in want.items() if c} }; flash backward kernels "
+        f"{want_bwd}")
     mean_ms = statistics.mean(step_ms[1:])
     perf = {"losses": losses, "step_ms": step_ms, "first_step_ms": step_ms[0],
-            "step_ms_mean": mean_ms,
-            "tokens_per_s": TRAIN_ROWS / (mean_ms / 1e3),
-            "max_memory_allocated_gb": peak / 1e9, "parameters": n_params,
-            "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": steps,
-            "launches_per_step": want, "card": card}
-    log(f"  trained {steps} steps of {TRAIN_ROWS} tokens: mean step "
+            "step_ms_mean": mean_ms, "tokens_per_s": tokens / (mean_ms / 1e3),
+            "max_memory_allocated_gb": peak / 1e9, "steps": steps,
+            "tokens_per_step": tokens, "launches_per_step": want,
+            "card": card}
+    log(f"  trained {steps} steps of {tokens} tokens: mean step "
         f"{mean_ms:.3f} ms over steps 1..{steps - 1} (first "
         f"{step_ms[0]:.3f} ms), {perf['tokens_per_s']:.2f} tokens/s, "
         f"max_memory_allocated {peak / 1e9:.2f} GB [{card}]")
@@ -715,36 +847,164 @@ def train(torch, np, seed, card, out_dir, profile=False, steps=10):
         prof = start_profile(torch)
         t = time.perf_counter()
         for _ in range(2):
-            exe.run(main, feed=batch, fetch_list=[fetches["loss"]],
-                    scope=scope)
+            exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         prof.__exit__(None, None, None)
-        perf["profile"] = trace_breakdown(prof, out_dir, "train", wall)
+        perf["profile"] = trace_breakdown(prof, out_dir, name, wall)
+    return totals, perf
+
+
+def startup_on_card(torch, np, fluid, main, startup, seed):
+    main.random_seed = startup.random_seed = seed
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    log(f"  {len(main.global_block().ops)} ops, {n_params} parameters; "
+        f"startup run in {time.perf_counter() - t0:.1f} s")
+    return exe, scope, n_params
+
+
+def train(torch, np, seed, card, out_dir, profile=False, steps=10,
+          flash=False):
+    """gpt3_1p3b trained by the port's Executor through the K1, K3, K4,
+    K5 and K10 kernels (and K6-K9 with ``flash``); exact launch counts
+    every step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models.gpt import (GPTConfig, build_gpt_lm,
+                                             synthetic_lm_batch)
+
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.use_flash_attention = flash
+    L = cfg.num_layers
+    fluid.set_flags({"optimizer_fuse": "auto"})   # on: a CUDA device exists
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_gpt_lm(
+            cfg, TRAIN_SEQ, fluid.optimizer.AdamOptimizer(3e-4))
+    types = [op.type for op in main.global_block().ops]
+    require(types.count("fused_adam") == 12 * L + 6 and "adam" not in types,
+            f"the program holds {types.count('fused_adam')} fused_adam ops")
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    batch = synthetic_lm_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                               TRAIN_SEQ, cfg.vocab_size)
+    want = {name: 0 for name in K.KERNELS}
+    want.update(layer_norm=2 * L + 1, layer_norm_bwd=2 * L + 1,
+                softmax_xent_fwd=1, softmax_xent_bwd=1,
+                fused_adam_update=12 * L + 6)
+    if flash:
+        want.update(flash_attention_fwd=L, flash_attention_bwd=L)
+    totals, perf = run_steps(torch, np, K, exe, main, scope, batch,
+                             fetches["loss"], want, steps, TRAIN_ROWS, card,
+                             out_dir, "train_flash" if flash else "train",
+                             profile)
+    perf.update(parameters=n_params, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                flash=flash)
+    return totals, perf
+
+
+# -- phase 6: BERT-large pretraining under bfloat16 AMP ------------------------------
+
+
+BERT_BATCH, BERT_SEQ = 8, 512
+
+
+def train_bert(torch, np, seed, card, out_dir, profile=False, steps=10):
+    """BertConfig.large() at full width and depth, flash attention with
+    the padded batch's key mask, bfloat16 AMP as the JAX bench runs it
+    (bench.py:248-250), fused Adam; exact launch counts every step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
+    from paddle_tpu_torch.models.bert import (BertConfig, build_bert_pretrain,
+                                              synthetic_batch)
+
+    cfg = BertConfig.large()
+    cfg.use_flash_attention = True
+    L = cfg.num_layers
+    fluid.set_flags({"optimizer_fuse": "auto"})
+    opt = decorate(fluid.optimizer.AdamOptimizer(1e-4), init_loss_scaling=1.0,
+                   use_dynamic_loss_scaling=False, dest_dtype="bfloat16")
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_bert_pretrain(cfg, BERT_SEQ, opt)
+    types = [op.type for op in main.global_block().ops]
+    n_adam = types.count("fused_adam")
+    require(n_adam == len(main.all_parameters()) and "adam" not in types,
+            f"{n_adam} fused_adam ops for {len(main.all_parameters())} "
+            "parameters")
+    require(types.count("flash_attention") == L, "flash ops")
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    batch = synthetic_batch(np.random.RandomState(seed), BERT_BATCH,
+                            BERT_SEQ, cfg.vocab_size, min_len=128)
+    want = {name: 0 for name in K.KERNELS}
+    want.update(layer_norm=2 * L + 1, layer_norm_bwd=2 * L + 1,
+                softmax_xent_fwd=1, softmax_xent_bwd=1,
+                fused_adam_update=n_adam, flash_attention_fwd=L,
+                flash_attention_bwd=L)
+    totals, perf = run_steps(torch, np, K, exe, main, scope, batch,
+                             fetches["loss"], want, steps,
+                             BERT_BATCH * BERT_SEQ, card, out_dir, "bert",
+                             profile)
+    perf.update(parameters=n_params, batch=BERT_BATCH, seq_len=BERT_SEQ,
+                real_tokens=int(batch["input_mask"].sum()))
     return totals, perf
 
 
 # -- phase 5: card against CPU -------------------------------------------------------
 
 
-def card_vs_cpu(torch, np, seed, steps=3, lr=3e-4):
-    """A 2-layer GPT at full width trained from the same numpy-seeded
-    parameters on the card (kernels) and on the CPU (plain versions)."""
+# card-vs-CPU bound on the losses: float32 differs by summation order
+# only (1e-3, as phase 5 has always held it); under bfloat16 AMP cuBLAS
+# and the CPU's GEMM round a product to bfloat16 after sums in another
+# order, so an activation can be one bfloat16 step (2^-8) apart, and the
+# loss, a mean over 256 tokens of such values, gets 2e-3
+CARD_VS_CPU_RTOL = {"gpt": 1e-3, "gpt_flash": 1e-3, "bert_amp_flash": 2e-3}
+
+
+def card_vs_cpu(torch, np, seed, model="gpt", steps=3, lr=3e-4):
+    """A 2-layer model at full width trained from the same numpy-seeded
+    parameters on the card (kernels) and on the CPU (plain versions):
+    gpt3_1p3b's widths with op-graph or flash attention (float32), or
+    BERT-large's widths with flash attention under bfloat16 AMP."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
     from paddle_tpu_torch.core.framework import Parameter
     from paddle_tpu_torch.io import load_scope_arrays
+    from paddle_tpu_torch.models.bert import (BertConfig, build_bert_pretrain,
+                                              synthetic_batch)
     from paddle_tpu_torch.models.gpt import (GPTConfig, build_gpt_lm,
                                              synthetic_lm_batch)
 
-    cfg = GPTConfig(vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=2,
-                    num_heads=16, ffn_size=8192, max_position=1024,
-                    hidden_dropout=0.0, attention_dropout=0.0)
     seq = 128
     fluid.set_flags({"optimizer_fuse": "on"})
+    opt = fluid.optimizer.AdamOptimizer(lr)
     with fluid.unique_name.guard():
-        main, startup, _, fetches = build_gpt_lm(
-            cfg, seq, fluid.optimizer.AdamOptimizer(lr))
+        if model.startswith("gpt"):
+            cfg = GPTConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
+                            num_layers=2, num_heads=16, ffn_size=8192,
+                            max_position=1024, hidden_dropout=0.0,
+                            attention_dropout=0.0,
+                            use_flash_attention=model == "gpt_flash")
+            main, startup, _, fetches = build_gpt_lm(cfg, seq, opt)
+            batch = synthetic_lm_batch(np.random.RandomState(seed), 2, seq,
+                                       VOCAB)
+        else:
+            cfg = BertConfig.large()
+            cfg.num_layers, cfg.use_flash_attention = 2, True
+            cfg.hidden_dropout = cfg.attention_dropout = 0.0
+            opt = decorate(opt, init_loss_scaling=1.0,
+                           use_dynamic_loss_scaling=False,
+                           dest_dtype="bfloat16")
+            main, startup, _, fetches = build_bert_pretrain(cfg, seq, opt)
+            batch = synthetic_batch(np.random.RandomState(seed), 2, seq,
+                                    cfg.vocab_size, min_len=64)
+    n_adam = [op.type for op in main.global_block().ops].count("fused_adam")
     cpu, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
     cpu.run(startup, scope=cpu_scope)      # moments, beta pows, lr
     rng = np.random.default_rng(seed)
@@ -764,22 +1024,26 @@ def card_vs_cpu(torch, np, seed, steps=3, lr=3e-4):
     gpu, gpu_scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
     load_scope_arrays(cpu_scope, arrays, main, "cpu")
     load_scope_arrays(gpu_scope, arrays, main, DEVICE)
-    batch = synthetic_lm_batch(np.random.RandomState(seed), 2, seq, VOCAB)
     losses = {}
     for name, exe, scope in (("cuda", gpu, gpu_scope), ("cpu", cpu, cpu_scope)):
         K.reset_launch_counts()
         t = time.perf_counter()
-        losses[name] = [float(exe.run(main, feed=batch,
-                                      fetch_list=[fetches["loss"]],
-                                      scope=scope)[0]) for _ in range(steps)]
+        losses[name] = [float(np.asarray(exe.run(
+            main, feed=batch, fetch_list=[fetches["loss"]],
+            scope=scope)[0]).reshape(-1)[0]) for _ in range(steps)]
         log(f"  {name}: losses {losses[name]} in "
             f"{time.perf_counter() - t:.1f} s; launches {K.launch_counts()}")
         if name == "cuda":
-            require(K.launch_counts()["fused_adam_update"] == 30 * steps,
+            counts = K.launch_counts()
+            flash = "flash" in model
+            require(counts["fused_adam_update"] == n_adam * steps
+                    and counts["flash_attention_bwd"]
+                    == (cfg.num_layers * steps if flash else 0),
                     "the card's run did not go through the kernels")
+    rtol = CARD_VS_CPU_RTOL[model]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                   losses["cpu"]))
-    require(rel <= 1e-3, f"card vs CPU losses differ by {rel:.3e} > 1e-3")
+    require(rel <= rtol, f"card vs CPU losses differ by {rel:.3e} > {rtol}")
     limit = 2 * lr * steps
     worst, worst_name = 0.0, ""
     for p in main.all_parameters():
@@ -789,10 +1053,10 @@ def card_vs_cpu(torch, np, seed, steps=3, lr=3e-4):
             worst, worst_name = d, p.name
     require(worst <= limit, f"card vs CPU parameter {worst_name} differs by "
             f"{worst:.3e} > 2 * lr * steps = {limit:.1e}")
-    log(f"  losses agree within {rel:.3e} (rtol 1e-3); parameters within "
+    log(f"  losses agree within {rel:.3e} (rtol {rtol}); parameters within "
         f"{worst:.3e} ({worst_name}; limit 2 * lr * steps = {limit:.1e})")
-    return {"losses": losses, "loss_rel_err": rel, "param_max_abs_err": worst,
-            "param_limit": limit}
+    return {"losses": losses, "loss_rel_err": rel, "loss_rtol": rtol,
+            "param_max_abs_err": worst, "param_limit": limit}
 
 
 # -- main ---------------------------------------------------------------------------
@@ -807,7 +1071,7 @@ def main(argv=None) -> int:
                     help="trace the serving run and two training steps "
                     "with torch.profiler and print device time by kernel "
                     "group and the idle share")
-    ap.add_argument("--phases", default="2345",
+    ap.add_argument("--phases", default="23456",
                     help="phases to run after the build (a debugging aid: "
                     "only a run of all of them prints the result line)")
     args = ap.parse_args(argv)
@@ -858,6 +1122,7 @@ def main(argv=None) -> int:
                     rows.setdefault("softmax_xent_bwd", {})[dt] = out[1]
                 else:
                     rows.setdefault(name, {})[dt] = out
+        rows.update(check_flash(torch, np, K, gen, args.seed))
         record["kernels"] = rows
     # launches of each kernel on the main paths, read just after each
     paths = {}
@@ -871,27 +1136,46 @@ def main(argv=None) -> int:
         paths["train"], record["train"] = train(
             torch, np, args.seed, card, args.out, profile=args.profile)
         torch.cuda.empty_cache()
+        log("phase 4: gpt3_1p3b with flash attention trained by the Executor")
+        paths["train_flash"], record["train_flash"] = train(
+            torch, np, args.seed, card, args.out, profile=args.profile,
+            steps=5, flash=True)
+        torch.cuda.empty_cache()
     if "5" in args.phases:
-        log("phase 5: a 2-layer gpt3_1p3b-width GPT, card against CPU")
-        record["card_vs_cpu"] = card_vs_cpu(torch, np, args.seed)
+        record["card_vs_cpu"] = {}
+        for model, what in (("gpt", "gpt3_1p3b-width GPT"),
+                            ("gpt_flash", "gpt3_1p3b-width GPT, flash"),
+                            ("bert_amp_flash",
+                             "BERT-large-width BERT, flash, bfloat16 AMP")):
+            log(f"phase 5: a 2-layer {what}, card against CPU")
+            record["card_vs_cpu"][model] = card_vs_cpu(torch, np, args.seed,
+                                                       model)
+        torch.cuda.empty_cache()
+    if "6" in args.phases:
+        log("phase 6: BERT-large pretrained under bfloat16 AMP with flash "
+            "attention")
+        paths["bert"], record["bert"] = train_bert(
+            torch, np, args.seed, card, args.out, profile=args.profile)
+        torch.cuda.empty_cache()
     launches = {name: {p: c[name] for p, c in paths.items()}
                 for name in K.KERNELS}
     record["launches"] = launches
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
 
-    log("summary: kernels at the main paths' shapes (launches: phases 3 "
-        "and 4, which run in float32)")
+    log("summary: kernels at the main paths' shapes (launches: phases 3, "
+        "4 and 6)")
     for name, by_dt in rows.items():
-        for dt, row in by_dt.items():
-            log(f"  {name} {dt}: {fmt(row, dt)} launches={launches[name]} "
+        for key, row in by_dt.items():
+            dt = "bfloat16" if "bfloat16" in key else "float32"
+            log(f"  {name} {key}: {fmt(row, dt)} launches={launches[name]} "
                 f"[{card}]")
-    if args.phases != "2345":
+    if args.phases != "23456":
         log(f"phases {args.phases} only: no result line")
         return 0
 
-    def entry(name, src, replaces):
-        row = rows[name]["float32"]
+    def entry(name, src, replaces, key="float32"):
+        row = rows[name][key]
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces,
                 "launches": sum(launches[name].values()),
@@ -913,6 +1197,12 @@ def main(argv=None) -> int:
               "paddle_tpu/kernels/softmax_xent.py:127"),
         entry("fused_adam_update", csrc + "fused_optim.cu",
               "paddle_tpu/kernels/fused_optim.py:134"),
+        # the gpt3_1p3b float32 row (phase 4's shape); the BERT-large row
+        # and the bfloat16 rows are in chip_smoke.json and the log
+        entry("flash_attention_fwd", csrc + "flash_attention.cu",
+              "paddle_tpu/kernels/flash_attention.py:169", "gpt3_1p3b"),
+        entry("flash_attention_bwd", csrc + "flash_attention.cu",
+              "paddle_tpu/kernels/flash_attention.py:641", "gpt3_1p3b"),
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never launched on a main path")

@@ -18,9 +18,12 @@ Ported so far:
       eng = GenerationEngine(pred, pred.gpt_config)
       eng.generate([1, 5, 9], max_new_tokens=32)
 
-* training: the Program IR, ``append_backward``, ``AdamOptimizer`` and
+* training: the Program IR, ``append_backward``, ``AdamOptimizer``,
+  the bfloat16 AMP decorator (``contrib.mixed_precision.decorate``) and
   an eager ``Executor``, with CUDA kernels for the layer-norm backward,
-  softmax cross-entropy forward and backward, and the fused Adam update;
+  softmax cross-entropy forward and backward, flash attention forward
+  and backward, and the fused Adam update; GPT (``models.gpt``) and BERT
+  pretraining (``models.bert``) build on it;
 
       import paddle_tpu_torch as fluid
       main, startup = fluid.Program(), fluid.Program()
@@ -39,7 +42,7 @@ Entry points run on CUDA unless the caller names the CPU
 falling back.
 """
 
-from . import layers, nets, ops, optimizer  # ops: registers the lowerings
+from . import contrib, layers, nets, ops, optimizer  # ops: the lowerings
 from .core import framework
 from .core.backward import append_backward
 from .core.executor import Executor, Scope, global_scope, scope_guard
@@ -51,7 +54,8 @@ from .device import resolve_device
 from .flags import get_flags, set_flags
 from .param_attr import ParamAttr
 
-__all__ = ["resolve_device", "layers", "nets", "optimizer", "framework",
+__all__ = ["resolve_device", "contrib", "layers", "nets", "optimizer",
+           "framework",
            "append_backward", "Executor", "Scope", "global_scope",
            "scope_guard", "Program", "Variable", "default_main_program",
            "default_startup_program", "program_guard", "unique_name",

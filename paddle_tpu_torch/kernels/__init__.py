@@ -8,6 +8,8 @@ plain PyTorch version (the CPU path and the numerics oracle).
 | K3 | ``layer_norm_bwd`` | ``csrc/layer_norm.cu`` | ``kernels/layer_norm.py`` ``_vjp_bwd`` |
 | K4 | ``softmax_xent_fwd`` | ``csrc/softmax_xent.cu`` | ``kernels/softmax_xent.py`` ``_fwd_impl`` |
 | K5 | ``softmax_xent_bwd`` | ``csrc/softmax_xent.cu`` | ``kernels/softmax_xent.py`` ``_vjp_bwd`` |
+| K6/K7 | ``flash_attention_fwd`` | ``csrc/flash_attention.cu`` | ``kernels/flash_attention.py`` ``_flash_fwd_pallas``, ``_flash_fwd_stream`` |
+| K8/K9 | ``flash_attention_bwd`` | ``csrc/flash_attention.cu`` | ``kernels/flash_attention.py`` ``_flash_bwd_pallas``, ``_flash_bwd_stream`` |
 | K10 | ``fused_adam_update`` | ``csrc/fused_optim.cu`` | ``kernels/fused_optim.py`` ``_run_fused`` + ``_adam_kernel`` |
 
 ``kv_cache_write`` is plain ``index_put_`` (an XLA scatter in JAX).
@@ -15,6 +17,10 @@ The library is built by ``_build`` at the first launch on a CUDA
 tensor; importing this package builds nothing.
 """
 
+from .flash_attention import (flash_attention, flash_attention_bwd,
+                              flash_attention_bwd_plain, flash_attention_fwd,
+                              flash_attention_fwd_plain, flash_attention_layer,
+                              flash_attention_plain)
 from .fused_optim import fused_adam_update, fused_adam_update_plain
 from .layer_norm import (fused_layer_norm, layer_norm, layer_norm_bwd,
                          layer_norm_bwd_plain, layer_norm_fwd,
@@ -32,7 +38,11 @@ __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_fwd",
            "ragged_paged_attention_plain", "softmax_xent_fwd",
            "softmax_xent_fwd_plain", "softmax_xent_bwd",
            "softmax_xent_bwd_plain", "fused_softmax_xent",
-           "fused_adam_update", "fused_adam_update_plain", "kv_cache_write",
+           "fused_adam_update", "fused_adam_update_plain", "flash_attention",
+           "flash_attention_plain", "flash_attention_fwd",
+           "flash_attention_fwd_plain", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_layer",
+           "kv_cache_write",
            "kv_write_targets", "KERNELS", "reset_launch_counts",
            "launch_counts"]
 
@@ -43,12 +53,18 @@ KERNELS = {"layer_norm": layer_norm,
            "layer_norm_bwd": layer_norm_bwd,
            "softmax_xent_fwd": softmax_xent_fwd,
            "softmax_xent_bwd": softmax_xent_bwd,
-           "fused_adam_update": fused_adam_update}
+           "fused_adam_update": fused_adam_update,
+           "flash_attention_fwd": flash_attention_fwd,
+           "flash_attention_bwd": flash_attention_bwd}
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's count (and the flash backward's count of
+    each of its three kernels)."""
     for fn in KERNELS.values():
         fn.launches = 0
+    for name in flash_attention_bwd.kernel_launches:
+        flash_attention_bwd.kernel_launches[name] = 0
 
 
 def launch_counts() -> dict:

@@ -29,8 +29,10 @@ __all__ = [
     "scale",
     "reshape",
     "transpose",
+    "squeeze",
     "unsqueeze",
     "split",
+    "reduce_sum",
 ]
 
 
@@ -270,6 +272,35 @@ elementwise_mul = _make_elementwise("elementwise_mul")
 elementwise_div = _make_elementwise("elementwise_div")
 
 
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    """Reference layers/nn.py reduce_sum: over ``dim`` (an int or a
+    list), or over everything when ``dim`` is None."""
+    helper = LayerHelper("reduce_sum", name=name)
+    if dim is None:
+        attrs = {"reduce_all": True, "keep_dim": keep_dim}
+        shape = ()
+    else:
+        dims = dim if isinstance(dim, (list, tuple)) else [dim]
+        attrs = {"dim": list(dims), "keep_dim": keep_dim, "reduce_all": False}
+        if input.shape:
+            nd = len(input.shape)
+            dd = {d % nd for d in dims}
+            if keep_dim:
+                shape = tuple(1 if i in dd else s
+                              for i, s in enumerate(input.shape))
+            else:
+                shape = tuple(s for i, s in enumerate(input.shape)
+                              if i not in dd)
+        else:
+            shape = None
+    out = _out(helper, input, shape=shape)
+    helper.append_op(
+        type="reduce_sum", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs=attrs
+    )
+    return out
+
+
 def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     out = _out(helper, x, shape=())
@@ -333,6 +364,22 @@ def transpose(x, perm, name=None):
         inputs={"X": [x]},
         outputs={"Out": [out], "XShape": [xshape]},
         attrs={"axis": list(perm)},
+    )
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze2", name=name)
+    shp = list(input.shape or ())
+    for a in sorted([a % len(shp) for a in axes], reverse=True):
+        shp.pop(a)
+    out = _out(helper, input, shape=tuple(shp))
+    xshape = _out(helper, input, shape=(0,), stop_gradient=True)
+    helper.append_op(
+        type="squeeze2",
+        inputs={"X": [input]},
+        outputs={"Out": [out], "XShape": [xshape]},
+        attrs={"axes": list(axes)},
     )
     return out
 

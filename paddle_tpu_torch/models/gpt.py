@@ -4,8 +4,9 @@ Program-IR model, with its synthetic corpus ``synthetic_lm_batch``,
 copied so that the port builds the same program as the JAX package.
 The torch modules that serve a GPT live in ``generation/model.py``.
 
-Dense FFNs and the op-graph attention only: ``moe_every`` and
-``use_flash_attention`` raise until their slices are ported.
+Dense FFNs, with the op-graph attention or (``use_flash_attention``)
+the fused ``flash_attention`` op; ``moe_every`` raises until its slice
+is ported.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 from .. import layers, nets
 from ..core.framework import Program, program_guard
 from ..initializer import NormalInitializer
+from ..kernels.flash_attention import flash_attention_layer
 from ..param_attr import ParamAttr
 
 __all__ = ["GPTConfig", "build_gpt_lm", "synthetic_lm_batch"]
@@ -80,10 +82,14 @@ def _decoder_layer(x, cfg: GPTConfig, idx: int, is_test=False):
                             logical_axes=("heads",)),
     )
     q, k, v = layers.split(qkv, 3, dim=2)
-    ctx = nets.scaled_dot_product_attention(
-        q, k, v, num_heads=cfg.num_heads, causal=True,
-        dropout_rate=0.0 if is_test else cfg.attention_dropout,
-    )
+    if cfg.use_flash_attention:
+        # the flash path has no attention dropout, as in the reference
+        ctx = flash_attention_layer(q, k, v, cfg.num_heads, causal=True)
+    else:
+        ctx = nets.scaled_dot_product_attention(
+            q, k, v, num_heads=cfg.num_heads, causal=True,
+            dropout_rate=0.0 if is_test else cfg.attention_dropout,
+        )
     proj = layers.fc(
         ctx, h, num_flatten_dims=2,
         param_attr=_attr(f"{pre}_proj.w", std, axes=("heads", "embed")),
@@ -124,10 +130,6 @@ def build_gpt_lm(cfg: GPTConfig, seq_len: int, optimizer=None, is_test=False):
         raise NotImplementedError(
             "GPT MoE layers (moe_every > 0) are not ported to "
             "paddle_tpu_torch yet (ROADMAP A1)")
-    if cfg.use_flash_attention:
-        raise NotImplementedError(
-            "use_flash_attention needs the flash-attention kernels K6-K9, "
-            "not ported to paddle_tpu_torch yet (ROADMAP A1)")
     main, startup = Program(), Program()
     with program_guard(main, startup):
         tokens = layers.data("tokens", [seq_len], dtype="int64")

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.executor import torch_dtype
 from ..core.registry import register_op
 
 
@@ -28,10 +29,22 @@ def _broadcast_y(x, y, axis):
     return y.reshape([1] * axis + yshape + [1] * pad_after)
 
 
+def _promote(x, y):
+    """Both operands in their common float dtype, as ``jnp`` promotes
+    them: under AMP a bfloat16 matmul output meets a float32 bias or
+    activation, and the result is float32. Torch would refuse a mixed
+    matmul, and would keep bfloat16 against a 0-dim float32 tensor."""
+    if (x.dtype != y.dtype and x.is_floating_point()
+            and y.is_floating_point()):
+        dt = torch.promote_types(x.dtype, y.dtype)
+        return x.to(dt), y.to(dt)
+    return x, y
+
+
 def _register_elementwise(name, fn):
     @register_op(name, inputs=("X", "Y"), outputs=("Out",))
     def _lower(ctx, op, ins, _fn=fn):
-        x, y = ins["X"][0], ins["Y"][0]
+        x, y = _promote(ins["X"][0], ins["Y"][0])
         y = _broadcast_y(x, y, int(op.attrs.get("axis", -1)))
         return {"Out": [_fn(x, y)]}
 
@@ -44,7 +57,7 @@ _register_elementwise("elementwise_div", lambda x, y: x / y)
 
 @register_op("matmul", inputs=("X", "Y"), outputs=("Out",))
 def _matmul(ctx, op, ins):
-    x, y = ins["X"][0], ins["Y"][0]
+    x, y = _promote(ins["X"][0], ins["Y"][0])
     if op.attrs.get("transpose_X", False):
         x = x.transpose(-1, -2)
     if op.attrs.get("transpose_Y", False):
@@ -60,13 +73,40 @@ def _matmul(ctx, op, ins):
 def _mul(ctx, op, ins):
     # reference mul_op.cc: flatten X to 2-D at x_num_col_dims, Y at
     # y_num_col_dims, matmul, then restore X's leading dims
-    x, y = ins["X"][0], ins["Y"][0]
+    x, y = _promote(ins["X"][0], ins["Y"][0])
     xnc = int(op.attrs.get("x_num_col_dims", 1))
     ync = int(op.attrs.get("y_num_col_dims", 1))
     lead = tuple(x.shape[:xnc])
     x2 = x.reshape(int(np.prod(lead or (1,))), -1)
     y2 = y.reshape(int(np.prod(y.shape[:ync])), -1)
     return {"Out": [(x2 @ y2).reshape(lead + (y2.shape[1],))]}
+
+
+@register_op("reduce_sum", inputs=("X",), outputs=("Out",))
+def _reduce_sum(ctx, op, ins):
+    """operators/reduce_ops (``paddle_tpu/ops/math.py:107-121``): over
+    ``dim`` (negative counts from the end), or everything with
+    ``reduce_all``, to a 0-dim tensor unless ``keep_dim``."""
+    x = ins["X"][0]
+    keep = bool(op.attrs.get("keep_dim", False))
+    if op.attrs.get("reduce_all", False) or x.dim() == 0:
+        out = torch.sum(x)
+        if keep:
+            out = out.reshape([1] * x.dim())
+        return {"Out": [out]}
+    dim = op.attrs.get("dim", [0])
+    if isinstance(dim, int):
+        dim = [dim]
+    axes = tuple(sorted({int(d) % x.dim() for d in dim}))
+    return {"Out": [torch.sum(x, dim=axes, keepdim=keep)]}
+
+
+@register_op("cast", inputs=("X",), outputs=("Out",), no_grad=())
+def _cast(ctx, op, ins):
+    """``paddle_tpu/ops/math.py:249-254``; the automatic gradient casts
+    the cotangent back to the input's dtype."""
+    dt = torch_dtype(op.attrs.get("out_dtype", "float32"))
+    return {"Out": [ins["X"][0].to(dt)]}
 
 
 @register_op("mean", inputs=("X",), outputs=("Out",))

@@ -1,6 +1,7 @@
-"""NN ops: softmax, layer_norm (kernels K1/K3) and
-softmax_with_cross_entropy (kernels K4/K5) — torch lowerings with the
-semantics of ``paddle_tpu/ops/nn.py``."""
+"""NN ops: softmax, layer_norm (kernels K1/K3),
+softmax_with_cross_entropy (kernels K4/K5) and flash_attention (kernels
+K6-K9) — torch lowerings with the semantics of ``paddle_tpu/ops/nn.py``
+and ``paddle_tpu/kernels/flash_attention.py``."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import numpy as np
 import torch
 
 from ..core.registry import register_op
+from ..kernels.flash_attention import NEG_INF, flash_attention
 from ..kernels.layer_norm import fused_layer_norm
 from ..kernels.softmax_xent import fused_softmax_xent
 
@@ -80,3 +82,38 @@ def _softmax_with_cross_entropy(ctx, op, ins):
     if ctx.wants(op, "Softmax"):
         out["Softmax"] = [torch.softmax(logits, dim=-1)]
     return out
+
+
+@register_op("flash_attention", inputs=("Q", "K", "V", "Mask", "BiasQK"),
+             outputs=("Out",), no_grad=("Mask",))
+def _flash_attention_op(ctx, op, ins):
+    """The fused attention op on [B, S, H*D] inputs
+    (``kernels/flash_attention.py:973-1081``): heads split into
+    [B, H, S, D], the kernels, heads merged back. Its gradient is the
+    registry's automatic one: the forward runs the autograd Function,
+    so the grad op's ``torch.autograd.grad`` reaches the backward
+    kernels. mask_type "binary" maps 1 / 0 to 0 / NEG_INF, "additive"
+    adds the values as they are; under AMP the mask arrives as bfloat16.
+    The sequence-parallel (ring / Ulysses) and mesh-wrapped routes of
+    the reference are distribution work, not ported (ROADMAP A10)."""
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    h = int(op.attrs["num_heads"])
+    causal = bool(op.attrs.get("causal", False))
+    B, S, HD = q.shape
+    D = HD // h
+
+    def split(x):
+        return x.reshape(B, S, h, D).transpose(1, 2)
+
+    mask = ins["Mask"][0] if ins.get("Mask") else None
+    if mask is not None and mask.dtype != torch.bool:
+        if op.attrs.get("mask_type", "binary") == "binary":
+            mask = torch.where(mask.reshape(B, S) > 0.5,
+                               torch.zeros((), device=mask.device),
+                               torch.full((), NEG_INF, device=mask.device))
+        else:
+            mask = mask.reshape(B, S)
+    bias = ins["BiasQK"][0] if ins.get("BiasQK") else None
+    o = flash_attention(split(q), split(k), split(v), causal, None,
+                        mask=mask, bias=bias)
+    return {"Out": [o.transpose(1, 2).reshape(B, S, HD)]}

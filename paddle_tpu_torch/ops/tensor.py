@@ -87,6 +87,24 @@ def _split(ctx, op, ins):
     return {"Out": list(outs)}
 
 
+@register_op("squeeze2", inputs=("X",), outputs=("Out", "XShape"))
+def _squeeze2(ctx, op, ins):
+    """``paddle_tpu/ops/tensor.py:169``: drop the listed size-1 axes
+    (every size-1 axis when none is listed)."""
+    x = ins["X"][0]
+    axes = [int(a) % x.dim() for a in op.attrs.get("axes", [])]
+    if not axes:
+        return {"Out": [x.squeeze()], **_xshape(ctx, op, x)}
+    for a in axes:
+        if x.shape[a] != 1:
+            raise ValueError(f"squeeze2: axis {a} of {tuple(x.shape)} is "
+                             "not 1")
+    out = x
+    for a in sorted(axes, reverse=True):
+        out = out.squeeze(a)
+    return {"Out": [out], **_xshape(ctx, op, x)}
+
+
 @register_op("unsqueeze2", inputs=("X",), outputs=("Out", "XShape"))
 def _unsqueeze2(ctx, op, ins):
     x = ins["X"][0]

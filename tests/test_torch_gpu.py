@@ -270,3 +270,160 @@ def test_tiny_gpt_training_on_cuda_matches_cpu(cuda):
         np.testing.assert_allclose(gpu_scope.get_numpy(p.name),
                                    cpu_scope.get_numpy(p.name), rtol=0,
                                    atol=2 * lr * steps, err_msg=p.name)
+
+
+# flash attention: (B, H, S, D, causal, mask, bias shape or None)
+FLASH = {
+    "gpt_causal_d128": (1, 2, 300, 128, True, False, None),
+    "bert_masked_d64": (2, 2, 200, 64, False, True, None),
+    "d16_ragged": (1, 2, 130, 16, False, False, None),
+    "d200_causal": (1, 1, 70, 200, True, True, None),
+    "d256": (1, 1, 65, 256, False, False, None),
+    "bias_full": (2, 3, 96, 64, False, True, (2, 3)),
+    "bias_heads": (2, 3, 96, 64, False, False, (1, 3)),
+    "bias_batch": (2, 3, 96, 64, True, False, (2, 1)),
+    "bias_shared": (2, 3, 96, 64, False, True, (1, 1)),
+}
+# forward as the reference's flash tests hold it (2e-5); gradients
+# are sums over S keys, summed in another order than the plain matmuls
+FLASH_TOL = {torch.float32: (dict(atol=2e-5, rtol=2e-5),
+                             dict(atol=1e-4, rtol=1e-4)),
+             torch.bfloat16: (dict(atol=2e-2, rtol=2e-2),
+                              dict(atol=2e-2, rtol=2e-2))}
+
+
+def _flash_inputs(cuda, case, dtype, seed):
+    B, H, S, D, causal, masked, bshape = FLASH[case]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, H, S, D, device=cuda, generator=g)
+                   .to(dtype) for _ in range(4))
+    mask = bias = None
+    if masked:
+        keep = torch.rand(B, S, device=cuda, generator=g) > 0.3
+        keep[:, 0] = True       # no fully masked causal row
+        mask = torch.where(keep, 0.0, -1e30).float()
+    if bshape is not None:
+        bias = torch.randn(*bshape, S, S, device=cuda, generator=g)
+    return q, k, v, do, mask, bias, causal, D ** -0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH))
+def test_flash_attention_kernels_match_plain(cuda, case, dtype):
+    q, k, v, do, mask, bias, causal, scale = _flash_inputs(cuda, case, dtype,
+                                                           len(case))
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    before = K.flash_attention_fwd.launches
+    o, lse = K.flash_attention_fwd(q, k, v, mask, bias, scale, causal)
+    torch.cuda.synchronize()
+    assert K.flash_attention_fwd.launches == before + 1
+    po, plse = K.flash_attention_fwd_plain(q, k, v, mask, bias, scale, causal)
+    torch.testing.assert_close(o, po, **fwd_tol)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    ref = K.flash_attention_plain(q, k, v, causal, scale, mask, bias)
+    torch.testing.assert_close(o, ref, **fwd_tol)
+    o2, none = K.flash_attention_fwd(q, k, v, mask, bias, scale, causal,
+                                     with_lse=False)
+    assert none is None and torch.equal(o2, o)
+    before = dict(K.flash_attention_bwd.kernel_launches)
+    got = K.flash_attention_bwd(q, k, v, mask, bias, o, lse, do, scale,
+                                causal)
+    torch.cuda.synchronize()
+    assert all(K.flash_attention_bwd.kernel_launches[n] == before[n] + 1
+               for n in before)
+    want = K.flash_attention_bwd_plain(q, k, v, mask, bias, o, lse, do,
+                                       scale, causal)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        tol = dict(bwd_tol)
+        if name == "dbias":   # a sum over the broadcast (b, h) too
+            tol = dict(atol=1e-4 * q.shape[0] * q.shape[1], rtol=1e-4)
+        torch.testing.assert_close(a, b, msg=name, **tol)
+    # no float atomics: a second backward gives the same bits
+    again = K.flash_attention_bwd(q, k, v, mask, bias, o, lse, do, scale,
+                                  causal)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_flash_attention_autograd_and_fully_masked_row(cuda):
+    """The public function on CUDA: kernels forward and backward, a
+    fully masked row averaging V (non-causal), and D > 256 refused."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, H, S, D = 2, 2, 256, 64
+    q, k, v = (torch.randn(B, H, S, D, device=cuda, generator=g)
+               .requires_grad_() for _ in range(3))
+    keep = torch.rand(B, S, device=cuda, generator=g) > 0.5
+    keep[1] = False                       # batch row 1: every key masked
+    o = K.flash_attention(q, k, v, mask=keep)
+    mean_v = v[1].mean(dim=1, keepdim=True).expand(H, S, D)
+    torch.testing.assert_close(o[1], mean_v, atol=2e-5, rtol=2e-5)
+    before = K.flash_attention_bwd.launches
+    (o[0].square().sum()).backward()
+    torch.cuda.synchronize()
+    assert K.flash_attention_bwd.launches == before + 1
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    oc = K.flash_attention(qc, kc, vc, mask=keep.cpu())
+    (oc[0].square().sum()).backward()
+    for a, b in ((q, qc), (k, kc), (v, vc)):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, atol=1e-4,
+                                   rtol=1e-4)
+    big = torch.zeros(1, 1, 8, 264, device=cuda)
+    with pytest.raises(ValueError, match="D <= 256"):
+        K.flash_attention(big, big, big)
+
+
+def test_tiny_bert_amp_on_cuda_matches_cpu(cuda):
+    """The tiny BERT with flash attention under bfloat16 AMP, trained on
+    the card (kernels) and on the CPU (plain versions) from the same
+    parameters: losses within rtol 2e-3 (bfloat16 products rounded after
+    float32 sums in another order: one bfloat16 step, 2^-8, apart at
+    most), parameters within 2 * lr per step; 2 flash forward and 2
+    flash backward launches a step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
+    from paddle_tpu_torch.io import load_scope_arrays
+    from paddle_tpu_torch.models.bert import (BertConfig, build_bert_pretrain,
+                                              synthetic_batch)
+
+    cfg = BertConfig.tiny()
+    cfg.use_flash_attention = True
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    lr, steps = 1e-3, 3
+    fluid.set_flags({"optimizer_fuse": "on"})
+    try:
+        with fluid.unique_name.guard():
+            main, startup, _, fetches = build_bert_pretrain(
+                cfg, 64, decorate(fluid.optimizer.AdamOptimizer(lr),
+                                  init_loss_scaling=1.0,
+                                  use_dynamic_loss_scaling=False,
+                                  dest_dtype="bfloat16"))
+    finally:
+        fluid.set_flags({"optimizer_fuse": "auto"})
+    cpu_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu_scope)
+    arrays = {n: cpu_scope.get_numpy(n) for n in cpu_scope.local_var_names()}
+    gpu_scope = fluid.Scope()
+    load_scope_arrays(gpu_scope, arrays, main, cuda)
+    batch = synthetic_batch(np.random.RandomState(0), 4, 64, cfg.vocab_size,
+                            min_len=16)
+    losses = {}
+    for name, place, scope in (("cuda", fluid.CUDAPlace(0), gpu_scope),
+                               ("cpu", fluid.CPUPlace(), cpu_scope)):
+        exe = fluid.Executor(place)
+        K.reset_launch_counts()
+        losses[name] = [float(np.asarray(exe.run(
+            main, feed=batch, fetch_list=[fetches["loss"]],
+            scope=scope)[0]).reshape(-1)[0]) for _ in range(steps)]
+        n = 0 if name == "cpu" else cfg.num_layers * steps
+        counts = K.launch_counts()
+        assert (counts["flash_attention_fwd"],
+                counts["flash_attention_bwd"]) == (n, n)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-3)
+    for p in main.all_parameters():
+        np.testing.assert_allclose(gpu_scope.get_numpy(p.name),
+                                   cpu_scope.get_numpy(p.name), rtol=0,
+                                   atol=2 * lr * steps, err_msg=p.name)

@@ -84,7 +84,12 @@ def test_port_package_imports_no_jax_or_paddle_tpu():
                 "paddle_tpu_torch.ops.optim",
                 "paddle_tpu_torch.optimizer",
                 "paddle_tpu_torch.kernels.softmax_xent",
-                "paddle_tpu_torch.kernels.fused_optim"):
+                "paddle_tpu_torch.kernels.fused_optim",
+                # the flash-attention / BERT / AMP slice
+                "paddle_tpu_torch.kernels.flash_attention",
+                "paddle_tpu_torch.models.bert",
+                "paddle_tpu_torch.contrib.mixed_precision.decorator",
+                "paddle_tpu_torch.ops.control"):
         assert mod in res["port"]
 
 

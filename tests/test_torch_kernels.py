@@ -230,10 +230,17 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     one = torch.ones(1)
     K.fused_adam_update(x, y, x.clone(), x.square(), one, 0.5 * one,
                         0.5 * one)
+    # and the flash-attention slice's
+    qkv = x[None, None, :8]
+    o, fl = K.flash_attention_fwd(qkv, qkv, qkv, None, None, 0.25, True)
+    K.flash_attention_bwd(qkv, qkv, qkv, None, None, o, fl, o, 0.25, True)
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
+    assert K.flash_attention_bwd.kernel_launches == {"delta": 0, "dq": 0,
+                                                     "dkv": 0}
     assert sorted(K.KERNELS) == sorted([
         "layer_norm", "ragged_paged_attention", "layer_norm_bwd",
-        "softmax_xent_fwd", "softmax_xent_bwd", "fused_adam_update"])
+        "softmax_xent_fwd", "softmax_xent_bwd", "fused_adam_update",
+        "flash_attention_fwd", "flash_attention_bwd"])
 
 
 def test_wrappers_refuse_other_devices_instead_of_falling_back():
@@ -276,10 +283,15 @@ def test_build_sources_and_hash(tmp_path, monkeypatch):
     """Every kernel is built from csrc/, and the library name follows
     the sources: an edit gives a new hash (a rebuild)."""
     names = [p.name for p in _build.sources()]
-    assert names == ["fused_optim.cu", "layer_norm.cu",
+    assert names == ["flash_attention.cu", "fused_optim.cu", "layer_norm.cu",
                      "ragged_paged_attention.cu", "softmax_xent.cu"]
     # every C entry the wrappers bind is declared with its argtypes
     for src, entries in (("fused_optim.cu", ["pt_fused_adam"]),
+                         ("flash_attention.cu", [
+                             "pt_flash_attention_fwd",
+                             "pt_flash_attention_bwd_delta",
+                             "pt_flash_attention_bwd_dq",
+                             "pt_flash_attention_bwd_dkv"]),
                          ("softmax_xent.cu", ["pt_softmax_xent_fwd",
                                               "pt_softmax_xent_bwd"]),
                          ("layer_norm.cu", ["pt_layer_norm_fwd",
