@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + device time by kernel group in
                                      #   phases 3, 4 and 6
+    python3 chip_smoke.py --phases 27   # build + chosen phases, no
+                                        #   result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -18,7 +20,11 @@ Phases, in order; any failure exits non-zero without the result line:
    function, beside the least time the card could take (``bound_ms``).
    Flash attention (K6-K9) at the gpt3_1p3b and BERT-large shapes, at
    S = 4096, S = 1000, with a fully masked row and with the four bias
-   shapes (dbias checked too); SDPA is its yardstick.
+   shapes (dbias checked too); SDPA is its yardstick. The quantized
+   serving kernels at the serving step's 128 rows: K11 (int8,
+   int8_block at block 256, fp8) on qkv, ffn2, the head and a K of 2000;
+   K2q at phase 3's ragged shape over int8 pages; K12 on ffn1 and the
+   head with rank buckets 8 and 16 and a mixed slot vector.
 3. serving: ``GPTConfig.gpt3_1p3b()`` at full width (seeded random
    weights made on the card) served by the ragged ``GenerationEngine``
    at its default geometry; 16 requests from 4 client threads. Every
@@ -40,11 +46,23 @@ Phases, in order; any failure exits non-zero without the result line:
    steps on CUDA (kernels) and on the CPU (plain versions): GPT
    (op-graph and flash, float32; losses within rtol 1e-3) and BERT
    (flash, bfloat16 AMP; rtol 2e-3), parameters within 2 * lr per step.
+   Then one ragged step of a 2-layer full-width GPT with int8 weights,
+   int8 KV pages and two adapters on a mixed batch: tokens equal, pools
+   within one int8 step.
 6. BERT-large pretraining: ``BertConfig.large()`` at full size, seq 512,
    batch 8 of ``synthetic_batch(min_len=128)``, flash attention with the
    key mask, ``decorate(AdamOptimizer(1e-4), init_loss_scaling=1.0,
    use_dynamic_loss_scaling=False, dest_dtype="bfloat16")``, fused Adam,
    10 steps with exact launches every step; mean step, tokens/s, peak.
+7. quantized, multi-adapter serving: gpt3_1p3b with phase 3's weights
+   and prompts, quantized at load. 7a: int8 (16 requests), int8_block
+   and fp8 (4 each) over float32 pages, teacher-forced oracle, matmul
+   weight bytes <= 0.30 of float32. 7b: int8 weights, int8 KV pages, an
+   AdapterStore with rank buckets 8 and 16 and four adapters; 12 of the
+   16 requests name one; exact K11, K2q, K1 and K12 launches a step,
+   the int8 pool at 67584 / 262144 of the float32 one. 7c: the base
+   rows equal an engine without adapters, one request of each bucket
+   equals a dedicated engine.
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -69,7 +87,8 @@ VOCAB, HIDDEN = 32000, 2048        # gpt3_1p3b's widths
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}   # (atol, rtol)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # fp32 CUDA cores / bf16 MMA
-SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
+SLEEP_CYCLES = 20_000_000
+ALL_PHASES = "234567"          # keeps the card busy while launches queue
 DEVICE = "cuda"
 
 
@@ -140,7 +159,7 @@ def compare(torch, got, want, dtype, what, atol=None):
 
 
 def fmt(row, dtype):
-    out = f"max_err={row['max_abs_err']:.3e} tol={TOL[dtype]}"
+    out = f"max_err={row['max_abs_err']:.3e} tol={row.get('tol', TOL[dtype])}"
     if "ms" in row:
         out += (f" ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
                 f"library_ms={row['library_ms']:.6f} "
@@ -582,6 +601,197 @@ def check_flash(torch, np, K, gen, seed):
     return rows
 
 
+# -- phase 2: the quantized, multi-adapter serving kernels (K11, K2q, K12) ----------
+
+
+def sum_tol(K, ref):
+    """Kernel and plain version take the same products (both dequantize
+    every weight the same way) and differ only by the order of float32
+    sums over K: 2e-6 * sqrt(K) of the output's scale."""
+    return 2e-6 * K ** 0.5 * max(1.0, float(ref.abs().max()))
+
+
+QMM_SHAPES = (("qkv", 2048, 3 * HIDDEN), ("ffn2", 8192, HIDDEN),
+              ("head", HIDDEN, VOCAB), ("k_tail", 2000, HIDDEN))
+
+
+def check_quant_matmul(torch, K, gen):
+    """K11 in its three modes against the plain version at the serving
+    step's shapes (128 rows: 8 lanes x chunk 16); int8_block at block
+    256, and a K of 2000 (not a multiple of it)."""
+    from paddle_tpu_torch.kernels.quant_matmul import dequantize_weight
+
+    rows = {}
+    M = LANES * CHUNK
+    for mode in ("int8", "int8_block", "fp8"):
+        for name, Kd, N in QMM_SHAPES:
+            w = 0.02 * torch.randn(Kd, N, device=DEVICE, generator=gen)
+            x = torch.randn(M, Kd, device=DEVICE, generator=gen)
+            qw, qs = K.quantize_weight(w, mode, 256)
+            del w
+            out = K.quantized_matmul(x, qw, qs, mode=mode, block=256)
+            ref = K.quantized_matmul_plain(x, qw, qs, mode, 256)
+            tol = sum_tol(Kd, ref)
+            what = f"quantized_matmul {mode} {name} [{M}x{Kd}]x[{Kd}x{N}]"
+            require(bool(torch.isfinite(out).all()), f"{what}: non-finite")
+            err = float((out - ref).abs().max())
+            require(err <= tol, f"{what}: max_abs_err {err:.3e} > {tol:.3e}")
+            row = {"shape": [M, Kd, N], "max_abs_err": err, "tol": tol}
+            if name != "k_tail":
+                nbytes = (M * Kd * 4 + Kd * N + qs.numel() * 4 + M * N * 4)
+                bms, by = bound_ms(nbytes, 2 * M * Kd * N,
+                                   "bfloat16" if mode == "fp8" else "float32")
+                # library yardstick: one matmul over the weight
+                # dequantized beforehand (bf16 operands for fp8)
+                wd = dequantize_weight(qw, qs, mode, 256)
+                xl = x.bfloat16() if mode == "fp8" else x
+                row.update(
+                    ms=device_ms(torch, lambda: K.quantized_matmul(
+                        x, qw, qs, mode=mode, block=256)),
+                    plain_ms=device_ms(torch, lambda: K.quantized_matmul_plain(
+                        x, qw, qs, mode, 256)),
+                    library_ms=device_ms(torch, lambda: torch.matmul(xl, wd)),
+                    bound_ms=bms, bound_by=by)
+                del wd
+            rows[f"{mode}_{name}"] = row
+            log(f"  {what}: {fmt(row, 'float32')}")
+    return rows
+
+
+def check_ragged_q(torch, np, K, gen, seed):
+    """K2q against its plain version at phase 3's ragged shape (int8
+    pools of random bytes with random per-slot scales) and on the GQA
+    edge case."""
+    import torch.nn.functional as F
+
+    main = dict(B=LANES, C=CHUNK, H=16, KVH=16, D=128, P=512, ps=PAGE,
+                maxp=64, starts=[0, 100, 767, 400, 16, 250, 700, 0],
+                nvalid=[16, 1, 1, 16, 16, 1, 1, 0])
+    edge = dict(B=4, C=5, H=8, KVH=4, D=64, P=24, ps=4, maxp=5,
+                starts=[0, 6, 9, 0], nvalid=[5, 1, 3, 0])
+    result = None
+    for name, case in (("main", main), ("edge", edge)):
+        q, kf, vf, st, nv, tb = ragged_case(torch, np, torch.float32, gen,
+                                            seed=seed, **case)
+        KVH, P, ps, D = kf.shape
+        kp = torch.randint(-127, 128, kf.shape, device=DEVICE, generator=gen,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, kf.shape, device=DEVICE, generator=gen,
+                           dtype=torch.int8)
+        ks = 0.02 * torch.rand(KVH, P, ps, device=DEVICE, generator=gen)
+        vs = 0.02 * torch.rand(KVH, P, ps, device=DEVICE, generator=gen)
+        del kf, vf
+        what = (f"ragged_paged_attention_q int8 {name} B{case['B']} "
+                f"C{case['C']} H{case['H']}/{case['KVH']} D{case['D']}")
+        out = K.ragged_paged_attention_q(q, kp, vp, ks, vs, st, nv, tb)
+        err = compare(torch, out, K.ragged_paged_attention_plain(
+            q, kp, vp, st, nv, tb, None, ks, vs), "float32", what)
+        for b, n in enumerate(case["nvalid"]):
+            require(bool((out[b, n:] == 0).all()),
+                    f"{what}: rows past num_valid of row {b} are not 0")
+        row = {"max_abs_err": err}
+        if name == "main":
+            B, C, H, D = q.shape
+            pages = sum(-(-(s + n) // ps) for s, n in
+                        zip(case["starts"], case["nvalid"]) if n)
+            nbytes = (pages * ps * (D + 4) * 2 * KVH   # int8 rows + scales
+                      + 2 * B * C * H * D * 4 + 4 * (2 * B + pages))
+            _, ops = ragged_bytes_ops(q, kp, case["starts"], case["nvalid"],
+                                      ps)
+            bms, by = bound_ms(nbytes, ops, "float32")
+            # library yardstick: SDPA over the window gathered and
+            # dequantized beforehand, as for K2
+            idx = tb.long()
+            kd = (kp[:, idx].float() * ks[:, idx][..., None]).permute(
+                1, 0, 2, 3, 4).reshape(B, KVH, -1, D)
+            vd = (vp[:, idx].float() * vs[:, idx][..., None]).permute(
+                1, 0, 2, 3, 4).reshape(B, KVH, -1, D)
+            kpos = torch.arange(kd.shape[2], device=DEVICE)
+            qpos = st.long()[:, None] + torch.arange(C, device=DEVICE)[None]
+            mask = (kpos[None, None] <= qpos[:, :, None])[:, None]
+            qt = q.transpose(1, 2)
+            row.update(
+                ms=device_ms(torch, lambda: K.ragged_paged_attention_q(
+                    q, kp, vp, ks, vs, st, nv, tb)),
+                plain_ms=device_ms(torch, lambda: K.ragged_paged_attention_plain(
+                    q, kp, vp, st, nv, tb, None, ks, vs)),
+                library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kd, vd, attn_mask=mask)),
+                bound_ms=bms, bound_by=by)
+            result = row
+        log(f"  {what}: {fmt(row, 'float32')}")
+    return result
+
+
+# 8 lanes: slot 0, both buckets, and slots repeated within a bucket
+LORA_SLOTS = [[0, 0], [1, 0], [0, 1], [2, 0], [1, 0], [0, 2], [0, 0], [0, 1]]
+LORA_SHAPES = (("ffn1", HIDDEN, 8192), ("head", HIDDEN, VOCAB))
+
+
+def check_lora(torch, K, gen):
+    """K12 against its plain version on the serving step's [8 lanes x
+    16, K] rows, rank buckets 8 and 16 (3 slots each), on ffn1 and the
+    head; rows on slot 0 must stay the base product bit for bit."""
+    rows = {}
+    R, rep = LANES, CHUNK
+    M = R * rep
+    sl = torch.tensor(LORA_SLOTS, dtype=torch.int32, device=DEVICE)
+    for name, Kd, N in LORA_SHAPES:
+        x = torch.randn(M, Kd, device=DEVICE, generator=gen)
+        base = torch.randn(M, N, device=DEVICE, generator=gen)
+        pools = ([], [], [])
+        for r in (8, 16):
+            a = 0.02 * torch.randn(3, Kd, r, device=DEVICE, generator=gen)
+            b = 0.02 * torch.randn(3, r, N, device=DEVICE, generator=gen)
+            a[0], b[0] = 0.0, 0.0
+            for lst, t in zip(pools, (a, b, torch.tensor(
+                    [0.0, 2.0, 2.0], device=DEVICE))):
+                lst.append(t)
+        got = K.batched_lora_add_(base.clone(), x, *pools, sl)
+        want = K.batched_lora_add_plain_(base.clone(), x, *pools, sl)
+        tol = sum_tol(Kd, want)
+        what = f"batched_lora_add_ {name} [{M}x{Kd}] -> {N}, ranks 8/16"
+        err = float((got - want).abs().max())
+        require(err <= tol, f"{what}: max_abs_err {err:.3e} > {tol:.3e}")
+        zero = (sl == 0).all(dim=1).repeat_interleave(rep)
+        require(torch.equal(got[zero], base[zero]),
+                f"{what}: a slot-0 row is not the base product")
+        row = {"shape": [M, Kd, N], "max_abs_err": err, "tol": tol}
+        # bound: each distinct (bucket, slot) factor pair once, and the
+        # adapter rows' x read and output read and written
+        pairs = {(j, int(s)) for lane in LORA_SLOTS for j, s in
+                 enumerate(lane) if s}
+        ranks = (8, 16)
+        n_rows = rep * sum(1 for lane in LORA_SLOTS if any(lane))
+        nbytes = (sum((Kd * ranks[j] + ranks[j] * N) * 4 + 4
+                      for j, _ in pairs)
+                  + n_rows * (Kd + 2 * N) * 4 + sl.numel() * 4)
+        ops = sum(rep * (2 * Kd * ranks[j] + 2 * ranks[j] * N + 2 * N)
+                  for lane in LORA_SLOTS for j, s in enumerate(lane) if s)
+        bms, by = bound_ms(nbytes, ops, "float32")
+        idx = [sl[:, j].long() for j in range(2)]
+        x3 = x.reshape(R, rep, Kd)
+
+        def library():   # the gathered torch.bmm pair, bucket by bucket
+            out = base.reshape(R, rep, N).clone()
+            for j in range(2):
+                u = torch.bmm(x3, pools[0][j][idx[j]])
+                out += torch.bmm(u, pools[1][j][idx[j]]) * \
+                    pools[2][j][idx[j]][:, None, None]
+            return out
+
+        scratch = base.clone()
+        row.update(
+            ms=device_ms(torch, lambda: K.batched_lora_add_(
+                scratch, x, *pools, sl)),
+            plain_ms=device_ms(torch, lambda: K.batched_lora_add_plain_(
+                scratch, x, *pools, sl)),
+            library_ms=device_ms(torch, library), bound_ms=bms, bound_by=by)
+        rows[name] = row
+        log(f"  {what}: {fmt(row, 'float32')}")
+    return rows
+
+
 # -- phase 3: the slice ------------------------------------------------------------
 
 
@@ -600,7 +810,11 @@ def make_params(torch, shapes, std, gen):
     return params
 
 
-KERNEL_GROUPS = (("ragged_paged_attention", "ragged_paged_attention (K2)"),
+KERNEL_GROUPS = (("ragged_paged_attention_kernel<float, signed char",
+                  "ragged_paged_attention_q (K2q)"),
+                 ("quant_matmul", "quantized_matmul (K11)"),
+                 ("lora_", "batched_lora_add_ (K12)"),
+                 ("ragged_paged_attention", "ragged_paged_attention (K2)"),
                  ("layer_norm_fwd", "layer_norm (K1)"),
                  ("layer_norm_bwd", "layer_norm_bwd (K3)"),
                  ("column_sum", "layer_norm_bwd (K3)"),
@@ -675,6 +889,103 @@ def start_profile(torch):
     return prof
 
 
+def serving_prompts(np, seed, vocab):
+    """Phase 3's 16 prompts: lengths 16..768 and tokens from the seed."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(16, 769, size=16)
+    return lengths, [rng.randint(0, vocab, size=n).astype(np.int64)
+                     for n in lengths]
+
+
+def run_clients(eng, prompts, max_new, adapters=None, ids=None):
+    """The requests ``ids`` (all by default) submitted from 4 client
+    threads, each waiting for its own; returns the streams (None where
+    not submitted) and the wall time."""
+    ids = list(range(len(prompts))) if ids is None else list(ids)
+    streams = [None] * len(prompts)
+    errors = []
+
+    def client(mine):
+        try:
+            for i in mine:
+                streams[i] = eng.submit(
+                    prompts[i], max_new_tokens=max_new,
+                    adapter=None if adapters is None else adapters[i])
+            for i in mine:
+                streams[i].result(timeout=600)
+        except Exception as e:  # noqa: BLE001 — recorded, fails the phase below
+            errors.append(repr(e))
+
+    t_serve = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(ids[c::4],))
+               for c in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t_serve
+    require(not any(t.is_alive() for t in threads), "a client thread hung")
+    require(not errors, f"client errors: {errors}")
+    return streams, wall
+
+
+def check_streams(streams, max_new):
+    for i, s in enumerate(streams):
+        if s is None:
+            continue
+        require(s.done(), f"request {i} not finished")
+        require(s.error is None, f"request {i} ended in error: {s.error!r}")
+        require(s.finish_reason == "length" and len(s.tokens) == max_new,
+                f"request {i}: {s.finish_reason}, {len(s.tokens)} tokens")
+
+
+def serving_perf(torch, st, streams, wall, lengths, card, what="served"):
+    peak = torch.cuda.max_memory_allocated()
+    done = [s for s in streams if s is not None]
+    gen_tokens = sum(len(s.tokens) for s in done)
+    prompt_tokens = int(sum(int(n) for n, s in zip(lengths, streams)
+                            if s is not None))
+    perf = {"tokens_per_s": gen_tokens / wall, "wall_s": wall,
+            "engine_steps": st["ragged_steps_total"],
+            "step_ms_mean": st["decode_step_ms"]["mean"],
+            "ttft_ms_p50": st["ttft_ms"]["p50"],
+            "itl_ms_p50": st["itl_ms"]["p50"],
+            "max_memory_allocated_gb": peak / 1e9,
+            "prompt_tokens": prompt_tokens, "generated_tokens": gen_tokens,
+            "evicted": st["evicted_total"], "card": card,
+            "tokens": [None if s is None else list(s.tokens)
+                       for s in streams]}
+    log(f"  {what} {len(done)} requests ({prompt_tokens} prompt tokens, "
+        f"{gen_tokens} generated) in {wall:.3f} s: "
+        f"{perf['tokens_per_s']:.2f} tokens/s, {perf['engine_steps']} steps, "
+        f"mean step {perf['step_ms_mean']} ms, TTFT p50 "
+        f"{perf['ttft_ms_p50']} ms, ITL p50 {perf['itl_ms_p50']} ms, "
+        f"max_memory_allocated {peak / 1e9:.2f} GB [{card}]")
+    return perf
+
+
+def oracle(np, pred, prompts, streams, ids=(0, 1), rel=1e-3):
+    """Teacher-forced oracle: the predictor's logits over prompt +
+    generated tokens must rank every generated token at the max, up to
+    ``rel`` * max|logit| (1e-3: greedy up to float32 noise, random
+    weights have near-ties that exact identity would trip on)."""
+    for i in ids:
+        toks = list(streams[i].tokens)
+        ctx = np.concatenate([prompts[i], np.asarray(toks, np.int64)])
+        (logits,) = pred.run([ctx[None, :-1]])
+        n = len(prompts[i])
+        worst = 0.0
+        for k, tok in enumerate(toks):
+            row = logits[0, n - 1 + k]
+            slack = float(row.max() - row[tok])
+            lim = rel * float(np.abs(row).max())
+            require(slack <= lim, f"oracle: request {i} token {k} = {tok} is "
+                    f"{slack:.3e} below the max (limit {lim:.3e})")
+            worst = max(worst, slack / lim if lim else 0.0)
+        log(f"  oracle request {i}: {len(toks)} tokens within limit "
+            f"(worst slack {worst:.3f} of the limit)")
+
+
 def serve(torch, np, seed, card, out_dir, profile=False):
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.generation import GenerationEngine
@@ -697,46 +1008,18 @@ def serve(torch, np, seed, card, out_dir, profile=False):
         f"(weights {sum(p.numel() for p in pred.lm.parameters()) * 4 / 1e9:.2f}"
         f" GB, KV pool {eng.cache.pool_bytes() / 1e9:.2f} GB)")
 
-    rng = np.random.RandomState(seed)
-    lengths = rng.randint(16, 769, size=16)
-    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int64)
-               for n in lengths]
+    lengths, prompts = serving_prompts(np, seed, cfg.vocab_size)
     max_new = 32
-    streams = [None] * len(prompts)
-    errors = []
-
-    def client(ids):
-        try:
-            for i in ids:
-                streams[i] = eng.submit(prompts[i], max_new_tokens=max_new)
-            for i in ids:
-                streams[i].result(timeout=600)
-        except Exception as e:  # noqa: BLE001 — recorded, fails the phase below
-            errors.append(repr(e))
-
     prof = start_profile(torch) if profile else None
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    t_serve = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(range(c, 16, 4),))
-               for c in range(4)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(900)
-    wall = time.perf_counter() - t_serve
+    streams, wall = run_clients(eng, prompts, max_new)
     if prof is not None:
         prof.__exit__(None, None, None)
     counts = K.launch_counts()
     st = eng.stats()
     eng.close()
-    require(not any(t.is_alive() for t in threads), "a client thread hung")
-    require(not errors, f"client errors: {errors}")
-    for i, s in enumerate(streams):
-        require(s is not None and s.done(), f"request {i} not finished")
-        require(s.error is None, f"request {i} ended in error: {s.error!r}")
-        require(s.finish_reason == "length" and len(s.tokens) == max_new,
-                f"request {i}: {s.finish_reason}, {len(s.tokens)} tokens")
+    check_streams(streams, max_new)
     steps = st["ragged_steps_total"]
     L = cfg.num_layers
     log(f"  engine steps {steps}; launches {counts}")
@@ -747,44 +1030,10 @@ def serve(torch, np, seed, card, out_dir, profile=False):
     require(counts["layer_norm"] == (2 * L + 1) * steps,
             f"layer_norm launched {counts['layer_norm']} times, want "
             f"{2 * L + 1} x {steps}")
-    peak = torch.cuda.max_memory_allocated()
-    gen_tokens = sum(len(s.tokens) for s in streams)
-    perf = {"tokens_per_s": gen_tokens / wall, "wall_s": wall,
-            "engine_steps": steps,
-            "step_ms_mean": st["decode_step_ms"]["mean"],
-            "ttft_ms_p50": st["ttft_ms"]["p50"],
-            "itl_ms_p50": st["itl_ms"]["p50"],
-            "max_memory_allocated_gb": peak / 1e9,
-            "prompt_tokens": int(lengths.sum()), "generated_tokens": gen_tokens,
-            "evicted": st["evicted_total"], "card": card}
+    perf = serving_perf(torch, st, streams, wall, lengths, card)
     if prof is not None:
         perf["profile"] = trace_breakdown(prof, out_dir, "serve", wall)
-    log(f"  served 16 requests ({int(lengths.sum())} prompt tokens, "
-        f"{gen_tokens} generated) in {wall:.3f} s: "
-        f"{perf['tokens_per_s']:.2f} tokens/s, {steps} steps, "
-        f"mean step {perf['step_ms_mean']} ms, TTFT p50 "
-        f"{perf['ttft_ms_p50']} ms, ITL p50 {perf['itl_ms_p50']} ms, "
-        f"max_memory_allocated {peak / 1e9:.2f} GB [{card}]")
-
-    # teacher-forced oracle: the predictor's logits over prompt +
-    # generated tokens must rank every generated token at the max, up to
-    # 1e-3 * max|logit| (greedy up to float32 noise: random weights have
-    # near-ties that exact identity would trip on)
-    for i in (0, 1):
-        toks = list(streams[i].tokens)
-        ctx = np.concatenate([prompts[i], np.asarray(toks, np.int64)])
-        (logits,) = pred.run([ctx[None, :-1]])
-        n = len(prompts[i])
-        worst = 0.0
-        for k, tok in enumerate(toks):
-            row = logits[0, n - 1 + k]
-            slack = float(row.max() - row[tok])
-            lim = 1e-3 * float(np.abs(row).max())
-            require(slack <= lim, f"oracle: request {i} token {k} = {tok} is "
-                    f"{slack:.3e} below the max (limit {lim:.3e})")
-            worst = max(worst, slack / lim if lim else 0.0)
-        log(f"  oracle request {i}: {len(toks)} tokens within limit "
-            f"(worst slack {worst:.3f} of the limit)")
+    oracle(np, pred, prompts, streams)
     return counts, perf
 
 
@@ -1059,6 +1308,366 @@ def card_vs_cpu(torch, np, seed, model="gpt", steps=3, lr=3e-4):
             "param_max_abs_err": worst, "param_limit": limit}
 
 
+# -- phase 5: the quantized, multi-adapter step, card against CPU ---------------------
+
+
+def _np_params(np, cfg, seed):
+    """Seeded numpy weights under the ``__params__.npz`` names, as
+    ``make_params`` makes them on the card."""
+    from paddle_tpu_torch.generation.model import GPTLM
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in GPTLM(cfg, device="meta").jax_params().items():
+        if name.endswith(".scale"):
+            out[name] = np.ones(p.shape, np.float32)
+        elif name.endswith((".bias", ".b")):
+            out[name] = np.zeros(p.shape, np.float32)
+        else:
+            out[name] = cfg.initializer_range * rng.standard_normal(
+                p.shape, dtype=np.float32)
+    return out
+
+
+# card vs CPU int8 pools: a value may sit one int8 step apart where a
+# float32 summation-order difference in the K/V projection lands it on a
+# .5 rounding boundary. The first layer's scales (max|row| / 127) differ
+# by that sum's relative error (1e-5); a deeper layer's rows come
+# through attention over pools where such a step may differ, so its
+# scales are held to half a quantization step of the row (1 / 254)
+QKV_INT8_STEP, QKV_SCALE_RTOL = 1, (1e-5, 1 / 254)
+
+
+def card_vs_cpu_quantized(torch, np, seed):
+    """One ragged step of a 2-layer full-width GPT with int8 weights,
+    int8 KV pages and two adapters (rank buckets 8 and 16), on the card
+    (K11, K2q, K12) and on the CPU (plain versions), on a mixed batch:
+    prefill chunks, decode rows, an idle lane, rows on slot 0 and on
+    both buckets."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.adapters import (AdapterStore, lora_targets,
+                                           rewrite_for_lora)
+    from paddle_tpu_torch.generation import CacheGeometry, RaggedStepModel
+    from paddle_tpu_torch.generation.model import step_feeds
+    from paddle_tpu_torch.inference import Config, Predictor
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=2,
+                    num_heads=16, ffn_size=8192, max_position=1024,
+                    hidden_dropout=0.0, attention_dropout=0.0)
+    L, H, D = cfg.num_layers, cfg.num_heads, HIDDEN // 16
+    params = _np_params(np, cfg, seed)
+    preds = {}
+    for dev in ("cpu", DEVICE):
+        c = Config().set_params(cfg, params).enable_weight_quantization("int8")
+        preds[dev] = Predictor(c, device=dev)
+    # one set of quantized bytes: the card's own quantization is compared,
+    # then the CPU's is copied over so both steps read the same weights
+    q_diff = 0
+    for (_p, _a, dc), (_p2, _a2, dg) in zip(preds["cpu"].lm.dense_layers(),
+                                            preds[DEVICE].lm.dense_layers()):
+        q_diff = max(q_diff, int((dg.qweight.cpu().int()
+                                  - dc.qweight.int()).abs().max()))
+        dg.qweight.copy_(dc.qweight)
+        dg.scale.copy_(dc.scale)
+    log(f"  int8 weights quantized on the card vs the CPU: max |dq| "
+        f"{q_diff} (the CPU's are used on both)")
+    rng = np.random.RandomState(seed)
+    ranks = {"a8": 8, "a16": 16}
+    factors = {aid: {t: ((0.02 * rng.randn(k, r)).astype(np.float32),
+                         (0.02 * rng.randn(r, n)).astype(np.float32))
+                     for t, (k, n, _q) in sorted(
+                         lora_targets(preds["cpu"].lm).items())}
+               for aid, r in ranks.items()}
+    R, C, P, ps, maxp = 6, CHUNK, 40, PAGE, 8
+    #       prefill 0  mid chunk  decode  decode  idle  partial chunk
+    starts = [0, 16, 40, 30, 0, 32]
+    nvalid = [16, 16, 1, 1, 0, 9]
+    adapters = [None, "a8", "a16", None, None, "a8"]
+    tables = np.zeros((R, maxp), np.int32)
+    free = list(rng.permutation(np.arange(1, P)))
+    for b in range(R):
+        n = -(-(starts[b] + nvalid[b]) // ps) if nvalid[b] else 0
+        tables[b, :n] = [free.pop() for _ in range(n)]
+    tokens = rng.randint(0, VOCAB, (R, C)).astype(np.int64)
+    pos_ids = np.asarray(starts)[:, None] + np.arange(C)[None, :]
+    kq = [rng.randint(-127, 128, (H, P, ps, D)).astype(np.int8)
+          for _ in range(2 * L)]
+    ks = [(0.02 * rng.rand(H, P, ps)).astype(np.float32)
+          for _ in range(2 * L)]
+    out = {}
+    for dev, pred in preds.items():
+        store = AdapterStore.for_model(pred.lm, rank_buckets=(8, 16),
+                                       slots_per_bucket=2)
+        for aid in ("a8", "a16"):
+            store.upload(aid, factors[aid], alpha=2.0 * ranks[aid])
+        step = RaggedStepModel(pred.lm, CacheGeometry(P, ps, maxp), C)
+        rewrite_for_lora(step, store)
+        slots = np.stack([store.slots_row(a) for a in adapters])
+        pools = [torch.as_tensor(a).to(dev) for a in kq]
+        scales = [torch.as_tensor(a).to(dev) for a in ks]
+        K.reset_launch_counts()
+        toks = step(*step_feeds(tokens, pos_ids, np.asarray(starts),
+                                np.asarray(nvalid, np.int32), tables,
+                                torch.device(dev)),
+                    pools[:L], pools[L:], scales[:L], scales[L:],
+                    adapter_slots=torch.as_tensor(slots).to(dev))
+        counts = K.launch_counts()
+        out[dev] = (toks.cpu().numpy().reshape(R, C),
+                    [t.cpu() for t in pools], [t.cpu() for t in scales])
+        if dev == DEVICE:
+            want = {"quantized_matmul": 4 * L + 1, "batched_lora_add_": 4 * L + 1,
+                    "ragged_paged_attention_q": L, "layer_norm": 2 * L + 1,
+                    "ragged_paged_attention": 0}
+            got = {n: counts[n] for n in want}
+            require(got == want, f"the card's step launched {got}, want "
+                    f"{want}")
+    (tg, pg, sg), (tc, pc, sc) = out[DEVICE], out["cpu"]
+    for b in range(R):
+        n = nvalid[b]
+        require(np.array_equal(tg[b, :n], tc[b, :n]),
+                f"row {b}: card tokens {tg[b, :n]} != CPU {tc[b, :n]}")
+    dq, ds = 0, 0.0
+    for a, c_ in zip(pg, pc):
+        # slot 0 of the junk page takes the invalid rows in no defined
+        # order on either device: left out
+        d = (a.int() - c_.int()).abs()
+        d[:, 0, 0] = 0
+        dq = max(dq, int(d.max()))
+    ds = []
+    for i, (a, c_) in enumerate(zip(sg, sc)):
+        d = ((a - c_).abs() / c_.abs().clamp_min(1e-30))
+        d[:, 0, 0] = 0
+        layer = i % L                      # scales are [K of each layer, V ...]
+        ds.append(float(d.max()))
+        bound = QKV_SCALE_RTOL[min(layer, 1)]
+        require(ds[-1] <= bound, f"layer {layer} KV scales differ by "
+                f"{ds[-1]:.3e} relative > {bound:.3e}")
+    require(dq <= QKV_INT8_STEP, f"int8 pools differ by {dq} steps")
+    log(f"  tokens equal on {sum(nvalid)} valid positions; int8 pools within "
+        f"{dq} step (bound {QKV_INT8_STEP}); scales (K then V, by layer) "
+        f"within {['%.3e' % d for d in ds]} relative (bounds "
+        f"{QKV_SCALE_RTOL[0]} first layer, {QKV_SCALE_RTOL[1]:.3e} deeper)")
+    return {"tokens_equal": True, "pool_max_step_diff": dq,
+            "scale_max_rel_diff": ds, "weight_quantization_max_diff": q_diff}
+
+
+# -- phase 7: gpt3_1p3b quantized and multi-adapter ---------------------------------
+
+
+# the teacher-forced oracle's slack, of max|logit|: float32 noise (1e-3,
+# phase 3's); fp8 rounds every activation to bfloat16 before its
+# product, so the engine's and the predictor's float32 attention
+# differences can flip a bfloat16 rounding: one bfloat16 step (2^-8)
+ORACLE_REL = {"int8": 1e-3, "int8_block": 1e-3, "fp8": 2.0 ** -8}
+
+
+def quantized_predictor(torch, seed, cfg, mode):
+    """Phase 3's seeded weights, quantized at load (``mode``)."""
+    from paddle_tpu_torch.generation.model import GPTLM
+    from paddle_tpu_torch.inference import Config, Predictor
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    shapes = {n: tuple(p.shape)
+              for n, p in GPTLM(cfg, device="meta").jax_params().items()}
+    params = make_params(torch, shapes, cfg.initializer_range, gen)
+    pred = Predictor(Config().set_params(cfg, params)
+                     .enable_weight_quantization(mode), device=DEVICE)
+    del params
+    torch.cuda.empty_cache()
+    rep = pred.quantize_report
+    qrows = [r for r in rep.rows if r["action"] == "quantized"]
+    ratio = (sum(r["bytes_after"] for r in qrows)
+             / sum(r["bytes_before"] for r in qrows))
+    log(f"  {mode}: quantize_report.summary() {json.dumps(rep.summary())}; "
+        f"matmul weights {ratio:.4f} of their float32 bytes")
+    require(rep.n_quantized == 4 * cfg.num_layers + 1,
+            f"{rep.n_quantized} weights quantized")
+    require(ratio <= 0.30, f"matmul weight bytes ratio {ratio:.4f} > 0.30")
+    return pred, {"summary": rep.summary(), "matmul_bytes_ratio": ratio}
+
+
+def require_launches(counts, steps, per_step):
+    want = {n: c * steps for n, c in per_step.items()}
+    got = {n: counts[n] for n in per_step}
+    require(got == want, f"{steps} steps launched {got}, want {want}")
+
+
+def adapter_factors(torch, store, seed):
+    """Four seeded adapters, two per rank bucket; ad2 is partial (the
+    ffn targets only)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    names = sorted(store.targets)
+    spec = (("ad0", 8, names), ("ad1", 16, names),
+            ("ad2", 8, [t for t in names if "_ffn" in t]),
+            ("ad3", 16, names))
+    out = []
+    for aid, r, ts in spec:
+        fac = {t: (0.02 * torch.randn(store.targets[t][0], r, device=DEVICE,
+                                      generator=gen),
+                   0.02 * torch.randn(r, store.targets[t][1], device=DEVICE,
+                                      generator=gen))
+               for t in ts}
+        out.append((aid, fac, 2.0 * r))
+    return out
+
+
+def serve_quantized(torch, np, seed, card, out_dir, base_tokens=None,
+                    profile=False):
+    """Phase 7: gpt3_1p3b at full width and depth, served (7a) with
+    int8, int8_block and fp8 weights over float32 pages, then (7b) with
+    int8 weights, int8 pages and four adapters in two rank buckets, and
+    (7c) held to the slot-0 and dedicated-engine identities."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.adapters import AdapterStore
+    from paddle_tpu_torch.generation import GenerationEngine, PagedKVCache
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig.gpt3_1p3b()
+    L = cfg.num_layers
+    lengths, prompts = serving_prompts(np, seed, cfg.vocab_size)
+    max_new = 32
+    record, paths = {}, {}
+    pred_int8 = None
+    for mode, n_req in (("int8", 16), ("int8_block", 4), ("fp8", 4)):
+        log(f"phase 7a: gpt3_1p3b, {mode} weights, float32 KV, {n_req} "
+            "requests")
+        pred, rep = quantized_predictor(torch, seed, cfg, mode)
+        eng = GenerationEngine(pred, cfg, warmup=True)
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        prof = start_profile(torch) if profile and mode == "int8" else None
+        streams, wall = run_clients(eng, prompts, max_new, ids=range(n_req))
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        counts = K.launch_counts()
+        st = eng.stats()
+        eng.close()
+        check_streams(streams, max_new)
+        steps = st["ragged_steps_total"]
+        require_launches(counts, steps, {
+            "quantized_matmul": 4 * L + 1, "layer_norm": 2 * L + 1,
+            "ragged_paged_attention": L, "ragged_paged_attention_q": 0,
+            "batched_lora_add_": 0})
+        log(f"  engine steps {steps}; launches {counts}")
+        perf = serving_perf(torch, st, streams, wall, lengths, card)
+        del eng
+        oracle(np, pred, prompts, streams, rel=ORACLE_REL[mode])
+        perf.update(rep, launches=counts)
+        if prof is not None:
+            perf["profile"] = trace_breakdown(prof, out_dir, "serve_int8",
+                                              wall)
+        record[f"7a_{mode}"] = perf
+        paths[f"serve_{mode}"] = counts
+        if mode == "int8":
+            pred_int8 = pred
+        # a stream holds its engine, and so its page pool: drop them
+        # before the next run's peak is read
+        del pred, streams
+        torch.cuda.empty_cache()
+
+    log("phase 7b: gpt3_1p3b, int8 weights, int8 KV, 4 adapters in rank "
+        "buckets 8 and 16")
+    pred = pred_int8
+    store = AdapterStore.for_model(pred.lm, rank_buckets=(8, 16),
+                                   slots_per_bucket=4)
+    eng = GenerationEngine(pred, cfg, kv_dtype="int8", adapter_store=store,
+                           warmup=True)
+    ads = adapter_factors(torch, store, seed)
+    for aid, fac, alpha in ads:
+        store.upload(aid, fac, alpha=alpha)
+    # requests 0, 4, 8, 12 are base-only; the other 12 name ad0..ad3
+    named = [i for i in range(16) if i % 4]
+    adapters = [None] * 16
+    for k, i in enumerate(named):
+        adapters[i] = f"ad{k % 4}"
+    # 67,584 / 262,144 at 16 kv heads x 16 slots x 128
+    geom = (eng.cache.num_kv_heads, eng.cache.head_dim, eng.page_size)
+    want_ratio = (PagedKVCache.page_bytes(*geom, "int8")
+                  / PagedKVCache.page_bytes(*geom, "float32"))
+    pool_ratio = eng.cache.pool_bytes() / (
+        L * eng.num_pages * PagedKVCache.page_bytes(*geom, "float32"))
+    require(pool_ratio == want_ratio and eng.cache.pool_bytes() == L
+            * eng.num_pages * 2 * (geom[0] * geom[2] * (geom[1] + 4)),
+            f"int8 pool is {pool_ratio} of the float32 pool, want "
+            f"{want_ratio}")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    prof = start_profile(torch) if profile else None
+    streams, wall = run_clients(eng, prompts, max_new, adapters)
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    counts = K.launch_counts()
+    st = eng.stats()
+    eng.close()
+    check_streams(streams, max_new)
+    steps = st["ragged_steps_total"]
+    require_launches(counts, steps, {
+        "quantized_matmul": 4 * L + 1, "layer_norm": 2 * L + 1,
+        "ragged_paged_attention_q": L, "batched_lora_add_": 4 * L + 1,
+        "ragged_paged_attention": 0})
+    require(st["cache"]["pages_in_use"] == 0, "pages left in use")
+    eng.cache.check_integrity()
+    require(all(r["refcount"] == 0 for r in store.resident()),
+            "an adapter is still pinned")
+    log(f"  engine steps {steps}; launches {counts}; int8 pool "
+        f"{eng.cache.pool_bytes()} B = {pool_ratio:.6f} of float32")
+    perf = serving_perf(torch, st, streams, wall, lengths, card)
+    perf.update(launches=counts, pool_bytes=eng.cache.pool_bytes(),
+                pool_ratio=pool_ratio, adapters=adapters,
+                residents=store.resident())
+    if prof is not None:
+        perf["profile"] = trace_breakdown(prof, out_dir, "serve_lora", wall)
+    del eng, streams
+    torch.cuda.empty_cache()
+    record["7b"] = perf
+    paths["serve_lora"] = counts
+    mixed = perf["tokens"]
+
+    log("phase 7c: the identities: base rows vs an engine without a store, "
+        "adapter rows vs dedicated engines")
+    with GenerationEngine(pred, cfg, kv_dtype="int8") as base_eng:
+        K.reset_launch_counts()
+        bstreams, _ = run_clients(base_eng, prompts, max_new)
+        paths["serve_int8_kv"] = K.launch_counts()
+    check_streams(bstreams, max_new)
+    base = [list(s.tokens) for s in bstreams]
+    for i in range(0, 16, 4):
+        require(mixed[i] == base[i], f"base row {i} differs from the engine "
+                f"without adapters: {mixed[i]} vs {base[i]}")
+    changed = [i for i in named if mixed[i] != base[i]]
+    require(changed, "no adapter changed any token")
+    dedicated = {}
+    for bucket_aid in ("ad0", "ad1"):       # one of each rank bucket
+        i = adapters.index(bucket_aid)
+        aid, fac, alpha = next(a for a in ads if a[0] == bucket_aid)
+        solo = AdapterStore.for_model(pred.lm, rank_buckets=(8, 16),
+                                      slots_per_bucket=4)
+        solo.upload(aid, fac, alpha=alpha)
+        with GenerationEngine(pred, cfg, kv_dtype="int8",
+                              adapter_store=solo) as seng:
+            out = seng.generate(prompts[i], max_new_tokens=max_new,
+                                adapter=aid, timeout=600)
+        require(out == mixed[i], f"request {i} ({aid}) differs from a "
+                f"dedicated engine: {mixed[i]} vs {out}")
+        dedicated[aid] = i
+    agree = None
+    if base_tokens is not None:
+        pos = [(a == b) for i in range(0, 16, 4)
+               for a, b in zip(mixed[i], base_tokens[i])]
+        agree = sum(pos) / len(pos)
+    log(f"  base rows equal the store-less engine; {len(changed)} of 12 "
+        f"adapter rows differ from their base tokens; requests "
+        f"{dedicated} equal dedicated engines; base rows agree with phase "
+        f"3's float32 tokens at {agree} of positions (reported, not gated) "
+        f"[{card}]")
+    record["7c"] = {"adapter_rows_changed": len(changed),
+                    "dedicated": dedicated,
+                    "base_vs_float32_agreement": agree}
+    del pred, pred_int8
+    return paths, record
+
+
 # -- main ---------------------------------------------------------------------------
 
 
@@ -1068,10 +1677,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chip_smoke_out",
                     help="directory for the build log and chip_smoke.json")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serving run and two training steps "
-                    "with torch.profiler and print device time by kernel "
-                    "group and the idle share")
-    ap.add_argument("--phases", default="23456",
+                    help="trace the serving runs (phases 3, 7a int8, 7b) "
+                    "and two training steps with torch.profiler and print "
+                    "device time by kernel group and the idle share")
+    ap.add_argument("--phases", default=ALL_PHASES,
                     help="phases to run after the build (a debugging aid: "
                     "only a run of all of them prints the result line)")
     args = ap.parse_args(argv)
@@ -1123,7 +1732,14 @@ def main(argv=None) -> int:
                 else:
                     rows.setdefault(name, {})[dt] = out
         rows.update(check_flash(torch, np, K, gen, args.seed))
+        qmm = check_quant_matmul(torch, K, gen)
+        rows["quantized_matmul"] = {m: qmm[f"{m}_qkv"] for m in
+                                    ("int8", "int8_block", "fp8")}
+        rows["ragged_paged_attention_q"] = {
+            "float32": check_ragged_q(torch, np, K, gen, args.seed)}
+        rows["batched_lora_add_"] = check_lora(torch, K, gen)
         record["kernels"] = rows
+        record["quantized_matmul_all_shapes"] = qmm
     # launches of each kernel on the main paths, read just after each
     paths = {}
     if "3" in args.phases:
@@ -1150,12 +1766,22 @@ def main(argv=None) -> int:
             log(f"phase 5: a 2-layer {what}, card against CPU")
             record["card_vs_cpu"][model] = card_vs_cpu(torch, np, args.seed,
                                                        model)
+        log("phase 5: a 2-layer gpt3_1p3b-width GPT, int8 weights, int8 KV, "
+            "two adapters: one ragged step, card against CPU")
+        record["card_vs_cpu"]["quantized_adapters"] = card_vs_cpu_quantized(
+            torch, np, args.seed)
         torch.cuda.empty_cache()
     if "6" in args.phases:
         log("phase 6: BERT-large pretrained under bfloat16 AMP with flash "
             "attention")
         paths["bert"], record["bert"] = train_bert(
             torch, np, args.seed, card, args.out, profile=args.profile)
+        torch.cuda.empty_cache()
+    if "7" in args.phases:
+        base = record.get("serve", {}).get("tokens")
+        qpaths, record["serve_quantized"] = serve_quantized(
+            torch, np, args.seed, card, args.out, base, profile=args.profile)
+        paths.update(qpaths)
         torch.cuda.empty_cache()
     launches = {name: {p: c[name] for p, c in paths.items()}
                 for name in K.KERNELS}
@@ -1164,21 +1790,22 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "4 and 6)")
+        "4, 6 and 7)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"
             log(f"  {name} {key}: {fmt(row, dt)} launches={launches[name]} "
                 f"[{card}]")
-    if args.phases != "23456":
+    if args.phases != ALL_PHASES:
         log(f"phases {args.phases} only: no result line")
         return 0
 
-    def entry(name, src, replaces, key="float32"):
+    def entry(name, src, replaces, key="float32", label=None, path=None):
         row = rows[name][key]
-        return {"name": name, "route": "cuda", "source": src,
+        return {"name": label or name, "route": "cuda", "source": src,
                 "replaces": replaces,
-                "launches": sum(launches[name].values()),
+                "launches": (launches[name][path] if path else
+                             sum(launches[name].values())),
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
@@ -1203,6 +1830,23 @@ def main(argv=None) -> int:
               "paddle_tpu/kernels/flash_attention.py:169", "gpt3_1p3b"),
         entry("flash_attention_bwd", csrc + "flash_attention.cu",
               "paddle_tpu/kernels/flash_attention.py:641", "gpt3_1p3b"),
+        # K11 at the qkv shape [128, 2048] x [2048, 6144], one row per
+        # mode with the launches of that mode's phase 7a run (int8: every
+        # phase 7 path); the other shapes are in chip_smoke.json
+        entry("quantized_matmul", csrc + "quant_matmul.cu",
+              "paddle_tpu/kernels/quant_matmul.py:231", "int8"),
+        entry("quantized_matmul", csrc + "quant_matmul.cu",
+              "paddle_tpu/kernels/quant_matmul.py:231", "int8_block",
+              "quantized_matmul_int8_block", "serve_int8_block"),
+        entry("quantized_matmul", csrc + "quant_matmul.cu",
+              "paddle_tpu/kernels/quant_matmul.py:231", "fp8",
+              "quantized_matmul_fp8", "serve_fp8"),
+        entry("ragged_paged_attention_q", csrc + "ragged_paged_attention.cu",
+              "paddle_tpu/kernels/ragged_paged_attention.py:184"),
+        # K12 at ffn1 [128, 2048] -> 8192, ranks 8 and 16 (the head row is
+        # in chip_smoke.json)
+        entry("batched_lora_add_", csrc + "lora.cu",
+              "paddle_tpu/kernels/lora.py:168", "ffn1"),
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never launched on a main path")

@@ -18,6 +18,22 @@ Ported so far:
       eng = GenerationEngine(pred, pred.gpt_config)
       eng.generate([1, 5, 9], max_new_tokens=32)
 
+* quantized, multi-adapter serving: int8 / int8_block / fp8 weights
+  (``Config.enable_weight_quantization`` or the ``quantize_weights``
+  flag; ``quantize.rewrite_for_inference``, the K11 kernel), int8 KV
+  pages (``GenerationEngine(kv_dtype="int8")``, K2q) and batched LoRA
+  adapters over the quantized base (``adapters.AdapterStore``,
+  ``submit(..., adapter=id)``, K12);
+
+      cfg = Config(lm_dir); cfg.enable_weight_quantization("int8")
+      pred = create_predictor(cfg)
+      store = AdapterStore.for_model(pred.lm, rank_buckets=(8, 16),
+                                     slots_per_bucket=4)
+      eng = GenerationEngine(pred, pred.gpt_config, kv_dtype="int8",
+                             adapter_store=store)
+      store.upload("ad0", {"dec0_ffn1.w": (A, B)}, alpha=16.0)
+      eng.submit(prompt, max_new_tokens=32, adapter="ad0")
+
 * training: the Program IR, ``append_backward``, ``AdamOptimizer``,
   the bfloat16 AMP decorator (``contrib.mixed_precision.decorate``) and
   an eager ``Executor``, with CUDA kernels for the layer-norm backward,
@@ -36,6 +52,12 @@ Ported so far:
       exe = fluid.Executor(fluid.CUDAPlace(0))    # or fluid.CPUPlace()
       exe.run(startup)
       exe.run(main, feed={...}, fetch_list=[loss])
+
+Not ported yet (ROADMAP A): ``MomentumOptimizer`` and its fused kernel
+K10m (A1), the two_lane engine and its paged attention K13 (A5),
+speculative decoding (A3), the radix prefix cache (A4), HTTP serving
+and the hot base swap (A6), the w8a8 ``calibrate`` pass (A7), the host
+tiers (A9) and distribution (A10).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of

@@ -1,0 +1,22 @@
+"""paddle_tpu_torch.adapters — batched LoRA multiplexing (counterpart
+of ``paddle_tpu.adapters``): device-resident, rank-bucketed factor
+pools (``store.AdapterStore``), the step-model rewrite that routes
+each batch row's adapter delta into the matmuls
+(``rewrite.rewrite_for_lora``, over the K12 kernel), and per-row slots
+fed by the ragged engine (``GenerationEngine(adapter_store=...)``,
+``submit(..., adapter=...)``).
+
+Not ported: the hot base swap (``GenerationEngine.swap_base``) and the
+HTTP admin surface (ROADMAP A6), the traffic tier's per-adapter
+quotas (A9).
+"""
+
+from .rewrite import LoraReport, lora_targets, rewrite_for_lora
+from .store import (DEFAULT_RANK_BUCKETS, AdapterError, AdapterInUse,
+                    AdapterMissing, AdapterPoolFull, AdapterQuotaExceeded,
+                    AdapterStore)
+
+__all__ = ["AdapterStore", "AdapterError", "AdapterMissing",
+           "AdapterPoolFull", "AdapterQuotaExceeded", "AdapterInUse",
+           "DEFAULT_RANK_BUCKETS", "rewrite_for_lora", "lora_targets",
+           "LoraReport"]

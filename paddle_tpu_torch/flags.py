@@ -1,6 +1,7 @@
 """The flags the port reads, with the JAX package's names and API.
 
-A copy of the matching entries of ``paddle_tpu/flags.py`` and of its
+A copy of the matching entries of ``paddle_tpu/flags.py`` (the
+generation, quantize and adapter defaults of :60-147) and of its
 ``get_flags`` / ``set_flags`` / ``flag`` (:368-395). Only what the
 ported slices read is here; the reference's env overrides, autotune
 profiles and live-flag generations come with the host tiers.
@@ -27,6 +28,28 @@ DEFAULTS = {
     # one [lanes, generation_chunk_tokens] mixed prefill+decode step;
     # longer prompts prefill in chunks across steps
     "generation_chunk_tokens": 16,
+    # "float32" or "int8": int8 KV pages with one float32 scale per
+    # (kv head, token slot), about 3.9x the tokens a pool byte budget
+    # holds at head_dim 128 (the ragged engine's K2q path)
+    "generation_kv_dtype": "float32",
+    # "off" | "int8" | "int8_block" | "fp8": Predictor construction and
+    # the GenerationEngine quantize every matmul weight ONCE at load
+    # (the fp32 originals dropped) and run it through the K11 kernel;
+    # quantize_block is int8_block's block down the contraction axis.
+    # Per instance: Config.enable_weight_quantization /
+    # GenerationEngine(quantize_weights=...)
+    "quantize_weights": "off",
+    "quantize_block": 256,
+    # batched LoRA (ragged engine): adapter_pool_max_bytes > 0 builds an
+    # AdapterStore over every matmul weight at engine construction;
+    # adapter_rank_buckets names the bucket ranks; adapter_slots_per_
+    # bucket > 0 overrides the byte-derived slots per bucket (the zero
+    # slot excluded); adapter_tenant_quota caps resident adapters per
+    # tenant (0 = none)
+    "adapter_pool_max_bytes": 0,
+    "adapter_rank_buckets": "8,16",
+    "adapter_slots_per_bucket": 0,
+    "adapter_tenant_quota": 0,
     # "auto" | "on" | "off": AdamOptimizer emits the one-pass fused_adam
     # op (the K10 kernel on CUDA) instead of the unfused adam chain
     "optimizer_fuse": "auto",

@@ -20,10 +20,27 @@ A step that raises turns into errors on that step's requests
 its stream. The loop thread owns all device work; client threads only
 read streams.
 
+Quantized, multi-adapter serving (the JAX engine's :407-420, :493-567):
+
+* ``kv_dtype="int8"`` (or the ``generation_kv_dtype`` flag) keeps the
+  KV cache in int8 pages with per-(head, slot) scales: the step writes
+  them with ``quantized_kv_cache_write`` and attends with K2q.
+* ``quantize_weights`` ("int8" | "int8_block" | "fp8"; the parameter,
+  else the ``quantize_weights`` flag, block ``quantize_block``)
+  quantizes the shared model once (``quantize.rewrite_for_inference``)
+  unless the predictor already did at load; the matmuls run K11.
+* ``adapter_store=`` (or ``adapter_pool_max_bytes`` > 0, which builds
+  one from the ``adapter_*`` flags) multiplexes LoRA adapters per row
+  over the base, quantized or not: ``submit(..., adapter=id)`` pins a
+  resident adapter (``AdapterMissing`` otherwise) until the request
+  ends, each step feeds the rows' ``[lanes, n_buckets]`` slots, and the
+  deltas run K12. A force-evicted adapter fails its own rows at the
+  next step, never the batch.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item when asked for: ``mode="two_lane"``, speculative decoding
-(``draft`` / ``spec_tokens``), ``kv_dtype="int8"``, ``prefix_cache``,
-``quantize_weights``, ``page_store`` and ``adapter_store``.
+ROADMAP item when asked for: ``mode="two_lane"`` (A5), speculative
+decoding (``draft`` / ``spec_tokens``, A3), ``prefix_cache`` (A4),
+``page_store`` (A9) and ``swap_base`` (A6).
 """
 
 from __future__ import annotations
@@ -36,8 +53,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..adapters import AdapterMissing, AdapterStore, rewrite_for_lora
 from ..flags import flag
 from ..kernels.ragged_paged_attention import MAX_CHUNK
+from ..quantize import rewrite_for_inference
 from ..serving.engine import (DeadlineExceeded, EngineClosed, Overloaded,
                               RequestCancelled, ServingError)
 from ..serving.metrics import StreamingHistogram
@@ -52,11 +71,8 @@ _DONE = object()  # stream sentinel
 _NOT_PORTED = {
     "mode='two_lane'": "A5 (two_lane engine, K13 via K2 at C=1)",
     "draft/spec_tokens": "A3 (speculative decoding)",
-    "kv_dtype='int8'": "A2 (int8 KV pages, K2q)",
     "prefix_cache": "A4 (radix prefix cache)",
-    "quantize_weights": "A7 (quantized weights, K11)",
     "page_store": "A9 (host tiers: disaggregated page store)",
-    "adapter_store": "A8 (LoRA adapters, K12)",
 }
 
 
@@ -82,6 +98,7 @@ class GenerationStream:
         self.error: Optional[BaseException] = None
         self._cancelled = False
         self.first_token_at: Optional[float] = None
+        self._callbacks: List = []
 
     # -- engine side ---------------------------------------------------------
     def _push(self, token: int) -> None:
@@ -101,6 +118,24 @@ class GenerationStream:
         with self._cond:
             self._q.append(_DONE)
             self._cond.notify_all()
+            callbacks, self._callbacks = self._callbacks, []
+        for cb in callbacks:
+            try:
+                cb(self)
+            except Exception:  # noqa: BLE001 — a bad callback is the caller's bug
+                pass
+
+    def add_done_callback(self, fn) -> None:
+        """``fn(self)`` once the stream reaches a terminal state
+        (immediately if it already has)."""
+        with self._cond:
+            if not self._done.is_set():
+                self._callbacks.append(fn)
+                return
+        try:
+            fn(self)
+        except Exception:  # noqa: BLE001
+            pass
 
     # -- caller side ---------------------------------------------------------
     def __iter__(self):
@@ -145,9 +180,10 @@ class GenerationStream:
 class _GenRequest:
     __slots__ = ("prompt", "orig_prompt", "max_new", "eos_id", "deadline",
                  "stream", "enqueue_t", "slot", "pending", "n_generated",
-                 "admit_seq", "last_tok_t", "prefill_off")
+                 "admit_seq", "last_tok_t", "prefill_off", "adapter")
 
-    def __init__(self, prompt, max_new, eos_id, deadline, stream):
+    def __init__(self, prompt, max_new, eos_id, deadline, stream,
+                 adapter=None):
         self.prompt = prompt            # context to prefill (grows on resume)
         self.orig_prompt = prompt       # the caller's prompt, immutable
         self.max_new = max_new
@@ -161,6 +197,7 @@ class _GenRequest:
         self.admit_seq = 0                   # admission order (evict victim)
         self.last_tok_t: Optional[float] = None
         self.prefill_off = 0            # prompt tokens already written
+        self.adapter = adapter          # resident LoRA adapter id, or None
 
 
 class GenerationMetrics:
@@ -264,19 +301,20 @@ class GenerationEngine:
                              f"{mode!r}")
         if draft is not None or spec_tokens:
             _not_ported("draft/spec_tokens")
-        if kv_dtype == "int8":
-            _not_ported("kv_dtype='int8'")
-        if kv_dtype not in (None, "float32"):
-            raise ValueError(f"kv_dtype must be 'float32' (the model's "
-                             f"dtype) or 'int8'; got {kv_dtype!r}")
         if prefix_cache:
             _not_ported("prefix_cache")
-        if quantize_weights not in (None, "off"):
-            _not_ported("quantize_weights")
         if page_store is not None:
             _not_ported("page_store")
-        if adapter_store is not None:
-            _not_ported("adapter_store")
+        # precedence: parameter > flag
+        self.kv_dtype = str(kv_dtype if kv_dtype is not None
+                            else flag("generation_kv_dtype"))
+        if self.kv_dtype not in ("float32", "int8"):
+            raise ValueError(f"kv_dtype must be 'float32' (the model's "
+                             f"dtype) or 'int8'; got {self.kv_dtype!r}")
+        self.quantize_weights = str(
+            quantize_weights if quantize_weights is not None
+            else flag("quantize_weights")) or "off"
+        self._quant_block = int(flag("quantize_block"))
         self.mode = mode
         self.config = config
         # the clone shares the weights; the engine's loop never contends
@@ -313,10 +351,41 @@ class GenerationEngine:
             config.hidden_size // config.num_heads,
             num_pages=self.num_pages, page_size=self.page_size,
             max_seqs=self.lanes, max_pages_per_seq=maxp,
-            device=self.device, dtype=lm.dtype)
+            device=self.device,
+            dtype="int8" if self.kv_dtype == "int8" else lm.dtype)
         self.metrics = GenerationMetrics()
         # THE step: one mixed prefill+decode model for the engine's life
         self._step_model = RaggedStepModel(lm, self.geom, self.chunk_tokens)
+        # weight quantization: the model is shared with the caller's
+        # predictor, so it is quantized once for both (a no-op check of
+        # mode and block when the predictor already did at load)
+        self.quantize_report = None
+        if self.quantize_weights != "off":
+            rep = rewrite_for_inference(lm, self.quantize_weights,
+                                        block=self._quant_block)
+            if self._pred.quantize_report is None:
+                self._pred.quantize_report = rep
+                predictor.quantize_report = rep
+            self.quantize_report = self._pred.quantize_report
+        # batched LoRA, AFTER the quantize seam: the deltas apply to the
+        # dequantized products, and only the step takes them (the
+        # predictor keeps serving the base model)
+        self.adapter_store = adapter_store
+        self.lora_report = None
+        if self.adapter_store is None \
+                and int(flag("adapter_pool_max_bytes")) > 0:
+            buckets = tuple(int(x) for x in
+                            str(flag("adapter_rank_buckets")).split(",") if x)
+            self.adapter_store = AdapterStore.for_model(
+                lm, rank_buckets=buckets or (8, 16),
+                max_bytes=int(flag("adapter_pool_max_bytes")),
+                slots_per_bucket=(int(flag("adapter_slots_per_bucket"))
+                                  or None),
+                tenant_quota=int(flag("adapter_tenant_quota")))
+        if self.adapter_store is not None:
+            self.adapter_store.attach(self.device)
+            self.lora_report = rewrite_for_lora(self._step_model,
+                                                self.adapter_store)
 
         self._cond = threading.Condition()
         self._queue: "collections.deque[_GenRequest]" = collections.deque()
@@ -375,11 +444,15 @@ class GenerationEngine:
     # -- submission ----------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                eos_id: Optional[int] = "default",  # type: ignore[assignment]
-               deadline_ms: Optional[float] = None) -> GenerationStream:
+               deadline_ms: Optional[float] = None,
+               adapter: Optional[str] = None) -> GenerationStream:
         """Admit one prompt (1-D int sequence). Raises ``Overloaded``
         when the admission queue is full OR when the prompt + budget
         could never fit the page pool, both before any prefill work;
-        raises ``EngineClosed`` after close()."""
+        raises ``EngineClosed`` after close(). ``adapter`` names a
+        resident LoRA adapter every row of this request decodes through
+        (``AdapterMissing`` before any queueing when it is not); it is
+        pinned until the request's terminal state."""
         prompt = np.asarray(prompt, dtype=np.int64).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must hold at least one token")
@@ -401,33 +474,71 @@ class GenerationEngine:
                 f"(num_pages x page_size)")
         deadline = (time.monotonic() + deadline_ms / 1e3
                     if deadline_ms is not None else None)
+        if adapter is not None:
+            if self.adapter_store is None:
+                raise ValueError(
+                    f"request names adapter {adapter!r} but this engine "
+                    "has no adapter store (set adapter_pool_max_bytes "
+                    "or pass adapter_store=)")
+            # pinned BEFORE queueing; released once, at the stream's
+            # terminal state (every retirement goes through _finish)
+            self.adapter_store.acquire(adapter)
         stream = GenerationStream(self)
-        req = _GenRequest(prompt, max_new, eos, deadline, stream)
-        with self._cond:
-            if self._closed:
-                raise EngineClosed("GenerationEngine is closed")
-            if len(self._queue) >= self.queue_capacity:
-                self.metrics.inc("rejected_total")
-                raise Overloaded(
-                    f"generation queue full ({self.queue_capacity} pending); "
-                    "retry with backoff or raise queue_capacity")
-            self._queue.append(req)
-            self.metrics.inc("requests_total")
-            self._cond.notify_all()
+        if adapter is not None:
+            stream.add_done_callback(
+                lambda _s, _a=adapter: self.adapter_store.release(_a))
+        req = _GenRequest(prompt, max_new, eos, deadline, stream, adapter)
+        try:
+            with self._cond:
+                if self._closed:
+                    raise EngineClosed("GenerationEngine is closed")
+                if len(self._queue) >= self.queue_capacity:
+                    self.metrics.inc("rejected_total")
+                    raise Overloaded(
+                        f"generation queue full ({self.queue_capacity} "
+                        "pending); retry with backoff or raise "
+                        "queue_capacity")
+                self._queue.append(req)
+                self.metrics.inc("requests_total")
+                self._cond.notify_all()
+        except BaseException:
+            # rejected before the queue owned it: unpin here
+            if adapter is not None:
+                self.adapter_store.release(adapter)
+            raise
         return stream
 
     def generate(self, prompt, max_new_tokens: Optional[int] = None,
                  eos_id="default", deadline_ms: Optional[float] = None,
-                 timeout: Optional[float] = None) -> List[int]:
+                 timeout: Optional[float] = None,
+                 adapter: Optional[str] = None) -> List[int]:
         """Synchronous submit + result."""
-        return self.submit(prompt, max_new_tokens, eos_id,
-                           deadline_ms).result(timeout)
+        return self.submit(prompt, max_new_tokens, eos_id, deadline_ms,
+                           adapter=adapter).result(timeout)
 
     # -- introspection -------------------------------------------------------
     def stats(self) -> Dict[str, Any]:
         out = self.metrics.snapshot()
         out["cache"] = self.cache.stats()
+        if self.adapter_store is not None:
+            out["adapters"] = self.adapter_store.stats_numeric()
         return out
+
+    def models_fragment(self) -> Dict[str, Any]:
+        """What a router places requests by: the base model's
+        quantization and the resident adapters (id, rank, bucket, slot,
+        refcount, bytes)."""
+        return {
+            "base": {"version": "base", "quantized": self.quantize_weights,
+                     "kv_dtype": self.kv_dtype},
+            "adapters": (self.adapter_store.resident()
+                         if self.adapter_store is not None else []),
+        }
+
+    def swap_base(self, *_args, **_kwargs):
+        raise NotImplementedError(
+            "GenerationEngine.swap_base is not ported to paddle_tpu_torch "
+            "yet: ROADMAP queue A6 (HTTP serving and hot base swap)")
 
     # -- the step loop -------------------------------------------------------
     def _loop(self):
@@ -582,6 +693,18 @@ class GenerationEngine:
             self._grow_or_evict(slot)
         if not self._by_slot:
             return
+        if self.adapter_store is not None:
+            # a force-evicted adapter fails ITS rows here, before they
+            # cost a step — never the whole batch
+            for slot, req in list(self._by_slot.items()):
+                if req.adapter is None:
+                    continue
+                try:
+                    self.adapter_store.slots_row(req.adapter)
+                except AdapterMissing as e:
+                    self._retire(slot, "error", ServingError(str(e)))
+            if not self._by_slot:
+                return
         tokens = np.zeros((R, C), np.int64)
         pos_ids = np.zeros((R, C), np.int64)
         positions = np.zeros(R, np.int32)
@@ -600,13 +723,25 @@ class GenerationEngine:
                 pos_ids[slot, 0] = L0
                 positions[slot] = L0
                 num_valid[slot] = 1
+        aslots = None
+        if self.adapter_store is not None:
+            # per-row adapter slots, fed like a block table: zeros (the
+            # zero adapter) for base-only rows and idle lanes
+            aslots = np.zeros((R, self.adapter_store.n_buckets), np.int32)
+            for slot, req in self._by_slot.items():
+                if req.adapter is not None:
+                    aslots[slot] = self.adapter_store.slots_row(req.adapter)
         active = list(self._by_slot.items())
         t0 = time.monotonic()
         try:
             feeds = step_feeds(tokens, pos_ids, positions, num_valid,
                                self.cache.block_tables, self.device)
+            if aslots is not None:
+                aslots = torch.from_numpy(aslots).to(self.device)
             next_all = self._step_model(
-                *feeds, self.cache.k_pages, self.cache.v_pages)
+                *feeds, self.cache.k_pages, self.cache.v_pages,
+                self.cache.k_scales, self.cache.v_scales,
+                adapter_slots=aslots)
             next_all = next_all.cpu().numpy().reshape(R, C)
         except Exception as e:  # noqa: BLE001 — a bad batch must not kill the loop
             for slot, _req in active:

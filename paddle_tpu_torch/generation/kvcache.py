@@ -17,9 +17,17 @@ Page 0 is permanently reserved as the JUNK page: idle lanes and padding
 rows point their tables at it, so their writes never touch a live
 sequence.
 
+``dtype="int8"`` (the engine's ``kv_dtype="int8"``,
+``kvcache.py:133-229, :250-255`` there) keeps int8 pools plus one
+float32 scale per (kv head, page, slot): ``k_scales`` / ``v_scales``
+``[KVH, P, ps]``, initialised to 1.0 so an unwritten slot dequantizes
+to 0.0. A page then costs ``2 * (KVH * ps * D + 4 * KVH * ps)`` bytes
+a layer: 67,584 against 262,144 in float32 at 16 heads x 16 slots x
+128.
+
 Not ported yet (later slices, see ROADMAP): the radix prefix trie and
-refcounted sharing, int8 pools with scale planes, page export/ingest.
-With no sharing, every in-use page belongs to exactly one chain.
+refcounted sharing (A4), page export/ingest (A9). With no sharing,
+every in-use page belongs to exactly one chain.
 """
 
 from __future__ import annotations
@@ -33,6 +41,17 @@ import torch
 __all__ = ["PagedKVCache", "PagePoolExhausted"]
 
 
+def _torch_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
+    """A pool dtype given as a torch dtype or as its JAX-side name
+    ("float32", "bfloat16", "int8")."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if dtype not in ("float32", "bfloat16", "int8"):
+        raise ValueError(f"KV pool dtype must be float32, bfloat16 or "
+                         f"int8; got {dtype!r}")
+    return getattr(torch, dtype)
+
+
 class PagePoolExhausted(RuntimeError):
     """No free pages (or slots) for the requested growth — admission
     backpressure or eviction must resolve it; never an allocation."""
@@ -43,7 +62,7 @@ class PagedKVCache:
                  num_pages: int, page_size: int, max_seqs: int,
                  max_pages_per_seq: int,
                  device: Union[str, torch.device] = "cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: Union[str, torch.dtype] = torch.float32):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
         if page_size < 1 or max_seqs < 1 or max_pages_per_seq < 1:
@@ -56,12 +75,16 @@ class PagedKVCache:
         self.max_seqs = int(max_seqs)
         self.max_pages_per_seq = int(max_pages_per_seq)
         self.device = torch.device(device)
-        self.dtype = dtype
+        self.dtype = _torch_dtype(dtype)
+        self.quantized = self.dtype == torch.int8
         self._lock = threading.Lock()
         # device pools, one K + one V per layer (lazy: the first access
-        # allocates, so constructing a cache costs nothing)
+        # allocates, so constructing a cache costs nothing); int8 pools
+        # carry float32 scale planes [KVH, P, ps] beside them
         self._k_pages: Optional[List[torch.Tensor]] = None
         self._v_pages: Optional[List[torch.Tensor]] = None
+        self._k_scales: Optional[List[torch.Tensor]] = None
+        self._v_scales: Optional[List[torch.Tensor]] = None
         # host bookkeeping
         self.block_tables = np.zeros((max_seqs, max_pages_per_seq), np.int32)
         self.lengths = np.zeros(max_seqs, np.int32)
@@ -83,6 +106,13 @@ class PagedKVCache:
             self._v_pages = [torch.zeros(shape, device=self.device,
                                          dtype=self.dtype)
                              for _ in range(self.num_layers)]
+            if self.quantized:
+                # scale 1.0 everywhere: an unwritten slot (the junk page
+                # included) dequantizes to 0.0, never to garbage
+                self._k_scales = [torch.ones(shape[:3], device=self.device)
+                                  for _ in range(self.num_layers)]
+                self._v_scales = [torch.ones(shape[:3], device=self.device)
+                                  for _ in range(self.num_layers)]
 
     @property
     def k_pages(self) -> List[torch.Tensor]:
@@ -94,12 +124,28 @@ class PagedKVCache:
         self._ensure_buffers()
         return self._v_pages
 
+    @property
+    def k_scales(self) -> Optional[List[torch.Tensor]]:
+        """The int8 pools' K scale planes (None for a float pool)."""
+        self._ensure_buffers()
+        return self._k_scales
+
+    @property
+    def v_scales(self) -> Optional[List[torch.Tensor]]:
+        self._ensure_buffers()
+        return self._v_scales
+
     @staticmethod
     def page_bytes(num_kv_heads: int, head_dim: int, page_size: int,
-                   dtype: torch.dtype) -> int:
-        """Device bytes ONE page costs per layer (K + V)."""
+                   dtype: Union[str, torch.dtype]) -> int:
+        """Device bytes ONE page costs per layer (K + V, and for int8
+        the scale planes)."""
+        dtype = _torch_dtype(dtype)
+        slots = num_kv_heads * page_size
+        if dtype == torch.int8:
+            return 2 * (slots * head_dim + 4 * slots)
         item = torch.empty((), dtype=dtype).element_size()
-        return 2 * num_kv_heads * page_size * head_dim * item
+        return 2 * slots * head_dim * item
 
     def pool_bytes(self) -> int:
         """Total device bytes of the page pools across layers."""

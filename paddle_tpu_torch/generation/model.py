@@ -16,6 +16,15 @@ Counterparts of ``paddle_tpu/generation/model.py``:
 * ``load_jax_params`` — carries the JAX package's weights (the names of
   ``__params__.npz``) onto a ``GPTLM``.
 
+Every matmul of the model is a ``Dense`` named by its JAX weight
+(``dec0_qkv.w`` ...). ``quantize.rewrite_for_inference`` replaces them
+in place by ``QuantizedDense`` (int8 / int8_block / fp8 weight through
+the K11 kernel), so the predictor and the step, which share the
+modules, share one set of quantized weights. The step's adapter seam
+(``adapters.rewrite_for_lora``, the ``batched_lora`` ops of the JAX
+ragged program) is a per-step ``LoraBatch`` handed down to the dense
+layers: the predictor never sees it.
+
 Numerics follow the JAX package: qkv splits q|k|v along the last dim,
 heads are head-major ``[..., H, D]``, layer norm has eps 1e-5 and
 population variance, the FFN uses exact erf GELU. Weights are kept in
@@ -24,7 +33,9 @@ is one to one.
 
 The step writes the page pools IN PLACE (the JAX program returns new
 pools that the engine swaps in). Within a layer the chunk's K/V is
-written before the attention reads it.
+written before the attention reads it; int8 pools
+(``kv_dtype="int8"``) take ``quantized_kv_cache_write`` and the K2q
+attention, with their scale planes.
 """
 
 from __future__ import annotations
@@ -37,12 +48,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import (kv_cache_write, kv_write_targets, layer_norm,
+from ..kernels import (batched_lora_add_, kv_cache_write, kv_write_targets,
+                       layer_norm, quantized_kv_cache_write, quantized_matmul,
                        ragged_paged_attention)
 from ..models.gpt import GPTConfig
 
 __all__ = ["CacheGeometry", "GPTLM", "RaggedStepModel", "load_jax_params",
-           "GPTConfig", "LN_EPS"]
+           "GPTConfig", "LN_EPS", "Dense", "QuantizedDense", "LoraBatch"]
 
 LN_EPS = 1e-5   # layers/nn.py layer_norm default
 
@@ -60,19 +72,82 @@ def _param(shape, device, dtype) -> nn.Parameter:
                         requires_grad=False)
 
 
+class LoraBatch:
+    """One step's adapter routing: per target, the store's pools, and
+    the step's slot rows ``[R, n_buckets]`` (int32, on the device)."""
+
+    def __init__(self, store, targets, slots: torch.Tensor):
+        self.store = store
+        self.targets = targets
+        self.slots = slots
+
+    def lookup(self, name: str):
+        """(A pools, B pools, scales, slots) for a repointed target,
+        None for any other weight."""
+        if name not in self.targets:
+            return None
+        a, b, sc = self.store.pools(name)
+        return a, b, sc, self.slots
+
+
 class Dense(nn.Module):
     """``x @ w + b`` with ``w`` kept ``[in, out]`` as the JAX package
-    stores it (``layers.fc`` with ``num_flatten_dims`` = rank - 1)."""
+    stores it (``layers.fc`` with ``num_flatten_dims`` = rank - 1).
+    ``name`` is the weight's JAX name. With a ``LoraBatch`` that covers
+    it, the product takes the rows' adapter deltas before the bias (the
+    JAX ``batched_lora_fc`` then ``elementwise_add``)."""
 
-    def __init__(self, n_in: int, n_out: int, device, dtype):
+    base_kind = "dense"
+
+    def __init__(self, n_in: int, n_out: int, device, dtype, name: str = ""):
         super().__init__()
+        self.name = name
         self.w = _param((n_in, n_out), device, dtype)
         self.b = _param((n_out,), device, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def product(self, x2: torch.Tensor) -> torch.Tensor:
+        return x2 @ self.w
+
+    def forward(self, x: torch.Tensor,
+                lora: Optional[LoraBatch] = None) -> torch.Tensor:
         lead = x.shape[:-1]
-        y = torch.addmm(self.b, x.reshape(-1, x.shape[-1]), self.w)
+        x2 = x.reshape(-1, x.shape[-1])
+        ad = lora.lookup(self.name) if lora is not None else None
+        if ad is None and self.base_kind == "dense":
+            y = torch.addmm(self.b, x2, self.w)
+        else:
+            y = self.product(x2)
+            if ad is not None:
+                batched_lora_add_(y, x2.contiguous(), *ad)
+            y = y + self.b
         return y.reshape(*lead, y.shape[-1])
+
+
+class QuantizedDense(Dense):
+    """A ``Dense`` whose weight is held quantized (``qweight`` + its
+    ``scale`` plane, ``quantize_weight``'s formats) and multiplied by
+    ``quantized_matmul`` (K11 on CUDA), then ``+ b`` as the JAX
+    ``quantized_fc`` + ``elementwise_add``. Made by
+    ``quantize.rewrite_for_inference`` from a ``Dense``, whose bias it
+    keeps; the float weight is not kept."""
+
+    def __init__(self, dense: Dense, qweight: torch.Tensor,
+                 scale: torch.Tensor, mode: str, block: int):
+        nn.Module.__init__(self)
+        self.name = dense.name
+        self.b = dense.b
+        self.register_buffer("qweight", qweight)
+        self.register_buffer("scale", scale)
+        self.mode = mode
+        self.block = int(block)
+
+    @property
+    def base_kind(self) -> str:
+        return self.mode
+
+    def product(self, x2: torch.Tensor) -> torch.Tensor:
+        return quantized_matmul(x2, self.qweight, self.scale, mode=self.mode,
+                                block=self.block)
 
 
 class LayerNorm(nn.Module):
@@ -91,21 +166,24 @@ class LayerNorm(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: GPTConfig, device, dtype):
+    DENSE = ("qkv", "proj", "ffn1", "ffn2")   # in the program's order
+
+    def __init__(self, cfg: GPTConfig, device, dtype, prefix: str):
         super().__init__()
         h, f = cfg.hidden_size, cfg.ffn_size
         self.ln1 = LayerNorm(h, device, dtype)
-        self.qkv = Dense(h, 3 * h, device, dtype)
-        self.proj = Dense(h, h, device, dtype)
+        self.qkv = Dense(h, 3 * h, device, dtype, f"{prefix}_qkv.w")
+        self.proj = Dense(h, h, device, dtype, f"{prefix}_proj.w")
         self.ln2 = LayerNorm(h, device, dtype)
-        self.ffn1 = Dense(h, f, device, dtype)
-        self.ffn2 = Dense(f, h, device, dtype)
+        self.ffn1 = Dense(h, f, device, dtype, f"{prefix}_ffn1.w")
+        self.ffn2 = Dense(f, h, device, dtype, f"{prefix}_ffn2.w")
 
-    def proj_ffn(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+    def proj_ffn(self, x: torch.Tensor, ctx: torch.Tensor,
+                 lora: Optional[LoraBatch] = None) -> torch.Tensor:
         """The post-attention half (``_proj_ffn`` in JAX), shared by the
         LM and the ragged step so they can only differ in attention."""
-        x = x + self.proj(ctx)
-        return x + self.ffn2(F.gelu(self.ffn1(self.ln2(x))))
+        x = x + self.proj(ctx, lora)
+        return x + self.ffn2(F.gelu(self.ffn1(self.ln2(x), lora)), lora)
 
 
 class GPTLM(nn.Module):
@@ -124,9 +202,10 @@ class GPTLM(nn.Module):
         self.tok_emb = _param((cfg.vocab_size, h), device, dtype)
         self.pos_emb = _param((cfg.max_position, h), device, dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device, dtype) for _ in range(cfg.num_layers))
+            DecoderLayer(cfg, device, dtype, f"dec{i}")
+            for i in range(cfg.num_layers))
         self.lnf = LayerNorm(h, device, dtype)
-        self.head = Dense(h, cfg.vocab_size, device, dtype)
+        self.head = Dense(h, cfg.vocab_size, device, dtype, "gpt_head.w")
 
     @property
     def device(self) -> torch.device:
@@ -137,21 +216,43 @@ class GPTLM(nn.Module):
         return self.tok_emb.dtype
 
     def jax_params(self) -> Dict[str, torch.Tensor]:
-        """Every parameter under its ``__params__.npz`` name."""
+        """Every float parameter under its ``__params__.npz`` name (a
+        quantized weight is held as ``qweight`` + ``scale`` and is not
+        listed)."""
         out = {"gpt_tok_emb": self.tok_emb, "gpt_pos_emb": self.pos_emb,
-               "gpt_lnf.scale": self.lnf.scale, "gpt_lnf.bias": self.lnf.bias,
-               "gpt_head.w": self.head.w, "gpt_head.b": self.head.b}
+               "gpt_lnf.scale": self.lnf.scale, "gpt_lnf.bias": self.lnf.bias}
         for i, lyr in enumerate(self.layers):
             pre = f"dec{i}"
             for ln in ("ln1", "ln2"):
                 mod = getattr(lyr, ln)
                 out[f"{pre}_{ln}.scale"] = mod.scale
                 out[f"{pre}_{ln}.bias"] = mod.bias
-            for fc in ("qkv", "proj", "ffn1", "ffn2"):
+            for fc in DecoderLayer.DENSE:
                 mod = getattr(lyr, fc)
-                out[f"{pre}_{fc}.w"] = mod.w
+                if mod.base_kind == "dense":
+                    out[f"{pre}_{fc}.w"] = mod.w
                 out[f"{pre}_{fc}.b"] = mod.b
+        if self.head.base_kind == "dense":
+            out["gpt_head.w"] = self.head.w
+        out["gpt_head.b"] = self.head.b
         return out
+
+    def dense_layers(self):
+        """(parent module, attribute, Dense) of every matmul weight, in
+        the order the JAX program consumes them (per layer qkv, proj,
+        ffn1, ffn2, then the head): what the quantize and LoRA rewrites
+        walk."""
+        for lyr in self.layers:
+            for fc in DecoderLayer.DENSE:
+                yield lyr, fc, getattr(lyr, fc)
+        yield self, "head", self.head
+
+    def embedding_tables(self):
+        """The 2-D float tables no matmul consumes, with the op that
+        reads them in the JAX program (the rewrite reports why they
+        stay float)."""
+        return (("gpt_tok_emb", self.tok_emb, "lookup_table:W"),
+                ("gpt_pos_emb", self.pos_emb, "lookup_table:W"))
 
     def split_heads(self, t: torch.Tensor) -> torch.Tensor:
         """[..., H*D] -> [..., H, D] (head-major, as the JAX reshape)."""
@@ -186,38 +287,60 @@ class GPTLM(nn.Module):
 class RaggedStepModel(nn.Module):
     """One ragged engine step over a ``GPTLM``'s weights (shared, not
     copied). ``forward`` takes the step's feeds as device tensors and
-    the per-layer pools, writes this step's K/V into the pools in
-    place and returns the greedy token at every chunk position,
-    [R * C] int64 (the engine reads the last valid column of a plain
-    row)."""
+    the per-layer pools (and, for int8 pools, their scale planes),
+    writes this step's K/V into the pools in place and returns the
+    greedy token at every chunk position, [R * C] int64 (the engine
+    reads the last valid column of a plain row). After
+    ``adapters.rewrite_for_lora`` it also takes ``adapter_slots`` [R,
+    n_buckets]: each row's adapter deltas join the repointed weights'
+    products."""
 
     def __init__(self, lm: GPTLM, geom: CacheGeometry, chunk: int):
         super().__init__()
         self.lm = lm
         self.geom = geom
         self.chunk = int(chunk)
+        # set by adapters.rewrite_for_lora: the store and the names of
+        # the weights whose products take adapter deltas
+        self.adapter_store = None
+        self.lora_targets: frozenset = frozenset()
 
     @torch.inference_mode()
     def forward(self, tokens: torch.Tensor, pos_ids: torch.Tensor,
                 positions: torch.Tensor, num_valid: torch.Tensor,
                 tables: torch.Tensor, k_pages: List[torch.Tensor],
-                v_pages: List[torch.Tensor]) -> torch.Tensor:
+                v_pages: List[torch.Tensor],
+                k_scales: Optional[List[torch.Tensor]] = None,
+                v_scales: Optional[List[torch.Tensor]] = None,
+                adapter_slots: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         lm, cfg = self.lm, self.lm.cfg
         R, C = tokens.shape
         h = cfg.hidden_size
+        lora = None
+        if adapter_slots is not None and self.lora_targets:
+            lora = LoraBatch(self.adapter_store, self.lora_targets,
+                             adapter_slots)
         x = lm.tok_emb[tokens] + lm.pos_emb[pos_ids]              # [R, C, h]
         targets = kv_write_targets(tables, positions, num_valid, C,
                                    self.geom.page_size)
         for i, lyr in enumerate(lm.layers):
-            q, k, v = lyr.qkv(lyr.ln1(x)).split(h, dim=-1)
-            kv_cache_write(k_pages[i], v_pages[i], lm.split_heads(k),
-                           lm.split_heads(v), tables, positions, num_valid,
-                           targets=targets)
+            q, k, v = lyr.qkv(lyr.ln1(x), lora).split(h, dim=-1)
+            k, v = lm.split_heads(k), lm.split_heads(v)
+            if k_scales is not None:
+                quantized_kv_cache_write(
+                    k_pages[i], v_pages[i], k_scales[i], v_scales[i], k, v,
+                    tables, positions, num_valid, targets=targets)
+                scales = dict(k_scales=k_scales[i], v_scales=v_scales[i])
+            else:
+                kv_cache_write(k_pages[i], v_pages[i], k, v, tables,
+                               positions, num_valid, targets=targets)
+                scales = {}
             ctx = ragged_paged_attention(
                 lm.split_heads(q).contiguous(), k_pages[i], v_pages[i],
-                positions, num_valid, tables)
-            x = lyr.proj_ffn(x, ctx.reshape(R, C, h))
-        logits = lm.head(lm.lnf(x))                               # [R, C, V]
+                positions, num_valid, tables, **scales)
+            x = lyr.proj_ffn(x, ctx.reshape(R, C, h), lora)
+        logits = lm.head(lm.lnf(x), lora)                         # [R, C, V]
         return torch.argmax(logits.reshape(R * C, -1), dim=-1)
 
 

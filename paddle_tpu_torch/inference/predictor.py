@@ -13,6 +13,12 @@ source of weights and its independent oracle.
 Unlike the JAX predictor, whose program is compiled for the saved
 sequence length, ``run`` takes any sequence length up to
 ``max_position``.
+
+Weight quantization (``inference/predictor.py:107, :187-202`` there):
+``Config.enable_weight_quantization(mode)``, or the ``quantize_weights``
+flag, quantizes every matmul weight once at load
+(``quantize.rewrite_for_inference``); ``predictor.quantize_report``
+says what was quantized and why anything stayed float.
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ import torch
 
 from .. import io
 from ..device import resolve_device
+from ..flags import flag
 from ..generation.model import GPTLM, load_jax_params
 from ..models.gpt import GPTConfig
+from ..quantize import rewrite_for_inference
 
 __all__ = ["Config", "Predictor", "create_predictor"]
 
@@ -40,11 +48,19 @@ class Config:
         self.model_dir = model_dir
         self.gpt_config: Optional[GPTConfig] = None
         self.params: Optional[Dict[str, object]] = None
+        self._quantize_weights: Optional[str] = None
 
     def set_params(self, gpt_config: GPTConfig,
                    params: Dict[str, object]) -> "Config":
         self.gpt_config = gpt_config
         self.params = params
+        return self
+
+    def enable_weight_quantization(self, mode: str = "int8") -> "Config":
+        """Quantize every matmul weight once at load: ``mode`` in
+        {"int8", "int8_block", "fp8", "off"} (per-instance override of
+        the ``quantize_weights`` flag; the block is ``quantize_block``)."""
+        self._quantize_weights = str(mode)
         return self
 
 
@@ -69,6 +85,15 @@ class Predictor:
         self.gpt_config = cfg
         self.lm = GPTLM(cfg, self.device)
         load_jax_params(self.lm, params)
+        del params
+        # weight quantization at load (config override > flag)
+        self.quantize_report = None
+        qmode = (config._quantize_weights
+                 if config._quantize_weights is not None
+                 else str(flag("quantize_weights")))
+        if qmode and qmode != "off":
+            self.quantize_report = rewrite_for_inference(
+                self.lm, qmode, block=int(flag("quantize_block")))
         self._lock = threading.Lock()
 
     def run(self, inputs: Sequence[np.ndarray]) -> List[np.ndarray]:

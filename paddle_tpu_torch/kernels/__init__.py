@@ -11,8 +11,16 @@ plain PyTorch version (the CPU path and the numerics oracle).
 | K6/K7 | ``flash_attention_fwd`` | ``csrc/flash_attention.cu`` | ``kernels/flash_attention.py`` ``_flash_fwd_pallas``, ``_flash_fwd_stream`` |
 | K8/K9 | ``flash_attention_bwd`` | ``csrc/flash_attention.cu`` | ``kernels/flash_attention.py`` ``_flash_bwd_pallas``, ``_flash_bwd_stream`` |
 | K10 | ``fused_adam_update`` | ``csrc/fused_optim.cu`` | ``kernels/fused_optim.py`` ``_run_fused`` + ``_adam_kernel`` |
+| K2q | ``ragged_paged_attention_q`` | ``csrc/ragged_paged_attention.cu`` | ``kernels/ragged_paged_attention.py`` ``_ragged_pallas`` (quantized) |
+| K11 | ``quantized_matmul`` | ``csrc/quant_matmul.cu`` | ``kernels/quant_matmul.py`` ``_quant_matmul_pallas`` |
+| K12 | ``batched_lora_add_`` | ``csrc/lora.cu`` | ``kernels/lora.py`` ``_lora_delta_pallas`` |
 
-``kv_cache_write`` is plain ``index_put_`` (an XLA scatter in JAX).
+Still to port (ROADMAP B): K10m, the fused momentum body of the K10
+driver (A1), and K13, the two_lane engine's ``paged_attention`` (A5).
+
+``kv_cache_write`` and ``quantized_kv_cache_write`` are plain
+``index_put_`` (XLA scatters in JAX); ``quant.py`` (blockwise int8
+quantize) is plain torch, as in JAX.
 The library is built by ``_build`` at the first launch on a CUDA
 tensor; importing this package builds nothing.
 """
@@ -25,9 +33,16 @@ from .fused_optim import fused_adam_update, fused_adam_update_plain
 from .layer_norm import (fused_layer_norm, layer_norm, layer_norm_bwd,
                          layer_norm_bwd_plain, layer_norm_fwd,
                          layer_norm_fwd_plain, layer_norm_plain)
+from .lora import (batched_lora_add_, batched_lora_add_plain_,
+                   batched_lora_delta, batched_lora_delta_plain,
+                   batched_lora_matmul)
 from .paged_attention import kv_cache_write, kv_write_targets
-from .ragged_paged_attention import (ragged_paged_attention,
-                                     ragged_paged_attention_plain)
+from .quant_matmul import (quantize_weight, quantized_matmul,
+                           quantized_matmul_plain)
+from .ragged_paged_attention import (quantized_kv_cache_write,
+                                     ragged_paged_attention,
+                                     ragged_paged_attention_plain,
+                                     ragged_paged_attention_q)
 from .softmax_xent import (fused_softmax_xent, softmax_xent_bwd,
                            softmax_xent_bwd_plain, softmax_xent_fwd,
                            softmax_xent_fwd_plain)
@@ -43,8 +58,12 @@ __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_layer",
            "kv_cache_write",
-           "kv_write_targets", "KERNELS", "reset_launch_counts",
-           "launch_counts"]
+           "kv_write_targets", "ragged_paged_attention_q",
+           "quantized_kv_cache_write", "quantize_weight", "quantized_matmul",
+           "quantized_matmul_plain", "batched_lora_add_",
+           "batched_lora_add_plain_", "batched_lora_delta",
+           "batched_lora_delta_plain", "batched_lora_matmul", "KERNELS",
+           "reset_launch_counts", "launch_counts"]
 
 # the launch-counted wrappers, by kernel name (layer_norm_fwd counts in
 # layer_norm's counter: it is the same kernel, K1, with its stats out)
@@ -55,7 +74,10 @@ KERNELS = {"layer_norm": layer_norm,
            "softmax_xent_bwd": softmax_xent_bwd,
            "fused_adam_update": fused_adam_update,
            "flash_attention_fwd": flash_attention_fwd,
-           "flash_attention_bwd": flash_attention_bwd}
+           "flash_attention_bwd": flash_attention_bwd,
+           "ragged_paged_attention_q": ragged_paged_attention_q,
+           "quantized_matmul": quantized_matmul,
+           "batched_lora_add_": batched_lora_add_}
 
 
 def reset_launch_counts() -> None:

@@ -56,6 +56,12 @@ SIGNATURES: Dict[str, List] = {
                                                             _int, _vp],
     "pt_flash_attention_bwd_dkv": [_vp] * 10 + [_int] * 6 + [_float, _int,
                                                              _int, _vp],
+    "pt_ragged_paged_attention_q": [_vp] * 9 + [_int] * 8 + [_float, _int,
+                                                             _vp],
+    "pt_quant_matmul": [_vp] * 4 + [_int] * 5 + [_vp],
+    "pt_batched_lora_split_rows": [],
+    "pt_batched_lora_add": [_vp] * 3 + [ctypes.POINTER(_vp)] * 4
+                           + [ctypes.POINTER(_int)] * 2 + [_int] * 6 + [_vp],
 }
 
 _lock = threading.Lock()

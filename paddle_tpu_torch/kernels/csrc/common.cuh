@@ -19,6 +19,9 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(int8_t v) {
+  return static_cast<float>(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);

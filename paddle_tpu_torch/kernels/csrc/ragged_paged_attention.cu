@@ -30,6 +30,18 @@
 // memory and the compute roofline. At the serving slice's B = 8 lanes
 // and H = 16 heads the grid is 128 blocks, under the card's 132 SMs:
 // splitting the page walk across blocks is the first thing to change.
+//
+// K2q, the int8 variant (the same Pallas kernel with quantized=True,
+// scales applied at :150-155 there). The pages hold int8 K/V and each
+// (kv head, page, slot) row has one float32 scale ([KVH, P, ps] planes,
+// written by quantized_kv_cache_write). Staging a page multiplies each
+// int8 element by its row's scale as it converts it to float32 (the
+// plain version's float(q) * scale, bit for bit); the online softmax,
+// the position mask and the zero rows are K2's. An int8 page moves
+// D + 4 bytes a slot per K or V instead of 4 * D, so the bound's page
+// traffic is about a quarter of K2's.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -38,20 +50,24 @@ namespace {
 constexpr float kNegInf = -1e30f;  // the JAX package's NEG_INF
 constexpr int kMaxWarps = 16;
 
+// T: q / out dtype; KT: page dtype (T, or int8_t with scale planes).
 // DPL: head-dim elements a lane holds (D <= 32 * DPL).
 // RPW: query rows a warp owns (C <= RPW * nwarps).
-template <typename T, int DPL, int RPW>
+template <typename T, typename KT, int DPL, int RPW>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     ragged_paged_attention_kernel(
         const T* __restrict__ q,             // [B, C, H, D]
-        const T* __restrict__ k_pages,       // [KVH, P, ps, D]
-        const T* __restrict__ v_pages,       // [KVH, P, ps, D]
+        const KT* __restrict__ k_pages,      // [KVH, P, ps, D]
+        const KT* __restrict__ v_pages,      // [KVH, P, ps, D]
+        const float* __restrict__ k_scales,  // [KVH, P, ps] (int8 KT only)
+        const float* __restrict__ v_scales,  // [KVH, P, ps] (int8 KT only)
         const int* __restrict__ start_pos,   // [B]
         const int* __restrict__ num_valid,   // [B]
         const int* __restrict__ tables,      // [B, maxp]
         T* __restrict__ out,                 // [B, C, H, D]
         int C, int H, int D, int KVH, int P, int ps, int maxp,
         float sm_scale) {
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   extern __shared__ float smem[];
   float* k_tile = smem;            // [ps, D]
   float* v_tile = smem + ps * D;   // [ps, D]
@@ -90,8 +106,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     const int64_t base = (int64_t(kvh) * P + page) * tile;
     __syncthreads();  // the previous page's tiles are consumed
     for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-      k_tile[e] = pt::to_float(k_pages[base + e]);
-      v_tile[e] = pt::to_float(v_pages[base + e]);
+      float kv = pt::to_float(k_pages[base + e]);
+      float vv = pt::to_float(v_pages[base + e]);
+      if (kQuant) {
+        const int64_t row = (int64_t(kvh) * P + page) * ps + e / D;
+        kv *= k_scales[row];
+        vv *= v_scales[row];
+      }
+      k_tile[e] = kv;
+      v_tile[e] = vv;
     }
     __syncthreads();
 #pragma unroll
@@ -140,29 +163,35 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
 }
 
-template <typename T, int DPL, int RPW>
-void launch(const void* q, const void* kp, const void* vp, const int* start,
-            const int* nvalid, const int* tables, void* out, int B, int C,
-            int H, int D, int KVH, int P, int ps, int maxp, float sm_scale,
-            int nwarps, cudaStream_t s) {
-  const dim3 grid(B, H);
-  const size_t shm = size_t(2) * ps * D * sizeof(float);
-  ragged_paged_attention_kernel<T, DPL, RPW><<<grid, nwarps * 32, shm, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), start, nvalid, tables, static_cast<T*>(out),
-      C, H, D, KVH, P, ps, maxp, sm_scale);
+// The arguments every launch carries, past the template choices.
+struct Args {
+  const void *q, *kp, *vp;
+  const float *ks, *vs;
+  const int *start, *nvalid, *tables;
+  void* out;
+  int B, C, H, D, KVH, P, ps, maxp;
+  float sm_scale;
+  int nwarps;
+  cudaStream_t s;
+};
+
+template <typename T, typename KT, int DPL, int RPW>
+void launch(const Args& a) {
+  const dim3 grid(a.B, a.H);
+  const size_t shm = size_t(2) * a.ps * a.D * sizeof(float);
+  ragged_paged_attention_kernel<T, KT, DPL, RPW>
+      <<<grid, a.nwarps * 32, shm, a.s>>>(
+          static_cast<const T*>(a.q), static_cast<const KT*>(a.kp),
+          static_cast<const KT*>(a.vp), a.ks, a.vs, a.start, a.nvalid,
+          a.tables, static_cast<T*>(a.out), a.C, a.H, a.D, a.KVH, a.P, a.ps,
+          a.maxp, a.sm_scale);
 }
 
-template <typename T, int DPL>
-int dispatch_rows(int rpw, const void* q, const void* kp, const void* vp,
-                  const int* start, const int* nvalid, const int* tables,
-                  void* out, int B, int C, int H, int D, int KVH, int P,
-                  int ps, int maxp, float sm_scale, int nwarps,
-                  cudaStream_t s) {
-#define PT_RPA_ROWS(R)                                                     \
-  case R:                                                                  \
-    launch<T, DPL, R>(q, kp, vp, start, nvalid, tables, out, B, C, H, D,  \
-                      KVH, P, ps, maxp, sm_scale, nwarps, s);              \
+template <typename T, typename KT, int DPL>
+int dispatch_rows(int rpw, const Args& a) {
+#define PT_RPA_ROWS(R)          \
+  case R:                       \
+    launch<T, KT, DPL, R>(a);   \
     return 0;
   switch (rpw) {
     PT_RPA_ROWS(1)
@@ -174,17 +203,11 @@ int dispatch_rows(int rpw, const void* q, const void* kp, const void* vp,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
-int dispatch_dim(int dpl, int rpw, const void* q, const void* kp,
-                 const void* vp, const int* start, const int* nvalid,
-                 const int* tables, void* out, int B, int C, int H, int D,
-                 int KVH, int P, int ps, int maxp, float sm_scale, int nwarps,
-                 cudaStream_t s) {
-#define PT_RPA_DIM(N)                                                       \
-  case N:                                                                   \
-    return dispatch_rows<T, N>(rpw, q, kp, vp, start, nvalid, tables, out, \
-                               B, C, H, D, KVH, P, ps, maxp, sm_scale,     \
-                               nwarps, s);
+template <typename T, typename KT>
+int dispatch_dim(int dpl, int rpw, const Args& a) {
+#define PT_RPA_DIM(N) \
+  case N:             \
+    return dispatch_rows<T, KT, N>(rpw, a);
   switch (dpl) {
     PT_RPA_DIM(1)
     PT_RPA_DIM(2)
@@ -193,6 +216,62 @@ int dispatch_dim(int dpl, int rpw, const void* q, const void* kp,
   }
 #undef PT_RPA_DIM
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Validates the shapes and picks the template arguments: the page
+// dtype is q's own, or int8 for K2q (kQuant).
+template <bool kQuant>
+int run(const void* q, const void* k_pages, const void* v_pages,
+        const void* k_scales, const void* v_scales, const void* start_pos,
+        const void* num_valid, const void* page_indices, void* out, int B,
+        int C, int H, int D, int KVH, int P, int ps, int maxp,
+        float sm_scale, int dtype, void* stream) {
+  if (B <= 0 || C <= 0) return 0;
+  if (D <= 0 || D > 256 || C > 64 || KVH <= 0 || H % KVH != 0 || ps <= 0 ||
+      maxp <= 0 || 2 * ps * D * int(sizeof(float)) > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.q = q;
+  a.kp = k_pages;
+  a.vp = v_pages;
+  a.ks = static_cast<const float*>(k_scales);
+  a.vs = static_cast<const float*>(v_scales);
+  a.start = static_cast<const int*>(start_pos);
+  a.nvalid = static_cast<const int*>(num_valid);
+  a.tables = static_cast<const int*>(page_indices);
+  a.out = out;
+  a.B = B;
+  a.C = C;
+  a.H = H;
+  a.D = D;
+  a.KVH = KVH;
+  a.P = P;
+  a.ps = ps;
+  a.maxp = maxp;
+  a.sm_scale = sm_scale;
+  a.nwarps = C < kMaxWarps ? C : kMaxWarps;
+  a.s = static_cast<cudaStream_t>(stream);
+  const int rpw = (C + a.nwarps - 1) / a.nwarps;
+  int dpl = (D + 31) / 32;
+  dpl = dpl <= 1 ? 1 : (dpl <= 2 ? 2 : (dpl <= 4 ? 4 : 8));
+  int rc;
+  switch (dtype) {
+    case pt::kFloat32:
+      rc = dispatch_dim<float, typename std::conditional<kQuant, int8_t,
+                                                         float>::type>(
+          dpl, rpw, a);
+      break;
+    case pt::kBFloat16:
+      rc = dispatch_dim<__nv_bfloat16,
+                        typename std::conditional<kQuant, int8_t,
+                                                  __nv_bfloat16>::type>(
+          dpl, rpw, a);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -206,33 +285,21 @@ extern "C" int pt_ragged_paged_attention(
     const void* start_pos, const void* num_valid, const void* page_indices,
     void* out, int B, int C, int H, int D, int KVH, int P, int ps, int maxp,
     float sm_scale, int dtype, void* stream) {
-  if (B <= 0 || C <= 0) return 0;
-  if (D <= 0 || D > 256 || C > 64 || KVH <= 0 || H % KVH != 0 || ps <= 0 ||
-      maxp <= 0 || 2 * ps * D * int(sizeof(float)) > 48 * 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nwarps = C < kMaxWarps ? C : kMaxWarps;
-  const int rpw = (C + nwarps - 1) / nwarps;
-  int dpl = (D + 31) / 32;
-  dpl = dpl <= 1 ? 1 : (dpl <= 2 ? 2 : (dpl <= 4 ? 4 : 8));
-  const int* st = static_cast<const int*>(start_pos);
-  const int* nv = static_cast<const int*>(num_valid);
-  const int* tb = static_cast<const int*>(page_indices);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-  switch (dtype) {
-    case pt::kFloat32:
-      rc = dispatch_dim<float>(dpl, rpw, q, k_pages, v_pages, st, nv, tb,
-                               out, B, C, H, D, KVH, P, ps, maxp, sm_scale,
-                               nwarps, s);
-      break;
-    case pt::kBFloat16:
-      rc = dispatch_dim<__nv_bfloat16>(dpl, rpw, q, k_pages, v_pages, st, nv,
-                                       tb, out, B, C, H, D, KVH, P, ps, maxp,
-                                       sm_scale, nwarps, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  return run<false>(q, k_pages, v_pages, nullptr, nullptr, start_pos,
+                    num_valid, page_indices, out, B, C, H, D, KVH, P, ps,
+                    maxp, sm_scale, dtype, stream);
+}
+
+// K2q: as above with int8 k_pages / v_pages and their float32 scale
+// planes k_scales, v_scales [KVH, P, ps]; q and out float32 or
+// bfloat16 (dtype).
+extern "C" int pt_ragged_paged_attention_q(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* start_pos,
+    const void* num_valid, const void* page_indices, void* out, int B, int C,
+    int H, int D, int KVH, int P, int ps, int maxp, float sm_scale,
+    int dtype, void* stream) {
+  return run<true>(q, k_pages, v_pages, k_scales, v_scales, start_pos,
+                   num_valid, page_indices, out, B, C, H, D, KVH, P, ps,
+                   maxp, sm_scale, dtype, stream);
 }

@@ -2,7 +2,10 @@
 ``csrc/ragged_paged_attention.cu`` and its plain PyTorch version.
 
 Replaces ``paddle_tpu/kernels/ragged_paged_attention.py``
-``_ragged_pallas`` (``pallas_call`` at :232; the non-quantized form).
+``_ragged_pallas`` (``pallas_call`` at :232): K2, over float32 or
+bfloat16 pages, and K2q (``ragged_paged_attention_q``, the same
+function with quantized=True), over int8 pages with per-(kv head, slot)
+float32 scale planes ``[KVH, P, ps]``.
 One call attends a ragged batch of new-token chunks over the paged
 K/V pool: row b holds up to C new tokens of one sequence (a prefill
 chunk, a decode token, or nothing: an idle lane), query j sits at
@@ -10,7 +13,8 @@ absolute position ``start_pos[b] + j`` and attends keys
 ``0 .. start_pos[b] + j`` of its sequence through the block table
 ``page_indices[b]``. Rows ``j >= num_valid[b]`` are exactly 0, never
 NaN. The chunk's own K/V has been written into the pool
-(``kv_cache_write``) before the call.
+(``kv_cache_write``, or ``quantized_kv_cache_write`` for int8 pages)
+before the call.
 
 Bound on the H100: memory, the K/V pages the rows need
 (``sum_b ceil((start_b + num_valid_b) / ps) * ps * D * itemsize * 2 *
@@ -20,6 +24,12 @@ sequential grid axis, K/V tiles staged in shared memory, online softmax
 in float32 registers, a warp per query row) is described in the CUDA
 source; at the slice's 8 lanes x 16 heads its grid of 128 blocks does
 not fill the 132 SMs.
+
+``quantized_kv_cache_write`` (:294-327 there, an XLA scatter, not a
+Pallas kernel) quantizes each new [D] row to int8 with one
+``max|row| / 127`` scale (``kernels/quant.py``) and writes rows and
+scales into the pools in place; invalid rows go to slot 0 of the junk
+page 0, as in ``kv_cache_write``.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. There is no fallback from one to the other.
@@ -33,8 +43,11 @@ from typing import Optional
 import torch
 
 from . import _build
+from .paged_attention import kv_write_targets
+from .quant import blockwise_quantize
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
+           "ragged_paged_attention_q", "quantized_kv_cache_write",
            "MAX_HEAD_DIM", "MAX_CHUNK"]
 
 NEG_INF = -1e30
@@ -45,22 +58,27 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def ragged_paged_attention_plain(q, k_pages, v_pages, start_pos, num_valid,
-                                 page_indices, sm_scale: Optional[float] = None):
+                                 page_indices, sm_scale: Optional[float] = None,
+                                 k_scales=None, v_scales=None):
     """The plain PyTorch version (the counterpart of the JAX package's
-    ``_reference_ragged``): gather each row's pages into a dense window,
-    mask ``key_pos <= start + j``, float32 softmax."""
+    ``_reference_ragged`` with ``_gather_kv``): gather each row's pages
+    into a dense float32 window (int8 pages times their scales), mask
+    ``key_pos <= start + j``, float32 softmax."""
     B, C, H, D = q.shape
     KVH, _P, ps, _ = k_pages.shape
     maxp = page_indices.shape[1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     idx = page_indices.long()
 
-    def window(pages):   # [KVH, P, ps, D] -> [B, H, maxp * ps, D] float32
+    def window(pages, scales):   # -> [B, H, maxp * ps, D] float32
         w = pages[:, idx].permute(1, 0, 2, 3, 4).float()
         w = w.reshape(B, KVH, maxp * ps, D)
+        if scales is not None:
+            s = scales[:, idx].permute(1, 0, 2, 3).reshape(B, KVH, maxp * ps)
+            w = w * s[..., None]
         return w.repeat_interleave(H // KVH, dim=1) if KVH != H else w
 
-    k, v = window(k_pages), window(v_pages)
+    k, v = window(k_pages, k_scales), window(v_pages, v_scales)
     s = torch.einsum("bchd,bhkd->bhck", q.float() * scale, k)
     dev = q.device
     kpos = torch.arange(maxp * ps, device=dev)
@@ -101,14 +119,21 @@ def _check(q, k_pages, v_pages, start_pos, num_valid, page_indices):
 
 
 def ragged_paged_attention(q, k_pages, v_pages, start_pos, num_valid,
-                           page_indices, sm_scale: Optional[float] = None):
+                           page_indices, sm_scale: Optional[float] = None, *,
+                           k_scales=None, v_scales=None):
     """Attend a ragged batch of new-token chunks over paged K/V.
 
     q: [B, C, H, D]; k_pages, v_pages: [KVH, P, ps, D] (float32 or
-    bfloat16, one dtype); start_pos, num_valid: [B] int32; page_indices:
-    [B, maxp] int32. Returns [B, C, H, D] in q's dtype. CPU tensors run
-    ``ragged_paged_attention_plain``; CUDA tensors run the kernel,
-    counted in ``ragged_paged_attention.launches``."""
+    bfloat16, one dtype; int8 with ``k_scales`` / ``v_scales`` [KVH, P,
+    ps] float32, which routes to ``ragged_paged_attention_q``);
+    start_pos, num_valid: [B] int32; page_indices: [B, maxp] int32.
+    Returns [B, C, H, D] in q's dtype. CPU tensors run
+    ``ragged_paged_attention_plain``; CUDA tensors run K2, counted in
+    ``ragged_paged_attention.launches``."""
+    if k_scales is not None or v_scales is not None:
+        return ragged_paged_attention_q(q, k_pages, v_pages, k_scales,
+                                        v_scales, start_pos, num_valid,
+                                        page_indices, sm_scale)
     _check(q, k_pages, v_pages, start_pos, num_valid, page_indices)
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(q, k_pages, v_pages, start_pos,
@@ -125,15 +150,8 @@ def ragged_paged_attention(q, k_pages, v_pages, start_pos, num_valid,
             f"ragged_paged_attention kernel takes float32 or bfloat16 q and "
             f"pages of one dtype; got {q.dtype}, {k_pages.dtype}, "
             f"{v_pages.dtype}")
-    if D > MAX_HEAD_DIM or C > MAX_CHUNK or 2 * ps * D > _SMEM_FLOATS:
-        raise ValueError(
-            f"ragged_paged_attention kernel takes D <= {MAX_HEAD_DIM}, "
-            f"C <= {MAX_CHUNK} and page_size * D <= {_SMEM_FLOATS // 2}; got "
-            f"D={D}, C={C}, page_size={ps}")
-    if not all(t.is_contiguous() for t in (q, k_pages, v_pages, start_pos,
-                                           num_valid, page_indices)):
-        raise ValueError("ragged_paged_attention kernel takes contiguous "
-                         "tensors")
+    _check_kernel_geometry(q, k_pages, (q, k_pages, v_pages, start_pos,
+                                        num_valid, page_indices))
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     lib = _build.library()
@@ -150,3 +168,94 @@ def ragged_paged_attention(q, k_pages, v_pages, start_pos, num_valid,
 
 
 ragged_paged_attention.launches = 0
+
+
+def _check_kernel_geometry(q, k_pages, tensors):
+    _B, C, _H, D = q.shape
+    ps = k_pages.shape[2]
+    if D > MAX_HEAD_DIM or C > MAX_CHUNK or 2 * ps * D > _SMEM_FLOATS:
+        raise ValueError(
+            f"ragged_paged_attention kernel takes D <= {MAX_HEAD_DIM}, "
+            f"C <= {MAX_CHUNK} and page_size * D <= {_SMEM_FLOATS // 2}; got "
+            f"D={D}, C={C}, page_size={ps}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ragged_paged_attention kernel takes contiguous "
+                         "tensors")
+
+
+def ragged_paged_attention_q(q, k_pages, v_pages, k_scales, v_scales,
+                             start_pos, num_valid, page_indices,
+                             sm_scale: Optional[float] = None):
+    """K2q: ``ragged_paged_attention`` over int8 pages [KVH, P, ps, D]
+    whose rows (kv head, page, slot) carry the float32 scales
+    ``k_scales`` / ``v_scales`` [KVH, P, ps]. CPU tensors run the plain
+    version; CUDA tensors run the kernel, counted in
+    ``ragged_paged_attention_q.launches``."""
+    _check(q, k_pages, v_pages, start_pos, num_valid, page_indices)
+    KVH, P, ps, _ = k_pages.shape
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise TypeError(f"ragged_paged_attention_q takes int8 pages; got "
+                        f"{k_pages.dtype}, {v_pages.dtype}")
+    for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if t is None or tuple(t.shape) != (KVH, P, ps):
+            raise ValueError(f"{name} must be [KVH, P, ps] = "
+                             f"{(KVH, P, ps)}")
+        if t.dtype != torch.float32 or t.device != q.device:
+            raise TypeError(f"{name} must be float32 on {q.device}")
+    if q.device.type == "cpu":
+        return ragged_paged_attention_plain(q, k_pages, v_pages, start_pos,
+                                            num_valid, page_indices, sm_scale,
+                                            k_scales, v_scales)
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_paged_attention_q: unsupported device "
+                         f"{q.device}")
+    code = _DTYPES.get(q.dtype)
+    if code is None:
+        raise TypeError(f"ragged_paged_attention_q kernel takes float32 or "
+                        f"bfloat16 q; got {q.dtype}")
+    _check_kernel_geometry(q, k_pages, (q, k_pages, v_pages, k_scales,
+                                        v_scales, start_pos, num_valid,
+                                        page_indices))
+    B, C, H, D = q.shape
+    maxp = page_indices.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pt_ragged_paged_attention_q(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(), start_pos.data_ptr(),
+            num_valid.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
+            B, C, H, D, KVH, P, ps, maxp, float(scale), code, stream)
+    _build.check(err, "ragged_paged_attention_q")
+    ragged_paged_attention_q.launches += 1
+    return out
+
+
+ragged_paged_attention_q.launches = 0
+
+
+def quantized_kv_cache_write(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                             k_scales: torch.Tensor, v_scales: torch.Tensor,
+                             k_new: torch.Tensor, v_new: torch.Tensor,
+                             page_indices: torch.Tensor,
+                             positions: torch.Tensor, num_valid: torch.Tensor,
+                             targets=None) -> None:
+    """The int8 twin of ``kv_cache_write``, in place: each new [D] row
+    of k_new / v_new [B, S, KVH, D] quantizes to int8 with one
+    ``max|row| / 127`` scale, and rows and scales scatter into the
+    int8 pools [KVH, P, ps, D] and the scale planes [KVH, P, ps].
+    ``targets`` (from ``kv_write_targets``) is shared by every layer of
+    a step."""
+    B, S, KVH, D = k_new.shape
+    if targets is None:
+        targets = kv_write_targets(page_indices, positions, num_valid, S,
+                                   int(k_pages.shape[2]))
+    page, slot = targets
+    for pages, scales, new in ((k_pages, k_scales, k_new),
+                               (v_pages, v_scales, v_new)):
+        rows = new.permute(2, 0, 1, 3).float().reshape(KVH * B * S, D)
+        q, s = blockwise_quantize(rows)
+        pages[:, page, slot, :] = q.reshape(KVH, B, S, D)
+        scales[:, page, slot] = s.reshape(KVH, B, S)

@@ -262,11 +262,15 @@ def test_cancel_and_deadline_retire_requests(port_pred):
     assert eng.stats()["cache"]["pages_in_use"] == 0
 
 
+# kv_dtype="int8", quantize_weights and adapter_store are ported (see
+# tests/test_torch_{int8_kv,quant,adapters}.py); with an option that is
+# not, they are still refused
 @pytest.mark.parametrize("option", [
     dict(mode="two_lane"), dict(spec_tokens=3, draft=object()),
-    dict(kv_dtype="int8"), dict(prefix_cache=True),
-    dict(quantize_weights="int8"), dict(page_store=object()),
-    dict(adapter_store=object())])
+    dict(kv_dtype="int8", mode="two_lane"), dict(prefix_cache=True),
+    dict(quantize_weights="int8", prefix_cache=True),
+    dict(page_store=object()),
+    dict(adapter_store=object(), page_store=object())])
 def test_options_not_ported_yet_are_refused(port_pred, option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GenerationEngine(port_pred, port_pred.gpt_config, start=False,

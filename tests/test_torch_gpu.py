@@ -427,3 +427,194 @@ def test_tiny_bert_amp_on_cuda_matches_cpu(cuda):
         np.testing.assert_allclose(gpu_scope.get_numpy(p.name),
                                    cpu_scope.get_numpy(p.name), rtol=0,
                                    atol=2 * lr * steps, err_msg=p.name)
+
+
+# -- the quantized, multi-adapter serving slice's kernels (K11, K2q, K12) ----------
+
+
+def _k_tol(K_, ref):
+    """float32 sums over K in another order than the plain version's:
+    2e-6 * sqrt(K) of the output's scale (the products are the same
+    bits on both sides: the kernels dequantize as the plain versions
+    do)."""
+    return 2e-6 * K_ ** 0.5 * max(1.0, float(ref.abs().max()))
+
+
+# (M, K, N, block): the serving qkv and ffn2, M = 1, N not a multiple of
+# the 64-column tile, an int8_block K tail (700 = 2 x 256 + 188), a block
+# that does not divide the 32-row K step
+QMM = {"qkv": (128, 2048, 6144, 256), "ffn2": (128, 8192, 2048, 256),
+       "m1": (1, 2048, 6144, 256), "n_tail": (37, 96, 97, 256),
+       "k_tail": (37, 700, 200, 256), "block_48": (5, 130, 33, 48)}
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_block", "fp8"])
+@pytest.mark.parametrize("case", sorted(QMM))
+def test_quant_matmul_kernel_matches_plain(cuda, case, mode):
+    M, K_, N, block = QMM[case]
+    g = torch.Generator(device=cuda).manual_seed(M + K_ + N)
+    w = 0.02 * torch.randn(K_, N, device=cuda, generator=g)
+    w[:, 1] = 0.0                                       # all-zero column
+    x = torch.randn(M, K_, device=cuda, generator=g)
+    qw, qs = K.quantize_weight(w, mode, block)
+    before = K.quantized_matmul.launches
+    out = K.quantized_matmul(x, qw, qs, mode=mode, block=block)
+    torch.cuda.synchronize()
+    assert K.quantized_matmul.launches == before + 1
+    ref = K.quantized_matmul_plain(x, qw, qs, mode, block)
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= _k_tol(K_, ref)
+    assert bool((out[:, 1] == 0).all())
+
+
+@pytest.mark.parametrize("case", sorted(RAGGED))
+def test_ragged_q_kernel_matches_plain(cuda, case):
+    B, C, H, KVH, D, P, ps, maxp, starts, nvalid = RAGGED[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case) + 1)
+    rng = np.random.RandomState(2)
+    kp = torch.randint(-127, 128, (KVH, P, ps, D), device=cuda, generator=g,
+                       dtype=torch.int8)
+    vp = torch.randint(-127, 128, (KVH, P, ps, D), device=cuda, generator=g,
+                       dtype=torch.int8)
+    ks = 0.02 * torch.rand(KVH, P, ps, device=cuda, generator=g)
+    vs = 0.02 * torch.rand(KVH, P, ps, device=cuda, generator=g)
+    q = torch.randn(B, C, H, D, device=cuda, generator=g)
+    tables = np.zeros((B, maxp), np.int32)
+    free = list(rng.permutation(np.arange(1, P)))
+    for b in range(B):
+        n = -(-(starts[b] + nvalid[b]) // ps) if nvalid[b] else 0
+        tables[b, :n] = [free.pop() for _ in range(n)]
+    ints = [torch.as_tensor(np.asarray(a, np.int32), device=cuda)
+            for a in (starts, nvalid, tables)]
+    before = (K.ragged_paged_attention.launches,
+              K.ragged_paged_attention_q.launches)
+    out = K.ragged_paged_attention(q, kp, vp, *ints, k_scales=ks,
+                                   v_scales=vs)
+    torch.cuda.synchronize()
+    assert (K.ragged_paged_attention.launches,
+            K.ragged_paged_attention_q.launches) == (before[0],
+                                                     before[1] + 1)
+    torch.testing.assert_close(
+        out, K.ragged_paged_attention_plain(q, kp, vp, *ints, None, ks, vs),
+        **TOL[torch.float32])
+    for b, n in enumerate(nvalid):
+        assert (out[b, n:] == 0).all()
+
+
+def test_quantized_kv_write_on_cuda_matches_cpu(cuda):
+    """The in-place int8 write is torch ops on both devices: the same
+    pools and scales, up to one int8 step where a float32 division
+    rounds differently on a .5 boundary."""
+    rng = np.random.RandomState(4)
+    H, P, ps, D = 4, 12, 4, 64
+    k_new = rng.randn(3, 5, H, D).astype(np.float32)
+    v_new = rng.randn(3, 5, H, D).astype(np.float32)
+    tables = np.array([[1, 2, 0], [3, 4, 5], [0, 0, 0]], np.int32)
+    pos = np.array([0, 6, 0], np.int32)
+    nv = np.array([5, 2, 0], np.int32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        pools = [torch.zeros(H, P, ps, D, dtype=torch.int8, device=dev)
+                 for _ in range(2)]
+        scales = [torch.ones(H, P, ps, device=dev) for _ in range(2)]
+        t = [torch.as_tensor(a, device=dev)
+             for a in (k_new, v_new, tables, pos, nv)]
+        K.quantized_kv_cache_write(*pools, *scales, *t)
+        res[dev] = [a.cpu() for a in pools + scales]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        # slot 0 of the junk page takes the invalid rows, in an order
+        # neither device defines: left out
+        a[:, 0, 0] = b[:, 0, 0]
+        if a.dtype == torch.int8:
+            assert int((a.int() - b.int()).abs().max()) <= 1
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+
+
+# (R, rep, K, N, ranks per bucket, slots [R, n_buckets])
+LORA = {
+    "mixed": (4, 16, 2048, 8192, (8, 16),
+              [[0, 0], [1, 0], [0, 2], [1, 0]]),
+    "head": (3, 16, 2048, 32000, (8, 16), [[2, 0], [0, 0], [0, 1]]),
+    "rank1": (6, 1, 96, 97, (1,), [[1], [0], [2], [2], [0], [1]]),
+    "rank24": (2, 5, 300, 130, (24,), [[1], [2]]),
+    "all_zero": (4, 16, 2048, 6144, (8, 16), [[0, 0]] * 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LORA))
+def test_lora_kernel_matches_plain(cuda, case):
+    R, rep, K_, N, ranks, slots = LORA[case]
+    M = R * rep
+    g = torch.Generator(device=cuda).manual_seed(M + K_)
+    x = torch.randn(M, K_, device=cuda, generator=g)
+    base = torch.randn(M, N, device=cuda, generator=g)
+    a_pools, b_pools, scales = [], [], []
+    for r in ranks:
+        a = 0.05 * torch.randn(3, K_, r, device=cuda, generator=g)
+        b = 0.05 * torch.randn(3, r, N, device=cuda, generator=g)
+        a[0] = 0.0
+        b[0] = 0.0
+        sc = torch.tensor([0.0, 2.0, 0.5], device=cuda)
+        a_pools.append(a)
+        b_pools.append(b)
+        scales.append(sc)
+    sl = torch.tensor(slots, dtype=torch.int32, device=cuda)
+    before = K.batched_lora_add_.launches
+    got = K.batched_lora_add_(base.clone(), x, a_pools, b_pools, scales, sl)
+    torch.cuda.synchronize()
+    assert K.batched_lora_add_.launches == before + 1
+    want = K.batched_lora_add_plain_(base.clone(), x, a_pools, b_pools,
+                                     scales, sl)
+    assert float((got - want).abs().max()) <= _k_tol(K_, want)
+    # rows on slot 0 in every bucket are the base product, bit for bit
+    row_zero = (sl == 0).all(dim=1).repeat_interleave(rep)
+    assert torch.equal(got[row_zero], base[row_zero])
+    # one bucket's delta alone (the public batched_lora_delta)
+    d = K.batched_lora_delta(x, a_pools[0], b_pools[0], scales[0],
+                             sl[:, 0].repeat_interleave(rep))
+    dp = K.batched_lora_delta_plain(x, a_pools[0], b_pools[0], scales[0],
+                                    sl[:, 0].repeat_interleave(rep))
+    assert float((d - dp).abs().max()) <= _k_tol(K_, dp)
+
+
+def test_quantized_adapter_engine_on_cuda_matches_cpu(cuda):
+    """int8 weights, int8 KV pages and two adapters (one a bucket): the
+    card's greedy tokens equal the CPU's plain path, and every step
+    launches K11, K2q and K12 as the design says."""
+    from paddle_tpu_torch.adapters import AdapterStore
+
+    cfg = GPTConfig(vocab_size=97, hidden_size=64, num_layers=2, num_heads=4,
+                    ffn_size=128, max_position=64, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    params = _tiny_params(cfg)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, cfg.vocab_size, n) for n in (9, 23, 4, 14)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        c = Config().set_params(cfg, params)
+        c.enable_weight_quantization("int8")
+        pred = create_predictor(c, dev)
+        store = AdapterStore.for_model(pred.lm, slots_per_bucket=2)
+        frng = np.random.RandomState(5)
+        for aid, r in (("a8", 8), ("a16", 16)):
+            store.upload(aid, {t: ((0.1 * frng.randn(k, r)).astype(np.float32),
+                                   (0.1 * frng.randn(r, n)).astype(np.float32))
+                               for t, (k, n) in sorted(store.targets.items())})
+        with GenerationEngine(pred, cfg, page_size=4, num_pages=32,
+                              max_decode_batch=4, chunk_tokens=6,
+                              kv_dtype="int8", adapter_store=store) as eng:
+            K.reset_launch_counts()
+            streams = [eng.submit(p, max_new_tokens=10,
+                                  adapter=(None, "a8", "a16", "a8")[i])
+                       for i, p in enumerate(prompts)]
+            out[dev] = [s.result(timeout=300) for s in streams]
+            steps = eng.stats()["ragged_steps_total"]
+        counts = K.launch_counts()
+        L = cfg.num_layers
+        want = ((0, 0, 0, 0) if dev == "cpu" else
+                ((4 * L + 1) * steps, L * steps, (4 * L + 1) * steps, 0))
+        assert (counts["quantized_matmul"], counts["ragged_paged_attention_q"],
+                counts["batched_lora_add_"],
+                counts["ragged_paged_attention"]) == want
+    assert out["cuda"] == out["cpu"]

@@ -89,7 +89,14 @@ def test_port_package_imports_no_jax_or_paddle_tpu():
                 "paddle_tpu_torch.kernels.flash_attention",
                 "paddle_tpu_torch.models.bert",
                 "paddle_tpu_torch.contrib.mixed_precision.decorator",
-                "paddle_tpu_torch.ops.control"):
+                "paddle_tpu_torch.ops.control",
+                # the quantized, multi-adapter serving slice
+                "paddle_tpu_torch.quantize",
+                "paddle_tpu_torch.adapters.store",
+                "paddle_tpu_torch.adapters.rewrite",
+                "paddle_tpu_torch.kernels.quant_matmul",
+                "paddle_tpu_torch.kernels.lora",
+                "paddle_tpu_torch.kernels.quant"):
         assert mod in res["port"]
 
 

@@ -234,13 +234,25 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     qkv = x[None, None, :8]
     o, fl = K.flash_attention_fwd(qkv, qkv, qkv, None, None, 0.25, True)
     K.flash_attention_bwd(qkv, qkv, qkv, None, None, o, fl, o, 0.25, True)
+    # and the quantized, multi-adapter serving slice's
+    qw, qs = K.quantize_weight(x.T.contiguous(), "int8")
+    assert torch.equal(K.quantized_matmul(x[:, :16], qw, qs),
+                       K.quantized_matmul_plain(x[:, :16], qw, qs))
+    pools = [torch.ones(2, 16, 3)], [torch.ones(2, 3, 9)], [torch.ones(2)]
+    K.batched_lora_add_(x[:, :9].clone(), x, *pools,
+                        torch.ones(9, 1, dtype=torch.int32))
+    kq = t(kp).round().clamp(-127, 127).to(torch.int8)
+    scales = torch.ones(kp.shape[:3])
+    K.ragged_paged_attention(t(q), kq, kq, t(st), t(nv), t(tb),
+                             k_scales=scales, v_scales=scales)
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
     assert K.flash_attention_bwd.kernel_launches == {"delta": 0, "dq": 0,
                                                      "dkv": 0}
     assert sorted(K.KERNELS) == sorted([
         "layer_norm", "ragged_paged_attention", "layer_norm_bwd",
         "softmax_xent_fwd", "softmax_xent_bwd", "fused_adam_update",
-        "flash_attention_fwd", "flash_attention_bwd"])
+        "flash_attention_fwd", "flash_attention_bwd",
+        "ragged_paged_attention_q", "quantized_matmul", "batched_lora_add_"])
 
 
 def test_wrappers_refuse_other_devices_instead_of_falling_back():
@@ -256,6 +268,21 @@ def test_wrappers_refuse_other_devices_instead_of_falling_back():
     tb = torch.empty(2, 3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         K.ragged_paged_attention(q, pages, pages, *ints, tb)
+    i8 = torch.empty(4, 6, 4, 8, dtype=torch.int8, device="meta")
+    sc = torch.empty(4, 6, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.ragged_paged_attention_q(q, i8, i8, sc, sc, *ints, tb)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.quantized_matmul(x, torch.empty(8, 3, dtype=torch.int8,
+                                          device="meta"),
+                           torch.empty(3, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.batched_lora_add_(torch.empty(4, 3, device="meta"), x,
+                            [torch.empty(2, 8, 1, device="meta")],
+                            [torch.empty(2, 1, 3, device="meta")],
+                            [torch.empty(2, device="meta")],
+                            torch.empty(4, 1, dtype=torch.int32,
+                                        device="meta"))
 
 
 @pytest.mark.parametrize("bad", ["int64_starts", "heads", "pages", "tables",
@@ -284,6 +311,7 @@ def test_build_sources_and_hash(tmp_path, monkeypatch):
     the sources: an edit gives a new hash (a rebuild)."""
     names = [p.name for p in _build.sources()]
     assert names == ["flash_attention.cu", "fused_optim.cu", "layer_norm.cu",
+                     "lora.cu", "quant_matmul.cu",
                      "ragged_paged_attention.cu", "softmax_xent.cu"]
     # every C entry the wrappers bind is declared with its argtypes
     for src, entries in (("fused_optim.cu", ["pt_fused_adam"]),
@@ -296,7 +324,12 @@ def test_build_sources_and_hash(tmp_path, monkeypatch):
                                               "pt_softmax_xent_bwd"]),
                          ("layer_norm.cu", ["pt_layer_norm_fwd",
                                             "pt_layer_norm_bwd",
-                                            "pt_layer_norm_bwd_scratch_rows"])):
+                                            "pt_layer_norm_bwd_scratch_rows"]),
+                         ("ragged_paged_attention.cu", [
+                             "pt_ragged_paged_attention",
+                             "pt_ragged_paged_attention_q"]),
+                         ("quant_matmul.cu", ["pt_quant_matmul"]),
+                         ("lora.cu", ["pt_batched_lora_add"])):
         text = (_build.CSRC_DIR / src).read_text()
         for entry in entries:
             assert f'extern "C" int {entry}(' in text
