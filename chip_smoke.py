@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + device time by kernel group in
-                                     #   phases 3, 4 and 6
-    python3 chip_smoke.py --phases 27   # build + chosen phases, no
+                                     #   phases 3, 3b, 4, 6, 7 and 8
+    python3 chip_smoke.py --phases 28   # build + chosen phases, no
                                         #   result line
 
 Phases, in order; any failure exits non-zero without the result line:
@@ -24,7 +24,11 @@ Phases, in order; any failure exits non-zero without the result line:
    serving kernels at the serving step's 128 rows: K11 (int8,
    int8_block at block 256, fp8) on qkv, ffn2, the head and a K of 2000;
    K2q at phase 3's ragged shape over int8 pages; K12 on ffn1 and the
-   head with rank buckets 8 and 16 and a mixed slot vector.
+   head with rank buckets 8 and 16 and a mixed slot vector. K10m (fused
+   momentum) bit for bit at [512, 512, 3, 3] and [2048, 1000], float32
+   and bfloat16, plain and nesterov, with and without a clip scale;
+   K13 (paged decode attention) at the two_lane decode shape and on
+   edge cases (length 0, 1, 37, a full table; GQA 4 of 16 heads).
 3. serving: ``GPTConfig.gpt3_1p3b()`` at full width (seeded random
    weights made on the card) served by the ragged ``GenerationEngine``
    at its default geometry; 16 requests from 4 client threads. Every
@@ -32,6 +36,11 @@ Phases, in order; any failure exits non-zero without the result line:
    counters must show 24 ragged attention and 49 layer-norm launches per
    engine step; two requests are checked token by token against the
    ``Predictor`` (teacher forced).
+   3b: the same weights and prompts served by the two_lane engine
+   (``mode="two_lane"``, prefill buckets 16..1024): every stream
+   finishes, the oracle holds for two requests, each decode step
+   launches 24 K13 and 49 K1 and no K2; the share of tokens equal to
+   phase 3's is printed, not gated.
 4. training: ``build_gpt_lm(GPTConfig.gpt3_1p3b(), 1024,
    AdamOptimizer(3e-4))`` (24 layers, hidden 2048, dropout 0.1) run by
    the port's ``Executor`` on the card: the startup program, then 10
@@ -48,7 +57,15 @@ Phases, in order; any failure exits non-zero without the result line:
    (flash, bfloat16 AMP; rtol 2e-3), parameters within 2 * lr per step.
    Then one ragged step of a 2-layer full-width GPT with int8 weights,
    int8 KV pages and two adapters on a mixed batch: tokens equal, pools
-   within one int8 step.
+   within one int8 step. ResNet-50 at full depth and width, batch 4 x
+   224^2, 3 fused Momentum + L2Decay steps at lr 0.1 x 4 / 256: the
+   first loss within rtol 1e-3, the BN running statistics it wrote
+   within 1e-3 of their largest entry, every parameter after the first
+   update within 2 * lr (the later losses are reported beside a CPU run
+   with the input scaled by 1 + 1e-7: ResNet-50's gradients at
+   initialisation are ill-conditioned); a 2-layer gpt3_1p3b-width
+   two_lane prefill and 3 decode steps (tokens equal, pools within
+   1e-5).
 6. BERT-large pretraining: ``BertConfig.large()`` at full size, seq 512,
    batch 8 of ``synthetic_batch(min_len=128)``, flash attention with the
    key mask, ``decorate(AdamOptimizer(1e-4), init_loss_scaling=1.0,
@@ -63,6 +80,13 @@ Phases, in order; any failure exits non-zero without the result line:
    the int8 pool at 67584 / 262144 of the float32 one. 7c: the base
    rows equal an engine without adapters, one request of each bucket
    equals a dedicated engine.
+8. ResNet-50 training: ``build_resnet50(1000, 224,
+   MomentumOptimizer(0.025, momentum=0.9, regularization=L2Decay(1e-4)),
+   data_format="NCHW")`` (161 parameters, 25.56 M) on the JAX bench's
+   batch of 64 synthetic images, float32, fused updates: startup, then
+   10 steps; losses finite and falling, exactly 161 K10m, one K4 and one
+   K5 launch a step, the BN running statistics move; mean step, images/s,
+   peak memory.
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -87,8 +111,8 @@ VOCAB, HIDDEN = 32000, 2048        # gpt3_1p3b's widths
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}   # (atol, rtol)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # fp32 CUDA cores / bf16 MMA
-SLEEP_CYCLES = 20_000_000
-ALL_PHASES = "234567"          # keeps the card busy while launches queue
+SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
+ALL_PHASES = "2345678"
 DEVICE = "cuda"
 
 
@@ -460,6 +484,164 @@ def check_fused_adam(torch, K, dtype_name, gen):
     return results["main"]
 
 
+# -- phase 2: fused momentum (K10m) ----------------------------------------------
+
+# ResNet-50's largest parameter and an fc-sized one
+MOMENTUM_SHAPES = (("conv", (512, 512, 3, 3)), ("fc", (2048, 1000)))
+
+
+def check_fused_momentum(torch, K, gen):
+    """K10m against its plain version (both in place, on clones), bit for
+    bit: float32 and bfloat16, plain and nesterov, without a clip scale
+    (the ResNet-50 path), with ClipScale 1 and with 0.37. The timed row
+    is float32 at [512, 512, 3, 3] without a clip scale."""
+    f32 = lambda v: torch.tensor([v], device=DEVICE)  # noqa: E731
+    lr = f32(0.025)
+    main, n_checked = None, 0
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        for shape_name, shape in MOMENTUM_SHAPES:
+            for nesterov in (False, True):
+                for clip in (None, 1.0, 0.37):
+                    state = [(std * torch.randn(shape, device=DEVICE,
+                                                generator=gen)).to(dt)
+                             for std in (1.0, 0.1, 0.05)]
+                    kw = dict(mu=0.9, use_nesterov=nesterov,
+                              clip_scale=None if clip is None else f32(clip))
+                    got = [t.clone() for t in state]
+                    want = [t.clone() for t in state]
+                    K.fused_momentum_update(*got, lr, **kw)
+                    K.fused_momentum_update_plain(*want, lr, **kw)
+                    what = (f"fused_momentum {dtype_name} {shape_name} "
+                            f"{list(shape)} nesterov={nesterov} clip={clip}")
+                    for i, slot in ((0, "p"), (2, "vel")):
+                        diff = float((got[i].float() - want[i].float())
+                                     .abs().max())
+                        require(torch.equal(got[i], want[i]),
+                                f"{what}: {slot} not bit for bit (max diff "
+                                f"{diff:.3e})")
+                    n_checked += 1
+                    if (dtype_name, shape_name, nesterov, clip) != (
+                            "float32", "conv", False, None):
+                        continue
+                    # timed over 4 copies of (p, g, vel) in turn, 189 MB,
+                    # so that the 50 MB L2 holds none of a call's inputs,
+                    # as in a training step
+                    n = got[0].numel()
+                    copies = [[t.clone() for t in state] for _ in range(4)]
+                    turn = iter(range(1 << 30))
+
+                    def rotate(fn):
+                        return lambda: fn(*copies[next(turn) % 4])
+
+                    bms, by = bound_ms(5 * n * 4, 4 * n, "float32")
+                    main = {"max_abs_err": 0.0, "bound_ms": bms,
+                            "bound_by": by,
+                            "ms": device_ms(torch, rotate(
+                                lambda p, g, v: K.fused_momentum_update(
+                                    p, g, v, lr, **kw))),
+                            "plain_ms": device_ms(torch, rotate(
+                                lambda p, g, v: K.fused_momentum_update_plain(
+                                    p, g, v, lr, **kw))),
+                            "library_ms": device_ms(torch, rotate(
+                                lambda p, g, v: torch._fused_sgd_(
+                                    [p], [g], [v], weight_decay=0.0,
+                                    momentum=0.9, lr=0.025, dampening=0.0,
+                                    nesterov=False, maximize=False,
+                                    is_first_step=False)))}
+                    log(f"  {what}: {fmt(main, 'float32')}")
+    log(f"  fused_momentum: {n_checked} cases equal bit for bit")
+    return main
+
+
+# -- phase 2: paged decode attention (K13) ------------------------------------------
+
+
+def paged_case(torch, np, dtype, gen, *, B, H, KVH, D, P, ps, maxp, lengths,
+               seed):
+    """Pools of random data, distinct pages per row, tables zero past
+    each row's chain."""
+    rng = np.random.RandomState(seed)
+    kp = torch.randn(KVH, P, ps, D, device=DEVICE, generator=gen).to(dtype)
+    vp = torch.randn(KVH, P, ps, D, device=DEVICE, generator=gen).to(dtype)
+    q = torch.randn(B, H, D, device=DEVICE, generator=gen).to(dtype)
+    tables = np.zeros((B, maxp), np.int32)
+    free = list(rng.permutation(np.arange(1, P)))
+    for b, n in enumerate(lengths):
+        k = min(-(-n // ps), maxp)
+        tables[b, :k] = [free.pop() for _ in range(k)]
+    as_dev = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(DEVICE)  # noqa: E731
+    return q, kp, vp, as_dev(lengths), as_dev(tables)
+
+
+def paged_bytes_ops(q, kp, lengths, ps, maxp):
+    B, H, D = q.shape
+    KVH = kp.shape[0]
+    item = q.element_size()
+    keys = [min(int(n), maxp * ps) for n in lengths]
+    pages = sum(-(-k // ps) for k in keys)
+    nbytes = (sum(keys) * D * item * 2 * KVH       # the K and V rows attended
+              + 2 * B * H * D * item                # q in, out
+              + 4 * (B + pages))                    # lengths, table entries
+    return nbytes, 4 * sum(keys) * H * D           # q.k and p.v
+
+
+def check_paged_attention(torch, np, K, gen, seed):
+    """K13 against its plain version: the two_lane decode shape (8 lanes,
+    q [8, 16, 128] over [16, 512, 16, 128] pools, each lane 16 tokens into
+    the decode of one of phase 3's first 8 prompts) and edge cases (GQA
+    with 4 kv heads for 16, lengths 0, 1, 37 and a full 64-page table),
+    float32 and bfloat16."""
+    import torch.nn.functional as F
+
+    prompt_lens = serving_prompts(np, seed, VOCAB)[0][:LANES]
+    main = dict(B=LANES, H=16, KVH=16, D=128, P=512, ps=PAGE, maxp=64,
+                lengths=[int(n) + 16 for n in prompt_lens])
+    edge = dict(B=4, H=16, KVH=4, D=128, P=160, ps=PAGE, maxp=64,
+                lengths=[0, 1, 37, 64 * PAGE])
+    results = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        for name, case in (("main", main), ("edge", edge)):
+            q, kp, vp, lens, tb = paged_case(torch, np, dt, gen, seed=seed,
+                                             **case)
+            what = (f"paged_attention {dtype_name} {name} B{case['B']} "
+                    f"H{case['H']}/{case['KVH']} D{case['D']} lengths "
+                    f"{case['lengths']}")
+            out = K.paged_attention(q, kp, vp, lens, tb)
+            err = compare(torch, out, K.paged_attention_plain(q, kp, vp, lens,
+                                                              tb),
+                          dtype_name, what)
+            for b, n in enumerate(case["lengths"]):
+                require(n > 0 or bool((out[b] == 0).all()),
+                        f"{what}: the length-0 row {b} is not 0")
+            row = {"max_abs_err": err}
+            if name == "main":
+                nbytes, ops = paged_bytes_ops(q, kp, case["lengths"],
+                                              case["ps"], case["maxp"])
+                bms, by = bound_ms(nbytes, ops, dtype_name)
+                # library yardstick: one SDPA call over the window
+                # gathered beforehand, keys past each length masked
+                B, H, D = q.shape
+                idx = tb.long()
+                kd = kp[:, idx].permute(1, 0, 2, 3, 4).reshape(B, H, -1, D)
+                vd = vp[:, idx].permute(1, 0, 2, 3, 4).reshape(B, H, -1, D)
+                kpos = torch.arange(kd.shape[2], device=DEVICE)
+                mask = (kpos[None] < lens.long()[:, None])[:, None, None]
+                qs = q[:, :, None]
+                row.update(
+                    ms=device_ms(torch, lambda: K.paged_attention(
+                        q, kp, vp, lens, tb)),
+                    plain_ms=device_ms(torch, lambda: K.paged_attention_plain(
+                        q, kp, vp, lens, tb)),
+                    library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                        qs, kd, vd, attn_mask=mask)),
+                    bound_ms=bms, bound_by=by)
+                results[dtype_name] = row
+            log(f"  {what}: {fmt(row, dtype_name)}")
+    return results
+
+
 # -- phase 2: flash attention -----------------------------------------------------
 
 # (name, [B, H, S, D], causal, mask, dtypes, timed): the gpt3_1p3b and
@@ -815,6 +997,8 @@ KERNEL_GROUPS = (("ragged_paged_attention_kernel<float, signed char",
                  ("quant_matmul", "quantized_matmul (K11)"),
                  ("lora_", "batched_lora_add_ (K12)"),
                  ("ragged_paged_attention", "ragged_paged_attention (K2)"),
+                 ("paged_attention_kernel", "paged_attention (K13)"),
+                 ("momentum_kernel", "fused_momentum (K10m)"),
                  ("layer_norm_fwd", "layer_norm (K1)"),
                  ("layer_norm_bwd", "layer_norm_bwd (K3)"),
                  ("column_sum", "layer_norm_bwd (K3)"),
@@ -823,6 +1007,14 @@ KERNEL_GROUPS = (("ragged_paged_attention_kernel<float, signed char",
                  ("adam_kernel", "fused_adam (K10)"),
                  ("flash_fwd", "flash_attention_fwd (K6/K7)"),
                  ("flash_d", "flash_attention_bwd (K8/K9)"),
+                 ("bn_", "batch norm"), ("batch_norm", "batch norm"),
+                 ("welford", "batch norm"),
+                 ("fprop", "convolution (cuDNN)"),
+                 ("dgrad", "convolution (cuDNN)"),
+                 ("wgrad", "convolution (cuDNN)"),
+                 ("conv", "convolution (cuDNN)"),
+                 ("cudnn", "convolution (cuDNN)"),
+                 ("pool", "pooling"),
                  ("gemm", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"),
                  ("index", "index/scatter/gather"),
                  ("scatter", "index/scatter/gather"),
@@ -946,7 +1138,7 @@ def serving_perf(torch, st, streams, wall, lengths, card, what="served"):
     prompt_tokens = int(sum(int(n) for n, s in zip(lengths, streams)
                             if s is not None))
     perf = {"tokens_per_s": gen_tokens / wall, "wall_s": wall,
-            "engine_steps": st["ragged_steps_total"],
+            "engine_steps": st["decode_steps_total"],
             "step_ms_mean": st["decode_step_ms"]["mean"],
             "ttft_ms_p50": st["ttft_ms"]["p50"],
             "itl_ms_p50": st["itl_ms"]["p50"],
@@ -986,15 +1178,14 @@ def oracle(np, pred, prompts, streams, ids=(0, 1), rel=1e-3):
             f"(worst slack {worst:.3f} of the limit)")
 
 
-def serve(torch, np, seed, card, out_dir, profile=False):
-    from paddle_tpu_torch import kernels as K
-    from paddle_tpu_torch.generation import GenerationEngine
+def gpt3_predictor(torch, seed):
+    """gpt3_1p3b with seeded random weights made on the card (phases 3
+    and 3b share them)."""
     from paddle_tpu_torch.generation.model import GPTLM
     from paddle_tpu_torch.inference import Config, Predictor
     from paddle_tpu_torch.models.gpt import GPTConfig
 
     cfg = GPTConfig.gpt3_1p3b()
-    t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     # the parameter table of a model on the meta device names the shapes
     shapes = {n: tuple(p.shape)
@@ -1003,6 +1194,15 @@ def serve(torch, np, seed, card, out_dir, profile=False):
     pred = Predictor(Config().set_params(cfg, params), device=DEVICE)
     del params
     torch.cuda.empty_cache()
+    return cfg, pred
+
+
+def serve(torch, np, seed, card, out_dir, profile=False):
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.generation import GenerationEngine
+
+    t0 = time.perf_counter()
+    cfg, pred = gpt3_predictor(torch, seed)
     eng = GenerationEngine(pred, cfg, warmup=True)
     log(f"  model + engine ready in {time.perf_counter() - t0:.1f} s "
         f"(weights {sum(p.numel() for p in pred.lm.parameters()) * 4 / 1e9:.2f}"
@@ -1037,15 +1237,83 @@ def serve(torch, np, seed, card, out_dir, profile=False):
     return counts, perf
 
 
+# -- phase 3b: the two_lane engine ------------------------------------------------
+
+TWO_LANE_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
+
+
+def serve_two_lane(torch, np, seed, card, out_dir, base_tokens=None,
+                   profile=False):
+    """Phase 3's model, weights and prompts served by the two_lane engine
+    (prefill on the bucket ladder, decode through K13): exactly 24 K13
+    and 49 K1 launches a decode step and 49 K1 a prefill call, no K2."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.generation import GenerationEngine
+
+    t0 = time.perf_counter()
+    cfg, pred = gpt3_predictor(torch, seed)
+    eng = GenerationEngine(pred, cfg, mode="two_lane",
+                           prefill_buckets=TWO_LANE_BUCKETS, warmup=True)
+    log(f"  model + two_lane engine ready in {time.perf_counter() - t0:.1f} s"
+        f" (buckets {eng._seq_buckets}, {eng.lanes} lanes)")
+    lengths, prompts = serving_prompts(np, seed, cfg.vocab_size)
+    max_new = 32
+    prof = start_profile(torch) if profile else None
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    streams, wall = run_clients(eng, prompts, max_new)
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    counts = K.launch_counts()
+    st = eng.stats()
+    eng.close()
+    check_streams(streams, max_new)
+    steps, prefills = st["decode_steps_total"], st["prefill_batches_total"]
+    L = cfg.num_layers
+    log(f"  decode steps {steps}, prefill calls {prefills} "
+        f"({st['prefill_rows_total']} rows); launches {counts}")
+    require(steps > 0 and prefills > 0, "no decode step or prefill ran")
+    require(counts["paged_attention"] == L * steps,
+            f"paged_attention launched {counts['paged_attention']} times, "
+            f"want {L} x {steps} decode steps")
+    require(counts["layer_norm"] == (2 * L + 1) * (steps + prefills),
+            f"layer_norm launched {counts['layer_norm']} times, want "
+            f"{2 * L + 1} x ({steps} decode steps + {prefills} prefills)")
+    require(counts["ragged_paged_attention"] == 0,
+            "the two_lane engine launched the ragged kernel")
+    perf = serving_perf(torch, st, streams, wall, lengths, card,
+                        what="served (two_lane)")
+    perf.update(prefill_calls=prefills, prefill_rows=st["prefill_rows_total"],
+                prefill_ms_mean=st["prefill_ms"]["mean"],
+                prefill_ms_p50=st["prefill_ms"]["p50"])
+    log(f"  prefill: {prefills} calls, mean {perf['prefill_ms_mean']} ms a "
+        f"call (p50 {perf['prefill_ms_p50']} ms); mean decode step "
+        f"{perf['step_ms_mean']} ms [{card}]")
+    if prof is not None:
+        perf["profile"] = trace_breakdown(prof, out_dir, "serve_two_lane",
+                                          wall)
+    oracle(np, pred, prompts, streams)
+    if base_tokens is not None:
+        same = total = 0
+        for mine, theirs in zip(perf["tokens"], base_tokens):
+            same += sum(a == b for a, b in zip(mine, theirs))
+            total += len(mine)
+        perf["ragged_token_agreement"] = same / total
+        log(f"  tokens equal to phase 3's ragged run at {same} of {total} "
+            f"positions ({same / total:.4f}; reported, not gated)")
+    return counts, perf
+
+
 # -- phase 4: training -------------------------------------------------------------
 
 
 def run_steps(torch, np, K, exe, main, scope, batch, loss, want, steps,
-              tokens, card, out_dir, name, profile=False):
+              tokens, card, out_dir, name, profile=False, unit="tokens"):
     """``steps`` Executor runs of ``main`` on one fixed batch: every step
     must launch exactly ``want`` (per kernel; the flash backward's delta,
     dq and dk/dv kernels each as often as the backward); losses finite
-    and falling. Returns the path's launch totals and its numbers."""
+    and falling. ``tokens`` counts the batch in ``unit`` (tokens, or
+    images). Returns the path's launch totals and its numbers."""
     totals = {n: 0 for n in K.KERNELS}
     want_bwd = {n: want["flash_attention_bwd"]
                 for n in K.flash_attention_bwd.kernel_launches}
@@ -1084,13 +1352,13 @@ def run_steps(torch, np, K, exe, main, scope, batch, loss, want, steps,
         f"{want_bwd}")
     mean_ms = statistics.mean(step_ms[1:])
     perf = {"losses": losses, "step_ms": step_ms, "first_step_ms": step_ms[0],
-            "step_ms_mean": mean_ms, "tokens_per_s": tokens / (mean_ms / 1e3),
+            "step_ms_mean": mean_ms, f"{unit}_per_s": tokens / (mean_ms / 1e3),
             "max_memory_allocated_gb": peak / 1e9, "steps": steps,
-            "tokens_per_step": tokens, "launches_per_step": want,
+            f"{unit}_per_step": tokens, "launches_per_step": want,
             "card": card}
-    log(f"  trained {steps} steps of {tokens} tokens: mean step "
+    log(f"  trained {steps} steps of {tokens} {unit}: mean step "
         f"{mean_ms:.3f} ms over steps 1..{steps - 1} (first "
-        f"{step_ms[0]:.3f} ms), {perf['tokens_per_s']:.2f} tokens/s, "
+        f"{step_ms[0]:.3f} ms), {perf[f'{unit}_per_s']:.2f} {unit}/s, "
         f"max_memory_allocated {peak / 1e9:.2f} GB [{card}]")
     if profile:
         prof = start_profile(torch)
@@ -1452,6 +1720,223 @@ def card_vs_cpu_quantized(torch, np, seed):
             "scale_max_rel_diff": ds, "weight_quantization_max_diff": q_diff}
 
 
+# -- phase 5: ResNet-50 and the two_lane lanes, card against CPU -------------------
+
+RESNET_BATCH, RESNET_IMAGE = 64, 224      # the JAX bench's ResNet-50 size
+
+
+def resnet_lr(batch):
+    """The reference recipe's learning rate, 0.1 x batch / 256 (the
+    linear scaling rule)."""
+    return 0.1 * batch / 256
+
+
+def resnet_optimizer(fluid, batch=RESNET_BATCH):
+    """The reference recipe: Momentum 0.9 with L2 weight decay 1e-4."""
+    return fluid.optimizer.MomentumOptimizer(
+        resnet_lr(batch), momentum=0.9,
+        regularization=fluid.regularizer.L2Decay(1e-4))
+
+
+# card vs CPU ResNet-50: the first loss (a forward through the 53 conv /
+# batch-norm pairs) differs by summation order only (cuDNN's and the
+# CPU's convolutions, TF32 off); the running statistics the first step
+# writes likewise, held relative to each one's largest entry
+CARD_VS_CPU_RESNET_RTOL, BN_STATS_RTOL = 1e-3, 1e-3
+
+
+def card_vs_cpu_resnet(torch, np, seed, steps=3, batch=4):
+    """ResNet-50 at full depth and width, batch 4 x 224^2, from the same
+    numpy-seeded parameters: fused Momentum + L2Decay steps (lr by the
+    recipe's linear scaling, 0.1 x 4 / 256) on the card (K10m, K4, K5,
+    cuDNN) and on the CPU (plain versions).
+
+    Gated: the first loss (rtol 1e-3), the BN running statistics that
+    first step wrote (1e-3 of each one's largest entry) and every
+    parameter after the first update (within 2 x lr). The later losses
+    are reported beside a second CPU run whose input is scaled by
+    (1 + 1e-7): at initialisation ResNet-50's gradients are
+    ill-conditioned (that nudge alone moves them by about 10 % of their
+    largest entry), and a few updates carry the difference into the
+    loss, so no two float32 implementations agree on the trajectory
+    past the first update; the nudged run shows how far it is free to
+    go."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.core.framework import Parameter
+    from paddle_tpu_torch.io import load_scope_arrays
+    from paddle_tpu_torch.models.resnet import (build_resnet50,
+                                                synthetic_image_batch)
+
+    lr = resnet_lr(batch)
+    fluid.set_flags({"optimizer_fuse": "on"})
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_resnet50(
+            1000, RESNET_IMAGE, resnet_optimizer(fluid, batch))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    init_scope = fluid.Scope()
+    cpu.run(startup, scope=init_scope)    # velocities, running stats, lr
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for v in main.list_vars():
+        if not v.persistable or v.is_data:
+            continue
+        if not isinstance(v, Parameter):
+            arrays[v.name] = init_scope.get_numpy(v.name)
+        elif v.name.endswith(".scale"):
+            arrays[v.name] = np.ones(v.shape, np.float32)
+        elif v.name.endswith((".bias", ".b")):
+            arrays[v.name] = np.zeros(v.shape, np.float32)
+        else:     # He normal over the fan-in (conv), 1/sqrt(fan-in) (fc)
+            conv = len(v.shape) == 4
+            fan_in = int(np.prod(v.shape[1:])) if conv else int(v.shape[0])
+            std = (2.0 / fan_in) ** 0.5 if conv else fan_in ** -0.5
+            arrays[v.name] = std * rng.standard_normal(v.shape,
+                                                       dtype=np.float32)
+    data = synthetic_image_batch(np.random.RandomState(seed), batch,
+                                 RESNET_IMAGE)
+    nudged = dict(data, image=data["image"] * np.float32(1 + 1e-7))
+    persist = [v for v in main.list_vars() if v.persistable and not v.is_data]
+    runs = {}
+    for name, place, dev, feed in (
+            ("cuda", fluid.CUDAPlace(0), DEVICE, data),
+            ("cpu", fluid.CPUPlace(), "cpu", data),
+            ("cpu_nudged", fluid.CPUPlace(), "cpu", nudged)):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        load_scope_arrays(scope, arrays, main, dev)
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        losses, after_first = [], None
+        for s_ in range(steps):
+            losses.append(float(np.asarray(exe.run(
+                main, feed=feed, fetch_list=[fetches["loss"]],
+                scope=scope)[0]).reshape(-1)[0]))
+            if s_ == 0:
+                after_first = {v.name: scope.get_numpy(v.name)
+                               for v in persist}
+        runs[name] = (losses, after_first)
+        log(f"  {name}: losses {losses} in {time.perf_counter() - t:.1f} s")
+        if name == "cuda":
+            counts = K.launch_counts()
+            require(counts["fused_momentum_update"] == 161 * steps
+                    and counts["softmax_xent_fwd"] == steps,
+                    f"the card's run did not go through the kernels: {counts}")
+    (lg, pg), (lc, pc), (ln, pn) = (runs["cuda"], runs["cpu"],
+                                    runs["cpu_nudged"])
+    rel = abs(lg[0] - lc[0]) / abs(lc[0])
+    require(rel <= CARD_VS_CPU_RESNET_RTOL, f"card vs CPU ResNet-50 first "
+            f"loss differs by {rel:.3e} > {CARD_VS_CPU_RESNET_RTOL}")
+    bn_worst, bn_name = 0.0, ""
+    for v in persist:
+        if v.name.endswith((".bn.mean", ".bn.var")):
+            c = pc[v.name]
+            d = float(np.abs(pg[v.name] - c).max() / np.abs(c).max())
+            if d > bn_worst:
+                bn_worst, bn_name = d, v.name
+    require(bn_worst <= BN_STATS_RTOL, f"card vs CPU running statistic "
+            f"{bn_name} differs by {bn_worst:.3e} of its largest entry > "
+            f"{BN_STATS_RTOL}")
+    def worst_param(a, b):
+        return max((float(np.abs(a[v.name] - b[v.name]).max()), v.name)
+                   for v in persist if isinstance(v, Parameter))
+
+    worst, worst_name = worst_param(pg, pc)
+    nudge, nudge_name = worst_param(pn, pc)
+    require(worst <= 2 * lr, f"card vs CPU parameter {worst_name} differs by "
+            f"{worst:.3e} after the first update > 2 * lr = {2 * lr:.3e}")
+    later = [abs(a - b) / abs(b) for a, b in zip(lg[1:], lc[1:])]
+    spread = [abs(a - b) / abs(b) for a, b in zip(ln[1:], lc[1:])]
+    log(f"  first loss within {rel:.3e} (rtol {CARD_VS_CPU_RESNET_RTOL}); BN "
+        f"running statistics after it within {bn_worst:.3e} of their "
+        f"largest entry ({bn_name}; limit {BN_STATS_RTOL}); parameters after "
+        f"the first update within {worst:.3e} ({worst_name}; limit 2 * lr "
+        f"= {2 * lr:.3e}; the nudged CPU run's within {nudge:.3e})")
+    log(f"  reported: later losses card vs CPU {['%.3e' % x for x in later]}"
+        f", CPU vs the nudged CPU {['%.3e' % x for x in spread]}")
+    return {"losses": {k: v[0] for k, v in runs.items()},
+            "first_loss_rel_err": rel, "bn_stats_max_rel_err": bn_worst,
+            "param_max_abs_err_first_step": worst, "param_limit": 2 * lr,
+            "nudge_param_max_abs_diff_first_step": nudge,
+            "later_loss_rel_err": later, "nudge_loss_rel_spread": spread}
+
+
+def card_vs_cpu_two_lane(torch, np, seed, decode_steps=3):
+    """A 2-layer gpt3_1p3b-width GPT through the two_lane lanes on the
+    card (K13, K1) and on the CPU (plain versions): one prefill call of
+    three prompts (37, 100 and 16 tokens in a 128 window), then three
+    decode steps over 4 lanes (one idle). Tokens equal; pools within
+    1e-5 (float32 sums in another order)."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.generation import (CacheGeometry, DecodeStepModel,
+                                             PrefillStepModel)
+    from paddle_tpu_torch.inference import Config, Predictor
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=2,
+                    num_heads=16, ffn_size=8192, max_position=1024,
+                    hidden_dropout=0.0, attention_dropout=0.0)
+    L, H, D = cfg.num_layers, cfg.num_heads, HIDDEN // 16
+    params = _np_params(np, cfg, seed)
+    rng = np.random.RandomState(seed)
+    lanes, bucket, P, ps, maxp = 4, 128, 48, PAGE, 64
+    lens = [37, 100, 16]
+    n = len(lens)
+    tokens = np.zeros((n, bucket), np.int64)
+    tables = np.zeros((lanes, maxp), np.int32)
+    free = list(rng.permutation(np.arange(1, P)))
+    for b, m in enumerate(lens):
+        tokens[b, :m] = rng.randint(0, VOCAB, m)
+        k = -(-(m + decode_steps) // ps)
+        tables[b, :k] = [free.pop() for _ in range(k)]
+    pools0 = [rng.randn(H, P, ps, D).astype(np.float32) for _ in range(2 * L)]
+    out = {}
+    for dev in ("cpu", DEVICE):
+        pred = Predictor(Config().set_params(cfg, params), device=dev)
+        geom = CacheGeometry(P, ps, maxp)
+        prefill = PrefillStepModel(pred.lm, geom)
+        decode = DecodeStepModel(pred.lm, geom)
+        pools = [torch.as_tensor(a).to(dev) for a in pools0]
+        t = lambda a, dt=torch.int32: torch.as_tensor(np.asarray(a)).to(  # noqa: E731
+            device=dev, dtype=dt)
+        K.reset_launch_counts()
+        toks = [prefill(t(tokens, torch.long), t(lens), t(tables[:n]),
+                        pools[:L], pools[L:]).cpu().numpy()]
+        length = list(lens)
+        cur = np.zeros(lanes, np.int64)
+        cur[:n] = toks[0]
+        for _ in range(decode_steps):
+            active = np.array([1] * n + [0] * (lanes - n), np.int32)
+            pos = np.array(length + [0] * (lanes - n), np.int32)
+            nxt = decode(t(cur, torch.long), t(pos), t(active),
+                         t(np.where(active > 0, pos + 1, 0)), t(tables),
+                         pools[:L], pools[L:]).cpu().numpy()
+            toks.append(nxt[:n])
+            cur = nxt
+            length = [m + 1 for m in length]
+        counts = K.launch_counts()
+        out[dev] = (np.stack(toks), [p.cpu() for p in pools])
+        if dev == DEVICE:
+            want = {"paged_attention": L * decode_steps,
+                    "layer_norm": (2 * L + 1) * (1 + decode_steps),
+                    "ragged_paged_attention": 0}
+            got = {k: counts[k] for k in want}
+            require(got == want, f"the card's lanes launched {got}, want "
+                    f"{want}")
+    (tg, pg), (tc, pc) = out[DEVICE], out["cpu"]
+    require(np.array_equal(tg, tc), f"card tokens {tg.tolist()} != CPU "
+            f"{tc.tolist()}")
+    worst = 0.0
+    for a, c in zip(pg, pc):
+        d = (a - c).abs()
+        d[:, 0, 0] = 0    # the junk slot: idle-lane writes in no set order
+        worst = max(worst, float(d.max()))
+    require(worst <= 1e-5, f"card vs CPU pools differ by {worst:.3e} > 1e-5")
+    log(f"  tokens equal at the prefill and {decode_steps} decode steps "
+        f"({tg.size} tokens); pools within {worst:.3e} (limit 1e-5)")
+    return {"tokens_equal": True, "pool_max_abs_err": worst,
+            "tokens": tg.tolist()}
+
+
 # -- phase 7: gpt3_1p3b quantized and multi-adapter ---------------------------------
 
 
@@ -1668,6 +2153,52 @@ def serve_quantized(torch, np, seed, card, out_dir, base_tokens=None,
     return paths, record
 
 
+# -- phase 8: ResNet-50 trained by fused Momentum with L2 decay ------------------------
+
+
+def train_resnet(torch, np, seed, card, out_dir, profile=False, steps=10):
+    """ResNet-50 (25.56 M parameters, 161 of them) at the JAX bench's
+    batch 64 x 224^2, float32 NCHW, trained by Momentum 0.9 + L2Decay
+    1e-4 at lr 0.1 x 64 / 256 with the fused update: K10m 161 times, K4
+    and K5 once, every step; the BN running statistics move."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models.resnet import (build_resnet50,
+                                                synthetic_image_batch)
+
+    fluid.set_flags({"optimizer_fuse": "auto"})   # on: a CUDA device exists
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_resnet50(
+            1000, RESNET_IMAGE, resnet_optimizer(fluid), data_format="NCHW")
+    types = [op.type for op in main.global_block().ops]
+    require(types.count("fused_momentum") == 161 and "momentum" not in types,
+            f"the program holds {types.count('fused_momentum')} "
+            "fused_momentum ops")
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    require(n_params == 25_557_032, f"{n_params} parameters")
+    batch = synthetic_image_batch(np.random.RandomState(seed), RESNET_BATCH,
+                                  RESNET_IMAGE)
+    stats = ("stem.bn.mean", "stem.bn.var", "s3b2.b2.bn.mean",
+             "s3b2.b2.bn.var")
+    before = {n: scope.find_var(n).clone() for n in stats}
+    want = {name: 0 for name in K.KERNELS}
+    want.update(fused_momentum_update=161, softmax_xent_fwd=1,
+                softmax_xent_bwd=1)
+    totals, perf = run_steps(torch, np, K, exe, main, scope, batch,
+                             fetches["loss"], want, steps, RESNET_BATCH, card,
+                             out_dir, "resnet", profile, unit="images")
+    moved = {n: float((scope.find_var(n) - before[n]).abs().max())
+             for n in stats}
+    require(all(v > 0 for v in moved.values()),
+            f"BN running statistics did not move: {moved}")
+    log(f"  BN running statistics moved (max |change|): {moved}")
+    perf.update(parameters=n_params, batch=RESNET_BATCH,
+                image_size=RESNET_IMAGE, lr=resnet_lr(RESNET_BATCH),
+                bn_stats_moved=moved)
+    return totals, perf
+
+
 # -- main ---------------------------------------------------------------------------
 
 
@@ -1677,9 +2208,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chip_smoke_out",
                     help="directory for the build log and chip_smoke.json")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serving runs (phases 3, 7a int8, 7b) "
-                    "and two training steps with torch.profiler and print "
-                    "device time by kernel group and the idle share")
+                    help="trace the serving runs (phases 3, 3b, 7a int8, "
+                    "7b) and two training steps (phases 4, 6, 8) with "
+                    "torch.profiler and print device time by kernel group "
+                    "and the idle share")
     ap.add_argument("--phases", default=ALL_PHASES,
                     help="phases to run after the build (a debugging aid: "
                     "only a run of all of them prints the result line)")
@@ -1738,6 +2270,10 @@ def main(argv=None) -> int:
         rows["ragged_paged_attention_q"] = {
             "float32": check_ragged_q(torch, np, K, gen, args.seed)}
         rows["batched_lora_add_"] = check_lora(torch, K, gen)
+        rows["fused_momentum_update"] = {
+            "float32": check_fused_momentum(torch, K, gen)}
+        rows["paged_attention"] = check_paged_attention(torch, np, K, gen,
+                                                        args.seed)
         record["kernels"] = rows
         record["quantized_matmul_all_shapes"] = qmm
     # launches of each kernel on the main paths, read just after each
@@ -1746,6 +2282,11 @@ def main(argv=None) -> int:
         log("phase 3: gpt3_1p3b served by the ragged engine")
         paths["serve"], record["serve"] = serve(
             torch, np, args.seed, card, args.out, profile=args.profile)
+        torch.cuda.empty_cache()
+        log("phase 3b: gpt3_1p3b served by the two_lane engine")
+        paths["serve_two_lane"], record["serve_two_lane"] = serve_two_lane(
+            torch, np, args.seed, card, args.out, record["serve"]["tokens"],
+            profile=args.profile)
         torch.cuda.empty_cache()
     if "4" in args.phases:
         log("phase 4: gpt3_1p3b trained by the Executor")
@@ -1771,6 +2312,16 @@ def main(argv=None) -> int:
         record["card_vs_cpu"]["quantized_adapters"] = card_vs_cpu_quantized(
             torch, np, args.seed)
         torch.cuda.empty_cache()
+        log("phase 5: ResNet-50 at full depth and width, batch 4, 3 Momentum "
+            "+ L2Decay steps, card against CPU")
+        record["card_vs_cpu"]["resnet50"] = card_vs_cpu_resnet(torch, np,
+                                                               args.seed)
+        torch.cuda.empty_cache()
+        log("phase 5: a 2-layer gpt3_1p3b-width GPT, two_lane prefill and 3 "
+            "decode steps, card against CPU")
+        record["card_vs_cpu"]["two_lane"] = card_vs_cpu_two_lane(torch, np,
+                                                                 args.seed)
+        torch.cuda.empty_cache()
     if "6" in args.phases:
         log("phase 6: BERT-large pretrained under bfloat16 AMP with flash "
             "attention")
@@ -1783,6 +2334,12 @@ def main(argv=None) -> int:
             torch, np, args.seed, card, args.out, base, profile=args.profile)
         paths.update(qpaths)
         torch.cuda.empty_cache()
+    if "8" in args.phases:
+        log("phase 8: ResNet-50 trained by fused Momentum with L2 decay, "
+            "batch 64 x 224^2")
+        paths["resnet"], record["resnet"] = train_resnet(
+            torch, np, args.seed, card, args.out, profile=args.profile)
+        torch.cuda.empty_cache()
     launches = {name: {p: c[name] for p, c in paths.items()}
                 for name in K.KERNELS}
     record["launches"] = launches
@@ -1790,7 +2347,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "4, 6 and 7)")
+        "3b, 4, 6, 7 and 8)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"
@@ -1847,6 +2404,14 @@ def main(argv=None) -> int:
         # in chip_smoke.json)
         entry("batched_lora_add_", csrc + "lora.cu",
               "paddle_tpu/kernels/lora.py:168", "ffn1"),
+        # K10m at ResNet-50's largest parameter [512, 512, 3, 3], launches
+        # of phase 8
+        entry("fused_momentum_update", csrc + "fused_optim.cu",
+              "paddle_tpu/kernels/fused_optim.py:117", path="resnet"),
+        # K13 at the two_lane decode shape, float32, launches of phase 3b
+        entry("paged_attention", csrc + "paged_attention.cu",
+              "paddle_tpu/kernels/paged_attention.py:104",
+              path="serve_two_lane"),
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never launched on a main path")

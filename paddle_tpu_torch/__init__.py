@@ -34,12 +34,20 @@ Ported so far:
       store.upload("ad0", {"dec0_ffn1.w": (A, B)}, alpha=16.0)
       eng.submit(prompt, max_new_tokens=32, adapter="ad0")
 
+* the two_lane engine (``GenerationEngine(..., mode="two_lane")``):
+  prefill on a ladder of sequence buckets, decode one token a lane
+  through the paged decode-attention kernel (K13);
+
 * training: the Program IR, ``append_backward``, ``AdamOptimizer``,
-  the bfloat16 AMP decorator (``contrib.mixed_precision.decorate``) and
-  an eager ``Executor``, with CUDA kernels for the layer-norm backward,
-  softmax cross-entropy forward and backward, flash attention forward
-  and backward, and the fused Adam update; GPT (``models.gpt``) and BERT
-  pretraining (``models.bert``) build on it;
+  ``MomentumOptimizer`` and ``SGDOptimizer``, gradient clipping
+  (``clip``) and weight decay (``regularizer``), the bfloat16 AMP
+  decorator (``contrib.mixed_precision.decorate``) and an eager
+  ``Executor``, with CUDA kernels for the layer-norm backward, softmax
+  cross-entropy forward and backward, flash attention forward and
+  backward, and the fused Adam and momentum updates; GPT
+  (``models.gpt``), BERT pretraining (``models.bert``) and ResNet-50
+  (``models.resnet``, conv / batch-norm / pool through cuDNN) build on
+  it;
 
       import paddle_tpu_torch as fluid
       main, startup = fluid.Program(), fluid.Program()
@@ -53,18 +61,20 @@ Ported so far:
       exe.run(startup)
       exe.run(main, feed={...}, fetch_list=[loss])
 
-Not ported yet (ROADMAP A): ``MomentumOptimizer`` and its fused kernel
-K10m (A1), the two_lane engine and its paged attention K13 (A5),
-speculative decoding (A3), the radix prefix cache (A4), HTTP serving
-and the hot base swap (A6), the w8a8 ``calibrate`` pass (A7), the host
-tiers (A9) and distribution (A10).
+Every TPU kernel of the JAX package has its CUDA counterpart. Not
+ported yet (ROADMAP A): the other optimizer classes, sub-block control
+flow, SelectedRows gradients and GPT MoE (A1), speculative decoding
+(A3), the radix prefix cache (A4), HTTP serving and the hot base swap
+(A6), the w8a8 ``calibrate`` pass (A7), the host tiers (A9) and
+distribution (A10).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of
 falling back.
 """
 
-from . import contrib, layers, nets, ops, optimizer  # ops: the lowerings
+from . import (clip, contrib, layers, nets, ops,  # ops: the lowerings
+               optimizer, regularizer)
 from .core import framework
 from .core.backward import append_backward
 from .core.executor import Executor, Scope, global_scope, scope_guard
@@ -76,7 +86,8 @@ from .device import resolve_device
 from .flags import get_flags, set_flags
 from .param_attr import ParamAttr
 
-__all__ = ["resolve_device", "contrib", "layers", "nets", "optimizer",
+__all__ = ["resolve_device", "clip", "contrib", "layers", "nets",
+           "optimizer", "regularizer",
            "framework",
            "append_backward", "Executor", "Scope", "global_scope",
            "scope_guard", "Program", "Variable", "default_main_program",

@@ -60,11 +60,14 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 def to_numpy(v) -> np.ndarray:
-    """Host numpy copy of a tensor (bfloat16 widened to float32)."""
-    t = v.detach().cpu()
+    """Host numpy copy of a tensor (bfloat16 widened to float32). A copy
+    also for a CPU tensor, whose ``numpy()`` would share its memory: the
+    fused optimizer ops update parameters in place, so a view fetched
+    after one step would change with the next."""
+    t = v.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.numpy()
+    return t.cpu().numpy() if t.is_cuda else t.numpy().copy()
 
 
 class Scope:

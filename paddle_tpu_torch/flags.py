@@ -25,9 +25,14 @@ DEFAULTS = {
     "generation_max_decode_batch": 8,
     "generation_queue_capacity": 64,
     "generation_max_new_tokens": 64,
-    # one [lanes, generation_chunk_tokens] mixed prefill+decode step;
-    # longer prompts prefill in chunks across steps
+    # "ragged" (the default): one [lanes, generation_chunk_tokens] mixed
+    # prefill+decode step, longer prompts prefilling in chunks across
+    # steps; "two_lane": a prefill lane over a ladder of sequence buckets
+    # (generation_prefill_buckets, max_position always added) and a
+    # decode lane of one token per sequence (the K13 kernel)
+    "generation_engine_mode": "ragged",
     "generation_chunk_tokens": 16,
+    "generation_prefill_buckets": "16,32,64,128,256,512",
     # "float32" or "int8": int8 KV pages with one float32 scale per
     # (kv head, token slot), about 3.9x the tokens a pool byte budget
     # holds at head_dim 128 (the ragged engine's K2q path)

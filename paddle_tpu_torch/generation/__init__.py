@@ -1,11 +1,13 @@
-"""Generation: the ragged continuous-batching engine over a paged KV
-cache (counterpart of ``paddle_tpu.generation``, ragged mode)."""
+"""Generation: the continuous-batching engine over a paged KV cache
+(counterpart of ``paddle_tpu.generation``), in ragged mode (the
+default) and two_lane mode."""
 
 from .engine import GenerationEngine, GenerationMetrics, GenerationStream
 from .kvcache import PagedKVCache, PagePoolExhausted
-from .model import (CacheGeometry, GPTConfig, GPTLM, RaggedStepModel,
-                    load_jax_params)
+from .model import (CacheGeometry, DecodeStepModel, GPTConfig, GPTLM,
+                    PrefillStepModel, RaggedStepModel, load_jax_params)
 
 __all__ = ["GenerationEngine", "GenerationStream", "GenerationMetrics",
            "PagedKVCache", "PagePoolExhausted", "CacheGeometry", "GPTConfig",
-           "GPTLM", "RaggedStepModel", "load_jax_params"]
+           "GPTLM", "RaggedStepModel", "PrefillStepModel", "DecodeStepModel",
+           "load_jax_params"]

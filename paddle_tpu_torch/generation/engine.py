@@ -1,13 +1,29 @@
-"""GenerationEngine: continuous-batching autoregressive decode, ragged
-mode (counterpart of ``paddle_tpu/generation/engine.py:330``).
+"""GenerationEngine: continuous-batching autoregressive decode
+(counterpart of ``paddle_tpu/generation/engine.py:330``), in two modes.
 
-Every step runs ONE [lanes, chunk] mixed batch (``RaggedStepModel``)
-in which each row is whatever its sequence needs: a prefill chunk, one
-decode token, or nothing (an idle lane). Prompts longer than
-``chunk_tokens`` prefill in chunks across steps. K/V lives in a paged
-pool (``PagedKVCache``) written in place by the step. Tokens stream
-out through ``GenerationStream``s; stop conditions are max_new_tokens,
-EOS, deadline, cancel and close.
+* ``mode="ragged"`` (the default, the ``generation_engine_mode`` flag):
+  every step runs ONE [lanes, chunk] mixed batch (``RaggedStepModel``)
+  in which each row is whatever its sequence needs: a prefill chunk,
+  one decode token, or nothing (an idle lane). Prompts longer than
+  ``chunk_tokens`` prefill in chunks across steps.
+* ``mode="two_lane"``: the JAX package's token-identity oracle of the
+  ragged engine (its :41-46). Admitted prompts prefill in one call per
+  sequence bucket (``PrefillStepModel``): the prompt length rounds up
+  the ladder ``prefill_buckets`` (the ``generation_prefill_buckets``
+  flag; ``max_position`` is always on it), so the window shapes stay in
+  a small fixed set. Then every step decodes one token a lane
+  (``DecodeStepModel``, the paged decode-attention kernel K13) over the
+  fixed lane count, idle lanes as length-0 rows. JAX also pads the
+  prefill batch to the lane count so that one compiled executable
+  serves each bucket; eager PyTorch has no executable to reuse, so the
+  port's prefill batch is the admitted rows only, and padding rows
+  would be pure device work. int8 KV pages, speculative decoding, the
+  prefix cache and adapters stay ragged-only (the JAX package's
+  ``ValueError``s); quantized weights apply to the shared modules.
+
+K/V lives in a paged pool (``PagedKVCache``) written in place by the
+steps. Tokens stream out through ``GenerationStream``s; stop conditions
+are max_new_tokens, EOS, deadline, cancel and close.
 
 Backpressure and eviction as in the JAX engine: a full queue, or a
 prompt that could never fit the pool, raises ``Overloaded`` at
@@ -38,9 +54,9 @@ Quantized, multi-adapter serving (the JAX engine's :407-420, :493-567):
   next step, never the batch.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item when asked for: ``mode="two_lane"`` (A5), speculative
-decoding (``draft`` / ``spec_tokens``, A3), ``prefix_cache`` (A4),
-``page_store`` (A9) and ``swap_base`` (A6).
+ROADMAP item when asked for: speculative decoding (``draft`` /
+``spec_tokens``, A3), ``prefix_cache`` (A4), ``page_store`` (A9) and
+``swap_base`` (A6).
 """
 
 from __future__ import annotations
@@ -61,7 +77,8 @@ from ..serving.engine import (DeadlineExceeded, EngineClosed, Overloaded,
                               RequestCancelled, ServingError)
 from ..serving.metrics import StreamingHistogram
 from .kvcache import PagedKVCache, PagePoolExhausted
-from .model import CacheGeometry, RaggedStepModel, step_feeds
+from .model import (CacheGeometry, DecodeStepModel, PrefillStepModel,
+                    RaggedStepModel, step_feeds)
 
 __all__ = ["GenerationEngine", "GenerationStream", "GenerationMetrics"]
 
@@ -69,7 +86,6 @@ _DONE = object()  # stream sentinel
 
 # ctor options of the JAX engine this slice lacks -> their ROADMAP item
 _NOT_PORTED = {
-    "mode='two_lane'": "A5 (two_lane engine, K13 via K2 at C=1)",
     "draft/spec_tokens": "A3 (speculative decoding)",
     "prefix_cache": "A4 (radix prefix cache)",
     "page_store": "A9 (host tiers: disaggregated page store)",
@@ -207,7 +223,8 @@ class GenerationMetrics:
                  "expired_total", "cancelled_total", "evicted_total",
                  "prefill_batches_total",
                  "decode_steps_total", "prefill_tokens_total",
-                 "decode_tokens_total", "decode_active_lane_steps_total",
+                 "decode_tokens_total", "prefill_rows_total",
+                 "decode_active_lane_steps_total",
                  "decode_capacity_lane_steps_total", "ragged_steps_total",
                  "prefill_chunks_total")
 
@@ -217,6 +234,7 @@ class GenerationMetrics:
         self.ttft_ms = StreamingHistogram()
         self.itl_ms = StreamingHistogram()
         self.decode_step_ms = StreamingHistogram()
+        self.prefill_ms = StreamingHistogram()
         self.queue_wait_ms = StreamingHistogram()
         self._queue_depth = 0
         self._active = 0
@@ -255,6 +273,7 @@ class GenerationMetrics:
             out["ttft_ms"] = self.ttft_ms.snapshot()
             out["itl_ms"] = self.itl_ms.snapshot()
             out["decode_step_ms"] = self.decode_step_ms.snapshot()
+            out["prefill_ms"] = self.prefill_ms.snapshot()
             out["queue_wait_ms"] = self.queue_wait_ms.snapshot()
             cap = self._c["decode_capacity_lane_steps_total"]
             out["decode_occupancy"] = (
@@ -292,25 +311,40 @@ class GenerationEngine:
                  prefix_cache: Optional[bool] = None,
                  page_store=None,
                  adapter_store=None,
+                 prefill_buckets=None,
                  warmup: bool = False, start: bool = True):
-        mode = str(mode or "ragged")
-        if mode == "two_lane":
-            _not_ported("mode='two_lane'")
+        # precedence: parameter > flag
+        mode = str(mode or flag("generation_engine_mode"))
+        if mode not in ("ragged", "two_lane"):
+            raise ValueError(
+                f"generation_engine_mode must be 'ragged' or 'two_lane', "
+                f"got {mode!r}")
+        self.kv_dtype = str(kv_dtype if kv_dtype is not None
+                            else flag("generation_kv_dtype"))
+        if self.kv_dtype not in ("float32", "int8"):
+            raise ValueError(f"kv_dtype must be 'float32' (the model's "
+                             f"dtype) or 'int8'; got {self.kv_dtype!r}")
+        # the JAX engine's ragged-only options (its :421-437, :558-561)
         if mode != "ragged":
-            raise ValueError(f"mode must be 'ragged' or 'two_lane', got "
-                             f"{mode!r}")
+            if self.kv_dtype == "int8":
+                raise ValueError("int8 KV pages require the ragged engine "
+                                 "(generation_engine_mode='ragged')")
+            if draft is not None and spec_tokens:
+                raise ValueError("speculative decoding requires the ragged "
+                                 "engine (generation_engine_mode='ragged')")
+            if prefix_cache:
+                raise ValueError("prefix caching requires the ragged engine "
+                                 "(generation_engine_mode='ragged')")
+            if adapter_store is not None:
+                raise ValueError(
+                    "adapter multiplexing requires the ragged engine "
+                    "(generation_engine_mode='ragged')")
         if draft is not None or spec_tokens:
             _not_ported("draft/spec_tokens")
         if prefix_cache:
             _not_ported("prefix_cache")
         if page_store is not None:
             _not_ported("page_store")
-        # precedence: parameter > flag
-        self.kv_dtype = str(kv_dtype if kv_dtype is not None
-                            else flag("generation_kv_dtype"))
-        if self.kv_dtype not in ("float32", "int8"):
-            raise ValueError(f"kv_dtype must be 'float32' (the model's "
-                             f"dtype) or 'int8'; got {self.kv_dtype!r}")
         self.quantize_weights = str(
             quantize_weights if quantize_weights is not None
             else flag("quantize_weights")) or "off"
@@ -338,10 +372,18 @@ class GenerationEngine:
         self.default_eos = eos_id
         self.chunk_tokens = max(2, int(chunk_tokens
                                        or flag("generation_chunk_tokens")))
-        if self.device.type == "cuda" and self.chunk_tokens > MAX_CHUNK:
+        if (mode == "ragged" and self.device.type == "cuda"
+                and self.chunk_tokens > MAX_CHUNK):
             raise ValueError(f"chunk_tokens {self.chunk_tokens} exceeds the "
                              f"ragged attention kernel's {MAX_CHUNK}")
         max_seq = int(config.max_position)
+        if prefill_buckets is None:
+            prefill_buckets = tuple(
+                int(x) for x in
+                str(flag("generation_prefill_buckets")).split(",") if x)
+        # the two_lane prefill ladder; max_position is always on it
+        self._seq_buckets = tuple(sorted(
+            {min(int(b), max_seq) for b in prefill_buckets} | {max_seq}))
         maxp = -(-max_seq // self.page_size)
         self.geom = CacheGeometry(num_pages=self.num_pages,
                                   page_size=self.page_size,
@@ -354,8 +396,18 @@ class GenerationEngine:
             device=self.device,
             dtype="int8" if self.kv_dtype == "int8" else lm.dtype)
         self.metrics = GenerationMetrics()
-        # THE step: one mixed prefill+decode model for the engine's life
-        self._step_model = RaggedStepModel(lm, self.geom, self.chunk_tokens)
+        # ragged: THE step, one mixed prefill+decode model for the
+        # engine's life; two_lane: the prefill and decode lanes. All
+        # share the predictor's modules (and so its quantized weights).
+        if mode == "ragged":
+            self._step_model = RaggedStepModel(lm, self.geom,
+                                               self.chunk_tokens)
+        else:
+            self._prefill_model = PrefillStepModel(
+                lm, self.geom,
+                use_flash=bool(getattr(config, "use_flash_attention",
+                                       False)))
+            self._decode_model = DecodeStepModel(lm, self.geom)
         # weight quantization: the model is shared with the caller's
         # predictor, so it is quantized once for both (a no-op check of
         # mode and block when the predictor already did at load)
@@ -552,9 +604,14 @@ class GenerationEngine:
                         if self._stop or (self._closed and not self._queue
                                           and not self._by_slot):
                             break
-                    self._admit_ragged()
-                    if self._by_slot:
-                        self._ragged_step()
+                    if self.mode == "ragged":
+                        self._admit_ragged()
+                        if self._by_slot:
+                            self._ragged_step()
+                    else:
+                        self._admit_and_prefill()
+                        if self._by_slot:
+                            self._decode_step()
                     self.metrics.set_gauges(len(self._queue),
                                             len(self._by_slot))
         finally:
@@ -616,6 +673,110 @@ class GenerationEngine:
                     "queue_wait_ms", (now - req.enqueue_t) * 1e3)
         return admitted
 
+    # -- two_lane: the prefill lane ------------------------------------------
+    def _seq_bucket(self, n: int) -> int:
+        for b in self._seq_buckets:
+            if n <= b:
+                return b
+        return self._seq_buckets[-1]
+
+    def _admit_and_prefill(self):
+        """Admitted requests prefill in one call per sequence bucket."""
+        admitted = self._pop_admissible()
+        if not admitted:
+            return
+        groups: Dict[int, List[_GenRequest]] = {}
+        for req in admitted:
+            groups.setdefault(self._seq_bucket(int(req.prompt.size)),
+                              []).append(req)
+        for bucket, reqs in sorted(groups.items()):
+            self._prefill(bucket, reqs)
+
+    def _prefill(self, bucket: int, reqs: List[_GenRequest]):
+        """One prefill call: the rows' prompts in a [n, bucket] window;
+        their K/V lands in the pool, and each row's first token is
+        sampled (TTFT). The rows then join the decode lanes."""
+        t0 = time.monotonic()
+        n = len(reqs)
+        tokens = np.zeros((n, bucket), np.int64)
+        num_valid = np.zeros(n, np.int32)
+        tables = np.zeros((n, self.geom.max_pages_per_seq), np.int32)
+        for i, req in enumerate(reqs):
+            L = int(req.prompt.size)
+            tokens[i, :L] = req.prompt
+            num_valid[i] = L
+            tables[i] = self.cache.block_tables[req.slot]
+        try:
+            dev = self.device
+            next_tok = self._prefill_model(
+                torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(num_valid).to(dev),
+                torch.from_numpy(tables).to(dev),
+                self.cache.k_pages, self.cache.v_pages).cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — a bad prompt batch must not kill the loop
+            for req in reqs:
+                self.cache.release(req.slot)
+                req.slot = None
+                req.stream._finish("error", ServingError(
+                    f"prefill execution failed: {e!r}"))
+            return
+        now = time.monotonic()
+        self.metrics.inc("prefill_batches_total")
+        self.metrics.inc("prefill_tokens_total", int(num_valid.sum()))
+        self.metrics.inc("prefill_rows_total", n)
+        self.metrics.observe("prefill_ms", (now - t0) * 1e3)
+        for i, req in enumerate(reqs):
+            self.cache.advance(req.slot, int(num_valid[i]))
+            self._by_slot[req.slot] = req
+            self._emit(req, int(next_tok[i]), now)
+
+    # -- two_lane: the decode lane -------------------------------------------
+    def _decode_step(self):
+        """One token for every active lane through the paged decode
+        attention; idle lanes are length-0 rows that write to the junk
+        page."""
+        R = self.lanes
+        now = time.monotonic()
+        self._retire_dead_rows(now)
+        if not self._by_slot:
+            return
+        for slot in list(self._by_slot):
+            if slot in self._by_slot:     # not evicted by an earlier row
+                self._grow_or_evict(slot)
+        if not self._by_slot:
+            return
+        tokens = np.zeros(R, np.int64)
+        positions = np.zeros(R, np.int32)
+        num_valid = np.zeros(R, np.int32)
+        lengths = np.zeros(R, np.int32)
+        for slot, req in self._by_slot.items():
+            L0 = int(self.cache.lengths[slot])
+            tokens[slot] = req.pending
+            positions[slot] = L0
+            num_valid[slot] = 1
+            lengths[slot] = L0 + 1
+        active = list(self._by_slot.items())
+        t0 = time.monotonic()
+        try:
+            dev = self.device
+            next_tok = self._decode_model(
+                *(torch.from_numpy(a).to(dev) for a in (
+                    tokens, positions, num_valid, lengths,
+                    np.ascontiguousarray(self.cache.block_tables))),
+                self.cache.k_pages, self.cache.v_pages).cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — a bad batch must not kill the loop
+            for slot, _req in active:
+                self._retire(slot, "error", ServingError(
+                    f"decode execution failed: {e!r}"))
+            return
+        now = time.monotonic()
+        self.metrics.observe_decode_step((now - t0) * 1e3, len(active), R,
+                                         tokens=len(active))
+        for slot, req in active:
+            self.cache.advance(slot)    # the pending token's K/V is cached
+            self._emit(req, int(next_tok[slot]), now)
+
+    # -- ragged ---------------------------------------------------------------
     def _admit_ragged(self):
         """An admitted request takes a lane + pages for its whole prompt
         and starts chunked prefill on the next step."""
@@ -814,10 +975,31 @@ class GenerationEngine:
 
     # -- warmup --------------------------------------------------------------
     def _warmup(self):
-        """Run a two-token request through the prefill-chunk and decode
-        phases of the step before serving traffic (first-call costs:
-        the kernel build and load, library handles), then reset the
-        metrics."""
+        """Run a two-token request through the engine's steps before
+        serving traffic (first-call costs: the kernel build and load,
+        library handles), then reset the metrics. Ragged: the
+        prefill-chunk and decode phases of the step; two_lane: a prefill
+        in every bucket of the ladder, each followed by a decode step."""
+        if self.mode == "two_lane":
+            with torch.inference_mode():
+                for bucket in self._seq_buckets:
+                    req = _GenRequest(np.asarray([0, 0], np.int64), 2, None,
+                                      None, GenerationStream(self))
+                    req.slot = self.cache.allocate_slot(2)
+                    slot = req.slot
+                    try:
+                        self._prefill(bucket, [req])
+                        if slot in self._by_slot:
+                            self._decode_step()
+                    finally:
+                        if slot in self._by_slot:
+                            self._retire(slot, "length")
+                        elif self.cache.is_active(slot):
+                            self.cache.release(slot)
+                    if req.stream.error is not None:
+                        raise req.stream.error
+            self.metrics = GenerationMetrics()
+            return
         slot = self.cache.allocate_slot(2)
         req = _GenRequest(np.asarray([0, 0], np.int64), 2, None, None,
                           GenerationStream(self))

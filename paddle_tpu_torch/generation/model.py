@@ -13,13 +13,28 @@ Counterparts of ``paddle_tpu/generation/model.py``:
   (``build_ragged_step_program``, :238): per layer layer_norm -> fused
   qkv -> kv_cache_write -> ragged_paged_attention -> proj/ffn, then the
   head and an argmax at every position.
+* ``PrefillStepModel`` / ``DecodeStepModel`` — the two lanes of the
+  two_lane engine (``build_prefill_program``, :187, and
+  ``build_decode_program``, :308). Prefill forwards a ``[n, bucket]``
+  prompt window with causal attention (the LM's plain attention, as
+  both JAX programs use ``nets.scaled_dot_product_attention``; the
+  flash kernel K6 when the config asks for ``use_flash_attention``),
+  writes the prompt rows' K/V into the pools and takes the greedy
+  token at each row's last true position. Decode runs one token a
+  lane: per layer ln -> qkv -> the in-place write of the new row -> the
+  paged decode attention (K13) over the pool -> proj/ffn, then the
+  head and the argmax. JAX runs the head over the whole ``[B, S, V]``
+  window and selects the last row with a one-hot product; the port
+  selects the row's hidden state first and runs the final layer norm
+  and the head on it alone (the same values row by row, without the
+  ``bucket x vocab`` logits).
 * ``load_jax_params`` — carries the JAX package's weights (the names of
   ``__params__.npz``) onto a ``GPTLM``.
 
 Every matmul of the model is a ``Dense`` named by its JAX weight
 (``dec0_qkv.w`` ...). ``quantize.rewrite_for_inference`` replaces them
 in place by ``QuantizedDense`` (int8 / int8_block / fp8 weight through
-the K11 kernel), so the predictor and the step, which share the
+the K11 kernel), so the predictor and the steps, which share the
 modules, share one set of quantized weights. The step's adapter seam
 (``adapters.rewrite_for_lora``, the ``batched_lora`` ops of the JAX
 ragged program) is a per-step ``LoraBatch`` handed down to the dense
@@ -48,13 +63,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import (batched_lora_add_, kv_cache_write, kv_write_targets,
-                       layer_norm, quantized_kv_cache_write, quantized_matmul,
+from ..kernels import (batched_lora_add_, flash_attention, kv_cache_write,
+                       kv_write_targets, layer_norm, paged_attention,
+                       quantized_kv_cache_write, quantized_matmul,
                        ragged_paged_attention)
 from ..models.gpt import GPTConfig
 
-__all__ = ["CacheGeometry", "GPTLM", "RaggedStepModel", "load_jax_params",
-           "GPTConfig", "LN_EPS", "Dense", "QuantizedDense", "LoraBatch"]
+__all__ = ["CacheGeometry", "GPTLM", "RaggedStepModel", "PrefillStepModel",
+           "DecodeStepModel", "load_jax_params", "GPTConfig", "LN_EPS",
+           "Dense", "QuantizedDense", "LoraBatch"]
 
 LN_EPS = 1e-5   # layers/nn.py layer_norm default
 
@@ -259,6 +276,20 @@ class GPTLM(nn.Module):
         nh = self.cfg.num_heads
         return t.reshape(*t.shape[:-1], nh, t.shape[-1] // nh)
 
+    def causal_attention(self, q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+        """Plain causal softmax attention over [B, S, H*D] q, k, v, as
+        ``nets.scaled_dot_product_attention`` writes it: -1e9 added above
+        the diagonal, then softmax. Returns [B, S, H*D]."""
+        B, S, h = q.shape
+        mask = torch.triu(torch.full((S, S), -1e9, device=q.device,
+                                     dtype=torch.float32), diagonal=1)
+        q, k, v = (self.split_heads(t).transpose(1, 2) for t in (q, k, v))
+        d = q.shape[-1]
+        logits = (q * d ** -0.5) @ k.transpose(-1, -2)
+        w = torch.softmax(logits.float() + mask, dim=-1).to(v.dtype)
+        return (w @ v).transpose(1, 2).reshape(B, S, h)
+
     @torch.inference_mode()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         B, S = tokens.shape
@@ -268,19 +299,10 @@ class GPTLM(nn.Module):
         tokens = tokens.to(self.device, torch.long)
         pos = torch.arange(S, device=self.device)
         x = self.tok_emb[tokens] + self.pos_emb[pos][None]
-        # nets.scaled_dot_product_attention's causal mask: -1e9 added
-        # above the diagonal
-        mask = torch.triu(torch.full((S, S), -1e9, device=self.device,
-                                     dtype=torch.float32), diagonal=1)
         h = self.cfg.hidden_size
         for lyr in self.layers:
             q, k, v = lyr.qkv(lyr.ln1(x)).split(h, dim=-1)
-            q, k, v = (self.split_heads(t).transpose(1, 2) for t in (q, k, v))
-            d = q.shape[-1]
-            logits = (q * d ** -0.5) @ k.transpose(-1, -2)
-            w = torch.softmax(logits.float() + mask, dim=-1).to(v.dtype)
-            ctx = (w @ v).transpose(1, 2).reshape(B, S, h)
-            x = lyr.proj_ffn(x, ctx)
+            x = lyr.proj_ffn(x, self.causal_attention(q, k, v))
         return self.head(self.lnf(x))
 
 
@@ -342,6 +364,89 @@ class RaggedStepModel(nn.Module):
             x = lyr.proj_ffn(x, ctx.reshape(R, C, h), lora)
         logits = lm.head(lm.lnf(x), lora)                         # [R, C, V]
         return torch.argmax(logits.reshape(R * C, -1), dim=-1)
+
+
+class PrefillStepModel(nn.Module):
+    """The two_lane engine's prefill lane over a ``GPTLM``'s weights
+    (shared). ``forward`` takes a ``[n, bucket]`` window of prompts
+    (row i holds ``num_valid[i]`` true tokens from position 0, then
+    padding), the rows' block tables and the per-layer pools; it writes
+    every true row's K/V into the pools in place and returns the greedy
+    next token of each row, [n] int64. ``use_flash`` attends with the
+    flash kernel (K6 on CUDA) instead of the plain causal attention."""
+
+    def __init__(self, lm: GPTLM, geom: CacheGeometry,
+                 use_flash: bool = False):
+        super().__init__()
+        self.lm = lm
+        self.geom = geom
+        self.use_flash = bool(use_flash)
+
+    def _attend(self, q, k, v):
+        if not self.use_flash:
+            return self.lm.causal_attention(q, k, v)
+        n, S, h = q.shape
+        q, k, v = (self.lm.split_heads(t).transpose(1, 2) for t in (q, k, v))
+        return flash_attention(q, k, v, causal=True).transpose(1, 2).reshape(
+            n, S, h)
+
+    @torch.inference_mode()
+    def forward(self, tokens: torch.Tensor, num_valid: torch.Tensor,
+                tables: torch.Tensor, k_pages: List[torch.Tensor],
+                v_pages: List[torch.Tensor]) -> torch.Tensor:
+        lm, cfg = self.lm, self.lm.cfg
+        n, S = tokens.shape
+        h = cfg.hidden_size
+        dev = tokens.device
+        x = lm.tok_emb[tokens] + lm.pos_emb[:S][None]             # [n, S, h]
+        positions = torch.zeros(n, dtype=torch.int32, device=dev)
+        targets = kv_write_targets(tables, positions, num_valid, S,
+                                   self.geom.page_size)
+        for i, lyr in enumerate(lm.layers):
+            q, k, v = lyr.qkv(lyr.ln1(x)).split(h, dim=-1)
+            kv_cache_write(k_pages[i], v_pages[i], lm.split_heads(k),
+                           lm.split_heads(v), tables, positions, num_valid,
+                           targets=targets)
+            x = lyr.proj_ffn(x, self._attend(q, k, v))
+        last = x[torch.arange(n, device=dev), num_valid.long() - 1]  # [n, h]
+        return torch.argmax(lm.head(lm.lnf(last)), dim=-1)
+
+
+class DecodeStepModel(nn.Module):
+    """The two_lane engine's decode lane over a ``GPTLM``'s weights
+    (shared): one token a lane. ``forward`` takes the lanes' pending
+    tokens [B], their positions (the current lengths) [B], ``num_valid``
+    [B] (1 for an active lane, 0 for an idle one, whose write goes to
+    the junk page), the lengths to attend ``lengths`` [B] (position + 1,
+    0 for an idle lane: a zero row), the block tables and the pools. It
+    writes each new row's K/V in place, attends through K13 and returns
+    the greedy next token of every lane, [B] int64."""
+
+    def __init__(self, lm: GPTLM, geom: CacheGeometry):
+        super().__init__()
+        self.lm = lm
+        self.geom = geom
+
+    @torch.inference_mode()
+    def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
+                num_valid: torch.Tensor, lengths: torch.Tensor,
+                tables: torch.Tensor, k_pages: List[torch.Tensor],
+                v_pages: List[torch.Tensor]) -> torch.Tensor:
+        lm, cfg = self.lm, self.lm.cfg
+        B = tokens.shape[0]
+        h = cfg.hidden_size
+        x = (lm.tok_emb[tokens] + lm.pos_emb[positions.long()])[:, None]
+        targets = kv_write_targets(tables, positions, num_valid, 1,
+                                   self.geom.page_size)
+        for i, lyr in enumerate(lm.layers):
+            q, k, v = lyr.qkv(lyr.ln1(x)).split(h, dim=-1)  # [B, 1, h]
+            kv_cache_write(k_pages[i], v_pages[i], lm.split_heads(k),
+                           lm.split_heads(v), tables, positions, num_valid,
+                           targets=targets)
+            ctx = paged_attention(lm.split_heads(q[:, 0]).contiguous(),
+                                  k_pages[i], v_pages[i], lengths, tables)
+            x = lyr.proj_ffn(x, ctx.reshape(B, 1, h))
+        return torch.argmax(lm.head(lm.lnf(x[:, 0])), dim=-1)
 
 
 def load_jax_params(module: GPTLM,

@@ -14,9 +14,11 @@ plain PyTorch version (the CPU path and the numerics oracle).
 | K2q | ``ragged_paged_attention_q`` | ``csrc/ragged_paged_attention.cu`` | ``kernels/ragged_paged_attention.py`` ``_ragged_pallas`` (quantized) |
 | K11 | ``quantized_matmul`` | ``csrc/quant_matmul.cu`` | ``kernels/quant_matmul.py`` ``_quant_matmul_pallas`` |
 | K12 | ``batched_lora_add_`` | ``csrc/lora.cu`` | ``kernels/lora.py`` ``_lora_delta_pallas`` |
+| K10m | ``fused_momentum_update`` | ``csrc/fused_optim.cu`` | ``kernels/fused_optim.py`` ``_run_fused`` + ``_momentum_kernel`` |
+| K13 | ``paged_attention`` | ``csrc/paged_attention.cu`` | ``kernels/paged_attention.py`` ``paged_attention`` (JAX's library Pallas kernel) |
 
-Still to port (ROADMAP B): K10m, the fused momentum body of the K10
-driver (A1), and K13, the two_lane engine's ``paged_attention`` (A5).
+Every function of the JAX package that reaches ``pl.pallas_call`` has
+its kernel here.
 
 ``kv_cache_write`` and ``quantized_kv_cache_write`` are plain
 ``index_put_`` (XLA scatters in JAX); ``quant.py`` (blockwise int8
@@ -29,14 +31,16 @@ from .flash_attention import (flash_attention, flash_attention_bwd,
                               flash_attention_bwd_plain, flash_attention_fwd,
                               flash_attention_fwd_plain, flash_attention_layer,
                               flash_attention_plain)
-from .fused_optim import fused_adam_update, fused_adam_update_plain
+from .fused_optim import (fused_adam_update, fused_adam_update_plain,
+                          fused_momentum_update, fused_momentum_update_plain)
 from .layer_norm import (fused_layer_norm, layer_norm, layer_norm_bwd,
                          layer_norm_bwd_plain, layer_norm_fwd,
                          layer_norm_fwd_plain, layer_norm_plain)
 from .lora import (batched_lora_add_, batched_lora_add_plain_,
                    batched_lora_delta, batched_lora_delta_plain,
                    batched_lora_matmul)
-from .paged_attention import kv_cache_write, kv_write_targets
+from .paged_attention import (kv_cache_write, kv_write_targets,
+                              paged_attention, paged_attention_plain)
 from .quant_matmul import (quantize_weight, quantized_matmul,
                            quantized_matmul_plain)
 from .ragged_paged_attention import (quantized_kv_cache_write,
@@ -62,7 +66,9 @@ __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_fwd",
            "quantized_kv_cache_write", "quantize_weight", "quantized_matmul",
            "quantized_matmul_plain", "batched_lora_add_",
            "batched_lora_add_plain_", "batched_lora_delta",
-           "batched_lora_delta_plain", "batched_lora_matmul", "KERNELS",
+           "batched_lora_delta_plain", "batched_lora_matmul",
+           "fused_momentum_update", "fused_momentum_update_plain",
+           "paged_attention", "paged_attention_plain", "KERNELS",
            "reset_launch_counts", "launch_counts"]
 
 # the launch-counted wrappers, by kernel name (layer_norm_fwd counts in
@@ -77,7 +83,9 @@ KERNELS = {"layer_norm": layer_norm,
            "flash_attention_bwd": flash_attention_bwd,
            "ragged_paged_attention_q": ragged_paged_attention_q,
            "quantized_matmul": quantized_matmul,
-           "batched_lora_add_": batched_lora_add_}
+           "batched_lora_add_": batched_lora_add_,
+           "fused_momentum_update": fused_momentum_update,
+           "paged_attention": paged_attention}
 
 
 def reset_launch_counts() -> None:

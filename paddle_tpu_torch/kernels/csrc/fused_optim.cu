@@ -1,4 +1,5 @@
-// One-pass Adam / AdamW update, in place, for Hopper (sm_90a) (K10).
+// One-pass optimizer updates, in place, for Hopper (sm_90a): Adam /
+// AdamW (K10) and momentum (K10m).
 //
 // Replaces the pallas_call of paddle_tpu/kernels/fused_optim.py
 // (_run_fused, pallas_call at :153) with its Adam body _adam_kernel (:93):
@@ -20,8 +21,19 @@
 // 7 * n * itemsize bytes. One flat grid-stride pass with 16-byte loads
 // and stores when every pointer is 16-byte aligned (the panel padding of
 // the TPU kernel is a Mosaic layout rule and has no counterpart here),
-// a scalar tail otherwise. The momentum body (_momentum_kernel, :117)
-// shares that pallas_call but is off this path: it is still to port.
+// a scalar tail otherwise.
+//
+// K10m, the momentum body of the same pallas_call (_momentum_kernel,
+// :117):
+//   g    = g * clip_scale          (rounded to the param dtype if not f32)
+//   vel' = mu * vel + g
+//   p'   = p - lr * vel'           (nesterov: p - lr * (g + mu * vel'))
+// in float32, rounded once to the param dtype at the end, as the TPU
+// kernel does. lr and the clip scale are read on the device; mu comes
+// from the host. The same grid-stride driver, 16-byte vectors and _rn
+// intrinsics (no fma contraction of mu * vel + g), so the kernel equals
+// the plain version bit for bit. Bound: memory, p, g, vel read and p, vel
+// written, 5 * n * itemsize bytes.
 
 #include "common.cuh"
 
@@ -125,8 +137,69 @@ __global__ void adam_kernel(T* __restrict__ p, const T* __restrict__ g,
   }
 }
 
+// K10m's update of one element: the rounding order of the plain version.
+template <typename T>
+__device__ __forceinline__ void momentum_one(float lr, float clip, float mu,
+                                             bool nesterov, T& p, T g, T& v) {
+  const float pf = pt::to_float(p);
+  float gf = __fmul_rn(pt::to_float(g), clip);
+  gf = pt::to_float(pt::from_float<T>(gf));
+  const float vf = __fadd_rn(__fmul_rn(mu, pt::to_float(v)), gf);
+  const float upd = nesterov
+                        ? __fmul_rn(lr, __fadd_rn(gf, __fmul_rn(mu, vf)))
+                        : __fmul_rn(lr, vf);
+  p = pt::from_float<T>(__fsub_rn(pf, upd));
+  v = pt::from_float<T>(vf);
+}
+
+template <typename T>
+__global__ void momentum_kernel(T* __restrict__ p, const T* __restrict__ g,
+                                T* __restrict__ v,
+                                const float* __restrict__ lr_p,
+                                const float* __restrict__ clip_p, int64_t n,
+                                float mu, bool nesterov, bool vec) {
+  const float lr = lr_p[0];
+  const float clip = clip_p != nullptr ? clip_p[0] : 1.f;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  int64_t done = 0;
+  if (vec) {
+    constexpr int N = Vec16<T>::N;
+    using V = typename Vec16<T>::type;
+    const int64_t nv = n / N;
+    V* pv = reinterpret_cast<V*>(p);
+    const V* gv = reinterpret_cast<const V*>(g);
+    V* vv = reinterpret_cast<V*>(v);
+    for (int64_t j = i; j < nv; j += stride) {
+      V P = pv[j], W = vv[j];
+      const V G = gv[j];
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        momentum_one(lr, clip, mu, nesterov, P.v[k], G.v[k], W.v[k]);
+      pv[j] = P;
+      vv[j] = W;
+    }
+    done = nv * N;
+  }
+  for (int64_t j = done + i; j < n; j += stride) {
+    T P = p[j], W = v[j];
+    momentum_one(lr, clip, mu, nesterov, P, g[j], W);
+    p[j] = P;
+    v[j] = W;
+  }
+}
+
 bool aligned16(const void* q) {
   return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+}
+
+// Blocks of the grid-stride pass: one 16-byte vector a thread, at most
+// 32 blocks an SM.
+unsigned grid_blocks(long long n, int dtype) {
+  const int per_thread = dtype == pt::kFloat32 ? 4 : 8;
+  int64_t blocks = (n / per_thread + kThreads - 1) / kThreads;
+  blocks = blocks < 1 ? 1 : (blocks > 132 * 32 ? 132 * 32 : blocks);
+  return static_cast<unsigned>(blocks);
 }
 
 }  // namespace
@@ -144,28 +217,58 @@ extern "C" int pt_fused_adam(void* p, const void* g, void* m, void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = aligned16(p) && aligned16(g) && aligned16(m) &&
                    aligned16(v);
-  const int per_thread = dtype == pt::kFloat32 ? 4 : 8;
-  int64_t blocks = (n / per_thread + kThreads - 1) / kThreads;
-  blocks = blocks < 1 ? 1 : (blocks > 132 * 32 ? 132 * 32 : blocks);
+  const unsigned blocks = grid_blocks(n, dtype);
   const float* lrp = static_cast<const float*>(lr);
   const float* b1 = static_cast<const float*>(b1p);
   const float* b2 = static_cast<const float*>(b2p);
   const float* cl = static_cast<const float*>(clip);
   switch (dtype) {
     case pt::kFloat32:
-      adam_kernel<float><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      adam_kernel<float><<<blocks, kThreads, 0, s>>>(
           static_cast<float*>(p), static_cast<const float*>(g),
           static_cast<float*>(m), static_cast<float*>(v), lrp, b1, b2, cl, n,
           beta1, beta2, one_minus_b1, one_minus_b2, eps, coeff, vec);
       break;
     case pt::kBFloat16:
       adam_kernel<__nv_bfloat16>
-          <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+          <<<blocks, kThreads, 0, s>>>(
               static_cast<__nv_bfloat16*>(p),
               static_cast<const __nv_bfloat16*>(g),
               static_cast<__nv_bfloat16*>(m), static_cast<__nv_bfloat16*>(v),
               lrp, b1, b2, cl, n, beta1, beta2, one_minus_b1, one_minus_b2,
               eps, coeff, vec);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10m. p, g, v: n contiguous elements of one dtype; p and v updated in
+// place. lr: float32 [1] on the device; clip: float32 [1] or null
+// (scale 1); nesterov: 0 or 1.
+extern "C" int pt_fused_momentum(void* p, const void* g, void* v,
+                                 const void* lr, const void* clip,
+                                 long long n, float mu, int nesterov,
+                                 int dtype, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = aligned16(p) && aligned16(g) && aligned16(v);
+  const unsigned blocks = grid_blocks(n, dtype);
+  const float* lrp = static_cast<const float*>(lr);
+  const float* cl = static_cast<const float*>(clip);
+  switch (dtype) {
+    case pt::kFloat32:
+      momentum_kernel<float><<<blocks, kThreads, 0, s>>>(
+          static_cast<float*>(p), static_cast<const float*>(g),
+          static_cast<float*>(v), lrp, cl, n, mu, nesterov != 0, vec);
+      break;
+    case pt::kBFloat16:
+      momentum_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+          static_cast<__nv_bfloat16*>(p),
+          static_cast<const __nv_bfloat16*>(g),
+          static_cast<__nv_bfloat16*>(v), lrp, cl, n, mu, nesterov != 0,
+          vec);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

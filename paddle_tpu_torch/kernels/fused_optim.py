@@ -1,5 +1,6 @@
-"""One-pass Adam / AdamW update in place: the CUDA kernel of
-``csrc/fused_optim.cu`` (K10) and its plain PyTorch version.
+"""One-pass optimizer updates in place: the CUDA kernels of
+``csrc/fused_optim.cu``, Adam / AdamW (K10) and momentum (K10m), each
+beside its plain PyTorch version.
 
 Replaces ``paddle_tpu/kernels/fused_optim.py`` ``_run_fused`` (:134,
 ``pallas_call`` at :153) with its Adam body ``_adam_kernel`` (:93), as
@@ -22,9 +23,23 @@ fused and unfused paths agree bit for bit (the kernel keeps that order
 of roundings too, in float32).
 
 Bound on the H100: memory, ``7 * n * itemsize`` bytes (p, g, m, v read;
-p, m, v written). The momentum body of the same TPU pallas_call
-(``_momentum_kernel``, :117) is off the training slice's path and still
-to port (K10m).
+p, m, v written).
+
+K10m replaces the momentum body of the same TPU pallas_call
+(``_momentum_kernel``, :117), as the ``fused_momentum`` op reaches it:
+
+    g    = g * clip_scale   (then rounded to the param dtype)
+    vel' = mu * vel + g
+    p'   = p - lr * vel'    (nesterov: p - lr * (g + mu * vel'))
+
+p and vel are updated in place; lr and the clip scale are float32
+tensors on the parameter's device. The plain version is, in float32, op
+for op the reference's ``_reference_momentum`` (:196-205), the unfused
+``momentum`` op's chain; for a bfloat16 parameter it computes in float32
+and rounds once at the end, as the TPU kernel does. The CUDA kernel
+keeps that order of roundings, so it equals the plain version bit for
+bit in both dtypes. Bound: memory, ``5 * n * itemsize`` bytes (p, g, vel
+read; p, vel written).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. There is no fallback from one to the other.
@@ -38,7 +53,8 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_adam_update", "fused_adam_update_plain"]
+__all__ = ["fused_adam_update", "fused_adam_update_plain",
+           "fused_momentum_update", "fused_momentum_update_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,9 +83,9 @@ def fused_adam_update_plain(p, g, m1, m2, lr, beta1_pow, beta2_pow, *,
     m2.copy_(m2n)
 
 
-def _scalar(name, t, device):
+def _scalar(name, t, device, what="fused_adam_update"):
     if t.numel() != 1 or t.dtype != torch.float32 or t.device != device:
-        raise ValueError(f"fused_adam_update: {name} must be one float32 "
+        raise ValueError(f"{what}: {name} must be one float32 "
                          f"value on {device}, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
 
@@ -127,3 +143,66 @@ def fused_adam_update(p: torch.Tensor, g: torch.Tensor, m1: torch.Tensor,
 
 
 fused_adam_update.launches = 0
+
+
+def fused_momentum_update_plain(p, g, vel, lr, *, mu=0.9, use_nesterov=False,
+                                clip_scale=None) -> None:
+    """The plain PyTorch version, written back into p and vel: in
+    float32 ``_reference_momentum``'s chain of ops; a bfloat16 parameter
+    is updated in float32 and rounded once, as the TPU kernel does."""
+    lr = lr.reshape(())
+    g = g.float()
+    if clip_scale is not None:
+        g = g * clip_scale.reshape(())
+    g = g.to(p.dtype).float()
+    vel_new = mu * vel.float() + g
+    if use_nesterov:
+        p_new = p.float() - lr * (g + mu * vel_new)
+    else:
+        p_new = p.float() - lr * vel_new
+    p.copy_(p_new)
+    vel.copy_(vel_new)
+
+
+def fused_momentum_update(p: torch.Tensor, g: torch.Tensor,
+                          vel: torch.Tensor, lr: torch.Tensor, *,
+                          mu: float = 0.9, use_nesterov: bool = False,
+                          clip_scale: Optional[torch.Tensor] = None) -> None:
+    """Update p and vel in place by one momentum step. p, g, vel share a
+    shape and a dtype (float32 or bfloat16); lr and the optional
+    clip_scale are float32 one-element tensors on the same device. CPU
+    tensors run the plain version; CUDA tensors run K10m, counted in
+    ``fused_momentum_update.launches``."""
+    what = "fused_momentum_update"
+    for name, t in (("g", g), ("vel", vel)):
+        if t.shape != p.shape or t.device != p.device:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} on "
+                             f"{t.device}, p {tuple(p.shape)} on {p.device}")
+    _scalar("lr", lr, p.device, what)
+    if clip_scale is not None:
+        _scalar("clip_scale", clip_scale, p.device, what)
+    if p.device.type == "cpu":
+        fused_momentum_update_plain(p, g, vel, lr, mu=mu,
+                                    use_nesterov=use_nesterov,
+                                    clip_scale=clip_scale)
+        return
+    if p.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {p.device}")
+    code = _DTYPES.get(p.dtype)
+    if code is None or g.dtype != p.dtype or vel.dtype != p.dtype:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16 p, g, vel "
+                        f"of one dtype; got {[p.dtype, g.dtype, vel.dtype]}")
+    if not all(t.is_contiguous() for t in (p, g, vel)):
+        raise ValueError(f"{what} kernel takes contiguous tensors")
+    lib = _build.library()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = lib.pt_fused_momentum(
+            p.data_ptr(), g.data_ptr(), vel.data_ptr(), lr.data_ptr(),
+            clip_scale.data_ptr() if clip_scale is not None else None,
+            p.numel(), float(mu), int(bool(use_nesterov)), code, stream)
+    _build.check(err, what)
+    fused_momentum_update.launches += 1
+
+
+fused_momentum_update.launches = 0

@@ -1,4 +1,23 @@
-"""KV page-pool write (``kv_cache_write``), in place.
+"""Paged decode attention (K13) and the KV page-pool write
+(``kv_cache_write``, in place).
+
+``paged_attention`` replaces ``paddle_tpu/kernels/paged_attention.py``
+``paged_attention`` (:104), the two_lane engine's decode read, which on
+a TPU wraps JAX's library Pallas kernel
+``jax.experimental.pallas.ops.tpu.paged_attention`` (:127). Here it is
+the CUDA kernel of ``csrc/paged_attention.cu`` beside its plain PyTorch
+version. One query row per sequence, q [B, H, D], attends the first
+``lengths[b]`` keys of its sequence through the block table
+``page_indices[b]`` over pools [KVH, P, ps, D]; grouped-query heads read
+kv head ``h // (H // KVH)``; a length-0 row gives zeros. The JAX
+wrapper's fallback (a Mosaic failure logs a warning and returns the
+reference) is not carried over: a build or launch failure raises.
+
+Bound on the H100: memory, the K/V rows the lengths attend
+(``sum_b min(len_b, maxp * ps) * D * itemsize * 2 * KVH`` bytes) plus
+q and out. The kernel's design (one block per (sequence, head), its
+warps splitting the keys, online softmax in float32 registers, a fixed
+merge order) is described in the CUDA source.
 
 Counterpart of ``paddle_tpu/kernels/paged_attention.py:153-184``, a
 plain XLA scatter there and plain ``index_put_`` here: neither is a
@@ -8,17 +27,123 @@ saves a copy of every layer's pool each step. Rows past ``num_valid``
 (batch padding, idle lanes) are routed to slot 0 of the junk page 0,
 exactly as in JAX, so they can never touch a live sequence's page.
 
-(The two_lane ``paged_attention`` read, TPU kernel K13 in PERF.md, is
-not ported yet.)
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
+the kernel or raises. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["kv_cache_write", "kv_write_targets"]
+from . import _build
+
+__all__ = ["kv_cache_write", "kv_write_targets", "paged_attention",
+           "paged_attention_plain"]
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_attention_plain(q, k_pages, v_pages, lengths, page_indices,
+                          sm_scale: Optional[float] = None) -> torch.Tensor:
+    """The plain PyTorch version, op for op the reference's
+    ``_reference_paged_attention`` (:56-85): gather each sequence's
+    pages into a contiguous window, scale q in float32, mask keys at or
+    past the length with -1e30, float32 softmax; a length-0 row is
+    zeros."""
+    B, H, D = q.shape
+    KVH, _P, ps, _ = k_pages.shape
+    maxp = page_indices.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    idx = page_indices.long()
+    # [KVH, B, maxp, ps, D] -> [B, KVH, maxp * ps, D]
+    k = k_pages[:, idx].permute(1, 0, 2, 3, 4).reshape(B, KVH, maxp * ps, D)
+    v = v_pages[:, idx].permute(1, 0, 2, 3, 4).reshape(B, KVH, maxp * ps, D)
+    if KVH != H:   # grouped-query: repeat KV heads over the query groups
+        k = k.repeat_interleave(H // KVH, dim=1)
+        v = v.repeat_interleave(H // KVH, dim=1)
+    s = torch.einsum("bhd,bhkd->bhk", q.float() * scale, k.float())
+    valid = (torch.arange(maxp * ps, device=q.device)[None, :]
+             < lengths.long()[:, None])                           # [B, K]
+    s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhk,bhkd->bhd", p, v.float())
+    o = torch.where(lengths[:, None, None] > 0, o, torch.zeros_like(o))
+    return o.to(q.dtype)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, lengths: torch.Tensor,
+                    page_indices: torch.Tensor, *,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Decode-step attention over paged K/V.
+
+    q: [B, H, D]; k_pages, v_pages: [KVH, P, ps, D] (q's dtype, float32
+    or bfloat16); lengths: [B] int32, the keys each row attends (the row
+    just written included); page_indices: [B, maxp] int32. Returns
+    [B, H, D] in q's dtype; the default scale is 1/sqrt(D). CPU tensors
+    run ``paged_attention_plain``; CUDA tensors run K13, counted in
+    ``paged_attention.launches``."""
+    if q.dim() != 3 or k_pages.dim() != 4:
+        raise ValueError("paged_attention takes q [B, H, D] and pages "
+                         "[KVH, P, ps, D]")
+    B, H, D = q.shape
+    KVH, P, ps, _ = k_pages.shape
+    if tuple(v_pages.shape) != tuple(k_pages.shape) or k_pages.shape[3] != D:
+        raise ValueError(
+            f"pages {tuple(k_pages.shape)} / {tuple(v_pages.shape)} do not "
+            f"match q {tuple(q.shape)}")
+    if KVH < 1 or H % KVH:
+        raise ValueError(f"{H} query heads are not a multiple of {KVH} kv "
+                         "heads")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be [B] = [{B}], got "
+                         f"{tuple(lengths.shape)}")
+    if page_indices.dim() != 2 or page_indices.shape[0] != B:
+        raise ValueError("page_indices must be [B, max_pages]")
+    for name, t in (("lengths", lengths), ("page_indices", page_indices)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    for t in (k_pages, v_pages, lengths, page_indices):
+        if t.device != q.device:
+            raise ValueError(f"all inputs must be on {q.device}; one is on "
+                             f"{t.device}")
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, lengths,
+                                     page_indices, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    code = _DTYPES.get(q.dtype)
+    if code is None or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(
+            f"paged_attention kernel takes float32 or bfloat16 q and pages "
+            f"of one dtype; got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention kernel takes D <= {MAX_HEAD_DIM}, "
+                         f"got {D}")
+    if not all(t.is_contiguous()
+               for t in (q, k_pages, v_pages, lengths, page_indices)):
+        raise ValueError("paged_attention kernel takes contiguous tensors")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pt_paged_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
+            B, H, D, KVH, P, ps, page_indices.shape[1], float(scale), code,
+            stream)
+    _build.check(err, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0
 
 
 def kv_write_targets(page_indices: torch.Tensor, positions: torch.Tensor,

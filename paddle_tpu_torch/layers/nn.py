@@ -1,8 +1,11 @@
 """Neural-network layers: the port's copies of the functions of
-``paddle_tpu/layers/nn.py`` that the training path calls (Fluid's
-python/paddle/fluid/layers/nn.py). Each function emits ops into the
-default main program and sets output shapes itself, exactly as the
-reference does, so both packages build the same program.
+``paddle_tpu/layers/nn.py`` that the training paths call (Fluid's
+python/paddle/fluid/layers/nn.py): the GPT and BERT layers, the image
+layers of ResNet (``conv2d``, ``pool2d``, ``batch_norm``, ``relu``) and
+what ``clip.py`` emits (the unary math, ``elementwise_max`` / ``_min``,
+``clip``, ``clip_by_norm``). Each function emits ops into the default
+main program and sets output shapes itself, exactly as the reference
+does, so both packages build the same program.
 """
 
 from __future__ import annotations
@@ -10,12 +13,16 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.framework import Variable
-from ..initializer import ConstantInitializer, XavierInitializer
+from ..initializer import (ConstantInitializer, NormalInitializer,
+                           XavierInitializer)
 from ..layer_helper import LayerHelper
 
 __all__ = [
     "fc",
     "embedding",
+    "conv2d",
+    "pool2d",
+    "batch_norm",
     "layer_norm",
     "dropout",
     "softmax",
@@ -33,6 +40,17 @@ __all__ = [
     "unsqueeze",
     "split",
     "reduce_sum",
+    "relu",
+    "sqrt",
+    "square",
+    "abs",
+    "reciprocal",
+    "elementwise_max",
+    "elementwise_min",
+    "fill_constant_like",
+    "clip",
+    "clip_by_norm",
+    "topk",
 ]
 
 
@@ -122,6 +140,204 @@ def embedding(
         },
     )
     return out
+
+
+def _conv_out_size(i, k, p, s, d=1):
+    if i is None or i < 0:
+        return -1
+    ke = d * (k - 1) + 1
+    return (i + 2 * p - ke) // s + 1
+
+
+def conv2d(
+    input,
+    num_filters,
+    filter_size,
+    stride=1,
+    padding=0,
+    dilation=1,
+    groups=1,
+    param_attr=None,
+    bias_attr=None,
+    use_cudnn=True,
+    act=None,
+    name=None,
+    data_format="NCHW",
+):
+    """Reference layers/nn.py conv2d: filter [num_filters, C / groups,
+    kh, kw] with He-normal init, an optional bias added on the channel
+    axis, then the activation."""
+    helper = LayerHelper(
+        "conv2d", param_attr=param_attr, bias_attr=bias_attr, act=act, name=name
+    )
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"conv2d: data_format must be NCHW/NHWC, "
+                         f"got {data_format!r}")
+    if data_format == "NCHW":
+        n, c, h, w_ = input.shape
+    else:
+        n, h, w_, c = input.shape
+    fs = filter_size if isinstance(filter_size, (list, tuple)) else [filter_size] * 2
+    st = stride if isinstance(stride, (list, tuple)) else [stride] * 2
+    pd = padding if isinstance(padding, (list, tuple)) else [padding] * 2
+    dl = dilation if isinstance(dilation, (list, tuple)) else [dilation] * 2
+    filter_shape = [num_filters, c // groups, fs[0], fs[1]]
+    std = (2.0 / (fs[0] * fs[1] * c)) ** 0.5
+    filt = helper.create_parameter(
+        helper.param_attr,
+        filter_shape,
+        input.dtype,
+        default_initializer=NormalInitializer(0.0, std),
+    )
+    oh = _conv_out_size(h, fs[0], pd[0], st[0], dl[0])
+    ow = _conv_out_size(w_, fs[1], pd[1], st[1], dl[1])
+    out_shape = ((n, num_filters, oh, ow) if data_format == "NCHW"
+                 else (n, oh, ow, num_filters))
+    out = _out(helper, input, shape=out_shape)
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": [input], "Filter": [filt]},
+        outputs={"Output": [out]},
+        attrs={
+            "strides": list(st),
+            "paddings": list(pd),
+            "dilations": list(dl),
+            "groups": groups,
+            "data_format": data_format,
+        },
+    )
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(
+            helper.bias_attr, [num_filters], input.dtype, is_bias=True
+        )
+        out2 = _out(helper, out, shape=out.shape)
+        helper.append_op(
+            type="elementwise_add",
+            inputs={"X": [out], "Y": [b]},
+            outputs={"Out": [out2]},
+            attrs={"axis": 1 if data_format == "NCHW" else 3},
+        )
+        out = out2
+    return helper.append_activation(out)
+
+
+def pool2d(
+    input,
+    pool_size=-1,
+    pool_type="max",
+    pool_stride=1,
+    pool_padding=0,
+    global_pooling=False,
+    use_cudnn=True,
+    ceil_mode=False,
+    name=None,
+    exclusive=True,
+    data_format="NCHW",
+):
+    helper = LayerHelper("pool2d", name=name)
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"pool2d: data_format must be NCHW/NHWC, "
+                         f"got {data_format!r}")
+    if data_format == "NCHW":
+        n, c, h, w_ = input.shape
+    else:
+        n, h, w_, c = input.shape
+    ks = pool_size if isinstance(pool_size, (list, tuple)) else [pool_size] * 2
+    st = pool_stride if isinstance(pool_stride, (list, tuple)) else [pool_stride] * 2
+    pd = pool_padding if isinstance(pool_padding, (list, tuple)) else [pool_padding] * 2
+    if global_pooling:
+        out_shape = (n, c, 1, 1) if data_format == "NCHW" else (n, 1, 1, c)
+    else:
+        oh = _conv_out_size(h, ks[0], pd[0], st[0])
+        ow = _conv_out_size(w_, ks[1], pd[1], st[1])
+        out_shape = ((n, c, oh, ow) if data_format == "NCHW"
+                     else (n, oh, ow, c))
+    out = _out(helper, input, shape=out_shape)
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "pooling_type": pool_type,
+            "ksize": list(ks),
+            "strides": list(st),
+            "paddings": list(pd),
+            "global_pooling": global_pooling,
+            "ceil_mode": ceil_mode,
+            "exclusive": exclusive,
+            "data_format": data_format,
+        },
+    )
+    return out
+
+
+def batch_norm(
+    input,
+    act=None,
+    is_test=False,
+    momentum=0.9,
+    epsilon=1e-5,
+    param_attr=None,
+    bias_attr=None,
+    data_layout="NCHW",
+    name=None,
+    moving_mean_name=None,
+    moving_variance_name=None,
+    do_model_average_for_mean_and_var=False,
+    use_global_stats=False,
+):
+    """Reference layers/nn.py batch_norm: scale and bias parameters,
+    running mean and variance as persistables that the op's MeanOut and
+    VarianceOut write back in place (same names)."""
+    helper = LayerHelper(
+        "batch_norm", param_attr=param_attr, bias_attr=bias_attr, act=act, name=name
+    )
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(
+        helper.param_attr, [c], input.dtype, default_initializer=ConstantInitializer(1.0)
+    )
+    bias = helper.create_parameter(helper.bias_attr, [c], input.dtype, is_bias=True)
+    from ..core.framework import unique_name
+
+    mean_name = moving_mean_name or unique_name.generate(f"{helper.name}.mean")
+    var_name = moving_variance_name or unique_name.generate(f"{helper.name}.var")
+    gb = helper.main_program.global_block()
+    mean = gb.create_var(
+        name=mean_name, shape=[c], dtype=input.dtype, persistable=True, stop_gradient=True
+    )
+    variance = gb.create_var(
+        name=var_name, shape=[c], dtype=input.dtype, persistable=True, stop_gradient=True
+    )
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    saved_mean = _out(helper, input, shape=(c,), stop_gradient=True)
+    saved_var = _out(helper, input, shape=(c,), stop_gradient=True)
+    out = _out(helper, input, shape=input.shape)
+    helper.append_op(
+        type="batch_norm",
+        inputs={
+            "X": [input],
+            "Scale": [scale],
+            "Bias": [bias],
+            "Mean": [mean],
+            "Variance": [variance],
+        },
+        outputs={
+            "Y": [out],
+            "MeanOut": [mean],
+            "VarianceOut": [variance],
+            "SavedMean": [saved_mean],
+            "SavedVariance": [saved_var],
+        },
+        attrs={
+            "momentum": momentum,
+            "epsilon": epsilon,
+            "is_test": is_test,
+            "data_layout": data_layout,
+            "use_global_stats": use_global_stats,
+        },
+    )
+    return helper.append_activation(out)
 
 
 def layer_norm(
@@ -270,6 +486,43 @@ elementwise_add = _make_elementwise("elementwise_add")
 elementwise_sub = _make_elementwise("elementwise_sub")
 elementwise_mul = _make_elementwise("elementwise_mul")
 elementwise_div = _make_elementwise("elementwise_div")
+elementwise_max = _make_elementwise("elementwise_max")
+elementwise_min = _make_elementwise("elementwise_min")
+
+
+def _make_activation(op_type, extra_defaults=None):
+    def act_fn(x, name=None, **kwargs):
+        helper = LayerHelper(op_type, name=name)
+        attrs = dict(extra_defaults or {})
+        for k, v in kwargs.items():
+            attrs[k] = v
+        out = _out(helper, x, shape=x.shape)
+        helper.append_op(
+            type=op_type, inputs={"X": [x]}, outputs={"Out": [out]}, attrs=attrs
+        )
+        return out
+
+    act_fn.__name__ = op_type
+    return act_fn
+
+
+relu = _make_activation("relu")
+sqrt = _make_activation("sqrt")
+square = _make_activation("square")
+abs = _make_activation("abs")
+reciprocal = _make_activation("reciprocal")
+
+
+def fill_constant_like(x, value):
+    """A constant of x's (static) shape and dtype; the reference's
+    batch-size-like branch for a dynamic shape is not ported."""
+    from .tensor import fill_constant
+
+    if x.shape and any(d in (-1, None) for d in x.shape):
+        raise NotImplementedError(
+            "fill_constant_like of a dynamic shape needs "
+            "fill_constant_batch_size_like, not ported yet (ROADMAP A11)")
+    return fill_constant(list(x.shape or ()), x.dtype, value)
 
 
 def reduce_sum(input, dim=None, keep_dim=False, name=None):
@@ -318,6 +571,41 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
         attrs={"scale": float(scale), "bias": float(bias), "bias_after_scale": bias_after_scale},
     )
     return helper.append_activation(out)
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = _out(helper, x, shape=x.shape)
+    helper.append_op(
+        type="clip", inputs={"X": [x]}, outputs={"Out": [out]}, attrs={"min": min, "max": max}
+    )
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    """Composite, as the reference: x * min(1, max_norm / ||x||)."""
+    norm_sq = reduce_sum(square(x))
+    norm = sqrt(norm_sq)
+    factor = elementwise_min(
+        scale(reciprocal(elementwise_max(norm, fill_constant_like(norm, 1e-12))), scale=float(max_norm)),
+        fill_constant_like(norm, 1.0),
+    )
+    return elementwise_mul(x, factor, axis=-1)
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    shp = tuple(input.shape or ())
+    out_shape = shp[:-1] + (k,) if shp else None
+    vals = _out(helper, input, shape=out_shape)
+    idx = _out(helper, input, shape=out_shape, dtype="int64", stop_gradient=True)
+    helper.append_op(
+        type="top_k",
+        inputs={"X": [input]},
+        outputs={"Out": [vals], "Indices": [idx]},
+        attrs={"k": k},
+    )
+    return vals, idx
 
 
 # --------------------------------------------------------------------------

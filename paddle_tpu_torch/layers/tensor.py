@@ -5,12 +5,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core.framework import (Variable, default_main_program,
+from ..core.framework import (Variable, convert_dtype, default_main_program,
                               default_startup_program, unique_name)
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_global_var", "assign"]
+__all__ = ["create_global_var", "assign", "fill_constant", "sums"]
 
 
 def create_global_var(shape, value, dtype, persistable=False, force_cpu=False, name=None):
@@ -51,3 +51,29 @@ def assign(input, output=None):
             },
         )
     return output
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    dtype = convert_dtype(dtype)
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=dtype, shape=tuple(shape), stop_gradient=True
+        )
+    helper.append_op(
+        type="fill_constant",
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": dtype, "value": float(value)},
+    )
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    xs = list(input)
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=xs[0].dtype, shape=xs[0].shape
+        )
+    helper.append_op(type="sum", inputs={"X": xs}, outputs={"Out": [out]})
+    return out

@@ -53,6 +53,8 @@ _register_elementwise("elementwise_add", lambda x, y: x + y)
 _register_elementwise("elementwise_sub", lambda x, y: x - y)
 _register_elementwise("elementwise_mul", lambda x, y: x * y)
 _register_elementwise("elementwise_div", lambda x, y: x / y)
+_register_elementwise("elementwise_min", torch.minimum)
+_register_elementwise("elementwise_max", torch.maximum)
 
 
 @register_op("matmul", inputs=("X", "Y"), outputs=("Out",))
@@ -142,3 +144,26 @@ def _scale(ctx, op, ins):
 def _gelu(ctx, op, ins):
     approximate = "tanh" if op.attrs.get("approximate", False) else "none"
     return {"Out": [F.gelu(ins["X"][0], approximate=approximate)]}
+
+
+# -- activations and unary math (``paddle_tpu/ops/math.py:159-173``) ----------
+
+
+def _register_unary(name, fn):
+    @register_op(name, inputs=("X",), outputs=("Out",))
+    def _lower(ctx, op, ins, _fn=fn):
+        return {"Out": [_fn(ins["X"][0])]}
+
+
+_register_unary("relu", F.relu)
+_register_unary("sqrt", torch.sqrt)
+_register_unary("square", torch.square)
+_register_unary("abs", torch.abs)
+_register_unary("reciprocal", lambda x: 1.0 / x)
+
+
+@register_op("clip", inputs=("X",), outputs=("Out",))
+def _clip(ctx, op, ins):
+    """``paddle_tpu/ops/math.py:243``: jnp.clip(x, min, max)."""
+    return {"Out": [torch.clamp(ins["X"][0], op.attrs.get("min"),
+                                op.attrs.get("max"))]}

@@ -1,12 +1,21 @@
-"""NN ops: softmax, layer_norm (kernels K1/K3),
-softmax_with_cross_entropy (kernels K4/K5) and flash_attention (kernels
-K6-K9) — torch lowerings with the semantics of ``paddle_tpu/ops/nn.py``
-and ``paddle_tpu/kernels/flash_attention.py``."""
+"""NN ops: conv2d, pool2d, batch_norm, softmax, layer_norm (kernels
+K1/K3), softmax_with_cross_entropy (kernels K4/K5), clip_by_norm and
+flash_attention (kernels K6-K9) — torch lowerings with the semantics of
+``paddle_tpu/ops/nn.py`` and ``paddle_tpu/kernels/flash_attention.py``.
+
+The JAX package computes convolutions, pooling and batch norm outside
+any Pallas kernel (``lax.conv_general_dilated``, ``reduce_window`` and
+jnp), so their lowerings here are ``F.conv2d``, ``F.max_pool2d`` /
+``F.avg_pool2d`` and ``F.batch_norm`` (cuDNN on the card), as plain
+matmuls are ``torch.matmul``. Both layouts are taken: NCHW as it is,
+NHWC moved to channels-first around the call (filters are OIHW in
+both, as in the reference)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register_op
 from ..kernels.flash_attention import NEG_INF, flash_attention
@@ -117,3 +126,121 @@ def _flash_attention_op(ctx, op, ins):
     o = flash_attention(split(q), split(k), split(v), causal, None,
                         mask=mask, bias=bias)
     return {"Out": [o.transpose(1, 2).reshape(B, S, HD)]}
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return [int(x) for x in v]
+    return [int(v), int(v)]
+
+
+def _nchw(x, fmt):
+    return x if fmt == "NCHW" else x.permute(0, 3, 1, 2)
+
+
+def _from_nchw(x, fmt):
+    return x if fmt == "NCHW" else x.permute(0, 2, 3, 1)
+
+
+@register_op("conv2d", inputs=("Input", "Filter", "Bias"),
+             outputs=("Output",))
+def _conv2d(ctx, op, ins):
+    """``paddle_tpu/ops/nn.py:28``: strides, symmetric paddings,
+    dilations and groups; filters OIHW. (The reference's SAME / VALID
+    padding algorithms and four-sided paddings, which no ported layer
+    emits, are not ported.)"""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    fmt = op.attrs.get("data_format", "NCHW")
+    if op.attrs.get("padding_algorithm", "EXPLICIT") != "EXPLICIT":
+        raise NotImplementedError(
+            "conv2d: padding_algorithm SAME / VALID is not ported yet "
+            "(ROADMAP A11)")
+    out = F.conv2d(_nchw(x, fmt), w,
+                   stride=_pair(op.attrs.get("strides", [1, 1])),
+                   padding=_pair(op.attrs.get("paddings", [0, 0])),
+                   dilation=_pair(op.attrs.get("dilations", [1, 1])),
+                   groups=int(op.attrs.get("groups", 1)))
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0].reshape(1, -1, 1, 1)
+    return {"Output": [_from_nchw(out, fmt)]}
+
+
+@register_op("pool2d", inputs=("X",), outputs=("Out",))
+def _pool2d(ctx, op, ins):
+    """``paddle_tpu/ops/nn.py:150``: max or average over windows
+    (``ceil_mode`` is ignored there too), global pooling over the whole
+    plane. An average over a padded window divides by the window's
+    count of real elements when ``exclusive``, else by its size."""
+    x = ins["X"][0]
+    fmt = op.attrs.get("data_format", "NCHW")
+    if op.attrs.get("adaptive", False):
+        raise NotImplementedError("adaptive pool2d is not ported yet "
+                                  "(ROADMAP A11)")
+    ptype = op.attrs.get("pooling_type", "max")
+    xc = _nchw(x, fmt)
+    if op.attrs.get("global_pooling", False):
+        ksize, strides, pads = list(xc.shape[2:]), list(xc.shape[2:]), [0, 0]
+    else:
+        ksize = _pair(op.attrs.get("ksize", [2, 2]))
+        strides = _pair(op.attrs.get("strides", [2, 2]))
+        pads = _pair(op.attrs.get("paddings", [0, 0]))
+    if ptype == "max":
+        out = F.max_pool2d(xc, ksize, strides, pads)
+    else:
+        out = F.avg_pool2d(
+            xc, ksize, strides, pads,
+            count_include_pad=not bool(op.attrs.get("exclusive", True)))
+    return {"Out": [_from_nchw(out, fmt)]}
+
+
+@register_op("batch_norm",
+             inputs=("X", "Scale", "Bias", "Mean", "Variance"),
+             outputs=("Y", "MeanOut", "VarianceOut", "SavedMean",
+                      "SavedVariance"),
+             no_grad=("Mean", "Variance"))
+def _batch_norm(ctx, op, ins):
+    """``paddle_tpu/ops/nn.py:331-377``. Training normalises with the
+    batch mean and the BIASED batch variance (``jnp.var``) and returns
+    ``MeanOut = momentum * mean + (1 - momentum) * batch_mean``,
+    ``VarianceOut`` likewise from the biased variance, ``SavedMean`` and
+    ``SavedVariance = 1 / sqrt(var + eps)``. ``F.batch_norm`` without
+    running buffers normalises exactly so (its own running update would
+    take the unbiased variance), so it makes Y and its gradient, and
+    the statistics outputs are computed here as the reference does.
+    ``is_test`` / ``use_global_stats`` normalise with Mean and Variance
+    and pass them through."""
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = float(op.attrs.get("epsilon", 1e-5))
+    momentum = float(op.attrs.get("momentum", 0.9))
+    is_test = bool(op.attrs.get("is_test", False)) or bool(
+        op.attrs.get("use_global_stats", False))
+    ch = 1 if op.attrs.get("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    xc = x.movedim(ch, 1)
+    if is_test:
+        y = F.batch_norm(xc, mean, var, scale, bias, training=False, eps=eps)
+        return {"Y": [y.movedim(1, ch)], "MeanOut": [mean],
+                "VarianceOut": [var], "SavedMean": [mean],
+                "SavedVariance": [var]}
+    y = F.batch_norm(xc, None, None, scale, bias, training=True, eps=eps)
+    out = {"Y": [y.movedim(1, ch)]}
+    with torch.no_grad():
+        axes = tuple(i for i in range(x.dim()) if i != ch)
+        bvar, bmean = torch.var_mean(x, dim=axes, correction=0)
+        out["MeanOut"] = [momentum * mean + (1 - momentum) * bmean]
+        out["VarianceOut"] = [momentum * var + (1 - momentum) * bvar]
+        out["SavedMean"] = [bmean]
+        if ctx.wants(op, "SavedVariance"):
+            out["SavedVariance"] = [1.0 / torch.sqrt(bvar + eps)]
+    return out
+
+
+@register_op("clip_by_norm", inputs=("X",), outputs=("Out",))
+def _clip_by_norm(ctx, op, ins):
+    """``paddle_tpu/ops/nn.py:1017``: x scaled to L2 norm ``max_norm``
+    when its norm is larger."""
+    x = ins["X"][0]
+    mn = float(op.attrs.get("max_norm", 1.0))
+    norm = torch.sqrt(torch.sum(x * x))
+    return {"Out": [torch.where(norm > mn, x * (mn / norm), x)]}

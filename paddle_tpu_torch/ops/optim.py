@@ -1,22 +1,78 @@
-"""Optimizer update ops: the unfused ``adam`` chain (semantics of
-``paddle_tpu/ops/optim.py:133``) and the one-pass ``fused_adam`` /
-``fused_adamw`` (``paddle_tpu/kernels/fused_optim.py:345-433``) over the
-K10 kernel. Output names alias the inputs (ParamOut = Param), and the
-Executor writes them back to the scope; the fused ops update p, m1 and
-m2 in place (the beta pows too, with plain torch), the unfused op
-returns new tensors."""
+"""Optimizer update ops: the unfused ``sgd``, ``momentum`` and ``adam``
+chains (semantics of ``paddle_tpu/ops/optim.py:65-108, :133``) and the
+one-pass ``fused_adam`` / ``fused_adamw`` / ``fused_momentum``
+(``paddle_tpu/kernels/fused_optim.py:345-475``) over the K10 and K10m
+kernels. Output names alias the inputs (ParamOut = Param), and the
+Executor writes them back to the scope; the fused ops update their
+state in place (the beta pows too, with plain torch), the unfused ops
+return new tensors. Gradients are dense: a SelectedRows gradient
+(``is_sparse`` embeddings) is ROADMAP A1."""
 
 from __future__ import annotations
 
 import torch
 
 from ..core.registry import register_op
-from ..kernels.fused_optim import fused_adam_update
+from ..kernels.fused_optim import fused_adam_update, fused_momentum_update
 
 _ADAM_INS = ("Param", "Grad", "LearningRate", "Moment1", "Moment2",
              "Beta1Pow", "Beta2Pow")
 _ADAM_OUTS = ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
               "Beta2PowOut")
+
+
+def _dense(ins):
+    """The Grad tensor; anything else (a SelectedRows gradient) is not
+    ported."""
+    g = ins["Grad"][0]
+    if not isinstance(g, torch.Tensor):
+        raise NotImplementedError(
+            f"a {type(g).__name__} gradient is not ported to "
+            "paddle_tpu_torch yet (SelectedRows, ROADMAP A1)")
+    return g
+
+
+def _lr(ins):
+    return ins["LearningRate"][0].reshape(())
+
+
+@register_op("sgd", inputs=("Param", "Grad", "LearningRate"),
+             outputs=("ParamOut",), stop_gradient=True)
+def _sgd(ctx, op, ins):
+    p = ins["Param"][0]
+    return {"ParamOut": [p - _lr(ins) * _dense(ins).to(p.dtype)]}
+
+
+def _momentum_attrs(op):
+    return (float(op.attrs.get("mu", 0.9)),
+            bool(op.attrs.get("use_nesterov", False)))
+
+
+@register_op("momentum", inputs=("Param", "Grad", "Velocity", "LearningRate"),
+             outputs=("ParamOut", "VelocityOut"), stop_gradient=True)
+def _momentum(ctx, op, ins):
+    p, v, g = ins["Param"][0], ins["Velocity"][0], _dense(ins)
+    mu, nesterov = _momentum_attrs(op)
+    lr = _lr(ins)
+    v_new = mu * v + g
+    if nesterov:
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    return {"ParamOut": [p_new], "VelocityOut": [v_new]}
+
+
+@register_op("fused_momentum",
+             inputs=("Param", "Grad", "Velocity", "LearningRate",
+                     "ClipScale"),
+             outputs=("ParamOut", "VelocityOut"), stop_gradient=True)
+def _fused_momentum(ctx, op, ins):
+    p, v, g = ins["Param"][0], ins["Velocity"][0], _dense(ins)
+    mu, nesterov = _momentum_attrs(op)
+    clip = ins["ClipScale"][0] if ins.get("ClipScale") else None
+    fused_momentum_update(p, g.contiguous(), v, ins["LearningRate"][0],
+                          mu=mu, use_nesterov=nesterov, clip_scale=clip)
+    return {"ParamOut": [p], "VelocityOut": [v]}
 
 
 def _attrs(op):
@@ -26,11 +82,11 @@ def _attrs(op):
 
 @register_op("adam", inputs=_ADAM_INS, outputs=_ADAM_OUTS, stop_gradient=True)
 def _adam(ctx, op, ins):
-    p, g = ins["Param"][0], ins["Grad"][0]
+    p, g = ins["Param"][0], _dense(ins)
     m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
     b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
     beta1, beta2, eps = _attrs(op)
-    lr = ins["LearningRate"][0].reshape(())
+    lr = _lr(ins)
     lr_t = lr * torch.sqrt(1 - b2p.reshape(())) / (1 - b1p.reshape(()))
     g = g.to(p.dtype)
     m1n = beta1 * m1 + (1 - beta1) * g
@@ -47,7 +103,7 @@ def _adam(ctx, op, ins):
 
 
 def _lower_fused_adam(ctx, op, ins, default_coeff):
-    p, g = ins["Param"][0], ins["Grad"][0]
+    p, g = ins["Param"][0], _dense(ins)
     m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
     b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
     beta1, beta2, eps = _attrs(op)

@@ -153,3 +153,17 @@ def _lookup_table_grad(ctx, op, ins):
                                          device=flat_g.device), flat_g)
     wg = torch.zeros_like(w).index_add_(0, flat_ids, flat_g.to(w.dtype))
     return {"W@GRAD": [wg]}
+
+
+@register_op("top_k", inputs=("X",), outputs=("Out", "Indices"))
+def _top_k(ctx, op, ins):
+    """``paddle_tpu/ops/tensor.py:330``: the k largest along the last
+    axis, largest first, with int64 indices."""
+    vals, idx = torch.topk(ins["X"][0], int(op.attrs.get("k", 1)), dim=-1)
+    return {"Out": [vals], "Indices": [idx]}
+
+
+@register_op("sign", inputs=("X",), outputs=("Out",))
+def _sign(ctx, op, ins):
+    """``paddle_tpu/ops/tensor.py:500``."""
+    return {"Out": [torch.sign(ins["X"][0])]}

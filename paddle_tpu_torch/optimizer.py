@@ -1,14 +1,23 @@
-"""Optimizers: the port's copy of ``Optimizer`` and ``AdamOptimizer``
-of ``paddle_tpu/optimizer.py`` (:66-292, :500-592; Fluid's
-python/paddle/fluid/optimizer.py). Each optimizer appends per-parameter
-update ops plus state-accumulator vars initialized in the startup
-program, with the same names and attrs as the reference, and
-AdamOptimizer emits ``fused_adam`` or ``adam`` exactly when the
-reference does (the ``optimizer_fuse`` flag).
+"""Optimizers: the port's copy of ``Optimizer``, ``SGDOptimizer``,
+``MomentumOptimizer`` and ``AdamOptimizer`` of ``paddle_tpu/optimizer.py``
+(:66-366, :500-592; Fluid's python/paddle/fluid/optimizer.py). Each
+optimizer appends per-parameter update ops plus state-accumulator vars
+initialized in the startup program, with the same names and attrs as
+the reference. Adam and Momentum emit the one-pass ``fused_adam`` /
+``fused_momentum`` (kernels K10 / K10m on CUDA) or the unfused chain
+exactly when the reference does (the ``optimizer_fuse`` flag).
 
-Not ported yet (ROADMAP A1): gradient clipping (``clip.py``, whose
-global-norm scale the fused op takes as ``ClipScale``), regularization
-(``regularizer.py``), the other optimizer classes and the dygraph path.
+``apply_gradients`` has the reference's clip / regularization seam
+(:167-210): with the fused op active, a ``GradientClipByGlobalNorm``
+(the optimizer's ``grad_clip`` or ``clip.set_gradient_clip``'s), no
+per-parameter clip and no regularizer, the global-norm factor folds
+into the fused op's ``ClipScale`` operand; otherwise the clip ops
+(``clip.py``) and the weight-decay ops (``regularizer.py``) rewrite the
+gradients first and the update consumes the rewritten ones.
+
+Not ported yet (ROADMAP A1): the other optimizer classes (Adagrad,
+Adamax, RMSProp, Lamb, LarsMomentum, ...), refused by name, and the
+dygraph path.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from __future__ import annotations
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
+from . import clip as clip_mod
 from .core.backward import append_backward
 from .core.framework import (
     OpRole,
@@ -27,14 +37,28 @@ from .core.framework import (
 from .flags import optimizer_fuse_enabled
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
+from .regularizer import append_regularization_ops
 
-__all__ = ["Optimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
+           "MomentumOptimizer", "Adam", "AdamOptimizer"]
+
+# the reference's other optimizer classes (paddle_tpu/optimizer.py
+# __all__), refused by name until they are ported
+_NOT_PORTED = ("Adagrad", "Adamax", "Dpsgd", "DecayedAdagrad", "Adadelta",
+               "RMSProp", "Ftrl", "Lamb", "LarsMomentum")
 
 
-def _not_ported(what: str, module: str):
-    raise NotImplementedError(
-        f"{what} is not ported to paddle_tpu_torch yet ({module}, "
-        "ROADMAP A1)")
+def __getattr__(name):
+    base = name[:-len("Optimizer")] if name.endswith("Optimizer") else name
+    if base in _NOT_PORTED or name in ("DGCMomentumOptimizer",
+                                       "ExponentialMovingAverage",
+                                       "ModelAverage", "RecomputeOptimizer",
+                                       "LookaheadOptimizer",
+                                       "PipelineOptimizer"):
+        raise NotImplementedError(
+            f"optimizer.{name} is not ported to paddle_tpu_torch yet "
+            "(ROADMAP A1: the other optimizer classes)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class Optimizer:
@@ -45,10 +69,6 @@ class Optimizer:
         name=None,
         grad_clip=None,
     ):
-        if grad_clip is not None:
-            _not_ported("grad_clip", "clip.py")
-        if regularization is not None:
-            _not_ported("regularization", "regularizer.py")
         self._learning_rate = learning_rate
         self.regularization = regularization
         self._grad_clip = grad_clip
@@ -56,6 +76,7 @@ class Optimizer:
         self._accumulators: Dict[str, Dict[str, Variable]] = defaultdict(dict)
         self._lr_var: Optional[Variable] = None
         self._fuse_active = False
+        self._fused_clip_scale: Optional[Variable] = None
         self.type = getattr(self, "type", "sgd")
         self.helper = None
 
@@ -141,12 +162,32 @@ class Optimizer:
 
     def apply_gradients(self, params_grads) -> List:
         params_grads = sorted(params_grads, key=lambda pg: pg[0].name)
-        for p, _ in params_grads:
-            if getattr(p, "gradient_clip_attr", None) is not None:
-                _not_ported("a per-parameter gradient_clip", "clip.py")
-            if getattr(p, "regularizer", None) is not None:
-                _not_ported("a per-parameter regularizer", "regularizer.py")
+        # fused one-pass update: a global-norm clip with nothing else
+        # rewriting the grads folds into the fused ops' ClipScale (the
+        # norm reduction stays ops; the per-grad multiply moves inside
+        # the K10 / K10m pass). Any other rewrite (per-param clip attrs,
+        # regularizers) keeps the clip/reg chain, and the fused op then
+        # consumes the rewritten grads as the unfused one does.
         self._fuse_active = self._fusion_active(params_grads)
+        self._fused_clip_scale = None
+        effective_clip = self._grad_clip or clip_mod._global_clip
+        can_fold_clip = (
+            self._fuse_active
+            and isinstance(effective_clip, clip_mod.GradientClipByGlobalNorm)
+            and not any(getattr(p, "gradient_clip_attr", None)
+                        for p, _ in params_grads)
+            and self.regularization is None
+            and not any(getattr(p, "regularizer", None)
+                        for p, _ in params_grads)
+        )
+        if can_fold_clip:
+            self._fused_clip_scale = effective_clip._append_scale_op(
+                params_grads)
+        else:
+            params_grads = clip_mod.append_gradient_clip_ops(
+                params_grads, self._grad_clip)
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
 
         block = default_main_program().global_block()
         self._create_accumulators(block, [pg[0] for pg in params_grads])
@@ -168,11 +209,56 @@ class Optimizer:
         grad_clip=None,
     ) -> Tuple[List, List[Tuple[Variable, Variable]]]:
         if grad_clip is not None:
-            _not_ported("grad_clip", "clip.py")
+            self._grad_clip = grad_clip
         self._create_global_learning_rate()
         params_grads = self.backward(loss, startup_program, parameter_list, no_grad_set)
         opt_ops = self.apply_gradients(params_grads)
         return opt_ops, params_grads
+
+
+class SGDOptimizer(Optimizer):
+    type = "sgd"
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        return block.append_op(
+            type="sgd",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._create_param_lr(p)]},
+            outputs={"ParamOut": [p]},
+        )
+
+
+class MomentumOptimizer(Optimizer):
+    type = "momentum"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        v = self._get_accumulator("velocity", p)
+        inputs = {"Param": [p], "Grad": [g], "Velocity": [v],
+                  "LearningRate": [self._create_param_lr(p)]}
+        if self._fuse_active:
+            # the one-pass update (K10m on CUDA) over the same velocity
+            if self._fused_clip_scale is not None:
+                inputs["ClipScale"] = [self._fused_clip_scale]
+            op_type = "fused_momentum"
+        else:
+            op_type = "momentum"
+        return block.append_op(
+            type=op_type,
+            inputs=inputs,
+            outputs={"ParamOut": [p], "VelocityOut": [v]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+        )
 
 
 class AdamOptimizer(Optimizer):
@@ -206,8 +292,10 @@ class AdamOptimizer(Optimizer):
             "Beta2Pow": [b2p],
         }
         # the one-pass fused update (the K10 kernel on CUDA) runs over
-        # the SAME accumulator vars as the unfused op; a folded
-        # global-norm clip would add a ClipScale input (clip.py)
+        # the SAME accumulator vars as the unfused op, with the folded
+        # global-norm clip as its ClipScale
+        if self._fuse_active and self._fused_clip_scale is not None:
+            inputs["ClipScale"] = [self._fused_clip_scale]
         return block.append_op(
             type="fused_adam" if self._fuse_active else "adam",
             inputs=inputs,
@@ -223,5 +311,7 @@ class AdamOptimizer(Optimizer):
         )
 
 
-# reference-compatible alias
+# reference-compatible aliases
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -262,12 +262,11 @@ def test_cancel_and_deadline_retire_requests(port_pred):
     assert eng.stats()["cache"]["pages_in_use"] == 0
 
 
-# kv_dtype="int8", quantize_weights and adapter_store are ported (see
-# tests/test_torch_{int8_kv,quant,adapters}.py); with an option that is
-# not, they are still refused
+# kv_dtype="int8", quantize_weights, adapter_store and mode="two_lane"
+# are ported (see tests/test_torch_{int8_kv,quant,adapters,two_lane}.py);
+# with an option that is not, they are still refused
 @pytest.mark.parametrize("option", [
-    dict(mode="two_lane"), dict(spec_tokens=3, draft=object()),
-    dict(kv_dtype="int8", mode="two_lane"), dict(prefix_cache=True),
+    dict(spec_tokens=3, draft=object()), dict(prefix_cache=True),
     dict(quantize_weights="int8", prefix_cache=True),
     dict(page_store=object()),
     dict(adapter_store=object(), page_store=object())])
@@ -275,6 +274,28 @@ def test_options_not_ported_yet_are_refused(port_pred, option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GenerationEngine(port_pred, port_pred.gpt_config, start=False,
                          **option)
+
+
+# what the JAX engine does with these: two_lane constructs, and int8 KV
+# pages with two_lane raise its ValueError
+@pytest.mark.parametrize("option,error", [
+    (dict(mode="two_lane"), None),
+    (dict(kv_dtype="int8", mode="two_lane"), ValueError)])
+def test_two_lane_options_behave_as_in_jax(port_pred, jax_pred, option,
+                                           error):
+    if error is None:
+        JaxEngine(jax_pred, CFG, start=False, **option).close()
+        eng = GenerationEngine(port_pred, port_pred.gpt_config, start=False,
+                               **option)
+        assert eng.mode == "two_lane"
+        eng.close()
+        return
+    with pytest.raises(error, match="ragged engine") as jerr:
+        JaxEngine(jax_pred, CFG, start=False, **option)
+    with pytest.raises(error) as terr:
+        GenerationEngine(port_pred, port_pred.gpt_config, start=False,
+                         **option)
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_engine_refuses_a_config_that_is_not_the_model(port_pred):

@@ -618,3 +618,131 @@ def test_quantized_adapter_engine_on_cuda_matches_cpu(cuda):
                 counts["batched_lora_add_"],
                 counts["ragged_paged_attention"]) == want
     assert out["cuda"] == out["cpu"]
+
+
+# -- K10m (fused momentum), K13 (paged decode attention), two_lane, ResNet ---------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,clip,nesterov,off", [(512 * 512 * 9, None, False, 0),
+                                                 (2048 * 1000, 0.37, True, 0),
+                                                 (4097, 2.5, False, 0),
+                                                 (8191, 0.5, True, 1)])
+def test_fused_momentum_kernel_matches_plain(cuda, n, clip, nesterov, off,
+                                             dtype):
+    """Bit for bit in both dtypes: the kernel and the plain version
+    update in float32 in the same order and round once; off=1 starts
+    the tensors 4 bytes past 16-byte alignment (the scalar path)."""
+    g = torch.Generator(device=cuda).manual_seed(n % 1000 + off)
+
+    def make(std):
+        t = std * torch.randn(n + off, device=cuda, generator=g)
+        return t.to(dtype)[off:]
+
+    state = [make(1.0), make(0.1), make(0.05)]
+    plain = [t.clone() for t in state]
+    f32 = lambda v: torch.tensor([v], device=cuda)  # noqa: E731
+    kw = dict(mu=0.9, use_nesterov=nesterov,
+              clip_scale=None if clip is None else f32(clip))
+    before = K.fused_momentum_update.launches
+    K.fused_momentum_update(*state, f32(0.025), **kw)
+    K.fused_momentum_update_plain(*plain, f32(0.025), **kw)
+    torch.cuda.synchronize()
+    assert K.fused_momentum_update.launches == before + 1
+    assert torch.equal(state[0], plain[0]) and torch.equal(state[2], plain[2])
+
+
+# (B, H, KVH, D, ps, P, maxp, lengths)
+PAGED = {
+    "decode_8_lanes": (8, 16, 16, 128, 16, 512, 64,
+                       [49, 0, 800, 17, 1, 768, 33, 256]),
+    "gqa_4_of_16": (4, 16, 4, 128, 16, 64, 8, [1, 16, 127, 128]),
+    "odd_dims": (3, 6, 3, 40, 8, 30, 5, [0, 13, 40]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED))
+def test_paged_attention_kernel_matches_plain(cuda, case, dtype):
+    B, H, KVH, D, ps, P, maxp, lengths = PAGED[case]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(B, H, D, device=cuda, generator=g).to(dtype)
+    kp = torch.randn(KVH, P, ps, D, device=cuda, generator=g).to(dtype)
+    vp = torch.randn(KVH, P, ps, D, device=cuda, generator=g).to(dtype)
+    perm = torch.randperm(P - 1, device=cuda, generator=g) + 1
+    tables = perm.repeat(B * maxp // (P - 1) + 1)[:B * maxp].reshape(
+        B, maxp).to(torch.int32).contiguous()
+    lens = torch.tensor(lengths, device=cuda, dtype=torch.int32)
+    before = K.paged_attention.launches
+    got = K.paged_attention(q, kp, vp, lens, tables)
+    want = K.paged_attention_plain(q, kp, vp, lens, tables)
+    torch.cuda.synchronize()
+    assert K.paged_attention.launches == before + 1
+    torch.testing.assert_close(got, want, **TOL[dtype])
+    assert bool((got[lens == 0] == 0).all())
+
+
+def test_two_lane_engine_on_cuda_matches_cpu(cuda):
+    cfg = GPTConfig(vocab_size=97, hidden_size=64, num_layers=2, num_heads=4,
+                    ffn_size=128, max_position=64, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    params = _tiny_params(cfg, seed=1)
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, cfg.vocab_size, n) for n in (9, 23, 4, 14)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pred = create_predictor(Config().set_params(cfg, params), dev)
+        with GenerationEngine(pred, cfg, mode="two_lane", page_size=4,
+                              num_pages=24, max_decode_batch=3,
+                              prefill_buckets=(8, 16, 32)) as eng:
+            K.reset_launch_counts()
+            streams = [eng.submit(p, max_new_tokens=10) for p in prompts]
+            out[dev] = [s.result(timeout=300) for s in streams]
+            st = eng.stats()
+        counts = K.launch_counts()
+        steps = st["decode_steps_total"]
+        if dev == "cuda":
+            assert counts["paged_attention"] == cfg.num_layers * steps
+            assert counts["ragged_paged_attention"] == 0
+        eng.cache.check_integrity()
+    assert out["cuda"] == out["cpu"]
+
+
+def test_tiny_resnet_momentum_on_cuda_matches_cpu(cuda):
+    """A full-depth ResNet-50 at 32 x 32, batch 8, three fused Momentum +
+    L2Decay steps on the card (K10m, K4, K5; cuDNN with TF32 off) and on
+    the CPU from the same parameters: the first loss within rtol 1e-4 and
+    161 K10m launches a step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import load_scope_arrays
+    from paddle_tpu_torch.models.resnet import (build_resnet50,
+                                                synthetic_image_batch)
+
+    fluid.set_flags({"optimizer_fuse": "on"})
+    try:
+        with fluid.unique_name.guard():
+            main, startup, _, fetches = build_resnet50(
+                10, 32, fluid.optimizer.MomentumOptimizer(
+                    0.01, 0.9, regularization=fluid.regularizer.L2Decay(1e-4)))
+        cpu_scope = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu_scope)
+        arrays = {n: cpu_scope.get_numpy(n) for n in cpu_scope.local_var_names()}
+        batch = synthetic_image_batch(np.random.RandomState(0), 8, 32, 10)
+        losses = {}
+        for place, dev in ((fluid.CUDAPlace(0), "cuda"),
+                           (fluid.CPUPlace(), "cpu")):
+            scope = fluid.Scope()
+            load_scope_arrays(scope, arrays, main, dev)
+            exe = fluid.Executor(place)
+            K.reset_launch_counts()
+            losses[dev] = [float(exe.run(main, feed=batch,
+                                         fetch_list=[fetches["loss"]],
+                                         scope=scope)[0]) for _ in range(3)]
+            if dev == "cuda":
+                assert K.fused_momentum_update.launches == 161 * 3
+                assert K.softmax_xent_fwd.launches == 3
+        assert np.all(np.isfinite(losses["cuda"]))
+        np.testing.assert_allclose(losses["cuda"][0], losses["cpu"][0],
+                                   rtol=1e-4)
+    finally:
+        fluid.set_flags({"optimizer_fuse": "auto"})

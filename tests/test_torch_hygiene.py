@@ -96,7 +96,14 @@ def test_port_package_imports_no_jax_or_paddle_tpu():
                 "paddle_tpu_torch.adapters.rewrite",
                 "paddle_tpu_torch.kernels.quant_matmul",
                 "paddle_tpu_torch.kernels.lora",
-                "paddle_tpu_torch.kernels.quant"):
+                "paddle_tpu_torch.kernels.quant",
+                # Momentum / ResNet-50 and the two_lane engine
+                "paddle_tpu_torch.clip",
+                "paddle_tpu_torch.regularizer",
+                "paddle_tpu_torch.models.resnet",
+                "paddle_tpu_torch.ops.metrics",
+                "paddle_tpu_torch.layers.metric_op",
+                "paddle_tpu_torch.kernels.paged_attention"):
         assert mod in res["port"]
 
 

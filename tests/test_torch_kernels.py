@@ -245,6 +245,14 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     scales = torch.ones(kp.shape[:3])
     K.ragged_paged_attention(t(q), kq, kq, t(st), t(nv), t(tb),
                              k_scales=scales, v_scales=scales)
+    # and the Momentum / two_lane slice's
+    K.fused_momentum_update(x, y, x.clone(), one, mu=0.9, use_nesterov=True,
+                            clip_scale=0.5 * one)
+    lens = torch.tensor([3, 0], dtype=torch.int32)
+    tabs = torch.tensor([[1, 2], [0, 0]], dtype=torch.int32)
+    pq, pk = torch.ones(2, 4, 8), torch.ones(2, 3, 2, 8)
+    assert torch.equal(K.paged_attention(pq, pk, pk, lens, tabs),
+                       K.paged_attention_plain(pq, pk, pk, lens, tabs))
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
     assert K.flash_attention_bwd.kernel_launches == {"delta": 0, "dq": 0,
                                                      "dkv": 0}
@@ -252,7 +260,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
         "layer_norm", "ragged_paged_attention", "layer_norm_bwd",
         "softmax_xent_fwd", "softmax_xent_bwd", "fused_adam_update",
         "flash_attention_fwd", "flash_attention_bwd",
-        "ragged_paged_attention_q", "quantized_matmul", "batched_lora_add_"])
+        "ragged_paged_attention_q", "quantized_matmul", "batched_lora_add_",
+        "fused_momentum_update", "paged_attention"])
 
 
 def test_wrappers_refuse_other_devices_instead_of_falling_back():
@@ -311,10 +320,12 @@ def test_build_sources_and_hash(tmp_path, monkeypatch):
     the sources: an edit gives a new hash (a rebuild)."""
     names = [p.name for p in _build.sources()]
     assert names == ["flash_attention.cu", "fused_optim.cu", "layer_norm.cu",
-                     "lora.cu", "quant_matmul.cu",
+                     "lora.cu", "paged_attention.cu", "quant_matmul.cu",
                      "ragged_paged_attention.cu", "softmax_xent.cu"]
     # every C entry the wrappers bind is declared with its argtypes
-    for src, entries in (("fused_optim.cu", ["pt_fused_adam"]),
+    for src, entries in (("fused_optim.cu", ["pt_fused_adam",
+                                             "pt_fused_momentum"]),
+                         ("paged_attention.cu", ["pt_paged_attention"]),
                          ("flash_attention.cu", [
                              "pt_flash_attention_fwd",
                              "pt_flash_attention_bwd_delta",

@@ -323,7 +323,7 @@ def test_port_registers_the_training_path_ops(fuse_flag):
             for op in program.global_block().ops:
                 assert registry.has_op(op.type), op.type
     with pytest.raises(NotImplementedError, match="no registered lowering"):
-        registry.get_op_def("conv2d")
+        registry.get_op_def("conv2d_transpose")
 
 
 def test_no_gpu_means_no_executor():
