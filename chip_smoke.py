@@ -20,9 +20,14 @@ Phases, in order; any failure exits non-zero without the result line:
    function, beside the least time the card could take (``bound_ms``).
    Flash attention (K6-K9) at the gpt3_1p3b and BERT-large shapes, at
    S = 4096, S = 1000, with a fully masked row and with the four bias
-   shapes (dbias checked too); SDPA is its yardstick. The quantized
-   serving kernels at the serving step's 128 rows: K11 (int8,
-   int8_block at block 256, fp8) on qkv, ffn2, the head and a K of 2000;
+   shapes (dbias checked too); SDPA is its yardstick; two backwards must
+   give the same bits. The quantized serving kernels at the serving
+   step's 128 rows: K11 (int8, int8_block at block 256, fp8) on qkv,
+   ffn2, the head and a K of 2000, and its FMA kernel (int8_block at
+   block 100) on qkv; the rows of each 128-row call must equal the same
+   rows at M = 1 and M = 37 bit for bit. The K11 and flash-backward rows
+   print their earlier designs' times (PERF.md) beside the new ones, and
+   every bound names the rate it assumes (RATE_NAMES);
    K2q at phase 3's ragged shape over int8 pages; K12 on ffn1 and the
    head with rank buckets 8 and 16 and a mixed slot vector. K10m (fused
    momentum) bit for bit at [512, 512, 3, 3] and [2048, 1000], float32
@@ -73,8 +78,9 @@ Phases, in order; any failure exits non-zero without the result line:
    10 steps with exact launches every step; mean step, tokens/s, peak.
 7. quantized, multi-adapter serving: gpt3_1p3b with phase 3's weights
    and prompts, quantized at load. 7a: int8 (16 requests), int8_block
-   and fp8 (4 each) over float32 pages, teacher-forced oracle, matmul
-   weight bytes <= 0.30 of float32. 7b: int8 weights, int8 KV pages, an
+   and fp8 (4 each) over float32 pages, and int8_block at block 100 (2
+   requests, K11's FMA kernel), teacher-forced oracle, matmul weight
+   bytes <= 0.30 of float32. 7b: int8 weights, int8 KV pages, an
    AdapterStore with rank buckets 8 and 16 and four adapters; 12 of the
    16 requests name one; exact K11, K2q, K1 and K12 launches a step,
    the int8 pool at 67584 / 262144 of the float32 one. 7c: the base
@@ -110,7 +116,29 @@ TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
 VOCAB, HIDDEN = 32000, 2048        # gpt3_1p3b's widths
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}   # (atol, rtol)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # fp32 CUDA cores / bf16 MMA
+# peak operations a second by the unit a kernel runs on: the FP32 FMA
+# units, bf16 mma, three bf16 products a float32 product (K11's int8
+# modes: x split into three bf16 terms) and 3xTF32 (the float32 flash
+# backward: three TF32 products a float32 product)
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "bf16_x3": 989e12 / 3,
+            "tf32_x3": 495e12 / 3}
+RATE_NAMES = {"float32": "FP32 FMA, 67 TFLOP/s",
+              "bfloat16": "bf16 mma, 989 TFLOP/s",
+              "bf16_x3": "3 bf16 mma a product, 989/3 TFLOP/s",
+              "tf32_x3": "3xTF32 mma, 495/3 TFLOP/s"}
+# the earlier designs' times (K11 and the flash backward on the FP32 FMA
+# units) on an NVIDIA H100 80GB HBM3 at 700 W, from PERF.md, printed
+# beside the tensor-core kernels'
+EARLIER_DESIGN_MS = {
+    "quantized_matmul": {"int8_qkv": 0.164726, "int8_ffn2": 0.435523,
+                         "int8_head": 0.739203, "int8_block_qkv": 0.274531,
+                         "int8_block_ffn2": 0.894579,
+                         "int8_block_head": 1.068307, "fp8_qkv": 0.273821,
+                         "fp8_ffn2": 0.870918, "fp8_head": 0.996854},
+    "flash_attention_bwd": {"gpt3_1p3b": 2.563510, "bert_large": 1.666838,
+                            "gpt3_1p3b_bfloat16": 2.780298,
+                            "long_bfloat16": 16.983804},
+}
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
 ALL_PHASES = "2345678"
 DEVICE = "cuda"
@@ -165,9 +193,11 @@ def device_ms(torch, fn, reps=21, inner=10) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float, dtype: str):
+def bound_ms(nbytes: float, ops: float, rate: str):
+    """The least time for the work: the bytes at the HBM rate or the
+    operations at the peak of ``rate`` (a PEAK_OPS key), the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_ops = ops / PEAK_OPS[rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -187,7 +217,10 @@ def fmt(row, dtype):
     if "ms" in row:
         out += (f" ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
                 f"library_ms={row['library_ms']:.6f} "
-                f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']})")
+                f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}; "
+                f"{row.get('bound_rate', RATE_NAMES[dtype])})")
+    if row.get("earlier_design_ms") is not None:
+        out += f" earlier_design_ms={row['earlier_design_ms']:.6f}"
     return out
 
 
@@ -721,6 +754,13 @@ def check_flash(torch, np, K, gen, seed):
             errb = max(compare(torch, a, w, dt_name, f"{what} {n}",
                                atol=FLASH_BWD_TOL[dt_name])
                        for n, a, w in zip(("dq", "dk", "dv"), got, want))
+            # no float atomics: a second backward gives the same bits
+            again = K.flash_attention_bwd(q, k, v, mask, None, o, lse, do,
+                                          scale, causal)
+            require(all(torch.equal(a, b) for a, b in zip(got[:3],
+                                                           again[:3])),
+                    f"{what}: two backwards differ")
+            del again
             rowf, rowb = {"max_abs_err": errf}, {"max_abs_err": errb}
             if timed:
                 reps = 5 if name == "long" else 21
@@ -743,14 +783,20 @@ def check_flash(torch, np, K, gen, seed):
                              q, k, v, mask, None, o, lse, do, scale, causal),
                          lambda: torch.autograd.grad(
                              lo, (lq, lk, lv), do, retain_graph=True))):
-                    bms, by = bound_ms(*flash_bytes_ops(q, causal, bwd),
-                                       dt_name)
+                    # the forward runs on the FP32 units in float32, the
+                    # backward on 3xTF32
+                    rate = ("tf32_x3" if bwd and dt_name == "float32"
+                            else dt_name)
+                    bms, by = bound_ms(*flash_bytes_ops(q, causal, bwd), rate)
                     row.update(ms=device_ms(torch, kern, reps=reps),
                                plain_ms=device_ms(torch, plain, reps=reps),
                                library_ms=device_ms(torch, lib, reps=reps),
-                               bound_ms=bms, bound_by=by)
+                               bound_ms=bms, bound_by=by,
+                               bound_rate=RATE_NAMES[rate])
                 del lo
                 key = name if dt_name == "float32" else f"{name}_{dt_name}"
+                rowb["earlier_design_ms"] = EARLIER_DESIGN_MS[
+                    "flash_attention_bwd"].get(key)
                 rows["flash_attention_fwd"][key] = rowf
                 rows["flash_attention_bwd"][key] = rowb
             log(f"  {what} fwd: {fmt(rowf, dt_name)}")
@@ -787,57 +833,90 @@ def check_flash(torch, np, K, gen, seed):
 
 
 def sum_tol(K, ref):
-    """Kernel and plain version take the same products (both dequantize
-    every weight the same way) and differ only by the order of float32
-    sums over K: 2e-6 * sqrt(K) of the output's scale."""
+    """2e-6 * sqrt(K) of the output's scale. fp8: kernel and plain
+    version take the same products (bf16 operands, exact in float32) and
+    differ by the order of the float32 sums over K. int8 and int8_block:
+    the kernel takes the products of q and three bf16 terms of x (each
+    exact) and scales the finished sum (int8_block: each block's sum),
+    where the plain version scales every weight first; one rounding more
+    a product, and sums in another order. K12 (batched LoRA) takes the
+    plain version's products in another order."""
     return 2e-6 * K ** 0.5 * max(1.0, float(ref.abs().max()))
 
 
 QMM_SHAPES = (("qkv", 2048, 3 * HIDDEN), ("ffn2", 8192, HIDDEN),
               ("head", HIDDEN, VOCAB), ("k_tail", 2000, HIDDEN))
+ODD_BLOCK = 100    # not a multiple of the mma depth: the FMA kernel
+
+
+def qmm_row(torch, K, x, qw, qs, mode, block, Kd, N, timed):
+    """One K11 case against its plain version; timed rows add the
+    kernel, plain and library times and the bound."""
+    from paddle_tpu_torch.kernels.quant_matmul import dequantize_weight
+
+    M = x.shape[0]
+    out = K.quantized_matmul(x, qw, qs, mode=mode, block=block)
+    ref = K.quantized_matmul_plain(x, qw, qs, mode, block)
+    tol = sum_tol(Kd, ref)
+    what = f"quantized_matmul {mode} block {block} [{M}x{Kd}]x[{Kd}x{N}]"
+    require(bool(torch.isfinite(out).all()), f"{what}: non-finite")
+    err = float((out - ref).abs().max())
+    require(err <= tol, f"{what}: max_abs_err {err:.3e} > {tol:.3e}")
+    row = {"shape": [M, Kd, N], "max_abs_err": err, "tol": tol}
+    if timed:
+        nbytes = M * Kd * 4 + Kd * N + qs.numel() * 4 + M * N * 4
+        # the tensor-core kernel's rate: one bf16 product a weight for
+        # fp8, three for the int8 modes; the FMA kernel's the FP32 units
+        rate = ("float32" if mode == "int8_block" and block % 16
+                else "bfloat16" if mode == "fp8" else "bf16_x3")
+        bms, by = bound_ms(nbytes, 2 * M * Kd * N, rate)
+        # library yardstick: one matmul over the weight dequantized
+        # beforehand (bf16 operands for fp8)
+        wd = dequantize_weight(qw, qs, mode, block)
+        xl = x.bfloat16() if mode == "fp8" else x
+        row.update(
+            ms=device_ms(torch, lambda: K.quantized_matmul(
+                x, qw, qs, mode=mode, block=block)),
+            plain_ms=device_ms(torch, lambda: K.quantized_matmul_plain(
+                x, qw, qs, mode, block)),
+            library_ms=device_ms(torch, lambda: torch.matmul(xl, wd)),
+            bound_ms=bms, bound_by=by, bound_rate=RATE_NAMES[rate])
+        del wd
+    return out, row, what
 
 
 def check_quant_matmul(torch, K, gen):
     """K11 in its three modes against the plain version at the serving
     step's shapes (128 rows: 8 lanes x chunk 16); int8_block at block
-    256, and a K of 2000 (not a multiple of it)."""
-    from paddle_tpu_torch.kernels.quant_matmul import dequantize_weight
-
-    rows = {}
+    256, and a K of 2000 (not a multiple of it); the FMA kernel at block
+    100 on qkv. Row independence: the rows of the 128-row call equal,
+    bit for bit, the same rows computed at M = 1 and M = 37."""
+    rows, fma = {}, {}
     M = LANES * CHUNK
-    for mode in ("int8", "int8_block", "fp8"):
-        for name, Kd, N in QMM_SHAPES:
-            w = 0.02 * torch.randn(Kd, N, device=DEVICE, generator=gen)
-            x = torch.randn(M, Kd, device=DEVICE, generator=gen)
-            qw, qs = K.quantize_weight(w, mode, 256)
-            del w
-            out = K.quantized_matmul(x, qw, qs, mode=mode, block=256)
-            ref = K.quantized_matmul_plain(x, qw, qs, mode, 256)
-            tol = sum_tol(Kd, ref)
-            what = f"quantized_matmul {mode} {name} [{M}x{Kd}]x[{Kd}x{N}]"
-            require(bool(torch.isfinite(out).all()), f"{what}: non-finite")
-            err = float((out - ref).abs().max())
-            require(err <= tol, f"{what}: max_abs_err {err:.3e} > {tol:.3e}")
-            row = {"shape": [M, Kd, N], "max_abs_err": err, "tol": tol}
-            if name != "k_tail":
-                nbytes = (M * Kd * 4 + Kd * N + qs.numel() * 4 + M * N * 4)
-                bms, by = bound_ms(nbytes, 2 * M * Kd * N,
-                                   "bfloat16" if mode == "fp8" else "float32")
-                # library yardstick: one matmul over the weight
-                # dequantized beforehand (bf16 operands for fp8)
-                wd = dequantize_weight(qw, qs, mode, 256)
-                xl = x.bfloat16() if mode == "fp8" else x
-                row.update(
-                    ms=device_ms(torch, lambda: K.quantized_matmul(
-                        x, qw, qs, mode=mode, block=256)),
-                    plain_ms=device_ms(torch, lambda: K.quantized_matmul_plain(
-                        x, qw, qs, mode, 256)),
-                    library_ms=device_ms(torch, lambda: torch.matmul(xl, wd)),
-                    bound_ms=bms, bound_by=by)
-                del wd
+    cases = [(mode, 256, name, Kd, N) for mode in ("int8", "int8_block",
+                                                    "fp8")
+             for name, Kd, N in QMM_SHAPES]
+    cases.append(("int8_block", ODD_BLOCK, "qkv", 2048, 3 * HIDDEN))
+    for mode, block, name, Kd, N in cases:
+        w = 0.02 * torch.randn(Kd, N, device=DEVICE, generator=gen)
+        x = torch.randn(M, Kd, device=DEVICE, generator=gen)
+        qw, qs = K.quantize_weight(w, mode, block)
+        del w
+        out, row, what = qmm_row(torch, K, x, qw, qs, mode, block, Kd, N,
+                                 timed=name != "k_tail")
+        same = all(torch.equal(K.quantized_matmul(
+            x[:m], qw, qs, mode=mode, block=block), out[:m]) for m in (1, 37))
+        require(same, f"{what}: rows differ from the same rows at M = 1 / 37")
+        row["row_independent"] = same
+        if block == ODD_BLOCK:
+            fma[f"{mode}_b{block}"] = row
+        else:
+            row["earlier_design_ms"] = EARLIER_DESIGN_MS[
+                "quantized_matmul"].get(
+                f"{mode}_{name}")
             rows[f"{mode}_{name}"] = row
-            log(f"  {what}: {fmt(row, 'float32')}")
-    return rows
+        log(f"  {what}: {fmt(row, 'float32')} rows independent of M")
+    return rows, fma
 
 
 def check_ragged_q(torch, np, K, gen, seed):
@@ -2014,11 +2093,20 @@ def serve_quantized(torch, np, seed, card, out_dir, base_tokens=None,
     max_new = 32
     record, paths = {}, {}
     pred_int8 = None
-    for mode, n_req in (("int8", 16), ("int8_block", 4), ("fp8", 4)):
-        log(f"phase 7a: gpt3_1p3b, {mode} weights, float32 KV, {n_req} "
-            "requests")
+    from paddle_tpu_torch import get_flags, set_flags
+
+    saved_block = get_flags("quantize_block")["quantize_block"]
+    # int8_block at a block that is not a multiple of 16 runs the FMA
+    # kernel (quantized_matmul_fma) in place of the tensor-core one
+    for mode, n_req, block in (("int8", 16, 256), ("int8_block", 4, 256),
+                               ("fp8", 4, 256), ("int8_block", 2, 100)):
+        key = mode if block == 256 else f"{mode}_b{block}"
+        log(f"phase 7a: gpt3_1p3b, {mode} weights (block {block}), float32 "
+            f"KV, {n_req} requests")
+        set_flags({"quantize_block": block})
         pred, rep = quantized_predictor(torch, seed, cfg, mode)
         eng = GenerationEngine(pred, cfg, warmup=True)
+        set_flags({"quantize_block": saved_block})
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
         prof = start_profile(torch) if profile and mode == "int8" else None
@@ -2030,8 +2118,11 @@ def serve_quantized(torch, np, seed, card, out_dir, base_tokens=None,
         eng.close()
         check_streams(streams, max_new)
         steps = st["ragged_steps_total"]
+        odd = block % 16 != 0
         require_launches(counts, steps, {
-            "quantized_matmul": 4 * L + 1, "layer_norm": 2 * L + 1,
+            "quantized_matmul": 0 if odd else 4 * L + 1,
+            "quantized_matmul_fma": 4 * L + 1 if odd else 0,
+            "layer_norm": 2 * L + 1,
             "ragged_paged_attention": L, "ragged_paged_attention_q": 0,
             "batched_lora_add_": 0})
         log(f"  engine steps {steps}; launches {counts}")
@@ -2042,8 +2133,8 @@ def serve_quantized(torch, np, seed, card, out_dir, base_tokens=None,
         if prof is not None:
             perf["profile"] = trace_breakdown(prof, out_dir, "serve_int8",
                                               wall)
-        record[f"7a_{mode}"] = perf
-        paths[f"serve_{mode}"] = counts
+        record[f"7a_{key}"] = perf
+        paths[f"serve_{key}"] = counts
         if mode == "int8":
             pred_int8 = pred
         # a stream holds its engine, and so its page pool: drop them
@@ -2264,7 +2355,7 @@ def main(argv=None) -> int:
                 else:
                     rows.setdefault(name, {})[dt] = out
         rows.update(check_flash(torch, np, K, gen, args.seed))
-        qmm = check_quant_matmul(torch, K, gen)
+        qmm, rows["quantized_matmul_fma"] = check_quant_matmul(torch, K, gen)
         rows["quantized_matmul"] = {m: qmm[f"{m}_qkv"] for m in
                                     ("int8", "int8_block", "fp8")}
         rows["ragged_paged_attention_q"] = {
@@ -2365,7 +2456,10 @@ def main(argv=None) -> int:
                              sum(launches[name].values())),
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+                "bound_by": row["bound_by"],
+                "bound_rate": row.get("bound_rate", RATE_NAMES[
+                    "bfloat16" if "bfloat16" in key else "float32"]),
+                "library_ms": row["library_ms"]}
 
     csrc = "paddle_tpu_torch/kernels/csrc/"
     kernels = [
@@ -2398,6 +2492,11 @@ def main(argv=None) -> int:
         entry("quantized_matmul", csrc + "quant_matmul.cu",
               "paddle_tpu/kernels/quant_matmul.py:231", "fp8",
               "quantized_matmul_fp8", "serve_fp8"),
+        # the FMA kernel for an int8_block block that is not a multiple
+        # of 16, at qkv and block 100, launches of its phase 7a run
+        entry("quantized_matmul_fma", csrc + "quant_matmul.cu",
+              "paddle_tpu/kernels/quant_matmul.py:231",
+              f"int8_block_b{ODD_BLOCK}", path=f"serve_int8_block_b{ODD_BLOCK}"),
         entry("ragged_paged_attention_q", csrc + "ragged_paged_attention.cu",
               "paddle_tpu/kernels/ragged_paged_attention.py:184"),
         # K12 at ffn1 [128, 2048] -> 8192, ranks 8 and 16 (the head row is

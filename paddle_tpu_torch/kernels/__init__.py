@@ -12,7 +12,7 @@ plain PyTorch version (the CPU path and the numerics oracle).
 | K8/K9 | ``flash_attention_bwd`` | ``csrc/flash_attention.cu`` | ``kernels/flash_attention.py`` ``_flash_bwd_pallas``, ``_flash_bwd_stream`` |
 | K10 | ``fused_adam_update`` | ``csrc/fused_optim.cu`` | ``kernels/fused_optim.py`` ``_run_fused`` + ``_adam_kernel`` |
 | K2q | ``ragged_paged_attention_q`` | ``csrc/ragged_paged_attention.cu`` | ``kernels/ragged_paged_attention.py`` ``_ragged_pallas`` (quantized) |
-| K11 | ``quantized_matmul`` | ``csrc/quant_matmul.cu`` | ``kernels/quant_matmul.py`` ``_quant_matmul_pallas`` |
+| K11 | ``quantized_matmul`` (tensor cores; ``quantized_matmul_fma`` for an int8_block block that is not a multiple of 16) | ``csrc/quant_matmul.cu`` | ``kernels/quant_matmul.py`` ``_quant_matmul_pallas`` |
 | K12 | ``batched_lora_add_`` | ``csrc/lora.cu`` | ``kernels/lora.py`` ``_lora_delta_pallas`` |
 | K10m | ``fused_momentum_update`` | ``csrc/fused_optim.cu`` | ``kernels/fused_optim.py`` ``_run_fused`` + ``_momentum_kernel`` |
 | K13 | ``paged_attention`` | ``csrc/paged_attention.cu`` | ``kernels/paged_attention.py`` ``paged_attention`` (JAX's library Pallas kernel) |
@@ -42,7 +42,7 @@ from .lora import (batched_lora_add_, batched_lora_add_plain_,
 from .paged_attention import (kv_cache_write, kv_write_targets,
                               paged_attention, paged_attention_plain)
 from .quant_matmul import (quantize_weight, quantized_matmul,
-                           quantized_matmul_plain)
+                           quantized_matmul_fma, quantized_matmul_plain)
 from .ragged_paged_attention import (quantized_kv_cache_write,
                                      ragged_paged_attention,
                                      ragged_paged_attention_plain,
@@ -64,7 +64,7 @@ __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_fwd",
            "kv_cache_write",
            "kv_write_targets", "ragged_paged_attention_q",
            "quantized_kv_cache_write", "quantize_weight", "quantized_matmul",
-           "quantized_matmul_plain", "batched_lora_add_",
+           "quantized_matmul_fma", "quantized_matmul_plain", "batched_lora_add_",
            "batched_lora_add_plain_", "batched_lora_delta",
            "batched_lora_delta_plain", "batched_lora_matmul",
            "fused_momentum_update", "fused_momentum_update_plain",
@@ -83,6 +83,7 @@ KERNELS = {"layer_norm": layer_norm,
            "flash_attention_bwd": flash_attention_bwd,
            "ragged_paged_attention_q": ragged_paged_attention_q,
            "quantized_matmul": quantized_matmul,
+           "quantized_matmul_fma": quantized_matmul_fma,
            "batched_lora_add_": batched_lora_add_,
            "fused_momentum_update": fused_momentum_update,
            "paged_attention": paged_attention}

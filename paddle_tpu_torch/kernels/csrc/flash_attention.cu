@@ -25,33 +25,51 @@
 // Keys past S do not exist (the TPU pads and force-masks them; here the
 // tiles are bounds-checked, which gives the same result).
 //
-// Design. 256 threads a block, as a 16 x 16 grid; tiles of BT = 64 query
-// rows and 64 keys (32 for D > 128), each thread owning a 4 x 4 (2 x 2)
-// piece of every score tile and 4 (2) rows x D/16 columns of every
-// accumulator. Tiles are staged in shared memory as float32 with a row
-// stride of D + 1, so the column-walking reads of the score product hit
-// 32 different banks. The forward keeps the online softmax state (m, l)
-// and the output accumulator in registers (:265-275); each thread keeps
-// a partial l of its own columns, summed across its 16 row-mates once at
-// the end. The backward is three kernels: delta (one warp a row), dq (a
-// block per query tile walks the key tiles) and dk/dv (a block per key
-// tile walks the query tiles). No float atomics: every output element is
-// summed by one thread in a fixed order, so two runs give the same bits.
-// A broadcast bias's gradient is reduced inside the dq kernel: a block
-// owns (query tile, kept dims) and walks the broadcast dims in order,
-// adding into the bias-shaped float32 buffer (zeroed by the wrapper), so
-// no [B, H, S, S] intermediate exists.
+// Forward. 256 threads a block, as a 16 x 16 grid; tiles of BT = 64
+// query rows and 64 keys (32 for D > 128), each thread owning a 4 x 4
+// (2 x 2) piece of every score tile and 4 (2) rows x D/16 columns of every
+// accumulator, on the FP32 units. Tiles are staged in shared memory as
+// float32 with a row stride of D + 1, so the column-walking reads of the
+// score product hit 32 different banks. The online softmax state (m, l)
+// and the output accumulator stay in registers (:265-275); each thread
+// keeps a partial l of its own columns, summed across its 16 row-mates
+// once at the end.
+//
+// Backward, on the tensor cores: three kernels, delta (one warp a row),
+// dq (a block per query tile walks the key tiles) and dk/dv (a block per
+// key tile walks the query tiles, S transposed). A warp owns 16 rows;
+// S = Q K^T and dP = dO V^T are mma products from shared-memory tiles,
+// the softmax gradient dS = P (dP - delta) is taken in float32 on the C
+// fragments, and dQ += dS K, dV += P^T dO, dK += dS^T Q take P and dS
+// straight from those registers as the left operand. bfloat16 inputs:
+// bf16 mma.m16n8k16, P and dS rounded to bf16 for the second products
+// (as FlashAttention-2). float32 inputs: 3xTF32 on mma.m16n8k8, each
+// operand split into a tf32 hi and lo and hi*hi + hi*lo + lo*hi summed
+// (a single TF32 product would miss the float32 tolerance). The streamed
+// tiles go through a two-stage cp.async ring in dynamic shared memory
+// with rows padded so the fragment loads are free of bank conflicts
+// (mma.cuh). No float atomics: every output element is summed by one
+// thread in a fixed order, so two runs give the same bits. A broadcast
+// bias's gradient is reduced inside the dq kernel: a block owns (query
+// tile, kept dims) and walks the broadcast dims in order, adding into the
+// bias-shaped float32 buffer (zeroed by the wrapper), so no [B, H, S, S]
+// intermediate exists.
 // Causal: key tiles entirely above the diagonal are skipped (:247).
 //
 // Bound: forward 4 B H S^2 D flops (half when causal), backward 10 B H
 // S^2 D (half when causal), plus the bytes of q, k, v, o, dO, dq, dk, dv
-// and lse; at these shapes the flops bound it. This first kernel runs on
-// the FP32 units (67 TFLOP/s peak); a tensor-core (wgmma, TMA) redesign
-// is later work.
+// and lse; at these shapes the flops bound it. The backward's two
+// kernels recompute S and dP (14 instead of 10 B H S^2 D) to keep dq
+// free of atomics, and run at the bf16 rate (989 TFLOP/s) or the 3xTF32
+// rate (495/3) on float32. The forward still runs on the FP32 units (67
+// TFLOP/s); its tensor-core redesign can reuse mma.cuh's tile products.
 
 #include <math.h>
 
+#include <initializer_list>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -251,13 +269,57 @@ flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// backward 2: dq (and dbias), one block per (query tile, group); a group
-// is one (b, h) when the bias is absent or full, else the kept dims of
-// the bias, whose broadcast dims the block walks in order
+// backward on the tensor cores. Per (dtype, padded head dim DP) a shape:
+// a block of WARPS warps owns 16 * WARPS rows (queries in dq, keys in
+// dk/dv), each warp 16 of them, and streams tiles of BN rows of the other
+// side through a two-stage cp.async ring; a block writes DO of the DP
+// output columns (grid.z = DP / DO: at DP = 256 two blocks share a tile,
+// each recomputing S and dP, so that the accumulators fit the registers).
+// Shared memory is [rows][DP + Pad] of the input dtype; float32 inputs
+// take 3xTF32 products, bfloat16 inputs bf16 products with P and dS
+// rounded to bf16 (pt::mma::warp_mma_abt / warp_mma_pb).
 // ---------------------------------------------------------------------------
 
-template <typename T, int BT, int DMAX>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DP>
+struct BwdShape;
+template <>
+struct BwdShape<__nv_bfloat16, 64> {
+  static constexpr int WARPS = 4, BN_DQ = 64, BN_DKV = 64, DO = 64;
+};
+template <>
+struct BwdShape<__nv_bfloat16, 128> {
+  static constexpr int WARPS = 4, BN_DQ = 64, BN_DKV = 32, DO = 128;
+};
+template <>
+struct BwdShape<__nv_bfloat16, 256> {
+  static constexpr int WARPS = 4, BN_DQ = 32, BN_DKV = 32, DO = 128;
+};
+template <>
+struct BwdShape<float, 64> {
+  static constexpr int WARPS = 4, BN_DQ = 64, BN_DKV = 64, DO = 64;
+};
+template <>
+struct BwdShape<float, 128> {
+  static constexpr int WARPS = 4, BN_DQ = 64, BN_DKV = 32, DO = 128;
+};
+template <>
+struct BwdShape<float, 256> {
+  static constexpr int WARPS = 2, BN_DQ = 32, BN_DKV = 32, DO = 128;
+};
+
+template <typename T, int DP>
+__host__ __device__ constexpr int bwd_ld() {
+  return DP + pt::mma::Pad<T>::value;
+}
+
+// ---------------------------------------------------------------------------
+// backward 2: dq (and dbias), one block per (query tile, group, column
+// chunk); a group is one (b, h) when the bias is absent or full, else the
+// kept dims of the bias, whose broadcast dims the block walks in order
+// ---------------------------------------------------------------------------
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(BwdShape<T, DP>::WARPS * 32, 1)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
@@ -266,128 +328,116 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const float* __restrict__ bias, T* __restrict__ dq,
                 float* __restrict__ dbias, int H, int S, int D, int Bb,
                 int Hb, int walk_b, int walk_h, int nb, float scale,
-                int causal) {
-  constexpr int R = BT / 16, RD = DMAX / 16;
-  extern __shared__ float smem[];
-  const int ld = ld_of(D);
-  float* sQ = smem;              // [BT, ld]
-  float* sdO = sQ + BT * ld;     // [BT, ld]
-  float* sK = sdO + BT * ld;     // [BT, ld]
-  float* sV = sK + BT * ld;      // [BT, ld]
-  float* sdS = sV + BT * ld;     // [BT, BT + 1]
-  const int qt = blockIdx.x, g = blockIdx.y;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = qt * BT;
+                int causal, int vec) {
+  using Shape = BwdShape<T, DP>;
+  constexpr int NTH = Shape::WARPS * 32, BM = 16 * Shape::WARPS;
+  constexpr int BN = Shape::BN_DQ, LD = bwd_ld<T, DP>();
+  constexpr int NT = BN / 8, OT = Shape::DO / 8;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  T* sQ = reinterpret_cast<T*>(bwd_smem);   // [BM, LD]
+  T* sdO = sQ + BM * LD;                    // [BM, LD]
+  T* ring = sdO + BM * LD;                  // 2 stages of K, V [BN, LD]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qt = blockIdx.x, grp = blockIdx.y, j0 = blockIdx.z * Shape::DO;
+  const int q0 = qt * BM;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const int nh_out = walk_h ? 1 : H, nh_in = walk_h ? H : 1;
   const int members = (walk_b ? nb : 1) * nh_in;
-  const int nk = (S + BT - 1) / BT;
-  const int kt_end = causal ? min(nk, qt + 1) : nk;
+  const int nk = (S + BN - 1) / BN;
+  const int kt_end = causal ? min(nk, (min(q0 + BM, S) - 1) / BN + 1) : nk;
   for (int mem = 0; mem < members; ++mem) {
-    const int b = g / nh_out + mem / nh_in;
-    const int h = g - (g / nh_out) * nh_out + mem - (mem / nh_in) * nh_in;
+    const int b = grp / nh_out + mem / nh_in;
+    const int h = grp - (grp / nh_out) * nh_out + mem - (mem / nh_in) * nh_in;
     const int bh = b * H + h;
     const int64_t base = static_cast<int64_t>(bh) * S * D;
     const float* bias_bh = bias_slab(bias, b, h, Bb, Hb, S);
-    float* dbias_bh = dbias ? dbias + (bias_bh - bias) : nullptr;
+    // the column chunks of a tile share its dbias: chunk 0 writes it
+    float* dbias_bh =
+        (dbias && blockIdx.z == 0) ? dbias + (bias_bh - bias) : nullptr;
     const float* mask_b = mask ? mask + static_cast<int64_t>(b) * S : nullptr;
     __syncthreads();   // the last member's tiles are no longer read
-    load_tile<T, BT>(sQ, q + base, q0, S, D);
-    load_tile<T, BT>(sdO, dout + base, q0, S, D);
-    float lse_r[R], delta_r[R], acc[R][RD];
+    pt::mma::load_tile<T, BM, DP, LD, NTH>(sQ, q + base, q0, S, D, vec);
+    pt::mma::load_tile<T, BM, DP, LD, NTH>(sdO, dout + base, q0, S, D, vec);
+    pt::mma::load_tile<T, BN, DP, LD, NTH>(ring, k + base, 0, S, D, vec);
+    pt::mma::load_tile<T, BN, DP, LD, NTH>(ring + BN * LD, v + base, 0, S, D,
+                                           vec);
+    pt::mma::cp_async_commit();
+    float lse_r[2], delta_r[2];
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = q0 + ty + 16 * i;
-      lse_r[i] = r < S ? lse[static_cast<int64_t>(bh) * S + r] : 0.f;
-      delta_r[i] = r < S ? delta[static_cast<int64_t>(bh) * S + r] : 0.f;
-#pragma unroll
-      for (int j = 0; j < RD; ++j) acc[i][j] = 0.f;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = rows[hh];
+      lse_r[hh] = r < S ? lse[static_cast<int64_t>(bh) * S + r] : 0.f;
+      delta_r[hh] = r < S ? delta[static_cast<int64_t>(bh) * S + r] : 0.f;
     }
+    float acc[OT][4];
+#pragma unroll
+    for (int j = 0; j < OT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
     for (int kt = 0; kt < kt_end; ++kt) {
-      const int k0 = kt * BT;
-      __syncthreads();   // the last tile's dq product is done with sK/sdS
-      load_tile<T, BT>(sK, k + base, k0, S, D);
-      load_tile<T, BT>(sV, v + base, k0, S, D);
-      __syncthreads();
-      float s[R][R], dp[R][R];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float a[R], gg[R], kk[R], vv[R];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          a[i] = sQ[(ty + 16 * i) * ld + d];
-          gg[i] = sdO[(ty + 16 * i) * ld + d];
-        }
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          kk[j] = sK[(tx + 16 * j) * ld + d];
-          vv[j] = sV[(tx + 16 * j) * ld + d];
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int j = 0; j < R; ++j) {
-            s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-            dp[i][j] = fmaf(gg[i], vv[j], dp[i][j]);
-          }
+      if (kt + 1 < kt_end) {
+        T* nxt = ring + ((kt + 1) & 1) * 2 * BN * LD;
+        pt::mma::load_tile<T, BN, DP, LD, NTH>(nxt, k + base, (kt + 1) * BN,
+                                               S, D, vec);
+        pt::mma::load_tile<T, BN, DP, LD, NTH>(nxt + BN * LD, v + base,
+                                               (kt + 1) * BN, S, D, vec);
+        pt::mma::cp_async_commit();
+        pt::mma::cp_async_wait<1>();
+      } else {
+        pt::mma::cp_async_wait<0>();
       }
+      __syncthreads();
+      const T* sK = ring + (kt & 1) * 2 * BN * LD;
+      const T* sV = sK + BN * LD;
+      float s[NT][4], dp[NT][4];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int r = q0 + ty + 16 * i;
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const int c = k0 + tx + 16 * j;
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      pt::mma::warp_mma_abt<NT, DP, LD>(s, sQ + warp * 16 * LD, sK);
+      pt::mma::warp_mma_abt<NT, DP, LD>(dp, sdO + warp * 16 * LD, sV);
+      const int k0 = kt * BN;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = rows[e >> 1], c = k0 + n * 8 + 2 * t + (e & 1);
           float dl = 0.f;
           if (r < S && c < S) {
-            const float x = masked_score(s[i][j], scale, bias_bh, mask_b, r,
+            const float x = masked_score(s[n][e], scale, bias_bh, mask_b, r,
                                          c, S, causal);
-            const float p = expf(x - lse_r[i]);
-            dl = p * (dp[i][j] - delta_r[i]);
+            const float p = expf(x - lse_r[e >> 1]);
+            dl = p * (dp[n][e] - delta_r[e >> 1]);
             if (dbias_bh) dbias_bh[static_cast<int64_t>(r) * S + c] += dl;
           }
-          sdS[(ty + 16 * i) * (BT + 1) + tx + 16 * j] = dl * scale;
+          s[n][e] = dl * scale;
         }
-      }
-      __syncthreads();
-      for (int kk = 0; kk < BT; ++kk) {
-        float kv[RD];
-#pragma unroll
-        for (int j = 0; j < RD; ++j) {
-          const int c = tx + 16 * j;
-          kv[j] = c < D ? sK[kk * ld + c] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const float ds = sdS[(ty + 16 * i) * (BT + 1) + kk];
-#pragma unroll
-          for (int j = 0; j < RD; ++j) acc[i][j] = fmaf(ds, kv[j], acc[i][j]);
-        }
-      }
+      pt::mma::warp_mma_pb<NT, OT, LD>(acc, s, sK + j0);
+      __syncthreads();   // the next load refills this stage's other half
     }
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = q0 + ty + 16 * i;
-      if (r >= S) continue;
+    for (int j = 0; j < OT; ++j) {
+      const int c = j0 + j * 8 + 2 * t;
 #pragma unroll
-      for (int j = 0; j < RD; ++j) {
-        const int c = tx + 16 * j;
-        if (c < D)
-          dq[base + static_cast<int64_t>(r) * D + c] =
-              pt::from_float<T>(acc[i][j]);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = rows[hh];
+        if (r >= S) continue;
+        T* o = dq + base + static_cast<int64_t>(r) * D;
+        if (c < D) o[c] = pt::from_float<T>(acc[j][2 * hh]);
+        if (c + 1 < D) o[c + 1] = pt::from_float<T>(acc[j][2 * hh + 1]);
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// backward 3: dk, dv, one block per (key tile, b * H + h); the thread
-// grid's rows are keys and its columns queries (s transposed)
+// backward 3: dk, dv, one block per (key tile, b * H + h, column chunk);
+// the warps' rows are keys and the streamed tiles queries (S transposed)
 // ---------------------------------------------------------------------------
 
-template <typename T, int BT, int DMAX>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DP>
+__global__ void __launch_bounds__(BwdShape<T, DP>::WARPS * 32, 1)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
@@ -395,117 +445,104 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ mask,
                  const float* __restrict__ bias, T* __restrict__ dk,
                  T* __restrict__ dv, int H, int S, int D, int Bb, int Hb,
-                 float scale, int causal) {
-  constexpr int R = BT / 16, RD = DMAX / 16;
-  extern __shared__ float smem[];
-  const int ld = ld_of(D);
-  float* sK = smem;              // [BT, ld]
-  float* sV = sK + BT * ld;      // [BT, ld]
-  float* sQ = sV + BT * ld;      // [BT, ld]
-  float* sdO = sQ + BT * ld;     // [BT, ld]
-  float* sP = sdO + BT * ld;     // [BT keys, BT + 1]
-  float* sdS = sP + BT * (BT + 1);
-  const int kt = blockIdx.x, bh = blockIdx.y;
+                 float scale, int causal, int vec) {
+  using Shape = BwdShape<T, DP>;
+  constexpr int NTH = Shape::WARPS * 32, BM = 16 * Shape::WARPS;
+  constexpr int BN = Shape::BN_DKV, LD = bwd_ld<T, DP>();
+  constexpr int NT = BN / 8, OT = Shape::DO / 8;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  T* sK = reinterpret_cast<T*>(bwd_smem);   // [BM, LD]
+  T* sV = sK + BM * LD;                     // [BM, LD]
+  T* ring = sV + BM * LD;                   // 2 stages of Q, dO [BN, LD]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kt = blockIdx.x, bh = blockIdx.y, j0 = blockIdx.z * Shape::DO;
   const int b = bh / H, h = bh - b * H;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int k0 = kt * BM;
+  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
   const int64_t base = static_cast<int64_t>(bh) * S * D;
-  const int k0 = kt * BT;
   const float* bias_bh = bias_slab(bias, b, h, Bb, Hb, S);
   const float* mask_b = mask ? mask + static_cast<int64_t>(b) * S : nullptr;
+  const float* lse_bh = lse + static_cast<int64_t>(bh) * S;
+  const float* delta_bh = delta + static_cast<int64_t>(bh) * S;
+  const int nq = (S + BN - 1) / BN;
+  const int qt0 = causal ? k0 / BN : 0;   // earlier queries see no key here
 
-  load_tile<T, BT>(sK, k + base, k0, S, D);
-  load_tile<T, BT>(sV, v + base, k0, S, D);
-  float dka[R][RD], dva[R][RD];
+  pt::mma::load_tile<T, BM, DP, LD, NTH>(sK, k + base, k0, S, D, vec);
+  pt::mma::load_tile<T, BM, DP, LD, NTH>(sV, v + base, k0, S, D, vec);
+  pt::mma::load_tile<T, BN, DP, LD, NTH>(ring, q + base, qt0 * BN, S, D, vec);
+  pt::mma::load_tile<T, BN, DP, LD, NTH>(ring + BN * LD, dout + base,
+                                         qt0 * BN, S, D, vec);
+  pt::mma::cp_async_commit();
+  float dka[OT][4], dva[OT][4];
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int j = 0; j < OT; ++j)
 #pragma unroll
-    for (int j = 0; j < RD; ++j) dka[i][j] = dva[i][j] = 0.f;
-  const int nq = (S + BT - 1) / BT;
-  for (int qt = causal ? kt : 0; qt < nq; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();   // the last tile's products are done with sQ, sP
-    load_tile<T, BT>(sQ, q + base, q0, S, D);
-    load_tile<T, BT>(sdO, dout + base, q0, S, D);
-    __syncthreads();
-    float st[R][R], dpt[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) st[i][j] = dpt[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float kk[R], vv[R], a[R], gg[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        kk[i] = sK[(ty + 16 * i) * ld + d];
-        vv[i] = sV[(ty + 16 * i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        a[j] = sQ[(tx + 16 * j) * ld + d];
-        gg[j] = sdO[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          st[i][j] = fmaf(kk[i], a[j], st[i][j]);
-          dpt[i][j] = fmaf(vv[i], gg[j], dpt[i][j]);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int r = q0 + tx + 16 * j;   // query
-      const float lse_r =
-          r < S ? lse[static_cast<int64_t>(bh) * S + r] : 0.f;
-      const float delta_r =
-          r < S ? delta[static_cast<int64_t>(bh) * S + r] : 0.f;
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int c = k0 + ty + 16 * i;   // key
-        float p = 0.f, ds = 0.f;
-        if (r < S && c < S) {
-          const float x = masked_score(st[i][j], scale, bias_bh, mask_b, r,
-                                       c, S, causal);
-          p = expf(x - lse_r);
-          ds = p * (dpt[i][j] - delta_r) * scale;
-        }
-        sP[(ty + 16 * i) * (BT + 1) + tx + 16 * j] = p;
-        sdS[(ty + 16 * i) * (BT + 1) + tx + 16 * j] = ds;
-      }
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int i = qt - qt0;
+    if (qt + 1 < nq) {
+      T* nxt = ring + ((i + 1) & 1) * 2 * BN * LD;
+      pt::mma::load_tile<T, BN, DP, LD, NTH>(nxt, q + base, (qt + 1) * BN, S,
+                                             D, vec);
+      pt::mma::load_tile<T, BN, DP, LD, NTH>(nxt + BN * LD, dout + base,
+                                             (qt + 1) * BN, S, D, vec);
+      pt::mma::cp_async_commit();
+      pt::mma::cp_async_wait<1>();
+    } else {
+      pt::mma::cp_async_wait<0>();
     }
     __syncthreads();
-    for (int qq = 0; qq < BT; ++qq) {
-      float go[RD], qv[RD];
+    const T* sQ = ring + (i & 1) * 2 * BN * LD;
+    const T* sdO = sQ + BN * LD;
+    float st[NT][4], dpt[NT][4];
 #pragma unroll
-      for (int j = 0; j < RD; ++j) {
-        const int c = tx + 16 * j;
-        go[j] = c < D ? sdO[qq * ld + c] : 0.f;
-        qv[j] = c < D ? sQ[qq * ld + c] : 0.f;
-      }
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float p = sP[(ty + 16 * i) * (BT + 1) + qq];
-        const float ds = sdS[(ty + 16 * i) * (BT + 1) + qq];
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+    pt::mma::warp_mma_abt<NT, DP, LD>(st, sK + warp * 16 * LD, sQ);
+    pt::mma::warp_mma_abt<NT, DP, LD>(dpt, sV + warp * 16 * LD, sdO);
+    const int q0 = qt * BN;
 #pragma unroll
-        for (int j = 0; j < RD; ++j) {
-          dva[i][j] = fmaf(p, go[j], dva[i][j]);
-          dka[i][j] = fmaf(ds, qv[j], dka[i][j]);
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        const int r = q0 + n * 8 + 2 * t + par;   // query
+        const float lr = r < S ? lse_bh[r] : 0.f;
+        const float dr = r < S ? delta_bh[r] : 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int c = keys[hh], e = 2 * hh + par;
+          float p = 0.f, ds = 0.f;
+          if (r < S && c < S) {
+            const float x = masked_score(st[n][e], scale, bias_bh, mask_b, r,
+                                         c, S, causal);
+            p = expf(x - lr);
+            ds = p * (dpt[n][e] - dr) * scale;
+          }
+          st[n][e] = p;
+          dpt[n][e] = ds;
         }
       }
-    }
+    pt::mma::warp_mma_pb<NT, OT, LD>(dva, st, sdO + j0);
+    pt::mma::warp_mma_pb<NT, OT, LD>(dka, dpt, sQ + j0);
+    __syncthreads();   // the next load refills this stage's other half
   }
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r >= S) continue;
+  for (int j = 0; j < OT; ++j) {
+    const int c = j0 + j * 8 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < RD; ++j) {
-      const int c = tx + 16 * j;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = keys[hh];
+      if (r >= S) continue;
+      const int64_t off = base + static_cast<int64_t>(r) * D;
       if (c < D) {
-        dk[base + static_cast<int64_t>(r) * D + c] =
-            pt::from_float<T>(dka[i][j]);
-        dv[base + static_cast<int64_t>(r) * D + c] =
-            pt::from_float<T>(dva[i][j]);
+        dk[off + c] = pt::from_float<T>(dka[j][2 * hh]);
+        dv[off + c] = pt::from_float<T>(dva[j][2 * hh]);
+      }
+      if (c + 1 < D) {
+        dk[off + c + 1] = pt::from_float<T>(dka[j][2 * hh + 1]);
+        dv[off + c + 1] = pt::from_float<T>(dva[j][2 * hh + 1]);
       }
     }
   }
@@ -539,14 +576,26 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int BT, int DMAX>
+// cp.async needs D * sizeof(T) a multiple of 16 and 16-byte aligned slabs
+template <typename T>
+int bwd_vec(int D, std::initializer_list<const void*> ptrs) {
+  if ((D * sizeof(T)) % 16 != 0) return 0;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return 0;
+  return 1;
+}
+
+template <typename T, int DP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       const float* mask, const float* bias, void* dq,
                       float* dbias, int B, int H, int S, int D, int Bb, int Hb,
                       float scale, int causal, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (4 * BT * ld_of(D) + BT * (BT + 1));
-  auto kern = flash_dq_kernel<T, BT, DMAX>;
+  using Shape = BwdShape<T, DP>;
+  constexpr int BM = 16 * Shape::WARPS;
+  const size_t smem =
+      sizeof(T) * (2 * BM + 4 * Shape::BN_DQ) * bwd_ld<T, DP>();
+  auto kern = flash_dq_kernel<T, DP>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   // a broadcast bias dim is walked inside the block (dbias reduced in a
@@ -554,33 +603,35 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   const int walk_b = (bias && Bb == 1 && B > 1) ? 1 : 0;
   const int walk_h = (bias && Hb == 1 && H > 1) ? 1 : 0;
   const int groups = (walk_b ? 1 : B) * (walk_h ? 1 : H);
-  const dim3 grid((S + BT - 1) / BT, groups);
-  kern<<<grid, kThreads, smem, st>>>(
+  const dim3 grid((S + BM - 1) / BM, groups, DP / Shape::DO);
+  kern<<<grid, Shape::WARPS * 32, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
       bias, static_cast<T*>(dq), dbias, H, S, D, Bb, Hb, walk_b, walk_h, B,
-      scale, causal);
+      scale, causal, bwd_vec<T>(D, {q, k, v, dout}));
   return cudaGetLastError();
 }
 
-template <typename T, int BT, int DMAX>
+template <typename T, int DP>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, const float* mask,
                        const float* bias, void* dk, void* dv, int B, int H,
                        int S, int D, int Bb, int Hb, float scale, int causal,
                        cudaStream_t st) {
+  using Shape = BwdShape<T, DP>;
+  constexpr int BM = 16 * Shape::WARPS;
   const size_t smem =
-      sizeof(float) * (4 * BT * ld_of(D) + 2 * BT * (BT + 1));
-  auto kern = flash_dkv_kernel<T, BT, DMAX>;
+      sizeof(T) * (2 * BM + 4 * Shape::BN_DKV) * bwd_ld<T, DP>();
+  auto kern = flash_dkv_kernel<T, DP>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BT - 1) / BT, B * H);
-  kern<<<grid, kThreads, smem, st>>>(
+  const dim3 grid((S + BM - 1) / BM, B * H, DP / Shape::DO);
+  kern<<<grid, Shape::WARPS * 32, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
       bias, static_cast<T*>(dk), static_cast<T*>(dv), H, S, D, Bb, Hb, scale,
-      causal);
+      causal, bwd_vec<T>(D, {q, k, v, dout}));
   return cudaGetLastError();
 }
 
@@ -597,6 +648,19 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
    : dtype == pt::kBFloat16 ? PT_FLASH_DISPATCH(__nv_bfloat16, FN,      \
                                                 __VA_ARGS__)            \
                             : cudaErrorInvalidValue)
+
+// the backward's shapes by padded head dim (BwdShape)
+#define PT_FLASH_BWD_DISPATCH(T, FN, ...)     \
+  (D <= 64    ? FN<T, 64>(__VA_ARGS__)        \
+   : D <= 128 ? FN<T, 128>(__VA_ARGS__)       \
+   : D <= 256 ? FN<T, 256>(__VA_ARGS__)       \
+              : cudaErrorInvalidValue)
+
+#define PT_FLASH_BWD_BY_DTYPE(FN, ...)                                    \
+  (dtype == pt::kFloat32 ? PT_FLASH_BWD_DISPATCH(float, FN, __VA_ARGS__)  \
+   : dtype == pt::kBFloat16                                               \
+       ? PT_FLASH_BWD_DISPATCH(__nv_bfloat16, FN, __VA_ARGS__)            \
+       : cudaErrorInvalidValue)
 
 }  // namespace
 
@@ -655,7 +719,7 @@ extern "C" int pt_flash_attention_bwd_dq(
     float scale, int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || D <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(PT_FLASH_BY_DTYPE(
+  return static_cast<int>(PT_FLASH_BWD_BY_DTYPE(
       launch_dq, q, k, v, dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(mask),
       static_cast<const float*>(bias), dq, static_cast<float*>(dbias), B, H,
@@ -670,7 +734,7 @@ extern "C" int pt_flash_attention_bwd_dkv(
     float scale, int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || D <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(PT_FLASH_BY_DTYPE(
+  return static_cast<int>(PT_FLASH_BWD_BY_DTYPE(
       launch_dkv, q, k, v, dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(mask),
       static_cast<const float*>(bias), dk, dv, B, H, S, D, Bb, Hb, scale,

@@ -42,7 +42,12 @@ attention, the forward oracle of the tests.
 
 Bound on the H100: operations. The forward does ``4 B H S^2 D`` flops
 (half when causal), the backward ``10 B H S^2 D``; the bytes are those
-of q, k, v, o, dO, dq, dk, dv and lse. Head dims up to 256.
+of q, k, v, o, dO, dq, dk, dv and lse. Head dims up to 256. The forward
+runs on the FP32 units; the backward on the tensor cores: bf16 products
+for bfloat16 inputs (P and dS rounded to bfloat16 as operands, as
+FlashAttention-2 does) and three TF32 products a float32 product
+(3xTF32) for float32 inputs, within the same tolerances as before; two
+backwards give the same bits.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. There is no fallback from one to the other.

@@ -20,20 +20,38 @@ as ``jnp.round``.
 Numerics. The plain version repeats the JAX package's reference
 (``_reference_quant_matmul`` :157): the weight is dequantized first,
 ``float(q) * scale`` in float32 (fp8: ``bf16(q) * bf16(scale)`` rounded
-to bfloat16, and x rounded to bfloat16), then one float32 product. The
-kernel does the same per element, in registers, as it stages each
-weight tile into shared memory, so the dequantized values are the plain
-version's bit for bit and the two differ only by the order of the
-float32 sum over K (the Pallas kernel instead scales the finished
-accumulator, which JAX's own test admits at 2e-2·max|ref|).
+to bfloat16, and x rounded to bfloat16), then one float32 product.
 
-Bound on the H100 at the serving shape (M = 128 rows a step): the
-float32 FMA units. One weight byte feeds 2·M flops, so at M = 128 the
-1.27 G weight elements of gpt3_1p3b are 0.38 ms of reading at 3.35 TB/s
-but 326 GFLOP, 4.87 ms at 67 TFLOP/s. fp8 could use the bfloat16 tensor
-cores (its products are exact in float32); this first kernel runs all
-three modes on the FMA units. No tile shape depends on M, so a row's
-result does not depend on the other rows of the batch.
+Bound on the H100 at the serving shape (M = 128 rows a step): one
+weight byte feeds 2·M = 256 flops. On the float32 FMA units (67
+TFLOP/s), the earlier design, that is 4.87 ms of operations for the 1.27 G
+weight elements of gpt3_1p3b against 0.38 ms of reading them. The
+kernel (``quant_matmul_mma_kernel``) runs on the bf16 tensor cores
+(``mma.sync.m16n8k16``, float32 accumulators), which brings the
+operations near the bytes: fp8 takes one bf16 product a weight (989
+TFLOP/s), the int8 modes three (989/3), since float32 x is split into
+``hi + mid + lo``, three bf16 terms that sum to it exactly, and q (|q|
+<= 127) is exact in bf16. Every product is then exact in float32. The
+int8 mode scales the finished sum by ``scale[n]`` (the TPU kernel's
+finish step); int8_block scales each block's partial sum, kept in
+registers, as the block ends. So the kernel differs from the plain
+version by the order of the float32 sums and, for the int8 modes, by
+scaling after the sum instead of on each weight (one rounding more a
+product); ``fp8`` has the plain version's products in another order.
+The weights are decoded from their bytes in registers on the way to
+shared memory; no float copy of x or of the weight is written to device
+memory.
+
+Filling the card: the output tiles are [128, 128]; where N / 128 tiles
+are too few for the 132 SMs, K is cut into ``split_count(K, N)`` ranges
+whose float32 partials a second pass sums in split order (no atomics).
+Tile, split and summation order depend on K, N, mode and block, never
+on M, so a row's result does not depend on the other rows of the batch.
+
+int8_block with a block that is not a multiple of 16 (the mma depth)
+runs ``quantized_matmul_fma``, the earlier kernel on the FMA units (each
+weight dequantized in registers as the plain version does it), counted
+in its own ``launches``. The wrapper picks it from the block alone.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. There is no fallback from one to the other.
@@ -49,13 +67,28 @@ from . import _build
 
 __all__ = ["QUANT_MODES", "DEFAULT_BLOCK", "quantize_weight",
            "dequantize_weight", "scale_shape", "quantized_weight_bytes",
-           "quantized_matmul", "quantized_matmul_plain", "weight_dtype"]
+           "quantized_matmul", "quantized_matmul_plain", "weight_dtype",
+           "quantized_matmul_fma", "split_count", "MMA_DEPTH"]
 
 QUANT_MODES = ("int8", "int8_block", "fp8")
 DEFAULT_BLOCK = 256
 _I8MAX = 127.0
 _F8MAX = 448.0           # the largest finite float8_e4m3fn
 _MODE_CODES = {"int8": 0, "int8_block": 1, "fp8": 2}
+MMA_DEPTH = 16           # k of mma.m16n8k16: int8_block's tensor-core blocks
+_TILE_N, _TILE_K, _SMS = 128, 32, 132
+
+
+def split_count(K: int, N: int) -> int:
+    """How many K ranges the tensor-core kernel cuts a [K, N] weight
+    into: enough [128, 128] output tiles for the H100's 132 SMs at one
+    row tile, each range at least 8 steps of 32. A function of K and N
+    only, so a row's sums never depend on the batch."""
+    n_tiles = -(-N // _TILE_N)
+    k_steps = -(-K // _TILE_K)
+    splits = max(1, min(_SMS // n_tiles, k_steps // 8))
+    per = -(-k_steps // splits)
+    return -(-k_steps // per)          # no empty range
 
 
 def weight_dtype(mode: str) -> torch.dtype:
@@ -158,8 +191,10 @@ def quantized_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
                      *, mode: str = "int8", block: int = DEFAULT_BLOCK
                      ) -> torch.Tensor:
     """``x [..., K] @ dequant(qw [K, N])`` -> ``[..., N]`` in x's dtype.
-    CPU tensors run ``quantized_matmul_plain``; CUDA tensors run K11,
-    counted in ``quantized_matmul.launches``."""
+    CPU tensors run ``quantized_matmul_plain``; CUDA tensors run K11 on
+    the tensor cores, counted in ``quantized_matmul.launches``
+    (int8_block with a block that is not a multiple of 16:
+    ``quantized_matmul_fma``)."""
     _check_mode(mode, "quantized_matmul")
     lead, K = x.shape[:-1], x.shape[-1]
     if qw.dim() != 2 or qw.shape[0] != K:
@@ -191,15 +226,46 @@ def quantized_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
                          "weight and scales")
     M = x2.shape[0]
     out = torch.empty((M, N), device=x.device, dtype=torch.float32)
+    if mode == "int8_block" and block % MMA_DEPTH:
+        quantized_matmul_fma(x2, qw, scales, out, block)
+        return out.reshape(*lead, N)
+    splits = split_count(K, N)
+    partial = (torch.empty((splits, M, N), device=x.device,
+                           dtype=torch.float32) if splits > 1 else None)
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pt_quant_matmul(x2.data_ptr(), qw.data_ptr(),
-                                  scales.data_ptr(), out.data_ptr(), M, K, N,
-                                  _MODE_CODES[mode], int(block), stream)
+        err = lib.pt_quant_matmul(
+            x2.data_ptr(), qw.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(), M, K, N,
+            _MODE_CODES[mode], int(block), splits, stream)
     _build.check(err, "quantized_matmul")
     quantized_matmul.launches += 1
     return out.reshape(*lead, N)
 
 
 quantized_matmul.launches = 0
+
+
+def quantized_matmul_fma(x2: torch.Tensor, qw: torch.Tensor,
+                         scales: torch.Tensor, out: torch.Tensor,
+                         block: int) -> torch.Tensor:
+    """int8_block on the FMA units, for a block that is not a multiple
+    of ``MMA_DEPTH``: fills ``out`` [M, N] from x2 [M, K] float32, qw
+    int8 [K, N] and scales [ceil(K / block), N], all contiguous CUDA
+    tensors (``quantized_matmul`` checks them). Counted in
+    ``quantized_matmul_fma.launches``."""
+    M, K = x2.shape
+    N = qw.shape[1]
+    lib = _build.library()
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        err = lib.pt_quant_matmul_fma(x2.data_ptr(), qw.data_ptr(),
+                                      scales.data_ptr(), out.data_ptr(), M,
+                                      K, N, int(block), stream)
+    _build.check(err, "quantized_matmul (FMA, odd block)")
+    quantized_matmul_fma.launches += 1
+    return out
+
+
+quantized_matmul_fma.launches = 0

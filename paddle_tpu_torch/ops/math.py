@@ -149,6 +149,22 @@ def _gelu(ctx, op, ins):
 # -- activations and unary math (``paddle_tpu/ops/math.py:159-173``) ----------
 
 
+class _Abs(torch.autograd.Function):
+    """|x| with ``jnp.abs``'s gradient: ``sign`` taken as ``x >= 0``, so
+    d|x|/dx is 1 at 0 and at -0.0 (``torch.abs`` gives 0 there); the
+    value is torch.abs's, +0.0 for -0.0 as in JAX."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
 def _register_unary(name, fn):
     @register_op(name, inputs=("X",), outputs=("Out",))
     def _lower(ctx, op, ins, _fn=fn):
@@ -158,12 +174,20 @@ def _register_unary(name, fn):
 _register_unary("relu", F.relu)
 _register_unary("sqrt", torch.sqrt)
 _register_unary("square", torch.square)
-_register_unary("abs", torch.abs)
+_register_unary("abs", lambda x: _Abs.apply(x))
 _register_unary("reciprocal", lambda x: 1.0 / x)
 
 
 @register_op("clip", inputs=("X",), outputs=("Out",))
 def _clip(ctx, op, ins):
-    """``paddle_tpu/ops/math.py:243``: jnp.clip(x, min, max)."""
-    return {"Out": [torch.clamp(ins["X"][0], op.attrs.get("min"),
-                                op.attrs.get("max"))]}
+    """``paddle_tpu/ops/math.py:243``: jnp.clip(x, min, max), composed
+    as jnp.clip is, ``minimum(maximum(x, min), max)``: where x equals a
+    bound, maximum / minimum split the gradient in halves (X@GRAD 0.5),
+    where ``torch.clamp`` would pass all of it."""
+    out = ins["X"][0]
+    lo, hi = op.attrs.get("min"), op.attrs.get("max")
+    if lo is not None:
+        out = torch.maximum(out, out.new_full((), lo))
+    if hi is not None:
+        out = torch.minimum(out, out.new_full((), hi))
+    return {"Out": [out]}

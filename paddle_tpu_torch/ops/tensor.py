@@ -158,9 +158,13 @@ def _lookup_table_grad(ctx, op, ins):
 @register_op("top_k", inputs=("X",), outputs=("Out", "Indices"))
 def _top_k(ctx, op, ins):
     """``paddle_tpu/ops/tensor.py:330``: the k largest along the last
-    axis, largest first, with int64 indices."""
-    vals, idx = torch.topk(ins["X"][0], int(op.attrs.get("k", 1)), dim=-1)
-    return {"Out": [vals], "Indices": [idx]}
+    axis, largest first, with int64 indices. Equal values keep
+    ``jax.lax.top_k``'s order, the lower index first, and NaN sorts
+    above every number as there: a stable descending sort does both
+    (``torch.topk`` leaves the order of ties undefined)."""
+    k = int(op.attrs.get("k", 1))
+    vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True, stable=True)
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
 
 
 @register_op("sign", inputs=("X",), outputs=("Out",))

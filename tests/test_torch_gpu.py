@@ -19,6 +19,7 @@ import torch
 from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch.generation import GenerationEngine
 from paddle_tpu_torch.inference import Config, create_predictor
+from paddle_tpu_torch.kernels.quant_matmul import MMA_DEPTH
 from paddle_tpu_torch.models.gpt import GPTConfig
 
 pytestmark = pytest.mark.gpu
@@ -349,6 +350,67 @@ def test_flash_attention_kernels_match_plain(cuda, case, dtype):
         assert (a is None and b is None) or torch.equal(a, b)
 
 
+# the tensor-core backward over head dims, lengths and masks: (kind,
+# bias shape or None); "dead_row" masks every key of batch row 1
+FLASH_BWD_KINDS = {"causal": None, "batch_mask": None, "dead_row": None,
+                   "bias_full": (2, 2), "bias_heads": (1, 2),
+                   "bias_batch": (2, 1), "bias_shared": (1, 1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S", [1000, 1024])
+@pytest.mark.parametrize("kind", sorted(FLASH_BWD_KINDS))
+def test_flash_backward_over_head_dims_and_lengths(cuda, dtype, D, S, kind):
+    B, H = 2, 2
+    g = torch.Generator(device=cuda).manual_seed(D + S + len(kind))
+    q, k, v, do = (torch.randn(B, H, S, D, device=cuda, generator=g)
+                   .to(dtype) for _ in range(4))
+    mask = bias = None
+    if kind in ("batch_mask", "dead_row") or kind.startswith("bias"):
+        keep = torch.rand(B, S, device=cuda, generator=g) > 0.3
+        keep[:, 0] = True
+        if kind == "dead_row":
+            keep[1] = False
+        mask = torch.where(keep, 0.0, -1e30).float()
+    bshape = FLASH_BWD_KINDS[kind]
+    if bshape is not None:
+        bias = torch.randn(*bshape, S, S, device=cuda, generator=g)
+    causal, scale = kind == "causal", D ** -0.5
+    o, lse = K.flash_attention_fwd(q, k, v, mask, bias, scale, causal)
+    got = K.flash_attention_bwd(q, k, v, mask, bias, o, lse, do, scale,
+                                causal)
+    want = K.flash_attention_bwd_plain(q, k, v, mask, bias, o, lse, do,
+                                       scale, causal)
+    bwd_tol = FLASH_TOL[dtype][1]
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        tol = dict(bwd_tol)
+        if name == "dbias":   # a sum over the broadcast (b, h) too
+            tol = dict(atol=1e-4 * B * H, rtol=1e-4)
+        if kind == "dead_row":
+            # batch row 1 has no key: exp(NEG_INF - lse) is 1 for every
+            # key (float32 absorbs log S into -1e30), so its gradients
+            # are sums of S terms of size sqrt(D), about 150 here, and
+            # their error follows that scale, not each element's: the
+            # atol is taken relative to the largest entry of the row
+            # (bf16: about one bf16 step there, P and dS being bf16)
+            torch.testing.assert_close(a[0], b[0], msg=name, **tol)
+            scale_1 = max(1.0, float(b[1].float().abs().max()))
+            torch.testing.assert_close(
+                a[1], b[1], msg=f"{name} (fully masked batch row)",
+                atol=tol["atol"] * scale_1, rtol=tol["rtol"])
+            continue
+        torch.testing.assert_close(a, b, msg=name, **tol)
+    again = K.flash_attention_bwd(q, k, v, mask, bias, o, lse, do, scale,
+                                  causal)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
 def test_flash_attention_autograd_and_fully_masked_row(cuda):
     """The public function on CUDA: kernels forward and backward, a
     fully masked row averaging V (non-causal), and D > 256 refused."""
@@ -433,10 +495,11 @@ def test_tiny_bert_amp_on_cuda_matches_cpu(cuda):
 
 
 def _k_tol(K_, ref):
-    """float32 sums over K in another order than the plain version's:
-    2e-6 * sqrt(K) of the output's scale (the products are the same
-    bits on both sides: the kernels dequantize as the plain versions
-    do)."""
+    """2e-6 * sqrt(K) of the output's scale: float32 sums over K in
+    another order than the plain version's. K11's fp8 and K12 take the
+    plain version's products; K11's int8 modes take exact products of q
+    and three bf16 terms of x and scale the finished (block) sum, one
+    rounding more a product than the plain version's scaled weights."""
     return 2e-6 * K_ ** 0.5 * max(1.0, float(ref.abs().max()))
 
 
@@ -465,6 +528,55 @@ def test_quant_matmul_kernel_matches_plain(cuda, case, mode):
     assert torch.isfinite(out).all()
     assert float((out - ref).abs().max()) <= _k_tol(K_, ref)
     assert bool((out[:, 1] == 0).all())
+
+
+# K11's tensor-core kernel and, for int8_block at block 100, its FMA
+# kernel: M from one row to more than one row tile, N a multiple of 16 or
+# not (scalar weight loads), K a multiple of the 32-row step or not
+QMM_GRID = [(mode, block, M, N, K_)
+            for mode, block in (("int8", 256), ("fp8", 256),
+                                ("int8_block", 256), ("int8_block", 100))
+            for M in (1, 37, 128, 300) for N in (2048, 2050)
+            for K_ in (2000, 2048, 8192)]
+
+
+@pytest.mark.parametrize("mode,block,M,N,K_", QMM_GRID)
+def test_quant_matmul_kernels_over_the_shape_grid(cuda, mode, block, M, N,
+                                                  K_):
+    g = torch.Generator(device=cuda).manual_seed(M * 3 + N + K_)
+    w = 0.02 * torch.randn(K_, N, device=cuda, generator=g)
+    x = torch.randn(M, K_, device=cuda, generator=g)
+    qw, qs = K.quantize_weight(w, mode, block)
+    fma = block % MMA_DEPTH != 0
+    counter = K.quantized_matmul_fma if fma else K.quantized_matmul
+    other = K.quantized_matmul if fma else K.quantized_matmul_fma
+    before = (counter.launches, other.launches)
+    out = K.quantized_matmul(x, qw, qs, mode=mode, block=block)
+    torch.cuda.synchronize()
+    assert (counter.launches, other.launches) == (before[0] + 1, before[1])
+    ref = K.quantized_matmul_plain(x, qw, qs, mode, block)
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= _k_tol(K_, ref)
+
+
+@pytest.mark.parametrize("mode,block", [("int8", 256), ("fp8", 256),
+                                        ("int8_block", 256),
+                                        ("int8_block", 100)])
+@pytest.mark.parametrize("K_,N", [(2048, 6144), (8192, 2048), (2000, 2050)])
+def test_quant_matmul_rows_do_not_depend_on_the_batch(cuda, mode, block,
+                                                      K_, N):
+    """The rows of a 128-row call equal, bit for bit, the same rows
+    computed at M = 1 and M = 37 (tile, split and summation order
+    depend on K, N, mode and block only)."""
+    g = torch.Generator(device=cuda).manual_seed(K_ + N)
+    w = 0.02 * torch.randn(K_, N, device=cuda, generator=g)
+    x = torch.randn(128, K_, device=cuda, generator=g)
+    qw, qs = K.quantize_weight(w, mode, block)
+    out = K.quantized_matmul(x, qw, qs, mode=mode, block=block)
+    for m in (1, 37):
+        assert torch.equal(
+            K.quantized_matmul(x[:m], qw, qs, mode=mode, block=block),
+            out[:m])
 
 
 @pytest.mark.parametrize("case", sorted(RAGGED))

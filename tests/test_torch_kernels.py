@@ -238,6 +238,12 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     qw, qs = K.quantize_weight(x.T.contiguous(), "int8")
     assert torch.equal(K.quantized_matmul(x[:, :16], qw, qs),
                        K.quantized_matmul_plain(x[:, :16], qw, qs))
+    # an int8_block block that is not a multiple of 16 (the FMA kernel's
+    # case on CUDA) is the plain version too
+    qw, qs = K.quantize_weight(x.T.contiguous(), "int8_block", 5)
+    assert torch.equal(
+        K.quantized_matmul(x[:, :16], qw, qs, mode="int8_block", block=5),
+        K.quantized_matmul_plain(x[:, :16], qw, qs, "int8_block", 5))
     pools = [torch.ones(2, 16, 3)], [torch.ones(2, 3, 9)], [torch.ones(2)]
     K.batched_lora_add_(x[:, :9].clone(), x, *pools,
                         torch.ones(9, 1, dtype=torch.int32))
@@ -260,7 +266,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
         "layer_norm", "ragged_paged_attention", "layer_norm_bwd",
         "softmax_xent_fwd", "softmax_xent_bwd", "fused_adam_update",
         "flash_attention_fwd", "flash_attention_bwd",
-        "ragged_paged_attention_q", "quantized_matmul", "batched_lora_add_",
+        "ragged_paged_attention_q", "quantized_matmul",
+        "quantized_matmul_fma", "batched_lora_add_",
         "fused_momentum_update", "paged_attention"])
 
 
