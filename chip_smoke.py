@@ -126,9 +126,11 @@ RATE_NAMES = {"float32": "FP32 FMA, 67 TFLOP/s",
               "bfloat16": "bf16 mma, 989 TFLOP/s",
               "bf16_x3": "3 bf16 mma a product, 989/3 TFLOP/s",
               "tf32_x3": "3xTF32 mma, 495/3 TFLOP/s"}
-# the earlier designs' times (K11 and the flash backward on the FP32 FMA
-# units) on an NVIDIA H100 80GB HBM3 at 700 W, from PERF.md, printed
-# beside the tensor-core kernels'
+# the earlier designs' times on an NVIDIA H100 80GB HBM3 at 700 W, from
+# PERF.md, printed in the log beside the redesigned kernels' (K11, the
+# flash backward and the flash forward on the FP32 FMA units, K13 with one
+# block per (row, head)); not on the kernels line, which carries only this
+# run's numbers
 EARLIER_DESIGN_MS = {
     "quantized_matmul": {"int8_qkv": 0.164726, "int8_ffn2": 0.435523,
                          "int8_head": 0.739203, "int8_block_qkv": 0.274531,
@@ -138,6 +140,11 @@ EARLIER_DESIGN_MS = {
     "flash_attention_bwd": {"gpt3_1p3b": 2.563510, "bert_large": 1.666838,
                             "gpt3_1p3b_bfloat16": 2.780298,
                             "long_bfloat16": 16.983804},
+    "flash_attention_fwd": {"gpt3_1p3b": 0.740061, "bert_large": 0.583037,
+                            "gpt3_1p3b_bfloat16": 0.737757,
+                            "bert_large_bfloat16": 0.571782,
+                            "long_bfloat16": 4.529747},
+    "paged_attention": {"float32": 0.065568, "bfloat16": 0.131898},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
 ALL_PHASES = "2345678"
@@ -623,19 +630,26 @@ def check_paged_attention(torch, np, K, gen, seed):
     """K13 against its plain version: the two_lane decode shape (8 lanes,
     q [8, 16, 128] over [16, 512, 16, 128] pools, each lane 16 tokens into
     the decode of one of phase 3's first 8 prompts) and edge cases (GQA
-    with 4 kv heads for 16, lengths 0, 1, 37 and a full 64-page table),
-    float32 and bfloat16."""
+    with 4 kv heads for 16, lengths 0, 1, 37, the split chunk and one
+    past it, a full 64-page table and past it; pages of 7 keys, which
+    give an odd chunk of 63, at D = 60), float32 and bfloat16; two calls
+    and each row run alone give the same bits."""
     import torch.nn.functional as F
+    from paddle_tpu_torch.kernels.paged_attention import split_geometry
 
     prompt_lens = serving_prompts(np, seed, VOCAB)[0][:LANES]
     main = dict(B=LANES, H=16, KVH=16, D=128, P=512, ps=PAGE, maxp=64,
                 lengths=[int(n) + 16 for n in prompt_lens])
-    edge = dict(B=4, H=16, KVH=4, D=128, P=160, ps=PAGE, maxp=64,
-                lengths=[0, 1, 37, 64 * PAGE])
+    chunk, _ = split_geometry(64, PAGE)
+    edge = dict(B=7, H=16, KVH=4, D=128, P=160, ps=PAGE, maxp=64,
+                lengths=[0, 1, 37, chunk, chunk + 1, 64 * PAGE,
+                         64 * PAGE + 5])
+    odd = dict(B=7, H=8, KVH=2, D=60, P=96, ps=7, maxp=20,
+               lengths=[0, 1, 63, 64, 126, 140, 145])
     results = {}
     for dtype_name in ("float32", "bfloat16"):
         dt = getattr(torch, dtype_name)
-        for name, case in (("main", main), ("edge", edge)):
+        for name, case in (("main", main), ("edge", edge), ("odd", odd)):
             q, kp, vp, lens, tb = paged_case(torch, np, dt, gen, seed=seed,
                                              **case)
             what = (f"paged_attention {dtype_name} {name} B{case['B']} "
@@ -648,6 +662,17 @@ def check_paged_attention(torch, np, K, gen, seed):
             for b, n in enumerate(case["lengths"]):
                 require(n > 0 or bool((out[b] == 0).all()),
                         f"{what}: the length-0 row {b} is not 0")
+            # the splits merge in a fixed order: the same bits twice, and
+            # a row's bits do not depend on the rows beside it
+            require(torch.equal(out, K.paged_attention(q, kp, vp, lens, tb)),
+                    f"{what}: two calls differ")
+            for b in range(case["B"]):
+                alone = K.paged_attention(q[b:b + 1].contiguous(), kp, vp,
+                                          lens[b:b + 1].contiguous(),
+                                          tb[b:b + 1].contiguous())
+                require(torch.equal(alone[0], out[b]),
+                        f"{what}: row {b} alone differs from row {b} of the "
+                        "batch")
             row = {"max_abs_err": err}
             if name == "main":
                 nbytes, ops = paged_bytes_ops(q, kp, case["lengths"],
@@ -669,7 +694,9 @@ def check_paged_attention(torch, np, K, gen, seed):
                         q, kp, vp, lens, tb)),
                     library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
                         qs, kd, vd, attn_mask=mask)),
-                    bound_ms=bms, bound_by=by)
+                    bound_ms=bms, bound_by=by,
+                    earlier_design_ms=EARLIER_DESIGN_MS["paged_attention"][
+                        dtype_name])
                 results[dtype_name] = row
             log(f"  {what}: {fmt(row, dtype_name)}")
     return results
@@ -743,6 +770,12 @@ def check_flash(torch, np, K, gen, seed):
             errf = max(compare(torch, o, po, dt_name, f"{what} o"),
                        compare(torch, lse, plse, "float32", f"{what} lse",
                                atol=1e-4))
+            # no float atomics: a second forward gives the same bits
+            o2, lse2 = K.flash_attention_fwd(q, k, v, mask, None, scale,
+                                             causal)
+            require(torch.equal(o, o2) and torch.equal(lse, lse2),
+                    f"{what}: two forwards differ")
+            del o2, lse2
             if mkind == "dead_row":
                 mean_v = v[1].float().mean(dim=1, keepdim=True).expand(
                     H, S, D)
@@ -783,10 +816,8 @@ def check_flash(torch, np, K, gen, seed):
                              q, k, v, mask, None, o, lse, do, scale, causal),
                          lambda: torch.autograd.grad(
                              lo, (lq, lk, lv), do, retain_graph=True))):
-                    # the forward runs on the FP32 units in float32, the
-                    # backward on 3xTF32
-                    rate = ("tf32_x3" if bwd and dt_name == "float32"
-                            else dt_name)
+                    # float32: both run 3xTF32 on the tensor cores
+                    rate = "tf32_x3" if dt_name == "float32" else dt_name
                     bms, by = bound_ms(*flash_bytes_ops(q, causal, bwd), rate)
                     row.update(ms=device_ms(torch, kern, reps=reps),
                                plain_ms=device_ms(torch, plain, reps=reps),
@@ -795,8 +826,10 @@ def check_flash(torch, np, K, gen, seed):
                                bound_rate=RATE_NAMES[rate])
                 del lo
                 key = name if dt_name == "float32" else f"{name}_{dt_name}"
-                rowb["earlier_design_ms"] = EARLIER_DESIGN_MS[
-                    "flash_attention_bwd"].get(key)
+                for row, kname in ((rowf, "flash_attention_fwd"),
+                                   (rowb, "flash_attention_bwd")):
+                    row["earlier_design_ms"] = EARLIER_DESIGN_MS[kname].get(
+                        key)
                 rows["flash_attention_fwd"][key] = rowf
                 rows["flash_attention_bwd"][key] = rowb
             log(f"  {what} fwd: {fmt(rowf, dt_name)}")
@@ -1077,6 +1110,7 @@ KERNEL_GROUPS = (("ragged_paged_attention_kernel<float, signed char",
                  ("lora_", "batched_lora_add_ (K12)"),
                  ("ragged_paged_attention", "ragged_paged_attention (K2)"),
                  ("paged_attention_kernel", "paged_attention (K13)"),
+                 ("paged_attention_merge", "paged_attention (K13)"),
                  ("momentum_kernel", "fused_momentum (K10m)"),
                  ("layer_norm_fwd", "layer_norm (K1)"),
                  ("layer_norm_bwd", "layer_norm_bwd (K3)"),

@@ -50,7 +50,7 @@ SIGNATURES: Dict[str, List] = {
     "pt_softmax_xent_bwd": [_vp] * 5 + [_int, _int, _i64, _int, _vp],
     "pt_fused_adam": [_vp] * 8 + [_i64] + [_float] * 6 + [_int, _vp],
     "pt_fused_momentum": [_vp] * 5 + [_i64, _float, _int, _int, _vp],
-    "pt_paged_attention": [_vp] * 6 + [_int] * 7 + [_float, _int, _vp],
+    "pt_paged_attention": [_vp] * 8 + [_int] * 9 + [_float, _int, _vp],
     "pt_flash_attention_fwd": [_vp] * 7 + [_int] * 6 + [_float, _int, _int,
                                                         _vp],
     "pt_flash_attention_bwd_delta": [_vp] * 3 + [_i64, _int, _int, _vp],

@@ -25,15 +25,20 @@
 // Keys past S do not exist (the TPU pads and force-masks them; here the
 // tiles are bounds-checked, which gives the same result).
 //
-// Forward. 256 threads a block, as a 16 x 16 grid; tiles of BT = 64
-// query rows and 64 keys (32 for D > 128), each thread owning a 4 x 4
-// (2 x 2) piece of every score tile and 4 (2) rows x D/16 columns of every
-// accumulator, on the FP32 units. Tiles are staged in shared memory as
-// float32 with a row stride of D + 1, so the column-walking reads of the
-// score product hit 32 different banks. The online softmax state (m, l)
-// and the output accumulator stay in registers (:265-275); each thread
-// keeps a partial l of its own columns, summed across its 16 row-mates
-// once at the end.
+// Forward, on the tensor cores. A block owns 16 query rows a warp and
+// walks the key tiles; each warp loads its Q fragments once, for the
+// whole walk, and K and V tiles stream through a cp.async ring (the next
+// tiles load while the current one is multiplied). S = Q K^T
+// is an mma product; scale, bias, mask and causal are applied and the
+// online softmax is taken on the C fragments, the four lanes of a row
+// sharing (m, l) by quad shuffles; P goes from those registers straight
+// into the A operand of P V. bfloat16 inputs: bf16 mma.m16n8k16, with P
+// rounded to bf16 for P V (as FlashAttention-2; the one rounding the
+// reference does not make, which keeps P in float32), while l and lse
+// sum the unrounded float32 P. float32 inputs: 3xTF32 on mma.m16n8k8;
+// Q is split into tf32 hi and lo once, K and V once a tile when it is
+// staged (hi in place, lo in a plane beside it), P once a tile in
+// registers, so no warp splits an operand another has split.
 //
 // Backward, on the tensor cores: three kernels, delta (one warp a row),
 // dq (a block per query tile walks the key tiles) and dk/dv (a block per
@@ -61,8 +66,7 @@
 // and lse; at these shapes the flops bound it. The backward's two
 // kernels recompute S and dP (14 instead of 10 B H S^2 D) to keep dq
 // free of atomics, and run at the bf16 rate (989 TFLOP/s) or the 3xTF32
-// rate (495/3) on float32. The forward still runs on the FP32 units (67
-// TFLOP/s); its tensor-core redesign can reuse mma.cuh's tile products.
+// rate (495/3) on float32, as does the forward.
 
 #include <math.h>
 
@@ -75,37 +79,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;   // NEG_INF of the reference, not -inf
-
-// row stride of a staged [rows, D] tile, in floats
-__host__ __device__ __forceinline__ int ld_of(int D) { return D + 1; }
-
-// Stage rows [r0, r0 + BT) of a [S, D] slab into sh (float32, stride
-// D + 1); rows past S are zero.
-template <typename T, int BT>
-__device__ __forceinline__ void load_tile(float* sh, const T* g, int r0,
-                                          int S, int D) {
-  const int ld = ld_of(D);
-  for (int i = threadIdx.x; i < BT * D; i += kThreads) {
-    const int r = i / D, c = i - r * D;
-    const int gr = r0 + r;
-    sh[r * ld + c] =
-        gr < S ? pt::to_float(g[static_cast<int64_t>(gr) * D + c]) : 0.f;
-  }
-}
-
-// max / sum over the 16 lanes that share a tile row (the two halves of
-// a warp hold two rows)
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // The score of (query r, key c) before the softmax, from the raw dot
 // product: the reference's order (scale, + bias, + mask, causal where).
@@ -130,121 +103,314 @@ __device__ __forceinline__ const float* bias_slab(const float* bias, int b,
 }
 
 // ---------------------------------------------------------------------------
-// forward: one block per (query tile, b * H + h)
+// forward on the tensor cores: one block per (query tile, b * H + h). Per
+// (dtype, padded head dim DP) a shape: WARPS warps own 16 query rows
+// each; key tiles of BN rows stream through a two-stage cp.async ring.
+// QREG: Q's fragments live in registers for the whole key walk; else
+// (float32 at DP = 256, where Q's hi and lo would take 256 registers) Q
+// is split once into two planes of shared memory. Shared memory is sized
+// so that at least two blocks fit an SM at DP <= 128.
 // ---------------------------------------------------------------------------
 
-template <typename T, int BT, int DMAX>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DP>
+struct FwdShape;
+template <>
+struct FwdShape<__nv_bfloat16, 64> {
+  static constexpr int WARPS = 4, BN = 64, MINB = 2;
+  static constexpr bool QREG = true;
+};
+template <>
+struct FwdShape<__nv_bfloat16, 128> {
+  static constexpr int WARPS = 4, BN = 64, MINB = 2;
+  static constexpr bool QREG = true;
+};
+template <>
+struct FwdShape<__nv_bfloat16, 256> {
+  static constexpr int WARPS = 4, BN = 32, MINB = 1;
+  static constexpr bool QREG = true;
+};
+template <>
+struct FwdShape<float, 64> {
+  static constexpr int WARPS = 4, BN = 64, MINB = 2;
+  static constexpr bool QREG = true;
+};
+template <>
+struct FwdShape<float, 128> {
+  static constexpr int WARPS = 4, BN = 32, MINB = 2;
+  static constexpr bool QREG = true;
+};
+template <>
+struct FwdShape<float, 256> {
+  static constexpr int WARPS = 2, BN = 16, MINB = 1;
+  static constexpr bool QREG = false;
+};
+
+template <typename T, int DP>
+__host__ __device__ constexpr int fwd_ld() {
+  return DP + pt::mma::Pad<T>::value;
+}
+
+// bytes of dynamic shared memory: the ring (2 stages of K and V); for
+// float32 the lo planes of one K and one V tile, and Q's two planes
+// unless Q is held in registers
+template <typename T, int DP>
+constexpr size_t fwd_smem_bytes() {
+  using Shape = FwdShape<T, DP>;
+  constexpr size_t tile = static_cast<size_t>(Shape::BN) * fwd_ld<T, DP>();
+  size_t n = 4 * tile * sizeof(T);
+  if (sizeof(T) == 4) {
+    n += 2 * tile * 4;
+    if (!Shape::QREG) n += 2 * static_cast<size_t>(16 * Shape::WARPS) *
+                           fwd_ld<T, DP>() * 4;
+  }
+  return n;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// two adjacent outputs (8-byte or 4-byte aligned) in one store
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(FwdShape<T, DP>::WARPS * 32,
+                                  FwdShape<T, DP>::MINB)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ mask,
                  const float* __restrict__ bias, T* __restrict__ o,
                  float* __restrict__ lse, int H, int S, int D, int Bb, int Hb,
-                 float scale, int causal) {
-  constexpr int R = BT / 16, RD = DMAX / 16;
-  extern __shared__ float smem[];
-  const int ld = ld_of(D);
-  float* sQ = smem;              // [BT, ld]
-  float* sKV = sQ + BT * ld;     // [BT, ld]: K, then V of the same tile
-  float* sP = sKV + BT * ld;     // [BT, BT + 1]
-  const int qt = blockIdx.x, bh = blockIdx.y;
+                 float scale, int causal, int vec) {
+  using Shape = FwdShape<T, DP>;
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int NTH = Shape::WARPS * 32, BM = 16 * Shape::WARPS;
+  constexpr int BN = Shape::BN, LD = fwd_ld<T, DP>();
+  constexpr int NT = BN / 8, OT = DP / 8;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  T* ring = reinterpret_cast<T*>(fwd_smem);   // 2 stages of K, V [BN, LD]
+  uint32_t* lo = reinterpret_cast<uint32_t*>(ring + 4 * BN * LD);  // f32
+  uint32_t* sQ = lo + 2 * BN * LD;   // f32, !QREG: Q hi, Q lo [BM, LD]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the last query tiles (the longest causal walks) start first
+  const int qt = gridDim.x - 1 - blockIdx.x, bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = qt * BM;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const int64_t base = static_cast<int64_t>(bh) * S * D;
-  const int q0 = qt * BT;
   const float* bias_bh = bias_slab(bias, b, h, Bb, Hb, S);
   const float* mask_b = mask ? mask + static_cast<int64_t>(b) * S : nullptr;
+  const int nk = (S + BN - 1) / BN;
+  const int kt_end = causal ? min(nk, (min(q0 + BM, S) - 1) / BN + 1) : nk;
 
-  load_tile<T, BT>(sQ, q + base, q0, S, D);
-  float m[R], l[R], acc[R][RD];
+  // the first K/V tile is on its way while Q is read
+  auto load_kv = [&](int kt) {
+    T* dst = ring + (kt & 1) * 2 * BN * LD;
+    pt::mma::load_tile<T, BN, DP, LD, NTH>(dst, k + base, kt * BN, S, D, vec);
+    pt::mma::load_tile<T, BN, DP, LD, NTH>(dst + BN * LD, v + base, kt * BN,
+                                           S, D, vec);
+    pt::mma::cp_async_commit();
+  };
+  load_kv(0);
+  // Q: bf16 A fragments, or float32 split into tf32 hi and lo, once.
+  // bf16: the tile is staged in the ring's second stage, which the walk
+  // first fills after its first barrier, and read with ldmatrix; float32
+  // (QREG): read straight into the fragments (no stage: at D = 128 the
+  // staged read costs registers the split operands need).
+  constexpr int QS = F32 ? DP / 8 : DP / 16;
+  constexpr int QR = Shape::QREG ? QS : 1;
+  uint32_t qa[QR][4], qb[QR][4];   // bf16: qa; float32: qa hi, qb lo
+  if constexpr (Shape::QREG && F32) {
+    pt::mma::load_a_tf32x3<DP>(qa, qb,
+                               reinterpret_cast<const float*>(q) + base,
+                               q0 + warp * 16, S, D);
+  } else if constexpr (Shape::QREG) {
+    static_assert(BM <= 2 * BN, "the Q tile must fit one ring stage");
+    T* sQs = ring + 2 * BN * LD;
+    pt::mma::load_tile<T, BM, DP, LD, NTH>(sQs, q + base, q0, S, D, vec);
+    pt::mma::cp_async_commit();
+    pt::mma::cp_async_wait<0>();
+    __syncthreads();
+    const int mi = lane >> 3, r8 = lane & 7;
+    const T* pa = sQs + (warp * 16 + (mi & 1) * 8 + r8) * LD + (mi >> 1) * 8;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = kNegInf;   // as the streaming kernel's init (:242)
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < RD; ++j) acc[i][j] = 0.f;
+    for (int st = 0; st < QS; ++st) pt::mma::ldmatrix_x4(qa[st], pa + st * 16);
+  } else {
+    float* qf = reinterpret_cast<float*>(sQ);
+    pt::mma::load_tile<float, BM, DP, LD, NTH>(
+        qf, reinterpret_cast<const float*>(q) + base, q0, S, D, vec);
+    pt::mma::cp_async_commit();
+    pt::mma::cp_async_wait<0>();
+    __syncthreads();
+    pt::mma::split_planes<NTH>(qf, sQ + BM * LD, BM * LD);
+    // the first loop iteration synchronises before the planes are read
   }
-  const int nk = (S + BT - 1) / BT;
-  const int kt_end = causal ? min(nk, qt + 1) : nk;
+  (void)qb;
+
+  float m[2] = {kNegInf, kNegInf};   // as the streaming kernel's init (:242)
+  float l[2] = {0.f, 0.f};           // this lane's columns only
+  float acc[OT][4];
+#pragma unroll
+  for (int j = 0; j < OT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();   // the last tile's P V is done with sKV and sP
-    load_tile<T, BT>(sKV, k + base, k0, S, D);
+    // tile kt is in, and every warp is done with tile kt - 1, whose stage
+    // now takes tile kt + 1 while this one is multiplied (one barrier a
+    // tile; float32 takes a second one after the split)
+    pt::mma::cp_async_wait<0>();
     __syncthreads();
-    float s[R][R];
+    if (kt + 1 < kt_end) load_kv(kt + 1);
+    T* sK = ring + (kt & 1) * 2 * BN * LD;
+    T* sV = sK + BN * LD;
+    if constexpr (F32) {
+      // K and V split once for every warp: hi in place, lo beside
+      pt::mma::split_planes<NTH>(reinterpret_cast<float*>(sK), lo,
+                                 2 * BN * LD);
+      __syncthreads();
+    }
+    // without a bias, the mask is a column term (-inf past S), read here
+    // so that its load latency hides behind the S product
+    const int k0 = kt * BN;
+    float col[NT][2];
+    if (!bias_bh) {
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[R], kk[R];
+        for (int par = 0; par < 2; ++par) {
+          const int c = k0 + n * 8 + 2 * t + par;
+          col[n][par] = c < S ? (mask_b ? mask_b[c] : 0.f) : -INFINITY;
+        }
+    }
+    float s[NT][4];
 #pragma unroll
-      for (int i = 0; i < R; ++i) a[i] = sQ[(ty + 16 * i) * ld + d];
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < R; ++j) kk[j] = sKV[(tx + 16 * j) * ld + d];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    if constexpr (F32) {
+      const uint32_t* kh = reinterpret_cast<const uint32_t*>(sK);
+      if constexpr (Shape::QREG) {
+        pt::mma::warp_mma_rbt_tf32x3<NT, DP, LD>(
+            s,
+            [&](int st, uint32_t(&ah)[4], uint32_t(&al)[4]) {
 #pragma unroll
-      for (int i = 0; i < R; ++i)
+              for (int e = 0; e < 4; ++e) {
+                ah[e] = qa[st][e];
+                al[e] = qb[st][e];
+              }
+            },
+            kh, lo);
+      } else {
+        const int mi = lane >> 3, r8 = lane & 7;
+        const int qoff =
+            (warp * 16 + (mi & 1) * 8 + r8) * LD + (mi >> 1) * 4;
+        const uint32_t* pqh = sQ + qoff;
+        const uint32_t* pql = sQ + BM * LD + qoff;
+        pt::mma::warp_mma_rbt_tf32x3<NT, DP, LD>(
+            s,
+            [&](int st, uint32_t(&ah)[4], uint32_t(&al)[4]) {
+              pt::mma::ldmatrix_x4(ah, pqh + st * 8);
+              pt::mma::ldmatrix_x4(al, pql + st * 8);
+            },
+            kh, lo);
+      }
+    } else {
+      pt::mma::warp_mma_rbt<NT, DP, LD>(
+          s, qa, reinterpret_cast<const __nv_bfloat16*>(sK));
+    }
+    // the online softmax on the C fragments: e = 2 * hh + (column parity)
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (bias_bh) {
 #pragma unroll
-        for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = rows[e >> 1], c = k0 + n * 8 + 2 * t + (e & 1);
+          const int rr = r < S ? r : S - 1;   // rows past S are never written
+          s[n][e] = c < S ? masked_score(s[n][e], scale, bias_bh, mask_b, rr,
+                                         c, S, causal)
+                          : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+    } else {
+      // only a tile that crosses this warp's diagonal needs the causal test
+      const bool diag = causal && k0 + BN - 1 > q0 + warp * 16;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int par = 0; par < 2; ++par) {
+          const int c = k0 + n * 8 + 2 * t + par;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int e = 2 * hh + par;
+            float x = s[n][e] * scale + col[n][par];
+            // keys past S stay -inf: only real keys become NEG_INF (the
+            // test of c inside the branch keeps the fast path's code)
+            if (diag && c > rows[hh]) x = c < S ? kNegInf : -INFINITY;
+            s[n][e] = x;
+            mx[hh] = fmaxf(mx[hh], x);
+          }
+        }
+    }
+    float corr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      // a row's four lanes (t = 0..3) share its (m, l)
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      corr[hh] = exp2f((m[hh] - m_new) * kLog2e);
+      m[hh] = m_new;
+      l[hh] *= corr[hh];
     }
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = q0 + ty + 16 * i;
-      const int rr = r < S ? r : S - 1;   // rows past S are never written
-      float mx = -INFINITY;
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int c = k0 + tx + 16 * j;
-        s[i][j] = c < S ? masked_score(s[i][j], scale, bias_bh, mask_b, rr,
-                                       c, S, causal)
-                        : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        psum += p;
-        sP[(ty + 16 * i) * (BT + 1) + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * corr + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < RD; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();   // every thread is done with K; sP is complete
-    load_tile<T, BT>(sKV, v + base, k0, S, D);
-    __syncthreads();
-    for (int kk = 0; kk < BT; ++kk) {
-      float vv[RD];
-#pragma unroll
-      for (int j = 0; j < RD; ++j) {
-        const int c = tx + 16 * j;
-        vv[j] = c < D ? sKV[kk * ld + c] : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        // x - m first: a fully masked row (every x = m = NEG_INF) gives 1
+        const float p = exp2f((s[n][e] - m[e >> 1]) * kLog2e);
+        l[e >> 1] += p;   // from the unrounded p, in bf16 too
+        s[n][e] = p;
       }
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float p = sP[(ty + 16 * i) * (BT + 1) + kk];
+    for (int j = 0; j < OT; ++j)
 #pragma unroll
-        for (int j = 0; j < RD; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
+      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+    // P . V with P straight from the C fragments (bf16: rounded to bf16)
+    if constexpr (F32) {
+      pt::mma::warp_mma_pb_tf32x3<NT, OT, LD>(
+          acc, s, reinterpret_cast<const uint32_t*>(sV), lo + BN * LD);
+    } else {
+      pt::mma::warp_mma_pb<NT, OT, LD>(
+          acc, s, reinterpret_cast<const __nv_bfloat16*>(sV));
     }
   }
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const float lt = row_sum16(l[i]);
-    const int r = q0 + ty + 16 * i;
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int r = rows[hh];
     if (r >= S) continue;
     const float inv = 1.f / lt;
+    T* orow = o + base + static_cast<int64_t>(r) * D;
 #pragma unroll
-    for (int j = 0; j < RD; ++j) {
-      const int c = tx + 16 * j;
-      if (c < D)
-        o[base + static_cast<int64_t>(r) * D + c] =
-            pt::from_float<T>(acc[i][j] * inv);
+    for (int j = 0; j < OT; ++j) {
+      const int c = j * 8 + 2 * t;
+      const float x0 = acc[j][2 * hh] * inv, x1 = acc[j][2 * hh + 1] * inv;
+      if (c + 1 < D && (D & 1) == 0) {   // an aligned pair: one store
+        store_pair(orow + c, x0, x1);
+      } else {
+        if (c < D) orow[c] = pt::from_float<T>(x0);
+        if (c + 1 < D) orow[c + 1] = pt::from_float<T>(x1);
+      }
     }
-    if (lse && tx == 0) lse[static_cast<int64_t>(bh) * S + r] = m[i] + logf(lt);
+    if (lse && t == 0) lse[static_cast<int64_t>(bh) * S + r] = m[hh] + logf(lt);
   }
 }
 
@@ -559,30 +725,32 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int BT, int DMAX>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       const float* mask, const float* bias, void* o,
-                       float* lse, int B, int H, int S, int D, int Bb, int Hb,
-                       float scale, int causal, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (2 * BT * ld_of(D) + BT * (BT + 1));
-  auto kern = flash_fwd_kernel<T, BT, DMAX>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + BT - 1) / BT, B * H);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, bias, static_cast<T*>(o), lse, H, S, D,
-      Bb, Hb, scale, causal);
-  return cudaGetLastError();
-}
-
 // cp.async needs D * sizeof(T) a multiple of 16 and 16-byte aligned slabs
 template <typename T>
-int bwd_vec(int D, std::initializer_list<const void*> ptrs) {
+int vec_ok(int D, std::initializer_list<const void*> ptrs) {
   if ((D * sizeof(T)) % 16 != 0) return 0;
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return 0;
   return 1;
+}
+
+template <typename T, int DP>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       const float* mask, const float* bias, void* o,
+                       float* lse, int B, int H, int S, int D, int Bb, int Hb,
+                       float scale, int causal, cudaStream_t st) {
+  using Shape = FwdShape<T, DP>;
+  constexpr int BM = 16 * Shape::WARPS;
+  constexpr size_t smem = fwd_smem_bytes<T, DP>();
+  auto kern = flash_fwd_kernel<T, DP>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + BM - 1) / BM, B * H);
+  kern<<<grid, Shape::WARPS * 32, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), mask, bias, static_cast<T*>(o), lse, H, S, D,
+      Bb, Hb, scale, causal, vec_ok<T>(D, {q, k, v}));
+  return cudaGetLastError();
 }
 
 template <typename T, int DP>
@@ -608,7 +776,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
       bias, static_cast<T*>(dq), dbias, H, S, D, Bb, Hb, walk_b, walk_h, B,
-      scale, causal, bwd_vec<T>(D, {q, k, v, dout}));
+      scale, causal, vec_ok<T>(D, {q, k, v, dout}));
   return cudaGetLastError();
 }
 
@@ -631,35 +799,21 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
       bias, static_cast<T*>(dk), static_cast<T*>(dv), H, S, D, Bb, Hb, scale,
-      causal, bwd_vec<T>(D, {q, k, v, dout}));
+      causal, vec_ok<T>(D, {q, k, v, dout}));
   return cudaGetLastError();
 }
 
-// D <= 64: 64-tiles, 4 accumulator columns a thread; D <= 128: 64-tiles,
-// 8 columns; D <= 256: 32-tiles (shared memory), 16 columns.
-#define PT_FLASH_DISPATCH(T, FN, ...)                         \
-  (D <= 64    ? FN<T, 64, 64>(__VA_ARGS__)                    \
-   : D <= 128 ? FN<T, 64, 128>(__VA_ARGS__)                   \
-   : D <= 256 ? FN<T, 32, 256>(__VA_ARGS__)                   \
+// the shapes by padded head dim (FwdShape, BwdShape)
+#define PT_FLASH_DISPATCH(T, FN, ...)  \
+  (D <= 64    ? FN<T, 64>(__VA_ARGS__)   \
+   : D <= 128 ? FN<T, 128>(__VA_ARGS__)  \
+   : D <= 256 ? FN<T, 256>(__VA_ARGS__)  \
               : cudaErrorInvalidValue)
 
-#define PT_FLASH_BY_DTYPE(FN, ...)                                  \
-  (dtype == pt::kFloat32    ? PT_FLASH_DISPATCH(float, FN, __VA_ARGS__) \
-   : dtype == pt::kBFloat16 ? PT_FLASH_DISPATCH(__nv_bfloat16, FN,      \
-                                                __VA_ARGS__)            \
-                            : cudaErrorInvalidValue)
-
-// the backward's shapes by padded head dim (BwdShape)
-#define PT_FLASH_BWD_DISPATCH(T, FN, ...)     \
-  (D <= 64    ? FN<T, 64>(__VA_ARGS__)        \
-   : D <= 128 ? FN<T, 128>(__VA_ARGS__)       \
-   : D <= 256 ? FN<T, 256>(__VA_ARGS__)       \
-              : cudaErrorInvalidValue)
-
-#define PT_FLASH_BWD_BY_DTYPE(FN, ...)                                    \
-  (dtype == pt::kFloat32 ? PT_FLASH_BWD_DISPATCH(float, FN, __VA_ARGS__)  \
-   : dtype == pt::kBFloat16                                               \
-       ? PT_FLASH_BWD_DISPATCH(__nv_bfloat16, FN, __VA_ARGS__)            \
+#define PT_FLASH_BY_DTYPE(FN, ...)                                   \
+  (dtype == pt::kFloat32 ? PT_FLASH_DISPATCH(float, FN, __VA_ARGS__) \
+   : dtype == pt::kBFloat16                                          \
+       ? PT_FLASH_DISPATCH(__nv_bfloat16, FN, __VA_ARGS__)           \
        : cudaErrorInvalidValue)
 
 }  // namespace
@@ -679,8 +833,8 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
   const float* bs = static_cast<const float*>(bias);
   float* ls = static_cast<float*>(lse);
   return static_cast<int>(PT_FLASH_BY_DTYPE(launch_fwd, q, k, v, mk, bs, o,
-                                            ls, B, H, S, D, Bb, Hb, scale,
-                                            causal, st));
+                                           ls, B, H, S, D, Bb, Hb, scale,
+                                           causal, st));
 }
 
 // delta: float32 [rows] = rowsum(dO * o) over rows of D.
@@ -719,7 +873,7 @@ extern "C" int pt_flash_attention_bwd_dq(
     float scale, int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || D <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(PT_FLASH_BWD_BY_DTYPE(
+  return static_cast<int>(PT_FLASH_BY_DTYPE(
       launch_dq, q, k, v, dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(mask),
       static_cast<const float*>(bias), dq, static_cast<float*>(dbias), B, H,
@@ -734,7 +888,7 @@ extern "C" int pt_flash_attention_bwd_dkv(
     float scale, int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || D <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(PT_FLASH_BWD_BY_DTYPE(
+  return static_cast<int>(PT_FLASH_BY_DTYPE(
       launch_dkv, q, k, v, dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(mask),
       static_cast<const float*>(bias), dk, dv, B, H, S, D, Bb, Hb, scale,

@@ -1,6 +1,6 @@
 // Tensor-core fragment and staging helpers for the port's Hopper kernels
 // (mma.sync, ldmatrix, cp.async), and warp-level tile products built on
-// them (used by quant_matmul.cu and flash_attention.cu).
+// them (used by quant_matmul.cu, flash_attention.cu and paged_attention.cu).
 //
 // Fragment layouts of mma.sync (PTX ISA, "Matrix fragments for mma.m16n8k16"
 // and "mma.m16n8k8"), for lane l of a warp, g = l / 4, t = l % 4:
@@ -295,6 +295,144 @@ __device__ __forceinline__ void warp_mma_pb(float (&acc)[OT][4],
   }
 }
 
+// ---------------------------------------------------------------------------
+// The same products with the left operand held in registers for a whole
+// key walk (the flash forward's Q) and, in float32, both operands split
+// into tf32 hi and lo once, ahead of the products: B as two planes of
+// tf32 bits (uint32 [rows][LD], hi and lo) written when a tile is staged.
+// ---------------------------------------------------------------------------
+
+// The tf32 hi and lo A fragments of rows [r0, r0 + 16) x [0, DP) of a
+// float32 [S, D] slab (zeros past S and D), each element split once.
+template <int DP>
+__device__ __forceinline__ void load_a_tf32x3(uint32_t (&ah)[DP / 8][4],
+                                              uint32_t (&al)[DP / 8][4],
+                                              const float* g, int r0, int S,
+                                              int D) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < DP / 8; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + gr + 8 * (e & 1), c = s * 8 + t + 4 * (e >> 1);
+      const float x =
+          (r < S && c < D) ? g[static_cast<int64_t>(r) * D + c] : 0.f;
+      split_tf32(x, ah[s][e], al[s][e]);
+    }
+}
+
+// n floats at p (a multiple of 4, 16-byte aligned) split in place: p
+// keeps the tf32 hi bits, lo gets the lo bits. The block's threads share
+// the work; the caller synchronises.
+template <int NTH>
+__device__ __forceinline__ void split_planes(float* p, uint32_t* lo, int n) {
+  for (int i = threadIdx.x * 4; i < n; i += NTH * 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p + i);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(p + i) = h;
+    *reinterpret_cast<uint4*>(lo + i) = l;
+  }
+}
+
+// acc[n] += A (registers, 16 x DP) . B[rows 8n..8n+7 of sB][0, DP)^T,
+// bf16; B's fragments are loaded one k step ahead
+template <int NT, int DP, int LD>
+__device__ __forceinline__ void warp_mma_rbt(float (&acc)[NT][4],
+                                             const uint32_t (&a)[DP / 16][4],
+                                             const __nv_bfloat16* sB) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  const __nv_bfloat16* pb = sB + ((mi >> 1) * 8 + r8) * LD + (mi & 1) * 8;
+  uint32_t b[2][NT / 2][4];
+  auto load = [&](int s, int buf) {
+#pragma unroll
+    for (int n = 0; n < NT; n += 2)
+      ldmatrix_x4(b[buf][n / 2], pb + n * 8 * LD + s * 16);
+  };
+  load(0, 0);
+#pragma unroll
+  for (int s = 0; s < DP / 16; ++s) {
+    if (s + 1 < DP / 16) load(s + 1, (s + 1) & 1);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      mma_bf16(acc[n], a[s], b[s & 1][n / 2][0], b[s & 1][n / 2][1]);
+      mma_bf16(acc[n + 1], a[s], b[s & 1][n / 2][2], b[s & 1][n / 2][3]);
+    }
+  }
+}
+
+// acc[n] += A . B^T in 3xTF32: A's hi and lo fragments of k step s come
+// from afrag(s, ah, al) (registers, or split planes in shared memory),
+// B's from the planes sBh / sBl ([rows][LD] tf32 bits)
+template <int NT, int DP, int LD, typename AFrag>
+__device__ __forceinline__ void warp_mma_rbt_tf32x3(float (&acc)[NT][4],
+                                                    AFrag afrag,
+                                                    const uint32_t* sBh,
+                                                    const uint32_t* sBl) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  const int off = ((mi >> 1) * 8 + r8) * LD + (mi & 1) * 4;
+  const uint32_t* pbh = sBh + off;
+  const uint32_t* pbl = sBl + off;
+#pragma unroll
+  for (int s = 0; s < DP / 8; ++s) {
+    uint32_t ah[4], al[4];
+    afrag(s, ah, al);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t bh[4], bl[4];
+      ldmatrix_x4(bh, pbh + n * 8 * LD + s * 8);
+      ldmatrix_x4(bl, pbl + n * 8 * LD + s * 8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mma_tf32(acc[n + h], al, bh[2 * h], bh[2 * h + 1]);
+        mma_tf32(acc[n + h], ah, bl[2 * h], bl[2 * h + 1]);
+        mma_tf32(acc[n + h], ah, bh[2 * h], bh[2 * h + 1]);
+      }
+    }
+  }
+}
+
+// acc[j] += P (16 x 8NT, C fragments) . B[rows 0..8NT), columns 8j..8j+7,
+// in 3xTF32 with B pre-split into the planes sBh / sBl: P is split here
+// (once a k tile), B is not; k is permuted (2t, 2t+1) -> (t, t + 4) as
+// in warp_mma_pb
+template <int NT, int OT, int LD>
+__device__ __forceinline__ void warp_mma_pb_tf32x3(float (&acc)[OT][4],
+                                                   const float (&p)[NT][4],
+                                                   const uint32_t* sBh,
+                                                   const uint32_t* sBl) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int off = 2 * t * LD + g;
+  constexpr int STEPS = NT * OT;   // step s: k tile s / OT, column tile s % OT
+  uint32_t b[3][4];
+  auto load = [&](int s) {
+    const int o = off + (s / OT) * 8 * LD + (s % OT) * 8;
+    b[s % 3][0] = sBh[o];
+    b[s % 3][1] = sBh[o + LD];
+    b[s % 3][2] = sBl[o];
+    b[s % 3][3] = sBl[o + LD];
+  };
+  load(0);
+  if (STEPS > 1) load(1);
+  uint32_t ah[4], al[4];
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) {
+    if (s + 2 < STEPS) load(s + 2);
+    const int c = s / OT, j = s % OT;
+    if (j == 0) {
+      split_tf32(p[c][0], ah[0], al[0]);
+      split_tf32(p[c][2], ah[1], al[1]);
+      split_tf32(p[c][1], ah[2], al[2]);
+      split_tf32(p[c][3], ah[3], al[3]);
+    }
+    mma_tf32(acc[j], al, b[s % 3][0], b[s % 3][1]);
+    mma_tf32(acc[j], ah, b[s % 3][2], b[s % 3][3]);
+    mma_tf32(acc[j], ah, b[s % 3][0], b[s % 3][1]);
+  }
+}
 
 }  // namespace mma
 }  // namespace pt

@@ -42,12 +42,12 @@ attention, the forward oracle of the tests.
 
 Bound on the H100: operations. The forward does ``4 B H S^2 D`` flops
 (half when causal), the backward ``10 B H S^2 D``; the bytes are those
-of q, k, v, o, dO, dq, dk, dv and lse. Head dims up to 256. The forward
-runs on the FP32 units; the backward on the tensor cores: bf16 products
-for bfloat16 inputs (P and dS rounded to bfloat16 as operands, as
-FlashAttention-2 does) and three TF32 products a float32 product
-(3xTF32) for float32 inputs, within the same tolerances as before; two
-backwards give the same bits.
+of q, k, v, o, dO, dq, dk, dv and lse. Head dims up to 256. Forward
+and backward run on the tensor cores: bf16 products for bfloat16 inputs
+(P, and in the backward dS, rounded to bfloat16 as operands, as
+FlashAttention-2 does; the forward's l and lse sum the unrounded P) and
+three TF32 products a float32 product (3xTF32) for float32 inputs,
+within the plain versions' tolerances; two runs give the same bits.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. There is no fallback from one to the other.
@@ -172,8 +172,9 @@ def _kernel_args(what, q, others, mask, bias):
             f"got {[t.dtype for t in (q,) + tuple(others)]}")
     D = q.shape[3]
     if D > MAX_HEAD_DIM:
-        raise ValueError(f"{what} kernel keeps D/16 accumulator columns a "
-                         f"thread: head dim D <= {MAX_HEAD_DIM}, got {D}")
+        raise ValueError(f"{what} kernel holds a head's row of accumulators "
+                         f"in registers: head dim D <= {MAX_HEAD_DIM}, got "
+                         f"{D}")
     for name, t in (("mask", mask), ("bias", bias)):
         if t is not None and t.dtype != torch.float32:
             raise TypeError(f"{what} kernel takes a float32 {name}; got "

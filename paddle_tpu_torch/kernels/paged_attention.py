@@ -15,9 +15,15 @@ reference) is not carried over: a build or launch failure raises.
 
 Bound on the H100: memory, the K/V rows the lengths attend
 (``sum_b min(len_b, maxp * ps) * D * itemsize * 2 * KVH`` bytes) plus
-q and out. The kernel's design (one block per (sequence, head), its
-warps splitting the keys, online softmax in float32 registers, a fixed
-merge order) is described in the CUDA source.
+q and out. The kernel splits each row's key walk across blocks
+(flash-decoding): ``split_geometry`` cuts ``maxp * ps`` keys into chunks
+of whole pages, a block per (row, kv head, chunk) writes a float32
+partial (m, l, acc) into a workspace sized once a call, and a merge
+kernel combines a row's partials in split order (one K13 call, one
+count). The geometry depends on ``maxp * ps`` alone, never on the
+lengths (device data), so a row's result does not depend on the rows
+beside it and two calls give the same bits. The design is described in
+the CUDA source.
 
 Counterpart of ``paddle_tpu/kernels/paged_attention.py:153-184``, a
 plain XLA scatter there and plain ``index_put_`` here: neither is a
@@ -34,18 +40,41 @@ the kernel or raises. There is no fallback from one to the other.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from . import _build
 
 __all__ = ["kv_cache_write", "kv_write_targets", "paged_attention",
-           "paged_attention_plain"]
+           "paged_attention_plain", "split_geometry", "split_key_ranges"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+CHUNK_KEYS = 64   # the most keys a block of the kernel holds (kMaxChunk)
+
+
+def split_geometry(maxp: int, ps: int) -> Tuple[int, int]:
+    """(chunk, nsplit) of the kernel's split key walk over a block table
+    of ``maxp`` pages of ``ps`` keys: chunks of whole pages, at most
+    ``CHUNK_KEYS`` keys (one piece of a page when a page is longer), and
+    as many as cover ``maxp * ps`` keys. A function of the table's shape
+    alone: the lengths live on the device and are never read here."""
+    chunk = ps * (CHUNK_KEYS // ps) if ps <= CHUNK_KEYS else CHUNK_KEYS
+    return chunk, -(-(maxp * ps) // chunk)
+
+
+def split_key_ranges(length: int, maxp: int, ps: int
+                     ) -> List[Tuple[int, int]]:
+    """The keys [start, end) each split of a row of ``length`` attends,
+    in split order: split j takes chunk j of ``split_geometry``, clipped
+    to the keys the row attends (``min(length, maxp * ps)``; an empty
+    range where the chunk starts at or past it)."""
+    chunk, nsplit = split_geometry(maxp, ps)
+    n = max(0, min(int(length), maxp * ps))
+    return [(min(j * chunk, n), min((j + 1) * chunk, n))
+            for j in range(nsplit)]
 
 
 def paged_attention_plain(q, k_pages, v_pages, lengths, page_indices,
@@ -86,8 +115,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     or bfloat16); lengths: [B] int32, the keys each row attends (the row
     just written included); page_indices: [B, maxp] int32. Returns
     [B, H, D] in q's dtype; the default scale is 1/sqrt(D). CPU tensors
-    run ``paged_attention_plain``; CUDA tensors run K13, counted in
-    ``paged_attention.launches``."""
+    run ``paged_attention_plain``; CUDA tensors run K13 (its split pass
+    and its merge), counted once in ``paged_attention.launches``."""
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError("paged_attention takes q [B, H, D] and pages "
                          "[KVH, P, ps, D]")
@@ -128,15 +157,21 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if not all(t.is_contiguous()
                for t in (q, k_pages, v_pages, lengths, page_indices)):
         raise ValueError("paged_attention kernel takes contiguous tensors")
+    maxp = page_indices.shape[1]
+    chunk, nsplit = split_geometry(maxp, ps)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    # the partials: acc [B, H, nsplit, D], then (m, l) [B, H, nsplit, 2]
+    work = torch.empty(B * H * nsplit * (D + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.pt_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
-            B, H, D, KVH, P, ps, page_indices.shape[1], float(scale), code,
+            work.data_ptr(), work[B * H * nsplit * D:].data_ptr(),
+            B, H, D, KVH, P, ps, maxp, chunk, nsplit, float(scale), code,
             stream)
     _build.check(err, "paged_attention")
     paged_attention.launches += 1

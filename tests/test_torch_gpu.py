@@ -19,6 +19,7 @@ import torch
 from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch.generation import GenerationEngine
 from paddle_tpu_torch.inference import Config, create_predictor
+from paddle_tpu_torch.kernels.paged_attention import split_geometry
 from paddle_tpu_torch.kernels.quant_matmul import MMA_DEPTH
 from paddle_tpu_torch.models.gpt import GPTConfig
 
@@ -411,6 +412,65 @@ def test_flash_backward_over_head_dims_and_lengths(cuda, dtype, D, S, kind):
         assert (a is None and b is None) or torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S", [1000, 1024])
+@pytest.mark.parametrize("kind", sorted(FLASH_BWD_KINDS))
+def test_flash_forward_over_head_dims_and_lengths(cuda, dtype, D, S, kind):
+    """The tensor-core forward at every shape bucket against its plain
+    version: o at the forward tolerance, lse at 1e-4, a fully masked
+    row equal to the mean of V, two forwards equal bit for bit."""
+    B, H = 2, 2
+    g = torch.Generator(device=cuda).manual_seed(7 * D + S + len(kind))
+    q, k, v = (torch.randn(B, H, S, D, device=cuda, generator=g).to(dtype)
+               for _ in range(3))
+    mask = bias = None
+    if kind in ("batch_mask", "dead_row") or kind.startswith("bias"):
+        keep = torch.rand(B, S, device=cuda, generator=g) > 0.3
+        keep[:, 0] = True
+        if kind == "dead_row":
+            keep[1] = False
+        mask = torch.where(keep, 0.0, -1e30).float()
+    bshape = FLASH_BWD_KINDS[kind]
+    if bshape is not None:
+        bias = torch.randn(*bshape, S, S, device=cuda, generator=g)
+    causal, scale = kind == "causal", D ** -0.5
+    o, lse = K.flash_attention_fwd(q, k, v, mask, bias, scale, causal)
+    po, plse = K.flash_attention_fwd_plain(q, k, v, mask, bias, scale, causal)
+    torch.testing.assert_close(o, po, **FLASH_TOL[dtype][0])
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    if kind == "dead_row":
+        mean_v = v[1].float().mean(dim=1, keepdim=True).expand(H, S, D)
+        torch.testing.assert_close(o[1].float(), mean_v,
+                                   **FLASH_TOL[dtype][0])
+    o2, lse2 = K.flash_attention_fwd(q, k, v, mask, bias, scale, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_forward_causal_dead_rows_of_the_last_tile(cuda, dtype, D):
+    """Causal with every key masked but the last, at S = 1000 (no whole
+    key tile): a row before the last sees only NEG_INF scores and
+    averages V over every key it visits. The rows of the last query
+    tile visit every key tile, so they equal the plain version's mean
+    over all S keys; the padding keys past S must not count."""
+    B, H, S = 1, 2, 1000
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v = (torch.randn(B, H, S, D, device=cuda, generator=g).to(dtype)
+               for _ in range(3))
+    mask = torch.full((B, S), -1e30, device=cuda)
+    mask[:, -1] = 0.0
+    scale = D ** -0.5
+    o, lse = K.flash_attention_fwd(q, k, v, mask, None, scale, True)
+    po, plse = K.flash_attention_fwd_plain(q, k, v, mask, None, scale, True)
+    tail = slice(S - 8, S)   # inside the last query tile at every shape
+    torch.testing.assert_close(o[:, :, tail], po[:, :, tail],
+                               **FLASH_TOL[dtype][0])
+    torch.testing.assert_close(lse[:, :, tail], plse[:, :, tail],
+                               atol=1e-4, rtol=1e-5)
+
+
 def test_flash_attention_autograd_and_fully_masked_row(cuda):
     """The public function on CUDA: kernels forward and backward, a
     fully masked row averaging V (non-causal), and D > 256 refused."""
@@ -792,6 +852,59 @@ def test_paged_attention_kernel_matches_plain(cuda, case, dtype):
     assert K.paged_attention.launches == before + 1
     torch.testing.assert_close(got, want, **TOL[dtype])
     assert bool((got[lens == 0] == 0).all())
+
+
+def _paged_inputs(cuda, dtype, B, H, KVH, D, ps, P, maxp, seed=5):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, H, D, device=cuda, generator=g).to(dtype)
+    kp = torch.randn(KVH, P, ps, D, device=cuda, generator=g).to(dtype)
+    vp = torch.randn(KVH, P, ps, D, device=cuda, generator=g).to(dtype)
+    perm = torch.randperm(P - 1, device=cuda, generator=g) + 1
+    tables = perm.repeat(B * maxp // (P - 1) + 1)[:B * maxp].reshape(
+        B, maxp).to(torch.int32).contiguous()
+    return q, kp, vp, tables
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,maxp", [(16, 8), (8, 16), (4, 5), (100, 2),
+                                     (3, 7), (7, 9)])
+@pytest.mark.parametrize("D", [64, 37])
+def test_paged_attention_split_edges(cuda, dtype, ps, maxp, D):
+    """Lengths at the edges of the split key walk: 0, 1, a multiple of
+    the chunk, one past it, maxp * ps and past it (clamped); a length-0
+    row is exactly 0, and two calls give the same bits. Page sizes 3
+    and 7 give odd chunks (63 keys) and D = 37 rows of no whole 16
+    bytes, which move every shared-memory region of the block."""
+    chunk, _ = split_geometry(maxp, ps)
+    full = maxp * ps
+    lengths = sorted({0, 1, min(chunk, full), min(chunk + 1, full),
+                      full - 1, full, full + 7})
+    B, H, KVH = len(lengths), 8, 2
+    q, kp, vp, tables = _paged_inputs(cuda, dtype, B, H, KVH, D, ps, 40,
+                                      maxp)
+    lens = torch.tensor(lengths, device=cuda, dtype=torch.int32)
+    got = K.paged_attention(q, kp, vp, lens, tables)
+    want = K.paged_attention_plain(q, kp, vp, lens, tables)
+    torch.testing.assert_close(got, want, **TOL[dtype])
+    assert bool((got[lens == 0] == 0).all())
+    assert torch.equal(got, K.paged_attention(q, kp, vp, lens, tables))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED))
+def test_paged_attention_rows_do_not_depend_on_the_batch(cuda, case, dtype):
+    """Each row of a batch equals the same row run alone, bit for bit,
+    and two calls on the batch give the same bits."""
+    B, H, KVH, D, ps, P, maxp, lengths = PAGED[case]
+    q, kp, vp, tables = _paged_inputs(cuda, dtype, B, H, KVH, D, ps, P, maxp)
+    lens = torch.tensor(lengths, device=cuda, dtype=torch.int32)
+    got = K.paged_attention(q, kp, vp, lens, tables)
+    assert torch.equal(got, K.paged_attention(q, kp, vp, lens, tables))
+    for b in range(B):
+        alone = K.paged_attention(q[b:b + 1].contiguous(), kp, vp,
+                                  lens[b:b + 1].contiguous(),
+                                  tables[b:b + 1].contiguous())
+        assert torch.equal(alone[0], got[b]), f"row {b}"
 
 
 def test_two_lane_engine_on_cuda_matches_cpu(cuda):

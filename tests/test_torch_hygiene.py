@@ -1,8 +1,9 @@
 """Import hygiene of the PyTorch port.
 
-``paddle_tpu_torch`` and ``chip_smoke.py`` must never import ``jax``,
-``jaxlib`` or any part of ``paddle_tpu`` (importing any ``paddle_tpu.*``
-runs ``paddle_tpu/__init__.py``, which imports JAX). Names are matched
+``paddle_tpu_torch``, ``chip_smoke.py`` and the card probes under
+``probes/`` must never import ``jax``, ``jaxlib`` or any part of
+``paddle_tpu`` (importing any ``paddle_tpu.*`` runs
+``paddle_tpu/__init__.py``, which imports JAX). Names are matched
 exactly: ``paddle_tpu_torch`` itself starts with ``paddle_tpu``.
 """
 
@@ -116,7 +117,8 @@ def test_chip_smoke_imports_no_jax_or_paddle_tpu():
 
 
 @pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"])
+    str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+    + sorted(str(p.relative_to(REPO)) for p in (REPO / "probes").glob("*.py")))
 def test_no_import_statement_names_jax_or_paddle_tpu(path):
     bad = [n for n in _imported_names(REPO / path) if _forbidden(n)]
     assert bad == [], f"{path} imports {bad}"
