@@ -128,9 +128,9 @@ RATE_NAMES = {"float32": "FP32 FMA, 67 TFLOP/s",
               "tf32_x3": "3xTF32 mma, 495/3 TFLOP/s"}
 # the earlier designs' times on an NVIDIA H100 80GB HBM3 at 700 W, from
 # PERF.md, printed in the log beside the redesigned kernels' (K11, the
-# flash backward and the flash forward on the FP32 FMA units, K13 with one
-# block per (row, head)); not on the kernels line, which carries only this
-# run's numbers
+# flash backward and the flash forward on the FP32 FMA units, K13 and K2 /
+# K2q with one block per (row, head)); not on the kernels line, which
+# carries only this run's numbers
 EARLIER_DESIGN_MS = {
     "quantized_matmul": {"int8_qkv": 0.164726, "int8_ffn2": 0.435523,
                          "int8_head": 0.739203, "int8_block_qkv": 0.274531,
@@ -145,6 +145,8 @@ EARLIER_DESIGN_MS = {
                             "bert_large_bfloat16": 0.571782,
                             "long_bfloat16": 4.529747},
     "paged_attention": {"float32": 0.065568, "bfloat16": 0.131898},
+    "ragged_paged_attention": {"float32": 0.214304, "bfloat16": 0.169389},
+    "ragged_paged_attention_q": {"float32": 0.205008},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
 ALL_PHASES = "2345678"
@@ -337,6 +339,10 @@ def check_ragged(torch, np, K, dtype_name, gen, seed):
         for b, n in enumerate(case["nvalid"]):
             require(bool((out[b, n:] == 0).all()),
                     f"{what}: rows past num_valid of row {b} are not 0")
+        # the splits merge in a fixed order: the same bits twice
+        require(torch.equal(out, K.ragged_paged_attention(q, kp, vp, st, nv,
+                                                          tb)),
+                f"{what}: two calls differ")
         row = {"max_abs_err": err}
         if name == "main":
             nbytes, ops = ragged_bytes_ops(q, kp, case["starts"],
@@ -360,7 +366,9 @@ def check_ragged(torch, np, K, dtype_name, gen, seed):
                     q, kp, vp, st, nv, tb)),
                 library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
                     qt, kd, vd, attn_mask=mask)),
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by,
+                earlier_design_ms=EARLIER_DESIGN_MS["ragged_paged_attention"][
+                    dtype_name])
             results["main"] = row
         log(f"  {what}: {fmt(row, dtype_name)}")
     return results["main"]
@@ -983,6 +991,8 @@ def check_ragged_q(torch, np, K, gen, seed):
         for b, n in enumerate(case["nvalid"]):
             require(bool((out[b, n:] == 0).all()),
                     f"{what}: rows past num_valid of row {b} are not 0")
+        require(torch.equal(out, K.ragged_paged_attention_q(
+            q, kp, vp, ks, vs, st, nv, tb)), f"{what}: two calls differ")
         row = {"max_abs_err": err}
         if name == "main":
             B, C, H, D = q.shape
@@ -1011,7 +1021,9 @@ def check_ragged_q(torch, np, K, gen, seed):
                     q, kp, vp, st, nv, tb, None, ks, vs)),
                 library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
                     qt, kd, vd, attn_mask=mask)),
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by,
+                earlier_design_ms=EARLIER_DESIGN_MS[
+                    "ragged_paged_attention_q"]["float32"])
             result = row
         log(f"  {what}: {fmt(row, 'float32')}")
     return result
@@ -1104,11 +1116,21 @@ def make_params(torch, shapes, std, gen):
     return params
 
 
-KERNEL_GROUPS = (("ragged_paged_attention_kernel<float, signed char",
+# (a substring of the lowercased kernel name, group): the first match
+# wins. K2 and K2q are one source: their split and merge kernels are told
+# apart by the page type, the second template argument, int8 ("signed
+# char") for K2q.
+KERNEL_GROUPS = (("ragged_split_kernel<float, signed char",
+                  "ragged_paged_attention_q (K2q)"),
+                 ("ragged_split_kernel<__nv_bfloat16, signed char",
+                  "ragged_paged_attention_q (K2q)"),
+                 ("ragged_merge_kernel<float, signed char",
+                  "ragged_paged_attention_q (K2q)"),
+                 ("ragged_merge_kernel<__nv_bfloat16, signed char",
                   "ragged_paged_attention_q (K2q)"),
                  ("quant_matmul", "quantized_matmul (K11)"),
                  ("lora_", "batched_lora_add_ (K12)"),
-                 ("ragged_paged_attention", "ragged_paged_attention (K2)"),
+                 ("ragged_", "ragged_paged_attention (K2)"),
                  ("paged_attention_kernel", "paged_attention (K13)"),
                  ("paged_attention_merge", "paged_attention (K13)"),
                  ("momentum_kernel", "fused_momentum (K10m)"),

@@ -45,7 +45,8 @@ SIGNATURES: Dict[str, List] = {
     "pt_layer_norm_fwd": [_vp] * 6 + [_int, _int, _float, _int, _vp],
     "pt_layer_norm_bwd_scratch_rows": [_int],
     "pt_layer_norm_bwd": [_vp] * 9 + [_int, _int, _int, _vp],
-    "pt_ragged_paged_attention": [_vp] * 7 + [_int] * 8 + [_float, _int, _vp],
+    "pt_ragged_paged_attention": [_vp] * 9 + [_int] * 10 + [_float, _int,
+                                                             _int, _vp],
     "pt_softmax_xent_fwd": [_vp] * 4 + [_int, _int, _i64, _int, _vp],
     "pt_softmax_xent_bwd": [_vp] * 5 + [_int, _int, _i64, _int, _vp],
     "pt_fused_adam": [_vp] * 8 + [_i64] + [_float] * 6 + [_int, _vp],
@@ -58,8 +59,8 @@ SIGNATURES: Dict[str, List] = {
                                                             _int, _vp],
     "pt_flash_attention_bwd_dkv": [_vp] * 10 + [_int] * 6 + [_float, _int,
                                                              _int, _vp],
-    "pt_ragged_paged_attention_q": [_vp] * 9 + [_int] * 8 + [_float, _int,
-                                                             _vp],
+    "pt_ragged_paged_attention_q": [_vp] * 11 + [_int] * 10 + [_float, _int,
+                                                               _int, _vp],
     "pt_quant_matmul": [_vp] * 5 + [_int] * 6 + [_vp],
     "pt_quant_matmul_fma": [_vp] * 4 + [_int] * 4 + [_vp],
     "pt_batched_lora_split_rows": [],

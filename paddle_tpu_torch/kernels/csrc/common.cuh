@@ -54,4 +54,82 @@ __device__ __forceinline__ float block_sum(float v, float* shm) {
   return warp_sum(t);
 }
 
+// Dot products of a staged K row x with a float32 query row y, for the
+// attention kernels' score-a-thread paths. vec: D is a multiple of 16
+// bytes of x's type and both rows are 16-byte aligned; the sums run in
+// four chains of fixed column classes, so the bits repeat.
+__device__ __forceinline__ float dot_row(const float* x, const float* y,
+                                         int D, int vec) {
+  if (vec) {   // four chains of the column classes d % 4
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+    for (int d = 0; d < D; d += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(x + d);
+      const float4 b = *reinterpret_cast<const float4*>(y + d);
+      s0 = fmaf(a.x, b.x, s0);
+      s1 = fmaf(a.y, b.y, s1);
+      s2 = fmaf(a.z, b.z, s2);
+      s3 = fmaf(a.w, b.w, s3);
+    }
+    return (s0 + s1) + (s2 + s3);
+  }
+  float s = 0.f;
+  for (int d = 0; d < D; ++d) s = fmaf(x[d], y[d], s);
+  return s;
+}
+__device__ __forceinline__ float dot_row(const __nv_bfloat16* x,
+                                         const float* y, int D, int vec) {
+  if (vec) {   // four chains of the word classes (d / 2) % 4
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+    for (int d = 0; d < D; d += 8) {
+      const uint4 a = *reinterpret_cast<const uint4*>(x + d);
+      const float4 b0 = *reinterpret_cast<const float4*>(y + d);
+      const float4 b1 = *reinterpret_cast<const float4*>(y + d + 4);
+      // bf16 bits to float32: the low half of a word shifted up, or its
+      // high half (integer instructions only)
+      s0 = fmaf(__uint_as_float(a.x << 16), b0.x, s0);
+      s0 = fmaf(__uint_as_float(a.x & 0xffff0000u), b0.y, s0);
+      s1 = fmaf(__uint_as_float(a.y << 16), b0.z, s1);
+      s1 = fmaf(__uint_as_float(a.y & 0xffff0000u), b0.w, s1);
+      s2 = fmaf(__uint_as_float(a.z << 16), b1.x, s2);
+      s2 = fmaf(__uint_as_float(a.z & 0xffff0000u), b1.y, s2);
+      s3 = fmaf(__uint_as_float(a.w << 16), b1.z, s3);
+      s3 = fmaf(__uint_as_float(a.w & 0xffff0000u), b1.w, s3);
+    }
+    return (s0 + s1) + (s2 + s3);
+  }
+  float s = 0.f;
+  for (int d = 0; d < D; ++d) s = fmaf(to_float(x[d]), y[d], s);
+  return s;
+}
+
+// int8 byte i (0..3, lowest first) of a word, as float32
+__device__ __forceinline__ float int8_at(uint32_t w, int i) {
+  return static_cast<float>(static_cast<int>(w << (24 - 8 * i)) >> 24);
+}
+
+// An int8 row x whose elements dequantize to float(x[d]) * scale (the
+// plain version's dequantization, bit for bit) dotted with y.
+__device__ __forceinline__ float dot_row(const int8_t* x, float scale,
+                                         const float* y, int D, int vec) {
+  if (vec) {   // four chains of the word classes (d / 4) % 4
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int d = 0; d < D; d += 16) {
+      const uint4 a = *reinterpret_cast<const uint4*>(x + d);
+      const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 b = *reinterpret_cast<const float4*>(y + d + 4 * k);
+        s[k] = fmaf(int8_at(w[k], 0) * scale, b.x, s[k]);
+        s[k] = fmaf(int8_at(w[k], 1) * scale, b.y, s[k]);
+        s[k] = fmaf(int8_at(w[k], 2) * scale, b.z, s[k]);
+        s[k] = fmaf(int8_at(w[k], 3) * scale, b.w, s[k]);
+      }
+    }
+    return (s[0] + s[1]) + (s[2] + s[3]);
+  }
+  float t = 0.f;
+  for (int d = 0; d < D; ++d) t = fmaf(to_float(x[d]) * scale, y[d], t);
+  return t;
+}
+
 }  // namespace pt

@@ -77,52 +77,6 @@ __host__ __device__ __forceinline__ SplitSmem split_smem(int D, int G,
   return m;
 }
 
-// sum over d of x[d] * y[d], x staged T, y float32; vec: D is a multiple
-// of 16 bytes of T and both rows 16-byte aligned
-__device__ __forceinline__ float dot_row(const float* x, const float* y,
-                                         int D, int vec) {
-  if (vec) {   // four chains of the column classes d % 4
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(x + d);
-      const float4 b = *reinterpret_cast<const float4*>(y + d);
-      s0 = fmaf(a.x, b.x, s0);
-      s1 = fmaf(a.y, b.y, s1);
-      s2 = fmaf(a.z, b.z, s2);
-      s3 = fmaf(a.w, b.w, s3);
-    }
-    return (s0 + s1) + (s2 + s3);
-  }
-  float s = 0.f;
-  for (int d = 0; d < D; ++d) s = fmaf(x[d], y[d], s);
-  return s;
-}
-__device__ __forceinline__ float dot_row(const __nv_bfloat16* x,
-                                         const float* y, int D, int vec) {
-  if (vec) {   // four chains of the word classes (d / 2) % 4
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-    for (int d = 0; d < D; d += 8) {
-      const uint4 a = *reinterpret_cast<const uint4*>(x + d);
-      const float4 b0 = *reinterpret_cast<const float4*>(y + d);
-      const float4 b1 = *reinterpret_cast<const float4*>(y + d + 4);
-      // bf16 bits to float32: the low half of a word shifted up, or its
-      // high half (integer instructions only)
-      s0 = fmaf(__uint_as_float(a.x << 16), b0.x, s0);
-      s0 = fmaf(__uint_as_float(a.x & 0xffff0000u), b0.y, s0);
-      s1 = fmaf(__uint_as_float(a.y << 16), b0.z, s1);
-      s1 = fmaf(__uint_as_float(a.y & 0xffff0000u), b0.w, s1);
-      s2 = fmaf(__uint_as_float(a.z << 16), b1.x, s2);
-      s2 = fmaf(__uint_as_float(a.z & 0xffff0000u), b1.y, s2);
-      s3 = fmaf(__uint_as_float(a.w << 16), b1.z, s3);
-      s3 = fmaf(__uint_as_float(a.w & 0xffff0000u), b1.w, s3);
-    }
-    return (s0 + s1) + (s2 + s3);
-  }
-  float s = 0.f;
-  for (int d = 0; d < D; ++d) s = fmaf(pt::to_float(x[d]), y[d], s);
-  return s;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const T* __restrict__ q,        // [B, H, D]
@@ -202,7 +156,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int it = threadIdx.x; it < G * nk; it += kThreads) {
     const int g = it / nk, i = it - g * nk;
-    sS[g * chunk + i] = dot_row(sK + i * LD, sq + g * D, D, vec);
+    sS[g * chunk + i] = pt::dot_row(sK + i * LD, sq + g * D, D, vec);
   }
   pt::mma::cp_async_wait<0>();
   __syncthreads();

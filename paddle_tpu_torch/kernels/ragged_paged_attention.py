@@ -18,12 +18,19 @@ before the call.
 
 Bound on the H100: memory, the K/V pages the rows need
 (``sum_b ceil((start_b + num_valid_b) / ps) * ps * D * itemsize * 2 *
-KVH`` bytes) plus q and out. The kernel's design (one block per
-(row, head), a loop over the pages in the block in place of the TPU's
-sequential grid axis, K/V tiles staged in shared memory, online softmax
-in float32 registers, a warp per query row) is described in the CUDA
-source; at the slice's 8 lanes x 16 heads its grid of 128 blocks does
-not fill the 132 SMs.
+KVH`` bytes) plus q and out. The kernel splits each row's page walk
+across blocks (flash-decoding, as K13): ``split_geometry`` of
+``paged_attention.py`` cuts the table's ``maxp * ps`` keys into chunks
+of whole pages; a block per (chunk, kv head, row) serves every query
+head of its kv head and every query of the row, on the tensor cores
+(``DOT_ROWS`` or fewer query rows, a decode row: dot products from
+shared memory), and writes float32 partials (m, l, acc) into a
+workspace sized once a call; a merge kernel combines each query's
+partials in split order and writes every element of the output (one K2
+call, one count). The geometry depends on the table's shape alone,
+never on the lengths (device data), so a row's result does not depend
+on the rows beside it and two calls give the same bits. The design is
+described in the CUDA source.
 
 ``quantized_kv_cache_write`` (:294-327 there, an XLA scatter, not a
 Pallas kernel) quantizes each new [D] row to int8 with one
@@ -43,17 +50,19 @@ from typing import Optional
 import torch
 
 from . import _build
-from .paged_attention import kv_write_targets
+from .paged_attention import kv_write_targets, split_geometry
 from .quant import blockwise_quantize
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
            "ragged_paged_attention_q", "quantized_kv_cache_write",
-           "MAX_HEAD_DIM", "MAX_CHUNK"]
+           "MAX_HEAD_DIM", "MAX_CHUNK", "DOT_ROWS"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MAX_CHUNK = 64
-_SMEM_FLOATS = 48 * 1024 // 4          # both [ps, D] float32 tiles
+# blocks with at most this many query rows (num_valid x query heads a kv
+# head) take the kernel's dot-product path, the rest its mma path
+DOT_ROWS = 1
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -141,28 +150,16 @@ def ragged_paged_attention(q, k_pages, v_pages, start_pos, num_valid,
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention: unsupported device "
                          f"{q.device}")
-    B, C, H, D = q.shape
-    KVH, P, ps, _ = k_pages.shape
-    maxp = page_indices.shape[1]
     code = _DTYPES.get(q.dtype)
     if code is None or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError(
             f"ragged_paged_attention kernel takes float32 or bfloat16 q and "
             f"pages of one dtype; got {q.dtype}, {k_pages.dtype}, "
             f"{v_pages.dtype}")
-    _check_kernel_geometry(q, k_pages, (q, k_pages, v_pages, start_pos,
-                                        num_valid, page_indices))
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty_like(q)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.pt_ragged_paged_attention(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            start_pos.data_ptr(), num_valid.data_ptr(),
-            page_indices.data_ptr(), out.data_ptr(),
-            B, C, H, D, KVH, P, ps, maxp, float(scale), code, stream)
-    _build.check(err, "ragged_paged_attention")
+    _check_kernel_geometry(q, (q, k_pages, v_pages, start_pos, num_valid,
+                               page_indices))
+    out = _launch("pt_ragged_paged_attention", q, k_pages, v_pages, (),
+                  start_pos, num_valid, page_indices, sm_scale, code)
     ragged_paged_attention.launches += 1
     return out
 
@@ -170,17 +167,43 @@ def ragged_paged_attention(q, k_pages, v_pages, start_pos, num_valid,
 ragged_paged_attention.launches = 0
 
 
-def _check_kernel_geometry(q, k_pages, tensors):
+def _check_kernel_geometry(q, tensors):
+    # the block's shared memory is the C launcher's to size: a size the
+    # card refuses comes back from the launch as an error
     _B, C, _H, D = q.shape
-    ps = k_pages.shape[2]
-    if D > MAX_HEAD_DIM or C > MAX_CHUNK or 2 * ps * D > _SMEM_FLOATS:
+    if D > MAX_HEAD_DIM or C > MAX_CHUNK:
         raise ValueError(
-            f"ragged_paged_attention kernel takes D <= {MAX_HEAD_DIM}, "
-            f"C <= {MAX_CHUNK} and page_size * D <= {_SMEM_FLOATS // 2}; got "
-            f"D={D}, C={C}, page_size={ps}")
+            f"ragged_paged_attention kernel takes D <= {MAX_HEAD_DIM} and "
+            f"C <= {MAX_CHUNK}; got D={D}, C={C}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ragged_paged_attention kernel takes contiguous "
                          "tensors")
+
+
+def _launch(entry, q, k_pages, v_pages, scales, start_pos, num_valid,
+            page_indices, sm_scale, code):
+    """One K2 or K2q call (its split pass and its merge): the partials'
+    workspace, acc [B, C, H, nsplit, D] then (m, l) [B, C, H, nsplit,
+    2], is allocated here and only its live rows are touched."""
+    B, C, H, D = q.shape
+    KVH, P, ps, _ = k_pages.shape
+    maxp = page_indices.shape[1]
+    chunk, nsplit = split_geometry(maxp, ps)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    rows = B * C * H * nsplit
+    work = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
+    fn = getattr(_build.library(), entry)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 *[t.data_ptr() for t in scales], start_pos.data_ptr(),
+                 num_valid.data_ptr(), page_indices.data_ptr(),
+                 out.data_ptr(), work.data_ptr(), work[rows * D:].data_ptr(),
+                 B, C, H, D, KVH, P, ps, maxp, chunk, nsplit, float(scale),
+                 DOT_ROWS, code, stream)
+    _build.check(err, entry.removeprefix("pt_"))
+    return out
 
 
 def ragged_paged_attention_q(q, k_pages, v_pages, k_scales, v_scales,
@@ -213,22 +236,11 @@ def ragged_paged_attention_q(q, k_pages, v_pages, k_scales, v_scales,
     if code is None:
         raise TypeError(f"ragged_paged_attention_q kernel takes float32 or "
                         f"bfloat16 q; got {q.dtype}")
-    _check_kernel_geometry(q, k_pages, (q, k_pages, v_pages, k_scales,
-                                        v_scales, start_pos, num_valid,
-                                        page_indices))
-    B, C, H, D = q.shape
-    maxp = page_indices.shape[1]
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty_like(q)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.pt_ragged_paged_attention_q(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scales.data_ptr(), v_scales.data_ptr(), start_pos.data_ptr(),
-            num_valid.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
-            B, C, H, D, KVH, P, ps, maxp, float(scale), code, stream)
-    _build.check(err, "ragged_paged_attention_q")
+    _check_kernel_geometry(q, (q, k_pages, v_pages, k_scales, v_scales,
+                               start_pos, num_valid, page_indices))
+    out = _launch("pt_ragged_paged_attention_q", q, k_pages, v_pages,
+                  (k_scales, v_scales), start_pos, num_valid, page_indices,
+                  sm_scale, code)
     ragged_paged_attention_q.launches += 1
     return out
 

@@ -62,18 +62,40 @@ RAGGED = {
               [0, 100, 767, 400, 16, 250, 700, 0],
               [16, 1, 1, 16, 16, 1, 1, 0]),
     "wide": (2, 64, 4, 1, 256, 48, 4, 20, [3, 0], [64, 17]),
+    # a prefill chunk across the split chunk's edge at 64 keys (its first
+    # queries see none of the second chunk), and one across 128
+    "straddle": (3, 16, 4, 2, 64, 40, 16, 12, [60, 0, 120], [16, 16, 9]),
+    # pages of 3 and 7 keys: odd chunks of 63 (every shared-memory region
+    # moves), D 40 (int8 rows of no whole 16 bytes)
+    "pages_of_3": (4, 8, 4, 4, 40, 90, 3, 30, [0, 61, 58, 80],
+                   [8, 4, 8, 1]),
+    "pages_of_7": (4, 16, 8, 4, 128, 40, 7, 20, [55, 130, 0, 3],
+                   [16, 1, 0, 16]),
+    # pages longer than a chunk (100 keys: a chunk is part of a page)
+    "long_pages": (3, 16, 4, 4, 64, 12, 100, 3, [0, 150, 290],
+                   [16, 1, 10]),
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", sorted(RAGGED))
-def test_ragged_kernel_matches_plain(cuda, case, dtype):
+def _ragged_inputs(cuda, case, dtype, seed):
+    """q and pools of random data (stale rows everywhere, the junk page
+    included), distinct pages per row, tables zero past each chain;
+    dtype int8 gives int8 pools with scale planes and float32 q."""
     B, C, H, KVH, D, P, ps, maxp, starts, nvalid = RAGGED[case]
-    g = torch.Generator(device=cuda).manual_seed(len(case))
-    rng = np.random.RandomState(1)
-    kp = torch.randn(KVH, P, ps, D, device=cuda, generator=g).to(dtype)
-    vp = torch.randn(KVH, P, ps, D, device=cuda, generator=g).to(dtype)
-    q = torch.randn(B, C, H, D, device=cuda, generator=g).to(dtype)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    if dtype == torch.int8:
+        kp, vp = (torch.randint(-127, 128, (KVH, P, ps, D), device=cuda,
+                                generator=g, dtype=torch.int8)
+                  for _ in range(2))
+        scales = [0.02 * torch.rand(KVH, P, ps, device=cuda, generator=g)
+                  for _ in range(2)]
+        q = torch.randn(B, C, H, D, device=cuda, generator=g)
+    else:
+        kp, vp = (torch.randn(KVH, P, ps, D, device=cuda,
+                              generator=g).to(dtype) for _ in range(2))
+        scales = [None, None]
+        q = torch.randn(B, C, H, D, device=cuda, generator=g).to(dtype)
     tables = np.zeros((B, maxp), np.int32)
     free = list(rng.permutation(np.arange(1, P)))
     for b in range(B):
@@ -81,6 +103,17 @@ def test_ragged_kernel_matches_plain(cuda, case, dtype):
         tables[b, :n] = [free.pop() for _ in range(n)]
     ints = [torch.as_tensor(np.asarray(a, np.int32), device=cuda)
             for a in (starts, nvalid, tables)]
+    return q, kp, vp, scales, ints
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(RAGGED))
+def test_ragged_kernel_matches_plain(cuda, case, dtype):
+    """Exactly one K2 launch is counted a call (its split pass and its
+    merge), rows past num_valid are exact zeros, and two calls give the
+    same bits."""
+    nvalid = RAGGED[case][-1]
+    q, kp, vp, _, ints = _ragged_inputs(cuda, case, dtype, len(case))
     before = K.ragged_paged_attention.launches
     out = K.ragged_paged_attention(q, kp, vp, *ints)
     torch.cuda.synchronize()
@@ -90,6 +123,24 @@ def test_ragged_kernel_matches_plain(cuda, case, dtype):
         out, K.ragged_paged_attention_plain(q, kp, vp, *ints), **TOL[dtype])
     for b, n in enumerate(nvalid):
         assert (out[b, n:] == 0).all()
+    assert torch.equal(out, K.ragged_paged_attention(q, kp, vp, *ints))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("case", sorted(RAGGED))
+def test_ragged_rows_do_not_depend_on_the_batch(cuda, case, dtype):
+    """Row b run alone (B = 1, its own table row) equals row b of the
+    batch bit for bit, in K2 and K2q."""
+    q, kp, vp, (ks, vs), ints = _ragged_inputs(cuda, case, dtype, 7)
+    got = K.ragged_paged_attention(q, kp, vp, *ints, k_scales=ks,
+                                   v_scales=vs)
+    for b in range(q.shape[0]):
+        alone = K.ragged_paged_attention(
+            q[b:b + 1].contiguous(), kp, vp,
+            *[t[b:b + 1].contiguous() for t in ints], k_scales=ks,
+            v_scales=vs)
+        assert torch.equal(alone[0], got[b]), f"row {b}"
 
 
 def test_ragged_kernel_refuses_what_it_does_not_take(cuda):
@@ -99,6 +150,10 @@ def test_ragged_kernel_refuses_what_it_does_not_take(cuda):
     tb = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="C <= 64"):
         K.ragged_paged_attention(q, pages, pages, *ints, tb)
+    wide = torch.zeros(1, 4, 2, 264, device=cuda)      # D > 256
+    wide_pages = torch.zeros(2, 4, 4, 264, device=cuda)
+    with pytest.raises(ValueError, match="D <= 256"):
+        K.ragged_paged_attention(wide, wide_pages, wide_pages, *ints, tb)
     with pytest.raises(TypeError):
         K.ragged_paged_attention(q[:, :4].half(), pages.half(), pages.half(),
                                  *ints, tb)
@@ -639,25 +694,16 @@ def test_quant_matmul_rows_do_not_depend_on_the_batch(cuda, mode, block,
             out[:m])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(RAGGED))
-def test_ragged_q_kernel_matches_plain(cuda, case):
-    B, C, H, KVH, D, P, ps, maxp, starts, nvalid = RAGGED[case]
-    g = torch.Generator(device=cuda).manual_seed(len(case) + 1)
-    rng = np.random.RandomState(2)
-    kp = torch.randint(-127, 128, (KVH, P, ps, D), device=cuda, generator=g,
-                       dtype=torch.int8)
-    vp = torch.randint(-127, 128, (KVH, P, ps, D), device=cuda, generator=g,
-                       dtype=torch.int8)
-    ks = 0.02 * torch.rand(KVH, P, ps, device=cuda, generator=g)
-    vs = 0.02 * torch.rand(KVH, P, ps, device=cuda, generator=g)
-    q = torch.randn(B, C, H, D, device=cuda, generator=g)
-    tables = np.zeros((B, maxp), np.int32)
-    free = list(rng.permutation(np.arange(1, P)))
-    for b in range(B):
-        n = -(-(starts[b] + nvalid[b]) // ps) if nvalid[b] else 0
-        tables[b, :n] = [free.pop() for _ in range(n)]
-    ints = [torch.as_tensor(np.asarray(a, np.int32), device=cuda)
-            for a in (starts, nvalid, tables)]
+def test_ragged_q_kernel_matches_plain(cuda, case, dtype):
+    """K2q over int8 pages with float32 or bf16 q: one K2q launch counted
+    a call and none of K2, rows past num_valid exact zeros, two calls
+    the same bits."""
+    nvalid = RAGGED[case][-1]
+    q, kp, vp, (ks, vs), ints = _ragged_inputs(cuda, case, torch.int8,
+                                               len(case) + 1)
+    q = q.to(dtype)
     before = (K.ragged_paged_attention.launches,
               K.ragged_paged_attention_q.launches)
     out = K.ragged_paged_attention(q, kp, vp, *ints, k_scales=ks,
@@ -668,9 +714,11 @@ def test_ragged_q_kernel_matches_plain(cuda, case):
                                                      before[1] + 1)
     torch.testing.assert_close(
         out, K.ragged_paged_attention_plain(q, kp, vp, *ints, None, ks, vs),
-        **TOL[torch.float32])
+        **TOL[dtype])
     for b, n in enumerate(nvalid):
         assert (out[b, n:] == 0).all()
+    assert torch.equal(out, K.ragged_paged_attention_q(q, kp, vp, ks, vs,
+                                                       *ints))
 
 
 def test_quantized_kv_write_on_cuda_matches_cpu(cuda):
