@@ -18,6 +18,14 @@ Phases, in order; any failure exits non-zero without the result line:
    cases; times (CUDA events, median of 21 runs) of the kernel, the
    plain version and one PyTorch library call computing the same
    function, beside the least time the card could take (``bound_ms``).
+   Layer norm (K1, K3) also at the two_lane decode's [8, 2048] and
+   BERT-large's [4096, 1024], on rows that are not whole 16-byte vectors
+   (C = 1, 33, 2050), C = 32768 and an input 4 bytes off its alignment
+   (equal to its aligned copy bit for bit); two calls give the same bits
+   and a row alone equals its row of the batch; K1's rows print the
+   empty launch's time beside them. Its training and BERT rows (K1
+   with the stats, K3) are timed over rotating copies of their inputs,
+   so that no call finds them in L2, as a training step does not.
    Flash attention (K6-K9) at the gpt3_1p3b and BERT-large shapes, at
    S = 4096, S = 1000, with a fully masked row and with the four bias
    shapes (dbias checked too); SDPA is its yardstick; two backwards must
@@ -129,8 +137,9 @@ RATE_NAMES = {"float32": "FP32 FMA, 67 TFLOP/s",
 # the earlier designs' times on an NVIDIA H100 80GB HBM3 at 700 W, from
 # PERF.md, printed in the log beside the redesigned kernels' (K11, the
 # flash backward and the flash forward on the FP32 FMA units, K13 and K2 /
-# K2q with one block per (row, head)); not on the kernels line, which
-# carries only this run's numbers
+# K2q with one block per (row, head), K1 and K3 with scalar loads and
+# K3's 512 partial rows summed a thread a column); not on the kernels
+# line, which carries only this run's numbers
 EARLIER_DESIGN_MS = {
     "quantized_matmul": {"int8_qkv": 0.164726, "int8_ffn2": 0.435523,
                          "int8_head": 0.739203, "int8_block_qkv": 0.274531,
@@ -147,6 +156,9 @@ EARLIER_DESIGN_MS = {
     "paged_attention": {"float32": 0.065568, "bfloat16": 0.131898},
     "ragged_paged_attention": {"float32": 0.214304, "bfloat16": 0.169389},
     "ragged_paged_attention_q": {"float32": 0.205008},
+    "layer_norm": {"main": 0.006032, "train": 0.015139,
+                   "train_bfloat16": 0.013363},
+    "layer_norm_bwd": {"float32": 0.056502, "bfloat16": 0.043882},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
 ALL_PHASES = "2345678"
@@ -202,6 +214,22 @@ def device_ms(torch, fn, reps=21, inner=10) -> float:
     return statistics.median(times)
 
 
+# the inputs a rotated timing cycles through pass this many bytes: four
+# times the H100's 50 MB L2
+ROTATE_BYTES = 200 << 20
+
+
+def rotated(torch, fn, *inputs):
+    """``fn`` on copies of ``inputs`` in turn, enough copies that together
+    they pass ROTATE_BYTES: no call finds its inputs in L2, as none does
+    in a training step, where other work ran since they were written."""
+    n = sum(t.numel() * t.element_size() for t in inputs)
+    copies = [[t.clone() for t in inputs]
+              for _ in range(max(2, -(-ROTATE_BYTES // n)))]
+    turn = iter(range(1 << 30))
+    return lambda: fn(*copies[next(turn) % len(copies)])
+
+
 def bound_ms(nbytes: float, ops: float, rate: str):
     """The least time for the work: the bytes at the HBM rate or the
     operations at the peak of ``rate`` (a PEAK_OPS key), the larger."""
@@ -230,49 +258,124 @@ def fmt(row, dtype):
                 f"{row.get('bound_rate', RATE_NAMES[dtype])})")
     if row.get("earlier_design_ms") is not None:
         out += f" earlier_design_ms={row['earlier_design_ms']:.6f}"
+    if row.get("rotated"):
+        out += " (rotated inputs)"
     return out
 
 
 # -- phase 2: layer norm ---------------------------------------------------------
 
 
+def ln_case(torch, dt, gen, R, C, offset=0):
+    """x (centred at 0.5, spread 2) and dy [R, C], gamma and beta [C].
+    ``offset`` elements in: x and dy start ``offset * itemsize`` bytes
+    past their buffers, off the 16-byte vectors (the kernels' scalar
+    path, as a view the ops path may pass)."""
+    def rows(scale, shift):
+        t = scale * torch.randn(R, C, device=DEVICE, generator=gen) + shift
+        buf = torch.empty(R * C + offset, dtype=dt, device=DEVICE)
+        out = buf[offset:].view(R, C)
+        out.copy_(t)
+        require(offset == 0 or out.data_ptr() % 16 != 0,
+                "the offset input is 16-byte aligned")
+        return out
+    x = rows(2.0, 0.5)
+    g = (1 + 0.1 * torch.randn(C, device=DEVICE, generator=gen)).to(dt)
+    b = (0.1 * torch.randn(C, device=DEVICE, generator=gen)).to(dt)
+    return x, g, b, rows(1.0, 0.0)
+
+
+def require_same_bits(torch, what, got, want):
+    for i, (u, v) in enumerate(zip(got, want)):
+        require(torch.equal(u, v), f"{what}: output {i} differs in its bits")
+
+
+def sample_rows(R):
+    return sorted({0, R // 2, R - 1})
+
+
+# (R, C) of the layer-norm checks beyond the timed shapes: R not a
+# multiple of any block, a narrow row, a row past the TPU kernel's MAX_C,
+# one element, rows that are not whole 16-byte vectors (the scalar path),
+# and C past the earlier K3's 29056 cap (the looped kernels)
+LN_EDGES = ((300, 2048), (37, 96), (5, 8192), (1, 1), (7, 33), (16, 2050),
+            (3, 32768))
+LN_OFFSET_SHAPE = (300, 2048)
+
+
 def check_layer_norm(torch, K, dtype_name, gen):
+    """K1 against its plain version at the serving shape [lanes * chunk,
+    hidden], the two_lane decode's [8, hidden], the training shape and
+    BERT-large's [4096, 1024] (those two with the stats, as training runs
+    it), the edges of LN_EDGES and an input off its 16-byte alignment
+    (equal to its aligned copy bit for bit); two calls give the same bits
+    and a row alone equals its row of the batch. The empty launch's time
+    is printed beside the timed rows: the floor a serving-size call
+    cannot go under. The rows with the stats are timed on rotated inputs
+    (``rotated``), the serving rows on one input, which the kernel before
+    has just written and L2 holds."""
     import torch.nn.functional as F
 
     dt = getattr(torch, dtype_name)
+    floor = device_ms(torch, lambda: torch.cuda._sleep(0))
+    timed = {(LANES * CHUNK, HIDDEN): ("main", False),
+             (LANES, HIDDEN): ("decode", False),
+             (TRAIN_ROWS, HIDDEN): ("train", True),
+             (BERT_BATCH * BERT_SEQ, 1024): ("bert", True)}
+    earlier = EARLIER_DESIGN_MS["layer_norm"]
     results = {}
-    # the serving slice's [lanes * chunk, hidden], the training slice's
-    # [batch * seq, hidden], then R not a multiple of any block, a narrow
-    # row, and a row past the TPU kernel's MAX_C
-    for R, C in ((LANES * CHUNK, 2048), (TRAIN_ROWS, 2048), (300, 2048),
-                 (37, 96), (5, 8192)):
-        x = torch.randn(R, C, device=DEVICE, generator=gen).to(dt)
-        g = (1 + 0.1 * torch.randn(C, device=DEVICE, generator=gen)).to(dt)
-        b = (0.1 * torch.randn(C, device=DEVICE, generator=gen)).to(dt)
-        what = f"layer_norm {dtype_name} [{R}x{C}]"
-        err = compare(torch, K.layer_norm(x, g, b, 1e-5),
-                      K.layer_norm_plain(x, g, b, 1e-5), dtype_name, what)
+    for R, C, offset in ([(R, C, 0) for R, C in timed]
+                         + [(R, C, 0) for R, C in LN_EDGES]
+                         + [(*LN_OFFSET_SHAPE, 32 // torch.finfo(dt).bits)]):
+        x, g, b, _ = ln_case(torch, dt, gen, R, C, offset)
+        what = f"layer_norm {dtype_name} [{R}x{C}]" + (
+            f" at a {offset * x.element_size()}-byte offset" if offset else
+            "")
+        want = K.layer_norm_fwd_plain(x, g, b, 1e-5)
+        got = K.layer_norm_fwd(x, g, b, 1e-5)
+        err = compare(torch, got[0], want[0], dtype_name, what)
+        for name, i in (("mean", 1), ("rstd", 2)):
+            compare(torch, got[i], want[i], "float32", f"{what} {name}")
+        y = K.layer_norm(x, g, b, 1e-5)
+        require(torch.equal(y, got[0]), f"{what}: y without the stats "
+                "differs from y with them")
+        require_same_bits(torch, f"{what}, a second call", got,
+                          K.layer_norm_fwd(x, g, b, 1e-5))
+        for r in sample_rows(R):
+            alone = K.layer_norm_fwd(x[r:r + 1].contiguous(), g, b, 1e-5)
+            require_same_bits(torch, f"{what}, row {r} alone",
+                              [t[0] for t in alone], [t[r] for t in got])
+        if offset:
+            require_same_bits(torch, f"{what} against its aligned copy",
+                              got, K.layer_norm_fwd(x.clone(), g, b, 1e-5))
         row = {"shape": [R, C], "max_abs_err": err}
-        if R in (LANES * CHUNK, TRAIN_ROWS) and C == 2048:
-            # the training path runs layer_norm_fwd (the stats written
-            # too); the serving path layer_norm (y alone)
-            fwd = K.layer_norm_fwd if R == TRAIN_ROWS else K.layer_norm
+        if (R, C) in timed and not offset:
+            key, stats = timed[(R, C)]
+            fwd = K.layer_norm_fwd if stats else K.layer_norm
             item = x.element_size()
-            nbytes = (2 * R * C + 2 * C) * item
-            if R == TRAIN_ROWS:
-                nbytes += 2 * R * 4
+            nbytes = (2 * R * C + 2 * C) * item + (2 * R * 4 if stats else 0)
             ops = 8 * R * C      # sum, center, square, sum, scale, shift
             bms, by = bound_ms(nbytes, ops, dtype_name)
+
+            def timed_ms(fn):
+                run = rotated(torch, fn, x, g, b) if stats else (
+                    lambda: fn(x, g, b))
+                return device_ms(torch, run)
             row.update(
-                ms=device_ms(torch, lambda: fwd(x, g, b, 1e-5)),
-                plain_ms=device_ms(
-                    torch, lambda: K.layer_norm_plain(x, g, b, 1e-5)),
-                library_ms=device_ms(
-                    torch, lambda: F.layer_norm(x, (C,), g, b, 1e-5)),
-                bound_ms=bms, bound_by=by)
-            results["train" if R == TRAIN_ROWS else "main"] = row
+                ms=timed_ms(lambda x, g, b: fwd(x, g, b, 1e-5)),
+                plain_ms=timed_ms(
+                    lambda x, g, b: K.layer_norm_plain(x, g, b, 1e-5)),
+                library_ms=timed_ms(
+                    lambda x, g, b: F.layer_norm(x, (C,), g, b, 1e-5)),
+                bound_ms=bms, bound_by=by, launch_floor_ms=floor,
+                stats=stats, rotated=stats, earlier_design_ms=earlier.get(
+                    key if dtype_name == "float32" else
+                    f"{key}_{dtype_name}"))
+            results[key] = row
+            what += f" (launch floor {floor:.6f} ms)"
         log(f"  {what}: {fmt(row, dtype_name)}")
-    return dict(results["main"], train_shape=results["train"])
+    return dict(results["main"], decode_shape=results["decode"],
+                train_shape=results["train"], bert_shape=results["bert"])
 
 
 # -- phase 2: ragged paged attention -------------------------------------------
@@ -378,26 +481,49 @@ def check_ragged(torch, np, K, dtype_name, gen, seed):
 
 
 def check_layer_norm_bwd(torch, K, dtype_name, gen):
-    """K3 against its plain version on the stats of K1's plain version."""
+    """K3 against its plain version on the stats of K1's plain version,
+    at the training shape, BERT-large's [4096, 1024], the edges of
+    LN_EDGES and an input off its 16-byte alignment (equal to its aligned
+    copy bit for bit); two calls give the same bits, dgamma and dbeta
+    included, and a row alone gives its row's dx of the batch. Timed on
+    rotated inputs (``rotated``): a training step's backward finds
+    neither x, saved in the forward, nor all of dy in L2."""
     dt = getattr(torch, dtype_name)
+    timed = {(TRAIN_ROWS, HIDDEN): "main", (BERT_BATCH * BERT_SEQ, 1024):
+             "bert"}
     results = {}
-    for R, C in ((TRAIN_ROWS, HIDDEN), (300, 2048), (37, 96), (5, 8192)):
-        x = (2 * torch.randn(R, C, device=DEVICE, generator=gen) + 0.5).to(dt)
-        g = (1 + 0.1 * torch.randn(C, device=DEVICE, generator=gen)).to(dt)
-        b = (0.1 * torch.randn(C, device=DEVICE, generator=gen)).to(dt)
-        dy = torch.randn(R, C, device=DEVICE, generator=gen).to(dt)
+    for R, C, offset in ([(R, C, 0) for R, C in timed]
+                         + [(R, C, 0) for R, C in LN_EDGES]
+                         + [(*LN_OFFSET_SHAPE, 32 // torch.finfo(dt).bits)]):
+        x, g, b, dy = ln_case(torch, dt, gen, R, C, offset)
         _, mean, rstd = K.layer_norm_fwd_plain(x, g, b, 1e-5)
         got = K.layer_norm_bwd(x, g, dy, mean, rstd)
         want = K.layer_norm_bwd_plain(x, g, dy, mean, rstd)
-        what = f"layer_norm_bwd {dtype_name} [{R}x{C}]"
+        what = f"layer_norm_bwd {dtype_name} [{R}x{C}]" + (
+            f" at a {offset * x.element_size()}-byte offset" if offset else
+            "")
         # dgamma/dbeta sum R rows in another order than torch: a float32
         # sum's error grows with its length, so they get 2e-5 * sqrt(R)
         atols = (None, 2e-5 * R ** 0.5, 2e-5 * R ** 0.5)
         err = max(compare(torch, a, w, dtype_name, f"{what} {n}", atol=t)
                   for n, a, w, t in zip(("dx", "dgamma", "dbeta"), got, want,
                                         atols))
+        require_same_bits(torch, f"{what}, a second call", got,
+                          K.layer_norm_bwd(x, g, dy, mean, rstd))
+        for r in sample_rows(R):
+            one = slice(r, r + 1)
+            alone = K.layer_norm_bwd(x[one].contiguous(), g,
+                                     dy[one].contiguous(),
+                                     mean[one].contiguous(),
+                                     rstd[one].contiguous())
+            require_same_bits(torch, f"{what}, row {r} alone",
+                              [alone[0][0]], [got[0][r]])
+        if offset:
+            require_same_bits(torch, f"{what} against its aligned copy",
+                              got, K.layer_norm_bwd(x.clone(), g, dy.clone(),
+                                                    mean, rstd))
         row = {"shape": [R, C], "max_abs_err": err}
-        if (R, C) == (TRAIN_ROWS, HIDDEN):
+        if (R, C) in timed and not offset:
             item = x.element_size()
             nbytes = 3 * R * C * item + 3 * C * item + 2 * R * 4
             ops = 14 * R * C
@@ -405,17 +531,21 @@ def check_layer_norm_bwd(torch, K, dtype_name, gen):
             # the library's own stats, in the dtype its backward takes
             _, m2, r2 = torch.native_layer_norm(x, [C], g, b, 1e-5)
             row.update(
-                ms=device_ms(torch, lambda: K.layer_norm_bwd(
-                    x, g, dy, mean, rstd)),
-                plain_ms=device_ms(torch, lambda: K.layer_norm_bwd_plain(
-                    x, g, dy, mean, rstd)),
-                library_ms=device_ms(
-                    torch, lambda: torch.ops.aten.native_layer_norm_backward(
-                        dy, x, [C], m2, r2, g, b, [True, True, True])),
-                bound_ms=bms, bound_by=by)
-            results["main"] = row
+                ms=device_ms(torch, rotated(
+                    torch, K.layer_norm_bwd, x, g, dy, mean, rstd)),
+                plain_ms=device_ms(torch, rotated(
+                    torch, K.layer_norm_bwd_plain, x, g, dy, mean, rstd)),
+                library_ms=device_ms(torch, rotated(
+                    torch, lambda dy, x, m2, r2, g, b:
+                    torch.ops.aten.native_layer_norm_backward(
+                        dy, x, [C], m2, r2, g, b, [True, True, True]),
+                    dy, x, m2, r2, g, b)),
+                bound_ms=bms, bound_by=by, rotated=True,
+                earlier_design_ms=EARLIER_DESIGN_MS["layer_norm_bwd"].get(
+                    dtype_name if timed[(R, C)] == "main" else None))
+            results[timed[(R, C)]] = row
         log(f"  {what}: {fmt(row, dtype_name)}")
-    return results["main"]
+    return dict(results["main"], bert_shape=results["bert"])
 
 
 def check_softmax_xent(torch, K, dtype_name, gen):
@@ -572,19 +702,17 @@ def check_fused_momentum(torch, K, gen):
                     if (dtype_name, shape_name, nesterov, clip) != (
                             "float32", "conv", False, None):
                         continue
-                    # timed over 4 copies of (p, g, vel) in turn, 189 MB,
-                    # so that the 50 MB L2 holds none of a call's inputs,
-                    # as in a training step
+                    # timed over copies of (p, g, vel) in turn, so that
+                    # L2 holds none of a call's inputs, as in a training
+                    # step
                     n = got[0].numel()
-                    copies = [[t.clone() for t in state] for _ in range(4)]
-                    turn = iter(range(1 << 30))
 
                     def rotate(fn):
-                        return lambda: fn(*copies[next(turn) % 4])
+                        return rotated(torch, fn, *state)
 
                     bms, by = bound_ms(5 * n * 4, 4 * n, "float32")
                     main = {"max_abs_err": 0.0, "bound_ms": bms,
-                            "bound_by": by,
+                            "bound_by": by, "rotated": True,
                             "ms": device_ms(torch, rotate(
                                 lambda p, g, v: K.fused_momentum_update(
                                     p, g, v, lr, **kw))),
@@ -1136,7 +1264,6 @@ KERNEL_GROUPS = (("ragged_split_kernel<float, signed char",
                  ("momentum_kernel", "fused_momentum (K10m)"),
                  ("layer_norm_fwd", "layer_norm (K1)"),
                  ("layer_norm_bwd", "layer_norm_bwd (K3)"),
-                 ("column_sum", "layer_norm_bwd (K3)"),
                  ("softmax_xent_fwd", "softmax_xent_fwd (K4)"),
                  ("softmax_xent_bwd", "softmax_xent_bwd (K5)"),
                  ("adam_kernel", "fused_adam (K10)"),
@@ -1192,16 +1319,21 @@ def kernel_breakdown(trace_path, wall_s):
             "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3)}
 
 
-def trace_breakdown(prof, out_dir, name, wall):
+def trace_breakdown(prof, out_dir, name, wall, steps=None):
     """Export the profiler's chrome trace, parse it into the breakdown
     and delete it (a whole phase's trace is tens of MB; the breakdown
-    goes to chip_smoke.json)."""
+    goes to chip_smoke.json). With ``steps``, the traced window's step
+    count, each group's device ms a step too."""
     path = os.path.join(out_dir, f"{name}_trace.json")
     prof.export_chrome_trace(path)
     try:
         out = kernel_breakdown(path, wall)
     finally:
         os.remove(path)
+    if steps:
+        out["steps"] = steps
+        out["kernel_ms_a_step_by_group"] = {
+            g: ms / steps for g, ms in out["kernel_ms_by_group"].items()}
     log(f"  profile ({name} times above include the profiler): "
         + json.dumps(out))
     return out
@@ -1367,7 +1499,8 @@ def serve(torch, np, seed, card, out_dir, profile=False):
             f"{2 * L + 1} x {steps}")
     perf = serving_perf(torch, st, streams, wall, lengths, card)
     if prof is not None:
-        perf["profile"] = trace_breakdown(prof, out_dir, "serve", wall)
+        perf["profile"] = trace_breakdown(prof, out_dir, "serve", wall,
+                                          steps)
     oracle(np, pred, prompts, streams)
     return counts, perf
 
@@ -1503,7 +1636,7 @@ def run_steps(torch, np, K, exe, main, scope, batch, loss, want, steps,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         prof.__exit__(None, None, None)
-        perf["profile"] = trace_breakdown(prof, out_dir, name, wall)
+        perf["profile"] = trace_breakdown(prof, out_dir, name, wall, 2)
     return totals, perf
 
 

@@ -42,9 +42,9 @@ _i64 = ctypes.c_longlong
 # c_void_p (a bare int would be cut to 32 bits), sizes c_int, element
 # counts and label values c_longlong
 SIGNATURES: Dict[str, List] = {
-    "pt_layer_norm_fwd": [_vp] * 6 + [_int, _int, _float, _int, _vp],
-    "pt_layer_norm_bwd_scratch_rows": [_int],
-    "pt_layer_norm_bwd": [_vp] * 9 + [_int, _int, _int, _vp],
+    "pt_layer_norm_fwd": [_vp] * 6 + [_int, _int, _float] + [_int] * 4
+                         + [_vp],
+    "pt_layer_norm_bwd": [_vp] * 9 + [_int] * 8 + [_vp],
     "pt_ragged_paged_attention": [_vp] * 9 + [_int] * 10 + [_float, _int,
                                                              _int, _vp],
     "pt_softmax_xent_fwd": [_vp] * 4 + [_int, _int, _i64, _int, _vp],

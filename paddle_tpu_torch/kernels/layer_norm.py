@@ -5,16 +5,17 @@ K1 replaces ``paddle_tpu/kernels/layer_norm.py`` ``_fwd_impl`` (the
 Pallas forward, ``pallas_call`` at :124) as the ``layer_norm`` op of
 ``ops/nn.py:427-445`` reaches it: per row of ``[R, C]``,
 ``y = (x - mean) * rsqrt(var + eps) * gamma + beta`` with population
-variance and float32 accumulation; y has x's dtype. It writes the
-per-row mean and rstd (float32 ``[R]``) when the backward will need
-them (``layer_norm_fwd``); the serving path asks for y alone
-(``layer_norm``).
+variance about the mean (two passes) and float32 accumulation; y has
+x's dtype. It writes the per-row mean and rstd (float32 ``[R]``) when
+the backward will need them (``layer_norm_fwd``); the serving path asks
+for y alone (``layer_norm``).
 
 K3 replaces ``_vjp_bwd`` (:155, ``pallas_call`` at :164):
 ``dx = rstd * (dy*g - mean(dy*g) - xhat * mean(dy*g*xhat))`` per row,
 ``dgamma = sum_rows(dy * xhat)``, ``dbeta = sum_rows(dy)`` (float32
-sums, cast to gamma's dtype). The column sums are taken in two
-deterministic passes on the card, never with float atomics.
+sums, cast to gamma's dtype), in two passes on the card: a block per
+run of rows writes its partial sums once, then a column pass adds the
+runs in a fixed order. No float atomics: two calls give the same bits.
 
 ``fused_layer_norm`` is the ``torch.autograd.Function`` over both, the
 counterpart of the reference's ``jax.custom_vjp`` of the same name: y
@@ -23,9 +24,13 @@ their gradients exact (``layer_norm_pallas``, :194-215).
 
 Bound on the H100: memory. K1 moves ``2 * R * C * itemsize`` bytes
 plus gamma and beta; K3 ``3 * R * C * itemsize`` plus gamma, the
-stats, dgamma and dbeta. Each kernel runs one block per row (K3: per
-run of rows) and loops over the row, so C has no cap (the TPU's VMEM
-bound ``MAX_C`` does not carry over).
+stats, dgamma and dbeta. Each thread keeps fixed 16-byte vectors of a
+row in registers and loads them once; wider rows take looped kernels,
+so C has no cap (the TPU's VMEM bound ``MAX_C`` does not carry over).
+The geometry is computed here, from C, R and the element size alone
+(``ln_fwd_geometry``, ``ln_bwd_geometry``), never from the card: the
+same inputs give the same bits on any card, and K1's path does not
+depend on R, so a row's result does not depend on the rows beside it.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. There is no fallback from one to the other.
@@ -33,7 +38,7 @@ the kernel or raises. There is no fallback from one to the other.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -41,9 +46,90 @@ from . import _build
 
 __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_fwd",
            "layer_norm_fwd_plain", "layer_norm_bwd", "layer_norm_bwd_plain",
-           "fused_layer_norm"]
+           "fused_layer_norm", "ln_fwd_geometry", "ln_bwd_geometry"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+VEC_BYTES = 16         # a thread's loads and stores: 16-byte vectors
+MAX_THREADS = 512      # threads a block (the kernels' launch bound)
+VECTORS_A_THREAD = 2   # the block-per-row paths aim at this many a thread
+NARROW_VECTORS = 64    # K1: a row of at most this many vectors is one warp
+NARROW_ROWS = 4        # K1: rows (warps) a block on that path
+FWD_NVECS = (1, 2)     # K1: vectors a thread in registers (kernel variants)
+BWD_NVECS = (1, 2)     # K3: the same (x, dy, the next row's, gamma, 2 sums)
+BWD_BLOCKS = 256       # K3: at least this many runs of rows where R allows
+BWD_MAX_ROWS = 8       # K3: rows a run, at most, while the scratch allows
+BWD_SCRATCH = 1 << 19  # K3: floats of one [G, C] partial array, at most
+COLUMN_WARPS = 32      # K3's column pass: warps a block of 32 columns
+
+
+class FwdGeometry(NamedTuple):
+    """K1's launch: ``row_threads`` threads a row, ``rows_per_block``
+    rows a block, ``nvec`` vectors a thread in registers (0: the looped
+    kernel)."""
+    row_threads: int
+    rows_per_block: int
+    nvec: int
+
+
+class BwdGeometry(NamedTuple):
+    """K3's launch: ``threads`` a row (and a block), ``nvec`` vectors a
+    thread in registers (0: looped), ``blocks`` (G) runs of
+    ``rows_per_block`` rows, and the column pass's ``column_warps``."""
+    threads: int
+    nvec: int
+    rows_per_block: int
+    blocks: int
+    column_warps: int
+
+
+def _vectors(C: int, itemsize: int) -> int:
+    """16-byte vectors a row of C elements spans (the last may be part
+    of one)."""
+    return -(-C // (VEC_BYTES // itemsize))
+
+
+def _row_threads(nv: int) -> int:
+    """Whole warps, about ``VECTORS_A_THREAD`` vectors each, at most
+    ``MAX_THREADS``."""
+    want = -(-nv // VECTORS_A_THREAD)
+    return min(MAX_THREADS, max(32, -(-want // 32) * 32))
+
+
+def _nvec(nv: int, threads: int, variants) -> int:
+    """The least register variant that covers the row, or 0 (looped)."""
+    need = -(-nv // threads)
+    return next((n for n in variants if n >= need), 0)
+
+
+def ln_fwd_geometry(C: int, itemsize: int = 4) -> FwdGeometry:
+    """K1's geometry, a function of C and the element size alone (never
+    of R or the card). A thread owns vectors ``t + k * row_threads`` of
+    its row, k < nvec (k < ceil(vectors / row_threads) when looped)."""
+    nv = _vectors(C, itemsize)
+    if nv <= NARROW_VECTORS:
+        return FwdGeometry(32, NARROW_ROWS, _nvec(nv, 32, FWD_NVECS))
+    threads = _row_threads(nv)
+    return FwdGeometry(threads, 1, _nvec(nv, threads, FWD_NVECS))
+
+
+def ln_bwd_geometry(R: int, C: int, itemsize: int = 4) -> BwdGeometry:
+    """K3's geometry, a function of R, C and the element size alone
+    (never of the card). A row's threads and vectors depend on C alone,
+    as in K1; block b takes rows ``[b * rows_per_block, ...)``."""
+    nv = _vectors(C, itemsize)
+    threads = _row_threads(nv)
+    nvec = _nvec(nv, threads, BWD_NVECS)
+    if nvec == 0:
+        threads = MAX_THREADS
+    # runs of at most BWD_MAX_ROWS rows (the depth that kept the most
+    # bytes in flight of those timed), fewer where R is small so
+    # that BWD_BLOCKS blocks still run, more where G partial rows of C
+    # would pass BWD_SCRATCH (the scratch stays in L2)
+    rows_per_block = max(1, min(BWD_MAX_ROWS, -(-R // BWD_BLOCKS)),
+                         -(-R // max(1, BWD_SCRATCH // C)))
+    return BwdGeometry(threads, nvec, rows_per_block,
+                       -(-R // rows_per_block), COLUMN_WARPS)
 
 
 def layer_norm_fwd_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -121,6 +207,7 @@ def _launch_fwd(x, gamma, beta, eps, stats):
     if stats:
         mean = torch.empty(R, dtype=torch.float32, device=x.device)
         rstd = torch.empty(R, dtype=torch.float32, device=x.device)
+    geo = ln_fwd_geometry(C, x.element_size())
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -128,7 +215,7 @@ def _launch_fwd(x, gamma, beta, eps, stats):
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
             mean.data_ptr() if stats else None,
             rstd.data_ptr() if stats else None, R, C, float(eps), code,
-            stream)
+            *geo, stream)
     _build.check(err, "layer_norm")
     layer_norm.launches += 1
     return y, mean, rstd
@@ -178,21 +265,19 @@ def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     if not (mean.is_contiguous() and rstd.is_contiguous()):
         raise ValueError("layer_norm_bwd kernel takes contiguous stats")
     R, C = x.shape
-    if 8 * C > 227 * 1024:
-        raise ValueError(f"layer_norm_bwd kernel keeps 2 * C float32 "
-                         f"column sums in shared memory: C <= 29056, got {C}")
+    geo = ln_bwd_geometry(R, C, x.element_size())
     lib = _build.library()
     dx = torch.empty_like(x)
     dgamma = torch.empty_like(gamma)
     dbeta = torch.empty_like(gamma)
-    scratch = torch.empty(lib.pt_layer_norm_bwd_scratch_rows(R), C,
-                          dtype=torch.float32, device=x.device)
+    scratch = torch.empty(2 * geo.blocks, C, dtype=torch.float32,
+                          device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.pt_layer_norm_bwd(
             x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), mean.data_ptr(),
             rstd.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
-            dgamma.data_ptr(), dbeta.data_ptr(), R, C, code, stream)
+            dgamma.data_ptr(), dbeta.data_ptr(), R, C, code, *geo, stream)
     _build.check(err, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
     return dx, dgamma, dbeta

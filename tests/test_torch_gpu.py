@@ -40,7 +40,8 @@ def cuda():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R,C", [(128, 2048), (300, 2048), (37, 96),
-                                 (5, 8192), (1, 1)])
+                                 (5, 8192), (1, 1), (8, 2048), (4096, 1024),
+                                 (3, 33), (16, 2050), (2, 32768)])
 def test_layer_norm_kernel_matches_plain(cuda, R, C, dtype):
     g = torch.Generator(device=cuda).manual_seed(R * 7 + C)
     x = (2 * torch.randn(R, C, device=cuda, generator=g) + 0.5).to(dtype)
@@ -204,7 +205,8 @@ def test_engine_on_cuda_matches_cpu(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R,C", [(2048, 2048), (300, 2048), (37, 96),
-                                 (5, 8192), (1, 1)])
+                                 (5, 8192), (1, 1), (4096, 1024), (7, 33),
+                                 (16, 2050), (3, 32768)])
 def test_layer_norm_bwd_kernel_matches_plain(cuda, R, C, dtype):
     g = torch.Generator(device=cuda).manual_seed(R * 5 + C)
     x = (2 * torch.randn(R, C, device=cuda, generator=g) + 0.5).to(dtype)
@@ -227,6 +229,76 @@ def test_layer_norm_bwd_kernel_matches_plain(cuda, R, C, dtype):
     tol = dict(TOL[dtype], atol=max(TOL[dtype]["atol"], 2e-5 * R ** 0.5))
     for a, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, w, **tol)
+
+
+def _ln_case(cuda, R, C, dtype, seed, offset=0):
+    """x, gamma, beta, dy; x and dy ``offset`` elements into their
+    buffers (off the kernels' 16-byte vectors when offset * itemsize is
+    not a multiple of 16)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rows(scale, shift):
+        t = scale * torch.randn(R, C, device=cuda, generator=g) + shift
+        buf = torch.empty(R * C + offset, dtype=dtype, device=cuda)
+        out = buf[offset:].view(R, C)
+        out.copy_(t)
+        return out
+    x = rows(2.0, 0.5)
+    gamma = (1 + 0.1 * torch.randn(C, device=cuda, generator=g)).to(dtype)
+    beta = (0.1 * torch.randn(C, device=cuda, generator=g)).to(dtype)
+    return x, gamma, beta, rows(1.0, 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C", [(128, 2048), (300, 2048), (37, 96),
+                                 (4096, 1024), (2, 32768)])
+def test_layer_norm_kernels_off_alignment_equal_the_aligned_copy(cuda, R, C,
+                                                                 dtype):
+    """x and dy 4 bytes past 16-byte alignment take the scalar loads: the
+    same columns a thread and the same order as the vector path, so the
+    same bits as an aligned copy, and within tolerance of plain."""
+    x, gamma, beta, dy = _ln_case(cuda, R, C, dtype, R + C,
+                                  offset=32 // torch.finfo(dtype).bits)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    fwd = K.layer_norm_fwd(x, gamma, beta)
+    for a, w in zip(fwd, K.layer_norm_fwd(x.clone(), gamma, beta)):
+        assert torch.equal(a, w)
+    torch.testing.assert_close(fwd[0], K.layer_norm_plain(x, gamma, beta),
+                               **TOL[dtype])
+    _, mean, rstd = K.layer_norm_fwd_plain(x, gamma, beta)
+    bwd = K.layer_norm_bwd(x, gamma, dy, mean, rstd)
+    for a, w in zip(bwd, K.layer_norm_bwd(x.clone(), gamma, dy.clone(),
+                                          mean, rstd)):
+        assert torch.equal(a, w)
+    want = K.layer_norm_bwd_plain(x, gamma, dy, mean, rstd)
+    torch.testing.assert_close(bwd[0], want[0], **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C", [(128, 2048), (2048, 2048), (37, 96),
+                                 (16, 2050), (3, 32768)])
+def test_layer_norm_bits_repeat_and_rows_do_not_depend_on_the_batch(
+        cuda, R, C, dtype):
+    """Two calls give the same bits (K3's dgamma and dbeta too); a row
+    run alone gives its row's y, mean and rstd (K1) and dx (K3) of the
+    batch bit for bit."""
+    x, gamma, beta, dy = _ln_case(cuda, R, C, dtype, R * 3 + C)
+    fwd = K.layer_norm_fwd(x, gamma, beta)
+    for a, w in zip(fwd, K.layer_norm_fwd(x, gamma, beta)):
+        assert torch.equal(a, w)
+    _, mean, rstd = fwd
+    bwd = K.layer_norm_bwd(x, gamma, dy, mean, rstd)
+    for a, w in zip(bwd, K.layer_norm_bwd(x, gamma, dy, mean, rstd)):
+        assert torch.equal(a, w)
+    for r in sorted({0, 1 % R, R // 2, R - 1}):
+        one = slice(r, r + 1)
+        alone = K.layer_norm_fwd(x[one].contiguous(), gamma, beta)
+        for a, w in zip(alone, fwd):
+            assert torch.equal(a[0], w[r]), f"K1 row {r}"
+        dx = K.layer_norm_bwd(x[one].contiguous(), gamma,
+                              dy[one].contiguous(), mean[one].contiguous(),
+                              rstd[one].contiguous())[0]
+        assert torch.equal(dx[0], bwd[0][r]), f"K3 row {r}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

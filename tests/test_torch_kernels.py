@@ -341,8 +341,7 @@ def test_build_sources_and_hash(tmp_path, monkeypatch):
                          ("softmax_xent.cu", ["pt_softmax_xent_fwd",
                                               "pt_softmax_xent_bwd"]),
                          ("layer_norm.cu", ["pt_layer_norm_fwd",
-                                            "pt_layer_norm_bwd",
-                                            "pt_layer_norm_bwd_scratch_rows"]),
+                                            "pt_layer_norm_bwd"]),
                          ("ragged_paged_attention.cu", [
                              "pt_ragged_paged_attention",
                              "pt_ragged_paged_attention_q"]),
