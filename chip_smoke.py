@@ -36,8 +36,11 @@ Phases, in order; any failure exits non-zero without the result line:
    rows at M = 1 and M = 37 bit for bit. The K11 and flash-backward rows
    print their earlier designs' times (PERF.md) beside the new ones, and
    every bound names the rate it assumes (RATE_NAMES);
-   K2q at phase 3's ragged shape over int8 pages; K12 on ffn1 and the
-   head with rank buckets 8 and 16 and a mixed slot vector. K10m (fused
+   K2q at phase 3's ragged shape over int8 pages; K12 at gpt3_1p3b's
+   five LoRA targets (qkv, proj, ffn1, ffn2, the head) with rank buckets
+   8 and 16 and a mixed slot vector, on rotated inputs, with the
+   wrapper's host time a call; two calls and each lane alone must give
+   the batch's bits. K10m (fused
    momentum) bit for bit at [512, 512, 3, 3] and [2048, 1000], float32
    and bfloat16, plain and nesterov, with and without a clip scale;
    K13 (paged decode attention) at the two_lane decode shape and on
@@ -138,7 +141,8 @@ RATE_NAMES = {"float32": "FP32 FMA, 67 TFLOP/s",
 # PERF.md, printed in the log beside the redesigned kernels' (K11, the
 # flash backward and the flash forward on the FP32 FMA units, K13 and K2 /
 # K2q with one block per (row, head), K1 and K3 with scalar loads and
-# K3's 512 partial rows summed a thread a column); not on the kernels
+# K3's 512 partial rows summed a thread a column, K12's 256-row shrink
+# slices summed by every expand thread, timed warm); not on the kernels
 # line, which carries only this run's numbers
 EARLIER_DESIGN_MS = {
     "quantized_matmul": {"int8_qkv": 0.164726, "int8_ffn2": 0.435523,
@@ -159,6 +163,7 @@ EARLIER_DESIGN_MS = {
     "layer_norm": {"main": 0.006032, "train": 0.015139,
                    "train_bfloat16": 0.013363},
     "layer_norm_bwd": {"float32": 0.056502, "bfloat16": 0.043882},
+    "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
 ALL_PHASES = "2345678"
@@ -1159,13 +1164,23 @@ def check_ragged_q(torch, np, K, gen, seed):
 
 # 8 lanes: slot 0, both buckets, and slots repeated within a bucket
 LORA_SLOTS = [[0, 0], [1, 0], [0, 1], [2, 0], [1, 0], [0, 2], [0, 0], [0, 1]]
-LORA_SHAPES = (("ffn1", HIDDEN, 8192), ("head", HIDDEN, VOCAB))
+# gpt3_1p3b's five LoRA targets a layer and the head
+LORA_SHAPES = (("qkv", HIDDEN, 3 * HIDDEN), ("proj", HIDDEN, HIDDEN),
+               ("ffn1", HIDDEN, 8192), ("ffn2", 8192, HIDDEN),
+               ("head", HIDDEN, VOCAB))
+HOST_CALLS = 200   # calls whose wall time, unsynchronised, gives host us
 
 
 def check_lora(torch, K, gen):
     """K12 against its plain version on the serving step's [8 lanes x
-    16, K] rows, rank buckets 8 and 16 (3 slots each), on ffn1 and the
-    head; rows on slot 0 must stay the base product bit for bit."""
+    16, K] rows, rank buckets 8 and 16 (3 slots each), at the five LoRA
+    targets; rows on slot 0 must stay the base product bit for bit, two
+    calls must give the same bits and each adapter lane run alone must
+    equal its lane of the batch. Kernel, plain version and the bmm pair
+    are timed on rotated inputs (``rotated``: no call finds x, out or
+    the pools in L2, as none does in a serving step); the wrapper's host
+    time a call is the wall time of HOST_CALLS calls queued without a
+    synchronise."""
     rows = {}
     R, rep = LANES, CHUNK
     M = R * rep
@@ -1190,6 +1205,16 @@ def check_lora(torch, K, gen):
         zero = (sl == 0).all(dim=1).repeat_interleave(rep)
         require(torch.equal(got[zero], base[zero]),
                 f"{what}: a slot-0 row is not the base product")
+        require(torch.equal(K.batched_lora_add_(base.clone(), x, *pools, sl),
+                            got), f"{what}: two calls differ in their bits")
+        for lane in range(R):
+            if any(LORA_SLOTS[lane]):
+                mine = slice(lane * rep, (lane + 1) * rep)
+                alone = K.batched_lora_add_(base[mine].clone(),
+                                            x[mine].contiguous(), *pools,
+                                            sl[lane:lane + 1])
+                require(torch.equal(alone, got[mine]),
+                        f"{what}: lane {lane} alone differs from the batch")
         row = {"shape": [M, Kd, N], "max_abs_err": err, "tol": tol}
         # bound: each distinct (bucket, slot) factor pair once, and the
         # adapter rows' x read and output read and written
@@ -1204,25 +1229,42 @@ def check_lora(torch, K, gen):
                   for lane in LORA_SLOTS for j, s in enumerate(lane) if s)
         bms, by = bound_ms(nbytes, ops, "float32")
         idx = [sl[:, j].long() for j in range(2)]
-        x3 = x.reshape(R, rep, Kd)
 
-        def library():   # the gathered torch.bmm pair, bucket by bucket
-            out = base.reshape(R, rep, N).clone()
-            for j in range(2):
-                u = torch.bmm(x3, pools[0][j][idx[j]])
-                out += torch.bmm(u, pools[1][j][idx[j]]) * \
-                    pools[2][j][idx[j]][:, None, None]
+        def library(out, x, a0, a1, b0, b1, s0, s1):
+            # the gathered torch.bmm pair, bucket by bucket
+            out = out.reshape(R, rep, N).clone()
+            x3 = x.reshape(R, rep, Kd)
+            for j, (a, b, sc) in enumerate(((a0, b0, s0), (a1, b1, s1))):
+                u = torch.bmm(x3, a[idx[j]])
+                out += torch.bmm(u, b[idx[j]]) * sc[idx[j]][:, None, None]
             return out
 
-        scratch = base.clone()
+        def kernel(out, x, a0, a1, b0, b1, s0, s1):
+            return K.batched_lora_add_(out, x, [a0, a1], [b0, b1], [s0, s1],
+                                       sl)
+
+        def plain(out, x, a0, a1, b0, b1, s0, s1):
+            return K.batched_lora_add_plain_(out, x, [a0, a1], [b0, b1],
+                                             [s0, s1], sl)
+
+        inputs = (base.clone(), x, *pools[0], *pools[1], *pools[2])
+        warm = lambda: kernel(*inputs)  # noqa: E731
+        warm()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            warm()
+        host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+        torch.cuda.synchronize()
         row.update(
-            ms=device_ms(torch, lambda: K.batched_lora_add_(
-                scratch, x, *pools, sl)),
-            plain_ms=device_ms(torch, lambda: K.batched_lora_add_plain_(
-                scratch, x, *pools, sl)),
-            library_ms=device_ms(torch, library), bound_ms=bms, bound_by=by)
+            ms=device_ms(torch, rotated(torch, kernel, *inputs)),
+            plain_ms=device_ms(torch, rotated(torch, plain, *inputs)),
+            library_ms=device_ms(torch, rotated(torch, library, *inputs)),
+            bound_ms=bms, bound_by=by, rotated=True, host_us=host_us,
+            earlier_design_ms=EARLIER_DESIGN_MS["batched_lora_add_"].get(
+                name))
         rows[name] = row
-        log(f"  {what}: {fmt(row, 'float32')}")
+        log(f"  {what}: {fmt(row, 'float32')} host_us={host_us:.3f}")
     return rows
 
 
@@ -1287,36 +1329,44 @@ KERNEL_GROUPS = (("ragged_split_kernel<float, signed char",
                  ("elementwise", "elementwise"), ("vectorized", "elementwise"))
 
 
-def kernel_breakdown(trace_path, wall_s):
-    """Device time by kernel group from a torch.profiler chrome trace:
-    the sum of kernel durations, the busy time (union of kernel
-    intervals) and the device's idle share of the serving wall time."""
-    with open(trace_path) as f:
-        trace = json.load(f)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    kernels = [e for e in events
-               if str(e.get("cat", "")).lower() == "kernel" and "dur" in e]
-    require(kernels, "the profiler trace holds no device kernel")
-    groups, names = {}, {}
-    for e in kernels:
-        low = e["name"].lower()
-        group = next((g for key, g in KERNEL_GROUPS if key in low), "other")
-        groups[group] = groups.get(group, 0.0) + e["dur"] / 1e3
-        names[e["name"]] = names.get(e["name"], 0.0) + e["dur"] / 1e3
+def busy_ms(intervals) -> float:
+    """ms covered by the union of (ts, dur) intervals in us."""
     busy, end = 0.0, None
-    for ts, dur in sorted((e["ts"], e["dur"]) for e in kernels):
+    for ts, dur in sorted(intervals):
         if end is None or ts > end:
             busy += dur
             end = ts + dur
         elif ts + dur > end:
             busy += ts + dur - end
             end = ts + dur
-    busy_ms = busy / 1e3
+    return busy / 1e3
+
+
+def kernel_breakdown(trace_path, wall_s):
+    """Device time by kernel group from a torch.profiler chrome trace: a
+    group's busy time (the union of its kernels' intervals: K12's expand,
+    launched as the shrink's programmatic dependent, overlaps it; for
+    every other group the sum of durations), the device's busy time and
+    its idle share of the serving wall time."""
+    with open(trace_path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    kernels = [e for e in events
+               if str(e.get("cat", "")).lower() == "kernel" and "dur" in e]
+    require(kernels, "the profiler trace holds no device kernel")
+    spans, names = {}, {}
+    for e in kernels:
+        low = e["name"].lower()
+        group = next((g for key, g in KERNEL_GROUPS if key in low), "other")
+        spans.setdefault(group, []).append((e["ts"], e["dur"]))
+        names[e["name"]] = names.get(e["name"], 0.0) + e["dur"] / 1e3
+    groups = {g: busy_ms(iv) for g, iv in spans.items()}
+    busy = busy_ms((e["ts"], e["dur"]) for e in kernels)
     return {"kernels": len(kernels), "kernel_ms_by_group": groups,
             "top_kernels_ms": dict(sorted(names.items(),
                                           key=lambda kv: -kv[1])[:8]),
-            "device_busy_ms": busy_ms, "wall_ms": wall_s * 1e3,
-            "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3)}
+            "device_busy_ms": busy, "wall_ms": wall_s * 1e3,
+            "device_idle_share": 1.0 - busy / (wall_s * 1e3)}
 
 
 def trace_breakdown(prof, out_dir, name, wall, steps=None):
@@ -2688,8 +2738,8 @@ def main(argv=None) -> int:
               f"int8_block_b{ODD_BLOCK}", path=f"serve_int8_block_b{ODD_BLOCK}"),
         entry("ragged_paged_attention_q", csrc + "ragged_paged_attention.cu",
               "paddle_tpu/kernels/ragged_paged_attention.py:184"),
-        # K12 at ffn1 [128, 2048] -> 8192, ranks 8 and 16 (the head row is
-        # in chip_smoke.json)
+        # K12 at ffn1 [128, 2048] -> 8192, ranks 8 and 16, rotated inputs
+        # (the other targets' rows are in chip_smoke.json)
         entry("batched_lora_add_", csrc + "lora.cu",
               "paddle_tpu/kernels/lora.py:168", "ffn1"),
         # K10m at ResNet-50's largest parameter [512, 512, 3, 3], launches

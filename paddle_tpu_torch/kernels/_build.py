@@ -63,9 +63,8 @@ SIGNATURES: Dict[str, List] = {
                                                                _int, _vp],
     "pt_quant_matmul": [_vp] * 5 + [_int] * 6 + [_vp],
     "pt_quant_matmul_fma": [_vp] * 4 + [_int] * 4 + [_vp],
-    "pt_batched_lora_split_rows": [],
-    "pt_batched_lora_add": [_vp] * 3 + [ctypes.POINTER(_vp)] * 4
-                           + [ctypes.POINTER(_int)] * 2 + [_int] * 6 + [_vp],
+    "pt_batched_lora_add": [_vp] * 4 + [ctypes.POINTER(_vp)] * 3
+                           + [ctypes.POINTER(_int)] * 2 + [_int] * 10 + [_vp],
 }
 
 _lock = threading.Lock()

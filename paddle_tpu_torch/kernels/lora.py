@@ -23,18 +23,23 @@ slot-0 row). The kernel adds into the base product in place and only
 for a nonzero slot, so a slot-0 row is bitwise the base output.
 
 Kernel design. The TPU kernel loops every slot on its grid and masks
-rows (S-fold work); here only the rows of a nonzero slot (a ragged
-lane: its C activation rows share the slot) do anything, in two kernels
-a call: a "shrink" block per (slot row, 256-row slice of K, bucket)
-writes that slice's partial u = x·A[slot] (r values a row) to a scratch
-buffer, and an "expand" block per (slot row, 1024 output columns) sums
-the partials in slice order and adds u·B[slot]·scale[slot] to its
-columns, every bucket in bucket order, so ONE call a target covers both
-rank buckets of the serving store. The slices depend on K alone: a
-row's result depends on its own x and slot alone. Any rank >= 1 works
-(16 at a time; the TPU's rank-multiple-of-8 rule,
-``lora_rank_geometry_issue`` :82, is a Mosaic sublane rule with no CUDA
-counterpart).
+rows (S-fold work); here only the rows of a nonzero slot (a ragged lane:
+its C activation rows share the slot) do anything, in two kernels a call
+(``csrc/lora.cu``): a "shrink" block per (lane pass of 16 rows, slice of
+K) computes that slice's partial u = x·A[slot] (r values a row) for
+every live bucket; the slices of a lane pass form one thread-block
+cluster, whose first block sums the partials in slice order from the
+others' shared memory. An "expand" block per (lane pass, 128 columns),
+launched as a programmatic dependent of the shrink, stages its out rows
+and B[slot] rows in shared memory, waits for the shrink and adds
+u·B[slot]·scale[slot] to its columns, every bucket in bucket order, so
+ONE call a target covers both rank buckets of the serving store.
+``lora_geometry(K, N, r)`` fixes the slices and tiles from the shape
+alone and the wrapper passes it to the kernels: a row's result depends
+on its own x and slot alone. Any rank >= 1 works (16 at a time) up to
+``MAX_RANK_SUM`` over a call's buckets (the blocks' shared memory); the
+TPU's rank-multiple-of-8 rule (``lora_rank_geometry_issue`` :82) is a
+Mosaic sublane rule with no CUDA counterpart.
 
 Bound on the H100: memory, the factors of the slots present (A and B of
 each distinct slot once) plus x and the output rows read and written.
@@ -45,21 +50,61 @@ the kernel or raises. There is no fallback from one to the other.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
 from .quant_matmul import DEFAULT_BLOCK, quantized_matmul
 
-__all__ = ["LORA_BASE_KINDS", "MAX_BUCKETS", "lora_pool_shapes",
+__all__ = ["LORA_BASE_KINDS", "MAX_BUCKETS", "MAX_RANK_SUM",
+           "LoraGeometry", "lora_geometry", "lora_pool_shapes",
            "lora_slot_bytes", "batched_lora_delta_plain",
            "batched_lora_delta", "batched_lora_add_",
            "batched_lora_add_plain_", "batched_lora_matmul"]
 
 LORA_BASE_KINDS = ("dense", "int8", "int8_block", "fp8")
 MAX_BUCKETS = 4          # the kernel's per-launch bucket table
+ROWS = 16                # activation rows a lane pass of both kernels
+K_LANES = 16             # shrink: threads across K a row (k = c + 16 t)
+MAX_SLICES = 16          # shrink: slices of K a cluster (the H100's most)
+STAGE_ROWS = (128, 256)  # shrink: rows of K staged at a time
+RANK_CHUNK = 16          # ranks a pass of both kernels
+CHUNK_COLS = 128         # expand: columns a block (a warp's 32 vectors)
+# the shrink's partials and the expand's u, 16 rows of float32 a rank,
+# sit in shared memory beside each kernel's staging (at most 37 KB),
+# within the H100's 227 KB a block
+MAX_RANK_SUM = 2048
+
+
+class LoraGeometry(NamedTuple):
+    """K12's launch for x [M, K] -> [M, N] at rank r: shrink blocks take
+    ``slice_rows`` rows of K, ``stage_rows`` at a time (``splits``
+    slices, one cluster; the partials a (row, rank), summed in slice
+    order) in ``rank_chunks`` passes of RANK_CHUNK ranks; ``tiles``
+    expand blocks of CHUNK_COLS columns a lane pass."""
+    slice_rows: int
+    stage_rows: int
+    splits: int
+    rank_chunks: int
+    tiles: int
+
+
+def lora_geometry(K: int, N: int, r: int) -> LoraGeometry:
+    """K12's geometry, a function of (K, N, r) alone (never of M, the
+    slots or the card). The slices, and so every sum's order, depend on
+    K alone: K cut into at most MAX_SLICES slices of whole stages, a
+    stage the smallest kernel variant that holds a slice, else the
+    largest. Thread c of a row takes k = k0 + c + K_LANES * t of its
+    slice, t in order across the stages."""
+    K, N, r = int(K), int(N), int(r)
+    need = -(-K // MAX_SLICES)
+    stage = next((s for s in STAGE_ROWS if s >= need), STAGE_ROWS[-1])
+    slice_rows = stage * -(-need // stage)
+    return LoraGeometry(slice_rows, stage, -(-K // slice_rows),
+                        -(-r // RANK_CHUNK), -(-N // CHUNK_COLS))
 
 
 def lora_pool_shapes(K: int, N: int, rank: int, slots: int
@@ -131,6 +176,44 @@ def _check_pools(x2, out, a_pools, b_pools, scales, n):
                     or not t.is_contiguous():
                 raise TypeError("batched_lora kernel takes contiguous "
                                 f"float32 pools on {x2.device}")
+    if sum(int(a_pools[j].shape[2]) for j in range(n)) > MAX_RANK_SUM:
+        raise ValueError(f"batched_lora kernel takes ranks summing to at "
+                         f"most {MAX_RANK_SUM} a call")
+
+
+# pool sets already checked, with their ctypes tables: the engine passes
+# the same pools 4 L + 1 times a step
+_POOL_SETS: Dict[tuple, tuple] = {}
+_POOL_SETS_MAX = 256
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def _pool_set(x2, out, a_pools, b_pools, scales, n):
+    """(A, B, scale pointer tables, ranks, slot counts, rank sum, the
+    geometry) of a pool set on x2's device, checked the first time it is
+    seen. The key holds what the checks read of every pool (pointer,
+    shape, strides, dtype; a device pointer names its device), so a pool
+    that matches it passes them."""
+    key = (x2.device.index, x2.shape[1], out.shape[1], n) + tuple(
+        (t.data_ptr(), t.shape, t.stride(), t.dtype)
+        for j in range(n) for t in (a_pools[j], b_pools[j], scales[j]))
+    hit = _POOL_SETS.get(key)
+    if hit is None:
+        _check_pools(x2, out, a_pools, b_pools, scales, n)
+        ptrs = (ctypes.c_void_p * MAX_BUCKETS)
+        ints = (ctypes.c_int * MAX_BUCKETS)
+        ranks = [int(a_pools[j].shape[2]) for j in range(n)]
+        hit = (ptrs(*[a_pools[j].data_ptr() for j in range(n)]),
+               ptrs(*[b_pools[j].data_ptr() for j in range(n)]),
+               ptrs(*[scales[j].data_ptr() for j in range(n)]),
+               ints(*ranks),
+               ints(*[int(a_pools[j].shape[0]) for j in range(n)]),
+               sum(ranks), lora_geometry(x2.shape[1], out.shape[1],
+                                         max(ranks)))
+        if len(_POOL_SETS) >= _POOL_SETS_MAX:
+            _POOL_SETS.clear()
+        _POOL_SETS[key] = hit
+    return hit
 
 
 def batched_lora_add_(out: torch.Tensor, x2: torch.Tensor,
@@ -158,30 +241,24 @@ def batched_lora_add_(out: torch.Tensor, x2: torch.Tensor,
         raise TypeError("batched_lora kernel takes float32 x and out")
     if not (x2.is_contiguous() and out.is_contiguous()):
         raise ValueError("batched_lora kernel takes contiguous x and out")
-    _check_pools(x2, out, a_pools, b_pools, scales, n)
-    slots = slots.to(x2.device).contiguous()
+    a_p, b_p, s_p, ranks, nslots, rsum, geo = _pool_set(
+        x2, out, a_pools, b_pools, scales, n)
+    if slots.device != x2.device or not slots.is_contiguous():
+        slots = slots.to(x2.device).contiguous()
     M, K = x2.shape
     N = out.shape[1]
     lib = _build.library()
-    # the shrink kernel's partial products: ceil(K / split) x M x r
-    # floats a bucket (rows of slot 0 are never written nor read)
-    nsplit = -(-K // lib.pt_batched_lora_split_rows())
-    parts = [torch.empty((nsplit, M, int(a_pools[j].shape[2])),
-                         device=x2.device) for j in range(n)]
-    ptrs = (ctypes.c_void_p * MAX_BUCKETS)
-    ints = (ctypes.c_int * MAX_BUCKETS)
-    a_p = ptrs(*[a_pools[j].data_ptr() for j in range(n)])
-    b_p = ptrs(*[b_pools[j].data_ptr() for j in range(n)])
-    s_p = ptrs(*[scales[j].data_ptr() for j in range(n)])
-    p_p = ptrs(*[t.data_ptr() for t in parts])
-    ranks = ints(*[int(a_pools[j].shape[2]) for j in range(n)])
-    nslots = ints(*[int(a_pools[j].shape[0]) for j in range(n)])
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
+    # every bucket's u [M, r], the shrink's sums (rows of slot 0 are never
+    # written nor read)
+    scratch = torch.empty(M * rsum, device=x2.device)
+    with torch.cuda.device(x2.device) if (
+            x2.device.index != torch.cuda.current_device()) else _SAME_DEVICE:
+        stream = torch.cuda.current_stream().cuda_stream
         err = lib.pt_batched_lora_add(
-            x2.data_ptr(), out.data_ptr(), slots.data_ptr(), a_p, b_p, s_p,
-            p_p, ranks, nslots, n, int(slots.shape[1]), M, K, N, rep,
-            stream)
+            x2.data_ptr(), out.data_ptr(), slots.data_ptr(),
+            scratch.data_ptr(), a_p, b_p, s_p, ranks, nslots, n,
+            int(slots.shape[1]), M, K, N, rep, geo.slice_rows,
+            geo.stage_rows, geo.splits, geo.tiles, stream)
     _build.check(err, "batched_lora_add_")
     batched_lora_add_.launches += 1
     return out

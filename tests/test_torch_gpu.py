@@ -831,11 +831,17 @@ LORA = {
     "rank1": (6, 1, 96, 97, (1,), [[1], [0], [2], [2], [0], [1]]),
     "rank24": (2, 5, 300, 130, (24,), [[1], [2]]),
     "all_zero": (4, 16, 2048, 6144, (8, 16), [[0, 0]] * 4),
+    # the serving step's ffn2 (K = 8192: the widest slices) and qkv
+    "ffn2": (4, 16, 8192, 2048, (8, 16), [[0, 0], [1, 0], [0, 2], [2, 0]]),
+    "qkv": (4, 16, 2048, 6144, (8, 16), [[0, 1], [2, 0], [0, 0], [1, 0]]),
+    # a lane live in both buckets: its x staged once for both (one stage
+    # a slice, K = 2048) or again for the second (two stages, K = 8192)
+    "both_k2048": (3, 16, 2048, 2048, (8, 16), [[1, 2], [0, 1], [2, 0]]),
+    "both_k8192": (3, 16, 8192, 2048, (16, 8), [[2, 1], [1, 0], [0, 0]]),
 }
 
 
-@pytest.mark.parametrize("case", sorted(LORA))
-def test_lora_kernel_matches_plain(cuda, case):
+def _lora_case(cuda, case):
     R, rep, K_, N, ranks, slots = LORA[case]
     M = R * rep
     g = torch.Generator(device=cuda).manual_seed(M + K_)
@@ -852,6 +858,13 @@ def test_lora_kernel_matches_plain(cuda, case):
         b_pools.append(b)
         scales.append(sc)
     sl = torch.tensor(slots, dtype=torch.int32, device=cuda)
+    return rep, x, base, a_pools, b_pools, scales, sl
+
+
+@pytest.mark.parametrize("case", sorted(LORA))
+def test_lora_kernel_matches_plain(cuda, case):
+    rep, x, base, a_pools, b_pools, scales, sl = _lora_case(cuda, case)
+    K_ = x.shape[1]
     before = K.batched_lora_add_.launches
     got = K.batched_lora_add_(base.clone(), x, a_pools, b_pools, scales, sl)
     torch.cuda.synchronize()
@@ -868,6 +881,40 @@ def test_lora_kernel_matches_plain(cuda, case):
     dp = K.batched_lora_delta_plain(x, a_pools[0], b_pools[0], scales[0],
                                     sl[:, 0].repeat_interleave(rep))
     assert float((d - dp).abs().max()) <= _k_tol(K_, dp)
+
+
+@pytest.mark.parametrize("case", ["mixed", "ffn2", "rank1", "rank24",
+                                  "both_k8192"])
+def test_lora_rows_do_not_depend_on_the_batch(cuda, case):
+    """Two calls give the same bits; each adapter lane run alone (R = 1)
+    equals its lane in the batch; the same factors at another slot index
+    of a pool with another slot count give the same bits."""
+    rep, x, base, a_pools, b_pools, scales, sl = _lora_case(cuda, case)
+    got = K.batched_lora_add_(base.clone(), x, a_pools, b_pools, scales, sl)
+    again = K.batched_lora_add_(base.clone(), x, a_pools, b_pools, scales,
+                                sl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    # the factors moved to the last slot of pools of 5 slots
+    moved = [[], [], []]
+    for a, b, sc in zip(a_pools, b_pools, scales):
+        perm = torch.tensor([0, 3, 4], device=cuda)
+        for lst, t in zip(moved, (a, b, sc)):
+            big = torch.zeros((5,) + tuple(t.shape[1:]), device=cuda)
+            big[perm] = t
+            lst.append(big)
+    remap = torch.tensor([0, 3, 4], dtype=torch.int32, device=cuda)
+    for lane in range(sl.shape[0]):
+        if not bool((sl[lane] != 0).any()):
+            continue
+        rows = slice(lane * rep, (lane + 1) * rep)
+        alone = K.batched_lora_add_(base[rows].clone(), x[rows].contiguous(),
+                                    a_pools, b_pools, scales, sl[lane:lane + 1])
+        there = K.batched_lora_add_(base[rows].clone(), x[rows].contiguous(),
+                                    *moved, remap[sl[lane:lane + 1].long()])
+        torch.cuda.synchronize()
+        assert torch.equal(alone, got[rows]), lane
+        assert torch.equal(there, got[rows]), lane
 
 
 def test_quantized_adapter_engine_on_cuda_matches_cpu(cuda):
