@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + device time by kernel group in
-                                     #   phases 3, 3b, 4, 6, 7 and 8
+                                     #   phases 3, 3b, 4, 6, 7, 8 and 9
     python3 chip_smoke.py --phases 28   # build + chosen phases, no
                                         #   result line
 
@@ -51,12 +51,22 @@ Phases, in order; any failure exits non-zero without the result line:
    stream must finish with its 32 tokens and no error; the launch
    counters must show 24 ragged attention and 49 layer-norm launches per
    engine step; two requests are checked token by token against the
-   ``Predictor`` (teacher forced).
+   ``Predictor`` (teacher forced). The engine's step is a CUDA graph
+   (``runtime/graphs.py``), captured once and replayed once an engine
+   step (``graph_replays``); a replay runs no Python, so it adds the
+   launches its graph holds to the kernels' counters (the graph's
+   kernel nodes counted by name at capture, which must equal what the
+   wrappers counted while it was captured), and the exact checks read
+   them. Then ten requests of 3..14 new tokens (rows
+   join and leave) are recorded step by step, and every recorded step
+   is replayed against the eager step on cloned pools: tokens, pools
+   (page 0 slot 0 left out) and scale planes equal bit for bit.
    3b: the same weights and prompts served by the two_lane engine
    (``mode="two_lane"``, prefill buckets 16..1024): every stream
    finishes, the oracle holds for two requests, each decode step
    launches 24 K13 and 49 K1 and no K2; the share of tokens equal to
-   phase 3's is printed, not gated.
+   phase 3's is printed, not gated. The decode step is graphed and
+   checked against its eager call as in phase 3; the prefill is eager.
 4. training: ``build_gpt_lm(GPTConfig.gpt3_1p3b(), 1024,
    AdamOptimizer(3e-4))`` (24 layers, hidden 2048, dropout 0.1) run by
    the port's ``Executor`` on the card: the startup program, then 10
@@ -79,9 +89,11 @@ Phases, in order; any failure exits non-zero without the result line:
    within 1e-3 of their largest entry, every parameter after the first
    update within 2 * lr (the later losses are reported beside a CPU run
    with the input scaled by 1 + 1e-7: ResNet-50's gradients at
-   initialisation are ill-conditioned); a 2-layer gpt3_1p3b-width
-   two_lane prefill and 3 decode steps (tokens equal, pools within
-   1e-5).
+   initialisation are ill-conditioned); the two-bottleneck ResNet of
+   the CPU parity tests under bfloat16 AMP, one Adam step (first loss
+   within rtol 2e-3, parameters within 2 * lr); a 2-layer
+   gpt3_1p3b-width two_lane prefill and 3 decode steps (tokens equal,
+   pools within 1e-5).
 6. BERT-large pretraining: ``BertConfig.large()`` at full size, seq 512,
    batch 8 of ``synthetic_batch(min_len=128)``, flash attention with the
    key mask, ``decorate(AdamOptimizer(1e-4), init_loss_scaling=1.0,
@@ -96,7 +108,8 @@ Phases, in order; any failure exits non-zero without the result line:
    16 requests name one; exact K11, K2q, K1 and K12 launches a step,
    the int8 pool at 67584 / 262144 of the float32 one. 7c: the base
    rows equal an engine without adapters, one request of each bucket
-   equals a dedicated engine.
+   equals a dedicated engine. Every engine replays its graph once a
+   step; 7a int8 and 7b check the replays against eager steps.
 8. ResNet-50 training: ``build_resnet50(1000, 224,
    MomentumOptimizer(0.025, momentum=0.9, regularization=L2Decay(1e-4)),
    data_format="NCHW")`` (161 parameters, 25.56 M) on the JAX bench's
@@ -104,6 +117,13 @@ Phases, in order; any failure exits non-zero without the result line:
    10 steps; losses finite and falling, exactly 161 K10m, one K4 and one
    K5 launch a step, the BN running statistics move; mean step, images/s,
    peak memory.
+9. ResNet-50 under bfloat16 AMP, the JAX bench's own configuration
+   (``bench.py:120``, :248-250): batch 64 x 224^2 NCHW, ``decorate(
+   AdamOptimizer(1e-4), init_loss_scaling=1.0,
+   use_dynamic_loss_scaling=False, dest_dtype="bfloat16")``, fused Adam,
+   10 steps: 853 ops (158 casts), losses finite and falling, exactly
+   161 K10, one K4 and one K5 launch a step; mean step, images/s, peak
+   memory beside phase 8's.
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -166,7 +186,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "2345678"
+ALL_PHASES = "23456789"
 DEVICE = "cuda"
 
 
@@ -1311,6 +1331,7 @@ KERNEL_GROUPS = (("ragged_split_kernel<float, signed char",
                  ("adam_kernel", "fused_adam (K10)"),
                  ("flash_fwd", "flash_attention_fwd (K6/K7)"),
                  ("flash_d", "flash_attention_bwd (K8/K9)"),
+                 ("copy_kernel", "copies and casts"),
                  ("bn_", "batch norm"), ("batch_norm", "batch norm"),
                  ("welford", "batch norm"),
                  ("fprop", "convolution (cuDNN)"),
@@ -1473,6 +1494,86 @@ def serving_perf(torch, st, streams, wall, lengths, card, what="served"):
     return perf
 
 
+def require_graphed(st, steps, what):
+    """The engine's fixed-shape step was captured once and replayed as a
+    CUDA graph once an engine step."""
+    require(st["graph_captures"] == 1 and st["graph_replays"] == steps
+            and st["bound_step_runs"] == steps,
+            f"{what}: {st['graph_replays']} graph replays and "
+            f"{st['bound_step_runs']} bound-step runs for {steps} engine "
+            f"steps ({st['graph_captures']} captures)")
+    log(f"  {what}: the bound step replayed its CUDA graph {steps} times "
+        f"(captured once; its kernel nodes a replay "
+        f"{st['graph_launches']})")
+
+
+def same_except_junk(torch, a, b):
+    """Pool (or scale plane) equality bit for bit, page 0 slot 0 left
+    out: idle rows all write there, in an order neither framework
+    defines."""
+    return (torch.equal(a[:, 1:], b[:, 1:])
+            and torch.equal(a[:, 0, 1:], b[:, 0, 1:]))
+
+
+GRAPH_CHECK_NEW = (3, 12, 5, 9, 4, 14, 7, 10, 6, 8)   # tokens, per request
+
+
+def check_graph_vs_eager(torch, np, eng, prompts, adapters=None, what=""):
+    """A recorded sequence of real steps, replayed against eager calls.
+
+    Ten requests (prompts cut to 40 tokens, 3 to 14 new tokens) on the
+    graphed engine: more requests than lanes, ending at different steps,
+    so rows join and leave. Each step's host feeds are recorded. Then,
+    the engine closed, every recorded step runs twice from the same
+    pools: the graph replay on the engine's pools and the eager step on
+    fresh tensors over cloned pools. Tokens, pools (page 0 slot 0 left
+    out) and scale planes must be equal bit for bit. The engine is
+    closed on return."""
+    bound = eng._bound_step
+    recorded = []
+    run = bound.run
+
+    def recording(**host):
+        recorded.append({n: np.array(a, copy=True) for n, a in host.items()})
+        return run(**host)
+
+    bound.run = recording
+    try:
+        streams = [eng.submit(prompts[i][:40], max_new_tokens=m,
+                              adapter=None if adapters is None
+                              else adapters[i])
+                   for i, m in enumerate(GRAPH_CHECK_NEW)]
+        for st_ in streams:
+            st_.result(timeout=600)
+    finally:
+        bound.run = run
+        eng.close()
+    live = [int((h["num_valid"] > 0).sum()) for h in recorded]
+    require(any(b < a for a, b in zip(live, live[1:])),
+            f"{what}: no step had fewer live rows than the one before: "
+            f"{live}")
+    for i, host in enumerate(recorded):
+        clone = {k: None if v is None else [t.clone() for t in v]
+                 for k, v in bound.state.items()}
+        got = bound.run(**host)
+        want = bound.eager(state=clone, **host).cpu().numpy()
+        torch.cuda.synchronize()
+        require(np.array_equal(got, want), f"{what}: step {i}: the replay's "
+                "tokens differ from the eager step's")
+        for k, tensors in bound.state.items():
+            if tensors is None:
+                continue
+            for layer, (a, b) in enumerate(zip(tensors, clone[k])):
+                require(same_except_junk(torch, a, b), f"{what}: step {i}: {k} of "
+                        f"layer {layer} differs between the replay and the "
+                        "eager step")
+        del clone
+    log(f"  {what}: {len(recorded)} recorded steps (live rows {live}) "
+        f"replayed against the eager step on cloned pools: tokens, pools "
+        f"and scale planes equal bit for bit")
+    return {"steps": len(recorded), "live_rows": live}
+
+
 def oracle(np, pred, prompts, streams, ids=(0, 1), rel=1e-3):
     """Teacher-forced oracle: the predictor's logits over prompt +
     generated tokens must rank every generated token at the max, up to
@@ -1535,7 +1636,6 @@ def serve(torch, np, seed, card, out_dir, profile=False):
         prof.__exit__(None, None, None)
     counts = K.launch_counts()
     st = eng.stats()
-    eng.close()
     check_streams(streams, max_new)
     steps = st["ragged_steps_total"]
     L = cfg.num_layers
@@ -1547,11 +1647,14 @@ def serve(torch, np, seed, card, out_dir, profile=False):
     require(counts["layer_norm"] == (2 * L + 1) * steps,
             f"layer_norm launched {counts['layer_norm']} times, want "
             f"{2 * L + 1} x {steps}")
+    require_graphed(st, steps, "phase 3")
     perf = serving_perf(torch, st, streams, wall, lengths, card)
     if prof is not None:
         perf["profile"] = trace_breakdown(prof, out_dir, "serve", wall,
                                           steps)
     oracle(np, pred, prompts, streams)
+    perf["graph_vs_eager"] = check_graph_vs_eager(torch, np, eng, prompts,
+                                                  what="phase 3")
     return counts, perf
 
 
@@ -1584,7 +1687,6 @@ def serve_two_lane(torch, np, seed, card, out_dir, base_tokens=None,
         prof.__exit__(None, None, None)
     counts = K.launch_counts()
     st = eng.stats()
-    eng.close()
     check_streams(streams, max_new)
     steps, prefills = st["decode_steps_total"], st["prefill_batches_total"]
     L = cfg.num_layers
@@ -1599,6 +1701,7 @@ def serve_two_lane(torch, np, seed, card, out_dir, base_tokens=None,
             f"{2 * L + 1} x ({steps} decode steps + {prefills} prefills)")
     require(counts["ragged_paged_attention"] == 0,
             "the two_lane engine launched the ragged kernel")
+    require_graphed(st, steps, "phase 3b decode")
     perf = serving_perf(torch, st, streams, wall, lengths, card,
                         what="served (two_lane)")
     perf.update(prefill_calls=prefills, prefill_rows=st["prefill_rows_total"],
@@ -1611,6 +1714,8 @@ def serve_two_lane(torch, np, seed, card, out_dir, base_tokens=None,
         perf["profile"] = trace_breakdown(prof, out_dir, "serve_two_lane",
                                           wall)
     oracle(np, pred, prompts, streams)
+    perf["graph_vs_eager"] = check_graph_vs_eager(torch, np, eng, prompts,
+                                                  what="phase 3b decode")
     if base_tokens is not None:
         same = total = 0
         for mine, theirs in zip(perf["tokens"], base_tokens):
@@ -2178,6 +2283,145 @@ def card_vs_cpu_resnet(torch, np, seed, steps=3, batch=4):
             "later_loss_rel_err": later, "nudge_loss_rel_spread": spread}
 
 
+def small_resnet(fluid, optimizer, size=16):
+    """The two-bottleneck net of the CPU parity tests
+    (``tests/test_torch_resnet.py`` ``_small_net``): stem conv-bn
+    (stride 2), max pool 3/2/1, a bottleneck with a projection shortcut,
+    one with an identity shortcut, a strided one, global average pool,
+    fc 5, softmax cross-entropy."""
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("image", [3, size, size])
+        label = fluid.layers.data("label", [1], dtype="int64")
+        x = resnet._conv_bn(img, 8, 3, stride=2, name="stem")
+        x = fluid.layers.pool2d(x, 3, "max", pool_stride=2, pool_padding=1)
+        x = resnet._bottleneck(x, 4, 1, "a")
+        x = resnet._bottleneck(x, 4, 1, "c")
+        x = resnet._bottleneck(x, 4, 2, "b")
+        pool = fluid.layers.pool2d(x, 2, "avg", global_pooling=True)
+        logits = fluid.layers.fc(pool, 5,
+                                 param_attr=fluid.ParamAttr(name="head.w"))
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        optimizer.minimize(loss)
+    return main, startup, loss
+
+
+AMP_SMALL_LR = 1e-3
+
+
+# the first Adam update card vs CPU: on the entries whose CPU gradient is
+# at least 2^-5 of its tensor's largest (eight times the bfloat16
+# gradients' card-vs-CPU spread, one bfloat16 step there), Adam moves
+# the entry by lr times the gradient's sign on both, so the updates
+# agree within a tenth of lr; a skipped update is lr apart, a flipped
+# one 2 lr
+AMP_UPDATE_GRAD_FLOOR, AMP_UPDATE_RTOL = 2.0 ** -5, 0.1
+
+
+def adam_update_agreement(np, p0, p_card, p_cpu, g_cpu, lr):
+    """The first update p1 - p0 of each parameter, card vs CPU, on the
+    entries whose CPU gradient is at least ``AMP_UPDATE_GRAD_FLOOR`` of
+    its tensor's largest. Returns (worst difference, its parameter,
+    entries held, entries in all, entries whose update's sign differs
+    anywhere)."""
+    worst, worst_name, held, total, flipped = 0.0, "", 0, 0, 0
+    for n in sorted(p0):
+        u_card, u_cpu = p_card[n] - p0[n], p_cpu[n] - p0[n]
+        g = np.abs(g_cpu[n])
+        big = g >= AMP_UPDATE_GRAD_FLOOR * g.max()
+        total += g.size
+        held += int(big.sum())
+        flipped += int((np.sign(u_card) != np.sign(u_cpu)).sum())
+        d = float(np.abs(u_card - u_cpu)[big].max(initial=0.0))
+        if d > worst:
+            worst, worst_name = d, n
+    return worst, worst_name, held, total, flipped
+
+
+def card_vs_cpu_resnet_amp(torch, np, seed, batch=8, size=16):
+    """The two-bottleneck net under bfloat16 AMP (``decorate(Adam(1e-3),
+    ...)``, the CPU parity test's net and recipe), from the same
+    parameters on the card (cuDNN's bfloat16 convolutions, K4, K5, K10)
+    and on the CPU: the first loss within rtol 2e-3 (as
+    ``CARD_VS_CPU_RTOL["bert_amp_flash"]``: a product one bfloat16 step
+    apart); the first update of every parameter entry whose CPU gradient
+    stands above the bfloat16 spread (``adam_update_agreement``) within
+    a tenth of lr (Adam's first step moves an entry by lr in the
+    direction of its gradient's sign, so a skipped update is lr apart
+    and a flipped one 2 lr), on at least half of the entries; every
+    parameter within 2 x lr."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.io import load_scope_arrays
+
+    fluid.set_flags({"optimizer_fuse": "on"})
+    main, startup, loss = small_resnet(fluid, amp_adam(fluid, AMP_SMALL_LR),
+                                       size)
+    main.random_seed = startup.random_seed = seed
+    init_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init_scope)
+    persist = [v.name for v in main.list_vars()
+               if v.persistable and not v.is_data]
+    arrays = {n: init_scope.get_numpy(n) for n in persist}
+    params = sorted(p.name for p in main.all_parameters())
+    grads = [f"{n}@GRAD" for n in params]
+    rng = np.random.RandomState(seed)
+    data = {"image": rng.randn(batch, 3, size, size).astype(np.float32),
+            "label": rng.randint(0, 5, (batch, 1)).astype(np.int64)}
+    runs = {}
+    for name, place, dev in (("cuda", fluid.CUDAPlace(0), DEVICE),
+                             ("cpu", fluid.CPUPlace(), "cpu")):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        load_scope_arrays(scope, arrays, main, dev)
+        K.reset_launch_counts()
+        out = exe.run(main, feed=data, fetch_list=[loss] + grads,
+                      scope=scope)
+        runs[name] = (float(np.asarray(out[0]).reshape(-1)[0]),
+                      {n: scope.get_numpy(n) for n in params},
+                      {n: np.asarray(g, np.float32)
+                       for n, g in zip(params, out[1:])})
+        if name == "cuda":
+            counts = K.launch_counts()
+            require(counts["fused_adam_update"] == len(params)
+                    and counts["softmax_xent_fwd"] == 1,
+                    f"the card's run did not go through the kernels: {counts}")
+    (lg, pg, _), (lc, pc, gc) = runs["cuda"], runs["cpu"]
+    rel = abs(lg - lc) / abs(lc)
+    limit = CARD_VS_CPU_RTOL["bert_amp_flash"]
+    require(rel <= limit, f"card vs CPU AMP two-bottleneck first loss "
+            f"differs by {rel:.3e} > {limit}")
+    p0 = {n: arrays[n] for n in params}
+    upd, upd_name, held, total, flipped = adam_update_agreement(
+        np, p0, pg, pc, gc, AMP_SMALL_LR)
+    upd_limit = AMP_UPDATE_RTOL * AMP_SMALL_LR
+    require(2 * held >= total, f"card vs CPU AMP update: only {held} of "
+            f"{total} entries have a gradient above the bfloat16 spread")
+    require(upd <= upd_limit, f"card vs CPU AMP first update of "
+            f"{upd_name} differs by {upd:.3e} > {AMP_UPDATE_RTOL} * lr = "
+            f"{upd_limit:.3e} where the CPU gradient is at least "
+            f"{AMP_UPDATE_GRAD_FLOOR} of its largest")
+    worst, worst_name = max((float(np.abs(pg[n] - pc[n]).max()), n)
+                            for n in params)
+    require(worst <= 2 * AMP_SMALL_LR, f"card vs CPU AMP parameter "
+            f"{worst_name} differs by {worst:.3e} after the first update > "
+            f"2 * lr = {2 * AMP_SMALL_LR:.3e}")
+    log(f"  first loss {lg:.6f} (card) vs {lc:.6f} (CPU), within {rel:.3e} "
+        f"(rtol {limit}); the first update within {upd:.3e} on {held} of "
+        f"{total} entries ({upd_name}; limit {AMP_UPDATE_RTOL} * lr = "
+        f"{upd_limit:.3e}), its sign apart at {flipped} entries in all; "
+        f"parameters within {worst:.3e} ({worst_name}; limit 2 * lr = "
+        f"{2 * AMP_SMALL_LR:.3e})")
+    return {"first_loss": {"cuda": lg, "cpu": lc}, "first_loss_rel_err": rel,
+            "update_max_abs_err": upd, "update_limit": upd_limit,
+            "update_entries_held": held, "update_entries": total,
+            "update_sign_apart": flipped,
+            "param_max_abs_err_first_step": worst,
+            "param_limit": 2 * AMP_SMALL_LR}
+
+
 def card_vs_cpu_two_lane(torch, np, seed, decode_steps=3):
     """A 2-layer gpt3_1p3b-width GPT through the two_lane lanes on the
     card (K13, K1) and on the CPU (plain versions): one prefill call of
@@ -2354,7 +2598,6 @@ def serve_quantized(torch, np, seed, card, out_dir, base_tokens=None,
             prof.__exit__(None, None, None)
         counts = K.launch_counts()
         st = eng.stats()
-        eng.close()
         check_streams(streams, max_new)
         steps = st["ragged_steps_total"]
         odd = block % 16 != 0
@@ -2365,7 +2608,12 @@ def serve_quantized(torch, np, seed, card, out_dir, base_tokens=None,
             "ragged_paged_attention": L, "ragged_paged_attention_q": 0,
             "batched_lora_add_": 0})
         log(f"  engine steps {steps}; launches {counts}")
+        require_graphed(st, steps, f"phase 7a {key}")
         perf = serving_perf(torch, st, streams, wall, lengths, card)
+        if mode == "int8":
+            perf["graph_vs_eager"] = check_graph_vs_eager(
+                torch, np, eng, prompts, what=f"phase 7a {key}")
+        eng.close()
         del eng
         oracle(np, pred, prompts, streams, rel=ORACLE_REL[mode])
         perf.update(rep, launches=counts)
@@ -2414,13 +2662,13 @@ def serve_quantized(torch, np, seed, card, out_dir, base_tokens=None,
         prof.__exit__(None, None, None)
     counts = K.launch_counts()
     st = eng.stats()
-    eng.close()
     check_streams(streams, max_new)
     steps = st["ragged_steps_total"]
     require_launches(counts, steps, {
         "quantized_matmul": 4 * L + 1, "layer_norm": 2 * L + 1,
         "ragged_paged_attention_q": L, "batched_lora_add_": 4 * L + 1,
         "ragged_paged_attention": 0})
+    require_graphed(st, steps, "phase 7b")
     require(st["cache"]["pages_in_use"] == 0, "pages left in use")
     eng.cache.check_integrity()
     require(all(r["refcount"] == 0 for r in store.resident()),
@@ -2433,6 +2681,8 @@ def serve_quantized(torch, np, seed, card, out_dir, base_tokens=None,
                 residents=store.resident())
     if prof is not None:
         perf["profile"] = trace_breakdown(prof, out_dir, "serve_lora", wall)
+    perf["graph_vs_eager"] = check_graph_vs_eager(torch, np, eng, prompts,
+                                                  adapters, what="phase 7b")
     del eng, streams
     torch.cuda.empty_cache()
     record["7b"] = perf
@@ -2445,6 +2695,8 @@ def serve_quantized(torch, np, seed, card, out_dir, base_tokens=None,
         K.reset_launch_counts()
         bstreams, _ = run_clients(base_eng, prompts, max_new)
         paths["serve_int8_kv"] = K.launch_counts()
+        bst = base_eng.stats()
+        require_graphed(bst, bst["ragged_steps_total"], "phase 7c, no store")
     check_streams(bstreams, max_new)
     base = [list(s.tokens) for s in bstreams]
     for i in range(0, 16, 4):
@@ -2463,6 +2715,9 @@ def serve_quantized(torch, np, seed, card, out_dir, base_tokens=None,
                               adapter_store=solo) as seng:
             out = seng.generate(prompts[i], max_new_tokens=max_new,
                                 adapter=aid, timeout=600)
+            sst = seng.stats()
+            require_graphed(sst, sst["ragged_steps_total"],
+                            f"phase 7c, dedicated {aid}")
         require(out == mixed[i], f"request {i} ({aid}) differs from a "
                 f"dedicated engine: {mixed[i]} vs {out}")
         dedicated[aid] = i
@@ -2529,6 +2784,63 @@ def train_resnet(torch, np, seed, card, out_dir, profile=False, steps=10):
     return totals, perf
 
 
+# -- phase 9: ResNet-50 trained under bfloat16 AMP ------------------------------------
+
+
+def amp_adam(fluid, lr):
+    """The JAX bench's AMP recipe (bench.py:248-250)."""
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
+
+    return decorate(fluid.optimizer.AdamOptimizer(lr), init_loss_scaling=1.0,
+                    use_dynamic_loss_scaling=False, dest_dtype="bfloat16")
+
+
+def train_resnet_amp(torch, np, seed, card, out_dir, profile=False, steps=10,
+                     fp32=None):
+    """ResNet-50 as the JAX bench trains it (bench.py:120, :248-250):
+    batch 64 x 224^2, NCHW, Adam(1e-4) under ``decorate(...,
+    dest_dtype="bfloat16")``: the 53 convolutions and the head's mul in
+    bfloat16 (158 casts), batch norm, relu, the adds and the pools in
+    float32, fused Adam: K10 161 times, K4 and K5 once, every step.
+    ``fp32`` is phase 8's record, printed beside."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models.resnet import (build_resnet50,
+                                                synthetic_image_batch)
+
+    fluid.set_flags({"optimizer_fuse": "auto"})   # on: a CUDA device exists
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_resnet50(
+            1000, RESNET_IMAGE, amp_adam(fluid, 1e-4), data_format="NCHW")
+    types = [op.type for op in main.global_block().ops]
+    require(types.count("fused_adam") == 161 and "adam" not in types
+            and types.count("cast") == 158 and len(types) == 853,
+            f"the program holds {len(types)} ops, "
+            f"{types.count('fused_adam')} fused_adam, {types.count('cast')} "
+            "casts")
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    require(n_params == 25_557_032, f"{n_params} parameters")
+    batch = synthetic_image_batch(np.random.RandomState(seed), RESNET_BATCH,
+                                  RESNET_IMAGE)
+    want = {name: 0 for name in K.KERNELS}
+    want.update(fused_adam_update=161, softmax_xent_fwd=1,
+                softmax_xent_bwd=1)
+    totals, perf = run_steps(torch, np, K, exe, main, scope, batch,
+                             fetches["loss"], want, steps, RESNET_BATCH, card,
+                             out_dir, "resnet_amp", profile, unit="images")
+    perf.update(parameters=n_params, batch=RESNET_BATCH,
+                image_size=RESNET_IMAGE, lr=1e-4, amp="bfloat16")
+    if fp32 is not None:
+        log(f"  beside phase 8 (float32, fused Momentum): mean step "
+            f"{fp32['step_ms_mean']:.3f} ms, {fp32['images_per_s']:.2f} "
+            f"images/s, max_memory_allocated "
+            f"{fp32['max_memory_allocated_gb']:.2f} GB; here "
+            f"{perf['step_ms_mean']:.3f} ms, {perf['images_per_s']:.2f} "
+            f"images/s, {perf['max_memory_allocated_gb']:.2f} GB [{card}]")
+    return totals, perf
+
+
 # -- main ---------------------------------------------------------------------------
 
 
@@ -2539,7 +2851,7 @@ def main(argv=None) -> int:
                     help="directory for the build log and chip_smoke.json")
     ap.add_argument("--profile", action="store_true",
                     help="trace the serving runs (phases 3, 3b, 7a int8, "
-                    "7b) and two training steps (phases 4, 6, 8) with "
+                    "7b) and two training steps (phases 4, 6, 8, 9) with "
                     "torch.profiler and print device time by kernel group "
                     "and the idle share")
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -2647,6 +2959,11 @@ def main(argv=None) -> int:
         record["card_vs_cpu"]["resnet50"] = card_vs_cpu_resnet(torch, np,
                                                                args.seed)
         torch.cuda.empty_cache()
+        log("phase 5: the two-bottleneck ResNet under bfloat16 AMP, one Adam "
+            "step, card against CPU")
+        record["card_vs_cpu"]["resnet_amp"] = card_vs_cpu_resnet_amp(
+            torch, np, args.seed)
+        torch.cuda.empty_cache()
         log("phase 5: a 2-layer gpt3_1p3b-width GPT, two_lane prefill and 3 "
             "decode steps, card against CPU")
         record["card_vs_cpu"]["two_lane"] = card_vs_cpu_two_lane(torch, np,
@@ -2670,6 +2987,13 @@ def main(argv=None) -> int:
         paths["resnet"], record["resnet"] = train_resnet(
             torch, np, args.seed, card, args.out, profile=args.profile)
         torch.cuda.empty_cache()
+    if "9" in args.phases:
+        log("phase 9: ResNet-50 trained under bfloat16 AMP by fused Adam, "
+            "batch 64 x 224^2")
+        paths["resnet_amp"], record["resnet_amp"] = train_resnet_amp(
+            torch, np, args.seed, card, args.out, profile=args.profile,
+            fp32=record.get("resnet"))
+        torch.cuda.empty_cache()
     launches = {name: {p: c[name] for p, c in paths.items()}
                 for name in K.KERNELS}
     record["launches"] = launches
@@ -2677,7 +3001,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7 and 8)")
+        "3b, 4, 6, 7, 8 and 9)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"

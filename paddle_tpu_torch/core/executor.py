@@ -5,8 +5,14 @@ The port's counterpart of ``paddle_tpu/core/executor.py``: ``Scope``,
 feed, fetch_list, scope)``. The reference lowers the whole block into
 one jitted JAX function (``_lower_block``, :164-205); the port runs the
 same ops in the same order over torch tensors on the executor's device,
-which is what PyTorch does best without a compiler. There is no jit,
-mesh, ``bind`` or program cache of executables here.
+which is what PyTorch does best without a compiler. Its fast path is
+the reference's: ``Executor.bind`` resolves a ``BoundStep``
+(``runtime/dispatch.py``) once per (program, version, feed signature,
+fetch list, scope), ``Executor.run`` goes through it, and
+``cache_stats()`` counts ``bound_hits`` / ``bound_misses``. A bound
+Program step runs eagerly; the generation engine's fixed-shape steps
+replay as CUDA graphs (``runtime/graphs.py``). There is no mesh and no
+persistent cache of executables.
 
 What an eager run needs that a compiled one gets from XLA, worked out
 once per (program, version, feeds, fetches) in ``_Plan``:
@@ -30,7 +36,10 @@ reference's.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -39,7 +48,7 @@ import torch
 from . import framework
 from .framework import Block, Program, Variable
 from .places import CUDAPlace, Place
-from .registry import LoweringContext, get_op_def, run_recorded
+from .registry import get_op_def
 
 _TORCH_DTYPES = {
     "float32": torch.float32, "float64": torch.float64,
@@ -72,11 +81,25 @@ def to_numpy(v) -> np.ndarray:
 
 class Scope:
     """name -> tensor store for persistable variables (parameters,
-    optimizer state), with a parent link (reference framework/scope.h)."""
+    optimizer state), with a parent link (reference framework/scope.h).
+    ``generation`` moves on every ``set_var`` / ``erase``: a bound step
+    caches its state tensors and resolves them again only when it has
+    moved (``runtime.dispatch.scope_chain_generation``)."""
+
+    _uids = itertools.count(1)
+    # one lock for every scope: a lost bump would leave a bound step on
+    # stale state
+    _gen_lock = threading.Lock()
 
     def __init__(self, parent: Optional["Scope"] = None):
         self.vars: Dict[str, Any] = {}
         self.parent = parent
+        self.uid = next(Scope._uids)
+        self.generation = 0
+
+    def _bump_generation(self):
+        with Scope._gen_lock:
+            self.generation += 1
 
     def find_var(self, name: str):
         s: Optional[Scope] = self
@@ -91,9 +114,11 @@ class Scope:
 
     def set_var(self, name: str, value):
         self.vars[name] = value
+        self._bump_generation()
 
     def erase(self, name: str):
         self.vars.pop(name, None)
+        self._bump_generation()
 
     def new_scope(self) -> "Scope":
         return Scope(parent=self)
@@ -185,12 +210,18 @@ class Executor:
     there is no GPU: the CPU runs only when the caller names
     ``CPUPlace()``."""
 
+    # bound steps kept at once (the least recently used goes first)
+    MAX_BOUND = 256
+
     def __init__(self, place: Optional[Place] = None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.torch_device()
         self._run_counter = 0
         self._plans: Dict[tuple, _Plan] = {}
         self._constants: Dict[int, Any] = {}
+        self._bound: "collections.OrderedDict[tuple, Any]" = \
+            collections.OrderedDict()
+        self._stats = {"bound_hits": 0, "bound_misses": 0}
 
     def _plan(self, program: Program, feed_names, fetch_names) -> _Plan:
         block = program.global_block()
@@ -202,17 +233,50 @@ class Executor:
             self._plans[key] = plan
         return plan
 
-    def _feed_tensor(self, block: Block, name: str, value) -> torch.Tensor:
-        if isinstance(value, torch.Tensor):
-            t = value.detach()
+    @staticmethod
+    def _feed_signature(feed: Dict[str, Any]) -> tuple:
+        sig = []
+        for n in sorted(feed):
+            v = feed[n]
+            if not isinstance(v, (torch.Tensor, np.ndarray)):
+                v = np.asarray(v)
+            sig.append((n, tuple(v.shape), str(v.dtype)))
+        return tuple(sig)
+
+    def bind(self, program: Program, feed: Dict[str, Any],
+             fetch_list: Sequence, scope: Optional[Scope] = None,
+             tag: Optional[str] = None):
+        """The ``runtime.dispatch.BoundStep`` of this exact (program
+        version, feed names with shapes and dtypes, fetch list, scope),
+        resolved on the first call and cached (the reference's
+        ``Executor.bind``, :764). ``feed`` gives example values: their
+        shapes and dtypes bind, nothing runs. ``tag`` labels the step."""
+        from ..runtime.dispatch import BoundStep
+
+        scope = scope or global_scope()
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in (fetch_list or [])]
+        block = program.global_block()
+        key = (program.uid, program.version, len(block.ops),
+               program.random_seed, self._feed_signature(feed),
+               tuple(fetch_names), scope.uid)
+        bound = self._bound.get(key)
+        if bound is not None:
+            self._stats["bound_hits"] += 1
+            self._bound.move_to_end(key)
         else:
-            arr = np.asarray(value)
-            if arr.dtype == np.float64 and not block.has_var(name):
-                arr = arr.astype(np.float32)
-            t = torch.from_numpy(np.ascontiguousarray(arr))
-        if block.has_var(name):
-            t = t.to(torch_dtype(block.var(name).dtype))
-        return t.to(self.device)
+            self._stats["bound_misses"] += 1
+            feed_names = sorted(feed)
+            bound = BoundStep(self, self._plan(program, feed_names,
+                                               fetch_names),
+                              block, scope, program.random_seed or 0,
+                              feed_names, fetch_names)
+            self._bound[key] = bound
+            if len(self._bound) > self.MAX_BOUND:
+                self._bound.popitem(last=False)
+        if tag is not None:
+            bound.tag = tag
+        return bound
 
     def run(
         self,
@@ -226,76 +290,23 @@ class Executor:
     ):
         if program is None:
             program = framework.default_main_program()
-        scope = scope or global_scope()
         feed = dict(feed or {})
-        fetch_names = [v.name if isinstance(v, Variable) else str(v)
-                       for v in (fetch_list or [])]
-        block = program.global_block()
-        plan = self._plan(program, sorted(feed), fetch_names)
+        bound = self.bind(program, feed, fetch_list, scope or global_scope())
+        return bound.run(feed, return_numpy)
 
-        env: Dict[str, Any] = {}
-        for name in sorted(feed):
-            env[name] = self._feed_tensor(block, name, feed[name])
-        for n in plan.state_names:
-            v = scope.find_var(n)
-            if v is None:
-                if block.has_var(n) and block.var(n).is_data:
-                    raise RuntimeError(
-                        f"data var {n!r} was not fed — add it to the feed "
-                        "dict")
-                raise RuntimeError(
-                    f"persistable var {n!r} not found in scope — run the "
-                    "startup program first")
-            if v.device != self.device:
-                raise RuntimeError(
-                    f"scope var {n!r} lives on {v.device}, this executor "
-                    f"runs on {self.device}")
-            env[n] = v
-
-        self._run_counter += 1
-        ctx = LoweringContext(self.device, seed=program.random_seed or 0,
-                              step=self._run_counter, live=plan.live,
-                              constants=self._constants)
-        with torch.no_grad():
-            for i, (op, opdef) in enumerate(zip(plan.ops, plan.defs)):
-                ins = {}
-                for slot, names in plan.reads[i]:
-                    try:
-                        ins[slot] = [env[n] for n in names]
-                    except KeyError as e:
-                        raise KeyError(
-                            f"op {op.type!r} input {slot}={e.args[0]!r} is "
-                            "not defined; did you run the startup program / "
-                            "feed this var?") from None
-                ident = int(op.attrs.get("op_ident", 0))
-                if not opdef.auto_grad and ident in plan.record:
-                    outs = run_recorded(ctx, opdef, op, ins,
-                                        plan.record[ident])
-                else:
-                    outs = opdef.lower(ctx, op, ins)
-                for slot, names in op.outputs.items():
-                    vals = outs.get(slot, [])
-                    for j, n in enumerate(names):
-                        if j < len(vals):
-                            env[n] = vals[j]
-                for n in plan.free_after[i]:
-                    env.pop(n, None)
-        if ctx.tape:
-            raise RuntimeError(
-                f"{len(ctx.tape)} forward record(s) were never consumed by "
-                f"a grad op (op_idents {sorted(ctx.tape)})")
-        for n in plan.written:
-            if n in env:
-                scope.set_var(n, env[n])
-        fetched = []
-        for n in fetch_names:
-            if n not in env:
-                raise KeyError(f"fetch var {n!r} was never produced")
-            fetched.append(env[n])
-        if return_numpy:
-            return [to_numpy(v) for v in fetched]
-        return fetched
+    def cache_stats(self) -> Dict[str, Any]:
+        """The reference's counters for this executor: ``bound_hits`` /
+        ``bound_misses`` of ``bind`` (every ``run`` binds), the bound
+        steps held, and ``graph_captures`` / ``graph_replays``, which
+        stay 0: a bound Program step runs eagerly (CUDA graphs over
+        Program steps are ROADMAP A12b)."""
+        out = dict(self._stats)
+        out["bound_steps"] = len(self._bound)
+        out["graph_captures"] = 0
+        out["graph_replays"] = 0
+        return out
 
     def close(self):
         self._plans.clear()
         self._constants.clear()
+        self._bound.clear()

@@ -22,7 +22,12 @@
   ``ValueError``s); quantized weights apply to the shared modules.
 
 K/V lives in a paged pool (``PagedKVCache``) written in place by the
-steps. Tokens stream out through ``GenerationStream``s; stop conditions
+steps. The fixed-shape step of each mode (the ragged step; the two_lane
+decode step) is bound once for the engine's life
+(``runtime.graphs.GraphedStep``, as the JAX engine's ``_ragged_bound``
+/ ``_decode_bound``): on the card it is captured as a CUDA graph after
+the warm-up and replayed every step; a capture that fails raises from
+the constructor. Tokens stream out through ``GenerationStream``s; stop conditions
 are max_new_tokens, EOS, deadline, cancel and close.
 
 Backpressure and eviction as in the JAX engine: a full queue, or a
@@ -73,12 +78,13 @@ from ..adapters import AdapterMissing, AdapterStore, rewrite_for_lora
 from ..flags import flag
 from ..kernels.ragged_paged_attention import MAX_CHUNK
 from ..quantize import rewrite_for_inference
+from ..runtime.graphs import GraphedStep
 from ..serving.engine import (DeadlineExceeded, EngineClosed, Overloaded,
                               RequestCancelled, ServingError)
 from ..serving.metrics import StreamingHistogram
 from .kvcache import PagedKVCache, PagePoolExhausted
 from .model import (CacheGeometry, DecodeStepModel, PrefillStepModel,
-                    RaggedStepModel, step_feeds)
+                    RaggedStepModel)
 
 __all__ = ["GenerationEngine", "GenerationStream", "GenerationMetrics"]
 
@@ -438,6 +444,35 @@ class GenerationEngine:
             self.adapter_store.attach(self.device)
             self.lora_report = rewrite_for_lora(self._step_model,
                                                 self.adapter_store)
+        # the fixed-shape step of each kind, bound for the engine's life
+        # (the JAX engine's _ragged_bound / _decode_bound): static input
+        # buffers over the engine's pools, replayed as a CUDA graph on
+        # the card once captured below; the two_lane prefill, whose
+        # batch is the admitted rows, stays an eager call
+        self._ragged_bound = self._decode_bound = None
+        R, maxp = self.lanes, self.geom.max_pages_per_seq
+        i32, i64 = torch.int32, torch.long
+        if mode == "ragged":
+            C = self.chunk_tokens
+            feeds = {"tokens": ((R, C), i64), "pos_ids": ((R, C), i64),
+                     "positions": ((R,), i32), "num_valid": ((R,), i32),
+                     "tables": ((R, maxp), i32)}
+            if self.adapter_store is not None:
+                feeds["adapter_slots"] = ((R, self.adapter_store.n_buckets),
+                                          i32)
+            self._ragged_bound = GraphedStep(
+                self._step_model, feeds,
+                {"k_pages": self.cache.k_pages, "v_pages": self.cache.v_pages,
+                 "k_scales": self.cache.k_scales,
+                 "v_scales": self.cache.v_scales}, self.device, "ragged")
+        else:
+            feeds = {"tokens": ((R,), i64), "positions": ((R,), i32),
+                     "num_valid": ((R,), i32), "lengths": ((R,), i32),
+                     "tables": ((R, maxp), i32)}
+            self._decode_bound = GraphedStep(
+                self._decode_model, feeds,
+                {"k_pages": self.cache.k_pages,
+                 "v_pages": self.cache.v_pages}, self.device, "decode")
 
         self._cond = threading.Condition()
         self._queue: "collections.deque[_GenRequest]" = collections.deque()
@@ -449,8 +484,18 @@ class GenerationEngine:
         self._started = False
         if warmup:
             self._warmup()
+        if self.device.type == "cuda":
+            # after the warm-up, once: a capture that fails raises here
+            # (no eager fallback)
+            self._bound_step.capture()
         if start:
             self.start()
+
+    @property
+    def _bound_step(self) -> GraphedStep:
+        """The bound step of this engine's mode."""
+        return (self._ragged_bound if self.mode == "ragged"
+                else self._decode_bound)
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "GenerationEngine":
@@ -570,7 +615,17 @@ class GenerationEngine:
 
     # -- introspection -------------------------------------------------------
     def stats(self) -> Dict[str, Any]:
+        """The engine's counters and histograms, the cache's and the
+        store's, and its bound step's: ``bound_step_runs`` (one an
+        engine step), ``graph_captures`` (1 on the card),
+        ``graph_replays`` (every step on the card, none on the CPU) and
+        ``graph_launches`` (each kernel's launches a replay, counted from
+        the graph's kernel nodes)."""
         out = self.metrics.snapshot()
+        bound = self._bound_step
+        out.update(bound_step_runs=bound.runs, graph_captures=bound.captures,
+                   graph_replays=bound.replays,
+                   graph_launches=dict(bound.launches))
         out["cache"] = self.cache.stats()
         if self.adapter_store is not None:
             out["adapters"] = self.adapter_store.stats_numeric()
@@ -758,12 +813,9 @@ class GenerationEngine:
         active = list(self._by_slot.items())
         t0 = time.monotonic()
         try:
-            dev = self.device
-            next_tok = self._decode_model(
-                *(torch.from_numpy(a).to(dev) for a in (
-                    tokens, positions, num_valid, lengths,
-                    np.ascontiguousarray(self.cache.block_tables))),
-                self.cache.k_pages, self.cache.v_pages).cpu().numpy()
+            next_tok = self._decode_bound.run(
+                tokens=tokens, positions=positions, num_valid=num_valid,
+                lengths=lengths, tables=self.cache.block_tables)
         except Exception as e:  # noqa: BLE001 — a bad batch must not kill the loop
             for slot, _req in active:
                 self._retire(slot, "error", ServingError(
@@ -894,16 +946,12 @@ class GenerationEngine:
                     aslots[slot] = self.adapter_store.slots_row(req.adapter)
         active = list(self._by_slot.items())
         t0 = time.monotonic()
+        host = {"tokens": tokens, "pos_ids": pos_ids, "positions": positions,
+                "num_valid": num_valid, "tables": self.cache.block_tables}
+        if aslots is not None:
+            host["adapter_slots"] = aslots
         try:
-            feeds = step_feeds(tokens, pos_ids, positions, num_valid,
-                               self.cache.block_tables, self.device)
-            if aslots is not None:
-                aslots = torch.from_numpy(aslots).to(self.device)
-            next_all = self._step_model(
-                *feeds, self.cache.k_pages, self.cache.v_pages,
-                self.cache.k_scales, self.cache.v_scales,
-                adapter_slots=aslots)
-            next_all = next_all.cpu().numpy().reshape(R, C)
+            next_all = self._ragged_bound.run(**host).reshape(R, C)
         except Exception as e:  # noqa: BLE001 — a bad batch must not kill the loop
             for slot, _req in active:
                 self._retire(slot, "error", ServingError(
@@ -999,6 +1047,7 @@ class GenerationEngine:
                     if req.stream.error is not None:
                         raise req.stream.error
             self.metrics = GenerationMetrics()
+            self._bound_step.runs = 0
             return
         slot = self.cache.allocate_slot(2)
         req = _GenRequest(np.asarray([0, 0], np.int64), 2, None, None,
@@ -1019,3 +1068,4 @@ class GenerationEngine:
         if req.stream.error is not None:
             raise req.stream.error
         self.metrics = GenerationMetrics()
+        self._bound_step.runs = 0

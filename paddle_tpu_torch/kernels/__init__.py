@@ -69,7 +69,7 @@ __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_fwd",
            "batched_lora_delta_plain", "batched_lora_matmul",
            "fused_momentum_update", "fused_momentum_update_plain",
            "paged_attention", "paged_attention_plain", "KERNELS",
-           "reset_launch_counts", "launch_counts"]
+           "GRAPH_NODES", "reset_launch_counts", "launch_counts"]
 
 # the launch-counted wrappers, by kernel name (layer_norm_fwd counts in
 # layer_norm's counter: it is the same kernel, K1, with its stats out)
@@ -87,6 +87,22 @@ KERNELS = {"layer_norm": layer_norm,
            "batched_lora_add_": batched_lora_add_,
            "fused_momentum_update": fused_momentum_update,
            "paged_attention": paged_attention}
+
+# the kernel each wrapper of the engine's steps launches exactly once a
+# call, as a CUDA graph's kernel node names it (demangled): a capture's
+# launches are counted from these nodes (``runtime/graphs.py``). The
+# wrappers of the training steps, which no graph captures yet (ROADMAP
+# A12b), have none: a capture that counts one of them raises.
+GRAPH_NODES = {
+    "layer_norm": r"\blayer_norm_fwd(_looped)?_kernel<",
+    "ragged_paged_attention":
+        r"\bragged_split_kernel<[^,<>]+, (float|__nv_bfloat16),",
+    "ragged_paged_attention_q": r"\bragged_split_kernel<[^,<>]+, signed char,",
+    "quantized_matmul": r"\bquant_matmul_mma_kernel<",
+    "quantized_matmul_fma": r"\bquant_matmul_fma_kernel\(",
+    "batched_lora_add_": r"\blora_expand_kernel\(",
+    "paged_attention": r"\bpaged_attention_kernel<",
+}
 
 
 def reset_launch_counts() -> None:

@@ -16,6 +16,7 @@ a CUDA tensor calls. On a machine without ``nvcc`` that call raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,6 +29,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "source_hash",
+           "count", "recording",
            "find_nvcc", "build", "library", "last_build"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -167,3 +169,30 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+_recording = threading.local()
+
+
+def count(fn) -> None:
+    """One launch of wrapper ``fn``'s kernel: added to ``fn.launches``,
+    or, while this thread captures a CUDA graph (``recording``), to the
+    capture's tally under ``fn.__name__``: a capture launches nothing,
+    the graph's replays do (``runtime/graphs.py``)."""
+    tally = getattr(_recording, "tally", None)
+    if tally is None:
+        fn.launches += 1
+    else:
+        tally[fn.__name__] = tally.get(fn.__name__, 0) + 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's launches into a fresh tally (yielded) instead
+    of the wrappers' counters, for the span of a CUDA graph capture."""
+    saved = getattr(_recording, "tally", None)
+    _recording.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _recording.tally = saved

@@ -224,7 +224,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             o.data_ptr(), _ptr(lse), B, H, S, D, Bb, Hb, float(sm_scale),
             int(bool(causal)), code, stream)
     _build.check(err, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    _build.count(flash_attention_fwd)
     return o, lse
 
 
@@ -283,7 +283,7 @@ def flash_attention_bwd(q, k, v, mask, bias, o, lse, do, sm_scale: float,
                                              dv.data_ptr(), *tail)
         _build.check(err, "flash_attention_bwd (dk, dv)")
         counts["dkv"] += 1
-    flash_attention_bwd.launches += 1
+    _build.count(flash_attention_bwd)
     dbias = None if bias is None else dbias32.to(bias.dtype)
     return dq, dk, dv, dbias
 

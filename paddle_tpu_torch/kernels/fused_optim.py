@@ -139,7 +139,7 @@ def fused_adam_update(p: torch.Tensor, g: torch.Tensor, m1: torch.Tensor,
             float(1 - beta2), float(epsilon), float(weight_decay), code,
             stream)
     _build.check(err, "fused_adam_update")
-    fused_adam_update.launches += 1
+    _build.count(fused_adam_update)
 
 
 fused_adam_update.launches = 0
@@ -202,7 +202,7 @@ def fused_momentum_update(p: torch.Tensor, g: torch.Tensor,
             clip_scale.data_ptr() if clip_scale is not None else None,
             p.numel(), float(mu), int(bool(use_nesterov)), code, stream)
     _build.check(err, what)
-    fused_momentum_update.launches += 1
+    _build.count(fused_momentum_update)
 
 
 fused_momentum_update.launches = 0

@@ -217,7 +217,7 @@ def _launch_fwd(x, gamma, beta, eps, stats):
             rstd.data_ptr() if stats else None, R, C, float(eps), code,
             *geo, stream)
     _build.check(err, "layer_norm")
-    layer_norm.launches += 1
+    _build.count(layer_norm)
     return y, mean, rstd
 
 
@@ -279,7 +279,7 @@ def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
             rstd.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
             dgamma.data_ptr(), dbeta.data_ptr(), R, C, code, *geo, stream)
     _build.check(err, "layer_norm_bwd")
-    layer_norm_bwd.launches += 1
+    _build.count(layer_norm_bwd)
     return dx, dgamma, dbeta
 
 

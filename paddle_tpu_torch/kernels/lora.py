@@ -260,7 +260,7 @@ def batched_lora_add_(out: torch.Tensor, x2: torch.Tensor,
             int(slots.shape[1]), M, K, N, rep, geo.slice_rows,
             geo.stage_rows, geo.splits, geo.tiles, stream)
     _build.check(err, "batched_lora_add_")
-    batched_lora_add_.launches += 1
+    _build.count(batched_lora_add_)
     return out
 
 

@@ -174,7 +174,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             B, H, D, KVH, P, ps, maxp, chunk, nsplit, float(scale), code,
             stream)
     _build.check(err, "paged_attention")
-    paged_attention.launches += 1
+    _build.count(paged_attention)
     return out
 
 

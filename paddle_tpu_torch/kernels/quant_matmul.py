@@ -240,7 +240,7 @@ def quantized_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
             None if partial is None else partial.data_ptr(), M, K, N,
             _MODE_CODES[mode], int(block), splits, stream)
     _build.check(err, "quantized_matmul")
-    quantized_matmul.launches += 1
+    _build.count(quantized_matmul)
     return out.reshape(*lead, N)
 
 
@@ -264,7 +264,7 @@ def quantized_matmul_fma(x2: torch.Tensor, qw: torch.Tensor,
                                       scales.data_ptr(), out.data_ptr(), M,
                                       K, N, int(block), stream)
     _build.check(err, "quantized_matmul (FMA, odd block)")
-    quantized_matmul_fma.launches += 1
+    _build.count(quantized_matmul_fma)
     return out
 
 

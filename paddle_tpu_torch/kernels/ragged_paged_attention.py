@@ -160,7 +160,7 @@ def ragged_paged_attention(q, k_pages, v_pages, start_pos, num_valid,
                                page_indices))
     out = _launch("pt_ragged_paged_attention", q, k_pages, v_pages, (),
                   start_pos, num_valid, page_indices, sm_scale, code)
-    ragged_paged_attention.launches += 1
+    _build.count(ragged_paged_attention)
     return out
 
 
@@ -241,7 +241,7 @@ def ragged_paged_attention_q(q, k_pages, v_pages, k_scales, v_scales,
     out = _launch("pt_ragged_paged_attention_q", q, k_pages, v_pages,
                   (k_scales, v_scales), start_pos, num_valid, page_indices,
                   sm_scale, code)
-    ragged_paged_attention_q.launches += 1
+    _build.count(ragged_paged_attention_q)
     return out
 
 

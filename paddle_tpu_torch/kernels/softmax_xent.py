@@ -125,7 +125,7 @@ def softmax_xent_fwd(logits: torch.Tensor, labels: torch.Tensor,
             logits.data_ptr(), labels.data_ptr(), loss.data_ptr(),
             lse.data_ptr(), R, C, int(ignore_index), code, stream)
     _build.check(err, "softmax_xent_fwd")
-    softmax_xent_fwd.launches += 1
+    _build.count(softmax_xent_fwd)
     return loss, lse
 
 
@@ -157,7 +157,7 @@ def softmax_xent_bwd(logits: torch.Tensor, labels: torch.Tensor,
             dloss.data_ptr(), dlogits.data_ptr(), R, C, int(ignore_index),
             code, stream)
     _build.check(err, "softmax_xent_bwd")
-    softmax_xent_bwd.launches += 1
+    _build.count(softmax_xent_bwd)
     return dlogits
 
 

@@ -53,8 +53,44 @@ _register_elementwise("elementwise_add", lambda x, y: x + y)
 _register_elementwise("elementwise_sub", lambda x, y: x - y)
 _register_elementwise("elementwise_mul", lambda x, y: x * y)
 _register_elementwise("elementwise_div", lambda x, y: x / y)
-_register_elementwise("elementwise_min", torch.minimum)
-_register_elementwise("elementwise_max", torch.maximum)
+class _Extremum(torch.autograd.Function):
+    """``torch.maximum`` / ``torch.minimum`` with ``lax.max`` /
+    ``lax.min``'s gradient: each operand takes ``g * (operand == out) /
+    (1 + (other == out))``, so a tie splits g in halves and a NaN (where
+    out is NaN and neither operand equals it) sends 0 to both; torch's
+    own backward passes g to both at a NaN. Eight kernels for both
+    gradients where torch's formula takes ten."""
+
+    @staticmethod
+    def forward(ctx, x, y, fn):
+        out = fn(x, y)
+        ctx.save_for_backward(x, y, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, out = ctx.saved_tensors
+        ex, ey = x == out, y == out
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = g * ex / (1 + ey)
+        if ctx.needs_input_grad[1]:
+            gy = g * ey / (1 + ex)
+        return gx, gy, None
+
+
+def _maximum(x, y):
+    x, y = torch.broadcast_tensors(x, y)
+    return _Extremum.apply(x, y, torch.maximum)
+
+
+def _minimum(x, y):
+    x, y = torch.broadcast_tensors(x, y)
+    return _Extremum.apply(x, y, torch.minimum)
+
+
+_register_elementwise("elementwise_min", _minimum)
+_register_elementwise("elementwise_max", _maximum)
 
 
 @register_op("matmul", inputs=("X", "Y"), outputs=("Out",))
@@ -183,11 +219,11 @@ def _clip(ctx, op, ins):
     """``paddle_tpu/ops/math.py:243``: jnp.clip(x, min, max), composed
     as jnp.clip is, ``minimum(maximum(x, min), max)``: where x equals a
     bound, maximum / minimum split the gradient in halves (X@GRAD 0.5),
-    where ``torch.clamp`` would pass all of it."""
+    where ``torch.clamp`` would pass all of it, and a NaN x takes 0."""
     out = ins["X"][0]
     lo, hi = op.attrs.get("min"), op.attrs.get("max")
     if lo is not None:
-        out = torch.maximum(out, out.new_full((), lo))
+        out = _maximum(out, out.new_full((), lo))
     if hi is not None:
-        out = torch.minimum(out, out.new_full((), hi))
+        out = _minimum(out, out.new_full((), hi))
     return {"Out": [out]}

@@ -145,19 +145,30 @@ def _from_nchw(x, fmt):
 @register_op("conv2d", inputs=("Input", "Filter", "Bias"),
              outputs=("Output",))
 def _conv2d(ctx, op, ins):
-    """``paddle_tpu/ops/nn.py:28``: strides, symmetric paddings,
-    dilations and groups; filters OIHW. (The reference's SAME / VALID
-    padding algorithms and four-sided paddings, which no ported layer
-    emits, are not ported.)"""
+    """``paddle_tpu/ops/nn.py:28``: strides, paddings, dilations and
+    groups; filters OIHW. Paddings are [h, w] (both sides alike) or, as
+    ``layers.conv2d(padding=[top, bottom, left, right])`` passes them
+    through, four sides: H by (pd[0], pd[1]) and W by (pd[2], pd[3]), as
+    the reference's :43-46; an uneven four-sided padding takes an
+    ``F.pad`` before the convolution. (The reference's SAME / VALID
+    padding algorithms are not ported.)"""
     x, w = ins["Input"][0], ins["Filter"][0]
     fmt = op.attrs.get("data_format", "NCHW")
     if op.attrs.get("padding_algorithm", "EXPLICIT") != "EXPLICIT":
         raise NotImplementedError(
             "conv2d: padding_algorithm SAME / VALID is not ported yet "
             "(ROADMAP A11)")
-    out = F.conv2d(_nchw(x, fmt), w,
+    xc = _nchw(x, fmt)
+    pd = _pair(op.attrs.get("paddings", [0, 0]))
+    if len(pd) == 4:
+        if pd[0] == pd[1] and pd[2] == pd[3]:
+            pd = [pd[0], pd[2]]
+        else:
+            xc = F.pad(xc, (pd[2], pd[3], pd[0], pd[1]))
+            pd = [0, 0]
+    out = F.conv2d(xc, w,
                    stride=_pair(op.attrs.get("strides", [1, 1])),
-                   padding=_pair(op.attrs.get("paddings", [0, 0])),
+                   padding=pd,
                    dilation=_pair(op.attrs.get("dilations", [1, 1])),
                    groups=int(op.attrs.get("groups", 1)))
     if ins.get("Bias"):

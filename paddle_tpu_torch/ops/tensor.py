@@ -74,6 +74,25 @@ def _transpose2(ctx, op, ins):
     return {"Out": [x.permute(perm)], **_xshape(ctx, op, x)}
 
 
+def _split_sizes(sections, n: int):
+    """Fluid's ``sections`` over an axis of ``n``: one -1, last, takes
+    the rest of the axis. The reference splits at
+    ``np.cumsum(sections)[:-1]`` (``paddle_tpu/ops/tensor.py:120``),
+    which agrees with Fluid only in that case; a -1 elsewhere or sizes
+    that do not sum to the axis would silently give other sizes there,
+    so they raise here."""
+    sizes = [int(s) for s in sections]
+    if -1 in sizes[:-1] or any(s < -1 for s in sizes):
+        raise ValueError(f"split: sections {sizes} may hold one -1, as the "
+                         "last entry, and no other negative size")
+    if sizes[-1] == -1:
+        sizes[-1] = n - sum(sizes[:-1])
+    if sizes[-1] < 0 or sum(sizes) != n:
+        raise ValueError(f"split: sections {[int(s) for s in sections]} do "
+                         f"not sum to the axis's {n}")
+    return sizes
+
+
 @register_op("split", inputs=("X",), outputs=("Out",))
 def _split(ctx, op, ins):
     x = ins["X"][0]
@@ -81,7 +100,8 @@ def _split(ctx, op, ins):
     sections = op.attrs.get("sections", [])
     num = int(op.attrs.get("num", 0))
     if sections:
-        outs = torch.split(x, [int(s) for s in sections], dim=axis)
+        outs = torch.split(x, _split_sizes(sections, x.shape[axis]),
+                           dim=axis)
     else:
         outs = torch.split(x, x.shape[axis] // num, dim=axis)
     return {"Out": list(outs)}

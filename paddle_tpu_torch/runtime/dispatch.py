@@ -1,0 +1,192 @@
+"""The bound fast path over Programs: the port's counterpart of
+``paddle_tpu/runtime/dispatch.py`` (``BoundStep``, :393).
+
+``Executor.bind(program, feed, fetch_list, scope)`` resolves one
+``BoundStep`` per (program uid, version, op count, random seed, feed
+names with shapes and dtypes, fetch names, scope) and ``Executor.run``
+funnels every call through it, as the reference does. A bound step
+holds what the run would otherwise work out every call:
+
+  * the ``_Plan`` of the block (live set, lifetimes, tape records);
+  * the feed plan: each fed name with the torch dtype its variable
+    declares (None for a name the block does not declare);
+  * the resolved state tensors, read from the scope once and refreshed
+    only when the scope chain's generation moves (``Scope.set_var`` /
+    ``erase`` bump it). The step's own persistable writes update the
+    cached refs in place and bump the generation once, so a training
+    loop does not re-resolve each step while another program bound to
+    the same scope (an eval clone) sees the new values.
+
+The reference compiles the step into one XLA executable; here the bound
+step runs its plan eagerly, op by op. Capturing a Program step as a
+CUDA graph is ROADMAP A12b: each op's generator is seeded on the host
+per step (``LoweringContext.op_generator``), so a capture would replay
+one step's dropout masks, and the warm-up a capture needs would update
+the parameters in place. The generation engine's fixed-shape steps are
+graphed (``runtime/graphs.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.executor import _Plan, to_numpy, torch_dtype
+from ..core.framework import Block
+from ..core.registry import LoweringContext, run_recorded
+
+__all__ = ["BoundStep", "scope_chain_generation"]
+
+
+def scope_chain_generation(scope) -> int:
+    """Sum of the generation counters along the parent chain: it moves
+    when any scope a lookup could resolve through is mutated (the
+    reference's :242)."""
+    g = scope.generation
+    s = scope.parent
+    while s is not None:
+        g += s.generation
+        s = s.parent
+    return g
+
+
+class BoundStep:
+    """One resolved (program, feed signature, fetch list, scope) step:
+    ``run(feed, return_numpy)`` is the single execution path of
+    ``Executor.run``."""
+
+    __slots__ = ("executor", "plan", "block", "scope", "seed", "tag",
+                 "feed_plan", "fetch_names", "state_vals", "state_pos",
+                 "scope_gen", "__weakref__")
+
+    def __init__(self, executor, plan: _Plan, block: Block, scope, seed: int,
+                 feed_names: Sequence[str], fetch_names: Sequence[str],
+                 tag: Optional[str] = None):
+        self.executor = executor
+        self.plan = plan
+        self.block = block
+        self.scope = scope
+        self.seed = int(seed)
+        self.tag = tag
+        self.feed_plan = [
+            (n, torch_dtype(block.var(n).dtype) if block.has_var(n) else None)
+            for n in feed_names]
+        self.fetch_names = list(fetch_names)
+        self.state_vals: List[Any] = []
+        # where each written persistable sits among the state values
+        # (None: written only, read by no op of this step)
+        pos = {n: i for i, n in enumerate(plan.state_names)}
+        self.state_pos = [(n, pos.get(n)) for n in plan.written]
+        self.scope_gen = -1      # resolve at the first run
+
+    # -- state resolution ---------------------------------------------------
+    def _resolve_state(self):
+        scope, block, device = self.scope, self.block, self.executor.device
+        # read the generation BEFORE the walk: a set_var during it leaves
+        # the counters unequal, and the next run resolves again
+        gen = scope_chain_generation(scope)
+        vals = []
+        for n in self.plan.state_names:
+            v = scope.find_var(n)
+            if v is None:
+                if block.has_var(n) and block.var(n).is_data:
+                    raise RuntimeError(
+                        f"data var {n!r} was not fed — add it to the feed "
+                        "dict")
+                raise RuntimeError(
+                    f"persistable var {n!r} not found in scope — run the "
+                    "startup program first")
+            if not isinstance(v, torch.Tensor):
+                # a host value set from outside (numpy, a list): onto the
+                # device once, in the scope from now on
+                v = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                scope.vars[n] = v
+            if v.device != device:
+                raise RuntimeError(
+                    f"scope var {n!r} lives on {v.device}, this executor "
+                    f"runs on {device}")
+            vals.append(v)
+        self.state_vals = vals
+        self.scope_gen = gen
+
+    def _feed_tensor(self, value, dtype) -> torch.Tensor:
+        if isinstance(value, torch.Tensor):
+            t = value.detach()
+        else:
+            arr = np.asarray(value)
+            if arr.dtype == np.float64 and dtype is None:
+                arr = arr.astype(np.float32)
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        if dtype is not None:
+            t = t.to(dtype)
+        return t.to(self.executor.device)
+
+    # -- the hot path -------------------------------------------------------
+    def run(self, feed: Dict[str, Any], return_numpy: bool = True):
+        scope, plan = self.scope, self.plan
+        entry_gen = scope_chain_generation(scope)
+        if entry_gen != self.scope_gen:
+            self._resolve_state()
+            entry_gen = self.scope_gen
+        env: Dict[str, Any] = {n: self._feed_tensor(feed[n], dt)
+                               for n, dt in self.feed_plan}
+        env.update(zip(plan.state_names, self.state_vals))
+
+        ex = self.executor
+        ex._run_counter += 1
+        ctx = LoweringContext(ex.device, seed=self.seed, step=ex._run_counter,
+                              live=plan.live, constants=ex._constants)
+        with torch.no_grad():
+            for i, (op, opdef) in enumerate(zip(plan.ops, plan.defs)):
+                ins = {}
+                for slot, names in plan.reads[i]:
+                    try:
+                        ins[slot] = [env[n] for n in names]
+                    except KeyError as e:
+                        raise KeyError(
+                            f"op {op.type!r} input {slot}={e.args[0]!r} is "
+                            "not defined; did you run the startup program / "
+                            "feed this var?") from None
+                ident = int(op.attrs.get("op_ident", 0))
+                if not opdef.auto_grad and ident in plan.record:
+                    outs = run_recorded(ctx, opdef, op, ins,
+                                        plan.record[ident])
+                else:
+                    outs = opdef.lower(ctx, op, ins)
+                for slot, names in op.outputs.items():
+                    vals = outs.get(slot, [])
+                    for j, n in enumerate(names):
+                        if j < len(vals):
+                            env[n] = vals[j]
+                for n in plan.free_after[i]:
+                    env.pop(n, None)
+        if ctx.tape:
+            raise RuntimeError(
+                f"{len(ctx.tape)} forward record(s) were never consumed by "
+                f"a grad op (op_idents {sorted(ctx.tape)})")
+        wrote = False
+        sv = scope.vars
+        for n, pos in self.state_pos:
+            if n in env:
+                v = env[n]
+                sv[n] = v
+                if pos is not None:
+                    self.state_vals[pos] = v
+                wrote = True
+        if wrote:
+            # written straight into the scope (no bump a name): one bump
+            # so that other steps bound to this scope re-resolve; this
+            # step keeps entry_gen + 1, ITS bump, so that a set_var from
+            # elsewhere during the run still forces a re-resolve
+            scope._bump_generation()
+            self.scope_gen = entry_gen + 1
+        fetched = []
+        for n in self.fetch_names:
+            if n not in env:
+                raise KeyError(f"fetch var {n!r} was never produced")
+            fetched.append(env[n])
+        if return_numpy:
+            return [to_numpy(v) for v in fetched]
+        return fetched

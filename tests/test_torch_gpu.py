@@ -1138,3 +1138,141 @@ def test_tiny_resnet_momentum_on_cuda_matches_cpu(cuda):
                                    rtol=1e-4)
     finally:
         fluid.set_flags({"optimizer_fuse": "auto"})
+
+
+# -- the engine's bound steps, replayed as CUDA graphs (runtime/graphs.py) --------
+
+GRAPH_CFG = GPTConfig(vocab_size=97, hidden_size=64, num_layers=2,
+                      num_heads=4, ffn_size=128, max_position=64,
+                      hidden_dropout=0.0, attention_dropout=0.0)
+# (prompt length, new tokens): eight requests over four lanes, ending at
+# different steps, so rows join and leave
+GRAPH_REQUESTS = ((9, 3), (23, 10), (4, 6), (14, 2), (30, 8), (6, 12),
+                  (17, 5), (3, 9))
+
+
+def _graph_engine(kind):
+    from paddle_tpu_torch.adapters import AdapterStore
+
+    c = Config().set_params(GRAPH_CFG, _tiny_params(GRAPH_CFG))
+    common = dict(page_size=4, num_pages=96, max_decode_batch=4)
+    if kind == "two_lane":
+        pred = create_predictor(c, "cuda")
+        return GenerationEngine(pred, GRAPH_CFG, mode="two_lane",
+                                prefill_buckets=(8, 16, 32), **common), None
+    if kind == "float32":
+        pred = create_predictor(c, "cuda")
+        return GenerationEngine(pred, GRAPH_CFG, chunk_tokens=6,
+                                **common), None
+    c.enable_weight_quantization("int8")
+    pred = create_predictor(c, "cuda")
+    store = AdapterStore.for_model(pred.lm, rank_buckets=(8, 16),
+                                   slots_per_bucket=4)
+    frng = np.random.RandomState(5)
+    for aid, r in (("a0", 8), ("a1", 16), ("a2", 8), ("a3", 16)):
+        store.upload(aid, {t: ((0.1 * frng.randn(k, r)).astype(np.float32),
+                               (0.1 * frng.randn(r, n)).astype(np.float32))
+                           for t, (k, n) in sorted(store.targets.items())},
+                     alpha=2.0 * r)
+    eng = GenerationEngine(pred, GRAPH_CFG, chunk_tokens=6, kv_dtype="int8",
+                           adapter_store=store, **common)
+    return eng, [None, "a0", "a1", "a2", "a3", None, "a1", "a0"]
+
+
+def _same_except_junk(a, b):
+    # page 0 slot 0 takes every idle row's write, in no defined order
+    return (torch.equal(a[:, 1:], b[:, 1:])
+            and torch.equal(a[:, 0, 1:], b[:, 0, 1:]))
+
+
+@pytest.mark.parametrize("kind", ["float32", "int8_adapters", "two_lane"])
+def test_graphed_step_replays_equal_eager_steps(cuda, kind):
+    """Over a recorded sequence of real steps (rows joining and leaving),
+    each replayed step equals the eager step on cloned pools bit for
+    bit: tokens, pools (page 0 slot 0 left out) and scale planes; every
+    step is one replay, and the kernels' counters hold the launches the
+    replays made."""
+    eng, adapters = _graph_engine(kind)
+    bound = eng._bound_step
+    assert bound.graph is not None and bound.captures == 1
+    recorded = []
+    run = bound.run
+
+    def recording(**host):
+        recorded.append({n: np.array(a, copy=True) for n, a in host.items()})
+        return run(**host)
+
+    bound.run = recording
+    rng = np.random.RandomState(4)
+    K.reset_launch_counts()
+    streams = [eng.submit(rng.randint(1, GRAPH_CFG.vocab_size, n),
+                          max_new_tokens=m,
+                          adapter=None if adapters is None else adapters[i])
+               for i, (n, m) in enumerate(GRAPH_REQUESTS)]
+    assert [len(s.result(timeout=300)) for s in streams] == \
+        [m for _, m in GRAPH_REQUESTS]
+    counts = K.launch_counts()
+    st = eng.stats()
+    eng.close()
+    bound.run = run
+    steps = st["decode_steps_total"]
+    assert st["graph_replays"] == st["bound_step_runs"] == steps \
+        == len(recorded)
+    L = GRAPH_CFG.num_layers
+    # the graph's kernel nodes, counted by name at capture, a replay
+    if kind == "two_lane":
+        per_step = {"paged_attention": L, "layer_norm": 2 * L + 1}
+    elif kind == "float32":
+        per_step = {"ragged_paged_attention": L, "layer_norm": 2 * L + 1}
+    else:
+        per_step = {"quantized_matmul": 4 * L + 1, "layer_norm": 2 * L + 1,
+                    "ragged_paged_attention_q": L,
+                    "batched_lora_add_": 4 * L + 1}
+    assert st["graph_launches"] == per_step
+    want = {k: n * steps for k, n in per_step.items()}
+    if kind == "two_lane":     # the eager prefill calls' layer norms
+        want["layer_norm"] += (2 * L + 1) * st["prefill_batches_total"]
+    assert {k: n for k, n in counts.items() if n} == want
+    live = [int((h["num_valid"] > 0).sum()) for h in recorded]
+    assert any(b < a for a, b in zip(live, live[1:])), live
+    for i, host in enumerate(recorded):
+        clone = {k: None if v is None else [t.clone() for t in v]
+                 for k, v in bound.state.items()}
+        got = bound.run(**host)
+        want = bound.eager(state=clone, **host).cpu().numpy()
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got, want, err_msg=f"step {i}")
+        for k, tensors in bound.state.items():
+            for layer, (a, b) in enumerate(zip(tensors or (), clone[k] or ())):
+                assert _same_except_junk(a, b), (i, k, layer)
+
+
+def test_graph_capture_failure_raises(cuda, monkeypatch):
+    """A step that reads a device value on the host cannot be captured:
+    the capture raises (no eager fallback), and so does the engine's
+    constructor; the card works on afterwards."""
+    from paddle_tpu_torch.generation.model import RaggedStepModel
+    from paddle_tpu_torch.runtime.graphs import GraphedStep
+
+    def host_read(x):
+        return x * float(x.sum())
+
+    step = GraphedStep(host_read, {"x": ((4,), torch.float32)}, {}, cuda,
+                       "host-read")
+    with pytest.raises(RuntimeError, match="capture of the host-read step"):
+        step.capture()
+    assert step.graph is None
+    real = RaggedStepModel.forward
+
+    def forward(self, tokens, *args, **kw):
+        int(tokens.sum())
+        return real(self, tokens, *args, **kw)
+
+    monkeypatch.setattr(RaggedStepModel, "forward", forward)
+    pred = create_predictor(
+        Config().set_params(GRAPH_CFG, _tiny_params(GRAPH_CFG)), "cuda")
+    with pytest.raises(RuntimeError, match="capture of the ragged step"):
+        GenerationEngine(pred, GRAPH_CFG, page_size=4, num_pages=24,
+                         max_decode_batch=2, chunk_tokens=6)
+    x = torch.arange(4.0, device=cuda)
+    assert float((x * 2).sum()) == 12.0
