@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + device time by kernel group in
                                      #   phases 3, 3b, 4, 6, 7, 8 and 9
-    python3 chip_smoke.py --phases 28   # build + chosen phases, no
-                                        #   result line
+    python3 chip_smoke.py --phases 28   # build + chosen phases (any of
+                                        #   23456789a), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -36,7 +36,10 @@ Phases, in order; any failure exits non-zero without the result line:
    rows at M = 1 and M = 37 bit for bit. The K11 and flash-backward rows
    print their earlier designs' times (PERF.md) beside the new ones, and
    every bound names the rate it assumes (RATE_NAMES);
-   K2q at phase 3's ragged shape over int8 pages; K12 at gpt3_1p3b's
+   K2q at phase 3's ragged shape over int8 pages; K2 and K2q also at
+   that shape with speculative verify rows (7 queries a row starting at
+   offsets 10-13 of a page of 16, so that each row crosses into the next
+   page); K12 at gpt3_1p3b's
    five LoRA targets (qkv, proj, ffn1, ffn2, the head) with rank buckets
    8 and 16 and a mixed slot vector, on rotated inputs, with the
    wrapper's host time a call; two calls and each lane alone must give
@@ -124,6 +127,28 @@ Phases, in order; any failure exits non-zero without the result line:
    10 steps: 853 ops (158 casts), losses finite and falling, exactly
    161 K10, one K4 and one K5 launch a step; mean step, images/s, peak
    memory beside phase 8's.
+a. speculative decoding and the radix prefix cache: gpt3_1p3b with
+   phase 3's weights. Spec: phase 3's 16 prompts (32 new tokens, 4
+   client threads) with ``spec_tokens=6`` (the JAX bench's ``--spec``)
+   and a full-replica ``HostDraft``, a 2-layer one and a draft that
+   always proposes token 1: every stream passes the teacher-forced
+   oracle, drafts were proposed (the replica's acceptance > 0.5), the
+   graph replays once a step with exact K1 / K2 launches (the draft runs
+   eagerly outside it, on the card, over the predictor's own tensors),
+   and the replica's recorded steps equal their eager steps bit for bit.
+   The tokens are held to the spec-off run (phase 3's): the identical
+   streams are counted, and a stream that differs must first differ
+   where the teacher-forced top-2 gap is within 1e-3 of max|logit|.
+   Prints tokens/s, step ms, TTFT, ITL, the draft's ms a propose,
+   acceptance and accepted tokens a spec round. Radix: a seed request
+   publishes a 512-token prefix (32 pages); 16 prompts of it plus 8-64
+   distinct tokens are served warm (``prefix_cache=True``) and cold,
+   over float32 pages and int8 ones (K2q): warm tokens equal cold ones,
+   at least 15 x 512 prefix tokens hit, ``check_integrity`` holds, and
+   after ``drop_trie`` no page is in use. Prints the hit rate, each
+   request's TTFT from its own submit (p50 of all and of the first 8
+   submitted) and the peak shared and private pages, sampled in an
+   untimed second serve of the same requests (same tokens required).
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -186,7 +211,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789"
+ALL_PHASES = "23456789a"
 DEVICE = "cuda"
 
 
@@ -438,6 +463,14 @@ def ragged_bytes_ops(q, kp, starts, nvalid, ps):
     return nbytes, ops
 
 
+# phase 3's shape with speculative verify rows: [pending] + 6 drafts
+# starting mid-page (offsets 10 to 13 of a page of 16), so that each row's
+# 7 queries cross into the next page; the last lane idle
+VERIFY_CASE = dict(B=LANES, C=CHUNK, H=16, KVH=16, D=128, P=512, ps=PAGE,
+                   maxp=64, starts=[10, 108, 764, 411, 26, 251, 701, 0],
+                   nvalid=[7, 7, 7, 7, 7, 7, 7, 0])
+
+
 def check_ragged(torch, np, K, dtype_name, gen, seed):
     import torch.nn.functional as F
 
@@ -454,7 +487,8 @@ def check_ragged(torch, np, K, dtype_name, gen, seed):
     # 2 and partial last pages holding stale rows
     edge = dict(B=4, C=5, H=8, KVH=4, D=64, P=24, ps=4, maxp=5,
                 starts=[0, 6, 9, 0], nvalid=[5, 1, 3, 0])
-    for name, case in (("main", main), ("edge", edge)):
+    for name, case in (("main", main), ("edge", edge),
+                       ("verify", VERIFY_CASE)):
         q, kp, vp, st, nv, tb = ragged_case(torch, np, dt, gen, seed=seed,
                                             **case)
         what = (f"ragged_paged_attention {dtype_name} {name} "
@@ -1125,7 +1159,8 @@ def check_ragged_q(torch, np, K, gen, seed):
     edge = dict(B=4, C=5, H=8, KVH=4, D=64, P=24, ps=4, maxp=5,
                 starts=[0, 6, 9, 0], nvalid=[5, 1, 3, 0])
     result = None
-    for name, case in (("main", main), ("edge", edge)):
+    for name, case in (("main", main), ("edge", edge),
+                       ("verify", VERIFY_CASE)):
         q, kf, vf, st, nv, tb = ragged_case(torch, np, torch.float32, gen,
                                             seed=seed, **case)
         KVH, P, ps, D = kf.shape
@@ -1427,10 +1462,12 @@ def serving_prompts(np, seed, vocab):
                      for n in lengths]
 
 
-def run_clients(eng, prompts, max_new, adapters=None, ids=None):
+def run_clients(eng, prompts, max_new, adapters=None, ids=None,
+                submitted=None):
     """The requests ``ids`` (all by default) submitted from 4 client
     threads, each waiting for its own; returns the streams (None where
-    not submitted) and the wall time."""
+    not submitted) and the wall time. ``submitted``, a dict, receives
+    each request's submit time (``time.monotonic``)."""
     ids = list(range(len(prompts))) if ids is None else list(ids)
     streams = [None] * len(prompts)
     errors = []
@@ -1438,6 +1475,8 @@ def run_clients(eng, prompts, max_new, adapters=None, ids=None):
     def client(mine):
         try:
             for i in mine:
+                if submitted is not None:
+                    submitted[i] = time.monotonic()
                 streams[i] = eng.submit(
                     prompts[i], max_new_tokens=max_new,
                     adapter=None if adapters is None else adapters[i])
@@ -2841,6 +2880,292 @@ def train_resnet_amp(torch, np, seed, card, out_dir, profile=False, steps=10,
     return totals, perf
 
 
+# -- phase a: speculative decoding and the radix prefix cache ------------------------
+
+SPEC_TOKENS = 6            # the JAX bench's --spec setting
+RADIX_PREFIX = 512         # tokens of the shared prefix: 32 full pages
+
+
+class GarbageDraft:
+    """A draft that always proposes token 1: every draft is rejected
+    (a stand-in for a draft that silently fails)."""
+
+    def propose(self, contexts, k):
+        import numpy as np
+
+        return [np.full(k, 1, np.int64) for _ in contexts]
+
+
+def timed_propose(draft):
+    """Times each ``propose`` call of ``draft`` (ms, host clock; the
+    proposals come back as numpy, so the call ends synchronised)."""
+    times = []
+    inner = draft.propose
+
+    def propose(contexts, k):
+        t0 = time.perf_counter()
+        out = inner(contexts, k)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    draft.propose = propose
+    return times
+
+
+def first_difference(np, pred, prompt, mine, theirs):
+    """Where two greedy continuations of one prompt first differ, the
+    teacher-forced logits there (their shared context): (index, top-2
+    gap, max|logit|)."""
+    k = next(i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b)
+    ctx = np.concatenate([prompt, np.asarray(mine[:k], np.int64)])
+    (logits,) = pred.run([ctx[None]])
+    row = np.sort(logits[0, -1])
+    return k, float(row[-1] - row[-2]), float(np.abs(row).max())
+
+
+def serve_spec(torch, np, seed, card, out_dir, base_tokens=None):
+    """Phase a, spec: phase 3's weights and prompts served with
+    ``spec_tokens=6`` and a full-replica, a 2-layer and a garbage draft,
+    then held to a spec-off run of the same prompts."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.generation import GenerationEngine, HostDraft
+
+    cfg, pred = gpt3_predictor(torch, seed)
+    lengths, prompts = serving_prompts(np, seed, cfg.vocab_size)
+    max_new, L = 32, cfg.num_layers
+    paths, out = {}, {}
+    if base_tokens is None:
+        eng = GenerationEngine(pred, cfg, warmup=True)
+        streams, _ = run_clients(eng, prompts, max_new)
+        check_streams(streams, max_new)
+        base_tokens = [list(s.tokens) for s in streams]
+        eng.close()
+        del eng
+    drafts = (("replica", lambda: HostDraft.from_predictor(pred, cfg)),
+              ("truncated", lambda: HostDraft.from_predictor(
+                  pred, cfg, num_layers=2)),
+              ("garbage", GarbageDraft))
+    for name, make in drafts:
+        what = f"phase a spec {name}"
+        draft = make()
+        if name != "garbage":
+            params = list(draft.params.values())
+            require(draft.device.type == "cuda"
+                    and all(t.is_cuda for t in params),
+                    f"{what}: the draft's tensors are not on the card")
+            shared = pred.lm.jax_params()
+            require(all(draft.params[n].data_ptr() == shared[n].data_ptr()
+                        for n in draft.params),
+                    f"{what}: the draft copied the predictor's weights")
+        t0 = time.perf_counter()
+        eng = GenerationEngine(pred, cfg, draft=draft,
+                               spec_tokens=SPEC_TOKENS, warmup=True)
+        log(f"  {what}: engine ready in {time.perf_counter() - t0:.1f} s "
+            f"(chunk {eng.chunk_tokens}, draft rows {getattr(draft, 'min_rows', '-')})")
+        times = timed_propose(draft)
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        streams, wall = run_clients(eng, prompts, max_new)
+        counts = K.launch_counts()
+        paths[f"spec_{name}"] = counts
+        st = eng.stats()
+        check_streams(streams, max_new)
+        steps = st["ragged_steps_total"]
+        require(counts["ragged_paged_attention"] == L * steps
+                and counts["layer_norm"] == (2 * L + 1) * steps,
+                f"{what}: {steps} steps launched {counts}")
+        require_graphed(st, steps, what)
+        require(st["spec_proposed_total"] > 0 and times,
+                f"{what}: no drafts were proposed")
+        if name == "replica":
+            require(st["spec_acceptance_rate"] > 0.5,
+                    f"{what}: acceptance {st['spec_acceptance_rate']}")
+        perf = serving_perf(torch, st, streams, wall, lengths, card,
+                            what=f"served ({what})")
+        perf.update(
+            spec_rounds=st["spec_rounds_total"],
+            spec_proposed=st["spec_proposed_total"],
+            spec_accepted=st["spec_accepted_total"],
+            acceptance=st["spec_acceptance_rate"],
+            accepted_tokens_per_step=st["spec_accepted_tokens_per_step"],
+            propose_calls=len(times),
+            propose_ms_mean=statistics.mean(times) if times else None,
+            propose_ms_p50=statistics.median(times) if times else None,
+            draft_share_of_wall=sum(times) / 1e3 / wall)
+        log(f"  {what}: acceptance {perf['acceptance']}, accepted tokens a "
+            f"spec round {perf['accepted_tokens_per_step']} "
+            f"({perf['spec_accepted']} of {perf['spec_proposed']} drafts, "
+            f"{perf['spec_rounds']} rounds); the draft: {len(times)} "
+            f"proposes, mean {perf['propose_ms_mean']:.3f} ms, p50 "
+            f"{perf['propose_ms_p50']:.3f} ms a propose, "
+            f"{perf['draft_share_of_wall']:.4f} of the wall time [{card}]")
+        oracle(np, pred, prompts, streams, ids=range(len(prompts)))
+        same = [list(s.tokens) == b for s, b in zip(streams, base_tokens)]
+        diffs = []
+        for i, s in enumerate(streams):
+            if same[i]:
+                continue
+            k, gap, top = first_difference(np, pred, prompts[i],
+                                           list(s.tokens), base_tokens[i])
+            diffs.append({"request": i, "index": k, "top2_gap": gap,
+                          "max_abs_logit": top})
+            require(gap <= 1e-3 * top,
+                    f"{what}: request {i} leaves the spec-off tokens at "
+                    f"token {k}, where the top-2 gap {gap:.3e} is past "
+                    f"1e-3 of max|logit| {top:.3e}")
+        perf.update(identical_to_spec_off=sum(same), differences=diffs)
+        log(f"  {what}: {sum(same)} of {len(same)} streams identical to the "
+            f"spec-off run; first differences {diffs}")
+        if name == "replica":
+            perf["graph_vs_eager"] = check_graph_vs_eager(
+                torch, np, eng, prompts, what=what)
+        else:
+            eng.close()
+        out[name] = perf
+        del eng, draft
+        torch.cuda.empty_cache()
+    return paths, out
+
+
+def radix_prompts(np, seed, vocab):
+    """A 512-token shared prefix, then 16 prompts of it plus distinct
+    8..64-token suffixes."""
+    rng = np.random.RandomState(seed + 7)
+    prefix = rng.randint(0, vocab, size=RADIX_PREFIX).astype(np.int64)
+    suffixes = rng.randint(8, 65, size=16)
+    return prefix, [np.concatenate([prefix, rng.randint(
+        0, vocab, size=n).astype(np.int64)]) for n in suffixes]
+
+
+def serve_radix(torch, np, seed, card, out_dir):
+    """Phase a, radix: a seed request publishes the shared prefix, then
+    16 requests over it are served warm (``prefix_cache=True``) and cold,
+    over float32 and int8 KV pages."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.generation import GenerationEngine
+
+    cfg, pred = gpt3_predictor(torch, seed)
+    prefix, prompts = radix_prompts(np, seed, cfg.vocab_size)
+    lengths = [len(p) for p in prompts]
+    max_new, L = 32, cfg.num_layers
+    paths, out = {}, {}
+    for kv in ("float32", "int8"):
+        toks = {}
+        for warm in (True, False):
+            what = f"phase a radix {kv} {'warm' if warm else 'cold'}"
+            eng = GenerationEngine(pred, cfg, kv_dtype=kv, prefix_cache=warm,
+                                   warmup=True)
+            seed_toks = eng.generate(prefix, max_new_tokens=max_new,
+                                     timeout=600)
+            before = eng.stats()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            submitted = {}
+            streams, wall = run_clients(eng, prompts, max_new,
+                                        submitted=submitted)
+            counts = K.launch_counts()
+            paths[f"radix_{kv}_{'warm' if warm else 'cold'}"] = counts
+            st = eng.stats()
+            perf = serving_perf(torch, st, streams, wall, lengths, card,
+                                what=f"served ({what})")
+            check_streams(streams, max_new)
+            steps = st["ragged_steps_total"] - before["ragged_steps_total"]
+            attn = ("ragged_paged_attention_q" if kv == "int8"
+                    else "ragged_paged_attention")
+            require(counts[attn] == L * steps
+                    and counts["layer_norm"] == (2 * L + 1) * steps,
+                    f"{what}: {steps} steps launched {counts}")
+            require(st["graph_replays"] == st["ragged_steps_total"],
+                    f"{what}: {st['graph_replays']} replays for "
+                    f"{st['ragged_steps_total']} steps")
+            r = st["radix"]
+            hit = r["prefix_hit_tokens_total"]
+            if warm:
+                require(hit >= 15 * RADIX_PREFIX,
+                        f"{what}: {hit} prefix hit tokens < 15 x "
+                        f"{RADIX_PREFIX}")
+            eng.cache.check_integrity()
+            # the peak shared / private pages, read by a sampler that
+            # takes the cache lock: in a second serve of the same traffic
+            # after the timed one, so that it costs the timed run nothing
+            eng.cache.drop_trie()
+            eng.generate(prefix, max_new_tokens=max_new, timeout=600)
+            peak = {"shared_pages": 0, "private_pages": 0}
+            stop = threading.Event()
+
+            def sample():
+                while not stop.is_set():
+                    rs = eng.cache.radix_stats()
+                    for key in peak:
+                        peak[key] = max(peak[key], rs[key])
+                    time.sleep(0.002)
+
+            sampler = threading.Thread(target=sample, daemon=True)
+            sampler.start()
+            again, _ = run_clients(eng, prompts, max_new)
+            stop.set()
+            sampler.join()
+            require([list(s.tokens) for s in again]
+                    == [list(s.tokens) for s in streams],
+                    f"{what}: a second serve of the same requests gave "
+                    "other tokens")
+            eng.cache.check_integrity()
+            eng.close()
+            eng.cache.check_integrity()
+            eng.cache.drop_trie()
+            eng.cache.check_integrity()
+            in_use = eng.stats()["cache"]["pages_in_use"]
+            require(in_use == 0, f"{what}: {in_use} pages in use after "
+                    "drop_trie")
+            # each request's TTFT from its own submit (the engine's
+            # histogram holds the seed request too); the first wave is
+            # the first 8 submitted (one a lane)
+            ttft = {i: (s.first_token_at - submitted[i]) * 1e3
+                    for i, s in enumerate(streams)}
+            wave = sorted(submitted, key=submitted.get)[:eng.lanes]
+            perf.update(ttft_ms_requests_p50=statistics.median(
+                            ttft.values()),
+                        ttft_ms_first_wave_p50=statistics.median(
+                            ttft[i] for i in wave),
+                        prefix_hit_rate=r["prefix_hit_rate"],
+                        prefix_hit_tokens=hit,
+                        prefill_tokens=st["prefill_tokens_total"],
+                        peak_shared_pages=peak["shared_pages"],
+                        peak_private_pages=peak["private_pages"],
+                        trie_pages=r["trie_pages"])
+            log(f"  {what}: TTFT of the 16 requests p50 "
+                f"{perf['ttft_ms_requests_p50']:.3f} ms, of the first "
+                f"{eng.lanes} submitted (one a lane) p50 "
+                f"{perf['ttft_ms_first_wave_p50']:.3f} ms [{card}]")
+            log(f"  {what}: prefix_hit_rate {r['prefix_hit_rate']} ({hit} "
+                f"hit tokens, {st['prefill_tokens_total']} prefilled), peak "
+                f"shared {peak['shared_pages']} / private "
+                f"{peak['private_pages']} pages (in an untimed second "
+                f"serve), trie {r['trie_pages']} "
+                f"pages; check_integrity holds, 0 pages in use after "
+                f"drop_trie [{card}]")
+            if kv == "float32" and warm:
+                oracle(np, pred, prompts, streams)
+            toks[warm] = [seed_toks] + [list(s.tokens) for s in streams]
+            out[f"{kv}_{'warm' if warm else 'cold'}"] = perf
+            del eng
+            torch.cuda.empty_cache()
+        require(toks[True] == toks[False],
+                f"phase a radix {kv}: warm tokens differ from cold ones in "
+                f"{sum(a != b for a, b in zip(toks[True], toks[False]))} "
+                "streams")
+        w, c = out[kv + "_warm"], out[kv + "_cold"]
+        log(f"  phase a radix {kv}: warm tokens equal cold ones in all "
+            f"{len(toks[True])} streams; TTFT p50 warm "
+            f"{w['ttft_ms_requests_p50']:.3f} ms against cold "
+            f"{c['ttft_ms_requests_p50']:.3f} ms (first wave "
+            f"{w['ttft_ms_first_wave_p50']:.3f} against "
+            f"{c['ttft_ms_first_wave_p50']:.3f}), tokens/s "
+            f"{w['tokens_per_s']:.2f} against {c['tokens_per_s']:.2f} "
+            f"[{card}]")
+    return paths, out
+
+
 # -- main ---------------------------------------------------------------------------
 
 
@@ -2994,6 +3319,18 @@ def main(argv=None) -> int:
             torch, np, args.seed, card, args.out, profile=args.profile,
             fp32=record.get("resnet"))
         torch.cuda.empty_cache()
+    if "a" in args.phases:
+        log("phase a: gpt3_1p3b served with speculative decoding")
+        spaths, record["spec"] = serve_spec(
+            torch, np, args.seed, card, args.out,
+            record.get("serve", {}).get("tokens"))
+        paths.update(spaths)
+        torch.cuda.empty_cache()
+        log("phase a: gpt3_1p3b served over the radix prefix cache")
+        rpaths, record["radix"] = serve_radix(torch, np, args.seed, card,
+                                              args.out)
+        paths.update(rpaths)
+        torch.cuda.empty_cache()
     launches = {name: {p: c[name] for p, c in paths.items()}
                 for name in K.KERNELS}
     record["launches"] = launches
@@ -3001,7 +3338,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8 and 9)")
+        "3b, 4, 6, 7, 8, 9 and a)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"

@@ -12,7 +12,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["concrete_device", "resolve_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -26,4 +26,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "device='cpu' to run the plain PyTorch path on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev!s}: use 'cuda' or 'cpu'")
+    return dev
+
+
+def concrete_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` with its index, as a tensor's ``.device`` gives it:
+    ``"cuda"`` names the current card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

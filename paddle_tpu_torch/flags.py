@@ -1,7 +1,8 @@
 """The flags the port reads, with the JAX package's names and API.
 
 A copy of the matching entries of ``paddle_tpu/flags.py`` (the
-generation, quantize and adapter defaults of :60-147) and of its
+generation, quantize and adapter defaults of :60-147, spec and radix
+ones included) and of its
 ``get_flags`` / ``set_flags`` / ``flag`` (:368-395). Only what the
 ported slices read is here; the reference's env overrides, autotune
 profiles and live-flag generations come with the host tiers.
@@ -33,6 +34,27 @@ DEFAULTS = {
     "generation_engine_mode": "ragged",
     "generation_chunk_tokens": 16,
     "generation_prefill_buckets": "16,32,64,128,256,512",
+    # generation_spec_tokens > 0 turns on speculative decoding: a draft
+    # model (GenerationEngine(draft=...)) proposes up to k tokens per
+    # sequence per step and the target verifies them in the same ragged
+    # step, greedy-identical by construction
+    "generation_spec_tokens": 0,
+    # radix prefix cache (generation/kvcache.py trie, ragged only):
+    # generation_prefix_cache publishes every full KV page into a
+    # refcounted prefix trie and admits new prompts ONTO their matched
+    # prefix pages (copy-on-write sharing: a warm shared prompt
+    # prefills once and occupies one set of pages).
+    # generation_prefix_min_pages is the match granularity floor
+    # (matches shorter than this many full pages are ignored);
+    # generation_trie_max_pages caps trie-resident pages (0 =
+    # unlimited; the pool itself still reclaims trie leaves LRU-first
+    # under pressure); generation_trie_tenant_quota caps trie-resident
+    # pages PER TENANT (submit(tenant=) attributes publishes): a tenant
+    # at quota recycles its OWN LRU leaves (0 = no per-tenant cap)
+    "generation_prefix_cache": False,
+    "generation_prefix_min_pages": 1,
+    "generation_trie_max_pages": 0,
+    "generation_trie_tenant_quota": 0,
     # "float32" or "int8": int8 KV pages with one float32 scale per
     # (kv head, token slot), about 3.9x the tokens a pool byte budget
     # holds at head_dim 128 (the ragged engine's K2q path)

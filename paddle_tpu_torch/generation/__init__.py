@@ -1,7 +1,9 @@
 """Generation: the continuous-batching engine over a paged KV cache
 (counterpart of ``paddle_tpu.generation``), in ragged mode (the
-default) and two_lane mode."""
+default, with speculative decoding and the radix prefix cache) and
+two_lane mode."""
 
+from .draft import DraftModel, HostDraft
 from .engine import GenerationEngine, GenerationMetrics, GenerationStream
 from .kvcache import PagedKVCache, PagePoolExhausted
 from .model import (CacheGeometry, DecodeStepModel, GPTConfig, GPTLM,
@@ -10,4 +12,4 @@ from .model import (CacheGeometry, DecodeStepModel, GPTConfig, GPTLM,
 __all__ = ["GenerationEngine", "GenerationStream", "GenerationMetrics",
            "PagedKVCache", "PagePoolExhausted", "CacheGeometry", "GPTConfig",
            "GPTLM", "RaggedStepModel", "PrefillStepModel", "DecodeStepModel",
-           "load_jax_params"]
+           "load_jax_params", "DraftModel", "HostDraft"]

@@ -4,8 +4,9 @@
 * ``mode="ragged"`` (the default, the ``generation_engine_mode`` flag):
   every step runs ONE [lanes, chunk] mixed batch (``RaggedStepModel``)
   in which each row is whatever its sequence needs: a prefill chunk,
-  one decode token, or nothing (an idle lane). Prompts longer than
-  ``chunk_tokens`` prefill in chunks across steps.
+  one decode token, a decode token plus k speculative draft tokens, or
+  nothing (an idle lane). Prompts longer than ``chunk_tokens`` prefill
+  in chunks across steps.
 * ``mode="two_lane"``: the JAX package's token-identity oracle of the
   ragged engine (its :41-46). Admitted prompts prefill in one call per
   sequence bucket (``PrefillStepModel``): the prompt length rounds up
@@ -20,6 +21,28 @@
   would be pure device work. int8 KV pages, speculative decoding, the
   prefix cache and adapters stay ragged-only (the JAX package's
   ``ValueError``s); quantized weights apply to the shared modules.
+
+Speculative decoding (``spec_tokens`` + a ``draft``, the JAX engine's
+:392-406, :1211-1290, :1392-1417): each step one batched
+``draft.propose`` covers every decoding row (the full spec window,
+trimmed per row by ``_spec_budget``); a row ``[pending] + drafts`` at
+positions ``L0...`` is verified in the same ragged step (the target's
+argmax at chunk position j IS the greedy token after position L0 + j),
+and the accepted prefix plus one correction token emit together, so the
+stream is greedy-identical whatever the draft proposed. A draft that
+raises sends no drafts that step. The draft runs eagerly outside the
+step's CUDA graph; the step is the same graph whether spec is on or off.
+A draft with a ``device`` other than the engine's is refused.
+
+The radix prefix cache (``prefix_cache``, :432-458, :960-968,
+:1385-1417, :1558-1574 there): admission attaches a prompt's matched
+prefix pages by reference (``PagedKVCache.acquire``) and chunked
+prefill starts at the fork point; full pages publish into the trie
+after every prefill chunk and every decode / verify step and at
+retirement, attributed to ``submit(tenant=)``. The trie keys a page by
+its tokens alone, so the port refuses ``prefix_cache`` together with an
+adapter store, where the JAX engine would attach one adapter's K/V to
+another adapter's row.
 
 K/V lives in a paged pool (``PagedKVCache``) written in place by the
 steps. The fixed-shape step of each mode (the ragged step; the two_lane
@@ -59,9 +82,8 @@ Quantized, multi-adapter serving (the JAX engine's :407-420, :493-567):
   next step, never the batch.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item when asked for: speculative decoding (``draft`` /
-``spec_tokens``, A3), ``prefix_cache`` (A4), ``page_store`` (A9) and
-``swap_base`` (A6).
+ROADMAP item when asked for: ``page_store`` (A9) and ``swap_base``
+(A6).
 """
 
 from __future__ import annotations
@@ -75,6 +97,7 @@ import numpy as np
 import torch
 
 from ..adapters import AdapterMissing, AdapterStore, rewrite_for_lora
+from ..device import concrete_device
 from ..flags import flag
 from ..kernels.ragged_paged_attention import MAX_CHUNK
 from ..quantize import rewrite_for_inference
@@ -92,8 +115,6 @@ _DONE = object()  # stream sentinel
 
 # ctor options of the JAX engine this slice lacks -> their ROADMAP item
 _NOT_PORTED = {
-    "draft/spec_tokens": "A3 (speculative decoding)",
-    "prefix_cache": "A4 (radix prefix cache)",
     "page_store": "A9 (host tiers: disaggregated page store)",
 }
 
@@ -110,17 +131,29 @@ class GenerationStream:
     ``finish_reason`` in {"eos", "length", "deadline", "cancelled",
     "closed", "capacity", "error"} is set by the time iteration ends."""
 
-    def __init__(self, engine: "GenerationEngine"):
+    def __init__(self, engine: "GenerationEngine", on_token=None):
         self._engine = engine
         self._q: "collections.deque" = collections.deque()
         self._cond = threading.Condition()
         self._done = threading.Event()
+        self._on_token = on_token
         self._tokens: List[int] = []
         self.finish_reason: Optional[str] = None
         self.error: Optional[BaseException] = None
         self._cancelled = False
         self.first_token_at: Optional[float] = None
         self._callbacks: List = []
+        # speculative-decoding accounting: every emitted token is
+        # verified by the target; accepted_draft_tokens counts those the
+        # draft proposed (0 with speculation off)
+        self.verified_tokens = 0
+        self.accepted_draft_tokens = 0
+
+    def usage(self) -> Dict[str, int]:
+        """The response's ``usage`` fragment."""
+        return {"completion_tokens": len(self._tokens),
+                "verified_tokens": int(self.verified_tokens),
+                "accepted_draft_tokens": int(self.accepted_draft_tokens)}
 
     # -- engine side ---------------------------------------------------------
     def _push(self, token: int) -> None:
@@ -130,6 +163,11 @@ class GenerationStream:
         with self._cond:
             self._q.append(int(token))
             self._cond.notify_all()
+        if self._on_token is not None:
+            try:
+                self._on_token(int(token))
+            except Exception:  # noqa: BLE001 — a bad callback is the caller's bug
+                pass
 
     def _finish(self, reason: str, error: Optional[BaseException] = None):
         if self._done.is_set():
@@ -202,10 +240,11 @@ class GenerationStream:
 class _GenRequest:
     __slots__ = ("prompt", "orig_prompt", "max_new", "eos_id", "deadline",
                  "stream", "enqueue_t", "slot", "pending", "n_generated",
-                 "admit_seq", "last_tok_t", "prefill_off", "adapter")
+                 "admit_seq", "last_tok_t", "prefill_off", "drafts",
+                 "tenant", "adapter")
 
     def __init__(self, prompt, max_new, eos_id, deadline, stream,
-                 adapter=None):
+                 adapter=None, tenant=None):
         self.prompt = prompt            # context to prefill (grows on resume)
         self.orig_prompt = prompt       # the caller's prompt, immutable
         self.max_new = max_new
@@ -219,6 +258,8 @@ class _GenRequest:
         self.admit_seq = 0                   # admission order (evict victim)
         self.last_tok_t: Optional[float] = None
         self.prefill_off = 0            # prompt tokens already written
+        self.drafts = None              # this step's speculative proposals
+        self.tenant = tenant            # identity trie publishes count to
         self.adapter = adapter          # resident LoRA adapter id, or None
 
 
@@ -232,7 +273,10 @@ class GenerationMetrics:
                  "decode_tokens_total", "prefill_rows_total",
                  "decode_active_lane_steps_total",
                  "decode_capacity_lane_steps_total", "ragged_steps_total",
-                 "prefill_chunks_total")
+                 "prefill_chunks_total",
+                 # speculative decoding
+                 "spec_rounds_total", "spec_proposed_total",
+                 "spec_accepted_total")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -288,6 +332,16 @@ class GenerationMetrics:
             out["decode_tokens_per_s"] = (
                 round(self._c["decode_tokens_total"] / self._decode_wall_s, 2)
                 if self._decode_wall_s > 0 else 0.0)
+            # speculative decoding as ratios: draft acceptance, and
+            # accepted draft tokens a spec round
+            prop = self._c["spec_proposed_total"]
+            out["spec_acceptance_rate"] = (
+                round(self._c["spec_accepted_total"] / prop, 4)
+                if prop else 0.0)
+            rounds = self._c["spec_rounds_total"]
+            out["spec_accepted_tokens_per_step"] = (
+                round(self._c["spec_accepted_total"] / rounds, 4)
+                if rounds else 0.0)
             return out
 
 
@@ -330,25 +384,30 @@ class GenerationEngine:
         if self.kv_dtype not in ("float32", "int8"):
             raise ValueError(f"kv_dtype must be 'float32' (the model's "
                              f"dtype) or 'int8'; got {self.kv_dtype!r}")
+        # speculative decoding and the radix cache: parameter > flag; no
+        # draft, no speculation (the JAX engine's :392-396, :432-434)
+        self.spec_tokens = int(spec_tokens if spec_tokens is not None
+                               else flag("generation_spec_tokens"))
+        self._draft = draft
+        if draft is None:
+            self.spec_tokens = 0
+        self.prefix_cache = bool(prefix_cache if prefix_cache is not None
+                                 else flag("generation_prefix_cache"))
         # the JAX engine's ragged-only options (its :421-437, :558-561)
         if mode != "ragged":
             if self.kv_dtype == "int8":
                 raise ValueError("int8 KV pages require the ragged engine "
                                  "(generation_engine_mode='ragged')")
-            if draft is not None and spec_tokens:
+            if self.spec_tokens:
                 raise ValueError("speculative decoding requires the ragged "
                                  "engine (generation_engine_mode='ragged')")
-            if prefix_cache:
+            if self.prefix_cache:
                 raise ValueError("prefix caching requires the ragged engine "
                                  "(generation_engine_mode='ragged')")
             if adapter_store is not None:
                 raise ValueError(
                     "adapter multiplexing requires the ragged engine "
                     "(generation_engine_mode='ragged')")
-        if draft is not None or spec_tokens:
-            _not_ported("draft/spec_tokens")
-        if prefix_cache:
-            _not_ported("prefix_cache")
         if page_store is not None:
             _not_ported("page_store")
         self.quantize_weights = str(
@@ -376,8 +435,25 @@ class GenerationEngine:
                                   or flag("generation_queue_capacity"))
         self.default_max_new = int(flag("generation_max_new_tokens"))
         self.default_eos = eos_id
+        draft_dev = getattr(self._draft, "device", None)
+        if draft_dev is not None and (
+                torch.device(draft_dev).type != self.device.type
+                or concrete_device(draft_dev) != self.device):
+            # the draft's forward would run where its weights lie, not
+            # beside the engine's step
+            raise ValueError(f"the draft is on {draft_dev}, the engine on "
+                             f"{self.device}: build it on the engine's "
+                             "device (HostDraft.from_predictor does)")
+        if self._draft is not None and hasattr(self._draft, "min_rows"):
+            # pin the draft's row bucket to the lane count: one row shape
+            # for the engine's life
+            self._draft.min_rows = max(int(self._draft.min_rows or 1),
+                                       self.lanes)
+        # a speculative row is [pending + k drafts] wide: the chunk holds
+        # it
         self.chunk_tokens = max(2, int(chunk_tokens
-                                       or flag("generation_chunk_tokens")))
+                                       or flag("generation_chunk_tokens")),
+                                self.spec_tokens + 1)
         if (mode == "ragged" and self.device.type == "cuda"
                 and self.chunk_tokens > MAX_CHUNK):
             raise ValueError(f"chunk_tokens {self.chunk_tokens} exceeds the "
@@ -400,7 +476,11 @@ class GenerationEngine:
             num_pages=self.num_pages, page_size=self.page_size,
             max_seqs=self.lanes, max_pages_per_seq=maxp,
             device=self.device,
-            dtype="int8" if self.kv_dtype == "int8" else lm.dtype)
+            dtype="int8" if self.kv_dtype == "int8" else lm.dtype,
+            prefix_cache=self.prefix_cache,
+            prefix_min_pages=int(flag("generation_prefix_min_pages")),
+            trie_max_pages=int(flag("generation_trie_max_pages")),
+            tenant_quota_pages=int(flag("generation_trie_tenant_quota")))
         self.metrics = GenerationMetrics()
         # ragged: THE step, one mixed prefill+decode model for the
         # engine's life; two_lane: the prefill and decode lanes. All
@@ -440,6 +520,13 @@ class GenerationEngine:
                 slots_per_bucket=(int(flag("adapter_slots_per_bucket"))
                                   or None),
                 tenant_quota=int(flag("adapter_tenant_quota")))
+        if self.adapter_store is not None and self.prefix_cache:
+            # the trie keys a page by its tokens alone, and an adapter's
+            # delta on qkv changes the page's K/V: a row would attend
+            # over K/V that another adapter (or the base) wrote
+            raise ValueError("prefix_cache cannot be combined with an "
+                             "adapter store: the prefix trie is not keyed "
+                             "by adapter")
         if self.adapter_store is not None:
             self.adapter_store.attach(self.device)
             self.lora_report = rewrite_for_lora(self._step_model,
@@ -534,6 +621,10 @@ class GenerationEngine:
     def __exit__(self, *exc):
         self.close(drain=exc[0] is None)
 
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
     def _kick(self):
         with self._cond:
             self._cond.notify_all()
@@ -542,11 +633,15 @@ class GenerationEngine:
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                eos_id: Optional[int] = "default",  # type: ignore[assignment]
                deadline_ms: Optional[float] = None,
+               on_token=None, tenant: Optional[str] = None,
                adapter: Optional[str] = None) -> GenerationStream:
         """Admit one prompt (1-D int sequence). Raises ``Overloaded``
         when the admission queue is full OR when the prompt + budget
         could never fit the page pool, both before any prefill work;
-        raises ``EngineClosed`` after close(). ``adapter`` names a
+        raises ``EngineClosed`` after close(). ``on_token(token)`` is
+        called on the loop thread with every token as it is emitted.
+        ``tenant`` is the identity the request's trie publishes are
+        attributed to (the per-tenant quota's unit). ``adapter`` names a
         resident LoRA adapter every row of this request decodes through
         (``AdapterMissing`` before any queueing when it is not); it is
         pinned until the request's terminal state."""
@@ -580,11 +675,12 @@ class GenerationEngine:
             # pinned BEFORE queueing; released once, at the stream's
             # terminal state (every retirement goes through _finish)
             self.adapter_store.acquire(adapter)
-        stream = GenerationStream(self)
+        stream = GenerationStream(self, on_token=on_token)
         if adapter is not None:
             stream.add_done_callback(
                 lambda _s, _a=adapter: self.adapter_store.release(_a))
-        req = _GenRequest(prompt, max_new, eos, deadline, stream, adapter)
+        req = _GenRequest(prompt, max_new, eos, deadline, stream, adapter,
+                          tenant)
         try:
             with self._cond:
                 if self._closed:
@@ -614,6 +710,22 @@ class GenerationEngine:
                            adapter=adapter).result(timeout)
 
     # -- introspection -------------------------------------------------------
+    def queue_depth(self) -> int:
+        """Requests admitted but not yet prefilled. Lockless on purpose,
+        as in the JAX engine: a caller may hold its own lock while this
+        engine runs stream callbacks under ``self._cond``; ``len`` of a
+        deque is atomic under the GIL."""
+        return len(self._queue)
+
+    def prefix_probe(self, tokens) -> int:
+        """The matched-prefix token count this prompt would get now (a
+        pure trie peek: no refcount, no LRU touch); 0 with the radix
+        cache off."""
+        if not self.prefix_cache:
+            return 0
+        return int(self.cache.match_len(
+            np.asarray(tokens, dtype=np.int64).reshape(-1)))
+
     def stats(self) -> Dict[str, Any]:
         """The engine's counters and histograms, the cache's and the
         store's, and its bound step's: ``bound_step_runs`` (one an
@@ -627,9 +739,14 @@ class GenerationEngine:
                    graph_replays=bound.replays,
                    graph_launches=dict(bound.launches))
         out["cache"] = self.cache.stats()
+        out["radix"] = self.cache.radix_stats()
         if self.adapter_store is not None:
             out["adapters"] = self.adapter_store.stats_numeric()
         return out
+
+    def stats_numeric(self) -> Dict[str, Any]:
+        """The metrics collector's view: ``stats()``."""
+        return self.stats()
 
     def models_fragment(self) -> Dict[str, Any]:
         """What a router places requests by: the base model's
@@ -713,12 +830,21 @@ class GenerationEngine:
                         f"deadline passed after "
                         f"{(now - req.enqueue_t) * 1e3:.1f}ms in queue"))
                     continue
+                # acquire takes the slot and pages at once, so these
+                # checks see earlier admissions. Only this loop thread
+                # changes the trie, so acquire matches what match_len
+                # saw; a match is page-aligned, so the suffix needs the
+                # total pages less the matched ones
+                matched = (self.cache.match_len(req.prompt)
+                           if self.prefix_cache else 0)
                 if (self.cache.free_slots() <= 0
-                        or not self.cache.can_allocate(int(req.prompt.size))):
+                        or not self.cache.can_acquire(
+                            int(req.prompt.size) - matched,
+                            prompt=req.prompt)):
                     break
                 admitted.append(self._queue.popleft())
-                req.slot = self.cache.allocate_slot(int(req.prompt.size))
-                req.prefill_off = 0
+                # prefill starts at the fork point of a matched prefix
+                req.slot, req.prefill_off = self.cache.acquire(req.prompt)
                 if req.admit_seq == 0:
                     # first admission only: a resumed request keeps its
                     # seniority, or it would be the next eviction victim
@@ -831,9 +957,12 @@ class GenerationEngine:
     # -- ragged ---------------------------------------------------------------
     def _admit_ragged(self):
         """An admitted request takes a lane + pages for its whole prompt
-        and starts chunked prefill on the next step."""
+        and starts chunked prefill on the next step, at the trie's fork
+        point when the radix cache matched a prefix (``acquire`` set
+        ``prefill_off`` and the cache length to the matched run)."""
         for req in self._pop_admissible():
             req.pending = None
+            req.drafts = None
             self._by_slot[req.slot] = req
 
     def _retire_dead_rows(self, now: float) -> None:
@@ -877,32 +1006,60 @@ class GenerationEngine:
         del self._by_slot[vslot]
         self.cache.evict(vslot)
         self.metrics.inc("evicted_total")
-        victim.prompt = np.concatenate(
-            [victim.orig_prompt,
-             np.asarray(victim.stream._tokens, np.int64)])
+        victim.prompt = self._context(victim)
         victim.slot = None
         victim.pending = None
         victim.prefill_off = 0
+        victim.drafts = None
         with self._cond:
             self._queue.appendleft(victim)
             self._cond.notify_all()
         return True
 
+    def _spec_budget(self, slot: int, req: _GenRequest) -> int:
+        """Draft tokens this row could verify this step: bounded by the
+        spec window, the chunk, the request's remaining tokens and the
+        position window."""
+        if self._draft is None or self.spec_tokens <= 0:
+            return 0
+        L = int(self.cache.lengths[slot])
+        return max(0, min(self.spec_tokens,
+                          self.chunk_tokens - 1,
+                          req.max_new - req.n_generated - 1,
+                          self.config.max_position - L - 2))
+
+    def _context(self, req: _GenRequest) -> np.ndarray:
+        """The caller's prompt and every token emitted so far."""
+        return np.concatenate([req.orig_prompt,
+                               np.asarray(req.stream._tokens, np.int64)])
+
     def _ragged_step(self):
-        """ONE mixed step: every active lane contributes a prefill chunk
-        or a decode token, and the whole batch attends raggedly over the
-        shared page pool."""
+        """ONE mixed step: every active lane contributes a prefill chunk,
+        a decode token, or a decode token plus speculative drafts, and
+        the whole batch attends raggedly over the shared page pool."""
         R, C = self.lanes, self.chunk_tokens
         now = time.monotonic()
         self._retire_dead_rows(now)
-        # page growth for decode rows; prefill rows were fully reserved
-        # at admission. A dry pool evicts (youngest first), then
-        # finishes the stuck row early.
+        # page growth for decode rows (and the speculative window);
+        # prefill rows were fully reserved at admission. A dry pool first
+        # degrades speculation to plain decode, then evicts (youngest
+        # first), then finishes the stuck row early.
+        spec_rows: List = []
         for slot, req in list(self._by_slot.items()):
             if slot not in self._by_slot:
                 continue
             if req.prefill_off < int(req.prompt.size):
                 continue
+            req.drafts = None
+            k = self._spec_budget(slot, req)
+            if k > 0:
+                try:
+                    self.cache.ensure_capacity(
+                        slot, int(self.cache.lengths[slot]) + 1 + k)
+                    spec_rows.append((slot, req, k))
+                    continue
+                except PagePoolExhausted:
+                    pass
             self._grow_or_evict(slot)
         if not self._by_slot:
             return
@@ -918,6 +1075,20 @@ class GenerationEngine:
                     self._retire(slot, "error", ServingError(str(e)))
             if not self._by_slot:
                 return
+        # ONE propose() covers every speculative row, always for the full
+        # spec window, trimmed per row
+        spec_rows = [(s, r, k) for s, r, k in spec_rows if s in self._by_slot]
+        if spec_rows:
+            ctxs = [self._context(r) for _, r, _ in spec_rows]
+            try:
+                props = self._draft.propose(ctxs, self.spec_tokens)
+            except Exception:  # noqa: BLE001 — a broken draft must never kill decode
+                props = [np.zeros(0, np.int64)] * len(spec_rows)
+            self.metrics.inc("spec_rounds_total")
+            for (slot, req, k), dr in zip(spec_rows, props):
+                dr = np.asarray(dr, np.int64).reshape(-1)[:k]
+                req.drafts = dr
+                self.metrics.inc("spec_proposed_total", int(dr.size))
         tokens = np.zeros((R, C), np.int64)
         pos_ids = np.zeros((R, C), np.int64)
         positions = np.zeros(R, np.int32)
@@ -931,11 +1102,17 @@ class GenerationEngine:
                 positions[slot] = off
                 num_valid[slot] = c
             else:
+                # a decode row, or a verify row [pending] + drafts from
+                # the sequence's length on
+                dr = (req.drafts if req.drafts is not None
+                      else np.zeros(0, np.int64))
+                row = np.concatenate([np.asarray([req.pending], np.int64),
+                                      dr])
                 L0 = int(self.cache.lengths[slot])
-                tokens[slot, 0] = req.pending
-                pos_ids[slot, 0] = L0
+                tokens[slot, :row.size] = row
+                pos_ids[slot, :row.size] = np.arange(L0, L0 + row.size)
                 positions[slot] = L0
-                num_valid[slot] = 1
+                num_valid[slot] = row.size
         aslots = None
         if self.adapter_store is not None:
             # per-row adapter slots, fed like a block table: zeros (the
@@ -968,20 +1145,41 @@ class GenerationEngine:
                 continue
             if req.prefill_off < int(req.prompt.size):
                 # a prefill chunk: its K/V is cached now; the FINAL chunk
-                # also samples the first token (TTFT)
+                # also samples the first token (TTFT). Publish BEFORE
+                # _emit: a request that retires on its first token still
+                # leaves its prompt pages to the siblings behind it
                 self.cache.advance(slot, nv)
                 req.prefill_off += nv
                 self.metrics.inc("prefill_chunks_total")
                 self.metrics.inc("prefill_tokens_total", nv)
+                if self.prefix_cache:
+                    self.cache.publish(slot, req.prompt, tenant=req.tenant)
                 if req.prefill_off >= int(req.prompt.size):
                     self.metrics.inc("prefill_batches_total")
                     self._emit(req, int(next_all[slot, nv - 1]), now)
                     emitted += 1
             else:
-                # decode: the pending token's K/V is cached now
-                self.cache.advance(slot)
-                self._emit(req, int(next_all[slot, 0]), now)
-                emitted += 1
+                # decode / verify: next_all[slot, j] IS the greedy token
+                # after position L0 + j, so draft j is accepted iff it
+                # equals the target's token at its own offset
+                dr = req.drafts if req.drafts is not None else ()
+                for j in range(nv):
+                    if j > 0:
+                        if int(dr[j - 1]) != int(next_all[slot, j - 1]):
+                            break       # rejected: the tail is dead
+                        self.metrics.inc("spec_accepted_total")
+                        req.stream.accepted_draft_tokens += 1
+                    self.cache.advance(slot)
+                    emitted += 1
+                    self._emit(req, int(next_all[slot, j]), now)
+                    if slot not in self._by_slot:
+                        break           # retired (eos/length/deadline)
+                if self.prefix_cache and slot in self._by_slot:
+                    # decode-made full pages join the trie too: only
+                    # positions < length publish, and rejected drafts
+                    # sit at positions >= length
+                    self.cache.publish(slot, self._context(req),
+                                       tenant=req.tenant)
         n_active = sum(1 for s, _ in active if num_valid[s] > 0)
         self.metrics.observe_decode_step((now - t0) * 1e3, n_active, R,
                                          tokens=emitted)
@@ -994,6 +1192,7 @@ class GenerationEngine:
         first = req.stream.first_token_at is None
         if req.last_tok_t is not None:
             self.metrics.observe("itl_ms", (now - req.last_tok_t) * 1e3)
+        req.stream.verified_tokens += 1
         req.stream._push(token)
         req.last_tok_t = now
         if first:
@@ -1014,6 +1213,12 @@ class GenerationEngine:
     def _retire(self, slot: int, reason: str,
                 error: Optional[BaseException] = None):
         req = self._by_slot.pop(slot, None)
+        if (self.prefix_cache and req is not None and error is None
+                and self.cache.is_active(slot)):
+            # the last publish before the pages go back: every full page
+            # below the length holds verified K/V whatever the finish
+            # reason; the refcounted release keeps trie-resident pages
+            self.cache.publish(slot, self._context(req), tenant=req.tenant)
         self.cache.release(slot)
         if req is not None:
             if error is None and reason in ("eos", "length", "capacity"):
@@ -1049,6 +1254,8 @@ class GenerationEngine:
             self.metrics = GenerationMetrics()
             self._bound_step.runs = 0
             return
+        if self.spec_tokens > 0 and hasattr(self._draft, "warmup"):
+            self._draft.warmup(self.spec_tokens)
         slot = self.cache.allocate_slot(2)
         req = _GenRequest(np.asarray([0, 0], np.int64), 2, None, None,
                           GenerationStream(self))
@@ -1067,5 +1274,8 @@ class GenerationEngine:
                 self.cache.release(slot)
         if req.stream.error is not None:
             raise req.stream.error
+        if self.prefix_cache:
+            # the warm-up's dummy prompt must not seed the trie
+            self.cache.drop_trie()
         self.metrics = GenerationMetrics()
         self._bound_step.runs = 0

@@ -262,18 +262,38 @@ def test_cancel_and_deadline_retire_requests(port_pred):
     assert eng.stats()["cache"]["pages_in_use"] == 0
 
 
-# kv_dtype="int8", quantize_weights, adapter_store and mode="two_lane"
-# are ported (see tests/test_torch_{int8_kv,quant,adapters,two_lane}.py);
-# with an option that is not, they are still refused
-@pytest.mark.parametrize("option", [
-    dict(spec_tokens=3, draft=object()), dict(prefix_cache=True),
-    dict(quantize_weights="int8", prefix_cache=True),
-    dict(page_store=object()),
-    dict(adapter_store=object(), page_store=object())])
-def test_options_not_ported_yet_are_refused(port_pred, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GenerationEngine(port_pred, port_pred.gpt_config, start=False,
-                         **option)
+# kv_dtype="int8", quantize_weights, adapter_store, mode="two_lane",
+# speculative decoding and the prefix cache are ported (see
+# tests/test_torch_{int8_kv,quant,adapters,two_lane,spec,radix}.py): the
+# first three cases construct as the JAX engine does; page_store (A9) is
+# still refused
+@pytest.mark.parametrize("option,ported", [
+    pytest.param(dict(spec_tokens=3, draft=object()), True, id="option0"),
+    pytest.param(dict(prefix_cache=True), True, id="option1"),
+    pytest.param(dict(quantize_weights="int8", prefix_cache=True), True,
+                 id="option2"),
+    pytest.param(dict(page_store=object()), False, id="option3"),
+    pytest.param(dict(adapter_store=object(), page_store=object()), False,
+                 id="option4")])
+def test_options_not_ported_yet_are_refused(lm_dir, port_pred, option,
+                                            ported):
+    if not ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            GenerationEngine(port_pred, port_pred.gpt_config, start=False,
+                             **option)
+        return
+    # a predictor of its own: quantize_weights rewrites the shared model
+    jax_pred = jax_create_predictor(JaxConfig(lm_dir))
+    pred = create_predictor(Config(lm_dir), device="cpu")
+    want = JaxEngine(jax_pred, CFG, start=False, **option)
+    eng = GenerationEngine(pred, pred.gpt_config, start=False, **option)
+    for attr in ("spec_tokens", "chunk_tokens", "prefix_cache",
+                 "quantize_weights"):
+        assert getattr(eng, attr) == getattr(want, attr), attr
+    assert eng.cache.prefix_cache == want.cache.prefix_cache
+    assert eng.stats()["radix"] == want.stats()["radix"]
+    want.close()
+    eng.close()
 
 
 # what the JAX engine does with these: two_lane constructs, and int8 KV

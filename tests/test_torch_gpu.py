@@ -12,6 +12,8 @@ inputs (float32 atol/rtol 2e-5, bfloat16 2e-2: summation order and the
 online softmax); the engine on CUDA against the same engine on the CPU.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1195,26 +1197,19 @@ def test_graphed_step_replays_equal_eager_steps(cuda, kind):
     eng, adapters = _graph_engine(kind)
     bound = eng._bound_step
     assert bound.graph is not None and bound.captures == 1
-    recorded = []
-    run = bound.run
-
-    def recording(**host):
-        recorded.append({n: np.array(a, copy=True) for n, a in host.items()})
-        return run(**host)
-
-    bound.run = recording
     rng = np.random.RandomState(4)
     K.reset_launch_counts()
-    streams = [eng.submit(rng.randint(1, GRAPH_CFG.vocab_size, n),
-                          max_new_tokens=m,
-                          adapter=None if adapters is None else adapters[i])
-               for i, (n, m) in enumerate(GRAPH_REQUESTS)]
-    assert [len(s.result(timeout=300)) for s in streams] == \
-        [m for _, m in GRAPH_REQUESTS]
-    counts = K.launch_counts()
-    st = eng.stats()
-    eng.close()
-    bound.run = run
+    with _recorded(bound) as recorded:
+        streams = [eng.submit(rng.randint(1, GRAPH_CFG.vocab_size, n),
+                              max_new_tokens=m,
+                              adapter=None if adapters is None
+                              else adapters[i])
+                   for i, (n, m) in enumerate(GRAPH_REQUESTS)]
+        assert [len(s.result(timeout=300)) for s in streams] == \
+            [m for _, m in GRAPH_REQUESTS]
+        counts = K.launch_counts()
+        st = eng.stats()
+        eng.close()
     steps = st["decode_steps_total"]
     assert st["graph_replays"] == st["bound_step_runs"] == steps \
         == len(recorded)
@@ -1233,6 +1228,31 @@ def test_graphed_step_replays_equal_eager_steps(cuda, kind):
     if kind == "two_lane":     # the eager prefill calls' layer norms
         want["layer_norm"] += (2 * L + 1) * st["prefill_batches_total"]
     assert {k: n for k, n in counts.items() if n} == want
+    _replays_equal_eager_steps(bound, recorded)
+
+
+@contextlib.contextmanager
+def _recorded(bound):
+    """The host feeds of every step the bound step runs meanwhile."""
+    recorded = []
+    run = bound.run
+
+    def recording(**host):
+        recorded.append({n: np.array(a, copy=True) for n, a in host.items()})
+        return run(**host)
+
+    bound.run = recording
+    try:
+        yield recorded
+    finally:
+        bound.run = run
+
+
+def _replays_equal_eager_steps(bound, recorded):
+    """Rows joined and left; then every recorded step, run again as the
+    graph's replay on the engine's pools and as the eager step on cloned
+    pools, gives the same tokens, pools (page 0 slot 0 left out) and
+    scale planes bit for bit."""
     live = [int((h["num_valid"] > 0).sum()) for h in recorded]
     assert any(b < a for a, b in zip(live, live[1:])), live
     for i, host in enumerate(recorded):
@@ -1245,6 +1265,94 @@ def test_graphed_step_replays_equal_eager_steps(cuda, kind):
         for k, tensors in bound.state.items():
             for layer, (a, b) in enumerate(zip(tensors or (), clone[k] or ())):
                 assert _same_except_junk(a, b), (i, k, layer)
+
+
+def test_graphed_spec_steps_replay_equal_eager_steps(cuda):
+    """Speculative decoding with a full-replica draft over pages of 4:
+    verify rows [pending] + 3 drafts start mid-page and cross into the
+    next page, rows join and leave, and each replayed step equals its
+    eager step bit for bit; the draft runs on the card, outside the
+    graph, and its drafts are accepted."""
+    from paddle_tpu_torch.generation import HostDraft
+
+    pred = create_predictor(
+        Config().set_params(GRAPH_CFG, _tiny_params(GRAPH_CFG)), "cuda")
+    draft = HostDraft.from_predictor(pred, GRAPH_CFG)
+    assert draft.device.type == "cuda"
+    eng = GenerationEngine(pred, GRAPH_CFG, page_size=4, num_pages=96,
+                           max_decode_batch=4, chunk_tokens=8, draft=draft,
+                           spec_tokens=3)
+    bound = eng._bound_step
+    rng = np.random.RandomState(6)
+    with _recorded(bound) as recorded:
+        streams = [eng.submit(rng.randint(1, GRAPH_CFG.vocab_size, n),
+                              max_new_tokens=m)
+                   for n, m in GRAPH_REQUESTS]
+        assert [len(s.result(timeout=300)) for s in streams] == \
+            [m for _, m in GRAPH_REQUESTS]
+        st = eng.stats()
+        eng.close()
+    assert st["graph_replays"] == st["bound_step_runs"] == len(recorded)
+    assert st["spec_accepted_total"] > 0
+    assert st["spec_acceptance_rate"] > 0.5
+    eng.cache.check_integrity()
+    # prefill chunks of 8 start on page boundaries: a wider row that
+    # starts mid-page is a verify row
+    crossing = sum(1 for h in recorded
+                   for nv, start in zip(h["num_valid"], h["positions"])
+                   if nv > 1 and start % 4 and start % 4 + nv > 4)
+    assert crossing, "no verify row started mid-page across a page boundary"
+    _replays_equal_eager_steps(bound, recorded)
+
+
+def test_engine_refuses_a_draft_off_its_device(cuda):
+    """A draft built from arrays with no device lands on the card; one
+    built on the CPU is refused by an engine on the card, whose step it
+    would otherwise feed from the host."""
+    from paddle_tpu_torch.generation import HostDraft
+
+    pred = create_predictor(
+        Config().set_params(GRAPH_CFG, _tiny_params(GRAPH_CFG)), "cuda")
+    arrays = {k: v.detach().cpu().numpy()
+              for k, v in pred.lm.jax_params().items()}
+    args = (arrays, GRAPH_CFG.num_layers, GRAPH_CFG.num_heads,
+            GRAPH_CFG.max_position)
+    assert HostDraft(*args).device == pred.lm.device
+    with pytest.raises(ValueError, match="the draft is on cpu"):
+        GenerationEngine(pred, GRAPH_CFG, draft=HostDraft(*args, device="cpu"),
+                         spec_tokens=3, start=False)
+
+
+def test_graphed_radix_steps_replay_equal_eager_steps(cuda):
+    """The radix cache on the card: requests over a shared 16-token
+    prefix attach its pages (rows attend over pages other rows and the
+    trie hold), each replayed step equals its eager step bit for bit,
+    and after the drain the audit holds and the pool empties."""
+    pred = create_predictor(
+        Config().set_params(GRAPH_CFG, _tiny_params(GRAPH_CFG)), "cuda")
+    eng = GenerationEngine(pred, GRAPH_CFG, page_size=4, num_pages=96,
+                           max_decode_batch=4, chunk_tokens=6,
+                           prefix_cache=True)
+    bound = eng._bound_step
+    rng = np.random.RandomState(8)
+    pre = rng.randint(1, GRAPH_CFG.vocab_size, 16)
+    prompts = [np.concatenate([pre, rng.randint(1, GRAPH_CFG.vocab_size, n)])
+               for n, _ in GRAPH_REQUESTS]
+    with _recorded(bound) as recorded:
+        first = eng.generate(prompts[0], max_new_tokens=GRAPH_REQUESTS[0][1])
+        streams = [eng.submit(p, max_new_tokens=m)
+                   for p, (_, m) in zip(prompts[1:], GRAPH_REQUESTS[1:])]
+        got = [first] + [s.result(timeout=300) for s in streams]
+        st = eng.stats()
+        eng.close()
+    assert [len(t) for t in got] == [m for _, m in GRAPH_REQUESTS]
+    assert st["radix"]["prefix_hits_total"] >= len(GRAPH_REQUESTS) - 1
+    assert st["graph_replays"] == len(recorded)
+    eng.cache.check_integrity()
+    eng.cache.drop_trie()
+    eng.cache.check_integrity()
+    assert eng.stats()["cache"]["pages_in_use"] == 0
+    _replays_equal_eager_steps(bound, recorded)
 
 
 def test_graph_capture_failure_raises(cuda, monkeypatch):
