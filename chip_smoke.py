@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile  # + device time by kernel group in
                                      #   phases 3, 3b, 4, 6, 7, 8 and 9
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789a), no result line
+                                        #   23456789ab), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -149,6 +149,38 @@ a. speculative decoding and the radix prefix cache: gpt3_1p3b with
    request's TTFT from its own submit (p50 of all and of the first 8
    submitted) and the peak shared and private pages, sampled in an
    untimed second serve of the same requests (same tokens required).
+b. saving and serving Programs over HTTP (``serving.ServingServer`` on
+   127.0.0.1, a free port). b1: ``build_resnet50(1000, 224)`` cloned for
+   test, saved by ``io.save_inference_model`` with its softmax as the
+   fetch, loaded by ``create_predictor`` with batch buckets 1..32 and
+   served by a ``ServingEngine`` (batches of up to 32 rows, 2 worker
+   clones): 64 seeded requests of 1-4 images from 8 client threads, over
+   ``/v1/predict`` (JSON nested lists) and in process; every request's
+   softmax within 1e-4 of its solo run on the card, two solo runs within
+   1e-4 of the CPU's; requests/s, images/s, client latency p50 / p99,
+   mean batch rows, padding waste and the bucket hits. b2:
+   ``build_lm_program(gpt3_1p3b, 128)`` at full depth, saved (5.3 GB of
+   npz), loaded and run as a Program on the card: 49 K1 launches a run,
+   logits within 1e-3 max|logit| of the predictor's module over the
+   same tensors; the same directory quantized at load (int8): 97 K11
+   launches a run, matmul bytes <= 0.30 of float32, logits held to the
+   quantized module likewise. b3: phase 3's engine (its weights and
+   geometry, graphed) behind ``/v1/generate``: phase 3's 16 prompts
+   streamed as NDJSON from 4 client threads, every stream's tokens
+   equal to the same engine's in process and to phase 3's, token for
+   token, the first line before the done line; ``stream=false``, a 400
+   and a 504 by deadline; tokens/s, client TTFT p50 beside the engine's,
+   step ms beside phase 3's. b4: phase 7b's engine (int8 weights and KV
+   pages, an AdapterStore): a rank-8 adapter on every layer's proj
+   uploaded through ``/v1/admin/adapters`` and the same factors in
+   process: slot rows equal bit for bit, tokens equal; 404 for an unknown
+   adapter; evict 409 while pinned, 200 after. Then ``swap_base`` of
+   every layer's qkv weight (perturbed from a seeded generator) on the
+   float32 engine and on the int8 one under live HTTP traffic: no request
+   fails, the same graph (no recapture), ``model_swaps == 1``; after the
+   swap the tokens equal fresh engines' built on the new weights
+   (quantized the same way), and differ from before it. Every engine is
+   built, and its graph captured, before any server starts.
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -211,7 +243,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789a"
+ALL_PHASES = "23456789ab"
 DEVICE = "cuda"
 
 
@@ -1613,6 +1645,15 @@ def check_graph_vs_eager(torch, np, eng, prompts, adapters=None, what=""):
     return {"steps": len(recorded), "live_rows": live}
 
 
+def lm_logits(pred, tokens):
+    """Teacher-forced logits [B, S, V] (float32 numpy) of the
+    predictor's GPT module over int64 tokens [B, S]: the module runs at
+    any length, where a saved LM Program runs at its own."""
+    import torch
+
+    return pred.lm(torch.as_tensor(tokens)).float().cpu().numpy()
+
+
 def oracle(np, pred, prompts, streams, ids=(0, 1), rel=1e-3):
     """Teacher-forced oracle: the predictor's logits over prompt +
     generated tokens must rank every generated token at the max, up to
@@ -1621,7 +1662,7 @@ def oracle(np, pred, prompts, streams, ids=(0, 1), rel=1e-3):
     for i in ids:
         toks = list(streams[i].tokens)
         ctx = np.concatenate([prompts[i], np.asarray(toks, np.int64)])
-        (logits,) = pred.run([ctx[None, :-1]])
+        logits = lm_logits(pred, ctx[None, :-1])
         n = len(prompts[i])
         worst = 0.0
         for k, tok in enumerate(toks):
@@ -2918,7 +2959,7 @@ def first_difference(np, pred, prompt, mine, theirs):
     gap, max|logit|)."""
     k = next(i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b)
     ctx = np.concatenate([prompt, np.asarray(mine[:k], np.int64)])
-    (logits,) = pred.run([ctx[None]])
+    logits = lm_logits(pred, ctx[None])
     row = np.sort(logits[0, -1])
     return k, float(row[-1] - row[-2]), float(np.abs(row).max())
 
@@ -3169,6 +3210,688 @@ def serve_radix(torch, np, seed, card, out_dir):
 # -- main ---------------------------------------------------------------------------
 
 
+# -- phase b: save and serve Programs over HTTP ----------------------------------
+
+RESNET_BUCKETS = (1, 2, 4, 8, 16, 32)
+RESNET_REQUESTS, RESNET_IMAGE = 64, 224
+HTTP_CLIENTS = 8
+# a request's outputs against its solo run on the card and against the
+# CPU: the same weights, float32 sums in another order (cuDNN picks its
+# convolution algorithm by batch size; the CPU has its own), about 1e-6
+# relative a layer over 53 convolutions: the softmax within 1e-4 (it is
+# <= 1), the logits within 1e-4 of the request's max |logit|
+RESNET_PROB_ATOL = RESNET_LOGIT_REL = 1e-4
+LM_PROGRAM_SEQ, LM_PROGRAM_BATCH = 128, 2
+SWAP_STD = 0.02
+
+
+def http_call(conn, method, path, payload=None, headers=None, body=None):
+    """One request on a keep-alive connection: (status, JSON body or
+    text, response)."""
+    if body is None and payload is not None:
+        body = json.dumps(payload).encode()
+    h = {"Content-Type": "application/json"} if body is not None else {}
+    h.update(headers or {})
+    conn.request(method, path, body=body, headers=h)
+    r = conn.getresponse()
+    raw = r.read()
+    try:
+        data = json.loads(raw)
+    except ValueError:
+        data = raw.decode(errors="replace")
+    return r.status, data, r
+
+
+def pct(values, q):
+    vs = sorted(values)
+    return vs[min(len(vs) - 1, int(round(q * (len(vs) - 1))))]
+
+
+def threaded(n, work):
+    """``work(c)`` on ``n`` threads; raises on a hung thread or an error."""
+    errors = []
+
+    def run(c):
+        try:
+            work(c)
+        except Exception as e:  # noqa: BLE001 — recorded, fails the phase below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(c,)) for c in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    require(not any(t.is_alive() for t in threads), "a client thread hung")
+    require(not errors, f"client errors: {errors[:3]}")
+
+
+def serve_resnet_http(torch, np, seed, card, tmp):
+    """b1: ResNet-50 saved for inference, loaded with batch bucketing
+    and served by a 2-worker ServingEngine, over /v1/predict and in
+    process; every request held to its solo run, two to the CPU."""
+    import http.client
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models.resnet import build_resnet50
+    from paddle_tpu_torch.serving import ServingEngine, ServingServer
+
+    main, startup, _feeds, _fetches = build_resnet50(1000, RESNET_IMAGE)
+    test = main.clone(for_test=True)
+    softmax = [op for op in test.global_block().ops if op.type == "softmax"]
+    prob, logits = softmax[-1].output("Out")[0], softmax[-1].input("X")[0]
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    d = os.path.join(tmp, "resnet50")
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, ["image"], [prob, logits], exe,
+                                      test)
+    t_save = time.perf_counter() - t0
+    del exe, scope
+    t0 = time.perf_counter()
+    cfg = Config(d)
+    cfg.enable_shape_bucketing(batch_buckets=RESNET_BUCKETS)
+    pred = create_predictor(cfg)
+    t_load = time.perf_counter() - t0
+    n_ops = len(pred._program.global_block().ops)
+    log(f"  saved {n_params} parameters in {t_save:.2f} s, loaded in "
+        f"{t_load:.2f} s: {n_ops} inference ops, batch buckets "
+        f"{RESNET_BUCKETS}")
+    rng = np.random.RandomState(seed)
+    sizes = rng.randint(1, 5, size=RESNET_REQUESTS)
+    images = [rng.randn(int(n), 3, RESNET_IMAGE, RESNET_IMAGE)
+              .astype(np.float32) for n in sizes]
+    n_images = int(sizes.sum())
+    # first calls at each bucket (cuDNN's kernels load lazily) are set-up
+    for b in RESNET_BUCKETS:
+        pred.run([np.zeros((b, 3, RESNET_IMAGE, RESNET_IMAGE), np.float32)])
+    solo = [pred.run([x]) for x in images]
+    torch.cuda.synchronize()
+    full = np.zeros((RESNET_BUCKETS[-1], 3, RESNET_IMAGE, RESNET_IMAGE),
+                    np.float32)
+    run_ms = device_ms(torch, lambda: pred.run([full]), reps=5, inner=1)
+    # the true output shapes of every batch size the engine can assemble
+    # (the plan on meta tensors, once a signature): set-up, as the
+    # reference's eval_shape is, timed here
+    t0 = time.perf_counter()
+    for b in range(1, RESNET_BUCKETS[-1] + 1):
+        pred._true_fetch_shapes({"image": full[:b]})
+    shape_ms = (time.perf_counter() - t0) * 1e3 / RESNET_BUCKETS[-1]
+
+    def off(outs, want):
+        """(max |softmax - want|, max |logits - want| / max |want logits|)"""
+        return (float(np.abs(outs[0] - want[0]).max()),
+                float(np.abs(outs[1] - want[1]).max()
+                      / np.abs(want[1]).max()))
+
+    cpu = create_predictor(Config(d), device="cpu")
+    cpu_err = [max(e) for e in zip(*(off(solo[i], cpu.run([images[i]]))
+                                     for i in (0, 1)))]
+    del cpu
+    require(cpu_err[0] <= RESNET_PROB_ATOL and cpu_err[1] <= RESNET_LOGIT_REL,
+            f"b1: the card's (softmax, logits) are {cpu_err} from the CPU's "
+            f"(limits {RESNET_PROB_ATOL}, {RESNET_LOGIT_REL} of max|logit|)")
+    top = np.concatenate([s[0].max(axis=1) for s in solo])
+    mag = max(float(np.abs(s[1]).max()) for s in solo)
+    t0 = time.perf_counter()
+    bodies = [json.dumps({"inputs": {"image": x.tolist()}}).encode()
+              for x in images]
+    t_encode = time.perf_counter() - t0
+    out = {"cpu_err": cpu_err, "save_s": t_save, "load_s": t_load,
+           "top_prob_mean": float(top.mean()), "max_abs_logit": mag,
+           "predictor_run_ms_at_32": run_ms, "true_shapes_ms": shape_ms,
+           "requests": RESNET_REQUESTS, "images": n_images,
+           "client_encode_s": t_encode,
+           "request_mb": sum(len(b) for b in bodies) / 1e6, "card": card}
+    for leg in ("http", "in_process"):
+        eng = ServingEngine(pred, max_batch_size=32, num_workers=2)
+        srv = ServingServer(eng, host="127.0.0.1", port=0) \
+            if leg == "http" else None
+        got = [None] * RESNET_REQUESTS
+        lat = [0.0] * RESNET_REQUESTS
+
+        def client(c, eng=eng, srv=srv, got=got, lat=lat):
+            conn = (http.client.HTTPConnection(srv.host, srv.port,
+                                               timeout=600)
+                    if srv is not None else None)
+            for i in range(c, RESNET_REQUESTS, HTTP_CLIENTS):
+                t = time.perf_counter()
+                if conn is None:
+                    got[i] = eng.predict({"image": images[i]}, timeout=600)
+                    lat[i] = time.perf_counter() - t
+                else:
+                    status, data, _ = http_call(conn, "POST", "/v1/predict",
+                                                body=bodies[i])
+                    lat[i] = time.perf_counter() - t
+                    require(status == 200, f"b1 request {i}: {status} "
+                            f"{str(data)[:200]}")
+                    got[i] = [np.asarray(data["outputs"][n], np.float32)
+                              for n in (prob, logits)]
+            if conn is not None:
+                conn.close()
+
+        try:
+            t0 = time.perf_counter()
+            threaded(HTTP_CLIENTS, client)
+            wall = time.perf_counter() - t0
+            snap = eng.metrics.snapshot()
+            pst = eng.predictor_stats()
+        finally:
+            if srv is not None:
+                srv.close()
+            eng.close()
+        require(all(g[k].shape == s[k].shape for g, s in zip(got, solo)
+                    for k in (0, 1)), "b1: an output has the wrong shape")
+        err = [max(e) for e in zip(*(off(g, s) for g, s in zip(got, solo)))]
+        require(err[0] <= RESNET_PROB_ATOL and err[1] <= RESNET_LOGIT_REL,
+                f"b1 {leg}: a request's (softmax, logits) are {err} from its "
+                f"solo run (limits {RESNET_PROB_ATOL}, {RESNET_LOGIT_REL} of "
+                "max|logit|)")
+        rows = n_images / max(snap["batches_total"], 1)
+        res = {"wall_s": wall, "requests_per_s": RESNET_REQUESTS / wall,
+               "images_per_s": n_images / wall,
+               "latency_ms_p50": pct(lat, 0.5) * 1e3,
+               "latency_ms_p99": pct(lat, 0.99) * 1e3,
+               "batches": snap["batches_total"], "mean_batch_rows": rows,
+               "batch_occupancy": snap["batch_occupancy"],
+               "engine_latency_ms": snap["latency_ms"],
+               "padding_waste": pst["padding_waste"],
+               "bucket_hits": pst["bucket_hits"], "err_vs_solo": err}
+        out[leg] = res
+        log(f"  b1 {leg}: {RESNET_REQUESTS} requests ({n_images} images) in "
+            f"{wall:.3f} s: {res['requests_per_s']:.2f} requests/s, "
+            f"{res['images_per_s']:.2f} images/s, latency p50 "
+            f"{res['latency_ms_p50']:.3f} ms p99 {res['latency_ms_p99']:.3f} "
+            f"ms, {snap['batches_total']} batches of {rows:.2f} rows, "
+            f"padding waste {pst['padding_waste']}, buckets "
+            f"{pst['bucket_hits']}, (softmax, logits) from the solo runs "
+            f"{err} [{card}]")
+    log(f"  b1: request bodies {out['request_mb']:.1f} MB of JSON (encoded "
+        f"by the clients in {t_encode:.2f} s, outside the timed legs); the "
+        f"card's (softmax, logits of max|logit|) against the CPU's "
+        f"{cpu_err}; the top class's mean probability {top.mean():.4f}, "
+        f"max |logit| {mag:.3f}; one predictor run at 32 images "
+        f"{run_ms:.3f} ms ({32e3 / run_ms:.1f} images/s); the true shapes "
+        f"of a new batch size {shape_ms:.3f} ms on the host (32 evaluated "
+        f"before the legs) [{card}]")
+    del pred
+    return out
+
+
+def lm_program_on_card(torch, np, seed, card, tmp):
+    """b2: build_lm_program at gpt3_1p3b widths and full depth, saved,
+    loaded and run as a Program on the card: logits held to the
+    predictor's module, with K1's exact launches; then the same
+    directory quantized at load (int8) with K11's exact launches."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.generation import build_lm_program
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig.gpt3_1p3b()
+    L = cfg.num_layers
+    main, startup, _feeds, fetches = build_lm_program(cfg, LM_PROGRAM_SEQ)
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    d = os.path.join(tmp, "gpt3_1p3b_lm")
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, ["tokens"], [fetches["logits"]],
+                                      exe, main)
+    t_save = time.perf_counter() - t0
+    del exe, scope
+    torch.cuda.empty_cache()
+    size = os.path.getsize(os.path.join(d, "__params__.npz"))
+    tokens = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (LM_PROGRAM_BATCH, LM_PROGRAM_SEQ)).astype(np.int64)
+    out = {"save_s": t_save, "params_bytes": size, "layers": L,
+           "card": card}
+    for mode in ("float32", "int8"):
+        t0 = time.perf_counter()
+        c = Config(d)
+        if mode != "float32":
+            c.enable_weight_quantization(mode)
+        pred = create_predictor(c)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        (logits,) = pred.run([tokens], return_numpy=False)  # first call
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        (logits,) = pred.run([tokens], return_numpy=False)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        want = {"layer_norm": 2 * L + 1,
+                "quantized_matmul": 4 * L + 1 if mode == "int8" else 0}
+        require({n: counts[n] for n in want} == want
+                and sum(counts.values()) == sum(want.values()),
+                f"b2 {mode}: a Program run launched {counts}, want {want}")
+        ref = pred.lm(torch.as_tensor(tokens))
+        err = float((logits - ref).abs().max())
+        lim = 1e-3 * float(ref.abs().max())
+        require(tuple(logits.shape) == (LM_PROGRAM_BATCH, LM_PROGRAM_SEQ,
+                                        cfg.vocab_size),
+                f"b2 {mode}: logits {tuple(logits.shape)}")
+        require(bool(torch.isfinite(logits).all()), f"b2 {mode}: not finite")
+        require(err <= lim, f"b2 {mode}: Program logits {err:.3e} from the "
+                f"module's (limit {lim:.3e})")
+        run_ms = device_ms(torch, lambda: pred.run([tokens],
+                                                   return_numpy=False),
+                           reps=5, inner=2)
+        lm_ms = device_ms(torch, lambda: pred.lm(torch.as_tensor(tokens)),
+                          reps=5, inner=2)
+        res = {"load_s": t_load, "launches": counts, "max_abs_err": err,
+               "limit": lim, "program_ms": run_ms, "module_ms": lm_ms}
+        if mode == "int8":
+            rep = pred.quantize_report
+            qrows = [r for r in rep.rows if r["action"] == "quantized"]
+            ratio = (sum(r["bytes_after"] for r in qrows)
+                     / sum(r["bytes_before"] for r in qrows))
+            require(rep.n_quantized == 4 * L + 1 and ratio <= 0.30,
+                    f"b2: {rep.n_quantized} weights quantized, matmul bytes "
+                    f"ratio {ratio:.4f}")
+            res.update(summary=rep.summary(), matmul_bytes_ratio=ratio,
+                       vs_float32_max_abs=float(
+                           (logits.cpu() - out["float32"]["logits"])
+                           .abs().max()))
+        else:
+            res["logits"] = logits.cpu()
+        out[mode] = res
+        log(f"  b2 {mode}: loaded in {t_load:.2f} s; a Program run launched "
+            f"{ {n: c for n, c in counts.items() if c} }; logits "
+            f"{err:.3e} from the module's (limit {lim:.3e}); a run "
+            f"{run_ms:.3f} ms, the module {lm_ms:.3f} ms [{card}]")
+        del pred, logits, ref
+        torch.cuda.empty_cache()
+    out["float32"].pop("logits")
+    log(f"  b2: {L} layers, {n_params} parameters, {size / 1e9:.2f} GB of "
+        f"npz saved in {t_save:.2f} s; save + float32 load "
+        f"{t_save + out['float32']['load_s']:.2f} s; int8 matmul bytes "
+        f"{out['int8']['matmul_bytes_ratio']:.4f} of float32, logits "
+        f"{out['int8']['vs_float32_max_abs']:.3e} from float32's [{card}]")
+    return {"lm_program": out["float32"]["launches"],
+            "lm_program_int8": out["int8"]["launches"]}, out
+
+
+def stream_generate(host, port, payload, headers=None):
+    """One streamed /v1/generate: (lines, arrival seconds of each from
+    the send)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    t0 = time.perf_counter()
+    h = {"Content-Type": "application/json"}
+    h.update(headers or {})
+    conn.request("POST", "/v1/generate", json.dumps(payload), h)
+    resp = conn.getresponse()
+    require(resp.status == 200, f"/v1/generate answered {resp.status}")
+    require(resp.getheader("Content-Type") == "application/x-ndjson",
+            f"/v1/generate content type {resp.getheader('Content-Type')}")
+    lines, times = [], []
+    for raw in resp:
+        if raw.strip():
+            lines.append(json.loads(raw))
+            times.append(time.perf_counter() - t0)
+    conn.close()
+    return lines, times
+
+
+def serve_generate_http(torch, np, eng, srv, prompts, base_tokens, card,
+                        phase3_step_ms):
+    """b3: phase 3's 16 prompts streamed over /v1/generate from 4 client
+    threads (each request in turn), held token for token to the same
+    engine in process and to phase 3; then one non-streamed request,
+    one 400 and one 504."""
+    import http.client
+
+    from paddle_tpu_torch import kernels as K
+
+    max_new, L = 32, eng.config.num_layers
+    n = len(prompts)
+    lines, times = [None] * n, [None] * n
+    st0 = eng.stats()
+    K.reset_launch_counts()
+
+    def client(c):
+        for i in range(c, n, 4):
+            lines[i], times[i] = stream_generate(
+                srv.host, srv.port, {"tokens": prompts[i].tolist(),
+                                     "max_new_tokens": max_new},
+                {"X-Request-Id": f"b3-{i}"})
+
+    t0 = time.perf_counter()
+    threaded(4, client)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    st = eng.stats()
+    steps = st["ragged_steps_total"] - st0["ragged_steps_total"]
+    require_launches(counts, steps, {"layer_norm": 2 * L + 1,
+                                     "ragged_paged_attention": L})
+    require(st["graph_replays"] - st0["graph_replays"] == steps
+            and st["graph_captures"] == 1, "b3: the step did not replay its "
+            "graph once a step")
+    http_tokens = []
+    for i, (ls, ts) in enumerate(zip(lines, times)):
+        tail = ls[-1]
+        require(tail.get("done") and tail["finish_reason"] == "length"
+                and tail["n_tokens"] == max_new and len(ls) == max_new + 1,
+                f"b3 stream {i}: {tail}")
+        require(ls[0].get("index") == 0 and "token" in ls[0]
+                and ls[0].get("request_id") == f"b3-{i}"
+                and ts[0] < ts[-1], f"b3 stream {i}: the first line "
+                f"{ls[0]} did not arrive before the done line")
+        http_tokens.append([ln["token"] for ln in ls[:-1]])
+    ttft = [ts[0] * 1e3 for ts in times]
+    streams, _ = run_clients(eng, prompts, max_new)
+    check_streams(streams, max_new)
+    local = [list(s.tokens) for s in streams]
+    require(http_tokens == local, "b3: streamed tokens differ from the same "
+            "engine's in-process tokens")
+    same3 = None
+    if base_tokens is not None:
+        require(http_tokens == base_tokens, "b3: streamed tokens differ from "
+                "phase 3's")
+        same3 = True
+    conn = http.client.HTTPConnection(srv.host, srv.port, timeout=600)
+    status, data, _ = http_call(conn, "POST", "/v1/generate", {
+        "tokens": prompts[0].tolist(), "max_new_tokens": 8, "stream": False})
+    require(status == 200 and data["tokens"] == local[0][:8]
+            and data["usage"]["prompt_tokens"] == len(prompts[0]),
+            f"b3 stream=false: {status} {str(data)[:200]}")
+    status, data, _ = http_call(conn, "POST", "/v1/generate", {"tokens": []})
+    require(status == 400, f"b3: an empty prompt answered {status}")
+    status, data, _ = http_call(conn, "POST", "/v1/generate", {
+        "tokens": prompts[1].tolist(), "max_new_tokens": 8, "stream": False,
+        "deadline_ms": 0.001})
+    require(status == 504 and data.get("kind") == "deadline",
+            f"b3: a passed deadline answered {status} {data}")
+    conn.close()
+    gen = sum(len(t) for t in http_tokens)
+    res = {"tokens_per_s": gen / wall, "wall_s": wall, "engine_steps": steps,
+           "client_ttft_ms_p50": pct(ttft, 0.5),
+           "engine_ttft_ms_p50": st["ttft_ms"]["p50"],
+           "step_ms_mean": st["decode_step_ms"]["mean"],
+           "phase3_step_ms_mean": phase3_step_ms,
+           "equal_to_phase3": same3, "launches": counts, "card": card}
+    log(f"  b3: {n} streams ({gen} tokens) over /v1/generate in {wall:.3f} "
+        f"s: {res['tokens_per_s']:.2f} tokens/s, {steps} steps, step "
+        f"{res['step_ms_mean']} ms (phase 3: {phase3_step_ms}), client TTFT "
+        f"p50 {res['client_ttft_ms_p50']:.3f} ms against the engine's "
+        f"{res['engine_ttft_ms_p50']} ms; tokens equal in-process"
+        f"{' and phase 3' if same3 else ''}; stream=false, 400 and 504 "
+        f"answered [{card}]")
+    return counts, res, local
+
+
+def swap_under_traffic(torch, np, eng, srv, new_w, prompts, what,
+                       adapter=None):
+    """``eng.swap_base(new_w)`` while 4 HTTP clients send short
+    non-streamed requests (every other one on ``adapter``): no request
+    fails, the step is the same graph (no recapture), one swap."""
+    import http.client
+
+    bound = eng._ragged_bound
+    replays0 = eng.stats()["graph_replays"]
+    failures, done = [], []
+    stop = threading.Event()
+
+    def pump(c):
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=600)
+        i = c
+        while not stop.is_set():
+            payload = {"tokens": prompts[i % len(prompts)][:48].tolist(),
+                       "max_new_tokens": 4, "stream": False}
+            if adapter is not None and i % 2:
+                payload["adapter"] = adapter
+            status, data, _ = http_call(conn, "POST", "/v1/generate", payload)
+            (done if status == 200 else failures).append(
+                (status, str(data)[:200]))
+            i += 4
+        conn.close()
+
+    threads = [threading.Thread(target=pump, args=(c,)) for c in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        while len(done) < 8 and not failures:
+            time.sleep(0.01)
+        before = len(done)
+        t0 = time.perf_counter()
+        label = eng.swap_base(new_w, version="v2")
+        swap_s = time.perf_counter() - t0
+        while len(done) < before + 8 and not failures:
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(600)
+    st = eng.stats()
+    require(not any(t.is_alive() for t in threads), f"{what}: a pump hung")
+    require(not failures, f"{what}: failed requests {failures[:3]}")
+    require(label == "v2" and eng.model_swaps == 1
+            and st["model_swaps"] == 1, f"{what}: {eng.model_swaps} swaps")
+    require(eng._ragged_bound is bound and st["graph_captures"] == 1
+            and st["graph_replays"] > replays0,
+            f"{what}: the step was rebound or recaptured")
+    log(f"  {what}: swap_base of {len(new_w)} weights under live HTTP "
+        f"traffic in {swap_s:.3f} s: {len(done)} requests, none failed, the "
+        f"same graph (1 capture, {st['graph_replays']} replays), "
+        f"model_swaps 1")
+    return {"swap_s": swap_s, "requests": len(done), "weights": len(new_w)}
+
+
+def after_swap_tokens(eng, prompts, adapter=None, n=4, max_new=16):
+    out = [eng.generate(p, max_new_tokens=max_new, timeout=600)
+           for p in prompts[:n]]
+    if adapter is not None:
+        out.append(eng.generate(prompts[0], max_new_tokens=max_new,
+                                adapter=adapter, timeout=600))
+    return out
+
+
+def proj_factors(np, cfg, seed, rank=8):
+    """A rank-8 adapter on every layer's proj weight, as numpy (std
+    0.05: large enough that a few proj layers move a greedy token)."""
+    rng = np.random.RandomState(seed + 7)
+    h = cfg.hidden_size
+    return {f"dec{i}_proj.w": ((rng.randn(h, rank) * 0.05).astype(np.float32),
+                               (rng.randn(rank, h) * 0.05).astype(np.float32))
+            for i in range(cfg.num_layers)}
+
+
+def serve_http(torch, np, seed, card, out_dir, base_tokens=None,
+               phase3_step_ms=None):
+    """Phase b: save and serve Programs over HTTP (b1-b4)."""
+    import http.client
+    import tempfile
+
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.adapters import AdapterStore
+    from paddle_tpu_torch.generation import GenerationEngine
+    from paddle_tpu_torch.kernels.quant_matmul import (dequantize_weight,
+                                                       quantize_weight)
+    from paddle_tpu_torch.serving import ServingEngine, ServingServer
+
+    record, paths = {}, {}
+    with tempfile.TemporaryDirectory(prefix="pt_phase_b_") as tmp:
+        log("phase b1: ResNet-50 saved for inference, served over "
+            "/v1/predict")
+        t0 = time.perf_counter()
+        record["b1"] = serve_resnet_http(torch, np, seed, card, tmp)
+        record["b1"]["phase_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("phase b2: gpt3_1p3b LM Program saved, loaded and run "
+            "(float32, then int8 at load)")
+        t0 = time.perf_counter()
+        p2, record["b2"] = lm_program_on_card(torch, np, seed, card, tmp)
+        record["b2"]["phase_s"] = time.perf_counter() - t0
+        paths.update(p2)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    log("phase b3: phase 3's engine streamed over /v1/generate")
+    t0 = time.perf_counter()
+    cfg, pred = gpt3_predictor(torch, seed)
+    L = cfg.num_layers
+    lengths, prompts = serving_prompts(np, seed, cfg.vocab_size)
+    # every engine, and so every CUDA graph capture, before any server
+    eng = GenerationEngine(pred, cfg, warmup=True)
+    pred8, _rep = quantized_predictor(torch, seed, cfg, "int8")
+    store = AdapterStore.for_model(pred8.lm, rank_buckets=(8, 16),
+                                   slots_per_bucket=4)
+    eng8 = GenerationEngine(pred8, cfg, kv_dtype="int8", adapter_store=store,
+                            warmup=True)
+    servers = []
+    try:
+        srv = ServingServer(ServingEngine(pred, start=False),
+                            generation_engine=eng)
+        servers.append(srv)
+        srv8 = ServingServer(ServingEngine(pred8, start=False),
+                             generation_engine=eng8)
+        servers.append(srv8)
+        paths["http_generate"], record["b3"], before = serve_generate_http(
+            torch, np, eng, srv, prompts, base_tokens, card, phase3_step_ms)
+        record["b3"]["phase_s"] = time.perf_counter() - t0
+
+        log("phase b4: adapter admin over HTTP and hot base swaps under "
+            "live traffic")
+        t0 = time.perf_counter()
+        fac = proj_factors(np, cfg, seed)
+        conn = http.client.HTTPConnection(srv8.host, srv8.port, timeout=600)
+        K.reset_launch_counts()
+        t_up = time.perf_counter()
+        status, data, _ = http_call(conn, "POST", "/v1/admin/adapters", {
+            "adapter_id": "http-ad", "alpha": 16.0,
+            "factors": {t: {"a": a.tolist(), "b": b.tolist()}
+                        for t, (a, b) in fac.items()}})
+        t_up = time.perf_counter() - t_up
+        require(status == 200, f"b4 upload: {status} {str(data)[:200]}")
+        store.upload("local-ad", fac, alpha=16.0)
+        rows = {r["id"]: r for r in store.resident()}
+        ra, rb = rows["http-ad"], rows["local-ad"]
+        require(ra["rank_bucket"] == rb["rank_bucket"] == 8,
+                f"b4: buckets {ra} {rb}")
+        bi = store.rank_buckets.index(8)
+        for t in fac:
+            a, b, sc = store.pools(t)
+            require(torch.equal(a[bi][ra["slot"]], a[bi][rb["slot"]])
+                    and torch.equal(b[bi][ra["slot"]], b[bi][rb["slot"]])
+                    and torch.equal(sc[bi][ra["slot"]], sc[bi][rb["slot"]]),
+                    f"b4: {t}'s slot rows differ between the uploads")
+        outs = {}
+        for key, payload, hdr in (
+                ("http-ad", {"adapter": "http-ad"}, {}),
+                ("local-ad", {"model": "local-ad"}, {}),
+                ("header", {}, {"X-Adapter": "local-ad"}),
+                ("base", {}, {})):
+            status, data, _ = http_call(conn, "POST", "/v1/generate", dict(
+                tokens=prompts[2].tolist(), max_new_tokens=16, stream=False,
+                **payload), headers=hdr)
+            require(status == 200, f"b4 generate {key}: {status} {data}")
+            outs[key] = data["tokens"]
+        require(outs["http-ad"] == outs["local-ad"] == outs["header"],
+                f"b4: the two uploads' tokens differ: {outs}")
+        require(outs["http-ad"] != outs["base"],
+                "b4: the adapter changed no token")
+        status, data, _ = http_call(conn, "POST", "/v1/generate", {
+            "tokens": [1, 2, 3], "max_new_tokens": 4, "adapter": "ghost"})
+        require(status == 404 and data.get("kind") == "adapter",
+                f"b4: an unknown adapter answered {status} {data}")
+        pinned = eng8.submit(prompts[3], max_new_tokens=32,
+                             adapter="http-ad")
+        status, data, _ = http_call(conn, "POST", "/v1/admin/adapters/evict",
+                                    {"adapter_id": "http-ad"})
+        require(status == 409 and data.get("kind") == "in_use",
+                f"b4: evicting a pinned adapter answered {status} {data}")
+        pinned.result(timeout=600)
+        status, data, _ = http_call(conn, "POST", "/v1/admin/adapters/evict",
+                                    {"adapter_id": "http-ad"})
+        require(status == 200 and data["evicted"]["id"] == "http-ad",
+                f"b4: evicting an idle adapter answered {status} {data}")
+        conn.close()
+        log(f"  b4: an adapter of {len(fac)} targets uploaded over HTTP "
+            f"({sum(a.size + b.size for a, b in fac.values())} floats) in "
+            f"{t_up:.3f} s: its slot rows equal an in-process upload's bit "
+            f"for bit, and its tokens; 404 for an unknown adapter; evict "
+            f"409 while pinned, 200 after [{card}]")
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+        with torch.no_grad():
+            new_f = {f"dec{i}_qkv.w": lyr.qkv.w + SWAP_STD * torch.randn(
+                         lyr.qkv.w.shape, device=DEVICE, generator=gen)
+                     for i, lyr in enumerate(pred.lm.layers)}
+            new_q = {}
+            for i, lyr in enumerate(pred8.lm.layers):
+                q = lyr.qkv
+                new_q[f"dec{i}_qkv.w"] = dequantize_weight(
+                    q.qweight, q.scale, q.mode, q.block) + SWAP_STD * \
+                    torch.randn(q.qweight.shape, device=DEVICE, generator=gen)
+        swaps = {"float32": swap_under_traffic(
+            torch, np, eng, srv, new_f, prompts, "b4 float32")}
+        after_f = after_swap_tokens(eng, prompts)
+        before_q = after_swap_tokens(eng8, prompts, adapter="local-ad")
+        swaps["int8"] = swap_under_traffic(torch, np, eng8, srv8, new_q,
+                                           prompts, "b4 int8",
+                                           adapter="local-ad")
+        after_q = after_swap_tokens(eng8, prompts, adapter="local-ad")
+        paths["http_adapters"] = K.launch_counts()
+        require(paths["http_adapters"]["batched_lora_add_"] > 0
+                and paths["http_adapters"]["quantized_matmul"] > 0
+                and paths["http_adapters"]["ragged_paged_attention_q"] > 0,
+                f"b4: launches {paths['http_adapters']}")
+        require(after_f != [t[:16] for t in before[:4]],
+                "b4 float32: the swap changed no token")
+        require(after_q != before_q, "b4 int8: the swap changed no token")
+    finally:
+        for s in servers:
+            s.close()
+        eng.close()
+        eng8.close()
+    del eng, eng8, pred, pred8, store
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fresh engines built on the new weights: the float32 ones, and the
+    # int8 base quantized as the swap quantized it
+    _, fresh = gpt3_predictor(torch, seed)
+    with torch.no_grad():
+        for i, lyr in enumerate(fresh.lm.layers):
+            lyr.qkv.w.copy_(new_f[f"dec{i}_qkv.w"])
+    with GenerationEngine(fresh, cfg, warmup=True) as feng:
+        fresh_f = after_swap_tokens(feng, prompts)
+    del fresh
+    torch.cuda.empty_cache()
+    fresh8, _ = quantized_predictor(torch, seed, cfg, "int8")
+    with torch.no_grad():
+        for i, lyr in enumerate(fresh8.lm.layers):
+            q = lyr.qkv
+            qw, sc = quantize_weight(new_q[f"dec{i}_qkv.w"], q.mode, q.block)
+            q.qweight.copy_(qw)
+            q.scale.copy_(sc)
+    fstore = AdapterStore.for_model(fresh8.lm, rank_buckets=(8, 16),
+                                    slots_per_bucket=4)
+    fstore.upload("local-ad", fac, alpha=16.0)
+    with GenerationEngine(fresh8, cfg, kv_dtype="int8",
+                          adapter_store=fstore, warmup=True) as feng8:
+        fresh_q = after_swap_tokens(feng8, prompts, adapter="local-ad")
+    del fresh8, fstore
+    torch.cuda.empty_cache()
+    require(after_f == fresh_f, "b4 float32: the swapped engine's tokens "
+            "differ from a fresh engine's on the new weights")
+    require(after_q == fresh_q, "b4 int8: the swapped engine's tokens "
+            "differ from a fresh engine's on the new weights")
+    log(f"  b4: after the swaps, {len(after_f)} float32 and {len(after_q)} "
+        f"int8 requests (one on the adapter) equal fresh engines' on the "
+        f"new weights token for token, and differ from before the swaps "
+        f"[{card}]")
+    record["b4"] = {"swaps": swaps, "upload_s": t_up,
+                    "phase_s": time.perf_counter() - t0,
+                    "launches": paths["http_adapters"]}
+    return paths, record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3331,6 +4054,14 @@ def main(argv=None) -> int:
                                               args.out)
         paths.update(rpaths)
         torch.cuda.empty_cache()
+    if "b" in args.phases:
+        log("phase b: Programs saved and served over HTTP")
+        bpaths, record["http"] = serve_http(
+            torch, np, args.seed, card, args.out,
+            record.get("serve", {}).get("tokens"),
+            record.get("serve", {}).get("step_ms_mean"))
+        paths.update(bpaths)
+        torch.cuda.empty_cache()
     launches = {name: {p: c[name] for p, c in paths.items()}
                 for name in K.KERNELS}
     record["launches"] = launches
@@ -3338,7 +4069,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9 and a)")
+        "3b, 4, 6, 7, 8, 9, a and b)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"

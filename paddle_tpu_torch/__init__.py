@@ -61,19 +61,32 @@ Ported so far:
       exe.run(startup)
       exe.run(main, feed={...}, fetch_list=[loss])
 
+* saving and serving any inference Program:
+  ``io.save_inference_model`` / ``load_inference_model`` (the JAX
+  package's file format), the Program ``Predictor`` with shape
+  bucketing and load-time weight quantization, the dynamic-batching
+  ``serving.ServingEngine`` and the HTTP ``serving.ServingServer``
+  (``/v1/predict``, streamed ``/v1/generate``, the adapter admin
+  endpoints, ``/healthz``, ``/metrics``), and the hot base swap
+  (``GenerationEngine.swap_base``);
+
+      fluid.io.save_inference_model(d, ["image"], [prob], exe, main)
+      cfg = Config(d); cfg.enable_shape_bucketing()
+      srv = ServingServer(ServingEngine(create_predictor(cfg)), port=8500)
+
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
 ported yet (ROADMAP A): the other optimizer classes, sub-block control
-flow, SelectedRows gradients and GPT MoE (A1), speculative decoding
-(A3), the radix prefix cache (A4), HTTP serving and the hot base swap
-(A6), the w8a8 ``calibrate`` pass (A7), the host tiers (A9) and
-distribution (A10).
+flow, SelectedRows gradients and GPT MoE (A1), checkpoints (A13b), the
+w8a8 ``calibrate`` pass (A7), the host tiers (A9) and distribution
+(A10).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of
 falling back.
 """
 
-from . import (clip, contrib, layers, nets, ops,  # ops: the lowerings
+from . import (clip, contrib, io, layers, nets,  # noqa: F401
+               ops,  # ops: the lowerings
                optimizer, regularizer)
 from .core import framework
 from .core.backward import append_backward
@@ -86,7 +99,7 @@ from .device import resolve_device
 from .flags import get_flags, set_flags
 from .param_attr import ParamAttr
 
-__all__ = ["resolve_device", "clip", "contrib", "layers", "nets",
+__all__ = ["resolve_device", "clip", "contrib", "io", "layers", "nets",
            "optimizer", "regularizer",
            "framework",
            "append_backward", "Executor", "Scope", "global_scope",

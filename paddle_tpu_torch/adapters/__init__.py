@@ -6,9 +6,10 @@ each batch row's adapter delta into the matmuls
 fed by the ragged engine (``GenerationEngine(adapter_store=...)``,
 ``submit(..., adapter=...)``).
 
-Not ported: the hot base swap (``GenerationEngine.swap_base``) and the
-HTTP admin surface (ROADMAP A6), the traffic tier's per-adapter
-quotas (A9).
+The HTTP admin surface is ``serving.ServingServer``'s
+``/v1/admin/adapters`` and ``/v1/admin/adapters/evict``; the hot base
+swap under an adapter store is ``GenerationEngine.swap_base``. Not
+ported: the traffic tier's per-adapter quotas (ROADMAP A9).
 """
 
 from .rewrite import LoraReport, lora_targets, rewrite_for_lora

@@ -53,6 +53,7 @@ from .registry import get_op_def
 _TORCH_DTYPES = {
     "float32": torch.float32, "float64": torch.float64,
     "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "float8_e4m3fn": torch.float8_e4m3fn,
     "int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
     "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
 }
@@ -217,11 +218,19 @@ class Executor:
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.torch_device()
         self._run_counter = 0
+        self._lock = threading.Lock()
         self._plans: Dict[tuple, _Plan] = {}
         self._constants: Dict[int, Any] = {}
         self._bound: "collections.OrderedDict[tuple, Any]" = \
             collections.OrderedDict()
         self._stats = {"bound_hits": 0, "bound_misses": 0}
+
+    def _next_step(self) -> int:
+        """The next run's step number (seeds its ops' generators); safe
+        from several threads."""
+        with self._lock:
+            self._run_counter += 1
+            return self._run_counter
 
     def _plan(self, program: Program, feed_names, fetch_names) -> _Plan:
         block = program.global_block()
@@ -251,8 +260,6 @@ class Executor:
         resolved on the first call and cached (the reference's
         ``Executor.bind``, :764). ``feed`` gives example values: their
         shapes and dtypes bind, nothing runs. ``tag`` labels the step."""
-        from ..runtime.dispatch import BoundStep
-
         scope = scope or global_scope()
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
@@ -260,6 +267,14 @@ class Executor:
         key = (program.uid, program.version, len(block.ops),
                program.random_seed, self._feed_signature(feed),
                tuple(fetch_names), scope.uid)
+        with self._lock:
+            return self._bind_locked(program, feed, key, block, scope,
+                                     fetch_names, tag)
+
+    def _bind_locked(self, program, feed, key, block, scope, fetch_names,
+                     tag):
+        from ..runtime.dispatch import BoundStep
+
         bound = self._bound.get(key)
         if bound is not None:
             self._stats["bound_hits"] += 1

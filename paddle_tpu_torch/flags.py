@@ -2,7 +2,8 @@
 
 A copy of the matching entries of ``paddle_tpu/flags.py`` (the
 generation, quantize and adapter defaults of :60-147, spec and radix
-ones included) and of its
+ones included, the serving defaults of :54-57 and
+``traffic_stream_write_timeout_s`` of :262) and of its
 ``get_flags`` / ``set_flags`` / ``flag`` (:368-395). Only what the
 ported slices read is here; the reference's env overrides, autotune
 profiles and live-flag generations come with the host tiers.
@@ -77,6 +78,18 @@ DEFAULTS = {
     "adapter_rank_buckets": "8,16",
     "adapter_slots_per_bucket": 0,
     "adapter_tenant_quota": 0,
+    # serving (paddle_tpu_torch.serving): the ServingEngine coalesces
+    # up to serving_max_batch_size rows or waits serving_batch_timeout_ms,
+    # whichever first; a full admission queue (serving_queue_capacity)
+    # rejects with Overloaded; serving_num_workers Predictor clones run
+    # the batches
+    "serving_max_batch_size": 16,
+    "serving_batch_timeout_ms": 5.0,
+    "serving_queue_capacity": 256,
+    "serving_num_workers": 2,
+    # a streamed /v1/generate whose client stops reading for this many
+    # seconds is cancelled (its KV pages free at the next step)
+    "traffic_stream_write_timeout_s": 30.0,
     # "auto" | "on" | "off": AdamOptimizer emits the one-pass fused_adam
     # op (the K10 kernel on CUDA) instead of the unfused adam chain
     "optimizer_fuse": "auto",

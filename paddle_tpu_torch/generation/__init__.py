@@ -7,9 +7,11 @@ from .draft import DraftModel, HostDraft
 from .engine import GenerationEngine, GenerationMetrics, GenerationStream
 from .kvcache import PagedKVCache, PagePoolExhausted
 from .model import (CacheGeometry, DecodeStepModel, GPTConfig, GPTLM,
-                    PrefillStepModel, RaggedStepModel, load_jax_params)
+                    PrefillStepModel, RaggedStepModel, build_lm_program,
+                    load_jax_params, share_params)
 
 __all__ = ["GenerationEngine", "GenerationStream", "GenerationMetrics",
            "PagedKVCache", "PagePoolExhausted", "CacheGeometry", "GPTConfig",
            "GPTLM", "RaggedStepModel", "PrefillStepModel", "DecodeStepModel",
-           "load_jax_params", "DraftModel", "HostDraft"]
+           "load_jax_params", "share_params", "build_lm_program",
+           "DraftModel", "HostDraft"]

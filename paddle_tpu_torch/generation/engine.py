@@ -81,9 +81,22 @@ Quantized, multi-adapter serving (the JAX engine's :407-420, :493-567):
   deltas run K12. A force-evicted adapter fails its own rows at the
   next step, never the batch.
 
+Hot base swap (``swap_base``, the JAX engine's :799-868): a
+signature-identical weight set (every name already served, same shape)
+is staged on the caller's thread (moved to the device and, for a
+quantized base, quantized into each layer's mode and block), then
+copied by the loop thread between two steps INTO the tensors the step
+reads, under the loop's own order: no step mixes old and new weights,
+no request fails, and the captured CUDA graph, which replays fixed
+addresses, serves the new weights with no recapture. The Program
+Predictor of an LM directory shares these tensors, so it serves them
+too, and so does a ``HostDraft.from_predictor`` draft, which shares the
+float tensors: after a swap it proposes from the new weights. The
+radix trie is not cleared, as in the JAX engine: pages published
+before a swap hold the old weights' K/V.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item when asked for: ``page_store`` (A9) and ``swap_base``
-(A6).
+ROADMAP item when asked for: ``page_store`` (A9).
 """
 
 from __future__ import annotations
@@ -100,6 +113,7 @@ from ..adapters import AdapterMissing, AdapterStore, rewrite_for_lora
 from ..device import concrete_device
 from ..flags import flag
 from ..kernels.ragged_paged_attention import MAX_CHUNK
+from ..kernels.quant_matmul import quantize_weight
 from ..quantize import rewrite_for_inference
 from ..runtime.graphs import GraphedStep
 from ..serving.engine import (DeadlineExceeded, EngineClosed, Overloaded,
@@ -107,7 +121,7 @@ from ..serving.engine import (DeadlineExceeded, EngineClosed, Overloaded,
 from ..serving.metrics import StreamingHistogram
 from .kvcache import PagedKVCache, PagePoolExhausted
 from .model import (CacheGeometry, DecodeStepModel, PrefillStepModel,
-                    RaggedStepModel)
+                    QuantizedDense, RaggedStepModel)
 
 __all__ = ["GenerationEngine", "GenerationStream", "GenerationMetrics"]
 
@@ -371,7 +385,7 @@ class GenerationEngine:
                  prefix_cache: Optional[bool] = None,
                  page_store=None,
                  adapter_store=None,
-                 prefill_buckets=None,
+                 prefill_buckets=None, model_version: Optional[str] = None,
                  warmup: bool = False, start: bool = True):
         # precedence: parameter > flag
         mode = str(mode or flag("generation_engine_mode"))
@@ -497,13 +511,18 @@ class GenerationEngine:
         # weight quantization: the model is shared with the caller's
         # predictor, so it is quantized once for both (a no-op check of
         # mode and block when the predictor already did at load)
+        # (a Program predictor rewrites its Program and scope, and its
+        # module over the scope's quantized tensors: Predictor.quantize)
         self.quantize_report = None
         if self.quantize_weights != "off":
-            rep = rewrite_for_inference(lm, self.quantize_weights,
-                                        block=self._quant_block)
             if self._pred.quantize_report is None:
-                self._pred.quantize_report = rep
+                rep = self._pred.quantize(self.quantize_weights,
+                                          self._quant_block)
                 predictor.quantize_report = rep
+            else:
+                # a no-op that checks the mode and block
+                rewrite_for_inference(lm, self.quantize_weights,
+                                      block=self._quant_block)
             self.quantize_report = self._pred.quantize_report
         # batched LoRA, AFTER the quantize seam: the deltas apply to the
         # dequantized products, and only the step takes them (the
@@ -561,6 +580,11 @@ class GenerationEngine:
                 {"k_pages": self.cache.k_pages,
                  "v_pages": self.cache.v_pages}, self.device, "decode")
 
+        # the base model's label and swap count; a staged swap waits
+        # here for the loop thread (swap_base)
+        self.model_version = str(model_version or "base")
+        self.model_swaps = 0
+        self._pending_swap = None
         self._cond = threading.Condition()
         self._queue: "collections.deque[_GenRequest]" = collections.deque()
         self._by_slot: Dict[int, _GenRequest] = {}
@@ -742,6 +766,7 @@ class GenerationEngine:
         out["radix"] = self.cache.radix_stats()
         if self.adapter_store is not None:
             out["adapters"] = self.adapter_store.stats_numeric()
+        out["model_swaps"] = self.model_swaps
         return out
 
     def stats_numeric(self) -> Dict[str, Any]:
@@ -753,16 +778,95 @@ class GenerationEngine:
         quantization and the resident adapters (id, rank, bucket, slot,
         refcount, bytes)."""
         return {
-            "base": {"version": "base", "quantized": self.quantize_weights,
+            "base": {"version": self.model_version,
+                     "swaps": int(self.model_swaps),
+                     "quantized": self.quantize_weights,
                      "kv_dtype": self.kv_dtype},
             "adapters": (self.adapter_store.resident()
                          if self.adapter_store is not None else []),
         }
 
-    def swap_base(self, *_args, **_kwargs):
-        raise NotImplementedError(
-            "GenerationEngine.swap_base is not ported to paddle_tpu_torch "
-            "yet: ROADMAP queue A6 (HTTP serving and hot base swap)")
+    # -- hot base-model swap -------------------------------------------------
+    def _swap_targets(self):
+        """name -> the tensor(s) the steps read for it: a float
+        Parameter, or (qweight, scale, mode, block) of a quantized
+        matmul."""
+        lm = self._pred.lm
+        targets: Dict[str, Any] = dict(lm.jax_params())
+        for _parent, _attr, dense in lm.dense_layers():
+            if isinstance(dense, QuantizedDense):
+                targets[dense.name] = (dense.qweight, dense.scale,
+                                       dense.mode, dense.block)
+        return targets
+
+    def swap_base(self, weights: Dict[str, Any], *,
+                  version: Optional[str] = None,
+                  timeout: Optional[float] = 60.0) -> str:
+        """Zero-downtime swap to a SIGNATURE-IDENTICAL weight set (every
+        name already served, with the same shape) under live traffic.
+        The values are staged on this thread (onto the device and, for
+        a quantized weight, quantized into its layer's mode and block);
+        the loop thread copies them into the served tensors between two
+        steps. Returns the new model version label."""
+        targets = self._swap_targets()
+        staged = []
+        with torch.no_grad():
+            for name, val in weights.items():
+                t = torch.as_tensor(np.asarray(val) if not isinstance(
+                    val, torch.Tensor) else val)
+                dst = targets.get(name)
+                if dst is None:
+                    raise ValueError(
+                        f"swap_base: {name!r} is not a served weight — a "
+                        "hot swap must be signature-identical (same "
+                        "architecture, same names)")
+                if isinstance(dst, tuple):
+                    qw, sc, mode, block = dst
+                    if tuple(t.shape) != tuple(qw.shape):
+                        raise ValueError(
+                            f"swap_base: {name!r} shape {tuple(t.shape)} != "
+                            f"serving shape {tuple(qw.shape)} — not "
+                            "signature-identical; roll a new engine instead")
+                    q, s = quantize_weight(t.to(self.device, torch.float32),
+                                           mode, block)
+                    staged += [(qw, q), (sc, s)]
+                    continue
+                if tuple(t.shape) != tuple(dst.shape):
+                    raise ValueError(
+                        f"swap_base: {name!r} shape {tuple(t.shape)} != "
+                        f"serving shape {tuple(dst.shape)} — not "
+                        "signature-identical; roll a new engine instead")
+                staged.append((dst, t.to(self.device, dst.dtype)))
+        label = (str(version) if version is not None
+                 else f"swap-{self.model_swaps + 1}")
+        done = threading.Event()
+        with self._cond:
+            if (self._started and self._loop_thread is not None
+                    and self._loop_thread.is_alive()):
+                if self._pending_swap is not None:
+                    raise RuntimeError(
+                        "swap_base: another swap is already staged")
+                self._pending_swap = (staged, label, done)
+                self._cond.notify_all()
+            else:
+                # no loop running: apply here
+                self._apply_swap(staged, label, done)
+        if not done.wait(timeout if timeout is not None else 1e9):
+            raise TimeoutError(f"swap_base: the step loop did not apply the "
+                               f"swap within {timeout}s")
+        return label
+
+    def _apply_swap(self, staged, label: str, done: threading.Event) -> None:
+        """Copy the staged values into the served tensors (the addresses
+        a captured graph replays stay the same)."""
+        with torch.no_grad():
+            for dst, src in staged:
+                dst.copy_(src)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.model_swaps += 1
+        self.model_version = label
+        done.set()
 
     # -- the step loop -------------------------------------------------------
     def _loop(self):
@@ -771,8 +875,15 @@ class GenerationEngine:
                 while True:
                     with self._cond:
                         while (not self._queue and not self._by_slot
-                               and not self._stop and not self._closed):
+                               and not self._stop and not self._closed
+                               and self._pending_swap is None):
                             self._cond.wait(0.05)
+                        swap, self._pending_swap = self._pending_swap, None
+                    if swap is not None:
+                        # between two steps, on the loop thread: no step
+                        # reads a half-swapped set
+                        self._apply_swap(*swap)
+                    with self._cond:
                         if self._stop or (self._closed and not self._queue
                                           and not self._by_slot):
                             break
@@ -792,6 +903,10 @@ class GenerationEngine:
             # refused instead of queueing work nobody will serve
             with self._cond:
                 self._closed = True
+                swap, self._pending_swap = self._pending_swap, None
+            if swap is not None:
+                # a swap staged against a closing engine still lands
+                self._apply_swap(*swap)
             self._fail_queued(EngineClosed(
                 "engine closed before the request was served"))
             for slot, req in list(self._by_slot.items()):

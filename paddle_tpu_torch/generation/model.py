@@ -29,7 +29,12 @@ Counterparts of ``paddle_tpu/generation/model.py``:
   and the head on it alone (the same values row by row, without the
   ``bucket x vocab`` logits).
 * ``load_jax_params`` — carries the JAX package's weights (the names of
-  ``__params__.npz``) onto a ``GPTLM``.
+  ``__params__.npz``) onto a ``GPTLM``; ``share_params`` makes a
+  ``GPTLM``'s parameters THE tensors of a scope (no copy), which is how
+  the Program Predictor of an LM directory hands the engine its weights.
+* ``build_lm_program`` — the loss-free LM as a Program (``:159`` there,
+  with its helpers ``_ln`` ... ``_pos_embed``, :92-156): what
+  ``save_inference_model`` writes for the Predictor and the engine.
 
 Every matmul of the model is a ``Dense`` named by its JAX weight
 (``dec0_qkv.w`` ...). ``quantize.rewrite_for_inference`` replaces them
@@ -63,15 +68,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import layers, nets
+from ..core.framework import Program, program_guard, unique_name
 from ..kernels import (batched_lora_add_, flash_attention, kv_cache_write,
                        kv_write_targets, layer_norm, paged_attention,
                        quantized_kv_cache_write, quantized_matmul,
                        ragged_paged_attention)
-from ..models.gpt import GPTConfig
+from ..kernels.flash_attention import flash_attention_layer
+from ..models.gpt import GPTConfig, _attr
+from ..param_attr import ParamAttr
 
 __all__ = ["CacheGeometry", "GPTLM", "RaggedStepModel", "PrefillStepModel",
-           "DecodeStepModel", "load_jax_params", "GPTConfig", "LN_EPS",
-           "Dense", "QuantizedDense", "LoraBatch"]
+           "DecodeStepModel", "load_jax_params", "share_params",
+           "build_lm_program", "GPTConfig", "LN_EPS", "Dense",
+           "QuantizedDense", "LoraBatch"]
 
 LN_EPS = 1e-5   # layers/nn.py layer_norm default
 
@@ -232,27 +242,33 @@ class GPTLM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.tok_emb.dtype
 
-    def jax_params(self) -> Dict[str, torch.Tensor]:
-        """Every float parameter under its ``__params__.npz`` name (a
-        quantized weight is held as ``qweight`` + ``scale`` and is not
-        listed)."""
-        out = {"gpt_tok_emb": self.tok_emb, "gpt_pos_emb": self.pos_emb,
-               "gpt_lnf.scale": self.lnf.scale, "gpt_lnf.bias": self.lnf.bias}
+    def param_slots(self):
+        """(``__params__.npz`` name, owner module, attribute) of every
+        float parameter (a quantized weight is held as ``qweight`` +
+        ``scale`` and is not listed)."""
+        yield "gpt_tok_emb", self, "tok_emb"
+        yield "gpt_pos_emb", self, "pos_emb"
+        yield "gpt_lnf.scale", self.lnf, "scale"
+        yield "gpt_lnf.bias", self.lnf, "bias"
         for i, lyr in enumerate(self.layers):
             pre = f"dec{i}"
             for ln in ("ln1", "ln2"):
                 mod = getattr(lyr, ln)
-                out[f"{pre}_{ln}.scale"] = mod.scale
-                out[f"{pre}_{ln}.bias"] = mod.bias
+                yield f"{pre}_{ln}.scale", mod, "scale"
+                yield f"{pre}_{ln}.bias", mod, "bias"
             for fc in DecoderLayer.DENSE:
                 mod = getattr(lyr, fc)
                 if mod.base_kind == "dense":
-                    out[f"{pre}_{fc}.w"] = mod.w
-                out[f"{pre}_{fc}.b"] = mod.b
+                    yield f"{pre}_{fc}.w", mod, "w"
+                yield f"{pre}_{fc}.b", mod, "b"
         if self.head.base_kind == "dense":
-            out["gpt_head.w"] = self.head.w
-        out["gpt_head.b"] = self.head.b
-        return out
+            yield "gpt_head.w", self.head, "w"
+        yield "gpt_head.b", self.head, "b"
+
+    def jax_params(self) -> Dict[str, torch.Tensor]:
+        """Every float parameter under its ``__params__.npz`` name."""
+        return {name: getattr(owner, attr)
+                for name, owner, attr in self.param_slots()}
 
     def dense_layers(self):
         """(parent module, attribute, Dense) of every matmul weight, in
@@ -473,6 +489,114 @@ def load_jax_params(module: GPTLM,
             np.ascontiguousarray(src))
         with torch.no_grad():
             dst.copy_(t.to(device=dst.device, dtype=dst.dtype))
+
+
+def share_params(module: GPTLM, tensors: Dict[str, torch.Tensor]) -> None:
+    """Make every float parameter of ``module`` a Parameter over the
+    tensor of the same ``__params__.npz`` name (storage shared, nothing
+    copied): an in-place write to either side is seen by both. Raises
+    like ``load_jax_params`` on a missing name or a wrong shape."""
+    slots = list(module.param_slots())
+    missing = sorted(n for n, _, _ in slots if n not in tensors)
+    if missing:
+        raise KeyError(f"share_params: missing {missing}")
+    for name, owner, attr in slots:
+        t = tensors[name]
+        if tuple(t.shape) != tuple(getattr(owner, attr).shape):
+            raise ValueError(f"share_params: {name} has shape "
+                             f"{tuple(t.shape)}, the model wants "
+                             f"{tuple(getattr(owner, attr).shape)}")
+        setattr(owner, attr, nn.Parameter(t, requires_grad=False))
+
+
+# -- the LM as a Program ------------------------------------------------------
+
+
+def _ln(x, name):
+    return layers.layer_norm(
+        x, begin_norm_axis=2,
+        param_attr=ParamAttr(name=f"{name}.scale"),
+        bias_attr=ParamAttr(name=f"{name}.bias"))
+
+
+def _qkv_split(x, cfg: GPTConfig, pre: str):
+    qkv = layers.fc(
+        x, 3 * cfg.hidden_size, num_flatten_dims=2,
+        param_attr=_attr(f"{pre}_qkv.w", cfg.initializer_range),
+        bias_attr=ParamAttr(name=f"{pre}_qkv.b"))
+    return layers.split(qkv, 3, dim=2)
+
+
+def _proj_ffn(x, ctx, cfg: GPTConfig, pre: str):
+    """Post-attention half of the decoder layer."""
+    h, std = cfg.hidden_size, cfg.initializer_range
+    proj = layers.fc(
+        ctx, h, num_flatten_dims=2,
+        param_attr=_attr(f"{pre}_proj.w", std),
+        bias_attr=ParamAttr(name=f"{pre}_proj.b"))
+    x = layers.elementwise_add(x, proj)
+    ln2 = _ln(x, f"{pre}_ln2")
+    ffn1 = layers.fc(
+        ln2, cfg.ffn_size, num_flatten_dims=2, act="gelu",
+        param_attr=_attr(f"{pre}_ffn1.w", std),
+        bias_attr=ParamAttr(name=f"{pre}_ffn1.b"))
+    ffn2 = layers.fc(
+        ffn1, h, num_flatten_dims=2,
+        param_attr=_attr(f"{pre}_ffn2.w", std),
+        bias_attr=ParamAttr(name=f"{pre}_ffn2.b"))
+    return layers.elementwise_add(x, ffn2)
+
+
+def _head(x, cfg: GPTConfig):
+    x = _ln(x, "gpt_lnf")
+    return layers.fc(
+        x, cfg.vocab_size, num_flatten_dims=2,
+        param_attr=_attr("gpt_head.w", cfg.initializer_range),
+        bias_attr=ParamAttr(name="gpt_head.b"))
+
+
+def _embed(tokens, cfg: GPTConfig):
+    return layers.embedding(
+        tokens, size=[cfg.vocab_size, cfg.hidden_size],
+        param_attr=_attr("gpt_tok_emb", cfg.initializer_range))
+
+
+def _pos_embed(ids, cfg: GPTConfig):
+    return layers.embedding(
+        ids, size=[cfg.max_position, cfg.hidden_size],
+        param_attr=_attr("gpt_pos_emb", cfg.initializer_range))
+
+
+def build_lm_program(cfg: GPTConfig, seq_len: int):
+    """Loss-free causal LM: tokens [B, seq_len] -> logits [B, seq_len,
+    V], as (main, startup, feeds, fetches). The positions are baked in
+    (``assign(arange(seq_len))``), so the Program runs at its own
+    sequence length; ``use_flash_attention`` emits the fused
+    ``flash_attention`` op (K6 on the card)."""
+    if cfg.moe_every:
+        raise NotImplementedError("GPT MoE layers (moe_every > 0) are not "
+                                  "ported to paddle_tpu_torch yet (ROADMAP "
+                                  "A1)")
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        tokens = layers.data("tokens", [seq_len], dtype="int64")
+        x = layers.elementwise_add(
+            _embed(tokens, cfg),
+            _pos_embed(layers.assign(
+                np.arange(seq_len, dtype="int64")[None, :]), cfg))
+        for i in range(cfg.num_layers):
+            pre = f"dec{i}"
+            ln1 = _ln(x, f"{pre}_ln1")
+            q, k, v = _qkv_split(ln1, cfg, pre)
+            if cfg.use_flash_attention:
+                ctx = flash_attention_layer(q, k, v, cfg.num_heads,
+                                            causal=True)
+            else:
+                ctx = nets.scaled_dot_product_attention(
+                    q, k, v, num_heads=cfg.num_heads, causal=True)
+            x = _proj_ffn(x, ctx, cfg, pre)
+        logits = _head(x, cfg)
+    return main, startup, {"tokens": tokens}, {"logits": logits}
 
 
 def step_feeds(tokens: np.ndarray, pos_ids: np.ndarray, positions: np.ndarray,

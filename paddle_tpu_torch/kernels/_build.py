@@ -29,7 +29,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "source_hash",
-           "count", "recording",
+           "count", "recording", "evaluating_shapes", "takes_plain",
            "find_nvcc", "build", "library", "last_build"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -68,6 +68,9 @@ SIGNATURES: Dict[str, List] = {
     "pt_batched_lora_add": [_vp] * 4 + [ctypes.POINTER(_vp)] * 3
                            + [ctypes.POINTER(_int)] * 2 + [_int] * 10 + [_vp],
 }
+
+# shape evaluation (``runtime.dispatch.eval_shapes``) on this thread
+_shape_eval = threading.local()
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -196,3 +199,27 @@ def recording():
         yield tally
     finally:
         _recording.tally = saved
+
+
+@contextlib.contextmanager
+def evaluating_shapes():
+    """While this thread evaluates shapes on ``meta`` tensors
+    (``runtime.dispatch.eval_shapes``), the wrappers that a Program's
+    ops reach take a meta tensor down their plain version, which
+    computes no values; outside it, a meta tensor raises as any device
+    other than the CPU and CUDA does."""
+    saved = getattr(_shape_eval, "on", False)
+    _shape_eval.on = True
+    try:
+        yield
+    finally:
+        _shape_eval.on = saved
+
+
+def takes_plain(t) -> bool:
+    """Whether a wrapper hands tensor ``t`` to its plain version: a CPU
+    tensor, or a meta tensor inside ``evaluating_shapes``. A CUDA tensor
+    never does: it launches the kernel or raises."""
+    kind = t.device.type
+    return kind == "cpu" or (kind == "meta"
+                             and getattr(_shape_eval, "on", False))

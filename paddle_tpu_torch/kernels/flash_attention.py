@@ -159,7 +159,7 @@ def _check(what, q, k, v, mask, bias):
     for name, t in (("k", k), ("v", v), ("mask", mask), ("bias", bias)):
         if t is not None and t.device != q.device:
             raise ValueError(f"{what}: {name} on {t.device}, q on {q.device}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type != "cuda" and not _build.takes_plain(q):
         raise ValueError(f"{what}: unsupported device {q.device}")
 
 
@@ -207,7 +207,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention_fwd_plain``; CUDA tensors run the forward kernel,
     counted in ``flash_attention_fwd.launches``."""
     _check("flash_attention_fwd", q, k, v, mask, bias)
-    if q.device.type == "cpu":
+    if _build.takes_plain(q):
         return flash_attention_fwd_plain(q, k, v, mask, bias, sm_scale,
                                          causal, with_lse)
     code = _kernel_args("flash_attention_fwd", q, (k, v), mask, bias)

@@ -184,7 +184,7 @@ def _check(what, x, vecs, stats=()):
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != x.device:
             raise ValueError(f"{what}: {name} on {t.device}, x on {x.device}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type != "cuda" and not _build.takes_plain(x):
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
@@ -227,7 +227,7 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     one dtype). CPU tensors run ``layer_norm_plain``; CUDA tensors run
     K1, counted in ``layer_norm.launches``."""
     _check("layer_norm", x, (("gamma", gamma), ("beta", beta)))
-    if x.device.type == "cpu":
+    if _build.takes_plain(x):
         return layer_norm_plain(x, gamma, beta, eps)
     return _launch_fwd(x, gamma, beta, eps, stats=False)[0]
 
@@ -242,7 +242,7 @@ def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     forward of the training path. Counted in ``layer_norm.launches``
     (the same kernel)."""
     _check("layer_norm", x, (("gamma", gamma), ("beta", beta)))
-    if x.device.type == "cpu":
+    if _build.takes_plain(x):
         return layer_norm_fwd_plain(x, gamma, beta, eps)
     return _launch_fwd(x, gamma, beta, eps, stats=True)
 

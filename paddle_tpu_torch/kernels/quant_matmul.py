@@ -191,7 +191,8 @@ def quantized_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
                      *, mode: str = "int8", block: int = DEFAULT_BLOCK
                      ) -> torch.Tensor:
     """``x [..., K] @ dequant(qw [K, N])`` -> ``[..., N]`` in x's dtype.
-    CPU tensors run ``quantized_matmul_plain``; CUDA tensors run K11 on
+    CPU tensors (and meta ones under ``_build.evaluating_shapes``) run
+    ``quantized_matmul_plain``; CUDA tensors run K11 on
     the tensor cores, counted in ``quantized_matmul.launches``
     (int8_block with a block that is not a multiple of 16:
     ``quantized_matmul_fma``)."""
@@ -209,7 +210,7 @@ def quantized_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
         raise TypeError(f"quantized_matmul: mode {mode!r} takes a "
                         f"{weight_dtype(mode)} weight, got {qw.dtype}")
     x2 = x.reshape(-1, K)
-    if x.device.type == "cpu":
+    if _build.takes_plain(x):
         return quantized_matmul_plain(x2, qw, scales, mode,
                                       block).reshape(*lead, N)
     if x.device.type != "cuda":

@@ -2,27 +2,41 @@
 serving (counterpart of ``paddle_tpu/quantize/__init__.py``:
 ``QuantizeReport`` :70, ``rewrite_for_inference`` :176).
 
-The port's serving path runs ``nn.Module``s, not a Program, so the
-rewrite walks the module tree: every ``Dense`` of a ``GPTLM`` (the
-matmul weights, in the order the JAX program consumes them) is replaced
-in place by a ``QuantizedDense`` holding the int8 / fp8 weight and its
-float32 scale plane (``kernels.quant_matmul.quantize_weight``), run by
-the K11 kernel on CUDA. The float original is dropped, so the memory
-win is real. Since the predictor and the generation engine share the
-module tree, they share one set of quantized weights.
+``rewrite_for_inference`` takes either of the port's two forms of a
+model:
 
-Eligibility and the report follow the JAX function row for row: the
-quantized weights with their shapes and bytes, and the skip reasons in
-the same words (the ``tok_emb`` / ``pos_emb`` tables are "never
-consumed as a matmul right-hand operand"). A second call is a no-op
-that checks the mode and block: decoding one format's bytes as another
-would be silent garbage, so a mismatch raises.
+* a Program and its Scope (``rewrite_for_inference(program, scope,
+  wdtype, block, min_elements)``, the JAX function): every eligible
+  weight (a 2-D float persistable consumed only as the right-hand
+  operand of ``mul`` / ``matmul`` / ``matmul_v2``) is quantized once in
+  the scope into ``{name}.q`` and ``{name}.qscale``
+  (``kernels.quant_matmul.quantize_weight``), the float original is
+  erased from the scope, and its consumers become ``quantized_fc`` /
+  ``quantized_matmul`` ops (K11 on CUDA). ``scope._quantize_meta``
+  records each weight's (mode, block), so a second program over the
+  same scope reuses the buffers or raises on another format;
+* a ``GPTLM`` module (the engine's form): every ``Dense`` (the matmul
+  weights, in the order the JAX program consumes them) is replaced in
+  place by a ``QuantizedDense`` holding the int8 / fp8 weight and its
+  float32 scale plane. A ``Dense`` already quantized is checked for its
+  mode and block. The Program Predictor of an LM directory builds its
+  ``QuantizedDense``s over the scope's ``.q`` / ``.qscale`` tensors, so
+  the program and the engine share one set of quantized weights.
+
+The report follows the JAX function row for row: the quantized weights
+with their shapes and bytes, and the skip reasons in the same words
+(the embedding tables are "never consumed as a matmul right-hand
+operand"). Decoding one format's bytes as another would be silent
+garbage, so a mode or block that differs from what the scope or module
+holds raises.
 
 Opt-in is the ``quantize_weights`` flag ("off" | "int8" | "int8_block"
 | "fp8"), read at Predictor construction
 (``Config.enable_weight_quantization`` overrides it per instance) and by
-the GenerationEngine (``quantize_weights=``). ``calibrate`` (the w8a8
-activation observers over a Program) is not ported (ROADMAP A7).
+the GenerationEngine (``quantize_weights=``). The partition tags the
+JAX rewrite stamps onto the quantized vars belong to ROADMAP A10;
+``calibrate`` (the w8a8 activation observers over a Program) is not
+ported (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -31,8 +45,10 @@ from typing import Any, Dict, List
 
 import torch
 
+from ..core.framework import Program
 from ..kernels.quant_matmul import (DEFAULT_BLOCK, QUANT_MODES,
-                                    quantize_weight, quantized_weight_bytes)
+                                    quantize_weight, quantized_weight_bytes,
+                                    scale_shape)
 
 __all__ = ["rewrite_for_inference", "QuantizeReport", "QUANT_MODES",
            "DEFAULT_BLOCK"]
@@ -98,18 +114,171 @@ class QuantizeReport:
         return {"summary": self.summary(), "vars": list(self.rows)}
 
 
-def rewrite_for_inference(model, wdtype: str = "int8",
-                          block: int = DEFAULT_BLOCK,
-                          min_elements: int = 0) -> QuantizeReport:
-    """Quantize every eligible matmul weight of ``model`` (a ``GPTLM``)
-    in place, on the weights' device; returns the ``QuantizeReport``.
-    Idempotent; raises ValueError when the model already holds weights
-    quantized with another mode or block."""
+def _check_wdtype(wdtype: str) -> None:
     if wdtype not in QUANT_MODES:
         raise ValueError(
             f"rewrite_for_inference: wdtype must be one of {QUANT_MODES} "
             f"(or gate on the 'off' flag value before calling), "
             f"got {wdtype!r}")
+
+
+def rewrite_for_inference(target, *args, **kwargs) -> QuantizeReport:
+    """``rewrite_for_inference(program, scope, wdtype="int8",
+    block=DEFAULT_BLOCK, min_elements=0)`` or
+    ``rewrite_for_inference(model, wdtype="int8", block=DEFAULT_BLOCK,
+    min_elements=0)``: see the module docstring. Returns the
+    ``QuantizeReport``."""
+    if isinstance(target, Program):
+        return _rewrite_program(target, *args, **kwargs)
+    return _rewrite_module(target, *args, **kwargs)
+
+
+# op types whose right-hand ("Y") operand is a weight the rewrite can
+# quantize, with the attr that would make it ineligible
+_MATMUL_OPS = {"mul": None, "matmul": "transpose_Y", "matmul_v2": "trans_y"}
+_QUANTIZED_OPS = {"quantized_fc", "quantized_matmul"}
+
+
+def _weight_uses(program):
+    """name -> [(op, role)] over every block: role "weight" (an
+    eligible right-hand matmul operand), "transposed" (under a
+    Y-transpose) or "<op type>:<slot>" for any other use."""
+    uses: Dict[str, List] = {}
+    for blk in program.blocks:
+        for op in blk.ops:
+            if op.type in ("feed", "fetch"):
+                continue
+            is_mm = op.type in _MATMUL_OPS
+            tattr = _MATMUL_OPS.get(op.type)
+            y = op.inputs.get("Y", []) if is_mm else []
+            for slot, names in op.inputs.items():
+                for n in names:
+                    if is_mm and slot == "Y" and len(y) == 1:
+                        role = ("transposed"
+                                if tattr and op.attrs.get(tattr, False)
+                                else "weight")
+                    else:
+                        role = f"{op.type}:{slot}"
+                    uses.setdefault(n, []).append((op, role))
+    return uses
+
+
+def _rewrite_program(program, scope, wdtype: str = "int8",
+                     block: int = DEFAULT_BLOCK,
+                     min_elements: int = 0) -> QuantizeReport:
+    _check_wdtype(wdtype)
+    block = int(block)
+    report = QuantizeReport(wdtype, block)
+    gb = program.global_block()
+    rewrote = False
+    for name, consumers in _weight_uses(program).items():
+        var = gb._find_var_recursive(name)
+        if var is None or not var.persistable:
+            continue
+        shape, dtype = var.shape, var.dtype
+        if not any(role == "weight" for _op, role in consumers):
+            # a 2-D float table no matmul reads (an embedding): say why
+            # it stays float; the scale planes of already-quantized ops
+            # are this pass's own output and are not reported
+            if (var.ndim == 2 and dtype in ("float32", "bfloat16")
+                    and not all(role.split(":")[0] in _QUANTIZED_OPS
+                                for _op, role in consumers)):
+                kinds = sorted({role for _op, role in consumers})
+                report.skipped(name, shape, dtype,
+                               "never consumed as a matmul right-hand "
+                               f"operand (ops: {', '.join(kinds)})")
+            continue
+        bad = [(op, role) for op, role in consumers if role != "weight"]
+        if var.ndim != 2:
+            report.skipped(name, shape, dtype, f"not 2-D (shape {shape})")
+            continue
+        if dtype not in ("float32", "bfloat16"):
+            report.skipped(name, shape, dtype,
+                           f"dtype {dtype} is not a float weight")
+            continue
+        if bad:
+            kinds = sorted({role for _op, role in bad})
+            report.skipped(name, shape, dtype,
+                           "also consumed outside an eligible matmul "
+                           f"right-hand operand: {', '.join(kinds)}")
+            continue
+        n_el = int(shape[0]) * int(shape[1])
+        if n_el < min_elements:
+            report.skipped(name, shape, dtype,
+                           f"{n_el} elements < min_elements {min_elements}")
+            continue
+        qname, sname = name + ".q", name + ".qscale"
+        meta = getattr(scope, "_quantize_meta", None)
+        if meta is None:
+            meta = scope._quantize_meta = {}
+        if scope.find_var(qname) is None:
+            val = scope.find_var(name)
+            if val is None:
+                report.skipped(name, shape, dtype,
+                               "weight missing from scope (run the startup "
+                               "program / load the checkpoint before "
+                               "rewriting)")
+                continue
+            with torch.no_grad():
+                q, s = quantize_weight(torch.as_tensor(val), wdtype, block)
+            scope.set_var(qname, q.contiguous())
+            scope.set_var(sname, s.contiguous())
+            meta[name] = (wdtype, block)
+        else:
+            # the scope's buffer must be of THIS mode and block
+            have = meta.get(name)
+            if have is None:
+                want_dt = (torch.float8_e4m3fn if wdtype == "fp8"
+                           else torch.int8)
+                sval = scope.find_var(sname)
+                ok = (scope.find_var(qname).dtype == want_dt
+                      and sval is not None
+                      and tuple(sval.shape) == scale_shape(shape, wdtype,
+                                                           block))
+            else:
+                ok = have == (wdtype, block)
+            if not ok:
+                raise ValueError(
+                    f"rewrite_for_inference: scope already holds {qname!r} "
+                    f"quantized as {have or 'an incompatible format'}, but "
+                    f"wdtype={wdtype!r} block={block} was requested — "
+                    "every program sharing one scope must quantize with "
+                    "the same mode and block")
+        # the memory win is real: the float original leaves the scope
+        if scope.find_var(name) is not None:
+            scope.erase(name)
+        if not gb.has_var(qname):
+            qdtype = "float8_e4m3fn" if wdtype == "fp8" else "int8"
+            gb.create_parameter(qname, list(shape), qdtype, trainable=False,
+                                stop_gradient=True)
+            gb.create_parameter(sname, list(scale_shape(shape, wdtype, block)),
+                                "float32", trainable=False,
+                                stop_gradient=True)
+        for op, _role in consumers:
+            if op.type == "mul":
+                op.type = "quantized_fc"
+                op.attrs.pop("y_num_col_dims", None)
+            else:
+                op.type = "quantized_matmul"
+                op.attrs.pop("transpose_Y", None)
+                op.attrs.pop("trans_y", None)
+            op.inputs = {"X": list(op.inputs["X"]), "QWeight": [qname],
+                         "Scale": [sname]}
+            op.attrs["quant_mode"] = wdtype
+            op.attrs["quant_block"] = block
+        for blk in program.blocks:
+            blk.vars.pop(name, None)
+        report.quantized(name, shape, dtype,
+                         quantized_weight_bytes(shape, wdtype, block))
+        rewrote = True
+    if rewrote:
+        program._bump()
+    return report
+
+
+def _rewrite_module(model, wdtype: str = "int8", block: int = DEFAULT_BLOCK,
+                    min_elements: int = 0) -> QuantizeReport:
+    _check_wdtype(wdtype)
     # imported here: the generation package imports this module
     from ..generation.model import QuantizedDense
 

@@ -24,6 +24,20 @@ per step (``LoweringContext.op_generator``), so a capture would replay
 one step's dropout masks, and the warm-up a capture needs would update
 the parameters in place. The generation engine's fixed-shape steps are
 graphed (``runtime/graphs.py``).
+
+Bound steps are shared by the Predictor's clones (a serving worker
+pool), so ``run`` may be entered from several threads at once: each run
+keeps its values in its own environment, the step counter is drawn
+under the executor's lock, and the cached state refs are replaced as a
+whole.
+
+Also here, for the Predictor's shape bucketing: ``feed_signature`` and
+``pad_to`` (the reference's :333, :352), and ``eval_shapes``, the
+counterpart of ``jax.eval_shape`` over a block: the plan runs on
+``meta`` tensors, which carry shapes and dtypes and compute nothing.
+Inside it (``kernels._build.evaluating_shapes``) the kernel wrappers
+take a meta tensor down their plain version; a CUDA tensor never goes
+that way, and outside it a meta tensor raises.
 """
 
 from __future__ import annotations
@@ -36,8 +50,93 @@ import torch
 from ..core.executor import _Plan, to_numpy, torch_dtype
 from ..core.framework import Block
 from ..core.registry import LoweringContext, run_recorded
+from ..kernels import _build
 
-__all__ = ["BoundStep", "scope_chain_generation"]
+__all__ = ["BoundStep", "scope_chain_generation", "feed_signature",
+           "pad_to", "eval_shapes"]
+
+
+def _dtype_name(dt) -> str:
+    s = str(dt)
+    return s[len("torch."):] if s.startswith("torch.") else s
+
+
+def feed_signature(feed: Dict[str, Any]) -> tuple:
+    """(name, shape, dtype name) per feed, sorted by name, from the
+    values' metadata (tensors and numpy arrays give the same names);
+    only a value with neither attribute (a list, a scalar) is converted
+    with ``np.asarray``."""
+    sig = []
+    for n in sorted(feed):
+        v = feed[n]
+        shp = getattr(v, "shape", None)
+        dt = getattr(v, "dtype", None)
+        if shp is None or dt is None:
+            v = np.asarray(v)
+            shp, dt = v.shape, v.dtype
+        sig.append((n, tuple(int(d) for d in shp), _dtype_name(dt)))
+    return tuple(sig)
+
+
+def pad_to(value, pads) -> Any:
+    """Zero-pad one feed value by ``pads`` ((before, after) per dim): a
+    tensor on its device (``F.pad``), anything else as numpy. No copy
+    when nothing is padded."""
+    if not any(p != (0, 0) for p in pads):
+        return value
+    if isinstance(value, torch.Tensor):
+        flat = []
+        for before, after in reversed(list(pads)):
+            flat += [int(before), int(after)]
+        return torch.nn.functional.pad(value, flat)
+    return np.pad(np.asarray(value), pads)
+
+
+def eval_shapes(program, feed: Dict[str, Any], fetch_names: Sequence[str],
+                scope) -> List[tuple]:
+    """The shape of each fetch when ``program`` runs on ``feed``,
+    without computing anything: the block's plan runs on ``meta``
+    tensors of the feeds' shapes (in the dtypes their variables
+    declare) and of the scope's state."""
+    block = program.global_block()
+    feed_names = sorted(feed)
+    plan = _Plan(block, feed_names, fetch_names)
+    meta = torch.device("meta")
+    env: Dict[str, Any] = {}
+    for n in feed_names:
+        v = feed[n]
+        shp = getattr(v, "shape", None)
+        if shp is None:
+            v = np.asarray(v)
+            shp = v.shape
+        if block.has_var(n):
+            dt = torch_dtype(block.var(n).dtype)
+        elif isinstance(v, torch.Tensor):
+            dt = v.dtype
+        else:
+            a = np.asarray(v)
+            a = a.astype(np.float32) if a.dtype == np.float64 else a
+            dt = torch.from_numpy(np.empty(0, a.dtype)).dtype
+        env[n] = torch.empty(tuple(shp), dtype=dt, device=meta)
+    for n in plan.state_names:
+        v = scope.find_var(n)
+        if v is None:
+            raise RuntimeError(f"persistable var {n!r} not found in scope")
+        if not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+        env[n] = torch.empty(v.shape, dtype=v.dtype, device=meta)
+    ctx = LoweringContext(meta, seed=0, step=0, live=plan.live, constants={})
+    with torch.no_grad(), _build.evaluating_shapes():
+        for i, (op, opdef) in enumerate(zip(plan.ops, plan.defs)):
+            ins = {slot: [env[n] for n in names]
+                   for slot, names in plan.reads[i]}
+            outs = opdef.lower(ctx, op, ins)
+            for slot, names in op.outputs.items():
+                for j, n in enumerate(names):
+                    vals = outs.get(slot, [])
+                    if j < len(vals):
+                        env[n] = vals[j]
+    return [tuple(int(d) for d in env[n].shape) for n in fetch_names]
 
 
 def scope_chain_generation(scope) -> int:
@@ -135,8 +234,7 @@ class BoundStep:
         env.update(zip(plan.state_names, self.state_vals))
 
         ex = self.executor
-        ex._run_counter += 1
-        ctx = LoweringContext(ex.device, seed=self.seed, step=ex._run_counter,
+        ctx = LoweringContext(ex.device, seed=self.seed, step=ex._next_step(),
                               live=plan.live, constants=ex._constants)
         with torch.no_grad():
             for i, (op, opdef) in enumerate(zip(plan.ops, plan.defs)):

@@ -130,6 +130,11 @@ def graph_launches(names: List[str], tally: Mapping[str, int],
     return nodes
 
 
+# the capture mode of every GraphedStep: only the capturing thread's
+# unsafe calls count against the capture ("global", torch's default,
+# would fail it on any thread's cudaMalloc or synchronize)
+CAPTURE_ERROR_MODE = "thread_local"
+
 class GraphedStep:
     """``step(**feeds, **state)`` over static buffers of the shapes and
     dtypes ``feeds`` names (``{name: (shape, dtype)}``); ``state`` is
@@ -212,7 +217,10 @@ class GraphedStep:
         """Capture the step over the static buffers as a CUDA graph, on a
         side stream after one eager call there (PyTorch's graph recipe:
         the library handles and workspaces a capture must not create are
-        made then). The buffers are zeroed first: every row of those
+        made then). The capture is ``thread_local``
+        (``CAPTURE_ERROR_MODE``): another thread of the process that
+        allocates or synchronizes meanwhile (a serving worker, an HTTP
+        handler copying a result to the host) does not break it. The buffers are zeroed first: every row of those
         calls is idle and writes only junk page 0. The replays' launch
         counts are the graph's kernel nodes (``graph_launches``). Raises
         ``RuntimeError`` when the step cannot be captured."""
@@ -235,7 +243,8 @@ class GraphedStep:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
             with _build.recording() as tally, \
-                    torch.cuda.graph(graph, stream=side):
+                    torch.cuda.graph(graph, stream=side,
+                                     capture_error_mode=CAPTURE_ERROR_MODE):
                 out = self.step(**self.static, **self.state)
             graph.instantiate()
         except Exception as e:

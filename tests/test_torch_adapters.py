@@ -19,6 +19,7 @@ from paddle_tpu.inference import Config as JaxConfig
 from paddle_tpu.inference import create_predictor as jax_create_predictor
 from paddle_tpu.kernels import lora as jlora
 from paddle_tpu.kernels import quant_matmul as jqm
+from paddle_tpu_torch import io as port_io
 from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch import set_flags
 from paddle_tpu_torch.adapters import (AdapterError, AdapterInUse,
@@ -275,8 +276,8 @@ def test_targets_equal_jax_and_rewrite_is_idempotent(lm_dir):
     assert again.n_repointed == 0
     assert all(r["reason"] == "already a batched-LoRA op" for r in again.rows)
     # the predictor is untouched: its forward takes no adapters
-    (logits,) = pred.run([np.zeros((1, 5), np.int64)])
-    assert np.all(np.isfinite(logits))
+    logits = pred.lm(torch.zeros((1, 5), dtype=torch.long))
+    assert bool(torch.isfinite(logits).all())
     # a store over other shapes leaves those weights alone
     other = AdapterStore({"dec0_qkv.w": (32, 96), "gpt_head.w": (31, 97)})
     from paddle_tpu_torch.generation import CacheGeometry, RaggedStepModel
@@ -385,6 +386,75 @@ def test_mixed_batch_rows_equal_dedicated_engines(lm_dir):
         assert out == mixed[i], f"{aid} diverged from a dedicated engine"
 
 
+@pytest.mark.parametrize("mode,kv", [("int8", "int8"), ("off", "float32")])
+def test_hot_swap_zero_drop_same_graph(lm_dir, mode, kv):
+    """Hot base swap under live submissions (the twin of
+    tests/test_adapters.py::test_hot_swap_zero_drop_same_executable):
+    zero failed requests, the SAME bound step object, one swap counted,
+    and afterwards the tokens of JAX's engine after the same swap on the
+    same weights, which differ from the tokens before it. A mismatched
+    shape is refused."""
+    import threading
+
+    rng = np.random.RandomState(9)
+    prompt = np.asarray([2, 9, 4, 11, 6], np.int64)
+    saved = port_io.read_params_file(lm_dir)
+    eng = _port_engine(lm_dir, mode, lanes=3, kv=kv)
+    try:
+        aid, fac, alpha = _adapters(eng.adapter_store.targets)[0]
+        eng.adapter_store.upload(aid, fac, alpha=alpha)
+        before = eng.generate(prompt, max_new_tokens=8, timeout=600)
+        bound = eng._ragged_bound
+        new_w = {t: saved[t] + rng.randn(*saved[t].shape).astype(
+                     np.float32) * 0.02
+                 for t in sorted(eng.adapter_store.targets)}
+        failures, done, stop = [], [], threading.Event()
+
+        def pump():
+            i = 0
+            while not stop.is_set():
+                try:
+                    s = eng.submit(prompt, max_new_tokens=3,
+                                   adapter=aid if i % 2 else None)
+                    s.result(timeout=300)
+                    done.append(1)
+                except Exception as e:  # noqa: BLE001
+                    failures.append(repr(e))
+                i += 1
+
+        th = threading.Thread(target=pump, daemon=True)
+        th.start()
+        while not done:
+            th.join(0.01)
+        label = eng.swap_base(new_w, version="v2")
+        stop.set()
+        th.join(60)
+        assert not th.is_alive()
+        assert label == "v2" and eng.model_version == "v2"
+        assert eng.model_swaps == 1 and eng.stats()["model_swaps"] == 1
+        assert eng.models_fragment()["base"]["version"] == "v2"
+        assert failures == [] and len(done) >= 1
+        assert eng._ragged_bound is bound
+        after = eng.generate(prompt, max_new_tokens=8, timeout=600)
+        after_ad = eng.generate(prompt, max_new_tokens=8, adapter=aid,
+                                timeout=600)
+        assert after != before
+        with pytest.raises(ValueError, match="signature-identical"):
+            eng.swap_base({"dec0_qkv.w": np.zeros((3, 3), "float32")})
+        with pytest.raises(ValueError, match="signature-identical"):
+            eng.swap_base({"dec0_nope.w": np.zeros((3, 3), "float32")})
+        assert eng.model_swaps == 1
+    finally:
+        eng.close(drain=True)
+    with _jax_engine(lm_dir, mode, lanes=3, kv=kv) as jeng:
+        jeng.adapter_store.upload(factors=fac, adapter_id=aid, alpha=alpha)
+        assert jeng.generate(prompt, max_new_tokens=8, timeout=600) == before
+        jeng.swap_base(new_w, version="v2")
+        assert jeng.generate(prompt, max_new_tokens=8, timeout=600) == after
+        assert jeng.generate(prompt, max_new_tokens=8, adapter=aid,
+                             timeout=600) == after_ad
+
+
 def test_adapter_missing_refcounts_and_forced_eviction(lm_dir):
     """AdapterMissing at submit; adapters pinned from submit to the
     request's end; a forced eviction fails only that adapter's rows, at
@@ -433,6 +503,4 @@ def test_adapter_flags_build_a_store(lm_dir):
     assert st is not None and st.rank_buckets == (4, 8)
     assert st.slots == (4, 4) and st.tenant_quota == 2
     assert eng.lora_report.n_repointed == 9
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.swap_base({})
     eng.close()

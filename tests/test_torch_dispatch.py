@@ -15,8 +15,9 @@ counter names:
 The reference's other cases have no counterpart in the port yet: :58
 and :78 share compiled executables between executors and clones, which
 an eager port does not build; :161 is the persistent compilation cache;
-:212, :239, :263, :279 and :305 are strategies, sharding and pipelines
-(ROADMAP A10) and the Program predictor (A13).
+:212, :239, :263 and :279 are strategies, sharding and pipelines
+(ROADMAP A10). :305, the Program predictor's bucketing of a static
+dim 1, is ``test_predictor_pad_feed_skips_static_dim1``.
 
 The engine's cases: each step kind has one bound object for the
 engine's life, run once an engine step; a step with fewer live rows
@@ -409,3 +410,41 @@ def test_graph_launches_must_equal_the_wrappers_tally():
     # makes the capture raise
     with pytest.raises(RuntimeError, match="fused_adam_update"):
         graph_launches(names, dict(tally, fused_adam_update=1), "mixed")
+
+
+def test_predictor_pad_feed_skips_static_dim1(tmp_path):
+    """Bucketing never zero-pads dim 1 of a feed whose declared second
+    dim is static ([B, F] features): only declared-dynamic (sequence)
+    feeds bucket on dim 1. Outputs equal the JAX predictor's."""
+    import paddle_tpu as jfluid
+    from paddle_tpu.inference import Config as JaxConfig
+    from paddle_tpu.inference import create_predictor as jax_create
+
+    from paddle_tpu_torch.inference import create_predictor
+
+    main, startup = jfluid.Program(), jfluid.Program()
+    with jfluid.program_guard(main, startup), jfluid.unique_name.guard():
+        feats = jfluid.layers.data("feats", [6])  # static dim 1
+        out = jfluid.layers.fc(feats, 3, act="softmax")
+    scope = jfluid.Scope()
+    with jfluid.scope_guard(scope):
+        exe = jfluid.Executor(jfluid.CPUPlace())
+        exe.run(startup)
+        jfluid.io.save_inference_model(str(tmp_path), ["feats"], [out], exe,
+                                       main)
+    cfg = Config(str(tmp_path))
+    cfg.enable_shape_bucketing(seq_buckets=(16, 32), batch_buckets=(4, 8))
+    pred = create_predictor(cfg, device="cpu")
+    jpred = jax_create(JaxConfig(str(tmp_path)))
+    rng = np.random.RandomState(3)
+    for b in (1, 3, 5):
+        f = rng.rand(b, 6).astype("float32")
+        (got,) = pred.run([f])
+        (want,) = jpred.run([f])
+        assert got.shape == np.asarray(want).shape == (b, 3)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-6)
+    assert pred._seq_feed_names == set()
+    st = pred.bucket_stats()
+    assert st["compiled_shapes"] == 2  # batch buckets 4 and 8 only
+    assert set(st["bucket_hits"]) == {"4,6", "8,6"}

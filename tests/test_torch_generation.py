@@ -66,7 +66,7 @@ def _prompts(n, lo=3, hi=12, seed=0):
 
 
 def test_load_params_carries_every_name(lm_dir, port_pred):
-    params = port_io.load_params(lm_dir)
+    params = port_io.read_params_file(lm_dir)
     lm = port_pred.lm
     assert set(params) == set(lm.jax_params())
     for name, t in lm.jax_params().items():
@@ -78,7 +78,7 @@ def test_load_params_carries_every_name(lm_dir, port_pred):
 
 
 def test_load_jax_params_refuses_missing_and_misshaped(lm_dir, port_pred):
-    params = port_io.load_params(lm_dir)
+    params = port_io.read_params_file(lm_dir)
     fresh = GPTLM(port_pred.gpt_config, device="cpu")
     missing = dict(params)
     del missing["dec1_ffn2.b"]
@@ -93,7 +93,7 @@ def test_load_jax_params_refuses_missing_and_misshaped(lm_dir, port_pred):
 
 
 def test_config_read_from_the_saved_directory(lm_dir, port_pred):
-    cfg = port_io.gpt_config_from_model(port_io.load_params(lm_dir),
+    cfg = port_io.gpt_config_from_model(port_io.read_params_file(lm_dir),
                                         port_io.load_model_meta(lm_dir))
     for field in ("vocab_size", "hidden_size", "num_layers", "num_heads",
                   "ffn_size", "max_position"):
@@ -221,8 +221,8 @@ def test_engine_matches_its_predictor_greedy(port_pred):
         streamed = list(stream)
     toks = list(p)
     for want in streamed:
-        (logits,) = port_pred.run([np.asarray(toks)[None]])
-        assert int(np.argmax(logits[0, -1])) == want
+        logits = port_pred.lm(torch.as_tensor(np.asarray(toks)[None]))
+        assert int(torch.argmax(logits[0, -1])) == want
         toks.append(want)
     assert stream.result() == streamed
 

@@ -181,8 +181,9 @@ def test_engine_on_cuda_matches_cpu(cuda):
              for dev in ("cpu", "cuda")}
     rng = np.random.RandomState(2)
     tokens = rng.randint(0, cfg.vocab_size, (2, 40))
-    np.testing.assert_allclose(preds["cuda"].run([tokens])[0],
-                               preds["cpu"].run([tokens])[0],
+    logits = {dev: p.lm(torch.as_tensor(tokens)).cpu().numpy()
+              for dev, p in preds.items()}
+    np.testing.assert_allclose(logits["cuda"], logits["cpu"],
                                rtol=1e-4, atol=1e-4)
     prompts = [rng.randint(1, cfg.vocab_size, n) for n in (9, 23, 4, 14)]
     out = {}
@@ -1384,3 +1385,150 @@ def test_graph_capture_failure_raises(cuda, monkeypatch):
                          max_decode_batch=2, chunk_tokens=6)
     x = torch.arange(4.0, device=cuda)
     assert float((x * 2).sum()) == 12.0
+
+
+# -- the Program predictor, serving and the hot swap on the card ---------------
+
+
+def _save_tiny_lm(tmp_path, seq=24):
+    """A tiny build_lm_program GPT, initialized on the CPU by the port's
+    startup program and saved with save_inference_model."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.generation import build_lm_program
+
+    main, startup, _f, fetches = build_lm_program(GRAPH_CFG, seq)
+    main.random_seed = startup.random_seed = 3
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(startup)
+        fluid.io.save_inference_model(str(tmp_path), ["tokens"],
+                                      [fetches["logits"]], exe, main)
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("mode", ["off", "int8"])
+def test_program_predictor_on_cuda_matches_cpu(cuda, tmp_path, mode):
+    """The LM Program runs K1 (and, quantized at load, K11) with exact
+    launches a run, and its logits equal the CPU's within the float32
+    tolerance and the module's over the same tensors."""
+    d = _save_tiny_lm(tmp_path)
+    preds = {}
+    for dev in ("cpu", "cuda"):
+        c = Config(d)
+        if mode != "off":
+            c.enable_weight_quantization(mode)
+        preds[dev] = create_predictor(c, dev)
+    tokens = np.random.RandomState(5).randint(0, 97, (3, 24))
+    (want,) = preds["cpu"].run([tokens])
+    before = K.launch_counts()
+    (got,) = preds["cuda"].run([tokens])
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    L = GRAPH_CFG.num_layers
+    assert after["layer_norm"] - before["layer_norm"] == 2 * L + 1
+    assert (after["quantized_matmul"] - before["quantized_matmul"]
+            == (4 * L + 1 if mode != "off" else 0))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    lm = preds["cuda"].lm(torch.as_tensor(tokens)).cpu().numpy()
+    np.testing.assert_allclose(got, lm, rtol=1e-4, atol=1e-4)
+
+
+def test_meta_shape_route_never_takes_a_cuda_tensor(cuda):
+    """Inside shape evaluation a meta tensor takes the plain version; a
+    CUDA tensor still launches the kernel."""
+    from paddle_tpu_torch.kernels import _build
+
+    # no draw from the card's generator: a failed capture earlier in
+    # the file (test_graph_capture_failure_raises) leaves it unusable
+    x = torch.linspace(-2.0, 3.0, 256, device=cuda).reshape(4, 64)
+    g, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    before = K.layer_norm.launches
+    with _build.evaluating_shapes():
+        assert not _build.takes_plain(x)
+        y = K.layer_norm(x, g, b)
+        m = K.layer_norm(x.to("meta"), g.to("meta"), b.to("meta"))
+    torch.cuda.synchronize()
+    assert K.layer_norm.launches == before + 1
+    assert y.is_cuda and m.device.type == "meta"
+    torch.testing.assert_close(y, K.layer_norm_plain(x, g, b), **TOL[
+        torch.float32])
+
+
+def test_graph_capture_beside_a_serving_worker(cuda, tmp_path):
+    """A GenerationEngine captures its step's CUDA graph while a
+    ServingEngine's workers run Program requests on the card (another
+    thread allocating and synchronizing): the capture holds, and the
+    engine's tokens equal an engine captured alone."""
+    import threading
+
+    from paddle_tpu_torch.serving import ServingEngine
+
+    d = _save_tiny_lm(tmp_path)
+    pred = create_predictor(Config(d), "cuda")
+    serve = ServingEngine(pred, max_batch_size=4, num_workers=2)
+    stop, errors, done = threading.Event(), [], []
+    tokens = np.random.RandomState(1).randint(0, 97, (2, 24))
+
+    def pump():
+        while not stop.is_set():
+            try:
+                serve.predict({"tokens": tokens}, timeout=60)
+                done.append(1)
+            except Exception as e:  # noqa: BLE001
+                errors.append(repr(e))
+
+    th = threading.Thread(target=pump, daemon=True)
+    th.start()
+    try:
+        while not done:
+            th.join(0.01)
+        eng = GenerationEngine(pred, pred.gpt_config, page_size=4,
+                               num_pages=64, max_decode_batch=4, warmup=True)
+        got = eng.generate([5, 9, 2, 40], max_new_tokens=8, timeout=120)
+        assert eng.stats()["graph_captures"] == 1
+        eng.close()
+    finally:
+        stop.set()
+        th.join(60)
+        serve.close()
+    assert not errors, errors
+    with GenerationEngine(pred, pred.gpt_config, page_size=4, num_pages=64,
+                          max_decode_batch=4, warmup=True) as alone:
+        assert alone.generate([5, 9, 2, 40], max_new_tokens=8,
+                              timeout=120) == got
+
+
+@pytest.mark.parametrize("mode", ["off", "int8"])
+def test_swap_base_under_graph_equals_a_fresh_engine(cuda, mode):
+    """swap_base copies into the tensors the captured graph replays: no
+    recapture, and the tokens after it equal an engine built on the new
+    weights (quantized the same way)."""
+    from paddle_tpu_torch.kernels.quant_matmul import quantize_weight
+
+    params = _tiny_params(GRAPH_CFG)
+    rng = np.random.RandomState(11)
+    names = [f"dec{i}_qkv.w" for i in range(GRAPH_CFG.num_layers)]
+    new = {n: params[n] + 0.5 * rng.randn(*params[n].shape).astype(
+               np.float32) for n in names + ["gpt_head.w"]}
+    kw = dict(page_size=4, num_pages=64, max_decode_batch=4, warmup=True,
+              quantize_weights=mode)
+    prompt = [7, 3, 30, 2, 9]
+    pred = create_predictor(Config().set_params(GRAPH_CFG, params), "cuda")
+    with GenerationEngine(pred, GRAPH_CFG, **kw) as eng:
+        bound = eng._ragged_bound
+        before = eng.generate(prompt, max_new_tokens=10, timeout=120)
+        assert eng.swap_base(new) == "swap-1"
+        after = eng.generate(prompt, max_new_tokens=10, timeout=120)
+        assert eng._ragged_bound is bound
+        assert eng.stats()["graph_captures"] == 1
+    fresh = create_predictor(Config().set_params(GRAPH_CFG, dict(params,
+                                                                 **new)),
+                             "cuda")
+    with GenerationEngine(fresh, GRAPH_CFG, **kw) as feng:
+        assert feng.generate(prompt, max_new_tokens=10, timeout=120) == after
+    if mode != "off":
+        q, s = quantize_weight(torch.as_tensor(new["dec0_qkv.w"]).cuda(),
+                               mode)
+        assert torch.equal(pred.lm.layers[0].qkv.qweight, q)
+    assert after != before

@@ -104,7 +104,14 @@ def test_port_package_imports_no_jax_or_paddle_tpu():
                 "paddle_tpu_torch.models.resnet",
                 "paddle_tpu_torch.ops.metrics",
                 "paddle_tpu_torch.layers.metric_op",
-                "paddle_tpu_torch.kernels.paged_attention"):
+                "paddle_tpu_torch.kernels.paged_attention",
+                # saving and serving Programs over HTTP
+                "paddle_tpu_torch.io",
+                "paddle_tpu_torch.ops.quant",
+                "paddle_tpu_torch.runtime.dispatch",
+                "paddle_tpu_torch.serving.engine",
+                "paddle_tpu_torch.serving.metrics",
+                "paddle_tpu_torch.serving.server"):
         assert mod in res["port"]
 
 

@@ -212,8 +212,8 @@ def test_predictor_and_engine_share_one_set_of_weights(lm_dir):
     qkv = pred.lm.layers[0].qkv
     assert isinstance(qkv, QuantizedDense)
     assert eng._step_model.lm.layers[0].qkv is qkv
-    (logits,) = pred.run([np.zeros((1, 8), np.int64)])
-    assert np.all(np.isfinite(logits))
+    logits = pred.lm(torch.zeros((1, 8), dtype=torch.long))
+    assert bool(torch.isfinite(logits).all())
     eng2 = GenerationEngine(pred, pred.gpt_config, quantize_weights="int8",
                             start=False)
     assert eng2.quantize_report is pred.quantize_report
