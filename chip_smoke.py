@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + device time by kernel group in
-                                     #   phases 3, 3b, 4, 6, 7, 8 and 9
+                                     #   phases 3, 3b, 4, 6, 7, 8, 9, c1
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789ab), no result line
+                                        #   23456789abc), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -181,6 +181,27 @@ b. saving and serving Programs over HTTP (``serving.ServingServer`` on
    swap the tokens equal fresh engines' built on the new weights
    (quantized the same way), and differ from before it. Every engine is
    built, and its graph captured, before any server starts.
+c. supervised training with checkpoints. c1: phase 6's BERT-large (full
+   size, seq 512, batch 8, flash attention, bfloat16 AMP) under
+   ``LambOptimizer(lr, lamb_weight_decay=0.01)`` with the layer norms'
+   scales and biases excluded from the decay, and BERT's learning rate
+   ``linear_lr_warmup(polynomial_decay(1e-4, 8, 0.0), 2, 0.0, 1e-4)``;
+   a ``resilience.Supervisor`` (its steps on the watchdog's worker
+   thread) commits every 4 steps (``keep_last=1``) over 8 steps; the
+   step-4 commit, kept aside, is resumed by a fresh Executor and scope
+   (startup under another seed) through a new Supervisor on the caller's
+   thread to step 8. Steps 5-8 (losses and the fetched lr) and every
+   persistable at step 8 (parameters, both moments, beta powers,
+   ``@LR_DECAY_COUNTER@``) equal the uninterrupted run bit for bit;
+   exactly 49 K1, 49 K3, one K4, one K5, 24 K6 and 24 K8 (each of its
+   three kernels) every step and no fused Adam. Prints the step beside
+   phase 6's, the checkpoint's bytes, the commit, load and async-save
+   seconds and the peak memory. c2: the same recipe at BERT-large width
+   with 2 layers in three processes (``chip_smoke.py --c2-child``): a
+   reference of 10 steps, a run killed by ``kill@6`` with commits every 3
+   steps (exit ``KILL_EXIT_CODE``, latest commit 6) and a run that resumes
+   from 6: the 10 losses and lrs equal the reference's bit for bit.
+   Checkpoints go to ``chip_smoke_ckpt/`` in the checkout, removed after.
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -192,6 +213,7 @@ import argparse
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -243,7 +265,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789ab"
+ALL_PHASES = "23456789abc"
 DEVICE = "cuda"
 
 
@@ -1973,6 +1995,372 @@ def train_bert(torch, np, seed, card, out_dir, profile=False, steps=10):
     perf.update(parameters=n_params, batch=BERT_BATCH, seq_len=BERT_SEQ,
                 real_tokens=int(batch["input_mask"].sum()))
     return totals, perf
+
+
+# -- phase c: BERT-large under Lamb, checkpointed, killed and resumed ---------------
+
+
+C_STEPS, C_EVERY = 8, 4          # c1: steps, checkpoint cadence
+C2_STEPS, C2_EVERY, C2_KILL = 10, 3, 6
+C2_LAYERS = 2
+CKPT_ROOT = "chip_smoke_ckpt"    # in the checkout; removed after phase c
+
+
+def not_decayed(param) -> bool:
+    """Lamb's exclude_from_weight_decay_fn: the layer norms' scales and
+    biases (``*.scale``, ``*.bias``); fc biases are ``*.b``."""
+    return param.name.endswith((".scale", ".bias"))
+
+
+def bert_lamb(fluid, cfg, seq, seed):
+    """BERT pretraining under bfloat16 AMP with flash attention, as
+    phase 6 builds it, with Lamb in place of Adam under BERT's
+    warmup-then-linear-decay learning rate (the schedule's counter is a
+    persistable, so it rides in the checkpoint)."""
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
+    from paddle_tpu_torch.models.bert import build_bert_pretrain
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_bert_pretrain(cfg, seq)
+        main.random_seed = seed
+        with fluid.program_guard(main, startup):
+            lr = fluid.layers.linear_lr_warmup(
+                fluid.layers.polynomial_decay(1e-4, decay_steps=C_STEPS,
+                                              end_learning_rate=0.0,
+                                              power=1.0),
+                warmup_steps=2, start_lr=0.0, end_lr=1e-4)
+            opt = decorate(fluid.optimizer.LambOptimizer(
+                lr, lamb_weight_decay=0.01,
+                exclude_from_weight_decay_fn=not_decayed),
+                init_loss_scaling=1.0, use_dynamic_loss_scaling=False,
+                dest_dtype="bfloat16")
+            opt.minimize(fetches["loss"])
+    return main, startup, fetches["loss"], lr
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def supervised(fluid, main, startup, loss, lr, batch, ckpt_dir, place,
+               startup_seed, steps, every, keep_last, watchdog_s=0.0,
+               fault="", on_commit=None, on_loss=None, check=None):
+    """``steps`` steps of ``main`` through a ``resilience.Supervisor``
+    (``every``-step commits, ``keep_last`` retention, resumed from
+    ``ckpt_dir``'s latest commit if any) on a fresh Executor and scope
+    whose startup ran under ``startup_seed``. ``check(step)`` reads the
+    step's kernel launches (the counts are reset before each step).
+    Returns the Executor, the scope, {step: (loss bits, lr bits)}, the
+    stats and the times (ms a step, s a commit)."""
+    from paddle_tpu_torch import resilience
+    from paddle_tpu_torch import kernels as K
+
+    startup.random_seed = startup_seed
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    out, step_ms, save_s = {}, [], []
+    mark = [0.0]
+
+    def on_step(s, fetched):
+        step_ms.append((time.perf_counter() - mark[0]) * 1e3)
+        out[s] = (fetched[0].tobytes(), fetched[1].tobytes())
+        if check is not None:
+            check(s)
+        if on_loss is not None:
+            on_loss(s, fetched)
+        K.reset_launch_counts()
+        mark[0] = time.perf_counter()
+
+    def on_checkpoint(s, path):
+        save_s.append(time.perf_counter() - mark[0])
+        if on_commit is not None:
+            on_commit(s, path)
+        mark[0] = time.perf_counter()
+
+    sup = resilience.Supervisor(
+        exe, main, ckpt_dir, feed_fn=lambda s: batch, fetch_list=[loss, lr],
+        scope=scope, watchdog_timeout_s=watchdog_s,
+        fault_injector=resilience.FaultInjector(fault),
+        policy=resilience.CheckpointPolicy(ckpt_dir, every_steps=every,
+                                           keep_last=keep_last),
+        on_step=on_step, on_checkpoint=on_checkpoint)
+    K.reset_launch_counts()
+    mark[0] = time.perf_counter()
+    stats = sup.run_loop(steps)
+    return exe, scope, out, stats, {"step_ms": step_ms, "save_s": save_s}
+
+
+def train_bert_lamb(torch, np, seed, card, out_dir, phase6=None,
+                    profile=False):
+    """c1: BertConfig.large() at full size under AMP + Lamb + warmup /
+    decay through the Supervisor (its steps on the watchdog's worker
+    thread), commits every 4 steps; the step-4 commit kept aside; then a
+    fresh Executor and scope (startup under another seed) resume from it
+    on the caller's thread to step 8: losses, lr and every persistable
+    equal bit for bit, exact kernel launches every step. With
+    ``profile``, two more steps of the resumed run are traced. Returns
+    the path's launch totals and its numbers."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models.bert import BertConfig, synthetic_batch
+
+    cfg = BertConfig.large()
+    cfg.use_flash_attention = True
+    L = cfg.num_layers
+    main, startup, loss, lr = bert_lamb(fluid, cfg, BERT_SEQ, seed)
+    types = [op.type for op in main.global_block().ops]
+    n_params = len(main.all_parameters())
+    require(types.count("lamb") == n_params and "fused_adam" not in types
+            and "adam" not in types, f"{types.count('lamb')} lamb ops for "
+            f"{n_params} parameters")
+    require(types.count("flash_attention") == L, "flash ops")
+    wd = {op.inputs["Param"][0]: op.attrs["weight_decay"]
+          for op in main.global_block().ops if op.type == "lamb"}
+    require(sorted(n for n, w in wd.items() if w == 0.0) ==
+            sorted(p.name for p in main.all_parameters() if not_decayed(p))
+            and sum(w == 0.0 for w in wd.values()) == 4 * L + 2,
+            "Lamb's weight decay is off exactly on the layer norms")
+    batch = synthetic_batch(np.random.RandomState(seed), BERT_BATCH,
+                            BERT_SEQ, cfg.vocab_size, min_len=128)
+    want = {name: 0 for name in K.KERNELS}
+    want.update(layer_norm=2 * L + 1, layer_norm_bwd=2 * L + 1,
+                softmax_xent_fwd=1, softmax_xent_bwd=1,
+                flash_attention_fwd=L, flash_attention_bwd=L)
+    want_bwd = {n: L for n in K.flash_attention_bwd.kernel_launches}
+    totals = {n: 0 for n in K.KERNELS}
+
+    def check(s):
+        counts = K.launch_counts()
+        require(counts == want, f"c1 step {s}: launches {counts}, want "
+                f"{want}")
+        bwd = dict(K.flash_attention_bwd.kernel_launches)
+        require(bwd == want_bwd, f"c1 step {s}: flash backward kernels "
+                f"{bwd}")
+        for n, c in counts.items():
+            totals[n] += c
+
+    root = os.path.abspath(os.path.join(CKPT_ROOT, "c1"))
+    first, aside = os.path.join(root, "run"), os.path.join(root, "resume")
+
+    def keep_step4(s, path):
+        if s == C_EVERY:   # hard links: the retention GC drops 4 at 8
+            shutil.copytree(path, os.path.join(aside, str(s)),
+                            copy_function=os.link)
+
+    place = fluid.CUDAPlace(0)
+    torch.cuda.reset_peak_memory_stats()
+    _, ref_scope, ref, ref_stats, ref_t = supervised(
+        fluid, main, startup, loss, lr, batch, first, place, seed, C_STEPS,
+        C_EVERY, 1, watchdog_s=600.0, on_commit=keep_step4, check=check)
+    require(ref_stats["steps_completed"] == C_STEPS
+            and ref_stats["watchdog_fires"] == 0, f"c1 run: {ref_stats}")
+    require(io.latest_checkpoint(aside) == C_EVERY, "the step-4 commit")
+    exe, scope, got, stats, t = supervised(
+        fluid, main, startup, loss, lr, batch, aside, place, seed + 1,
+        C_STEPS, C_EVERY, 1, check=check)
+    peak = torch.cuda.max_memory_allocated()
+    require(stats["resumed_from"] == C_EVERY, f"resumed from "
+            f"{stats['resumed_from']}")
+    require(sorted(got) == list(range(C_EVERY, C_STEPS)), f"resumed steps "
+            f"{sorted(got)}")
+    diff = [s for s in got if got[s] != ref[s]]
+    require(not diff, f"c1: resumed steps {diff} differ from the "
+            "uninterrupted run (loss or lr bits)")
+    names = sorted(v.name for v in main.list_vars()
+                   if v.persistable and not v.is_data)
+    for n in names:
+        require(torch.equal(scope.find_var(n), ref_scope.find_var(n)),
+                f"c1: persistable {n} differs after the resume")
+    lrs = [float(np.frombuffer(ref[s][1], np.float32)[0])
+           for s in range(C_STEPS)]
+    losses = [float(np.frombuffer(ref[s][0], np.float32)[0])
+              for s in range(C_STEPS)]
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    require(float(scope.get_numpy("@LR_DECAY_COUNTER@")[0]) == C_STEPS,
+            "the lr counter")
+    require(io.latest_checkpoint(aside) == C_STEPS
+            and io.is_committed_checkpoint(os.path.join(aside,
+                                                        str(C_STEPS))),
+            "c1: the resumed run's step-8 commit")
+    ckpt = os.path.join(aside, str(C_STEPS))
+    nbytes = dir_bytes(ckpt)
+
+    # load into a fresh scope on the card, then an async save of it
+    t0 = time.perf_counter()
+    io.load_checkpoint(aside, main, fluid.Scope(), step=C_STEPS,
+                       device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    handle = io.save_checkpoint(os.path.join(root, "async"), main, scope,
+                                step=C_STEPS, async_save=True)
+    async_return_s = time.perf_counter() - t0
+    handle.wait_until_finished()
+    async_s = time.perf_counter() - t0
+    require(io.is_committed_checkpoint(
+        os.path.join(root, "async", str(C_STEPS))), "the async commit")
+    shutil.rmtree(root)
+    if profile:
+        prof = start_profile(torch)
+        t0 = time.perf_counter()
+        for _ in range(2):
+            exe.run(main, feed=batch, fetch_list=[loss, lr], scope=scope)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.__exit__(None, None, None)
+        profiled = trace_breakdown(prof, out_dir, "bert_lamb", wall, 2)
+
+    steps_ms = ref_t["step_ms"] + t["step_ms"]
+    mean_ms = statistics.mean(ref_t["step_ms"][1:] + t["step_ms"][1:])
+    perf = {"losses": losses, "lrs": lrs, "step_ms": steps_ms,
+            "step_ms_mean": mean_ms,
+            "tokens_per_s": BERT_BATCH * BERT_SEQ / (mean_ms / 1e3),
+            "adam_step_ms_mean": (phase6 or {}).get("step_ms_mean"),
+            "checkpoint_bytes": nbytes, "save_s": ref_t["save_s"] + t["save_s"],
+            "load_s": load_s, "async_return_s": async_return_s,
+            "async_s": async_s, "max_memory_allocated_gb": peak / 1e9,
+            "launches_per_step": want, "card": card,
+            "resumed_from": stats["resumed_from"]}
+    if profile:
+        perf["profile"] = profiled
+    log(f"  losses {[f'{v:.6f}' for v in losses]}, lr {lrs}")
+    log(f"  resumed from step {C_EVERY} on a fresh Executor and scope: "
+        f"steps {C_EVERY + 1}-{C_STEPS} (losses, lr) and all {len(names)} "
+        "persistables equal the uninterrupted run bit for bit; launches "
+        f"exactly {({n: c for n, c in want.items() if c})} every step")
+    log(f"  mean step {mean_ms:.3f} ms over both runs' steps after their "
+        f"first ({perf['tokens_per_s']:.2f} tokens/s; phase 6's fused-Adam "
+        f"step in this run: {perf['adam_step_ms_mean']} ms), max_memory_"
+        f"allocated {peak / 1e9:.2f} GB [{card}]")
+    log(f"  checkpoint {nbytes} bytes; sync commits "
+        f"{[round(s, 3) for s in perf['save_s']]} s, load {load_s:.3f} s, "
+        f"async save returned in {async_return_s:.3f} s and committed in "
+        f"{async_s:.3f} s [{card}]")
+    return totals, perf
+
+
+def c2_child(argv) -> int:
+    """One process of c2: the c1 recipe at BERT-large width with
+    ``C2_LAYERS`` layers, through a Supervisor on the card; each step's
+    (loss, lr) bits are appended to ``--out`` as it completes. A
+    ``kill@N`` fault ends the process with ``KILL_EXIT_CODE``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ckpt-dir", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--fault", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    import numpy as np
+    import torch
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.bert import BertConfig, synthetic_batch
+
+    cfg = BertConfig.large()
+    cfg.num_layers = C2_LAYERS
+    cfg.use_flash_attention = True
+    main, startup, loss, lr = bert_lamb(fluid, cfg, BERT_SEQ, args.seed)
+    batch = synthetic_batch(np.random.RandomState(args.seed), BERT_BATCH,
+                            BERT_SEQ, cfg.vocab_size, min_len=128)
+
+    def on_loss(s, fetched):
+        with open(args.out, "a") as f:
+            f.write(json.dumps({"step": s, "loss": fetched[0].tobytes().hex(),
+                                "lr": fetched[1].tobytes().hex()}) + "\n")
+
+    torch.cuda.reset_peak_memory_stats()
+    _, _, _, stats, t = supervised(
+        fluid, main, startup, loss, lr, batch, os.path.abspath(args.ckpt_dir),
+        fluid.CUDAPlace(0), args.seed, C2_STEPS, C2_EVERY, 2,
+        fault=args.fault, on_loss=on_loss)
+    with open(args.out, "a") as f:
+        f.write(json.dumps({"stats": {k: v for k, v in stats.items()
+                                      if k != "flight_dumps"},
+                            "step_ms": t["step_ms"], "save_s": t["save_s"],
+                            "peak_gb": torch.cuda.max_memory_allocated()
+                            / 1e9}) + "\n")
+    return 0
+
+
+def killed_and_resumed(np, seed, card):
+    """c2: three processes of ``c2_child``: the reference (10 steps), a
+    run killed by ``kill@6`` (commits every 3 steps: it must exit with
+    KILL_EXIT_CODE with step 6 committed) and one that resumes from 6;
+    the killed run's 6 losses and the resumed run's 4 equal the
+    reference's 10, bit for bit, and so do the learning rates."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.resilience import KILL_EXIT_CODE
+
+    root = os.path.abspath(os.path.join(CKPT_ROOT, "c2"))
+    os.makedirs(root, exist_ok=True)
+
+    def child(name, ckpt, fault=""):
+        out = os.path.join(root, f"{name}.jsonl")
+        cmd = [sys.executable, os.path.abspath(__file__), "--c2-child",
+               "--ckpt-dir", ckpt, "--out", out, "--seed", str(seed)]
+        if fault:
+            cmd += ["--fault", fault]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+        wall = time.perf_counter() - t0
+        rows = []
+        if os.path.exists(out):
+            with open(out) as f:
+                rows = [json.loads(line) for line in f]
+        steps = {r["step"]: (r["loss"], r["lr"]) for r in rows if "step" in r}
+        tail = next((r for r in rows if "stats" in r), None)
+        log(f"  {name}: exit {proc.returncode} after {wall:.1f} s, steps "
+            f"{sorted(steps)}" + (
+                f", resumed_from {tail['stats']['resumed_from']}, mean step "
+                f"{statistics.mean(tail['step_ms'][1:]):.3f} ms, commits "
+                f"{[round(s, 3) for s in tail['save_s']]} s, peak "
+                f"{tail['peak_gb']:.2f} GB" if tail else "") + f" [{card}]")
+        return proc, steps, tail, wall
+
+    ref_proc, ref, ref_tail, ref_wall = child(
+        "reference", os.path.join(root, "ref_ck"))
+    require(ref_proc.returncode == 0, "c2 reference failed: "
+            f"{ref_proc.stderr[-2000:]}")
+    require(sorted(ref) == list(range(C2_STEPS)), f"c2 reference steps "
+            f"{sorted(ref)}")
+    ck = os.path.join(root, "ck")
+    kill_proc, killed, _, kill_wall = child("killed", ck,
+                                            fault=f"kill@{C2_KILL}")
+    require(kill_proc.returncode == KILL_EXIT_CODE, f"c2 killed run exited "
+            f"{kill_proc.returncode}: {kill_proc.stderr[-2000:]}")
+    require(io.latest_checkpoint(ck) == C2_KILL, f"c2: latest checkpoint "
+            f"after the kill is {io.latest_checkpoint(ck)}")
+    ckpt_bytes = dir_bytes(os.path.join(ck, str(C2_KILL)))
+    res_proc, resumed, res_tail, res_wall = child("resumed", ck)
+    require(res_proc.returncode == 0, "c2 resumed run failed: "
+            f"{res_proc.stderr[-2000:]}")
+    require(res_tail["stats"]["resumed_from"] == C2_KILL, "c2 resumed_from "
+            f"{res_tail['stats']['resumed_from']}")
+    got = dict(killed)
+    got.update(resumed)
+    require(sorted(killed) == list(range(C2_KILL))
+            and sorted(resumed) == list(range(C2_KILL, C2_STEPS)),
+            f"c2 steps: killed {sorted(killed)}, resumed {sorted(resumed)}")
+    diff = [s for s in range(C2_STEPS) if got[s] != ref[s]]
+    require(not diff, f"c2: steps {diff} differ from the reference")
+    require(io.latest_checkpoint(ck) == C2_STEPS, "c2 final commit")
+    losses = [float(np.frombuffer(bytes.fromhex(ref[s][0]), np.float32)[0])
+              for s in range(C2_STEPS)]
+    shutil.rmtree(root)
+    log(f"  killed at step {C2_KILL} (exit {KILL_EXIT_CODE}), resumed from "
+        f"{C2_KILL}: all {C2_STEPS} losses and lrs equal the reference's "
+        f"bit for bit; checkpoint {ckpt_bytes} bytes [{card}]")
+    return {"losses": losses, "ckpt_bytes": ckpt_bytes,
+            "wall_s": {"reference": ref_wall, "killed": kill_wall,
+                       "resumed": res_wall},
+            "reference": ref_tail, "resumed": res_tail, "card": card}
 
 
 # -- phase 5: card against CPU -------------------------------------------------------
@@ -3899,7 +4287,7 @@ def main(argv=None) -> int:
                     help="directory for the build log and chip_smoke.json")
     ap.add_argument("--profile", action="store_true",
                     help="trace the serving runs (phases 3, 3b, 7a int8, "
-                    "7b) and two training steps (phases 4, 6, 8, 9) with "
+                    "7b) and two training steps (phases 4, 6, 8, 9, c1) with "
                     "torch.profiler and print device time by kernel group "
                     "and the idle share")
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -4062,6 +4450,20 @@ def main(argv=None) -> int:
             record.get("serve", {}).get("step_ms_mean"))
         paths.update(bpaths)
         torch.cuda.empty_cache()
+    if "c" in args.phases:
+        try:
+            log("phase c1: BERT-large under AMP + Lamb + warmup/decay, "
+                "supervised, checkpointed and resumed in process")
+            paths["bert_lamb"], record["bert_lamb"] = train_bert_lamb(
+                torch, np, args.seed, card, args.out, record.get("bert"),
+                profile=args.profile)
+            torch.cuda.empty_cache()
+            log(f"phase c2: {C2_LAYERS}-layer BERT-large width, killed at "
+                f"step {C2_KILL} and resumed across processes")
+            record["killed_resumed"] = killed_and_resumed(np, args.seed,
+                                                          card)
+        finally:
+            shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     launches = {name: {p: c[name] for p, c in paths.items()}
                 for name in K.KERNELS}
     record["launches"] = launches
@@ -4069,7 +4471,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a and b)")
+        "3b, 4, 6, 7, 8, 9, a, b and c1)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"
@@ -4155,6 +4557,8 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--c2-child"]:
+            sys.exit(c2_child(sys.argv[2:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)

@@ -74,11 +74,27 @@ Ported so far:
       cfg = Config(d); cfg.enable_shape_bucketing()
       srv = ServingServer(ServingEngine(create_predictor(cfg)), port=8500)
 
+* supervised training with committed checkpoints: ``io.save_checkpoint``
+  / ``load_checkpoint`` / ``latest_checkpoint`` (the JAX package's
+  ``__shards__`` layout, readable by either package), the
+  ``resilience.Supervisor`` (auto-resume, retry, NaN rollback, hang
+  watchdog, preemption flush) with ``CheckpointPolicy`` and fault
+  injection, the other optimizers (Lamb, LarsMomentum, Adagrad, Adamax,
+  RMSProp, Adadelta, DecayedAdagrad, Ftrl, Dpsgd) and the learning-rate
+  schedules (``layers.noam_decay`` ... ``layers.linear_lr_warmup``);
+
+      lr = fluid.layers.linear_lr_warmup(fluid.layers.polynomial_decay(
+          1e-4, decay_steps=10000, end_learning_rate=0.0), 100, 0.0, 1e-4)
+      fluid.optimizer.LambOptimizer(lr).minimize(loss)
+      sup = resilience.Supervisor(exe, main, "ckpts/run0",
+                                  feed_fn=make_feed, fetch_list=[loss])
+      sup.run_loop(num_steps=10000)      # resumes from the latest commit
+
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
-ported yet (ROADMAP A): the other optimizer classes, sub-block control
-flow, SelectedRows gradients and GPT MoE (A1), checkpoints (A13b), the
-w8a8 ``calibrate`` pass (A7), the host tiers (A9) and distribution
-(A10).
+ported yet (ROADMAP A): the meta-optimizers, sub-block control flow,
+SelectedRows gradients and GPT MoE (A1), the w8a8 ``calibrate`` pass
+(A7), the host tiers (A9: the reader, the rest of ``observability/``)
+and distribution (A10).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of
@@ -87,7 +103,7 @@ falling back.
 
 from . import (clip, contrib, io, layers, nets,  # noqa: F401
                ops,  # ops: the lowerings
-               optimizer, regularizer)
+               optimizer, regularizer, resilience)
 from .core import framework
 from .core.backward import append_backward
 from .core.executor import Executor, Scope, global_scope, scope_guard
@@ -100,7 +116,7 @@ from .flags import get_flags, set_flags
 from .param_attr import ParamAttr
 
 __all__ = ["resolve_device", "clip", "contrib", "io", "layers", "nets",
-           "optimizer", "regularizer",
+           "optimizer", "regularizer", "resilience",
            "framework",
            "append_backward", "Executor", "Scope", "global_scope",
            "scope_guard", "Program", "Variable", "default_main_program",

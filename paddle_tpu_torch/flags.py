@@ -93,6 +93,36 @@ DEFAULTS = {
     # "auto" | "on" | "off": AdamOptimizer emits the one-pass fused_adam
     # op (the K10 kernel on CUDA) instead of the unfused adam chain
     "optimizer_fuse": "auto",
+    # supervised training (resilience/): a checkpoint every N steps or
+    # every T seconds, whichever fires first (0 disables that trigger);
+    # keep_last bounds the retention GC; a step that raises is retried
+    # up to resilience_max_retries times with exponential backoff from
+    # resilience_retry_backoff_s; a non-finite loss rolls back to the
+    # last committed checkpoint at most resilience_max_rollbacks times;
+    # resilience_watchdog_timeout_s > 0 runs each step under a hang
+    # watchdog; resilience_fault_spec injects deterministic faults
+    # ("raise@12,nan@20,hang@30:2.5,kill@40") for chaos testing
+    "resilience_ckpt_every_steps": 50,
+    "resilience_ckpt_every_secs": 0.0,
+    "resilience_keep_last": 3,
+    "resilience_max_retries": 3,
+    "resilience_retry_backoff_s": 0.05,
+    "resilience_max_rollbacks": 2,
+    "resilience_watchdog_timeout_s": 0.0,
+    "resilience_fault_spec": "",
+    # bounds every phase of a multi-process checkpoint save: the
+    # stage-ready handshake, rank 0's wait for every shard-done file and
+    # the other ranks' wait for the commit marker
+    "dist_commit_timeout_s": 120.0,
+    # observability_tracing turns span call sites into trace-id/span-id
+    # spans logged into the flight recorder; observability_flight keeps
+    # the constant-memory ring (capacity entries) that dumps JSON to
+    # observability_dump_dir ("" = the system tempdir) on a NaN
+    # rollback, a watchdog hang or a SIGTERM flush
+    "observability_tracing": False,
+    "observability_flight": True,
+    "observability_flight_capacity": 512,
+    "observability_dump_dir": "",
 }
 
 _flags: Dict[str, Any] = dict(DEFAULTS)

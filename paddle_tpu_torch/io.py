@@ -16,9 +16,23 @@ As in the reference, the scope is the current ``global_scope()``
 executor's device (CUDA when ``executor`` is None), in the dtype the
 program declares for each variable. bfloat16 tensors are written as
 float32 (numpy has no bfloat16); a JAX-written bfloat16 array (2-byte
-void, or ``ml_dtypes.bfloat16``) is read back bit for bit. Sharded and
-committed checkpoints (``save_checkpoint``, ``load_checkpoint``) are
-ROADMAP A13b.
+void, or ``ml_dtypes.bfloat16``) is read back bit for bit.
+
+Committed checkpoints (``paddle_tpu/io.py:200-808``):
+``save_checkpoint`` / ``load_checkpoint`` / ``load_checkpoint_arrays``,
+the commit marker ``_PT_COMMIT.json`` with its manifest
+(``write_commit_marker``, ``read_commit_marker``,
+``is_committed_checkpoint``), ``latest_checkpoint`` /
+``committed_checkpoint_steps`` and the two-phase multi-process commit
+(``write_shard_done``, ``done_shard_ranks``,
+``finalize_two_phase_commit``, ``CheckpointCommitTimeout``). The port
+always writes the JAX package's multi-host layout
+(``__shards__.rank<k>.npz`` + ``__shards__.meta.json``), with a world of
+1 in one process, so the JAX package's ``load_checkpoint`` reads it;
+the world comes from ``_FORCE_DIST`` or an initialised
+``torch.distributed``. The JAX single-process save writes orbax's OCDBT
+layout, which needs orbax and tensorstore: the port refuses it with a
+``ValueError`` that says how to rewrite it.
 
 Besides the reference's API, the port's GPT serving path reads a saved
 ``build_lm_program`` directory with ``read_params_file`` /
@@ -31,6 +45,8 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -40,6 +56,7 @@ from .core import framework
 from .core.executor import global_scope, to_numpy, torch_dtype
 from .core.framework import Parameter, Program, Variable
 from .device import resolve_device
+from .flags import flag
 from .models.gpt import GPTConfig
 
 __all__ = [
@@ -51,6 +68,11 @@ __all__ = [
     "save", "load", "save_inference_model", "load_inference_model",
     "read_params_file", "load_model_meta", "gpt_config_from_model",
     "load_scope_arrays", "array_to_tensor",
+    "save_checkpoint", "load_checkpoint", "load_checkpoint_arrays",
+    "latest_checkpoint", "committed_checkpoint_steps",
+    "write_commit_marker", "read_commit_marker", "is_committed_checkpoint",
+    "write_shard_done", "done_shard_ranks", "finalize_two_phase_commit",
+    "CheckpointCommitTimeout",
 ]
 
 PARAMS_FILE = "__params__.npz"
@@ -339,3 +361,459 @@ def load_scope_arrays(scope, arrays: Dict[str, np.ndarray], program,
                              f"{tuple(arr.shape)}, the program declares "
                              f"{tuple(var.shape)}")
         scope.set_var(name, array_to_tensor(arr, var.dtype, device))
+
+
+# -- committed checkpoints ---------------------------------------------------
+#
+# A checkpoint directory is COMMITTED only once it holds the marker,
+# written after every array file has landed. The marker carries a
+# manifest (relative path -> size) of the directory at commit time, so a
+# later truncation is detected, and the caller's ``extra`` (the
+# Supervisor's step, run counter and reader position). With several
+# processes the commit is two-phase over a shared filesystem: every rank
+# writes its shard file and then its shard-done file (phase 1); rank 0
+# stamps the one marker only after every rank's done-file with this
+# save's nonce is present (phase 2). A process that dies mid-save leaves
+# its done-file missing, so the marker is never written.
+_COMMIT_MARKER = "_PT_COMMIT.json"
+_SHARD_DONE_PREFIX = "_PT_SHARD_DONE."
+_STAGE_READY = "_PT_STAGE_READY"
+_SHARD_FILE = "__shards__.rank{rank}.npz"
+_SHARD_META = "__shards__.meta.json"
+# files orbax's single-process (OCDBT) layout writes
+_ORBAX_FILES = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
+
+# (rank, world) override, so the two-phase protocol is testable without
+# a torch.distributed world
+_FORCE_DIST = None
+
+# per-process save sequence number, part of the save nonce: every rank
+# runs the same sequence of saves, so the counter stays aligned across
+# ranks while each save attempt's nonce is unique
+_SAVE_SEQ = [0]
+
+
+class CheckpointCommitTimeout(RuntimeError):
+    """Phase 2 of a multi-process checkpoint commit timed out: some
+    rank's shard-done file (or rank 0's commit marker) never arrived.
+    The save failed; no marker was or will be written for it."""
+
+
+def _dist_info():
+    """(rank, world): ``_FORCE_DIST``, else an initialised
+    ``torch.distributed`` group, else a lone writer (0, 1)."""
+    if _FORCE_DIST is not None:
+        return _FORCE_DIST
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _checkpoint_manifest(path):
+    out = {}
+    for root, _, files in os.walk(path):
+        for fn in files:
+            if fn == _COMMIT_MARKER:
+                continue
+            full = os.path.join(root, fn)
+            out[os.path.relpath(full, path)] = os.path.getsize(full)
+    return out
+
+
+def write_commit_marker(path, extra=None):
+    """Mark a checkpoint directory committed. Written atomically (temp
+    file, fsync, rename): a crash mid-write leaves no marker, never a
+    truncated JSON."""
+    marker = {"manifest": _checkpoint_manifest(path),
+              "commit_time": time.time(), "extra": dict(extra or {})}
+    tmp = os.path.join(path, _COMMIT_MARKER + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump(marker, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, os.path.join(path, _COMMIT_MARKER))
+    return marker
+
+
+def read_commit_marker(path):
+    """The commit marker dict, or None when the directory is uncommitted
+    (no marker, or one that does not parse)."""
+    try:
+        with open(os.path.join(path, _COMMIT_MARKER)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def is_committed_checkpoint(path):
+    """True when ``path`` holds a complete, committed checkpoint: its
+    marker's manifest files all exist at their committed sizes. Without
+    a marker, only a directory orbax itself finalized counts (the JAX
+    package's rule for checkpoints older than the marker)."""
+    if not os.path.isdir(path):
+        return False
+    marker = read_commit_marker(path)
+    if marker is not None:
+        for rel, size in marker.get("manifest", {}).items():
+            try:
+                if os.path.getsize(os.path.join(path, rel)) != size:
+                    return False
+            except OSError:
+                return False
+        return True
+    return os.path.isfile(os.path.join(path, "_CHECKPOINT_METADATA"))
+
+
+def _atomic_json(path, payload):
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def write_shard_done(path, rank, nonce):
+    """Phase 1, per rank: this rank's shards are durable for the save
+    attempt ``nonce``. Atomic: a crash mid-write leaves no done-file."""
+    _atomic_json(os.path.join(path, f"{_SHARD_DONE_PREFIX}{rank}"),
+                 {"rank": int(rank), "nonce": str(nonce)})
+
+
+def done_shard_ranks(path, world, nonce):
+    """Ranks whose done-file for this save attempt is present; those of
+    a crashed earlier attempt carry another nonce and never count."""
+    done = []
+    for rank in range(int(world)):
+        try:
+            with open(os.path.join(path, f"{_SHARD_DONE_PREFIX}{rank}")) as f:
+                if str(json.load(f).get("nonce")) == str(nonce):
+                    done.append(rank)
+        except (OSError, ValueError):
+            continue
+    return done
+
+
+def finalize_two_phase_commit(path, world, extra=None, nonce=None,
+                              timeout_s=None, poll_s=0.05):
+    """Phase 2, rank 0 only: wait until every rank's done-file for this
+    attempt is present, then stamp the commit marker (its manifest
+    covers every rank's files). Raises ``CheckpointCommitTimeout``
+    naming the missing ranks; the directory then stays uncommitted."""
+    world = int(world)
+    timeout_s = (float(flag("dist_commit_timeout_s"))
+                 if timeout_s is None else float(timeout_s))
+    deadline = time.time() + timeout_s
+    while True:
+        done = done_shard_ranks(path, world, nonce)
+        if len(done) >= world:
+            break
+        if time.time() >= deadline:
+            missing = sorted(set(range(world)) - set(done))
+            raise CheckpointCommitTimeout(
+                f"two-phase commit of {path!r}: rank(s) {missing} never "
+                f"wrote their shard-done file within {timeout_s:.0f}s "
+                f"(save nonce {nonce!r}) — a process likely died mid-save; "
+                "the checkpoint stays UNCOMMITTED and resume will use "
+                "the previous committed one")
+        time.sleep(poll_s)
+    marker_extra = dict(extra or {})
+    marker_extra.setdefault("world", world)
+    marker_extra["commit_nonce"] = str(nonce)
+    return write_commit_marker(path, marker_extra)
+
+
+def _wait_for_marker(paths, nonce, timeout_s, poll_s=0.05):
+    """The other ranks' phase-2 wait: until rank 0's marker for this
+    attempt appears at any of ``paths`` (the staging directory or where
+    it is published: the rename can land between polls)."""
+    deadline = time.time() + timeout_s
+    while True:
+        for p in paths:
+            marker = read_commit_marker(p)
+            if marker is not None and str(
+                    marker.get("extra", {}).get("commit_nonce")) == str(nonce):
+                return p
+        if time.time() >= deadline:
+            raise CheckpointCommitTimeout(
+                f"two-phase commit of {paths[0]!r}: rank 0 never stamped "
+                f"the commit marker within {timeout_s:.0f}s (save nonce "
+                f"{nonce!r}) — rank 0 likely died mid-commit; the save "
+                "FAILED on this rank too")
+        time.sleep(poll_s)
+
+
+def _parse_index_key(key):
+    """``name@start-stop;...`` (a shard of a sharded array, as the JAX
+    package writes it) -> (name, [(start, stop), ...]); a whole value's
+    key -> (key, None)."""
+    name, _, idx = key.rpartition("@")
+    if name and all(p.count("-") == 1
+                    and all(x.isdigit() for x in p.split("-"))
+                    for p in idx.split(";")):
+        return name, [tuple(int(x) for x in p.split("-"))
+                      for p in idx.split(";")]
+    return key, None
+
+
+def _save_checkpoint_multihost(path, arrays, extra, rank, world,
+                               publish_path=None, timeout_s=None, nonce=None):
+    """Every rank writes the values it owns (whole values, round-robin
+    by position over the ranks: every array is whole until ROADMAP A10)
+    into its own ``__shards__.rank<k>.npz``, then the two-phase commit
+    publishes the marker (``paddle_tpu/io.py:543-643``). ``arrays``
+    maps names to tensors or numpy arrays. ``path`` must be on a
+    filesystem every rank shares."""
+    from .resilience.faults import check_save_kill
+
+    timeout_s = (float(flag("dist_commit_timeout_s"))
+                 if timeout_s is None else float(timeout_s))
+    if nonce is None:
+        # unique per save attempt yet equal across ranks; the restart
+        # generation keeps a resumed world's nonces apart from the
+        # crashed one's
+        _SAVE_SEQ[0] += 1
+        nonce = (f"{extra.get('step', '')}:{extra.get('run_counter', '')}:"
+                 f"g{os.environ.get('PADDLE_RESTART_COUNT', '0')}:"
+                 f"s{_SAVE_SEQ[0]}")
+    # stage-ready handshake: rank 0 clears what a crashed attempt left
+    # here, then posts this attempt's token; the others write nothing
+    # until they see it
+    ready = os.path.join(path, _STAGE_READY)
+    if rank == 0:
+        os.makedirs(path, exist_ok=True)
+        for entry in os.listdir(path):
+            if entry.startswith((_SHARD_DONE_PREFIX, "__shards__.",
+                                 _COMMIT_MARKER, _STAGE_READY)):
+                try:
+                    os.remove(os.path.join(path, entry))
+                except OSError:
+                    pass
+        _atomic_json(ready, {"nonce": nonce, "world": world})
+    else:
+        deadline = time.time() + timeout_s
+        while True:
+            try:
+                with open(ready) as f:
+                    if str(json.load(f).get("nonce")) == nonce:
+                        break
+            except (OSError, ValueError):
+                pass
+            if time.time() >= deadline:
+                raise CheckpointCommitTimeout(
+                    f"two-phase commit of {path!r}: rank 0 never posted "
+                    f"the stage-ready token within {timeout_s:.0f}s "
+                    f"(nonce {nonce!r})")
+            time.sleep(0.05)
+
+    mine, meta_vars = {}, {}
+    for i, name in enumerate(sorted(arrays)):
+        if i % world == rank:
+            val = arrays[name]
+            mine[name] = (to_numpy(val) if isinstance(val, torch.Tensor)
+                          else np.asarray(val))
+        meta_vars[name] = {"sharded": False, "owner": i % world}
+    shard_path = os.path.join(path, _SHARD_FILE.format(rank=rank))
+    tmp = f"{shard_path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **mine)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, shard_path)
+    if rank == 0:
+        _atomic_json(os.path.join(path, _SHARD_META),
+                     {"format": 1, "world": world, "nonce": nonce,
+                      "vars": meta_vars})
+    # a `killsave@N` fault dies here: shards durable, done-file missing
+    check_save_kill("before_shard_done")
+    write_shard_done(path, rank, nonce)
+    if rank == 0:
+        finalize_two_phase_commit(path, world, extra=extra, nonce=nonce,
+                                  timeout_s=timeout_s)
+    else:
+        _wait_for_marker([path] + ([publish_path] if publish_path else []),
+                         nonce, timeout_s)
+
+
+def load_checkpoint_arrays(path):
+    """A committed checkpoint directory as {var name: numpy array},
+    touching no scope: the ``__shards__`` layout of either package
+    (sharded values of a JAX save assembled from every rank's
+    offset-keyed entries; missing coverage raises). An orbax directory
+    of the JAX package's single-process save raises ``ValueError``."""
+    if not os.path.isfile(os.path.join(path, _SHARD_META)):
+        if any(os.path.exists(os.path.join(path, f)) for f in _ORBAX_FILES):
+            raise ValueError(
+                f"checkpoint {path!r} is in orbax's OCDBT layout (the JAX "
+                "package's single-process save_checkpoint), which needs "
+                "orbax and tensorstore; paddle_tpu_torch reads the "
+                "__shards__.rank<k>.npz + __shards__.meta.json layout. "
+                "Rewrite it in the JAX package: arrays = paddle_tpu.io."
+                "load_checkpoint_arrays(path), then paddle_tpu.io."
+                "_save_checkpoint_multihost(new_path, arrays, extra, 0, 1)")
+        raise ValueError(f"{path!r} holds no {_SHARD_META}: not a "
+                         "checkpoint directory")
+    with open(os.path.join(path, _SHARD_META)) as f:
+        meta = json.load(f)
+    state, filled = {}, {}
+    for entry in sorted(os.listdir(path)):
+        if not (entry.startswith("__shards__.rank") and entry.endswith(".npz")):
+            continue
+        with np.load(os.path.join(path, entry)) as z:
+            for key in z.files:
+                name, idx = _parse_index_key(key)
+                info = meta["vars"].get(name)
+                if idx is None or info is None or not info.get("sharded"):
+                    state[name] = z[key]
+                    continue
+                if name not in state:
+                    state[name] = np.zeros(tuple(info["shape"]),
+                                           dtype=np.dtype(info["dtype"]))
+                    filled[name] = 0
+                state[name][tuple(slice(a, b) for a, b in idx)] = z[key]
+                filled[name] += int(np.prod([b - a for a, b in idx]))
+    short = {n: (filled[n], int(np.prod(meta["vars"][n]["shape"])))
+             for n in filled if filled[n] < np.prod(meta["vars"][n]["shape"])}
+    if short:
+        raise ValueError(
+            f"multi-host checkpoint {path!r} is missing shard coverage for "
+            f"{sorted(short)} (filled/total elements {short}) — a rank's "
+            "shard file is absent or truncated")
+    missing = sorted(set(meta["vars"]) - set(state))
+    if missing:
+        raise ValueError(
+            f"multi-host checkpoint {path!r} is missing vars "
+            f"{missing[:5]}{'...' if len(missing) > 5 else ''} — an owning "
+            "rank's shard file never landed")
+    return state
+
+
+class _AsyncSaveHandle:
+    """One async save: ``wait_until_finished`` returns once the data and
+    its commit marker are on disk, and re-raises a failure of either."""
+
+    def __init__(self, thread, errors):
+        self._thread = thread
+        self._errors = errors
+
+    def wait_until_finished(self):
+        self._thread.join()
+        if self._errors:
+            raise self._errors[0]
+
+
+def save_checkpoint(dirname, main_program=None, scope=None, step=None,
+                    async_save=False, extra=None, publish_path=None):
+    """Every persistable of ``main_program`` the scope holds, written to
+    ``dirname`` (``dirname/<step>`` with ``step``) in the ``__shards__``
+    layout and stamped with a commit marker carrying ``extra``;
+    ``latest_checkpoint`` only ever selects committed directories.
+
+    ``async_save``: the values are copied to the host on the caller's
+    thread; the files and the marker are written on a non-daemon thread
+    (interpreter exit waits for it), and the returned handle's
+    ``wait_until_finished`` covers both. With several processes the
+    save is the two-phase commit and always synchronous (the commit is
+    the sync point); ``publish_path`` names where the directory will be
+    renamed after commit, so the other ranks find the marker there too.
+    Returns None for a synchronous save."""
+    main_program = main_program or framework.default_main_program()
+    scope = scope or global_scope()
+    arrays = {}
+    for v in _persistable_vars(main_program):
+        val = scope.find_var(v.name)
+        if val is not None:
+            arrays[v.name] = (to_numpy(val) if isinstance(val, torch.Tensor)
+                              else np.array(val, copy=True))
+    path = os.path.abspath(dirname)
+    if step is not None:
+        path = os.path.join(path, str(int(step)))
+    rank, world = _dist_info()
+    extra = dict(extra or {})
+    if not async_save or world > 1:
+        _save_checkpoint_multihost(path, arrays, extra, rank, world,
+                                   publish_path=publish_path)
+        return None
+    errors: list = []
+
+    def commit():
+        try:
+            _save_checkpoint_multihost(path, arrays, extra, rank, world)
+        except BaseException as e:  # noqa: BLE001 — re-raised at the wait
+            errors.append(e)
+
+    thread = threading.Thread(target=commit, name="pt-checkpoint-commit")
+    thread.start()
+    return _AsyncSaveHandle(thread, errors)
+
+
+def _mesh_shape(mesh) -> Dict[str, int]:
+    shape = mesh.shape if hasattr(mesh, "shape") else mesh
+    return {str(k): int(v) for k, v in dict(shape).items()}
+
+
+def load_checkpoint(dirname, main_program=None, scope=None, step=None,
+                    mesh=None, device=None):
+    """Restore the values a committed checkpoint holds into ``scope``,
+    each in the dtype ``main_program`` declares for it, on the device of
+    the scope's current value of that var, else ``device`` (CUDA when
+    None). Returns the names, sorted.
+
+    ``mesh`` (a mapping of axis to size, or an object with ``.shape``)
+    asks for the strict topology check: when the marker records the
+    mesh that produced the trajectory and it differs, the load refuses
+    naming both shapes. Without ``mesh`` the load is elastic."""
+    main_program = main_program or framework.default_main_program()
+    scope = scope or global_scope()
+    path = os.path.abspath(dirname)
+    if step is not None:
+        path = os.path.join(path, str(int(step)))
+    if not is_committed_checkpoint(path):
+        raise ValueError(
+            f"checkpoint {path!r} is uncommitted or corrupt (missing/"
+            "invalid commit marker, or manifest files truncated) — it "
+            "was likely interrupted mid-save; resume from "
+            "latest_checkpoint(), which skips such directories")
+    extra = (read_commit_marker(path) or {}).get("extra", {})
+    if mesh is not None and extra.get("mesh"):
+        want, have = _mesh_shape(mesh), _mesh_shape(extra["mesh"])
+        if want != have:
+            raise ValueError(
+                f"checkpoint {path!r} was committed on mesh {have} but "
+                f"the current mesh is {want} — refusing the strict "
+                "(mesh=...) restore. Resume on the matching topology, or "
+                "load without mesh= for an elastic restore")
+    state = load_checkpoint_arrays(path)
+    block = main_program.global_block()
+    fallback = None
+    for name, val in state.items():
+        cur = scope.find_var(name)
+        if isinstance(cur, torch.Tensor):
+            dev = cur.device
+        else:
+            fallback = fallback or resolve_device(device)
+            dev = fallback
+        dt = block.var(name).dtype if block.has_var(name) else None
+        scope.set_var(name, array_to_tensor(val, dt, dev))
+    return sorted(state)
+
+
+def _committed_steps(dirname):
+    if not os.path.isdir(dirname):
+        return []
+    return sorted(int(d) for d in os.listdir(dirname) if d.isdigit()
+                  and is_committed_checkpoint(os.path.join(dirname, d)))
+
+
+def latest_checkpoint(dirname):
+    """The highest committed numeric step directory under ``dirname``
+    (None when there is none). Directories a crash left without a
+    marker, or with truncated manifest files, are skipped."""
+    steps = _committed_steps(dirname)
+    return steps[-1] if steps else None
+
+
+def committed_checkpoint_steps(dirname):
+    """Every committed step directory under ``dirname``, ascending."""
+    return _committed_steps(dirname)

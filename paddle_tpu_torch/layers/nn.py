@@ -3,7 +3,9 @@
 python/paddle/fluid/layers/nn.py): the GPT and BERT layers, the image
 layers of ResNet (``conv2d``, ``pool2d``, ``batch_norm``, ``relu``) and
 what ``clip.py`` emits (the unary math, ``elementwise_max`` / ``_min``,
-``clip``, ``clip_by_norm``). Each function emits ops into the default
+``clip``, ``clip_by_norm``), and what the learning-rate schedules emit
+(``cast``, ``exp``, ``pow``, ``floor``, ``ceil``, ``cos``, ``where``,
+``elementwise_pow``). Each function emits ops into the default
 main program and sets output shapes itself, exactly as the reference
 does, so both packages build the same program.
 """
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core.framework import Variable
+from ..core.framework import Variable, convert_dtype
 from ..initializer import (ConstantInitializer, NormalInitializer,
                            XavierInitializer)
 from ..layer_helper import LayerHelper
@@ -51,6 +53,14 @@ __all__ = [
     "clip",
     "clip_by_norm",
     "topk",
+    "cast",
+    "exp",
+    "pow",
+    "floor",
+    "ceil",
+    "cos",
+    "where",
+    "elementwise_pow",
 ]
 
 
@@ -488,6 +498,7 @@ elementwise_mul = _make_elementwise("elementwise_mul")
 elementwise_div = _make_elementwise("elementwise_div")
 elementwise_max = _make_elementwise("elementwise_max")
 elementwise_min = _make_elementwise("elementwise_min")
+elementwise_pow = _make_elementwise("elementwise_pow")
 
 
 def _make_activation(op_type, extra_defaults=None):
@@ -511,6 +522,36 @@ sqrt = _make_activation("sqrt")
 square = _make_activation("square")
 abs = _make_activation("abs")
 reciprocal = _make_activation("reciprocal")
+exp = _make_activation("exp")
+floor = _make_activation("floor")
+ceil = _make_activation("ceil")
+cos = _make_activation("cos")
+
+
+def pow(x, factor=1.0, name=None):
+    helper = LayerHelper("pow", name=name)
+    out = _out(helper, x, shape=x.shape)
+    helper.append_op(type="pow", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"factor": factor})
+    return out
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    dtype = convert_dtype(dtype)
+    out = _out(helper, x, shape=x.shape, dtype=dtype)
+    helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"out_dtype": dtype, "in_dtype": x.dtype})
+    return out
+
+
+def where(condition, x, y, name=None):
+    helper = LayerHelper("where", name=name)
+    out = _out(helper, x, shape=x.shape)
+    helper.append_op(type="where",
+                     inputs={"Condition": [condition], "X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def fill_constant_like(x, value):

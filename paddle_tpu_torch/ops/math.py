@@ -41,8 +41,9 @@ def _promote(x, y):
     return x, y
 
 
-def _register_elementwise(name, fn):
-    @register_op(name, inputs=("X", "Y"), outputs=("Out",))
+def _register_elementwise(name, fn, stop_gradient=False):
+    @register_op(name, inputs=("X", "Y"), outputs=("Out",),
+                 stop_gradient=stop_gradient)
     def _lower(ctx, op, ins, _fn=fn):
         x, y = _promote(ins["X"][0], ins["Y"][0])
         y = _broadcast_y(x, y, int(op.attrs.get("axis", -1)))
@@ -91,6 +92,9 @@ def _minimum(x, y):
 
 _register_elementwise("elementwise_min", _minimum)
 _register_elementwise("elementwise_max", _maximum)
+# ``x ** y`` (``paddle_tpu/ops/math.py:53``), both gradients through
+# autograd as JAX's vjp of ``lax.pow``
+_register_elementwise("elementwise_pow", torch.pow)
 
 
 @register_op("matmul", inputs=("X", "Y"), outputs=("Out",))
@@ -212,6 +216,30 @@ _register_unary("sqrt", torch.sqrt)
 _register_unary("square", torch.square)
 _register_unary("abs", lambda x: _Abs.apply(x))
 _register_unary("reciprocal", lambda x: 1.0 / x)
+# the learning-rate schedules' unary ops (``paddle_tpu/ops/math.py``
+# :171, :175-176, :200); floor and ceil pass no gradient, as in JAX
+_register_unary("exp", torch.exp)
+_register_unary("floor", torch.floor)
+_register_unary("ceil", torch.ceil)
+_register_unary("cos", torch.cos)
+
+
+@register_op("pow", inputs=("X",), outputs=("Out",))
+def _pow(ctx, op, ins):
+    """``x ** factor`` (``paddle_tpu/ops/math.py:202``); the gradient
+    ``factor * x ** (factor - 1)``."""
+    return {"Out": [ins["X"][0] ** float(op.attrs.get("factor", 1.0))]}
+
+
+# comparisons and logical ops (``paddle_tpu/ops/math.py:277-298``): no
+# gradient
+for _name, _fn in (("equal", torch.eq), ("not_equal", torch.ne),
+                   ("less_than", torch.lt), ("less_equal", torch.le),
+                   ("greater_than", torch.gt), ("greater_equal", torch.ge),
+                   ("logical_and", torch.logical_and),
+                   ("logical_or", torch.logical_or),
+                   ("logical_xor", torch.logical_xor)):
+    _register_elementwise(_name, _fn, stop_gradient=True)
 
 
 @register_op("clip", inputs=("X",), outputs=("Out",))

@@ -1,12 +1,20 @@
 """Optimizer update ops: the unfused ``sgd``, ``momentum`` and ``adam``
-chains (semantics of ``paddle_tpu/ops/optim.py:65-108, :133``) and the
-one-pass ``fused_adam`` / ``fused_adamw`` / ``fused_momentum``
+chains (semantics of ``paddle_tpu/ops/optim.py:65-108, :133``), the
+other optimizers' dense updates (``lars_momentum``, ``adagrad``,
+``decayed_adagrad``, ``adadelta``, ``adamax``, ``rmsprop``, ``ftrl``,
+``lamb``, ``dpsgd``, ``proximal_gd``, ``proximal_adagrad``; :111-497,
+in JAX's arithmetic order) and the one-pass ``fused_adam`` /
+``fused_adamw`` / ``fused_momentum``
 (``paddle_tpu/kernels/fused_optim.py:345-475``) over the K10 and K10m
 kernels. Output names alias the inputs (ParamOut = Param), and the
 Executor writes them back to the scope; the fused ops update their
 state in place (the beta pows too, with plain torch), the unfused ops
 return new tensors. Gradients are dense: a SelectedRows gradient
-(``is_sparse`` embeddings) is ROADMAP A1."""
+(``is_sparse`` embeddings) is ROADMAP A1.
+
+A division by an attribute goes through a tensor of the operand's
+dtype: torch divides by a Python scalar (and divides a Python scalar
+by a tensor) through a reciprocal, where JAX divides."""
 
 from __future__ import annotations
 
@@ -133,3 +141,205 @@ def _fused_adam(ctx, op, ins):
              outputs=_ADAM_OUTS, stop_gradient=True)
 def _fused_adamw(ctx, op, ins):
     return _lower_fused_adam(ctx, op, ins, 0.01)
+
+
+def _const(like, value):
+    """A 0-dim tensor of ``like``'s dtype and device."""
+    return torch.full((), float(value), dtype=like.dtype, device=like.device)
+
+
+def _l2(x):
+    return torch.sqrt(torch.sum(torch.square(x)))
+
+
+@register_op("lars_momentum", inputs=("Param", "Grad", "Velocity",
+                                      "LearningRate"),
+             outputs=("ParamOut", "VelocityOut"), stop_gradient=True)
+def _lars_momentum(ctx, op, ins):
+    """Layer-adaptive lr scaling (reference lars_momentum_op.cc)."""
+    p, g, v = ins["Param"][0], _dense(ins), ins["Velocity"][0]
+    mu = float(op.attrs.get("mu", 0.9))
+    coeff = float(op.attrs.get("lars_coeff", 0.001))
+    wd = float(op.attrs.get("lars_weight_decay", 0.0005))
+    eps = 1e-9
+    p_norm, g_norm = _l2(p), _l2(g)
+    local_lr = _lr(ins) * coeff * p_norm / (g_norm + wd * p_norm + eps)
+    v_new = mu * v + local_lr * (g + wd * p)
+    return {"ParamOut": [p - v_new], "VelocityOut": [v_new]}
+
+
+@register_op("adagrad", inputs=("Param", "Grad", "Moment", "LearningRate"),
+             outputs=("ParamOut", "MomentOut"), stop_gradient=True)
+def _adagrad(ctx, op, ins):
+    p, g, m = ins["Param"][0], _dense(ins), ins["Moment"][0]
+    eps = float(op.attrs.get("epsilon", 1e-6))
+    m_new = m + torch.square(g)
+    return {"ParamOut": [p - _lr(ins) * g / (torch.sqrt(m_new) + eps)],
+            "MomentOut": [m_new]}
+
+
+@register_op("decayed_adagrad", inputs=("Param", "Grad", "Moment",
+                                        "LearningRate"),
+             outputs=("ParamOut", "MomentOut"), stop_gradient=True)
+def _decayed_adagrad(ctx, op, ins):
+    p, g, m = ins["Param"][0], _dense(ins), ins["Moment"][0]
+    decay = float(op.attrs.get("decay", 0.95))
+    eps = float(op.attrs.get("epsilon", 1e-6))
+    m_new = decay * m + (1 - decay) * torch.square(g)
+    return {"ParamOut": [p - _lr(ins) * g / (torch.sqrt(m_new) + eps)],
+            "MomentOut": [m_new]}
+
+
+@register_op("adadelta", inputs=("Param", "Grad", "AvgSquaredGrad",
+                                 "AvgSquaredUpdate"),
+             outputs=("ParamOut", "AvgSquaredGradOut", "AvgSquaredUpdateOut"),
+             stop_gradient=True)
+def _adadelta(ctx, op, ins):
+    p, g = ins["Param"][0], _dense(ins)
+    asg, asu = ins["AvgSquaredGrad"][0], ins["AvgSquaredUpdate"][0]
+    rho = float(op.attrs.get("rho", 0.95))
+    eps = float(op.attrs.get("epsilon", 1e-6))
+    asg_n = rho * asg + (1 - rho) * torch.square(g)
+    upd = -torch.sqrt((asu + eps) / (asg_n + eps)) * g
+    asu_n = rho * asu + (1 - rho) * torch.square(upd)
+    return {"ParamOut": [p + upd], "AvgSquaredGradOut": [asg_n],
+            "AvgSquaredUpdateOut": [asu_n]}
+
+
+@register_op("adamax", inputs=("Param", "Grad", "LearningRate", "Moment",
+                               "InfNorm", "Beta1Pow"),
+             outputs=("ParamOut", "MomentOut", "InfNormOut"),
+             stop_gradient=True)
+def _adamax(ctx, op, ins):
+    """The beta1 power advances in a ``scale`` op the optimizer appends
+    after every update (``AdamaxOptimizer._finish_update``)."""
+    p, g = ins["Param"][0], _dense(ins)
+    m, u, b1p = ins["Moment"][0], ins["InfNorm"][0], ins["Beta1Pow"][0]
+    beta1, beta2, eps = _attrs(op)
+    m_new = beta1 * m + (1 - beta1) * g
+    u_new = torch.maximum(beta2 * u, torch.abs(g))
+    lr_t = _lr(ins) / (1 - b1p.reshape(()))
+    return {"ParamOut": [p - lr_t * m_new / (u_new + eps)],
+            "MomentOut": [m_new], "InfNormOut": [u_new]}
+
+
+@register_op("rmsprop", inputs=("Param", "Grad", "Moment", "MeanSquare",
+                                "MeanGrad", "LearningRate"),
+             outputs=("ParamOut", "MomentOut", "MeanSquareOut", "MeanGradOut"),
+             stop_gradient=True)
+def _rmsprop(ctx, op, ins):
+    p, g = ins["Param"][0], _dense(ins)
+    mom, ms = ins["Moment"][0], ins["MeanSquare"][0]
+    eps = float(op.attrs.get("epsilon", 1e-10))
+    decay = float(op.attrs.get("decay", 0.9))
+    momentum = float(op.attrs.get("momentum", 0.0))
+    ms_new = decay * ms + (1 - decay) * torch.square(g)
+    if op.attrs.get("centered", False):
+        mg_new = decay * ins["MeanGrad"][0] + (1 - decay) * g
+        denom = torch.sqrt(ms_new - torch.square(mg_new) + eps)
+    else:
+        mg_new = (ins["MeanGrad"][0] if ins.get("MeanGrad")
+                  else torch.zeros_like(p))
+        denom = torch.sqrt(ms_new + eps)
+    mom_new = momentum * mom + _lr(ins) * g / denom
+    return {"ParamOut": [p - mom_new], "MomentOut": [mom_new],
+            "MeanSquareOut": [ms_new], "MeanGradOut": [mg_new]}
+
+
+@register_op("ftrl", inputs=("Param", "SquaredAccumulator",
+                             "LinearAccumulator", "Grad", "LearningRate"),
+             outputs=("ParamOut", "SquaredAccumOut", "LinearAccumOut"),
+             stop_gradient=True)
+def _ftrl(ctx, op, ins):
+    p, g = ins["Param"][0], _dense(ins)
+    sq, lin = ins["SquaredAccumulator"][0], ins["LinearAccumulator"][0]
+    l1 = float(op.attrs.get("l1", 0.0)) + 1e-10
+    l2 = float(op.attrs.get("l2", 0.0)) + 1e-10
+    lr_power = float(op.attrs.get("lr_power", -0.5))
+    lr = _lr(ins)
+    sq_new = sq + torch.square(g)
+    if lr_power == -0.5:
+        sigma = (torch.sqrt(sq_new) - torch.sqrt(sq)) / lr
+        denom = torch.sqrt(sq_new) / lr + 2 * l2
+    else:
+        sigma = (sq_new ** -lr_power - sq ** -lr_power) / lr
+        denom = sq_new ** -lr_power / lr + 2 * l2
+    lin_new = lin + g - sigma * p
+    pre = torch.clamp(lin_new, -l1, l1) - lin_new
+    return {"ParamOut": [pre / denom], "SquaredAccumOut": [sq_new],
+            "LinearAccumOut": [lin_new]}
+
+
+@register_op("lamb", inputs=_ADAM_INS, outputs=_ADAM_OUTS, stop_gradient=True)
+def _lamb(ctx, op, ins):
+    """Layer-wise adaptive large-batch Adam (reference lamb_op.cc): the
+    trust ratio ||p|| / ||r|| takes whole-tensor norms (1 where either
+    is 0)."""
+    p, g = ins["Param"][0], _dense(ins)
+    m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
+    b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
+    beta1, beta2 = _attrs(op)[:2]
+    eps = float(op.attrs.get("epsilon", 1e-6))
+    wd = float(op.attrs.get("weight_decay", 0.01))
+    g = g.to(p.dtype)
+    m1n = beta1 * m1 + (1 - beta1) * g
+    m2n = beta2 * m2 + (1 - beta2) * torch.square(g)
+    m1h = m1n / (1 - b1p.reshape(()))
+    m2h = m2n / (1 - b2p.reshape(()))
+    r = m1h / (torch.sqrt(m2h) + eps) + wd * p
+    p_norm, r_norm = _l2(p), _l2(r)
+    ratio = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
+                        _const(p_norm, 1.0))
+    return {"ParamOut": [p - _lr(ins) * ratio * r], "Moment1Out": [m1n],
+            "Moment2Out": [m2n], "Beta1PowOut": [b1p * beta1],
+            "Beta2PowOut": [b2p * beta2]}
+
+
+@register_op("dpsgd", inputs=("Param", "Grad", "LearningRate"),
+             outputs=("ParamOut",), stop_gradient=True)
+def _dpsgd(ctx, op, ins):
+    """Differentially private SGD (reference dpsgd_op.cc): the gradient
+    clipped to norm ``clip``, plus Gaussian noise of std ``sigma *
+    clip`` over ``batch_size``, drawn from the op's generator (its bits
+    differ from JAX's PRNG; its distribution does not)."""
+    p, g = ins["Param"][0], _dense(ins)
+    clip = float(op.attrs.get("clip", 10.0))
+    batch_size = float(op.attrs.get("batch_size", 16.0))
+    sigma = float(op.attrs.get("sigma", 1.0))
+    g_norm = _l2(g)
+    factor = torch.clamp_max(
+        _const(g_norm, clip) / torch.clamp_min(g_norm, 1e-12), 1.0)
+    g = g * factor
+    noise = sigma * clip * torch.randn(g.shape, generator=ctx.op_generator(op),
+                                       device=g.device, dtype=g.dtype)
+    return {"ParamOut": [p - _lr(ins) * (g + noise / _const(g, batch_size))]}
+
+
+def _proximal(prox, lr, op):
+    """sign(prox) * max(|prox| - lr * l1, 0) / (1 + lr * l2)."""
+    l1 = float(op.attrs.get("l1", 0.0))
+    l2 = float(op.attrs.get("l2", 0.0))
+    return (torch.sign(prox) * torch.clamp_min(torch.abs(prox) - lr * l1, 0.0)
+            / (1.0 + lr * l2))
+
+
+@register_op("proximal_gd", inputs=("Param", "Grad", "LearningRate"),
+             outputs=("ParamOut",), no_grad=("LearningRate",),
+             stop_gradient=True)
+def _proximal_gd(ctx, op, ins):
+    """Reference proximal_gd_op.cc."""
+    p, lr = ins["Param"][0], _lr(ins)
+    return {"ParamOut": [_proximal(p - lr * _dense(ins), lr, op)]}
+
+
+@register_op("proximal_adagrad", inputs=("Param", "Moment", "Grad",
+                                         "LearningRate"),
+             outputs=("ParamOut", "MomentOut"), no_grad=("LearningRate",),
+             stop_gradient=True)
+def _proximal_adagrad(ctx, op, ins):
+    """Reference proximal_adagrad_op.cc: the step takes the per-element
+    lr, the l1/l2 shrinkage the scalar one (proximal_adagrad_op.h:52-63)."""
+    p, m, g, lr = ins["Param"][0], ins["Moment"][0], _dense(ins), _lr(ins)
+    m_new = m + g * g
+    prox = p - (lr / torch.sqrt(m_new)) * g
+    return {"ParamOut": [_proximal(prox, lr, op)], "MomentOut": [m_new]}

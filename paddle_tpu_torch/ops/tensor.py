@@ -158,7 +158,10 @@ def _lookup_table(ctx, op, ins):
 )
 def _lookup_table_grad(ctx, op, ins):
     """Dense scatter-add of the output grad rows (the reference's
-    non-sparse branch of ``_embedding_grad``)."""
+    non-sparse branch of ``_embedding_grad``), deterministic: the rows
+    are stably sorted by id and each id's rows summed in their original
+    order by ``segment_reduce``, where ``index_add_`` on CUDA adds
+    repeated ids with float atomics in whatever order they land."""
     if op.attrs.get("is_sparse", False):
         raise NotImplementedError(
             "lookup_table with is_sparse=True needs SelectedRows gradients, "
@@ -171,8 +174,11 @@ def _lookup_table_grad(ctx, op, ins):
         flat_g = torch.where((flat_ids == pad)[:, None],
                              torch.zeros((), dtype=flat_g.dtype,
                                          device=flat_g.device), flat_g)
-    wg = torch.zeros_like(w).index_add_(0, flat_ids, flat_g.to(w.dtype))
-    return {"W@GRAD": [wg]}
+    ids_sorted, order = torch.sort(flat_ids, stable=True)
+    rows, counts = torch.unique_consecutive(ids_sorted, return_counts=True)
+    sums = torch.segment_reduce(flat_g.to(w.dtype)[order], "sum",
+                                lengths=counts, axis=0)
+    return {"W@GRAD": [torch.zeros_like(w).index_copy_(0, rows, sums)]}
 
 
 @register_op("top_k", inputs=("X",), outputs=("Out", "Indices"))
@@ -191,3 +197,21 @@ def _top_k(ctx, op, ins):
 def _sign(ctx, op, ins):
     """``paddle_tpu/ops/tensor.py:500``."""
     return {"Out": [torch.sign(ins["X"][0])]}
+
+
+@register_op("where", inputs=("Condition", "X", "Y"), outputs=("Out",),
+             no_grad=("Condition",))
+def _where(ctx, op, ins):
+    """``paddle_tpu/ops/tensor.py:373``: X where Condition, else Y."""
+    return {"Out": [torch.where(ins["Condition"][0], ins["X"][0],
+                                ins["Y"][0])]}
+
+
+@register_op("increment", inputs=("X",), outputs=("Out",))
+def _increment(ctx, op, ins):
+    """``paddle_tpu/ops/tensor.py:407``: X + step in X's dtype. The
+    learning-rate counter's op names the persistable counter as its
+    output, so the Executor writes the new value into the scope."""
+    x = ins["X"][0]
+    step = op.attrs.get("step", 1.0)
+    return {"Out": [x + (step if x.is_floating_point() else int(step))]}

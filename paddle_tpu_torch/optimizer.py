@@ -1,11 +1,14 @@
 """Optimizers: the port's copy of ``Optimizer``, ``SGDOptimizer``,
-``MomentumOptimizer`` and ``AdamOptimizer`` of ``paddle_tpu/optimizer.py``
-(:66-366, :500-592; Fluid's python/paddle/fluid/optimizer.py). Each
+``MomentumOptimizer``, ``AdamOptimizer`` and the other update rules of
+``paddle_tpu/optimizer.py`` (:66-403, :472-838: LarsMomentum, Adagrad,
+Adamax, Dpsgd, DecayedAdagrad, Adadelta, RMSProp, Ftrl and Lamb; Fluid's
+python/paddle/fluid/optimizer.py). Each
 optimizer appends per-parameter update ops plus state-accumulator vars
 initialized in the startup program, with the same names and attrs as
 the reference. Adam and Momentum emit the one-pass ``fused_adam`` /
 ``fused_momentum`` (kernels K10 / K10m on CUDA) or the unfused chain
-exactly when the reference does (the ``optimizer_fuse`` flag).
+exactly when the reference does (the ``optimizer_fuse`` flag); the
+choice is by exact class, so Lamb (an Adam subclass) stays unfused.
 
 ``apply_gradients`` has the reference's clip / regularization seam
 (:167-210): with the fused op active, a ``GradientClipByGlobalNorm``
@@ -15,9 +18,8 @@ into the fused op's ``ClipScale`` operand; otherwise the clip ops
 (``clip.py``) and the weight-decay ops (``regularizer.py``) rewrite the
 gradients first and the update consumes the rewritten ones.
 
-Not ported yet (ROADMAP A1): the other optimizer classes (Adagrad,
-Adamax, RMSProp, Lamb, LarsMomentum, ...), refused by name, and the
-dygraph path.
+Not ported yet, refused by name with the ROADMAP item that holds each
+(``_NOT_PORTED``): the meta-optimizers, and the dygraph path.
 """
 
 from __future__ import annotations
@@ -40,24 +42,33 @@ from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
-           "MomentumOptimizer", "Adam", "AdamOptimizer"]
+           "MomentumOptimizer", "LarsMomentum", "LarsMomentumOptimizer",
+           "Adagrad", "AdagradOptimizer", "Adam", "AdamOptimizer",
+           "Adamax", "AdamaxOptimizer", "Dpsgd", "DpsgdOptimizer",
+           "DecayedAdagrad", "DecayedAdagradOptimizer", "Adadelta",
+           "AdadeltaOptimizer", "RMSProp", "RMSPropOptimizer", "Ftrl",
+           "FtrlOptimizer", "Lamb", "LambOptimizer"]
 
-# the reference's other optimizer classes (paddle_tpu/optimizer.py
-# __all__), refused by name until they are ported
-_NOT_PORTED = ("Adagrad", "Adamax", "Dpsgd", "DecayedAdagrad", "Adadelta",
-               "RMSProp", "Ftrl", "Lamb", "LarsMomentum")
+# the reference's meta-optimizers (paddle_tpu/optimizer.py __all__),
+# refused by name with what each waits for
+_NOT_PORTED = {
+    "DGCMomentumOptimizer": "ROADMAP A10: its sparsified gradient rides "
+                            "the data-parallel collectives",
+    "ExponentialMovingAverage": "ROADMAP A1, after core/control_flow.py",
+    "ModelAverage": "ROADMAP A1, after core/control_flow.py",
+    "RecomputeOptimizer": "ROADMAP A1, after core/control_flow.py "
+                          "(recompute segments)",
+    "LookaheadOptimizer": "ROADMAP A1, after core/control_flow.py",
+    "GradientMergeOptimizer": "ROADMAP A1, after core/control_flow.py",
+    "PipelineOptimizer": "ROADMAP A10: pipeline parallelism",
+}
 
 
 def __getattr__(name):
-    base = name[:-len("Optimizer")] if name.endswith("Optimizer") else name
-    if base in _NOT_PORTED or name in ("DGCMomentumOptimizer",
-                                       "ExponentialMovingAverage",
-                                       "ModelAverage", "RecomputeOptimizer",
-                                       "LookaheadOptimizer",
-                                       "PipelineOptimizer"):
+    if name in _NOT_PORTED:
         raise NotImplementedError(
             f"optimizer.{name} is not ported to paddle_tpu_torch yet "
-            "(ROADMAP A1: the other optimizer classes)")
+            f"({_NOT_PORTED[name]})")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -311,7 +322,276 @@ class AdamOptimizer(Optimizer):
         )
 
 
+class LarsMomentumOptimizer(Optimizer):
+    """Reference optimizer.py:1442: momentum with a layer-wise lr."""
+
+    type = "lars_momentum"
+
+    def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            type="lars_momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [v],
+                    "LearningRate": [self._create_param_lr(p)]},
+            outputs={"ParamOut": [p], "VelocityOut": [v]},
+            attrs={"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                   "lars_weight_decay": self._lars_weight_decay},
+        )
+
+
+class AdagradOptimizer(Optimizer):
+    type = "adagrad"
+
+    def __init__(self, learning_rate, epsilon=1e-6,
+                 initial_accumulator_value=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+        self._initial = initial_accumulator_value
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p, fill_value=self._initial)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            type="adagrad",
+            inputs={"Param": [p], "Grad": [g], "Moment": [m],
+                    "LearningRate": [self._create_param_lr(p)]},
+            outputs={"ParamOut": [p], "MomentOut": [m]},
+            attrs={"epsilon": self._epsilon},
+        )
+
+
+class AdamaxOptimizer(Optimizer):
+    type = "adamax"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            self._add_accumulator("beta1_pow_acc", p,
+                                  fill_value=self._beta1, shape=[1])
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        m = self._get_accumulator("moment", p)
+        u = self._get_accumulator("inf_norm", p)
+        return block.append_op(
+            type="adamax",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._create_param_lr(p)],
+                    "Moment": [m], "InfNorm": [u],
+                    "Beta1Pow": [self._get_accumulator("beta1_pow_acc", p)]},
+            outputs={"ParamOut": [p], "MomentOut": [m], "InfNormOut": [u]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon},
+        )
+
+    def _finish_update(self, block, params_grads):
+        # beta1_pow *= beta1 once a step (reference adamax semantics)
+        for p, _ in params_grads:
+            b1p = self._get_accumulator("beta1_pow_acc", p)
+            block.append_op(
+                type="scale", inputs={"X": [b1p]}, outputs={"Out": [b1p]},
+                attrs={"scale": self._beta1, "op_role": OpRole.Optimize},
+            )
+
+
+class DpsgdOptimizer(Optimizer):
+    type = "dpsgd"
+
+    def __init__(self, learning_rate=0.001, clip=10.0, batch_size=16.0,
+                 sigma=1.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self._clip, self._batch_size, self._sigma = clip, batch_size, sigma
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        return block.append_op(
+            type="dpsgd",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._create_param_lr(p)]},
+            outputs={"ParamOut": [p]},
+            attrs={"clip": self._clip, "batch_size": self._batch_size,
+                   "sigma": self._sigma},
+        )
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    type = "decayed_adagrad"
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._decay, self._epsilon = decay, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            type="decayed_adagrad",
+            inputs={"Param": [p], "Grad": [g], "Moment": [m],
+                    "LearningRate": [self._create_param_lr(p)]},
+            outputs={"ParamOut": [p], "MomentOut": [m]},
+            attrs={"decay": self._decay, "epsilon": self._epsilon},
+        )
+
+
+class AdadeltaOptimizer(Optimizer):
+    type = "adadelta"
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("__avg_squared_grad", p)
+            self._add_accumulator("__avg_squared_update", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        asg = self._get_accumulator("__avg_squared_grad", p)
+        asu = self._get_accumulator("__avg_squared_update", p)
+        return block.append_op(
+            type="adadelta",
+            inputs={"Param": [p], "Grad": [g], "AvgSquaredGrad": [asg],
+                    "AvgSquaredUpdate": [asu]},
+            outputs={"ParamOut": [p], "AvgSquaredGradOut": [asg],
+                     "AvgSquaredUpdateOut": [asu]},
+            attrs={"epsilon": self._epsilon, "rho": self._rho},
+        )
+
+
+class RMSPropOptimizer(Optimizer):
+    type = "rmsprop"
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("momentum", p)
+            self._add_accumulator("mean_square", p)
+            self._add_accumulator("mean_grad", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        mom = self._get_accumulator("momentum", p)
+        ms = self._get_accumulator("mean_square", p)
+        mg = self._get_accumulator("mean_grad", p)
+        return block.append_op(
+            type="rmsprop",
+            inputs={"Param": [p], "Grad": [g], "Moment": [mom],
+                    "MeanSquare": [ms], "MeanGrad": [mg],
+                    "LearningRate": [self._create_param_lr(p)]},
+            outputs={"ParamOut": [p], "MomentOut": [mom],
+                     "MeanSquareOut": [ms], "MeanGradOut": [mg]},
+            attrs={"epsilon": self._epsilon, "decay": self._rho,
+                   "momentum": self._momentum, "centered": self._centered},
+        )
+
+
+class FtrlOptimizer(Optimizer):
+    type = "ftrl"
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        sq = self._get_accumulator("squared", p)
+        lin = self._get_accumulator("linear", p)
+        return block.append_op(
+            type="ftrl",
+            inputs={"Param": [p], "SquaredAccumulator": [sq],
+                    "LinearAccumulator": [lin], "Grad": [g],
+                    "LearningRate": [self._create_param_lr(p)]},
+            outputs={"ParamOut": [p], "SquaredAccumOut": [sq],
+                     "LinearAccumOut": [lin]},
+            attrs={"l1": self._l1, "l2": self._l2,
+                   "lr_power": self._lr_power},
+        )
+
+
+class LambOptimizer(AdamOptimizer):
+    """Reference optimizer.py:2699: Adam's moments with a layer-wise
+    trust ratio; ``exclude_from_weight_decay_fn(param)`` true takes the
+    parameter's weight decay to 0."""
+
+    type = "lamb"
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6,
+                 exclude_from_weight_decay_fn=None, **kw):
+        super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
+        self._weight_decay = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        wd = self._weight_decay
+        if self._exclude_fn is not None and self._exclude_fn(p):
+            wd = 0.0
+        m1 = self._get_accumulator("moment1", p)
+        m2 = self._get_accumulator("moment2", p)
+        b1p = self._get_accumulator("beta1_pow_acc", p)
+        b2p = self._get_accumulator("beta2_pow_acc", p)
+        return block.append_op(
+            type="lamb",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._create_param_lr(p)],
+                    "Moment1": [m1], "Moment2": [m2],
+                    "Beta1Pow": [b1p], "Beta2Pow": [b2p]},
+            outputs={"ParamOut": [p], "Moment1Out": [m1],
+                     "Moment2Out": [m2], "Beta1PowOut": [b1p],
+                     "Beta2PowOut": [b2p]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon, "weight_decay": wd},
+        )
+
+
 # reference-compatible aliases
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+Dpsgd = DpsgdOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+Lamb = LambOptimizer
+LarsMomentum = LarsMomentumOptimizer

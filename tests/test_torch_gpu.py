@@ -1532,3 +1532,97 @@ def test_swap_base_under_graph_equals_a_fresh_engine(cuda, mode):
                                mode)
         assert torch.equal(pred.lm.layers[0].qkv.qweight, q)
     assert after != before
+
+
+# -- checkpoints and supervised training (A13b, resilience/) -------------------
+
+
+def test_lookup_table_grad_repeats_its_bits_on_the_card(cuda):
+    """BERT-large's word-embedding gradient shape with heavily repeated
+    ids (8 x 512 ids over 64 rows, padding id 0): two calls give the
+    same bits (``index_add_``'s float atomics would not), and the
+    result equals the CPU's segment sum within float32 summation noise."""
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    class _Op:
+        attrs = {"padding_idx": 0}
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn(30522, 1024, device=cuda, generator=g)
+    ids = torch.randint(0, 64, (8, 512, 1), device=cuda, generator=g)
+    og = torch.randn(8, 512, 1024, device=cuda, generator=g)
+    lower = get_op_def("lookup_table_grad").lower
+    ins = {"W": [w], "Ids": [ids], "Out@GRAD": [og]}
+    a = lower(None, _Op(), ins)["W@GRAD"][0]
+    b = lower(None, _Op(), ins)["W@GRAD"][0]
+    assert torch.equal(a, b)
+    cpu = lower(None, _Op(), {k: [v[0].cpu()] for k, v in ins.items()})
+    torch.testing.assert_close(a.cpu(), cpu["W@GRAD"][0], atol=1e-4,
+                               rtol=1e-5)
+    assert not a[0].any() and not a[64:].any()
+
+
+def test_supervised_resume_on_cuda_is_bitwise(cuda, tmp_path):
+    """A dropout MLP under Lamb and a warmup-then-decay lr on the card:
+    a Supervisor running every step on its watchdog's worker thread
+    commits at step 4 and runs to 8; a fresh Executor and scope (startup
+    under another seed) resume from 4 on the caller's thread. Losses,
+    lr and every persistable equal the uninterrupted run bit for bit:
+    the worker launches on the caller's device and stream, and the run
+    counter, the schedule's counter and Lamb's state round-trip."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io, resilience
+
+    def build():
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 3
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            x = fluid.layers.data("x", [64])
+            y = fluid.layers.data("y", [1], dtype="int64")
+            h = fluid.layers.dropout(fluid.layers.fc(x, 256, act="relu"),
+                                     0.1)
+            loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+                fluid.layers.fc(h, 8), y))
+            lr = fluid.layers.linear_lr_warmup(fluid.layers.polynomial_decay(
+                1e-2, 8, end_learning_rate=0.0), 2, 0.0, 1e-2)
+            fluid.optimizer.LambOptimizer(lr).minimize(loss)
+        return main, startup, loss, lr
+
+    def feed(step):
+        r = np.random.RandomState(step)
+        return {"x": r.randn(32, 64).astype("float32"),
+                "y": r.randint(0, 8, (32, 1)).astype("int64")}
+
+    def run(ck, resume, watchdog, seed):
+        main, startup, loss, lr = build()
+        startup.random_seed = seed
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        out = {}
+        sup = resilience.Supervisor(
+            exe, main, str(ck), feed_fn=feed, fetch_list=[loss, lr],
+            scope=scope, watchdog_timeout_s=watchdog,
+            policy=resilience.CheckpointPolicy(str(ck), every_steps=4,
+                                               keep_last=2),
+            on_step=lambda s, f: out.__setitem__(
+                s, (f[0].tobytes(), f[1].tobytes())))
+        stats = sup.run_loop(8, resume=resume)
+        state = {v.name: scope.find_var(v.name).cpu()
+                 for v in main.list_vars() if v.persistable and not v.is_data}
+        return out, stats, state
+
+    import shutil
+
+    ck = tmp_path / "ck"
+    ref, _, ref_state = run(ck, False, 60.0, 3)
+    assert io.committed_checkpoint_steps(str(ck)) == [4, 8]
+    shutil.rmtree(ck / "8")
+    got, stats, state = run(ck, True, 0.0, 77)
+    assert stats["resumed_from"] == 4
+    assert sorted(got) == [4, 5, 6, 7]
+    assert got == {s: ref[s] for s in range(4, 8)}
+    assert sorted(state) == sorted(ref_state)
+    for n in ref_state:
+        assert torch.equal(state[n], ref_state[n]), n
+    assert float(ref_state["@LR_DECAY_COUNTER@"][0]) == 8.0

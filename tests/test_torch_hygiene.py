@@ -1,8 +1,8 @@
 """Import hygiene of the PyTorch port.
 
 ``paddle_tpu_torch``, ``chip_smoke.py`` and the card probes under
-``probes/`` must never import ``jax``, ``jaxlib`` or any part of
-``paddle_tpu`` (importing any ``paddle_tpu.*`` runs
+``probes/`` must never import ``jax``, ``jaxlib``, ``orbax`` or any part
+of ``paddle_tpu`` (importing any ``paddle_tpu.*`` runs
 ``paddle_tpu/__init__.py``, which imports JAX). Names are matched
 exactly: ``paddle_tpu_torch`` itself starts with ``paddle_tpu``.
 """
@@ -19,7 +19,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "paddle_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "paddle_tpu")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -111,7 +111,17 @@ def test_port_package_imports_no_jax_or_paddle_tpu():
                 "paddle_tpu_torch.runtime.dispatch",
                 "paddle_tpu_torch.serving.engine",
                 "paddle_tpu_torch.serving.metrics",
-                "paddle_tpu_torch.serving.server"):
+                "paddle_tpu_torch.serving.server",
+                # checkpoints, supervised training, the other optimizers
+                # and the learning-rate schedules
+                "paddle_tpu_torch.fs",
+                "paddle_tpu_torch.observability.flight",
+                "paddle_tpu_torch.observability.tracing",
+                "paddle_tpu_torch.resilience.faults",
+                "paddle_tpu_torch.resilience.checkpoint",
+                "paddle_tpu_torch.resilience.supervisor",
+                "paddle_tpu_torch.layers.control_flow",
+                "paddle_tpu_torch.layers.learning_rate_scheduler"):
         assert mod in res["port"]
 
 

@@ -295,9 +295,12 @@ def test_fused_momentum_update_checks_its_inputs():
                               clip_scale=torch.tensor([1.0], dtype=torch.float64))
 
 
-@pytest.mark.parametrize("name", ["AdagradOptimizer", "RMSProp",
-                                  "LambOptimizer", "LarsMomentumOptimizer"])
+@pytest.mark.parametrize("name", ["ExponentialMovingAverage",
+                                  "ModelAverage", "RecomputeOptimizer",
+                                  "LookaheadOptimizer"])
 def test_other_optimizers_are_refused_naming_a1(name):
+    """The meta-optimizers still wait in A1 (the update rules are
+    ported: tests/test_torch_optimizers.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         getattr(fluid.optimizer, name)
     with pytest.raises(AttributeError):

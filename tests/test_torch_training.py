@@ -312,8 +312,12 @@ def test_load_scope_arrays_checks_names_and_shapes():
 
 
 def test_port_registers_the_training_path_ops(fuse_flag):
-    """Every op type of the tiny GPT's programs (fused and unfused) has
-    a lowering in the port once ``paddle_tpu_torch`` is imported."""
+    """Every op type of the tiny GPT's programs (fused and unfused), of
+    the tiny GPT under each of the other optimizers, and of every
+    learning-rate schedule has a lowering in the port once
+    ``paddle_tpu_torch`` is imported, as do the optimizer ops without a
+    class (``proximal_gd``, ``proximal_adagrad``) and the rest of the
+    comparison family."""
     from paddle_tpu_torch.core import registry
 
     for fuse in ("on", "off"):
@@ -322,6 +326,39 @@ def test_port_registers_the_training_path_ops(fuse_flag):
         for program in (main, startup):
             for op in program.global_block().ops:
                 assert registry.has_op(op.type), op.type
+    O, L = fluid.optimizer, fluid.layers
+    optimizers = [O.AdagradOptimizer(0.1), O.AdamaxOptimizer(),
+                  O.DpsgdOptimizer(), O.DecayedAdagradOptimizer(0.1),
+                  O.AdadeltaOptimizer(0.1), O.RMSPropOptimizer(0.1),
+                  O.FtrlOptimizer(0.1), O.LambOptimizer(),
+                  O.LarsMomentumOptimizer(0.1)]
+    schedules = [lambda: L.noam_decay(64, 4),
+                 lambda: L.exponential_decay(0.1, 3, 0.5, staircase=True),
+                 lambda: L.natural_exp_decay(0.1, 3, 0.5),
+                 lambda: L.inverse_time_decay(0.1, 3, 0.5),
+                 lambda: L.polynomial_decay(0.1, 8, cycle=True),
+                 lambda: L.piecewise_decay([2, 4], [0.1, 0.01, 0.001]),
+                 lambda: L.cosine_decay(0.1, 2, 4),
+                 lambda: L.linear_lr_warmup(0.1, 2, 0.0, 0.1)]
+    seen = set()
+    for opt, schedule in zip(optimizers, schedules + schedules[:1]):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            loss = fluid.layers.mean(fluid.layers.fc(
+                fluid.layers.data("x", [4]), 2))
+            opt._learning_rate = schedule()
+            opt.minimize(loss)
+        for program in (main, startup):
+            seen |= {op.type for op in program.global_block().ops}
+    assert {"lamb", "lars_momentum", "adagrad", "decayed_adagrad",
+            "adadelta", "adamax", "rmsprop", "ftrl", "dpsgd", "increment",
+            "cast", "exp", "floor", "ceil", "cos", "pow", "less_than",
+            "where", "elementwise_min", "elementwise_max"} <= seen
+    for t in sorted(seen) + ["proximal_gd", "proximal_adagrad",
+                             "elementwise_pow", "equal", "not_equal",
+                             "less_equal", "greater_than", "greater_equal",
+                             "logical_and", "logical_or", "logical_xor"]:
+        assert registry.has_op(t), t
     with pytest.raises(NotImplementedError, match="no registered lowering"):
         registry.get_op_def("conv2d_transpose")
 
