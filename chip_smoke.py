@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + device time by kernel group in
-                                     #   phases 3, 3b, 4, 6, 7, 8, 9, c1
+                                     #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789abc), no result line
+                                        #   23456789abcd), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -96,7 +96,13 @@ Phases, in order; any failure exits non-zero without the result line:
    the CPU parity tests under bfloat16 AMP, one Adam step (first loss
    within rtol 2e-3, parameters within 2 * lr); a 2-layer
    gpt3_1p3b-width two_lane prefill and 3 decode steps (tokens equal,
-   pools within 1e-5).
+   pools within 1e-5); a 2-layer gpt3_1p3b-width GPT whose both FFNs are
+   8-expert switch-MoE layers, 2 steps of LookaheadOptimizer(fused Adam,
+   alpha 0.5, k 2) with an ExponentialMovingAverage (routing identical
+   every step, the smallest top-2 probability gap printed; losses within
+   rtol 1e-3; every persistable and apply()'s values within 2 * lr *
+   steps; apply() restores the parameters); a While / Switch / cond
+   program with a tensor array (card equals CPU).
 6. BERT-large pretraining: ``BertConfig.large()`` at full size, seq 512,
    batch 8 of ``synthetic_batch(min_len=128)``, flash attention with the
    key mask, ``decorate(AdamOptimizer(1e-4), init_loss_scaling=1.0,
@@ -202,6 +208,33 @@ c. supervised training with checkpoints. c1: phase 6's BERT-large (full
    steps (exit ``KILL_EXIT_CODE``, latest commit 6) and a run that resumes
    from 6: the 10 losses and lrs equal the reference's bit for bit.
    Checkpoints go to ``chip_smoke_ckpt/`` in the checkout, removed after.
+d. the rest of the training path, after freeing what came before (its
+   own peak printed). d1: ``build_gpt_lm`` at gpt3_1p3b's widths with 12
+   of its 24 layers, flash attention, a switch-MoE FFN (8 experts,
+   capacity 1.25) in every second layer, dropout 0.1, on phase 4's batch:
+   5 steps of fused Adam(1e-4), then from the same startup 5 steps of
+   RecomputeOptimizer(Adam) with a checkpoint at each decoder's output
+   (13 segments), in a fresh scope: losses and every parameter within
+   rtol 2e-4 / atol 2e-5 of the plain run's, exact launches every step
+   (K1 2(2L+1), K3 2L+1, K4 2, K5 1, K6 2L, K8 L, K10 one a parameter
+   under recompute; K1 and K6 once, K4 once without), and the memory the
+   forward keeps for the backward lower. d3: the same model built
+   ``is_test`` over d1's trained parameters: the MoE statistics (dropped
+   token share and aux loss by layer), then ``save_inference_model`` and
+   ``create_predictor``: its logits equal the Executor's at 1e-5 of
+   max|logit|, with exact launches (K1 2L+1, K6 L). d2: the 2-layer dense
+   GPT at full width (no dropout), GradientMergeOptimizer(Adam, k 4)
+   against Adam over one batch of 8 x 1024 (losses and parameters at rtol
+   1e-4 / atol 1e-5), then d1's model under GradientMergeOptimizer(
+   RecomputeOptimizer(Adam), k 4) over batch 8 for 3 steps (4x d1's
+   forward launches, one K10 a parameter). d4: DeepFM at the DeepFM
+   paper's Criteo setting (26 fields over a 2^25-row table, embedding 10,
+   13 dense features, hidden 400 x 3), batch 4096: 5 SGD steps with
+   ``is_sparse`` equal the dense run's (rtol 1e-6, atol 1e-6 x max|p|);
+   5 sparse Adam steps leave every untouched row's parameter and moments
+   bit for bit, the last step's touched rows equal a plain per-row update,
+   two merges of the gradient give the same bits, K10 only for the dense
+   parameters; a dense Adam step for its time.
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -265,7 +298,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789abc"
+ALL_PHASES = "23456789abcd"
 DEVICE = "cuda"
 
 
@@ -2374,6 +2407,31 @@ def killed_and_resumed(np, seed, card):
 CARD_VS_CPU_RTOL = {"gpt": 1e-3, "gpt_flash": 1e-3, "bert_amp_flash": 2e-3}
 
 
+def seeded_arrays(np, main, cpu_scope, std, seed):
+    """Every persistable of ``main`` as numpy: parameters from a seeded
+    generator (layer-norm scales 1, biases 0 -- the switch-MoE layers'
+    ``.b1`` / ``.b2`` too -- the rest normal with ``std``), the other
+    state (moments, counters, Lookahead's slow weights, EMA shadows) as
+    the CPU's startup made it."""
+    from paddle_tpu_torch.core.framework import Parameter
+
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for v in main.list_vars():
+        if not v.persistable or v.is_data:
+            continue
+        if not isinstance(v, Parameter):
+            arrays[v.name] = cpu_scope.get_numpy(v.name)
+        elif v.name.endswith(".scale"):
+            arrays[v.name] = np.ones(v.shape, np.float32)
+        elif v.name.endswith((".bias", ".b", ".b1", ".b2")):
+            arrays[v.name] = np.zeros(v.shape, np.float32)
+        else:
+            arrays[v.name] = std * rng.standard_normal(v.shape,
+                                                       dtype=np.float32)
+    return arrays
+
+
 def card_vs_cpu(torch, np, seed, model="gpt", steps=3, lr=3e-4):
     """A 2-layer model at full width trained from the same numpy-seeded
     parameters on the card (kernels) and on the CPU (plain versions):
@@ -2382,7 +2440,6 @@ def card_vs_cpu(torch, np, seed, model="gpt", steps=3, lr=3e-4):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.contrib.mixed_precision import decorate
-    from paddle_tpu_torch.core.framework import Parameter
     from paddle_tpu_torch.io import load_scope_arrays
     from paddle_tpu_torch.models.bert import (BertConfig, build_bert_pretrain,
                                               synthetic_batch)
@@ -2415,20 +2472,7 @@ def card_vs_cpu(torch, np, seed, model="gpt", steps=3, lr=3e-4):
     n_adam = [op.type for op in main.global_block().ops].count("fused_adam")
     cpu, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
     cpu.run(startup, scope=cpu_scope)      # moments, beta pows, lr
-    rng = np.random.default_rng(seed)
-    arrays = {}
-    for v in main.list_vars():
-        if not v.persistable or v.is_data:
-            continue
-        if not isinstance(v, Parameter):
-            arrays[v.name] = cpu_scope.get_numpy(v.name)
-        elif v.name.endswith(".scale"):
-            arrays[v.name] = np.ones(v.shape, np.float32)
-        elif v.name.endswith((".bias", ".b")):
-            arrays[v.name] = np.zeros(v.shape, np.float32)
-        else:
-            arrays[v.name] = cfg.initializer_range * rng.standard_normal(
-                v.shape, dtype=np.float32)
+    arrays = seeded_arrays(np, main, cpu_scope, cfg.initializer_range, seed)
     gpu, gpu_scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
     load_scope_arrays(cpu_scope, arrays, main, "cpu")
     load_scope_arrays(gpu_scope, arrays, main, DEVICE)
@@ -4280,6 +4324,755 @@ def serve_http(torch, np, seed, card, out_dir, base_tokens=None,
     return paths, record
 
 
+# -- phase 5: switch-MoE under Lookahead and EMA, and control flow -------------
+
+
+def _moe_inputs(main):
+    """(X input, AuxLoss output, GateW) names of each switch_moe op."""
+    return [(op.input("X")[0], op.output("AuxLoss")[0], op.input("GateW")[0])
+            for op in main.global_block().ops if op.type == "switch_moe"]
+
+
+def routing(torch, x, wg):
+    """The experts the switch_moe op routes ``x`` to (its router: the
+    argmax of softmax(x @ wg)) and each token's top-2 probability gap."""
+    probs = torch.softmax(x.reshape(-1, x.shape[-1]) @ wg, dim=-1)
+    top = torch.topk(probs, 2, dim=-1).values
+    return torch.argmax(probs, dim=-1), top[:, 0] - top[:, 1]
+
+
+def card_vs_cpu_moe(torch, np, seed, steps=2, lr=1e-4):
+    """A 2-layer gpt3_1p3b-width GPT whose both FFNs are 8-expert
+    switch-MoE layers, trained ``steps`` steps by LookaheadOptimizer(
+    fused Adam, alpha 0.5, k 2) with an ExponentialMovingAverage, from the
+    same numpy-seeded parameters on the card and on the CPU: routing
+    identical every step, losses within phase 5's rtol, parameters (and
+    the Lookahead slow weights, the EMA shadows and apply()'s
+    bias-corrected values) within 2 * lr * steps."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.io import load_scope_arrays
+    from paddle_tpu_torch.models.gpt import (GPTConfig, build_gpt_lm,
+                                             synthetic_lm_batch)
+
+    seq = 128
+    fluid.set_flags({"optimizer_fuse": "on"})
+    cfg = GPTConfig(vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=2,
+                    num_heads=16, ffn_size=8192, max_position=1024,
+                    hidden_dropout=0.0, attention_dropout=0.0,
+                    use_flash_attention=True, moe_every=1)
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_gpt_lm(cfg, seq)
+        with fluid.program_guard(main, startup):
+            fluid.optimizer.LookaheadOptimizer(
+                fluid.optimizer.AdamOptimizer(lr), alpha=0.5, k=2).minimize(
+                    fetches["loss"])
+            ema = fluid.optimizer.ExponentialMovingAverage(0.9)
+            ema.update()
+    moe = _moe_inputs(main)
+    require(len(moe) == 2, f"{len(moe)} switch_moe ops")
+    batch = synthetic_lm_batch(np.random.RandomState(seed), 2, seq, VOCAB)
+    cpu, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    arrays = seeded_arrays(np, main, cpu_scope, cfg.initializer_range, seed)
+    slows = {v.name: v.name[:v.name.index(".slow")] for v in main.list_vars()
+             if ".slow" in v.name}
+    for slow, p in slows.items():      # slow weights start as the params
+        arrays[slow] = arrays[p]
+    gpu, gpu_scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    load_scope_arrays(cpu_scope, arrays, main, "cpu")
+    load_scope_arrays(gpu_scope, arrays, main, DEVICE)
+    fetch = [fetches["loss"]] + [x for x, _, _ in moe]
+    losses, gaps = {"cuda": [], "cpu": []}, []
+    for s in range(steps):
+        experts = {}
+        for name, exe, scope in (("cuda", gpu, gpu_scope),
+                                 ("cpu", cpu, cpu_scope)):
+            gates = [scope.find_var(g).clone() for _, _, g in moe]
+            K.reset_launch_counts()
+            out = exe.run(main, feed=batch, fetch_list=fetch, scope=scope,
+                          return_numpy=False)
+            if name == "cuda":
+                n_adam = len(main.all_parameters())
+                require(K.launch_counts()["fused_adam_update"] == n_adam,
+                        "the card's MoE step did not go through K10")
+            losses[name].append(float(out[0].reshape(-1)[0]))
+            experts[name] = [routing(torch, x, g)
+                             for x, g in zip(out[1:], gates)]
+        for (ec, gc_), (ep, gp) in zip(experts["cuda"], experts["cpu"]):
+            require(torch.equal(ec.cpu(), ep),
+                    f"step {s}: routing differs on "
+                    f"{int((ec.cpu() != ep).sum())} tokens")
+            gaps.append(float(gp.min()))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    rtol = CARD_VS_CPU_RTOL["gpt_flash"]
+    require(rel <= rtol, f"MoE card vs CPU losses differ by {rel:.3e}")
+    limit = 2 * lr * steps
+
+    def worst(names, get_gpu, get_cpu):
+        w, wn = 0.0, ""
+        for n in names:
+            d = float(np.abs(get_gpu(n) - get_cpu(n)).max())
+            if d > w:
+                w, wn = d, n
+        return w, wn
+
+    persist = [v.name for v in main.list_vars()
+               if v.persistable and not v.is_data]
+    w_state, n_state = worst(persist, gpu_scope.get_numpy,
+                             cpu_scope.get_numpy)
+    require(w_state <= limit, f"MoE card vs CPU {n_state} differs by "
+            f"{w_state:.3e} > {limit:.1e}")
+    applied = {}
+    for name, scope in (("cuda", gpu_scope), ("cpu", cpu_scope)):
+        with fluid.scope_guard(scope):
+            before = {p.name: scope.find_var(p.name)
+                      for p in main.all_parameters()}
+            with ema.apply():
+                applied[name] = {n: scope.get_numpy(n) for n in before}
+            require(all(scope.find_var(n) is v for n, v in before.items()),
+                    "EMA apply() did not restore the parameters")
+    w_ema, n_ema = worst(applied["cpu"], lambda n: applied["cuda"][n],
+                         lambda n: applied["cpu"][n])
+    require(w_ema <= limit, f"EMA apply() values differ by {w_ema:.3e}")
+    counter = float(gpu_scope.get_numpy(ema._counter.name)[0])
+    require(counter == steps, f"EMA counter {counter}")
+    log(f"  losses {losses['cuda']} (CPU {losses['cpu']}), within {rel:.3e} "
+        f"(rtol {rtol}); routing identical on {2 * seq} tokens x 2 layers x "
+        f"{steps} steps, smallest top-2 probability gap {min(gaps):.3e}; "
+        f"every persistable within {w_state:.3e} ({n_state}), EMA apply() "
+        f"within {w_ema:.3e} (limit 2 * lr * steps = {limit:.1e})")
+    return {"losses": losses, "loss_rel_err": rel, "min_top2_gap": min(gaps),
+            "state_max_abs_err": w_state, "ema_apply_max_abs_err": w_ema,
+            "limit": limit}
+
+
+def card_vs_cpu_control_flow(torch, np):
+    """A While (sum to ten, squares into a tensor array), a Switch and a
+    cond in one program on the card and on the CPU: equal results."""
+    import paddle_tpu_torch as fluid
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = L.data("x", [3])
+        i = L.fill_constant([1], "int64", 0)
+        fi = L.fill_constant([1], "float32", 0.0)
+        total = L.fill_constant([1], "float32", 0.0)
+        arr = L.create_array("float32", 10, [3])
+        limit = L.fill_constant([1], "int64", 10)
+        cond = L.less_than(i, limit)
+        loop = L.While(cond)
+        with loop.block():
+            L.increment(fi, 1.0)
+            L.assign(L.elementwise_add(total, fi), total)
+            L.array_write(L.elementwise_mul(
+                L.reduce_sum(x, dim=[0]), L.elementwise_mul(fi, fi)), i,
+                array=arr)
+            L.increment(i, 1.0)
+            L.less_than(i, limit, cond=cond)
+        out = L.fill_constant([1], "float32", -1.0)
+        sw = L.Switch()
+        with sw:
+            with sw.case(L.greater_than(total, L.fill_constant(
+                    [1], "float32", 100.0))):
+                L.assign(L.fill_constant([1], "float32", 1.0), out)
+            with sw.case(L.greater_than(total, L.fill_constant(
+                    [1], "float32", 50.0))):
+                L.assign(L.fill_constant([1], "float32", 2.0), out)
+            with sw.default():
+                L.assign(L.fill_constant([1], "float32", 3.0), out)
+        sel = L.cond(L.greater_than(x, L.fill_constant([1], "float32", 0.0)),
+                     lambda: L.scale(x, scale=2.0), lambda: L.scale(x, -1.0))
+        fetch = [total, arr, out, sel, L.array_read(arr, L.fill_constant(
+            [1], "int64", 9))]
+    feed = {"x": np.array([[1.5, -2.0, 0.25], [0.5, 3.0, -1.0]], "float32")}
+    got = {}
+    for name, place in (("cuda", fluid.CUDAPlace(0)),
+                        ("cpu", fluid.CPUPlace())):
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        got[name] = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    for a, b in zip(got["cuda"], got["cpu"]):
+        require(np.allclose(a, b, rtol=1e-6, atol=0),
+                f"control flow: card {a} vs CPU {b}")
+    require(float(got["cuda"][0][0]) == 55.0 and float(got["cuda"][2][0]) == 2.0,
+            f"control flow: total {got['cuda'][0]}, switch {got['cuda'][2]}")
+    log(f"  While summed to {float(got['cuda'][0][0])}, wrote 10 array "
+        f"rows (last {got['cuda'][4].tolist()}), Switch took case 2, cond "
+        "selected per element: card equals CPU")
+    return {"total": float(got["cuda"][0][0]), "switch": float(got["cuda"][2][0])}
+
+
+# -- phase d: switch-MoE pretraining under recompute and gradient merge,
+#    served; DeepFM with sparse embeddings ----------------------------------------
+
+
+MOE_LAYERS = 12          # of gpt3_1p3b's 24: 24 layers with 8 experts in
+#                          every second one hold 4.16 B parameters, 66.5 GB
+#                          of float32 Adam state; 12 hold 2.15 B, 34.4 GB
+MOE_STEPS = 5
+TRAIN_RTOL, TRAIN_ATOL = 2e-4, 2e-5     # the parity files' training tolerance
+MERGE_RTOL, MERGE_ATOL = 1e-4, 1e-5     # tests/test_recompute.py:130-144
+MERGE_K, MERGE_BATCH, MERGE_STEPS = 4, 8, 3
+CTR = dict(num_fields=26, vocab_size=2 ** 25, embed_dim=10, dense_dim=13,
+           hidden=(400, 400, 400))      # Criteo in the DeepFM paper
+CTR_BATCH, CTR_STEPS = 4096, 5
+SGD_RTOL = 1e-6                         # tests/test_selected_rows.py:97
+
+
+def moe_config(layers=MOE_LAYERS):
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.num_layers, cfg.use_flash_attention, cfg.moe_every = layers, True, 2
+    return cfg
+
+
+def decoder_outputs(main, layers):
+    """Each decoder's output: the input of the next decoder's first layer
+    norm, and the last one's of the final layer norm."""
+    x_of = {op.input("Scale")[0]: op.input("X")[0]
+            for op in main.global_block().ops if op.type == "layer_norm"}
+    return ([x_of[f"dec{i}_ln1.scale"] for i in range(1, layers)]
+            + [x_of["gpt_lnf.scale"]])
+
+
+def build_moe(fluid, cfg, make_opt):
+    """build_gpt_lm's program (phase 4's sequence) under
+    ``make_opt(checkpoints)``."""
+    from paddle_tpu_torch.models.gpt import build_gpt_lm
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_gpt_lm(cfg, TRAIN_SEQ)
+        with fluid.program_guard(main, startup):
+            make_opt(decoder_outputs(main, cfg.num_layers)).minimize(
+                fetches["loss"])
+    return main, startup, fetches
+
+
+def recompute_adam(fluid, lr=1e-4, recompute=True):
+    def make(ckpts):
+        adam = fluid.optimizer.AdamOptimizer(lr)
+        if not recompute:
+            return adam
+        opt = fluid.optimizer.RecomputeOptimizer(adam)
+        opt._set_checkpoints(ckpts)
+        return opt
+    return make
+
+
+def moe_launches(K, layers, n_params, recompute, micro=1):
+    """Each kernel's launches in one step: every segment's forward runs
+    twice under recompute (the loss's last segment too), each microbatch
+    of a merged step runs the forward and the backward, the optimizer
+    runs once."""
+    f = 2 if recompute else 1
+    want = {n: 0 for n in K.KERNELS}
+    want.update(layer_norm=micro * f * (2 * layers + 1),
+                layer_norm_bwd=micro * (2 * layers + 1),
+                softmax_xent_fwd=micro * f, softmax_xent_bwd=micro,
+                flash_attention_fwd=micro * f * layers,
+                flash_attention_bwd=micro * layers,
+                fused_adam_update=n_params)
+    return want
+
+
+class HeldAtBackward:
+    """The memory the forward keeps for the backward: what is allocated
+    when the loss gradient's seed op runs, above the resting memory when
+    the block is entered (parameters, moments and whatever else stays
+    between steps). A wrapper on the seed's lowering while the block is
+    entered."""
+
+    def __init__(self, torch):
+        from paddle_tpu_torch.core.framework import OpRole
+        from paddle_tpu_torch.core.registry import get_op_def
+
+        self.torch, self.role = torch, OpRole.Loss
+        self.opdef = get_op_def("fill_constant")
+        self.rest = self.bytes = 0
+
+    def __enter__(self):
+        self.torch.cuda.synchronize()
+        self.rest = self.torch.cuda.memory_allocated()
+        orig = self.orig = self.opdef.lower
+
+        def lower(ctx, op, ins):
+            if int(op.attrs.get("op_role", 0)) & self.role:
+                self.bytes = max(self.bytes, self.torch.cuda.memory_allocated()
+                                 - self.rest)
+            return orig(ctx, op, ins)
+
+        self.opdef.lower = lower
+        return self
+
+    def __exit__(self, *exc):
+        self.opdef.lower = self.orig
+
+
+def train_moe(torch, np, seed, card, out_dir):
+    """d1: the MoE model trained 5 steps by plain Adam, then from the same
+    startup by RecomputeOptimizer(Adam) in a fresh scope: losses and every
+    parameter equal at the training tolerance, exact launches every step,
+    and the memory the forward keeps for the backward lower. Returns the
+    paths' launches, the numbers and the recompute run's scope."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models.gpt import synthetic_lm_batch
+
+    cfg = moe_config()
+    L = cfg.num_layers
+    fluid.set_flags({"optimizer_fuse": "auto"})     # on: a CUDA device
+    batch = synthetic_lm_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                               TRAIN_SEQ, cfg.vocab_size)
+    paths, out, ref = {}, {"card": card, "layers": L}, None
+    for name, recompute in (("moe", False), ("moe_recompute", True)):
+        main, startup, fetches = build_moe(
+            fluid, cfg, recompute_adam(fluid, recompute=recompute))
+        types = [op.type for op in main.global_block().ops]
+        n_params = len(main.all_parameters())
+        require(types.count("fused_adam") == n_params and "adam" not in types,
+                f"{name}: {types.count('fused_adam')} fused_adam ops for "
+                f"{n_params} parameters")
+        require(types.count("recompute_segment_grad")
+                == (L + 1 if recompute else 0)
+                and types.count("switch_moe") == L // 2,
+                f"{name}: {types.count('recompute_segment_grad')} segment "
+                f"grads, {types.count('switch_moe')} switch_moe ops")
+        exe, scope, n = startup_on_card(torch, np, fluid, main, startup, seed)
+        want = moe_launches(K, L, n_params, recompute)
+        with HeldAtBackward(torch) as held:
+            paths[name], perf = run_steps(
+                torch, np, K, exe, main, scope, batch, fetches["loss"], want,
+                MOE_STEPS, TRAIN_ROWS, card, out_dir, name)
+        perf.update(parameters=n, held_at_backward_gb=held.bytes / 1e9,
+                    rest_gb=held.rest / 1e9,
+                    peak_above_rest_gb=perf["max_memory_allocated_gb"]
+                    - held.rest / 1e9)
+        log(f"  {name}: {n} parameters; at rest {held.rest / 1e9:.2f} GB, "
+            f"the forward keeps {held.bytes / 1e9:.2f} GB more when the "
+            f"backward starts, the peak is {perf['peak_above_rest_gb']:.2f} "
+            f"GB above rest [{card}]")
+        out[name] = perf
+        params = {p.name: scope.find_var(p.name) for p in main.all_parameters()}
+        if ref is None:
+            ref = params
+            del exe, scope, params
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        worst, worst_name, equal = 0.0, "", 0
+        for p, a in params.items():
+            b = ref[p]
+            d = float((a - b).abs().max())
+            if d > worst:
+                worst, worst_name = d, p
+            equal += int(torch.equal(a, b))
+            require(bool(torch.allclose(a, b, rtol=TRAIN_RTOL,
+                                        atol=TRAIN_ATOL)),
+                    f"recompute {p} differs from plain Adam's by {d:.3e}")
+        la, lb = perf["losses"], out["moe"]["losses"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(la, lb))
+        require(all(abs(x - y) <= TRAIN_ATOL + TRAIN_RTOL * abs(y)
+                    for x, y in zip(la, lb)),
+                f"recompute losses {la} vs plain {lb}")
+        plain, rc = out["moe"], perf
+        require(rc["held_at_backward_gb"] < plain["held_at_backward_gb"],
+                "recompute keeps no less for the backward")
+        out.update(param_max_abs_err=worst, param_max_name=worst_name,
+                   params_bit_equal=equal, loss_rel_err=rel)
+        log(f"  d1: recompute vs plain Adam: losses within {rel:.3e}, "
+            f"{equal} of {len(params)} parameters bit-equal, the largest "
+            f"difference {worst:.3e} ({worst_name}; rtol {TRAIN_RTOL}, atol "
+            f"{TRAIN_ATOL}); step {plain['step_ms_mean']:.3f} -> "
+            f"{rc['step_ms_mean']:.3f} ms, {plain['tokens_per_s']:.1f} -> "
+            f"{rc['tokens_per_s']:.1f} tokens/s; above rest (the recompute "
+            f"run's rest holds the plain run's parameters too) the peak "
+            f"{plain['peak_above_rest_gb']:.2f} -> "
+            f"{rc['peak_above_rest_gb']:.2f} GB, kept for the backward "
+            f"{plain['held_at_backward_gb']:.2f} -> "
+            f"{rc['held_at_backward_gb']:.2f} GB [{card}]")
+        # keep the trained parameters (d3 serves them), not the moments
+        keep = set(params)
+        for n in list(scope.vars):
+            if n not in keep:
+                scope.erase(n)
+        del ref, params, exe
+        gc.collect()
+        torch.cuda.empty_cache()
+        return paths, out, scope, cfg
+
+
+def serve_moe(torch, np, seed, card, scope, cfg, tmp):
+    """d3: d1's model as an ``is_test`` Program over d1's trained
+    parameters: the Executor's logits and the MoE statistics, then
+    ``save_inference_model`` and the Predictor's logits, equal at 1e-5 of
+    max|logit|."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models.gpt import build_gpt_lm, synthetic_lm_batch
+    from paddle_tpu_torch.ops.moe import moe_capacity, route
+
+    L = cfg.num_layers
+    with fluid.unique_name.guard():
+        main, _, _, fetches = build_gpt_lm(cfg, TRAIN_SEQ, is_test=True)
+    batch = synthetic_lm_batch(np.random.RandomState(seed + 1), TRAIN_BATCH,
+                               TRAIN_SEQ, cfg.vocab_size)
+    moe = _moe_inputs(main)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    outs = exe.run(main, feed=batch, fetch_list=[fetches["logits"]]
+                   + [a for _, a, _ in moe] + [x for x, _, _ in moe],
+                   scope=scope, return_numpy=False)
+    want = outs[0]
+    cap = moe_capacity(TRAIN_ROWS, cfg.moe_capacity, cfg.moe_experts)
+    dropped, aux = [], [float(a.reshape(-1)[0]) for a in outs[1:1 + len(moe)]]
+    for x, (_, _, g) in zip(outs[1 + len(moe):], moe):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]) @ scope.find_var(g),
+                              -1)
+        _, keep, _, _ = route(probs, cap)
+        dropped.append(1.0 - float(keep.float().mean()))
+    log(f"  MoE statistics of d1's trained model on a 2 x 1024 batch (is_test, "
+        f"capacity {cap} a layer): dropped token share by layer "
+        f"{[round(d, 6) for d in dropped]}, aux loss by layer "
+        f"{[round(a, 6) for a in aux]}")
+    d = os.path.join(tmp, "moe_gpt")
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, ["tokens"], [fetches["logits"]],
+                                      exe, main)
+    t_save = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    t0 = time.perf_counter()
+    pred = create_predictor(Config(d))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    require(pred.lm is None and pred.gpt_config.moe_every == cfg.moe_every,
+            f"the predictor read moe_every {pred.gpt_config.moe_every}")
+    pred.run([batch["tokens"]], return_numpy=False)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    (got,) = pred.run([batch["tokens"]], return_numpy=False)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in K.launch_counts().items() if c}
+    require(counts == {"layer_norm": 2 * L + 1, "flash_attention_fwd": L},
+            f"d3: a Predictor run launched {counts}")
+    err = float((got - want).abs().max())
+    lim = 1e-5 * float(want.abs().max())
+    require(tuple(got.shape) == (TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+            and bool(torch.isfinite(got).all()), "d3: logits")
+    require(err <= lim, f"d3: Predictor logits {err:.3e} from the "
+            f"Executor's (limit {lim:.3e})")
+    log(f"  d3: {size / 1e9:.3f} GB saved in {t_save:.2f} s, loaded in "
+        f"{t_load:.2f} s; a Predictor run launched {counts}; logits "
+        f"{err:.3e} from the Executor's (limit {lim:.3e}) [{card}]")
+    del pred, got, want, outs
+    shutil.rmtree(d, ignore_errors=True)
+    return {"moe_serve": K.launch_counts()}, {
+        "save_s": t_save, "load_s": t_load, "saved_bytes": size,
+        "max_abs_err": err, "limit": lim, "capacity": cap,
+        "dropped_share": dropped, "aux_loss": aux, "launches": counts,
+        "card": card}
+
+
+def gradient_merge(torch, np, seed, card, out_dir):
+    """d2: GradientMergeOptimizer(Adam, k 4) over batch 8 against plain
+    Adam over the same batch on the 2-layer dense GPT at full width (no
+    dropout): losses and parameters at JAX's merge tolerance; then the
+    MoE model under GradientMergeOptimizer(RecomputeOptimizer(Adam), k 4)
+    over batch 8, with exact launches (the forward kernels 4x d1's)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models.gpt import GPTConfig, synthetic_lm_batch
+
+    cfg = GPTConfig(vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=2,
+                    num_heads=16, ffn_size=8192, max_position=1024,
+                    hidden_dropout=0.0, attention_dropout=0.0,
+                    use_flash_attention=True)
+    batch = synthetic_lm_batch(np.random.RandomState(seed), MERGE_BATCH,
+                               TRAIN_SEQ, VOCAB)
+    runs = {}
+    for name, k in (("full", 1), ("merged", MERGE_K)):
+        def make(ckpts, k=k):
+            adam = fluid.optimizer.AdamOptimizer(1e-4)
+            return (fluid.optimizer.GradientMergeOptimizer(adam, k_steps=k)
+                    if k > 1 else adam)
+        main, startup, fetches = build_moe(fluid, cfg, make)
+        exe, scope, _ = startup_on_card(torch, np, fluid, main, startup, seed)
+        t = time.perf_counter()
+        losses = [float(exe.run(main, feed=batch, fetch_list=[fetches["loss"]],
+                                scope=scope)[0]) for _ in range(MERGE_STEPS)]
+        torch.cuda.synchronize()
+        runs[name] = (losses, {p.name: scope.find_var(p.name)
+                               for p in main.all_parameters()},
+                      (time.perf_counter() - t) / MERGE_STEPS * 1e3)
+        del exe, scope
+    (fl, fp, fms), (ml, mp, mms) = runs["full"], runs["merged"]
+    require(all(abs(a - b) <= MERGE_ATOL + MERGE_RTOL * abs(b)
+                for a, b in zip(ml, fl)), f"merged losses {ml} vs full {fl}")
+    worst, worst_name = 0.0, ""
+    for n, b in fp.items():
+        a = mp[n]
+        d = float((a - b).abs().max())
+        if d > worst:
+            worst, worst_name = d, n
+        require(bool(torch.allclose(a, b, rtol=MERGE_RTOL, atol=MERGE_ATOL)),
+                f"merged {n} differs from the full batch's by {d:.3e}")
+    log(f"  d2: 2-layer dense GPT, batch {MERGE_BATCH}: merged k={MERGE_K} "
+        f"losses {ml} vs full {fl}; parameters within {worst:.3e} "
+        f"({worst_name}; rtol {MERGE_RTOL}, atol {MERGE_ATOL}); "
+        f"{fms:.1f} vs {mms:.1f} ms a step [{card}]")
+    out = {"dense_losses_full": fl, "dense_losses_merged": ml,
+           "dense_param_max_abs_err": worst, "card": card}
+    del runs, fp, mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = moe_config()
+
+    def make_moe(ckpts):
+        return fluid.optimizer.GradientMergeOptimizer(
+            recompute_adam(fluid)(ckpts), k_steps=MERGE_K)
+
+    main, startup, fetches = build_moe(fluid, mcfg, make_moe)
+    n_params = len(main.all_parameters())
+    exe, scope, _ = startup_on_card(torch, np, fluid, main, startup, seed)
+    batch = synthetic_lm_batch(np.random.RandomState(seed), MERGE_BATCH,
+                               TRAIN_SEQ, mcfg.vocab_size)
+    want = moe_launches(K, mcfg.num_layers, n_params, True, micro=MERGE_K)
+    totals, perf = run_steps(torch, np, K, exe, main, scope, batch,
+                             fetches["loss"], want, MERGE_STEPS,
+                             MERGE_BATCH * TRAIN_SEQ, card, out_dir,
+                             "moe_merged")
+    out["moe_merged"] = perf
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"moe_merged": totals}, out
+
+
+def profile_ctr(torch, exe, main, batches, loss, scope, out_dir, name):
+    """Two traced steps: device time by kernel group and the idle share."""
+    prof = start_profile(torch)
+    t = time.perf_counter()
+    for b in batches:
+        exe.run(main, feed=b, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    prof.__exit__(None, None, None)
+    return trace_breakdown(prof, out_dir, name, wall, len(batches))
+
+
+def ctr_step(torch, exe, main, feed, fetch, scope):
+    t = time.perf_counter()
+    outs = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                   return_numpy=False)
+    torch.cuda.synchronize()
+    return outs, (time.perf_counter() - t) * 1e3
+
+
+def train_deepfm(torch, np, seed, card, out_dir, profile=False):
+    """d4: DeepFM at Criteo's setting of the DeepFM paper (26 sparse
+    fields over a 2^25-row hashed table, embedding 10, 13 dense features,
+    hidden 400 x 3), batch 4096. SGD sparse against dense; Adam sparse:
+    untouched rows keep their parameter and both moments bit for bit, the
+    touched rows of the last step equal a plain per-row update on the
+    card, and two merges of its gradient give the same bits; a dense Adam
+    step for its time."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.models.ctr import build_deepfm, synthetic_ctr_batch
+
+    fluid.set_flags({"optimizer_fuse": "auto"})
+    rng = np.random.RandomState(seed)
+    batches = [synthetic_ctr_batch(rng, CTR_BATCH, CTR["num_fields"],
+                                   CTR["vocab_size"], CTR["dense_dim"])
+               for _ in range(CTR_STEPS)]
+    H, D = CTR["vocab_size"], CTR["embed_dim"]
+
+    def build(opt, sparse):
+        main, startup, _, fetches = build_deepfm(optimizer=opt,
+                                                 is_sparse=sparse, **CTR)
+        main.random_seed = startup.random_seed = seed
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        return main, exe, scope, fetches["loss"]
+
+    out, paths = {"card": card}, {}
+    sgd = {}
+    for sparse in (True, False):
+        main, exe, scope, loss = build(fluid.optimizer.SGD(0.1), sparse)
+        ms = [ctr_step(torch, exe, main, b, [loss], scope)[1] for b in batches]
+        sgd[sparse] = ({p.name: scope.find_var(p.name)
+                        for p in main.all_parameters()}, ms)
+        del exe, scope
+    worst, worst_name = 0.0, ""
+    for n, b in sgd[False][0].items():
+        a = sgd[True][0][n]
+        d = float((a - b).abs().max())
+        if d > worst:
+            worst, worst_name = d, n
+        tol = SGD_RTOL * float(b.abs().max())
+        require(bool(torch.allclose(a, b, rtol=SGD_RTOL, atol=tol)),
+                f"d4 SGD: sparse {n} differs from dense by {d:.3e}")
+    out.update(sgd_param_max_abs_err=worst,
+               sgd_step_ms={"sparse": statistics.mean(sgd[True][1][1:]),
+                            "dense": statistics.mean(sgd[False][1][1:])})
+    log(f"  d4 SGD: sparse equals dense after {CTR_STEPS} steps within "
+        f"{worst:.3e} ({worst_name}; rtol {SGD_RTOL}, atol {SGD_RTOL} x "
+        f"max|p|); step {out['sgd_step_ms']['sparse']:.3f} ms sparse, "
+        f"{out['sgd_step_ms']['dense']:.3f} ms dense [{card}]")
+    del sgd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    main, exe, scope, loss = build(fluid.optimizer.AdamOptimizer(1e-3), True)
+    n_dense = len(main.all_parameters()) - 2          # fm_w1 and fm_v
+    tables = ("fm_w1", "fm_v")
+
+    def state_of(t, kind):
+        return next(v.name for v in main.list_vars()
+                    if getattr(v, "accumulator_owner", None) == t
+                    and kind in v.name)
+
+    acc = {t: [state_of(t, "moment1"), state_of(t, "moment2")]
+           for t in tables}
+    p0 = {t: scope.find_var(t).clone() for t in tables}
+    ms, losses = [], []
+    K.reset_launch_counts()
+    for s, b in enumerate(batches):
+        last = s == CTR_STEPS - 1
+        if last:
+            ids = torch.as_tensor(b["sparse_ids"].reshape(-1), device=DEVICE)
+            rows = torch.unique(ids)
+            before = {k: scope.find_var(n)[rows].clone() for k, n in
+                      (("fm_v", "fm_v"), ("moment1", acc["fm_v"][0]),
+                       ("moment2", acc["fm_v"][1]))}
+            pows = {k: float(scope.get_numpy(state_of("fm_v", k))[0])
+                    for k in ("beta1_pow", "beta2_pow")}
+        outs, t = ctr_step(torch, exe, main, b,
+                           [loss] + (["fm_v@GRAD"] if last else []), scope)
+        ms.append(t)
+        losses.append(float(outs[0].reshape(-1)[0]))
+    counts = K.launch_counts()
+    require(counts["fused_adam_update"] == n_dense * CTR_STEPS
+            and sum(counts.values()) == counts["fused_adam_update"],
+            f"d4 Adam: launches {counts}, want {n_dense} K10 a step")
+    paths["deepfm_adam_sparse"] = counts
+    touched = torch.zeros(H, dtype=torch.bool, device=DEVICE)
+    for b in batches:
+        touched[torch.as_tensor(b["sparse_ids"].reshape(-1),
+                                device=DEVICE)] = True
+    for t in tables:
+        require(torch.equal(scope.find_var(t)[~touched], p0[t][~touched]),
+                f"d4: untouched rows of {t} moved")
+        for m in acc[t]:
+            require(bool((scope.find_var(m)[~touched] == 0).all()),
+                    f"d4: untouched rows of {m} moved")
+    grad = outs[1]
+    require(isinstance(grad, SelectedRows)
+            and grad.values.shape == (CTR_BATCH * CTR["num_fields"], D),
+            f"d4: fm_v's gradient is {type(grad).__name__}")
+    m1, m2 = grad.merge(), grad.merge()
+    require(torch.equal(m1.rows, m2.rows) and torch.equal(m1.values, m2.values),
+            "d4: two merges of the sparse gradient differ")
+    # the plain per-row update of the last step, on the card: each row's
+    # slices summed in their order on the host
+    inv = torch.searchsorted(rows, grad.rows)
+    g = torch.from_numpy(_ordered_row_sums(np, inv.cpu().numpy(),
+                                           grad.values.cpu().numpy(),
+                                           rows.numel())).to(DEVICE)
+    lr, beta1, beta2, eps = 1e-3, 0.9, 0.999, 1e-8
+    b1p, b2p = pows["beta1_pow"], pows["beta2_pow"]
+    p_b, m1_b, m2_b = before["fm_v"], before["moment1"], before["moment2"]
+    m1n = beta1 * m1_b + (1 - beta1) * g
+    m2n = beta2 * m2_b + (1 - beta2) * torch.square(g)
+    lr_t = lr * np.sqrt(1 - b2p) / (1 - b1p)
+    want = p_b - lr_t * m1n / (torch.sqrt(m2n) + eps)
+    got = scope.find_var("fm_v")[rows]
+    err = float((got - want).abs().max())
+    require(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-9)),
+            f"d4: the last step's touched rows differ from a plain per-row "
+            f"update by {err:.3e}")
+    out.update(adam_losses=losses, adam_sparse_step_ms=statistics.mean(ms[1:]),
+               touched_rows=int(touched.sum()), per_row_max_abs_err=err)
+    if profile:
+        out["adam_sparse_profile"] = profile_ctr(
+            torch, exe, main, batches[:2], loss, scope, out_dir,
+            "deepfm_adam_sparse")
+    del exe, scope, p0, before, grad, m1, m2, g, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    main, exe, scope, loss = build(fluid.optimizer.AdamOptimizer(1e-3), False)
+    K.reset_launch_counts()
+    dms = [ctr_step(torch, exe, main, b, [loss], scope)[1]
+           for b in batches[:3]]
+    counts = K.launch_counts()
+    require(counts["fused_adam_update"] == (n_dense + 2) * 3,
+            f"d4 dense Adam: launches {counts}")
+    paths["deepfm_adam_dense"] = counts
+    out["adam_dense_step_ms"] = statistics.mean(dms[1:])
+    if profile:
+        out["adam_dense_profile"] = profile_ctr(
+            torch, exe, main, batches[:2], loss, scope, out_dir,
+            "deepfm_adam_dense")
+    log(f"  d4 Adam: losses {losses}; {out['touched_rows']} of {H} rows "
+        f"touched in {CTR_STEPS} steps, the others' parameters and moments "
+        f"unchanged bit for bit; the last step's rows within {err:.3e} of a "
+        f"plain per-row update; two merges bit-equal; step "
+        f"{out['adam_sparse_step_ms']:.3f} ms sparse, "
+        f"{out['adam_dense_step_ms']:.3f} ms dense (it rewrites "
+        f"{H * D * 4 / 1e9:.2f} GB of table and {2 * H * D * 4 / 1e9:.2f} GB "
+        f"of moments) [{card}]")
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+def _ordered_row_sums(np, inv, values, n):
+    """Each row's slices summed in their order (float32 numpy)."""
+    out = np.zeros((n, values.shape[1]), np.float32)
+    np.add.at(out, inv, values)
+    return out
+
+
+def phase_d(torch, np, seed, card, out_dir, profile=False):
+    """Phase d in the order d1, d3 (it serves d1's parameters), d2, d4;
+    its own peak."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    record = {}
+    log("phase d1: gpt3_1p3b widths, 12 layers, switch-MoE every 2nd, plain "
+        "Adam then RecomputeOptimizer(Adam)")
+    paths, record["d1"], scope, cfg = train_moe(torch, np, seed, card, out_dir)
+    log("phase d3: d1's model saved as an is_test Program and served by the "
+        "Predictor")
+    with tempfile.TemporaryDirectory(prefix="pt_phase_d_") as tmp:
+        p3, record["d3"] = serve_moe(torch, np, seed, card, scope, cfg, tmp)
+    paths.update(p3)
+    del scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase d2: GradientMergeOptimizer (k 4) on the dense and the MoE GPT")
+    p2, record["d2"] = gradient_merge(torch, np, seed, card, out_dir)
+    paths.update(p2)
+    log("phase d4: DeepFM over a 2^25-row table with sparse embeddings")
+    p4, record["d4"] = train_deepfm(torch, np, seed, card, out_dir, profile)
+    paths.update(p4)
+    record["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  phase d peak: {record['peak_gb']:.2f} GB allocated [{card}]")
+    return paths, record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4287,7 +5080,7 @@ def main(argv=None) -> int:
                     help="directory for the build log and chip_smoke.json")
     ap.add_argument("--profile", action="store_true",
                     help="trace the serving runs (phases 3, 3b, 7a int8, "
-                    "7b) and two training steps (phases 4, 6, 8, 9, c1) with "
+                    "7b) and two training steps (phases 4, 6, 8, 9, c1, d4) with "
                     "torch.profiler and print device time by kernel group "
                     "and the idle share")
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -4405,6 +5198,14 @@ def main(argv=None) -> int:
         record["card_vs_cpu"]["two_lane"] = card_vs_cpu_two_lane(torch, np,
                                                                  args.seed)
         torch.cuda.empty_cache()
+        log("phase 5: a 2-layer gpt3_1p3b-width switch-MoE GPT (8 experts a "
+            "layer), 2 Lookahead(Adam) steps with an EMA, card against CPU")
+        record["card_vs_cpu"]["moe_lookahead_ema"] = card_vs_cpu_moe(
+            torch, np, args.seed)
+        torch.cuda.empty_cache()
+        log("phase 5: While, Switch and cond, card against CPU")
+        record["card_vs_cpu"]["control_flow"] = card_vs_cpu_control_flow(
+            torch, np)
     if "6" in args.phases:
         log("phase 6: BERT-large pretrained under bfloat16 AMP with flash "
             "attention")
@@ -4464,6 +5265,11 @@ def main(argv=None) -> int:
                                                           card)
         finally:
             shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    if "d" in args.phases:
+        dpaths, record["phase_d"] = phase_d(torch, np, args.seed, card,
+                                            args.out, args.profile)
+        paths.update(dpaths)
+        torch.cuda.empty_cache()
     launches = {name: {p: c[name] for p, c in paths.items()}
                 for name in K.KERNELS}
     record["launches"] = launches
@@ -4471,7 +5277,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a, b and c1)")
+        "3b, 4, 6, 7, 8, 9, a, b, c1 and d)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"

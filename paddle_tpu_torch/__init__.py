@@ -90,11 +90,23 @@ Ported so far:
                                   feed_fn=make_feed, fetch_list=[loss])
       sup.run_loop(num_steps=10000)      # resumes from the latest commit
 
+* the rest of the training path: SelectedRows gradients of
+  ``embedding(is_sparse=True)`` with the lazy sparse updates (DeepFM and
+  wide&deep, ``models.ctr``), ``While`` / ``Switch`` / ``cond`` and the
+  tensor arrays over ``core/control_flow.py``, the meta-optimizers
+  (``RecomputeOptimizer``, ``GradientMergeOptimizer``,
+  ``LookaheadOptimizer``, ``ExponentialMovingAverage``,
+  ``ModelAverage``) and the switch-MoE GPT (``GPTConfig.moe_every``);
+
+      opt = fluid.optimizer.RecomputeOptimizer(fluid.optimizer.Adam(1e-4))
+      opt._set_checkpoints(decoder_outputs)
+      fluid.optimizer.GradientMergeOptimizer(opt, k_steps=4).minimize(loss)
+
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
-ported yet (ROADMAP A): the meta-optimizers, sub-block control flow,
-SelectedRows gradients and GPT MoE (A1), the w8a8 ``calibrate`` pass
-(A7), the host tiers (A9: the reader, the rest of ``observability/``)
-and distribution (A10).
+ported yet (ROADMAP A): the w8a8 ``calibrate`` pass (A7), the host
+tiers (A9: the reader, the rest of ``observability/``), distribution
+(A10: meshes, expert parallelism, DGC and pipeline optimizers) and the
+long tail (A11: ``StaticRNN`` / ``DynamicRNN`` and the rest).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of

@@ -1,7 +1,8 @@
-"""Graph-level autodiff: append_backward.
+"""Graph-level autodiff: append_backward and
+append_backward_with_recompute.
 
 The port's copy of ``paddle_tpu/core/backward.py`` ``append_backward``
-(:48), line for line, so that the port appends the same grad ops under
+(:48) and ``append_backward_with_recompute`` (:243), line for line, so that the port appends the same grad ops under
 the same names as the JAX package. Fluid's reference is
 python/paddle/fluid/backward.py:1139 (append_backward).
 
@@ -238,4 +239,181 @@ def append_backward(
         if g is None:
             continue
         result.append((p, block.var(g)))
+    return result
+
+
+def append_backward_with_recompute(
+    loss: Variable,
+    checkpoints: Sequence,
+    parameter_list: Optional[Sequence] = None,
+    no_grad_set: Optional[Set[str]] = None,
+) -> List[Tuple[Variable, Variable]]:
+    """Checkpoint-aware backward (reference backward.py:618
+    _append_backward_ops_with_checkpoints_), a copy of the JAX
+    package's (``core/backward.py:243``) line for line.
+
+    The forward is split into segments at the checkpoint vars. Instead
+    of per-op grad ops, ONE `recompute_segment_grad` op is emitted per
+    segment (reverse order); its lowering (``core/control_flow.py``)
+    re-runs the segment's forward with autograd on and applies the
+    incoming cotangents. No grad op consumes the first forward, so it
+    records nothing and its activations are freed after their last
+    forward reader: activation memory scales with the number of
+    checkpoints, not the depth.
+    """
+    block = loss.block
+    program = block.program
+    no_grad = set(no_grad_set or ())
+    ckpt_names = [v.name if isinstance(v, Variable) else str(v) for v in checkpoints]
+
+    fwd_ops = [
+        op for op in block.ops
+        if int(op.attrs.get("op_role", 0)) & (OpRole.Backward | OpRole.Optimize) == 0
+    ]
+
+    # -- segment the forward at checkpoint producers ----------------------
+    segments: List[List] = []
+    cur: List = []
+    remaining = set(ckpt_names)
+    for op in fwd_ops:
+        cur.append(op)
+        produced_ckpt = remaining.intersection(
+            n for names in op.outputs.values() for n in names
+        )
+        if produced_ckpt:
+            remaining -= produced_ckpt
+            segments.append(cur)
+            cur = []
+    if cur:
+        segments.append(cur)
+    if remaining:
+        raise ValueError(f"checkpoint vars never produced: {sorted(remaining)}")
+
+    def seg_produced(seg):
+        return {n for op in seg for names in op.outputs.values() for n in names}
+
+    def seg_inputs(seg):
+        prod = seg_produced(seg)
+        ins, seen = [], set()
+        for op in seg:
+            for names in op.inputs.values():
+                for n in names:
+                    if n not in prod and n not in seen:
+                        seen.add(n)
+                        ins.append(n)
+        return ins
+
+    # outputs of each segment that later segments (or the loss) consume
+    later_consumed: List[Set[str]] = []
+    for i, seg in enumerate(segments):
+        consumed = set()
+        for later in segments[i + 1:]:
+            for op in later:
+                for names in op.inputs.values():
+                    consumed.update(names)
+        used = seg_produced(seg) & consumed
+        if loss.name in seg_produced(seg):
+            used.add(loss.name)
+        later_consumed.append(used)
+
+    # -- seed dL/dL = 1 ----------------------------------------------------
+    loss_g = _create_grad_var(block, loss.name)
+    block.append_op(
+        type="fill_constant",
+        outputs={"Out": [loss_g]},
+        attrs={
+            "shape": list(loss.shape or ()),
+            "value": 1.0,
+            "dtype": loss.dtype,
+            "op_role": OpRole.Backward | OpRole.Loss,
+        },
+    )
+    grad_map: Dict[str, str] = {loss.name: loss_g.name}
+
+    def differentiable(name: str) -> bool:
+        v = _var_or_none(block, name)
+        if name in no_grad:
+            return False
+        if v is None:
+            return False
+        if v.stop_gradient:
+            return False
+        return v.dtype in ("float32", "float16", "bfloat16", "float64")
+
+    # -- one recompute_segment_grad op per segment, reverse order ----------
+    for seg, used in zip(reversed(segments), reversed(later_consumed)):
+        out_names = sorted(n for n in used if n in grad_map)
+        if not out_names:
+            continue
+        ins = seg_inputs(seg)
+        wanted = [n for n in ins if differentiable(n)]
+        if not wanted:
+            continue
+
+        sb = program._create_block()
+        for op in seg:
+            sb.append_op(type=op.type, inputs={k: list(v) for k, v in op.inputs.items()},
+                         outputs={k: list(v) for k, v in op.outputs.items()},
+                         attrs=dict(op.attrs))
+        program._rollback()
+
+        pending_sums: List[Tuple[str, str, str]] = []
+        gnames = []
+        for n in wanted:
+            gname = _grad_name(n)
+            if n in grad_map:
+                renamed = gname + f"@RENAME@{len(block.ops)}"
+                block.create_var(
+                    name=renamed,
+                    shape=(_var_or_none(block, n) or loss).shape,
+                    dtype=(_var_or_none(block, n) or loss).dtype,
+                    stop_gradient=True,
+                )
+                pending_sums.append((gname, grad_map[n], renamed))
+                gnames.append(renamed)
+            else:
+                _create_grad_var(block, n)
+                grad_map[n] = gname
+                gnames.append(gname)
+
+        block.append_op(
+            type="recompute_segment_grad",
+            inputs={
+                "Inputs": list(ins),
+                "OutGrads": [grad_map[n] for n in out_names],
+            },
+            outputs={"InGrads": gnames},
+            attrs={
+                "sub_block": sb,
+                "seg_outputs": out_names,
+                "wanted": list(wanted),
+                "op_role": OpRole.Backward,
+            },
+        )
+        for final, old, new in pending_sums:
+            block.append_op(
+                type="sum",
+                inputs={"X": [old, new]},
+                outputs={"Out": [final]},
+                attrs={"op_role": OpRole.Backward},
+            )
+            grad_map[final[: -len("@GRAD")]] = final
+
+    program._bump()
+
+    if parameter_list is not None:
+        params = [
+            p if isinstance(p, Variable) else block.var(str(p))
+            for p in parameter_list
+        ]
+    else:
+        params = [
+            v for v in program.global_block().vars.values()
+            if isinstance(v, Parameter) and v.trainable
+        ]
+    result = []
+    for p in params:
+        g = grad_map.get(p.name)
+        if g is not None:
+            result.append((p, block.var(g)))
     return result

@@ -49,6 +49,7 @@ from . import framework
 from .framework import Block, Program, Variable
 from .places import CUDAPlace, Place
 from .registry import get_op_def
+from .selected_rows import SelectedRows
 
 _TORCH_DTYPES = {
     "float32": torch.float32, "float64": torch.float64,
@@ -73,7 +74,10 @@ def to_numpy(v) -> np.ndarray:
     """Host numpy copy of a tensor (bfloat16 widened to float32). A copy
     also for a CPU tensor, whose ``numpy()`` would share its memory: the
     fused optimizer ops update parameters in place, so a view fetched
-    after one step would change with the next."""
+    after one step would change with the next. A SelectedRows comes back
+    as one of numpy arrays (``paddle_tpu/core/executor.py:466-472``)."""
+    if isinstance(v, SelectedRows):
+        return SelectedRows(to_numpy(v.rows), to_numpy(v.values), v.height)
     t = v.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -149,19 +153,137 @@ def scope_guard(scope: Scope):
         _scope_stack.pop()
 
 
+# control-flow ops: op type -> (lowering ``fn(ctx, op, env)``, whether
+# the sub-block's writes land in the caller's environment); registered
+# by core/control_flow.py. They are not in the op registry, so
+# append_backward refuses them, as the JAX package's does.
+_CONTROL_FLOW: Dict[str, Any] = {}
+
+
+def register_control_flow(op_type: str, carries: bool = True):
+    """``carries``: the op writes what its sub-block writes of the names
+    that exist before it (while, conditional_block); otherwise it writes
+    only its own outputs (recompute_segment_grad)."""
+    def deco(fn):
+        _CONTROL_FLOW[op_type] = (fn, carries)
+        return fn
+
+    return deco
+
+
+def _sub_blocks(op):
+    return [v for v in op.attrs.values() if isinstance(v, Block)]
+
+
+def block_reads(block: Block) -> List[str]:
+    """Names the block's ops read (nested blocks too) before the block
+    itself writes them: what it takes from the enclosing environment."""
+    out, local = [], set()
+    for op in block.ops:
+        names = list(op.input_arg_names)
+        for sub in _sub_blocks(op):
+            names += block_reads(sub)
+        for n in names:
+            if n not in local and n not in out:
+                out.append(n)
+        local.update(op.output_arg_names)
+    return out
+
+
+def block_writes(block: Block) -> List[str]:
+    """Names the block's ops write, nested carrying blocks included."""
+    out = []
+    for op in block.ops:
+        names = list(op.output_arg_names)
+        cf = _CONTROL_FLOW.get(op.type)
+        if cf is not None and cf[1]:
+            for sub in _sub_blocks(op):
+                names += block_writes(sub)
+        out += [n for n in names if n not in out]
+    return out
+
+
+def _all_reads(block: Block) -> set:
+    """Every name any op of the block or of its sub-blocks reads."""
+    out = set()
+    for op in block.ops:
+        out.update(op.input_arg_names)
+        for sub in _sub_blocks(op):
+            out |= _all_reads(sub)
+    return out
+
+
+def lower_ops(ops, env: Dict[str, Any], ctx) -> None:
+    """Run ``ops`` (a sub-block's) eagerly over ``env``, updating it in
+    place: the counterpart of the JAX package's ``_lower_block``. No
+    tape and no lifetimes: a sub-block is short, and its caller keeps
+    what it needs."""
+    for op in ops:
+        if op.type in ("feed", "fetch"):
+            continue
+        cf = _CONTROL_FLOW.get(op.type)
+        if cf is not None:
+            cf[0](ctx, op, env)
+            continue
+        opdef = get_op_def(op.type)
+        ins = {}
+        for slot in opdef.input_slots:
+            if slot not in op.inputs:
+                continue
+            try:
+                ins[slot] = [env[n] for n in op.inputs[slot]]
+            except KeyError as e:
+                raise KeyError(
+                    f"op {op.type!r} input {slot}={e.args[0]!r} is not "
+                    "defined; did you run the startup program / feed this "
+                    "var?") from None
+        outs = opdef.lower(ctx, op, ins)
+        for slot, names in op.outputs.items():
+            vals = outs.get(slot, [])
+            for j, n in enumerate(names):
+                if j < len(vals):
+                    env[n] = vals[j]
+
+
 class _Plan:
     """What one (program version, feeds, fetches) run needs to know
-    about its block, computed once."""
+    about its block, computed once. ``ops`` runs a part of the block
+    (a gradient-merge step's phases); ``keep`` names values that must
+    outlive it. A control-flow op reads what its sub-block takes from
+    outside (``block_reads``) and writes what it carries out
+    (``block_writes``): a var only a sub-block reads stays live until
+    its op has run, and a persistable the sub-block writes goes back to
+    the scope."""
 
     def __init__(self, block: Block, feed_names: Sequence[str],
-                 fetch_names: Sequence[str]):
-        ops = [op for op in block.ops if op.type not in ("feed", "fetch")]
+                 fetch_names: Sequence[str], ops=None, keep=()):
+        if ops is None:
+            ops = [op for op in block.ops if op.type not in ("feed", "fetch")]
         self.ops = ops
-        self.defs = [get_op_def(op.type) for op in ops]
+        self.control = [_CONTROL_FLOW.get(op.type) for op in ops]
+        self.defs = [None if cf is not None else get_op_def(op.type)
+                     for op, cf in zip(ops, self.control)]
         # the slots each op reads: its OpDef's declared input slots (an
-        # automatic grad op declares only its cotangents)
-        self.reads = [[(s, op.inputs[s]) for s in d.input_slots
-                       if s in op.inputs] for op, d in zip(ops, self.defs)]
+        # automatic grad op declares only its cotangents); a control op
+        # reads its inputs and its sub-block's outer reads as one slot
+        self.reads = []
+        writes = []
+        sub_reads = set()
+        for op, d, cf in zip(ops, self.defs, self.control):
+            if cf is None:
+                self.reads.append([(s, op.inputs[s]) for s in d.input_slots
+                                   if s in op.inputs])
+                writes.append(op.output_arg_names)
+                continue
+            names = list(op.input_arg_names)
+            outs = list(op.output_arg_names)
+            for sub in _sub_blocks(op):
+                names += [n for n in block_reads(sub) if n not in names]
+                sub_reads |= _all_reads(sub)
+                if cf[1]:
+                    outs += [n for n in block_writes(sub) if n not in outs]
+            self.reads.append([("", names)])
+            writes.append(outs)
 
         def persistable(n):
             v = block._find_var_recursive(n)
@@ -171,27 +293,27 @@ class _Plan:
         self.state_names: List[str] = []
         self.written: List[str] = []
         last_read: Dict[str, int] = {}
-        for i, (op, reads) in enumerate(zip(ops, self.reads)):
+        for i, reads in enumerate(self.reads):
             for _, names in reads:
                 for n in names:
                     last_read[n] = i
                     if n not in produced and n not in self.state_names:
                         self.state_names.append(n)
-            for n in op.output_arg_names:
+            for n in writes[i]:
                 produced.add(n)
                 if persistable(n) and n not in self.written:
                     self.written.append(n)
-        keep = set(fetch_names) | {n for n in produced if persistable(n)} \
-            | set(self.state_names)
-        self.live = set(last_read) | keep
+        keep = set(fetch_names) | set(keep) \
+            | {n for n in produced if persistable(n)} | set(self.state_names)
+        self.live = set(last_read) | keep | sub_reads
         # values to drop from the environment after op i: those whose
         # last reader is i, and outputs of op i nobody reads later
         self.free_after: List[List[str]] = [[] for _ in ops]
         for n, i in last_read.items():
             if n not in keep:
                 self.free_after[i].append(n)
-        for i, op in enumerate(ops):
-            for n in op.output_arg_names:
+        for i in range(len(ops)):
+            for n in writes[i]:
                 if n not in keep and last_read.get(n, -1) <= i \
                         and n not in self.free_after[i]:
                     self.free_after[i].append(n)
@@ -199,7 +321,7 @@ class _Plan:
         # grad op wants gradients for
         self.record: Dict[int, set] = {}
         for op, d in zip(ops, self.defs):
-            if d.auto_grad:
+            if d is not None and d.auto_grad:
                 want = {s[: -len("@GRAD")] for s, ns in op.outputs.items()
                         if s.endswith("@GRAD") and ns}
                 self.record[int(op.attrs.get("op_ident", 0))] = want

@@ -25,7 +25,9 @@ Random numbers: ``LoweringContext.op_generator`` is a ``torch.Generator``
 on the executor's device seeded from (run seed, step, ``op_ident``), the
 counterpart of ``op_key`` (:61-70), so two builds of one program draw
 the same init. A grad op never draws: the tape holds what its forward
-drew (a dropout mask).
+drew (a dropout mask); a recompute segment's rerun draws again under the
+same idents, so it draws the same masks. A gradient-merge step gives
+each microbatch its own ``fold`` (JAX folds the index into the key).
 """
 
 from __future__ import annotations
@@ -60,14 +62,17 @@ class LoweringContext:
     output slot none of whose names is live (``wants``); None means all
     are live. ``tape``: the forward records of this run, by op_ident.
     ``constants``: a cache the Executor keeps across runs for values
-    built from op attrs (``constant``)."""
+    built from op attrs (``constant``). ``fold``: the microbatch of a
+    gradient-merge step (None outside one)."""
 
     def __init__(self, device, seed: int = 0, step: int = 0,
                  live: Optional[set] = None,
-                 constants: Optional[Dict[int, Any]] = None):
+                 constants: Optional[Dict[int, Any]] = None,
+                 fold: Optional[int] = None):
         self.device = torch.device(device)
         self.seed = int(seed)
         self.step = int(step)
+        self.fold = fold
         self.live = live
         self.tape: Dict[int, Any] = {}
         self.constants = constants if constants is not None else {}
@@ -77,7 +82,10 @@ class LoweringContext:
         seed, step, op_ident). Grad ops reuse the forward's ident."""
         ident = int(op.attrs.get("op_ident", 0) or 0)
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(_mix(self.seed, self.step, ident))
+        if self.fold is None:
+            gen.manual_seed(_mix(self.seed, self.step, ident))
+        else:
+            gen.manual_seed(_mix(self.seed, self.step, ident, self.fold))
         return gen
 
     def wants(self, op, slot: str) -> bool:

@@ -221,7 +221,13 @@ class GPTLM(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.moe_every:
-            raise NotImplementedError("MoE GPT layers are not ported")
+            # the JAX generation model builds dense FFNs only
+            # (paddle_tpu/generation/model.py:117-137); a MoE Program
+            # serves through the Program Predictor
+            raise NotImplementedError(
+                "GPTLM (the generation engines' model) has dense FFNs only, "
+                "as the JAX package's generation model does: serve a MoE "
+                "GPT's saved Program through inference.create_predictor")
         if cfg.hidden_size % cfg.num_heads:
             raise ValueError("hidden_size must be a multiple of num_heads")
         self.cfg = cfg

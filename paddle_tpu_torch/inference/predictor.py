@@ -281,7 +281,9 @@ class Predictor:
                     self._scope.vars, {"program": self._program.to_dict()})
             except (ValueError, KeyError):
                 self.gpt_config = None
-            if self.gpt_config is not None:
+            # a switch-MoE GPT runs as its Program only: the GPTLM
+            # module has dense FFNs, as the JAX generation model does
+            if self.gpt_config is not None and not self.gpt_config.moe_every:
                 self.lm = GPTLM(self.gpt_config, "meta")
                 share_params(self.lm, self._scope.vars)
 

@@ -318,24 +318,38 @@ def _num_heads(meta: Dict[str, Any]) -> int:
 
 def gpt_config_from_model(params: Dict[str, Any],
                           meta: Dict[str, Any]) -> GPTConfig:
-    """The GPTConfig a saved ``build_lm_program`` directory was built
-    with: widths from the parameter shapes, heads from the program,
-    ``use_flash_attention`` from its ops. Dropouts are 0 (inference)."""
+    """The GPTConfig a saved ``build_lm_program`` / ``build_gpt_lm``
+    directory was built with: widths from the parameter shapes, heads
+    from the program, ``use_flash_attention`` from its ops, the switch-MoE
+    layers from their parameters (``dec<i>_moe.gate``, ``.w1``, ...) and
+    the program's ``switch_moe`` ops. Dropouts are 0 (inference)."""
+    ops = [op for b in meta["program"]["blocks"] for op in b["ops"]]
+    moe = sorted(int(m.group(1)) for m in
+                 (re.match(r"dec(\d+)_moe\.gate$", n) for n in params) if m)
     try:
         V, H = params["gpt_tok_emb"].shape
         max_pos = params["gpt_pos_emb"].shape[0]
-        ffn = params["dec0_ffn1.w"].shape[1]
+        if moe:
+            ffn = params[f"dec{moe[0]}_moe.w1"].shape[2]
+        else:
+            ffn = params["dec0_ffn1.w"].shape[1]
     except KeyError as e:
         raise ValueError(f"not a GPT LM directory: missing {e}") from None
     layers = 1 + max(int(m.group(1)) for m in
                      (re.match(r"dec(\d+)_", n) for n in params) if m)
-    flash = any(op["type"] == "flash_attention"
-                for b in meta["program"]["blocks"] for op in b["ops"])
-    return GPTConfig(vocab_size=int(V), hidden_size=int(H),
-                     num_layers=layers, num_heads=_num_heads(meta),
-                     ffn_size=int(ffn), max_position=int(max_pos),
-                     hidden_dropout=0.0, attention_dropout=0.0,
-                     use_flash_attention=flash)
+    flash = any(op["type"] == "flash_attention" for op in ops)
+    cfg = GPTConfig(vocab_size=int(V), hidden_size=int(H),
+                    num_layers=layers, num_heads=_num_heads(meta),
+                    ffn_size=int(ffn), max_position=int(max_pos),
+                    hidden_dropout=0.0, attention_dropout=0.0,
+                    use_flash_attention=flash)
+    if moe:
+        cfg.moe_every = moe[0] + 1
+        cfg.moe_experts = int(params[f"dec{moe[0]}_moe.gate"].shape[1])
+        cfg.moe_capacity = float(next(
+            op["attrs"].get("capacity_factor", 1.25) for op in ops
+            if op["type"] == "switch_moe"))
+    return cfg
 
 
 def load_scope_arrays(scope, arrays: Dict[str, np.ndarray], program,

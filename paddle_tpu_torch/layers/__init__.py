@@ -2,6 +2,7 @@
 part of ``paddle_tpu/layers/`` the training paths call."""
 
 from .control_flow import *  # noqa: F401,F403
+from .extras import *  # noqa: F401,F403
 from .io import data
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403

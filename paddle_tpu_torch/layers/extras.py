@@ -1,0 +1,63 @@
+"""``switch_moe``: the port's copy of the one layer of
+``paddle_tpu/layers/extras.py`` (:478-535) that a ported model calls."""
+
+from __future__ import annotations
+
+from ..initializer import ConstantInitializer, XavierInitializer
+from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
+from .nn import _out
+
+__all__ = ["switch_moe"]
+
+
+def switch_moe(input, num_experts, expert_hidden, capacity_factor=1.25,
+               act="gelu", param_attr=None, bias_attr=None, name=None):
+    """Switch-transformer MoE FFN (top-1 routing, capacity-bound
+    dispatch; ``ops/moe.py``). Returns (out, aux_loss): add ``aux_coeff
+    * aux_loss`` to the training loss for load balancing. Its five
+    parameters take per-slot copies of the attrs, named ``<name>.gate``,
+    ``.w1``, ``.w2`` and ``<bias name>.b1``, ``.b2``."""
+    helper = LayerHelper("switch_moe", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+
+    def _slot(base, suffix):
+        # one shared attr would alias the five parameters once the first
+        # create_parameter names it; bias_attr=False means no bias
+        # elsewhere, but the op's biases are structural
+        a = ParamAttr._to_attr(base if base is not False else None)
+        a = ParamAttr(**a.__dict__.copy())
+        if a.name is not None:
+            a.name = f"{a.name}.{suffix}"
+        return a
+
+    d = int(input.shape[-1])
+    e, f = int(num_experts), int(expert_hidden)
+    wg = helper.create_parameter(
+        _slot(helper.param_attr, "gate"), [d, e], input.dtype,
+        default_initializer=XavierInitializer())
+    w1 = helper.create_parameter(
+        _slot(helper.param_attr, "w1"), [e, d, f], input.dtype,
+        default_initializer=XavierInitializer())
+    b1 = helper.create_parameter(
+        _slot(helper.bias_attr, "b1"), [e, f], input.dtype, is_bias=True,
+        default_initializer=ConstantInitializer(0.0))
+    w2 = helper.create_parameter(
+        _slot(helper.param_attr, "w2"), [e, f, d], input.dtype,
+        default_initializer=XavierInitializer())
+    b2 = helper.create_parameter(
+        _slot(helper.bias_attr, "b2"), [e, d], input.dtype, is_bias=True,
+        default_initializer=ConstantInitializer(0.0))
+    # the tag the JAX package's expert parallelism shards by (A10)
+    for v in (w1, b1, w2, b2):
+        v._moe_expert_param = True
+    out = _out(helper, input, shape=input.shape)
+    aux = _out(helper, input, shape=(1,))
+    helper.append_op(
+        type="switch_moe",
+        inputs={"X": [input], "GateW": [wg], "ExpertW1": [w1],
+                "ExpertB1": [b1], "ExpertW2": [w2], "ExpertB2": [b2]},
+        outputs={"Out": [out], "AuxLoss": [aux]},
+        attrs={"capacity_factor": float(capacity_factor), "act": act},
+    )
+    return out, aux

@@ -5,7 +5,8 @@ layers of ResNet (``conv2d``, ``pool2d``, ``batch_norm``, ``relu``) and
 what ``clip.py`` emits (the unary math, ``elementwise_max`` / ``_min``,
 ``clip``, ``clip_by_norm``), and what the learning-rate schedules emit
 (``cast``, ``exp``, ``pow``, ``floor``, ``ceil``, ``cos``, ``where``,
-``elementwise_pow``). Each function emits ops into the default
+``elementwise_pow``), and what DeepFM, Lookahead and the control flow
+emit (``sigmoid``, ``elementwise_mod``). Each function emits ops into the default
 main program and sets output shapes itself, exactly as the reference
 does, so both packages build the same program.
 """
@@ -61,6 +62,8 @@ __all__ = [
     "cos",
     "where",
     "elementwise_pow",
+    "sigmoid",
+    "elementwise_mod",
 ]
 
 
@@ -127,8 +130,9 @@ def embedding(
     param_attr=None,
     dtype="float32",
 ):
-    """Reference layers/nn.py embedding (lookup_table op). is_sparse is
-    advisory: the port's gradient is a dense scatter-add."""
+    """Reference layers/nn.py embedding (lookup_table op). With
+    ``is_sparse`` the table's gradient is a SelectedRows of the looked-up
+    rows (``core/selected_rows.py``), else a dense scatter-add."""
     helper = LayerHelper("embedding", param_attr=param_attr)
     w = helper.create_parameter(
         helper.param_attr, list(size), dtype, default_initializer=XavierInitializer()
@@ -499,6 +503,7 @@ elementwise_div = _make_elementwise("elementwise_div")
 elementwise_max = _make_elementwise("elementwise_max")
 elementwise_min = _make_elementwise("elementwise_min")
 elementwise_pow = _make_elementwise("elementwise_pow")
+elementwise_mod = _make_elementwise("elementwise_mod")
 
 
 def _make_activation(op_type, extra_defaults=None):
@@ -526,6 +531,7 @@ exp = _make_activation("exp")
 floor = _make_activation("floor")
 ceil = _make_activation("ceil")
 cos = _make_activation("cos")
+sigmoid = _make_activation("sigmoid")
 
 
 def pow(x, factor=1.0, name=None):

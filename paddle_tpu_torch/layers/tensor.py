@@ -10,7 +10,8 @@ from ..core.framework import (Variable, convert_dtype, default_main_program,
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_global_var", "assign", "fill_constant", "sums"]
+__all__ = ["create_global_var", "assign", "fill_constant", "sums", "concat",
+           "zeros", "ones"]
 
 
 def create_global_var(shape, value, dtype, persistable=False, force_cpu=False, name=None):
@@ -77,3 +78,33 @@ def sums(input, out=None):
         )
     helper.append_op(type="sum", inputs={"X": xs}, outputs={"Out": [out]})
     return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    xs = list(input)
+    shp = list(xs[0].shape or ())
+    if shp:
+        tot = 0
+        for v in xs:
+            d = (v.shape or [None] * len(shp))[axis]
+            if d is None or d < 0:
+                tot = -1
+                break
+            tot += d
+        shp[axis] = tot
+    out = helper.create_variable_for_type_inference(
+        dtype=xs[0].dtype, shape=tuple(shp) if shp else None
+    )
+    helper.append_op(
+        type="concat", inputs={"X": xs}, outputs={"Out": [out]}, attrs={"axis": axis}
+    )
+    return out
+
+
+def zeros(shape, dtype="float32", force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def ones(shape, dtype="float32", force_cpu=False):
+    return fill_constant(shape, dtype, 1.0)

@@ -4,9 +4,10 @@ Program-IR model, with its synthetic corpus ``synthetic_lm_batch``,
 copied so that the port builds the same program as the JAX package.
 The torch modules that serve a GPT live in ``generation/model.py``.
 
-Dense FFNs, with the op-graph attention or (``use_flash_attention``)
-the fused ``flash_attention`` op; ``moe_every`` raises until its slice
-is ported.
+The op-graph attention or (``use_flash_attention``) the fused
+``flash_attention`` op; every ``moe_every``-th decoder swaps its dense
+FFN for a switch-MoE layer (``layers.switch_moe``), whose load-balance
+loss joins the training loss (not an ``is_test`` program's).
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ class GPTConfig:
     attention_dropout: float = 0.1
     initializer_range: float = 0.02
     use_flash_attention: bool = False
-    # MoE fields kept for a like-for-like config; the port runs dense
-    # FFNs only (moe_every must stay 0)
+    # MoE: every `moe_every`-th decoder swaps its dense FFN for a
+    # switch-MoE layer (0 = dense)
     moe_every: int = 0
     moe_experts: int = 8
     moe_capacity: float = 1.25
@@ -66,7 +67,8 @@ def _attr(name, std, axes=None):
                      logical_axes=axes)
 
 
-def _decoder_layer(x, cfg: GPTConfig, idx: int, is_test=False):
+def _decoder_layer(x, cfg: GPTConfig, idx: int, is_test=False,
+                   aux_losses=None):
     h = cfg.hidden_size
     std = cfg.initializer_range
     pre = f"dec{idx}"
@@ -104,19 +106,28 @@ def _decoder_layer(x, cfg: GPTConfig, idx: int, is_test=False):
         param_attr=ParamAttr(name=f"{pre}_ln2.scale"),
         bias_attr=ParamAttr(name=f"{pre}_ln2.bias"),
     )
-    ffn1 = layers.fc(
-        ln2, cfg.ffn_size, num_flatten_dims=2, act="gelu",
-        param_attr=_attr(f"{pre}_ffn1.w", std,
-                         axes=("embed", "mlp")),
-        bias_attr=ParamAttr(name=f"{pre}_ffn1.b",
-                            logical_axes=("mlp",)),
-    )
-    ffn2 = layers.fc(
-        ffn1, h, num_flatten_dims=2,
-        param_attr=_attr(f"{pre}_ffn2.w", std,
-                         axes=("mlp", "embed")),
-        bias_attr=ParamAttr(name=f"{pre}_ffn2.b"),
-    )
+    if cfg.moe_every and (idx + 1) % cfg.moe_every == 0:
+        ffn2, aux = layers.switch_moe(
+            ln2, cfg.moe_experts, cfg.ffn_size,
+            capacity_factor=cfg.moe_capacity,
+            param_attr=ParamAttr(name=f"{pre}_moe"),
+            bias_attr=ParamAttr(name=f"{pre}_moe_b"))
+        if aux_losses is not None:
+            aux_losses.append(aux)
+    else:
+        ffn1 = layers.fc(
+            ln2, cfg.ffn_size, num_flatten_dims=2, act="gelu",
+            param_attr=_attr(f"{pre}_ffn1.w", std,
+                             axes=("embed", "mlp")),
+            bias_attr=ParamAttr(name=f"{pre}_ffn1.b",
+                                logical_axes=("mlp",)),
+        )
+        ffn2 = layers.fc(
+            ffn1, h, num_flatten_dims=2,
+            param_attr=_attr(f"{pre}_ffn2.w", std,
+                             axes=("mlp", "embed")),
+            bias_attr=ParamAttr(name=f"{pre}_ffn2.b"),
+        )
     if not is_test and cfg.hidden_dropout:
         ffn2 = layers.dropout(ffn2, cfg.hidden_dropout,
                               dropout_implementation="upscale_in_train")
@@ -126,10 +137,6 @@ def _decoder_layer(x, cfg: GPTConfig, idx: int, is_test=False):
 def build_gpt_lm(cfg: GPTConfig, seq_len: int, optimizer=None, is_test=False):
     """Next-token LM: returns (main, startup, feeds, fetches).
     tokens [B, S] int64 -> loss (shifted CE) + logits."""
-    if cfg.moe_every:
-        raise NotImplementedError(
-            "GPT MoE layers (moe_every > 0) are not ported to "
-            "paddle_tpu_torch yet (ROADMAP A1)")
     main, startup = Program(), Program()
     with program_guard(main, startup):
         tokens = layers.data("tokens", [seq_len], dtype="int64")
@@ -146,8 +153,10 @@ def build_gpt_lm(cfg: GPTConfig, seq_len: int, optimizer=None, is_test=False):
                              axes=("seq", "embed")),
         )
         x = layers.elementwise_add(emb, pos)
+        aux_losses = []
         for i in range(cfg.num_layers):
-            x = _decoder_layer(x, cfg, i, is_test=is_test)
+            x = _decoder_layer(x, cfg, i, is_test=is_test,
+                               aux_losses=aux_losses)
         x = layers.layer_norm(
             x, begin_norm_axis=2,
             param_attr=ParamAttr(name="gpt_lnf.scale"),
@@ -165,6 +174,17 @@ def build_gpt_lm(cfg: GPTConfig, seq_len: int, optimizer=None, is_test=False):
                 logits, layers.unsqueeze(labels, [2])
             )
         )
+        if aux_losses and not is_test:
+            # the switch-MoE load-balance term (the mean over the MoE
+            # layers), in training only: an eval loss stays the LM's
+            total_aux = aux_losses[0]
+            for a in aux_losses[1:]:
+                total_aux = layers.elementwise_add(total_aux, a)
+            loss = layers.elementwise_add(
+                layers.reshape(loss, [1]),
+                layers.scale(total_aux,
+                             scale=cfg.moe_aux_coeff / len(aux_losses)))
+            loss = layers.mean(loss)
         if optimizer is not None:
             optimizer.minimize(loss)
     return main, startup, {"tokens": tokens, "labels": labels}, {

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 from ..core.executor import torch_dtype
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRows
 
 
 def _broadcast_y(x, y, axis):
@@ -95,6 +96,9 @@ _register_elementwise("elementwise_max", _maximum)
 # ``x ** y`` (``paddle_tpu/ops/math.py:53``), both gradients through
 # autograd as JAX's vjp of ``lax.pow``
 _register_elementwise("elementwise_pow", torch.pow)
+# ``jnp.mod`` (``paddle_tpu/ops/math.py:54``): the sign of the divisor,
+# as ``torch.remainder``
+_register_elementwise("elementwise_mod", torch.remainder)
 
 
 @register_op("matmul", inputs=("X", "Y"), outputs=("Out",))
@@ -158,8 +162,17 @@ def _mean(ctx, op, ins):
 
 @register_op("sum", inputs=("X",), outputs=("Out",))
 def _sum(ctx, op, ins):
-    # variadic add (grad accumulation, reference operators/sum_op.cc)
+    """Variadic add (gradient accumulation, Fluid's sum_op.cc;
+    ``paddle_tpu/ops/math.py:138-148``): all-SelectedRows inputs
+    concatenate their rows, a mix of sparse and dense densifies the
+    sparse ones."""
     xs = ins["X"]
+    if all(isinstance(x, SelectedRows) for x in xs):
+        out = xs[0]
+        for x in xs[1:]:
+            out = out.concat(x)
+        return {"Out": [out]}
+    xs = [x.to_dense() if isinstance(x, SelectedRows) else x for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x
@@ -171,6 +184,14 @@ def _scale(ctx, op, ins):
     x = ins["X"][0]
     s = float(op.attrs.get("scale", 1.0))
     b = float(op.attrs.get("bias", 0.0))
+    if isinstance(x, SelectedRows):
+        # a sparse gradient scales its slices (Fluid's scale_op.h
+        # SelectedRows kernel, ``paddle_tpu/ops/math.py:226-234``); a
+        # bias is undefined there
+        if b:
+            raise ValueError("scale with a bias is undefined for "
+                             "SelectedRows")
+        return {"Out": [x * s]}
     if op.attrs.get("bias_after_scale", True):
         out = x * s
         if b:
@@ -212,6 +233,7 @@ def _register_unary(name, fn):
 
 
 _register_unary("relu", F.relu)
+_register_unary("sigmoid", torch.sigmoid)
 _register_unary("sqrt", torch.sqrt)
 _register_unary("square", torch.square)
 _register_unary("abs", lambda x: _Abs.apply(x))
@@ -240,6 +262,12 @@ for _name, _fn in (("equal", torch.eq), ("not_equal", torch.ne),
                    ("logical_or", torch.logical_or),
                    ("logical_xor", torch.logical_xor)):
     _register_elementwise(_name, _fn, stop_gradient=True)
+
+
+@register_op("logical_not", inputs=("X",), outputs=("Out",),
+             stop_gradient=True)
+def _logical_not(ctx, op, ins):
+    return {"Out": [torch.logical_not(ins["X"][0])]}
 
 
 @register_op("clip", inputs=("X",), outputs=("Out",))

@@ -255,3 +255,24 @@ def _clip_by_norm(ctx, op, ins):
     mn = float(op.attrs.get("max_norm", 1.0))
     norm = torch.sqrt(torch.sum(x * x))
     return {"Out": [torch.where(norm > mn, x * (mn / norm), x)]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits", inputs=("X", "Label"),
+             outputs=("Out",), no_grad=("Label",))
+def _sigmoid_ce(ctx, op, ins):
+    """``paddle_tpu/ops/nn.py:313``: max(x, 0) - x z + log1p(exp(-|x|)),
+    zero where the label is ``ignore_index``, over the count of the
+    others with ``normalize``. ``max`` and ``|x|`` take JAX's gradients
+    at 0 (``ops/math.py``'s ``_maximum`` and ``_Abs``)."""
+    from .math import _Abs, _maximum
+
+    x, z = ins["X"][0], ins["Label"][0]
+    ignore_index = int(op.attrs.get("ignore_index", -100))
+    loss = (_maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+            - x * z + torch.log1p(torch.exp(-_Abs.apply(x))))
+    mask = z != ignore_index
+    loss = torch.where(mask, loss, torch.zeros((), dtype=loss.dtype,
+                                               device=loss.device))
+    if op.attrs.get("normalize", False):
+        loss = loss / torch.clamp_min(mask.to(loss.dtype).sum(), 1.0)
+    return {"Out": [loss]}

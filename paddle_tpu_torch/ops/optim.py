@@ -9,8 +9,18 @@ in JAX's arithmetic order) and the one-pass ``fused_adam`` /
 kernels. Output names alias the inputs (ParamOut = Param), and the
 Executor writes them back to the scope; the fused ops update their
 state in place (the beta pows too, with plain torch), the unfused ops
-return new tensors. Gradients are dense: a SelectedRows gradient
-(``is_sparse`` embeddings) is ROADMAP A1.
+return new tensors.
+
+A SelectedRows gradient (an ``is_sparse`` embedding's) takes the sparse
+path of ``sgd``, ``momentum``, ``adam`` and ``adagrad``
+(``paddle_tpu/ops/optim.py:27-47``, :62-210): only the touched rows of
+the parameter and its state change, in place, and the others keep their
+bits (``lazy_mode``: their moments do not decay). SGD adds each slice to
+its row in order, as JAX's scatter-add; the stateful updates merge the
+duplicate rows first. ``fused_adam`` / ``fused_momentum`` hand such a
+gradient to that path with the folded clip scale applied to its values
+(``paddle_tpu/kernels/fused_optim.py:281-293``), so K10 and K10m never
+see one. Every other update densifies it (``_dense``).
 
 A division by an attribute goes through a tensor of the operand's
 dtype: torch divides by a Python scalar (and divides a Python scalar
@@ -21,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRows, segment_sum_rows
 from ..kernels.fused_optim import fused_adam_update, fused_momentum_update
 
 _ADAM_INS = ("Param", "Grad", "LearningRate", "Moment1", "Moment2",
@@ -30,14 +41,28 @@ _ADAM_OUTS = ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
 
 
 def _dense(ins):
-    """The Grad tensor; anything else (a SelectedRows gradient) is not
-    ported."""
+    """The Grad as a dense tensor: an update without a sparse path
+    densifies a SelectedRows gradient (``_densify_grad``,
+    ``paddle_tpu/ops/optim.py:50-58``)."""
     g = ins["Grad"][0]
-    if not isinstance(g, torch.Tensor):
-        raise NotImplementedError(
-            f"a {type(g).__name__} gradient is not ported to "
-            "paddle_tpu_torch yet (SelectedRows, ROADMAP A1)")
-    return g
+    return g.to_dense() if isinstance(g, SelectedRows) else g
+
+
+def _sparse(ins):
+    """The Grad when it is a SelectedRows, merged, else None."""
+    g = ins["Grad"][0]
+    return g.merge() if isinstance(g, SelectedRows) else None
+
+
+def _with_clip(ins):
+    """The fused ops' sparse hand-off: the unfused op's inputs, with the
+    folded clip scale applied to the gradient's values."""
+    g = ins["Grad"][0]
+    ins = dict(ins)
+    if ins.get("ClipScale"):
+        s = ins["ClipScale"][0].reshape(())
+        ins["Grad"] = [SelectedRows(g.rows, g.values * s, g.height)]
+    return ins
 
 
 def _lr(ins):
@@ -47,8 +72,14 @@ def _lr(ins):
 @register_op("sgd", inputs=("Param", "Grad", "LearningRate"),
              outputs=("ParamOut",), stop_gradient=True)
 def _sgd(ctx, op, ins):
-    p = ins["Param"][0]
-    return {"ParamOut": [p - _lr(ins) * _dense(ins).to(p.dtype)]}
+    p, g = ins["Param"][0], ins["Grad"][0]
+    if isinstance(g, SelectedRows):
+        # no merge: each slice adds to its row in order, ((p + u1) + u2),
+        # as JAX's scatter-add of -lr * values
+        u = -_lr(ins) * g.values.to(p.dtype)
+        rows, new = segment_sum_rows(g.rows, u, base=p)
+        return {"ParamOut": [p.index_copy_(0, rows, new)]}
+    return {"ParamOut": [p - _lr(ins) * g.to(p.dtype)]}
 
 
 def _momentum_attrs(op):
@@ -59,9 +90,20 @@ def _momentum_attrs(op):
 @register_op("momentum", inputs=("Param", "Grad", "Velocity", "LearningRate"),
              outputs=("ParamOut", "VelocityOut"), stop_gradient=True)
 def _momentum(ctx, op, ins):
-    p, v, g = ins["Param"][0], ins["Velocity"][0], _dense(ins)
+    p, v = ins["Param"][0], ins["Velocity"][0]
     mu, nesterov = _momentum_attrs(op)
     lr = _lr(ins)
+    sg = _sparse(ins)
+    if sg is not None:
+        rows, gv = sg.rows, sg.values.to(p.dtype)
+        v_new = mu * v[rows] + gv
+        if nesterov:
+            p_new = p[rows] - (gv + mu * v_new) * lr
+        else:
+            p_new = p[rows] - lr * v_new
+        return {"ParamOut": [p.index_copy_(0, rows, p_new)],
+                "VelocityOut": [v.index_copy_(0, rows, v_new)]}
+    g = ins["Grad"][0]
     v_new = mu * v + g
     if nesterov:
         p_new = p - (g + mu * v_new) * lr
@@ -75,7 +117,9 @@ def _momentum(ctx, op, ins):
                      "ClipScale"),
              outputs=("ParamOut", "VelocityOut"), stop_gradient=True)
 def _fused_momentum(ctx, op, ins):
-    p, v, g = ins["Param"][0], ins["Velocity"][0], _dense(ins)
+    if isinstance(ins["Grad"][0], SelectedRows):
+        return _momentum(ctx, op, _with_clip(ins))
+    p, v, g = ins["Param"][0], ins["Velocity"][0], ins["Grad"][0]
     mu, nesterov = _momentum_attrs(op)
     clip = ins["ClipScale"][0] if ins.get("ClipScale") else None
     fused_momentum_update(p, g.contiguous(), v, ins["LearningRate"][0],
@@ -90,13 +134,24 @@ def _attrs(op):
 
 @register_op("adam", inputs=_ADAM_INS, outputs=_ADAM_OUTS, stop_gradient=True)
 def _adam(ctx, op, ins):
-    p, g = ins["Param"][0], _dense(ins)
+    p = ins["Param"][0]
     m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
     b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
     beta1, beta2, eps = _attrs(op)
     lr = _lr(ins)
     lr_t = lr * torch.sqrt(1 - b2p.reshape(())) / (1 - b1p.reshape(()))
-    g = g.to(p.dtype)
+    pows = {"Beta1PowOut": [b1p * beta1], "Beta2PowOut": [b2p * beta2]}
+    sg = _sparse(ins)
+    if sg is not None:
+        # Fluid's SparseAdamFunctor in lazy mode: the touched rows only
+        rows, gv = sg.rows, sg.values.to(p.dtype)
+        m1n = beta1 * m1[rows] + (1 - beta1) * gv
+        m2n = beta2 * m2[rows] + (1 - beta2) * torch.square(gv)
+        p_new = p[rows] - lr_t * m1n / (torch.sqrt(m2n) + eps)
+        return {"ParamOut": [p.index_copy_(0, rows, p_new)],
+                "Moment1Out": [m1.index_copy_(0, rows, m1n)],
+                "Moment2Out": [m2.index_copy_(0, rows, m2n)], **pows}
+    g = ins["Grad"][0].to(p.dtype)
     m1n = beta1 * m1 + (1 - beta1) * g
     m2n = beta2 * m2 + (1 - beta2) * torch.square(g)
     # bias-corrected lr, as in reference adam_op.h
@@ -105,13 +160,18 @@ def _adam(ctx, op, ins):
         "ParamOut": [p_new],
         "Moment1Out": [m1n],
         "Moment2Out": [m2n],
-        "Beta1PowOut": [b1p * beta1],
-        "Beta2PowOut": [b2p * beta2],
+        **pows,
     }
 
 
 def _lower_fused_adam(ctx, op, ins, default_coeff):
-    p, g = ins["Param"][0], _dense(ins)
+    if isinstance(ins["Grad"][0], SelectedRows):
+        if float(op.attrs.get("coeff", default_coeff)):
+            raise NotImplementedError(
+                "fused_adamw with a SelectedRows gradient: the JAX package "
+                "hands it to the plain adam path, which drops the decay")
+        return _adam(ctx, op, _with_clip(ins))
+    p, g = ins["Param"][0], ins["Grad"][0]
     m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
     b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
     beta1, beta2, eps = _attrs(op)
@@ -171,8 +231,17 @@ def _lars_momentum(ctx, op, ins):
 @register_op("adagrad", inputs=("Param", "Grad", "Moment", "LearningRate"),
              outputs=("ParamOut", "MomentOut"), stop_gradient=True)
 def _adagrad(ctx, op, ins):
-    p, g, m = ins["Param"][0], _dense(ins), ins["Moment"][0]
+    p, m = ins["Param"][0], ins["Moment"][0]
     eps = float(op.attrs.get("epsilon", 1e-6))
+    sg = _sparse(ins)
+    if sg is not None:
+        # Fluid's SparseAdagradFunctor: the touched rows only
+        rows, gv = sg.rows, sg.values.to(p.dtype)
+        m_new = m[rows] + torch.square(gv)
+        p_new = p[rows] - _lr(ins) * gv / (torch.sqrt(m_new) + eps)
+        return {"ParamOut": [p.index_copy_(0, rows, p_new)],
+                "MomentOut": [m.index_copy_(0, rows, m_new)]}
+    g = ins["Grad"][0]
     m_new = m + torch.square(g)
     return {"ParamOut": [p - _lr(ins) * g / (torch.sqrt(m_new) + eps)],
             "MomentOut": [m_new]}

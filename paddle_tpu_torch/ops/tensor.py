@@ -1,6 +1,9 @@
 """Tensor creation / shape-manipulation ops: torch lowerings with the
 semantics of ``paddle_tpu/ops/tensor.py`` (Fluid's fill_constant_op,
-reshape_op, transpose_op, split_op, lookup_table_op, ...)."""
+reshape_op, transpose_op, split_op, concat_op, lookup_table_op, ...),
+with the embedding gradient as a ``SelectedRows`` under ``is_sparse``
+and the two ops over one (``merge_selected_rows``,
+``get_tensor_from_selected_rows``)."""
 
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ import torch
 
 from ..core.executor import torch_dtype
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRows
 
 
 def _xshape(ctx, op, x):
@@ -34,7 +38,10 @@ def _fill_zeros_like(ctx, op, ins):
 
 @register_op("assign", inputs=("X",), outputs=("Out",))
 def _assign(ctx, op, ins):
-    return {"Out": [ins["X"][0]]}
+    """A copy: the fused and the sparse updates write their state in
+    place, so a value assigned from a parameter (Lookahead's slow
+    weights) must not share its storage."""
+    return {"Out": [ins["X"][0].clone()]}
 
 
 @register_op("assign_value", inputs=(), outputs=("Out",), stop_gradient=True)
@@ -139,15 +146,50 @@ def _flat_ids(ids):
     return ids.squeeze(-1) if ids.dim() > 1 and ids.shape[-1] == 1 else ids
 
 
-@register_op("lookup_table", inputs=("W", "Ids"), outputs=("Out",), no_grad=("Ids",))
-def _lookup_table(ctx, op, ins):
-    w, ids = ins["W"][0], _flat_ids(ins["Ids"][0])
+def _lookup(op, w, ids):
     out = w[ids]
     pad = op.attrs.get("padding_idx", -1)
     if pad is not None and pad >= 0:
         out = torch.where((ids == pad)[..., None],
                           torch.zeros((), dtype=w.dtype, device=w.device), out)
     return {"Out": [out]}
+
+
+@register_op("lookup_table", inputs=("W", "Ids"), outputs=("Out",), no_grad=("Ids",))
+def _lookup_table(ctx, op, ins):
+    return _lookup(op, ins["W"][0], _flat_ids(ins["Ids"][0]))
+
+
+@register_op("lookup_table_v2", inputs=("W", "Ids"), outputs=("Out",),
+             no_grad=("Ids",))
+def _lookup_table_v2(ctx, op, ins):
+    """``paddle_tpu/ops/tensor.py:240``: the ids keep their trailing
+    dim."""
+    return _lookup(op, ins["W"][0], ins["Ids"][0])
+
+
+def _embedding_grad(op, ins, squeeze_trailing):
+    """The gradient of both lookups (``paddle_tpu/ops/tensor.py:250``).
+    ``is_sparse``: a SelectedRows of the flat ids and the output
+    gradient's rows, padding rows zeroed. Else the dense scatter-add,
+    deterministic: the rows are stably sorted by id and each id's rows
+    summed in their original order by ``segment_reduce``, where
+    ``index_add_`` on CUDA adds repeated ids with float atomics in
+    whatever order they land."""
+    w, ids, og = ins["W"][0], ins["Ids"][0], ins["Out@GRAD"][0]
+    if squeeze_trailing:
+        ids = _flat_ids(ids)
+    flat_ids = ids.reshape(-1)
+    flat_g = og.reshape(-1, og.shape[-1])
+    pad = op.attrs.get("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        flat_g = torch.where((flat_ids == pad)[:, None],
+                             torch.zeros((), dtype=flat_g.dtype,
+                                         device=flat_g.device), flat_g)
+    grad = SelectedRows(flat_ids, flat_g.to(w.dtype), w.shape[0])
+    if op.attrs.get("is_sparse", False):
+        return {"W@GRAD": [grad]}
+    return {"W@GRAD": [grad.to_dense()]}
 
 
 @register_op(
@@ -157,28 +199,42 @@ def _lookup_table(ctx, op, ins):
     stop_gradient=True,
 )
 def _lookup_table_grad(ctx, op, ins):
-    """Dense scatter-add of the output grad rows (the reference's
-    non-sparse branch of ``_embedding_grad``), deterministic: the rows
-    are stably sorted by id and each id's rows summed in their original
-    order by ``segment_reduce``, where ``index_add_`` on CUDA adds
-    repeated ids with float atomics in whatever order they land."""
-    if op.attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table with is_sparse=True needs SelectedRows gradients, "
-            "not ported yet (ROADMAP A1)")
-    w, og = ins["W"][0], ins["Out@GRAD"][0]
-    flat_ids = _flat_ids(ins["Ids"][0]).reshape(-1)
-    flat_g = og.reshape(-1, og.shape[-1])
-    pad = op.attrs.get("padding_idx", -1)
-    if pad is not None and pad >= 0:
-        flat_g = torch.where((flat_ids == pad)[:, None],
-                             torch.zeros((), dtype=flat_g.dtype,
-                                         device=flat_g.device), flat_g)
-    ids_sorted, order = torch.sort(flat_ids, stable=True)
-    rows, counts = torch.unique_consecutive(ids_sorted, return_counts=True)
-    sums = torch.segment_reduce(flat_g.to(w.dtype)[order], "sum",
-                                lengths=counts, axis=0)
-    return {"W@GRAD": [torch.zeros_like(w).index_copy_(0, rows, sums)]}
+    return _embedding_grad(op, ins, squeeze_trailing=True)
+
+
+@register_op(
+    "lookup_table_v2_grad",
+    inputs=("W", "Ids", "Out@GRAD"),
+    outputs=("W@GRAD",),
+    stop_gradient=True,
+)
+def _lookup_table_v2_grad(ctx, op, ins):
+    return _embedding_grad(op, ins, squeeze_trailing=False)
+
+
+@register_op("merge_selected_rows", inputs=("X",), outputs=("Out",),
+             stop_gradient=True)
+def _merge_selected_rows(ctx, op, ins):
+    """Fluid's merge_selected_rows_op.cc: distinct rows, slices summed."""
+    x = ins["X"][0]
+    if not isinstance(x, SelectedRows):
+        raise TypeError("merge_selected_rows needs a SelectedRows input, "
+                        f"got {type(x).__name__}")
+    return {"Out": [x.merge()]}
+
+
+@register_op("get_tensor_from_selected_rows", inputs=("X",),
+             outputs=("Out",), stop_gradient=True)
+def _get_tensor_from_selected_rows(ctx, op, ins):
+    """Fluid's get_tensor_from_selected_rows_op.cc: the dense tensor."""
+    x = ins["X"][0]
+    return {"Out": [x.to_dense() if isinstance(x, SelectedRows) else x]}
+
+
+@register_op("concat", inputs=("X",), outputs=("Out",))
+def _concat(ctx, op, ins):
+    """``paddle_tpu/ops/tensor.py:109``."""
+    return {"Out": [torch.cat(ins["X"], dim=int(op.attrs.get("axis", 0)))]}
 
 
 @register_op("top_k", inputs=("X",), outputs=("Out", "Indices"))

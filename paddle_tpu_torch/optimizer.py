@@ -18,17 +18,33 @@ into the fused op's ``ClipScale`` operand; otherwise the clip ops
 (``clip.py``) and the weight-decay ops (``regularizer.py``) rewrite the
 gradients first and the update consumes the rewritten ones.
 
+The meta-optimizers (:839-1157): ``ExponentialMovingAverage`` and
+``ModelAverage`` append in-graph averaging ops, and their ``apply()``
+context swaps the averaged values into the scope and back;
+``RecomputeOptimizer`` differentiates through
+``append_backward_with_recompute``; ``LookaheadOptimizer`` keeps slow
+weights (a copy of the parameters made by the startup program) and syncs
+them every k steps in-graph; ``GradientMergeOptimizer`` marks the
+Program, and the Executor's bound step runs it as k microbatches and
+one update (``runtime/dispatch.py``).
+
 Not ported yet, refused by name with the ROADMAP item that holds each
-(``_NOT_PORTED``): the meta-optimizers, and the dygraph path.
+(``_NOT_PORTED``): ``DGCMomentumOptimizer`` and ``PipelineOptimizer``
+(A10), and the dygraph path.
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+import torch
+
 from . import clip as clip_mod
-from .core.backward import append_backward
+from .core.backward import append_backward, append_backward_with_recompute
+from .core.executor import global_scope
 from .core.framework import (
     OpRole,
     Parameter,
@@ -47,19 +63,15 @@ __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
            "Adamax", "AdamaxOptimizer", "Dpsgd", "DpsgdOptimizer",
            "DecayedAdagrad", "DecayedAdagradOptimizer", "Adadelta",
            "AdadeltaOptimizer", "RMSProp", "RMSPropOptimizer", "Ftrl",
-           "FtrlOptimizer", "Lamb", "LambOptimizer"]
+           "FtrlOptimizer", "Lamb", "LambOptimizer",
+           "ExponentialMovingAverage", "ModelAverage", "RecomputeOptimizer",
+           "LookaheadOptimizer", "GradientMergeOptimizer"]
 
-# the reference's meta-optimizers (paddle_tpu/optimizer.py __all__),
-# refused by name with what each waits for
+# the reference's meta-optimizers (paddle_tpu/optimizer.py __all__)
+# still to port, refused by name with what each waits for
 _NOT_PORTED = {
     "DGCMomentumOptimizer": "ROADMAP A10: its sparsified gradient rides "
                             "the data-parallel collectives",
-    "ExponentialMovingAverage": "ROADMAP A1, after core/control_flow.py",
-    "ModelAverage": "ROADMAP A1, after core/control_flow.py",
-    "RecomputeOptimizer": "ROADMAP A1, after core/control_flow.py "
-                          "(recompute segments)",
-    "LookaheadOptimizer": "ROADMAP A1, after core/control_flow.py",
-    "GradientMergeOptimizer": "ROADMAP A1, after core/control_flow.py",
     "PipelineOptimizer": "ROADMAP A10: pipeline parallelism",
 }
 
@@ -595,3 +607,287 @@ RMSProp = RMSPropOptimizer
 Ftrl = FtrlOptimizer
 Lamb = LambOptimizer
 LarsMomentum = LarsMomentumOptimizer
+
+
+# --------------------------------------------------------------------------
+# meta-optimizers (paddle_tpu/optimizer.py:839-1157)
+# --------------------------------------------------------------------------
+
+
+def _first(value) -> float:
+    return float(np.asarray(value.detach().cpu() if isinstance(
+        value, torch.Tensor) else value).reshape(-1)[0])
+
+
+@contextlib.contextmanager
+def _swapped(values: Dict[str, object], need_restore: bool):
+    """Put ``values`` ({param name: tensor}) into the global scope for
+    the block, then the parameters' own tensors back."""
+    scope = global_scope()
+    saved = {n: scope.find_var(n) for n in values}
+    for n, v in values.items():
+        scope.set_var(n, v)
+    try:
+        yield
+    finally:
+        if need_restore:
+            for n, v in saved.items():
+                scope.set_var(n, v)
+
+
+def _divided(v, d: float):
+    # a division, as JAX's ``jnp.asarray(sv) / d``, through a tensor of
+    # the value's dtype (torch divides by a Python float through its
+    # reciprocal)
+    return v / torch.tensor(d, dtype=v.dtype, device=v.device)
+
+
+class ExponentialMovingAverage:
+    """Reference optimizer.py:3166: shadow vars updated every step by
+    in-graph ops; ``apply()`` swaps the bias-corrected averages
+    (shadow / (1 - decay^t)) in for evaluation."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None):
+        self._decay = decay
+        self._name = name or ""
+        self._shadows: Dict[str, Variable] = {}
+        self._counter: Optional[Variable] = None
+
+    def update(self):
+        from .layers.control_flow import increment
+        from .layers.tensor import create_global_var
+
+        helper = LayerHelper("ema")
+        block = default_main_program().global_block()
+        if self._counter is None:
+            self._counter = create_global_var(
+                [1], 0, "float32", persistable=True,
+                name=unique_name.generate("ema_step"))
+        increment(self._counter, 1.0)
+        for p in default_main_program().all_parameters():
+            if not p.trainable:
+                continue
+            shadow = block.create_var(
+                name=unique_name.generate(f"{p.name}.ema"), shape=p.shape,
+                dtype=p.dtype, persistable=True, stop_gradient=True)
+            helper.set_variable_initializer(shadow, ConstantInitializer(0.0))
+            self._shadows[p.name] = shadow
+            # shadow = decay * shadow + (1 - decay) * param
+            block.append_op(type="scale", inputs={"X": [shadow]},
+                            outputs={"Out": [shadow]},
+                            attrs={"scale": self._decay,
+                                   "op_role": OpRole.Optimize})
+            tmp = block.create_var(
+                name=unique_name.generate(f"{p.name}.ema_tmp"),
+                stop_gradient=True)
+            block.append_op(type="scale", inputs={"X": [p]},
+                            outputs={"Out": [tmp]},
+                            attrs={"scale": 1 - self._decay,
+                                   "op_role": OpRole.Optimize})
+            block.append_op(type="sum", inputs={"X": [shadow, tmp]},
+                            outputs={"Out": [shadow]},
+                            attrs={"op_role": OpRole.Optimize})
+        default_main_program()._bump()
+
+    def apply(self, executor=None, need_restore=True):
+        scope = global_scope()
+        cnt = (scope.find_var(self._counter.name)
+               if self._counter is not None else None)
+        t = _first(cnt) if cnt is not None else 0.0
+        correction = 1.0 - self._decay ** t if t > 0 else 1.0
+        values = {}
+        for pname, shadow in self._shadows.items():
+            sv = scope.find_var(shadow.name)
+            if sv is not None and correction > 0:
+                values[pname] = _divided(sv, correction)
+        return _swapped(values, need_restore)
+
+    def restore(self, executor=None):
+        pass
+
+
+class ModelAverage(Optimizer):
+    """Reference optimizer.py:2862: a running sum of the parameters over
+    the trajectory; ``apply()`` swaps sum / count in for evaluation.
+    Construction appends the accumulation ops to the current main
+    program, as the reference does."""
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, **kw):
+        super().__init__(0.0, **kw)
+        self._window = max_average_window
+        self._sums: Dict[str, Variable] = {}
+        self._count: Optional[Variable] = None
+        self._attach()
+
+    def _attach(self):
+        from .layers.control_flow import increment
+        from .layers.tensor import create_global_var
+
+        helper = LayerHelper("model_average")
+        block = default_main_program().global_block()
+        params = [p for p in default_main_program().all_parameters()
+                  if p.trainable]
+        if not params:
+            return
+        self._count = create_global_var(
+            [1], 0, "float32", persistable=True,
+            name=unique_name.generate("avg_count"))
+        increment(self._count, 1.0)
+        for p in params:
+            s = block.create_var(
+                name=unique_name.generate(f"{p.name}.avg_sum"),
+                shape=p.shape, dtype=p.dtype, persistable=True,
+                stop_gradient=True)
+            helper.set_variable_initializer(s, ConstantInitializer(0.0))
+            self._sums[p.name] = s
+            block.append_op(type="sum", inputs={"X": [s, p]},
+                            outputs={"Out": [s]},
+                            attrs={"op_role": OpRole.Optimize})
+        default_main_program()._bump()
+
+    def apply(self, executor=None, need_restore=True):
+        scope = global_scope()
+        cnt = (scope.find_var(self._count.name)
+               if self._count is not None else None)
+        count = _first(cnt) if cnt is not None else 0.0
+        values = {}
+        for pname, svar in self._sums.items():
+            sv = scope.find_var(svar.name)
+            if sv is not None and count > 0:
+                values[pname] = _divided(sv, count)
+        return _swapped(values, need_restore)
+
+    def restore(self, executor=None):
+        pass
+
+
+class RecomputeOptimizer(Optimizer):
+    """Reference optimizer.py:3714: wraps an optimizer; with checkpoints
+    set, the backward is one ``recompute_segment_grad`` op a
+    checkpoint-delimited segment (``append_backward_with_recompute``),
+    which reruns the segment's forward instead of keeping its
+    activations (``core/control_flow.py``)."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = checkpoints
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        if self._checkpoints:
+            return append_backward_with_recompute(
+                loss, self._checkpoints, parameter_list, no_grad_set)
+        return self._optimizer.backward(loss, startup_program,
+                                        parameter_list, no_grad_set)
+
+    def apply_gradients(self, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        self._optimizer._create_global_learning_rate()
+        pgs = self.backward(loss, startup_program, parameter_list,
+                            no_grad_set)
+        ops = self.apply_gradients(pgs)
+        return ops, pgs
+
+    def __getattr__(self, item):
+        return getattr(self._optimizer, item)
+
+
+class LookaheadOptimizer:
+    """Reference optimizer.py:4007: fast and slow weights; every k steps
+    slow += alpha * (fast - slow) and fast = slow, in-graph."""
+
+    def __init__(self, inner_optimizer, alpha=0.5, k=5):
+        self.inner_optimizer = inner_optimizer
+        self.alpha = alpha
+        self.k = k
+
+    def minimize(self, loss, startup_program=None):
+        from .layers.control_flow import equal, increment
+        from .layers.nn import (elementwise_add, elementwise_mod,
+                                elementwise_sub)
+        from .layers.nn import scale as scale_layer
+        from .layers.nn import where as where_layer
+        from .layers.tensor import create_global_var, fill_constant
+
+        opt_ops, params_grads = self.inner_optimizer.minimize(
+            loss, startup_program)
+        helper = LayerHelper("lookahead")
+        block = default_main_program().global_block()
+        step = create_global_var([1], 0, "float32", persistable=True,
+                                 name=unique_name.generate("lookahead_step"))
+        increment(step, 1.0)
+        kvar = fill_constant([1], "float32", float(self.k))
+        rem = elementwise_mod(step, kvar)
+        sync = equal(rem, fill_constant([1], "float32", 0.0))
+        for p, g in params_grads:
+            slow = block.create_var(
+                name=unique_name.generate(f"{p.name}.slow"), shape=p.shape,
+                dtype=p.dtype, persistable=True, stop_gradient=True)
+            # the slow weights start AS the parameters (the reference
+            # assigns slow = param in startup): zeros would scale every
+            # parameter by alpha at the first sync
+            startup_gb = helper.startup_program.global_block()
+            startup_gb.create_var(name=slow.name, shape=p.shape,
+                                  dtype=p.dtype, persistable=True)
+            startup_gb.append_op(type="assign", inputs={"X": [p.name]},
+                                 outputs={"Out": [slow.name]})
+            helper.startup_program._bump()
+            # new_slow = slow + alpha * (p - slow) when syncing, else slow
+            upd = elementwise_add(slow, scale_layer(elementwise_sub(p, slow),
+                                                    scale=self.alpha))
+            new_slow = where_layer(_bcast_cond(sync, p), upd, slow)
+            new_fast = where_layer(_bcast_cond(sync, p), upd, p)
+            block.append_op(type="assign", inputs={"X": [new_slow]},
+                            outputs={"Out": [slow]},
+                            attrs={"op_role": OpRole.Optimize})
+            block.append_op(type="assign", inputs={"X": [new_fast]},
+                            outputs={"Out": [p]},
+                            attrs={"op_role": OpRole.Optimize})
+        default_main_program()._bump()
+        return opt_ops, params_grads
+
+
+def _bcast_cond(cond_var, template):
+    """A [1] bool broadcast to the template's shape, for ``where``."""
+    from .layers.nn import cast, elementwise_mul
+    from .layers.tensor import ones as ones_layer
+
+    c = cast(cond_var, "float32")
+    if not (template.shape and all(d and d > 0 for d in template.shape)):
+        raise NotImplementedError("lookahead needs static param shapes")
+    b = elementwise_mul(ones_layer(list(template.shape), "float32"), c)
+    return cast(b, "bool")
+
+
+class GradientMergeOptimizer:
+    """Gradient accumulation over k microbatches with one optimizer
+    apply (reference ir/multi_batch_merge_pass.cc). Marks the Program;
+    the Executor's bound step splits each feed into k microbatches, runs
+    the forward and backward once each, accumulates what the optimizer
+    reads (averaged with ``avg``), then runs the optimizer ops once
+    (``runtime.dispatch._MergePlan``). k must divide the batch."""
+
+    def __init__(self, inner_optimizer, k_steps=1, avg=True):
+        self.inner_optimizer = inner_optimizer
+        self.k_steps = int(k_steps)
+        self.avg = bool(avg)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        out = self.inner_optimizer.minimize(loss, startup_program,
+                                            parameter_list, no_grad_set)
+        program = loss.block.program
+        program._gradient_merge_k = self.k_steps
+        program._gradient_merge_avg = self.avg
+        program._bump()
+        return out
+
+    def __getattr__(self, item):
+        return getattr(self.inner_optimizer, item)

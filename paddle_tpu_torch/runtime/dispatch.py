@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..core.executor import _Plan, to_numpy, torch_dtype
-from ..core.framework import Block
+from ..core.framework import Block, OpRole
 from ..core.registry import LoweringContext, run_recorded
 from ..kernels import _build
 
@@ -128,6 +128,9 @@ def eval_shapes(program, feed: Dict[str, Any], fetch_names: Sequence[str],
     ctx = LoweringContext(meta, seed=0, step=0, live=plan.live, constants={})
     with torch.no_grad(), _build.evaluating_shapes():
         for i, (op, opdef) in enumerate(zip(plan.ops, plan.defs)):
+            if opdef is None:
+                plan.control[i][0](ctx, op, env)
+                continue
             ins = {slot: [env[n] for n in names]
                    for slot, names in plan.reads[i]}
             outs = opdef.lower(ctx, op, ins)
@@ -158,7 +161,7 @@ class BoundStep:
 
     __slots__ = ("executor", "plan", "block", "scope", "seed", "tag",
                  "feed_plan", "fetch_names", "state_vals", "state_pos",
-                 "scope_gen", "__weakref__")
+                 "scope_gen", "merge", "__weakref__")
 
     def __init__(self, executor, plan: _Plan, block: Block, scope, seed: int,
                  feed_names: Sequence[str], fetch_names: Sequence[str],
@@ -179,6 +182,11 @@ class BoundStep:
         pos = {n: i for i, n in enumerate(plan.state_names)}
         self.state_pos = [(n, pos.get(n)) for n in plan.written]
         self.scope_gen = -1      # resolve at the first run
+        k = int(getattr(block.program, "_gradient_merge_k", 0) or 0)
+        self.merge = (_MergePlan(plan, block, feed_names, self.fetch_names, k,
+                                 bool(getattr(block.program,
+                                              "_gradient_merge_avg", True)))
+                      if k > 1 else None)
 
     # -- state resolution ---------------------------------------------------
     def _resolve_state(self):
@@ -234,36 +242,13 @@ class BoundStep:
         env.update(zip(plan.state_names, self.state_vals))
 
         ex = self.executor
-        ctx = LoweringContext(ex.device, seed=self.seed, step=ex._next_step(),
-                              live=plan.live, constants=ex._constants)
-        with torch.no_grad():
-            for i, (op, opdef) in enumerate(zip(plan.ops, plan.defs)):
-                ins = {}
-                for slot, names in plan.reads[i]:
-                    try:
-                        ins[slot] = [env[n] for n in names]
-                    except KeyError as e:
-                        raise KeyError(
-                            f"op {op.type!r} input {slot}={e.args[0]!r} is "
-                            "not defined; did you run the startup program / "
-                            "feed this var?") from None
-                ident = int(op.attrs.get("op_ident", 0))
-                if not opdef.auto_grad and ident in plan.record:
-                    outs = run_recorded(ctx, opdef, op, ins,
-                                        plan.record[ident])
-                else:
-                    outs = opdef.lower(ctx, op, ins)
-                for slot, names in op.outputs.items():
-                    vals = outs.get(slot, [])
-                    for j, n in enumerate(names):
-                        if j < len(vals):
-                            env[n] = vals[j]
-                for n in plan.free_after[i]:
-                    env.pop(n, None)
-        if ctx.tape:
-            raise RuntimeError(
-                f"{len(ctx.tape)} forward record(s) were never consumed by "
-                f"a grad op (op_idents {sorted(ctx.tape)})")
+        step = ex._next_step()
+        if self.merge is not None:
+            env = self.merge.run(self, env, step)
+        else:
+            ctx = LoweringContext(ex.device, seed=self.seed, step=step,
+                                  live=plan.live, constants=ex._constants)
+            run_plan(plan, env, ctx)
         wrote = False
         sv = scope.vars
         for n, pos in self.state_pos:
@@ -288,3 +273,113 @@ class BoundStep:
         if return_numpy:
             return [to_numpy(v) for v in fetched]
         return fetched
+
+
+def run_plan(plan: _Plan, env: Dict[str, Any], ctx: LoweringContext) -> None:
+    """Run the plan's ops over ``env``, in place: forward ops with an
+    automatic grad op recorded on the tape, control-flow ops through
+    their lowering, each value dropped after its last reader. The tape
+    must be empty at the end."""
+    with torch.no_grad():
+        for i, (op, opdef) in enumerate(zip(plan.ops, plan.defs)):
+            if opdef is None:
+                plan.control[i][0](ctx, op, env)
+            else:
+                ins = {}
+                for slot, names in plan.reads[i]:
+                    try:
+                        ins[slot] = [env[n] for n in names]
+                    except KeyError as e:
+                        raise KeyError(
+                            f"op {op.type!r} input {slot}={e.args[0]!r} is "
+                            "not defined; did you run the startup program / "
+                            "feed this var?") from None
+                ident = int(op.attrs.get("op_ident", 0))
+                if not opdef.auto_grad and ident in plan.record:
+                    outs = run_recorded(ctx, opdef, op, ins,
+                                        plan.record[ident])
+                else:
+                    outs = opdef.lower(ctx, op, ins)
+                for slot, names in op.outputs.items():
+                    vals = outs.get(slot, [])
+                    for j, n in enumerate(names):
+                        if j < len(vals):
+                            env[n] = vals[j]
+            for n in plan.free_after[i]:
+                env.pop(n, None)
+    if ctx.tape:
+        raise RuntimeError(
+            f"{len(ctx.tape)} forward record(s) were never consumed by "
+            f"a grad op (op_idents {sorted(ctx.tape)})")
+
+
+def _is_opt(op) -> bool:
+    return bool(int(op.attrs.get("op_role", 0))
+                & (OpRole.Optimize | OpRole.LRSched))
+
+
+class _MergePlan:
+    """A ``GradientMergeOptimizer`` step (the JAX package's
+    ``_build_gradient_merge_fn``, ``core/executor.py:307-400``): each
+    feed splits into k microbatches along dim 0; the forward and
+    backward ops run once a microbatch, in order, each microbatch with
+    its own generators (``LoweringContext.fold``), the persistables they
+    write threaded from one microbatch to the next; the values the
+    optimizer ops read (and the fetches they produce) accumulate as
+    ``acc + a`` in microbatch order and are divided by k with ``avg``;
+    then the optimizer and learning-rate ops run once."""
+
+    def __init__(self, plan: _Plan, block: Block, feed_names, fetch_names,
+                 k: int, avg: bool):
+        self.k, self.avg = k, avg
+        self.feed_names = list(feed_names)
+        body = [op for op in plan.ops if not _is_opt(op)]
+        opt = [op for op in plan.ops if _is_opt(op)]
+        produced = {n for op in body for n in op.output_arg_names}
+        opt_needed = {n for op in opt for n in op.input_arg_names
+                      if n in produced}
+        self.acc_names = sorted(opt_needed | (set(fetch_names) & produced))
+        self.body_written = [n for n in plan.written if n in produced]
+        self.body = _Plan(block, feed_names, (), ops=body,
+                          keep=self.acc_names + self.body_written)
+        self.opt = _Plan(block, list(feed_names) + self.acc_names,
+                         fetch_names, ops=opt)
+
+    def run(self, bound: "BoundStep", env: Dict[str, Any], step: int):
+        k, ex = self.k, bound.executor
+        feeds = {}
+        for n in self.feed_names:
+            v = env[n]
+            if v.shape[0] % k:
+                raise ValueError(f"gradient merge k={k} does not divide batch "
+                                 f"{v.shape[0]} of feed {n!r}")
+            feeds[n] = v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))
+        base = {n: v for n, v in env.items() if n not in feeds}
+        written: Dict[str, Any] = {}
+        acc: Optional[Dict[str, Any]] = None
+        for i in range(k):
+            mb = dict(base)
+            mb.update(written)
+            mb.update({n: v[i] for n, v in feeds.items()})
+            run_plan(self.body, mb, LoweringContext(
+                ex.device, seed=bound.seed, step=step, live=self.body.live,
+                constants=ex._constants, fold=i))
+            written = {n: mb[n] for n in self.body_written if n in mb}
+            if acc is None:
+                acc = {n: mb[n] for n in self.acc_names}
+            else:
+                # one name at a time: a merged set of gradients is as large
+                # as the model, so no second copy of the whole set lives
+                for n in self.acc_names:
+                    acc[n] = acc[n] + mb[n]
+            del mb
+        if self.avg:
+            for n, v in acc.items():
+                acc[n] = v / torch.tensor(k, dtype=v.dtype, device=v.device)
+        out = dict(base)       # the optimizer ops see no feed, as in JAX
+        out.update(written)
+        out.update(acc)
+        run_plan(self.opt, out, LoweringContext(
+            ex.device, seed=bound.seed, step=step, live=self.opt.live,
+            constants=ex._constants, fold=k))
+        return out

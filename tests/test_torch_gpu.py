@@ -1626,3 +1626,89 @@ def test_supervised_resume_on_cuda_is_bitwise(cuda, tmp_path):
     for n in ref_state:
         assert torch.equal(state[n], ref_state[n]), n
     assert float(ref_state["@LR_DECAY_COUNTER@"][0]) == 8.0
+
+
+# -- SelectedRows, switch-MoE and control flow on the card ----------------------
+
+
+def test_selected_rows_merge_bits_repeat_on_the_card(cuda):
+    """Duplicate rows summed in order: two merges (and two to_dense)
+    give the same bits, equal to the CPU's."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rows = torch.randint(0, 50, (40960,), device=cuda, generator=g)
+    vals = torch.randn(40960, 16, device=cuda, generator=g)
+    sr = SelectedRows(rows, vals, 50)
+    a, b = sr.merge(), sr.merge()
+    assert torch.equal(a.rows, b.rows) and torch.equal(a.values, b.values)
+    assert torch.equal(sr.to_dense(), sr.to_dense())
+    cpu = SelectedRows(rows.cpu(), vals.cpu(), 50).merge()
+    assert torch.equal(a.rows.cpu(), cpu.rows)
+    torch.testing.assert_close(a.values.cpu(), cpu.values, atol=1e-4,
+                               rtol=1e-5)
+
+
+def test_sparse_updates_with_every_row_of_the_table(cuda):
+    """The rows JAX pads its merge with (index ``height``) never reach the
+    card: a batch touching the last row and one touching every row
+    update in range, untouched rows keep their bits."""
+    from paddle_tpu_torch.core.registry import get_op_def
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+
+    class _Op:
+        attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+
+    H, D = 64, 8
+    for rows in (torch.tensor([H - 1, H - 1, 0]), torch.arange(H).repeat(2)):
+        rows = rows.to(cuda)
+        vals = torch.ones(rows.numel(), D, device=cuda)
+        p = torch.zeros(H, D, device=cuda)
+        ins = {"Param": [p], "Grad": [SelectedRows(rows, vals, H)],
+               "LearningRate": [torch.full((1,), 0.1, device=cuda)],
+               "Moment1": [torch.zeros(H, D, device=cuda)],
+               "Moment2": [torch.zeros(H, D, device=cuda)],
+               "Beta1Pow": [torch.full((1,), 0.9, device=cuda)],
+               "Beta2Pow": [torch.full((1,), 0.999, device=cuda)]}
+        out = get_op_def("adam").lower(None, _Op(), ins)
+        torch.cuda.synchronize()
+        touched = torch.zeros(H, dtype=torch.bool, device=cuda)
+        touched[rows] = True
+        assert (out["ParamOut"][0][touched] != 0).all()
+        assert (out["ParamOut"][0][~touched] == 0).all()
+
+
+def test_switch_moe_on_cuda_matches_cpu(cuda):
+    """The op and its six gradients on the card against the CPU, tokens
+    dropped (capacity 0.5); routing identical; two card runs equal bit
+    for bit."""
+    from paddle_tpu_torch.ops.moe import moe_capacity, route, switch_moe
+
+    g = torch.Generator().manual_seed(4)
+    T, D, E, F = 512, 64, 8, 128
+    args = [torch.randn(T, D, generator=g), torch.randn(D, E, generator=g),
+            0.1 * torch.randn(E, D, F, generator=g),
+            0.1 * torch.randn(E, F, generator=g),
+            0.1 * torch.randn(E, F, D, generator=g),
+            0.1 * torch.randn(E, D, generator=g)]
+    w = torch.randn(T, D, generator=g)
+    cap = moe_capacity(T, 0.5, E)
+
+    def run(dev):
+        leaves = [a.to(dev).requires_grad_(True) for a in args]
+        out, aux = switch_moe(*leaves, cap)
+        loss = (out * w.to(dev)).sum() + aux
+        grads = torch.autograd.grad(loss, leaves)
+        probs = torch.softmax(leaves[0] @ leaves[1], -1).detach()
+        return out.detach(), aux.detach(), grads, route(probs, cap)[0]
+
+    c_out, c_aux, c_g, c_e = run("cpu")
+    a_out, a_aux, a_g, a_e = run(cuda)
+    b_out, _, b_g, _ = run(cuda)
+    assert torch.equal(a_e.cpu(), c_e)
+    assert torch.equal(a_out, b_out)
+    assert all(torch.equal(x, y) for x, y in zip(a_g, b_g))
+    torch.testing.assert_close(a_out.cpu(), c_out, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(a_aux.cpu(), c_aux, atol=1e-5, rtol=1e-5)
+    for x, y in zip(a_g, c_g):
+        torch.testing.assert_close(x.cpu(), y, atol=1e-3, rtol=1e-3)

@@ -121,7 +121,15 @@ def test_port_package_imports_no_jax_or_paddle_tpu():
                 "paddle_tpu_torch.resilience.checkpoint",
                 "paddle_tpu_torch.resilience.supervisor",
                 "paddle_tpu_torch.layers.control_flow",
-                "paddle_tpu_torch.layers.learning_rate_scheduler"):
+                "paddle_tpu_torch.layers.learning_rate_scheduler",
+                # the rest of the training path: SelectedRows, control
+                # flow and recompute, MoE, the CTR models
+                "paddle_tpu_torch.core.selected_rows",
+                "paddle_tpu_torch.core.control_flow",
+                "paddle_tpu_torch.ops.lod",
+                "paddle_tpu_torch.ops.moe",
+                "paddle_tpu_torch.layers.extras",
+                "paddle_tpu_torch.models.ctr"):
         assert mod in res["port"]
 
 

@@ -17,7 +17,7 @@ decay against the JAX package, on the CPU.
     (float32, bit for bit) and the JAX kernel in interpret mode
     (bfloat16: both compute in float32 and round once, bit for bit;
     float32 within the fma XLA may form there);
-(e) what stays unported raises naming ROADMAP A1.
+(e) what stays unported raises naming its ROADMAP item.
 """
 
 import jax.numpy as jnp
@@ -295,29 +295,37 @@ def test_fused_momentum_update_checks_its_inputs():
                               clip_scale=torch.tensor([1.0], dtype=torch.float64))
 
 
-@pytest.mark.parametrize("name", ["ExponentialMovingAverage",
-                                  "ModelAverage", "RecomputeOptimizer",
-                                  "LookaheadOptimizer"])
-def test_other_optimizers_are_refused_naming_a1(name):
-    """The meta-optimizers still wait in A1 (the update rules are
-    ported: tests/test_torch_optimizers.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        getattr(fluid.optimizer, name)
-    with pytest.raises(AttributeError):
-        getattr(fluid.optimizer, "NoSuchOptimizer")
+@pytest.mark.parametrize("name,item", [
+    ("DGCMomentumOptimizer", "ROADMAP A10"),
+    ("PipelineOptimizer", "ROADMAP A10"),
+    ("switch_moe over an ep mesh", "ROADMAP A10"),
+    ("StaticRNN", "ROADMAP A11"),
+    ("DynamicRNN", "ROADMAP A11"),
+])
+def test_unported_items_are_refused_naming_their_roadmap_item(name, item):
+    """What still waits raises naming its ROADMAP item: the optimizers
+    of distribution, expert parallelism, the recurrent layers. (The
+    meta-optimizers and SelectedRows gradients are ported:
+    tests/test_torch_meta_optimizers.py, test_torch_selected_rows.py.)"""
+    if name.startswith("switch_moe"):
+        from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
 
+        ctx = LoweringContext("cpu")
+        ctx.mesh = {"ep": 2}
 
-def test_selected_rows_gradient_is_refused_naming_a1():
-    from paddle_tpu_torch.core.registry import get_op_def
+        class _Op:
+            attrs = {"capacity_factor": 1.25}
 
-    class _Op:
-        attrs = {"mu": 0.9}
-
-    ins = {"Param": [torch.zeros(2)], "Grad": [object()],
-           "Velocity": [torch.zeros(2)], "LearningRate": [torch.ones(1)]}
-    for op_type in ("sgd", "momentum", "fused_momentum"):
-        with pytest.raises(NotImplementedError, match="SelectedRows, ROADMAP A1"):
-            get_op_def(op_type).lower(None, _Op(), ins)
+        with pytest.raises(NotImplementedError, match=item):
+            get_op_def("switch_moe").lower(ctx, _Op(), {})
+    elif name.endswith("RNN"):
+        with pytest.raises(NotImplementedError, match=item):
+            getattr(fluid.layers, name)()
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            getattr(fluid.optimizer, name)
+        with pytest.raises(AttributeError):
+            getattr(fluid.optimizer, "NoSuchOptimizer")
 
 
 @pytest.mark.parametrize("op_type,attrs", [

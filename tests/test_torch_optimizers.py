@@ -278,13 +278,32 @@ def test_dpsgd_noise_statistics_and_sigma0():
     assert not np.array_equal(port(noisy, step=1), port(noisy, step=2))
 
 
-def test_new_optimizer_ops_refuse_selected_rows():
-    ins = {"Param": [torch.zeros(2)], "Grad": [object()],
-           "Moment": [torch.zeros(2)], "LearningRate": [torch.ones(1)]}
-    for op_type in ("adagrad", "decayed_adagrad", "proximal_gd"):
-        with pytest.raises(NotImplementedError,
-                           match="SelectedRows, ROADMAP A1"):
-            tregistry.get_op_def(op_type).lower(None, _Op(op_type, {}), ins)
+@pytest.mark.parametrize("name", ["lars_momentum", "adagrad",
+                                  "decayed_adagrad", "adadelta", "adamax",
+                                  "rmsprop", "ftrl", "lamb"])
+def test_new_optimizer_ops_take_selected_rows_as_jax(name):
+    """A SelectedRows gradient (rows 4, 1, 4: one repeated): adagrad's
+    sparse path, the others densify (``_densify_grad``), all as JAX's
+    lowerings do."""
+    from paddle_tpu.core.selected_rows import SelectedRows as JSR
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+
+    ins, attrs = _op_case(name, np.random.RandomState(12))
+    rows = np.array([4, 1, 4])
+    vals = np.random.RandomState(13).randn(3, 5).astype("float32")
+    op = _Op(name, attrs)
+    jins = {k: [jnp.asarray(v)] for k, v in ins.items()}
+    jins["Grad"] = [JSR(jnp.asarray(rows), jnp.asarray(vals), 6)]
+    tins = {k: [torch.from_numpy(v.copy())] for k, v in ins.items()}
+    tins["Grad"] = [SelectedRows(torch.from_numpy(rows),
+                                 torch.from_numpy(vals), 6)]
+    jout = jregistry.get_op_def(name).lower(None, op, jins)
+    tout = tregistry.get_op_def(name).lower(None, op, tins)
+    assert sorted(tout) == sorted(jout)
+    for slot in jout:
+        np.testing.assert_allclose(tout[slot][0].numpy(),
+                                   np.asarray(jout[slot][0]), rtol=OP_RTOL,
+                                   atol=OP_ATOL, err_msg=slot)
 
 
 # -- (c) the schedules' ops through both Executors -------------------------

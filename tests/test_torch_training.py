@@ -361,6 +361,81 @@ def test_port_registers_the_training_path_ops(fuse_flag):
         assert registry.has_op(t), t
     with pytest.raises(NotImplementedError, match="no registered lowering"):
         registry.get_op_def("conv2d_transpose")
+    # the rest of the training path: a MoE GPT under gradient merge over
+    # recompute, the meta-optimizers, DeepFM and wide&deep with sparse
+    # tables, and the control flow; every op of every block, sub-blocks
+    # included, lowers (the control-flow ops through core/control_flow.py)
+    from paddle_tpu_torch.core.executor import _CONTROL_FLOW
+    from paddle_tpu_torch.models import ctr
+
+    def all_ops(program):
+        return [op for blk in program.blocks for op in blk.ops]
+
+    programs = []
+    cfg = tgpt.GPTConfig.tiny()
+    cfg.moe_every = 2
+    with fluid.unique_name.guard():
+        opt = O.RecomputeOptimizer(O.Adam(1e-3))
+        main, startup, _, _ = tgpt.build_gpt_lm(cfg, 16)
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss = main.global_block().var(
+            [op for op in main.global_block().ops
+             if op.type == "mean"][-1].output("Out")[0])
+        opt._set_checkpoints([loss])
+        O.GradientMergeOptimizer(opt, k_steps=2).minimize(loss)
+    programs += [main, startup]
+    for meta in ("ema", "model_average", "lookahead"):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            loss = fluid.layers.mean(fluid.layers.fc(
+                fluid.layers.data("x", [4]), 2))
+            if meta == "lookahead":
+                O.LookaheadOptimizer(O.SGD(0.1), k=2).minimize(loss)
+            else:
+                O.SGD(0.1).minimize(loss)
+                if meta == "ema":
+                    O.ExponentialMovingAverage(0.9).update()
+                else:
+                    O.ModelAverage(0.15)
+        programs += [main, startup]
+    for build in (ctr.build_deepfm, ctr.build_wide_deep):
+        for opt in (O.SGD(0.1), O.Momentum(0.1, 0.9), O.Adam(0.1),
+                    O.Adagrad(0.1)):
+            main, startup, _, _ = build(optimizer=opt, is_sparse=True)
+            programs += [main, startup]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        i = L.fill_constant([1], "int64", 0)
+        arr = L.create_array("float32", 3, [2])
+        cond = L.less_than(i, L.fill_constant([1], "int64", 3))
+        loop = L.While(cond)
+        with loop.block():
+            L.array_write(L.fill_constant([2], "float32", 1.0), i, array=arr)
+            L.increment(i, 1.0)
+            L.less_equal(i, L.fill_constant([1], "int64", 2), cond=cond)
+        L.array_read(arr, i)
+        L.array_length(arr)
+        sw = L.Switch()
+        with sw:
+            with sw.case(L.greater_equal(i, i)):
+                L.assign(L.fill_constant([1], "int64", 1), i)
+            with sw.default():
+                L.assign(L.fill_constant([1], "int64", 2), i)
+    programs += [main, startup]
+    new = set()
+    for program in programs:
+        for op in all_ops(program):
+            new.add(op.type)
+            assert registry.has_op(op.type) or op.type in _CONTROL_FLOW, \
+                op.type
+    assert {"switch_moe", "recompute_segment_grad", "elementwise_mod",
+            "sigmoid", "concat", "sigmoid_cross_entropy_with_logits",
+            "while", "conditional_block", "write_to_array",
+            "read_from_array", "lod_array_length", "logical_not",
+            "lookup_table_grad"} <= new
+    for t in ("merge_selected_rows", "get_tensor_from_selected_rows",
+              "lookup_table_v2", "lookup_table_v2_grad"):
+        assert registry.has_op(t), t
 
 
 def test_no_gpu_means_no_executor():
