@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + device time by kernel group in
-                                     #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4
+                                     #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4,
+                                     #   e1, e2 (+ grouped conv share)
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789abcd), no result line
+                                        #   23456789abcde), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -102,7 +103,13 @@ Phases, in order; any failure exits non-zero without the result line:
    every step, the smallest top-2 probability gap printed; losses within
    rtol 1e-3; every persistable and apply()'s values within 2 * lr *
    steps; apply() restores the parameters); a While / Switch / cond
-   program with a tensor array (card equals CPU).
+   program with a tensor array (card equals CPU); LeNet under the
+   QuantizationTransformPass, 3 fused-Adam steps (losses and every
+   persistable within rtol 2e-4 / atol 2e-5, the CPU parity tests'
+   training tolerance); one Program over a batch of 64 that runs the 19
+   new unary ops and gelu through ``fc(act=...)``, the reduce family and
+   the tensor ops (every output and x@GRAD within the same tolerance);
+   the CI-sized SE-ResNeXt, 2 fused Momentum + L2Decay steps (the same).
 6. BERT-large pretraining: ``BertConfig.large()`` at full size, seq 512,
    batch 8 of ``synthetic_batch(min_len=128)``, flash attention with the
    key mask, ``decorate(AdamOptimizer(1e-4), init_loss_scaling=1.0,
@@ -235,6 +242,30 @@ d. the rest of the training path, after freeing what came before (its
    bit for bit, the last step's touched rows equal a plain per-row update,
    two merges of the gradient give the same bits, K10 only for the dense
    parameters; a dense Adam step for its time.
+e. the conv families and quantization, its own peak printed. e1:
+   ``models.vision.build_vgg`` depth 16 (batch norm, dropout 0.5) on
+   CIFAR-10-sized images, batch 128, 10 fused Adam(1e-3) steps: exactly
+   one K4, one K5 and one K10 a parameter every step, the mean of the
+   last three losses below the first; then ``save_inference_model`` and
+   a ``Predictor`` over the same images, its logits equal to the
+   Executor's ``is_test`` forward (rtol 1e-5, atol 1e-6). e3: e1's
+   program with ``contrib.slim.QuantizationTransformPass`` after
+   ``minimize``, 5 steps: the fake-quantize ops present, losses finite,
+   the activation scales moved, e1's launches every step; then
+   ``QuantizationFreezePass`` on its forward: two runs equal, no
+   persistable changed, the CPU's logits on the same state within 0.05
+   of max|logit| (a few int8 levels: the card's last-bit differences
+   flip values at rounding boundaries), the unquantized forward's
+   distance reported; its step beside e1's. e2: SE-ResNeXt-50's layout
+   (``dist_se_resnext.py``: depth 3-4-6-3, filters 128-1024, cardinality
+   32, reduction 16) on 32-pixel images, batch 64, 5 fused Momentum
+   0.9 + L2Decay 1e-4 steps at lr 0.01: one K10m a parameter, one K4, one
+   K5 every step, losses falling; under ``--profile`` the grouped
+   convolutions' share of the device time. e4: ``quantize.calibrate``
+   over gpt3_1p3b's int8 inference Program (``build_lm_program`` at full
+   depth, b2's batch, weights quantized in the scope as the Predictor
+   does at load), 8 batches: one finite positive scale for each distinct
+   matmul input, no observer state left, K1 2L+1 and K11 4L+1 a batch.
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -298,7 +329,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789abcd"
+ALL_PHASES = "23456789abcde"
 DEVICE = "cuda"
 
 
@@ -5073,6 +5104,581 @@ def phase_d(torch, np, seed, card, out_dir, profile=False):
     return paths, record
 
 
+# -- phase e: VGG-16 and SE-ResNeXt-50 trained, QAT, calibrate ------------------
+
+
+VGG_BATCH, VGG_IMAGE, VGG_STEPS = 128, 32, 10   # CIFAR-10-sized images
+SEX_BATCH, SEX_IMAGE, SEX_STEPS = 64, 32, 5
+SEX_LAYOUT = dict(depth=(3, 4, 6, 3), filters=(128, 256, 512, 1024),
+                  cardinality=32, reduction=16)  # dist_se_resnext.py's
+# phase 8's Momentum 0.9 + L2Decay 1e-4 at lr 0.01: over 5 steps on one
+# batch of 64 the recipe's linear-scaled 0.025 overshoots and the loss
+# climbs back above its first value (on the card and on the CPU)
+SEX_LR = 0.01
+QAT_STEPS = 5
+CALIB_BATCHES = 8
+# a Predictor run of e1's saved Program against the Executor's is_test
+# forward of the same Program on the same card
+PREDICTOR_RTOL, PREDICTOR_ATOL = 1e-5, 1e-6
+# e3's frozen logits, card against CPU, as a share of max|logit|: int8
+# rounding turns last-bit differences into whole levels (1 / 127 of a
+# scale), so this is a bound of a few levels, not a float tolerance
+QAT_CARD_VS_CPU = 0.05
+
+
+def logits_of(main):
+    """The logits var of a ``models.vision`` / ``models.mnist`` program:
+    the input of its ``softmax`` (the accuracy's)."""
+    return next(op.inputs["X"][0] for op in main.global_block().ops
+                if op.type == "softmax")
+
+
+def image_batch(np, seed, batch, size, classes=10):
+    rng = np.random.RandomState(seed)
+    return {"image": rng.randn(batch, 3, size, size).astype("float32"),
+            "label": rng.randint(0, classes, (batch, 1)).astype("int64")}
+
+
+def forward_program(fluid, main, logits):
+    """``main`` cloned ``for_test`` and pruned to what ``logits`` needs:
+    no backward, no update."""
+    return fluid.io._prune_program(main.clone(for_test=True), ["image"],
+                                   [logits])
+
+
+def image_path_want(K, n_params, update):
+    want = {name: 0 for name in K.KERNELS}
+    want.update(softmax_xent_fwd=1, softmax_xent_bwd=1)
+    want[update] = n_params
+    return want
+
+
+def vgg_program(fluid, qat=False):
+    """e1's VGG-16 with batch norm under Adam(1e-3); with ``qat`` the
+    QuantizationTransformPass applied after ``minimize``."""
+    from paddle_tpu_torch.contrib.slim import QuantizationTransformPass
+    from paddle_tpu_torch.models.vision import build_vgg
+
+    fluid.set_flags({"optimizer_fuse": "auto"})   # on: a CUDA device exists
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_vgg(
+            10, VGG_IMAGE, fluid.optimizer.AdamOptimizer(1e-3), depth=16)
+        if qat:
+            QuantizationTransformPass(startup_program=startup).apply(main)
+    types = [op.type for op in main.global_block().ops]
+    n = types.count("fused_adam")
+    require(n == len(main.all_parameters()) and "adam" not in types,
+            f"VGG-16: {n} fused_adam ops for {len(main.all_parameters())} "
+            "parameters")
+    return main, startup, fetches, n
+
+
+def train_vgg(torch, np, seed, card, out_dir, profile=False):
+    """e1: VGG-16 (batch norm, dropout 0.5) on CIFAR-10-sized images,
+    batch 128, 10 fused-Adam steps: K4 and K5 once and K10 once a
+    parameter every step; the mean of the last three losses below the
+    first. Then ``save_inference_model`` and a ``Predictor`` over the
+    same images: its logits equal the Executor's ``is_test`` forward."""
+    import tempfile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import Config, create_predictor
+
+    main, startup, fetches, n = vgg_program(fluid)
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    batch = image_batch(np, seed, VGG_BATCH, VGG_IMAGE)
+    totals, perf = run_steps(torch, np, K, exe, main, scope, batch,
+                             fetches["loss"],
+                             image_path_want(K, n, "fused_adam_update"),
+                             VGG_STEPS, VGG_BATCH, card, out_dir, "vgg",
+                             profile, unit="images")
+    losses = perf["losses"]
+    require(statistics.mean(losses[-3:]) < losses[0],
+            f"e1: the mean of the last three losses is not below the first: "
+            f"{losses}")
+    logits = logits_of(main)
+    test = forward_program(fluid, main, logits)
+    (want,) = exe.run(test, feed={"image": batch["image"]},
+                      fetch_list=[logits], scope=scope, return_numpy=False)
+    with tempfile.TemporaryDirectory(prefix="pt_phase_e_") as d:
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(d, ["image"], [logits], exe, test)
+        pred = create_predictor(Config(d))
+        (got,) = pred.run([batch["image"]], return_numpy=False)
+        torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    lim = PREDICTOR_ATOL + PREDICTOR_RTOL * float(want.abs().max())
+    require(tuple(got.shape) == (VGG_BATCH, 10) and err <= lim,
+            f"e1: Predictor logits {tuple(got.shape)} {err:.3e} from the "
+            f"Executor's is_test forward (limit {lim:.3e})")
+    log(f"  e1: {n_params} parameters in {n} tensors; Predictor logits "
+        f"{err:.3e} from the Executor's is_test forward (limit {lim:.3e}) "
+        f"[{card}]")
+    perf.update(parameters=n_params, tensors=n, batch=VGG_BATCH,
+                image_size=VGG_IMAGE, predictor_max_abs_err=err,
+                predictor_limit=lim)
+    return totals, perf
+
+
+def grouped_conv_share(torch, exe, main, scope, batch, loss, cardinality,
+                       steps=2):
+    """Device time of the grouped 3x3 convolutions (forward and
+    backward, found by their filters [C, C / cardinality, 3, 3]) over
+    all the device time of ``steps`` traced steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev(e, attr):
+        return float(getattr(e, attr, None)
+                     or getattr(e, attr.replace("device", "cuda"), 0.0))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(steps):
+            exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+    grouped = total = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        # the device's own rows (kernels, copies) sum to its busy time;
+        # a CPU op's self device time repeats the kernels it launched
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            total += dev(e, "self_device_time_total")
+        if e.key not in ("aten::cudnn_convolution",
+                         "aten::convolution_backward"):
+            continue
+        if any(len(s) == 4 and s[2] == s[3] == 3 and s[1] * cardinality == s[0]
+               for s in (e.input_shapes or []) if isinstance(s, list)):
+            grouped += dev(e, "device_time_total")
+    require(total > 0, "the profiler saw no device time")
+    return {"grouped_conv_ms_a_step": grouped / 1e3 / steps,
+            "device_ms_a_step": total / 1e3 / steps,
+            "grouped_conv_share": grouped / total}
+
+
+def train_se_resnext(torch, np, seed, card, out_dir, profile=False):
+    """e2: SE-ResNeXt-50's layout (depth 3-4-6-3, filters 128-1024,
+    cardinality 32, reduction 16) on 32-pixel images, batch 64, 5 fused
+    Momentum + L2Decay steps at lr ``SEX_LR``: K10m once a parameter,
+    K4 and K5 once, every step; losses finite and falling. Under
+    ``--profile``, the grouped convolutions' share of the device time."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models.vision import build_se_resnext
+
+    fluid.set_flags({"optimizer_fuse": "auto"})
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_se_resnext(
+            10, SEX_IMAGE, fluid.optimizer.MomentumOptimizer(
+                SEX_LR, momentum=0.9,
+                regularization=fluid.regularizer.L2Decay(1e-4)),
+            **SEX_LAYOUT)
+    types = [op.type for op in main.global_block().ops]
+    n = types.count("fused_momentum")
+    require(n == len(main.all_parameters()) and "momentum" not in types,
+            f"SE-ResNeXt-50: {n} fused_momentum ops")
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    batch = image_batch(np, seed, SEX_BATCH, SEX_IMAGE)
+    totals, perf = run_steps(torch, np, K, exe, main, scope, batch,
+                             fetches["loss"],
+                             image_path_want(K, n, "fused_momentum_update"),
+                             SEX_STEPS, SEX_BATCH, card, out_dir,
+                             "se_resnext", profile, unit="images")
+    perf.update(parameters=n_params, tensors=n, batch=SEX_BATCH,
+                image_size=SEX_IMAGE, **{k: list(v) if isinstance(v, tuple)
+                                         else v for k, v in SEX_LAYOUT.items()})
+    if profile:
+        share = grouped_conv_share(torch, exe, main, scope, batch,
+                                   fetches["loss"], SEX_LAYOUT["cardinality"])
+        perf["grouped_conv"] = share
+        log(f"  e2 grouped 3x3 convolutions: "
+            f"{share['grouped_conv_ms_a_step']:.3f} ms a step of "
+            f"{share['device_ms_a_step']:.3f} device ms "
+            f"({100 * share['grouped_conv_share']:.1f} %; times include "
+            f"the profiler) [{card}]")
+    return totals, perf
+
+
+def train_vgg_qat(torch, np, seed, card, out_dir, vgg=None):
+    """e3: e1's program with the QuantizationTransformPass after
+    ``minimize``, 5 steps: the fake-quantize ops are there, losses
+    finite, the activation scales move, and a step launches K4, K5 and
+    K10 as e1's does. Then QuantizationFreezePass on the trained
+    program's forward: two ``is_test`` runs give the same logits and
+    leave every persistable as it was, and the CPU's logits on the same
+    state are within a few int8 levels (``QAT_CARD_VS_CPU``)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.contrib.slim import QuantizationFreezePass
+
+    main, startup, fetches, n = vgg_program(fluid, qat=True)
+    types = {op.type for op in main.global_block().ops}
+    require({"fake_quantize_abs_max",
+             "fake_quantize_dequantize_moving_average_abs_max"} <= types,
+            f"e3: no fake-quantize ops in {sorted(types)}")
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    scales = sorted(v.name for v in main.list_vars()
+                    if v.persistable and ".q_scale" in v.name)
+    before = {s: scope.get_numpy(s) for s in scales}
+    batch = image_batch(np, seed, VGG_BATCH, VGG_IMAGE)
+    want = image_path_want(K, n, "fused_adam_update")
+    losses, step_ms = [], []
+    totals = {name: 0 for name in K.KERNELS}
+    for s in range(QAT_STEPS):
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        (lv,) = exe.run(main, feed=batch, fetch_list=[fetches["loss"]],
+                        scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = K.launch_counts()
+        require(counts == want, f"e3 step {s}: launches {counts}, want {want}")
+        for k, c in counts.items():
+            totals[k] += c
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        log(f"  e3 step {s}: loss {losses[-1]:.6f} in {step_ms[-1]:.3f} ms")
+    require(all(np.isfinite(losses)), f"e3: non-finite loss {losses}")
+    moved = [s for s in scales
+             if not np.array_equal(scope.get_numpy(s), before[s])]
+    require(moved, "e3: no activation scale moved")
+    # the frozen forward: is_test fake quantization by the learned scales
+    logits = logits_of(main)
+    frozen = main.clone(for_test=True)
+    QuantizationFreezePass(scope, fluid.CUDAPlace(0)).apply(frozen)
+    frozen = fluid.io._prune_program(frozen, ["image"], [logits])
+    require(all(op.attrs.get("is_test") for op in frozen.global_block().ops
+                if op.type.startswith("fake_quantize")),
+            "e3: a fake-quantize op of the frozen program is not is_test")
+    state = {v.name: scope.get_numpy(v.name) for v in frozen.list_vars()
+             if v.persistable and not v.is_data}
+    feed = {"image": batch["image"][:16]}
+    a = exe.run(frozen, feed=feed, fetch_list=[logits], scope=scope)[0]
+    b = exe.run(frozen, feed=feed, fetch_list=[logits], scope=scope)[0]
+    require(np.array_equal(a, b), "e3: two frozen forwards differ")
+    same = all(np.array_equal(scope.get_numpy(k), v)
+               for k, v in state.items())
+    require(same, "e3: a frozen forward changed a persistable")
+    cpu_scope = fluid.Scope()
+    fluid.io.load_scope_arrays(cpu_scope, state, frozen, "cpu")
+    c = fluid.Executor(fluid.CPUPlace()).run(frozen, feed=feed,
+                                             fetch_list=[logits],
+                                             scope=cpu_scope)[0]
+    # the card's float32 sums differ from the CPU's in the last bits, and
+    # a value at a rounding boundary then lands one int8 level apart (1 /
+    # 127 of its scale) and carries that through the later layers: the
+    # bits cannot agree, the logits must stay within a few levels
+    err = float(np.abs(a - c).max())
+    lim = QAT_CARD_VS_CPU * float(np.abs(c).max())
+    require(err <= lim, f"e3: frozen logits card vs CPU {err:.3e} > {lim:.3e}")
+    # against the same trained weights without quantization: what int8
+    # costs the logits (reported)
+    float_main, _, _, _ = vgg_program(fluid)
+    (f,) = exe.run(forward_program(fluid, float_main, logits_of(float_main)),
+                   feed=feed, fetch_list=[logits_of(float_main)], scope=scope)
+    vs_float = float(np.abs(a - f).max() / np.abs(f).max())
+    mean_ms = statistics.mean(step_ms[1:])
+    e1_ms = (vgg or {}).get("step_ms_mean")
+    log(f"  e3: {len(scales)} activation scales, {len(moved)} moved; "
+        f"losses {losses}; QAT step {mean_ms:.3f} ms"
+        + (f" against e1's {e1_ms:.3f} ms ({mean_ms / e1_ms:.2f}x)"
+           if e1_ms else "")
+        + f"; frozen logits card vs CPU {err:.3e} (limit {lim:.3e}), "
+        f"{vs_float:.3e} of max|logit| from the unquantized forward's "
+        f"[{card}]")
+    return totals, {"losses": losses, "step_ms": step_ms,
+                    "step_ms_mean": mean_ms, "e1_step_ms_mean": e1_ms,
+                    "activation_scales": len(scales),
+                    "scales_moved": len(moved), "frozen_card_vs_cpu": err,
+                    "frozen_limit": lim, "frozen_vs_float_rel": vs_float,
+                    "launches_per_step": want,
+                    "card": card}
+
+
+def calibrate_lm(torch, np, seed, card):
+    """e4: ``quantize.calibrate`` over gpt3_1p3b's int8 inference
+    Program (``build_lm_program`` at full depth, b2's batch and length,
+    its weights quantized in the scope as the Predictor does at load),
+    ``max_batches`` 8: one finite positive scale for each distinct
+    matmul input, no observer state left in the scope, and every batch
+    launches K1 and K11 as b2's int8 forward does."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch import quantize
+    from paddle_tpu_torch.generation import build_lm_program
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig.gpt3_1p3b()
+    L = cfg.num_layers
+    main, startup, _feeds, _fetches = build_lm_program(cfg, LM_PROGRAM_SEQ)
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    rep = quantize.rewrite_for_inference(main, scope, "int8")
+    require(rep.n_quantized == 4 * L + 1,
+            f"e4: {rep.n_quantized} weights quantized")
+    inputs = {op.inputs["X"][0] for op in main.global_block().ops
+              if op.type in ("mul", "matmul", "matmul_v2", "quantized_fc",
+                             "quantized_matmul")}
+    rng = np.random.RandomState(seed)
+    feeds = [{"tokens": rng.randint(0, cfg.vocab_size, (
+        LM_PROGRAM_BATCH, LM_PROGRAM_SEQ)).astype(np.int64)}
+        for _ in range(CALIB_BATCHES + 2)]
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    scales = quantize.calibrate(main, feeds, scope=scope, executor=exe,
+                                max_batches=CALIB_BATCHES)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = K.launch_counts()
+    want = {n: 0 for n in K.KERNELS}
+    want.update(layer_norm=(2 * L + 1) * CALIB_BATCHES,
+                quantized_matmul=(4 * L + 1) * CALIB_BATCHES)
+    require(counts == want, f"e4: {CALIB_BATCHES} batches launched {counts}, "
+            f"want {want}")
+    require(set(scales) == inputs,
+            f"e4: {len(scales)} scales for {len(inputs)} matmul inputs")
+    bad = {k: v for k, v in scales.items() if not (np.isfinite(v) and v > 0)}
+    require(not bad, f"e4: scales not finite and positive: {bad}")
+    left = [n for n in scope.local_var_names()
+            if n.endswith((".act_accum", ".act_state"))]
+    require(not left, f"e4: observer state left in the scope: {left[:4]}")
+    vals = sorted(scales.values())
+    log(f"  e4: {len(scales)} activation scales (min {vals[0]:.4f}, median "
+        f"{vals[len(vals) // 2]:.4f}, max {vals[-1]:.4f}) over "
+        f"{CALIB_BATCHES} batches of {LM_PROGRAM_BATCH} x {LM_PROGRAM_SEQ} "
+        f"tokens in {secs:.3f} s, {secs / CALIB_BATCHES:.4f} s a batch "
+        f"(first run included) [{card}]")
+    return {"calibrate": counts}, {
+        "scales": len(scales), "batches": CALIB_BATCHES,
+        "seconds": secs, "seconds_per_batch": secs / CALIB_BATCHES,
+        "scale_min": vals[0], "scale_max": vals[-1],
+        "parameters": n_params, "card": card}
+
+
+def phase_e(torch, np, seed, card, out_dir, profile=False):
+    """Phase e in the order e1, e3 (it compares its step with e1's), e2,
+    e4; its own peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    record, paths = {}, {}
+    log("phase e1: VGG-16 with batch norm on CIFAR-10-sized images, batch "
+        f"{VGG_BATCH}, fused Adam")
+    paths["vgg"], record["e1"] = train_vgg(torch, np, seed, card, out_dir,
+                                           profile)
+    torch.cuda.empty_cache()
+    log("phase e3: VGG-16 under quantization-aware training")
+    paths["vgg_qat"], record["e3"] = train_vgg_qat(torch, np, seed, card,
+                                                   out_dir, record["e1"])
+    torch.cuda.empty_cache()
+    log("phase e2: SE-ResNeXt-50's layout, batch "
+        f"{SEX_BATCH} x {SEX_IMAGE}^2, fused Momentum + L2Decay")
+    paths["se_resnext"], record["e2"] = train_se_resnext(
+        torch, np, seed, card, out_dir, profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase e4: calibrate over gpt3_1p3b's int8 inference Program")
+    p4, record["e4"] = calibrate_lm(torch, np, seed, card)
+    paths.update(p4)
+    record["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  phase e peak: {record['peak_gb']:.2f} GB allocated [{card}]")
+    return paths, record
+
+
+# -- phase 5: the everyday layers and QAT, card against CPU ----------------------
+
+
+def card_vs_cpu_runs(np, fluid, main, startup, feeds, fetch, seed, std=None):
+    """``main`` run over ``feeds`` on the card and on the CPU from the
+    same state (the CPU startup's, or seeded normal parameters with
+    ``std``): each run's fetched values by step and the final
+    persistables."""
+    from paddle_tpu_torch.io import load_scope_arrays
+
+    cpu_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu_scope)
+    persist = sorted(v.name for v in main.list_vars()
+                     if v.persistable and not v.is_data)
+    arrays = (seeded_arrays(np, main, cpu_scope, std, seed) if std
+              else {n: cpu_scope.get_numpy(n) for n in persist})
+    out = {}
+    for name, place, dev in (("cuda", fluid.CUDAPlace(0), DEVICE),
+                             ("cpu", fluid.CPUPlace(), "cpu")):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        load_scope_arrays(scope, arrays, main, dev)
+        vals = [[np.asarray(v) for v in exe.run(main, feed=f,
+                                                fetch_list=fetch,
+                                                scope=scope)]
+                for f in feeds]
+        out[name] = (vals, {n: scope.get_numpy(n) for n in persist})
+    return out
+
+
+def held(np, what, card, cpu, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+    card, cpu = np.asarray(card), np.asarray(cpu)
+    require(card.shape == cpu.shape, f"{what}: shape {card.shape} vs "
+            f"{cpu.shape}")
+    err = float(np.abs(card.astype(np.float64) - cpu).max()) if card.size \
+        else 0.0
+    ok = np.allclose(card, cpu, rtol=rtol, atol=atol, equal_nan=True)
+    require(ok, f"{what}: card vs CPU {err:.3e} beyond rtol {rtol} / atol "
+            f"{atol}")
+    return err
+
+
+def card_vs_cpu_lenet_qat(torch, np, seed, steps=3):
+    """LeNet under the QuantizationTransformPass, fused Adam(1e-3), on
+    MNIST-shaped batches: losses and every persistable (weights, moments,
+    activation scale state) card vs CPU within the CPU tests' training
+    tolerance; the card's steps launch K4, K5 and K10."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.contrib.slim import QuantizationTransformPass
+    from paddle_tpu_torch.models.mnist import (build_lenet,
+                                               synthetic_mnist_batch)
+
+    fluid.set_flags({"optimizer_fuse": "on"})
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_lenet(
+            fluid.optimizer.AdamOptimizer(1e-3))
+        QuantizationTransformPass(startup_program=startup).apply(main)
+    rng = np.random.RandomState(seed)
+    feeds = [synthetic_mnist_batch(rng, 32) for _ in range(steps)]
+    K.reset_launch_counts()
+    runs = card_vs_cpu_runs(np, fluid, main, startup, feeds,
+                            [fetches["loss"]], seed)
+    n = len(main.all_parameters())
+    counts = K.launch_counts()
+    require(counts["softmax_xent_fwd"] == steps
+            and counts["fused_adam_update"] == n * steps,
+            f"LeNet QAT: the card's steps launched {counts}")
+    (lg, pg), (lc, pc) = runs["cuda"], runs["cpu"]
+    loss_err = held(np, "LeNet QAT losses", [v[0] for v in lg],
+                    [v[0] for v in lc])
+    worst = max((held(np, f"LeNet QAT {k}", pg[k], pc[k]), k) for k in pc)
+    log(f"  losses {[float(v[0]) for v in lg]}, within {loss_err:.3e} of the "
+        f"CPU's; persistables within {worst[0]:.3e} ({worst[1]}; rtol "
+        f"{TRAIN_RTOL} / atol {TRAIN_ATOL})")
+    return {"losses_card": [float(v[0]) for v in lg],
+            "losses_cpu": [float(v[0]) for v in lc],
+            "loss_max_abs_err": loss_err, "state_max_abs_err": worst[0]}
+
+
+UNARY_ACTS = ("tanh", "rsqrt", "log", "round", "softplus", "softsign",
+              "relu6", "leaky_relu", "elu", "swish", "hard_sigmoid",
+              "hard_swish", "logsigmoid", "sin", "erf", "stanh",
+              "thresholded_relu", "hard_shrink", "soft_relu", "gelu")
+
+
+def card_vs_cpu_everyday_ops(torch, np, seed):
+    """One Program over a batch of 64: ``fc(act=a)`` for each of the 19
+    new unary ops and gelu, the reduce family over their outputs, and
+    the tensor ops (flatten, slice, strided_slice, stack / unstack,
+    expand, gather, gather_nd, scatter, pad, cumsum, argsort, argmax,
+    one_hot, shape), one loss; every output and X@GRAD card vs CPU
+    within the CPU tests' training tolerance."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.initializer import ConstantInitializer
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = L.data("x", [16], stop_gradient=False)
+        ids = L.data("ids", [6], dtype="int64")
+        outs, terms = {}, []
+        for a in UNARY_ACTS:
+            bias = (fluid.ParamAttr(initializer=ConstantInitializer(4.0))
+                    if a in ("log", "rsqrt") else None)
+            outs[a] = h = L.fc(x, 12, act=a, bias_attr=bias)
+            terms.append(L.reduce_mean(h))
+        h = L.reshape(L.stack([outs["tanh"], outs["elu"]], axis=1),
+                      [-1, 2, 3, 4])
+        outs["reduce_max"] = L.reduce_max(h, dim=[2, 3])
+        outs["reduce_min"] = L.reduce_min(h, dim=1, keep_dim=True)
+        outs["reduce_prod"] = L.reduce_prod(L.scale(h, bias=1.5), dim=3)
+        outs["flatten"] = L.flatten(h, axis=2)
+        outs["slice"] = L.slice(h, axes=[2, 3], starts=[1, 0], ends=[3, 3])
+        outs["strided_slice"] = L.strided_slice(h, [3], [3], [0], [-2])
+        a0, a1 = L.unstack(h, axis=1)
+        outs["unstack"] = L.elementwise_sub(a0, a1)
+        outs["expand"] = L.expand(h, [1, 1, 2, 1])
+        outs["gather"] = L.gather(L.transpose(outs["swish"], [1, 0]),
+                                  L.reshape(ids, [-1]))
+        outs["gather_nd"] = L.gather_nd(h, L.cast(L.reshape(
+            L.slice(ids, axes=[1], starts=[0], ends=[2]), [-1, 1, 2]),
+            "int32"))
+        outs["scatter"] = L.scatter(
+            L.transpose(outs["gelu"], [1, 0]),
+            L.fill_constant([3], "int64", 1),
+            L.slice(L.transpose(outs["sin"], [1, 0]), axes=[0], starts=[0],
+                    ends=[3]))
+        outs["pad"] = L.pad(h, [0, 0, 1, 0, 0, 2, 1, 1], pad_value=0.5)
+        outs["cumsum"] = L.cumsum(h, axis=3, exclusive=True, reverse=True)
+        outs["sort"], outs["sort_idx"] = L.argsort(outs["tanh"], axis=1,
+                                                   descending=True)
+        outs["argmax"] = L.argmax(outs["relu6"], axis=1)
+        outs["one_hot"] = L.one_hot(L.reshape(L.slice(
+            ids, axes=[1], starts=[0], ends=[1]), [-1, 1]), 12)
+        outs["shape"] = L.shape(h)
+        for k in ("reduce_max", "reduce_min", "reduce_prod", "flatten",
+                  "slice", "strided_slice", "unstack", "expand", "gather",
+                  "gather_nd", "scatter", "pad", "cumsum", "sort"):
+            terms.append(L.reduce_mean(outs[k]))
+        loss = L.sums(terms)
+        fluid.append_backward(loss)
+    rng = np.random.RandomState(seed)
+    feed = {"x": rng.randn(64, 16).astype(np.float32),
+            "ids": rng.randint(0, 2, (64, 6)).astype(np.int64)}
+    keys = sorted(outs)
+    runs = card_vs_cpu_runs(np, fluid, main, startup, [feed],
+                            [outs[k] for k in keys] + [loss, "x@GRAD"], seed)
+    card, cpu = runs["cuda"][0][0], runs["cpu"][0][0]
+    worst = (0.0, "")
+    for k, a, b in zip(keys + ["loss", "x@GRAD"], card, cpu):
+        worst = max(worst, (held(np, f"everyday ops {k}", a, b), k))
+    log(f"  {len(UNARY_ACTS)} activations through fc, {len(keys) - len(UNARY_ACTS)}"
+        f" reduce / tensor outputs, the loss and x@GRAD: within "
+        f"{worst[0]:.3e} ({worst[1]}; rtol {TRAIN_RTOL} / atol {TRAIN_ATOL})")
+    return {"outputs": len(keys) + 2, "max_abs_err": worst[0],
+            "worst": worst[1]}
+
+
+def card_vs_cpu_se_resnext(torch, np, seed, steps=2):
+    """The CI-sized SE-ResNeXt (depth 1-1-1, cardinality 8) on 16-pixel
+    images, batch 4, fused Momentum + L2Decay: losses and every
+    persistable card vs CPU within the CPU tests' training tolerance."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models.vision import build_se_resnext
+
+    fluid.set_flags({"optimizer_fuse": "on"})
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_se_resnext(
+            10, 16, fluid.optimizer.MomentumOptimizer(
+                0.05, 0.9, regularization=fluid.regularizer.L2Decay(1e-4)))
+    rng = np.random.RandomState(seed)
+    feeds = [image_batch(np, seed + s, 4, 16) for s in range(steps)]
+    K.reset_launch_counts()
+    runs = card_vs_cpu_runs(np, fluid, main, startup, feeds,
+                            [fetches["loss"]], seed)
+    n = len(main.all_parameters())
+    counts = K.launch_counts()
+    require(counts["fused_momentum_update"] == n * steps
+            and counts["softmax_xent_bwd"] == steps,
+            f"SE-ResNeXt: the card's steps launched {counts}")
+    (lg, pg), (lc, pc) = runs["cuda"], runs["cpu"]
+    loss_err = held(np, "SE-ResNeXt losses", [v[0] for v in lg],
+                    [v[0] for v in lc])
+    worst = max((held(np, f"SE-ResNeXt {k}", pg[k], pc[k]), k) for k in pc)
+    del rng
+    log(f"  losses {[float(v[0]) for v in lg]}, within {loss_err:.3e} of the "
+        f"CPU's; persistables within {worst[0]:.3e} ({worst[1]})")
+    return {"losses_card": [float(v[0]) for v in lg],
+            "loss_max_abs_err": loss_err, "state_max_abs_err": worst[0]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5080,7 +5686,8 @@ def main(argv=None) -> int:
                     help="directory for the build log and chip_smoke.json")
     ap.add_argument("--profile", action="store_true",
                     help="trace the serving runs (phases 3, 3b, 7a int8, "
-                    "7b) and two training steps (phases 4, 6, 8, 9, c1, d4) with "
+                    "7b) and two training steps (phases 4, 6, 8, 9, c1, d4, "
+                    "e1, e2; e2's grouped convolutions' share too) with "
                     "torch.profiler and print device time by kernel group "
                     "and the idle share")
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -5206,6 +5813,19 @@ def main(argv=None) -> int:
         log("phase 5: While, Switch and cond, card against CPU")
         record["card_vs_cpu"]["control_flow"] = card_vs_cpu_control_flow(
             torch, np)
+        log("phase 5: LeNet under quantization-aware training, 3 fused Adam "
+            "steps, card against CPU")
+        record["card_vs_cpu"]["lenet_qat"] = card_vs_cpu_lenet_qat(
+            torch, np, args.seed)
+        log("phase 5: the new unary ops through fc(act=...), the reduce "
+            "family and the tensor ops, forward and x@GRAD, card against CPU")
+        record["card_vs_cpu"]["everyday_ops"] = card_vs_cpu_everyday_ops(
+            torch, np, args.seed)
+        log("phase 5: the CI-sized SE-ResNeXt, 2 fused Momentum steps, card "
+            "against CPU")
+        record["card_vs_cpu"]["se_resnext"] = card_vs_cpu_se_resnext(
+            torch, np, args.seed)
+        torch.cuda.empty_cache()
     if "6" in args.phases:
         log("phase 6: BERT-large pretrained under bfloat16 AMP with flash "
             "attention")
@@ -5270,6 +5890,11 @@ def main(argv=None) -> int:
                                             args.out, args.profile)
         paths.update(dpaths)
         torch.cuda.empty_cache()
+    if "e" in args.phases:
+        epaths, record["phase_e"] = phase_e(torch, np, args.seed, card,
+                                            args.out, args.profile)
+        paths.update(epaths)
+        torch.cuda.empty_cache()
     launches = {name: {p: c[name] for p, c in paths.items()}
                 for name in K.KERNELS}
     record["launches"] = launches
@@ -5277,7 +5902,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a, b, c1 and d)")
+        "3b, 4, 6, 7, 8, 9, a, b, c1, d and e)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"

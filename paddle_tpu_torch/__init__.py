@@ -102,11 +102,23 @@ Ported so far:
       opt._set_checkpoints(decoder_outputs)
       fluid.optimizer.GradientMergeOptimizer(opt, k_steps=4).minimize(loss)
 
+* the everyday layers and quantization-aware training: the
+  activations, reductions, tensor and indexing layers, transposed,
+  depthwise and SAME / VALID convolutions, adaptive pooling,
+  ``nets.simple_img_conv_pool`` / ``img_conv_group`` / ``glu``, LeNet,
+  VGG and SE-ResNeXt (``models.mnist``, ``models.vision``); the
+  fake-quantize ops, ``quantize.calibrate`` and
+  ``contrib.slim.QuantizationTransformPass`` /
+  ``QuantizationFreezePass``;
+
+      opt.minimize(loss)
+      QuantizationTransformPass(startup_program=startup).apply(main)
+
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
-ported yet (ROADMAP A): the w8a8 ``calibrate`` pass (A7), the host
-tiers (A9: the reader, the rest of ``observability/``), distribution
-(A10: meshes, expert parallelism, DGC and pipeline optimizers) and the
-long tail (A11: ``StaticRNN`` / ``DynamicRNN`` and the rest).
+ported yet (ROADMAP A): the host tiers (A9: the reader, the rest of
+``observability/``), distribution (A10: meshes, expert parallelism, DGC
+and pipeline optimizers) and the long tail (A11: ``StaticRNN`` /
+``DynamicRNN`` and the rest).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of

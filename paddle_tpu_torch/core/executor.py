@@ -266,12 +266,16 @@ class _Plan:
         # the slots each op reads: its OpDef's declared input slots (an
         # automatic grad op declares only its cotangents); a control op
         # reads its inputs and its sub-block's outer reads as one slot
+        self.retrace = self._retraced(ops)
         self.reads = []
         writes = []
         sub_reads = set()
-        for op, d, cf in zip(ops, self.defs, self.control):
+        for i, (op, d, cf) in enumerate(zip(ops, self.defs, self.control)):
             if cf is None:
-                self.reads.append([(s, op.inputs[s]) for s in d.input_slots
+                slots = d.input_slots
+                if i in self.retrace:
+                    slots = slots + self.retrace[i][1].input_slots
+                self.reads.append([(s, op.inputs[s]) for s in slots
                                    if s in op.inputs])
                 writes.append(op.output_arg_names)
                 continue
@@ -320,11 +324,37 @@ class _Plan:
         # forward ops to record: op_ident -> input slots their automatic
         # grad op wants gradients for
         self.record: Dict[int, set] = {}
-        for op, d in zip(ops, self.defs):
-            if d is not None and d.auto_grad:
+        for i, (op, d) in enumerate(zip(ops, self.defs)):
+            if d is not None and d.auto_grad and i not in self.retrace:
                 want = {s[: -len("@GRAD")] for s, ns in op.outputs.items()
                         if s.endswith("@GRAD") and ns}
                 self.record[int(op.attrs.get("op_ident", 0))] = want
+
+    def _retraced(self, ops) -> Dict[int, tuple]:
+        """Automatic grad ops whose forward op now reads other inputs
+        than the grad op names: a pass that ran after
+        ``append_backward`` (quantization-aware training) rewired the
+        forward. The JAX package's grad op re-traces the forward on the
+        inputs it names (``paddle_tpu/core/registry.py:209-271``), so
+        its gradient is taken at the original values; here such a grad
+        op reads those inputs and records the forward on them itself,
+        just before it runs, and the forward op runs unrecorded.
+        Returns {grad op index: (forward op, forward OpDef)}."""
+        out, fwd = {}, {}
+        for i, (op, d) in enumerate(zip(ops, self.defs)):
+            if d is None:
+                continue
+            ident = int(op.attrs.get("op_ident", 0))
+            if not d.auto_grad:
+                fwd[ident] = (op, get_op_def(op.type))
+                continue
+            f = fwd.get(ident)
+            if f is not None and any(
+                    op.inputs.get(s) != f[0].inputs.get(s)
+                    for s in f[1].input_slots
+                    if s in op.inputs or s in f[0].inputs):
+                out[i] = f
+        return out
 
 
 class Executor:

@@ -580,9 +580,14 @@ def build_lm_program(cfg: GPTConfig, seq_len: int):
     sequence length; ``use_flash_attention`` emits the fused
     ``flash_attention`` op (K6 on the card)."""
     if cfg.moe_every:
-        raise NotImplementedError("GPT MoE layers (moe_every > 0) are not "
-                                  "ported to paddle_tpu_torch yet (ROADMAP "
-                                  "A1)")
+        # the JAX package's build_lm_program ignores moe_every and builds
+        # dense FFNs (paddle_tpu/generation/model.py:159-180), which a
+        # MoE scope cannot feed; a MoE Program serves through the
+        # Program Predictor
+        raise NotImplementedError(
+            "build_lm_program builds dense FFNs only, as the JAX package's "
+            "does: save a MoE GPT's is_test Program (models.gpt."
+            "build_gpt_lm) and serve it through inference.create_predictor")
     main, startup = Program(), Program()
     with program_guard(main, startup), unique_name.guard():
         tokens = layers.data("tokens", [seq_len], dtype="int64")

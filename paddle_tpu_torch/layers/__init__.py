@@ -9,3 +9,4 @@ from .nn import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403
+from . import ops  # noqa: F401

@@ -1,14 +1,13 @@
 """Neural-network layers: the port's copies of the functions of
-``paddle_tpu/layers/nn.py`` that the training paths call (Fluid's
-python/paddle/fluid/layers/nn.py): the GPT and BERT layers, the image
-layers of ResNet (``conv2d``, ``pool2d``, ``batch_norm``, ``relu``) and
-what ``clip.py`` emits (the unary math, ``elementwise_max`` / ``_min``,
-``clip``, ``clip_by_norm``), and what the learning-rate schedules emit
-(``cast``, ``exp``, ``pow``, ``floor``, ``ceil``, ``cos``, ``where``,
-``elementwise_pow``), and what DeepFM, Lookahead and the control flow
-emit (``sigmoid``, ``elementwise_mod``). Each function emits ops into the default
-main program and sets output shapes itself, exactly as the reference
-does, so both packages build the same program.
+``paddle_tpu/layers/nn.py`` (Fluid's python/paddle/fluid/layers/nn.py):
+fc, embedding, the image layers (``conv2d``, ``conv2d_transpose``,
+``pool2d``, ``adaptive_pool2d``, ``batch_norm``), the activations and
+unary math, the elementwise ops (a scalar operand on either side), the
+reductions, the shape and indexing layers (``flatten`` ... ``cumsum``)
+and the layers of ``paddle_tpu/layers/auto.py`` over the ops the port
+lowers (``sign``, ``logical_*``, ``sum``, ``mul``, ...). Each function
+emits ops into the default main program and sets output shapes itself,
+exactly as the reference does, so both packages build the same program.
 """
 
 from __future__ import annotations
@@ -21,49 +20,29 @@ from ..initializer import (ConstantInitializer, NormalInitializer,
 from ..layer_helper import LayerHelper
 
 __all__ = [
-    "fc",
-    "embedding",
-    "conv2d",
-    "pool2d",
-    "batch_norm",
-    "layer_norm",
-    "dropout",
-    "softmax",
+    "fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
+    "adaptive_pool2d", "batch_norm", "layer_norm", "dropout", "softmax",
     "matmul",
-    "elementwise_add",
-    "elementwise_sub",
-    "elementwise_mul",
-    "elementwise_div",
-    "_elementwise_binary",
-    "mean",
-    "scale",
-    "reshape",
-    "transpose",
-    "squeeze",
-    "unsqueeze",
-    "split",
-    "reduce_sum",
-    "relu",
-    "sqrt",
-    "square",
-    "abs",
-    "reciprocal",
-    "elementwise_max",
-    "elementwise_min",
-    "fill_constant_like",
-    "clip",
-    "clip_by_norm",
-    "topk",
-    "cast",
-    "exp",
-    "pow",
-    "floor",
-    "ceil",
-    "cos",
-    "where",
-    "elementwise_pow",
-    "sigmoid",
-    "elementwise_mod",
+    # activations and unary math
+    "relu", "sigmoid", "tanh", "sqrt", "rsqrt", "exp", "log", "square",
+    "abs", "gelu", "leaky_relu", "elu", "relu6", "softplus", "softsign",
+    "swish", "hard_sigmoid", "hard_swish", "logsigmoid", "erf", "floor",
+    "ceil", "round", "reciprocal", "sin", "cos", "stanh",
+    "thresholded_relu", "hard_shrink", "soft_relu", "pow",
+    # elementwise, reductions and misc math
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_pow", "elementwise_mod", "elementwise_floordiv",
+    "_elementwise_binary", "fill_constant_like", "reduce_sum",
+    "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
+    "reduce_all", "reduce_any", "mean", "scale", "clip", "clip_by_norm",
+    "cast", "one_hot", "topk", "argmax", "argmin", "argsort", "where",
+    "sign", "logical_and", "logical_or", "logical_xor", "logical_not",
+    "sum", "mul", "merge_selected_rows", "get_tensor_from_selected_rows",
+    # shape manipulation and indexing
+    "reshape", "transpose", "flatten", "squeeze", "unsqueeze", "split",
+    "slice", "strided_slice", "shape", "pad", "gather", "gather_nd",
+    "scatter", "expand", "expand_as", "stack", "unstack", "cumsum",
 ]
 
 
@@ -235,6 +214,109 @@ def conv2d(
     return helper.append_activation(out)
 
 
+def conv2d_transpose(
+    input,
+    num_filters,
+    output_size=None,
+    filter_size=None,
+    padding=0,
+    stride=1,
+    dilation=1,
+    groups=1,
+    param_attr=None,
+    bias_attr=None,
+    act=None,
+    name=None,
+    data_format="NCHW",
+):
+    """Reference layers/nn.py conv2d_transpose: filter [C, num_filters /
+    groups, kh, kw]; without ``filter_size`` the kernel comes from
+    ``output_size``, and an ``output_size`` picks the output within
+    [formula, formula + stride - 1]."""
+    helper = LayerHelper(
+        "conv2d_transpose", param_attr=param_attr, bias_attr=bias_attr, act=act, name=name
+    )
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"conv2d_transpose: data_format must be "
+                         f"NCHW/NHWC, got {data_format!r}")
+    if data_format == "NCHW":
+        n, c, h, w_ = input.shape
+    else:
+        n, h, w_, c = input.shape
+    st = stride if isinstance(stride, (list, tuple)) else [stride] * 2
+    pd = padding if isinstance(padding, (list, tuple)) else [padding] * 2
+    dl = dilation if isinstance(dilation, (list, tuple)) else [dilation] * 2
+    os_ = None
+    if output_size is not None:
+        os_ = (list(output_size) if isinstance(output_size, (list, tuple))
+               else [output_size] * 2)
+    if filter_size is None:
+        # k_eff = out - (in - 1) * stride + 2 * pad
+        if os_ is None:
+            raise ValueError("conv2d_transpose: provide filter_size or "
+                             "output_size")
+        if h is None or h < 0 or w_ is None or w_ < 0:
+            raise ValueError(
+                "conv2d_transpose: deriving filter_size from output_size "
+                "needs static input spatial dims")
+        fs = [(os_[0] - (h - 1) * st[0] + 2 * pd[0] - 1) // dl[0] + 1,
+              (os_[1] - (w_ - 1) * st[1] + 2 * pd[1] - 1) // dl[1] + 1]
+        if fs[0] <= 0 or fs[1] <= 0:
+            raise ValueError(
+                f"conv2d_transpose: output_size {os_} too small for "
+                f"input ({h}, {w_}) with stride {st} / padding {pd} "
+                f"(derived kernel {fs})")
+    else:
+        fs = (filter_size if isinstance(filter_size, (list, tuple))
+              else [filter_size] * 2)
+    filter_shape = [c, num_filters // groups, fs[0], fs[1]]
+    filt = helper.create_parameter(helper.param_attr, filter_shape, input.dtype)
+
+    def _o(i, k, p, s, d):
+        ke = d * (k - 1) + 1
+        return -1 if (i is None or i < 0) else (i - 1) * s - 2 * p + ke
+
+    oh = _o(h, fs[0], pd[0], st[0], dl[0])
+    ow = _o(w_, fs[1], pd[1], st[1], dl[1])
+    if os_ is not None and filter_size is None:
+        # the derived kernel's floor division can leave the formula
+        # short of output_size; the op pads up to it
+        oh, ow = os_
+    elif os_ is not None:
+        for i, (o_want, o_have, s_i) in enumerate(
+                zip(os_, (oh, ow), st)):
+            if o_have >= 0 and not (0 <= o_want - o_have < s_i):
+                raise ValueError(
+                    f"conv2d_transpose: output_size[{i}]={o_want} not in "
+                    f"[{o_have}, {o_have + s_i - 1}]")
+        oh, ow = os_
+    out_shape = ((n, num_filters, oh, ow) if data_format == "NCHW"
+                 else (n, oh, ow, num_filters))
+    out = _out(helper, input, shape=out_shape)
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input], "Filter": [filt]},
+        outputs={"Output": [out]},
+        attrs={"strides": list(st), "paddings": list(pd),
+               "dilations": list(dl), "groups": groups,
+               "data_format": data_format,
+               **({"output_size": list(os_)} if os_ is not None else {})},
+    )
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(
+            helper.bias_attr, [num_filters], input.dtype, is_bias=True
+        )
+        out2 = _out(helper, out, shape=out.shape)
+        helper.append_op(
+            type="elementwise_add",
+            inputs={"X": [out], "Y": [b]},
+            outputs={"Out": [out2]},
+            attrs={"axis": 1 if data_format == "NCHW" else 3},
+        )
+        out = out2
+    return helper.append_activation(out)
+
+
 def pool2d(
     input,
     pool_size=-1,
@@ -281,6 +363,22 @@ def pool2d(
             "exclusive": exclusive,
             "data_format": data_format,
         },
+    )
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", name=None):
+    """Reference layers/nn.py adaptive_pool2d: ``pool_size`` is the
+    output's (NCHW) plane; the op needs the input plane to divide."""
+    helper = LayerHelper("adaptive_pool2d", name=name)
+    n, c = input.shape[0], input.shape[1]
+    ks = pool_size if isinstance(pool_size, (list, tuple)) else [pool_size] * 2
+    out = _out(helper, input, shape=(n, c, ks[0], ks[1]))
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": list(ks), "adaptive": True},
     )
     return out
 
@@ -466,6 +564,10 @@ def _make_elementwise(op_type):
 
 
 def _elementwise_binary(x, y, op_type, axis=-1, act=None, name=None, reverse=False):
+    """A Python number on the right takes a ``scale`` / ``pow`` shortcut
+    where one exists, and otherwise a constant of the other operand's
+    shape (``fill_constant_like``, batch-size-like for a dynamic batch),
+    as in the reference."""
     helper = LayerHelper(op_type, act=act, name=name)
     # scalar operands -> scale-op shortcuts (keeps graphs small)
     if not isinstance(y, Variable):
@@ -479,11 +581,17 @@ def _elementwise_binary(x, y, op_type, axis=-1, act=None, name=None, reverse=Fal
                 return scale(x, scale=c)
             if op_type == "elementwise_div":
                 return scale(x, scale=1.0 / c)
-        elif op_type == "elementwise_sub":
-            return scale(x, scale=-1.0, bias=c)
-        raise NotImplementedError(
-            f"{op_type} with a scalar {'left' if reverse else 'right'} "
-            "operand needs fill_constant_batch_size_like, not ported yet")
+            if op_type == "elementwise_pow":
+                return pow(x, factor=c)
+        else:
+            if op_type == "elementwise_sub":
+                return scale(x, scale=-1.0, bias=c)
+            if op_type == "elementwise_div":
+                y_var = fill_constant_like(x, c)
+                return _elementwise_binary(y_var, x, "elementwise_div")
+        y = fill_constant_like(x, c)
+    if not isinstance(x, Variable):
+        x = fill_constant_like(y, float(x))
     xs, ys = x.shape, y.shape
     shape = xs if (xs and ys and len(xs) >= len(ys)) else ys
     out = _out(helper, x, shape=shape)
@@ -504,6 +612,7 @@ elementwise_max = _make_elementwise("elementwise_max")
 elementwise_min = _make_elementwise("elementwise_min")
 elementwise_pow = _make_elementwise("elementwise_pow")
 elementwise_mod = _make_elementwise("elementwise_mod")
+elementwise_floordiv = _make_elementwise("elementwise_floordiv")
 
 
 def _make_activation(op_type, extra_defaults=None):
@@ -523,15 +632,35 @@ def _make_activation(op_type, extra_defaults=None):
 
 
 relu = _make_activation("relu")
+sigmoid = _make_activation("sigmoid")
+tanh = _make_activation("tanh")
 sqrt = _make_activation("sqrt")
+rsqrt = _make_activation("rsqrt")
+exp = _make_activation("exp")
+log = _make_activation("log")
 square = _make_activation("square")
 abs = _make_activation("abs")
-reciprocal = _make_activation("reciprocal")
-exp = _make_activation("exp")
+gelu = _make_activation("gelu")
+leaky_relu = _make_activation("leaky_relu", {"alpha": 0.02})
+elu = _make_activation("elu", {"alpha": 1.0})
+relu6 = _make_activation("relu6", {"threshold": 6.0})
+softplus = _make_activation("softplus")
+softsign = _make_activation("softsign")
+swish = _make_activation("swish", {"beta": 1.0})
+hard_sigmoid = _make_activation("hard_sigmoid", {"slope": 0.2, "offset": 0.5})
+hard_swish = _make_activation("hard_swish")
+logsigmoid = _make_activation("logsigmoid")
+erf = _make_activation("erf")
 floor = _make_activation("floor")
 ceil = _make_activation("ceil")
+round = _make_activation("round")
+reciprocal = _make_activation("reciprocal")
+sin = _make_activation("sin")
 cos = _make_activation("cos")
-sigmoid = _make_activation("sigmoid")
+stanh = _make_activation("stanh")
+thresholded_relu = _make_activation("thresholded_relu", {"threshold": 1.0})
+hard_shrink = _make_activation("hard_shrink", {"threshold": 0.5})
+soft_relu = _make_activation("soft_relu", {"threshold": 40.0})
 
 
 def pow(x, factor=1.0, name=None):
@@ -561,44 +690,72 @@ def where(condition, x, y, name=None):
 
 
 def fill_constant_like(x, value):
-    """A constant of x's (static) shape and dtype; the reference's
-    batch-size-like branch for a dynamic shape is not ported."""
-    from .tensor import fill_constant
+    """A constant of x's shape and dtype; batch-size-like when a dim is
+    dynamic."""
+    from .tensor import fill_constant, fill_constant_batch_size_like
 
     if x.shape and any(d in (-1, None) for d in x.shape):
-        raise NotImplementedError(
-            "fill_constant_like of a dynamic shape needs "
-            "fill_constant_batch_size_like, not ported yet (ROADMAP A11)")
+        return fill_constant_batch_size_like(x, list(x.shape), x.dtype, value)
     return fill_constant(list(x.shape or ()), x.dtype, value)
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    """Reference layers/nn.py reduce_sum: over ``dim`` (an int or a
-    list), or over everything when ``dim`` is None."""
-    helper = LayerHelper("reduce_sum", name=name)
-    if dim is None:
-        attrs = {"reduce_all": True, "keep_dim": keep_dim}
-        shape = ()
-    else:
-        dims = dim if isinstance(dim, (list, tuple)) else [dim]
-        attrs = {"dim": list(dims), "keep_dim": keep_dim, "reduce_all": False}
-        if input.shape:
-            nd = len(input.shape)
-            dd = {d % nd for d in dims}
-            if keep_dim:
-                shape = tuple(1 if i in dd else s
-                              for i, s in enumerate(input.shape))
-            else:
-                shape = tuple(s for i, s in enumerate(input.shape)
-                              if i not in dd)
+def _make_reduce(op_type):
+    def red_fn(input, dim=None, keep_dim=False, name=None):
+        """Over ``dim`` (an int or a list), or over everything when
+        ``dim`` is None."""
+        helper = LayerHelper(op_type, name=name)
+        if dim is None:
+            attrs = {"reduce_all": True, "keep_dim": keep_dim}
+            shape = ()
         else:
-            shape = None
-    out = _out(helper, input, shape=shape)
-    helper.append_op(
-        type="reduce_sum", inputs={"X": [input]}, outputs={"Out": [out]},
-        attrs=attrs
-    )
-    return out
+            dims = dim if isinstance(dim, (list, tuple)) else [dim]
+            attrs = {"dim": list(dims), "keep_dim": keep_dim, "reduce_all": False}
+            if input.shape:
+                nd = len(input.shape)
+                dd = {d % nd for d in dims}
+                if keep_dim:
+                    shape = tuple(1 if i in dd else s for i, s in enumerate(input.shape))
+                else:
+                    shape = tuple(s for i, s in enumerate(input.shape) if i not in dd)
+            else:
+                shape = None
+        out = _out(helper, input, shape=shape)
+        helper.append_op(
+            type=op_type, inputs={"X": [input]}, outputs={"Out": [out]}, attrs=attrs
+        )
+        return out
+
+    red_fn.__name__ = op_type
+    return red_fn
+
+
+reduce_sum = _make_reduce("reduce_sum")
+reduce_mean = _make_reduce("reduce_mean")
+reduce_max = _make_reduce("reduce_max")
+reduce_min = _make_reduce("reduce_min")
+reduce_prod = _make_reduce("reduce_prod")
+
+
+def _make_bool_reduce(op_type):
+    def red_fn(input, dim=None, keep_dim=False, name=None):
+        """Reference layers/extras.py: a bool output, no shape; dim None
+        reduces every element."""
+        helper = LayerHelper(op_type)
+        out = helper.create_variable_for_type_inference(
+            dtype="bool", stop_gradient=True)
+        attrs = ({"reduce_all": True, "keep_dim": keep_dim} if dim is None
+                 else {"dim": list(dim) if isinstance(dim, (list, tuple))
+                       else [dim], "keep_dim": keep_dim})
+        helper.append_op(type=op_type, inputs={"X": [input]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        return out
+
+    red_fn.__name__ = op_type
+    return red_fn
+
+
+reduce_all = _make_bool_reduce("reduce_all")
+reduce_any = _make_bool_reduce("reduce_any")
 
 
 def mean(x, name=None):
@@ -760,3 +917,303 @@ def split(input, num_or_sections, dim=-1, name=None):
         attrs={"axis": dim, "sections": sections, "num": 0 if sections else n},
     )
     return outs
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten2", name=name)
+    lead = int(np.prod(x.shape[:axis])) if axis > 0 else 1
+    rest = int(np.prod(x.shape[axis:]))
+    out = _out(helper, x, shape=(lead if lead > 0 else -1, rest))
+    xshape = _out(helper, x, shape=(0,), stop_gradient=True)
+    helper.append_op(
+        type="flatten2",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "XShape": [xshape]},
+        attrs={"axis": axis},
+    )
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    shp = list(input.shape or ())
+    for a, s, e in zip(axes, starts, ends):
+        if shp and shp[a] and shp[a] > 0:
+            lo = max(s if s >= 0 else shp[a] + s, 0)
+            hi = min(e if e >= 0 else shp[a] + e, shp[a])
+            shp[a] = max(hi - lo, 0)
+    out = _out(helper, input, shape=tuple(shp))
+    helper.append_op(
+        type="slice",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={"axes": list(axes), "starts": list(starts), "ends": list(ends)},
+    )
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = _out(
+        helper, input, shape=(len(input.shape or ()),), dtype="int32", stop_gradient=True
+    )
+    helper.append_op(type="shape", inputs={"Input": [input]}, outputs={"Out": [out]})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    shp = list(x.shape or ())
+    pairs = list(zip(paddings[::2], paddings[1::2]))
+    for i, (lo, hi) in enumerate(pairs):
+        if shp and shp[i] and shp[i] > 0:
+            shp[i] += lo + hi
+    out = _out(helper, x, shape=tuple(shp))
+    helper.append_op(
+        type="pad",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"paddings": list(paddings), "pad_value": pad_value},
+    )
+    return out
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    helper = LayerHelper("one_hot")
+    shp = tuple(input.shape or ())
+    if len(shp) >= 2 and shp[-1] == 1:
+        out_shape = shp[:-1] + (depth,)
+    else:
+        out_shape = shp + (depth,)
+    out = _out(helper, input, shape=out_shape, dtype="float32", stop_gradient=True)
+    helper.append_op(
+        type="one_hot", inputs={"X": [input]}, outputs={"Out": [out]}, attrs={"depth": depth}
+    )
+    return out
+
+
+def _arg_reduce(op_type, x, axis, name):
+    helper = LayerHelper(op_type, name=name)
+    shp = tuple(x.shape or ())
+    out_shape = tuple(s for i, s in enumerate(shp) if i != axis % len(shp)) if shp else None
+    out = _out(helper, x, shape=out_shape, dtype="int64", stop_gradient=True)
+    helper.append_op(
+        type=op_type, inputs={"X": [x]}, outputs={"Out": [out]}, attrs={"axis": axis}
+    )
+    return out
+
+
+def argmax(x, axis=0, name=None):
+    return _arg_reduce("arg_max", x, axis, name)
+
+
+def argmin(x, axis=0, name=None):
+    return _arg_reduce("arg_min", x, axis, name)
+
+
+def argsort(x, axis=-1, descending=False, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = _out(helper, x, shape=x.shape)
+    idx = _out(helper, x, shape=x.shape, dtype="int64", stop_gradient=True)
+    helper.append_op(
+        type="argsort",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Indices": [idx]},
+        attrs={"axis": axis, "descending": descending},
+    )
+    return out, idx
+
+
+def gather(input, index, name=None):
+    helper = LayerHelper("gather", name=name)
+    shp = (index.shape[0] if index.shape else -1,) + tuple(input.shape[1:] or ())
+    out = _out(helper, input, shape=shp)
+    helper.append_op(
+        type="gather", inputs={"X": [input], "Index": [index]}, outputs={"Out": [out]}
+    )
+    return out
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd", name=name)
+    k = index.shape[-1] if index.shape else 1
+    shp = tuple(index.shape[:-1] or ()) + tuple(input.shape[k:] or ())
+    out = _out(helper, input, shape=shp)
+    helper.append_op(
+        type="gather_nd", inputs={"X": [input], "Index": [index]}, outputs={"Out": [out]}
+    )
+    return out
+
+
+def scatter(input, index, updates, overwrite=True, name=None):
+    """With ``overwrite`` a repeated index takes its last update (the
+    op's definition, the same on every device)."""
+    helper = LayerHelper("scatter", name=name)
+    out = _out(helper, input, shape=input.shape)
+    helper.append_op(
+        type="scatter",
+        inputs={"X": [input], "Ids": [index], "Updates": [updates]},
+        outputs={"Out": [out]},
+        attrs={"overwrite": overwrite},
+    )
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    shp = tuple(
+        (s * t if s and s > 0 else -1) for s, t in zip(x.shape, expand_times)
+    ) if x.shape else None
+    out = _out(helper, x, shape=shp)
+    helper.append_op(
+        type="expand",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"expand_times": list(expand_times)},
+    )
+    return out
+
+
+def expand_as(x, target_tensor, name=None):
+    helper = LayerHelper("expand_as", name=name)
+    out = _out(helper, x, shape=target_tensor.shape)
+    helper.append_op(
+        type="expand_as",
+        inputs={"X": [x], "target_tensor": [target_tensor]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    shp = list(xs[0].shape or ())
+    shp.insert(axis if axis >= 0 else axis + len(shp) + 1, len(xs))
+    out = _out(helper, xs[0], shape=tuple(shp))
+    helper.append_op(
+        type="stack", inputs={"X": list(xs)}, outputs={"Y": [out]}, attrs={"axis": axis}
+    )
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    shp = list(x.shape or ())
+    n = num or shp[axis]
+    oshp = tuple(s for i, s in enumerate(shp) if i != axis % len(shp))
+    outs = [_out(helper, x, shape=oshp) for _ in range(n)]
+    helper.append_op(
+        type="unstack", inputs={"X": [x]}, outputs={"Y": outs}, attrs={"axis": axis, "num": n}
+    )
+    return outs
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False):
+    helper = LayerHelper("cumsum")
+    out = _out(helper, x, shape=x.shape)
+    helper.append_op(
+        type="cumsum",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"axis": axis, "exclusive": exclusive, "reverse": reverse},
+    )
+    return out
+
+
+# -- the table-driven layers of ``paddle_tpu/layers/auto.py`` -----------------
+
+
+def _emit(op_type, ins, attrs, out_slots, stop_gradient):
+    """One op over ``ins`` ({slot: var or list}, None skipped); each
+    output's shape and dtype come from running the op's own lowering on
+    ``meta`` tensors of the inputs' shapes, a dynamic dim taken as 1, as
+    the reference infers them (``layer_helper.infer_op_shapes``). An
+    input without a shape leaves the outputs without one."""
+    helper = LayerHelper(op_type)
+    ins = {s: list(v) if isinstance(v, (list, tuple)) else [v]
+           for s, v in ins.items() if v is not None}
+    inferred = _infer_shapes(op_type, ins, attrs, out_slots)
+    outs = {}
+    for slot in out_slots:
+        shape, dtype = inferred.get(slot, (None, None))
+        outs[slot] = [helper.create_variable_for_type_inference(
+            dtype=dtype or "float32", shape=shape,
+            stop_gradient=stop_gradient)]
+    helper.append_op(type=op_type, inputs=ins, outputs=outs, attrs=attrs)
+    ret = [outs[s][0] for s in out_slots]
+    return ret[0] if len(ret) == 1 else tuple(ret)
+
+
+def _infer_shapes(op_type, ins, attrs, out_slots):
+    import torch
+
+    from ..core.executor import torch_dtype
+    from ..core.registry import LoweringContext, get_op_def
+
+    meta = {}
+    for slot, vs in ins.items():
+        if any(getattr(v, "shape", None) is None for v in vs):
+            return {}
+        meta[slot] = [torch.empty(
+            tuple(1 if (d is None or int(d) < 0) else int(d) for d in v.shape),
+            dtype=torch_dtype(v.dtype or "float32"), device="meta")
+            for v in vs]
+
+    class _Op:
+        type = op_type
+        inputs = {s: [v.name for v in vs] for s, vs in ins.items()}
+        outputs = {s: [f"{op_type}_o"] for s in out_slots}
+
+    _Op.attrs = dict(attrs, op_ident=0)
+    try:
+        res = get_op_def(op_type).lower(LoweringContext("meta"), _Op, meta)
+    except (RuntimeError, NotImplementedError, ValueError, TypeError):
+        return {}
+    return {s: (tuple(res[s][0].shape),
+                str(res[s][0].dtype).replace("torch.", ""))
+            for s in out_slots if res.get(s)}
+
+
+def sign(x, name=None):
+    return _emit("sign", {"X": x}, {}, ["Out"], False)
+
+
+def logical_and(x, y, name=None):
+    return _emit("logical_and", {"X": x, "Y": y}, {}, ["Out"], True)
+
+
+def logical_or(x, y, name=None):
+    return _emit("logical_or", {"X": x, "Y": y}, {}, ["Out"], True)
+
+
+def logical_xor(x, y, name=None):
+    return _emit("logical_xor", {"X": x, "Y": y}, {}, ["Out"], True)
+
+
+def logical_not(x, name=None):
+    return _emit("logical_not", {"X": x}, {}, ["Out"], True)
+
+
+def sum(x, name=None):
+    return _emit("sum", {"X": x}, {}, ["Out"], False)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    return _emit("mul", {"X": x, "Y": y},
+                 {"x_num_col_dims": x_num_col_dims,
+                  "y_num_col_dims": y_num_col_dims}, ["Out"], False)
+
+
+def strided_slice(input, axes=[], starts=[], ends=[], strides=[], name=None):
+    return _emit("strided_slice", {"Input": input},
+                 {"axes": axes, "starts": starts, "ends": ends,
+                  "strides": strides}, ["Out"], False)
+
+
+def merge_selected_rows(x, name=None):
+    return _emit("merge_selected_rows", {"X": x}, {}, ["Out"], True)
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    return _emit("get_tensor_from_selected_rows", {"X": x}, {}, ["Out"], True)

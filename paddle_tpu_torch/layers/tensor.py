@@ -1,5 +1,5 @@
 """Tensor-creation layers: the port's copies of the functions of
-``paddle_tpu/layers/tensor.py`` that the training path calls."""
+``paddle_tpu/layers/tensor.py``."""
 
 from __future__ import annotations
 
@@ -10,8 +10,25 @@ from ..core.framework import (Variable, convert_dtype, default_main_program,
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_global_var", "assign", "fill_constant", "sums", "concat",
-           "zeros", "ones"]
+__all__ = ["create_tensor", "create_global_var", "create_parameter",
+           "assign", "fill_constant", "fill_constant_batch_size_like", "sums",
+           "concat", "zeros", "ones", "zeros_like", "ones_like", "range",
+           "linspace", "uniform_random", "gaussian_random"]
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.main_block.create_var(
+        name=name or helper.name, dtype=dtype, persistable=persistable
+    )
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False, default_initializer=None):
+    helper = LayerHelper("create_parameter", param_attr=attr, name=name)
+    pa = helper.param_attr
+    if name is not None and pa.name is None:
+        pa.name = name
+    return helper.create_parameter(pa, shape, dtype, is_bias, default_initializer)
 
 
 def create_global_var(shape, value, dtype, persistable=False, force_cpu=False, name=None):
@@ -108,3 +125,80 @@ def zeros(shape, dtype="float32", force_cpu=False):
 
 def ones(shape, dtype="float32", force_cpu=False):
     return fill_constant(shape, dtype, 1.0)
+
+
+def fill_constant_batch_size_like(
+    input, shape, dtype, value, input_dim_idx=0, output_dim_idx=0
+):
+    """A constant of ``shape`` whose ``output_dim_idx`` takes input's
+    ``input_dim_idx`` at run time (the batch)."""
+    helper = LayerHelper("fill_constant_batch_size_like")
+    dtype = convert_dtype(dtype)
+    out = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=tuple(shape), stop_gradient=True
+    )
+    helper.append_op(
+        type="fill_constant_batch_size_like",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "shape": list(shape),
+            "dtype": dtype,
+            "value": float(value),
+            "input_dim_idx": input_dim_idx,
+            "output_dim_idx": output_dim_idx,
+        },
+    )
+    return out
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("fill_zeros_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=x.dtype, shape=x.shape, stop_gradient=True
+        )
+    helper.append_op(type="fill_zeros_like", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def ones_like(x, out=None):
+    from .nn import scale
+
+    return scale(zeros_like(x), scale=1.0, bias=1.0)
+
+
+def range(start, end, step, dtype="float32"):
+    """Python-scalar bounds, folded into an ``assign_value`` as the
+    reference does (the output's length depends on them)."""
+    return assign(np.arange(start, end, step).astype(convert_dtype(dtype)))
+
+
+def linspace(start, stop, num, dtype="float32"):
+    return assign(np.linspace(start, stop, int(num)).astype(convert_dtype(dtype)))
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random")
+    out = helper.create_variable_for_type_inference(
+        dtype=convert_dtype(dtype), shape=tuple(shape), stop_gradient=True
+    )
+    helper.append_op(
+        type="uniform_random",
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": convert_dtype(dtype), "min": min, "max": max, "seed": seed},
+    )
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(
+        dtype=convert_dtype(dtype), shape=tuple(shape), stop_gradient=True
+    )
+    helper.append_op(
+        type="gaussian_random",
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": convert_dtype(dtype), "mean": mean, "std": std, "seed": seed},
+    )
+    return out

@@ -1,7 +1,6 @@
-"""Composite networks: the port's copy of
-``paddle_tpu/nets.py`` ``scaled_dot_product_attention`` (Fluid's
-python/paddle/fluid/nets.py), multi-head attention from program-level
-ops."""
+"""Composite networks: the port's copy of ``paddle_tpu/nets.py``
+(Fluid's python/paddle/fluid/nets.py): ``simple_img_conv_pool``,
+``img_conv_group``, ``glu`` and ``scaled_dot_product_attention``."""
 
 from __future__ import annotations
 
@@ -9,7 +8,98 @@ import numpy as np
 
 from . import layers
 
-__all__ = ["scaled_dot_product_attention"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "glu",
+           "scaled_dot_product_attention"]
+
+
+def simple_img_conv_pool(
+    input,
+    num_filters,
+    filter_size,
+    pool_size,
+    pool_stride,
+    pool_padding=0,
+    pool_type="max",
+    global_pooling=False,
+    conv_stride=1,
+    conv_padding=0,
+    conv_dilation=1,
+    conv_groups=1,
+    param_attr=None,
+    bias_attr=None,
+    act=None,
+    use_cudnn=True,
+):
+    """conv2d (with its activation) then pool2d."""
+    conv_out = layers.conv2d(
+        input=input,
+        num_filters=num_filters,
+        filter_size=filter_size,
+        stride=conv_stride,
+        padding=conv_padding,
+        dilation=conv_dilation,
+        groups=conv_groups,
+        param_attr=param_attr,
+        bias_attr=bias_attr,
+        act=act,
+    )
+    return layers.pool2d(
+        input=conv_out,
+        pool_size=pool_size,
+        pool_type=pool_type,
+        pool_stride=pool_stride,
+        pool_padding=pool_padding,
+        global_pooling=global_pooling,
+    )
+
+
+def img_conv_group(
+    input,
+    conv_num_filter,
+    pool_size,
+    conv_padding=1,
+    conv_filter_size=3,
+    conv_act=None,
+    param_attr=None,
+    conv_with_batchnorm=False,
+    conv_batchnorm_drop_rate=0.0,
+    pool_stride=1,
+    pool_type="max",
+    use_cudnn=True,
+):
+    """A run of conv2d layers (each optionally batch-normed, the
+    activation after the norm, and dropped out), then one pool2d."""
+    tmp = input
+    if not isinstance(conv_padding, list):
+        conv_padding = [conv_padding] * len(conv_num_filter)
+    if not isinstance(conv_with_batchnorm, list):
+        conv_with_batchnorm = [conv_with_batchnorm] * len(conv_num_filter)
+    if not isinstance(conv_batchnorm_drop_rate, list):
+        conv_batchnorm_drop_rate = [conv_batchnorm_drop_rate] * len(conv_num_filter)
+    for i, nf in enumerate(conv_num_filter):
+        local_act = None if conv_with_batchnorm[i] else conv_act
+        tmp = layers.conv2d(
+            input=tmp,
+            num_filters=nf,
+            filter_size=conv_filter_size,
+            padding=conv_padding[i],
+            param_attr=param_attr,
+            act=local_act,
+        )
+        if conv_with_batchnorm[i]:
+            tmp = layers.batch_norm(input=tmp, act=conv_act)
+            if conv_batchnorm_drop_rate[i]:
+                tmp = layers.dropout(tmp, conv_batchnorm_drop_rate[i])
+    return layers.pool2d(
+        input=tmp, pool_size=pool_size, pool_type=pool_type, pool_stride=pool_stride
+    )
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: the first half times the sigmoid of the
+    second, split on ``dim``."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
 
 
 def scaled_dot_product_attention(

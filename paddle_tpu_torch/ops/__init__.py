@@ -2,5 +2,5 @@
 ``core/registry.py``. Each module mirrors the JAX package's module of
 the same name; only the ops the training path runs are here."""
 
-from . import (control, lod, math, metrics, moe, nn,  # noqa: F401
-               optim, quant, random, tensor)
+from . import (control, lod, math, metrics, misc, moe,  # noqa: F401
+               nn, optim, quant, random, tensor)

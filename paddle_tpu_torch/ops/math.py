@@ -93,12 +93,58 @@ def _minimum(x, y):
 
 _register_elementwise("elementwise_min", _minimum)
 _register_elementwise("elementwise_max", _maximum)
-# ``x ** y`` (``paddle_tpu/ops/math.py:53``), both gradients through
-# autograd as JAX's vjp of ``lax.pow``
-_register_elementwise("elementwise_pow", torch.pow)
+
+
+class _Pow(torch.autograd.Function):
+    """``x ** y`` with ``lax.pow``'s gradients: X's is ``g * (y * x **
+    (y - 1))`` everywhere, so at x = 0 with y = 0 it is 0 * inf = NaN,
+    where torch's own backward masks a zero exponent to 0; Y's is ``g *
+    x ** y * log(x)``, 0 where x = 0 and y >= 0 (JAX replaces a zero x
+    by 1 under the log). ``y`` is a tensor (``elementwise_pow``,
+    broadcast with x) or a Python float (``pow``). X's gradient takes
+    the kernels of torch's unmasked formula and no ``where``."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        out = torch.pow(x, y)
+        if isinstance(y, torch.Tensor):
+            ctx.save_for_backward(x, y, out)
+        else:
+            ctx.save_for_backward(x)
+            ctx.factor = y
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if len(ctx.saved_tensors) == 1:
+            (x,) = ctx.saved_tensors
+            y = ctx.factor
+            return g * (y * x.pow(y - 1)), None
+        x, y, out = ctx.saved_tensors
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = g * (y * x.pow(y - 1))
+        if ctx.needs_input_grad[1]:
+            zero = torch.zeros((), dtype=out.dtype, device=out.device)
+            gy = g * torch.where((x == 0) & (y >= 0), zero, out * torch.log(x))
+        return gx, gy
+
+
+def _pow_xy(x, y):
+    x, y = torch.broadcast_tensors(x, y)
+    if not x.is_floating_point():
+        return torch.pow(x, y)
+    return _Pow.apply(x, y)
+
+
+# ``x ** y`` (``paddle_tpu/ops/math.py:53``) with ``lax.pow``'s gradients
+_register_elementwise("elementwise_pow", _pow_xy)
 # ``jnp.mod`` (``paddle_tpu/ops/math.py:54``): the sign of the divisor,
 # as ``torch.remainder``
 _register_elementwise("elementwise_mod", torch.remainder)
+# ``jnp.floor_divide`` (``paddle_tpu/ops/math.py:55``): rounds toward
+# minus infinity, as ``torch.floor_divide``
+_register_elementwise("elementwise_floordiv", torch.floor_divide)
 
 
 @register_op("matmul", inputs=("X", "Y"), outputs=("Out",))
@@ -128,23 +174,63 @@ def _mul(ctx, op, ins):
     return {"Out": [(x2 @ y2).reshape(lead + (y2.shape[1],))]}
 
 
-@register_op("reduce_sum", inputs=("X",), outputs=("Out",))
-def _reduce_sum(ctx, op, ins):
-    """operators/reduce_ops (``paddle_tpu/ops/math.py:107-121``): over
-    ``dim`` (negative counts from the end), or everything with
-    ``reduce_all``, to a 0-dim tensor unless ``keep_dim``."""
-    x = ins["X"][0]
-    keep = bool(op.attrs.get("keep_dim", False))
+def _reduce_axes(op, x):
+    """operators/reduce_ops (``paddle_tpu/ops/math.py:106-127``): the
+    axes of ``dim`` (negative counts from the end), or None for every
+    axis with ``reduce_all`` or a 0-dim input."""
     if op.attrs.get("reduce_all", False) or x.dim() == 0:
-        out = torch.sum(x)
-        if keep:
-            out = out.reshape([1] * x.dim())
-        return {"Out": [out]}
+        return None
     dim = op.attrs.get("dim", [0])
     if isinstance(dim, int):
         dim = [dim]
-    axes = tuple(sorted({int(d) % x.dim() for d in dim}))
-    return {"Out": [torch.sum(x, dim=axes, keepdim=keep)]}
+    return tuple(sorted({int(d) % x.dim() for d in dim}))
+
+
+def _prod(x, dim, keepdim):
+    """``torch.prod`` takes one axis: the reduced axes move to the end
+    and become one."""
+    keep = [i for i in range(x.dim()) if i not in dim]
+    y = x.permute(keep + list(dim)).reshape(
+        [x.shape[i] for i in keep] + [-1])
+    out = torch.prod(y, dim=-1)
+    if keepdim:
+        out = out.reshape([1 if i in dim else x.shape[i]
+                           for i in range(x.dim())])
+    return out
+
+
+# each reduction as (x, axes, keep_dim) -> out. ``amax`` / ``amin``
+# split the gradient evenly over ties, as ``jnp.max`` / ``jnp.min``
+# do (``torch.max(dim=)`` sends it to one element)
+_REDUCTIONS = {
+    "reduce_sum": torch.sum,
+    "reduce_mean": lambda x, dim, keepdim: torch.mean(
+        x if x.is_floating_point() else x.float(), dim, keepdim),
+    "reduce_max": torch.amax,
+    "reduce_min": torch.amin,
+    "reduce_prod": _prod,
+    "reduce_all": torch.all,
+    "reduce_any": torch.any,
+}
+
+
+def _register_reduce(name, fn):
+    @register_op(name, inputs=("X",), outputs=("Out",))
+    def _lower(ctx, op, ins, _fn=fn):
+        """Over ``dim``, or everything with ``reduce_all``, to a 0-dim
+        tensor unless ``keep_dim``."""
+        x = ins["X"][0]
+        keep = bool(op.attrs.get("keep_dim", False))
+        axes = _reduce_axes(op, x)
+        if axes is None:
+            axes = tuple(range(x.dim()))
+        if not axes:
+            return {"Out": [x.clone()]}
+        return {"Out": [_fn(x, axes, keep)]}
+
+
+for _name, _fn in _REDUCTIONS.items():
+    _register_reduce(_name, _fn)
 
 
 @register_op("cast", inputs=("X",), outputs=("Out",), no_grad=())
@@ -181,6 +267,11 @@ def _sum(ctx, op, ins):
 
 @register_op("scale", inputs=("X",), outputs=("Out",))
 def _scale(ctx, op, ins):
+    """``paddle_tpu/ops/math.py:226-240``: the bias is cast to X's dtype
+    first, as ``jnp.asarray(bias, x.dtype)``, so an integer X takes a
+    fractional bias truncated toward 0 (int64 [-3, 2, 5] * 2.5 + 0.5
+    gives [-7.5, 5, 12.5]) and a bfloat16 X its bfloat16 rounding. The
+    cast is a host scalar: no launch."""
     x = ins["X"][0]
     s = float(op.attrs.get("scale", 1.0))
     b = float(op.attrs.get("bias", 0.0))
@@ -192,6 +283,8 @@ def _scale(ctx, op, ins):
             raise ValueError("scale with a bias is undefined for "
                              "SelectedRows")
         return {"Out": [x * s]}
+    if b:
+        b = torch.tensor(b).to(x.dtype).item()
     if op.attrs.get("bias_after_scale", True):
         out = x * s
         if b:
@@ -227,30 +320,94 @@ class _Abs(torch.autograd.Function):
 
 
 def _register_unary(name, fn):
+    """``fn(x, attrs)``, as the reference's table
+    (``paddle_tpu/ops/math.py:152-220``), defaults included."""
     @register_op(name, inputs=("X",), outputs=("Out",))
     def _lower(ctx, op, ins, _fn=fn):
-        return {"Out": [_fn(ins["X"][0])]}
+        return {"Out": [_fn(ins["X"][0], op.attrs)]}
 
 
-_register_unary("relu", F.relu)
-_register_unary("sigmoid", torch.sigmoid)
-_register_unary("sqrt", torch.sqrt)
-_register_unary("square", torch.square)
-_register_unary("abs", lambda x: _Abs.apply(x))
-_register_unary("reciprocal", lambda x: 1.0 / x)
-# the learning-rate schedules' unary ops (``paddle_tpu/ops/math.py``
-# :171, :175-176, :200); floor and ceil pass no gradient, as in JAX
-_register_unary("exp", torch.exp)
-_register_unary("floor", torch.floor)
-_register_unary("ceil", torch.ceil)
-_register_unary("cos", torch.cos)
+def _bounded(x, lo, hi):
+    """``jnp.clip(x, lo, hi)`` as the ``clip`` op composes it: at a
+    bound the gradient is 0.5, where ``torch.clamp``, ``F.relu6`` and
+    ``F.hardsigmoid`` give 1 or 0."""
+    x = _maximum(x, x.new_full((), lo))
+    return _minimum(x, x.new_full((), hi))
+
+
+def _zero(x):
+    return torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no threshold past
+    which it returns x (``F.softplus`` has one at 20)."""
+    return torch.logaddexp(x, _zero(x))
+
+
+def _attr(a, name, default):
+    return float(a.get(name, default))
+
+
+for _name, _fn in (
+        ("relu", lambda x, a: F.relu(x)),
+        ("sigmoid", lambda x, a: torch.sigmoid(x)),
+        ("tanh", lambda x, a: torch.tanh(x)),
+        ("sqrt", lambda x, a: torch.sqrt(x)),
+        ("rsqrt", lambda x, a: torch.rsqrt(x)),
+        ("exp", lambda x, a: torch.exp(x)),
+        ("log", lambda x, a: torch.log(x)),
+        ("square", lambda x, a: torch.square(x)),
+        ("abs", lambda x, a: _Abs.apply(x)),
+        # floor, ceil and round pass no gradient, as in JAX; round
+        # takes half to even in both
+        ("floor", lambda x, a: torch.floor(x)),
+        ("ceil", lambda x, a: torch.ceil(x)),
+        ("round", lambda x, a: torch.round(x)),
+        ("reciprocal", lambda x, a: 1.0 / x),
+        ("softplus", lambda x, a: _softplus(x)),
+        ("softsign", lambda x, a: x / (_Abs.apply(x) + 1)),
+        ("relu6", lambda x, a: _bounded(x, 0.0, _attr(a, "threshold", 6.0))),
+        # jax.nn.leaky_relu / elu take the x >= 0 (x > 0) branch at 0
+        ("leaky_relu", lambda x, a: torch.where(
+            x >= 0, x, _attr(a, "alpha", 0.02) * x)),
+        ("elu", lambda x, a: torch.where(
+            x > 0, x, _attr(a, "alpha", 1.0)
+            * torch.expm1(torch.where(x > 0, _zero(x), x)))),
+        ("swish", lambda x, a: x * torch.sigmoid(_attr(a, "beta", 1.0) * x)),
+        ("hard_sigmoid", lambda x, a: _bounded(
+            _attr(a, "slope", 0.2) * x + _attr(a, "offset", 0.5), 0.0, 1.0)),
+        # divided by a device tensor: CUDA turns a Python divisor into a
+        # product with its reciprocal, one ulp off the CPU's quotient
+        ("hard_swish", lambda x, a: x * _bounded(
+            x + _attr(a, "offset", 3.0), 0.0, _attr(a, "threshold", 6.0))
+            / x.new_full((), _attr(a, "scale", 6.0))),
+        ("logsigmoid", lambda x, a: -_softplus(-x)),
+        ("sin", lambda x, a: torch.sin(x)),
+        ("cos", lambda x, a: torch.cos(x)),
+        ("erf", lambda x, a: torch.erf(x)),
+        ("stanh", lambda x, a: _attr(a, "scale_b", 1.7159)
+            * torch.tanh(_attr(a, "scale_a", 0.67) * x)),
+        ("thresholded_relu", lambda x, a: torch.where(
+            x > _attr(a, "threshold", 1.0), x, _zero(x))),
+        ("hard_shrink", lambda x, a: torch.where(
+            _Abs.apply(x) > _attr(a, "threshold", 0.5), x, _zero(x))),
+        ("soft_relu", lambda x, a: torch.log1p(torch.exp(_bounded(
+            x, -_attr(a, "threshold", 40.0), _attr(a, "threshold", 40.0))))),
+):
+    _register_unary(_name, _fn)
 
 
 @register_op("pow", inputs=("X",), outputs=("Out",))
 def _pow(ctx, op, ins):
-    """``x ** factor`` (``paddle_tpu/ops/math.py:202``); the gradient
-    ``factor * x ** (factor - 1)``."""
-    return {"Out": [ins["X"][0] ** float(op.attrs.get("factor", 1.0))]}
+    """``x ** factor`` (``paddle_tpu/ops/math.py:202``) with JAX's
+    gradient ``factor * x ** (factor - 1)``, unmasked: NaN at x = 0
+    when factor is 0 (``_Pow``)."""
+    x = ins["X"][0]
+    factor = float(op.attrs.get("factor", 1.0))
+    if not x.is_floating_point():
+        return {"Out": [x ** factor]}
+    return {"Out": [_Pow.apply(x, factor)]}
 
 
 # comparisons and logical ops (``paddle_tpu/ops/math.py:277-298``): no

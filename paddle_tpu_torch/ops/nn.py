@@ -70,13 +70,13 @@ def _softmax_with_cross_entropy(ctx, op, ins):
     hard labels over the last axis, as the reference's kernel path
     (``ops/nn.py:234-274``); rows labelled ``ignore_index`` get loss 0
     and no gradient (the kernels mask them). The Softmax slot is plain
-    torch, made only when something reads it."""
+    torch, made only when something reads it. Soft labels and other
+    axes take the reference's plain path (``_softmax_xent_plain``), as
+    JAX sends them past its kernel."""
     logits, label = ins["Logits"][0], ins["Label"][0]
     axis = int(op.attrs.get("axis", -1))
     if op.attrs.get("soft_label", False) or axis not in (-1, logits.dim() - 1):
-        raise NotImplementedError(
-            "softmax_with_cross_entropy: the port takes hard labels over the "
-            "last axis (soft labels and other axes are not ported yet)")
+        return _softmax_xent_plain(ctx, op, logits, label, axis)
     ignore_index = int(op.attrs.get("ignore_index", -100))
     C = logits.shape[-1]
     lead = tuple(logits.shape[:-1])
@@ -90,6 +90,30 @@ def _softmax_with_cross_entropy(ctx, op, ins):
     out = {"Loss": [loss.reshape(lead + (1,))]}
     if ctx.wants(op, "Softmax"):
         out["Softmax"] = [torch.softmax(logits, dim=-1)]
+    return out
+
+
+def _softmax_xent_plain(ctx, op, logits, label, axis):
+    """``paddle_tpu/ops/nn.py:276-294``: log-softmax over ``axis``;
+    soft labels take ``-sum(label * logp)``, hard labels the picked
+    ``-logp`` with ``ignore_index`` rows 0. Softmax is ``exp(logp)``."""
+    logp = torch.log_softmax(logits, dim=axis)
+    if op.attrs.get("soft_label", False):
+        loss = -torch.sum(label * logp, dim=axis, keepdim=True)
+    else:
+        ignore_index = int(op.attrs.get("ignore_index", -100))
+        lbl = label
+        if lbl.dim() == logits.dim() and lbl.shape[axis] == 1:
+            lbl = lbl.squeeze(axis)
+        lbl = lbl.long()
+        safe = torch.where(lbl == ignore_index, torch.zeros_like(lbl), lbl)
+        loss = -torch.take_along_dim(logp, safe.unsqueeze(axis), dim=axis)
+        loss = torch.where((lbl != ignore_index).unsqueeze(axis), loss,
+                           torch.zeros((), dtype=loss.dtype,
+                                       device=loss.device))
+    out = {"Loss": [loss]}
+    if ctx.wants(op, "Softmax"):
+        out["Softmax"] = [torch.exp(logp)]
     return out
 
 
@@ -142,6 +166,16 @@ def _from_nchw(x, fmt):
     return x if fmt == "NCHW" else x.permute(0, 2, 3, 1)
 
 
+def _same_pads(size, k, stride, dilation):
+    """``lax``'s SAME padding of one spatial dim: the output is
+    ceil(size / stride), the total padding split with the odd element
+    after."""
+    ke = (k - 1) * dilation + 1
+    out = -(-size // stride)
+    total = max((out - 1) * stride + ke - size, 0)
+    return total // 2, total - total // 2
+
+
 @register_op("conv2d", inputs=("Input", "Filter", "Bias"),
              outputs=("Output",))
 def _conv2d(ctx, op, ins):
@@ -149,28 +183,79 @@ def _conv2d(ctx, op, ins):
     groups; filters OIHW. Paddings are [h, w] (both sides alike) or, as
     ``layers.conv2d(padding=[top, bottom, left, right])`` passes them
     through, four sides: H by (pd[0], pd[1]) and W by (pd[2], pd[3]), as
-    the reference's :43-46; an uneven four-sided padding takes an
-    ``F.pad`` before the convolution. (The reference's SAME / VALID
-    padding algorithms are not ported.)"""
+    the reference's :43-46; an uneven padding takes an ``F.pad`` before
+    the convolution. ``padding_algorithm`` SAME pads as ``lax`` does
+    (``_same_pads``) and VALID not at all; both ignore ``paddings``."""
     x, w = ins["Input"][0], ins["Filter"][0]
     fmt = op.attrs.get("data_format", "NCHW")
-    if op.attrs.get("padding_algorithm", "EXPLICIT") != "EXPLICIT":
-        raise NotImplementedError(
-            "conv2d: padding_algorithm SAME / VALID is not ported yet "
-            "(ROADMAP A11)")
     xc = _nchw(x, fmt)
-    pd = _pair(op.attrs.get("paddings", [0, 0]))
+    strides = _pair(op.attrs.get("strides", [1, 1]))
+    dilations = _pair(op.attrs.get("dilations", [1, 1]))
+    algo = op.attrs.get("padding_algorithm", "EXPLICIT")
+    if algo == "SAME":
+        (t, b), (l, r) = (_same_pads(xc.shape[2 + i], w.shape[2 + i],
+                                     strides[i], dilations[i])
+                          for i in range(2))
+        pd = [t, b, l, r]
+    elif algo == "VALID":
+        pd = [0, 0]
+    else:
+        pd = _pair(op.attrs.get("paddings", [0, 0]))
     if len(pd) == 4:
         if pd[0] == pd[1] and pd[2] == pd[3]:
             pd = [pd[0], pd[2]]
         else:
             xc = F.pad(xc, (pd[2], pd[3], pd[0], pd[1]))
             pd = [0, 0]
-    out = F.conv2d(xc, w,
-                   stride=_pair(op.attrs.get("strides", [1, 1])),
-                   padding=pd,
-                   dilation=_pair(op.attrs.get("dilations", [1, 1])),
+    out = F.conv2d(xc, w, stride=strides, padding=pd, dilation=dilations,
                    groups=int(op.attrs.get("groups", 1)))
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0].reshape(1, -1, 1, 1)
+    return {"Output": [_from_nchw(out, fmt)]}
+
+
+@register_op("depthwise_conv2d", inputs=("Input", "Filter", "Bias"),
+             outputs=("Output",))
+def _depthwise_conv2d(ctx, op, ins):
+    """``paddle_tpu/ops/nn.py:65``: conv2d with ``groups`` equal to the
+    input channels (the attr says so)."""
+    return _conv2d(ctx, op, ins)
+
+
+@register_op("conv2d_transpose", inputs=("Input", "Filter", "Bias"),
+             outputs=("Output",))
+def _conv2d_transpose(ctx, op, ins):
+    """``paddle_tpu/ops/nn.py:72``: the transpose (gradient) of a
+    convolution, filter [in_c, out_c / groups, kh, kw] as
+    ``F.conv_transpose2d`` takes it. The output is (in - 1) * stride -
+    2 * pad + (k - 1) * dilation + 1; an ``output_size`` attr picks a
+    size up to stride - 1 larger, added after (``output_padding``), as
+    the reference pads the high side."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    fmt = op.attrs.get("data_format", "NCHW")
+    xc = _nchw(x, fmt)
+    strides = _pair(op.attrs.get("strides", [1, 1]))
+    pads = _pair(op.attrs.get("paddings", [0, 0]))
+    dilations = _pair(op.attrs.get("dilations", [1, 1]))
+    groups = int(op.attrs.get("groups", 1))
+    extra = [0, 0]
+    out_size = op.attrs.get("output_size")
+    if out_size:
+        for i in range(2):
+            formula = ((xc.shape[2 + i] - 1) * strides[i] - 2 * pads[i]
+                       + (w.shape[2 + i] - 1) * dilations[i] + 1)
+            extra[i] = int(out_size[i]) - formula
+            if not 0 <= extra[i] < strides[i]:
+                raise ValueError(
+                    f"conv2d_transpose: output_size[{i}]={out_size[i]} "
+                    f"not in [{formula}, {formula + strides[i] - 1}]")
+    if groups > 1 and (xc.shape[1] % groups or w.shape[0] != xc.shape[1]):
+        raise ValueError(
+            f"conv2d_transpose: in_c {xc.shape[1]} and filter dim0 "
+            f"{w.shape[0]} must be divisible/equal for groups={groups}")
+    out = F.conv_transpose2d(xc, w, stride=strides, padding=pads,
+                             output_padding=extra, groups=groups,
+                             dilation=dilations)
     if ins.get("Bias"):
         out = out + ins["Bias"][0].reshape(1, -1, 1, 1)
     return {"Output": [_from_nchw(out, fmt)]}
@@ -181,12 +266,10 @@ def _pool2d(ctx, op, ins):
     """``paddle_tpu/ops/nn.py:150``: max or average over windows
     (``ceil_mode`` is ignored there too), global pooling over the whole
     plane. An average over a padded window divides by the window's
-    count of real elements when ``exclusive``, else by its size."""
+    count of real elements when ``exclusive``, else by its size.
+    ``adaptive`` takes ``ksize`` as the output size."""
     x = ins["X"][0]
     fmt = op.attrs.get("data_format", "NCHW")
-    if op.attrs.get("adaptive", False):
-        raise NotImplementedError("adaptive pool2d is not ported yet "
-                                  "(ROADMAP A11)")
     ptype = op.attrs.get("pooling_type", "max")
     xc = _nchw(x, fmt)
     if op.attrs.get("global_pooling", False):
@@ -195,6 +278,17 @@ def _pool2d(ctx, op, ins):
         ksize = _pair(op.attrs.get("ksize", [2, 2]))
         strides = _pair(op.attrs.get("strides", [2, 2]))
         pads = _pair(op.attrs.get("paddings", [0, 0]))
+    if op.attrs.get("adaptive", False):
+        # ksize is the output's size; the exact reshape-reduce, so the
+        # plane must divide into it (:166-178)
+        n, c, h, w = xc.shape
+        oh, ow = ksize
+        if h % oh or w % ow:
+            raise ValueError("adaptive pool needs divisible sizes")
+        xr = xc.reshape(n, c, oh, h // oh, ow, w // ow)
+        out = (torch.amax(xr, dim=(3, 5)) if ptype == "max"
+               else torch.mean(xr, dim=(3, 5)))
+        return {"Out": [_from_nchw(out, fmt)]}
     if ptype == "max":
         out = F.max_pool2d(xc, ksize, strides, pads)
     else:

@@ -166,11 +166,15 @@ def _adam(ctx, op, ins):
 
 def _lower_fused_adam(ctx, op, ins, default_coeff):
     if isinstance(ins["Grad"][0], SelectedRows):
-        if float(op.attrs.get("coeff", default_coeff)):
-            raise NotImplementedError(
-                "fused_adamw with a SelectedRows gradient: the JAX package "
-                "hands it to the plain adam path, which drops the decay")
-        return _adam(ctx, op, _with_clip(ins))
+        # the lazy sparse adam, then the decoupled decay applied densely
+        # to the whole parameter from its value before the update, as
+        # the JAX package does (``kernels/fused_optim.py:345-358``)
+        coeff = float(op.attrs.get("coeff", default_coeff))
+        decay = _lr(ins) * coeff * ins["Param"][0] if coeff else None
+        out = _adam(ctx, op, _with_clip(ins))
+        if decay is not None:
+            out["ParamOut"] = [out["ParamOut"][0].sub_(decay)]
+        return out
     p, g = ins["Param"][0], ins["Grad"][0]
     m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
     b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]

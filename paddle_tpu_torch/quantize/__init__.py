@@ -34,15 +34,21 @@ Opt-in is the ``quantize_weights`` flag ("off" | "int8" | "int8_block"
 | "fp8"), read at Predictor construction
 (``Config.enable_weight_quantization`` overrides it per instance) and by
 the GenerationEngine (``quantize_weights=``). The partition tags the
-JAX rewrite stamps onto the quantized vars belong to ROADMAP A10;
-``calibrate`` (the w8a8 activation observers over a Program) is not
-ported (ROADMAP A7).
+JAX rewrite stamps onto the quantized vars belong to ROADMAP A10.
+
+``calibrate`` (``paddle_tpu/quantize/__init__.py:362``) puts one
+``moving_average_abs_max_scale`` observer (``ops/quant.py``) on the X
+input of each matmul and quantized matmul op of a clone of a Program,
+drives feeds through it and returns each activation's scale, the scale
+an activation-quantized (w8a8) op would consume. The JAX package has no
+such op, and neither has the port.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
+import numpy as np
 import torch
 
 from ..core.framework import Program
@@ -50,8 +56,8 @@ from ..kernels.quant_matmul import (DEFAULT_BLOCK, QUANT_MODES,
                                     quantize_weight, quantized_weight_bytes,
                                     scale_shape)
 
-__all__ = ["rewrite_for_inference", "QuantizeReport", "QUANT_MODES",
-           "DEFAULT_BLOCK"]
+__all__ = ["rewrite_for_inference", "calibrate", "QuantizeReport",
+           "QUANT_MODES", "DEFAULT_BLOCK"]
 
 _FLOATS = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
@@ -321,3 +327,73 @@ def _rewrite_module(model, wdtype: str = "int8", block: int = DEFAULT_BLOCK,
         report.quantized(name, shape, dtype,
                          quantized_weight_bytes(shape, wdtype, block))
     return report
+
+
+def calibrate(program, feeds, scope=None, executor=None,
+              moving_rate: float = 0.9,
+              max_batches: int = 8) -> Dict[str, float]:
+    """{activation var name: calibrated scale}: one observer per
+    distinct X input of ``mul`` / ``matmul`` / ``matmul_v2`` /
+    ``quantized_fc`` / ``quantized_matmul`` in a ``for_test`` clone of
+    ``program``, up to ``max_batches`` feeds of ``feeds`` run through
+    it, and accum / state of each running abs-max. The observer state
+    (``{x}.act_accum`` / ``{x}.act_state``) lives in ``scope`` during
+    the run and is erased after; the observed program's own numbers do
+    not change (the observer's Out is never read). ``executor``
+    defaults to one on CUDA."""
+    from ..core.executor import Executor, global_scope
+    from ..core.places import CUDAPlace
+
+    scope = scope if scope is not None else global_scope()
+    inst = program.clone(for_test=True)
+    blk = inst.global_block()
+    targets = []
+    for op in blk.ops:
+        if op.type not in set(_MATMUL_OPS) | _QUANTIZED_OPS:
+            continue
+        xs = op.inputs.get("X", [])
+        if len(xs) != 1 or xs[0] in targets:
+            continue
+        targets.append(xs[0])
+    if not targets:
+        return {}
+    state = {}
+    for x in targets:
+        accum, st = f"{x}.act_accum", f"{x}.act_state"
+        out, osc = f"{x}.act_obs_out", f"{x}.act_scale"
+        for n in (accum, st):
+            blk.create_var(n, shape=[1], dtype="float32", persistable=True)
+            scope.set_var(n, np.zeros(1, np.float32))
+        blk.create_var(out, shape=None, dtype="float32")
+        blk.create_var(osc, shape=[1], dtype="float32")
+        blk.append_op(
+            type="moving_average_abs_max_scale",
+            inputs={"X": [x], "InAccum": [accum], "InState": [st]},
+            outputs={"Out": [out], "OutScale": [osc],
+                     "OutAccum": [accum], "OutState": [st]},
+            attrs={"moving_rate": float(moving_rate)})
+        state[x] = (accum, st)
+    inst._bump()
+    exe = executor or Executor(CUDAPlace(0))
+    n = 0
+    try:
+        for feed in feeds:
+            if n >= max_batches:
+                break
+            exe.run(inst, feed=dict(feed),
+                    fetch_list=[f"{targets[0]}.act_scale"], scope=scope)
+            n += 1
+        if n == 0:
+            raise ValueError("calibrate: the feeds iterable yielded no "
+                             "batches")
+        scales = {}
+        for x, (accum, st) in state.items():
+            a = float(scope.get_numpy(accum).reshape(()))
+            s = float(scope.get_numpy(st).reshape(()))
+            scales[x] = a / s if s else 0.0
+    finally:
+        # calibration state is scratch, not model state
+        for accum, st in state.values():
+            scope.erase(accum)
+            scope.erase(st)
+    return scales

@@ -295,7 +295,10 @@ def run_plan(plan: _Plan, env: Dict[str, Any], ctx: LoweringContext) -> None:
                             "not defined; did you run the startup program / "
                             "feed this var?") from None
                 ident = int(op.attrs.get("op_ident", 0))
-                if not opdef.auto_grad and ident in plan.record:
+                if i in plan.retrace:
+                    _record_retraced(ctx, op, ins, *plan.retrace[i])
+                    outs = opdef.lower(ctx, op, ins)
+                elif not opdef.auto_grad and ident in plan.record:
                     outs = run_recorded(ctx, opdef, op, ins,
                                         plan.record[ident])
                 else:
@@ -311,6 +314,26 @@ def run_plan(plan: _Plan, env: Dict[str, Any], ctx: LoweringContext) -> None:
         raise RuntimeError(
             f"{len(ctx.tape)} forward record(s) were never consumed by "
             f"a grad op (op_idents {sorted(ctx.tape)})")
+
+
+class _Retraced:
+    """The forward op as its grad op names its inputs."""
+
+    def __init__(self, fwd, grad):
+        self.type = fwd.type
+        self.attrs = fwd.attrs
+        self.outputs = fwd.outputs
+        self.inputs = {s: grad.inputs[s] for s in fwd.inputs
+                       if s in grad.inputs}
+
+
+def _record_retraced(ctx, grad, ins, fwd, fwd_def) -> None:
+    """Record ``fwd`` on the inputs its grad op names (``_Plan.
+    _retraced``), for the grad op to consume at once."""
+    want = {s[: -len("@GRAD")] for s, ns in grad.outputs.items()
+            if s.endswith("@GRAD") and ns}
+    fins = {s: ins[s] for s in fwd_def.input_slots if s in ins}
+    run_recorded(ctx, fwd_def, _Retraced(fwd, grad), fins, want)
 
 
 def _is_opt(op) -> bool:

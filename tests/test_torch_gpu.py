@@ -1712,3 +1712,128 @@ def test_switch_moe_on_cuda_matches_cpu(cuda):
     torch.testing.assert_close(a_aux.cpu(), c_aux, atol=1e-5, rtol=1e-5)
     for x, y in zip(a_g, c_g):
         torch.testing.assert_close(x.cpu(), y, atol=1e-3, rtol=1e-3)
+
+
+# -- the fake-quantize family, clip-built activations and scatter -------------
+
+
+def _lower_op(op_type, inputs, attrs, device, grads=(), seed=0):
+    """One lowering on ``device`` under autograd: its outputs and, for
+    the ``grads`` slots, the gradients of every float output summed
+    against seeded weights."""
+    from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
+
+    class Op:
+        pass
+
+    Op.attrs = dict(attrs, op_ident=1)
+    ins, leaves = {}, []
+    for slot, vals in inputs.items():
+        ins[slot] = []
+        for a in (vals if isinstance(vals, list) else [vals]):
+            t = torch.as_tensor(np.asarray(a)).to(device)
+            if slot in grads:
+                t.requires_grad_(True)
+                leaves.append(t)
+            ins[slot].append(t)
+    Op.inputs = {s: [f"{s}{k}" for k in range(len(v))] for s, v in ins.items()}
+    with torch.enable_grad():
+        outs = get_op_def(op_type).lower(LoweringContext(device), Op, ins)
+        Op.outputs = {s: [s] for s in outs}
+        flat = [o for s in sorted(outs) for o in outs[s]]
+        res = [o.detach().cpu() for o in flat]
+        if leaves:
+            g = torch.Generator().manual_seed(seed)
+            terms = [(o * torch.randn(o.shape, generator=g).to(device)).sum()
+                     for o in flat if o.is_floating_point() and o.requires_grad]
+            res += [x.cpu() for x in torch.autograd.grad(sum(terms), leaves)]
+    return res
+
+
+def _same_on_both(op_type, inputs, attrs, grads=(), exact=False):
+    cpu = _lower_op(op_type, inputs, attrs, "cpu", grads)
+    card = _lower_op(op_type, inputs, attrs, "cuda", grads)
+    assert len(cpu) == len(card)
+    for a, b in zip(card, cpu):
+        if exact or not b.is_floating_point():
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+_X = np.random.RandomState(0).randn(6, 5).astype(np.float32)
+_P = np.array([0.9], np.float32)
+
+FAKE_QUANT = {
+    "fake_quantize_abs_max": ({"X": _X}, {"bit_length": 8}),
+    "fake_quantize_dequantize_moving_average_abs_max": (
+        {"X": _X, "InScale": _P, "InAccum": _P * 2, "InState": _P + 1},
+        {"moving_rate": 0.9}),
+    "fake_quantize_moving_average_abs_max": (
+        {"X": _X, "InScale": _P}, {"is_test": True}),
+    "fake_channel_wise_quantize_abs_max": ({"X": _X.reshape(6, 5, 1)}, {}),
+    "fake_dequantize_max_abs": ({"X": _X, "Scale": _P}, {}),
+    "fake_quantize_range_abs_max": (
+        {"X": _X, "InScale": _P, "Iter": np.array([3.0], np.float32),
+         "InScales": np.array([0.5, 4.0, 0.2], np.float32)}, {}),
+    "moving_average_abs_max_scale": ({"X": _X, "InAccum": _P,
+                                      "InState": _P}, {}),
+    "fake_channel_wise_dequantize_max_abs": (
+        {"X": _X, "Scales": [np.abs(_X[:, 0]) + 0.1, _P]},
+        {"quant_bits": [8, 4]}),
+    "dequantize_abs_max": ({"X": (_X * 40).astype(np.int8), "Scale": _P},
+                           {}),
+    "quantize": ({"Input": _X * 20}, {"Scale": 3.0, "Shift": 128.0}),
+    "dequantize": ({"Input": (np.abs(_X) * 40).astype(np.uint8)},
+                   {"Scale": 3.0, "Shift": 1.0}),
+    "requantize": ({"Input": (_X * 40).astype(np.int8)},
+                   {"Scale_in": 3.0, "Scale_out": 2.0}),
+    "lookup_table_dequant": ({"W": np.abs(_X), "Ids": np.array([5, 0, 5])},
+                             {}),
+}
+
+
+@pytest.mark.parametrize("op", sorted(FAKE_QUANT))
+def test_fake_quant_op_on_cuda_matches_cpu(cuda, op):
+    inputs, attrs = FAKE_QUANT[op]
+    grads = ("X",) if "X" in inputs and inputs["X"].dtype == np.float32 \
+        and op not in ("lookup_table_dequant",) else ()
+    _same_on_both(op, inputs, attrs, grads)
+
+
+def test_fake_quant_rounds_half_to_even_on_cuda(cuda):
+    x = np.array([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5, 100.5]],
+                 np.float32)
+    _same_on_both("fake_quantize_abs_max", {"X": x}, {}, ("X",), exact=True)
+    _same_on_both("fake_quantize_abs_max", {"X": np.zeros((2, 3), np.float32)},
+                  {}, ("X",), exact=True)
+
+
+@pytest.mark.parametrize("op,x,attrs", [
+    ("relu6", [-1.0, 0.0, 3.0, 6.0, 7.0], {}),
+    ("hard_swish", [-4.0, -3.0, 0.0, 3.0, 4.0], {}),
+    ("hard_sigmoid", [-3.0, -2.0, 0.0, 2.0, 3.0], {"slope": 0.25,
+                                                   "offset": 0.5}),
+])
+def test_clip_built_activations_at_bounds_on_cuda(cuda, op, x, attrs):
+    """The 0.5 gradient at each bound (``_bounded``) on the card, bit for
+    bit as on the CPU."""
+    _same_on_both(op, {"X": np.array([x], np.float32)}, attrs, ("X",),
+                  exact=True)
+
+
+def test_scatter_with_repeated_ids_on_cuda_takes_the_last_update(cuda):
+    """A repeated id under ``overwrite`` takes its last update on the
+    card as on the CPU (rows reduced to one write each: no race), with
+    no gradient to the overwritten updates."""
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, 50, 4000).astype(np.int64)
+    x = rng.randn(50, 8).astype(np.float32)
+    upd = rng.randn(4000, 8).astype(np.float32)
+    inputs = {"X": x, "Ids": ids, "Updates": upd}
+    _same_on_both("scatter", inputs, {"overwrite": True}, ("X", "Updates"),
+                  exact=True)
+    out = _lower_op("scatter", inputs, {"overwrite": True}, "cuda")[0]
+    last = {int(i): k for k, i in enumerate(ids)}
+    for i, k in last.items():
+        np.testing.assert_array_equal(out[i].numpy(), upd[k])

@@ -129,7 +129,16 @@ def test_port_package_imports_no_jax_or_paddle_tpu():
                 "paddle_tpu_torch.ops.lod",
                 "paddle_tpu_torch.ops.moe",
                 "paddle_tpu_torch.layers.extras",
-                "paddle_tpu_torch.models.ctr"):
+                "paddle_tpu_torch.models.ctr",
+                # the fake-quantize family, QAT and the everyday layers
+                "paddle_tpu_torch.ops.misc",
+                "paddle_tpu_torch.layers.ops",
+                "paddle_tpu_torch.layers.tensor",
+                "paddle_tpu_torch.nets",
+                "paddle_tpu_torch.models.mnist",
+                "paddle_tpu_torch.models.vision",
+                "paddle_tpu_torch.contrib.slim",
+                "paddle_tpu_torch.contrib.slim.quantization"):
         assert mod in res["port"]
 
 
