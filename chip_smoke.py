@@ -6,7 +6,7 @@
                                      #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4,
                                      #   e1, e2 (+ grouped conv share)
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789abcde), no result line
+                                        #   23456789abcdef), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -266,6 +266,39 @@ e. the conv families and quantization, its own peak printed. e1:
    depth, b2's batch, weights quantized in the scope as the Predictor
    does at load), 8 batches: one finite positive scale for each distinct
    matmul input, no observer state left, K1 2L+1 and K11 4L+1 a batch.
+f. the serving host tiers on gpt3_1p3b (phase 3's seeded weights and
+   prompts, default geometry, 32 new tokens): f1, a PrefillWorker and a
+   DecodeWorker (two engines, two graphs, one card) over one predictor,
+   a HostPageStore behind PageStoreServer / PageStoreClient on loopback
+   TCP (a cap of ``STORE_MAX_BYTES``), driven by a DisaggService from 4
+   client threads, with float32 pools over the raw wire and with int8
+   pools (pages verbatim): every stream's 32 tokens, the oracle
+   (float32), tokens equal to phase 3's (float32) or to a co-located
+   int8 engine's, a stream that differs first differing at a near-tie;
+   the decode side's spliced pages equal the store's bit for bit; K2
+   (K2q) 24 and K1 49 launches every step of both engines, every step a
+   graph replay; 16 handoffs, no store error. f3: the drain spills the
+   decode side's trie; a fresh DecodeWorker on that store pulls pages
+   and gives the cold split's tokens; warm TTFT against cold printed.
+   f2: float32 pools over ``int8_block``: wire bytes <= 0.30 of the
+   float32 bytes, decoded pages within ``blockwise_error_bound``, the
+   oracle at phase 7's int8 tolerance. f4: decode ITL p50 while 8
+   prompts of 1000 tokens flood the prefill tier, against idle and the
+   co-located engines (printed, not gated). f5: a ServingServer over the
+   split behind a TrafficController (two tenants' token buckets, three
+   classes): a quota shed answers 429 with Retry-After, unmeetable
+   deadlines shed before any batch slot (submitted + shed = offered
+   exactly), a client that stops reading is cancelled and its lane
+   freed before its generation would end while a healthy stream
+   completes, one /metrics scrape holds every tier's series, /healthz
+   both phases, a traceparent request one connected trace across both
+   tiers and the page store, /v1/admin/flight/dump its JSON. f6: ResNet-50
+   saved for inference and served by a WorkerPool of 2 spawned workers on
+   the card over SO_REUSEPORT; clients on 8 threads through a rolling
+   restart (at least 64 requests), none failed, each answer within 1e-4
+   of this process's; /metrics/fleet merges the pool and this process
+   under worker= labels with the paddle_slo_* gauges. Every engine
+   drains with ``check_integrity`` and zero pages in use.
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -329,7 +362,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789abcde"
+ALL_PHASES = "23456789abcdef"
 DEVICE = "cuda"
 
 
@@ -342,7 +375,15 @@ def require(cond, msg):
         raise SmokeFailure(msg)
 
 
+_T0 = time.monotonic()
+
+
 def log(msg=""):
+    """One line of the run's log; a phase's first line carries the
+    seconds since the script started, so the log reads as the run's
+    time line."""
+    if msg.startswith("phase"):
+        msg = f"{msg} [{time.monotonic() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1595,9 +1636,9 @@ def run_clients(eng, prompts, max_new, adapters=None, ids=None,
             for i in mine:
                 if submitted is not None:
                     submitted[i] = time.monotonic()
-                streams[i] = eng.submit(
-                    prompts[i], max_new_tokens=max_new,
-                    adapter=None if adapters is None else adapters[i])
+                kw = {} if adapters is None else {"adapter": adapters[i]}
+                streams[i] = eng.submit(prompts[i], max_new_tokens=max_new,
+                                        **kw)
             for i in mine:
                 streams[i].result(timeout=600)
         except Exception as e:  # noqa: BLE001 — recorded, fails the phase below
@@ -3427,6 +3468,28 @@ def first_difference(np, pred, prompt, mine, theirs):
     return k, float(row[-1] - row[-2]), float(np.abs(row).max())
 
 
+def same_or_near_tie(np, pred, prompts, streams, base, what):
+    """Streams equal ``base`` token for token; where one differs, it first
+    differs where the teacher-forced top-2 gap is within 1e-3 of
+    max|logit| (phase a's rule). Returns (identical, first differences)."""
+    same, diffs = 0, []
+    for i, s in enumerate(streams):
+        mine = list(s.tokens) if hasattr(s, "tokens") else list(s)
+        if mine == list(base[i]):
+            same += 1
+            continue
+        k, gap, top = first_difference(np, pred, prompts[i], mine,
+                                       list(base[i]))
+        diffs.append({"request": i, "index": k, "top2_gap": gap,
+                      "max_abs_logit": top})
+        require(gap <= 1e-3 * top, f"{what}: request {i} leaves the "
+                f"reference at token {k}, where the top-2 gap {gap:.3e} is "
+                f"past 1e-3 of max|logit| {top:.3e}")
+    log(f"  {what}: {same} of {len(streams)} streams identical to the "
+        f"reference; first differences {diffs}")
+    return same, diffs
+
+
 def serve_spec(torch, np, seed, card, out_dir, base_tokens=None):
     """Phase a, spec: phase 3's weights and prompts served with
     ``spec_tokens=6`` and a full-replica, a 2-layer and a garbage draft,
@@ -3504,22 +3567,10 @@ def serve_spec(torch, np, seed, card, out_dir, base_tokens=None):
             f"{perf['propose_ms_p50']:.3f} ms a propose, "
             f"{perf['draft_share_of_wall']:.4f} of the wall time [{card}]")
         oracle(np, pred, prompts, streams, ids=range(len(prompts)))
-        same = [list(s.tokens) == b for s, b in zip(streams, base_tokens)]
-        diffs = []
-        for i, s in enumerate(streams):
-            if same[i]:
-                continue
-            k, gap, top = first_difference(np, pred, prompts[i],
-                                           list(s.tokens), base_tokens[i])
-            diffs.append({"request": i, "index": k, "top2_gap": gap,
-                          "max_abs_logit": top})
-            require(gap <= 1e-3 * top,
-                    f"{what}: request {i} leaves the spec-off tokens at "
-                    f"token {k}, where the top-2 gap {gap:.3e} is past "
-                    f"1e-3 of max|logit| {top:.3e}")
-        perf.update(identical_to_spec_off=sum(same), differences=diffs)
-        log(f"  {what}: {sum(same)} of {len(same)} streams identical to the "
-            f"spec-off run; first differences {diffs}")
+        same, diffs = same_or_near_tie(np, pred, prompts, streams,
+                                       base_tokens, f"{what} (the spec-off "
+                                       "run's tokens)")
+        perf.update(identical_to_spec_off=same, differences=diffs)
         if name == "replica":
             perf["graph_vs_eager"] = check_graph_vs_eager(
                 torch, np, eng, prompts, what=what)
@@ -5679,6 +5730,718 @@ def card_vs_cpu_se_resnext(torch, np, seed, steps=2):
             "loss_max_abs_err": loss_err, "state_max_abs_err": worst[0]}
 
 
+# -- phase f: the serving host tiers ------------------------------------------
+
+# the page store's byte cap in phase f: phase 3's 16 prompts (7,551 tokens,
+# 464 full pages) are 2.92 GB as raw float32 pages of 6,291,456 bytes (24
+# layers x 2 x 16 heads x 16 slots x 128 x 4 bytes), and the flood of f4
+# adds 496 pages of about 1.6 MB as int8_block; the flag's default of
+# 256 MiB would hold about 40 raw pages
+STORE_MAX_BYTES = 8 * 2 ** 30
+# f4's flood: 8 prompts as long as gpt3_1p3b's 1024 positions allow with
+# a token to generate
+FLOOD_TOKENS = 1000
+SPLIT_KEYS = ("requests_total", "responses_total", "handoffs_total",
+              "handoff_failures_total", "cancelled_total",
+              "pages_shipped_total", "pages_pulled_total",
+              "store_lookups_total", "store_hits_total", "store_hit_rate",
+              "store_pages", "wire_bytes_total", "fp32_bytes_total",
+              "wire_ratio")
+
+
+def split_service(pred, cfg, store_srv, kv_dtype):
+    """One PrefillWorker and one DecodeWorker over one predictor (the
+    weights shared), each with its own PageStoreClient to the store's
+    loopback server, driven by a DisaggService; default geometry."""
+    from paddle_tpu_torch.disagg import (DecodeWorker, DisaggService,
+                                         PageStoreClient, PrefillWorker)
+
+    def client():
+        return PageStoreClient(store_srv.host, store_srv.port,
+                               page_size=16, timeout_s=60.0)
+
+    pf = PrefillWorker(pred, cfg, client(), kv_dtype=kv_dtype, warmup=True)
+    dw = DecodeWorker(pred, cfg, client(), kv_dtype=kv_dtype, warmup=True)
+    return DisaggService(prefill=[pf], decode=[dw])
+
+
+def drain_checked(closable, engines, what):
+    """``closable`` closes with a drain (each engine's trie spills to its
+    store and is dropped); every engine keeps its invariants and holds
+    zero pages in use."""
+    closable.close(drain=True)
+    for eng in engines:
+        eng.cache.check_integrity()
+        used = eng.stats()["cache"]["pages_in_use"]
+        require(used == 0, f"{what}: {used} pages in use after the drain")
+
+
+def split_launches(K, counts, svc, L, attn, what):
+    """Both engines' steps launched exactly L attention kernels (``attn``)
+    and 2L + 1 layer norms each, every step a graph replay."""
+    steps = 0
+    for w in svc._prefill + svc._decode:
+        st = w.engine.stats()
+        require_graphed(st, st["ragged_steps_total"],
+                        f"{what} {w.engine.phase}")
+        steps += st["ragged_steps_total"]
+    other = ("ragged_paged_attention_q" if attn == "ragged_paged_attention"
+             else "ragged_paged_attention")
+    require(counts[attn] == L * steps and counts["layer_norm"]
+            == (2 * L + 1) * steps and counts[other] == 0,
+            f"{what}: {steps} steps of both engines launched {counts}")
+    log(f"  {what}: {steps} engine steps (prefill + decode), {attn} "
+        f"{counts[attn]} = {L} x {steps}, layer_norm {counts['layer_norm']}"
+        f" = {2 * L + 1} x {steps}")
+    return steps
+
+
+def split_run(torch, np, K, pred, cfg, prompts, lengths, card, *, kv_dtype,
+              encoding, base, tie_gate=True):
+    """f1 / f2: phase 3's 16 prompts through the split over a TCP page
+    store. Returns (launch counts, record, service, store server) with
+    the service still open (f3 and f4 go on from it)."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.disagg import PageStoreServer, run_for_pool
+
+    what = f"f {kv_dtype} pools, {encoding} wire"
+    set_flags({"disagg_wire_encoding": encoding})
+    store_srv = PageStoreServer(page_size=16, max_bytes=STORE_MAX_BYTES)
+    t0 = time.perf_counter()
+    svc = split_service(pred, cfg, store_srv, kv_dtype)
+    boot = time.perf_counter() - t0
+    max_new = 32
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    streams, wall = run_clients(svc, prompts, max_new)
+    counts = K.launch_counts()
+    check_streams(streams, max_new)
+    L = cfg.num_layers
+    attn = ("ragged_paged_attention_q" if kv_dtype == "int8"
+            else "ragged_paged_attention")
+    steps = split_launches(K, counts, svc, L, attn, what)
+    sn = svc.stats_numeric()
+    pf, dw = svc._prefill[0].engine, svc._decode[0].engine
+    errs = [pf.store_errors_total, dw.store_errors_total]
+    require(sn["handoffs_total"] == len(prompts)
+            and sn["handoff_failures_total"] == 0 and errs == [0, 0],
+            f"{what}: handoffs {sn['handoffs_total']}, failures "
+            f"{sn['handoff_failures_total']}, store errors {errs}")
+    require(sn["pages_pulled_total"] > 0 and sn["pages_shipped_total"] > 0,
+            f"{what}: pages shipped {sn['pages_shipped_total']}, pulled "
+            f"{sn['pages_pulled_total']}")
+    # the decode side's spliced pages against the store's: bit for bit for
+    # raw and int8 pages, within the blockwise bound for int8_block; and
+    # the prefill side's exported pages against what the store holds
+    from paddle_tpu_torch.kernels.quant import blockwise_error_bound
+
+    checked, worst, bounded = 0, 0.0, 0
+    for i, p in enumerate(prompts):
+        # the pages the decode side pulled (one token is always left to
+        # prefill, so a page-aligned prompt's last page is its own)
+        n, k_run, v_run, ks, vs = dw.cache.export_run(
+            p, max_pages=(len(p) - 1) // 16)
+        if not n:
+            continue
+        got = run_for_pool(store_srv.store.match(p)[:n], kv_dtype)
+        lossy = encoding == "int8_block" and kv_dtype == "float32"
+        # raw and int8 pages: bit for bit (a page that an ingest under
+        # pool pressure left to the decode side's own prefill is
+        # computed as the prefill side computed it). f2's float32 pages
+        # are held to the store's decoded pages within the bound below
+        same = (np.array_equal(k_run, got[1])
+                and np.array_equal(v_run, got[2])
+                and (ks is None or (np.array_equal(ks, got[3])
+                                    and np.array_equal(vs, got[4]))))
+        require(lossy or same, f"{what}: request {i}: the spliced pages "
+                "differ from the store's")
+        if lossy and bounded < 2:
+            # f2, two requests: the prefill pool's and the decode pool's
+            # float32 pages against the decoded wire
+            bounded += 1
+            m, pk, pv, _, _ = pf.cache.export_run(p, max_pages=n)
+            for a, b in ((pk[:m], got[1][:m]), (pv[:m], got[2][:m]),
+                         (k_run, got[1]), (v_run, got[2])):
+                for j in range(m):
+                    bound = blockwise_error_bound(
+                        a[j].reshape(-1, a.shape[-1]), a.shape[-1])
+                    err = float(np.abs(a[j] - b[j]).max())
+                    require(err <= bound + 1e-6, f"{what}: request {i} page "
+                            f"{j}: decoded error {err} past the bound "
+                            f"{bound}")
+                    worst = max(worst, err / bound if bound else 0.0)
+        checked += n
+    require(checked > 0, f"{what}: no spliced page left to check")
+    perf = serving_perf(torch, dw.stats(), streams, wall, lengths, card,
+                        what=f"served ({what})")
+    ms = svc.metrics.snapshot()
+    st = store_srv.store.stats()
+    perf.update(
+        boot_s=boot, engine_steps_both=steps,
+        prefill_steps=pf.stats()["ragged_steps_total"],
+        service_ttft_ms_p50=ms["ttft_ms"]["p50"],
+        handoff_ms_p50=ms["handoff_ms"]["p50"],
+        handoff_ms_mean=ms["handoff_ms"]["mean"],
+        prefill_ms_p50=ms["prefill_ms"]["p50"],
+        split=dict((k, sn.get(k)) for k in SPLIT_KEYS),
+        store_bytes=st["bytes"], store_max_bytes=st["max_bytes"],
+        store_evictions=st["evictions_total"],
+        wire_bytes_a_page=(st["wire_bytes_total"]
+                           / max(1, st["put_pages_total"])),
+        spliced_pages_checked=checked,
+        worst_error_of_bound=(worst if encoding == "int8_block"
+                              and kv_dtype == "float32" else None))
+    log(f"  {what}: {sn['handoffs_total']} handoffs, handoff p50 "
+        f"{perf['handoff_ms_p50']} ms (mean {perf['handoff_ms_mean']}), "
+        f"prefill phase p50 {perf['prefill_ms_p50']} ms, service TTFT p50 "
+        f"{perf['service_ttft_ms_p50']} ms; {sn['pages_shipped_total']} pages "
+        f"shipped, {sn['pages_pulled_total']} pulled, wire "
+        f"{st['wire_bytes_total']} bytes for {st['fp32_bytes_total']} "
+        f"float32 bytes (ratio {st['wire_ratio']}), {checked} spliced pages "
+        f"checked; store {st['bytes']} of {st['max_bytes']} bytes; engines "
+        f"built in {boot:.1f} s [{card}]")
+    if kv_dtype == "float32":
+        oracle(np, pred, prompts, streams,
+               rel=1e-3 if encoding == "raw" else ORACLE_REL["int8_block"])
+    if tie_gate:
+        perf["identical"], perf["differences"] = same_or_near_tie(
+            np, pred, prompts, streams, base, what)
+    else:
+        perf["identical"] = sum(list(s.tokens) == list(b)
+                                for s, b in zip(streams, base))
+        log(f"  {what}: {perf['identical']} of {len(streams)} streams "
+            "identical to phase 3's float32 tokens (reported, not gated)")
+    return counts, perf, svc, store_srv
+
+
+def warm_start(torch, np, K, pred, cfg, prompts, store_srv, cold, card):
+    """f3: a fresh DecodeWorker on the store the drain spilled into serves
+    the 16 prompts warm; its tokens equal the cold split's."""
+    from paddle_tpu_torch.disagg import DecodeWorker, PageStoreClient
+
+    dw = DecodeWorker(pred, cfg, PageStoreClient(
+        store_srv.host, store_srv.port, page_size=16, timeout_s=60.0),
+        warmup=True)
+    eng = dw.engine
+    K.reset_launch_counts()
+    streams, wall = run_clients(dw, prompts, 32)
+    counts = K.launch_counts()
+    check_streams(streams, 32)
+    st = eng.stats()
+    steps = st["ragged_steps_total"]
+    require_graphed(st, steps, "f3 warm decode worker")
+    require(counts["ragged_paged_attention"] == cfg.num_layers * steps,
+            f"f3: {steps} steps launched {counts}")
+    pulled = st["store"]["pages_pulled_total"]
+    require(pulled > 0 and st["store"]["errors_total"] == 0,
+            f"f3: {pulled} pages pulled, {st['store']['errors_total']} "
+            "store errors")
+    ttft = st["ttft_ms"]["p50"]
+    perf = {"pages_pulled": pulled, "ttft_ms_p50": ttft,
+            "cold_service_ttft_ms_p50": cold["service_ttft_ms_p50"],
+            "warm_over_cold": ttft / cold["service_ttft_ms_p50"],
+            "jax_cpu_gate": 0.5, "tokens_per_s": 32 * len(prompts) / wall,
+            "wall_s": wall, "prefill_tokens": st["prefill_tokens_total"],
+            "card": card}
+    log(f"  f3: a fresh decode worker pulled {pulled} pages and prefilled "
+        f"{st['prefill_tokens_total']} tokens; TTFT p50 warm {ttft} ms "
+        f"against the cold split's {cold['service_ttft_ms_p50']} ms "
+        f"(ratio {perf['warm_over_cold']:.3f}; the JAX bench's CPU gate "
+        f"is 0.5, printed, not gated) [{card}]")
+    perf["identical"], perf["differences"] = same_or_near_tie(
+        np, pred, prompts, streams, cold["tokens"], "f3 warm against cold")
+    drain_checked(dw, [eng], "f3")
+    return counts, perf
+
+
+def prefill_flood(torch, np, svc, cfg, seed, card, colocated):
+    """f4: decode ITL while long prompts saturate the prefill tier,
+    against the same decode worker idle. Reported, not gated: both tiers
+    share the card's SMs."""
+    rng = np.random.RandomState(seed + 4)
+    pf = svc._prefill[0]
+
+    def decode_wave(flood):
+        stamps = [[] for _ in range(4)]
+        short = [rng.randint(0, cfg.vocab_size, size=16).astype(np.int64)
+                 for _ in range(4)]
+        streams = [svc.submit(p, max_new_tokens=96,
+                              on_token=lambda _t, i=i: stamps[i].append(
+                                  time.perf_counter()))
+                   for i, p in enumerate(short)]
+        t_end = time.monotonic() + 300
+        while any(len(s) < 2 for s in stamps) and time.monotonic() < t_end:
+            time.sleep(0.005)
+        t_flood = time.perf_counter()
+        floods, errors = [], []
+
+        def prefill(p):
+            try:
+                pf.prefill(p, timeout=600)
+            except Exception as e:  # noqa: BLE001 — fails the phase below
+                errors.append(repr(e))
+
+        if flood:
+            longs = [rng.randint(0, cfg.vocab_size, size=FLOOD_TOKENS)
+                     .astype(np.int64) for _ in range(8)]
+            floods = [threading.Thread(target=prefill, args=(p,))
+                      for p in longs]
+            for t in floods:
+                t.start()
+        for s in streams:
+            s.result(timeout=600)
+        t_done = time.perf_counter()
+        for t in floods:
+            t.join(600)
+        require(not errors and not any(t.is_alive() for t in floods),
+                f"f4: the flood's prefills failed: {errors[:2]}")
+        gaps = [(b - a) * 1e3 for st in stamps for a, b in zip(st, st[1:])
+                if a >= t_flood]
+        return statistics.median(gaps), len(gaps), t_done - t_flood
+
+    idle, n_idle, _ = decode_wave(False)
+    busy, n_busy, window = decode_wave(True)
+    pst = pf.engine.stats()
+    perf = {"itl_ms_p50_idle": idle, "itl_ms_p50_flood": busy,
+            "flood_over_idle": busy / idle, "gaps_idle": n_idle,
+            "gaps_flood": n_busy, "flood_window_s": window,
+            "colocated_ragged_itl_ms_p50": colocated.get("ragged"),
+            "colocated_two_lane_itl_ms_p50": colocated.get("two_lane"),
+            "jax_cpu_gate": 1.3, "prefill_steps": pst["ragged_steps_total"],
+            "card": card}
+    log(f"  f4: decode ITL p50 {busy:.3f} ms under a flood of 8 prompts of "
+        f"{FLOOD_TOKENS} tokens on the prefill tier ({n_busy} gaps in {window:.2f} s), "
+        f"{idle:.3f} ms idle (ratio {busy / idle:.3f}; the JAX bench's CPU "
+        f"gate 1.3 is printed, not gated); co-located ragged "
+        f"{colocated.get('ragged')} ms, two_lane {colocated.get('two_lane')} "
+        f"ms (phases 3, 3b) [{card}]")
+    return perf
+
+
+def stalled_generate(host, port, payload):
+    """A /v1/generate client that reads the head of its stream and stops
+    reading (a tiny receive buffer): returns the socket, kept open."""
+    import socket
+
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1024)
+    s.settimeout(60)
+    s.connect((host, port))
+    body = json.dumps(payload).encode()
+    s.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+              b"Content-Type: application/json\r\n"
+              + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    s.recv(256)
+    return s
+
+
+def traffic_http(torch, np, pred, svc, cfg, seed, card):
+    """f5: the split behind the traffic tier over HTTP: quotas, a deadline
+    shed before any batch slot, a stalled client's cancel, the unified
+    /metrics, /healthz's phases, one trace across both tiers and the
+    flight dump."""
+    import http.client
+
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.serving import ServingEngine, ServingServer
+    from paddle_tpu_torch.traffic import (TenantSpec, TrafficConfig,
+                                          TrafficController)
+
+    rng = np.random.RandomState(seed + 5)
+    eng = ServingEngine(pred, start=False)
+    ctl = TrafficController(eng, generation_engine=svc, config=TrafficConfig(
+        queue_capacity=64, tenants={
+            "alice": TenantSpec("alice", rate=100.0, burst=100.0),
+            "bob": TenantSpec("bob", rate=0.01, burst=1.0)}))
+    srv = ServingServer(eng, generation_engine=svc, traffic=ctl,
+                        stream_write_timeout_s=0.5, sndbuf=1024)
+    dw = svc._decode[0].engine
+    rec = {}
+    offered = 0
+    sub0 = svc.metrics.snapshot()["requests_total"]
+    conn = http.client.HTTPConnection(srv.host, srv.port, timeout=600)
+    try:
+        def gen(tenant, cls, n=8, **extra):
+            nonlocal offered
+            offered += 1
+            body = {"tokens": rng.randint(0, cfg.vocab_size, size=24)
+                    .tolist(), "max_new_tokens": n, "stream": False}
+            body.update(extra)
+            return http_call(conn, "POST", "/v1/generate", body,
+                             headers={"X-Tenant": tenant,
+                                      "X-Priority": cls})
+
+        t0 = time.perf_counter()
+        for cls in ("interactive", "batch", "best_effort"):
+            for _ in range(2):
+                status, body, _ = gen("alice", cls)
+                require(status == 200 and len(body["tokens"]) == 8,
+                        f"f5: alice {cls}: {status} {body}")
+        rec["six_requests_s"] = time.perf_counter() - t0
+        status, body, _ = gen("bob", "interactive")
+        require(status == 200, f"f5: bob's first request: {status} {body}")
+        status, body, r = gen("bob", "interactive")
+        require(status == 429 and int(r.getheader("Retry-After")) >= 1
+                and body["kind"] == "shed:quota",
+                f"f5: bob's second request: {status} {body}")
+        rec["quota_shed"] = {"status": status,
+                             "retry_after": r.getheader("Retry-After"),
+                             "retry_after_s": body["retry_after_s"]}
+        for _ in range(4):
+            status, body, _ = gen("alice", "batch", deadline_ms=1.0)
+            require(status == 503 and body["kind"] == "shed:infeasible",
+                    f"f5: an unmeetable deadline answered {status} {body}")
+        # a stalled client beside a healthy stream
+        pages0 = dw.cache.stats()["active_seqs"]
+        max_new = 1000          # 16 + 1000 of gpt3_1p3b's 1024 positions
+        offered += 1
+        t_stall = time.perf_counter()
+        sock = stalled_generate(srv.host, srv.port, {
+            "tokens": rng.randint(0, cfg.vocab_size, size=16).tolist(),
+            "max_new_tokens": max_new, "eos_id": None})
+        healthy = rng.randint(0, cfg.vocab_size, size=24).tolist()
+        offered += 1
+        lines, _ = stream_generate(srv.host, srv.port,
+                                   {"tokens": healthy, "max_new_tokens": 16,
+                                    "eos_id": None},
+                                   headers={"X-Tenant": "alice"})
+        require(lines[-1].get("done") and lines[-1]["n_tokens"] == 16,
+                f"f5: the healthy stream ended {lines[-1]}")
+        t_end = time.monotonic() + 120
+        while time.monotonic() < t_end:
+            st = dw.stats()
+            if st["cancelled_total"] >= 1 and st["active_seqs"] == pages0:
+                break
+            time.sleep(0.02)
+        freed_s = time.perf_counter() - t_stall
+        st = dw.stats()
+        sock.close()
+        itl = st["itl_ms"]["p50"] / 1e3
+        require(st["cancelled_total"] >= 1 and st["active_seqs"] == pages0,
+                f"f5: the stalled stream was not cancelled: {st}")
+        require(freed_s < max_new * itl,
+                f"f5: the stalled stream's lane freed after {freed_s:.2f} s, "
+                f"past its generation's {max_new * itl:.2f} s")
+        rec["stall"] = {"freed_s": freed_s,
+                        "generation_would_take_s": max_new * itl,
+                        "decoded_total": st["decode_tokens_total"]}
+        # the shed accounting, exact
+        tst = ctl.stats()
+        shed = sum(tst["shed"].values())
+        submitted = svc.metrics.snapshot()["requests_total"] - sub0
+        require(submitted + shed == offered,
+                f"f5: {submitted} submitted to the service + {shed} shed != "
+                f"{offered} offered ({tst['shed']})")
+        rec["accounting"] = {"offered": offered, "engine_submitted":
+                             submitted, "shed": tst["shed"]}
+        # one scrape holds every tier
+        status, text, _ = http_call(conn, "GET", "/metrics")
+        for fam in ("paddle_traffic_", "paddle_disagg_",
+                    "paddle_generation_", "paddle_serving_"):
+            require(status == 200 and f"\n{fam}" in text,
+                    f"f5: /metrics has no {fam}* series")
+        rec["metrics_lines"] = text.count("\n")
+        status, health, _ = http_call(conn, "GET", "/healthz")
+        phases = sorted({w["phase"] for w in health.get("phases", [])})
+        require(status == 200 and phases == ["decode", "prefill"]
+                and health.get("phase") == "disagg" and "traffic" in health,
+                f"f5: /healthz {status} {health}")
+        # one trace across both tiers and the page store
+        set_flags({"observability_tracing": True,
+                   "observability_flight_capacity": 8192})
+        try:
+            from paddle_tpu_torch.observability import propagate, tracing
+
+            client = tracing.SpanContext(tracing._new_id(),
+                                         tracing._new_id())
+            lines, _ = stream_generate(
+                srv.host, srv.port,
+                {"tokens": rng.randint(0, cfg.vocab_size, size=40).tolist(),
+                 "max_new_tokens": 4, "eos_id": None},
+                headers=propagate.inject(client))
+            offered += 1
+            require(lines[0].get("trace_id") == client.trace_id,
+                    f"f5: the stream's first line {lines[0]}")
+            status, trace, _ = http_call(
+                conn, "GET", f"/v1/admin/trace/{client.trace_id}")
+        finally:
+            set_flags({"observability_tracing": False,
+                       "observability_flight_capacity": 512})
+        names = sorted({s["name"] for s in trace.get("spans", [])})
+        require(status == 200 and {"serving/http_generate", "disagg/handoff",
+                                   "disagg/prefill_phase",
+                                   "disagg/decode_submit"} <= set(names)
+                and "generation/submit" in names
+                and any(n.startswith("pagestore/") for n in names)
+                and propagate.orphan_spans(
+                    trace["spans"], known_parents=(client.span_id,)) == [],
+                f"f5: trace {status} {names}")
+        rec["trace_spans"] = names
+        status, dump, _ = http_call(conn, "POST", "/v1/admin/flight/dump",
+                                    {})
+        require(status == 200 and os.path.isfile(dump["path"]),
+                f"f5: flight dump {status} {dump}")
+        with open(dump["path"]) as f:
+            payload = json.load(f)
+        require(payload["reason"].startswith("admin:")
+                and "paddle_disagg_handoffs_total"
+                in payload["metrics"]["collected"],
+                "f5: the flight dump lacks the registry's disagg series")
+        os.remove(dump["path"])
+        rec["flight_dump_entries"] = len(payload["entries"])
+        rec["traffic"] = {k: tst[k] for k in ("admitted", "shed", "goodput",
+                                              "deadline_miss")}
+        log(f"  f5: quota shed 429 Retry-After {rec['quota_shed']}; "
+            f"{offered} offered = {submitted} submitted + {shed} shed; the "
+            f"stalled stream's lane freed {freed_s:.2f} s after its send "
+            f"(its generation would take {max_new * itl:.1f} s); /metrics "
+            f"{rec['metrics_lines']} lines with every tier; /healthz phases "
+            f"{phases}; trace spans {names}; flight dump of "
+            f"{rec['flight_dump_entries']} entries [{card}]")
+    finally:
+        conn.close()
+        srv.close()
+        ctl.close(drain=True)
+        eng.close()
+    return rec
+
+
+def worker_pool(torch, np, seed, card, tmp):
+    """f6: ResNet-50 saved for inference, served by 2 spawned workers on
+    the card behind SO_REUSEPORT; requests from 8 threads run through a
+    rolling restart with none failed; the fleet view merges the pool's
+    and this process's exposition under worker= labels with the SLO
+    gauges."""
+    import http.client
+    import re
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models.resnet import build_resnet50
+    from paddle_tpu_torch.observability import FleetAggregator, SLOMonitor
+    from paddle_tpu_torch.serving import ServingEngine, ServingServer
+    from paddle_tpu_torch.traffic import WorkerPool
+
+    main, startup, _feeds, _fetches = build_resnet50(1000, RESNET_IMAGE)
+    test = main.clone(for_test=True)
+    softmax = [op for op in test.global_block().ops if op.type == "softmax"]
+    prob = softmax[-1].output("Out")[0]
+    exe, scope, _ = startup_on_card(torch, np, fluid, main, startup, seed)
+    d = os.path.join(tmp, "resnet50")
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, ["image"], [prob], exe, test)
+    del exe, scope
+    cfg = Config(d)
+    cfg.enable_shape_bucketing(batch_buckets=(1,))
+    pred = create_predictor(cfg, device=DEVICE)
+    rng = np.random.RandomState(seed + 6)
+    images = [rng.randn(1, 3, RESNET_IMAGE, RESNET_IMAGE).astype(np.float32)
+              for _ in range(4)]
+    want = [pred.run([x])[0] for x in images]
+    bodies = [json.dumps({"inputs": {"image": x.tolist()}}).encode()
+              for x in images]
+    t0 = time.perf_counter()
+    # batch 1 requests, served one a batch: a worker warms one shape
+    pool = WorkerPool(d, num_workers=2, use_reuseport=True, device=DEVICE,
+                      batch_buckets=[1],
+                      warmup_shapes={"image": [1, 3, RESNET_IMAGE,
+                                               RESNET_IMAGE]},
+                      engine_kwargs={"max_batch_size": 1, "num_workers": 1},
+                      ready_timeout_s=300.0)
+    boot = time.perf_counter() - t0
+    results, errors = [], []
+    restarting = threading.Event()
+    restarting.set()
+
+    retries = []
+
+    def client(c):
+        n = 0
+        while restarting.is_set() or n < 8:
+            i = (c + n) % len(images)
+            # a fresh connection a request; one that a closing listener's
+            # backlog held dies before any response byte, and is retried
+            # as a load balancer does (the JAX harness's rule,
+            # tools/traffic_replay.py:1190); a request that got a status
+            # line and then failed is a failure
+            for _attempt in range(5):
+                conn = http.client.HTTPConnection(pool.host, pool.port,
+                                                  timeout=120)
+                try:
+                    conn.request("POST", "/v1/predict", bodies[i],
+                                 {"Content-Type": "application/json",
+                                  "Connection": "close"})
+                    r = conn.getresponse()
+                except OSError as e:
+                    conn.close()
+                    retries.append(repr(e))
+                    time.sleep(0.02)
+                    continue
+                try:
+                    body = json.loads(r.read())
+                    if r.status != 200:
+                        errors.append((r.status, body))
+                    else:
+                        got = np.asarray(next(iter(
+                            body["outputs"].values())), np.float32)
+                        results.append(float(np.abs(got - want[i]).max()))
+                except Exception as e:  # noqa: BLE001 — severed mid-response
+                    errors.append(repr(e))
+                conn.close()
+                break
+            else:
+                errors.append(f"no response in 5 connections: {retries[-1]}")
+            n += 1
+            time.sleep(0.5)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    try:
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        report = pool.rolling_restart()
+        restart_s = time.perf_counter() - t0
+        restarting.clear()
+        for t in threads:
+            t.join(600)
+        require(not any(t.is_alive() for t in threads), "f6: a client hung")
+        require(errors == [], f"f6: {len(errors)} failed requests: "
+                f"{errors[:3]}")
+        require(len(results) >= 64, f"f6: only {len(results)} requests")
+        require(max(results) <= RESNET_PROB_ATOL,
+                f"f6: a worker's softmax is {max(results)} off this "
+                "process's")
+        require(all(not d_.get("forced") for d_ in report["drained"]),
+                f"f6: a drain was forced: {report['drained']}")
+        agg = FleetAggregator(slo=SLOMonitor(), timeout_s=10.0)
+        agg.watch_pool(pool)
+        own = ServingEngine(pred, start=False)
+        front = ServingServer(own, fleet=agg)
+        agg.add_endpoint(front.address, worker="driver", phase="both")
+        try:
+            conn = http.client.HTTPConnection(front.host, front.port,
+                                              timeout=60)
+            status, text, _ = http_call(conn, "GET", "/metrics/fleet")
+            conn.close()
+        finally:
+            front.close()
+            own.close()
+        workers = sorted(set(re.findall(r'worker="([^"]+)"', text)))
+        require(status == 200 and workers == ["driver", "pool"]
+                and "paddle_slo_deadline_miss_ratio" in text
+                and re.search(r'paddle_serving_requests_total\{[^}]*'
+                              r'worker="pool"', text),
+                f"f6: /metrics/fleet {status}, workers {workers}")
+        served = [d_.get("responses_total") for d_ in report["drained"]]
+        rec = {"requests": len(results), "failed": len(errors),
+               "connect_retries": len(retries),
+               "max_abs_diff": max(results), "boot_s": boot,
+               "restart_s": restart_s,
+               "worker_boot_s": [w.get("boot_s") for w in report["cold"]
+                                 + report["replacements"]],
+               "worker_warmup_ms": [w.get("warmup_ms") for w in
+                                    report["cold"] + report["replacements"]],
+               "served_by_drained_workers": served,
+               "fleet_workers": workers, "card": card}
+        log(f"  f6: {len(results)} requests through a rolling restart of 2 "
+            f"workers ({restart_s:.1f} s), none failed ({len(retries)} "
+            f"connections reset before a response, retried), softmax within "
+            f"{max(results):.2e} of this process's; workers booted in "
+            f"{rec['worker_boot_s']} s (pool up in {boot:.1f} s), the drained "
+            f"ones served {served}; /metrics/fleet merges workers {workers} "
+            f"with the paddle_slo_* gauges [{card}]")
+    finally:
+        restarting.clear()
+        pool.close()
+    return rec
+
+
+def phase_f(torch, np, seed, card, out_dir, record):
+    """Phase f: gpt3_1p3b served split (f1-f4), behind the traffic tier
+    over HTTP (f5), and a spawned worker pool (f6)."""
+    import tempfile
+
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.generation import GenerationEngine
+
+    t_phase = time.perf_counter()
+    out, paths = {}, {}
+    cfg, pred = gpt3_predictor(torch, seed)
+    lengths, prompts = serving_prompts(np, seed, cfg.vocab_size)
+    base = record.get("serve", {}).get("tokens")
+    if base is None:
+        log("  phase 3 did not run: its co-located float32 run is made here")
+        with GenerationEngine(pred, cfg, warmup=True) as eng:
+            streams, _ = run_clients(eng, prompts, 32)
+        base = [list(s.tokens) for s in streams]
+
+    log("phase f1: the split over a TCP page store, float32 pools, raw wire")
+    paths["split_f32"], out["f1_f32"], svc, store_srv = split_run(
+        torch, np, K, pred, cfg, prompts, lengths, card, kv_dtype="float32",
+        encoding="raw", base=base)
+    drain_checked(svc, [w.engine for w in svc._prefill + svc._decode], "f1")
+    log("phase f3: a fresh decode worker on the store the drain spilled into")
+    paths["warm_start"], out["f3"] = warm_start(
+        torch, np, K, pred, cfg, prompts, store_srv, out["f1_f32"], card)
+    store_srv.close()
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase f1: int8 pools, pages shipped verbatim; the co-located int8 "
+        "engine first")
+    K.reset_launch_counts()
+    with GenerationEngine(pred, cfg, kv_dtype="int8", prefix_cache=True,
+                          warmup=True) as eng8:
+        streams8, _ = run_clients(eng8, prompts, 32)
+    check_streams(streams8, 32)
+    base8 = [list(s.tokens) for s in streams8]
+    paths["split_int8"], out["f1_int8"], svc, store_srv = split_run(
+        torch, np, K, pred, cfg, prompts, lengths, card, kv_dtype="int8",
+        encoding="int8_block", base=base8)
+    drain_checked(svc, [w.engine for w in svc._prefill + svc._decode],
+                  "f1 int8")
+    store_srv.close()
+    del svc, eng8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase f2: float32 pools over the int8_block wire")
+    paths["split_wire"], out["f2"], svc, store_srv = split_run(
+        torch, np, K, pred, cfg, prompts, lengths, card, kv_dtype="float32",
+        encoding="int8_block", base=base, tie_gate=False)
+    ratio = out["f2"]["split"]["wire_ratio"]
+    require(ratio <= 0.30, f"f2: wire bytes {ratio} of the float32 bytes")
+    try:
+        log("phase f4: decode ITL under a prefill flood")
+        K.reset_launch_counts()
+        out["f4"] = prefill_flood(torch, np, svc, cfg, seed, card, {
+            "ragged": record.get("serve", {}).get("itl_ms_p50"),
+            "two_lane": record.get("serve_two_lane", {}).get("itl_ms_p50")})
+        paths["flood"] = K.launch_counts()
+        log("phase f5: the split behind the traffic tier over HTTP")
+        K.reset_launch_counts()
+        out["f5"] = traffic_http(torch, np, pred, svc, cfg, seed, card)
+        paths["traffic_http"] = K.launch_counts()
+    finally:
+        set_flags({"disagg_wire_encoding": "int8_block"})
+    drain_checked(svc, [w.engine for w in svc._prefill + svc._decode],
+                  "f2-f5")
+    store_srv.close()
+    del svc, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase f6: ResNet-50 served by a worker pool through a rolling "
+        "restart")
+    with tempfile.TemporaryDirectory(prefix="pt_phase_f_") as tmp:
+        out["f6"] = worker_pool(torch, np, seed, card, tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase f: {out['phase_s']:.1f} s [{card}]")
+    return paths, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5895,6 +6658,13 @@ def main(argv=None) -> int:
                                             args.out, args.profile)
         paths.update(epaths)
         torch.cuda.empty_cache()
+    if "f" in args.phases:
+        log("phase f: gpt3_1p3b served split through a page store, behind "
+            "the traffic tier, and a worker pool")
+        fpaths, record["phase_f"] = phase_f(torch, np, args.seed, card,
+                                            args.out, record)
+        paths.update(fpaths)
+        torch.cuda.empty_cache()
     launches = {name: {p: c[name] for p, c in paths.items()}
                 for name in K.KERNELS}
     record["launches"] = launches
@@ -5902,7 +6672,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a, b, c1, d and e)")
+        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e and f)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"

@@ -114,11 +114,24 @@ Ported so far:
       opt.minimize(loss)
       QuantizationTransformPass(startup_program=startup).apply(main)
 
+* the serving host tiers: disaggregated prefill/decode through a page
+  store (``disagg``: ``PrefillWorker``, ``DecodeWorker``,
+  ``DisaggService``, ``HostPageStore`` and its TCP server and client),
+  the traffic tier (``traffic``: token-bucket tenants, priority classes,
+  deadline sheds, ``WorkerPool`` behind SO_REUSEPORT), the unified
+  metrics registry, trace propagation and fleet aggregation with the
+  SLO gauges (``observability``);
+
+      svc = DisaggService(prefill=[PrefillWorker(pred, cfg, store)],
+                          decode=[DecodeWorker(pred, cfg, store)])
+      ctl = traffic.TrafficController(engine, generation_engine=svc)
+      srv = ServingServer(engine, generation_engine=svc, traffic=ctl)
+
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
-ported yet (ROADMAP A): the host tiers (A9: the reader, the rest of
-``observability/``), distribution (A10: meshes, expert parallelism, DGC
-and pipeline optimizers) and the long tail (A11: ``StaticRNN`` /
-``DynamicRNN`` and the rest).
+ported yet (ROADMAP A): the data tiers (A9b: the reader, the data
+feeder, the profiler), distribution (A10: meshes, expert parallelism,
+DGC and pipeline optimizers) and the long tail (A11: ``StaticRNN`` /
+``DynamicRNN``, autotune and the rest).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of

@@ -8,8 +8,11 @@ fed by the ragged engine (``GenerationEngine(adapter_store=...)``,
 
 The HTTP admin surface is ``serving.ServingServer``'s
 ``/v1/admin/adapters`` and ``/v1/admin/adapters/evict``; the hot base
-swap under an adapter store is ``GenerationEngine.swap_base``. Not
-ported: the traffic tier's per-adapter quotas (ROADMAP A9).
+swap under an adapter store is ``GenerationEngine.swap_base``; the
+traffic tier's per-(tenant, adapter) quotas are
+``traffic.parse_adapter_quotas`` (the ``traffic_adapter_quotas`` flag).
+Every store registers with the metrics registry
+(``paddle_adapter_*{store=}``).
 """
 
 from .rewrite import LoraReport, lora_targets, rewrite_for_lora

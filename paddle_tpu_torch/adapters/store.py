@@ -138,6 +138,10 @@ class AdapterStore:
         self._counters = dict(uploads=0, evictions=0, lru_evictions=0,
                               quota_evictions=0, evict_refusals=0,
                               misses=0)
+        # residency and pool accounting export as paddle_adapter_*{store=}
+        from ..observability import watch_adapters
+
+        watch_adapters(self)
 
     @classmethod
     def for_model(cls, model, **kw) -> "AdapterStore":

@@ -376,6 +376,10 @@ class Executor:
         self._bound: "collections.OrderedDict[tuple, Any]" = \
             collections.OrderedDict()
         self._stats = {"bound_hits": 0, "bound_misses": 0}
+        # aggregated into paddle_executor_* by the metrics registry
+        from ..observability import watch_executor
+
+        watch_executor(self)
 
     def _next_step(self) -> int:
         """The next run's step number (seeds its ops' generators); safe

@@ -2,11 +2,13 @@
 
 A copy of the matching entries of ``paddle_tpu/flags.py`` (the
 generation, quantize and adapter defaults of :60-147, spec and radix
-ones included, the serving defaults of :54-57 and
-``traffic_stream_write_timeout_s`` of :262) and of its
-``get_flags`` / ``set_flags`` / ``flag`` (:368-395). Only what the
-ported slices read is here; the reference's env overrides, autotune
-profiles and live-flag generations come with the host tiers.
+ones included, the serving defaults of :54-57, the ``disagg_*``,
+``traffic_*``, ``observability_*`` and ``slo_*`` defaults of :216-312)
+and of its ``get_flags`` / ``set_flags`` / ``flag`` (:368-395). Only
+what the ported slices read is here (``observability_xla_analysis``
+has no XLA to analyse); the reference's ``FLAGS_`` env overrides,
+autotune profiles and live-flag generations are ROADMAP A9b and
+A11.
 """
 
 from __future__ import annotations
@@ -78,6 +80,10 @@ DEFAULTS = {
     "adapter_rank_buckets": "8,16",
     "adapter_slots_per_bucket": 0,
     "adapter_tenant_quota": 0,
+    # the traffic tier's per-(tenant, adapter) admission table
+    # ("alice:summarize=10:20,*:translate=5": name:adapter=rate[:burst],
+    # "*" matches any tenant); "" = no per-adapter admission
+    "traffic_adapter_quotas": "",
     # serving (paddle_tpu_torch.serving): the ServingEngine coalesces
     # up to serving_max_batch_size rows or waits serving_batch_timeout_ms,
     # whichever first; a full admission queue (serving_queue_capacity)
@@ -87,8 +93,48 @@ DEFAULTS = {
     "serving_batch_timeout_ms": 5.0,
     "serving_queue_capacity": 256,
     "serving_num_workers": 2,
-    # a streamed /v1/generate whose client stops reading for this many
-    # seconds is cancelled (its KV pages free at the next step)
+    # disagg/ (disaggregated prefill/decode serving): the page-store
+    # rendezvous between prefill and decode workers.
+    # disagg_wire_encoding picks how float32 KV pages cross the wire:
+    # "int8_block" quantizes blockwise at block=head_dim (one float32
+    # scale per head/token slot; int8 pool pages always ship verbatim),
+    # "raw" ships float32 bytes untouched. disagg_store_endpoint
+    # ("host:port") names the page store when the env contract
+    # (PADDLE_PAGESTORE_ENDPOINT, or the first PADDLE_TRAINER_ENDPOINTS
+    # host at disagg_store_port) does not; disagg_store_max_bytes caps
+    # the store's host RAM (LRU leaf eviction; 0 = unbounded);
+    # disagg_fetch_timeout_s bounds every store RPC;
+    # disagg_handoff_threads sizes the DisaggService's prefill->decode
+    # dispatcher pool
+    "disagg_wire_encoding": "int8_block",
+    "disagg_store_endpoint": "",
+    "disagg_store_port": 8793,
+    "disagg_store_max_bytes": 268435456,
+    "disagg_fetch_timeout_s": 5.0,
+    "disagg_handoff_threads": 2,
+    # traffic/ (SLO-aware admission, TrafficConfig.from_flags):
+    # traffic_queue_capacity is the bounded depth of each priority
+    # class's queue; traffic_tenants declares per-tenant token buckets
+    # ("alice=100:200,bob=50" = name=rate_rps[:burst]); unknown tenants
+    # get traffic_default_rate / traffic_default_burst (rate 0 =
+    # unlimited); a queued batch/best_effort request is promoted one
+    # class per traffic_aging_ms; traffic_shed_headroom scales the
+    # service-time estimate when deciding a deadline is unmeetable;
+    # traffic_max_inflight bounds requests handed to the engine at once
+    # (0 = from the engine's batch geometry); a deadline-miss ratio
+    # above traffic_slo_miss_threshold for traffic_slo_window_s dumps
+    # the flight recorder; a streamed /v1/generate whose client stops
+    # reading for traffic_stream_write_timeout_s seconds is cancelled
+    # (its KV pages free at the next step; 0 disables)
+    "traffic_queue_capacity": 64,
+    "traffic_tenants": "",
+    "traffic_default_rate": 0.0,
+    "traffic_default_burst": 0.0,
+    "traffic_aging_ms": 500.0,
+    "traffic_shed_headroom": 1.2,
+    "traffic_max_inflight": 0,
+    "traffic_slo_miss_threshold": 0.5,
+    "traffic_slo_window_s": 5.0,
     "traffic_stream_write_timeout_s": 30.0,
     # "auto" | "on" | "off": AdamOptimizer emits the one-pass fused_adam
     # op (the K10 kernel on CUDA) instead of the unfused adam chain
@@ -114,15 +160,34 @@ DEFAULTS = {
     # stage-ready handshake, rank 0's wait for every shard-done file and
     # the other ranks' wait for the commit marker
     "dist_commit_timeout_s": 120.0,
+    # observability_metrics turns on the per-step telemetry (wall time,
+    # examples/s) of bound steps, the traffic estimator's input;
     # observability_tracing turns span call sites into trace-id/span-id
     # spans logged into the flight recorder; observability_flight keeps
     # the constant-memory ring (capacity entries) that dumps JSON to
     # observability_dump_dir ("" = the system tempdir) on a NaN
-    # rollback, a watchdog hang or a SIGTERM flush
+    # rollback, a watchdog hang, SIGTERM or SIGUSR2
+    "observability_metrics": True,
     "observability_tracing": False,
     "observability_flight": True,
     "observability_flight_capacity": 512,
     "observability_dump_dir": "",
+    # fleet observability (observability/fleet.py):
+    # observability_fleet_endpoints seeds the FleetAggregator with a
+    # comma list of worker metrics endpoints ("name=host:port" or bare
+    # "host:port"); observability_fleet_timeout_s is the per-endpoint
+    # scrape deadline. slo_deadline_miss_budget is the error budget the
+    # burn rate is measured against; slo_ttft_p99_ms / slo_itl_p99_ms
+    # are latency targets (0 = none); slo_window_s is the sliding
+    # window; slo_burn_threshold > 0 arms the sustained-burn trigger
+    # (one fleet-wide flight dump, latched until the burn recedes)
+    "observability_fleet_endpoints": "",
+    "observability_fleet_timeout_s": 1.0,
+    "slo_deadline_miss_budget": 0.01,
+    "slo_ttft_p99_ms": 0.0,
+    "slo_itl_p99_ms": 0.0,
+    "slo_window_s": 30.0,
+    "slo_burn_threshold": 0.0,
 }
 
 _flags: Dict[str, Any] = dict(DEFAULTS)

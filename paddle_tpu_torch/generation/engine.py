@@ -95,13 +95,29 @@ float tensors: after a swap it proposes from the new weights. The
 radix trie is not cleared, as in the JAX engine: pages published
 before a swap hold the old weights' K/V.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item when asked for: ``page_store`` (A9).
+The page-store seam (``page_store=``, ``phase=``, the JAX engine's
+:360, :464-467, :1094-1175): with a store (``disagg.HostPageStore`` or a
+``PageStoreClient``) and the prefix cache on, the loop thread consults
+the store for queue-head prompts before a cold prefill and splices any
+stored run into its pool in place (``PagedKVCache.ingest_run``);
+``spill_run`` exports a prompt's finished pages to the store (any
+thread, in the ``disagg_wire_encoding`` wire form) and ``close(drain=
+True)`` spills the whole trie. A store that errors degrades to a cold
+prefill and counts ``store_errors_total``. The store keys a page by its
+tokens alone, so a page store together with an adapter store is
+refused (``ValueError``), as the prefix cache with adapters is.
+``phase`` ("prefill" / "decode" / "both") is the routing label
+``/healthz`` and the traffic tier report.
+
+The engine registers with the process-wide metrics registry
+(``watch_generation``: ``paddle_generation_*{engine=}``) and opens the
+``generation/submit`` and ``generation/ragged_step`` spans.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -114,6 +130,7 @@ from ..device import concrete_device
 from ..flags import flag
 from ..kernels.ragged_paged_attention import MAX_CHUNK
 from ..kernels.quant_matmul import quantize_weight
+from ..observability import tracing
 from ..quantize import rewrite_for_inference
 from ..runtime.graphs import GraphedStep
 from ..serving.engine import (DeadlineExceeded, EngineClosed, Overloaded,
@@ -126,18 +143,6 @@ from .model import (CacheGeometry, DecodeStepModel, PrefillStepModel,
 __all__ = ["GenerationEngine", "GenerationStream", "GenerationMetrics"]
 
 _DONE = object()  # stream sentinel
-
-# ctor options of the JAX engine this slice lacks -> their ROADMAP item
-_NOT_PORTED = {
-    "page_store": "A9 (host tiers: disaggregated page store)",
-}
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"GenerationEngine({what}) is not ported to paddle_tpu_torch yet: "
-        f"ROADMAP queue {_NOT_PORTED[what]}")
-
 
 class GenerationStream:
     """Per-request handle: an iterator over tokens as they are sampled,
@@ -254,11 +259,11 @@ class GenerationStream:
 class _GenRequest:
     __slots__ = ("prompt", "orig_prompt", "max_new", "eos_id", "deadline",
                  "stream", "enqueue_t", "slot", "pending", "n_generated",
-                 "admit_seq", "last_tok_t", "prefill_off", "drafts",
-                 "tenant", "adapter")
+                 "ctx", "admit_seq", "last_tok_t", "prefill_off", "drafts",
+                 "tenant", "store_checked", "adapter")
 
     def __init__(self, prompt, max_new, eos_id, deadline, stream,
-                 adapter=None, tenant=None):
+                 adapter=None, tenant=None, ctx=None):
         self.prompt = prompt            # context to prefill (grows on resume)
         self.orig_prompt = prompt       # the caller's prompt, immutable
         self.max_new = max_new
@@ -269,11 +274,13 @@ class _GenRequest:
         self.slot: Optional[int] = None
         self.pending: Optional[int] = None   # sampled, K/V not yet cached
         self.n_generated = 0                 # across evict/resume cycles
+        self.ctx = ctx                       # tracing ctx of the submit span
         self.admit_seq = 0                   # admission order (evict victim)
         self.last_tok_t: Optional[float] = None
         self.prefill_off = 0            # prompt tokens already written
         self.drafts = None              # this step's speculative proposals
         self.tenant = tenant            # identity trie publishes count to
+        self.store_checked = False      # page-store consult done once
         self.adapter = adapter          # resident LoRA adapter id, or None
 
 
@@ -383,7 +390,7 @@ class GenerationEngine:
                  kv_dtype: Optional[str] = None,
                  quantize_weights: Optional[str] = None,
                  prefix_cache: Optional[bool] = None,
-                 page_store=None,
+                 page_store=None, phase: Optional[str] = None,
                  adapter_store=None,
                  prefill_buckets=None, model_version: Optional[str] = None,
                  warmup: bool = False, start: bool = True):
@@ -422,8 +429,6 @@ class GenerationEngine:
                 raise ValueError(
                     "adapter multiplexing requires the ragged engine "
                     "(generation_engine_mode='ragged')")
-        if page_store is not None:
-            _not_ported("page_store")
         self.quantize_weights = str(
             quantize_weights if quantize_weights is not None
             else flag("quantize_weights")) or "off"
@@ -495,6 +500,17 @@ class GenerationEngine:
             prefix_min_pages=int(flag("generation_prefix_min_pages")),
             trie_max_pages=int(flag("generation_trie_max_pages")),
             tenant_quota_pages=int(flag("generation_trie_tenant_quota")))
+        # the disagg seam: a page store makes this engine a citizen of the
+        # split topology (_consult_store before a cold prefill,
+        # spill_run / spill_trie back); ``phase`` is its routing label
+        self._page_store = page_store
+        self.phase = str(phase) if phase else "both"
+        self._wire_encoding = str(flag("disagg_wire_encoding"))
+        self.store_lookups_total = 0
+        self.store_hits_total = 0
+        self.store_pages_pulled_total = 0
+        self.store_pages_spilled_total = 0
+        self.store_errors_total = 0
         self.metrics = GenerationMetrics()
         # ragged: THE step, one mixed prefill+decode model for the
         # engine's life; two_lane: the prefill and decode lanes. All
@@ -539,6 +555,12 @@ class GenerationEngine:
                 slots_per_bucket=(int(flag("adapter_slots_per_bucket"))
                                   or None),
                 tenant_quota=int(flag("adapter_tenant_quota")))
+        if self.adapter_store is not None and page_store is not None:
+            # the store keys a page by its tokens alone, as the trie
+            # does: one adapter's K/V would splice into another's row
+            raise ValueError("page_store cannot be combined with an "
+                             "adapter store: the page store is not keyed "
+                             "by adapter")
         if self.adapter_store is not None and self.prefix_cache:
             # the trie keys a page by its tokens alone, and an adapter's
             # delta on qkv changes the page's K/V: a row would attend
@@ -599,6 +621,11 @@ class GenerationEngine:
             # after the warm-up, once: a capture that fails raises here
             # (no eager fallback)
             self._bound_step.capture()
+        # this engine's counters and page-pool stats join the scrape as
+        # paddle_generation_*{engine=} series
+        from ..observability import watch_generation
+
+        watch_generation(self)
         if start:
             self.start()
 
@@ -638,6 +665,12 @@ class GenerationEngine:
             self._loop_thread.join(timeout)
         else:
             self._fail_queued(EngineClosed("engine closed before start()"))
+        if drain and self._page_store is not None and self.prefix_cache:
+            # the drain spill: trie pages outlive this engine in the
+            # store, so a replacement (or any decode worker on the
+            # store) starts warm
+            self.spill_trie()
+            self.cache.drop_trie()
 
     def __enter__(self) -> "GenerationEngine":
         return self
@@ -703,26 +736,29 @@ class GenerationEngine:
         if adapter is not None:
             stream.add_done_callback(
                 lambda _s, _a=adapter: self.adapter_store.release(_a))
-        req = _GenRequest(prompt, max_new, eos, deadline, stream, adapter,
-                          tenant)
-        try:
-            with self._cond:
-                if self._closed:
-                    raise EngineClosed("GenerationEngine is closed")
-                if len(self._queue) >= self.queue_capacity:
-                    self.metrics.inc("rejected_total")
-                    raise Overloaded(
-                        f"generation queue full ({self.queue_capacity} "
-                        "pending); retry with backoff or raise "
-                        "queue_capacity")
-                self._queue.append(req)
-                self.metrics.inc("requests_total")
-                self._cond.notify_all()
-        except BaseException:
-            # rejected before the queue owned it: unpin here
-            if adapter is not None:
-                self.adapter_store.release(adapter)
-            raise
+        with (tracing.span("generation/submit", {"prompt": int(prompt.size),
+                                                 "max_new": max_new})
+              if tracing.enabled() else contextlib.nullcontext()) as ctx:
+            req = _GenRequest(prompt, max_new, eos, deadline, stream,
+                              adapter, tenant, ctx)
+            try:
+                with self._cond:
+                    if self._closed:
+                        raise EngineClosed("GenerationEngine is closed")
+                    if len(self._queue) >= self.queue_capacity:
+                        self.metrics.inc("rejected_total")
+                        raise Overloaded(
+                            f"generation queue full ({self.queue_capacity} "
+                            "pending); retry with backoff or raise "
+                            "queue_capacity")
+                    self._queue.append(req)
+                    self.metrics.inc("requests_total")
+                    self._cond.notify_all()
+            except BaseException:
+                # rejected before the queue owned it: unpin here
+                if adapter is not None:
+                    self.adapter_store.release(adapter)
+                raise
         return stream
 
     def generate(self, prompt, max_new_tokens: Optional[int] = None,
@@ -767,6 +803,19 @@ class GenerationEngine:
         if self.adapter_store is not None:
             out["adapters"] = self.adapter_store.stats_numeric()
         out["model_swaps"] = self.model_swaps
+        if self._page_store is not None:
+            lk = self.store_lookups_total
+            # flattened into paddle_generation_store_*: this worker's
+            # page-store traffic (the store's own gauges are global)
+            out["store"] = {
+                "lookups_total": lk,
+                "hits_total": self.store_hits_total,
+                "hit_rate": (round(self.store_hits_total / lk, 4)
+                             if lk else 0.0),
+                "pages_pulled_total": self.store_pages_pulled_total,
+                "pages_spilled_total": self.store_pages_spilled_total,
+                "errors_total": self.store_errors_total,
+            }
         return out
 
     def stats_numeric(self) -> Dict[str, Any]:
@@ -782,6 +831,7 @@ class GenerationEngine:
                      "swaps": int(self.model_swaps),
                      "quantized": self.quantize_weights,
                      "kv_dtype": self.kv_dtype},
+            "phase": self.phase,
             "adapters": (self.adapter_store.resident()
                          if self.adapter_store is not None else []),
         }
@@ -945,6 +995,13 @@ class GenerationEngine:
                         f"deadline passed after "
                         f"{(now - req.enqueue_t) * 1e3:.1f}ms in queue"))
                     continue
+                if (self._page_store is not None and self.prefix_cache
+                        and self.mode == "ragged" and not req.store_checked):
+                    # queued while this loop was fetching from the store:
+                    # it is consulted at the next iteration, never cold-
+                    # prefilled past the store (the JAX engine admits it
+                    # here unconsulted)
+                    break
                 # acquire takes the slot and pages at once, so these
                 # checks see earlier admissions. Only this loop thread
                 # changes the trie, so acquire matches what match_len
@@ -1075,10 +1132,93 @@ class GenerationEngine:
         and starts chunked prefill on the next step, at the trie's fork
         point when the radix cache matched a prefix (``acquire`` set
         ``prefill_off`` and the cache length to the matched run)."""
+        self._consult_store()
         for req in self._pop_admissible():
             req.pending = None
             req.drafts = None
             self._by_slot[req.slot] = req
+
+    # -- the page store seam (disagg) ----------------------------------------
+    def _consult_store(self) -> None:
+        """Before cold-prefilling queue-head prompts, ask the page store
+        for their prefixes and splice any match into the pool and the
+        trie: the decode worker's half of disaggregation and the warm
+        restart. On the loop thread only, between steps (``ingest_run``
+        writes the pools in place); the fetch runs outside
+        ``self._cond``, so submitters never wait on the wire."""
+        if self._page_store is None or not self.prefix_cache:
+            return
+        with self._cond:
+            heads = [r for r in list(self._queue)[:self.lanes]
+                     if not r.store_checked]
+        for req in heads:
+            req.store_checked = True
+            try:
+                self._pull_run(req.prompt, tenant=req.tenant)
+            except Exception:  # noqa: BLE001 — a dead store degrades to cold prefill
+                self.store_errors_total += 1
+
+    def _pull_run(self, tokens, tenant=None) -> int:
+        """Fetch and ingest the store's longest run for ``tokens``,
+        capped as the trie match is (at least one token is left to
+        prefill). Returns the pages ingested; 0 when the local trie
+        already covers the store's match."""
+        tokens = np.asarray(tokens, np.int64).reshape(-1)
+        ps = self.page_size
+        cap = (int(tokens.size) - 1) // ps
+        local = self.cache.match_len(tokens) // ps
+        if cap <= local:
+            return 0
+        self.store_lookups_total += 1
+        blobs = self._page_store.match(tokens, max_pages=cap)
+        if len(blobs) <= local:
+            return 0
+        from ..disagg.pagestore import run_for_pool
+
+        n, k_run, v_run, ksc, vsc = run_for_pool(blobs, self.kv_dtype)
+        if n <= local:
+            return 0
+        got = self.cache.ingest_run(tokens[:n * ps], k_run, v_run,
+                                    ksc, vsc, tenant=tenant)
+        if got:
+            self.store_hits_total += 1
+            self.store_pages_pulled_total += got
+        return got
+
+    def spill_run(self, tokens) -> int:
+        """Export ``tokens``' trie-resident pages to the page store (the
+        prefill worker's publish). Safe from any thread: full trie pages
+        are never written again, and ``export_run`` orders its reads
+        after the last step. The pages are encoded where they lie
+        (``int8_block`` quantizes on the device) and cross to the host
+        once. No-op without a store."""
+        if self._page_store is None or not self.prefix_cache:
+            return 0
+        n, k_run, v_run, ksc, vsc = self.cache.export_run(tokens,
+                                                          host=False)
+        if not n:
+            return 0
+        from ..disagg.pagestore import encode_pages
+
+        blobs = encode_pages(k_run, v_run, ksc, vsc,
+                             encoding=self._wire_encoding)
+        toks = np.asarray(tokens, np.int64).reshape(-1)[:n * self.page_size]
+        self._page_store.put_run(toks, blobs)
+        self.store_pages_spilled_total += n
+        return n
+
+    def spill_trie(self) -> int:
+        """Spill every trie-resident page run to the store: the drain
+        hook, after which a replacement worker starts warm."""
+        if self._page_store is None or not self.prefix_cache:
+            return 0
+        total = 0
+        for run in self.cache.trie_leaf_runs():
+            try:
+                total += self.spill_run(run)
+            except Exception:  # noqa: BLE001 — spill is best-effort
+                self.store_errors_total += 1
+        return total
 
     def _retire_dead_rows(self, now: float) -> None:
         """Retire cancelled/expired sequences before spending a step on
@@ -1242,8 +1382,19 @@ class GenerationEngine:
                 "num_valid": num_valid, "tables": self.cache.block_tables}
         if aslots is not None:
             host["adapter_slots"] = aslots
+        span_cm = contextlib.nullcontext()
+        if tracing.enabled():
+            flow = [r.ctx.span_id for _, r in active if r.ctx is not None]
+            span_cm = tracing.span(
+                f"generation/ragged_step[n={len(active)}]",
+                {"lanes": R, "chunk": C,
+                 "new_tokens": int(num_valid.sum()),
+                 **({"flow_from": flow} if flow else {})})
         try:
-            next_all = self._ragged_bound.run(**host).reshape(R, C)
+            with span_cm:
+                next_all = self._ragged_bound.run(**host).reshape(R, C)
+            # an export on another thread reads after these writes
+            self.cache.mark_written()
         except Exception as e:  # noqa: BLE001 — a bad batch must not kill the loop
             for slot, _req in active:
                 self._retire(slot, "error", ServingError(

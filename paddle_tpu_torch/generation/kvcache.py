@@ -42,10 +42,18 @@ is preempted. The int8 scale planes ride the same page indirection, so a
 shared page is a shared quantized page too. The free list pops in the
 JAX package's order, so the same operations give the same block tables.
 
-Not ported yet (A9, host tiers): ``export_run`` / ``ingest_run`` /
-``trie_leaf_runs`` and the page store; their counters
-(``ingested_pages_total``, ``exported_pages_total``) stay 0 in
-``radix_stats`` so the gauge family keeps its keys.
+The page-store splice (``kvcache.py:513-676`` there, the disaggregated
+tiers' seam): ``export_run(tokens)`` reads the trie-resident pages along
+a prompt out of the pools, ``ingest_run`` splices pages fetched from a
+store into the pool and the trie, and ``trie_leaf_runs`` names every
+root-to-leaf token run (the drain spill). Where the JAX package rebinds
+its pool buffers after a jitted scatter, the port writes IN PLACE with
+``index_copy_`` into the same tensors (a captured CUDA graph keeps
+replaying them), from the engine's loop thread, between steps, after
+one pinned H2D copy of the whole run. An export from another thread
+waits on the event the loop records after each step
+(``mark_written``) before it reads, so it never sees a page whose write
+is still in flight on another stream.
 """
 
 from __future__ import annotations
@@ -166,6 +174,12 @@ class PagedKVCache:
         self._tenant_pages: Dict[str, int] = {}
         self._tenant_evictions: Dict[str, int] = {}
         self.tenant_quota_rejections_total = 0
+        # the page-store splice counters (radix_stats)
+        self.exported_pages_total = 0
+        self.ingested_pages_total = 0
+        # recorded after each step's writes (mark_written): an export on
+        # another thread orders its reads after it
+        self._written: Optional[torch.cuda.Event] = None
 
     # -- device buffers ------------------------------------------------------
     def _ensure_buffers(self):
@@ -447,6 +461,166 @@ class PagedKVCache:
                 if int(self._ref[p])
                 - (1 if p in self._node_of_page else 0) == 1)
 
+    # -- disagg splice path (page store <-> pool) ----------------------------
+    def mark_written(self) -> None:
+        """Record, on the caller's stream, that the pool writes launched
+        so far are ordered before any later export. Called by the
+        engine's loop after every step; a no-op off CUDA."""
+        if self.device.type == "cuda" and self._k_pages is not None:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._written = ev
+
+    def export_run(self, tokens, max_pages: Optional[int] = None, *,
+                   host: bool = True):
+        """Read the trie-resident pages along ``tokens``' page-aligned
+        prefix out of the pools, uncapped (a spill wants every full
+        page). Returns ``(n_pages, k_run, v_run, k_scales, v_scales)``
+        with k/v ``[n, L, KVH, ps, hd]`` in the pool dtype and scales
+        ``[n, L, KVH, ps]`` (None for float pools): numpy arrays, or
+        tensors on the pools' device with ``host=False``. Safe against
+        a running step from any thread: full trie-resident pages are
+        never written again, and the reads wait on the last step's
+        event (``mark_written``)."""
+        empty = (0, None, None, None, None)
+        if not self.prefix_cache:
+            return empty
+        tokens = np.asarray(tokens).reshape(-1)
+        with self._lock:
+            if self._k_pages is None:
+                return empty
+            pids: List[int] = []
+            node = self._root
+            for i in range(int(tokens.size) // self.page_size):
+                child = node.children.get(self._page_key(tokens, i))
+                if child is None:
+                    break
+                self._touch(child)
+                pids.append(child.page)
+                node = child
+                if max_pages and len(pids) >= max_pages:
+                    break
+            written = self._written
+            self.exported_pages_total += len(pids)
+        if not pids:
+            return empty
+        with torch.no_grad():
+            if written is not None:
+                torch.cuda.current_stream(self.device).wait_event(written)
+            sel = torch.tensor(pids, dtype=torch.long, device=self.device)
+
+            def gather(bufs):
+                # [L, KVH, n, ...] -> [n, L, KVH, ...]
+                g = torch.stack([b.index_select(1, sel) for b in bufs])
+                g = g.movedim(2, 0).contiguous()
+                return g.cpu().numpy() if host else g
+
+            k_run, v_run = gather(self._k_pages), gather(self._v_pages)
+            k_sc = v_sc = None
+            if self.quantized:
+                k_sc, v_sc = gather(self._k_scales), gather(self._v_scales)
+        return len(pids), k_run, v_run, k_sc, v_sc
+
+    def ingest_run(self, tokens, k_run, v_run, k_scales=None,
+                   v_scales=None, *, tenant=None) -> int:
+        """Splice externally produced full pages (a page-store fetch)
+        into the pool and the trie, so that the next ``acquire``
+        attaches them by reference and resumes at the matched length.
+        Layouts as ``export_run``'s, already in the POOL dtype (int8
+        pools take int8 bodies and float32 scale planes verbatim).
+        Pages already trie-resident are skipped; the trie cap, the
+        tenant quota and pool pressure truncate the run (a shorter
+        match, never a wrong one). Must run on the engine's loop thread
+        between steps. Returns the pages ingested."""
+        if not self.prefix_cache:
+            return 0
+        tokens = np.asarray(tokens).reshape(-1)
+        k_run = np.asarray(k_run)
+        v_run = np.asarray(v_run)
+        n_avail = min(int(tokens.size) // self.page_size,
+                      int(k_run.shape[0]), int(v_run.shape[0]))
+        if n_avail <= 0:
+            return 0
+        want = (self.num_layers, self.num_kv_heads, self.page_size,
+                self.head_dim)
+        if k_run.shape[1:] != want or v_run.shape[1:] != want:
+            raise ValueError(
+                f"ingest_run: page shape {k_run.shape[1:]} != "
+                f"[L,KVH,ps,hd] {want}")
+        if self.quantized and (k_scales is None or v_scales is None):
+            raise ValueError("ingest_run: int8 pool needs scale planes")
+        self._ensure_buffers()
+        tn = self._tenant_key(tenant)
+        fresh: List[Tuple[int, int]] = []   # (run index, page id)
+        with self._lock:
+            node = self._root
+            for i in range(n_avail):
+                key = self._page_key(tokens, i)
+                child = node.children.get(key)
+                if child is not None:
+                    self._touch(child)
+                    node = child
+                    continue
+                if (self.trie_max_pages
+                        and len(self._node_of_page) >= self.trie_max_pages
+                        and not self._evict_leaf_locked()):
+                    break
+                if not self._quota_room_locked(tn):
+                    break
+                try:
+                    p = self._pop_page_locked()
+                except PagePoolExhausted:
+                    break   # partial ingest: shorter match, never wrong
+                child = _TrieNode(key, p, node, tn)
+                node.children[key] = child
+                self._node_of_page[p] = child
+                self._ref[p] = 1
+                self._touch(child)
+                self._tenant_pages[tn] = self._tenant_pages.get(tn, 0) + 1
+                fresh.append((i, p))
+                node = child
+            self.ingested_pages_total += len(fresh)
+        if not fresh:
+            return 0
+        idx = [i for i, _ in fresh]
+        runs = [(self._k_pages, k_run), (self._v_pages, v_run)]
+        if self.quantized:
+            runs += [(self._k_scales, np.asarray(k_scales, np.float32)),
+                     (self._v_scales, np.asarray(v_scales, np.float32))]
+        cuda = self.device.type == "cuda"
+        with torch.no_grad():
+            sel = torch.tensor([p for _, p in fresh], dtype=torch.long,
+                               device=self.device)
+            for bufs, run in runs:
+                # one (pinned) H2D copy of the fresh pages of the run,
+                # then an in-place write per layer into the same tensors
+                host = torch.from_numpy(np.ascontiguousarray(run[idx]))
+                if cuda:
+                    host = host.pin_memory()
+                dev = host.to(self.device, bufs[0].dtype, non_blocking=cuda)
+                for li, buf in enumerate(bufs):
+                    buf.index_copy_(1, sel, dev[:, li].movedim(0, 1))
+        # a pinned staging tensor freed here is not reused before its
+        # copy ends (the caching host allocator records the stream)
+        return len(fresh)
+
+    def trie_leaf_runs(self) -> List[np.ndarray]:
+        """Token runs (root-to-leaf concatenated page keys) covering
+        every trie leaf: the drain spill's walk."""
+        with self._lock:
+            runs: List[np.ndarray] = []
+            stack: List[Tuple[_TrieNode, List[int]]] = [(self._root, [])]
+            while stack:
+                node, path = stack.pop()
+                if node is not self._root:
+                    path = path + list(node.key)
+                if node.children:
+                    for child in node.children.values():
+                        stack.append((child, path))
+                elif path:
+                    runs.append(np.asarray(path, np.int64))
+            return runs
+
     # -- sequence lifecycle --------------------------------------------------
     def acquire(self, prompt_tokens) -> Tuple[int, int]:
         """Claim a batch slot + pages for a prompt, attaching any
@@ -617,9 +791,8 @@ class PagedKVCache:
                 "cow_forks_total": self.cow_forks_total,
                 "leaf_evictions_total": self.leaf_evictions_total,
                 "published_pages_total": self.published_pages_total,
-                # the page store's splice counters (A9): no splice path
-                "ingested_pages_total": 0,
-                "exported_pages_total": 0,
+                "ingested_pages_total": self.ingested_pages_total,
+                "exported_pages_total": self.exported_pages_total,
                 "tenant_quota_pages": self.tenant_quota_pages,
                 "tenant_quota_rejections_total":
                     self.tenant_quota_rejections_total,

@@ -5,10 +5,14 @@ memory, dumped as JSON when something goes wrong (the counterpart of
 ``note()`` appends one entry (span completions from ``tracing``,
 supervisor events such as retry, rollback, NaN and watchdog fires) to a
 bounded deque of ``observability_flight_capacity`` entries.
-``dump(reason)`` writes the ring into one JSON file, in the JAX
-package's layout (``flight_recorder``, ``reason``, ``time``, ``pid``,
-``entries``, ``extra``); the metrics registry and compile events it
-also holds there belong to A9. A dump never makes a crash worse: any
+``dump(reason)`` writes the ring and the metrics registry's snapshot
+into one JSON file, in the JAX package's layout (``flight_recorder``,
+``reason``, ``time``, ``pid``, ``version``, ``entries``, ``metrics``,
+``extra``; the port compiles no executables at run time, so the JAX
+dump's ``compile_events`` has no counterpart). It is called from the
+supervisor's failure paths, the traffic controller's SLO breach, the
+fleet's sustained burn, ``POST /v1/admin/flight/dump`` and SIGUSR2
+(``install_signal_handlers``). A dump never makes a crash worse: any
 failure inside it is logged and reported as ``None``.
 """
 
@@ -18,6 +22,8 @@ import collections
 import json
 import logging
 import os
+import signal
+import sys
 import tempfile
 import threading
 import time
@@ -25,7 +31,8 @@ from typing import Any, Dict, List, Optional
 
 from ..flags import _flags
 
-__all__ = ["note", "entries", "clear", "dump", "last_dump_path"]
+__all__ = ["note", "entries", "clear", "dump", "last_dump_path",
+           "install_signal_handlers"]
 
 _log = logging.getLogger("paddle_tpu_torch.observability")
 
@@ -100,9 +107,12 @@ def dump(reason: str, extra: Optional[Dict[str, Any]] = None,
     """Write the flight snapshot; returns the file's path, or None (a
     crash path must never raise out of its own postmortem)."""
     try:
+        from .registry import VERSION, registry
+
         payload = {"flight_recorder": 1, "reason": reason,
                    "time": time.time(), "pid": os.getpid(),
-                   "entries": entries()}
+                   "version": VERSION, "entries": entries(),
+                   "metrics": registry().snapshot()}
         if extra:
             payload["extra"] = extra
         if path is None:
@@ -123,3 +133,36 @@ def dump(reason: str, extra: Optional[Dict[str, Any]] = None,
     except Exception as e:  # noqa: BLE001 — never worsen a crash
         _log.error("flight recorder dump failed: %r", e)
         return None
+
+
+def install_signal_handlers() -> bool:
+    """SIGUSR2 -> dump (chaining any earlier handler). Main thread only:
+    returns False, having installed nothing, elsewhere. The dump runs on
+    a thread of its own, never in the handler: the handler runs on the
+    main thread, which may hold the ring's lock mid-append. A SIGTERM
+    flush belongs to its owner (``resilience.Supervisor``), as in the
+    JAX package."""
+    if threading.current_thread() is not threading.main_thread():
+        return False
+    prev = signal.getsignal(signal.SIGUSR2)
+
+    def _handler(signum, frame):
+        threading.Thread(target=dump, args=("sigusr2",),
+                         name="pt-flight-dump", daemon=True).start()
+        if callable(prev) and prev not in (signal.SIG_IGN, signal.SIG_DFL):
+            prev(signum, frame)
+
+    signal.signal(signal.SIGUSR2, _handler)
+    return True
+
+
+def install_excepthook() -> None:
+    """Chain ``sys.excepthook`` so that any uncaught exception dumps the
+    ring before its traceback prints (opt-in)."""
+    prev = sys.excepthook
+
+    def _hook(exc_type, exc, tb):
+        dump(f"uncaught:{exc_type.__name__}")
+        prev(exc_type, exc, tb)
+
+    sys.excepthook = _hook

@@ -1,17 +1,25 @@
 """Trace spans with parentage (the counterpart of
-``paddle_tpu/observability/tracing.py``'s ``span`` and ``enabled``).
+``paddle_tpu/observability/tracing.py``).
 
 With ``observability_tracing`` off (the default) ``span`` is a
 ``torch.profiler.record_function`` range, which costs nothing outside
 a profiler run. With it on, a span also carries a ``trace_id``, a
-``span_id`` and its ``parent_id`` (a thread-local stack: nested spans
-parent automatically) and logs itself into the flight recorder when it
-closes. Where the JAX package opens a ``jax.profiler.TraceAnnotation``,
-the port opens ``record_function``.
+``span_id`` and its ``parent_id`` and logs itself into the flight
+recorder when it closes. Where the JAX package opens a
+``jax.profiler.TraceAnnotation`` (its :124), the port opens
+``record_function``.
+
+Propagation is ambient within a thread (a thread-local stack: nested
+``span()`` calls parent automatically) and explicit across threads:
+the submitting side keeps the context ``span(...)`` yields on the work
+item, and the consuming thread opens its span with ``parent=ctx`` or
+wraps its handling in ``attach(ctx)``. ``traced`` is the decorator
+form.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 import time
@@ -22,7 +30,7 @@ import torch
 from ..flags import _flags
 from . import flight
 
-__all__ = ["SpanContext", "span", "current", "enabled"]
+__all__ = ["SpanContext", "span", "traced", "attach", "current", "enabled"]
 
 
 class SpanContext(NamedTuple):
@@ -60,15 +68,26 @@ def current() -> Optional[SpanContext]:
     return st[-1] if st else None
 
 
+class _AmbientType:
+    """Sentinel for "parent from the thread-local stack", with a stable
+    repr."""
+
+    def __repr__(self):
+        return "<ambient parent>"
+
+
+_AMBIENT = _AmbientType()
+
+
 class _Span:
     __slots__ = ("name", "meta", "ctx", "t0", "_rf", "_stack")
 
     # entry keys the recorder owns; span args may not override them
     _RESERVED = frozenset(("kind", "t", "name", "ts", "dur", "tid"))
 
-    def __init__(self, name: str, args: Optional[Dict[str, Any]]):
+    def __init__(self, name: str, args: Optional[Dict[str, Any]], parent):
         st = _stack()
-        par = st[-1] if st else None
+        par = (st[-1] if st else None) if parent is _AMBIENT else parent
         ctx = SpanContext(par.trace_id if par is not None else _new_id(),
                           _new_id())
         meta = dict(args) if args else {}
@@ -98,9 +117,70 @@ class _Span:
         return False
 
 
-def span(name: str, args: Optional[Dict[str, Any]] = None):
+class _Plain:
+    """The range of a span with tracing off: a ``record_function`` that
+    yields None, as the JAX package's plain ``record_event`` does."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, name: str):
+        self._rf = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self._rf.__enter__()
+        return None
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, args: Optional[Dict[str, Any]] = None, parent=_AMBIENT):
     """Context manager for one traced range: yields the SpanContext with
-    tracing on, and is a plain ``record_function`` range with it off."""
+    tracing on, and None (a plain ``record_function`` range) with it
+    off. ``parent``: the ambient span by default; an explicit
+    SpanContext stitches across threads, None forces a new root."""
     if not _flags["observability_tracing"]:
-        return torch.profiler.record_function(name)
-    return _Span(name, args)
+        return _Plain(name)
+    return _Span(name, args, parent)
+
+
+class _Attach:
+    __slots__ = ("ctx", "_st")
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+
+    def __enter__(self):
+        self._st = _stack() if self.ctx is not None else None
+        if self._st is not None:
+            self._st.append(self.ctx)
+        return self.ctx
+
+    def __exit__(self, *exc):
+        if self._st is not None:
+            self._st.pop()
+        return False
+
+
+def attach(ctx: Optional[SpanContext]) -> _Attach:
+    """Adopt ``ctx`` as this thread's ambient parent for the duration:
+    the cross-thread handoff (a worker wraps its handling in
+    ``attach(req.ctx)`` and every span inside parents under it)."""
+    return _Attach(ctx)
+
+
+def traced(name: Optional[str] = None, args: Optional[Dict[str, Any]] = None):
+    """Decorator form: ``@traced("serving/rebatch")``."""
+
+    def deco(fn):
+        span_name = name or f"{fn.__module__}.{fn.__qualname__}"
+
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            with span(span_name, args):
+                return fn(*a, **kw)
+
+        return wrapper
+
+    return deco

@@ -51,10 +51,11 @@ dumps a JSON snapshot on NaN rollback, watchdog hang, any exception
 that escapes the loop, and the SIGTERM preemption flush
 (``stats()["flight_dumps"]`` lists the paths).
 
-Not here yet: the reader's resume (``set_resume_position``) waits for
-``reader.py`` (ROADMAP A9), and the pre-save barrier of a distributed
-world and the metrics registry export (``watch_supervisor``) wait for
-A10 and A9; a plain iterable is fast-forwarded.
+The counters export through the metrics registry
+(``watch_supervisor``: ``paddle_resilience_*{sup=}``). Not here yet: the
+reader's resume (``set_resume_position``) waits for ``reader.py``
+(ROADMAP A9b), and the pre-save barrier of a distributed world for A10;
+a plain iterable is fast-forwarded.
 """
 
 from __future__ import annotations
@@ -237,6 +238,10 @@ class Supervisor:
             "preempted": False,
             "resumed_from": None,
         }
+        # the counters export as paddle_resilience_*{sup=}
+        from ..observability import watch_supervisor
+
+        watch_supervisor(self)
 
     # -- introspection ------------------------------------------------------
     def stats(self) -> Dict[str, Any]:

@@ -42,6 +42,7 @@ that way, and outside it a meta tensor raises.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -50,6 +51,7 @@ import torch
 from ..core.executor import _Plan, to_numpy, torch_dtype
 from ..core.framework import Block, OpRole
 from ..core.registry import LoweringContext, run_recorded
+from ..flags import _flags
 from ..kernels import _build
 
 __all__ = ["BoundStep", "scope_chain_generation", "feed_signature",
@@ -232,6 +234,7 @@ class BoundStep:
 
     # -- the hot path -------------------------------------------------------
     def run(self, feed: Dict[str, Any], return_numpy: bool = True):
+        t_obs = time.perf_counter()
         scope, plan = self.scope, self.plan
         entry_gen = scope_chain_generation(scope)
         if entry_gen != self.scope_gen:
@@ -270,9 +273,23 @@ class BoundStep:
             if n not in env:
                 raise KeyError(f"fetch var {n!r} was never produced")
             fetched.append(env[n])
-        if return_numpy:
-            return [to_numpy(v) for v in fetched]
-        return fetched
+        out = [to_numpy(v) for v in fetched] if return_numpy else fetched
+        if _flags["observability_metrics"]:
+            # the host-side step cadence (no device sync, as in the JAX
+            # package's dispatch): the traffic estimator's step median
+            first = next(iter(feed.values()), None)
+            shape = getattr(first, "shape", None)
+            record_step((time.perf_counter() - t_obs) * 1e3,
+                        int(shape[0]) if shape else 0, step)
+        return out
+
+
+def record_step(ms: float, rows: int, step: Optional[int] = None) -> None:
+    """One bound step's wall time into the process-wide step telemetry
+    (``paddle_step_*``)."""
+    from ..observability.registry import step_telemetry
+
+    step_telemetry().record(ms, rows, step=step)
 
 
 def run_plan(plan: _Plan, env: Dict[str, Any], ctx: LoweringContext) -> None:

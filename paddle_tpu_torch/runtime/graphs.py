@@ -35,12 +35,15 @@ from __future__ import annotations
 
 import ctypes
 import re
+import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..flags import _flags
 from ..kernels import GRAPH_NODES, KERNELS, _build
+from .dispatch import record_step
 
 __all__ = ["GraphedStep", "graph_launches", "kernel_node_names"]
 
@@ -176,7 +179,9 @@ class GraphedStep:
 
     def run(self, **host: np.ndarray) -> np.ndarray:
         """One step: ``host`` holds every feed as a host array of its
-        buffer's shape; returns the step's output on the host."""
+        buffer's shape; returns the step's output on the host, after the
+        step's writes into the pools have finished."""
+        t_obs = time.perf_counter()
         self._copy_in(host)
         if self.graph is not None:
             self.graph.replay()
@@ -188,7 +193,9 @@ class GraphedStep:
             out = self.step(**self.static, **self.state)
         self.runs += 1
         if not self._cuda:
-            return out.numpy()
+            res = out.numpy()
+            self._telemetry(t_obs, res)
+            return res
         if self._host_out is None:
             # a normal tensor even when the first call runs under the
             # engine loop's inference mode: later calls copy into it
@@ -198,7 +205,14 @@ class GraphedStep:
                                              pin_memory=True)
         self._host_out.copy_(out, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
-        return self._host_out.numpy().copy()
+        res = self._host_out.numpy().copy()
+        self._telemetry(t_obs, res)
+        return res
+
+    def _telemetry(self, t0: float, res: np.ndarray) -> None:
+        if _flags["observability_metrics"]:
+            record_step((time.perf_counter() - t0) * 1e3,
+                        int(res.shape[0]) if res.ndim else 0, self.runs)
 
     def eager(self, state: Optional[Mapping[str, Any]] = None,
               **host: np.ndarray) -> torch.Tensor:

@@ -32,17 +32,20 @@ Defaults come from the flags ``serving_max_batch_size``,
 ``serving_batch_timeout_ms``, ``serving_queue_capacity`` and
 ``serving_num_workers``, overridable per engine.
 
-Left out, with the reference's observability, autotuning and traffic
-tier (ROADMAP A9): the autotune seam that pre-tunes the ``serving_*``
-knobs from a recorded profile (:200 there), the engine's registration
-with the process-wide metrics registry (``watch_engine``, :232), the
-tracing spans of submit and batch execution (:327, :612) and
-``ServingFuture.add_done_callback`` (:128, the traffic tier's hook).
+The engine registers with the process-wide metrics registry
+(``watch_engine``, :232 there: ``paddle_serving_predictor_*{engine=}``
+beside its ``paddle_serving_*{engine=}``), opens the ``serving/submit``
+and ``serving/batch_execute`` spans (:327, :612) and completes futures
+through ``ServingFuture.add_done_callback`` (:119), the traffic tier's
+hook. Left out: the autotune seam that pre-tunes the ``serving_*`` knobs
+from a recorded profile (:195-202 there, ``autotune_for_program``),
+which belongs to ROADMAP A11 with the other autotune equivalents.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import queue as _queue_mod
 import threading
 import time
@@ -51,6 +54,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from ..flags import flag
+from ..observability import tracing
 from .metrics import ServingMetrics
 
 __all__ = ["ServingError", "Overloaded", "DeadlineExceeded", "EngineClosed",
@@ -83,7 +87,8 @@ class ServingFuture:
     the per-fetch output list (predictor order) or raises the serving
     error the request was completed with."""
 
-    __slots__ = ("_ev", "_lock", "_result", "_error", "_engine")
+    __slots__ = ("_ev", "_lock", "_result", "_error", "_engine",
+                 "_callbacks")
 
     def __init__(self, engine: "ServingEngine"):
         self._ev = threading.Event()
@@ -91,6 +96,7 @@ class ServingFuture:
         self._result: Optional[List[np.ndarray]] = None
         self._error: Optional[BaseException] = None
         self._engine = engine
+        self._callbacks: List = []
 
     def _complete(self, result=None, error=None) -> bool:
         """First completion wins (expiry vs cancel vs worker result);
@@ -100,7 +106,26 @@ class ServingFuture:
                 return False
             self._result, self._error = result, error
             self._ev.set()
+            callbacks, self._callbacks = self._callbacks, []
+        for cb in callbacks:
+            try:
+                cb(self)
+            except Exception:  # noqa: BLE001 — a bad callback is the caller's bug
+                pass
         return True
+
+    def add_done_callback(self, fn) -> None:
+        """``fn(self)`` on completion, on whichever thread completes it;
+        at once when already done. The traffic tier's completion
+        accounting rides this instead of a waiter thread per request."""
+        with self._lock:
+            if not self._ev.is_set():
+                self._callbacks.append(fn)
+                return
+        try:
+            fn(self)
+        except Exception:  # noqa: BLE001
+            pass
 
     def cancel(self) -> bool:
         """Cancel if not yet completed or batched: True if the request
@@ -129,15 +154,16 @@ class ServingFuture:
 
 class _Request:
     __slots__ = ("arrays", "n_rows", "key", "deadline", "enqueue_t",
-                 "future")
+                 "future", "ctx")
 
-    def __init__(self, arrays, n_rows, key, deadline, future):
+    def __init__(self, arrays, n_rows, key, deadline, future, ctx=None):
         self.arrays = arrays        # per feed, predictor feed order
         self.n_rows = n_rows
         self.key = key              # batch-compatibility key (None: solo)
         self.deadline = deadline    # absolute time.monotonic() or None
         self.enqueue_t = time.monotonic()
         self.future = future
+        self.ctx = ctx              # tracing.SpanContext of the submit span
 
 
 class ServingEngine:
@@ -179,6 +205,12 @@ class ServingEngine:
         if self.queue_capacity < 1:
             raise ValueError("queue_capacity must be >= 1")
         self.metrics = ServingMetrics()
+        # the predictor's bucket stats join the scrape under the same
+        # engine= label as the serving series
+        from ..observability import watch_engine
+
+        self._obs_id = self.metrics._obs_id
+        watch_engine(self)
         self._cond = threading.Condition()
         self._pending: "collections.deque[_Request]" = collections.deque()
         self._closed = False      # admission stopped
@@ -270,19 +302,22 @@ class ServingEngine:
         deadline = (time.monotonic() + deadline_ms / 1e3
                     if deadline_ms is not None else None)
         fut = ServingFuture(self)
-        req = _Request(arrays, n_rows, key, deadline, fut)
-        with self._cond:
-            if self._closed:
-                raise EngineClosed("ServingEngine is closed")
-            if len(self._pending) >= self.queue_capacity:
-                self.metrics.inc("rejected_total")
-                raise Overloaded(
-                    f"serving queue full ({self.queue_capacity} pending); "
-                    "retry with backoff or raise serving_queue_capacity")
-            self._pending.append(req)
-            self.metrics.inc("requests_total")
-            self.metrics.set_queue_depth(len(self._pending))
-            self._cond.notify_all()
+        with (tracing.span("serving/submit", {"rows": n_rows})
+              if tracing.enabled() else contextlib.nullcontext()) as ctx:
+            req = _Request(arrays, n_rows, key, deadline, fut, ctx=ctx)
+            with self._cond:
+                if self._closed:
+                    raise EngineClosed("ServingEngine is closed")
+                if len(self._pending) >= self.queue_capacity:
+                    self.metrics.inc("rejected_total")
+                    raise Overloaded(
+                        f"serving queue full ({self.queue_capacity} "
+                        "pending); retry with backoff or raise "
+                        "serving_queue_capacity")
+                self._pending.append(req)
+                self.metrics.inc("requests_total")
+                self.metrics.set_queue_depth(len(self._pending))
+                self._cond.notify_all()
         return fut
 
     def predict(self, feed, deadline_ms: Optional[float] = None,
@@ -511,7 +546,15 @@ class ServingEngine:
     def _execute(self, pred, batch: List[_Request]):
         try:
             feeds, padded_any = self._assemble(batch)
-            outs = pred.run(feeds)
+            # the batch span parents to the first member's submit span
+            # and names every other member's in flow_from
+            flow = [r.ctx.span_id for r in batch[1:] if r.ctx is not None]
+            with tracing.span(
+                    f"serving/batch_execute[n={len(batch)}]",
+                    {"rows": sum(r.n_rows for r in batch),
+                     **({"flow_from": flow} if flow else {})},
+                    parent=batch[0].ctx):
+                outs = pred.run(feeds)
             true_shapes = ([self._true_shapes_for(pred, r) for r in batch]
                            if padded_any else None)
             done = self._split_and_complete(batch, outs, true_shapes)

@@ -3,10 +3,10 @@
 the generation metrics use too) and ``ServingMetrics`` (:93-201), the
 ServingEngine's lock-protected counters, latency and queue-wait
 histograms, batch occupancy and fill, padding waste, ``snapshot()`` and
-``to_prometheus_text(extra)``. The reference also registers every
-ServingMetrics with the process-wide observability registry; that
-registry is ROADMAP A9, so here the server renders its own engine's
-exposition."""
+``to_prometheus_text(extra)``. Every ServingMetrics registers with the
+process-wide observability registry (``watch_serving``, :104 there), so
+``/metrics`` on any server shows every live engine as a labeled
+``paddle_serving_*{engine=}`` series group."""
 
 from __future__ import annotations
 
@@ -92,6 +92,11 @@ class ServingMetrics:
 
     def __init__(self):
         self._lock = threading.Lock()
+        # one labeled series group in the process-wide registry, weakly
+        # held: a closed engine drops out of the scrape
+        from ..observability import watch_serving
+
+        watch_serving(self)
         self._c: Dict[str, int] = {k: 0 for k in _COUNTERS}
         self._latency_ms = StreamingHistogram()
         self._queue_wait_ms = StreamingHistogram()

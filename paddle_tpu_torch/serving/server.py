@@ -26,40 +26,56 @@ standard library's ``http.server``:
                         -> 200 {"evicted": row}; 404 not resident, 409
                         pinned by live rows unless forced.
     GET  /healthz      -> 200 {"status": "ok", ...} while serving, 503
-                          "draining" once the engine is closed; with a
-                          GenerationEngine, its ``models_fragment()``.
-    GET  /metrics      -> Prometheus text: this server's serving
-                          metrics, the predictor bucket stats
-                          (``paddle_serving_predictor_*``) and the
-                          generation engine's numbers
-                          (``paddle_serving_generation_*``).
+                          "draining" once the engine (or the traffic
+                          controller) is closed; with a GenerationEngine,
+                          its ``models_fragment()``; with a phase, its
+                          ``phase`` and the disaggregated service's
+                          per-worker ``phases``; with a traffic
+                          controller, its ``health()``.
+    GET  /metrics      -> the unified process-wide exposition
+                          (``observability.to_prometheus_text()``):
+                          every live engine's ``paddle_serving_*``,
+                          ``paddle_serving_predictor_*``,
+                          ``paddle_generation_*``, ``paddle_traffic_*``,
+                          ``paddle_disagg_*``, ``paddle_adapter_*`` and
+                          ``paddle_step_*`` series, labeled per instance.
+    GET  /metrics/fleet -> the merged fleet exposition (every worker
+                          scraped and relabeled {worker=,phase=,rank=},
+                          plus the ``paddle_slo_*`` gauges); needs
+                          ``ServingServer(..., fleet=FleetAggregator())``
+                          (404 without one).
+    GET  /v1/admin/trace/<id> -> this process's completed spans of one
+                          trace (from the flight ring), pid-stamped; 404
+                          when it holds none.
+    POST /v1/admin/flight/dump -> dump the local flight ring now.
 
 Every request adopts the client's ``X-Request-Id`` (or mints one) and
-echoes it in the reply's headers, in error bodies, and on the first and
-last NDJSON lines of a stream. A streamed ``/v1/generate`` whose client
-stops reading for ``traffic_stream_write_timeout_s`` seconds (or hangs
-up) cancels its sequence, whose pages free at the next step.
+its ``traceparent`` / ``X-Trace`` trace context, so the handler's spans
+join the caller's trace; replies echo both ids in headers, in error
+bodies, and on the first and last NDJSON lines of a stream. A streamed
+``/v1/generate`` whose client stops reading for
+``traffic_stream_write_timeout_s`` seconds (or hangs up) cancels its
+sequence, whose pages free at the next step.
 
-Left out with the reference's host tiers (ROADMAP A9): the traffic
-controller (``ServingServer(traffic=...)``) and its sheds, the fleet
-exposition (``fleet=``, ``/metrics/fleet``), the disaggregated phase
-(``phase=``), the trace and flight endpoints (``/v1/admin/trace/<id>``,
-``/v1/admin/flight/dump``), trace-context propagation, the in-flight
-count the rolling-restart drain waits on (``active_requests``) and the
-unified process-wide ``/metrics`` registry. The constructor arguments raise
-``NotImplementedError`` and the endpoints answer 501, naming A9.
+With ``traffic=TrafficController(...)`` both POST endpoints route
+through the traffic tier: tenant and priority class come from the
+``X-Tenant`` / ``X-Priority`` headers (or the payload's ``tenant`` /
+``priority``), and a shed answers 503 (429 for a tenant quota) with a
+``Retry-After`` from the measured drain rate. ``reuse_port=True`` binds
+with SO_REUSEPORT so the worker processes of a ``traffic.WorkerPool``
+share the port; ``active_requests()`` is the in-flight count its
+rolling-restart drain waits on.
 """
 
 from __future__ import annotations
 
 import json
 import math
-import os
 import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional
+from typing import Optional
 
 import numpy as np
 
@@ -70,48 +86,9 @@ __all__ = ["ServingServer"]
 
 VERSION = "0.1.0"     # paddle_tpu/version.py full_version
 REQUEST_ID_HEADER = "X-Request-Id"
-_A9 = "ROADMAP queue A9 (host tiers: traffic, fleet observability, tracing)"
-
-
-def new_request_id() -> str:
-    """A fresh 22-hex-digit correlation id for a request that arrives
-    without an ``X-Request-Id``."""
-    return os.urandom(11).hex()
-
-
-def _clamp_retry(s: float) -> float:
-    return min(30.0, max(0.05, float(s)))
-
-
-def engine_retry_after(engine) -> float:
-    """Retry-After for a ServingEngine 503: the queued work over the
-    engine's best-case drain rate (max_batch rows a median batch
-    latency, across the worker pool). Coarse by design
-    (``paddle_tpu/traffic/controller.py:83``)."""
-    try:
-        snap = engine.metrics.snapshot()
-        depth = snap.get("queue_depth")
-        if depth is None:
-            depth = engine.queue_capacity
-        lat_ms = snap["latency_ms"]["p50"] or 0.0
-        per_batch_s = (lat_ms / 1e3) if lat_ms > 0 else 0.1
-        bandwidth = engine.max_batch_size * engine.num_workers / per_batch_s
-        return _clamp_retry((depth + 1) / max(bandwidth, 1e-6))
-    except Exception:  # noqa: BLE001 — a 503 must never become a 500
-        return 1.0
-
-
-def generation_retry_after(gen_engine) -> float:
-    """Retry-After for a GenerationEngine 503: the queued prompts over
-    the admission rate (median TTFT per lane, :101 there)."""
-    try:
-        depth = gen_engine.queue_depth()
-        snap = gen_engine.metrics.snapshot()
-        ttft_ms = snap["ttft_ms"]["p50"] or 100.0
-        lanes = max(1, int(getattr(gen_engine, "lanes", 1)))
-        return _clamp_retry((depth + 1) * (ttft_ms / 1e3) / lanes)
-    except Exception:  # noqa: BLE001 — a 503 must never become a 500
-        return 1.0
+TRACE_HEADER = "X-Trace"
+# the observability and traffic modules import the serving package (its
+# histogram), so this module imports them where it uses them
 
 
 def _retry_after_header(seconds: float) -> str:
@@ -129,24 +106,23 @@ def _json_default(o):
     raise TypeError(f"not JSON serializable: {type(o)}")
 
 
-def _flat_numbers(prefix: str, obj, out: Dict[str, Any]) -> None:
-    """Nested dicts flattened into ``prefix_key_sub`` -> number."""
-    if isinstance(obj, dict):
-        for k, v in obj.items():
-            _flat_numbers(f"{prefix}_{k}", v, out)
-    elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
-        out[prefix] = obj
-
-
 class _Handler(BaseHTTPRequestHandler):
     engine: ServingEngine = None  # set by the subclass ServingServer makes
     gen_engine = None             # generation.GenerationEngine (optional)
+    traffic = None                # traffic.TrafficController (optional)
+    fleet = None                  # observability.FleetAggregator (optional)
+    phase = None                  # disaggregated worker phase (optional)
     started_at: float = 0.0
     stream_timeout_s: float = 0.0
     sndbuf: int = 0               # test hook: shrink SO_SNDBUF
+    active = None                 # {"n": int} shared with ServingServer
+    active_lock = None
     server_version = "paddle_tpu_torch_serving/1.0"
     protocol_version = "HTTP/1.1"
+    # per-request correlation state (set by _begin_request)
     _rid = None
+    _ctx = None
+    _trace_id = None
     _body = b""
 
     # -- plumbing ------------------------------------------------------------
@@ -160,7 +136,15 @@ class _Handler(BaseHTTPRequestHandler):
                                        int(self.sndbuf))
 
     def _begin_request(self):
-        self._rid = self.headers.get(REQUEST_ID_HEADER) or new_request_id()
+        """Adopt the client's ``X-Request-Id`` (or mint one) and its trace
+        context (``traceparent`` / ``X-Trace``)."""
+        from ..observability import propagate
+
+        self._rid = (self.headers.get(REQUEST_ID_HEADER)
+                     or propagate.new_request_id())
+        self._ctx = propagate.extract(self.headers)
+        self._trace_id = (self._ctx.trace_id
+                          if self._ctx is not None else None)
 
     def _reply(self, code: int, body: bytes, ctype: str, headers=None):
         self.send_response(code)
@@ -168,21 +152,31 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Content-Length", str(len(body)))
         if self._rid:
             self.send_header(REQUEST_ID_HEADER, self._rid)
+        if self._trace_id:
+            self.send_header(TRACE_HEADER, self._trace_id)
         for k, v in (headers or {}).items():
             self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
 
     def _reply_json(self, code: int, obj, headers=None):
-        if code >= 400 and isinstance(obj, dict) and self._rid:
-            obj.setdefault("request_id", self._rid)
+        if code >= 400 and isinstance(obj, dict):
+            # every error body names the request and its trace
+            if self._rid:
+                obj.setdefault("request_id", self._rid)
+            if self._trace_id:
+                obj.setdefault("trace_id", self._trace_id)
         self._reply(code, json.dumps(obj, default=_json_default).encode(),
                     "application/json", headers=headers)
 
-    def _not_ported(self):
-        self._reply_json(501, {"error": f"{self.path} is not ported to "
-                                        f"paddle_tpu_torch yet: {_A9}",
-                               "kind": "not_ported"})
+    def _reply_shed(self, e) -> None:
+        """A traffic-tier shed: 503 (429 for a quota) with a Retry-After
+        from the measured drain rate or the token-bucket refill."""
+        code = 429 if e.kind == "quota" else 503
+        self._reply_json(code, {
+            "error": str(e), "kind": f"shed:{e.kind}",
+            "retry_after_s": round(e.retry_after_s, 3),
+        }, headers={"Retry-After": _retry_after_header(e.retry_after_s)})
 
     def _payload(self):
         payload = json.loads(self._body or b"{}")
@@ -190,10 +184,12 @@ class _Handler(BaseHTTPRequestHandler):
             raise ValueError("the request body must be a JSON object")
         return payload
 
-    def _adapter(self, payload) -> Optional[str]:
-        """The adapter a request names (header first, then ``adapter``
-        or its alias ``model``); "", "base" or the engine's base version
-        mean none."""
+    def _meta(self, payload) -> tuple:
+        """(tenant, priority, adapter), headers first, the payload second.
+        ``model`` is an alias of ``adapter``; "", "base" or the engine's
+        base version mean no adapter."""
+        tenant = self.headers.get("X-Tenant") or payload.get("tenant")
+        priority = self.headers.get("X-Priority") or payload.get("priority")
         adapter = (self.headers.get("X-Adapter") or payload.get("adapter")
                    or payload.get("model"))
         if adapter is not None:
@@ -201,36 +197,64 @@ class _Handler(BaseHTTPRequestHandler):
             base = getattr(self.gen_engine, "model_version", "base")
             if adapter in ("", "base", base):
                 adapter = None
-        return adapter
+        return tenant, priority, adapter
 
     # -- endpoints -----------------------------------------------------------
     def do_GET(self):  # noqa: N802 — http.server contract
         self._begin_request()
         if self.path == "/healthz":
-            draining = self.engine.closed
+            draining = self.engine.closed or (
+                self.traffic is not None and self.traffic.draining)
             body = {"status": "draining" if draining else "ok",
                     "uptime_s": round(time.monotonic() - self.started_at, 3),
-                    "version": VERSION}
+                    "version": VERSION, "tpu": "OFF"}
+            if self.phase:
+                # which phase this worker serves, on the probe a router
+                # already polls
+                body["phase"] = self.phase
             gen = self.gen_engine
+            if gen is not None and hasattr(gen, "phase_health"):
+                try:
+                    body["phases"] = gen.phase_health()
+                except Exception:  # noqa: BLE001 — a closing service
+                    pass
             if gen is not None and hasattr(gen, "models_fragment"):
                 try:
                     body["models"] = gen.models_fragment()
                 except Exception:  # noqa: BLE001 — a closing engine
                     pass
+            if self.traffic is not None:
+                body["traffic"] = self.traffic.health()
             self._reply_json(503 if draining else 200, body)
         elif self.path == "/metrics":
-            extra: Dict[str, Any] = {}
-            _flat_numbers("predictor", self.engine.predictor_stats_numeric(),
-                          extra)
-            if self.gen_engine is not None:
-                _flat_numbers("generation", self.gen_engine.stats_numeric(),
-                              extra)
-            text = self.engine.metrics.to_prometheus_text(extra)
+            from .. import observability
+
+            # the unified registry: every live engine, controller and
+            # store of the process in one scrape
+            text = observability.to_prometheus_text()
             self._reply(200, text.encode(),
                         "text/plain; version=0.0.4; charset=utf-8")
-        elif (self.path == "/metrics/fleet"
-              or self.path.startswith("/v1/admin/trace/")):
-            self._not_ported()
+        elif self.path == "/metrics/fleet":
+            if self.fleet is None:
+                self._reply_json(404, {
+                    "error": "no FleetAggregator attached: construct "
+                             "ServingServer(..., fleet=FleetAggregator())"})
+                return
+            try:
+                text = self.fleet.to_prometheus_text()
+            except Exception as e:  # noqa: BLE001 — a scrape must not 500 loop
+                self._reply_json(500, {"error": repr(e)})
+                return
+            self._reply(200, text.encode(),
+                        "text/plain; version=0.0.4; charset=utf-8")
+        elif self.path.startswith("/v1/admin/trace/"):
+            # this process's slice of one trace, pid-stamped;
+            # fleet.assemble_trace merges the workers' slices
+            from ..observability import propagate
+
+            tid = self.path.rsplit("/", 1)[-1].strip().lower()
+            payload = propagate.local_trace(tid, phase=self.phase)
+            self._reply_json(200 if payload["spans"] else 404, payload)
         else:
             self._reply_json(404, {"error": f"no such endpoint {self.path}"})
 
@@ -244,20 +268,43 @@ class _Handler(BaseHTTPRequestHandler):
         except ValueError:
             self._body = b""
             self.close_connection = True
-        if self.path == "/v1/generate":
-            self._generate()
-        elif self.path == "/v1/predict":
-            self._predict()
-        elif self.path == "/v1/admin/adapters/evict":
-            self._adapter_admin(evict=True)
-        elif self.path == "/v1/admin/adapters":
-            self._adapter_admin(evict=False)
-        elif self.path == "/v1/admin/flight/dump":
-            self._not_ported()
-        else:
-            self._reply_json(404, {"error": f"no such endpoint {self.path}"})
+        # in-flight accounting: the rolling-restart drain waits for this
+        # to reach zero before the process exits
+        with self.active_lock:
+            self.active["n"] += 1
+        try:
+            if self.path == "/v1/generate":
+                self._generate()
+            elif self.path == "/v1/predict":
+                self._predict()
+            elif self.path == "/v1/admin/adapters/evict":
+                self._adapter_admin(evict=True)
+            elif self.path == "/v1/admin/adapters":
+                self._adapter_admin(evict=False)
+            elif self.path == "/v1/admin/flight/dump":
+                self._flight_dump()
+            else:
+                self._reply_json(404,
+                                 {"error": f"no such endpoint {self.path}"})
+        finally:
+            with self.active_lock:
+                self.active["n"] -= 1
+
+    def _flight_dump(self):
+        """Dump this process's flight ring now (the SLO monitor's
+        sustained-burn trigger posts this to every worker)."""
+        from ..observability import flight
+
+        try:
+            path = flight.dump(f"admin:{self._rid}")
+            self._reply_json(200, {"path": path, "request_id": self._rid})
+        except Exception as e:  # noqa: BLE001 — the server must survive
+            self._reply_json(500, {"error": repr(e)})
 
     def _predict(self):
+        from ..observability import tracing
+        from ..traffic.controller import TrafficShed, engine_retry_after
+
         try:
             payload = self._payload()
             inputs = payload["inputs"]
@@ -273,8 +320,24 @@ class _Handler(BaseHTTPRequestHandler):
                     400, {"error": f"{name} must be a number, got {v!r}"})
                 return
         try:
-            outs = self.engine.predict(inputs, deadline_ms=deadline_ms,
-                                       timeout=timeout)
+            # the handler thread is the trace root, or a child of the
+            # caller's span when it sent a traceparent
+            with tracing.attach(self._ctx), \
+                 tracing.span("serving/http_predict",
+                              {"request_id": self._rid}) as sctx:
+                if sctx is not None:
+                    self._trace_id = sctx.trace_id
+                if self.traffic is not None:
+                    tenant, priority, _ = self._meta(payload)
+                    outs = self.traffic.predict(
+                        inputs, tenant=tenant, priority=priority,
+                        deadline_ms=deadline_ms, timeout=timeout)
+                else:
+                    outs = self.engine.predict(inputs,
+                                               deadline_ms=deadline_ms,
+                                               timeout=timeout)
+        except TrafficShed as e:
+            self._reply_shed(e)
         except Overloaded as e:
             ra = engine_retry_after(self.engine)
             self._reply_json(
@@ -377,14 +440,39 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply_json(400, {"error": f"malformed request: {e!r}"})
             return
         from ..adapters import AdapterError, AdapterMissing
+        from ..observability import tracing
+        from ..traffic.controller import TrafficShed, generation_retry_after
 
-        adapter = self._adapter(payload)
+        ticket = None
+        tenant, priority, adapter = self._meta(payload)
         try:
-            kw = {"adapter": adapter} if adapter is not None else {}
-            stream = self.gen_engine.submit(
-                tokens, max_new_tokens=max_new,
-                eos_id=eos_id if eos_id is not None else "default",
-                deadline_ms=deadline_ms, **kw)
+            with tracing.attach(self._ctx), \
+                 tracing.span("serving/http_generate",
+                              {"request_id": self._rid}) as sctx:
+                if sctx is not None:
+                    self._trace_id = sctx.trace_id
+                if self.traffic is not None:
+                    ticket = self.traffic.submit_generation(
+                        tokens, tenant=tenant, priority=priority,
+                        deadline_ms=deadline_ms, max_new_tokens=max_new,
+                        eos_id=eos_id if eos_id is not None else "default",
+                        adapter=adapter)
+                    # blocks until the dispatcher admits the prompt into
+                    # the continuous batch (or sheds it)
+                    stream = ticket.stream(
+                        timeout=(deadline_ms / 1e3 + 5.0
+                                 if deadline_ms is not None else 600.0))
+                else:
+                    # adapter rides only when named: engines that host no
+                    # adapters (a DisaggService) keep working here
+                    kw = {"adapter": adapter} if adapter is not None else {}
+                    stream = self.gen_engine.submit(
+                        tokens, max_new_tokens=max_new,
+                        eos_id=eos_id if eos_id is not None else "default",
+                        deadline_ms=deadline_ms, **kw)
+        except TrafficShed as e:
+            self._reply_shed(e)
+            return
         except AdapterMissing as e:
             # not resident: the router uploads it or places the request
             # elsewhere (a 503 would read as "retry here")
@@ -404,6 +492,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply_json(503, {"error": str(e), "kind": "closed"})
             return
         except (DeadlineExceeded, TimeoutError) as e:
+            if ticket is not None:
+                # the client is gone after this 504: withdraw the queued
+                # request so it never spends a lane on a dead stream
+                ticket.cancel()
             self._reply_json(504, {"error": str(e), "kind": "deadline"})
             return
         except ValueError as e:
@@ -434,6 +526,8 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Transfer-Encoding", "chunked")
         if self._rid:
             self.send_header(REQUEST_ID_HEADER, self._rid)
+        if self._trace_id:
+            self.send_header(TRACE_HEADER, self._trace_id)
         self.end_headers()
         # a client that stops reading fills the socket buffers and
         # blocks the next write: the timeout turns the stall into a
@@ -444,8 +538,13 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             for tok in stream:
                 line = {"index": n, "token": int(tok)}
-                if n == 0 and self._rid:
-                    line["request_id"] = self._rid
+                if n == 0:
+                    # the ids ride the first fragment (at TTFT), so a
+                    # client can correlate a stream it later abandons
+                    if self._trace_id:
+                        line["trace_id"] = self._trace_id
+                    if self._rid:
+                        line["request_id"] = self._rid
                 self._write_chunk(json.dumps(line).encode() + b"\n")
                 n += 1
             tail = {"done": True, "finish_reason": stream.finish_reason,
@@ -461,6 +560,8 @@ class _Handler(BaseHTTPRequestHandler):
                     "usage": usage_fragment()}
         if self._rid:
             tail.setdefault("request_id", self._rid)
+        if self._trace_id:
+            tail.setdefault("trace_id", self._trace_id)
         try:
             self._write_chunk(json.dumps(tail).encode() + b"\n")
             self.wfile.write(b"0\r\n\r\n")
@@ -482,10 +583,28 @@ class _QuietThreadingServer(ThreadingHTTPServer):
         super().handle_error(request, client_address)
 
 
+class _ReuseportThreadingServer(_QuietThreadingServer):
+    """SO_REUSEPORT listener: the worker processes of a WorkerPool bind
+    the same host:port and the kernel balances new connections across
+    them."""
+
+    def server_bind(self):
+        if not hasattr(socket, "SO_REUSEPORT"):
+            raise OSError(
+                "SO_REUSEPORT is not supported on this platform; use "
+                "traffic.ThinRouter / WorkerPool(use_reuseport=False)")
+        self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        super().server_bind()
+
+
 class ServingServer:
     """Owns the HTTP listener; the engines' lifecycles stay the
     caller's. ``port=0`` binds a free port; ``.port`` and ``.address``
-    report it. ``stream_write_timeout_s`` overrides the
+    report it. ``traffic=`` routes both POST endpoints through a
+    ``traffic.TrafficController``; ``fleet=`` serves a
+    ``FleetAggregator`` on ``/metrics/fleet``; ``phase`` (by default the
+    generation engine's) labels ``/healthz``; ``reuse_port=True`` binds
+    with SO_REUSEPORT. ``stream_write_timeout_s`` overrides the
     ``traffic_stream_write_timeout_s`` flag (the slow-reader cancel);
     ``sndbuf`` shrinks each connection's send buffer (a test hook).
 
@@ -498,27 +617,30 @@ class ServingServer:
                  traffic=None, reuse_port: bool = False,
                  stream_write_timeout_s: Optional[float] = None,
                  sndbuf: int = 0, phase: Optional[str] = None, fleet=None):
-        for what, val in (("traffic", traffic), ("fleet", fleet),
-                          ("phase", phase)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"ServingServer({what}=...) is not ported to "
-                    f"paddle_tpu_torch yet: {_A9}")
-        if reuse_port:
-            raise NotImplementedError(
-                "ServingServer(reuse_port=True) (the multi-process worker "
-                f"pool's listener) is not ported yet: {_A9}")
+        self.engine = engine
+        self.generation_engine = generation_engine
+        self.traffic = traffic
+        self.fleet = fleet
+        if phase is None:
+            phase = getattr(generation_engine, "phase", None)
+        self.phase = str(phase) if phase else None
         if stream_write_timeout_s is None:
             stream_write_timeout_s = float(
                 flag("traffic_stream_write_timeout_s"))
-        self.engine = engine
-        self.generation_engine = generation_engine
+        self._active = {"n": 0}
+        self._active_lock = threading.Lock()
         handler = type("_BoundHandler", (_Handler,),
                        {"engine": engine, "gen_engine": generation_engine,
+                        "traffic": traffic, "fleet": fleet,
+                        "phase": self.phase,
                         "stream_timeout_s": float(stream_write_timeout_s),
                         "sndbuf": int(sndbuf),
+                        "active": self._active,
+                        "active_lock": self._active_lock,
                         "started_at": time.monotonic()})
-        self._httpd = _QuietThreadingServer((host, port), handler)
+        server_cls = (_ReuseportThreadingServer if reuse_port
+                      else _QuietThreadingServer)
+        self._httpd = server_cls((host, port), handler)
         self.host, self.port = self._httpd.server_address[:2]
         self._thread: Optional[threading.Thread] = None
         if start:
@@ -527,6 +649,12 @@ class ServingServer:
     @property
     def address(self) -> str:
         return f"http://{self.host}:{self.port}"
+
+    def active_requests(self) -> int:
+        """POST requests inside a handler now (the drain's exit
+        condition)."""
+        with self._active_lock:
+            return self._active["n"]
 
     def start(self) -> "ServingServer":
         if self._thread is None:

@@ -263,37 +263,60 @@ def test_cancel_and_deadline_retire_requests(port_pred):
 
 
 # kv_dtype="int8", quantize_weights, adapter_store, mode="two_lane",
-# speculative decoding and the prefix cache are ported (see
-# tests/test_torch_{int8_kv,quant,adapters,two_lane,spec,radix}.py): the
-# first three cases construct as the JAX engine does; page_store (A9) is
-# still refused
+# speculative decoding, the prefix cache and the page store are ported
+# (see tests/test_torch_{int8_kv,quant,adapters,two_lane,spec,radix,
+# disagg}.py): the first four cases construct as the JAX engine does (a
+# page store of each package's own for option3); a page store together
+# with an adapter store is refused with ValueError, where the JAX engine
+# would splice one adapter's K/V into another's row (the store keys a
+# page by its tokens alone)
+_STORE = "page store"
+
+
 @pytest.mark.parametrize("option,ported", [
     pytest.param(dict(spec_tokens=3, draft=object()), True, id="option0"),
     pytest.param(dict(prefix_cache=True), True, id="option1"),
     pytest.param(dict(quantize_weights="int8", prefix_cache=True), True,
                  id="option2"),
-    pytest.param(dict(page_store=object()), False, id="option3"),
+    pytest.param(dict(page_store=_STORE, prefix_cache=True, phase="decode"),
+                 True, id="option3"),
     pytest.param(dict(adapter_store=object(), page_store=object()), False,
                  id="option4")])
 def test_options_not_ported_yet_are_refused(lm_dir, port_pred, option,
                                             ported):
     if not ported:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="page_store cannot be combined "
+                                             "with an adapter store"):
             GenerationEngine(port_pred, port_pred.gpt_config, start=False,
-                             **option)
+                             adapter_store=_port_store(port_pred),
+                             page_store=object())
         return
+    from paddle_tpu.disagg import HostPageStore as JaxStore
+    from paddle_tpu_torch.disagg import HostPageStore
     # a predictor of its own: quantize_weights rewrites the shared model
     jax_pred = jax_create_predictor(JaxConfig(lm_dir))
     pred = create_predictor(Config(lm_dir), device="cpu")
-    want = JaxEngine(jax_pred, CFG, start=False, **option)
-    eng = GenerationEngine(pred, pred.gpt_config, start=False, **option)
+    jopt, opt = dict(option), dict(option)
+    if option.get("page_store") == _STORE:
+        jopt["page_store"] = JaxStore(16)
+        opt["page_store"] = HostPageStore(16)
+    want = JaxEngine(jax_pred, CFG, start=False, **jopt)
+    eng = GenerationEngine(pred, pred.gpt_config, start=False, **opt)
     for attr in ("spec_tokens", "chunk_tokens", "prefix_cache",
-                 "quantize_weights"):
+                 "quantize_weights", "phase"):
         assert getattr(eng, attr) == getattr(want, attr), attr
     assert eng.cache.prefix_cache == want.cache.prefix_cache
     assert eng.stats()["radix"] == want.stats()["radix"]
+    assert eng.stats().get("store") == want.stats().get("store")
     want.close()
     eng.close()
+
+
+def _port_store(pred):
+    from paddle_tpu_torch.adapters import AdapterStore
+
+    return AdapterStore.for_model(pred.lm, rank_buckets=(8,),
+                                  slots_per_bucket=1)
 
 
 # what the JAX engine does with these: two_lane constructs, and int8 KV

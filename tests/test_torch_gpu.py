@@ -1837,3 +1837,80 @@ def test_scatter_with_repeated_ids_on_cuda_takes_the_last_update(cuda):
     last = {int(i): k for k, i in enumerate(ids)}
     for i, k in last.items():
         np.testing.assert_array_equal(out[i].numpy(), upd[k])
+
+
+# -- the disaggregated splice on the card (A9a) ----------------------------------
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_ingest_under_a_captured_graph_serves_the_spliced_pages(cuda,
+                                                                kv_dtype):
+    """A decode engine whose step is a captured CUDA graph ingests a run
+    from a page store in place (``index_copy_`` into the same pool
+    tensors): the graph is not recaptured, the spliced pages are the
+    store's bit for bit, and the tokens equal the engine that prefilled
+    the prompt itself."""
+    from paddle_tpu_torch.disagg import HostPageStore, run_for_pool
+
+    params = _tiny_params(GRAPH_CFG)
+    kw = dict(page_size=4, num_pages=64, max_decode_batch=4, warmup=True,
+              kv_dtype=kv_dtype, prefix_cache=True)
+    prompt = np.arange(3, 26, dtype=np.int64)          # 5 full pages + 3
+    store = HostPageStore(page_size=4)
+    pred = create_predictor(Config().set_params(GRAPH_CFG, params), "cuda")
+    with GenerationEngine(pred, GRAPH_CFG, page_store=store, **kw) as a:
+        want = a.generate(prompt, max_new_tokens=8, timeout=120)
+        assert a.spill_run(prompt) == 5
+        a.cache.drop_trie()
+    with GenerationEngine(pred, GRAPH_CFG, page_store=store, **kw) as b:
+        bound = b._ragged_bound
+        ptrs = [t.data_ptr() for t in b.cache.k_pages]
+        got = b.generate(prompt, max_new_tokens=8, timeout=120)
+        st = b.stats()
+        assert st["store"]["pages_pulled_total"] == 5
+        assert b._ragged_bound is bound and st["graph_captures"] == 1
+        assert [t.data_ptr() for t in b.cache.k_pages] == ptrs
+        n, k_run, v_run, ks, vs = b.cache.export_run(prompt, max_pages=5)
+        ref = run_for_pool(store.match(prompt), kv_dtype)
+        assert n == 5
+        assert np.array_equal(k_run, ref[1]) and np.array_equal(v_run, ref[2])
+        if kv_dtype == "int8":
+            assert np.array_equal(ks, ref[3]) and np.array_equal(vs, ref[4])
+        b.cache.drop_trie()
+    assert got == want
+
+
+def test_export_from_another_thread_sees_the_step_s_writes(cuda):
+    """``spill_run`` from a thread other than the loop's (the prefill
+    worker's dispatcher) reads pages after the step that wrote them: its
+    reads wait on the event the loop records after each step. Held to
+    a direct read of the pool after a full device synchronize."""
+    import threading
+
+    params = _tiny_params(GRAPH_CFG)
+    pred = create_predictor(Config().set_params(GRAPH_CFG, params), "cuda")
+    prompt = np.arange(5, 37, dtype=np.int64)           # 8 full pages
+    with GenerationEngine(pred, GRAPH_CFG, page_size=4, num_pages=64,
+                          max_decode_batch=4, warmup=True,
+                          prefix_cache=True) as eng:
+        # the engine's stream ends in max_new 1: the prompt's pages are
+        # published by the step that samples the first token
+        eng.generate(prompt, max_new_tokens=1, timeout=120)
+        assert eng.cache._written is not None
+        out = {}
+        t = threading.Thread(target=lambda: out.setdefault(
+            "run", eng.cache.export_run(prompt)))
+        t.start()
+        t.join(60)
+        torch.cuda.synchronize()
+        n, k_run, v_run, _, _ = out["run"]
+        assert n == 8
+        node, pids = eng.cache._root, []
+        for i in range(8):
+            node = node.children[eng.cache._page_key(prompt, i)]
+            pids.append(node.page)
+        sel = torch.tensor(pids, device=cuda)
+        for li, buf in enumerate(eng.cache.k_pages):
+            direct = buf.index_select(1, sel).movedim(1, 0).cpu().numpy()
+            assert np.array_equal(k_run[:, li], direct)
+        eng.cache.drop_trie()

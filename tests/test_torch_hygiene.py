@@ -138,7 +138,17 @@ def test_port_package_imports_no_jax_or_paddle_tpu():
                 "paddle_tpu_torch.models.mnist",
                 "paddle_tpu_torch.models.vision",
                 "paddle_tpu_torch.contrib.slim",
-                "paddle_tpu_torch.contrib.slim.quantization"):
+                "paddle_tpu_torch.contrib.slim.quantization",
+                # the serving host tiers
+                "paddle_tpu_torch.observability.registry",
+                "paddle_tpu_torch.observability.propagate",
+                "paddle_tpu_torch.observability.fleet",
+                "paddle_tpu_torch.traffic.admission",
+                "paddle_tpu_torch.traffic.controller",
+                "paddle_tpu_torch.traffic.frontend",
+                "paddle_tpu_torch.traffic.metrics",
+                "paddle_tpu_torch.disagg.pagestore",
+                "paddle_tpu_torch.disagg.roles"):
         assert mod in res["port"]
 
 

@@ -444,9 +444,13 @@ def test_http_endpoints(static_pred, jax_static):
             status, body, _ = _http(conn, "GET", "/metrics")
             text = body.decode()
             assert status == 200
-            assert "paddle_serving_requests_total 1" in text
-            assert "paddle_serving_responses_total 1" in text
-            assert 'paddle_serving_latency_ms{quantile="0.5"}' in text
+            # the unified registry, as the JAX server serves it: this
+            # engine's series are labeled with its registry id
+            eid = eng.metrics._obs_id
+            assert f'paddle_serving_requests_total{{engine="{eid}"}} 1' in text
+            assert f'paddle_serving_responses_total{{engine="{eid}"}} 1' \
+                in text
+            assert f'paddle_serving_latency_ms_p50{{engine="{eid}"}}' in text
             assert "paddle_serving_predictor_runs" in text
 
             status, body, r = _http(conn, "POST", "/v1/predict",
@@ -507,25 +511,141 @@ def test_http_overloaded_is_503_with_retry_after(static_pred):
         eng.close(drain=False)
 
 
-def test_host_tier_surfaces_name_a9(static_pred):
+def test_host_tier_surfaces_name_a9(static_pred, tmp_path):
+    """The host-tier surfaces that used to be refused naming A9 now
+    construct and answer: every argument builds a server, and every
+    endpoint answers as the JAX server does without a fleet attached
+    (see test_host_tier_surface_matches_jax for each case against it)."""
+    from paddle_tpu_torch.observability import FleetAggregator
+    from paddle_tpu_torch.traffic import TrafficController
+
+    set_flags({"observability_dump_dir": str(tmp_path)})
     eng = ServingEngine(static_pred, start=False)
+    ctl = TrafficController(eng, start=False)
     try:
-        for kw in ({"traffic": object()}, {"fleet": object()},
+        for kw in ({"traffic": ctl}, {"fleet": FleetAggregator()},
                    {"phase": "prefill"}, {"reuse_port": True}):
-            with pytest.raises(NotImplementedError, match="A9"):
-                ServingServer(eng, **kw)
+            ServingServer(eng, **kw).close()
         with ServingServer(eng) as srv:
             conn = http.client.HTTPConnection(srv.host, srv.port, timeout=30)
-            for method, path in (("GET", "/metrics/fleet"),
-                                 ("GET", "/v1/admin/trace/abc"),
-                                 ("POST", "/v1/admin/flight/dump")):
+            for method, path, code in (("GET", "/metrics/fleet", 404),
+                                       ("GET", "/v1/admin/trace/abc", 404),
+                                       ("POST", "/v1/admin/flight/dump", 200)):
                 status, body, _ = _http(conn, method, path,
                                         {} if method == "POST" else None)
-                assert status == 501, path
-                assert "A9" in json.loads(body)["error"]
+                assert status == code, path
+                assert "A9" not in body.decode()
             conn.close()
     finally:
+        set_flags({"observability_dump_dir": ""})
+        ctl.close(drain=False)
         eng.close()
+
+
+def _surface(pkg, pred, case, tmp):
+    """Serve ``pred`` through ``pkg``'s ServingServer set up for one
+    host-tier case; returns what the case's requests answered: status
+    codes and the parts of the bodies both packages must agree on."""
+    if pkg == "jax":
+        from paddle_tpu import flags as jflags
+        from paddle_tpu.observability import FleetAggregator
+        from paddle_tpu.serving import ServingEngine as Eng
+        from paddle_tpu.serving import ServingServer as Srv
+        from paddle_tpu.traffic import TrafficController as Ctl
+        set_f = jflags.set_flags
+    else:
+        from paddle_tpu_torch.observability import FleetAggregator
+        from paddle_tpu_torch.traffic import TrafficController as Ctl
+        Eng, Srv, set_f = ServingEngine, ServingServer, set_flags
+    set_f({"observability_dump_dir": str(tmp / pkg)})
+    eng = Eng(pred, max_batch_size=4, batch_timeout_ms=5)
+    extra = []
+    kw = {}
+    if case == "traffic":
+        kw["traffic"] = Ctl(eng)
+        extra.append(kw["traffic"])
+    elif case == "fleet":
+        kw["fleet"] = FleetAggregator(timeout_s=2.0)
+    elif case == "phase":
+        kw["phase"] = "prefill"
+    elif case == "reuse_port":
+        kw["reuse_port"] = True
+    out = {}
+    try:
+        with Srv(eng, **kw) as srv:
+            if case == "reuse_port":
+                # a sibling binds the same port
+                extra.append(Srv(eng, port=srv.port, reuse_port=True))
+            if case == "fleet":
+                kw["fleet"].add_endpoint(srv.address, worker="self",
+                                         phase="both")
+            conn = http.client.HTTPConnection(srv.host, srv.port, timeout=30)
+            xv = _xv(3)
+            if case in ("traffic", "reuse_port", "phase"):
+                status, body, r = _http(
+                    conn, "POST", "/v1/predict",
+                    {"inputs": {"x": xv.tolist()}},
+                    headers={"X-Tenant": "alice", "X-Priority": "batch"})
+                out["predict"] = (status, np.asarray(
+                    next(iter(json.loads(body)["outputs"].values()))))
+            if case == "traffic":
+                status, body, _ = _http(conn, "GET", "/healthz")
+                out["health"] = sorted(json.loads(body)["traffic"])
+            if case == "phase":
+                status, body, _ = _http(conn, "GET", "/healthz")
+                out["phase"] = (status, json.loads(body).get("phase"))
+            if case in ("fleet", "no_fleet"):
+                status, body, _ = _http(conn, "GET", "/metrics/fleet")
+                names = set()
+                if status == 200:
+                    for line in body.decode().splitlines():
+                        if line.startswith("paddle_fleet_") or \
+                                line.startswith("paddle_slo_"):
+                            names.add(line.split("{")[0].split(" ")[0])
+                out["fleet"] = (status, sorted(names))
+            if case == "trace":
+                status, body, _ = _http(conn, "GET", "/v1/admin/trace/abc")
+                out["trace"] = (status, sorted(json.loads(body)))
+            if case == "flight":
+                status, body, _ = _http(conn, "POST",
+                                        "/v1/admin/flight/dump", {})
+                got = json.loads(body)
+                with open(got["path"]) as f:
+                    dumped = json.load(f)
+                out["flight"] = (status, sorted(got),
+                                 dumped["reason"].startswith("admin:"),
+                                 sorted(dumped))
+            conn.close()
+    finally:
+        for x in extra:
+            x.close()
+        eng.close()
+        set_f({"observability_dump_dir": ""})
+    return out
+
+
+@pytest.mark.parametrize("case", ["traffic", "fleet", "phase", "reuse_port",
+                                  "no_fleet", "trace", "flight"])
+def test_host_tier_surface_matches_jax(static_pred, jax_static, tmp_path,
+                                       case):
+    """One case per argument (traffic=, fleet=, phase=, reuse_port=) and
+    per endpoint (/metrics/fleet without a fleet, /v1/admin/trace/<id>,
+    /v1/admin/flight/dump) that used to be refused: the port answers as
+    the JAX server does. Outputs within 1e-5; the flight dump's keys
+    apart from the JAX-only ``compile_events``."""
+    want = _surface("jax", jax_static, case, tmp_path)
+    got = _surface("torch", static_pred, case, tmp_path)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        g = got[k]
+        if k == "predict":
+            assert g[0] == w[0] == 200
+            np.testing.assert_allclose(g[1], w[1], rtol=1e-5, atol=1e-5)
+        elif k == "flight":
+            assert g[:3] == w[:3]
+            assert set(g[3]) == set(w[3]) - {"compile_events"}
+        else:
+            assert g == w, k
 
 
 # -- HTTP /v1/generate --------------------------------------------------------
@@ -646,7 +766,7 @@ def test_http_generate_nonstream_and_errors(lm_dir, lm_pred):
         status, body, _ = _http(conn, "GET", "/healthz")
         assert json.loads(body)["models"]["base"]["version"] == "base"
         status, body, _ = _http(conn, "GET", "/metrics")
-        assert "paddle_serving_generation_responses_total" in body.decode()
+        assert "paddle_generation_responses_total" in body.decode()
         conn.close()
     finally:
         srv.close()
