@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + device time by kernel group in
                                      #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4,
-                                     #   e1, e2 (+ grouped conv share)
+                                     #   e1, e2 (+ grouped conv share), g2
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789abcdef), no result line
+                                        #   23456789abcdefg), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -98,9 +98,10 @@ Phases, in order; any failure exits non-zero without the result line:
    within rtol 2e-3, parameters within 2 * lr); a 2-layer
    gpt3_1p3b-width two_lane prefill and 3 decode steps (tokens equal,
    pools within 1e-5); a 2-layer gpt3_1p3b-width GPT whose both FFNs are
-   8-expert switch-MoE layers, 2 steps of LookaheadOptimizer(fused Adam,
-   alpha 0.5, k 2) with an ExponentialMovingAverage (routing identical
-   every step, the smallest top-2 probability gap printed; losses within
+   8-expert switch-MoE layers, one step of LookaheadOptimizer(fused Adam,
+   alpha 0.5, k 1: the slow weights sync on it) with an
+   ExponentialMovingAverage (routing identical, the smallest top-2
+   probability gap printed; losses within
    rtol 1e-3; every persistable and apply()'s values within 2 * lr *
    steps; apply() restores the parameters); a While / Switch / cond
    program with a tensor array (card equals CPU); LeNet under the
@@ -299,6 +300,30 @@ f. the serving host tiers on gpt3_1p3b (phase 3's seeded weights and
    of this process's; /metrics/fleet merges the pool and this process
    under worker= labels with the paddle_slo_* gauges. Every engine
    drains with ``check_integrity`` and zero pages in use.
+g. the data tiers. g1: phase 8's ResNet-50 recipe at 102 classes trained
+   one epoch of ``datasets.flowers.train()`` (1024 synthetic samples, 16
+   steps of 64): (a) ``io.batch`` + ``DataFeeder`` + ``exe.run`` a batch,
+   (b) ``DataLoader.from_generator(...).set_sample_list_generator`` into
+   ``exe.run_pipelined`` (device prefetch on a side stream), each from
+   the same startup seed in a fresh scope. Under deterministic cuDNN
+   (restored after) the losses, every persistable and the batches that
+   reach the step (each held to (a)'s numpy feed) are equal bit for bit;
+   a ``resilience.Supervisor`` over the loader commits every 3 steps,
+   stops at step 6, and a fresh Executor and scope resume it to step 10
+   with the uninterrupted run's losses bit for bit. With the default
+   algorithms: images/s of (a) and (b), ``overlap_telemetry()`` over (b)
+   and exactly 161 K10m, one K4 and one K5 a step; 3 steps of (b) under
+   ``profiler.profiler(profile_path=DIR)``: the chrome trace holds the
+   loader's, the feeder's and the step's ranges and 483 K10m kernels.
+   g2: DeepFM at phase d4's configuration (sparse Adam): 32 batches of
+   Criteo-layout rows from ``--seed`` written as MultiSlot text into 8
+   files; the native parser (built with g++ at first use) and the
+   Python parser give the same rows; ``InMemoryDataset`` (thread 4)
+   ``load_into_memory``, ``local_shuffle(seed)``; ``train_from_dataset``
+   at thread 1 equals ``exe.run`` over the same batches bit for bit (one
+   K10 a dense parameter a step), at thread 4 (Hogwild) every batch runs
+   once and the losses fall. Prints parse MB/s, samples/s at thread 1
+   and 4 and, under ``--profile``, the device idle share of each.
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -362,7 +387,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789abcdef"
+ALL_PHASES = "23456789abcdefg"
 DEVICE = "cuda"
 
 
@@ -4423,14 +4448,16 @@ def routing(torch, x, wg):
     return torch.argmax(probs, dim=-1), top[:, 0] - top[:, 1]
 
 
-def card_vs_cpu_moe(torch, np, seed, steps=2, lr=1e-4):
+def card_vs_cpu_moe(torch, np, seed, steps=1, lr=1e-4, k=1):
     """A 2-layer gpt3_1p3b-width GPT whose both FFNs are 8-expert
     switch-MoE layers, trained ``steps`` steps by LookaheadOptimizer(
-    fused Adam, alpha 0.5, k 2) with an ExponentialMovingAverage, from the
+    fused Adam, alpha 0.5, k) with an ExponentialMovingAverage, from the
     same numpy-seeded parameters on the card and on the CPU: routing
     identical every step, losses within phase 5's rtol, parameters (and
     the Lookahead slow weights, the EMA shadows and apply()'s
-    bias-corrected values) within 2 * lr * steps."""
+    bias-corrected values) within 2 * lr * steps. One step at k 1 syncs
+    the slow weights on that step, so it checks what two steps at k 2
+    did at half the CPU's time (the check's cost is the CPU side)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.io import load_scope_arrays
@@ -4447,7 +4474,7 @@ def card_vs_cpu_moe(torch, np, seed, steps=2, lr=1e-4):
         main, startup, _, fetches = build_gpt_lm(cfg, seq)
         with fluid.program_guard(main, startup):
             fluid.optimizer.LookaheadOptimizer(
-                fluid.optimizer.AdamOptimizer(lr), alpha=0.5, k=2).minimize(
+                fluid.optimizer.AdamOptimizer(lr), alpha=0.5, k=k).minimize(
                     fetches["loss"])
             ema = fluid.optimizer.ExponentialMovingAverage(0.9)
             ema.update()
@@ -6442,6 +6469,439 @@ def phase_f(torch, np, seed, card, out_dir, record):
     return paths, out
 
 
+# -- phase g: the data tiers -----------------------------------------------------
+
+
+FLOWERS_BATCH, FLOWERS_CLASSES = 64, 102   # phase 8's batch, Oxford-102
+FLOWERS_PROFILE_STEPS = 3
+G1_STOP, G1_RESUME_TO, G1_EVERY = 6, 10, 3
+MS_FILES, MS_BATCHES, MS_THREADS = 8, 32, 4
+
+
+def flowers_program(fluid):
+    """phase 8's ResNet-50 recipe at 102 classes."""
+    from paddle_tpu_torch.models.resnet import build_resnet50
+
+    with fluid.unique_name.guard():
+        main, startup, feeds, fetches = build_resnet50(
+            FLOWERS_CLASSES, RESNET_IMAGE, resnet_optimizer(fluid),
+            data_format="NCHW")
+    return main, startup, [feeds["image"], feeds["label"]], fetches["loss"]
+
+
+def flowers_loader(fluid, feed_vars, reader):
+    loader = fluid.DataLoader.from_generator(feed_vars, capacity=8)
+    return loader.set_sample_list_generator(reader,
+                                            places=[fluid.CUDAPlace(0)])
+
+
+def checked_batches(torch, loader, host_feeds, seen):
+    """The loader's batches as they reach the step, each held to the
+    numpy feed the plain run made of the same rows: equal bit for bit."""
+    for i, b in enumerate(loader):
+        for name, arr in host_feeds[i].items():
+            require(torch.equal(b[name].cpu(), torch.from_numpy(arr)),
+                    f"g1: batch {i}'s {name} differs from the plain feed")
+        seen.append(i)
+        yield b
+
+
+def flowers_epoch(torch, fluid, exe, main, scope, feed_vars, loss, reader,
+                  mode, host_feeds=None):
+    """One epoch of ``reader``: ``plain`` (DataFeeder + exe.run a batch;
+    ``host_feeds`` collects the numpy feeds) or ``pipelined`` (the
+    DataLoader into run_pipelined; with ``host_feeds`` every batch is
+    held to them). Returns the losses and the epoch's wall seconds."""
+    losses = []
+    t = time.perf_counter()
+    if mode == "plain":
+        feeder = fluid.DataFeeder(feed_vars, fluid.CUDAPlace(0))
+        for rows in reader():
+            feed = feeder.feed(rows)
+            if host_feeds is not None:
+                host_feeds.append(feed)
+            losses.append(exe.run(main, feed=feed, fetch_list=[loss],
+                                  scope=scope)[0])
+    else:
+        loader = flowers_loader(fluid, feed_vars, reader)
+        seen = []
+        src = (loader if host_feeds is None
+               else checked_batches(torch, loader, host_feeds, seen))
+        for (lv,) in exe.run_pipelined(main, src, [loss], scope=scope):
+            losses.append(lv)
+        if host_feeds is not None:
+            require(seen == list(range(len(host_feeds))),
+                    f"g1: {len(seen)} loader batches checked")
+    torch.cuda.synchronize()
+    return losses, time.perf_counter() - t
+
+
+def same_state(torch, main, a, b):
+    """Every persistable of ``main`` in scopes a and b, equal bit for
+    bit (the first name that differs, or None)."""
+    for v in main.list_vars():
+        if v.persistable and not v.is_data and a.find_var(v.name) is not None:
+            if not torch.equal(a.find_var(v.name), b.find_var(v.name)):
+                return v.name
+    return None
+
+
+def device_trace_names(path):
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    kernels = [e["name"] for e in events
+               if str(e.get("cat", "")).lower() == "kernel"]
+    return {e.get("name") for e in events}, kernels
+
+
+def phase_g1(torch, np, seed, card, out_dir):
+    """ResNet-50 fed by the flowers reader: plain against pipelined bit
+    for bit (deterministic cuDNN), images/s of both, the overlap, a
+    profiled window and a Supervisor resume over the loader."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import datasets, profiler, resilience
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.observability import overlap_telemetry
+
+    fluid.set_flags({"optimizer_fuse": "auto"})
+    main, startup, feed_vars, loss = flowers_program(fluid)
+    reader = fluid.io.batch(datasets.flowers.train(), FLOWERS_BATCH,
+                            drop_last=True)
+    steps = datasets.flowers.TRAIN_SIZE // FLOWERS_BATCH
+    out = {"card": card, "steps_an_epoch": steps}
+
+    def fresh(startup_seed=seed):
+        startup.random_seed = startup_seed
+        main.random_seed = seed
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        return exe, scope
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        host_feeds = []
+        exe_a, scope_a = fresh()
+        la, _ = flowers_epoch(torch, fluid, exe_a, main, scope_a, feed_vars,
+                              loss, reader, "plain", host_feeds)
+        exe_b, scope_b = fresh()
+        lb, _ = flowers_epoch(torch, fluid, exe_b, main, scope_b, feed_vars,
+                              loss, reader, "pipelined", host_feeds)
+        require(len(la) == len(lb) == steps, f"g1: {len(la)} / {len(lb)} steps")
+        require([a.tobytes() for a in la] == [b.tobytes() for b in lb],
+                f"g1: pipelined losses {lb} differ from plain {la}")
+        bad = same_state(torch, main, scope_a, scope_b)
+        require(bad is None, f"g1: {bad} differs after the epoch")
+        ref = [float(v.reshape(-1)[0]) for v in la]
+        require(all(np.isfinite(ref)), f"g1: non-finite loss {ref}")
+        log(f"  g1: {steps} steps of {FLOWERS_BATCH} flowers images, plain "
+            f"and pipelined equal bit for bit (losses, every persistable, "
+            f"the batches at the step); losses {ref}")
+        del exe_b, scope_b, host_feeds
+        gc.collect()
+
+        log("phase g1: a Supervisor over the loader, stopped at step "
+            f"{G1_STOP} and resumed")
+        root = os.path.abspath(os.path.join(CKPT_ROOT, "g1"))
+        shutil.rmtree(root, ignore_errors=True)
+        got = {}
+        for run, (startup_seed, upto) in enumerate(((seed, G1_STOP),
+                                                    (seed + 1, G1_RESUME_TO))):
+            exe, scope = fresh(startup_seed)
+            sup = resilience.Supervisor(
+                exe, main, root, data=flowers_loader(fluid, feed_vars, reader),
+                fetch_list=[loss], scope=scope,
+                policy=resilience.CheckpointPolicy(root, every_steps=G1_EVERY,
+                                                   keep_last=2),
+                on_step=lambda s, f: got.__setitem__(s, f[0].tobytes()))
+            stats = sup.run_loop(upto)
+            if run == 1:
+                require(stats["resumed_from"] == G1_STOP,
+                        f"g1: resumed from {stats['resumed_from']}")
+            del exe, scope, sup
+            gc.collect()
+        shutil.rmtree(root, ignore_errors=True)
+        want = {s: la[s].tobytes() for s in range(G1_RESUME_TO)}
+        require(got == want, "g1: the supervised and resumed losses differ "
+                "from the uninterrupted run's at steps "
+                f"{sorted(s for s in want if got.get(s) != want[s])}")
+        out["resume"] = {"stopped_at": G1_STOP, "resumed_to": G1_RESUME_TO,
+                         "bitwise": True}
+        log(f"  g1: steps 0-{G1_STOP - 1}, then a fresh Executor and scope "
+            f"(startup seed {seed + 1}) resumed at {G1_STOP} to "
+            f"{G1_RESUME_TO}: every loss equals the uninterrupted run's")
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+    # the producer alone (reader + DataFeeder, no step): what a batch
+    # costs the host before any copy
+    feeder = fluid.DataFeeder(feed_vars, fluid.CUDAPlace(0))
+    t = time.perf_counter()
+    for rows in reader():
+        feeder.feed(rows)
+    out["producer_ms_a_batch"] = (time.perf_counter() - t) * 1e3 / steps
+    # images/s with the default cuDNN algorithms, each run in a fresh scope
+    exe, scope = fresh()
+    K.reset_launch_counts()
+    _, wall_a = flowers_epoch(torch, fluid, exe, main, scope, feed_vars, loss,
+                              reader, "plain")
+    exe, scope = fresh()
+    tel0 = overlap_telemetry().snapshot()
+    K.reset_launch_counts()
+    lp, wall_b = flowers_epoch(torch, fluid, exe, main, scope, feed_vars,
+                               loss, reader, "pipelined")
+    counts = K.launch_counts()
+    tel1 = overlap_telemetry().snapshot()
+    want = {n: 0 for n in K.KERNELS}
+    want.update(fused_momentum_update=161 * steps, softmax_xent_fwd=steps,
+                softmax_xent_bwd=steps)
+    require(counts == want, f"g1: pipelined epoch launches {counts}")
+    feed_ms = tel1["feed_ms_sum"] - tel0["feed_ms_sum"]
+    wait_ms = tel1["wait_ms_sum"] - tel0["wait_ms_sum"]
+    overlap = {"steps": tel1["steps"] - tel0["steps"], "feed_ms_sum": feed_ms,
+               "wait_ms_sum": wait_ms,
+               "hidden_fraction": (1.0 - min(wait_ms, feed_ms) / feed_ms
+                                   if feed_ms > 0 else 0.0)}
+    n = steps * FLOWERS_BATCH
+    out.update(plain_images_per_s=n / wall_a, pipelined_images_per_s=n / wall_b,
+               plain_epoch_s=wall_a, pipelined_epoch_s=wall_b,
+               overlap=overlap, launches=counts)
+    log(f"  g1: the producer alone {out['producer_ms_a_batch']:.3f} ms a "
+        f"batch; plain {n / wall_a:.2f} images/s ({wall_a:.3f} s an epoch), "
+        f"pipelined {n / wall_b:.2f} images/s ({wall_b:.3f} s); overlap "
+        f"{json.dumps(overlap)}; exactly 161 K10m, one K4, one K5 a step "
+        f"[{card}]")
+
+    log(f"phase g1: {FLOWERS_PROFILE_STEPS} pipelined steps under "
+        "profiler.profiler()")
+    few = fluid.io.batch(datasets.common.firstn(
+        datasets.flowers.train(), FLOWERS_PROFILE_STEPS * FLOWERS_BATCH),
+        FLOWERS_BATCH)
+    logdir = os.path.join(out_dir, "g1_profile")
+    shutil.rmtree(logdir, ignore_errors=True)
+    os.makedirs(logdir)
+    t = time.perf_counter()
+    with profiler.profiler(profile_path=logdir):
+        flowers_epoch(torch, fluid, exe, main, scope, feed_vars, loss, few,
+                      "pipelined")
+    wall = time.perf_counter() - t
+    trace = os.path.join(logdir, profiler.TRACE_FILE)
+    names, kernels = device_trace_names(trace)
+    host = {e["name"] for e in profiler.host_events()}
+    momentum = sum(1 for k in kernels if "momentum_kernel" in k)
+    spans = {"reader/prefetch", "dispatch/feed", "dispatch/step"}
+    require(spans <= names, f"g1: the device trace lacks {spans - names}")
+    require(spans <= host, f"g1: the host events lack {spans - host}")
+    require(momentum == 161 * FLOWERS_PROFILE_STEPS,
+            f"g1: {momentum} K10m kernels in the trace")
+    out["profile"] = {"wall_s": wall, "kernels": len(kernels),
+                      "k10m_kernels": momentum, "spans": sorted(spans),
+                      "trace_mb": os.path.getsize(trace) / 1e6}
+    shutil.rmtree(logdir, ignore_errors=True)
+    log(f"  g1: the chrome trace holds {sorted(spans)} and {momentum} K10m "
+        f"kernels of {len(kernels)} ({out['profile']['trace_mb']:.1f} MB)")
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"g1_flowers": counts}, out
+
+
+def write_multislot(np, seed, out_dir):
+    """MS_BATCHES batches of Criteo-layout DeepFM rows (26 ids, 13 dense
+    floats, a label) from ``seed``, as MultiSlot lines in MS_FILES files.
+    Floats are written as the shortest decimal of their float32 value,
+    so both parsers read the same bits back."""
+    from paddle_tpu_torch.models.ctr import synthetic_ctr_batch
+
+    rng = np.random.RandomState(seed)
+    F, D = CTR["num_fields"], CTR["dense_dim"]
+    batches = [synthetic_ctr_batch(rng, CTR_BATCH, F, CTR["vocab_size"], D)
+               for _ in range(MS_BATCHES)]
+    per = MS_BATCHES // MS_FILES
+    paths = []
+    for f in range(MS_FILES):
+        lines = []
+        for b in batches[f * per:(f + 1) * per]:
+            ids, dense = b["sparse_ids"].tolist(), b["dense_x"].tolist()
+            lab = b["label"].reshape(-1).tolist()
+            for i in range(CTR_BATCH):
+                lines.append(f"{F} " + " ".join(map(str, ids[i]))
+                             + f" {D} " + " ".join(map(repr, dense[i]))
+                             + f" 1 {lab[i]!r}\n")
+        path = os.path.join(out_dir, f"part-{f:05d}")
+        with open(path, "w") as fh:
+            fh.write("".join(lines))
+        paths.append(path)
+    return paths
+
+
+def recorded(run, log_to, lock):
+    """``run`` that appends (batch key, loss) of each call to ``log_to``."""
+    def wrapped(*a, **kw):
+        out = run(*a, **kw)
+        key = kw["feed"]["sparse_ids"][:4].tobytes()
+        with lock:
+            log_to.append((key, out[0].tobytes()))
+        return out
+    return wrapped
+
+
+def phase_g2(torch, np, seed, card, out_dir, profile=False):
+    """DeepFM (d4's configuration, sparse Adam) from MultiSlot files:
+    native against Python parses, InMemoryDataset with 4 threads and a
+    local shuffle, train_from_dataset at thread 1 (equal to exe.run bit
+    for bit) and 4 (Hogwild: every batch once, losses falling)."""
+    import tempfile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dataset as ds_mod
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models.ctr import build_deepfm
+    from paddle_tpu_torch.native import datafeed
+
+    fluid.set_flags({"optimizer_fuse": "auto"})
+    out = {"card": card}
+    main, startup, feeds, fetches = build_deepfm(
+        optimizer=fluid.optimizer.AdamOptimizer(1e-3), is_sparse=True, **CTR)
+    main.random_seed = startup.random_seed = seed
+    loss = fetches["loss"]
+    use = [main.global_block().var(feeds[k])
+           for k in ("ids", "dense", "label")]
+    with tempfile.TemporaryDirectory(prefix="pt_phase_g_") as tmp:
+        t = time.perf_counter()
+        paths = write_multislot(np, seed, tmp)
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        out["write_s"] = time.perf_counter() - t
+
+        require(datafeed.available(), "g2: the native parser did not build")
+        ds = ds_mod.DatasetFactory().create_dataset("InMemoryDataset")
+        ds.set_batch_size(CTR_BATCH)
+        ds.set_thread(MS_THREADS)
+        ds.set_filelist(paths)
+        ds.set_use_var(use)
+        dtypes = [ds._var_dtypes[n] for n in ds._use_var_names]
+        t = time.perf_counter()
+        native = [r for p in paths
+                  for r in datafeed.parse_file(p, len(use), dtypes)]
+        native_s = time.perf_counter() - t
+        t = time.perf_counter()
+        python = [r for p in paths for r in ds._parse_file_py(p)]
+        python_s = time.perf_counter() - t
+        require(len(native) == len(python) == MS_BATCHES * CTR_BATCH,
+                f"g2: {len(native)} native / {len(python)} Python rows")
+        for i, (a, b) in enumerate(zip(native, python)):
+            if not all(x.dtype == y.dtype and np.array_equal(x, y)
+                       for x, y in zip(a, b)):
+                raise SmokeFailure(f"g2: row {i} differs between parsers")
+        del native, python
+        t = time.perf_counter()
+        ds.load_into_memory()
+        load_s = time.perf_counter() - t
+    ds.local_shuffle(seed)
+    batches = list(ds._iter_batches())
+    require(len(batches) == MS_BATCHES, f"g2: {len(batches)} batches")
+    mb = nbytes / 1e6
+    out.update(files=MS_FILES, rows=MS_BATCHES * CTR_BATCH, mb=mb,
+               native_parse_mb_per_s=mb / native_s,
+               python_parse_mb_per_s=mb / python_s,
+               load_into_memory_s=load_s)
+    log(f"  g2: {MS_FILES} files, {mb:.1f} MB of {MS_BATCHES * CTR_BATCH} "
+        f"rows written in {out['write_s']:.2f} s; native parse "
+        f"{mb / native_s:.1f} MB/s, Python {mb / python_s:.1f} MB/s (rows "
+        f"equal); load_into_memory ({MS_THREADS} threads) {load_s:.2f} s")
+
+    def fresh():
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        torch.cuda.synchronize()
+        return exe, scope
+
+    exe, scope = fresh()
+    ref = [exe.run(main, feed=b, fetch_list=[loss], scope=scope)[0].tobytes()
+           for b in batches]
+    keys = sorted(b["sparse_ids"][:4].tobytes() for b in batches)
+    del exe, scope
+    gc.collect()
+
+    runs = {}
+    for thread in (1, MS_THREADS):
+        exe, scope = fresh()
+        lock, seen = threading.Lock(), []
+        if thread == 1:
+            exe.run = recorded(exe.run, seen, lock)
+        else:
+            exe._hogwild_exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe._hogwild_exe.run = recorded(exe._hogwild_exe.run, seen, lock)
+        K.reset_launch_counts()
+        prof = start_profile(torch) if profile else None
+        t = time.perf_counter()
+        exe.train_from_dataset(main, ds, scope, thread=thread,
+                               fetch_list=[loss], print_period=10 ** 9)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = K.launch_counts()
+        run = {"wall_s": wall,
+               "samples_per_s": MS_BATCHES * CTR_BATCH / wall,
+               "launches": counts}
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            run["profile"] = trace_breakdown(prof, out_dir,
+                                             f"g2_thread{thread}", wall,
+                                             MS_BATCHES)
+        require(sorted(k for k, _ in seen) == keys,
+                f"g2 thread {thread}: the batches run are not each batch "
+                "once")
+        losses = [float(np.frombuffer(v, np.float32)[0]) for _, v in seen]
+        require(all(np.isfinite(losses)), f"g2 thread {thread}: {losses}")
+        half = len(losses) // 2
+        first, last = np.mean(losses[:half]), np.mean(losses[half:])
+        require(last < first, f"g2 thread {thread}: losses did not fall "
+                f"(first half {first:.6f}, second {last:.6f})")
+        if thread == 1:
+            require([v for _, v in seen] == ref,
+                    "g2: train_from_dataset(thread=1) losses differ from "
+                    "exe.run over the same batches")
+            n_dense = len(main.all_parameters()) - 2
+            require(counts["fused_adam_update"] == n_dense * MS_BATCHES
+                    and sum(counts.values()) == counts["fused_adam_update"],
+                    f"g2: launches {counts}")
+        run.update(losses=losses, first_half=first, second_half=last)
+        runs[thread] = run
+        log(f"  g2 thread {thread}: {MS_BATCHES} batches in {wall:.3f} s, "
+            f"{run['samples_per_s']:.1f} samples/s, mean loss {first:.6f} -> "
+            f"{last:.6f}" + (" (equal to exe.run bit for bit)" if thread == 1
+                             else ", every batch once")
+            + (f", device idle {run['profile']['device_idle_share']:.3f}"
+               if prof is not None else "") + f" [{card}]")
+        del exe, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["thread1"], out[f"thread{MS_THREADS}"] = runs[1], runs[MS_THREADS]
+    return {"g2_deepfm": runs[1]["launches"]}, out
+
+
+def phase_g(torch, np, seed, card, out_dir, profile=False):
+    t_phase = time.perf_counter()
+    log("phase g1: ResNet-50 trained from the flowers reader, plain and "
+        "through the DataLoader into run_pipelined")
+    paths, out = {}, {}
+    try:
+        p1, out["g1"] = phase_g1(torch, np, seed, card, out_dir)
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    paths.update(p1)
+    log("phase g2: DeepFM from MultiSlot files through InMemoryDataset and "
+        "train_from_dataset")
+    p2, out["g2"] = phase_g2(torch, np, seed, card, out_dir, profile)
+    paths.update(p2)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase g: {out['phase_s']:.1f} s [{card}]")
+    return paths, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6449,10 +6909,10 @@ def main(argv=None) -> int:
                     help="directory for the build log and chip_smoke.json")
     ap.add_argument("--profile", action="store_true",
                     help="trace the serving runs (phases 3, 3b, 7a int8, "
-                    "7b) and two training steps (phases 4, 6, 8, 9, c1, d4, "
-                    "e1, e2; e2's grouped convolutions' share too) with "
-                    "torch.profiler and print device time by kernel group "
-                    "and the idle share")
+                    "7b), two training steps (phases 4, 6, 8, 9, c1, d4, "
+                    "e1, e2; e2's grouped convolutions' share too) and g2's "
+                    "train_from_dataset epochs with torch.profiler and "
+                    "print device time by kernel group and the idle share")
     ap.add_argument("--phases", default=ALL_PHASES,
                     help="phases to run after the build (a debugging aid: "
                     "only a run of all of them prints the result line)")
@@ -6569,7 +7029,8 @@ def main(argv=None) -> int:
                                                                  args.seed)
         torch.cuda.empty_cache()
         log("phase 5: a 2-layer gpt3_1p3b-width switch-MoE GPT (8 experts a "
-            "layer), 2 Lookahead(Adam) steps with an EMA, card against CPU")
+            "layer), one Lookahead(Adam) step at k 1 with an EMA, card "
+            "against CPU")
         record["card_vs_cpu"]["moe_lookahead_ema"] = card_vs_cpu_moe(
             torch, np, args.seed)
         torch.cuda.empty_cache()
@@ -6665,6 +7126,12 @@ def main(argv=None) -> int:
                                             args.out, record)
         paths.update(fpaths)
         torch.cuda.empty_cache()
+    if "g" in args.phases:
+        log("phase g: the data tiers")
+        gpaths, record["phase_g"] = phase_g(torch, np, args.seed, card,
+                                            args.out, args.profile)
+        paths.update(gpaths)
+        torch.cuda.empty_cache()
     launches = {name: {p: c[name] for p, c in paths.items()}
                 for name in K.KERNELS}
     record["launches"] = launches
@@ -6672,7 +7139,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e and f)")
+        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f and g)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"

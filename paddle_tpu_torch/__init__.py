@@ -127,20 +127,39 @@ Ported so far:
       ctl = traffic.TrafficController(engine, generation_engine=svc)
       srv = ServingServer(engine, generation_engine=svc, traffic=ctl)
 
+* the data tiers: ``DataLoader.from_generator`` (device prefetch on a
+  side stream, rank sharding, a resumable position the Supervisor
+  restores), ``DataFeeder``, ``LoDTensor``, the overlapped
+  ``Executor.run_pipelined``, the file datasets (``dataset``: the native
+  MultiSlot parser, ``InMemoryDataset`` shuffles) behind
+  ``Executor.train_from_dataset`` (Hogwild threads with ``thread`` > 1),
+  the synthetic readers of ``datasets``, ``profiler`` over
+  ``torch.profiler`` with the chrome-trace ``tools_timeline``, the host
+  ``metrics`` and ``average``, and the ``FLAGS_`` environment overrides;
+
+      from paddle_tpu_torch import datasets
+      loader = fluid.DataLoader.from_generator([image, label], capacity=8)
+      loader.set_sample_list_generator(
+          fluid.io.batch(datasets.flowers.train(), 64))
+      for loss_v, in exe.run_pipelined(main, loader, [loss]):
+          ...
+      with fluid.profiler.profiler(profile_path="trace_dir"):
+          exe.train_from_dataset(main, dataset, thread=4)
+
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
-ported yet (ROADMAP A): the data tiers (A9b: the reader, the data
-feeder, the profiler), distribution (A10: meshes, expert parallelism,
+ported yet (ROADMAP A): distribution (A10: meshes, expert parallelism,
 DGC and pipeline optimizers) and the long tail (A11: ``StaticRNN`` /
-``DynamicRNN``, autotune and the rest).
+``DynamicRNN``, HDFS, autotune and the rest).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of
 falling back.
 """
 
-from . import (clip, contrib, io, layers, nets,  # noqa: F401
+from . import (average, clip, contrib, io, layers,  # noqa: F401
+               metrics, nets,
                ops,  # ops: the lowerings
-               optimizer, regularizer, resilience)
+               optimizer, profiler, regularizer, resilience)
 from .core import framework
 from .core.backward import append_backward
 from .core.executor import Executor, Scope, global_scope, scope_guard
@@ -148,12 +167,18 @@ from .core.framework import (Program, Variable, default_main_program,
                              default_startup_program, program_guard,
                              unique_name)
 from .core.places import CPUPlace, CUDAPlace
+from .data_feeder import DataFeeder
 from .device import resolve_device
 from .flags import get_flags, set_flags
+from .lod_tensor import (LoDTensor, create_lod_tensor,
+                         create_random_int_lodtensor)
 from .param_attr import ParamAttr
+from .reader import DataLoader
 
 __all__ = ["resolve_device", "clip", "contrib", "io", "layers", "nets",
-           "optimizer", "regularizer", "resilience",
+           "optimizer", "regularizer", "resilience", "average", "metrics",
+           "profiler", "DataLoader", "DataFeeder", "LoDTensor",
+           "create_lod_tensor", "create_random_int_lodtensor",
            "framework",
            "append_backward", "Executor", "Scope", "global_scope",
            "scope_guard", "Program", "Variable", "default_main_program",

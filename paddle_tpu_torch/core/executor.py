@@ -40,11 +40,13 @@ import collections
 import contextlib
 import itertools
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import flags, profiler
 from . import framework
 from .framework import Block, Program, Variable
 from .places import CUDAPlace, Place
@@ -412,17 +414,19 @@ class Executor:
              fetch_list: Sequence, scope: Optional[Scope] = None,
              tag: Optional[str] = None):
         """The ``runtime.dispatch.BoundStep`` of this exact (program
-        version, feed names with shapes and dtypes, fetch list, scope),
-        resolved on the first call and cached (the reference's
-        ``Executor.bind``, :764). ``feed`` gives example values: their
-        shapes and dtypes bind, nothing runs. ``tag`` labels the step."""
+        version, feed names with shapes and dtypes, fetch list, scope,
+        flag generation), resolved on the first call and cached (the
+        reference's ``Executor.bind``, :764; a ``set_flags`` re-binds, as
+        the reference's key on ``flags._generation`` does, :759).
+        ``feed`` gives example values: their shapes and dtypes bind,
+        nothing runs. ``tag`` labels the step and its compile event."""
         scope = scope or global_scope()
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
         block = program.global_block()
         key = (program.uid, program.version, len(block.ops),
                program.random_seed, self._feed_signature(feed),
-               tuple(fetch_names), scope.uid)
+               tuple(fetch_names), scope.uid, flags.generation())
         with self._lock:
             return self._bind_locked(program, feed, key, block, scope,
                                      fetch_names, tag)
@@ -438,10 +442,13 @@ class Executor:
         else:
             self._stats["bound_misses"] += 1
             feed_names = sorted(feed)
+            t0 = time.perf_counter()
             bound = BoundStep(self, self._plan(program, feed_names,
                                                fetch_names),
                               block, scope, program.random_seed or 0,
                               feed_names, fetch_names)
+            profiler.record_compile(tag or f"program_{program.uid}",
+                                    time.perf_counter() - t0)
             self._bound[key] = bound
             if len(self._bound) > self.MAX_BOUND:
                 self._bound.popitem(last=False)
@@ -464,6 +471,87 @@ class Executor:
         feed = dict(feed or {})
         bound = self.bind(program, feed, fetch_list, scope or global_scope())
         return bound.run(feed, return_numpy)
+
+    def run_pipelined(
+        self,
+        program: Optional[Program] = None,
+        feeds: Optional[Any] = None,
+        fetch_list: Optional[Sequence] = None,
+        scope: Optional[Scope] = None,
+        return_numpy: bool = True,
+        depth: Optional[int] = None,
+    ):
+        """The overlapped step loop (the reference's :668-730): a
+        generator yielding ``run``'s fetches for every feed dict of
+        ``feeds`` (any iterable: a list, a generator, a
+        ``GeneratorLoader``), bit-identical to ``run`` per feed, with the
+        host side of step N+1 (normalizing, casting, the copy to the
+        card) on a feeder thread while step N runs
+        (``runtime.dispatch.BoundStep.run_pipelined``).
+
+        A feed whose signature (shapes, dtypes) changes mid-stream drains
+        the pipeline and re-binds: the stream stays correct and pays a
+        bubble at each boundary. ``depth`` defaults to the
+        ``dispatch_pipeline_depth`` flag (2 = double buffering)."""
+        from ..runtime.dispatch import feed_signature
+
+        if program is None:
+            program = framework.default_main_program()
+        scope = scope or global_scope()
+        fetch_list = list(fetch_list) if fetch_list is not None else []
+        it = iter(feeds if feeds is not None else ())
+        end = object()
+        pending = next(it, end)
+        while pending is not end:
+            bound = self.bind(program, pending, fetch_list, scope)
+            seg_depth = (depth if depth is not None
+                         else int(flags.flag("dispatch_pipeline_depth")))
+            sig = feed_signature(pending)
+
+            def segment():
+                # consumed on the FEEDER thread; `pending` is read back
+                # on the caller's thread only after the pipeline's end
+                # sentinel, which the queue orders after this write
+                nonlocal pending
+                while pending is not end and feed_signature(pending) == sig:
+                    f = pending
+                    try:
+                        pending = next(it, end)
+                    except BaseException:
+                        # the pull of the NEXT feed failed: the current
+                        # good feed still reaches the step before the
+                        # error surfaces, or an input error at feed K
+                        # would cost step K-1 too
+                        pending = end
+                        yield f
+                        raise
+                    yield f
+
+            yield from bound.run_pipelined(segment(),
+                                           return_numpy=return_numpy,
+                                           depth=seg_depth)
+
+    # -- the dataset path (the reference's :1220-1238) ---------------------
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """Train over a ``dataset.QueueDataset`` / ``InMemoryDataset``
+        (``dataset_runner.run_from_dataset``): one step a batch, or
+        ``thread`` > 1 Hogwild threads over one scope. Returns the last
+        step's fetches."""
+        from ..dataset_runner import run_from_dataset
+
+        return run_from_dataset(self, program, dataset, scope, fetch_list,
+                                fetch_info, print_period, train=True,
+                                thread=thread)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           **kw):
+        from ..dataset_runner import run_from_dataset
+
+        return run_from_dataset(self, program, dataset, scope,
+                                kw.get("fetch_list"), kw.get("fetch_info"),
+                                kw.get("print_period", 100), train=False)
 
     def cache_stats(self) -> Dict[str, Any]:
         """The reference's counters for this executor: ``bound_hits`` /

@@ -2,25 +2,42 @@
 
 A copy of the matching entries of ``paddle_tpu/flags.py`` (the
 generation, quantize and adapter defaults of :60-147, spec and radix
-ones included, the serving defaults of :54-57, the ``disagg_*``,
-``traffic_*``, ``observability_*`` and ``slo_*`` defaults of :216-312)
-and of its ``get_flags`` / ``set_flags`` / ``flag`` (:368-395). Only
-what the ported slices read is here (``observability_xla_analysis``
-has no XLA to analyse); the reference's ``FLAGS_`` env overrides,
-autotune profiles and live-flag generations are ROADMAP A9b and
-A11.
+ones included, the serving defaults of :54-57, the data-tier defaults
+of :41-47 and :326-329, the ``disagg_*``, ``traffic_*``,
+``observability_*`` and ``slo_*`` defaults of :216-312) and of its
+``FLAGS_<name>`` environment overrides read at import (``_coerce``, the
+pinned set, :337-366) and ``get_flags`` / ``set_flags`` / ``flag`` /
+``generation`` (:368-395). ``set_flags`` bumps the generation, which
+``Executor.bind`` keys on, so a flag change re-binds a step. Only what
+the ported slices read is here (``observability_xla_analysis`` has no
+XLA to analyse); the autotune profiles (:399-570) are ROADMAP A11.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import torch
 
-__all__ = ["DEFAULTS", "flag", "get_flags", "set_flags",
+__all__ = ["DEFAULTS", "flag", "get_flags", "set_flags", "generation",
            "optimizer_fuse_enabled"]
 
 DEFAULTS = {
+    # the overlapped step (BoundStep.run_pipelined / Executor.
+    # run_pipelined): prepared feeds the feeder thread may run ahead of
+    # the step; 2 is double buffering (one batch in the step, one being
+    # normalized and copied to the card), each more pins one more batch
+    "dispatch_pipeline_depth": 2,
+    # reader.py GeneratorLoader: batches the loader thread stages on the
+    # device ahead of the consumer (each entry holds one batch of device
+    # memory); raise it only when paddle_reader_buffer_empty_stall_total
+    # shows a bursty input pipeline starving the step
+    "reader_prefetch_depth": 2,
+    # accepted, inert: the reference's reader benchmark mode and its
+    # profiler's output name (profiler.profiler(profile_path=) names it)
+    "reader_queue_speed_test_mode": False,
+    "tracer_profile_fname": "",
     # the paged KV cache preallocates generation_num_pages pages of
     # generation_page_size token slots per layer (page 0 is the junk
     # page); the engine runs generation_max_decode_batch lanes
@@ -190,7 +207,38 @@ DEFAULTS = {
     "slo_burn_threshold": 0.0,
 }
 
-_flags: Dict[str, Any] = dict(DEFAULTS)
+_flags: Dict[str, Any] = {}
+
+# bumped by every set_flags: Executor.bind keys its bound steps on it,
+# so a step bound under other flag values is bound anew
+_generation = 0
+
+# flags the user pinned (FLAGS_<name> in the environment or set_flags),
+# as opposed to defaults
+_explicit: set = set()
+
+
+def _coerce(default, raw: str):
+    if isinstance(default, bool):
+        return raw.lower() in ("1", "true", "yes")
+    if isinstance(default, int):
+        return int(raw)
+    if isinstance(default, float):
+        return float(raw)
+    return raw
+
+
+def _init():
+    for name, default in DEFAULTS.items():
+        env = os.environ.get(f"FLAGS_{name}")
+        if env is not None:
+            _flags[name] = _coerce(default, env)
+            _explicit.add(name)
+        else:
+            _flags[name] = default
+
+
+_init()
 
 
 def _key(name: str) -> str:
@@ -217,8 +265,17 @@ def get_flags(names) -> Dict[str, Any]:
 
 
 def set_flags(flag_dict: Dict[str, Any]) -> None:
+    global _generation
     for n, v in flag_dict.items():
-        _flags[_key(n)] = v
+        key = _key(n)
+        _flags[key] = v
+        _explicit.add(key)
+    _generation += 1
+
+
+def generation() -> int:
+    """How many ``set_flags`` calls this process has made."""
+    return _generation
 
 
 def optimizer_fuse_enabled() -> bool:

@@ -1,8 +1,8 @@
-"""Local filesystem helpers: the part of ``paddle_tpu/fs.py``'s
-``LocalFS`` that ``resilience.CheckpointPolicy`` uses (``mkdirs``,
-``delete``, ``is_exist``, ``ls_dir`` and the crash-safe
-``atomic_rename``). ``HDFSClient`` and the rest of the shell helpers
-are ROADMAP A11."""
+"""Filesystem helpers: the port's copy of ``paddle_tpu/fs.py``
+(:20-143), the ``FS`` interface, its errors and ``LocalFS`` (the
+crash-safe ``atomic_rename`` that ``resilience.CheckpointPolicy``
+commits through included). ``HDFSClient``, which drives the ``hadoop
+fs`` command line, is ROADMAP A11 and refused by name."""
 
 from __future__ import annotations
 
@@ -10,14 +10,49 @@ import os
 import shutil
 from typing import List, Tuple
 
-__all__ = ["LocalFS", "FSFileNotExistsError"]
+__all__ = ["FS", "LocalFS", "HDFSClient", "ExecuteError",
+           "FSFileExistsError", "FSFileNotExistsError"]
+
+
+class ExecuteError(Exception):
+    pass
+
+
+class FSFileExistsError(Exception):
+    pass
 
 
 class FSFileNotExistsError(Exception):
     pass
 
 
-class LocalFS:
+class FS:
+    def ls_dir(self, path):
+        raise NotImplementedError
+
+    def is_file(self, path):
+        raise NotImplementedError
+
+    def is_dir(self, path):
+        raise NotImplementedError
+
+    def is_exist(self, path):
+        raise NotImplementedError
+
+    def mkdirs(self, path):
+        raise NotImplementedError
+
+    def delete(self, path):
+        raise NotImplementedError
+
+    def rename(self, src, dst):
+        raise NotImplementedError
+
+    def atomic_rename(self, src, dst):
+        raise NotImplementedError
+
+
+class LocalFS(FS):
     """Reference fs.cc localfs_* functions."""
 
     def ls_dir(self, path) -> Tuple[List[str], List[str]]:
@@ -29,6 +64,12 @@ class LocalFS:
             (dirs if os.path.isdir(os.path.join(path, e)) else files).append(e)
         return dirs, files
 
+    def is_file(self, path) -> bool:
+        return os.path.isfile(path)
+
+    def is_dir(self, path) -> bool:
+        return os.path.isdir(path)
+
     def is_exist(self, path) -> bool:
         return os.path.exists(path)
 
@@ -36,10 +77,15 @@ class LocalFS:
         os.makedirs(path, exist_ok=True)
 
     def delete(self, path):
-        if os.path.isdir(path):
+        if self.is_dir(path):
             shutil.rmtree(path)
-        elif os.path.isfile(path):
+        elif self.is_file(path):
             os.remove(path)
+
+    def rename(self, src, dst):
+        if not self.is_exist(src):
+            raise FSFileNotExistsError(src)
+        os.replace(src, dst)
 
     def atomic_rename(self, src, dst):
         """Crash-safe publication: rename src over dst, durable (the
@@ -69,3 +115,32 @@ class LocalFS:
             pass  # fsync on a directory is unsupported on some filesystems
         if aside is not None:
             shutil.rmtree(aside, ignore_errors=True)
+
+    def mv(self, src, dst, overwrite=False):
+        if not overwrite and self.is_exist(dst):
+            raise FSFileExistsError(dst)
+        self.rename(src, dst)
+
+    def touch(self, path, exist_ok=True):
+        if self.is_exist(path) and not exist_ok:
+            raise FSFileExistsError(path)
+        open(path, "a").close()
+
+    def cat(self, path) -> str:
+        with open(path) as f:
+            return f.read()
+
+    def need_upload_download(self) -> bool:
+        return False
+
+    def list_dirs(self, path):
+        return self.ls_dir(path)[0]
+
+
+class HDFSClient(FS):
+    """The reference's ``hadoop fs`` client: not ported (ROADMAP A11)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "fs.HDFSClient is not ported to paddle_tpu_torch yet "
+            "(ROADMAP A11); use LocalFS")

@@ -72,7 +72,7 @@ __all__ = [
     "latest_checkpoint", "committed_checkpoint_steps",
     "write_commit_marker", "read_commit_marker", "is_committed_checkpoint",
     "write_shard_done", "done_shard_ranks", "finalize_two_phase_commit",
-    "CheckpointCommitTimeout",
+    "CheckpointCommitTimeout", "batch",
 ]
 
 PARAMS_FILE = "__params__.npz"
@@ -831,3 +831,20 @@ def latest_checkpoint(dirname):
 def committed_checkpoint_steps(dirname):
     """Every committed step directory under ``dirname``, ascending."""
     return _committed_steps(dirname)
+
+
+def batch(reader, batch_size, drop_last=False):
+    """Reference fluid.io.batch (paddle.batch), ``paddle_tpu/io.py:863``:
+    group a sample reader into lists of ``batch_size`` samples."""
+
+    def batched():
+        buf = []
+        for sample in reader():
+            buf.append(sample)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+
+    return batched

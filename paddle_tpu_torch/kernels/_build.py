@@ -143,8 +143,12 @@ def build(verbose: bool = False) -> Path:
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
         os.replace(tmp_lib, out)   # atomic: a concurrent loader sees all
-    _last_build.update(path=str(out), seconds=time.perf_counter() - t0,
-                       cached=False, log="\n".join(log))
+    seconds = time.perf_counter() - t0
+    _last_build.update(path=str(out), seconds=seconds, cached=False,
+                       log="\n".join(log))
+    from .. import profiler
+
+    profiler.record_compile("kernels/build", seconds)
     return out
 
 

@@ -1,14 +1,18 @@
-"""``switch_moe``: the port's copy of the one layer of
-``paddle_tpu/layers/extras.py`` (:478-535) that a ported model calls."""
+"""The port's copy of the layers of ``paddle_tpu/layers/extras.py`` a
+ported path calls: ``switch_moe`` (:478-535) and the reader sugar over
+``reader.GeneratorLoader`` (``py_reader``, ``create_py_reader_by_data``,
+``double_buffer``, ``read_file``; :399-437)."""
 
 from __future__ import annotations
 
+from ..core.framework import unique_name
 from ..initializer import ConstantInitializer, XavierInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from .nn import _out
 
-__all__ = ["switch_moe"]
+__all__ = ["switch_moe", "py_reader", "create_py_reader_by_data",
+           "double_buffer", "read_file"]
 
 
 def switch_moe(input, num_experts, expert_hidden, capacity_factor=1.25,
@@ -61,3 +65,46 @@ def switch_moe(input, num_experts, expert_hidden, capacity_factor=1.25,
         attrs={"capacity_factor": float(capacity_factor), "act": act},
     )
     return out, aux
+
+
+# -- io sugar over the reader machinery -----------------------------------
+
+def py_reader(capacity, shapes, dtypes, lod_levels=None, name=None,
+              use_double_buffer=True):
+    """Reference layers/io.py py_reader: a queue-fed reader. Data vars
+    are created from ``shapes`` / ``dtypes`` (dim 0 the batch) and
+    become the feed list of a ``reader.GeneratorLoader``, whose device
+    prefetch is the double buffer."""
+    from ..reader import GeneratorLoader
+    from .io import data as data_layer
+
+    feed_vars = []
+    for i, (shape, dtype) in enumerate(zip(shapes, dtypes)):
+        feed_vars.append(data_layer(
+            unique_name.generate(f"{name or 'py_reader'}_slot{i}"),
+            list(shape[1:]), dtype=dtype))
+    return GeneratorLoader(feed_vars, capacity=capacity,
+                           use_double_buffer=use_double_buffer)
+
+
+def create_py_reader_by_data(capacity, feed_list, name=None,
+                             use_double_buffer=True):
+    from ..reader import GeneratorLoader
+
+    return GeneratorLoader(feed_list, capacity=capacity,
+                           use_double_buffer=use_double_buffer)
+
+
+def double_buffer(reader, place=None, name=None):
+    """The GeneratorLoader prefetches to the device already: the reader
+    itself, for API parity."""
+    return reader
+
+
+def read_file(reader):
+    """The feed vars a py_reader batches into (reference layers/io.py
+    read_file returns the reader's output vars)."""
+    if hasattr(reader, "feed_list"):
+        fl = reader.feed_list
+        return list(fl) if len(fl) > 1 else fl[0]
+    raise TypeError("read_file expects a py_reader/GeneratorLoader")

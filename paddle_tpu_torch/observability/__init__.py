@@ -22,8 +22,10 @@
 Flags: ``observability_metrics``, ``observability_tracing``,
 ``observability_flight``, ``observability_flight_capacity``,
 ``observability_dump_dir``, ``observability_fleet_endpoints``,
-``observability_fleet_timeout_s`` and the ``slo_*`` family. Not ported:
-``watch_loader`` and ``overlap_telemetry`` (ROADMAP A9b),
+``observability_fleet_timeout_s`` and the ``slo_*`` family. The data
+tiers register too: every ``reader.GeneratorLoader``
+(``watch_loader``, ``paddle_reader_*``) and the pipelined step
+(``overlap_telemetry``, ``paddle_step_overlap_*``). Not ported:
 ``watch_partition``, ``watch_collectives`` and ``watch_coordinator``
 (A10).
 """
@@ -36,9 +38,10 @@ from .fleet import (FleetAggregator, SLOMonitor, assemble_trace,
 from .flight import dump as flight_dump
 from .flight import install_signal_handlers
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
-                       step_telemetry, watch_adapters, watch_disagg,
-                       watch_engine, watch_executor, watch_generation,
-                       watch_serving, watch_supervisor, watch_traffic)
+                       overlap_telemetry, step_telemetry, watch_adapters,
+                       watch_disagg, watch_engine, watch_executor,
+                       watch_generation, watch_loader, watch_serving,
+                       watch_supervisor, watch_traffic)
 from .registry import registry as get_registry
 from .tracing import SpanContext, attach, current, span, traced
 
@@ -51,7 +54,8 @@ __all__ = [
     "flight_dump", "install_signal_handlers",
     "watch_serving", "watch_engine", "watch_executor", "watch_supervisor",
     "watch_generation", "watch_traffic", "watch_disagg", "watch_adapters",
-    "step_telemetry", "snapshot", "to_prometheus_text",
+    "watch_loader", "step_telemetry", "overlap_telemetry", "snapshot",
+    "to_prometheus_text",
 ]
 
 

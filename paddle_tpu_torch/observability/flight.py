@@ -107,12 +107,14 @@ def dump(reason: str, extra: Optional[Dict[str, Any]] = None,
     """Write the flight snapshot; returns the file's path, or None (a
     crash path must never raise out of its own postmortem)."""
     try:
+        from .. import profiler
         from .registry import VERSION, registry
 
         payload = {"flight_recorder": 1, "reason": reason,
                    "time": time.time(), "pid": os.getpid(),
                    "version": VERSION, "entries": entries(),
-                   "metrics": registry().snapshot()}
+                   "metrics": registry().snapshot(),
+                   "compile_events": profiler.compile_events()[-64:]}
         if extra:
             payload["extra"] = extra
         if path is None:

@@ -18,9 +18,10 @@ counters end in ``_total``, per-instance series are told apart by labels
 names and label sets are the JAX package's, character for character:
 dashboards and the fleet merge key on them.
 
-Not ported (their families are absent from the scrape): ``watch_loader``
-(``paddle_reader_*{loader=}``) and ``overlap_telemetry``
-(``paddle_step_overlap_*``) with the reader, ROADMAP A9b;
+The data tiers export ``paddle_reader_*{loader=}`` (``watch_loader``:
+every live ``reader.GeneratorLoader``) and ``paddle_step_overlap_*``
+(``overlap_telemetry``: the pipelined step's hidden feed time). Not
+ported (their families are absent from the scrape):
 ``watch_partition`` (``paddle_partition_*{resolve=}``),
 ``watch_collectives`` (``paddle_collective_*{plan=}``) and
 ``watch_coordinator`` (``paddle_dist_*{coord=}``) with distribution,
@@ -41,7 +42,7 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "registry",
     "watch_serving", "watch_engine", "watch_executor", "watch_supervisor",
     "watch_generation", "watch_traffic", "watch_disagg", "watch_adapters",
-    "step_telemetry",
+    "watch_loader", "step_telemetry", "overlap_telemetry",
 ]
 
 VERSION = "0.1.0"       # paddle_tpu/version.py full_version
@@ -301,6 +302,7 @@ _generation: "weakref.WeakSet" = weakref.WeakSet()
 _traffic: "weakref.WeakSet" = weakref.WeakSet()
 _disagg: "weakref.WeakSet" = weakref.WeakSet()
 _adapters: "weakref.WeakSet" = weakref.WeakSet()
+_loaders: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def watch_serving(metrics) -> None:
@@ -323,6 +325,14 @@ def watch_executor(exe) -> None:
 def watch_supervisor(sup) -> None:
     _obs_id(sup)
     _supervisors.add(sup)
+
+
+def watch_loader(loader) -> None:
+    """Called by reader.GeneratorLoader.__init__: its prefetch queue,
+    resume position and stall counters become the
+    ``paddle_reader_*{loader=}`` family group."""
+    _obs_id(loader)
+    _loaders.add(loader)
 
 
 def watch_generation(metrics) -> None:
@@ -436,6 +446,36 @@ def _collect_supervisors():
                                and v is not None})
 
 
+def _collect_loaders():
+    merged: Dict[str, List] = {}
+    for loader in list(_loaders):
+        lbl = {"loader": getattr(loader, "_obs_id", "?")}
+        q = getattr(loader, "_obs_queue", None)
+        depth = q.qsize() if q is not None else 0
+        for name, v in (
+                ("paddle_reader_queue_depth", depth),
+                ("paddle_reader_position", loader.position()),
+                ("paddle_reader_capacity", loader.capacity),
+                # feed-starvation visibility: full = producer blocked
+                # (consumer/device is the bottleneck), empty = consumer
+                # blocked (the input pipeline is the bottleneck)
+                ("paddle_reader_buffer_full_stall_total",
+                 getattr(loader, "_stall_full", 0)),
+                ("paddle_reader_buffer_empty_stall_total",
+                 getattr(loader, "_stall_empty", 0)),
+                ("paddle_reader_prefetch_depth",
+                 getattr(loader, "_active_depth", 0)),
+                # which slice of the sample stream this loader feeds
+                # (rank sharding from the launcher env)
+                ("paddle_reader_trainer_id",
+                 getattr(loader, "trainer_id", 0)),
+                ("paddle_reader_num_trainers",
+                 getattr(loader, "num_trainers", 1)),
+        ):
+            merged.setdefault(name, []).append((lbl, v))
+    return merged
+
+
 def _collect_generation():
     # engines expose stats_numeric(): counters + flattened hist
     # snapshots + cache pool stats; nested dicts flatten to
@@ -486,6 +526,7 @@ for _name, _fn in (
     ("traffic", _collect_traffic),
     ("disagg", _collect_disagg),
     ("adapter", _collect_adapters),
+    ("reader", _collect_loaders),
     ("build_info", _collect_build_info),
 ):
     _REGISTRY.register_collector(_name, _fn)
@@ -549,3 +590,58 @@ _REGISTRY.register_collector("step", _step_tel.collect)
 
 def step_telemetry() -> _StepTelemetry:
     return _step_tel
+
+
+class _OverlapTelemetry:
+    """Overlap accounting of the pipelined step (``BoundStep.
+    run_pipelined``). Per step the feeder thread spends ``feed_ms`` of
+    host work (pull, normalize, stage and copy to the card) and the
+    consumer waits ``wait_ms`` for the prepared feed. Host work the
+    consumer did NOT wait for ran while the previous step did:
+    ``hidden_fraction`` is ``1 - wait_ms_sum / feed_ms_sum`` (clamped to
+    [0, 1]); 1.0 means every feed millisecond overlapped a step, 0.0 that
+    the pipeline is feed-bound."""
+
+    __slots__ = ("_lock", "steps", "feed_ms_sum", "wait_ms_sum")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.steps = 0
+        self.feed_ms_sum = 0.0
+        self.wait_ms_sum = 0.0
+
+    def record(self, feed_ms: float, wait_ms: float) -> None:
+        with self._lock:
+            self.steps += 1
+            self.feed_ms_sum += feed_ms
+            self.wait_ms_sum += wait_ms
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            steps = self.steps
+            feed = self.feed_ms_sum
+            wait = self.wait_ms_sum
+        hidden = 1.0 - (min(wait, feed) / feed) if feed > 0 else 0.0
+        return {
+            "steps": steps,
+            "feed_ms_sum": round(feed, 3),
+            "wait_ms_sum": round(wait, 3),
+            "hidden_fraction": round(hidden, 4),
+        }
+
+    def collect(self) -> Dict[str, float]:
+        s = self.snapshot()
+        return {
+            "paddle_step_overlap_steps_total": s["steps"],
+            "paddle_step_overlap_feed_ms_sum": s["feed_ms_sum"],
+            "paddle_step_overlap_wait_ms_sum": s["wait_ms_sum"],
+            "paddle_step_overlap_hidden_fraction": s["hidden_fraction"],
+        }
+
+
+_overlap_tel = _OverlapTelemetry()
+_REGISTRY.register_collector("step_overlap", _overlap_tel.collect)
+
+
+def overlap_telemetry() -> _OverlapTelemetry:
+    return _overlap_tel

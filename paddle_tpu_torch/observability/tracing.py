@@ -1,13 +1,14 @@
 """Trace spans with parentage (the counterpart of
 ``paddle_tpu/observability/tracing.py``).
 
-With ``observability_tracing`` off (the default) ``span`` is a
-``torch.profiler.record_function`` range, which costs nothing outside
-a profiler run. With it on, a span also carries a ``trace_id``, a
-``span_id`` and its ``parent_id`` and logs itself into the flight
-recorder when it closes. Where the JAX package opens a
-``jax.profiler.TraceAnnotation`` (its :124), the port opens
-``record_function``.
+With ``observability_tracing`` off (the default) ``span`` is
+``profiler.record_event``: a ``torch.profiler.record_function`` range,
+and a host event while a profiler session records. With it on, a span
+also carries a ``trace_id``, a ``span_id`` and its ``parent_id``,
+logs itself into the flight recorder when it closes, and goes into the
+profiler's host-event log while a session records (JAX's :120-145).
+Where the JAX package opens a ``jax.profiler.TraceAnnotation`` (its
+:124), the port opens ``record_function``.
 
 Propagation is ambient within a thread (a thread-local stack: nested
 ``span()`` calls parent automatically) and explicit across threads:
@@ -27,6 +28,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from .. import profiler
 from ..flags import _flags
 from . import flight
 
@@ -108,8 +110,9 @@ class _Span:
         dur = time.time() - self.t0
         self._rf.__exit__(*exc)
         self._stack.pop()
+        profiler.emit_event(self.name, self.t0, dur, self.meta)
         entry = {"kind": "span", "t": self.t0, "name": self.name,
-                 "ts": self.t0, "dur": dur, "tid": threading.get_ident()}
+                 "ts": self.t0, "dur": dur, "tid": profiler.thread_tid()}
         for k, v in self.meta.items():
             if k not in self._RESERVED:
                 entry[k] = v
@@ -118,20 +121,26 @@ class _Span:
 
 
 class _Plain:
-    """The range of a span with tracing off: a ``record_function`` that
-    yields None, as the JAX package's plain ``record_event`` does."""
+    """The range of a span with tracing off: ``profiler.record_event``
+    (a ``record_function`` range, a host event while a session records)
+    that yields None, as the JAX package's does."""
 
-    __slots__ = ("_rf",)
+    __slots__ = ("_rf", "name", "args", "t0")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, args):
+        self.name, self.args = name, args
         self._rf = torch.profiler.record_function(name)
 
     def __enter__(self):
         self._rf.__enter__()
+        self.t0 = time.time()
         return None
 
     def __exit__(self, *exc):
         self._rf.__exit__(*exc)
+        if profiler._recording:
+            profiler.emit_event(self.name, self.t0, time.time() - self.t0,
+                                self.args)
         return False
 
 
@@ -141,7 +150,7 @@ def span(name: str, args: Optional[Dict[str, Any]] = None, parent=_AMBIENT):
     off. ``parent``: the ambient span by default; an explicit
     SpanContext stitches across threads, None forces a new root."""
     if not _flags["observability_tracing"]:
-        return _Plain(name)
+        return _Plain(name, args)
     return _Span(name, args, parent)
 
 

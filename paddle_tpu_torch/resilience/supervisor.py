@@ -52,10 +52,12 @@ that escapes the loop, and the SIGTERM preemption flush
 (``stats()["flight_dumps"]`` lists the paths).
 
 The counters export through the metrics registry
-(``watch_supervisor``: ``paddle_resilience_*{sup=}``). Not here yet: the
-reader's resume (``set_resume_position``) waits for ``reader.py``
-(ROADMAP A9b), and the pre-save barrier of a distributed world for A10;
-a plain iterable is fast-forwarded.
+(``watch_supervisor``: ``paddle_resilience_*{sup=}``). A
+``reader.GeneratorLoader`` as ``data`` resumes through its
+``set_resume_position`` (the marker's ``reader_position``: the step
+count, never the loader's prefetched position); a plain iterable is
+fast-forwarded by consuming it. The pre-save barrier of a distributed
+world is ROADMAP A10.
 """
 
 from __future__ import annotations

@@ -31,6 +31,11 @@ keeps its values in its own environment, the step counter is drawn
 under the executor's lock, and the cached state refs are replaced as a
 whole.
 
+``run_pipelined`` is the overlapped loop over a stream of feeds
+(the reference's :620-746): a feeder thread normalizes feed N+1 and
+copies it to the card on a side stream (``runtime/prefetch.py``) while
+step N runs; the step itself is ``run``'s, on the resident tensors.
+
 Also here, for the Predictor's shape bucketing: ``feed_signature`` and
 ``pad_to`` (the reference's :333, :352), and ``eval_shapes``, the
 counterpart of ``jax.eval_shape`` over a block: the plan runs on
@@ -42,8 +47,10 @@ that way, and outside it a meta tensor raises.
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -53,6 +60,9 @@ from ..core.framework import Block, OpRole
 from ..core.registry import LoweringContext, run_recorded
 from ..flags import _flags
 from ..kernels import _build
+from ..observability import tracing
+from ..observability.registry import overlap_telemetry
+from .prefetch import DeviceStager, claim, host_tensor
 
 __all__ = ["BoundStep", "scope_chain_generation", "feed_signature",
            "pad_to", "eval_shapes"]
@@ -220,28 +230,26 @@ class BoundStep:
         self.state_vals = vals
         self.scope_gen = gen
 
-    def _feed_tensor(self, value, dtype) -> torch.Tensor:
-        if isinstance(value, torch.Tensor):
-            t = value.detach()
-        else:
-            arr = np.asarray(value)
-            if arr.dtype == np.float64 and dtype is None:
-                arr = arr.astype(np.float32)
-            t = torch.from_numpy(np.ascontiguousarray(arr))
-        if dtype is not None:
-            t = t.to(dtype)
-        return t.to(self.executor.device)
-
     # -- the hot path -------------------------------------------------------
     def run(self, feed: Dict[str, Any], return_numpy: bool = True):
+        """One step. A feed already on the executor's device in its
+        variable's dtype (a ``GeneratorLoader`` batch) is used as it is,
+        with no second copy."""
         t_obs = time.perf_counter()
+        device = self.executor.device
+        ordered = [host_tensor(feed[n], dt).to(device)
+                   for n, dt in self.feed_plan]
+        return self._run_ordered(ordered, return_numpy, _rows(feed), t_obs)
+
+    def _run_ordered(self, ordered: List[torch.Tensor], return_numpy: bool,
+                     rows: int, t_obs: float):
         scope, plan = self.scope, self.plan
         entry_gen = scope_chain_generation(scope)
         if entry_gen != self.scope_gen:
             self._resolve_state()
             entry_gen = self.scope_gen
-        env: Dict[str, Any] = {n: self._feed_tensor(feed[n], dt)
-                               for n, dt in self.feed_plan}
+        env: Dict[str, Any] = {n: t for (n, _), t in zip(self.feed_plan,
+                                                         ordered)}
         env.update(zip(plan.state_names, self.state_vals))
 
         ex = self.executor
@@ -277,11 +285,127 @@ class BoundStep:
         if _flags["observability_metrics"]:
             # the host-side step cadence (no device sync, as in the JAX
             # package's dispatch): the traffic estimator's step median
-            first = next(iter(feed.values()), None)
-            shape = getattr(first, "shape", None)
-            record_step((time.perf_counter() - t_obs) * 1e3,
-                        int(shape[0]) if shape else 0, step)
+            record_step((time.perf_counter() - t_obs) * 1e3, rows, step)
         return out
+
+    # -- the overlapped step ------------------------------------------------
+    def run_pipelined(self, feeds: Iterable[Dict[str, Any]],
+                      return_numpy: bool = True, depth: int = 2):
+        """Yield ``run``'s fetches for each feed of ``feeds``, in order
+        and bit-identical to ``run`` per feed (the reference's :620-746).
+
+        A feeder thread (``pt-dispatch-feeder``) pulls feed N+1 from the
+        iterable, normalizes it (``host_tensor``) and copies it to the
+        card on a side stream (``prefetch.DeviceStager``) while step N
+        runs, through a bounded queue of ``depth`` prepared feeds. The
+        consumer (this generator, on the caller's thread) orders its
+        stream after the copy (``prefetch.claim``) and runs the step on
+        the resident tensors. A feed already on the device passes
+        untouched.
+
+        * ordering: results come back in feed order;
+        * errors: an error raised by the iterable or by the normalizing
+          of feed K surfaces here after step K-1's result; the feeder
+          always exits;
+        * shutdown: closing or abandoning the generator stops and joins
+          the feeder and drops every prepared batch (no orphan thread,
+          no staged batch left behind);
+        * state: scope state flows through ``_run_ordered`` exactly as
+          in ``run`` (the feeder touches feeds only).
+
+        The overlap goes to ``paddle_step_overlap_*``: host feed ms per
+        step, how much of it the consumer waited for, and the hidden
+        fraction."""
+        depth = max(1, int(depth))
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        stop = threading.Event()
+        end = object()
+        overlap = (overlap_telemetry() if _flags["observability_metrics"]
+                   else None)
+        stager = DeviceStager(self.executor.device)
+        plan = self.feed_plan
+
+        def feeder():
+            err = None
+            try:
+                it = iter(feeds)
+                while True:
+                    if stop.is_set():
+                        return
+                    # the timed span starts BEFORE next(): the iterable
+                    # IS the input pipeline, and its latency is the host
+                    # work the overlap hides
+                    t0 = time.perf_counter()
+                    try:
+                        feed = next(it)
+                    except StopIteration:
+                        break
+                    if stop.is_set():
+                        # the consumer shut down while next() blocked:
+                        # stage no more batches on the way out
+                        return
+                    with tracing.span("dispatch/feed"):
+                        staged = stager.stage(
+                            [host_tensor(feed[n], dt) for n, dt in plan])
+                    item = ((staged, _rows(feed)),
+                            (time.perf_counter() - t0) * 1e3)
+                    while True:
+                        if stop.is_set():
+                            return
+                        try:
+                            q.put(item, timeout=0.05)
+                            break
+                        except queue.Full:
+                            continue
+            except BaseException as e:  # noqa: BLE001 — raised at the yield
+                err = e
+            while not stop.is_set():
+                try:
+                    q.put((end, err), timeout=0.05)
+                    return
+                except queue.Full:
+                    continue
+
+        t = threading.Thread(target=feeder, name="pt-dispatch-feeder",
+                             daemon=True)
+        t.start()
+        try:
+            while True:
+                try:
+                    payload, extra = q.get_nowait()
+                    waited_ms = 0.0
+                except queue.Empty:
+                    t0 = time.perf_counter()
+                    payload, extra = q.get()
+                    waited_ms = (time.perf_counter() - t0) * 1e3
+                if payload is end:
+                    if extra is not None:
+                        raise extra
+                    return
+                (tensors, event), rows = payload
+                with tracing.span("dispatch/step"):
+                    t_obs = time.perf_counter()
+                    fetched = self._run_ordered(claim(tensors, event),
+                                                return_numpy, rows, t_obs)
+                if overlap is not None:
+                    overlap.record(extra, waited_ms)
+                yield fetched
+        finally:
+            stop.set()
+            # unblock a feeder parked in q.put, then reap it
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            t.join(timeout=5.0)
+
+
+def _rows(feed: Dict[str, Any]) -> int:
+    """dim 0 of the feed's first value: the examples a step counts."""
+    first = next(iter(feed.values()), None)
+    shape = getattr(first, "shape", None)
+    return int(shape[0]) if shape else 0
 
 
 def record_step(ms: float, rows: int, step: Optional[int] = None) -> None:

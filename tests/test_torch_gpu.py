@@ -1914,3 +1914,142 @@ def test_export_from_another_thread_sees_the_step_s_writes(cuda):
             direct = buf.index_select(1, sel).movedim(1, 0).cpu().numpy()
             assert np.array_equal(k_run[:, li], direct)
         eng.cache.drop_trie()
+
+
+# -- the data tiers: device prefetch, the overlapped step, the native parser --
+
+
+def _loader_mlp(fluid):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", [256])
+        y = fluid.layers.data("y", [1], dtype="int64")
+        h = fluid.layers.fc(x, 512, act="relu")
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.fc(h, 10), y))
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    return main, startup, loss, x, y
+
+
+def _loader_feeds(n, rows=64):
+    for i in range(n):
+        rng = np.random.RandomState(300 + i)
+        yield {"x": rng.rand(rows, 256),           # float64: cast on the host
+               "y": rng.randint(0, 10, (rows, 1)).astype("int64")}
+
+
+def test_prefetched_batch_is_on_the_card_and_equals_its_host_batch(cuda):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.reader import GeneratorLoader
+
+    _, _, _, x, y = _loader_mlp(fluid)
+    feeds = list(_loader_feeds(5))
+    loader = GeneratorLoader([x, y], prefetch_depth=2)
+    loader.set_batch_generator(lambda: iter(feeds),
+                               places=[fluid.CUDAPlace(0)])
+    got = list(loader)
+    assert len(got) == 5
+    for b, f in zip(got, feeds):
+        assert b["x"].is_cuda and b["x"].dtype == torch.float32
+        assert b["y"].is_cuda and b["y"].dtype == torch.int64
+        assert torch.equal(b["x"].cpu(), torch.from_numpy(f["x"]).float())
+        assert torch.equal(b["y"].cpu(), torch.from_numpy(f["y"]))
+
+
+def test_dropped_batches_while_copies_run_stay_uncorrupted(cuda):
+    """A consumer that keeps a few batches, drops the others at once and
+    queues slow work on its stream while the next copies run: every kept
+    batch still holds its own values (record_stream keeps a block from
+    the next copy until the consumer's stream is done with it)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.reader import GeneratorLoader
+
+    n = 24
+
+    def gen():
+        for i in range(n):
+            yield {"x": np.full((1024, 1024), float(i), "float32")}
+
+    loader = GeneratorLoader([], prefetch_depth=3)
+    loader.set_batch_generator(gen, places=[fluid.CUDAPlace(0)])
+    kept, sums = [], []
+    for i, b in enumerate(loader):
+        torch.cuda._sleep(2_000_000)           # the step still running
+        s = b["x"].sum()                        # queued behind the sleep
+        sums.append(s)
+        if i % 4 == 0:
+            kept.append((i, b["x"]))
+        del b                                   # dropped while queued
+    torch.cuda.synchronize()
+    for i, s in enumerate(sums):
+        assert float(s) == float(i) * 1024 * 1024, i
+    for i, t in kept:
+        assert bool((t == float(i)).all()), i
+
+
+def test_pipelined_equals_run_bitwise_on_the_card(cuda):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.reader import GeneratorLoader
+
+    losses, params = [], []
+    for mode in ("run", "pipelined", "loader"):
+        main, startup, loss, x, y = _loader_mlp(fluid)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        feeds = _loader_feeds(8)
+        if mode == "run":
+            out = [exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0]
+                   for f in feeds]
+        elif mode == "pipelined":
+            out = [o[0] for o in exe.run_pipelined(main, feeds, [loss],
+                                                   scope=scope)]
+        else:
+            loader = GeneratorLoader([x, y], prefetch_depth=2)
+            loader.set_batch_generator(lambda f=list(feeds): iter(f),
+                                       places=[fluid.CUDAPlace(0)])
+            out = [o[0] for o in exe.run_pipelined(main, loader, [loss],
+                                                   scope=scope)]
+        losses.append([o.tobytes() for o in out])
+        params.append({p.name: scope.find_var(p.name).cpu()
+                       for p in main.all_parameters()})
+    assert losses[0] == losses[1] == losses[2]
+    for name, t in params[0].items():
+        assert torch.equal(t, params[1][name]) and torch.equal(
+            t, params[2][name]), name
+
+
+def test_closed_pipeline_leaves_no_device_batch(cuda):
+    import paddle_tpu_torch as fluid
+
+    main, startup, loss, _, _ = _loader_mlp(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    list(exe.run_pipelined(main, _loader_feeds(2), [loss], scope=scope))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+
+    def endless():
+        while True:
+            yield from _loader_feeds(1, rows=4096)
+
+    gen = exe.run_pipelined(main, endless(), [loss], scope=scope, depth=3)
+    for n, _ in enumerate(gen):
+        if n == 3:
+            break
+    gen.close()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= base + (1 << 20)
+
+
+def test_native_parser_builds_on_the_card_machine(cuda, tmp_path):
+    from paddle_tpu_torch.native import datafeed
+
+    assert datafeed.available()
+    p = tmp_path / "d.txt"
+    p.write_text("2 1.5 2.5 1 7\n2 3.0 4.0 1 9\n")
+    rows = list(datafeed.parse_file(str(p), 2, ["float32", "int64"]))
+    assert [list(r[0]) for r in rows] == [[1.5, 2.5], [3.0, 4.0]]
+    assert [int(r[1][0]) for r in rows] == [7, 9]

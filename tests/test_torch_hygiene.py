@@ -148,7 +148,20 @@ def test_port_package_imports_no_jax_or_paddle_tpu():
                 "paddle_tpu_torch.traffic.frontend",
                 "paddle_tpu_torch.traffic.metrics",
                 "paddle_tpu_torch.disagg.pagestore",
-                "paddle_tpu_torch.disagg.roles"):
+                "paddle_tpu_torch.disagg.roles",
+                # the data tiers
+                "paddle_tpu_torch.reader",
+                "paddle_tpu_torch.data_feeder",
+                "paddle_tpu_torch.lod_tensor",
+                "paddle_tpu_torch.dataset",
+                "paddle_tpu_torch.dataset_runner",
+                "paddle_tpu_torch.native.datafeed",
+                "paddle_tpu_torch.datasets.flowers",
+                "paddle_tpu_torch.profiler",
+                "paddle_tpu_torch.tools_timeline",
+                "paddle_tpu_torch.metrics",
+                "paddle_tpu_torch.average",
+                "paddle_tpu_torch.runtime.prefetch"):
         assert mod in res["port"]
 
 

@@ -1,6 +1,6 @@
 """The port's supervised training (``paddle_tpu_torch.resilience``) on
 the CPU: twins of the single-process tests of tests/test_resilience.py
-(the reader-position round trip waits for ``reader.py``, ROADMAP A9;
+(the reader-position round trip is in ``tests/test_torch_reader.py``;
 the atomic-rename test without its ``HDFSClient`` line, A11).
 
 The model is the twin of tools/chaos_train.py's: a small MLP with

@@ -631,8 +631,8 @@ def test_host_tier_surface_matches_jax(static_pred, jax_static, tmp_path,
     """One case per argument (traffic=, fleet=, phase=, reuse_port=) and
     per endpoint (/metrics/fleet without a fleet, /v1/admin/trace/<id>,
     /v1/admin/flight/dump) that used to be refused: the port answers as
-    the JAX server does. Outputs within 1e-5; the flight dump's keys
-    apart from the JAX-only ``compile_events``."""
+    the JAX server does. Outputs within 1e-5; the flight dump's keys,
+    ``compile_events`` included."""
     want = _surface("jax", jax_static, case, tmp_path)
     got = _surface("torch", static_pred, case, tmp_path)
     assert got.keys() == want.keys()
@@ -643,7 +643,7 @@ def test_host_tier_surface_matches_jax(static_pred, jax_static, tmp_path,
             np.testing.assert_allclose(g[1], w[1], rtol=1e-5, atol=1e-5)
         elif k == "flight":
             assert g[:3] == w[:3]
-            assert set(g[3]) == set(w[3]) - {"compile_events"}
+            assert set(g[3]) == set(w[3])
         else:
             assert g == w, k
 
