@@ -6,7 +6,7 @@
                                      #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4,
                                      #   e1, e2 (+ grouped conv share), g2
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789abcdefg), no result line
+                                        #   23456789abcdefgh), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -98,7 +98,7 @@ Phases, in order; any failure exits non-zero without the result line:
    within rtol 2e-3, parameters within 2 * lr); a 2-layer
    gpt3_1p3b-width two_lane prefill and 3 decode steps (tokens equal,
    pools within 1e-5); a 2-layer gpt3_1p3b-width GPT whose both FFNs are
-   8-expert switch-MoE layers, one step of LookaheadOptimizer(fused Adam,
+   2-expert switch-MoE layers, one step of LookaheadOptimizer(fused Adam,
    alpha 0.5, k 1: the slow weights sync on it) with an
    ExponentialMovingAverage (routing identical, the smallest top-2
    probability gap printed; losses within
@@ -324,6 +324,42 @@ g. the data tiers. g1: phase 8's ResNet-50 recipe at 102 classes trained
    K10 a dense parameter a step), at thread 4 (Hogwild) every batch runs
    once and the losses fall. Prints parse MB/s, samples/s at thread 1
    and 4 and, under ``--profile``, the device idle share of each.
+h. distribution. h1: phase 4's flash recipe (gpt3_1p3b, 2 x 1024,
+   AdamOptimizer(3e-4)) data-parallel at a world of one over NCCL:
+   ``fleet.init(UserDefinedRoleMaker(...))`` and
+   ``fleet.distributed_optimizer`` with the fp32 bucket planner
+   (``collective_bucket_mb`` 25), 3 steps against the plain steps from
+   the same seed (equal to phase 4's first three): losses and every
+   parameter bit for bit, exact K1 / K3 49, K4 / K5 1, K6 / K8 24, K10
+   294 launches a step; then ``collective_quantization="int8"`` (an
+   identity at one rank, as the JAX package's). Prints the step beside
+   the plain one and phase 4's, the buckets, the bytes a step through
+   the comm layer and the wire ratio. h2: a world of 2 on the one card
+   (``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2
+   --backend gloo chip_smoke.py --h2-child DIR SEED``, both ranks on
+   cuda:0), gpt3_1p3b's widths at 2 layers, flash, no dropout, one row
+   of 1024 tokens a rank, against the single-process 2 x 1024 runs this
+   process makes first. Adam's first moments hold the gradients, scale
+   included, where Adam's parameters move about lr a step whatever the
+   gradient's scale: they are held at relative L2 error 1e-4. (a) data
+   parallel over the fp32 buckets, 3 steps: losses within rtol 1e-3,
+   first moments, parameters within 2 * lr * steps, the ranks'
+   parameter bits (fingerprinted) equal every step; (b) ZeRO-1: (a) bit
+   for bit, each rank's chunk of every moment too, half the moment
+   bytes a rank; (c) d1's MoE layer (8 experts, capacity 1.25), 3 steps:
+   ``psum`` at ep 2 (both ranks all rows) against the MoE run (losses,
+   first moments, parameters); the world at ep 1 (a row a rank, every
+   expert on each) against the rows' gradient merge (its first loss,
+   and its first step's moments where the load-balance loss does not
+   reach); ``alltoall`` at ep 2 (a row a rank, 4 experts a rank)
+   against the world at ep 1 (losses, first moments, parameters);
+   (d) DGCMomentumOptimizer at
+   sparsity 0.999 from step 1, 5 steps: finite, falling losses, replicas
+   equal; (e) a data-parallel Supervisor on a small GPT committing every
+   2 steps, ``r1:kill@5``: the launcher restarts the world and the 6
+   losses equal an uninterrupted world-2 run's bit for bit
+   (``chip_smoke.py --h2-elastic DIR SEED FAULT``). Each rank's
+   collective bytes and blocked seconds and the step times are printed.
 
 Then one JSON line of per-kernel numbers, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -387,7 +423,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789abcdefg"
+ALL_PHASES = "23456789abcdefgh"
 DEVICE = "cuda"
 
 
@@ -4448,8 +4484,14 @@ def routing(torch, x, wg):
     return torch.argmax(probs, dim=-1), top[:, 0] - top[:, 1]
 
 
+# phase 5's MoE check: 2 experts a layer (8 until phase h came: the CPU
+# side's expert parameters were its cost, 109.5 s at one step); what it
+# checks is the same
+MOE_CHECK_EXPERTS = 2
+
+
 def card_vs_cpu_moe(torch, np, seed, steps=1, lr=1e-4, k=1):
-    """A 2-layer gpt3_1p3b-width GPT whose both FFNs are 8-expert
+    """A 2-layer gpt3_1p3b-width GPT whose both FFNs are 2-expert
     switch-MoE layers, trained ``steps`` steps by LookaheadOptimizer(
     fused Adam, alpha 0.5, k) with an ExponentialMovingAverage, from the
     same numpy-seeded parameters on the card and on the CPU: routing
@@ -4469,7 +4511,8 @@ def card_vs_cpu_moe(torch, np, seed, steps=1, lr=1e-4, k=1):
     cfg = GPTConfig(vocab_size=VOCAB, hidden_size=HIDDEN, num_layers=2,
                     num_heads=16, ffn_size=8192, max_position=1024,
                     hidden_dropout=0.0, attention_dropout=0.0,
-                    use_flash_attention=True, moe_every=1)
+                    use_flash_attention=True, moe_every=1,
+                    moe_experts=MOE_CHECK_EXPERTS)
     with fluid.unique_name.guard():
         main, startup, _, fetches = build_gpt_lm(cfg, seq)
         with fluid.program_guard(main, startup):
@@ -6902,6 +6945,765 @@ def phase_g(torch, np, seed, card, out_dir, profile=False):
     return paths, out
 
 
+# -- phase h: distribution -------------------------------------------------------
+
+
+H_STEPS = 3                 # h1 and h2 (a), (b)
+H2_LAYERS, H2_LR = 2, 3e-4  # h2: gpt3_1p3b's widths at 2 layers
+H2_MOE_STEPS = 3
+# the relative L2 error of a gradient Adam took in (its first moment,
+# 0.1 of the step's gradient after one step), against the reference's;
+# a gradient zeroed, of the wrong sign or without its 1/n reads 0.5-2
+H2_GRAD_RTOL = 1e-4
+H2_DGC_STEPS, H2_DGC_LR = 5, 0.1
+H2_ELASTIC_STEPS = 6
+H_BUCKET_MB = "25"          # the fp32 bucket cap of h1 and h2 (MB)
+H2_TIMEOUT_S = 600
+
+
+def h_train_want(K, L, flash=True):
+    want = {name: 0 for name in K.KERNELS}
+    want.update(layer_norm=2 * L + 1, layer_norm_bwd=2 * L + 1,
+                softmax_xent_fwd=1, softmax_xent_bwd=1,
+                fused_adam_update=12 * L + 6)
+    if flash:
+        want.update(flash_attention_fwd=L, flash_attention_bwd=L)
+    return want
+
+
+def build_dp_lm(fluid, cfg, seq, lr, fleet_opt=None, bucket_mb="0",
+                quant="none", make_opt=None):
+    """``build_gpt_lm``'s program (the optimizer appended inside the
+    same name guard, as ``build_gpt_lm(cfg, seq, AdamOptimizer(lr))``
+    does), minimized plainly or through ``fleet_opt(optimizer)``; the
+    ``collective_*`` flags are set around the minimize, which plans the
+    gradient buckets."""
+    from paddle_tpu_torch.models.gpt import build_gpt_lm
+
+    fluid.set_flags({"collective_bucket_mb": bucket_mb,
+                     "collective_quantization": quant})
+    try:
+        with fluid.unique_name.guard():
+            main, startup, _, fetches = build_gpt_lm(cfg, seq)
+            with fluid.program_guard(main, startup):
+                opt = (make_opt(fluid) if make_opt
+                       else fluid.optimizer.AdamOptimizer(lr))
+                (fleet_opt(opt) if fleet_opt else opt).minimize(
+                    fetches["loss"])
+    finally:
+        fluid.set_flags({"collective_bucket_mb": "0",
+                         "collective_quantization": "none"})
+    return main, startup, fetches
+
+
+def phase_h1(torch, np, seed, card, out_dir, phase4=None):
+    """h1: gpt3_1p3b data-parallel at a world of one over NCCL, phase 4's
+    flash recipe through ``fleet.distributed_optimizer`` with the fp32
+    bucket planner: 3 steps whose losses and every parameter equal the
+    plain flash step's from the same seed bit for bit, exact launches;
+    then the int8 planner (an identity at one rank, as the JAX
+    package's)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models.gpt import GPTConfig, synthetic_lm_batch
+    from paddle_tpu_torch.parallel import comm
+    from paddle_tpu_torch.parallel import fleet as fleet_mod
+    from paddle_tpu_torch.parallel.env import (init_parallel_env,
+                                               shutdown_parallel_env,
+                                               world_backend)
+
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.use_flash_attention = True
+    L = cfg.num_layers
+    fluid.set_flags({"optimizer_fuse": "auto"})
+    batch = synthetic_lm_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                               TRAIN_SEQ, cfg.vocab_size)
+    want = h_train_want(K, L)
+    out = {}
+
+    log("  h1 reference: phase 4's flash recipe, plain")
+    main, startup, fetches = build_dp_lm(fluid, cfg, TRAIN_SEQ, 3e-4)
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    _, ref = run_steps(torch, np, K, exe, main, scope, batch,
+                       fetches["loss"], want, H_STEPS, TRAIN_ROWS, card,
+                       out_dir, "h1_ref")
+    ref_params = {p.name: scope.find_var(p.name).cpu()
+                  for p in main.all_parameters()}
+    if phase4 is not None:
+        require(ref["losses"] == phase4["losses"][:H_STEPS],
+                f"h1's plain steps {ref['losses']} are not phase 4's "
+                f"{phase4['losses'][:H_STEPS]}")
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    init_parallel_env(backend="nccl", world_size=1, rank=0)
+    try:
+        require(world_backend() == "nccl", "no NCCL world")
+        paths = {}
+        for quant in ("none", "int8"):
+            fleet = fleet_mod.fleet
+            fleet.init(fleet_mod.UserDefinedRoleMaker(current_id=0,
+                                                      worker_num=1))
+            strategy = fleet_mod.DistributedStrategy()
+            main, startup, fetches = build_dp_lm(
+                fluid, cfg, TRAIN_SEQ, 3e-4, bucket_mb=H_BUCKET_MB, quant=quant,
+                fleet_opt=lambda o: fleet.distributed_optimizer(o, strategy))
+            prog = fleet.main_program
+            plan = main._collective_plan
+            require(plan is not None and prog._mesh.shape == {"dp": 1},
+                    "fleet did not plan and compile the program")
+            exe, scope, _ = startup_on_card(torch, np, fluid, main, startup,
+                                            seed)
+            before = comm.STATS.snapshot()
+            log(f"  h1 fleet data-parallel, world 1 over NCCL, "
+                f"collective_quantization={quant}")
+            totals, perf = run_steps(
+                torch, np, K, exe, prog, scope, batch, fetches["loss"], want,
+                H_STEPS, TRAIN_ROWS, card, out_dir, f"h1_{quant}")
+            after = comm.STATS.snapshot()
+            snap = plan.snapshot()
+            wire = (snap["wire_bytes_saved_ratio"] if snap["dp"] > 1
+                    else 1.0)
+            nccl_bytes = (after["comm_bytes_total"]
+                          - before["comm_bytes_total"]) / H_STEPS
+            if quant == "none":
+                require(perf["losses"] == ref["losses"],
+                        f"h1 losses {perf['losses']} != plain "
+                        f"{ref['losses']}")
+                diff = [n for n, t in ref_params.items()
+                        if not torch.equal(scope.find_var(n).cpu(), t)]
+                require(not diff, f"h1 parameters differ from the plain "
+                        f"run's: {diff[:4]}")
+                require(nccl_bytes >= 4 * n_params,
+                        f"h1 handed {nccl_bytes} bytes a step to NCCL")
+                paths["dp_fleet"] = totals
+            else:
+                rel = max(abs(a - b) / max(abs(b), 1e-9)
+                          for a, b in zip(perf["losses"], ref["losses"]))
+                require(rel < 0.02, f"int8 losses diverged by {rel:.3e}")
+                paths["dp_fleet_int8"] = totals
+                perf["loss_rel_vs_fp32"] = rel
+            perf.update(buckets=snap["buckets"],
+                        bucket_bytes_max=snap["bucket_bytes_max"],
+                        grads=snap["grads_total"], wire_ratio=wire,
+                        collective_bytes_per_step=nccl_bytes)
+            log(f"  {snap['buckets']} buckets over {snap['grads_total']} "
+                f"gradients (largest {snap['bucket_bytes_max'] / 2**20:.1f} "
+                f"MiB), {nccl_bytes / 1e9:.3f} GB a step through the comm "
+                f"layer, wire ratio {wire:.3f}; mean step "
+                f"{perf['step_ms_mean']:.3f} ms beside the plain "
+                f"{ref['step_ms_mean']:.3f} ms"
+                + (f" and phase 4's {phase4['step_ms_mean']:.3f} ms"
+                   if phase4 else "") + f" [{card}]")
+            out[quant] = perf
+            del exe, scope
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"  h1: {H_STEPS} fleet steps equal the plain flash steps bit "
+            f"for bit (losses {ref['losses']}, all {len(ref_params)} "
+            "parameters); int8 at one rank is the identity")
+    finally:
+        shutdown_parallel_env()
+    out["reference"] = ref
+    return paths, out
+
+
+def h2_config(moe=False):
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.num_layers = H2_LAYERS
+    cfg.use_flash_attention = True
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    if moe:
+        cfg.moe_every = 2     # d1's: a switch-MoE FFN in every second layer
+    return cfg
+
+
+def h2_batch(np, seed, cfg):
+    from paddle_tpu_torch.models.gpt import synthetic_lm_batch
+
+    return synthetic_lm_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                              TRAIN_SEQ, cfg.vocab_size)
+
+
+def first_moments(main, scope):
+    """{parameter name: Adam's first moment as the scope holds it}."""
+    return {v.accumulator_owner: scope.find_var(v.name)
+            for v in main.global_block().vars.values()
+            if getattr(v, "is_accumulator", False) and "moment1" in v.name}
+
+
+def rel_l2(got, want):
+    """||got - want|| / ||want|| (the plain norm where want is 0)."""
+    d = float((got.double() - want.double()).norm())
+    w = float(want.double().norm())
+    return d / w if w else d
+
+
+def h2_reference(torch, np, seed, card, ref_path):
+    """The single-process references of h2, on the card, saved for the
+    world's ranks to hold themselves to: ``dense``, the 2-layer model 3
+    steps over the 2 x 1024 batch ((a), (b)), and ``moe``, the MoE model
+    the same ((c) psum, whose ranks route the whole batch), each with
+    its losses, its parameters and Adam's first moments after the last
+    step; ``moe_merge``, the MoE model through
+    ``GradientMergeOptimizer(Adam, k_steps=2)``, each row routed alone at
+    a row's capacity and the two rows' gradients averaged, as the ranks
+    of (c)'s world at ep 1 do, one step. Its load-balance loss is a
+    row's where the world's sums both rows' statistics, so only its loss
+    and the moments of the parameters that loss does not reach (the
+    experts, the final layer norm and the head) are the world's."""
+    import paddle_tpu_torch as fluid
+
+    fluid.set_flags({"optimizer_fuse": "auto"})
+    merge = lambda fl: fl.optimizer.GradientMergeOptimizer(  # noqa: E731
+        fl.optimizer.AdamOptimizer(H2_LR), k_steps=TRAIN_BATCH, avg=True)
+    ref = {}
+    for name, moe, steps, make_opt in (
+            ("dense", False, H_STEPS, None),
+            ("moe", True, H2_MOE_STEPS, None),
+            ("moe_merge", True, 1, merge)):
+        cfg = h2_config(moe)
+        batch = h2_batch(np, seed, cfg)
+        main, startup, fetches = build_dp_lm(fluid, cfg, TRAIN_SEQ, H2_LR,
+                                             make_opt=make_opt)
+        exe, scope, _ = startup_on_card(torch, np, fluid, main, startup,
+                                        seed)
+        losses = [float(np.asarray(exe.run(
+            main, feed=batch, fetch_list=[fetches["loss"]],
+            scope=scope)[0]).reshape(-1)[0]) for _ in range(steps)]
+        ref[name] = {"losses": losses, "m1": {
+            k: v.cpu() for k, v in first_moments(main, scope).items()}}
+        if make_opt is None:
+            ref[name]["params"] = {p.name: scope.find_var(p.name).cpu()
+                                   for p in main.all_parameters()}
+        log(f"  h2 reference {name}: losses {losses}")
+        del exe, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.save(ref, ref_path + ".part")
+    os.replace(ref_path + ".part", ref_path)
+    log(f"  h2 references saved: {os.path.getsize(ref_path) / 1e9:.2f} GB "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return {k: {"losses": v["losses"]} for k, v in ref.items()}
+
+
+def _bit_sums(torch, params):
+    """Two sums of every parameter's int32 words (plain and squared,
+    wrapping), a cheap fingerprint of its bits that the ranks compare
+    every step."""
+    out = []
+    for t in params:
+        w = t.detach().contiguous().view(torch.int32).to(torch.int64)
+        out.append(torch.stack([w.sum(), (w * w).sum()]))
+    return torch.stack(out).cpu()
+
+
+def aux_reach(main):
+    """The parameters the switch-MoE load-balance loss reaches: the
+    router weight and every parameter upstream of the MoE layer's input
+    (a walk back over the forward ops)."""
+    from paddle_tpu_torch.core.framework import OpRole
+
+    fwd = [op for op in main.global_block().ops
+           if not int(op.attrs.get("op_role", 0))
+           & (OpRole.Backward | OpRole.Optimize)]
+    need = set()
+    for op in fwd:
+        if op.type == "switch_moe":
+            need.update(op.inputs["X"] + op.inputs["GateW"])
+    for op in reversed(fwd):
+        if any(o in need for outs in op.outputs.values() for o in outs):
+            need.update(i for ins in op.inputs.values() for i in ins)
+    return {p.name for p in main.all_parameters() if p.name in need}
+
+
+def h2_child(argv) -> int:
+    """One rank of h2's world of 2 on one card (gloo): (a) data
+    parallel, (b) ZeRO-1, (c) the MoE at ep 2 under psum and alltoall,
+    (d) DGC; results to ``<dir>/h2.rank<r>.json``."""
+    out_dir, seed = argv[0], int(argv[1])
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.parallel import comm
+    from paddle_tpu_torch.parallel.env import init_parallel_env
+    from paddle_tpu_torch.parallel.sharding import (layout,
+                                                    shard_optimizer_states)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = init_parallel_env()
+    rank, n = env.rank, env.world_size
+    fluid.set_flags({"optimizer_fuse": "auto"})
+    # written by the launching process while the ranks started; read
+    # lazily: a rank touches its own experts' slices only
+    wait_for_file(os.path.join(out_dir, "h2_ref.pt"), H2_TIMEOUT_S)
+    ref = torch.load(os.path.join(out_dir, "h2_ref.pt"), mmap=True)
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+
+    def same_across_ranks(sums):
+        parts = [torch.zeros_like(sums) for _ in range(n)]
+        torch.distributed.all_gather(parts, sums)
+        return all(torch.equal(parts[0], p) for p in parts[1:])
+
+    def run(cfg, make_prog, steps, rows, make_opt=None, fetch_enc=None,
+            bucket_mb="0", keep_first=False):
+        """``steps`` steps of ``make_prog``'s program on ``rows`` of the
+        batch: (numbers, main, scope, the first moments after the first
+        step when ``keep_first``)."""
+        batch = h2_batch(np, seed, cfg)
+        feed = {k: v[rows] for k, v in batch.items()}
+        main, startup, fetches = build_dp_lm(fluid, cfg, TRAIN_SEQ, H2_LR,
+                                             make_opt=make_opt,
+                                             bucket_mb=bucket_mb)
+        prog = make_prog(main, fetches["loss"])
+        main.random_seed = startup.random_seed = seed
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        # the replicated parameters (each rank holds its own experts)
+        params = [p for p in main.all_parameters()
+                  if not getattr(p, "_moe_expert_param", False)]
+        fetch = [fetches["loss"]] + ([fetch_enc(main)] if fetch_enc else [])
+        losses, ms, same, spars = [], [], [], []
+        m1_first = None
+        K.reset_launch_counts()
+        s0 = comm.STATS.snapshot()
+        for step in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            o = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope,
+                        return_numpy=False)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(o[0].reshape(-1)[0]))
+            if fetch_enc:
+                spars.append(float((o[1] == 0).float().mean()))
+            same.append(same_across_ranks(_bit_sums(
+                torch, [scope.find_var(p.name) for p in params])))
+            if keep_first and step == 0:
+                m1_first = {k: v.clone()
+                            for k, v in first_moments(main, scope).items()}
+        s1 = comm.STATS.snapshot()
+        moments = sum(scope.find_var(v.name).numel() * 4
+                      for v in main.global_block().vars.values()
+                      if getattr(v, "is_accumulator", False))
+        res = {"losses": losses, "step_ms": ms,
+               "step_ms_mean": statistics.mean(ms[1:]),
+               "replicas_same_each_step": same, "moment_bytes": moments,
+               "launches": K.launch_counts(),
+               "comm": {k: s1[k] - s0[k] for k in s1}}
+        if spars:
+            res["enc_zero_share"] = spars
+        return res, main, scope, m1_first
+
+    def local(want, got):
+        """The reference's value as this rank holds it: its E/ep experts
+        of an expert parameter (rank r holds [r * E/ep, (r + 1) * E/ep)),
+        on the card."""
+        if got.shape != want.shape:
+            e = got.shape[0]
+            want = want[rank * e:(rank + 1) * e]
+        return want.to(got.device)
+
+    def held_to(res, main, scope, r, m1):
+        """The parameters' largest gap to the reference ``r`` (when it
+        holds them), and the first moments' relative L2 error, the
+        largest among the parameters the load-balance loss reaches and
+        among the rest."""
+        if "params" in r:
+            worst, wn = 0.0, ""
+            for p in main.all_parameters():
+                got = scope.find_var(p.name)
+                d = float((got - local(r["params"][p.name], got)).abs().max())
+                if d > worst:
+                    worst, wn = d, p.name
+            res["param_max_abs_err"], res["param_worst"] = worst, wn
+        reach = aux_reach(main)
+        for part, names in (("exact", [k for k in m1 if k not in reach]),
+                            ("aux", [k for k in m1 if k in reach])):
+            rels = {k: rel_l2(m1[k], local(r["m1"][k], m1[k]))
+                    for k in names}
+            k = max(rels, key=rels.get) if rels else ""
+            res[f"grad_rel_{part}"] = rels.get(k, 0.0)
+            res[f"grad_worst_{part}"] = k
+
+    cfg = h2_config()
+    # (a) data parallel over the fp32 buckets: one row a rank
+    dp = lambda main, loss: fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name)
+    res, main, scope, _ = run(cfg, dp, H_STEPS, slice(rank, rank + 1),
+                              bucket_mb=H_BUCKET_MB)
+    res["buckets"] = len(main._collective_plan.buckets) \
+        if getattr(main, "_collective_plan", None) else 0
+    held_to(res, main, scope, ref["dense"], first_moments(main, scope))
+    kept = {v.name: scope.find_var(v.name).clone()
+            for v in main.global_block().vars.values()
+            if v.persistable and (getattr(v, "is_accumulator", False)
+                                  or v.name in {p.name for p in
+                                                main.all_parameters()})}
+    out["dp"] = res
+    del scope
+    # (b) ZeRO-1: the same steps with the moments cut in two; its
+    # parameters, and its chunk of every moment, equal to (a)'s
+    zero = lambda main, loss: (shard_optimizer_states(main, n),
+                               dp(main, loss))[1]
+    res, main, scope, _ = run(cfg, zero, H_STEPS, slice(rank, rank + 1),
+                              bucket_mb=H_BUCKET_MB)
+    chunks = layout(scope)
+    res["moments_sharded"] = sum(
+        1 for k in kept if k in chunks)
+    res["equal_to_dp"] = (res["losses"] == out["dp"]["losses"] and all(
+        torch.equal(scope.find_var(k),
+                    chunks[k].take(v) if k in chunks else v)
+        for k, v in kept.items()))
+    out["zero1"] = res
+    del scope, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the MoE. psum at ep 2: both ranks route all rows, held to the
+    # single-process run. alltoall at ep 2, a row a rank: held to the
+    # same world at ep 1 (dp 2: each rank all 8 experts, a row's
+    # capacity and the load-balance loss over both rows, as alltoall's,
+    # without the dispatch), whose first step is held to the gradient
+    # merge of the rows where the load-balance loss does not reach
+    mcfg = h2_config(moe=True)
+    row = slice(rank, rank + 1)
+
+    def ep(e, d):
+        return lambda main, loss: fluid.CompiledProgram(
+            main).with_expert_parallel(ep=e, dp=n // e, dispatch=d)
+
+    for key, make, rows in (
+            ("moe_psum", ep(n, "psum"), slice(0, TRAIN_BATCH)),
+            ("moe_dp", ep(1, "alltoall"), row),
+            ("moe_alltoall", ep(n, "alltoall"), row)):
+        res, main, scope, m1_first = run(mcfg, make, H2_MOE_STEPS, rows,
+                                         keep_first=key == "moe_dp")
+        m1 = first_moments(main, scope)
+        if key == "moe_psum":
+            held_to(res, main, scope, ref["moe"], m1)
+        elif key == "moe_dp":
+            held_to(res, main, scope, ref["moe_merge"], m1_first)
+            kept = {"m1": {k: v.clone() for k, v in m1.items()},
+                    "params": {p.name: scope.find_var(p.name).clone()
+                               for p in main.all_parameters()}}
+        else:
+            held_to(res, main, scope, kept, m1)
+            del kept
+        res["experts_held"] = [int(scope.find_var(p.name).shape[0])
+                               for p in main.all_parameters()
+                               if getattr(p, "_moe_expert_param", False)]
+        out[key] = res
+        del scope, m1, m1_first
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (d) DGC at sparsity 0.999, rampup from step 1
+    dgc_opt = lambda fl: fl.optimizer.DGCMomentumOptimizer(
+        H2_DGC_LR, momentum=0.9, rampup_begin_step=1, rampup_step=1,
+        sparsity=[0.999])
+    enc = lambda main: next(n_ for n_ in main.global_block().vars
+                            if n_.startswith("dec0_ffn1.w")
+                            and ".dgc_enc" in n_)
+    res, main, scope, _ = run(cfg, dp, H2_DGC_STEPS, slice(rank, rank + 1),
+                              make_opt=dgc_opt, fetch_enc=enc)
+    out["dgc"] = res
+    del scope
+    # (e)'s uninterrupted run, in this world
+    clean = os.path.join(out_dir, "clean")
+    os.makedirs(clean, exist_ok=True)
+    t0 = time.perf_counter()
+    elastic_run(clean, seed, "")
+    out["elastic_clean_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"h2.rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def h2_elastic_child(argv) -> int:
+    """One rank of h2 (e) in a world of its own: ``elastic_run`` with
+    ``argv[2]`` the fault spec of generation 0."""
+    elastic_run(argv[0], int(argv[1]), argv[2] if len(argv) > 2 else "")
+    return 0
+
+
+def elastic_run(out_dir, seed, fault):
+    """h2 (e): a data-parallel Supervisor run (a small GPT, commits
+    every 2 steps) whose losses go to ``<dir>/loss.g<gen>.r<rank>``;
+    ``fault`` fires in generation 0 only."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import resilience
+    from paddle_tpu_torch.distributed import coordinator
+    from paddle_tpu_torch.models.gpt import (GPTConfig, build_gpt_lm,
+                                             synthetic_lm_batch)
+
+    c = coordinator.initialize()
+    fluid.set_flags({"resilience_fault_spec": fault if c.restart_count == 0
+                     else ""})
+    cfg = GPTConfig.tiny()
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_gpt_lm(
+            cfg, 64, fluid.optimizer.AdamOptimizer(1e-3))
+    main.random_seed = startup.random_seed = seed
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    prog = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=fetches["loss"].name)
+
+    def feed(step):
+        b = synthetic_lm_batch(np.random.RandomState(seed + step), 2 * 4,
+                               64, cfg.vocab_size)
+        return {k: v[c.rank * 4:(c.rank + 1) * 4] for k, v in b.items()}
+
+    log_path = os.path.join(out_dir, f"loss.g{c.restart_count}.r{c.rank}")
+
+    def on_step(step, fetched):
+        with open(log_path, "a") as f:
+            f.write(json.dumps([step, float(np.asarray(fetched[0])
+                                            .reshape(-1)[0])]) + "\n")
+
+    ck = os.path.join(out_dir, "ck")
+    resilience.Supervisor(
+        exe, prog, ck, feed_fn=feed, fetch_list=[fetches["loss"]],
+        scope=scope, policy=resilience.CheckpointPolicy(
+            ck, every_steps=2, keep_last=3),
+        on_step=on_step).run_loop(H2_ELASTIC_STEPS)
+
+
+def launch_world(args, out_dir, timeout, restarts=0, meanwhile=None):
+    """``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2
+    --backend gloo chip_smoke.py <args>`` from the checkout, with
+    ``meanwhile()`` run in this process while the ranks start; returns
+    (exit code, stderr, seconds, what ``meanwhile`` returned). If
+    ``meanwhile`` raises, the launcher is told to stop the world."""
+    from paddle_tpu_torch.parallel.env import free_port
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node=2", "--backend=gloo",
+         f"--started_port={free_port()}", f"--max_restarts={restarts}",
+         "--kill_grace_s=10", f"--run_dir={os.path.join(out_dir, 'run')}",
+         os.path.abspath(__file__)] + list(args),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=root)
+    try:
+        got = meanwhile() if meanwhile else None
+        _, err = proc.communicate(timeout=timeout)
+    except BaseException:
+        # the launcher escalates SIGTERM to its ranks
+        proc.terminate()
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+        raise
+    return proc.returncode, err, time.perf_counter() - t0, got
+
+
+def wait_for_file(path, timeout_s):
+    """Wait until ``path`` exists (written elsewhere, then renamed into
+    place)."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout_s:
+            raise TimeoutError(f"{path} did not appear in {timeout_s} s")
+        time.sleep(0.2)
+
+
+def elastic_losses(out_dir, rank):
+    losses = {}
+    for gen in range(3):
+        p = os.path.join(out_dir, f"loss.g{gen}.r{rank}")
+        if os.path.exists(p):
+            for line in open(p):
+                step, val = json.loads(line)
+                losses[step] = val
+    return [losses[s] for s in sorted(losses)]
+
+
+def phase_h2(torch, np, seed, card, out_dir):
+    """h2: a world of 2 on the one card (gloo, both ranks on cuda:0)
+    through the launcher; this process runs the single-process
+    references and holds the ranks' results to them."""
+    h2_dir = os.path.abspath(os.path.join(out_dir, "h2"))
+    shutil.rmtree(h2_dir, ignore_errors=True)
+    os.makedirs(h2_dir)
+    try:
+        def references():
+            t0 = time.perf_counter()
+            ref = h2_reference(torch, np, seed, card,
+                               os.path.join(h2_dir, "h2_ref.pt"))
+            return ref, time.perf_counter() - t0
+
+        # the ranks start while this process makes the references
+        code, err, secs, (ref, ref_s) = launch_world(
+            ["--h2-child", h2_dir, str(seed)], h2_dir, H2_TIMEOUT_S,
+            meanwhile=references)
+        require(code == 0, f"h2's world exited {code}: {err[-3000:]}")
+        ranks = [json.load(open(os.path.join(h2_dir, f"h2.rank{r}.json")))
+                 for r in range(2)]
+        r0, r1 = ranks
+        rtol = CARD_VS_CPU_RTOL["gpt_flash"]
+
+        def rel(a, b):
+            return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+        for rk in ranks:
+            require(rk["backend"] == "gloo", "h2 world not over gloo")
+            for key in ("dp", "zero1", "moe_psum", "moe_dp", "moe_alltoall",
+                        "dgc"):
+                require(all(rk[key]["replicas_same_each_step"]),
+                        f"h2 {key}: the replicas differ")
+        # every reading of (a)-(c) is logged before any is held
+        holds = []
+
+        def hold(cond, msg):
+            holds.append((cond, msg))
+
+        a, b = r0["dp"], r0["zero1"]
+        e_dp = rel(a["losses"], ref["dense"]["losses"])
+        limit = 2 * H2_LR * H_STEPS
+        log(f"  (a) dp: losses {a['losses']} vs single {ref['dense']['losses']}"
+            f" (rel {e_dp:.3e}, rtol {rtol}); first moments within "
+            f"{a['grad_rel_exact']:.3e} ({a['grad_worst_exact']}; "
+            f"{H2_GRAD_RTOL:.0e}); params within {a['param_max_abs_err']:.3e}"
+            f" (2 * lr * steps = {limit:.1e}); {a['buckets']} buckets; mean "
+            f"of steps 2-{H_STEPS} {a['step_ms_mean']:.1f} ms; comm "
+            f"{a['comm']} [{card}]")
+        hold(e_dp <= rtol, f"h2 (a) losses {a['losses']} vs single "
+             f"{ref['dense']['losses']}: {e_dp:.3e}")
+        hold(a["grad_rel_exact"] <= H2_GRAD_RTOL,
+             f"h2 (a) {a['grad_worst_exact']}'s first moment off by "
+             f"{a['grad_rel_exact']:.3e}")
+        hold(a["param_max_abs_err"] <= limit,
+             f"h2 (a) {a['param_worst']} off by {a['param_max_abs_err']}")
+        hold(a["buckets"] >= 2, f"h2 (a) {a['buckets']} buckets")
+        log(f"  (b) zero1: losses, parameters and each rank's chunk of "
+            f"every moment ({b['moments_sharded']} sharded) equal to (a)'s "
+            f"bit for bit; moments a rank {b['moment_bytes'] / 1e9:.3f} GB "
+            f"against {a['moment_bytes'] / 1e9:.3f} GB; mean of steps "
+            f"2-{H_STEPS} {b['step_ms_mean']:.1f} ms; comm {b['comm']} "
+            f"[{card}]")
+        hold(all(rk["zero1"]["equal_to_dp"] for rk in ranks),
+             "h2 (b) ZeRO-1 is not (a) bit for bit")
+        hold(b["moments_sharded"] > 0 and
+             2 * b["moment_bytes"] <= a["moment_bytes"] + 2 ** 20,
+             f"h2 (b) a rank holds {b['moment_bytes']} moment bytes "
+             f"against {a['moment_bytes']}")
+        lim_c = 2 * H2_LR * H2_MOE_STEPS
+        for key, what, want in (
+                ("moe_psum", "the single-process run", ref["moe"]["losses"]),
+                ("moe_dp", "the rows' gradient merge",
+                 ref["moe_merge"]["losses"]),
+                ("moe_alltoall", "the world at ep 1", r0["moe_dp"]["losses"])):
+            ms = [rk[key] for rk in ranks]
+            m = ms[0]
+            e = rel(m["losses"][:len(want)], want)
+            g_exact = max(x["grad_rel_exact"] for x in ms)
+            g_aux = max(x["grad_rel_aux"] for x in ms)
+            # the merge's load-balance loss is a row's (h2_reference):
+            # the world at ep 1 is held to its first loss and to its
+            # first moments where that loss does not reach
+            g = g_exact if key == "moe_dp" else max(g_exact, g_aux)
+            held = ([x == 8 for rk in ms for x in rk["experts_held"]]
+                    if key == "moe_dp" else
+                    [x == 4 for rk in ms for x in rk["experts_held"]])
+            log(f"  (c) {key}: losses {m['losses']} vs {what}'s {want} "
+                f"(rel {e:.3e}); first moments after the "
+                + ("first" if key == "moe_dp" else "last")
+                + f" step within {g_exact:.3e} where the load-balance loss "
+                f"does not reach ({m['grad_worst_exact']}) and {g_aux:.3e} "
+                f"where it does ({m['grad_worst_aux']})"
+                + ("" if key == "moe_dp" else
+                   f"; params within {m['param_max_abs_err']:.3e} "
+                   f"({lim_c:.1e})")
+                + f"; experts a rank {m['experts_held'][0]} of 8; mean of "
+                f"steps 2-{H2_MOE_STEPS} {m['step_ms_mean']:.1f} ms; comm "
+                f"{m['comm']} [{card}]")
+            hold(e <= rtol, f"h2 (c) {key}: losses {m['losses']} vs "
+                 f"{want}: {e:.3e}")
+            hold(g <= H2_GRAD_RTOL,
+                 f"h2 (c) {key}: first moments off by {g:.3e}")
+            if key != "moe_dp":
+                hold(m["param_max_abs_err"] <= lim_c,
+                     f"h2 (c) {key}: {m['param_worst']} off by "
+                     f"{m['param_max_abs_err']}")
+            hold(all(held), f"h2 (c) {key}: experts held "
+                 f"{m['experts_held']}")
+        for cond, msg in holds:
+            require(cond, msg)
+        g = r0["dgc"]
+        require(all(np.isfinite(g["losses"])) and
+                g["losses"][-1] < g["losses"][0],
+                f"h2 (d) DGC losses {g['losses']}")
+        log(f"  (d) dgc: losses {g['losses']}, dec0_ffn1.w's encoded zeros "
+            f"{g['enc_zero_share']}; replicas equal every step; mean of "
+            f"steps 2-{H2_DGC_STEPS} {g['step_ms_mean']:.1f} ms [{card}]")
+        # (e) elastic: the world above ran it uninterrupted; a world of
+        # its own is killed on rank 1 at step 5 and restarted
+        d = os.path.join(h2_dir, "killed")
+        os.makedirs(d)
+        code, err, esecs, _ = launch_world(
+            ["--h2-elastic", d, str(seed), "r1:kill@5"], d, 300, 1)
+        require(code == 0, f"h2 (e) exited {code}: {err[-3000:]}")
+        require("world completed after 1 restart(s)" in err,
+                "h2 (e): the launcher did not restart the world")
+        for r in range(2):
+            clean = elastic_losses(os.path.join(h2_dir, "clean"), r)
+            killed = elastic_losses(d, r)
+            require(len(clean) == len(killed) == H2_ELASTIC_STEPS
+                    and clean == killed,
+                    f"h2 (e) rank {r}: {killed} != {clean}")
+        log(f"  (e) elastic: r1:kill@5, commits every 2 steps, the launcher "
+            f"restarted the world; {H2_ELASTIC_STEPS} losses equal the "
+            f"uninterrupted run's bit for bit ({r0['elastic_clean_s']:.1f} s "
+            f"uninterrupted, {esecs:.1f} s killed and resumed)")
+        log(f"  h2: references {ref_s:.1f} s, world {secs:.1f} s [{card}]")
+        paths = {"h2_dp": r0["dp"]["launches"],
+                 "h2_zero1": r0["zero1"]["launches"],
+                 "h2_moe_psum": r0["moe_psum"]["launches"],
+                 "h2_moe_dp": r0["moe_dp"]["launches"],
+                 "h2_moe_alltoall": r0["moe_alltoall"]["launches"],
+                 "h2_dgc": r0["dgc"]["launches"]}
+        return paths, {"ranks": ranks, "reference": ref,
+                       "world_s": secs, "reference_s": ref_s,
+                       "elastic_killed_s": esecs}
+    finally:
+        shutil.rmtree(h2_dir, ignore_errors=True)
+
+
+def phase_h(torch, np, seed, card, out_dir, record):
+    t0 = time.perf_counter()
+    log("phase h1: gpt3_1p3b data-parallel through fleet, a world of 1 "
+        "over NCCL")
+    paths, out = {}, {}
+    p1, out["h1"] = phase_h1(torch, np, seed, card, out_dir,
+                             record.get("train_flash"))
+    paths.update(p1)
+    torch.cuda.empty_cache()
+    log("phase h2: a world of 2 on one card over gloo")
+    p2, out["h2"] = phase_h2(torch, np, seed, card, out_dir)
+    paths.update(p2)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase h took {out['seconds']:.1f} s")
+    return paths, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7028,9 +7830,9 @@ def main(argv=None) -> int:
         record["card_vs_cpu"]["two_lane"] = card_vs_cpu_two_lane(torch, np,
                                                                  args.seed)
         torch.cuda.empty_cache()
-        log("phase 5: a 2-layer gpt3_1p3b-width switch-MoE GPT (8 experts a "
-            "layer), one Lookahead(Adam) step at k 1 with an EMA, card "
-            "against CPU")
+        log(f"phase 5: a 2-layer gpt3_1p3b-width switch-MoE GPT "
+            f"({MOE_CHECK_EXPERTS} experts a layer), one Lookahead(Adam) "
+            "step at k 1 with an EMA, card against CPU")
         record["card_vs_cpu"]["moe_lookahead_ema"] = card_vs_cpu_moe(
             torch, np, args.seed)
         torch.cuda.empty_cache()
@@ -7132,14 +7934,19 @@ def main(argv=None) -> int:
                                             args.out, args.profile)
         paths.update(gpaths)
         torch.cuda.empty_cache()
-    launches = {name: {p: c[name] for p, c in paths.items()}
+    if "h" in args.phases:
+        hpaths, record["phase_h"] = phase_h(torch, np, args.seed, card,
+                                            args.out, record)
+        paths.update(hpaths)
+        torch.cuda.empty_cache()
+    launches = {name: {p: c.get(name, 0) for p, c in paths.items()}
                 for name in K.KERNELS}
     record["launches"] = launches
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f and g)")
+        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g and h)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"
@@ -7227,6 +8034,10 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--c2-child"]:
             sys.exit(c2_child(sys.argv[2:]))
+        if sys.argv[1:2] == ["--h2-child"]:
+            sys.exit(h2_child(sys.argv[2:]))
+        if sys.argv[1:2] == ["--h2-elastic"]:
+            sys.exit(h2_elastic_child(sys.argv[2:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)

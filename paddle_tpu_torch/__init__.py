@@ -146,10 +146,28 @@ Ported so far:
       with fluid.profiler.profiler(profile_path="trace_dir"):
           exe.train_from_dataset(main, dataset, thread=4)
 
+* distribution over ``torch.distributed`` (one process a device,
+  ``nccl`` on the card, ``gloo`` on the CPU or for ranks sharing one
+  GPU): ``CompiledProgram`` with ``with_data_parallel``,
+  ``with_partitioning`` (``partition``: the rules partitioner, ZeRO 1
+  and 3, the bucketed and int8 gradient all-reduce of
+  ``parallel.collectives``) and ``with_expert_parallel`` (the MoE's
+  ``psum`` and ``alltoall`` dispatch), the collective ops and
+  transpilers (``transpiler.GradAllReduce``, ``LocalSGD``), ``fleet``,
+  the coordinator and the elastic launcher (``distributed``), and
+  ``DGCMomentumOptimizer``;
+
+      # python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2 \
+      #     --backend gloo train.py
+      from paddle_tpu_torch.parallel import fleet
+      fleet.init(fleet.PaddleCloudRoleMaker())
+      fleet.distributed_optimizer(fluid.optimizer.Adam(1e-3)).minimize(loss)
+      exe.run(fleet.main_program, feed=local_batch, fetch_list=[loss])
+
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
-ported yet (ROADMAP A): distribution (A10: meshes, expert parallelism,
-DGC and pipeline optimizers) and the long tail (A11: ``StaticRNN`` /
-``DynamicRNN``, HDFS, autotune and the rest).
+ported yet (ROADMAP A): tensor, sequence and pipeline parallelism
+(A10b) and the long tail (A11: ``StaticRNN`` / ``DynamicRNN``, HDFS,
+autotune and the rest).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of
@@ -159,8 +177,11 @@ falling back.
 from . import (average, clip, contrib, io, layers,  # noqa: F401
                metrics, nets,
                ops,  # ops: the lowerings
-               optimizer, profiler, regularizer, resilience)
+               optimizer, parallel, partition, profiler, regularizer,
+               resilience, transpiler)
 from .core import framework
+from .core.compiler import (BuildStrategy, CompiledProgram,
+                            ExecutionStrategy, ParallelExecutor)
 from .core.backward import append_backward
 from .core.executor import Executor, Scope, global_scope, scope_guard
 from .core.framework import (Program, Variable, default_main_program,
@@ -184,4 +205,6 @@ __all__ = ["resolve_device", "clip", "contrib", "io", "layers", "nets",
            "scope_guard", "Program", "Variable", "default_main_program",
            "default_startup_program", "program_guard", "unique_name",
            "CPUPlace", "CUDAPlace", "get_flags",
-           "set_flags", "ParamAttr"]
+           "set_flags", "ParamAttr", "parallel", "partition", "transpiler",
+           "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
+           "ParallelExecutor"]

@@ -11,8 +11,11 @@ the reference's: ``Executor.bind`` resolves a ``BoundStep``
 fetch list, scope), ``Executor.run`` goes through it, and
 ``cache_stats()`` counts ``bound_hits`` / ``bound_misses``. A bound
 Program step runs eagerly; the generation engine's fixed-shape steps
-replay as CUDA graphs (``runtime/graphs.py``). There is no mesh and no
-persistent cache of executables.
+replay as CUDA graphs (``runtime/graphs.py``). ``run`` and ``bind``
+take a ``CompiledProgram`` (``core/compiler.py``) too: its mesh and
+specs join the bind key, and its bound step runs the world side
+(``runtime/dist_step.py``). There is no persistent cache of
+executables.
 
 What an eager run needs that a compiled one gets from XLA, worked out
 once per (program, version, feeds, fetches) in ``_Plan``:
@@ -359,6 +362,26 @@ class _Plan:
         return out
 
 
+def _check_transpiled(program: Program) -> None:
+    """A program the collective transpiler rewrote for N > 1 trainers
+    runs only in a world: run by one process its ``c_allreduce_sum``
+    ops would be identities while the transpiler's ``1/nranks`` scale
+    still ran, shrinking every gradient
+    (``paddle_tpu/core/executor.py:1043-1056``)."""
+    plan = getattr(program, "_dist_plan", None)
+    if (plan is None or plan.get("mode") != "collective"
+            or int(plan.get("trainers", 1) or 1) <= 1):
+        return
+    from ..parallel.mesh import world_group
+
+    if world_group() is None:
+        raise RuntimeError(
+            f"program was transpiled for {plan.get('trainers')} collective "
+            "trainers but this run has one process and no world — launch "
+            "it through paddle_tpu_torch.distributed.launch "
+            "(torch.distributed)")
+
+
 class Executor:
     """Reference API: ``Executor(place).run(program, feed, fetch_list,
     scope)``. The place defaults to ``CUDAPlace(0)``, which raises when
@@ -423,16 +446,26 @@ class Executor:
         scope = scope or global_scope()
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
+        compiled = None
+        if not isinstance(program, Program):
+            # a CompiledProgram: its program, and its mesh and specs in
+            # the key (``_dispatch_fragment``)
+            compiled, program = program, program.program
+        _check_transpiled(program)
         block = program.global_block()
+        plan = getattr(program, "_collective_plan", None)
         key = (program.uid, program.version, len(block.ops),
                program.random_seed, self._feed_signature(feed),
-               tuple(fetch_names), scope.uid, flags.generation())
+               tuple(fetch_names), scope.uid, flags.generation(),
+               compiled._dispatch_fragment() if compiled is not None
+               else None,
+               plan.fingerprint() if plan is not None else None)
         with self._lock:
             return self._bind_locked(program, feed, key, block, scope,
-                                     fetch_names, tag)
+                                     fetch_names, tag, compiled)
 
     def _bind_locked(self, program, feed, key, block, scope, fetch_names,
-                     tag):
+                     tag, compiled=None):
         from ..runtime.dispatch import BoundStep
 
         bound = self._bound.get(key)
@@ -446,7 +479,7 @@ class Executor:
             bound = BoundStep(self, self._plan(program, feed_names,
                                                fetch_names),
                               block, scope, program.random_seed or 0,
-                              feed_names, fetch_names)
+                              feed_names, fetch_names, compiled=compiled)
             profiler.record_compile(tag or f"program_{program.uid}",
                                     time.perf_counter() - t0)
             self._bound[key] = bound

@@ -63,12 +63,17 @@ class LoweringContext:
     are live. ``tape``: the forward records of this run, by op_ident.
     ``constants``: a cache the Executor keeps across runs for values
     built from op attrs (``constant``). ``fold``: the microbatch of a
-    gradient-merge step (None outside one)."""
+    gradient-merge step (None outside one). ``dist``: the bound step's
+    ``runtime.dist_step.DistStep`` in a data- or expert-parallel step
+    (None otherwise); ``pending``: reductions started and not yet
+    waited on, by name; ``salt``: the rank's data shard, mixed into
+    every op's seed so that shards draw their own dropout masks (None
+    with one shard)."""
 
     def __init__(self, device, seed: int = 0, step: int = 0,
                  live: Optional[set] = None,
                  constants: Optional[Dict[int, Any]] = None,
-                 fold: Optional[int] = None):
+                 fold: Optional[int] = None, dist=None):
         self.device = torch.device(device)
         self.seed = int(seed)
         self.step = int(step)
@@ -76,16 +81,21 @@ class LoweringContext:
         self.live = live
         self.tape: Dict[int, Any] = {}
         self.constants = constants if constants is not None else {}
+        self.dist = dist
+        self.pending: Dict[str, Any] = {}
+        self.salt = dist.salt if dist is not None else None
 
     def op_generator(self, op) -> torch.Generator:
         """A fresh generator for this op in this run, seeded from (run
         seed, step, op_ident). Grad ops reuse the forward's ident."""
         ident = int(op.attrs.get("op_ident", 0) or 0)
         gen = torch.Generator(device=self.device)
-        if self.fold is None:
-            gen.manual_seed(_mix(self.seed, self.step, ident))
-        else:
-            gen.manual_seed(_mix(self.seed, self.step, ident, self.fold))
+        vals = [self.seed, self.step, ident]
+        if self.fold is not None:
+            vals.append(self.fold)
+        if self.salt is not None:
+            vals += [-1, self.salt]
+        gen.manual_seed(_mix(*vals))
         return gen
 
     def wants(self, op, slot: str) -> bool:

@@ -77,7 +77,16 @@ def _keep(t):
 def _run_hogwild(executor, program, dataset, scope, fetch_list, fetch_info,
                  print_period, n_threads):
     from .core.executor import Executor
+    from .parallel.mesh import world_group
 
+    if getattr(program, "_mesh", None) is not None and \
+            world_group() is not None:
+        # the threads' steps would call the world's collectives in no
+        # agreed order: every rank must call them in the same one
+        raise NotImplementedError(
+            "train_from_dataset(thread > 1) over a CompiledProgram in a "
+            "world: Hogwild threads cannot share the world's collectives; "
+            "use thread=1 (one step a batch) or a plain program")
     exe = getattr(executor, "_hogwild_exe", None)
     if exe is None:
         exe = Executor(executor.place)

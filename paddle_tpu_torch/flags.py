@@ -4,7 +4,9 @@ A copy of the matching entries of ``paddle_tpu/flags.py`` (the
 generation, quantize and adapter defaults of :60-147, spec and radix
 ones included, the serving defaults of :54-57, the data-tier defaults
 of :41-47 and :326-329, the ``disagg_*``, ``traffic_*``,
-``observability_*`` and ``slo_*`` defaults of :216-312) and of its
+``observability_*`` and ``slo_*`` defaults of :216-312, the
+``partition_*``, ``collective_*`` and ``dist_*`` ones of :166-197 and
+:265-275) and of its
 ``FLAGS_<name>`` environment overrides read at import (``_coerce``, the
 pinned set, :337-366) and ``get_flags`` / ``set_flags`` / ``flag`` /
 ``generation`` (:368-395). ``set_flags`` bumps the generation, which
@@ -177,6 +179,25 @@ DEFAULTS = {
     # stage-ready handshake, rank 0's wait for every shard-done file and
     # the other ranks' wait for the commit marker
     "dist_commit_timeout_s": 120.0,
+    # the default timeout of Coordinator.barrier() and host_allreduce()
+    # (a dead peer turns into BarrierTimeout after it)
+    "dist_barrier_timeout_s": 300.0,
+    # partition/ defaults, read by PartitionConfig(): the mesh shape
+    # ("dp=4,tp=2"; "" = none), the logical->mesh rules table ("" =
+    # partition.DEFAULT_RULES) and the ZeRO level (0, 1 or 3)
+    "partition_mesh": "",
+    "partition_rules": "",
+    "partition_zero": 0,
+    # parallel/collectives.py, the gradient-collective planner: when
+    # collective_bucket_mb > 0 or collective_quantization != "none",
+    # Optimizer.apply_gradients and CompiledProgram.with_partitioning
+    # bucket the data-parallel gradient all-reduce (cap in MB, or the
+    # per-axis "dp=32,dcn=8" form) and may swap a bucket's fp32 mean
+    # for the blockwise-int8 exchange of collective_quant_block elements
+    # a scale
+    "collective_bucket_mb": "0",
+    "collective_quantization": "none",
+    "collective_quant_block": 256,
     # observability_metrics turns on the per-step telemetry (wall time,
     # examples/s) of bound steps, the traffic estimator's input;
     # observability_tracing turns span call sites into trace-id/span-id

@@ -29,8 +29,8 @@ the reference:
   ``quantized_fc`` / ``quantized_matmul`` ops, K11 on the card) and
   ``quantize_report`` says what was quantized and why anything stayed
   float.
-* ``enable_partitioning`` raises: sharding a predictor over a mesh is
-  ROADMAP A10.
+* ``enable_partitioning`` raises: sharding a predictor over a
+  tensor-parallel mesh is ROADMAP A10b.
 
 A directory holding a ``build_lm_program`` GPT also gets ``pred.lm``
 (the ``GPTLM`` module the generation engine steps and the
@@ -131,8 +131,8 @@ class Config:
     def enable_partitioning(self, config=None, **kwargs):
         raise NotImplementedError(
             "Config.enable_partitioning (a predictor sharded over a device "
-            "mesh) is not ported to paddle_tpu_torch yet: ROADMAP queue A10 "
-            "(distribution)")
+            "mesh) is not ported to paddle_tpu_torch yet: ROADMAP queue A10b "
+            "(tensor parallelism)")
 
     def enable_weight_quantization(self, mode: str = "int8") -> "Config":
         """Quantize every eligible matmul weight once at load: ``mode``

@@ -572,14 +572,21 @@ def _parse_index_key(key):
 
 
 def _save_checkpoint_multihost(path, arrays, extra, rank, world,
-                               publish_path=None, timeout_s=None, nonce=None):
-    """Every rank writes the values it owns (whole values, round-robin
-    by position over the ranks: every array is whole until ROADMAP A10)
-    into its own ``__shards__.rank<k>.npz``, then the two-phase commit
-    publishes the marker (``paddle_tpu/io.py:543-643``). ``arrays``
-    maps names to tensors or numpy arrays. ``path`` must be on a
-    filesystem every rank shares."""
+                               publish_path=None, timeout_s=None, nonce=None,
+                               shards=None):
+    """Every rank writes the values it owns into its own
+    ``__shards__.rank<k>.npz``, then the two-phase commit publishes the
+    marker (``paddle_tpu/io.py:543-643``). A whole value is written by
+    one rank, round-robin by position; a value this rank holds as a
+    chunk (``shards``: {name: ``parallel.sharding.Shard``}, ZeRO or
+    expert-parallel state) is written by the chunk's writer under the
+    offset key ``name@lo-hi;...``, and the meta records its whole shape
+    and dtype, so a load assembles it for any world. ``arrays`` maps
+    names to tensors or numpy arrays. ``path`` must be on a filesystem
+    every rank shares."""
     from .resilience.faults import check_save_kill
+
+    shards = shards or {}
 
     timeout_s = (float(flag("dist_commit_timeout_s"))
                  if timeout_s is None else float(timeout_s))
@@ -623,6 +630,19 @@ def _save_checkpoint_multihost(path, arrays, extra, rank, world,
 
     mine, meta_vars = {}, {}
     for i, name in enumerate(sorted(arrays)):
+        sh = shards.get(name)
+        if sh is not None:
+            val = arrays[name]
+            val = (to_numpy(val) if isinstance(val, torch.Tensor)
+                   else np.asarray(val))
+            if sh.writer:
+                lo, hi = sh.bounds()
+                idx = ";".join(f"{lo}-{hi}" if d == sh.dim else f"0-{n}"
+                               for d, n in enumerate(sh.shape))
+                mine[f"{name}@{idx}"] = val
+            meta_vars[name] = {"shape": [int(d) for d in sh.shape],
+                               "dtype": str(val.dtype), "sharded": True}
+            continue
         if i % world == rank:
             val = arrays[name]
             mine[name] = (to_numpy(val) if isinstance(val, torch.Tensor)
@@ -732,7 +752,10 @@ def save_checkpoint(dirname, main_program=None, scope=None, step=None,
     the sync point); ``publish_path`` names where the directory will be
     renamed after commit, so the other ranks find the marker there too.
     Returns None for a synchronous save."""
-    main_program = main_program or framework.default_main_program()
+    from .parallel.sharding import layout
+
+    main_program = getattr(main_program, "program", main_program) \
+        or framework.default_main_program()
     scope = scope or global_scope()
     arrays = {}
     for v in _persistable_vars(main_program):
@@ -745,15 +768,18 @@ def save_checkpoint(dirname, main_program=None, scope=None, step=None,
         path = os.path.join(path, str(int(step)))
     rank, world = _dist_info()
     extra = dict(extra or {})
+    shards = {n: sh for n, sh in layout(scope).items()
+              if n in arrays and tuple(arrays[n].shape) != sh.shape}
     if not async_save or world > 1:
         _save_checkpoint_multihost(path, arrays, extra, rank, world,
-                                   publish_path=publish_path)
+                                   publish_path=publish_path, shards=shards)
         return None
     errors: list = []
 
     def commit():
         try:
-            _save_checkpoint_multihost(path, arrays, extra, rank, world)
+            _save_checkpoint_multihost(path, arrays, extra, rank, world,
+                                       shards=shards)
         except BaseException as e:  # noqa: BLE001 — re-raised at the wait
             errors.append(e)
 
@@ -777,7 +803,10 @@ def load_checkpoint(dirname, main_program=None, scope=None, step=None,
     ``mesh`` (a mapping of axis to size, or an object with ``.shape``)
     asks for the strict topology check: when the marker records the
     mesh that produced the trajectory and it differs, the load refuses
-    naming both shapes. Without ``mesh`` the load is elastic."""
+    naming both shapes. Without ``mesh`` the load is elastic: chunked
+    state (ZeRO, expert-parallel) comes back whole, and the next data-
+    or expert-parallel step cuts this rank's chunks for the world and
+    mesh it runs in, whatever world saved them."""
     main_program = main_program or framework.default_main_program()
     scope = scope or global_scope()
     path = os.path.abspath(dirname)
@@ -799,6 +828,11 @@ def load_checkpoint(dirname, main_program=None, scope=None, step=None,
                 "(mesh=...) restore. Resume on the matching topology, or "
                 "load without mesh= for an elastic restore")
     state = load_checkpoint_arrays(path)
+    from .parallel.sharding import clear_layout
+
+    # whole values from here: the next data- or expert-parallel step cuts
+    # its chunks of them for the world it runs in
+    clear_layout(scope, list(state))
     block = main_program.global_block()
     fallback = None
     for name, val in state.items():

@@ -52,7 +52,8 @@ def switch_moe(input, num_experts, expert_hidden, capacity_factor=1.25,
     b2 = helper.create_parameter(
         _slot(helper.bias_attr, "b2"), [e, d], input.dtype, is_bias=True,
         default_initializer=ConstantInitializer(0.0))
-    # the tag the JAX package's expert parallelism shards by (A10)
+    # the tag expert parallelism shards by
+    # (CompiledProgram.with_expert_parallel)
     for v in (w1, b1, w2, b2):
         v._moe_expert_param = True
     out = _out(helper, input, shape=input.shape)

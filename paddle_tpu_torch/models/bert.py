@@ -7,8 +7,8 @@ same program as the JAX package (``bert.py:32-229``).
 Attention is the fused ``flash_attention`` op with the [B, S] key mask
 (``use_flash_attention``) or the op-graph
 ``nets.scaled_dot_product_attention`` with ``padding_mask``. Megatron
-sharding (``apply_megatron_sharding``) is distribution work, not ported
-(ROADMAP A10).
+sharding (``apply_megatron_sharding``) is tensor parallelism, not
+ported (ROADMAP A10b).
 """
 
 from __future__ import annotations

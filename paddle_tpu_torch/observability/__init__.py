@@ -25,9 +25,10 @@ Flags: ``observability_metrics``, ``observability_tracing``,
 ``observability_fleet_timeout_s`` and the ``slo_*`` family. The data
 tiers register too: every ``reader.GeneratorLoader``
 (``watch_loader``, ``paddle_reader_*``) and the pipelined step
-(``overlap_telemetry``, ``paddle_step_overlap_*``). Not ported:
-``watch_partition``, ``watch_collectives`` and ``watch_coordinator``
-(A10).
+(``overlap_telemetry``, ``paddle_step_overlap_*``), and so does
+distribution: ``watch_partition`` (``paddle_partition_*``),
+``watch_collectives`` (``paddle_collective_*``) and
+``watch_coordinator`` (``paddle_dist_*``).
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ from .flight import install_signal_handlers
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
                        overlap_telemetry, step_telemetry, watch_adapters,
                        watch_disagg, watch_engine, watch_executor,
-                       watch_generation, watch_loader, watch_serving,
-                       watch_supervisor, watch_traffic)
+                       watch_collectives, watch_coordinator,
+                       watch_generation, watch_loader, watch_partition,
+                       watch_serving, watch_supervisor, watch_traffic)
 from .registry import registry as get_registry
 from .tracing import SpanContext, attach, current, span, traced
 
@@ -54,7 +56,8 @@ __all__ = [
     "flight_dump", "install_signal_handlers",
     "watch_serving", "watch_engine", "watch_executor", "watch_supervisor",
     "watch_generation", "watch_traffic", "watch_disagg", "watch_adapters",
-    "watch_loader", "step_telemetry", "overlap_telemetry", "snapshot",
+    "watch_loader", "watch_partition", "watch_collectives",
+    "watch_coordinator", "step_telemetry", "overlap_telemetry", "snapshot",
     "to_prometheus_text",
 ]
 

@@ -20,12 +20,15 @@ dashboards and the fleet merge key on them.
 
 The data tiers export ``paddle_reader_*{loader=}`` (``watch_loader``:
 every live ``reader.GeneratorLoader``) and ``paddle_step_overlap_*``
-(``overlap_telemetry``: the pipelined step's hidden feed time). Not
-ported (their families are absent from the scrape):
-``watch_partition`` (``paddle_partition_*{resolve=}``),
-``watch_collectives`` (``paddle_collective_*{plan=}``) and
-``watch_coordinator`` (``paddle_dist_*{coord=}``) with distribution,
-ROADMAP A10. The port keeps no process-wide compile cache, so the JAX
+(``overlap_telemetry``: the pipelined step's hidden feed time).
+Distribution registers three families: ``watch_partition``
+(``paddle_partition_*{resolve=}``: every live
+``partition.ResolvedPartition``), ``watch_collectives``
+(``paddle_collective_*{plan=}``: every ``parallel.collectives.
+CollectivePlan``, and the comm layer's own calls, bytes and blocked
+seconds as one more plan) and ``watch_coordinator``
+(``paddle_dist_*{coord=}``: every ``distributed.Coordinator``). The
+port keeps no process-wide compile cache, so the JAX
 package's ``paddle_dispatch_*`` family has no counterpart.
 """
 
@@ -42,7 +45,8 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "registry",
     "watch_serving", "watch_engine", "watch_executor", "watch_supervisor",
     "watch_generation", "watch_traffic", "watch_disagg", "watch_adapters",
-    "watch_loader", "step_telemetry", "overlap_telemetry",
+    "watch_loader", "watch_partition", "watch_collectives",
+    "watch_coordinator", "step_telemetry", "overlap_telemetry",
 ]
 
 VERSION = "0.1.0"       # paddle_tpu/version.py full_version
@@ -303,6 +307,9 @@ _traffic: "weakref.WeakSet" = weakref.WeakSet()
 _disagg: "weakref.WeakSet" = weakref.WeakSet()
 _adapters: "weakref.WeakSet" = weakref.WeakSet()
 _loaders: "weakref.WeakSet" = weakref.WeakSet()
+_partitions: "weakref.WeakSet" = weakref.WeakSet()
+_collectives: "weakref.WeakSet" = weakref.WeakSet()
+_coordinators: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def watch_serving(metrics) -> None:
@@ -384,6 +391,34 @@ def watch_traffic(controller) -> None:
     _traffic.add(controller)
 
 
+def watch_partition(resolved) -> None:
+    """Called by partition.ResolvedPartition.__init__: each live resolve
+    exports as the ``paddle_partition_*{resolve=}`` family: the mesh
+    shape (one ``_mesh_<axis>`` gauge an axis), sharded against
+    replicated state bytes, and the var counts of each kind."""
+    _obs_id(resolved)
+    _partitions.add(resolved)
+
+
+def watch_collectives(plan) -> None:
+    """Called by parallel.collectives.CollectivePlan.__init__ (and once
+    for the comm layer's counters): each live plan exports as the
+    ``paddle_collective_*{plan=}`` family: bucket count and size, the
+    wire-byte model (fp32 against quantized, bytes saved a step) and
+    the measured gauges set on it."""
+    _obs_id(plan)
+    _collectives.add(plan)
+
+
+def watch_coordinator(coord) -> None:
+    """Called by distributed.Coordinator.__init__: the world's health
+    becomes the ``paddle_dist_*{coord=}`` family: world size, rank,
+    restart count, live ranks and the oldest heartbeat, and the barrier
+    counters with their cumulative wait."""
+    _obs_id(coord)
+    _coordinators.add(coord)
+
+
 def _flatten(prefix: str, d: Dict[str, Any], out: Dict[str, float]) -> None:
     for k, v in d.items():
         if isinstance(v, dict):
@@ -444,6 +479,27 @@ def _collect_supervisors():
                     lambda s: {k: v for k, v in s.stats().items()
                                if isinstance(v, (int, float, bool))
                                and v is not None})
+
+
+def _collect_partition():
+    def snap(rp):
+        d = dict(rp.summary)
+        d["mesh_devices"] = int(rp.mesh.devices.size)
+        d["mesh"] = {str(k): int(v) for k, v in rp.mesh_axes().items()}
+        d["zero"] = int(rp.config.zero)
+        return d
+
+    return _labeled(_partitions, "resolve", "paddle_partition", snap)
+
+
+def _collect_collectives():
+    return _labeled(_collectives, "plan", "paddle_collective",
+                    lambda p: p.snapshot())
+
+
+def _collect_dist():
+    return _labeled(_coordinators, "coord", "paddle_dist",
+                    lambda c: c.stats_numeric())
 
 
 def _collect_loaders():
@@ -523,7 +579,10 @@ for _name, _fn in (
     ("executor", _collect_executors),
     ("resilience", _collect_supervisors),
     ("generation", _collect_generation),
+    ("partition", _collect_partition),
+    ("collective", _collect_collectives),
     ("traffic", _collect_traffic),
+    ("dist", _collect_dist),
     ("disagg", _collect_disagg),
     ("adapter", _collect_adapters),
     ("reader", _collect_loaders),

@@ -19,9 +19,26 @@ where JAX scatter-adds into the slots: the gather's gradient is the
 gather the other way, so neither direction adds floats in an order the
 card chooses. Gradients come from autograd through the Executor's tape.
 
-Expert parallelism (the ``ep`` mesh axis, its psum and all-to-all
-dispatch, ``paddle_tpu/ops/moe.py:74-210``) is ROADMAP A10: an ``ep``
-mesh on the lowering context is refused.
+Expert parallelism (``CompiledProgram.with_expert_parallel``, the
+JAX package's :74-210): each rank holds ``E/ep`` experts and the
+lowering reads the bound step's ``moe`` context
+(``runtime/dist_step.py``).
+
+* ``psum``: the ranks of one ``dp`` index hold the same tokens; each
+  routes them all, computes only its own experts' slots, and a sum over
+  ``ep`` combines the outputs (``comm.reduce_from``). The tokens and
+  the gate enter the experts through ``comm.copy_to`` (a sum over
+  ``ep`` backward), since every rank's share of the output depends on
+  them.
+* ``alltoall``: every rank holds its own tokens; its dispatch buffer
+  [E * cap, D] is one block of ``E/ep * cap`` slots a destination rank,
+  one ``all_to_all`` over ``ep`` hands each rank the tokens routed to
+  its experts, and a second returns the outputs. Capacity is per
+  (source rank, expert), from the rank's own token count.
+
+The router statistics are summed over the ranks holding different
+tokens (``dp``; ``dp`` and ``ep`` under ``alltoall``) with a sum
+backward, so the load-balance loss is the global one.
 """
 
 from __future__ import annotations
@@ -31,7 +48,7 @@ import torch.nn.functional as F
 
 from ..core.registry import register_op
 
-__all__ = ["switch_moe", "moe_capacity", "route"]
+__all__ = ["switch_moe", "switch_moe_ep", "moe_capacity", "route"]
 
 
 def moe_capacity(tokens: int, capacity_factor: float, experts: int) -> int:
@@ -104,24 +121,105 @@ def _ep_axis(ctx) -> int:
     return int(dict(shape).get("ep", 1))
 
 
+def _local_slots(slot_token, token_slot, first: int, count: int):
+    """The slot <-> token maps restricted to slots [first, first + count)
+    (a rank's experts): slot indices shifted to start at 0, a token whose
+    slot lies elsewhere mapped to the sentinel ``count``."""
+    st = slot_token[first:first + count]
+    ts = token_slot - first
+    ts = torch.where((ts >= 0) & (ts < count), ts, torch.full_like(ts, count))
+    return st, ts
+
+
+def _experts(disp, w1, b1, w2, b2, act):
+    h = torch.bmm(disp, w1) + b1[:, None, :]
+    h = F.gelu(h, approximate="tanh") if act == "gelu" else F.relu(h)
+    return torch.bmm(h, w2) + b2[:, None, :]
+
+
+def _aux(expert, probs, E, T, group):
+    """The load-balance loss over the ranks of ``group`` (their token
+    counts and router probabilities summed, the probabilities with a
+    sum backward)."""
+    from ..parallel import comm
+
+    count_e = F.one_hot(expert, E).to(probs.dtype).sum(0)
+    prob_e = probs.sum(0)
+    n = comm.group_size(group)
+    if group is not None:
+        comm.all_reduce(count_e, group=group)
+        prob_e = comm.all_reduce_sum(prob_e, group)
+    t_total = torch.tensor(float(T * n), dtype=probs.dtype,
+                           device=probs.device)
+    return E * torch.sum((count_e / t_total) * (prob_e / t_total))
+
+
+def switch_moe_ep(x2, wg, w1, b1, w2, b2, cap_factor: float, act, moe):
+    """Expert-parallel switch MoE on this rank's tokens ``x2`` [T, D]
+    with its ``E/ep`` experts ``w1`` [E/ep, D, F] ...: (out [T, D],
+    aux []). See the module docstring for the two dispatches."""
+    from ..parallel import comm
+
+    T, D = x2.shape
+    E = wg.shape[1]
+    e_local = w1.shape[0]
+    if e_local * moe.ep != E:
+        raise ValueError(f"switch_moe: the ep mesh axis ({moe.ep}) must "
+                         f"divide num_experts ({E})")
+    cap = moe_capacity(T, cap_factor, E)
+    probs = torch.softmax(x2 @ wg, dim=-1)
+    expert, keep, slot_token, token_slot = route(probs.detach(), cap)
+    gate = probs.gather(1, expert[:, None])[:, 0]
+    if moe.dispatch == "alltoall":
+        disp = _Gather.apply(x2, slot_token, token_slot)       # [E*cap, D]
+        recv = comm.all_to_all_autograd(disp, moe.ep_group)
+        # [source, e_local, cap, D] -> [e_local, source * cap, D]
+        h_in = (recv.reshape(moe.ep, e_local, cap, D).transpose(0, 1)
+                .reshape(e_local, moe.ep * cap, D))
+        y = _experts(h_in, w1, b1, w2, b2, act)
+        y = (y.reshape(e_local, moe.ep, cap, D).transpose(0, 1)
+             .reshape(E * cap, D))
+        back = comm.all_to_all_autograd(y, moe.ep_group)
+        out = (_Gather.apply(back, token_slot, slot_token)
+               * (gate * keep.to(gate.dtype))[:, None])
+    else:
+        first = moe.ep_index * e_local * cap
+        st, ts = _local_slots(slot_token, token_slot, first, e_local * cap)
+        xin = comm.copy_to(x2, moe.ep_group)
+        disp = _Gather.apply(xin, st, ts).reshape(e_local, cap, D)
+        y = _experts(disp, w1, b1, w2, b2, act)
+        mine = keep & (ts < e_local * cap)
+        g = comm.copy_to(gate, moe.ep_group)
+        part = (_Gather.apply(y.reshape(e_local * cap, D), ts, st)
+                * (g * mine.to(g.dtype))[:, None])
+        out = comm.reduce_from(part, moe.ep_group)
+    return out, _aux(expert, probs, E, T, moe.token_group)
+
+
 @register_op(
     "switch_moe",
     inputs=("X", "GateW", "ExpertW1", "ExpertB1", "ExpertW2", "ExpertB2"),
     outputs=("Out", "AuxLoss"),
 )
 def _switch_moe(ctx, op, ins):
-    if _ep_axis(ctx) > 1:
+    moe = ctx.dist.moe if getattr(ctx, "dist", None) is not None else None
+    if moe is None and _ep_axis(ctx) > 1:
         raise NotImplementedError(
-            "switch_moe over an 'ep' mesh axis (expert parallelism, its psum "
-            "and all-to-all dispatch) is not ported to paddle_tpu_torch yet "
-            "(ROADMAP A10)")
+            "switch_moe: an 'ep' mesh on a bare lowering context; expert "
+            "parallelism runs in a world through "
+            "CompiledProgram.with_expert_parallel (ROADMAP A10a)")
     x = ins["X"][0]
     w1 = ins["ExpertW1"][0]
     D = x.shape[-1]
     x2 = x.reshape(-1, D)
-    cap = moe_capacity(x2.shape[0], op.attrs.get("capacity_factor", 1.25),
-                       int(w1.shape[0]))
+    cap_factor = op.attrs.get("capacity_factor", 1.25)
+    act = op.attrs.get("act", "gelu")
+    if moe is not None:
+        out, aux = switch_moe_ep(x2, ins["GateW"][0], w1, ins["ExpertB1"][0],
+                                 ins["ExpertW2"][0], ins["ExpertB2"][0],
+                                 float(cap_factor), act, moe)
+        return {"Out": [out.reshape(x.shape)], "AuxLoss": [aux.reshape(1)]}
+    cap = moe_capacity(x2.shape[0], cap_factor, int(w1.shape[0]))
     out, aux = switch_moe(x2, ins["GateW"][0], w1, ins["ExpertB1"][0],
-                          ins["ExpertW2"][0], ins["ExpertB2"][0], cap,
-                          op.attrs.get("act", "gelu"))
+                          ins["ExpertW2"][0], ins["ExpertB2"][0], cap, act)
     return {"Out": [out.reshape(x.shape)], "AuxLoss": [aux.reshape(1)]}

@@ -128,7 +128,7 @@ def _flash_attention_op(ctx, op, ins):
     kernels. mask_type "binary" maps 1 / 0 to 0 / NEG_INF, "additive"
     adds the values as they are; under AMP the mask arrives as bfloat16.
     The sequence-parallel (ring / Ulysses) and mesh-wrapped routes of
-    the reference are distribution work, not ported (ROADMAP A10)."""
+    the reference are distribution work, not ported (ROADMAP A10b)."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     h = int(op.attrs["num_heads"])
     causal = bool(op.attrs.get("causal", False))

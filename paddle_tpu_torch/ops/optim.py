@@ -28,6 +28,7 @@ by a tensor) through a reciprocal, where JAX divides."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.registry import register_op
@@ -416,3 +417,110 @@ def _proximal_adagrad(ctx, op, ins):
     m_new = m + g * g
     prox = p - (lr / torch.sqrt(m_new)) * g
     return {"ParamOut": [_proximal(prox, lr, op)], "MomentOut": [m_new]}
+
+
+# -- deep gradient compression (``paddle_tpu/ops/optim.py:407-549``) ---------
+
+
+def _quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile``'s default (linear) interpolation of the values
+    of ``x`` at ``q``: the order statistics at floor and ceil of
+    ``q * (n - 1)`` (in float32, as JAX computes it), weighted by its
+    fraction. One ``topk`` from the nearer end finds both, where
+    ``torch.quantile`` stops at 2^24 values."""
+    flat = x.reshape(-1).float()
+    n = flat.numel()
+    pos = np.float32(q) * np.float32(n - 1)
+    lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+    w = float(pos - np.float32(lo))
+    if n - lo <= hi + 1:
+        vals = torch.topk(flat, n - lo, largest=True, sorted=True).values
+        v_lo, v_hi = vals[n - lo - 1], vals[n - hi - 1]
+    else:
+        vals = torch.topk(flat, hi + 1, largest=False, sorted=True).values
+        v_lo, v_hi = vals[lo], vals[hi]
+    return v_lo * (1.0 - w) + v_hi * w
+
+
+@register_op("dgc", inputs=("U", "V", "Grad", "CurrentStep"),
+             outputs=("UOut", "VOut", "EncodeGrad"), stop_gradient=True)
+def _dgc(ctx, op, ins):
+    """Deep gradient compression (reference operators/dgc_op.cc):
+    momentum correction u = m*u + g, residual v = v + u, the top
+    ``sparsity`` share of |v| by a quantile threshold shipped as the
+    encoded gradient (dense, zeros elsewhere), the rest kept locally.
+    Before ``rampup_begin_step`` it is dense momentum: the corrected
+    value ships, u keeps accumulating, no residual."""
+    u, v, g = ins["U"][0], ins["V"][0], ins["Grad"][0]
+    step = ins["CurrentStep"][0].reshape(()).float()
+    m = float(op.attrs.get("m", 0.9))
+    begin = float(op.attrs.get("rampup_begin_step", 0.0))
+    rampup = float(op.attrs.get("rampup_step", 1.0))
+    sparsity = [float(s) for s in op.attrs.get("sparsity", [0.999])]
+    nstages = len(sparsity)
+    use_nesterov = bool(op.attrs.get("use_nesterov", False))
+
+    u_new = m * u + g
+    grad_for_v = (g + m * u_new) if use_nesterov else u_new
+    v_new = v + grad_for_v
+    pre = bool(step.item() < begin)
+    if pre:
+        return {"UOut": [u_new], "VOut": [torch.zeros_like(v_new)],
+                "EncodeGrad": [grad_for_v]}
+    stage = int(torch.clamp(
+        ((step - begin) * nstages / max(rampup, 1.0)).to(torch.int32),
+        0, nstages - 1).item())
+    thresh = _quantile(v_new.abs(), sparsity[stage])
+    sel = v_new.abs() >= thresh
+    zero = torch.zeros_like(v_new)
+    return {"UOut": [torch.where(sel, zero, u_new)],
+            "VOut": [torch.where(sel, zero, v_new)],
+            "EncodeGrad": [torch.where(sel, v_new, zero)]}
+
+
+@register_op("dgc_momentum",
+             inputs=("Param", "Grad", "Velocity", "LearningRate",
+                     "current_step", "nranks"),
+             outputs=("ParamOut", "VelocityOut", "Grad_out"),
+             no_grad=("LearningRate", "current_step", "nranks"),
+             stop_gradient=True)
+def _dgc_momentum(ctx, op, ins):
+    """Reference optimizers/dgc_momentum_op.h: momentum while
+    current_step < rampup_begin_step, plain SGD after; both on the raw
+    gradient, and ``Grad_out`` is always grad / nranks."""
+    p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
+    lr = _lr(ins)
+    step = float(ins["current_step"][0].reshape(()).item())
+    nranks = (ins["nranks"][0].reshape(()).float()
+              if ins.get("nranks") else torch.ones((), device=g.device))
+    mu = float(op.attrs.get("mu", 0.9))
+    use_nesterov = bool(op.attrs.get("use_nesterov", False))
+    rampup = float(op.attrs.get("rampup_begin_step", 0.0))
+    if int(rampup) < 0:
+        return {"ParamOut": [p], "VelocityOut": [v], "Grad_out": [g]}
+    if step < rampup:
+        v_new = mu * v + g
+        p_new = ((p - lr * (g + mu * v_new)) if use_nesterov
+                 else (p - lr * v_new))
+    else:
+        v_new = v
+        p_new = p - lr * g
+    return {"ParamOut": [p_new], "VelocityOut": [v_new],
+            "Grad_out": [g / nranks]}
+
+
+@register_op("dgc_clip_by_norm", inputs=("X", "current_step"),
+             outputs=("Out",), no_grad=("current_step",),
+             stop_gradient=True)
+def _dgc_clip_by_norm(ctx, op, ins):
+    """Reference dgc_clip_by_norm_op.cc: clip by norm only once past the
+    rampup."""
+    x = ins["X"][0]
+    step = float(ins["current_step"][0].reshape(()).item())
+    rampup = float(op.attrs.get("rampup_begin_step", 0.0))
+    if step < rampup:
+        return {"Out": [x]}
+    max_norm = float(op.attrs.get("max_norm", 1.0))
+    norm = torch.sqrt(torch.sum(x * x))
+    mx = torch.full((), max_norm, dtype=x.dtype, device=x.device)
+    return {"Out": [x * (mx / torch.maximum(norm, mx))]}

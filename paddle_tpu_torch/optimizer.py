@@ -28,9 +28,16 @@ them every k steps in-graph; ``GradientMergeOptimizer`` marks the
 Program, and the Executor's bound step runs it as k microbatches and
 one update (``runtime/dispatch.py``).
 
-Not ported yet, refused by name with the ROADMAP item that holds each
-(``_NOT_PORTED``): ``DGCMomentumOptimizer`` and ``PipelineOptimizer``
-(A10), and the dygraph path.
+``DGCMomentumOptimizer`` (:404-470) is momentum with deep gradient
+compression: the ``dgc`` op sparsifies the momentum-corrected residual
+and plain ``sgd`` applies it; under data parallelism the gradient it
+reads is already the cross-replica mean. ``apply_gradients`` plans the
+gradient collectives when the ``collective_*`` flags ask
+(``parallel.collectives.ensure_planned``, as the reference's seam at
+:215-221 does).
+
+Not ported yet, refused by name with the ROADMAP item that holds it
+(``_NOT_PORTED``): ``PipelineOptimizer`` (A10b), and the dygraph path.
 """
 
 from __future__ import annotations
@@ -65,14 +72,13 @@ __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
            "AdadeltaOptimizer", "RMSProp", "RMSPropOptimizer", "Ftrl",
            "FtrlOptimizer", "Lamb", "LambOptimizer",
            "ExponentialMovingAverage", "ModelAverage", "RecomputeOptimizer",
-           "LookaheadOptimizer", "GradientMergeOptimizer"]
+           "LookaheadOptimizer", "GradientMergeOptimizer",
+           "DGCMomentumOptimizer"]
 
 # the reference's meta-optimizers (paddle_tpu/optimizer.py __all__)
 # still to port, refused by name with what each waits for
 _NOT_PORTED = {
-    "DGCMomentumOptimizer": "ROADMAP A10: its sparsified gradient rides "
-                            "the data-parallel collectives",
-    "PipelineOptimizer": "ROADMAP A10: pipeline parallelism",
+    "PipelineOptimizer": "ROADMAP A10b: pipeline parallelism",
 }
 
 
@@ -185,6 +191,9 @@ class Optimizer:
 
     def apply_gradients(self, params_grads) -> List:
         params_grads = sorted(params_grads, key=lambda pg: pg[0].name)
+        # the raw backward grads, before clip and regularization rewrite
+        # them: the collective planner buckets exactly these
+        raw_params_grads = list(params_grads)
         # fused one-pass update: a global-norm clip with nothing else
         # rewriting the grads folds into the fused ops' ClipScale (the
         # norm reduction stays ops; the per-grad multiply moves inside
@@ -221,6 +230,14 @@ class Optimizer:
                 op.attrs["op_role"] = OpRole.Optimize
                 opt_ops.append(op)
         self._finish_update(block, params_grads)
+        # flag-gated (collective_bucket_mb / collective_quantization):
+        # bucket the data-parallel gradient all-reduce and repoint the
+        # clip, regularization and optimizer ops at the reduced values;
+        # a no-op with the flags off
+        from .parallel.collectives import ensure_planned
+
+        ensure_planned(default_main_program(),
+                       params_grads=raw_params_grads)
         default_main_program()._bump()
         return opt_ops
 
@@ -282,6 +299,70 @@ class MomentumOptimizer(Optimizer):
             outputs={"ParamOut": [p], "VelocityOut": [v]},
             attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
         )
+
+
+class DGCMomentumOptimizer(MomentumOptimizer):
+    """Reference optimizer.py:1042, the JAX package's :404-470: momentum
+    with deep gradient compression. Each parameter keeps U (the
+    momentum-corrected accumulator) and V (the local residual); each
+    step the ``dgc`` op ships the top share of |V| (``sparsity``, per
+    rampup stage) as the gradient and keeps the rest, and the update is
+    plain ``sgd`` on it. Before ``rampup_begin_step`` the gradient
+    passes dense (momentum)."""
+
+    type = "dgc_momentum"
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step=0,
+                 rampup_step=1, sparsity=(0.999,), use_nesterov=False,
+                 **kw):
+        super().__init__(learning_rate, momentum, use_nesterov, **kw)
+        self._rampup_begin_step = rampup_begin_step
+        self._rampup_step = rampup_step
+        self._sparsity = list(sparsity)
+        self._dgc_step_var = None
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("dgc_u", p)
+            self._add_accumulator("dgc_v", p)
+        if self._dgc_step_var is None:
+            from .layers.tensor import create_global_var
+
+            self._dgc_step_var = create_global_var(
+                [1], 0.0, "float32", persistable=True,
+                name=unique_name.generate("dgc_step"))
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        u = self._get_accumulator("dgc_u", p)
+        v = self._get_accumulator("dgc_v", p)
+        enc = block.create_var(
+            name=unique_name.generate(f"{p.name}.dgc_enc"),
+            shape=p.shape, dtype=p.dtype, stop_gradient=True)
+        block.append_op(
+            type="dgc",
+            inputs={"U": [u], "V": [v], "Grad": [g],
+                    "CurrentStep": [self._dgc_step_var]},
+            outputs={"UOut": [u], "VOut": [v], "EncodeGrad": [enc]},
+            attrs={"m": float(self._momentum),
+                   "use_nesterov": self._use_nesterov,
+                   "rampup_begin_step": float(self._rampup_begin_step),
+                   "rampup_step": float(self._rampup_step),
+                   "sparsity": self._sparsity,
+                   "op_role": OpRole.Optimize})
+        return block.append_op(
+            type="sgd",
+            inputs={"Param": [p], "Grad": [enc],
+                    "LearningRate": [self._create_param_lr(p)]},
+            outputs={"ParamOut": [p]},
+            attrs={"op_role": OpRole.Optimize})
+
+    def _finish_update(self, block, params_grads):
+        block.append_op(
+            type="increment",
+            inputs={"X": [self._dgc_step_var]},
+            outputs={"Out": [self._dgc_step_var]},
+            attrs={"step": 1.0, "op_role": OpRole.Optimize})
 
 
 class AdamOptimizer(Optimizer):
@@ -881,8 +962,13 @@ class GradientMergeOptimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        out = self.inner_optimizer.minimize(loss, startup_program,
-                                            parameter_list, no_grad_set)
+        from .parallel.collectives import suppress_planning
+
+        # the merge loop owns the gradient flow: the flag-gated planner
+        # must not bucket it (the reference's :1188-1191)
+        with suppress_planning():
+            out = self.inner_optimizer.minimize(loss, startup_program,
+                                                parameter_list, no_grad_set)
         program = loss.block.program
         program._gradient_merge_k = self.k_steps
         program._gradient_merge_avg = self.avg

@@ -1,0 +1,11 @@
+"""Distributed training over ``torch.distributed``: the world
+(``env``), meshes and rings (``mesh``), the collective layer (``comm``),
+the gradient-collective planner (``collectives``), ZeRO
+(``sharding``) and the fleet API (``fleet``). The port's counterpart of
+``paddle_tpu/parallel``; tensor, sequence and pipeline parallelism are
+ROADMAP A10b.
+"""
+
+from .env import ParallelEnv, get_rank, get_world_size, init_parallel_env
+from .mesh import MeshContext, get_mesh, mesh_guard, ring_registry
+from . import collectives, comm, fleet, sharding  # noqa: E402

@@ -34,7 +34,7 @@ Opt-in is the ``quantize_weights`` flag ("off" | "int8" | "int8_block"
 | "fp8"), read at Predictor construction
 (``Config.enable_weight_quantization`` overrides it per instance) and by
 the GenerationEngine (``quantize_weights=``). The partition tags the
-JAX rewrite stamps onto the quantized vars belong to ROADMAP A10.
+JAX rewrite stamps onto the quantized vars belong to ROADMAP A10b.
 
 ``calibrate`` (``paddle_tpu/quantize/__init__.py:362``) puts one
 ``moving_average_abs_max_scale`` observer (``ops/quant.py``) on the X

@@ -56,8 +56,11 @@ The counters export through the metrics registry
 ``reader.GeneratorLoader`` as ``data`` resumes through its
 ``set_resume_position`` (the marker's ``reader_position``: the step
 count, never the loader's prefetched position); a plain iterable is
-fast-forwarded by consuming it. The pre-save barrier of a distributed
-world is ROADMAP A10.
+fast-forwarded by consuming it. In a world of several processes every
+rank meets at the ``resilience/pre_save`` barrier of the coordinator
+before any shard is written (5 s for the SIGTERM flush), and a
+``BarrierTimeout`` escaping the loop exits with ``RESTART_EXIT_CODE``,
+which the elastic launcher reads as "restart the world".
 """
 
 from __future__ import annotations
@@ -313,6 +316,21 @@ class Supervisor:
 
     # -- checkpointing ------------------------------------------------------
     def _save(self, completed_steps: int, reason: str) -> str:
+        # every rank reaches this save point before any shard write
+        # starts: a peer that died mid-step becomes one bounded
+        # BarrierTimeout here instead of a commit timeout later; the
+        # SIGTERM flush gets a short bound, so a dead peer fails it
+        # before the launcher's SIGKILL grace runs out
+        from ..distributed.coordinator import get_coordinator
+
+        coord = get_coordinator()
+        if coord is not None and coord.is_distributed:
+            from ..flags import flag
+
+            timeout = float(flag("dist_barrier_timeout_s"))
+            if reason == "preempt":
+                timeout = min(timeout, 5.0)
+            coord.barrier("resilience/pre_save", timeout_s=timeout)
         extra = {
             "run_counter": int(self.exe._run_counter),
             "random_seed": int(getattr(self._main, "random_seed", 0) or 0),
@@ -562,10 +580,13 @@ class Supervisor:
                         # on the last committed checkpoint instead of
                         # stalling into the launcher's SIGKILL
                         from .. import io as _io
+                        from ..distributed.coordinator import \
+                            BarrierTimeout
 
                         try:
                             self._save(step, reason="preempt")
-                        except _io.CheckpointCommitTimeout as e:
+                        except (BarrierTimeout,
+                                _io.CheckpointCommitTimeout) as e:
                             self._stats["preempt_flush_failed"] = True
                             flight.note(
                                 "event", what="preempt_flush_failed",
@@ -630,10 +651,12 @@ class Supervisor:
             # elastic launcher treats as "re-form the world and
             # auto-resume" instead of an arbitrary traceback status
             from .. import io as _io
+            from ..distributed.coordinator import BarrierTimeout
 
             _, world = _io._dist_info()
             if world > 1 and isinstance(
-                    e, (WatchdogTimeout, _io.CheckpointCommitTimeout)):
+                    e, (WatchdogTimeout, BarrierTimeout,
+                        _io.CheckpointCommitTimeout)):
                 raise SystemExit(RESTART_EXIT_CODE) from e
             raise
         finally:

@@ -62,6 +62,7 @@ from ..flags import _flags
 from ..kernels import _build
 from ..observability import tracing
 from ..observability.registry import overlap_telemetry
+from .dist_step import finish as finish_reduce
 from .prefetch import DeviceStager, claim, host_tensor
 
 __all__ = ["BoundStep", "scope_chain_generation", "feed_signature",
@@ -173,11 +174,11 @@ class BoundStep:
 
     __slots__ = ("executor", "plan", "block", "scope", "seed", "tag",
                  "feed_plan", "fetch_names", "state_vals", "state_pos",
-                 "scope_gen", "merge", "__weakref__")
+                 "scope_gen", "merge", "dist", "__weakref__")
 
     def __init__(self, executor, plan: _Plan, block: Block, scope, seed: int,
                  feed_names: Sequence[str], fetch_names: Sequence[str],
-                 tag: Optional[str] = None):
+                 tag: Optional[str] = None, compiled=None):
         self.executor = executor
         self.plan = plan
         self.block = block
@@ -199,6 +200,20 @@ class BoundStep:
                                  bool(getattr(block.program,
                                               "_gradient_merge_avg", True)))
                       if k > 1 else None)
+        # a CompiledProgram's world side (runtime/dist_step.py); None
+        # when nothing crosses a process
+        self.dist = None
+        if compiled is not None and compiled._mesh is not None:
+            from .dist_step import DistStep
+
+            ds = DistStep(compiled, plan, block, self.fetch_names)
+            if ds.active:
+                if self.merge is not None:
+                    raise NotImplementedError(
+                        "gradient merge inside a data- or expert-parallel "
+                        "step is not ported to paddle_tpu_torch yet "
+                        "(ROADMAP A10b)")
+                self.dist = ds
 
     # -- state resolution ---------------------------------------------------
     def _resolve_state(self):
@@ -244,6 +259,10 @@ class BoundStep:
     def _run_ordered(self, ordered: List[torch.Tensor], return_numpy: bool,
                      rows: int, t_obs: float):
         scope, plan = self.scope, self.plan
+        dist = self.dist
+        if dist is not None:
+            dist.check_fetches()
+            dist.prepare_scope(scope)
         entry_gen = scope_chain_generation(scope)
         if entry_gen != self.scope_gen:
             self._resolve_state()
@@ -251,6 +270,8 @@ class BoundStep:
         env: Dict[str, Any] = {n: t for (n, _), t in zip(self.feed_plan,
                                                          ordered)}
         env.update(zip(plan.state_names, self.state_vals))
+        if dist is not None:
+            dist.gather_params(env)
 
         ex = self.executor
         step = ex._next_step()
@@ -258,7 +279,8 @@ class BoundStep:
             env = self.merge.run(self, env, step)
         else:
             ctx = LoweringContext(ex.device, seed=self.seed, step=step,
-                                  live=plan.live, constants=ex._constants)
+                                  live=plan.live, constants=ex._constants,
+                                  dist=dist)
             run_plan(plan, env, ctx)
         wrote = False
         sv = scope.vars
@@ -281,6 +303,8 @@ class BoundStep:
             if n not in env:
                 raise KeyError(f"fetch var {n!r} was never produced")
             fetched.append(env[n])
+        if dist is not None:
+            fetched = dist.finish_fetches(fetched, self.fetch_names)
         out = [to_numpy(v) for v in fetched] if return_numpy else fetched
         if _flags["observability_metrics"]:
             # the host-side step cadence (no device sync, as in the JAX
@@ -421,8 +445,14 @@ def run_plan(plan: _Plan, env: Dict[str, Any], ctx: LoweringContext) -> None:
     automatic grad op recorded on the tape, control-flow ops through
     their lowering, each value dropped after its last reader. The tape
     must be empty at the end."""
+    dist = ctx.dist
     with torch.no_grad():
         for i, (op, opdef) in enumerate(zip(plan.ops, plan.defs)):
+            if ctx.pending:
+                for _, names in plan.reads[i]:
+                    for n in names:
+                        if n in ctx.pending:
+                            finish_reduce(ctx, n)
             if opdef is None:
                 plan.control[i][0](ctx, op, env)
             else:
@@ -442,6 +472,8 @@ def run_plan(plan: _Plan, env: Dict[str, Any], ctx: LoweringContext) -> None:
                 elif not opdef.auto_grad and ident in plan.record:
                     outs = run_recorded(ctx, opdef, op, ins,
                                         plan.record[ident])
+                elif dist is not None and i in dist.opt_hooks:
+                    outs = dist.run_opt(i, op, opdef, ctx, ins)
                 else:
                     outs = opdef.lower(ctx, op, ins)
                 for slot, names in op.outputs.items():
@@ -449,8 +481,12 @@ def run_plan(plan: _Plan, env: Dict[str, Any], ctx: LoweringContext) -> None:
                     for j, n in enumerate(names):
                         if j < len(vals):
                             env[n] = vals[j]
+            if dist is not None and i in dist.reduce_after:
+                dist.after_op(i, env, ctx)
             for n in plan.free_after[i]:
                 env.pop(n, None)
+    for n in list(ctx.pending):
+        finish_reduce(ctx, n)
     if ctx.tape:
         raise RuntimeError(
             f"{len(ctx.tape)} forward record(s) were never consumed by "

@@ -2053,3 +2053,176 @@ def test_native_parser_builds_on_the_card_machine(cuda, tmp_path):
     rows = list(datafeed.parse_file(str(p), 2, ["float32", "int64"]))
     assert [list(r[0]) for r in rows] == [[1.5, 2.5], [3.0, 4.0]]
     assert [int(r[1][0]) for r in rows] == [7, 9]
+
+
+# -- distribution: worlds on the card -------------------------------------------
+
+_DIST_WORKER = '''
+import json, os, sys
+import numpy as np
+import torch
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch.core.registry import get_op_def
+from paddle_tpu_torch.kernels.quant import quantized_mean
+from paddle_tpu_torch.parallel import comm
+from paddle_tpu_torch.parallel.env import init_parallel_env
+from paddle_tpu_torch.parallel.mesh import world_group
+
+env = init_parallel_env()
+r, n = env.rank, env.world_size
+g = world_group()
+dev = torch.device("cuda", 0)
+out = {"backend": torch.distributed.get_backend(), "world": n}
+
+
+def mlp():
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", [64])
+        y = fluid.layers.data("y", [1], dtype="int64")
+        h = fluid.layers.fc(x, 128, act="relu")
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.fc(h, 8), y))
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def train(compiled, planned):
+    fluid.set_flags({"collective_bucket_mb": "0.01" if planned else "0"})
+    try:
+        main, startup, loss = mlp()
+    finally:
+        fluid.set_flags({"collective_bucket_mb": "0"})
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    prog = (fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name) if compiled else main)
+    rng = np.random.RandomState(0)
+    ls = []
+    for _ in range(3):
+        x = rng.randn(32, 64).astype("float32")
+        y = rng.randint(0, 8, (32, 1)).astype("int64")
+        k = 32 // n
+        feed = {"x": x[r * k:(r + 1) * k], "y": y[r * k:(r + 1) * k]}
+        ls.append(float(np.asarray(exe.run(
+            prog, feed=feed, fetch_list=[loss], scope=scope)[0]).reshape(-1)[0]))
+    return ls, {p.name: scope.find_var(p.name).cpu().numpy().tolist()
+                for p in main.all_parameters()}
+
+
+if n == 1:
+    t = torch.randn(1000, device=dev)
+    c = t.clone()
+    comm.all_reduce(c, group=g)
+    out["all_reduce_same_bits"] = bool(torch.equal(c, t))
+    out["plain"] = train(False, False)
+    out["bucketed"] = train(True, True)
+else:
+    rng = np.random.RandomState(100 + r)
+    xs = [np.random.RandomState(100 + k).randn(8, 6).astype("float32")
+          for k in range(n)]
+    x = torch.from_numpy(xs[r]).to(dev)
+    checks = {}
+    for op, fn in (("sum", np.sum), ("max", np.max), ("min", np.min)):
+        y = x.clone()
+        comm.all_reduce(y, op=op, group=g)
+        checks[f"all_reduce_{op}"] = bool(np.array_equal(
+            y.cpu().numpy(), fn(np.stack(xs), axis=0)))
+    y = comm.broadcast(x.clone(), 1, g)
+    checks["broadcast"] = bool(np.array_equal(y.cpu().numpy(), xs[1]))
+    comm.STATS.reset()
+    checks["all_gather"] = bool(np.array_equal(
+        comm.all_gather(x, g).cpu().numpy(), np.concatenate(xs)))
+    checks["reduce_scatter"] = bool(np.allclose(
+        comm.reduce_scatter(x, g).cpu().numpy(),
+        np.split(np.sum(np.stack(xs), 0), n)[r], rtol=1e-6, atol=1e-6))
+    checks["all_to_all"] = bool(np.array_equal(
+        comm.all_to_all(x, g).cpu().numpy(),
+        np.concatenate([np.split(xk, n)[r] for xk in xs])))
+    out["comm"] = comm.STATS.snapshot()
+    q = torch.from_numpy(np.concatenate(xs).reshape(n, -1)[r].copy()).to(dev)
+    a = quantized_mean(q, g, 16, exchange=True).cpu().numpy()
+    b = quantized_mean(q, g, 16, exchange=False).cpu().numpy()
+    ref = np.concatenate(xs).reshape(n, -1).mean(0)
+    checks["quantized_mean"] = bool(np.allclose(a, b, atol=1e-5) and
+                                    np.abs(a - ref).max() < 0.1)
+    out["checks"] = checks
+    # the bucket op's reduced gradient is read only after its wait
+    seen = []
+    for t_ in ("adam", "fused_adam"):
+        d = get_op_def(t_)
+        orig = d.lower
+
+        def wrapped(ctx, op, ins, _orig=orig):
+            seen.append([nm for nm in op.inputs.get("Grad", [])
+                         if nm in ctx.pending])
+            return _orig(ctx, op, ins)
+
+        d.lower = wrapped
+    out["unplanned"] = train(True, False)
+    out["planned"] = train(True, True)
+    out["read_pending"] = [s for s in seen if s]
+    out["optimizer_ops_seen"] = len(seen)
+with open(os.path.join(sys.argv[1], f"rank{r}.json"), "w") as f:
+    json.dump(out, f)
+'''
+
+
+def _launch_world(tmp_path, nproc, backend):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from paddle_tpu_torch.parallel.env import free_port
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = tmp_path / "dist_worker.py"
+    worker.write_text(_DIST_WORKER)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         f"--nproc_per_node={nproc}", f"--backend={backend}",
+         f"--started_port={free_port()}", f"--run_dir={tmp_path / 'run'}",
+         str(worker), str(tmp_path)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=root)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in range(nproc)]
+
+
+def test_nccl_world_of_one_keeps_the_bits(cuda, tmp_path):
+    (r0,) = _launch_world(tmp_path, 1, "nccl")
+    assert r0["backend"] == "nccl" and r0["world"] == 1
+    assert r0["all_reduce_same_bits"]
+    # the bucketed data-parallel step at one rank is the plain step
+    assert r0["bucketed"] == r0["plain"]
+
+
+@pytest.fixture(scope="module")
+def gloo_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return _launch_world(tmp_path_factory.mktemp("gloo2"), 2, "gloo")
+
+
+def test_gloo_world_of_two_on_one_card_comm_layer(cuda, gloo_world):
+    for rk in gloo_world:
+        assert rk["backend"] == "gloo"
+        assert all(rk["checks"].values()), rk["checks"]
+        # gloo's own all_gather, reduce_scatter and all_to_all on the
+        # CUDA tensors, each counted once with the bytes it was handed
+        assert rk["comm"]["comm_calls_total"] == 3
+        assert rk["comm"]["comm_bytes_total"] == (2 + 1 + 1) * 8 * 6 * 4
+
+
+def test_async_bucket_reduce_is_read_only_after_its_wait(cuda, gloo_world):
+    for rk in gloo_world:
+        assert rk["optimizer_ops_seen"] > 0
+        assert rk["read_pending"] == []
+        assert rk["planned"][0] == rk["unplanned"][0]
+        assert rk["planned"][1] == rk["unplanned"][1]
+    assert gloo_world[0]["planned"][1] == gloo_world[1]["planned"][1]

@@ -161,7 +161,22 @@ def test_port_package_imports_no_jax_or_paddle_tpu():
                 "paddle_tpu_torch.tools_timeline",
                 "paddle_tpu_torch.metrics",
                 "paddle_tpu_torch.average",
-                "paddle_tpu_torch.runtime.prefetch"):
+                "paddle_tpu_torch.runtime.prefetch",
+                # distribution, part one
+                "paddle_tpu_torch.core.compiler",
+                "paddle_tpu_torch.parallel.env",
+                "paddle_tpu_torch.parallel.mesh",
+                "paddle_tpu_torch.parallel.comm",
+                "paddle_tpu_torch.parallel.collectives",
+                "paddle_tpu_torch.parallel.sharding",
+                "paddle_tpu_torch.parallel.fleet",
+                "paddle_tpu_torch.partition.rules",
+                "paddle_tpu_torch.partition.config",
+                "paddle_tpu_torch.distributed.coordinator",
+                "paddle_tpu_torch.distributed.launch",
+                "paddle_tpu_torch.transpiler.collective",
+                "paddle_tpu_torch.ops.collective",
+                "paddle_tpu_torch.runtime.dist_step"):
         assert mod in res["port"]
 
 

@@ -13,7 +13,10 @@ CPU: twins of the dense tests of tests/test_moe.py, plus:
     from JAX's startup values (losses and every persistable at
     ``TRAIN_RTOL`` / ``TRAIN_ATOL``), and its programs (training and
     ``is_test``) equal JAX's op for op;
-(d) an ``ep`` mesh on the lowering context is refused naming A10, and
+(d) an ``ep`` mesh set on a bare lowering context is refused naming
+    A10a (expert parallelism runs through
+    ``CompiledProgram.with_expert_parallel`` in a world:
+    tests/test_torch_parallel.py), and
     the generation engines' GPTLM refuses ``moe_every`` (the JAX engine
     builds dense FFNs only).
 """

@@ -296,7 +296,10 @@ def test_fused_momentum_update_checks_its_inputs():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("DGCMomentumOptimizer", "ROADMAP A10"),
+    # DGC is ported now (tests/test_torch_parallel.py); its case checks
+    # that it imports and is momentum's subclass
+    pytest.param("DGCMomentumOptimizer", "ported",
+                 id="DGCMomentumOptimizer-ROADMAP A10"),
     ("PipelineOptimizer", "ROADMAP A10"),
     ("switch_moe over an ep mesh", "ROADMAP A10"),
     ("StaticRNN", "ROADMAP A11"),
@@ -321,6 +324,9 @@ def test_unported_items_are_refused_naming_their_roadmap_item(name, item):
     elif name.endswith("RNN"):
         with pytest.raises(NotImplementedError, match=item):
             getattr(fluid.layers, name)()
+    elif item == "ported":
+        assert issubclass(getattr(fluid.optimizer, name),
+                          fluid.optimizer.MomentumOptimizer)
     else:
         with pytest.raises(NotImplementedError, match=item):
             getattr(fluid.optimizer, name)

@@ -162,7 +162,7 @@ def test_lamb_stays_unfused_and_aliases_exist():
         assert getattr(fluid.optimizer, alias) is \
             getattr(fluid.optimizer, cls)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        fluid.optimizer.DGCMomentumOptimizer
+        fluid.optimizer.PipelineOptimizer
 
 
 # -- (b) the optimizer lowerings op by op ------------------------------------
