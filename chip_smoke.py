@@ -6,7 +6,7 @@
                                      #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4,
                                      #   e1, e2 (+ grouped conv share), g2
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789abcdefgh), no result line
+                                        #   23456789abcdefghi), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -81,7 +81,7 @@ Phases, in order; any failure exits non-zero without the result line:
    backward flash launches (each of the backward's 3 kernels 24 times).
    Prints the mean step ms, training tokens/s and peak memory.
 5. card against CPU: 2-layer models at full width from the same
-   numpy-seeded parameters (``io.load_scope_arrays``), 3 fused-Adam
+   numpy-seeded parameters (``io.load_scope_arrays``), 2 fused-Adam
    steps on CUDA (kernels) and on the CPU (plain versions): GPT
    (op-graph and flash, float32; losses within rtol 1e-3) and BERT
    (flash, bfloat16 AMP; rtol 2e-3), parameters within 2 * lr per step.
@@ -142,7 +142,8 @@ Phases, in order; any failure exits non-zero without the result line:
    161 K10, one K4 and one K5 launch a step; mean step, images/s, peak
    memory beside phase 8's.
 a. speculative decoding and the radix prefix cache: gpt3_1p3b with
-   phase 3's weights. Spec: phase 3's 16 prompts (32 new tokens, 4
+   phase 3's weights. Spec: the first 8 of phase 3's 16 prompts (32 new
+   tokens, 4
    client threads) with ``spec_tokens=6`` (the JAX bench's ``--spec``)
    and a full-replica ``HostDraft``, a 2-layer one and a draft that
    always proposes token 1: every stream passes the teacher-forced
@@ -168,13 +169,13 @@ b. saving and serving Programs over HTTP (``serving.ServingServer`` on
    test, saved by ``io.save_inference_model`` with its softmax as the
    fetch, loaded by ``create_predictor`` with batch buckets 1..32 and
    served by a ``ServingEngine`` (batches of up to 32 rows, 2 worker
-   clones): 64 seeded requests of 1-4 images from 8 client threads, over
+   clones): 32 seeded requests of 1-4 images from 8 client threads, over
    ``/v1/predict`` (JSON nested lists) and in process; every request's
    softmax within 1e-4 of its solo run on the card, two solo runs within
    1e-4 of the CPU's; requests/s, images/s, client latency p50 / p99,
    mean batch rows, padding waste and the bucket hits. b2:
-   ``build_lm_program(gpt3_1p3b, 128)`` at full depth, saved (5.3 GB of
-   npz), loaded and run as a Program on the card: 49 K1 launches a run,
+   ``build_lm_program(gpt3_1p3b, 128)`` at 12 of its 24 layers, saved
+   (2.7 GB of npz), loaded and run as a Program on the card: 49 K1 launches a run,
    logits within 1e-3 max|logit| of the predictor's module over the
    same tensors; the same directory quantized at load (int8): 97 K11
    launches a run, matmul bytes <= 0.30 of float32, logits held to the
@@ -217,12 +218,12 @@ c. supervised training with checkpoints. c1: phase 6's BERT-large (full
    from 6: the 10 losses and lrs equal the reference's bit for bit.
    Checkpoints go to ``chip_smoke_ckpt/`` in the checkout, removed after.
 d. the rest of the training path, after freeing what came before (its
-   own peak printed). d1: ``build_gpt_lm`` at gpt3_1p3b's widths with 12
+   own peak printed). d1: ``build_gpt_lm`` at gpt3_1p3b's widths with 6
    of its 24 layers, flash attention, a switch-MoE FFN (8 experts,
    capacity 1.25) in every second layer, dropout 0.1, on phase 4's batch:
    5 steps of fused Adam(1e-4), then from the same startup 5 steps of
    RecomputeOptimizer(Adam) with a checkpoint at each decoder's output
-   (13 segments), in a fresh scope: losses and every parameter within
+   (7 segments), in a fresh scope: losses and every parameter within
    rtol 2e-4 / atol 2e-5 of the plain run's, exact launches every step
    (K1 2(2L+1), K3 2L+1, K4 2, K5 1, K6 2L, K8 L, K10 one a parameter
    under recompute; K1 and K6 once, K4 once without), and the memory the
@@ -268,7 +269,8 @@ e. the conv families and quantization, its own peak printed. e1:
    does at load), 8 batches: one finite positive scale for each distinct
    matmul input, no observer state left, K1 2L+1 and K11 4L+1 a batch.
 f. the serving host tiers on gpt3_1p3b (phase 3's seeded weights and
-   prompts, default geometry, 32 new tokens): f1, a PrefillWorker and a
+   the first 4 of its 16 prompts in f1-f3, default geometry, 32 new
+   tokens): f1, a PrefillWorker and a
    DecodeWorker (two engines, two graphs, one card) over one predictor,
    a HostPageStore behind PageStoreServer / PageStoreClient on loopback
    TCP (a cap of ``STORE_MAX_BYTES``), driven by a DisaggService from 4
@@ -278,7 +280,7 @@ f. the serving host tiers on gpt3_1p3b (phase 3's seeded weights and
    int8 engine's, a stream that differs first differing at a near-tie;
    the decode side's spliced pages equal the store's bit for bit; K2
    (K2q) 24 and K1 49 launches every step of both engines, every step a
-   graph replay; 16 handoffs, no store error. f3: the drain spills the
+   graph replay; 4 handoffs, no store error. f3: the drain spills the
    decode side's trie; a fresh DecodeWorker on that store pulls pages
    and gives the cold split's tokens; warm TTFT against cold printed.
    f2: float32 pools over ``int8_block``: wire bytes <= 0.30 of the
@@ -358,17 +360,43 @@ h. distribution. h1: phase 4's flash recipe (gpt3_1p3b, 2 x 1024,
    equal; (e) a data-parallel Supervisor on a small GPT committing every
    2 steps, ``r1:kill@5``: the launcher restarts the world and the 6
    losses equal an uninterrupted world-2 run's bit for bit
-   (``chip_smoke.py --h2-elastic DIR SEED FAULT``). Each rank's
+   (``chip_smoke.py --h2-elastic DIR SEED FAULT``, beside h2's world).
+   Each rank's
    collective bytes and blocked seconds and the step times are printed.
 
-Then one JSON line of per-kernel numbers, the card line, and last
-``{"ok": true, "device": {...}}``.
+i. tensor, sequence and pipeline parallelism: a world of 2 on the one
+   card (``chip_smoke.py --i-child DIR SEED`` under the launcher, gloo,
+   both ranks on cuda:0), gpt3_1p3b's widths at 2 layers (4 for i3),
+   flash, no dropout, Adam(3e-4) under ``GradientClipByGlobalNorm(1.0)``,
+   held to single-process runs this process makes while the ranks start
+   (losses rtol 1e-3, Adam's first moments relative L2 1e-4). i1: tp 2
+   over ``apply_gpt_megatron_sharding``'s tags, both ranks 2 x 1024, 3
+   steps: the moments gathered with the fused QKV's interleave undone,
+   parameters within 2 * lr * steps, both ranks' losses equal bit for
+   bit, exact K1 / K3 5, K4 / K5 1, K6 / K8 2 (at 8 local heads), K10 30
+   launches a step a rank. i1b: i1's trained Program saved for inference
+   and served by ``create_predictor(Config(dir).enable_partitioning(
+   mesh_axes={"tp": 2}))``: float32 logits within 1e-4 of max|logit| of
+   one process's Predictor, int8 within 1e-3 with 9 K11 launches a run a
+   rank. i2: sp 2, ``max_position`` raised to 4096, one row of 4096
+   tokens (2048 a rank), ring and Ulysses 3 steps each; Ulysses launches
+   K6 / K8 at 8 heads over the whole sequence, the ring none. i3: pp 2
+   (``PipelineOptimizer`` cut at dec1's output, 4 microbatches), 4 x 1024,
+   GPipe and 1F1B 3 steps each against the plain step on the whole
+   batch; each stage's peak memory and stash. i4: dp 2 with
+   ``GradientMergeOptimizer(Adam, k_steps=2)``, 2 rows a rank, against
+   one process's merge over the 4 rows; one all-reduce of the merged
+   gradients a step. Every reading is logged before any gate is held.
+
+Then the seconds each phase took, one JSON line of per-kernel numbers,
+the card line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import gc
+import importlib
 import json
 import os
 import shutil
@@ -423,7 +451,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789abcdefgh"
+ALL_PHASES = "23456789abcdefghi"
 DEVICE = "cuda"
 
 
@@ -2455,9 +2483,10 @@ def c2_child(argv) -> int:
 
 
 def killed_and_resumed(np, seed, card):
-    """c2: three processes of ``c2_child``: the reference (10 steps), a
-    run killed by ``kill@6`` (commits every 3 steps: it must exit with
-    KILL_EXIT_CODE with step 6 committed) and one that resumes from 6;
+    """c2: three processes of ``c2_child``: the reference (10 steps) and,
+    beside it on the card, a run killed by ``kill@6`` (commits every 3
+    steps: it must exit with KILL_EXIT_CODE with step 6 committed), then
+    one that resumes from 6;
     the killed run's 6 losses and the resumed run's 4 equal the
     reference's 10, bit for bit, and so do the learning rates."""
     from paddle_tpu_torch import io
@@ -2490,15 +2519,21 @@ def killed_and_resumed(np, seed, card):
                 f"{tail['peak_gb']:.2f} GB" if tail else "") + f" [{card}]")
         return proc, steps, tail, wall
 
-    ref_proc, ref, ref_tail, ref_wall = child(
-        "reference", os.path.join(root, "ref_ck"))
+    # the reference and the run to be killed are independent: they share
+    # the card side by side
+    ck = os.path.join(root, "ck")
+    side = {}
+    t_ref = threading.Thread(target=lambda: side.update(ref=child(
+        "reference", os.path.join(root, "ref_ck"))))
+    t_ref.start()
+    kill_proc, killed, _, kill_wall = child("killed", ck,
+                                            fault=f"kill@{C2_KILL}")
+    t_ref.join()
+    ref_proc, ref, ref_tail, ref_wall = side["ref"]
     require(ref_proc.returncode == 0, "c2 reference failed: "
             f"{ref_proc.stderr[-2000:]}")
     require(sorted(ref) == list(range(C2_STEPS)), f"c2 reference steps "
             f"{sorted(ref)}")
-    ck = os.path.join(root, "ck")
-    kill_proc, killed, _, kill_wall = child("killed", ck,
-                                            fault=f"kill@{C2_KILL}")
     require(kill_proc.returncode == KILL_EXIT_CODE, f"c2 killed run exited "
             f"{kill_proc.returncode}: {kill_proc.stderr[-2000:]}")
     require(io.latest_checkpoint(ck) == C2_KILL, f"c2: latest checkpoint "
@@ -2565,7 +2600,11 @@ def seeded_arrays(np, main, cpu_scope, std, seed):
     return arrays
 
 
-def card_vs_cpu(torch, np, seed, model="gpt", steps=3, lr=3e-4):
+CARD_VS_CPU_STEPS = 2    # phase 5's 2-layer GPT and BERT, card and CPU
+
+
+def card_vs_cpu(torch, np, seed, model="gpt", steps=CARD_VS_CPU_STEPS,
+                lr=3e-4):
     """A 2-layer model at full width trained from the same numpy-seeded
     parameters on the card (kernels) and on the CPU (plain versions):
     gpt3_1p3b's widths with op-graph or flash attention (float32), or
@@ -3551,15 +3590,22 @@ def same_or_near_tie(np, pred, prompts, streams, base, what):
     return same, diffs
 
 
+SPEC_PROMPTS = 8    # phase a's spec runs: the first 8 of phase 3's prompts
+
+
 def serve_spec(torch, np, seed, card, out_dir, base_tokens=None):
-    """Phase a, spec: phase 3's weights and prompts served with
+    """Phase a, spec: phase 3's weights and first ``SPEC_PROMPTS``
+    prompts served with
     ``spec_tokens=6`` and a full-replica, a 2-layer and a garbage draft,
     then held to a spec-off run of the same prompts."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.generation import GenerationEngine, HostDraft
 
     cfg, pred = gpt3_predictor(torch, seed)
-    lengths, prompts = serving_prompts(np, seed, cfg.vocab_size)
+    lengths, every_prompt = serving_prompts(np, seed, cfg.vocab_size)
+    lengths, prompts = lengths[:SPEC_PROMPTS], every_prompt[:SPEC_PROMPTS]
+    if base_tokens is not None:
+        base_tokens = base_tokens[:SPEC_PROMPTS]
     max_new, L = 32, cfg.num_layers
     paths, out = {}, {}
     if base_tokens is None:
@@ -3633,8 +3679,9 @@ def serve_spec(torch, np, seed, card, out_dir, base_tokens=None):
                                        "run's tokens)")
         perf.update(identical_to_spec_off=same, differences=diffs)
         if name == "replica":
+            # ten recorded requests: over every prompt
             perf["graph_vs_eager"] = check_graph_vs_eager(
-                torch, np, eng, prompts, what=what)
+                torch, np, eng, every_prompt, what=what)
         else:
             eng.close()
         out[name] = perf
@@ -3788,7 +3835,7 @@ def serve_radix(torch, np, seed, card, out_dir):
 # -- phase b: save and serve Programs over HTTP ----------------------------------
 
 RESNET_BUCKETS = (1, 2, 4, 8, 16, 32)
-RESNET_REQUESTS, RESNET_IMAGE = 64, 224
+RESNET_REQUESTS, RESNET_IMAGE = 32, 224
 HTTP_CLIENTS = 8
 # a request's outputs against its solo run on the card and against the
 # CPU: the same weights, float32 sums in another order (cuDNN picks its
@@ -3797,6 +3844,7 @@ HTTP_CLIENTS = 8
 # <= 1), the logits within 1e-4 of the request's max |logit|
 RESNET_PROB_ATOL = RESNET_LOGIT_REL = 1e-4
 LM_PROGRAM_SEQ, LM_PROGRAM_BATCH = 128, 2
+LM_PROGRAM_LAYERS = 12    # b2's depth, of gpt3_1p3b's 24
 SWAP_STD = 0.02
 
 
@@ -3996,7 +4044,8 @@ def serve_resnet_http(torch, np, seed, card, tmp):
 
 
 def lm_program_on_card(torch, np, seed, card, tmp):
-    """b2: build_lm_program at gpt3_1p3b widths and full depth, saved,
+    """b2: build_lm_program at gpt3_1p3b widths and 12 of its 24 layers,
+    saved,
     loaded and run as a Program on the card: logits held to the
     predictor's module, with K1's exact launches; then the same
     directory quantized at load (int8) with K11's exact launches."""
@@ -4007,6 +4056,7 @@ def lm_program_on_card(torch, np, seed, card, tmp):
     from paddle_tpu_torch.models.gpt import GPTConfig
 
     cfg = GPTConfig.gpt3_1p3b()
+    cfg.num_layers = LM_PROGRAM_LAYERS
     L = cfg.num_layers
     main, startup, _feeds, fetches = build_lm_program(cfg, LM_PROGRAM_SEQ)
     exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
@@ -4662,7 +4712,7 @@ def card_vs_cpu_control_flow(torch, np):
 #    served; DeepFM with sparse embeddings ----------------------------------------
 
 
-MOE_LAYERS = 12          # of gpt3_1p3b's 24: 24 layers with 8 experts in
+MOE_LAYERS = 6           # of gpt3_1p3b's 24: 24 layers with 8 experts in
 #                          every second one hold 4.16 B parameters, 66.5 GB
 #                          of float32 Adam state; 12 hold 2.15 B, 34.4 GB
 MOE_STEPS = 5
@@ -5203,7 +5253,7 @@ def phase_d(torch, np, seed, card, out_dir, profile=False):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     record = {}
-    log("phase d1: gpt3_1p3b widths, 12 layers, switch-MoE every 2nd, plain "
+    log(f"phase d1: gpt3_1p3b widths, {MOE_LAYERS} layers, switch-MoE every 2nd, plain "
         "Adam then RecomputeOptimizer(Adam)")
     paths, record["d1"], scope, cfg = train_moe(torch, np, seed, card, out_dir)
     log("phase d3: d1's model saved as an is_test Program and served by the "
@@ -5868,8 +5918,8 @@ def split_launches(K, counts, svc, L, attn, what):
 
 def split_run(torch, np, K, pred, cfg, prompts, lengths, card, *, kv_dtype,
               encoding, base, tie_gate=True):
-    """f1 / f2: phase 3's 16 prompts through the split over a TCP page
-    store. Returns (launch counts, record, service, store server) with
+    """f1 / f2: phase 3's first ``F_PROMPTS`` prompts through the split
+    over a TCP page store. Returns (launch counts, record, service, store server) with
     the service still open (f3 and f4 go on from it)."""
     from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.disagg import PageStoreServer, run_for_pool
@@ -5986,7 +6036,7 @@ def split_run(torch, np, K, pred, cfg, prompts, lengths, card, *, kv_dtype,
 
 def warm_start(torch, np, K, pred, cfg, prompts, store_srv, cold, card):
     """f3: a fresh DecodeWorker on the store the drain spilled into serves
-    the 16 prompts warm; its tokens equal the cold split's."""
+    f1's prompts warm; its tokens equal the cold split's."""
     from paddle_tpu_torch.disagg import DecodeWorker, PageStoreClient
 
     dw = DecodeWorker(pred, cfg, PageStoreClient(
@@ -6426,6 +6476,9 @@ def worker_pool(torch, np, seed, card, tmp):
     return rec
 
 
+F_PROMPTS = 4    # f1-f3: the first 4 of phase 3's 16 prompts
+
+
 def phase_f(torch, np, seed, card, out_dir, record):
     """Phase f: gpt3_1p3b served split (f1-f4), behind the traffic tier
     over HTTP (f5), and a spawned worker pool (f6)."""
@@ -6443,8 +6496,13 @@ def phase_f(torch, np, seed, card, out_dir, record):
     if base is None:
         log("  phase 3 did not run: its co-located float32 run is made here")
         with GenerationEngine(pred, cfg, warmup=True) as eng:
-            streams, _ = run_clients(eng, prompts, 32)
+            streams, _ = run_clients(eng, prompts[:F_PROMPTS], 32)
         base = [list(s.tokens) for s in streams]
+    # f1-f3 serve the first F_PROMPTS of phase 3's prompts (every gate
+    # kept, half the tokens and the store traffic)
+    lengths, prompts, base = (lengths[:F_PROMPTS], prompts[:F_PROMPTS],
+                              base[:F_PROMPTS])
+    log(f"  f1-f3 on the first {F_PROMPTS} of phase 3's 16 prompts")
 
     log("phase f1: the split over a TCP page store, float32 pools, raw wire")
     paths["split_f32"], out["f1_f32"], svc, store_srv = split_run(
@@ -7544,16 +7602,33 @@ def phase_h2(torch, np, seed, card, out_dir):
     shutil.rmtree(h2_dir, ignore_errors=True)
     os.makedirs(h2_dir)
     try:
+        # (e)'s killed world runs beside the main one, once the
+        # references are made (both are gloo worlds of 2 on the card)
+        d = os.path.join(h2_dir, "killed")
+        os.makedirs(d)
+        elastic = {}
+
+        def killed_world():
+            elastic["res"] = launch_world(
+                ["--h2-elastic", d, str(seed), "r1:kill@5"], d, 300, 1)
+
+        t_el = threading.Thread(target=killed_world)
+
         def references():
             t0 = time.perf_counter()
             ref = h2_reference(torch, np, seed, card,
                                os.path.join(h2_dir, "h2_ref.pt"))
+            t_el.start()
             return ref, time.perf_counter() - t0
 
         # the ranks start while this process makes the references
-        code, err, secs, (ref, ref_s) = launch_world(
-            ["--h2-child", h2_dir, str(seed)], h2_dir, H2_TIMEOUT_S,
-            meanwhile=references)
+        try:
+            code, err, secs, (ref, ref_s) = launch_world(
+                ["--h2-child", h2_dir, str(seed)], h2_dir, H2_TIMEOUT_S,
+                meanwhile=references)
+        finally:
+            if t_el.is_alive() or t_el.ident is not None:
+                t_el.join()
         require(code == 0, f"h2's world exited {code}: {err[-3000:]}")
         ranks = [json.load(open(os.path.join(h2_dir, f"h2.rank{r}.json")))
                  for r in range(2)]
@@ -7655,11 +7730,9 @@ def phase_h2(torch, np, seed, card, out_dir):
             f"{g['enc_zero_share']}; replicas equal every step; mean of "
             f"steps 2-{H2_DGC_STEPS} {g['step_ms_mean']:.1f} ms [{card}]")
         # (e) elastic: the world above ran it uninterrupted; a world of
-        # its own is killed on rank 1 at step 5 and restarted
-        d = os.path.join(h2_dir, "killed")
-        os.makedirs(d)
-        code, err, esecs, _ = launch_world(
-            ["--h2-elastic", d, str(seed), "r1:kill@5"], d, 300, 1)
+        # its own, beside it, was killed on rank 1 at step 5 and restarted
+        require("res" in elastic, "h2 (e): the killed world did not run")
+        code, err, esecs, _ = elastic["res"]
         require(code == 0, f"h2 (e) exited {code}: {err[-3000:]}")
         require("world completed after 1 restart(s)" in err,
                 "h2 (e): the launcher did not restart the world")
@@ -7702,6 +7775,582 @@ def phase_h(torch, np, seed, card, out_dir, record):
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase h took {out['seconds']:.1f} s")
     return paths, out
+
+
+# -- phase i: tensor, sequence and pipeline parallelism ------------------------
+
+
+I_LAYERS, I_PP_LAYERS = 2, 4     # gpt3_1p3b's widths, depth cut (h2's)
+I_STEPS, I_LR, I_CLIP = 3, 3e-4, 1.0
+I_SP_SEQ = 4096                  # i2: one row of 4096 tokens, 2048 a rank
+I_MICRO, I_PP_ROWS = 4, 4        # i3: 4 microbatches of one row
+I_MERGE_K, I_MERGE_ROWS = 2, 4   # i4: 2 rows a rank, a microbatch a row
+I_TIMEOUT_S = 900
+I_PRED_ROWS = 2                  # i1b: the Predictor's batch (i1's rows)
+
+
+def i_config(layers=I_LAYERS, max_position=None, flash=True):
+    """gpt3_1p3b's widths at ``layers`` layers, flash attention (the
+    op-graph attention with ``flash`` False), no dropout;
+    ``max_position`` raised for i2's 4096-token row."""
+    cfg = h2_config()
+    cfg.num_layers = layers
+    cfg.use_flash_attention = flash
+    if max_position:
+        cfg.max_position = max_position
+    return cfg
+
+
+def i_build(fluid, cfg, seq, kind="plain", is_test=False):
+    """``build_gpt_lm``'s program under Adam(3e-4) with the global-norm
+    clip (``kind`` "plain"); "gpipe" / "1f1b" wrap it in
+    ``PipelineOptimizer`` cut at dec1's output; "merge" is
+    ``GradientMergeOptimizer(Adam, k_steps=2)``."""
+    from paddle_tpu_torch.models.gpt import build_gpt_lm
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_gpt_lm(cfg, seq, is_test=is_test)
+        if is_test:
+            return main, startup, fetches
+        with fluid.program_guard(main, startup):
+            if kind == "merge":
+                opt = fluid.optimizer.GradientMergeOptimizer(
+                    fluid.optimizer.AdamOptimizer(I_LR), k_steps=I_MERGE_K)
+            else:
+                opt = fluid.optimizer.AdamOptimizer(
+                    I_LR, grad_clip=fluid.clip.GradientClipByGlobalNorm(
+                        I_CLIP))
+            if kind in ("gpipe", "1f1b"):
+                cut = decoder_outputs(main, cfg.num_layers)[1]
+                opt = fluid.optimizer.PipelineOptimizer(
+                    opt, cut_list=[cut], num_microbatches=I_MICRO,
+                    schedule=kind)
+            opt.minimize(fetches["loss"])
+    return main, startup, fetches
+
+
+def i_batch(np, seed, cfg, rows, seq):
+    from paddle_tpu_torch.models.gpt import synthetic_lm_batch
+
+    return synthetic_lm_batch(np.random.RandomState(seed), rows, seq,
+                              cfg.vocab_size)
+
+
+def i_arms():
+    """(key, config, batch rows, sequence, program kind) of each
+    single-process reference."""
+    # "sp_exact": i2's model with the op-graph attention (float32
+    # matmuls and softmax, as the ring computes its blocks), the ring's
+    # reference; "sp" runs the flash kernels (3xTF32), as Ulysses does
+    return (("tp", i_config(), TRAIN_BATCH, TRAIN_SEQ, "plain"),
+            ("sp", i_config(max_position=I_SP_SEQ), 1, I_SP_SEQ, "plain"),
+            ("sp_exact", i_config(max_position=I_SP_SEQ, flash=False), 1,
+             I_SP_SEQ, "plain"),
+            ("pp", i_config(I_PP_LAYERS), I_PP_ROWS, TRAIN_SEQ, "plain"),
+            ("merge", i_config(), I_MERGE_ROWS, TRAIN_SEQ, "merge"))
+
+
+def i_place(fluid):
+    return fluid.CUDAPlace(0) if DEVICE == "cuda" else fluid.CPUPlace()
+
+
+def i_sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def i_reference(torch, np, seed, ref_path):
+    """The single-process runs phase i's ranks are held to, on the card
+    while the world starts: each arm's model 3 steps over its whole
+    batch, with its losses, mean step ms, Adam's first moments after the
+    last step and (tp) its parameters, saved for the ranks."""
+    import paddle_tpu_torch as fluid
+
+    fluid.set_flags({"optimizer_fuse": "auto"})
+    ref = {}
+    for key, cfg, rows, seq, kind in i_arms():
+        batch = i_batch(np, seed, cfg, rows, seq)
+        main, startup, fetches = i_build(fluid, cfg, seq, kind)
+        main.random_seed = startup.random_seed = seed
+        scope = fluid.Scope()
+        exe = fluid.Executor(i_place(fluid))
+        exe.run(startup, scope=scope)
+        losses, ms = [], []
+        for _ in range(I_STEPS):
+            i_sync(torch)
+            t0 = time.perf_counter()
+            losses.append(float(np.asarray(exe.run(
+                main, feed=batch, fetch_list=[fetches["loss"]],
+                scope=scope)[0]).reshape(-1)[0]))
+            i_sync(torch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        ref[key] = {"losses": losses, "step_ms_mean": statistics.mean(ms[1:]),
+                    "m1": {k: v.cpu() for k, v in
+                           first_moments(main, scope).items()}}
+        if key == "tp":
+            ref[key]["params"] = {p.name: scope.find_var(p.name).cpu()
+                                  for p in main.all_parameters()}
+        log(f"  i reference {key}: losses {losses}, mean of steps "
+            f"2-{I_STEPS} {ref[key]['step_ms_mean']:.1f} ms")
+        del exe, scope
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    torch.save(ref, ref_path + ".part")
+    os.replace(ref_path + ".part", ref_path)
+    return {k: {"losses": v["losses"], "step_ms_mean": v["step_ms_mean"]}
+            for k, v in ref.items()}
+
+
+def i_child(argv) -> int:
+    """One rank of phase i's world of 2 on one card (gloo): i1 tensor
+    parallel training, i1b the tensor-parallel Predictor, i2 ring and
+    Ulysses, i3 GPipe and 1F1B, i4 gradient merge in a data-parallel
+    world; results to ``<dir>/i.rank<r>.json``."""
+    out_dir, seed = argv[0], int(argv[1])
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.core.pipeline_program import sync_stage_state
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models.gpt import apply_gpt_megatron_sharding
+    from paddle_tpu_torch.parallel import comm
+    from paddle_tpu_torch.parallel.env import init_parallel_env
+    from paddle_tpu_torch.parallel.sharding import layout
+    from paddle_tpu_torch.runtime.tp_plan import unshard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = init_parallel_env()
+    rank, n = env.rank, env.world_size
+    world = torch.distributed.group.WORLD
+    fluid.set_flags({"optimizer_fuse": "auto"})
+    wait_for_file(os.path.join(out_dir, "i_ref.pt"), I_TIMEOUT_S)
+    ref = torch.load(os.path.join(out_dir, "i_ref.pt"), mmap=True)
+    out = {"rank": rank, "backend": torch.distributed.get_backend(),
+           "arm_s": {}}
+    t_arm = [time.perf_counter()]
+
+    def arm_done(name):
+        now = time.perf_counter()
+        out["arm_s"][name] = round(now - t_arm[0], 1)
+        t_arm[0] = now
+
+    # the flash module (the package's ``flash_attention`` is the function)
+    TF = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    heads_seen = []
+    fwd = TF._FlashFunction.forward
+
+    def spy(ctx, q, *a):
+        # the q a training step's flash forward (K6 / K7) is launched on
+        heads_seen.append(list(q.shape))
+        return fwd(ctx, q, *a)
+
+    def watch(on):
+        TF._FlashFunction.forward = staticmethod(spy if on else fwd)
+
+    def whole(scope, name, full_shape):
+        """The whole value of a var a rank holds as a tp chunk (the fused
+        QKV's interleave undone), else the rank's own."""
+        t = scope.find_var(name)
+        sh = layout(scope).get(name)
+        if sh is None or tuple(t.shape) == tuple(full_shape):
+            return t
+        return unshard(t, sh.dim, sh.parts, world, sh.groups)
+
+    def held(res, main, scope, r, names=None, params=False):
+        """First moments' relative L2 error to the reference ``r`` (over
+        ``names``, every parameter when None) and the parameters' largest
+        gap (``params``)."""
+        m1 = {v.accumulator_owner: v.name
+              for v in main.global_block().vars.values()
+              if getattr(v, "is_accumulator", False)
+              and "moment1" in v.name}
+        names = sorted(m1) if names is None else sorted(names)
+        rels = {k: rel_l2(whole(scope, m1[k], r["m1"][k].shape).cpu(),
+                          r["m1"][k]) for k in names}
+        worst = max(rels, key=rels.get)
+        res["m1_rel_l2"], res["m1_worst"] = rels[worst], worst
+        res["m1_checked"] = len(rels)
+        if params:
+            gaps = {p.name: float((whole(scope, p.name, r["params"][
+                p.name].shape).cpu() - r["params"][p.name]).abs().max())
+                for p in main.all_parameters()}
+            pw = max(gaps, key=gaps.get)
+            res["param_max_abs_err"], res["param_worst"] = gaps[pw], pw
+
+    def steps(exe, prog, feed, fetch, scope, count=I_STEPS):
+        losses, ms = [], []
+        K.reset_launch_counts()
+        s0 = comm.STATS.snapshot()
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(count):
+            i_sync(torch)
+            t0 = time.perf_counter()
+            o = exe.run(prog, feed=feed, fetch_list=[fetch], scope=scope)
+            i_sync(torch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(o[0]).reshape(-1)[0]))
+        s1 = comm.STATS.snapshot()
+        return {"losses": losses, "step_ms": ms,
+                "step_ms_mean": statistics.mean(ms[1:]),
+                "launches": K.launch_counts(),
+                "comm": {k: s1[k] - s0[k] for k in s1},
+                "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if DEVICE == "cuda" else 0.0)}
+
+    def fresh(cfg, seq, kind):
+        main, startup, fetches = i_build(fluid, cfg, seq, kind)
+        main.random_seed = startup.random_seed = seed
+        scope = fluid.Scope()
+        exe = fluid.Executor(i_place(fluid))
+        exe.run(startup, scope=scope)
+        return main, fetches, scope, exe
+
+    def same_everywhere(values):
+        t = torch.tensor(values, dtype=torch.float64)
+        parts = [torch.zeros_like(t) for _ in range(n)]
+        torch.distributed.all_gather(parts, t)
+        return all(torch.equal(parts[0], p) for p in parts[1:])
+
+    def collect():
+        """Return the memory of what the caller just deleted."""
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+
+    # i1: tp 2 over apply_gpt_megatron_sharding's tags, both ranks the
+    # same 2 x 1024 rows
+    cfg = i_config()
+    batch = i_batch(np, seed, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    main, fetches, scope, exe = fresh(cfg, TRAIN_SEQ, "plain")
+    apply_gpt_megatron_sharding(main, mp_axis="tp")
+    prog = fluid.CompiledProgram(main).with_partitioning(mesh_axes={"tp": 2})
+    watch(True)
+    res = steps(exe, prog, batch, fetches["loss"], scope)
+    watch(False)
+    res["flash_shapes"] = heads_seen[:1]
+    heads_seen.clear()
+    res["losses_equal_across_ranks"] = same_everywhere(res["losses"])
+    res["local_qkv"] = list(scope.find_var("dec0_qkv.w").shape)
+    held(res, main, scope, ref["tp"], params=True)
+    out["i1"] = res
+    arm_done("i1")
+    # i1b: i1's trained Program saved for inference (rank 0 writes the
+    # whole weights, gathered), served by a tp Predictor on both ranks
+    params = {p.name: whole(scope, p.name, ref["tp"]["params"][p.name].shape)
+              for p in main.all_parameters()}
+    pred_dir = os.path.join(out_dir, "i1b_model")
+    if rank == 0:
+        test, test_start, tf = i_build(fluid, cfg, TRAIN_SEQ, is_test=True)
+        ts = fluid.Scope()
+        texe = fluid.Executor(i_place(fluid))
+        texe.run(test_start, scope=ts)
+        for k, v in params.items():
+            ts.set_var(k, v.clone())
+        apply_gpt_megatron_sharding(test, mp_axis="tp")
+        with fluid.scope_guard(ts):
+            fluid.io.save_inference_model(pred_dir, ["tokens"],
+                                          [tf["logits"]], texe, test)
+        del ts, texe
+        collect()
+    del scope, exe, params
+    collect()
+    torch.distributed.barrier()
+    toks = batch["tokens"][:I_PRED_ROWS]
+    dev = "cuda" if DEVICE == "cuda" else "cpu"
+    pred_out = {}
+    for mode in ("off", "int8"):
+        if rank == 0:
+            one = create_predictor(Config(pred_dir)
+                                   .enable_weight_quantization(mode),
+                                   device=dev).run([toks])[0]
+        p = create_predictor(Config(pred_dir).enable_weight_quantization(mode)
+                             .enable_partitioning(mesh_axes={"tp": 2}),
+                             device=dev)
+        p.run([toks])
+        K.reset_launch_counts()
+        got = p.run([toks])[0]
+        counts = K.launch_counts()
+        r = {"launches": counts, "same_across_ranks": same_everywhere(
+            [float(got.sum()), float(np.abs(got).max())])}
+        qkv = [k for k in p._scope.vars if k.startswith("dec0_qkv.w")]
+        r["local_qkv"] = [list(p._scope.find_var(k).shape) for k in qkv]
+        if rank == 0:
+            r["err"] = float(np.abs(got - one).max())
+            r["max_logit"] = float(np.abs(one).max())
+        pred_out[mode] = r
+        del p
+        collect()
+    out["i1b"] = pred_out
+    torch.distributed.barrier()
+    arm_done("i1b")
+
+    # i2: sp 2, a row of 4096 tokens, 2048 a rank; ring, then Ulysses
+    scfg = i_config(max_position=I_SP_SEQ)
+    sbatch = i_batch(np, seed, scfg, 1, I_SP_SEQ)
+    half = I_SP_SEQ // n
+    local = {k: v[:, rank * half:(rank + 1) * half] for k, v in sbatch.items()}
+    for mode in ("ring", "ulysses"):
+        main, fetches, scope, exe = fresh(scfg, I_SP_SEQ, "plain")
+        prog = fluid.CompiledProgram(main).with_sequence_parallel(sp=n,
+                                                                  mode=mode)
+        watch(True)
+        res = steps(exe, prog, local, fetches["loss"], scope)
+        watch(False)
+        res["flash_shapes"] = heads_seen[:1]
+        heads_seen.clear()
+        held(res, main, scope, ref["sp"])
+        if mode == "ring":
+            exact = {}
+            held(exact, main, scope, ref["sp_exact"])
+            res["m1_rel_l2_flash_ref"] = res["m1_rel_l2"]
+            res["m1_rel_l2"], res["m1_worst"] = (exact["m1_rel_l2"],
+                                                 exact["m1_worst"])
+        out[f"i2_{mode}"] = res
+        del scope, exe
+        collect()
+        arm_done(f"i2_{mode}")
+
+    # i3: pp 2 (2 layers a stage), 4 x 1024 rows in 4 microbatches
+    pcfg = i_config(I_PP_LAYERS)
+    pbatch = i_batch(np, seed, pcfg, I_PP_ROWS, TRAIN_SEQ)
+    for sched in ("gpipe", "1f1b"):
+        main, fetches, scope, exe = fresh(pcfg, TRAIN_SEQ, sched)
+        prog = fluid.CompiledProgram(main).with_pipeline()
+        res = steps(exe, prog, pbatch, fetches["loss"], scope)
+        # the bound step's pipeline stage (the executor's bind cache)
+        pipe = next(b.pipe for b in exe._bound.values()
+                    if b.pipe is not None)
+        res["peak_stash"] = pipe.peak_stash
+        held(res, main, scope, ref["pp"], names=pipe.own)
+        sync_stage_state(main, scope, prog)
+        out[f"i3_{sched}"] = res
+        del scope, exe, pipe
+        collect()
+        arm_done(f"i3_{sched}")
+
+    # i4: dp 2 with GradientMergeOptimizer(Adam, k 2), rows 2r and 2r + 1
+    main, fetches, scope, exe = fresh(cfg, TRAIN_SEQ, "merge")
+    mbatch = i_batch(np, seed, cfg, I_MERGE_ROWS, TRAIN_SEQ)
+    rows = I_MERGE_ROWS // n
+    prog = fluid.CompiledProgram(main).with_data_parallel()
+    res = steps(exe, prog, {k: v[rank * rows:(rank + 1) * rows]
+                            for k, v in mbatch.items()},
+                fetches["loss"], scope)
+    held(res, main, scope, ref["merge"])
+    out["i4"] = res
+    del scope, exe
+    collect()
+    arm_done("i4")
+    with open(os.path.join(out_dir, f"i.rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def i_train_want(K, L, flash=True, micro=1, lm_head=True, first=True):
+    """Launches a training step of an L-layer stage over ``micro``
+    microbatches: h_train_want's, a pipeline stage's share of it."""
+    want = {name: 0 for name in K.KERNELS}
+    ln = 2 * L + (1 if lm_head else 0)
+    n_params = 12 * L + (2 if first else 0) + (4 if lm_head else 0)
+    want.update(layer_norm=ln * micro, layer_norm_bwd=ln * micro,
+                softmax_xent_fwd=micro if lm_head else 0,
+                softmax_xent_bwd=micro if lm_head else 0,
+                fused_adam_update=n_params)
+    if flash:
+        want.update(flash_attention_fwd=L * micro,
+                    flash_attention_bwd=L * micro)
+    return want
+
+
+def phase_i(torch, np, seed, card, out_dir):
+    """Phase i: a world of 2 on the one card (gloo, both ranks on cuda:0)
+    through the launcher; this process runs the single-process references
+    while the ranks start and holds the ranks' results to them."""
+    from paddle_tpu_torch import kernels as K
+
+    t_phase = time.perf_counter()
+    i_dir = os.path.abspath(os.path.join(out_dir, "i"))
+    shutil.rmtree(i_dir, ignore_errors=True)
+    os.makedirs(i_dir)
+    try:
+        def references():
+            t0 = time.perf_counter()
+            r = i_reference(torch, np, seed, os.path.join(i_dir, "i_ref.pt"))
+            return r, time.perf_counter() - t0
+
+        log(f"  the 2-layer models (4 for i3) at gpt3_1p3b's widths; i2's "
+            f"max_position raised from 1024 to {I_SP_SEQ} (a context past "
+            "the preset's, which sequence parallelism exists for)")
+        code, err, secs, (ref, ref_s) = launch_world(
+            ["--i-child", i_dir, str(seed)], i_dir, I_TIMEOUT_S,
+            meanwhile=references)
+        require(code == 0, f"phase i's world exited {code}: {err[-3000:]}")
+        ranks = [json.load(open(os.path.join(i_dir, f"i.rank{r}.json")))
+                 for r in range(2)]
+        r0 = ranks[0]
+        rtol = CARD_VS_CPU_RTOL["gpt_flash"]
+        holds = []
+
+        def hold(cond, msg):
+            holds.append((cond, msg))
+
+        def rel(a, b):
+            return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+        # every reading first
+        a = r0["i1"]
+        lim = 2 * I_LR * I_STEPS
+        want1 = i_train_want(K, I_LAYERS)
+        log(f"  i1 tp 2: losses {a['losses']} vs one process "
+            f"{ref['tp']['losses']} (rel {rel(a['losses'], ref['tp']['losses']):.3e}"
+            f", rtol {rtol}); equal on both ranks: "
+            f"{all(rk['i1']['losses_equal_across_ranks'] for rk in ranks)}; "
+            f"first moments (gathered, the qkv interleave undone) within "
+            f"{max(rk['i1']['m1_rel_l2'] for rk in ranks):.3e} "
+            f"({a['m1_worst']}; {H2_GRAD_RTOL:.0e}); params within "
+            f"{a['param_max_abs_err']:.3e} (2 * lr * steps = {lim:.1e}); "
+            f"local qkv {a['local_qkv']}; flash q {a['flash_shapes']}; "
+            f"step {a['step_ms_mean']:.1f} ms against one process's "
+            f"{ref['tp']['step_ms_mean']:.1f} ms; comm a step "
+            f"{ {k: v / I_STEPS for k, v in a['comm'].items()} }; peak "
+            f"{[rk['i1']['peak_gb'] for rk in ranks]} GB a rank [{card}]")
+        for rk in ranks:
+            x = rk["i1"]
+            hold(rel(x["losses"], ref["tp"]["losses"]) <= rtol,
+                 f"i1 losses {x['losses']} vs {ref['tp']['losses']}")
+            hold(x["losses_equal_across_ranks"], "i1: the ranks' losses differ")
+            hold(x["m1_rel_l2"] <= H2_GRAD_RTOL,
+                 f"i1 {x['m1_worst']}'s first moment off by {x['m1_rel_l2']}")
+            hold(x["param_max_abs_err"] <= lim,
+                 f"i1 {x['param_worst']} off by {x['param_max_abs_err']}")
+            got = {k: x["launches"][k] for k in want1}
+            hold(got == {k: c * I_STEPS for k, c in want1.items()},
+                 f"i1 launches {got}, want {want1} a step")
+            hold(x["flash_shapes"][0][1] == 8, f"i1 flash heads "
+                 f"{x['flash_shapes']}")
+        for mode, tol in (("off", 1e-4), ("int8", 1e-3)):
+            b = r0["i1b"][mode]
+            log(f"  i1b tp Predictor ({'float32' if mode == 'off' else mode}):"
+                f" logits within {b['err']:.3e} of one process's (max |logit|"
+                f" {b['max_logit']:.3f}, limit {tol} x max); local qkv "
+                f"{b['local_qkv']}; launches a run {dict((k, v) for k, v in b['launches'].items() if v)} [{card}]")
+            hold(b["err"] <= tol * b["max_logit"],
+                 f"i1b {mode}: logits {b['err']} off")
+            for rk in ranks:
+                c = rk["i1b"][mode]["launches"]
+                hold(rk["i1b"][mode]["same_across_ranks"],
+                     f"i1b {mode}: the ranks' logits differ")
+                if mode == "int8":
+                    hold(c["quantized_matmul"] == 4 * I_LAYERS + 1,
+                         f"i1b int8: {c['quantized_matmul']} K11 launches a "
+                         "run")
+                else:
+                    hold(c["layer_norm"] == 2 * I_LAYERS + 1 and
+                         c["flash_attention_fwd"] == I_LAYERS,
+                         f"i1b: launches {c}")
+        for mode in ("ring", "ulysses"):
+            s = r0[f"i2_{mode}"]
+            # the ring's blocks are float32 matmuls: its reference is the
+            # one-process run with the op-graph attention; Ulysses runs
+            # the flash kernels, as the flash reference does
+            rk_ = "sp_exact" if mode == "ring" else "sp"
+            also = (f" (against the flash run "
+                    f"{max(rk['i2_ring']['m1_rel_l2_flash_ref'] for rk in ranks):.3e})"
+                    if mode == "ring" else "")
+            log(f"  i2 sp 2 {mode}: losses {s['losses']} vs one process at S "
+                f"{I_SP_SEQ} ({'op-graph' if mode == 'ring' else 'flash'}) "
+                f"{ref[rk_]['losses']} (rel "
+                f"{rel(s['losses'], ref[rk_]['losses']):.3e}); first moments"
+                f" within {max(rk[f'i2_{mode}']['m1_rel_l2'] for rk in ranks):.3e}"
+                f" ({s['m1_worst']}){also}; flash q {s['flash_shapes']}, launches "
+                f"fwd {s['launches']['flash_attention_fwd']} bwd "
+                f"{s['launches']['flash_attention_bwd']}; step "
+                f"{s['step_ms_mean']:.1f} ms against "
+                f"{ref[rk_]['step_ms_mean']:.1f}; comm a step "
+                f"{ {k: v / I_STEPS for k, v in s['comm'].items()} }; peak "
+                f"{[rk[f'i2_{mode}']['peak_gb'] for rk in ranks]} GB [{card}]")
+            wantf = I_LAYERS * I_STEPS if mode == "ulysses" else 0
+            for rk in ranks:
+                x = rk[f"i2_{mode}"]
+                hold(rel(x["losses"], ref[rk_]["losses"]) <= rtol,
+                     f"i2 {mode} losses {x['losses']}")
+                hold(x["m1_rel_l2"] <= H2_GRAD_RTOL,
+                     f"i2 {mode} {x['m1_worst']} off by {x['m1_rel_l2']}")
+                hold(x["launches"]["flash_attention_fwd"] == wantf and
+                     x["launches"]["flash_attention_bwd"] == wantf,
+                     f"i2 {mode}: flash launches {x['launches']}")
+                if mode == "ulysses":
+                    hold(x["flash_shapes"][0][1:3] == [8, I_SP_SEQ],
+                         f"i2 ulysses flash q {x['flash_shapes']}")
+        for sched in ("gpipe", "1f1b"):
+            p = [rk[f"i3_{sched}"] for rk in ranks]
+            log(f"  i3 pp 2 {sched}: losses {p[0]['losses']} vs the plain "
+                f"step on the whole batch {ref['pp']['losses']} (rel "
+                f"{rel(p[-1]['losses'], ref['pp']['losses']):.3e}); first "
+                f"moments within {[x['m1_rel_l2'] for x in p]} (a stage's "
+                f"own {[x['m1_checked'] for x in p]}); peak "
+                f"{[x['peak_gb'] for x in p]} GB a stage, stash "
+                f"{[x['peak_stash'] for x in p]} microbatches; step "
+                f"{p[0]['step_ms_mean']:.1f} ms against "
+                f"{ref['pp']['step_ms_mean']:.1f}; comm a step "
+                f"{ {k: v / I_STEPS for k, v in p[0]['comm'].items()} } "
+                f"[{card}]")
+            half = I_PP_LAYERS // 2
+            for s_, x in enumerate(p):
+                hold(rel(x["losses"], ref["pp"]["losses"]) <= rtol,
+                     f"i3 {sched} losses {x['losses']}")
+                hold(x["m1_rel_l2"] <= H2_GRAD_RTOL,
+                     f"i3 {sched} stage {s_} {x['m1_worst']} off by "
+                     f"{x['m1_rel_l2']}")
+                want = i_train_want(K, half, micro=I_MICRO,
+                                    lm_head=s_ == 1, first=s_ == 0)
+                got = {k: x["launches"][k] for k in want}
+                hold(got == {k: c * I_STEPS for k, c in want.items()},
+                     f"i3 {sched} stage {s_}: launches {got}, want {want} "
+                     "a step")
+        g = r0["i4"]
+        calls = g["comm"]["comm_calls_total"] / I_STEPS
+        log(f"  i4 dp 2 + merge k {I_MERGE_K}: losses {g['losses']} vs one "
+            f"process's merge {ref['merge']['losses']} (rel "
+            f"{rel(g['losses'], ref['merge']['losses']):.3e}); first moments "
+            f"within {g['m1_rel_l2']:.3e}; {calls} collectives a step (the "
+            f"merged gradients' one all-reduce and the loss's mean), "
+            f"{g['comm']['comm_bytes_total'] / I_STEPS / 1e9:.3f} GB a step; "
+            f"step {g['step_ms_mean']:.1f} ms against "
+            f"{ref['merge']['step_ms_mean']:.1f} [{card}]")
+        for rk in ranks:
+            x = rk["i4"]
+            hold(rel(x["losses"], ref["merge"]["losses"]) <= rtol,
+                 f"i4 losses {x['losses']}")
+            hold(x["m1_rel_l2"] <= H2_GRAD_RTOL,
+                 f"i4 {x['m1_worst']} off by {x['m1_rel_l2']}")
+            hold(x["comm"]["comm_calls_total"] == 2 * I_STEPS,
+                 f"i4: {x['comm']['comm_calls_total']} collectives in "
+                 f"{I_STEPS} steps")
+        for cond, msg in holds:
+            require(cond, msg)
+        seconds = time.perf_counter() - t_phase
+        log(f"  phase i: references {ref_s:.1f} s, world {secs:.1f} s "
+            f"(rank 0's arms {r0['arm_s']} s, after waiting for the "
+            f"references), phase {seconds:.1f} s [{card}]")
+        paths = {"i1_tp": r0["i1"]["launches"],
+                 "i1b_tp_int8": r0["i1b"]["int8"]["launches"],
+                 "i2_ring": r0["i2_ring"]["launches"],
+                 "i2_ulysses": r0["i2_ulysses"]["launches"],
+                 "i3_gpipe_s0": ranks[0]["i3_gpipe"]["launches"],
+                 "i3_gpipe_s1": ranks[1]["i3_gpipe"]["launches"],
+                 "i3_1f1b_s0": ranks[0]["i3_1f1b"]["launches"],
+                 "i3_1f1b_s1": ranks[1]["i3_1f1b"]["launches"],
+                 "i4_merge": r0["i4"]["launches"]}
+        return paths, {"ranks": ranks, "reference": ref, "world_s": secs,
+                       "reference_s": ref_s, "seconds": seconds}
+    finally:
+        shutil.rmtree(i_dir, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -7747,6 +8396,19 @@ def main(argv=None) -> int:
         f"{info['seconds']:.2f} s (log in {args.out}/kernel_build.log)")
 
     record = {"card": card}
+    log(f"  depths: phase 5's 2-layer GPT and BERT {CARD_VS_CPU_STEPS} steps, "
+        f"phase a's spec runs {SPEC_PROMPTS} prompts, b1 {RESNET_REQUESTS} "
+        f"requests, b2 {LM_PROGRAM_LAYERS} layers, d {MOE_LAYERS} layers, "
+        f"f1-f3 {F_PROMPTS} prompts; c2's reference and h2 (e)'s killed "
+        "world run beside the other run")
+    # the seconds each phase took (since the previous mark)
+    phase_s, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
     rows = {}
     if "2" in args.phases:
         log("phase 2: kernels vs plain")
@@ -7781,6 +8443,7 @@ def main(argv=None) -> int:
         record["quantized_matmul_all_shapes"] = qmm
     # launches of each kernel on the main paths, read just after each
     paths = {}
+    mark("2")
     if "3" in args.phases:
         log("phase 3: gpt3_1p3b served by the ragged engine")
         paths["serve"], record["serve"] = serve(
@@ -7791,6 +8454,7 @@ def main(argv=None) -> int:
             torch, np, args.seed, card, args.out, record["serve"]["tokens"],
             profile=args.profile)
         torch.cuda.empty_cache()
+    mark("3")
     if "4" in args.phases:
         log("phase 4: gpt3_1p3b trained by the Executor")
         paths["train"], record["train"] = train(
@@ -7801,6 +8465,7 @@ def main(argv=None) -> int:
             torch, np, args.seed, card, args.out, profile=args.profile,
             steps=5, flash=True)
         torch.cuda.empty_cache()
+    mark("4")
     if "5" in args.phases:
         record["card_vs_cpu"] = {}
         for model, what in (("gpt", "gpt3_1p3b-width GPT"),
@@ -7852,24 +8517,28 @@ def main(argv=None) -> int:
         record["card_vs_cpu"]["se_resnext"] = card_vs_cpu_se_resnext(
             torch, np, args.seed)
         torch.cuda.empty_cache()
+    mark("5")
     if "6" in args.phases:
         log("phase 6: BERT-large pretrained under bfloat16 AMP with flash "
             "attention")
         paths["bert"], record["bert"] = train_bert(
             torch, np, args.seed, card, args.out, profile=args.profile)
         torch.cuda.empty_cache()
+    mark("6")
     if "7" in args.phases:
         base = record.get("serve", {}).get("tokens")
         qpaths, record["serve_quantized"] = serve_quantized(
             torch, np, args.seed, card, args.out, base, profile=args.profile)
         paths.update(qpaths)
         torch.cuda.empty_cache()
+    mark("7")
     if "8" in args.phases:
         log("phase 8: ResNet-50 trained by fused Momentum with L2 decay, "
             "batch 64 x 224^2")
         paths["resnet"], record["resnet"] = train_resnet(
             torch, np, args.seed, card, args.out, profile=args.profile)
         torch.cuda.empty_cache()
+    mark("8")
     if "9" in args.phases:
         log("phase 9: ResNet-50 trained under bfloat16 AMP by fused Adam, "
             "batch 64 x 224^2")
@@ -7877,6 +8546,7 @@ def main(argv=None) -> int:
             torch, np, args.seed, card, args.out, profile=args.profile,
             fp32=record.get("resnet"))
         torch.cuda.empty_cache()
+    mark("9")
     if "a" in args.phases:
         log("phase a: gpt3_1p3b served with speculative decoding")
         spaths, record["spec"] = serve_spec(
@@ -7889,6 +8559,7 @@ def main(argv=None) -> int:
                                               args.out)
         paths.update(rpaths)
         torch.cuda.empty_cache()
+    mark("a")
     if "b" in args.phases:
         log("phase b: Programs saved and served over HTTP")
         bpaths, record["http"] = serve_http(
@@ -7897,6 +8568,7 @@ def main(argv=None) -> int:
             record.get("serve", {}).get("step_ms_mean"))
         paths.update(bpaths)
         torch.cuda.empty_cache()
+    mark("b")
     if "c" in args.phases:
         try:
             log("phase c1: BERT-large under AMP + Lamb + warmup/decay, "
@@ -7911,16 +8583,19 @@ def main(argv=None) -> int:
                                                           card)
         finally:
             shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    mark("c")
     if "d" in args.phases:
         dpaths, record["phase_d"] = phase_d(torch, np, args.seed, card,
                                             args.out, args.profile)
         paths.update(dpaths)
         torch.cuda.empty_cache()
+    mark("d")
     if "e" in args.phases:
         epaths, record["phase_e"] = phase_e(torch, np, args.seed, card,
                                             args.out, args.profile)
         paths.update(epaths)
         torch.cuda.empty_cache()
+    mark("e")
     if "f" in args.phases:
         log("phase f: gpt3_1p3b served split through a page store, behind "
             "the traffic tier, and a worker pool")
@@ -7928,17 +8603,30 @@ def main(argv=None) -> int:
                                             args.out, record)
         paths.update(fpaths)
         torch.cuda.empty_cache()
+    mark("f")
     if "g" in args.phases:
         log("phase g: the data tiers")
         gpaths, record["phase_g"] = phase_g(torch, np, args.seed, card,
                                             args.out, args.profile)
         paths.update(gpaths)
         torch.cuda.empty_cache()
+    mark("g")
     if "h" in args.phases:
         hpaths, record["phase_h"] = phase_h(torch, np, args.seed, card,
                                             args.out, record)
         paths.update(hpaths)
         torch.cuda.empty_cache()
+    mark("h")
+    if "i" in args.phases:
+        log("phase i: tensor, sequence and pipeline parallelism, a world of "
+            "2 on one card over gloo")
+        ipaths, record["phase_i"] = phase_i(torch, np, args.seed, card,
+                                            args.out)
+        paths.update(ipaths)
+        torch.cuda.empty_cache()
+    mark("i")
+    record["phase_seconds"] = phase_s
+    log(f"seconds a phase: {phase_s} [{card}]")
     launches = {name: {p: c.get(name, 0) for p, c in paths.items()}
                 for name in K.KERNELS}
     record["launches"] = launches
@@ -7946,7 +8634,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g and h)")
+        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h and i)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"
@@ -8038,6 +8726,8 @@ if __name__ == "__main__":
             sys.exit(h2_child(sys.argv[2:]))
         if sys.argv[1:2] == ["--h2-elastic"]:
             sys.exit(h2_elastic_child(sys.argv[2:]))
+        if sys.argv[1:2] == ["--i-child"]:
+            sys.exit(i_child(sys.argv[2:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)

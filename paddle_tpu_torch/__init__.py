@@ -164,10 +164,15 @@ Ported so far:
       fleet.distributed_optimizer(fluid.optimizer.Adam(1e-3)).minimize(loss)
       exe.run(fleet.main_program, feed=local_batch, fetch_list=[loss])
 
+Tensor, sequence and pipeline parallelism run on the same world:
+``with_partitioning`` over a ``tp`` axis (Megatron specs, from
+``models.gpt.apply_gpt_megatron_sharding`` or the logical-axis rules),
+``with_sequence_parallel(sp, mode="ring" | "ulysses")`` and
+``PipelineOptimizer`` + ``with_pipeline`` (GPipe or 1F1B).
+
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
-ported yet (ROADMAP A): tensor, sequence and pipeline parallelism
-(A10b) and the long tail (A11: ``StaticRNN`` / ``DynamicRNN``, HDFS,
-autotune and the rest).
+ported yet (ROADMAP A): the long tail (A11: ``StaticRNN`` /
+``DynamicRNN``, HDFS, autotune and the rest).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of

@@ -27,11 +27,20 @@ before the optimizer is the cross-replica mean (the planner's contract,
 ``paddle_tpu/parallel/collectives.py:29-33``); any other fetch is the
 rank's own value.
 
-Each compile takes exactly one ``with_*`` strategy. Tensor, sequence
-and pipeline parallelism are ROADMAP A10b: ``with_sequence_parallel``,
-``with_pipeline`` and a partition with a tensor-parallel axis larger
-than 1 raise, naming it. ``validate`` needs the static analyzer
-(ROADMAP A11).
+* ``with_partitioning`` over a mesh with a ``tp`` axis: Megatron
+  tensor parallelism from the specs (``runtime/tp_plan.py``): each rank
+  holds its shards of the split parameters and accumulators, and the
+  ranks of one ``dp`` index feed the same rows;
+* ``with_sequence_parallel``: dim 1 of the ``[B, S, ...]`` feeds split
+  over an ``sp`` axis, attention by the ring or by Ulysses; a rank
+  feeds its own positions (its slice of dim 1);
+* ``with_pipeline``: the stages of a ``PipelineOptimizer`` program over
+  a ``pp`` axis, a rank a stage, GPipe or 1F1B
+  (``core/pipeline_program.py``); every rank feeds the same batch (its
+  ``dp`` shard of it with ``dp``).
+
+Each compile takes exactly one ``with_*`` strategy. ``validate`` needs
+the static analyzer (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -80,12 +89,6 @@ class ExecutionStrategy:
         self.num_iteration_per_drop_scope = 1
         self.num_iteration_per_run = 1
         self.allow_op_delay = False
-
-
-def _refuse_a10b(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to paddle_tpu_torch yet (ROADMAP A10b: "
-        "tensor, sequence and pipeline parallelism)")
 
 
 class CompiledProgram:
@@ -182,10 +185,10 @@ class CompiledProgram:
                           **kwargs) -> "CompiledProgram":
         """The logical-axis-rules partitioner over the world: resolve
         the feeds', parameters' and accumulators' specs from the
-        config's rules over its mesh and attach them to this compile.
-        This slice runs the ``dp`` axis and ZeRO; a mesh axis other than
-        ``dp`` larger than 1 raises (ROADMAP A10b). The resolve report
-        is kept on ``self.partition`` and exported as
+        config's rules over its mesh and attach them to this compile:
+        the ``dp`` axis with ZeRO, and a ``tp`` axis (Megatron tensor
+        parallelism, ``runtime/tp_plan.py``). The resolve report is
+        kept on ``self.partition`` and exported as
         ``paddle_partition_*`` gauges."""
         from ..partition import PartitionConfig
 
@@ -195,12 +198,6 @@ class CompiledProgram:
             raise ValueError(
                 "with_partitioning: pass a PartitionConfig OR keyword "
                 "arguments for one, not both")
-        big = {a: n for a, n in config.mesh_axes.items()
-               if a != "dp" and n > 1}
-        if big:
-            _refuse_a10b(f"with_partitioning over the mesh axes {big} "
-                         "(a partition with a tensor-parallel axis larger "
-                         "than 1)")
         self._claim_strategy("with_partitioning")
         mesh = config.build_mesh(devices)
         if config.collectives_active():
@@ -225,8 +222,39 @@ class CompiledProgram:
 
     def with_sequence_parallel(self, sp: int, dp: int = 1, places=None,
                                mode: str = "ring") -> "CompiledProgram":
-        _refuse_a10b("CompiledProgram.with_sequence_parallel (ring and "
-                     "ulysses attention over an sp axis)")
+        """Sequence (context) parallelism: dim 1 of the ``[B, S, ...]``
+        data vars split over an ``sp`` axis, optionally with a ``dp``
+        axis around it (the world is ``dp * sp`` ranks). The
+        ``flash_attention`` op runs one of two strategies:
+
+          mode="ring"    — K/V shards rotate around the ring
+                           (parallel/ring_attention.py); any head
+                           count, sp-1 K/V rotations;
+          mode="ulysses" — all-to-all head<->sequence exchange
+                           (parallel/ulysses.py); needs heads % sp == 0
+                           (else the ring, with a warning).
+
+        Only data vars whose dim 1 divides by ``sp`` are split; the
+        rest (a ``[B, 1]`` label) stay whole on that dim. A rank feeds
+        its own slice of dim 1 (of its dp shard of dim 0)."""
+        if mode not in ("ring", "ulysses"):
+            raise ValueError(f"with_sequence_parallel: mode must be "
+                             f"'ring' or 'ulysses', got {mode!r}")
+        self._claim_strategy("with_sequence_parallel")
+        self._axis_env = {"sp_mode": mode}
+        self._mesh = self._axis_mesh("sp", sp, dp)
+        shardings = {}
+        for v in self._program.global_block().vars.values():
+            if not (getattr(v, "is_data", False) and v.shape):
+                continue
+            lead = "dp" if dp > 1 else None
+            if len(v.shape) >= 2 and v.shape[1] > 0 and v.shape[1] % sp == 0:
+                shardings[v.name] = ((lead, "sp")
+                                     + (None,) * (len(v.shape) - 2))
+            elif lead:
+                shardings[v.name] = (lead,) + (None,) * (len(v.shape) - 1)
+        self._in_shardings = shardings
+        return self
 
     def with_expert_parallel(self, ep: int, dp: int = 1, places=None,
                              dispatch: str = "psum") -> "CompiledProgram":
@@ -280,8 +308,57 @@ class CompiledProgram:
 
     def with_pipeline(self, places=None, dp: int = 1,
                       mp: int = 1) -> "CompiledProgram":
-        _refuse_a10b("CompiledProgram.with_pipeline (the GPipe / 1F1B "
-                     "schedule over a pp axis)")
+        """A mesh whose ``pp`` axis is the program's pipeline stages
+        (``PipelineOptimizer`` cut_list), a rank a stage; the step runs
+        the GPipe or 1F1B schedule (``core/pipeline_program.py``).
+        ``dp`` adds a data-parallel axis around the pipeline (the world
+        is ``dp * pp`` ranks, rank = dp index * pp + stage): the ranks of
+        one stage average their gradients.
+
+        ``mp`` (tensor parallelism inside a pipelined stage) is refused,
+        as in the JAX package: tensor parallelism inside pipeline stages
+        takes ``parallel.pipeline.pipeline_train_step_3d``, whose stage
+        function runs its own collectives."""
+        from ..parallel.env import get_world_size
+        from ..parallel.mesh import make_mesh, world_group
+
+        if mp > 1:
+            raise NotImplementedError(
+                "with_pipeline(mp=...): tensor parallelism inside "
+                "pipelined stages requires manual collectives — use "
+                "parallel.pipeline.pipeline_train_step_3d, or compose "
+                "with_pipeline(dp=...) with megatron sharding OUTSIDE "
+                "a pipeline (plain pjit path)")
+        cuts = getattr(self._program, "_pipeline_cuts", None)
+        if not cuts:
+            raise ValueError(
+                "program has no pipeline cuts — minimize with "
+                "PipelineOptimizer(cut_list=...) first")
+        if dp > 1:
+            for v in self._program.global_block().vars.values():
+                if not (getattr(v, "is_data", False) and v.shape):
+                    continue
+                lead = v.shape[0]
+                if lead is not None and lead > 0 and lead % dp:
+                    raise ValueError(
+                        f"with_pipeline(dp={dp}): data var {v.name!r} has "
+                        f"leading (batch) dim {lead}, not divisible by "
+                        f"dp={dp} — adjust the batch size or dp")
+        self._claim_strategy("with_pipeline")
+        n = len(cuts) + 1
+        need = n * dp
+        have = get_world_size() if world_group() is not None else 1
+        if have < need:
+            raise ValueError(
+                f"pipeline needs pp*dp={need} devices, have {have}")
+        self._mesh = make_mesh({"dp": dp, "pp": n} if dp > 1 else {"pp": n})
+        self._in_shardings = {}
+        if dp > 1:
+            for v in self._program.global_block().vars.values():
+                if getattr(v, "is_data", False) and v.shape:
+                    self._in_shardings[v.name] = \
+                        ("dp",) + (None,) * (len(v.shape) - 1)
+        return self
 
     def validate(self, fetch_list=None, strict: bool = False):
         raise NotImplementedError(

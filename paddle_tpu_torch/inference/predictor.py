@@ -29,8 +29,12 @@ the reference:
   ``quantized_fc`` / ``quantized_matmul`` ops, K11 on the card) and
   ``quantize_report`` says what was quantized and why anything stayed
   float.
-* ``enable_partitioning`` raises: sharding a predictor over a
-  tensor-parallel mesh is ROADMAP A10b.
+* ``enable_partitioning(mesh_axes={"tp": N})`` runs the Program through
+  ``CompiledProgram.with_partitioning``: the ranks of a world of N (one
+  process a device, started by the launcher) each hold their shards of
+  the tagged weights (quantized ones included) and run every request
+  tensor-parallel on the same feed (``runtime/tp_plan.py``); every rank
+  gets the whole outputs.
 
 A directory holding a ``build_lm_program`` GPT also gets ``pred.lm``
 (the ``GPTLM`` module the generation engine steps and the
@@ -88,6 +92,7 @@ class Config:
         self._batch_buckets = ()
         self._pad_batch = True
         self._quantize_weights: Optional[str] = None  # None: the flag
+        self._partition = None
         self.gpt_config: Optional[GPTConfig] = None
         self.params: Optional[Dict[str, object]] = None
 
@@ -128,11 +133,23 @@ class Config:
         self._pad_batch = pad_batch
         return self
 
-    def enable_partitioning(self, config=None, **kwargs):
-        raise NotImplementedError(
-            "Config.enable_partitioning (a predictor sharded over a device "
-            "mesh) is not ported to paddle_tpu_torch yet: ROADMAP queue A10b "
-            "(tensor parallelism)")
+    def enable_partitioning(self, config=None, **kwargs) -> "Config":
+        """Shard this predictor over a device mesh by the logical-axis-
+        rules partitioner (``partition.PartitionConfig``): with
+        ``mesh_axes={"tp": N}`` the tagged weights (heads / mlp / vocab
+        axes) are held tensor-parallel over the N ranks of the world.
+        ``config`` is a PartitionConfig, or pass its keyword arguments;
+        defaults come from the ``partition_*`` flags."""
+        from ..partition import PartitionConfig
+
+        if config is None:
+            config = PartitionConfig(**kwargs)
+        elif kwargs:
+            raise ValueError(
+                "enable_partitioning: pass a PartitionConfig OR keyword "
+                "arguments for one, not both")
+        self._partition = config
+        return self
 
     def enable_weight_quantization(self, mode: str = "int8") -> "Config":
         """Quantize every eligible matmul weight once at load: ``mode``
@@ -217,6 +234,22 @@ class Predictor:
                       for n in self._feed_names}
         if qmode and qmode != "off":
             self.quantize(qmode, block)
+        # the program bound: plain, or under enable_partitioning a
+        # CompiledProgram carrying the mesh and the specs, so the same
+        # bound-step path runs a request tensor-parallel
+        self._run_program = self._program
+        self.partition = None
+        if config._partition is not None:
+            if self._program is None:
+                raise ValueError(
+                    "enable_partitioning shards a saved Program; a "
+                    "Config.set_params predictor has none")
+            from ..core.compiler import CompiledProgram
+
+            cp = CompiledProgram(self._program).with_partitioning(
+                config._partition)
+            self._run_program = cp
+            self.partition = cp.partition
         self._fetch_names = fetch_names
         self._inputs = {n: _Tensor(n, static[n]) for n in self._feed_names}
         self._outputs = {n: _Tensor(n) for n in fetch_names}
@@ -410,7 +443,7 @@ class Predictor:
             with self._bind_lock:
                 bound = self._bindings.get(key)
                 if bound is None:
-                    bound = self._exe.bind(self._program, feed,
+                    bound = self._exe.bind(self._run_program, feed,
                                            self._fetch_vars,
                                            scope=self._scope,
                                            tag=self.bind_tag)

@@ -636,10 +636,13 @@ def _save_checkpoint_multihost(path, arrays, extra, rank, world,
             val = (to_numpy(val) if isinstance(val, torch.Tensor)
                    else np.asarray(val))
             if sh.writer:
-                lo, hi = sh.bounds()
-                idx = ";".join(f"{lo}-{hi}" if d == sh.dim else f"0-{n}"
-                               for d, n in enumerate(sh.shape))
-                mine[f"{name}@{idx}"] = val
+                k = 0
+                for lo, hi in sh.pieces():
+                    idx = ";".join(f"{lo}-{hi}" if d == sh.dim else f"0-{n}"
+                                   for d, n in enumerate(sh.shape))
+                    mine[f"{name}@{idx}"] = np.take(
+                        val, np.arange(k, k + hi - lo), axis=sh.dim)
+                    k += hi - lo
             meta_vars[name] = {"shape": [int(d) for d in sh.shape],
                                "dtype": str(val.dtype), "sharded": True}
             continue

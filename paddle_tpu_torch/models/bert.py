@@ -6,9 +6,10 @@ same program as the JAX package (``bert.py:32-229``).
 
 Attention is the fused ``flash_attention`` op with the [B, S] key mask
 (``use_flash_attention``) or the op-graph
-``nets.scaled_dot_product_attention`` with ``padding_mask``. Megatron
-sharding (``apply_megatron_sharding``) is tensor parallelism, not
-ported (ROADMAP A10b).
+``nets.scaled_dot_product_attention`` with ``padding_mask``.
+``apply_megatron_sharding`` stamps the JAX package's Megatron specs
+(``bert.py:187-212``), which ``CompiledProgram.with_partitioning`` over
+a mesh with that axis runs tensor-parallel (``runtime/tp_plan.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from ..initializer import NormalInitializer
 from ..kernels.flash_attention import flash_attention_layer
 from ..param_attr import ParamAttr
 
-__all__ = ["BertConfig", "build_bert_pretrain", "synthetic_batch"]
+__all__ = ["BertConfig", "build_bert_pretrain", "synthetic_batch",
+           "apply_megatron_sharding"]
 
 
 @dataclasses.dataclass
@@ -178,6 +180,35 @@ def build_bert_pretrain(
         "loss": loss, "logits": logits,
         "encoder_outputs": encoder_outputs,
     }
+
+
+def apply_megatron_sharding(program: Program, mp_axis: str = "mp",
+                            dp_axis: str = "dp"):
+    """Annotate params with specs: column-parallel QKV / FFN-in (the
+    output dim split), row-parallel proj / FFN-out (the input dim
+    split), vocabulary-parallel embedding and LM head; the optimizer
+    accumulators inherit their parameter's spec where the shapes
+    match."""
+    gb = program.global_block()
+    for name, var in gb.vars.items():
+        if not getattr(var, "persistable", False) or var.shape is None:
+            continue
+        if name.endswith("_qkv.w") or name.endswith("_ffn1.w"):
+            var.sharding = (None, mp_axis)
+        elif name.endswith("_qkv.b") or name.endswith("_ffn1.b"):
+            var.sharding = (mp_axis,)
+        elif name.endswith("_proj.w") or name.endswith("_ffn2.w"):
+            var.sharding = (mp_axis, None)
+        elif name in ("word_embedding", "lm_head.w"):
+            var.sharding = ((mp_axis, None) if name == "word_embedding"
+                            else (None, mp_axis))
+    for name, var in gb.vars.items():
+        owner = getattr(var, "accumulator_owner", None)
+        if owner and owner in gb.vars:
+            base = gb.vars[owner]
+            if base.sharding is not None and var.shape == base.shape:
+                var.sharding = base.sharding
+    return program
 
 
 def synthetic_batch(rng: np.random.RandomState, batch: int, seq_len: int,

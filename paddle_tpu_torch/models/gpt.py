@@ -22,7 +22,8 @@ from ..initializer import NormalInitializer
 from ..kernels.flash_attention import flash_attention_layer
 from ..param_attr import ParamAttr
 
-__all__ = ["GPTConfig", "build_gpt_lm", "synthetic_lm_batch"]
+__all__ = ["GPTConfig", "build_gpt_lm", "synthetic_lm_batch",
+           "apply_gpt_megatron_sharding"]
 
 
 @dataclasses.dataclass
@@ -190,6 +191,35 @@ def build_gpt_lm(cfg: GPTConfig, seq_len: int, optimizer=None, is_test=False):
     return main, startup, {"tokens": tokens, "labels": labels}, {
         "loss": loss, "logits": logits,
     }
+
+
+def apply_gpt_megatron_sharding(program: Program, mp_axis: str = "mp"):
+    """Column-parallel qkv / ffn1, row-parallel proj / ffn2,
+    vocabulary-parallel embedding and head (``paddle_tpu/models/gpt.py:
+    198-229``): the same specs as ``models.bert.apply_megatron_sharding``.
+    Suffix matches, so an accumulator (``<param>_<acc>_0``) is never
+    tagged by name; accumulators inherit their parameter's spec where
+    the shapes match (moments yes, the scalar beta powers no)."""
+    block = program.global_block()
+    for name, v in block.vars.items():
+        if v.sharding is not None or not getattr(v, "persistable", False):
+            continue
+        if name.endswith("_qkv.w") or name.endswith("_ffn1.w"):
+            v.sharding = (None, mp_axis)
+        elif name.endswith("_qkv.b") or name.endswith("_ffn1.b"):
+            v.sharding = (mp_axis,)
+        elif name.endswith("_proj.w") or name.endswith("_ffn2.w"):
+            v.sharding = (mp_axis, None)
+        elif name in ("gpt_tok_emb", "gpt_head.w"):
+            v.sharding = ((None, mp_axis) if name == "gpt_head.w"
+                          else (mp_axis, None))
+    for name, v in block.vars.items():
+        owner = getattr(v, "accumulator_owner", None)
+        if owner and owner in block.vars:
+            base = block.vars[owner]
+            if base.sharding is not None and v.shape == base.shape:
+                v.sharding = base.sharding
+    program._bump()
 
 
 def synthetic_lm_batch(rng: np.random.RandomState, batch: int, seq_len: int,

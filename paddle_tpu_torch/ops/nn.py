@@ -127,8 +127,11 @@ def _flash_attention_op(ctx, op, ins):
     so the grad op's ``torch.autograd.grad`` reaches the backward
     kernels. mask_type "binary" maps 1 / 0 to 0 / NEG_INF, "additive"
     adds the values as they are; under AMP the mask arrives as bfloat16.
-    The sequence-parallel (ring / Ulysses) and mesh-wrapped routes of
-    the reference are distribution work, not ported (ROADMAP A10b)."""
+    Under sequence parallelism the op takes the ring or Ulysses route
+    (``runtime/tp_plan.py``, JAX's :994-1033), under tensor parallelism
+    it runs on the rank's heads; the JAX package's mesh wrapping of its
+    Mosaic calls (``kernels/mesh_wrap.py``) has no counterpart here:
+    every kernel already runs on the rank's own tensors."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     h = int(op.attrs["num_heads"])
     causal = bool(op.attrs.get("causal", False))

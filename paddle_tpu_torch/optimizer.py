@@ -36,8 +36,10 @@ gradient collectives when the ``collective_*`` flags ask
 (``parallel.collectives.ensure_planned``, as the reference's seam at
 :215-221 does).
 
-Not ported yet, refused by name with the ROADMAP item that holds it
-(``_NOT_PORTED``): ``PipelineOptimizer`` (A10b), and the dygraph path.
+``PipelineOptimizer`` (:1160-1234) stamps the pipeline cuts, the
+microbatch count and the schedule on the Program; a ``CompiledProgram.
+with_pipeline`` step runs it a stage a rank (``core/pipeline_program.
+py``). Not ported: the dygraph path.
 """
 
 from __future__ import annotations
@@ -73,20 +75,9 @@ __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
            "FtrlOptimizer", "Lamb", "LambOptimizer",
            "ExponentialMovingAverage", "ModelAverage", "RecomputeOptimizer",
            "LookaheadOptimizer", "GradientMergeOptimizer",
-           "DGCMomentumOptimizer"]
-
-# the reference's meta-optimizers (paddle_tpu/optimizer.py __all__)
-# still to port, refused by name with what each waits for
-_NOT_PORTED = {
-    "PipelineOptimizer": "ROADMAP A10b: pipeline parallelism",
-}
-
+           "DGCMomentumOptimizer", "PipelineOptimizer"]
 
 def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer.{name} is not ported to paddle_tpu_torch yet "
-            f"({_NOT_PORTED[name]})")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -977,3 +968,70 @@ class GradientMergeOptimizer:
 
     def __getattr__(self, item):
         return getattr(self.inner_optimizer, item)
+
+
+class PipelineOptimizer:
+    """The reference's PipelineOptimizer (optimizer.py:3414): ``cut_list``
+    marks where the program's forward splits into stages. Run through
+    ``CompiledProgram(...).with_pipeline()`` on a world of one rank a
+    stage, the step runs the GPipe or 1F1B schedule over the ``pp``
+    axis (``core/pipeline_program.py``); run plainly, the program
+    trains unpipelined. ``num_microbatches`` splits each feed's batch;
+    ``schedule`` is "gpipe" or "1f1b". A forward that writes
+    persistable vars (train-mode batch norm's running statistics) is
+    refused at ``minimize``: a per-microbatch write on one stage has no
+    merged value."""
+
+    def __init__(self, optimizer, cut_list=None, place_list=None,
+                 concurrency_list=None, queue_size=30, sync_steps=1,
+                 start_cpu_core_id=0, num_microbatches=4,
+                 schedule="gpipe"):
+        if schedule not in ("gpipe", "1f1b"):
+            raise ValueError(
+                f"schedule must be 'gpipe' or '1f1b', got {schedule!r}")
+        self._optimizer = optimizer
+        self._cut_list = cut_list
+        self._num_microbatches = int(num_microbatches)
+        self._schedule = schedule
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .parallel.collectives import suppress_planning
+
+        # the schedule owns the gradient flow: the flag-gated planner
+        # must not bucket a program whose cuts are stamped after this
+        with suppress_planning():
+            out = self._optimizer.minimize(loss, startup_program,
+                                           parameter_list, no_grad_set)
+        cuts = []
+        for c in self._cut_list or []:
+            for v in (c if isinstance(c, (list, tuple)) else [c]):
+                n = v.name if isinstance(v, Variable) else str(v)
+                if n not in cuts:
+                    cuts.append(n)
+        if cuts:
+            program = loss.block.program
+            blk = loss.block
+            bad = sorted({
+                n for op in blk.ops
+                if int(op.attrs.get("op_role", 0))
+                & (OpRole.Backward | OpRole.Optimize | OpRole.LRSched) == 0
+                for n in op.output_arg_names
+                if blk.has_var(n) and getattr(blk.var(n), "persistable",
+                                              False)})
+            if bad:
+                raise NotImplementedError(
+                    f"PipelineOptimizer: the forward writes persistable "
+                    f"vars {bad} — per-microbatch state writes (e.g. "
+                    "train-mode batch_norm running stats) are not "
+                    "supported under pipelining; use "
+                    "batch_norm(use_global_stats=True) or move the op "
+                    "out of the pipelined region")
+            program._pipeline_cuts = cuts
+            program._pipeline_microbatches = self._num_microbatches
+            program._pipeline_schedule = self._schedule
+            program._bump()
+        return out
+
+    def __getattr__(self, item):
+        return getattr(self._optimizer, item)

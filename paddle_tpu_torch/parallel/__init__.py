@@ -1,9 +1,9 @@
 """Distributed training over ``torch.distributed``: the world
 (``env``), meshes and rings (``mesh``), the collective layer (``comm``),
 the gradient-collective planner (``collectives``), ZeRO
-(``sharding``) and the fleet API (``fleet``). The port's counterpart of
-``paddle_tpu/parallel``; tensor, sequence and pipeline parallelism are
-ROADMAP A10b.
+(``sharding``), the fleet API (``fleet``), ring and Ulysses attention
+(``ring_attention``, ``ulysses``) and the pipeline schedules
+(``pipeline``). The port's counterpart of ``paddle_tpu/parallel``.
 """
 
 from .env import ParallelEnv, get_rank, get_world_size, init_parallel_env

@@ -16,9 +16,27 @@ The counters (calls, bytes handed to collectives, seconds spent
 blocked in a collective or its ``wait``) export as the
 ``paddle_collective_*{plan=}`` series of one more plan (``STATS``).
 
-The autograd forms (``reduce_from``, ``copy_to``, ``all_reduce_sum``,
-``all_to_all_autograd``) carry gradients through the expert-parallel
-MoE."""
+``permute`` moves one tensor a rank along a group's ring (``lax.
+ppermute``): rank r sends to r + shift and receives from r - shift; with
+``ring=False`` the ranks off the ends send or receive nothing. It is
+one ``all_to_all_single`` with uneven splits (the tensor in the peer's
+slot, empty slots elsewhere), so every rank of the group calls it
+together, and its bytes count in the same counters. Point-to-point
+``send`` / ``recv`` would be the natural form, but gloo writes a CUDA
+tensor's device address to its socket (``writev``: Bad address, which
+breaks the pair for every later collective) where its collectives copy
+through host memory themselves (``probes/gloo_cuda.py``, PERF.md §6).
+
+The autograd forms carry gradients through the distributed layers:
+``reduce_from`` / ``copy_to`` (Megatron's g / f pair: the tensor-
+parallel row and column linears, the expert-parallel MoE),
+``all_reduce_sum``, ``all_to_all_autograd`` (the MoE's dispatch,
+Ulysses' head/sequence exchange), ``permute_autograd`` (its backward
+permutes the other way: ring attention, the pipeline's activations),
+``gather_dim`` (all-gather along a dim, the rank's slice backward: the
+vocabulary-parallel head) and ``scatter_dim`` (the rank's slice
+forward, all-gather backward: a replicated value entering a split
+computation)."""
 
 from __future__ import annotations
 
@@ -30,7 +48,8 @@ import torch
 __all__ = ["group_size", "group_rank", "all_reduce", "wait", "broadcast",
            "all_gather", "reduce_scatter", "all_to_all", "STATS",
            "reduce_from", "copy_to", "all_reduce_sum",
-           "all_to_all_autograd"]
+           "all_to_all_autograd", "permute", "permute_autograd",
+           "gather_dim", "scatter_dim"]
 
 
 class _Stats:
@@ -172,7 +191,37 @@ def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
-# -- autograd forms (the expert-parallel MoE) ---------------------------------
+def permute(t: torch.Tensor, group=None, shift: int = 1,
+            ring: bool = True) -> torch.Tensor:
+    """Rank r of ``group`` sends ``t`` to rank r + ``shift`` and returns
+    what rank r - ``shift`` sent (every rank's ``t`` has one shape and
+    dtype). ``ring``: the ranks wrap around; otherwise a rank whose
+    peer would lie off the ends sends nothing, or receives zeros.
+    Every rank of the group calls it together."""
+    if group is None:
+        return t if ring else torch.zeros_like(t)
+    n, r = group_size(group), group_rank(group)
+    dst, src = r + shift, r - shift
+    if ring:
+        dst, src = dst % n, src % n
+    flat = t.contiguous().reshape(-1)
+    k = flat.numel()
+    ins, outs = [0] * n, [0] * n
+    if 0 <= dst < n:
+        ins[dst] = k
+    if 0 <= src < n:
+        outs[src] = k
+    out = flat.new_empty(sum(outs))
+    t0 = time.perf_counter()
+    _dist().all_to_all_single(out, flat if sum(ins) else flat[:0], outs,
+                              ins, group=group)
+    STATS.add(_nbytes(flat) if sum(ins) else 0, time.perf_counter() - t0)
+    if not sum(outs):
+        return torch.zeros_like(t)
+    return out.reshape(t.shape)
+
+
+# -- autograd forms -------------------------------------------------------------
 
 
 class _AllReduce(torch.autograd.Function):
@@ -225,3 +274,68 @@ class _AllToAll(torch.autograd.Function):
 
 def all_to_all_autograd(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _AllToAll.apply(x, group)
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift, ring):
+        ctx.group, ctx.shift, ctx.ring = group, shift, ring
+        return permute(x, group, shift, ring)
+
+    @staticmethod
+    def backward(ctx, g):
+        return permute(g, ctx.group, -ctx.shift, ctx.ring), None, None, None
+
+
+def permute_autograd(x: torch.Tensor, group, shift: int = 1,
+                     ring: bool = True) -> torch.Tensor:
+    """``permute`` whose backward sends the gradient back the other
+    way."""
+    return _Permute.apply(x, group, shift, ring)
+
+
+def _gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    if dim == 0:
+        return all_gather(t, group)
+    return all_gather(t.movedim(dim, 0), group).movedim(0, dim).contiguous()
+
+
+def _slice(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n, r = group_size(group), group_rank(group)
+    k = t.shape[dim] // n
+    return t.narrow(dim, r * k, k).contiguous()
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.dim, ctx.group), None, None
+
+
+class _ScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _slice(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' tensors concatenated along ``dim`` forward; this
+    rank's slice of the gradient backward (every rank then computes
+    alike on the whole value)."""
+    return x if group is None else _GatherDim.apply(x, dim, group)
+
+
+def scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice of ``dim`` of a value every rank holds alike;
+    backward, the ranks' gradient slices concatenated."""
+    return x if group is None else _ScatterDim.apply(x, dim, group)

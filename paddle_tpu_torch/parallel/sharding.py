@@ -22,7 +22,9 @@ rank holds, and whether it writes it to a checkpoint) is recorded here
 from __future__ import annotations
 
 import weakref
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
 
 __all__ = ["shard_optimizer_states", "Shard", "set_layout", "layout"]
 
@@ -71,21 +73,41 @@ def shard_optimizer_states(program, dp_size: int, axis: str = "dp",
 class Shard(NamedTuple):
     """One var held as a chunk: ``dim`` split in ``parts``, this rank
     holding chunk ``index`` of a value of ``shape``; ``writer``: this
-    rank writes the chunk to a checkpoint (one rank a chunk)."""
+    rank writes the chunk to a checkpoint (one rank a chunk).
+
+    ``groups`` > 1 cuts ``dim`` as ``groups`` equal runs, each split in
+    ``parts``: the rank holds chunk ``index`` of every run, side by
+    side. A fused projection whose output is split into ``groups``
+    tensors (the ``[q | k | v]`` columns of a ``3h`` linear) is cut so,
+    and each rank then owns ``[q_r | k_r | v_r]``, which the split of
+    its local output gives back as its own q, k and v."""
     dim: int
     parts: int
     index: int
     shape: Tuple[int, ...]
     writer: bool
+    groups: int = 1
+
+    def pieces(self) -> List[Tuple[int, int]]:
+        """The [lo, hi) ranges of ``dim`` this rank holds, in order."""
+        run = self.shape[self.dim] // self.groups
+        n = run // self.parts
+        return [(g * run + self.index * n, g * run + (self.index + 1) * n)
+                for g in range(self.groups)]
 
     def bounds(self) -> Tuple[int, int]:
-        n = self.shape[self.dim] // self.parts
-        return self.index * n, (self.index + 1) * n
+        if self.groups != 1:
+            raise ValueError("an interleaved chunk has several ranges: "
+                             "use pieces()")
+        return self.pieces()[0]
 
     def take(self, full):
         """This rank's chunk of the whole value ``full`` (a copy)."""
-        lo, hi = self.bounds()
-        return full.narrow(self.dim, lo, hi - lo).contiguous().clone()
+        parts = [full.narrow(self.dim, lo, hi - lo)
+                 for lo, hi in self.pieces()]
+        if len(parts) == 1:
+            return parts[0].contiguous().clone()
+        return torch.cat(parts, dim=self.dim).contiguous()
 
 
 _LAYOUTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()

@@ -13,8 +13,8 @@ A rules table maps logical tensor axes (``batch``, ``embed``,
     compiled = fluid.CompiledProgram(main).with_partitioning(cfg)
     exe.run(compiled, feed=local_batch, fetch_list=[loss])
 
-This slice executes the ``dp`` axis and ZeRO; tensor parallelism over
-a ``tp`` axis is ROADMAP A10b (``resolve`` reports its specs already).
+The step executes the ``dp`` axis with ZeRO and a ``tp`` axis (Megatron
+tensor parallelism, ``runtime/tp_plan.py``).
 """
 
 from .config import PartitionConfig, ResolvedPartition

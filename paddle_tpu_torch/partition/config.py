@@ -23,7 +23,8 @@ parameters too.
 The mesh of a resolve is a ``parallel.mesh.Mesh`` over the world, or
 for a resolve alone any {axis: size} mapping. Executing a resolved
 partition (``CompiledProgram.with_partitioning``) runs its ``dp`` axis
-and ZeRO in this slice (``runtime/dist_step.py``).
+with ZeRO and its ``tp`` axis (``runtime/dist_step.py``,
+``runtime/tp_plan.py``).
 """
 
 from __future__ import annotations

@@ -33,8 +33,10 @@ holds raises.
 Opt-in is the ``quantize_weights`` flag ("off" | "int8" | "int8_block"
 | "fp8"), read at Predictor construction
 (``Config.enable_weight_quantization`` overrides it per instance) and by
-the GenerationEngine (``quantize_weights=``). The partition tags the
-JAX rewrite stamps onto the quantized vars belong to ROADMAP A10b.
+the GenerationEngine (``quantize_weights=``). The quantized weight and
+its scale plane inherit the float weight's partition tags, as the JAX
+rewrite stamps them, so a tensor-parallel Predictor runs K11 on each
+rank's shards.
 
 ``calibrate`` (``paddle_tpu/quantize/__init__.py:362``) puts one
 ``moving_average_abs_max_scale`` observer (``ops/quant.py``) on the X
@@ -255,11 +257,23 @@ def _rewrite_program(program, scope, wdtype: str = "int8",
             scope.erase(name)
         if not gb.has_var(qname):
             qdtype = "float8_e4m3fn" if wdtype == "fp8" else "int8"
-            gb.create_parameter(qname, list(shape), qdtype, trainable=False,
-                                stop_gradient=True)
-            gb.create_parameter(sname, list(scale_shape(shape, wdtype, block)),
-                                "float32", trainable=False,
-                                stop_gradient=True)
+            qv = gb.create_parameter(qname, list(shape), qdtype,
+                                     trainable=False, stop_gradient=True)
+            sv = gb.create_parameter(
+                sname, list(scale_shape(shape, wdtype, block)), "float32",
+                trainable=False, stop_gradient=True)
+            # tensor parallelism composes: the quantized weight inherits
+            # the float weight's partition tags, and its scale plane
+            # shards with the output-channel axis (its last dim tracks
+            # N), as the JAX rewrite stamps them (:310-335)
+            src = gb.var(name) if gb.has_var(name) else None
+            for kind in ("logical_axes", "sharding"):
+                tags = getattr(src, kind, None)
+                if tags is not None and len(tags) == 2:
+                    setattr(qv, kind, tuple(tags))
+                    setattr(sv, kind, ((None, tags[1])
+                                       if wdtype == "int8_block"
+                                       else (tags[1],)))
         for op, _role in consumers:
             if op.type == "mul":
                 op.type = "quantized_fc"

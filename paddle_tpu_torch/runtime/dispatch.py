@@ -174,7 +174,7 @@ class BoundStep:
 
     __slots__ = ("executor", "plan", "block", "scope", "seed", "tag",
                  "feed_plan", "fetch_names", "state_vals", "state_pos",
-                 "scope_gen", "merge", "dist", "__weakref__")
+                 "scope_gen", "merge", "dist", "pipe", "__weakref__")
 
     def __init__(self, executor, plan: _Plan, block: Block, scope, seed: int,
                  feed_names: Sequence[str], fetch_names: Sequence[str],
@@ -203,16 +203,24 @@ class BoundStep:
         # a CompiledProgram's world side (runtime/dist_step.py); None
         # when nothing crosses a process
         self.dist = None
-        if compiled is not None and compiled._mesh is not None:
+        # a with_pipeline compile's stage schedule
+        # (core/pipeline_program.py)
+        self.pipe = None
+        if compiled is not None and compiled._strategy == "with_pipeline":
+            from ..core.pipeline_program import PipelineStep
+
+            if self.merge is not None:
+                raise NotImplementedError(
+                    "gradient merge inside a pipelined step: the pipeline "
+                    "already splits the batch into num_microbatches")
+            self.pipe = PipelineStep(compiled, block, feed_names,
+                                     self.fetch_names, plan.state_names,
+                                     plan.written)
+        elif compiled is not None and compiled._mesh is not None:
             from .dist_step import DistStep
 
             ds = DistStep(compiled, plan, block, self.fetch_names)
             if ds.active:
-                if self.merge is not None:
-                    raise NotImplementedError(
-                        "gradient merge inside a data- or expert-parallel "
-                        "step is not ported to paddle_tpu_torch yet "
-                        "(ROADMAP A10b)")
                 self.dist = ds
 
     # -- state resolution ---------------------------------------------------
@@ -275,8 +283,10 @@ class BoundStep:
 
         ex = self.executor
         step = ex._next_step()
-        if self.merge is not None:
-            env = self.merge.run(self, env, step)
+        if self.pipe is not None:
+            env = self.pipe.run(self, env, step)
+        elif self.merge is not None:
+            env = self.merge.run(self, env, step, dist)
         else:
             ctx = LoweringContext(ex.device, seed=self.seed, step=step,
                                   live=plan.live, constants=ex._constants,
@@ -440,14 +450,23 @@ def record_step(ms: float, rows: int, step: Optional[int] = None) -> None:
     step_telemetry().record(ms, rows, step=step)
 
 
-def run_plan(plan: _Plan, env: Dict[str, Any], ctx: LoweringContext) -> None:
+def run_plan(plan: _Plan, env: Dict[str, Any], ctx: LoweringContext,
+             reduce: bool = True) -> None:
     """Run the plan's ops over ``env``, in place: forward ops with an
     automatic grad op recorded on the tape, control-flow ops through
     their lowering, each value dropped after its last reader. The tape
-    must be empty at the end."""
+    must be empty at the end. ``reduce``: a data-parallel step's
+    gradient reductions and ZeRO hooks run (a gradient-merge step's
+    microbatches and apply run without them: ``_MergePlan``)."""
     dist = ctx.dist
+    hooks = (dist.shard.hooks if dist is not None and dist.shard is not None
+             else None)
     with torch.no_grad():
         for i, (op, opdef) in enumerate(zip(plan.ops, plan.defs)):
+            if hooks and id(op) in hooks:
+                # the op as a rank of a tp / sp world runs it
+                # (runtime/tp_plan.py)
+                op, opdef = hooks[id(op)]
             if ctx.pending:
                 for _, names in plan.reads[i]:
                     for n in names:
@@ -472,7 +491,7 @@ def run_plan(plan: _Plan, env: Dict[str, Any], ctx: LoweringContext) -> None:
                 elif not opdef.auto_grad and ident in plan.record:
                     outs = run_recorded(ctx, opdef, op, ins,
                                         plan.record[ident])
-                elif dist is not None and i in dist.opt_hooks:
+                elif reduce and dist is not None and i in dist.opt_hooks:
                     outs = dist.run_opt(i, op, opdef, ctx, ins)
                 else:
                     outs = opdef.lower(ctx, op, ins)
@@ -481,7 +500,7 @@ def run_plan(plan: _Plan, env: Dict[str, Any], ctx: LoweringContext) -> None:
                     for j, n in enumerate(names):
                         if j < len(vals):
                             env[n] = vals[j]
-            if dist is not None and i in dist.reduce_after:
+            if reduce and dist is not None and i in dist.reduce_after:
                 dist.after_op(i, env, ctx)
             for n in plan.free_after[i]:
                 env.pop(n, None)
@@ -527,7 +546,13 @@ class _MergePlan:
     write threaded from one microbatch to the next; the values the
     optimizer ops read (and the fetches they produce) accumulate as
     ``acc + a`` in microbatch order and are divided by k with ``avg``;
-    then the optimizer and learning-rate ops run once."""
+    then the optimizer and learning-rate ops run once.
+
+    In a data- or expert-parallel world (``dist``) the microbatches run
+    with the world's lowerings (the MoE dispatch, the dropout salt, the
+    tp / sp hooks) but reduce nothing; the merged gradients are then
+    averaged over the world once, at the apply step, as the JAX
+    package's scan accumulator is (``DistStep.reduce_merged``)."""
 
     def __init__(self, plan: _Plan, block: Block, feed_names, fetch_names,
                  k: int, avg: bool):
@@ -545,7 +570,8 @@ class _MergePlan:
         self.opt = _Plan(block, list(feed_names) + self.acc_names,
                          fetch_names, ops=opt)
 
-    def run(self, bound: "BoundStep", env: Dict[str, Any], step: int):
+    def run(self, bound: "BoundStep", env: Dict[str, Any], step: int,
+            dist=None):
         k, ex = self.k, bound.executor
         feeds = {}
         for n in self.feed_names:
@@ -563,7 +589,7 @@ class _MergePlan:
             mb.update({n: v[i] for n, v in feeds.items()})
             run_plan(self.body, mb, LoweringContext(
                 ex.device, seed=bound.seed, step=step, live=self.body.live,
-                constants=ex._constants, fold=i))
+                constants=ex._constants, fold=i, dist=dist), reduce=False)
             written = {n: mb[n] for n in self.body_written if n in mb}
             if acc is None:
                 acc = {n: mb[n] for n in self.acc_names}
@@ -576,10 +602,12 @@ class _MergePlan:
         if self.avg:
             for n, v in acc.items():
                 acc[n] = v / torch.tensor(k, dtype=v.dtype, device=v.device)
+        if dist is not None:
+            dist.reduce_merged(acc)
         out = dict(base)       # the optimizer ops see no feed, as in JAX
         out.update(written)
         out.update(acc)
         run_plan(self.opt, out, LoweringContext(
             ex.device, seed=bound.seed, step=step, live=self.opt.live,
-            constants=ex._constants, fold=k))
+            constants=ex._constants, fold=k, dist=dist), reduce=False)
         return out

@@ -33,6 +33,14 @@ worked out once at bind time against the step's ``_Plan``:
   shard's index into its ops' seeds, so dropout masks differ between
   shards and agree between the ranks of one shard (the expert-parallel
   ``psum`` dispatch).
+* **tensor and sequence parallelism.** A ``tp`` or ``sp`` axis larger
+  than 1 gets a ``runtime.tp_plan.ShardPlan``: the ops that meet a split
+  value run its hooks, and a split fetch is gathered whole. Under ``sp``
+  every rank saw other tokens, so the gradients and fetches are averaged
+  over the world, and the dropout salt is the ``dp`` index alone (the
+  plan draws whole-shape masks).
+* **gradient merge.** A merged step's microbatches reduce nothing; the
+  merged gradients are averaged once, at the apply (``reduce_merged``).
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from ..parallel import comm
 from ..parallel.collectives import OP_TYPE, export_taint
 from ..parallel.mesh import world_group
 from ..parallel.sharding import Shard, set_layout
+from .tp_plan import ShardPlan, interleave_groups, unshard
 
 __all__ = ["DistStep", "MoEContext", "finish"]
 
@@ -103,11 +112,23 @@ class DistStep:
                 token_group = dp_group
             self.moe = MoEContext(dispatch, ep, dp, ep_group, dp_group,
                                   token_group, mesh.coord("ep"))
+        elif strategy == "with_sequence_parallel":
+            # the ranks of one dp index hold other positions of the same
+            # rows: every rank saw other tokens, and each rank's loss is
+            # the whole loss (runtime/tp_plan.py), so the gradients are
+            # averaged over the world; the dropout masks are drawn
+            # whole on the ranks of one dp index (one salt)
+            self.batch_group = world if dp * mesh.axis_size("sp") > 1 \
+                else None
+            self.batch_n = dp * mesh.axis_size("sp")
+            self.batch_index = mesh.rank
         else:
             self.batch_group, self.batch_n = dp_group, dp
             self.batch_index = mesh.coord("dp")
         self.active = world is not None
-        self.salt = self.batch_index if self.batch_n > 1 else None
+        self.salt = (mesh.coord("dp") if dp > 1 else None) \
+            if strategy == "with_sequence_parallel" else \
+            (self.batch_index if self.batch_n > 1 else None)
         prog_plan = getattr(block.program, "_collective_plan", None)
         self.bucket_group = (dp_group if strategy in (
             "with_data_parallel", "with_partitioning") else None)
@@ -116,7 +137,16 @@ class DistStep:
         ops = plan.ops
 
         # -- sharded state ---------------------------------------------------
+        tp = mesh.axis_size("tp")
+        groups = interleave_groups(block, ops) if tp > 1 else {}
+        for n in list(groups):
+            # an accumulator of an interleaved parameter is cut alike
+            for v in block.vars.values():
+                if getattr(v, "accumulator_owner", None) == n and \
+                        tuple(v.shape or ()) == tuple(block.var(n).shape):
+                    groups[v.name] = groups[n]
         self.shards: Dict[str, Shard] = {}
+        shard_axis: Dict[str, str] = {}
         self.zero_accums: Dict[str, Shard] = {}
         self.zero_params: Dict[str, Shard] = {}
         for name, spec in (compiled._state_shardings or {}).items():
@@ -134,18 +164,23 @@ class DistStep:
                     continue
                 if len(live) > 1:
                     raise NotImplementedError(
-                        f"{name!r}: a dim sharded over several mesh axes "
-                        f"{live} (ROADMAP A10b)")
+                        f"{name!r}: dim {d} is sharded over several live "
+                        f"mesh axes {live} at once; the sharded step holds "
+                        "a dim over one axis (as the JAX package's rules "
+                        "table maps each logical axis to one mesh axis)")
                 a = live[0]
                 parts = mesh.axis_size(a)
-                if shape[d] % parts:
+                k = groups.get(name, 1) if a == "tp" else 1
+                if shape[d] % (parts * k):
                     raise ValueError(
                         f"{name!r}: dim {d} ({shape[d]}) is not a multiple "
-                        f"of the {a} axis ({parts})")
+                        f"of the {a} axis ({parts})"
+                        + (f" times its {k} fused parts" if k > 1 else ""))
                 writer = all(mesh.coord(b) == 0 for b in mesh.axis_names
                              if b != a)
-                sh = Shard(d, parts, mesh.coord(a), shape, writer)
+                sh = Shard(d, parts, mesh.coord(a), shape, writer, k)
                 self.shards[name] = sh
+                shard_axis[name] = a
                 if a == "dp":
                     if getattr(var, "is_accumulator", False):
                         self.zero_accums[name] = sh
@@ -208,6 +243,27 @@ class DistStep:
                 continue
             self.reduce_after.setdefault(idx, []).append((g, group, scale))
 
+        # -- values split along tp or sp (runtime/tp_plan.py) ------------------
+        self.shard = None
+        sp = mesh.axis_size("sp")
+        if tp > 1 or sp > 1:
+            axis = "tp" if tp > 1 else "sp"
+            if tp > 1 and sp > 1:
+                raise NotImplementedError(
+                    "a mesh with both tp and sp larger than 1: the sharded "
+                    "step splits values along one of them")
+            state_dims = {n: sh.dim for n, sh in self.shards.items()
+                          if shard_axis[n] == axis}
+            feed_dims = {}
+            for n, spec in (compiled._in_shardings or {}).items():
+                for d, e in enumerate(spec):
+                    if e == axis or (isinstance(e, tuple) and axis in e):
+                        feed_dims[n] = d
+            self.shard = ShardPlan(
+                block, ops, mesh, axis, axis, state_dims, feed_dims,
+                {n: k for n, k in groups.items() if n in state_dims},
+                fetch_names, sp_mode=axis_env.get("sp_mode", "ring"))
+
         # -- fetches -----------------------------------------------------------
         opt_outs = set()
         for op in ops:
@@ -237,6 +293,42 @@ class DistStep:
                                                   False)
         return ((self.moe.dp_group if expert else self.batch_group),
                 1.0 / self.batch_n)
+
+    def reduce_merged(self, acc: Dict[str, Any]) -> None:
+        """Average a gradient-merge step's merged parameter gradients
+        over the world, once: one flat all-reduce a group (the
+        expert-parallel experts' over ``dp``, the rest over the ranks
+        that saw other tokens)."""
+        if self.zero_accums or self.zero_params or self.scatter_grads:
+            raise NotImplementedError(
+                "gradient merge with ZeRO-sharded state: the merged step "
+                "averages whole gradients (use zero=0)")
+        by_group: Dict[tuple, List[Tuple[str, Any, float]]] = {}
+        for entries in self.reduce_after.values():
+            for g, group, scale in entries:
+                if g in acc:
+                    by_group.setdefault((id(group), acc[g].dtype),
+                                        []).append((g, group, scale))
+        for entries in by_group.values():
+            group, scale = entries[0][1], entries[0][2]
+            if group is None:
+                for g, _, sc in entries:
+                    acc[g] = acc[g] * sc
+                continue
+            vals = [acc[g] for g, _, _ in entries]
+            for v in vals:
+                if isinstance(v, SelectedRows):
+                    raise NotImplementedError(
+                        "a SelectedRows gradient averaged over a data-"
+                        "parallel world is the parameter server's work "
+                        "(ROADMAP A11)")
+            flat = torch.cat([v.reshape(-1) for v in vals])
+            comm.all_reduce(flat, group=group)
+            flat.mul_(scale)
+            off = 0
+            for (g, _, _), v in zip(entries, vals):
+                acc[g] = flat[off:off + v.numel()].view_as(v)
+                off += v.numel()
 
     # -- per step ------------------------------------------------------------
     def check_fetches(self) -> None:
@@ -314,6 +406,12 @@ class DistStep:
         return outs
 
     def finish_fetches(self, fetched: List[Any], names) -> List[Any]:
+        sp = self.shard
+        if sp is not None and sp.fetch_dims:
+            fetched = [unshard(v, sp.fetch_dims[n], sp.n, sp.group,
+                               sp._ilv(n))
+                       if n in sp.fetch_dims and isinstance(v, torch.Tensor)
+                       else v for n, v in zip(names, fetched)]
         if self.batch_n <= 1 or self.batch_group is None:
             return fetched
         out = []
@@ -339,3 +437,4 @@ def _scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
         return comm.reduce_scatter(t, group)
     return comm.reduce_scatter(t.movedim(dim, 0), group).movedim(0, dim) \
         .contiguous()
+

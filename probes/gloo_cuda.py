@@ -13,7 +13,12 @@ computation and which raise. It then times the port's comm layer
 collectives on CUDA tensors) at 256 MB for all_reduce and 64 MB for
 all_gather, reduce_scatter and all_to_all, beside a host carry of the
 last three (a copy to the CPU, gloo's CPU collective, a copy back) on
-the same tensors.
+the same tensors. Point to point: the comm layer's ring ``permute``
+(one ``all_to_all_single`` with uneven splits) timed at 16 and 64 MB
+beside ``isend`` / ``irecv`` of host copies (a copy to the CPU, gloo's
+CPU point to point, a copy back); then, in a second world of 2 (last,
+as a failure breaks gloo's pair for good), ``send`` / ``recv``,
+``isend`` / ``irecv`` and ``batch_isend_irecv`` on CUDA tensors.
 Needs the card:
 
     python3 probes/gloo_cuda.py
@@ -112,7 +117,14 @@ def child(out):
                             for k in range(n)]).to(torch.int8)))
     probe("all_gather_into_tensor int8", agt_int8,
           lambda y: torch.equal(y.cpu(), full.to(torch.int8)))
-    dist.barrier()
+    peer = 1 - r
+
+    def host_p2p(t):
+        h = t.cpu()
+        y = torch.empty_like(h)
+        for w in [dist.isend(h, peer), dist.irecv(y, peer)]:
+            w.wait()
+        return y.to(dev)
 
     def host_ag(t):
         h = t.cpu()
@@ -140,7 +152,11 @@ def child(out):
             ("all_to_all", 64, lambda t: comm.all_to_all(t, g)),
             ("host_carried_all_gather", 64, host_ag),
             ("host_carried_reduce_scatter", 64, host_rs),
-            ("host_carried_all_to_all", 64, host_a2a)):
+            ("host_carried_all_to_all", 64, host_a2a),
+            ("permute_16", 16, lambda t: comm.permute(t, g)),
+            ("host_carried_p2p_16", 16, host_p2p),
+            ("permute_64", 64, lambda t: comm.permute(t, g)),
+            ("host_carried_p2p_64", 64, host_p2p)):
         t = torch.randn(mb << 18, device=dev)
         fn(t)
         torch.cuda.synchronize()
@@ -150,6 +166,11 @@ def child(out):
             fn(t)
         torch.cuda.synchronize()
         timed[name] = {"mb": mb, "ms": (time.perf_counter() - t0) / 3 * 1e3}
+        if name.startswith(("permute", "host_carried_p2p")):
+            y = fn(t)
+            back = fn(y)    # n == 2: two steps bring a tensor home
+            torch.cuda.synchronize()
+            timed[name]["round_trip_equal"] = bool(torch.equal(back, t))
     if r == 0:
         with open(out, "w") as f:
             json.dump({"backend": dist.get_backend(), "native_cuda": native,
@@ -157,9 +178,57 @@ def child(out):
     dist.barrier()
 
 
+def p2p_child(out):
+    """gloo's point-to-point calls on CUDA tensors, each recorded."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel.env import init_parallel_env
+
+    env = init_parallel_env()
+    r = env.rank
+    peer = 1 - r
+    dev = torch.device("cuda", 0)
+    x = torch.arange(8, dtype=torch.float32, device=dev) + 10 * r
+    other = torch.arange(8.0) + 10 * peer
+    found = {}
+
+    def sr():
+        y = torch.empty_like(x)
+        if r == 0:
+            dist.send(x, peer)
+            dist.recv(y, peer)
+        else:
+            dist.recv(y, peer)
+            dist.send(x, peer)
+        return y
+
+    def bisr():
+        y = torch.empty_like(x)
+        for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer),
+                                         dist.P2POp(dist.irecv, y, peer)]):
+            w.wait()
+        return y
+
+    for name, fn in (("batch_isend_irecv", bisr), ("send/recv", sr)):
+        try:
+            y = fn()
+            torch.cuda.synchronize()
+            found[name] = ("ok" if torch.equal(y.cpu(), other)
+                           else "wrong values")
+        except Exception as e:  # noqa: BLE001 — the probe records it
+            found[name] = f"{type(e).__name__}: {str(e)[:160]}"
+        with open(f"{out}.rank{r}", "w") as f:
+            json.dump(found, f)
+
+
 def main():
     if sys.argv[1:2] == ["--child"]:
         child(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--p2p-child"]:
+        p2p_child(sys.argv[2])
         return 0
     sys.path.insert(0, ROOT)
     from paddle_tpu_torch.parallel.env import free_port
@@ -177,7 +246,26 @@ def main():
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
-        print(open(out).read())
+        result = json.load(open(out))
+        # p2p on CUDA tensors last, in a world of its own: a failed
+        # send leaves gloo's pair broken, so its exit code is recorded,
+        # not required to be 0
+        p2p = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node=2", "--backend=gloo", "--max_restarts=0",
+             f"--started_port={free_port()}", f"--run_dir={d}/run2",
+             os.path.abspath(__file__), "--p2p-child", out],
+            capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
+        found = {}
+        for rk in (0, 1):
+            try:
+                found[f"rank{rk}"] = json.load(open(f"{out}.rank{rk}"))
+            except (OSError, ValueError):
+                found[f"rank{rk}"] = "no record"
+        err = [ln for ln in p2p.stderr.splitlines() if "Error" in ln]
+        result["p2p_cuda"] = {"exit": p2p.returncode, "calls": found,
+                              "first_error": err[0][-240:] if err else None}
+        print(json.dumps(result))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()

@@ -2226,3 +2226,120 @@ def test_async_bucket_reduce_is_read_only_after_its_wait(cuda, gloo_world):
         assert rk["planned"][0] == rk["unplanned"][0]
         assert rk["planned"][1] == rk["unplanned"][1]
     assert gloo_world[0]["planned"][1] == gloo_world[1]["planned"][1]
+
+
+# -- tensor and sequence parallelism on the card (gloo world of 2) ------------
+
+_A10B_WORKER = '''
+import json, os, sys
+import numpy as np
+import torch
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch.models.gpt import (GPTConfig, build_gpt_lm,
+                                         apply_gpt_megatron_sharding,
+                                         synthetic_lm_batch)
+from paddle_tpu_torch.parallel import comm
+from paddle_tpu_torch.parallel.env import init_parallel_env
+from paddle_tpu_torch.parallel.mesh import world_group
+from paddle_tpu_torch.parallel.ring_attention import ring_attention
+
+env = init_parallel_env()
+r, n = env.rank, env.world_size
+g = world_group()
+dev = torch.device("cuda", 0)
+out = {}
+x = torch.arange(6, dtype=torch.float32, device=dev) + 10 * r
+out["permute"] = [comm.permute(x, g).cpu().tolist(),
+                  comm.permute(x, g, 1, ring=False).cpu().tolist(),
+                  comm.permute(x, g, -1, ring=False).cpu().tolist()]
+xl = x.clone().requires_grad_(True)
+(comm.permute_autograd(xl, g) * (r + 2)).sum().backward()
+out["permute_grad"] = xl.grad.cpu().tolist()
+gd = comm.gather_dim(xl.reshape(2, 3), 1, g)
+out["gather"] = list(gd.shape)
+
+rng = np.random.RandomState(0)
+q, k, v = (torch.from_numpy(rng.randn(1, 2, 64, 16).astype("float32"))
+           .to(dev) for _ in range(3))
+o = ring_attention(q[:, :, 32 * r:32 * r + 32], k[:, :, 32 * r:32 * r + 32],
+                   v[:, :, 32 * r:32 * r + 32], g, causal=True)
+ref = torch.softmax((q @ k.transpose(-1, -2)) / 4.0 + torch.triu(
+    torch.full((64, 64), -1e30, device=dev), 1), -1) @ v
+out["ring_err"] = float((o - ref[:, :, 32 * r:32 * r + 32]).abs().max())
+
+cfg = GPTConfig.tiny()
+cfg.use_flash_attention = True
+batches = [synthetic_lm_batch(np.random.RandomState(s), 2, 32,
+                              cfg.vocab_size) for s in range(2)]
+res = {}
+for kind in ("one", "tp"):
+    with fluid.unique_name.guard():
+        main, startup, _, f = build_gpt_lm(cfg, 32,
+                                           optimizer=fluid.optimizer.Adam(1e-3))
+    main.random_seed = startup.random_seed = 3
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    prog = main
+    if kind == "tp":
+        apply_gpt_megatron_sharding(main, mp_axis="tp")
+        prog = fluid.CompiledProgram(main).with_partitioning(
+            mesh_axes={"tp": 2})
+    res[kind] = [float(np.asarray(exe.run(prog, feed=b, fetch_list=[f["loss"]],
+                                          scope=scope)[0]).reshape(-1)[0])
+                 for b in batches]
+    res[kind + "_qkv"] = list(scope.find_var("dec0_qkv.w").shape)
+    res[kind + "_dev"] = str(scope.find_var("dec0_qkv.w").device)
+out["tp"] = res
+with open(os.path.join(sys.argv[1], f"rank{r}.json"), "w") as fh:
+    json.dump(out, fh)
+'''
+
+
+@pytest.fixture(scope="module")
+def a10b_world(tmp_path_factory):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from paddle_tpu_torch.parallel.env import free_port
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    d = tmp_path_factory.mktemp("a10b")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    (d / "worker.py").write_text(_A10B_WORKER)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node=2", "--backend=gloo",
+         f"--started_port={free_port()}", f"--run_dir={d / 'run'}",
+         str(d / "worker.py"), str(d)],
+        capture_output=True, text=True, timeout=600, env=env, cwd=root)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return [json.loads((d / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+def test_permute_on_cuda_tensors_over_gloo(cuda, a10b_world):
+    for r, rk in enumerate(a10b_world):
+        other = [float(i) + 10 * (1 - r) for i in range(6)]
+        ring, fwd, bwd = rk["permute"]
+        assert ring == other
+        assert fwd == (other if r == 1 else [0.0] * 6)
+        assert bwd == (other if r == 0 else [0.0] * 6)
+        # the gradient came back from the rank that scaled it
+        assert rk["permute_grad"] == [float(1 - r + 2)] * 6
+        assert rk["gather"] == [2, 6]
+        assert rk["ring_err"] < 1e-4
+
+
+def test_tp_gpt_on_cuda_matches_one_process_with_its_qkv_shard(cuda,
+                                                               a10b_world):
+    for rk in a10b_world:
+        tp = rk["tp"]
+        np.testing.assert_allclose(tp["tp"], tp["one"], rtol=1e-3)
+        assert tp["one_qkv"] == [64, 192] and tp["tp_qkv"] == [64, 96]
+        assert tp["tp_dev"].startswith("cuda")
+    assert a10b_world[0]["tp"]["tp"] == a10b_world[1]["tp"]["tp"]

@@ -11,8 +11,8 @@ restores after (bit for bit: the scope gets its own tensors back).
 Lookahead over Adam with the fused update (K10's plain version here)
 and with the unfused one: the slow weights start as a copy of the
 parameters (their own storage, so the in-place update leaves them).
-The five names import; Pipeline is refused naming A10b (DGC is ported:
-tests/test_torch_parallel.py).
+The five names import (DGC and Pipeline are ported:
+tests/test_torch_parallel.py, tests/test_torch_pipeline.py).
 """
 
 import numpy as np

@@ -300,7 +300,10 @@ def test_fused_momentum_update_checks_its_inputs():
     # that it imports and is momentum's subclass
     pytest.param("DGCMomentumOptimizer", "ported",
                  id="DGCMomentumOptimizer-ROADMAP A10"),
-    ("PipelineOptimizer", "ROADMAP A10"),
+    # PipelineOptimizer is ported now (tests/test_torch_pipeline.py):
+    # its case checks that it wraps an optimizer
+    pytest.param("PipelineOptimizer", "ported",
+                 id="PipelineOptimizer-ROADMAP A10"),
     ("switch_moe over an ep mesh", "ROADMAP A10"),
     ("StaticRNN", "ROADMAP A11"),
     ("DynamicRNN", "ROADMAP A11"),
@@ -324,6 +327,9 @@ def test_unported_items_are_refused_naming_their_roadmap_item(name, item):
     elif name.endswith("RNN"):
         with pytest.raises(NotImplementedError, match=item):
             getattr(fluid.layers, name)()
+    elif item == "ported" and name == "PipelineOptimizer":
+        opt = fluid.optimizer.SGD(0.1)
+        assert fluid.optimizer.PipelineOptimizer(opt)._optimizer is opt
     elif item == "ported":
         assert issubclass(getattr(fluid.optimizer, name),
                           fluid.optimizer.MomentumOptimizer)

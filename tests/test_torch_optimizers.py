@@ -161,8 +161,8 @@ def test_lamb_stays_unfused_and_aliases_exist():
                        ("LarsMomentum", "LarsMomentumOptimizer")):
         assert getattr(fluid.optimizer, alias) is \
             getattr(fluid.optimizer, cls)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        fluid.optimizer.PipelineOptimizer
+    assert fluid.optimizer.PipelineOptimizer(
+        fluid.optimizer.SGD(0.1), num_microbatches=2)._num_microbatches == 2
 
 
 # -- (b) the optimizer lowerings op by op ------------------------------------

@@ -42,9 +42,9 @@ Scenarios and tolerances:
 * ``drop``: with dropout the ranks' masks differ and the replicas stay
   equal.
 
-The refusals (sequence, pipeline, tp > 1, PS mode), one strategy a
-compile and a transpiled program run without a world are checked in
-the pytest process.
+What stays refused (tensor parallelism inside a pipeline, PS mode), a
+mesh larger than the world, one strategy a compile and a transpiled
+program run without a world are checked in the pytest process.
 """
 
 import json
@@ -729,13 +729,18 @@ def test_refusals_name_their_roadmap_items():
     from paddle_tpu_torch.parallel import fleet as fleet_mod
 
     main, _, loss = mlp(fl)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        fl.CompiledProgram(main).with_sequence_parallel(2)
-    with pytest.raises(NotImplementedError, match="A10b"):
+    # what stays refused of tensor / sequence / pipeline parallelism:
+    # tensor parallelism inside pipelined stages (JAX's words), a
+    # pipeline without cuts, a mesh larger than the world
+    with pytest.raises(NotImplementedError, match="pipeline_train_step_3d"):
+        fl.CompiledProgram(main).with_pipeline(mp=2)
+    with pytest.raises(ValueError, match="no pipeline cuts"):
         fl.CompiledProgram(main).with_pipeline()
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(ValueError, match="needs 2 processes"):
         fl.CompiledProgram(main).with_partitioning(
             partition.PartitionConfig(mesh_axes={"dp": 1, "tp": 2}))
+    with pytest.raises(ValueError, match="needs 2 processes"):
+        fl.CompiledProgram(main).with_sequence_parallel(2)
     with pytest.raises(NotImplementedError, match="A11"):
         fl.CompiledProgram(main).validate()
     strategy = fleet_mod.DistributedStrategy()
@@ -743,8 +748,8 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="A11"):
         fleet_mod.fleet.distributed_optimizer(fl.optimizer.SGD(0.1),
                                               strategy)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        fl.optimizer.PipelineOptimizer
+    assert fl.optimizer.PipelineOptimizer(fl.optimizer.SGD(0.1))._schedule \
+        == "gpipe"
 
 
 def test_one_strategy_per_compile():

@@ -16,8 +16,8 @@ JAX package, on the CPU.
   test_dp_*_trajectory_matches_single_device), each rank holds half of
   every shardable moment (and under ZeRO-3 half of each parameter),
   and the ``paddle_partition_*`` gauges are in the scrape;
-* a partition with a tensor-parallel axis larger than 1 is refused
-  naming A10b.
+* a partition with a tensor-parallel axis larger than the world is
+  refused (tensor parallelism itself: tests/test_torch_tensor_parallel.py).
 """
 
 import json
@@ -350,7 +350,9 @@ def test_a_tensor_parallel_partition_is_refused_naming_a10b():
     from paddle_tpu_torch import partition
 
     main, _, loss = _tagged_model(fl)
-    with pytest.raises(NotImplementedError, match="A10b"):
+    # tensor parallelism runs now (tests/test_torch_tensor_parallel.py);
+    # what is refused is a tp axis larger than the world
+    with pytest.raises(ValueError, match="needs 2 processes"):
         fl.CompiledProgram(main).with_partitioning(
             partition.PartitionConfig(mesh_axes={"dp": 1, "tp": 2}))
     # a world of one runs a dp=1 partition as the plain step
