@@ -6,7 +6,7 @@
                                      #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4,
                                      #   e1, e2 (+ grouped conv share), g2
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789abcdefghi), no result line
+                                        #   23456789abcdefghij), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -387,6 +387,35 @@ i. tensor, sequence and pipeline parallelism: a world of 2 on the one
    ``GradientMergeOptimizer(Adam, k_steps=2)``, 2 rows a rank, against
    one process's merge over the 4 rows; one all-reduce of the merged
    gradients a step. Every reading is logged before any gate is held.
+j. recurrence and sequences, seeded weights (std 0.02), Adam, TF32
+   off. j1: ``models.seq2seq.build_seq2seq`` at rnn_search's widths
+   (source vocabulary 17,191, target 7,709, embedding and hidden 512,
+   length 50; the book's one attention GRU in place of rnn_search's 2
+   LSTM layers) on the copy task: (a) card against CPU at batch 16, 2
+   steps: losses rtol 1e-3, parameters 2 * lr * steps, Adam's first
+   moments relative L2 1e-4 (a moment under 1e-6 of the largest one's
+   norm against that floor), exactly one K4 and one K5 a step and one
+   K10 a parameter a step; (b) 10 steps at batch 128 on the card over a
+   set of 2 batches, cycled: every loss finite, the mean of the last
+   three below the first; target
+   tokens/s, ms a step, eager launches a step (one profiled step) and
+   peak memory. j2: ``beam_search_infer`` from (b)'s parameters, beam
+   10, length 50, end id 1, 8 sources, on the card and the CPU: equal
+   sentences, or the CPU step where a source's selection first differs
+   has a top gap at most 1e-3 * max|logp|; ms a decode step and
+   sentences/s. j3: the book's ``stacked_lstm_net`` (embedding 128,
+   hid_dim 512, 3 stacked, 2 classes; vocabulary 5,000, lengths 16-128)
+   through ``dynamic_lstm`` and ``sequence_pool`` max: j1 (a)'s gate at
+   batch 16, ms a step at batch 128. j4: the book's
+   ``label_semantic_roles`` db_lstm (word_dim 32, mark_dim 5, hidden
+   512, depth 8; 44,000 words, 3,000 predicates, 60 labels) with
+   ``linear_chain_crf``, ``crf_decoding`` and ``chunk_eval``: j1 (a)'s
+   gate (no K4 / K5), and the first step's decoded paths equal the
+   CPU's on every row whose Viterbi margin is above 1e-4. j5: a
+   ``DynamicRNN`` of seq2seq's GRU cell at hidden 512 over 64 rows of
+   1-100 steps: outputs and gradients card against CPU within rtol 2e-4
+   / atol 2e-5; a finished row emits exact zeros and keeps its last
+   output as its final memory, bit for bit.
 
 Then the seconds each phase took, one JSON line of per-kernel numbers,
 the card line, and last ``{"ok": true, "device": {...}}``.
@@ -451,7 +480,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789abcdefghi"
+ALL_PHASES = "23456789abcdefghij"
 DEVICE = "cuda"
 
 
@@ -8353,6 +8382,566 @@ def phase_i(torch, np, seed, card, out_dir):
         shutil.rmtree(i_dir, ignore_errors=True)
 
 
+# -- phase j: recurrence and sequences (A11b) -----------------------------------------
+
+# rnn_search's IWSLT'15 en-vi widths (PaddlePaddle's Fluid-1.x models,
+# PaddleNLP machine_translation/rnn_search), taken by name: the model is
+# the book's one-layer attention GRU (models/seq2seq.py), so rnn_search's
+# 2 LSTM layers are reduced to it
+J_SRC_VOCAB, J_TGT_VOCAB, J_EMB, J_HIDDEN, J_SEQ = 17191, 7709, 512, 512, 50
+J_GATE_BATCH, J_GATE_STEPS = 16, 2      # j1 (a), j3, j4: card against CPU
+J_TRAIN_BATCH, J_TRAIN_STEPS = 128, 10  # j1 (b), on the card
+J_BEAM, J_SOURCES, J_BOS, J_EOS = 10, 8, 0, 1
+J_LR, J_STD = 2e-3, 0.02
+# j3: the book's stacked_lstm_net (understand_sentiment); its dynamic_lstm
+# size is 4H in the reference's LoD API, so H = hid_dim / 4 in the dense one
+J3 = dict(vocab=5000, emb=128, hid=512, stacked=3, classes=2, batch=128,
+          min_len=16, max_len=128)
+# j4: the book's label_semantic_roles db_lstm (the same 4H convention)
+J4 = dict(words=44000, preds=3000, labels=60, marks=2, word_dim=32,
+          mark_dim=5, hidden=512, depth=8, max_len=40)
+# j5: a DynamicRNN of models/seq2seq.py's GRU cell
+J5 = dict(rows=64, max_len=100, hidden=512)
+J_VITERBI_MARGIN = 1e-4
+J_BEAM_GAP = 1e-3                        # of max|logp|: the serving oracle's rule
+
+
+def j_require_launches(counts, want, what):
+    """Each kernel of ``want`` launched exactly so often in the run."""
+    for name, n in want.items():
+        require(counts.get(name, 0) == n,
+                f"{what}: {name} launched {counts.get(name, 0)} times, not {n}")
+
+
+def j_copy_batch(np, rng, n, seq=None):
+    """rnn_search's copy task, as the JAX test's: the target is the source
+    shifted by BOS; tokens in both vocabularies."""
+    seq = seq or J_SEQ
+    src = rng.randint(2, min(J_SRC_VOCAB, J_TGT_VOCAB), (n, seq)).astype(
+        np.int64)
+    tgt_in = np.concatenate([np.full((n, 1), J_BOS, np.int64), src[:, :-1]],
+                            1)
+    return {"src": src, "tgt_in": tgt_in, "tgt_out": src}
+
+
+J_MOMENT_FLOOR = 1e-6
+
+
+def j_moment_gap(main, gpu_scope, cpu_scope):
+    """The largest relative L2 error of an Adam first moment, card
+    against CPU, and its parameter. A moment whose norm is below
+    ``J_MOMENT_FLOOR`` of the largest one's is held against that floor:
+    at these seeded weights the seq2seq attention is all but invariant
+    to its query (a shift common to every position), so ``s2s_att_q.w``
+    gets a gradient of rounding size (1e-14 where the head's is 5e-6),
+    whose relative error says nothing."""
+    gm, cm = first_moments(main, gpu_scope), first_moments(main, cpu_scope)
+    norms = {n: float(cm[n].double().norm()) for n in cm}
+    floor = J_MOMENT_FLOOR * max(norms.values())
+    gaps = {n: float((gm[n].cpu().double() - cm[n].double()).norm())
+            / max(norms[n], floor) for n in cm}
+    name = max(gaps, key=gaps.get)
+    return gaps[name], name
+
+
+def j_card_vs_cpu(torch, np, seed, built, batches, what, n_xent,
+                  fetch_extra=()):
+    """Train ``built`` = (main, startup, loss) from the same seeded
+    weights on the card and on the CPU: losses within rtol 1e-3,
+    parameters within 2 * lr * steps, Adam's first moments within
+    relative L2 1e-4, exact K4 / K5 (``n_xent`` a step) and one K10 a
+    parameter a step. Returns (record, {device: fetched extras a step},
+    the seeded arrays)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.io import load_scope_arrays
+
+    main, startup, loss = built
+    params = main.all_parameters()
+    n_adam = [op.type for op in main.global_block().ops].count("fused_adam")
+    require(n_adam == len(params),
+            f"{what}: {n_adam} fused_adam ops for {len(params)} parameters")
+    cpu, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    arrays = seeded_arrays(np, main, cpu_scope, J_STD, seed)
+    gpu, gpu_scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=gpu_scope)
+    load_scope_arrays(cpu_scope, arrays, main, "cpu")
+    load_scope_arrays(gpu_scope, arrays, main, DEVICE)
+    fetch = [loss] + list(fetch_extra)
+    losses, extras, secs = {}, {}, {}
+    for name, exe, scope in (("cuda", gpu, gpu_scope),
+                             ("cpu", cpu, cpu_scope)):
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        runs = [exe.run(main, feed=b, fetch_list=fetch, scope=scope)
+                for b in batches]
+        secs[name] = time.perf_counter() - t
+        losses[name] = [float(np.asarray(r[0]).reshape(-1)[0]) for r in runs]
+        extras[name] = [[np.asarray(v) for v in r[1:]] for r in runs]
+        if name == "cuda":
+            counts = K.launch_counts()
+    steps = len(batches)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    worst, worst_name = 0.0, ""
+    for p in params:
+        d = float(np.abs(gpu_scope.get_numpy(p.name)
+                         - cpu_scope.get_numpy(p.name)).max())
+        if d > worst:
+            worst, worst_name = d, p.name
+    m1, m1_name = j_moment_gap(main, gpu_scope, cpu_scope)
+    log(f"  {what}: card {losses['cuda']} ({secs['cuda']:.1f} s), CPU "
+        f"{losses['cpu']} ({secs['cpu']:.1f} s); losses within {rel:.3e}, "
+        f"parameters {worst:.3e} ({worst_name}), first moments {m1:.3e} "
+        f"({m1_name}, relative L2); launches "
+        f"{dict((k, v) for k, v in counts.items() if v)}")
+    j_require_launches(counts, {"softmax_xent_fwd": n_xent * steps,
+                                "softmax_xent_bwd": n_xent * steps,
+                                "fused_adam_update": n_adam * steps}, what)
+    require(rel <= 1e-3, f"{what}: card vs CPU losses differ by {rel:.3e}")
+    limit = 2 * J_LR * steps
+    require(worst <= limit, f"{what}: parameter {worst_name} differs by "
+            f"{worst:.3e} > 2 * lr * steps = {limit:.1e}")
+    require(m1 <= 1e-4, f"{what}: first moments differ by {m1:.3e} "
+            "(relative L2) > 1e-4")
+    return ({"losses": losses, "loss_rel_err": rel, "param_max_abs_err": worst,
+             "param_limit": limit, "moment_rel_l2": m1,
+             "launches": {k: v for k, v in counts.items() if v},
+             "card_s": secs["cuda"], "cpu_s": secs["cpu"]},
+            extras, arrays)
+
+
+def j_seq2seq(fluid, optimizer=None):
+    from paddle_tpu_torch.models.seq2seq import build_seq2seq
+
+    with fluid.unique_name.guard():
+        return build_seq2seq(J_SRC_VOCAB, J_TGT_VOCAB, J_SEQ, emb_dim=J_EMB,
+                             hidden=J_HIDDEN, optimizer=optimizer)
+
+
+def j1_train(torch, np, seed, card, out_dir):
+    """j1: (a) card against CPU at batch 16; (b) 10 steps at batch 128 on
+    the card. Returns (launches of (b), record, (b)'s trained
+    persistables as numpy)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.io import load_scope_arrays
+
+    fluid.set_flags({"optimizer_fuse": "on"})
+    main, startup, _, fetches = j_seq2seq(
+        fluid, fluid.optimizer.AdamOptimizer(J_LR))
+    rng = np.random.RandomState(seed)
+    gate, _, _ = j_card_vs_cpu(
+        torch, np, seed, (main, startup, fetches["loss"]),
+        [j_copy_batch(np, rng, J_GATE_BATCH) for _ in range(J_GATE_STEPS)],
+        f"j1 (a) batch {J_GATE_BATCH}", n_xent=1)
+
+    main, startup, _, fetches = j_seq2seq(
+        fluid, fluid.optimizer.AdamOptimizer(J_LR))
+    cpu_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu_scope)
+    arrays = seeded_arrays(np, main, cpu_scope, J_STD, seed)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    load_scope_arrays(scope, arrays, main, DEVICE)
+    # a dataset of 2 batches, cycled: from weights of std 0.02 the loss
+    # sits at ln(7709) for fresh random batches well past 10 steps, and a
+    # fixed set shows the training move within them
+    data = [j_copy_batch(np, rng, J_TRAIN_BATCH) for _ in range(2)]
+    batches = [data[i % 2] for i in range(J_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times = [], []
+    for b in batches:
+        t = time.perf_counter()
+        losses.append(float(np.asarray(exe.run(
+            main, feed=b, fetch_list=[fetches["loss"]],
+            scope=scope)[0]).reshape(-1)[0]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = start_profile(torch)
+    t = time.perf_counter()
+    exe.run(main, feed=batches[0], fetch_list=[fetches["loss"]], scope=scope)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    prof.__exit__(None, None, None)
+    breakdown = trace_breakdown(prof, out_dir, "j1b", wall, steps=1)
+    step_ms = 1e3 * statistics.mean(times[1:])
+    tokens_s = J_TRAIN_BATCH * J_SEQ / (step_ms / 1e3)
+    n_params = len(main.all_parameters())
+    log(f"  j1 (b) batch {J_TRAIN_BATCH} x {J_SEQ}, {J_TRAIN_STEPS} steps: "
+        f"losses {losses}; {step_ms:.3f} ms a step (steps 2-10; first "
+        f"{1e3 * times[0]:.1f}), {tokens_s:.2f} target tokens/s, "
+        f"{breakdown['kernels']} eager launches a step (profiled), device "
+        f"idle {breakdown['device_idle_share']:.3f}, peak {peak:.2f} GB "
+        f"[{card}]")
+    require(all(np.isfinite(losses)), f"j1 (b): a loss is not finite: {losses}")
+    require(np.mean(losses[-3:]) < losses[0],
+            f"j1 (b): the last three losses do not fall below the first: "
+            f"{losses}")
+    j_require_launches(counts, {"softmax_xent_fwd": J_TRAIN_STEPS,
+                                "softmax_xent_bwd": J_TRAIN_STEPS,
+                                "fused_adam_update": n_params * J_TRAIN_STEPS},
+                       "j1 (b)")
+    return counts, {"gate": gate, "losses": losses, "step_ms": step_ms,
+                    "first_step_ms": 1e3 * times[0],
+                    "target_tokens_s": tokens_s,
+                    "eager_launches_a_step": breakdown["kernels"],
+                    "device_idle_share": breakdown["device_idle_share"],
+                    "peak_gb": peak}, {
+        v.name: scope.get_numpy(v.name) for v in main.list_vars()
+        if v.persistable}
+
+
+def j_decode(np, fluid, place, trained, src, record):
+    """``beam_search_infer`` of ``src`` on ``place`` from the ``trained``
+    arrays; ``record`` (a list) gets each step's (logp, acc, ids,
+    parents). Returns (sentences, scores, seconds)."""
+    from paddle_tpu_torch.io import load_scope_arrays
+    from paddle_tpu_torch.models.seq2seq import (beam_search_infer,
+                                                 build_decoder_step)
+
+    main, startup, _, fetches = j_seq2seq(fluid)
+    with fluid.unique_name.guard():
+        step, _, _, step_fetches = build_decoder_step(
+            J_SRC_VOCAB, J_TGT_VOCAB, J_SEQ, emb_dim=J_EMB, hidden=J_HIDDEN)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    dev = "cpu" if isinstance(place, fluid.CPUPlace) else DEVICE
+    load_scope_arrays(scope, {n: v for n, v in trained.items()
+                              if main.global_block().has_var(n)}, main, dev)
+    t = time.perf_counter()
+    enc, = exe.run(main, feed={"src": src, "tgt_in": src, "tgt_out": src},
+                   fetch_list=[fetches["encoder"]], scope=scope)
+
+    def on_step(t_, logp, acc, ids, parents):
+        record.append((np.asarray(logp), np.asarray(acc), np.asarray(ids),
+                       np.asarray(parents)))
+
+    sent, scores = beam_search_infer(
+        exe, scope, np.asarray(enc), step, step_fetches, J_BEAM, J_BOS,
+        J_EOS, J_SEQ, J_HIDDEN, on_step=on_step)
+    return np.asarray(sent), np.asarray(scores), time.perf_counter() - t
+
+
+def j2_beam(torch, np, seed, card, trained):
+    """j2: beam 10, max length 50, end id 1, 8 sources from j1 (b)'s
+    trained parameters, on the card and on the CPU."""
+    import paddle_tpu_torch as fluid
+
+    src = j_copy_batch(np, np.random.RandomState(seed + 2), J_SOURCES)["src"]
+    card_steps, cpu_steps = [], []
+    sent, scores, secs = j_decode(np, fluid, fluid.CUDAPlace(0), trained, src,
+                                  card_steps)
+    csent, cscores, csecs = j_decode(np, fluid, fluid.CPUPlace(), trained,
+                                     src, cpu_steps)
+    differ = []
+    for b in range(J_SOURCES):
+        if np.array_equal(sent[b], csent[b]):
+            continue
+        t0 = next(t for t in range(J_SEQ)
+                  if not (np.array_equal(card_steps[t][2][b],
+                                         cpu_steps[t][2][b])
+                          and np.array_equal(card_steps[t][3][b],
+                                             cpu_steps[t][3][b])))
+        logp, acc = cpu_steps[t0][0], cpu_steps[t0][1]
+        top = np.sort(acc[b].reshape(-1))[::-1][:J_BEAM + 1]
+        gap = float(np.min(top[:-1] - top[1:]))
+        scale = float(np.abs(logp.reshape(J_SOURCES, J_BEAM, -1)[b]).max())
+        differ.append({"source": b, "step": t0, "gap": gap,
+                       "limit": J_BEAM_GAP * scale})
+    ms = 1e3 * secs / J_SEQ
+    log(f"  j2 beam {J_BEAM}, {J_SOURCES} sources, {J_SEQ} steps: card "
+        f"{ms:.3f} ms a decode step ({J_SOURCES / secs:.2f} sentences/s; "
+        f"CPU {1e3 * csecs / J_SEQ:.3f}); {J_SOURCES - len(differ)} of "
+        f"{J_SOURCES} sources give the CPU's sentences; differing {differ} "
+        f"[{card}]")
+    for d in differ:
+        require(d["gap"] <= d["limit"],
+                f"j2: source {d['source']} first differs at step {d['step']} "
+                f"with a top gap {d['gap']:.3e} > {d['limit']:.3e}")
+    require(np.all(np.isfinite(scores)), "j2: a sentence score is not finite")
+    return {"ms_a_decode_step": ms, "sentences_s": J_SOURCES / secs,
+            "cpu_ms_a_decode_step": 1e3 * csecs / J_SEQ,
+            "equal_sources": J_SOURCES - len(differ), "differ": differ}
+
+
+def j_stacked_lstm_net(fluid, T, lr):
+    """The book's stacked_lstm_net (understand_sentiment), dense: ragged
+    rows through ``length``; the softmax and cross entropy as one
+    ``softmax_with_cross_entropy`` over the logits."""
+    c = J3
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        words = L.data("words", [T, 1], dtype="int64")
+        length = L.data("length", [1], dtype="int32")
+        label = L.data("label", [1], dtype="int64")
+        emb = L.embedding(words, size=[c["vocab"], c["emb"]])
+        fc1 = L.fc(emb, c["hid"], num_flatten_dims=2)
+        lstm1, _ = L.dynamic_lstm(fc1, c["hid"] // 4, length=length)
+        inputs = [fc1, lstm1]
+        for i in range(2, c["stacked"] + 1):
+            fc = L.fc(inputs, c["hid"], num_flatten_dims=2)
+            lstm, _ = L.dynamic_lstm(fc, c["hid"] // 4,
+                                     is_reverse=(i % 2) == 0, length=length)
+            inputs = [fc, lstm]
+        pooled = [L.sequence_pool(v, "max", length=length) for v in inputs]
+        logits = L.fc(pooled, c["classes"])
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        fluid.optimizer.AdamOptimizer(lr).minimize(loss)
+    return main, startup, loss
+
+
+def j3_batch(np, rng, n, T):
+    lengths = rng.randint(J3["min_len"], J3["max_len"] + 1, n)
+    words = rng.randint(0, J3["vocab"], (n, T, 1)).astype(np.int64)
+    words[np.arange(T)[None, :] >= lengths[:, None]] = 0
+    label = (words[:, :, 0] < J3["vocab"] // 2).sum(1) * 2 > lengths
+    return {"words": words, "length": lengths.astype(np.int32)[:, None],
+            "label": label.astype(np.int64)[:, None]}
+
+
+def j3_sentiment(torch, np, seed, card):
+    import paddle_tpu_torch as fluid
+
+    fluid.set_flags({"optimizer_fuse": "on"})
+    T = J3["max_len"]
+    rng = np.random.RandomState(seed + 3)
+    gate, _, _ = j_card_vs_cpu(
+        torch, np, seed, j_stacked_lstm_net(fluid, T, J_LR),
+        [j3_batch(np, rng, J_GATE_BATCH, T) for _ in range(J_GATE_STEPS)],
+        f"j3 stacked_lstm_net batch {J_GATE_BATCH}", n_xent=1)
+    main, startup, loss = j_stacked_lstm_net(fluid, T, J_LR)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    times, losses = [], []
+    for _ in range(4):
+        b = j3_batch(np, rng, J3["batch"], T)
+        t = time.perf_counter()
+        losses.append(float(np.asarray(exe.run(
+            main, feed=b, fetch_list=[loss], scope=scope)[0]).reshape(-1)[0]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    ms = 1e3 * statistics.mean(times[1:])
+    log(f"  j3 batch {J3['batch']}, lengths {J3['min_len']}-{J3['max_len']}: "
+        f"{ms:.3f} ms a step (steps 2-4), losses {losses} [{card}]")
+    require(all(np.isfinite(losses)), f"j3: a loss is not finite: {losses}")
+    return {"gate": gate, "step_ms": ms, "losses": losses}
+
+
+def j_db_lstm(fluid, T, lr):
+    """The book's label_semantic_roles db_lstm: eight embeddings (six word
+    windows sharing ``emb``, the predicate's ``vemb``, the mark), their
+    fc's summed, ``depth`` LSTMs alternating direction, the tag scores,
+    ``linear_chain_crf`` (``crfw``), ``crf_decoding`` and ``chunk_eval``.
+    The dense LSTM keeps its sigmoid / tanh (the book asks relu
+    candidates of the reference's LoD op)."""
+    c = J4
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        names = ["word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2"]
+        words = [L.data(n, [T, 1], dtype="int64") for n in names]
+        pred = L.data("verb", [T, 1], dtype="int64")
+        mark = L.data("mark", [T, 1], dtype="int64")
+        target = L.data("target", [T], dtype="int64")
+        length = L.data("length", [1], dtype="int32")
+        embs = [L.embedding(w, size=[c["words"], c["word_dim"]],
+                            param_attr=fluid.ParamAttr(name="emb"))
+                for w in words]
+        embs.append(L.embedding(pred, size=[c["preds"], c["word_dim"]],
+                                param_attr=fluid.ParamAttr(name="vemb")))
+        embs.append(L.embedding(mark, size=[c["marks"], c["mark_dim"]]))
+        hidden = L.sums([L.fc(e, c["hidden"], num_flatten_dims=2)
+                         for e in embs])
+        lstm, _ = L.dynamic_lstm(hidden, c["hidden"] // 4, length=length)
+        tmp = [hidden, lstm]
+        for i in range(1, c["depth"]):
+            mix = L.sums([L.fc(v, c["hidden"], num_flatten_dims=2)
+                          for v in tmp])
+            lstm, _ = L.dynamic_lstm(mix, c["hidden"] // 4,
+                                     is_reverse=(i % 2) == 1, length=length)
+            tmp = [mix, lstm]
+        feature = L.sums([L.fc(v, c["labels"], act="tanh",
+                               num_flatten_dims=2) for v in tmp])
+        crfw = L.create_parameter([c["labels"] + 2, c["labels"]], "float32",
+                                  name="crfw")
+        *_, nll = L.linear_chain_crf(feature, target, crfw, length=length)
+        loss = L.mean(nll)
+        path = L.crf_decoding(feature, crfw, length=length)
+        chunk = L.chunk_eval(path, target, seq_length=length,
+                             chunk_scheme="IOB",
+                             num_chunk_types=(c["labels"] - 1) // 2)
+        fluid.optimizer.AdamOptimizer(lr).minimize(loss)
+    return (main, startup, loss), [feature, path, chunk[2]]
+
+
+def j4_batch(np, rng, n, T):
+    c = J4
+    lengths = rng.randint(T // 4, T + 1, n)
+    feed = {k: rng.randint(0, c["words"], (n, T, 1)).astype(np.int64)
+            for k in ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1",
+                      "ctx_p2")}
+    feed["verb"] = rng.randint(0, c["preds"], (n, T, 1)).astype(np.int64)
+    feed["mark"] = rng.randint(0, c["marks"], (n, T, 1)).astype(np.int64)
+    feed["target"] = rng.randint(0, c["labels"], (n, T)).astype(np.int64)
+    feed["length"] = lengths.astype(np.int32)[:, None]
+    return feed
+
+
+def viterbi_margin(np, em, tr, n):
+    """The Viterbi path of one row (float64) and its margin: the least gap
+    between the best and the second-best choice over the final argmax and
+    every back-pointer the path takes."""
+    start, stop, pair = tr[0], tr[1], tr[2:]
+    score = start + em[0]
+    backs, gaps = [], []
+    for t in range(1, n):
+        cand = score[:, None] + pair
+        order = np.sort(cand, axis=0)
+        backs.append((np.argmax(cand, axis=0), order[-1] - order[-2]))
+        score = order[-1] + em[t]
+    final = score + stop
+    f = np.sort(final)
+    cur = int(np.argmax(final))
+    gaps.append(f[-1] - f[-2])
+    path = [cur]
+    for back, gap in reversed(backs):
+        gaps.append(gap[cur])
+        cur = int(back[cur])
+        path.append(cur)
+    return path[::-1], float(min(gaps))
+
+
+def j4_srl(torch, np, seed, card):
+    import paddle_tpu_torch as fluid
+
+    fluid.set_flags({"optimizer_fuse": "on"})
+    T = J4["max_len"]
+    rng = np.random.RandomState(seed + 4)
+    built, extra = j_db_lstm(fluid, T, J_LR)
+    batches = [j4_batch(np, rng, J_GATE_BATCH, T) for _ in range(J_GATE_STEPS)]
+    gate, extras, arrays = j_card_vs_cpu(
+        torch, np, seed, built, batches, f"j4 db_lstm batch {J_GATE_BATCH}",
+        n_xent=0, fetch_extra=extra)
+    checked = equal = 0
+    lengths = batches[0]["length"][:, 0]
+    feat_cpu, path_cpu = extras["cpu"][0][0], extras["cpu"][0][1]
+    path_card = extras["cuda"][0][1]
+    # the first step's paths, both from the seeded weights: the margin on
+    # the CPU's scores and the seeded transition
+    tr = np.asarray(arrays["crfw"], np.float64)
+    for b, n in enumerate(lengths):
+        path, margin = viterbi_margin(np, feat_cpu[b, :n].astype(np.float64),
+                                      tr, int(n))
+        require(list(path_cpu[b, :n]) == path or margin <= J_VITERBI_MARGIN,
+                f"j4: the CPU's Viterbi path of row {b} is not the float64 one")
+        if margin > J_VITERBI_MARGIN:
+            checked += 1
+            equal += int(np.array_equal(path_card[b, :n], path_cpu[b, :n]))
+    log(f"  j4 crf_decoding: {equal} of {checked} rows with a Viterbi margin "
+        f"above {J_VITERBI_MARGIN} equal the CPU's paths "
+        f"({J_GATE_BATCH - checked} rows at a smaller margin); chunk F1 "
+        f"card {float(extras['cuda'][-1][2]):.4f}, CPU "
+        f"{float(extras['cpu'][-1][2]):.4f} [{card}]")
+    require(checked > 0 and equal == checked,
+            f"j4: {checked - equal} decoded paths differ from the CPU's")
+    return {"gate": gate, "paths_checked": checked, "paths_equal": equal}
+
+
+def j5_dynamic_gru(torch, np, seed, card):
+    """j5: a DynamicRNN of seq2seq's GRU cell at hidden 512 over 64 ragged
+    rows of up to 100 steps, forward and gradients on the card against
+    the CPU (phase 5's float32 training tolerance); a finished row's
+    outputs are exact zeros and its final memory its last output, bit
+    for bit."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import load_scope_arrays
+    from paddle_tpu_torch.models.seq2seq import _gru_step
+
+    B, T, Hd = J5["rows"], J5["max_len"], J5["hidden"]
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        blk = main.global_block()
+        x = blk.create_var(name="x", shape=(B, T, Hd), dtype="float32",
+                           is_data=True, stop_gradient=False)
+        ln = blk.create_var(name="len", shape=(B,), dtype="int32",
+                            is_data=True)
+        drnn = L.DynamicRNN()
+        with drnn.block():
+            word = drnn.step_input(x, length=ln)
+            prev = drnn.memory(shape=[Hd], value=0.0)
+            h = _gru_step((word, prev), Hd, "j5")
+            drnn.update_memory(prev, h)
+            drnn.output(h)
+        out = drnn()
+        loss = L.reduce_sum(L.elementwise_mul(out, out))
+        fluid.append_backward(loss)
+    rec = [o for o in main.global_block().ops if o.type == "recurrent"][0]
+    params = [p.name for p in main.all_parameters()]
+    fetch = [out.name, rec.outputs["FinalMemories"][0], "x@GRAD"] + [
+        p + "@GRAD" for p in params]
+    rng = np.random.RandomState(seed + 5)
+    lens = rng.randint(1, T + 1, B).astype(np.int32)
+    lens[:2] = (T, 1)
+    feed = {"x": rng.randn(B, T, Hd).astype(np.float32), "len": lens}
+    cpu_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu_scope)
+    arrays = seeded_arrays(np, main, cpu_scope, J_STD, seed)
+    got, secs = {}, {}
+    for name, place, dev in (("cuda", fluid.CUDAPlace(0), DEVICE),
+                             ("cpu", fluid.CPUPlace(), "cpu")):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        load_scope_arrays(scope, arrays, main, dev)
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope)   # warm
+        t = time.perf_counter()
+        got[name] = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        secs[name] = time.perf_counter() - t
+    worst = 0.0
+    for n, a, b in zip(fetch, got["cuda"], got["cpu"]):
+        d = np.abs(a - b) - (TRAIN_ATOL + TRAIN_RTOL * np.abs(b))
+        worst = max(worst, float(np.max(np.abs(a - b))))
+        require(np.all(d <= 0), f"j5: {n} card vs CPU beyond rtol "
+                f"{TRAIN_RTOL} / atol {TRAIN_ATOL}: {float(d.max()):.3e}")
+    o, m = got["cuda"][0], got["cuda"][1]
+    for b, n in enumerate(lens):
+        require(np.all(o[b, n:] == 0.0), f"j5: row {b} emits past its length")
+        require(np.array_equal(m[b], o[b, n - 1]),
+                f"j5: row {b}'s final memory is not its last output")
+    log(f"  j5 DynamicRNN GRU, {B} rows of 1-{T} steps at hidden {Hd}: "
+        f"outputs and {len(fetch) - 2} gradients card vs CPU within "
+        f"{worst:.3e} (max abs), frozen rows exact; forward + backward "
+        f"{1e3 * secs['cuda']:.1f} ms on the card, {1e3 * secs['cpu']:.1f} "
+        f"on the CPU [{card}]")
+    return {"max_abs_err": worst, "card_ms": 1e3 * secs["cuda"],
+            "cpu_ms": 1e3 * secs["cpu"]}
+
+
+def phase_j(torch, np, seed, card, out_dir):
+    """Phase j: recurrence and sequences. Returns (paths, record)."""
+    t = time.perf_counter()
+    log(f"  j1 seq2seq at rnn_search's widths: source vocabulary "
+        f"{J_SRC_VOCAB}, target {J_TGT_VOCAB}, embedding {J_EMB}, hidden "
+        f"{J_HIDDEN}, length {J_SEQ} (rnn_search's 2 LSTM layers reduced to "
+        "the book's one attention GRU)")
+    counts, rec1, trained = j1_train(torch, np, seed, card, out_dir)
+    rec = {"j1": rec1, "j2": j2_beam(torch, np, seed, card, trained)}
+    del trained
+    torch.cuda.empty_cache()
+    rec["j3"] = j3_sentiment(torch, np, seed, card)
+    rec["j4"] = j4_srl(torch, np, seed, card)
+    rec["j5"] = j5_dynamic_gru(torch, np, seed, card)
+    rec["seconds"] = time.perf_counter() - t
+    return {"seq2seq_train": counts}, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8625,6 +9214,14 @@ def main(argv=None) -> int:
         paths.update(ipaths)
         torch.cuda.empty_cache()
     mark("i")
+    if "j" in args.phases:
+        log("phase j: recurrence and sequences (seq2seq trained and "
+            "beam-decoded, the book's LSTM and CRF models, DynamicRNN)")
+        jpaths, record["phase_j"] = phase_j(torch, np, args.seed, card,
+                                            args.out)
+        paths.update(jpaths)
+        torch.cuda.empty_cache()
+    mark("j")
     record["phase_seconds"] = phase_s
     log(f"seconds a phase: {phase_s} [{card}]")
     launches = {name: {p: c.get(name, 0) for p, c in paths.items()}
@@ -8634,7 +9231,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h and i)")
+        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h, i and j)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"

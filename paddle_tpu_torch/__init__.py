@@ -170,17 +170,24 @@ Tensor, sequence and pipeline parallelism run on the same world:
 ``with_sequence_parallel(sp, mode="ring" | "ulysses")`` and
 ``PipelineOptimizer`` + ``with_pipeline`` (GPipe or 1F1B).
 
+Recurrence and sequences run over dense [B, T, ...] batches with a
+length tensor: ``layers.StaticRNN`` / ``DynamicRNN`` (the ``recurrent``
+op), ``dynamic_lstm`` / ``dynamic_gru``, the sequence, LoD, beam and
+CRF / CTC ops, ``contrib.layers.basic_gru`` / ``basic_lstm``, the beam
+search decoder, ``evaluator`` and ``models.seq2seq``.
+
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
-ported yet (ROADMAP A): the long tail (A11: ``StaticRNN`` /
-``DynamicRNN``, HDFS, autotune and the rest).
+ported yet (ROADMAP A11): the rest of the long tail (the other fused
+op types, the detection ops with ``models/ssd.py``, ``dygraph/``, the
+parameter server, HDFS, autotune and the rest).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of
 falling back.
 """
 
-from . import (average, clip, contrib, io, layers,  # noqa: F401
-               metrics, nets,
+from . import (average, clip, contrib, evaluator, io,  # noqa: F401
+               layers, metrics, nets,
                ops,  # ops: the lowerings
                optimizer, parallel, partition, profiler, regularizer,
                resilience, transpiler)

@@ -1,8 +1,10 @@
 """Layer functions that append ops to the default main program: the
-part of ``paddle_tpu/layers/`` the training paths call."""
+port's ``paddle_tpu/layers/``."""
 
 from .control_flow import *  # noqa: F401,F403
 from .extras import *  # noqa: F401,F403
+from .rnn import *  # noqa: F401,F403
+from .sequence import *  # noqa: F401,F403
 from .io import data
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
@@ -10,3 +12,5 @@ from .tensor import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403
 from . import ops  # noqa: F401
+
+from .auto import *  # noqa: F401,F403

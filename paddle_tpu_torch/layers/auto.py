@@ -1,0 +1,200 @@
+"""Table-driven layer wrappers over registered ops: the port's copy of
+``paddle_tpu/layers/auto.py``.
+
+Reference: python/paddle/fluid/layers/{nn,detection,tensor,...}.py —
+hundreds of near-identical functions whose body is create_var +
+append_op. One spec row per layer generates a real function (a true
+positional / keyword signature via exec) that emits the op. The rows
+are the JAX package's (``paddle_tpu/layers/auto.py``) whose ops the port
+registers and which no hand-written layer of the port covers; the rows
+whose ops the port lacks are listed in ROADMAP A11.
+
+Spec row: name: (op_type, [(arg, slot, required)], [(attr, default)],
+[outputs], stop_gradient) — a slot not required is fed only when its
+argument is not None.
+
+Output shapes come from running the op's own lowering on ``meta``
+tensors (no data, no device), with -1 / None dims taken as 1, as the
+JAX package's ``jax.eval_shape`` pass does; an op whose lowering reads
+values to the host (or fails) leaves its outputs shape-less.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import ops as _ops  # noqa: F401 (registers the rows' lowerings)
+from ..core.executor import torch_dtype
+from ..core.registry import LoweringContext, get_op_def
+from ..layer_helper import LayerHelper
+
+__all__ = []  # populated by _generate below
+
+
+def _infer_shapes(op_type, ins, attrs, out_slots):
+    """{slot: [(shape, dtype)]} from the lowering on meta tensors, or
+    None when an input has no shape or the lowering cannot run so."""
+    metas = {}
+    for slot, vs in ins.items():
+        lst = []
+        for v in vs:
+            shape = getattr(v, "shape", None)
+            if shape is None:
+                return None
+            try:
+                dt = torch_dtype(str(v.dtype or "float32"))
+            except (KeyError, TypeError, ValueError):
+                return None
+            lst.append(torch.empty(
+                tuple(1 if (d is None or int(d) < 0) else int(d)
+                      for d in shape), dtype=dt, device="meta"))
+        metas[slot] = lst
+
+    class _P:
+        pass
+
+    op = _P()
+    op.type = op_type
+    op.attrs = dict(attrs, op_ident=0)
+    op.inputs = {s: [getattr(v, "name", "x") for v in vs]
+                 for s, vs in ins.items()}
+    op.outputs = {s: [f"{op_type}_o"] for s in out_slots}
+    try:
+        with torch.no_grad():
+            res = get_op_def(op_type).lower(LoweringContext("meta"), op,
+                                            metas)
+    except Exception:  # data-dependent lowerings stay shape-less
+        return None
+    return {s: [(tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                for t in res.get(s, []) if isinstance(t, torch.Tensor)]
+            for s in out_slots}
+
+
+def _emit(op_type, input_map, attrs, out_slots, stop_gradient):
+    helper = LayerHelper(op_type)
+    ins = {}
+    for slot, val in input_map.items():
+        if val is None:
+            continue
+        ins[slot] = list(val) if isinstance(val, (list, tuple)) else [val]
+    inferred = _infer_shapes(op_type, ins, attrs, out_slots)
+    outs = {}
+    ret = []
+    for slot in out_slots:
+        shape = dtype = None
+        if inferred and inferred.get(slot):
+            shape, dtype = inferred[slot][0]
+        v = helper.create_variable_for_type_inference(
+            dtype=dtype or "float32", shape=shape,
+            stop_gradient=stop_gradient)
+        outs[slot] = [v]
+        ret.append(v)
+    helper.append_op(type=op_type, inputs=ins, outputs=outs, attrs=attrs)
+    return ret[0] if len(ret) == 1 else tuple(ret)
+
+
+# name: (op_type, inputs [(arg, slot, required)], attrs [(name, default)],
+#        outputs, stop_gradient)
+_SPECS = {
+    "gather_tree": ("gather_tree", [("ids", "Ids", 1),
+                                    ("parents", "Parents", 1)],
+                    [], ["Out"], True),
+    "chunk_eval": ("chunk_eval", [("input", "Inference", 1),
+                                  ("label", "Label", 1),
+                                  ("seq_length", "SeqLength", 0)],
+                   [("chunk_scheme", "IOB"), ("num_chunk_types", 1),
+                    ("excluded_chunk_types", [])],
+                   ["Precision", "Recall", "F1-Score", "NumInferChunks",
+                    "NumLabelChunks", "NumCorrectChunks"], True),
+    "edit_distance": ("edit_distance", [("input", "Hyps", 1),
+                                        ("label", "Refs", 1)],
+                      [("normalized", True)],
+                      ["Out", "SequenceNum"], True),
+    "warpctc": ("warpctc", [("input", "Logits", 1), ("label", "Label", 1),
+                            ("input_length", "LogitsLength", 0),
+                            ("label_length", "LabelLength", 0)],
+                [("blank", 0), ("norm_by_times", False)],
+                ["Loss"], False),
+    "linear_chain_crf": ("linear_chain_crf",
+                         [("input", "Emission", 1), ("label", "Label", 1),
+                          ("transition", "Transition", 1),
+                          ("length", "Length", 0)], [],
+                         ["Alpha", "EmissionExps", "TransitionExps",
+                          "LogLikelihood"], False),
+    "crf_decoding": ("crf_decoding",
+                     [("input", "Emission", 1),
+                      ("transition", "Transition", 1),
+                      ("label", "Label", 0), ("length", "Length", 0)],
+                     [], ["ViterbiPath"], True),
+    "row_conv": ("row_conv", [("input", "X", 1), ("filter", "Filter", 1)],
+                 [], ["Out"], False),
+    "im2sequence": ("im2sequence", [("input", "X", 1)],
+                    [("kernels", [3, 3]), ("strides", [1, 1]),
+                     ("paddings", [0, 0, 0, 0])], ["Out"], False),
+    "lod_reset": ("lod_reset", [("x", "X", 1), ("y", "Y", 0)],
+                  [("target_lod", [])], ["Out"], False),
+    "reorder_lod_tensor_by_rank": ("reorder_lod_tensor_by_rank",
+                                   [("x", "X", 1),
+                                    ("rank_table", "RankTable", 1)],
+                                   [], ["Out"], False),
+    "tensor_array_to_tensor": ("tensor_array_to_tensor",
+                               [("input", "X", 1)],
+                               [("axis", 0), ("use_stack", False)],
+                               ["Out", "OutIndex"], False),
+    "sequence_conv": ("sequence_conv", [("input", "X", 1),
+                                        ("filter", "Filter", 1),
+                                        ("length", "Length", 0)],
+                      [("contextLength", 3), ("contextStart", -1)],
+                      ["Out"], False),
+    "sequence_enumerate": ("sequence_enumerate", [("input", "X", 1)],
+                           [("win_size", 2), ("pad_value", 0)],
+                           ["Out"], True),
+    "sequence_expand_as": ("sequence_expand_as",
+                           [("x", "X", 1), ("y", "Y", 1)],
+                           [], ["Out"], False),
+    "sequence_scatter": ("sequence_scatter",
+                         [("input", "X", 1), ("index", "Ids", 1),
+                          ("updates", "Updates", 1)], [], ["Out"], False),
+    "sequence_slice": ("sequence_slice",
+                       [("input", "X", 1), ("offset", "Offset", 1),
+                        ("length", "Length", 1)], [], ["Out"], False),
+}
+
+
+def _generate():
+    import sys
+
+    mod = sys.modules[__name__]
+    for name, (op_type, inputs, attrs, outs, stop_grad) in _SPECS.items():
+        args = [a for a, _, _ in inputs]
+        kw = [f"{a}={d!r}" for a, d in attrs]
+        req = [a for a, _, r in inputs if r]
+        opt = [a for a, _, r in inputs if not r]
+        sig = ", ".join(req + [f"{a}=None" for a in opt] + kw
+                        + ["name=None"])
+        slot_map = {a: s for a, s, _ in inputs}
+        attr_names = [a for a, _ in attrs]
+        body = (
+            f"def {name}({sig}):\n"
+            f"    _im = {{}}\n"
+        )
+        for a in args:
+            body += f"    _im[{slot_map[a]!r}] = {a}\n"
+        body += f"    _attrs = {{}}\n"
+        for a in attr_names:
+            body += (f"    if {a} is not None:\n"
+                     f"        _attrs[{a!r}] = {a}\n")
+        body += (f"    return _emit({op_type!r}, _im, _attrs, "
+                 f"{outs!r}, {stop_grad!r})\n")
+        ns = {"_emit": _emit}
+        exec(body, ns)
+        fn = ns[name]
+        fn.__module__ = __name__
+        fn.__doc__ = (f"Layer wrapper over the `{op_type}` op "
+                      f"(generated; see ops/ for the lowering and the "
+                      f"reference layers/*.py for semantics).")
+        setattr(mod, name, fn)
+        __all__.append(name)
+
+
+_generate()

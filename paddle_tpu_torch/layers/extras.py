@@ -12,7 +12,8 @@ from ..param_attr import ParamAttr
 from .nn import _out
 
 __all__ = ["switch_moe", "py_reader", "create_py_reader_by_data",
-           "double_buffer", "read_file"]
+           "double_buffer", "read_file", "sequence_first_step",
+           "sequence_last_step"]
 
 
 def switch_moe(input, num_experts, expert_hidden, capacity_factor=1.25,
@@ -109,3 +110,15 @@ def read_file(reader):
         fl = reader.feed_list
         return list(fl) if len(fl) > 1 else fl[0]
     raise TypeError("read_file expects a py_reader/GeneratorLoader")
+
+
+def sequence_first_step(input, length=None):
+    from .sequence import sequence_pool
+
+    return sequence_pool(input, "first", length=length)
+
+
+def sequence_last_step(input, length=None):
+    from .sequence import sequence_pool
+
+    return sequence_pool(input, "last", length=length)

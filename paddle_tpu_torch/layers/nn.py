@@ -22,7 +22,7 @@ from ..layer_helper import LayerHelper
 __all__ = [
     "fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
     "adaptive_pool2d", "batch_norm", "layer_norm", "dropout", "softmax",
-    "matmul",
+    "matmul", "log_softmax",
     # activations and unary math
     "relu", "sigmoid", "tanh", "sqrt", "rsqrt", "exp", "log", "square",
     "abs", "gelu", "leaky_relu", "elu", "relu6", "softplus", "softsign",
@@ -527,6 +527,14 @@ def softmax(input, use_cudnn=False, name=None, axis=-1):
     helper.append_op(
         type="softmax", inputs={"X": [input]}, outputs={"Out": [out]}, attrs={"axis": axis}
     )
+    return out
+
+
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax", name=name)
+    out = _out(helper, input, shape=input.shape)
+    helper.append_op(type="log_softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out
 
 

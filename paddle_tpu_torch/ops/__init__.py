@@ -2,5 +2,6 @@
 ``core/registry.py``. Each module mirrors the JAX package's module of
 the same name; only the ops the training path runs are here."""
 
-from . import (collective, control, lod, math, metrics,  # noqa: F401
-               misc, moe, nn, optim, quant, random, tensor)
+from . import (beam, collective, control, fused, lod,  # noqa: F401
+               loss_ext, math, metrics, misc, moe, nn, optim, quant, random,
+               rnn, sequence, tensor)

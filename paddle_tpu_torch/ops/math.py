@@ -440,3 +440,9 @@ def _clip(ctx, op, ins):
     if hi is not None:
         out = _minimum(out, out.new_full((), hi))
     return {"Out": [out]}
+
+
+@register_op("log_softmax", inputs=("X",), outputs=("Out",))
+def _log_softmax(ctx, op, ins):
+    return {"Out": [torch.log_softmax(ins["X"][0],
+                                      dim=int(op.attrs.get("axis", -1)))]}

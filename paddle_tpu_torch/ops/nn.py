@@ -373,3 +373,34 @@ def _sigmoid_ce(ctx, op, ins):
     if op.attrs.get("normalize", False):
         loss = loss / torch.clamp_min(mask.to(loss.dtype).sum(), 1.0)
     return {"Out": [loss]}
+
+
+# -- sequence helpers (paddle_tpu/ops/nn.py:840, :927) -----------------------
+
+
+@register_op("im2sequence", inputs=("X",), outputs=("Out",))
+def _im2sequence(ctx, op, ins):
+    """Sliding blocks as a sequence: [N, C, H, W] -> [N, oh·ow,
+    C·kh·kw] (reference im2sequence_op.cc, no padding)."""
+    x = ins["X"][0]
+    kh, kw = [int(v) for v in op.attrs["kernels"]]
+    sh, sw = [int(v) for v in op.attrs.get("strides", [1, 1])]
+    N, C, H, W = x.shape
+    oh, ow = (H - kh) // sh + 1, (W - kw) // sw + 1
+    cols = [x[:, :, i:i + sh * oh:sh, j:j + sw * ow:sw]
+            for i in range(kh) for j in range(kw)]
+    out = torch.stack(cols, dim=-1).permute(0, 2, 3, 1, 4)
+    return {"Out": [out.reshape(N, oh * ow, C * kh * kw)]}
+
+
+@register_op("row_conv", inputs=("X", "Filter"), outputs=("Out",))
+def _row_conv(ctx, op, ins):
+    """Lookahead row convolution: out[t] = sum_j W[j] · x[t + j]."""
+    x, w = ins["X"][0], ins["Filter"][0]
+    K = w.shape[0]
+    T = x.shape[1]
+    xp = F.pad(x, (0, 0, 0, K - 1))
+    out = xp[:, 0:T] * w[0][None, None, :]
+    for j in range(1, K):
+        out = out + xp[:, j:j + T] * w[j][None, None, :]
+    return {"Out": [out]}

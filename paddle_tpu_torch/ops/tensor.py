@@ -529,3 +529,50 @@ def _cumsum(ctx, op, ins):
     if op.attrs.get("exclusive", False):
         out = out - x
     return {"Out": [out]}
+
+
+# -- sequence helpers (paddle_tpu/ops/tensor.py:644-741) ---------------------
+
+
+@register_op("gather_tree", inputs=("Ids", "Parents"), outputs=("Out",),
+             stop_gradient=True)
+def _gather_tree(ctx, op, ins):
+    """Beam parents walked back, keeping the [T, B, beam] layout."""
+    from .beam import backtrack
+
+    return {"Out": [backtrack(ins["Ids"][0], ins["Parents"][0])]}
+
+
+@register_op("max_sequence_len", inputs=("RankTable",), outputs=("Out",),
+             stop_gradient=True)
+def _max_sequence_len(ctx, op, ins):
+    """The dense form's padded time axis is the longest length."""
+    x = ins["RankTable"][0]
+    n = x.shape[1] if x.dim() > 1 else x.shape[0]
+    return {"Out": [torch.tensor(n, dtype=torch.int32, device=x.device)]}
+
+
+@register_op("lod_reset", inputs=("X", "Y"), outputs=("Out",), no_grad=("Y",))
+def _lod_reset(ctx, op, ins):
+    """Dense data carries no LoD: X passes through."""
+    return {"Out": [ins["X"][0]]}
+
+
+@register_op("ctc_align", inputs=("Input", "InputLength"),
+             outputs=("Output", "OutputLength"), stop_gradient=True)
+def _ctc_align(ctx, op, ins):
+    """CTC decode alignment: repeats merged, blanks dropped, survivors
+    moved to the front; the new lengths alongside (int32)."""
+    from .sequence import _compact
+
+    x = ins["Input"][0]
+    blank = int(op.attrs.get("blank", 0))
+    B, T = x.shape
+    ln = (ins["InputLength"][0].reshape(-1) if ins.get("InputLength")
+          else torch.full((B,), T, dtype=torch.int32, device=x.device))
+    in_seq = torch.arange(T, device=x.device)[None, :] < ln[:, None]
+    prev = torch.cat([torch.full((B, 1), -1, dtype=x.dtype, device=x.device),
+                      x[:, :-1]], dim=1)
+    out, new_len = _compact(x, in_seq & (x != blank) & (x != prev),
+                            torch.int32)
+    return {"Output": [out], "OutputLength": [new_len]}

@@ -13,10 +13,23 @@ maps it onto ``torch.distributed.init_process_group`` over a
 Backends: ``nccl`` when CUDA is present, ``gloo`` on the CPU, or the
 one the caller (or ``--backend``) names. Two ranks can share one GPU
 only over ``gloo``: NCCL refuses two ranks on one device.
+
+Teardown: ``init_process_group`` and ``new_group`` also enter every
+process group into c10d's C++ registry (``_register_process_group``),
+a static object. A process that formed a world and returned without
+``destroy_process_group`` left its groups there, to be destroyed by
+the C++ static destructors after the interpreter had finalized, in an
+order nothing fixes: now and then the process aborted in that phase
+with ``terminate called without an active exception`` (SIGABRT, no
+Python frame on the stack). So ``init_parallel_env`` registers
+``shutdown_parallel_env`` with ``atexit``: the world is destroyed while
+the interpreter still runs, whether or not the script tears it down
+itself.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 from typing import Optional
@@ -113,7 +126,8 @@ def init_parallel_env(coordinator_address: Optional[str] = None,
     formed only when a backend is named (``backend``, or the launcher's
     ``--backend``: an NCCL world of one on the card); otherwise one
     process stays without a world, as the JAX package's does.
-    Idempotent."""
+    The world is destroyed at interpreter exit (``atexit``) unless the
+    caller destroys it first. Idempotent."""
     global _STORE
     env = ParallelEnv()
     if world_size is not None:
@@ -140,6 +154,8 @@ def init_parallel_env(coordinator_address: Optional[str] = None,
         torch.cuda.set_device(env.dev_id % torch.cuda.device_count())
     dist.init_process_group(backend, store=_STORE, rank=env.rank,
                             world_size=env.world_size, timeout=timeout)
+    atexit.unregister(shutdown_parallel_env)
+    atexit.register(shutdown_parallel_env)
     return env
 
 

@@ -12,6 +12,8 @@
     its op has run, and a var freed before would be missing.
 (d) Like ``lax.while_loop``, ``while`` has no gradient:
     ``append_backward`` over one raises as JAX's does.
+(e) ``StaticRNN`` / ``DynamicRNN`` build their ``recurrent`` op and run
+    (held to JAX in tests/test_torch_rnn.py).
 """
 
 import numpy as np
@@ -294,6 +296,38 @@ def test_append_backward_refuses_a_while(pkg):
 
 
 def test_static_and_dynamic_rnn_are_refused_naming_a11():
-    for name in ("StaticRNN", "DynamicRNN"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            getattr(fluid.layers, name)()
+    """Ported now (ROADMAP A11b): both layers build their ``recurrent``
+    op and run (their parity with JAX: tests/test_torch_rnn.py)."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        blk = main.global_block()
+        xs = blk.create_var(name="xs", shape=(3, 2, 4), dtype="float32",
+                            is_data=True)
+        xb = blk.create_var(name="xb", shape=(2, 3, 4), dtype="float32",
+                            is_data=True)
+        ln = blk.create_var(name="ln", shape=(2,), dtype="int32",
+                            is_data=True)
+        rnn = L.StaticRNN()
+        with rnn.step():
+            w = rnn.step_input(xs)
+            prev = rnn.memory(shape=[-1, 4], batch_ref=w, ref_batch_dim_idx=0)
+            h = L.elementwise_add(w, prev)
+            rnn.update_memory(prev, h)
+            rnn.step_output(h)
+        drnn = L.DynamicRNN()
+        with drnn.block():
+            w = drnn.step_input(xb, length=ln)
+            prev = drnn.memory(shape=[4], value=0.0)
+            h = L.elementwise_add(w, prev)
+            drnn.update_memory(prev, h)
+            drnn.output(h)
+        outs = [rnn(), drnn()]
+    assert [op.type for op in main.global_block().ops].count("recurrent") == 2
+    x = np.ones((3, 2, 4), np.float32)
+    so, do = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed={"xs": x, "xb": x.transpose(1, 0, 2),
+                    "ln": np.array([3, 1], np.int32)},
+        fetch_list=outs, scope=fluid.Scope())
+    np.testing.assert_array_equal(so[:, 0, 0], [1, 2, 3])   # running sums
+    np.testing.assert_array_equal(do[1, :, 0], [1, 0, 0])   # zeros past 1

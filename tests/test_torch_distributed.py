@@ -115,13 +115,20 @@ def test_launcher_rank_prefixed_logs_and_child_env(tmp_path):
 
 def test_launcher_elastic_restart_resumes_world(tmp_path):
     worker = _write(tmp_path, "w.py", """
-        import json, os, sys
+        import json, os, sys, time
         gen = int(os.environ["PADDLE_RESTART_COUNT"])
         rank = os.environ["PADDLE_TRAINER_ID"]
         with open(os.environ["OUT_DIR"] + f"/g{gen}.r{rank}", "w") as f:
             json.dump({"endpoints":
                        os.environ["PADDLE_TRAINER_ENDPOINTS"]}, f)
         if gen == 0 and rank == "1":
+            # fail only once rank 0 has written its record: the launcher
+            # kills the world at this exit, and under load rank 0 may
+            # not have started yet
+            t0 = time.time()
+            while (not os.path.exists(os.environ["OUT_DIR"] + "/g0.r0")
+                   and time.time() - t0 < 20):
+                time.sleep(0.05)
             sys.exit(43)
     """)
     out_dir = tmp_path / "out"

@@ -2343,3 +2343,124 @@ def test_tp_gpt_on_cuda_matches_one_process_with_its_qkv_shard(cuda,
         assert tp["one_qkv"] == [64, 192] and tp["tp_qkv"] == [64, 96]
         assert tp["tp_dev"].startswith("cuda")
     assert a10b_world[0]["tp"]["tp"] == a10b_world[1]["tp"]["tp"]
+
+
+# -- recurrence and sequences (A11b) ----------------------------------------------
+
+
+def _drnn_program(B, T, D, Hd):
+    """A DynamicRNN over [B, T, D] with lengths whose step is an fc of
+    [x, h]: (main, startup, fetch names)."""
+    import paddle_tpu_torch as fl
+
+    main, startup = fl.Program(), fl.Program()
+    main.random_seed = startup.random_seed = 3
+    with fl.program_guard(main, startup), fl.unique_name.guard():
+        L = fl.layers
+        blk = main.global_block()
+        x = blk.create_var(name="x", shape=(B, T, D), dtype="float32",
+                           is_data=True, stop_gradient=False)
+        ln = blk.create_var(name="len", shape=(B,), dtype="int32",
+                            is_data=True)
+        drnn = L.DynamicRNN()
+        with drnn.block():
+            w = drnn.step_input(x, length=ln)
+            prev = drnn.memory(shape=[Hd], value=0.0)
+            h = L.fc([w, prev], Hd, act="tanh")
+            drnn.update_memory(prev, h)
+            drnn.output(h)
+        out = drnn()
+        loss = L.reduce_sum(L.elementwise_mul(out, out))
+        fl.append_backward(loss)
+    op = [o for o in main.global_block().ops if o.type == "recurrent"][0]
+    fetch = [out.name, op.outputs["FinalMemories"][0], "x@GRAD"] + [
+        v.name + "@GRAD" for v in main.list_vars() if v.persistable]
+    return main, startup, fetch
+
+
+def test_recurrent_and_dynamic_rnn_frozen_rows_on_cuda_match_the_cpu(cuda):
+    import paddle_tpu_torch as fl
+
+    B, T, D, Hd = 6, 9, 5, 7
+    main, startup, fetch = _drnn_program(B, T, D, Hd)
+    rng = np.random.RandomState(0)
+    lens = np.array([9, 1, 4, 0, 7, 2], np.int32)
+    feed = {"x": rng.randn(B, T, D).astype(np.float32), "len": lens}
+    res = {}
+    for dev, place in (("cpu", fl.CPUPlace()), ("cuda", fl.CUDAPlace(0))):
+        scope = fl.Scope()
+        exe = fl.Executor(place)
+        exe.run(startup, scope=scope)
+        if dev == "cuda":
+            for n, v in res["cpu_init"].items():
+                scope.set_var(n, torch.from_numpy(v).to(cuda))
+        else:
+            res["cpu_init"] = {v.name: np.array(scope.get_numpy(v.name))
+                               for v in main.list_vars() if v.persistable}
+        res[dev] = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    for a, b in zip(res["cpu"], res["cuda"]):
+        np.testing.assert_allclose(b, a, rtol=2e-5, atol=2e-5)
+    out, fin = res["cuda"][0], res["cuda"][1]
+    for b, n in enumerate(lens):
+        assert np.all(out[b, n:] == 0.0)
+        np.testing.assert_array_equal(fin[b], out[b, n - 1] if n else 0.0)
+
+
+def test_beam_search_tie_order_on_cuda(cuda):
+    """Ties in a [B, beam·V] row (finished beams make NEG_INF ties) keep
+    jax.lax.top_k's order, the lower flat index first, on the card."""
+    from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
+
+    class _Op:
+        attrs = {"beam_size": 8, "end_id": 1, "is_accumulated": True}
+
+    rng = np.random.RandomState(5)
+    B, beam, Vd = 4, 8, 3000
+    scores = rng.randint(-3, 0, (B, beam, Vd)).astype(np.float32)
+    pre_ids = rng.randint(0, 3, (B, beam)).astype(np.int64)
+    pre_scores = rng.randint(-2, 0, (B, beam)).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ins = {"pre_ids": [torch.from_numpy(pre_ids).to(dev)],
+               "pre_scores": [torch.from_numpy(pre_scores).to(dev)],
+               "scores": [torch.from_numpy(scores).to(dev)]}
+        r = get_op_def("beam_search").lower(LoweringContext(dev), _Op(), ins)
+        outs[dev] = {k: v[0].cpu().numpy() for k, v in r.items()}
+    flat = np.where((pre_ids == 1)[..., None], -1e9, scores)
+    for k in outs["cpu"]:
+        np.testing.assert_array_equal(outs["cuda"][k], outs["cpu"][k])
+    # the reference rule: a stable descending sort of the flat row
+    acc = flat.copy()
+    acc[..., 1] = np.where(pre_ids == 1, pre_scores, scores[..., 1])
+    order = np.argsort(-acc.reshape(B, -1), axis=1, kind="stable")[:, :8]
+    np.testing.assert_array_equal(outs["cuda"]["parent_idx"], order // Vd)
+    np.testing.assert_array_equal(outs["cuda"]["selected_ids"], order % Vd)
+
+
+def test_linear_chain_crf_gradient_on_cuda(cuda):
+    from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
+
+    class _Op:
+        attrs = {}
+
+    rng = np.random.RandomState(6)
+    B, T, C = 8, 30, 60
+    em = rng.randn(B, T, C).astype(np.float32)
+    tr = rng.randn(C + 2, C).astype(np.float32) * 0.1
+    lab = rng.randint(0, C, (B, T)).astype(np.int64)
+    lens = rng.randint(1, T + 1, B).astype(np.int32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        e = torch.from_numpy(em).to(dev).requires_grad_(True)
+        t = torch.from_numpy(tr).to(dev).requires_grad_(True)
+        r = get_op_def("linear_chain_crf").lower(
+            LoweringContext(dev), _Op(),
+            {"Emission": [e], "Transition": [t],
+             "Label": [torch.from_numpy(lab).to(dev)],
+             "Length": [torch.from_numpy(lens).to(dev)]})
+        nll = r["LogLikelihood"][0]
+        ge, gt = torch.autograd.grad(nll.sum(), [e, t])
+        res[dev] = [nll.detach().cpu().numpy(), ge.cpu().numpy(),
+                    gt.cpu().numpy()]
+    for a, b in zip(res["cpu"], res["cuda"]):
+        np.testing.assert_allclose(b, a, rtol=2e-5, atol=2e-5)

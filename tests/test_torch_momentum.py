@@ -305,14 +305,17 @@ def test_fused_momentum_update_checks_its_inputs():
     pytest.param("PipelineOptimizer", "ported",
                  id="PipelineOptimizer-ROADMAP A10"),
     ("switch_moe over an ep mesh", "ROADMAP A10"),
-    ("StaticRNN", "ROADMAP A11"),
-    ("DynamicRNN", "ROADMAP A11"),
+    # StaticRNN / DynamicRNN are ported now (tests/test_torch_rnn.py):
+    # their cases check that they build a recurrent op
+    pytest.param("StaticRNN", "ported", id="StaticRNN-ROADMAP A11"),
+    pytest.param("DynamicRNN", "ported", id="DynamicRNN-ROADMAP A11"),
 ])
 def test_unported_items_are_refused_naming_their_roadmap_item(name, item):
-    """What still waits raises naming its ROADMAP item: the optimizers
-    of distribution, expert parallelism, the recurrent layers. (The
-    meta-optimizers and SelectedRows gradients are ported:
-    tests/test_torch_meta_optimizers.py, test_torch_selected_rows.py.)"""
+    """What still waits raises naming its ROADMAP item: expert
+    parallelism over an ep mesh. (The meta-optimizers, SelectedRows
+    gradients and the recurrent layers are ported:
+    tests/test_torch_meta_optimizers.py, test_torch_selected_rows.py,
+    test_torch_rnn.py.)"""
     if name.startswith("switch_moe"):
         from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
 
@@ -325,8 +328,19 @@ def test_unported_items_are_refused_naming_their_roadmap_item(name, item):
         with pytest.raises(NotImplementedError, match=item):
             get_op_def("switch_moe").lower(ctx, _Op(), {})
     elif name.endswith("RNN"):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(fluid.layers, name)()
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            x = main.global_block().create_var(
+                name="x", shape=(3, 2, 4), dtype="float32", is_data=True)
+            rnn = getattr(fluid.layers, name)()
+            with (rnn.step() if name == "StaticRNN" else rnn.block()):
+                w = rnn.step_input(x)
+                if name == "StaticRNN":
+                    rnn.step_output(fluid.layers.scale(w, 2.0))
+                else:
+                    rnn.output(fluid.layers.scale(w, 2.0))
+            rnn()
+        assert [op.type for op in main.global_block().ops] == ["recurrent"]
     elif item == "ported" and name == "PipelineOptimizer":
         opt = fluid.optimizer.SGD(0.1)
         assert fluid.optimizer.PipelineOptimizer(opt)._optimizer is opt
