@@ -6,7 +6,7 @@
                                      #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4,
                                      #   e1, e2 (+ grouped conv share), g2
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789abcdefghij), no result line
+                                        #   23456789abcdefghijk), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -416,6 +416,34 @@ j. recurrence and sequences, seeded weights (std 0.02), Adam, TF32
    1-100 steps: outputs and gradients card against CPU within rtol 2e-4
    / atol 2e-5; a finished row emits exact zeros and keeps its last
    output as its final memory, bit for bit.
+k. the imperative mode (``paddle_tpu_torch.dygraph``), TF32 off. k4
+   first, its world beside k3: a gloo world of 2 on the card
+   (``chip_smoke.py --k4-child``) trains the dygraph ResNet-50 twin of
+   k1 under ``DataParallel`` (16 rows a rank, 2 Momentum steps:
+   ``scale_loss``, ``backward``, ``apply_collective_grads``), held to one
+   process that runs the same halves through ``backward()`` with each
+   loss scaled by 1/2 and steps (cuDNN's deterministic algorithms in
+   both): parameters within 2 * lr * steps, velocities relative L2 1e-4,
+   the ranks' parameters equal bit for bit every step (BN running
+   statistics not compared). k3: all 19 ``dygraph.nn`` classes forward
+   and backward at the CPU tests' shapes, card against CPU from the
+   CPU's weights (rtol 1e-4 / atol 1e-5; NCE's cost against JAX's formula
+   on its own sampled classes), and ``dg.LayerNorm`` at BERT-large's
+   [4096, 1024]: exactly one K1 and one K3, y / dx / dgamma / dbeta
+   against the plain version (dgamma, dbeta 2e-5 * sqrt(R)). k1: the
+   user's dygraph twin of ``build_resnet50`` (224^2, 1000 classes,
+   Momentum 0.9, the loss through ``softmax_with_cross_entropy`` and
+   ``layers.mean``) from the Program's startup weights mapped onto its
+   keys: (a) at batch 32 against the Program on the card: the first
+   loss rtol 1e-5, every gradient relative L2 1e-4 of the Program's
+   ``@GRAD``, the BN statistics 1e-3 of their largest, one K4 and one K5
+   in both; (b) card against CPU at batch 4, phase 5's ResNet gates;
+   (c) reported: ms a step over steps 1-9 against the Program's bound
+   step in the same call, images/s, one profiled step of each (kernels,
+   device busy, idle share), peak memory. k2: ``TracedLayer`` over the
+   model in eval mode at batch 32 (a CUDA graph): on 3 fresh batches
+   the replay equals the eager forward bit for bit; ms a forward of
+   each.
 
 Then the seconds each phase took, one JSON line of per-kernel numbers,
 the card line, and last ``{"ok": true, "device": {...}}``.
@@ -432,6 +460,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -480,7 +509,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789abcdefghij"
+ALL_PHASES = "23456789abcdefghijk"
 DEVICE = "cuda"
 
 
@@ -8942,6 +8971,735 @@ def phase_j(torch, np, seed, card, out_dir):
     return {"seq2seq_train": counts}, rec
 
 
+# -- phase k: the imperative mode ----------------------------------------------
+
+K_BATCH = 32              # k1 (a), (c), k2: images a step
+K_CPU_BATCH = 4           # k1 (b): phase 5's ResNet-50 card-vs-CPU batch
+K_STEPS = 10              # k1 (c): steps 1..9 timed
+K_LOSS_RTOL = 1e-5        # k1 (a): dygraph against Program, first loss
+K_GRAD_RTOL = 1e-4        # k1 (a): each gradient's relative L2 error;
+                          # k4: Momentum's velocities
+K_REPLAYS = 3             # k2: fresh batches replayed
+K_NN_RTOL, K_NN_ATOL = 1e-4, 1e-5   # k3: the CPU tests' gradient tolerance
+K_LN_ROWS = 8 * 512       # k3: BERT-large's layer-norm rows (batch x seq)
+K4_ROWS, K4_STEPS = 16, 2  # k4: rows a rank, steps
+K4_TIMEOUT_S = 420
+K_LEAF = {"conv.w": "conv.weight", "bn.scale": "bn.weight",
+          "bn.bias": "bn.bias", "bn.mean": "bn._mean",
+          "bn.var": "bn._variance"}
+
+
+def k_resnet50(dg, classes=1000):
+    """The user's dygraph twin of ``models/resnet.py`` ``build_resnet50``:
+    ``Conv2D(bias_attr=False)`` + ``BatchNorm(act=...)`` pairs, the
+    bottlenecks' VarBase ``+`` and relu, ``Pool2D``, ``Linear``. Its
+    sublayer names follow the Program's parameter names (``k_key``)."""
+    from paddle_tpu_torch.dygraph.base import _trace
+    from paddle_tpu_torch.layers import reshape
+
+    class ConvBN(dg.Layer):
+        def __init__(self, cin, cout, k, stride=1, act="relu"):
+            super().__init__()
+            self.conv = dg.Conv2D(cin, cout, k, stride=stride,
+                                  padding=(k - 1) // 2, bias_attr=False)
+            self.bn = dg.BatchNorm(cout, act=act)
+
+        def forward(self, x):
+            return self.bn(self.conv(x))
+
+    class Bottleneck(dg.Layer):
+        def __init__(self, cin, f, stride):
+            super().__init__()
+            self.b0 = ConvBN(cin, f, 1)
+            self.b1 = ConvBN(f, f, 3, stride)
+            self.b2 = ConvBN(f, 4 * f, 1, act=None)
+            self.sc = (ConvBN(cin, 4 * f, 1, stride, act=None)
+                       if stride != 1 or cin != 4 * f else None)
+
+        def forward(self, x):
+            short = x if self.sc is None else self.sc(x)
+            return _trace("relu", {"X": [short + self.b2(self.b1(self.b0(x)))]},
+                          ["Out"], {})[0]
+
+    class ResNet50(dg.Layer):
+        def __init__(self):
+            super().__init__()
+            self.stem = ConvBN(3, 64, 7, 2)
+            self.pool = dg.Pool2D(3, "max", 2, 1)
+            self.blocks, cin = [], 64
+            for stage, (d, f) in enumerate(zip((3, 4, 6, 3),
+                                               (64, 128, 256, 512))):
+                for blk in range(d):
+                    self.blocks.append(self.add_sublayer(
+                        f"s{stage}b{blk}",
+                        Bottleneck(cin, f, 2 if blk == 0 and stage else 1)))
+                    cin = 4 * f
+            self.gap = dg.Pool2D(7, "avg", global_pooling=True)
+            self.head = dg.Linear(2048, classes)
+
+        def forward(self, x):
+            x = self.pool(self.stem(x))
+            for b in self.blocks:
+                x = b(x)
+            return self.head(reshape(self.gap(x), [-1, 2048]))
+
+    return ResNet50()
+
+
+def k_key(name, head_bias):
+    """The dygraph twin's state_dict key of a Program parameter:
+    ``stem.conv.w`` -> ``stem.conv.weight``, ``s0b0.b1.bn.scale`` ->
+    ``s0b0.b1.bn.weight``, ``.bn.mean`` / ``.bn.var`` -> ``._mean`` /
+    ``._variance``, ``head.w`` and the fc's bias -> ``head.*``."""
+    if name == "head.w":
+        return "head.weight"
+    if name == head_bias:
+        return "head.bias"
+    for a, b in K_LEAF.items():
+        if name.endswith("." + a):
+            return name[: -len(a)] + b
+    return None
+
+
+def k_step(fluid, dg, model, opt, image, label):
+    """One dygraph step: forward, K4's loss, backward, the update. Returns
+    (loss, {key: gradient}) with the gradients read before the update."""
+    from paddle_tpu_torch.dygraph.base import _trace
+
+    logits = model(dg.to_variable(image))
+    _, per_row = _trace("softmax_with_cross_entropy",
+                        {"Logits": [logits], "Label": [dg.to_variable(label)]},
+                        ["Softmax", "Loss"], {})
+    loss = fluid.layers.mean(per_row)
+    loss.backward()
+    grads = {k: p.grad for k, p in model.named_parameters()
+             if p.grad is not None}
+    opt.minimize(loss, parameter_list=model.parameters())
+    model.clear_gradients()
+    return loss, grads
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def rel_l2_t(torch, got, want):
+    d = float(torch.linalg.vector_norm((got.float() - want.float())))
+    n = float(torch.linalg.vector_norm(want.float()))
+    return d / n if n else d
+
+
+def k_bn_gap(np, got, want):
+    """The largest BN running-statistic gap over the largest entry."""
+    worst, where = 0.0, ""
+    for k, w in want.items():
+        if k.endswith(("._mean", "._variance")):
+            d = float(np.abs(got[k] - w).max() / np.abs(w).max())
+            if d > worst:
+                worst, where = d, k
+    return worst, where
+
+
+def k1_dygraph(torch, np, seed, card, out_dir):
+    """k1: the dygraph ResNet-50 twin. (a) against the Program on the card
+    at batch 32, (b) card against CPU at batch 4, (c) timed at batch 32
+    beside the Program's bound step. Returns (launches of (c), record,
+    the trained model)."""
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.dygraph as dg
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.core.framework import Parameter
+    from paddle_tpu_torch.models.resnet import (build_resnet50,
+                                                synthetic_image_batch)
+
+    rec = {}
+    lr = resnet_lr(K_BATCH)
+    fluid.set_flags({"optimizer_fuse": "auto"})
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_resnet50(
+            1000, RESNET_IMAGE,
+            fluid.optimizer.MomentumOptimizer(lr, momentum=0.9))
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    params = [v for v in main.list_vars() if isinstance(v, Parameter)]
+    persist = [v.name for v in main.list_vars()
+               if v.persistable and not v.is_data]
+    head_bias = [p.name for p in params if k_key(p.name, None) is None]
+    require(len(head_bias) == 1, f"unmapped parameters {head_bias}")
+    keymap = {n: k_key(n, head_bias[0]) for n in persist}
+    keymap = {n: k for n, k in keymap.items() if k is not None}
+    init = {keymap[n]: scope.get_numpy(n) for n in keymap}
+    log(f"  the Program's {len(keymap)} parameters and statistics mapped "
+        f"onto the twin's keys ({len(params)} parameters, {n_params} "
+        "values)")
+    data = synthetic_image_batch(np.random.RandomState(seed), K_BATCH,
+                                 RESNET_IMAGE)
+
+    # (a) dygraph against the Program, on the card
+    K.reset_launch_counts()
+    outs = exe.run(main, feed=data, fetch_list=[fetches["loss"]] + [
+        p.name + "@GRAD" for p in params], scope=scope)
+    torch.cuda.synchronize()
+    prog_counts = K.launch_counts()
+    prog_loss = float(np.asarray(outs[0]).reshape(-1)[0])
+    prog_grads = {keymap[p.name]: torch.as_tensor(np.asarray(g))
+                  for p, g in zip(params, outs[1:])}
+    prog_stats = {keymap[n]: scope.get_numpy(n) for n in keymap
+                  if n.endswith((".bn.mean", ".bn.var"))}
+    with dg.guard(fluid.CUDAPlace(0)):
+        model = k_resnet50(dg)
+        model.set_dict(init)
+        opt = fluid.optimizer.MomentumOptimizer(lr, momentum=0.9)
+        K.reset_launch_counts()
+        loss, grads = k_step(fluid, dg, model, opt, data["image"],
+                             data["label"])
+        torch.cuda.synchronize()
+        dy_counts = K.launch_counts()
+        dy_loss = float(loss.numpy())
+        dy_stats = {k: v for k, v in model.state_dict().items()
+                    if k in prog_stats}
+    rel = abs(dy_loss - prog_loss) / abs(prog_loss)
+    require(set(grads) == set(prog_grads),
+            f"gradient keys differ: {sorted(set(grads) ^ set(prog_grads))}")
+    grad_err = {k: rel_l2_t(torch, grads[k].cpu(), prog_grads[k])
+                for k in grads}
+    worst = max(grad_err, key=grad_err.get)
+    bn, bn_where = k_bn_gap(np, dy_stats, prog_stats)
+    log(f"  (a) dygraph against the Program at batch {K_BATCH}: first loss "
+        f"{dy_loss:.7f} against {prog_loss:.7f} (rel {rel:.3e}, limit "
+        f"{K_LOSS_RTOL}); the worst gradient {worst} at relative L2 "
+        f"{grad_err[worst]:.3e} (limit {K_GRAD_RTOL}); BN running "
+        f"statistics within {bn:.3e} of their largest ({bn_where}; limit "
+        f"{BN_STATS_RTOL}); launches dygraph {nonzero(dy_counts)}, Program "
+        f"{nonzero(prog_counts)}")
+    require(rel <= K_LOSS_RTOL, f"k1 (a): first loss rel {rel:.3e}")
+    require(grad_err[worst] <= K_GRAD_RTOL,
+            f"k1 (a): gradient {worst} rel L2 {grad_err[worst]:.3e}")
+    require(bn <= BN_STATS_RTOL, f"k1 (a): BN statistic {bn_where} {bn:.3e}")
+    for what, c in (("dygraph", dy_counts), ("Program", prog_counts)):
+        require(c["softmax_xent_fwd"] == 1 and c["softmax_xent_bwd"] == 1,
+                f"k1 (a): the {what} step launched K4 / K5 "
+                f"{c['softmax_xent_fwd']} / {c['softmax_xent_bwd']} times")
+    rec["a"] = {"first_loss": dy_loss, "program_first_loss": prog_loss,
+                "loss_rel_err": rel, "grad_rel_l2_worst": grad_err[worst],
+                "grad_worst": worst, "bn_stats_rel_err": bn,
+                "launches_dygraph": nonzero(dy_counts),
+                "launches_program": nonzero(prog_counts)}
+    del grads, prog_grads, outs
+
+    # (b) card against CPU, batch 4, phase 5's gates
+    lr4 = resnet_lr(K_CPU_BATCH)
+    small = synthetic_image_batch(np.random.RandomState(seed + 1),
+                                  K_CPU_BATCH, RESNET_IMAGE)
+    runs = {}
+    for name, place in (("cuda", fluid.CUDAPlace(0)),
+                        ("cpu", fluid.CPUPlace())):
+        t = time.perf_counter()
+        with dg.guard(place):
+            m = k_resnet50(dg)
+            m.set_dict(init)
+            loss, _ = k_step(fluid, dg, m,
+                             fluid.optimizer.MomentumOptimizer(lr4, 0.9),
+                             small["image"], small["label"])
+            runs[name] = (float(loss.numpy()), m.state_dict())
+        log(f"  (b) {name}: first loss {runs[name][0]:.7f} in "
+            f"{time.perf_counter() - t:.1f} s")
+    (lg, sg), (lc, sc) = runs["cuda"], runs["cpu"]
+    rel_b = abs(lg - lc) / abs(lc)
+    bn_b, bn_b_where = k_bn_gap(np, sg, sc)
+    pworst, pwhere = max((float(np.abs(sg[k] - sc[k]).max()), k)
+                         for k in sc if not k.endswith(("._mean",
+                                                        "._variance")))
+    log(f"  (b) card against CPU at batch {K_CPU_BATCH}: first loss rel "
+        f"{rel_b:.3e} (limit {CARD_VS_CPU_RESNET_RTOL}); parameters after "
+        f"the update within {pworst:.3e} ({pwhere}; limit 2 * lr = "
+        f"{2 * lr4:.3e}); BN running statistics within {bn_b:.3e} of their "
+        f"largest ({bn_b_where}; limit {BN_STATS_RTOL})")
+    require(rel_b <= CARD_VS_CPU_RESNET_RTOL, f"k1 (b): first loss {rel_b:.3e}")
+    require(pworst <= 2 * lr4, f"k1 (b): parameter {pwhere} {pworst:.3e}")
+    require(bn_b <= BN_STATS_RTOL, f"k1 (b): BN statistic {bn_b_where}")
+    rec["b"] = {"first_loss_rel_err": rel_b, "param_max_abs_err": pworst,
+                "param_limit": 2 * lr4, "bn_stats_rel_err": bn_b}
+    del runs, sg, sc
+
+    # (c) timed: dygraph steps against the Program's bound step
+    totals = {n: 0 for n in K.KERNELS}
+    step_ms, losses = [], []
+    with dg.guard(fluid.CUDAPlace(0)):
+        torch.cuda.reset_peak_memory_stats()
+        for s in range(K_STEPS):
+            K.reset_launch_counts()
+            t = time.perf_counter()
+            loss, _ = k_step(fluid, dg, model, opt, data["image"],
+                             data["label"])
+            losses.append(float(loss.numpy()))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            for n, c in K.launch_counts().items():
+                totals[n] += c
+        peak = torch.cuda.max_memory_allocated()
+        prof = start_profile(torch)
+        t = time.perf_counter()
+        k_step(fluid, dg, model, opt, data["image"], data["label"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        prof.__exit__(None, None, None)
+        breakdown = trace_breakdown(prof, out_dir, "k1_dygraph", wall, 1)
+    require(all(np.isfinite(losses)), f"k1 (c): non-finite loss {losses}")
+    require(totals["softmax_xent_fwd"] == K_STEPS
+            and totals["softmax_xent_bwd"] == K_STEPS,
+            f"k1 (c): K4 / K5 launches {nonzero(totals)} over {K_STEPS} steps")
+    prog_ms = []
+    for s in range(K_STEPS):
+        t = time.perf_counter()
+        exe.run(main, feed=data, fetch_list=[fetches["loss"]], scope=scope)
+        torch.cuda.synchronize()
+        prog_ms.append((time.perf_counter() - t) * 1e3)
+    prof = start_profile(torch)
+    t = time.perf_counter()
+    exe.run(main, feed=data, fetch_list=[fetches["loss"]], scope=scope)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    prof.__exit__(None, None, None)
+    prog_breakdown = trace_breakdown(prof, out_dir, "k1_program", wall, 1)
+    dy_mean, prog_mean = (statistics.mean(step_ms[1:]),
+                          statistics.mean(prog_ms[1:]))
+    rec["c"] = {"step_ms": step_ms, "step_ms_mean": dy_mean,
+                "program_step_ms": prog_ms, "program_step_ms_mean": prog_mean,
+                "ratio_to_program": dy_mean / prog_mean,
+                "images_per_s": K_BATCH / (dy_mean / 1e3),
+                "program_images_per_s": K_BATCH / (prog_mean / 1e3),
+                "eager_launches_a_step": breakdown["kernels"],
+                "device_idle_share": breakdown["device_idle_share"],
+                "device_busy_ms": breakdown["device_busy_ms"],
+                "program_launches_a_step": prog_breakdown["kernels"],
+                "program_device_idle_share":
+                    prog_breakdown["device_idle_share"],
+                "program_device_busy_ms": prog_breakdown["device_busy_ms"],
+                "max_memory_allocated_gb": peak / 1e9, "losses": losses,
+                "card": card}
+    log(f"  (c) reported: dygraph {dy_mean:.3f} ms a step over steps 1..9 "
+        f"({K_BATCH / (dy_mean / 1e3):.1f} images/s), the Program's bound "
+        f"step {prog_mean:.3f} ms ({K_BATCH / (prog_mean / 1e3):.1f} "
+        f"images/s), ratio {dy_mean / prog_mean:.3f}; one profiled step: "
+        f"dygraph {breakdown['kernels']} kernels, device busy "
+        f"{breakdown['device_busy_ms']:.3f} ms, idle share "
+        f"{breakdown['device_idle_share']:.3f}; Program "
+        f"{prog_breakdown['kernels']} kernels, busy "
+        f"{prog_breakdown['device_busy_ms']:.3f} ms, idle share "
+        f"{prog_breakdown['device_idle_share']:.3f}; peak "
+        f"{peak / 1e9:.2f} GB; losses {['%.4f' % x for x in losses]} [{card}]")
+    del exe, scope
+    return totals, rec, model
+
+
+def k2_traced(torch, np, seed, card, model):
+    """k2: ``TracedLayer`` over k1's model in eval mode at batch 32: on
+    fresh batches the replay equals the eager forward bit for bit."""
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.dygraph as dg
+    from paddle_tpu_torch.models.resnet import synthetic_image_batch
+
+    rng = np.random.RandomState(seed + 2)
+    with dg.guard(fluid.CUDAPlace(0)):
+        model.eval()
+        first = synthetic_image_batch(rng, K_BATCH, RESNET_IMAGE)["image"]
+        t = time.perf_counter()
+        _, traced = dg.TracedLayer.trace(model, [first])
+        torch.cuda.synchronize()
+        trace_s = time.perf_counter() - t
+        eager_ms, replay_ms = [], []
+        for i in range(K_REPLAYS):
+            x = dg.to_variable(
+                synthetic_image_batch(rng, K_BATCH, RESNET_IMAGE)["image"])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with dg.no_grad():
+                want = model(x).value
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            got = traced([x])[0].value
+            torch.cuda.synchronize()
+            replay_ms.append((time.perf_counter() - t) * 1e3)
+            require(torch.equal(got, want),
+                    f"k2: batch {i}: the replay differs from the eager "
+                    f"forward by {float((got - want).abs().max()):.3e}")
+        model.train()
+    rec = {"trace_s": trace_s, "eager_ms": eager_ms, "replay_ms": replay_ms,
+           "card": card}
+    log(f"  k2: TracedLayer captured in {trace_s:.2f} s; {K_REPLAYS} fresh "
+        f"batches of {K_BATCH}, replay equal to the eager forward bit for "
+        f"bit; ms a forward eager {['%.3f' % x for x in eager_ms]}, replay "
+        f"{['%.3f' % x for x in replay_ms]} [{card}]")
+    return rec
+
+
+def k3_cases(np):
+    """Every dygraph.nn class at the CPU tests' shapes:
+    name -> (build(dg), inputs, mode)."""
+    r = np.random.RandomState(4)
+
+    def f(*s):
+        return r.randn(*s).astype("float32")
+
+    return {
+        "Linear": (lambda dg: dg.Linear(3, 2, act="relu"), [f(2, 3)]),
+        "Conv2D": (lambda dg: dg.Conv2D(3, 4, 3, padding=1, act="relu"),
+                   [f(2, 3, 5, 5)]),
+        "Pool2D": (lambda dg: dg.Pool2D(2, "max", 2), [f(2, 3, 4, 4)]),
+        "BatchNorm": (lambda dg: dg.BatchNorm(3, act="relu"),
+                      [f(4, 3, 5, 5)]),
+        "Embedding": (lambda dg: dg.nn.Embedding([10, 4]),
+                      [r.randint(0, 10, (2, 3)).astype("int64")]),
+        "LayerNorm": (lambda dg: dg.LayerNorm(4), [f(2, 3, 4)]),
+        "Dropout": (lambda dg: dg.Dropout(p=0.0), [f(2, 5)]),
+        "Conv2DTranspose": (lambda dg: dg.nn.Conv2DTranspose(3, 5, 3),
+                            [f(2, 3, 6, 6)]),
+        "Conv3D": (lambda dg: dg.nn.Conv3D(2, 4, 3, padding=1),
+                   [f(1, 2, 5, 5, 5)]),
+        "Conv3DTranspose": (lambda dg: dg.nn.Conv3DTranspose(2, 3, 1),
+                            [f(1, 2, 4, 4, 4)]),
+        "GRUUnit": (lambda dg: dg.nn.GRUUnit(12), [f(2, 12), f(2, 4)]),
+        "PRelu": (lambda dg: dg.nn.PRelu(mode="channel", channel=3),
+                  [f(2, 3, 4, 4)]),
+        "BilinearTensorProduct": (
+            lambda dg: dg.nn.BilinearTensorProduct(3, 4, 5), [f(2, 3),
+                                                              f(2, 4)]),
+        "SequenceConv": (lambda dg: dg.nn.SequenceConv(
+            num_filters=6, filter_size=3, input_dim=4), [f(2, 5, 4)]),
+        "RowConv": (lambda dg: dg.nn.RowConv(4, future_context_size=2),
+                    [f(2, 6, 4)]),
+        "GroupNorm": (lambda dg: dg.nn.GroupNorm(4, groups=2),
+                      [f(2, 4, 3, 3)]),
+        "SpectralNorm": (lambda dg: dg.nn.SpectralNorm([6, 4],
+                                                       power_iters=2),
+                         [f(6, 4)]),
+        "TreeConv": (lambda dg: dg.nn.TreeConv(4, 5),
+                     [f(1, 3, 4), np.array([[[0, 1], [0, 2]]], "int32")]),
+        "NCE": (lambda dg: dg.nn.NCE(num_total_classes=20, dim=6,
+                                     num_neg_samples=4),
+                [f(3, 6), r.randint(0, 20, (3, 1)).astype("int64")]),
+    }
+
+
+def k3_run(torch, np, fluid, dg, place, build, inputs, state=None):
+    """(outputs, {name: gradient}, state_dict) of one class's forward and
+    the backward of the mean of its first output; NCE also returns its
+    sampled classes."""
+    from paddle_tpu_torch.dygraph.base import _trace
+
+    with dg.guard(place):
+        layer = build(dg)
+        xs = [dg.to_variable(a) for a in inputs]
+        for x in xs:
+            if x.value.is_floating_point():
+                x.stop_gradient = False
+        if isinstance(layer, dg.nn.NCE):
+            # NCE's classes: traced as the layer does, with the sampled
+            # classes kept
+            if state is None:
+                layer(xs[0], xs[1])   # the layer itself runs too
+            else:
+                layer.set_dict(state)
+            ins = {"Input": [xs[0]], "Label": [xs[1]],
+                   "Weight": [layer.weight], "Bias": [layer.bias]}
+            outs = _trace("nce", ins, ["Cost", "SampleLogits",
+                                       "SampleLabels"], dict(layer._attrs))
+        else:
+            if state is not None:
+                layer.set_dict(state)
+            out = layer(*xs)
+            outs = list(out) if isinstance(out, tuple) else [out]
+        loss = outs[0]
+        while loss.shape:
+            loss = fluid.layers.mean(loss)
+        loss.backward()
+        grads = {k: p.gradient for k, p in layer.named_parameters()}
+        grads.update({f"x{i}": x.gradient for i, x in enumerate(xs)
+                      if x.gradient is not None})
+        return [o.numpy() for o in outs], grads, layer.state_dict()
+
+
+def k3_nce_cost(np, x, w, b, cls):
+    """JAX's nce formula on given sampled classes (the CPU test's)."""
+    logits = np.einsum("bd,bkd->bk", x, w[cls]) + b.reshape(-1)[cls]
+    labels = np.zeros_like(logits)
+    labels[:, 0] = 1
+    return (np.logaddexp(logits, 0) - labels * logits).sum(1, keepdims=True)
+
+
+def k3_classes(torch, np, card):
+    """k3: each dygraph.nn class forward and backward on the card against
+    the CPU from the CPU's weights; dg.LayerNorm at BERT-large's rows
+    through exactly 1 K1 and 1 K3 against its plain version."""
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.dygraph as dg
+    from paddle_tpu_torch import kernels as K
+
+    K.reset_launch_counts()
+    worst = {}
+    for name, (build, inputs) in k3_cases(np).items():
+        c_outs, c_grads, state = k3_run(torch, np, fluid, dg,
+                                        fluid.CPUPlace(), build, inputs)
+        g_outs, g_grads, _ = k3_run(torch, np, fluid, dg, fluid.CUDAPlace(0),
+                                    build, inputs, state)
+        if name == "NCE":
+            x = inputs[0]
+            w, b = state["weight"], state["bias"]
+            for what, outs in (("CPU", c_outs), ("card", g_outs)):
+                cls = outs[2]
+                require(cls.min() >= 0 and cls.max() < 20
+                        and (cls[:, 0] == inputs[1].reshape(-1)).all(),
+                        f"k3 NCE on the {what}: classes {cls}")
+                got, want = outs[0], k3_nce_cost(np, x, w, b, cls)
+                require(np.allclose(got, want, rtol=1e-5, atol=1e-6),
+                        f"k3 NCE on the {what}: cost {got} against {want}")
+            worst[name] = 0.0
+            continue
+        err = 0.0
+        pairs = [(f"out{i}", a, b) for i, (a, b) in
+                 enumerate(zip(g_outs, c_outs))]
+        require(set(g_grads) == set(c_grads), f"k3 {name}: gradient keys")
+        pairs += [(k, g_grads[k], c_grads[k]) for k in c_grads
+                  if c_grads[k] is not None]
+        for what, a, b in pairs:
+            require(a.shape == b.shape, f"k3 {name} {what}: shapes")
+            if a.dtype.kind in "biu":
+                require((a == b).all(), f"k3 {name} {what}: differs")
+                continue
+            require(np.allclose(a, b, rtol=K_NN_RTOL, atol=K_NN_ATOL),
+                    f"k3 {name} {what}: max abs diff "
+                    f"{float(np.abs(a - b).max()):.3e}")
+            err = max(err, float(np.abs(a - b).max()))
+        worst[name] = err
+    small_counts = K.launch_counts()
+    log(f"  k3: {len(worst)} dygraph.nn classes, card against CPU within "
+        f"rtol {K_NN_RTOL} / atol {K_NN_ATOL}: max abs diff by class "
+        + json.dumps({k: float('%.3e' % v) for k, v in worst.items()}))
+
+    # dg.LayerNorm at BERT-large's [8 * 512, 1024]
+    R, C = K_LN_ROWS, 1024
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    x0 = torch.randn(R, C, device=DEVICE, generator=gen)
+    dy = torch.randn(R, C, device=DEVICE, generator=gen)
+    with dg.guard(fluid.CUDAPlace(0)):
+        ln = dg.LayerNorm(C)
+        ln.set_dict({"weight": (1 + 0.1 * torch.randn(
+            C, device=DEVICE, generator=gen)).cpu().numpy(),
+            "bias": (0.1 * torch.randn(C, device=DEVICE,
+                                       generator=gen)).cpu().numpy()})
+        x = dg.to_variable(x0)
+        x.stop_gradient = False
+        before = K.launch_counts()
+        y = ln(x)
+        y.value.backward(dy)
+        torch.cuda.synchronize()
+        after = K.launch_counts()
+        got = [y.value.detach(), x.grad, ln.weight.grad, ln.bias.grad]
+    ln_launches = {k: after[k] - before[k] for k in after
+                   if after[k] != before[k]}
+    require(ln_launches == {"layer_norm": 1, "layer_norm_bwd": 1},
+            f"k3: dg.LayerNorm launched {ln_launches}, not one K1 and one K3")
+    xp = x0.clone().requires_grad_(True)
+    gp = ln.weight.value.detach().clone().requires_grad_(True)
+    bp = ln.bias.value.detach().clone().requires_grad_(True)
+    yp = torch.nn.functional.layer_norm(xp, [C], gp, bp, 1e-5)
+    yp.backward(dy)
+    errs = [compare(torch, g, w, "float32", f"k3 dg.LayerNorm [{R}x{C}] {n}",
+                    atol=t)
+            for n, g, w, t in zip(("y", "dx", "dgamma", "dbeta"), got,
+                                  [yp.detach(), xp.grad, gp.grad, bp.grad],
+                                  (None, None, 2e-5 * R ** 0.5,
+                                   2e-5 * R ** 0.5))]
+    log(f"  k3: dg.LayerNorm at [{R}x{C}] launched one K1 and one K3; y, dx, "
+        f"dgamma, dbeta against the plain version max abs err "
+        f"{['%.3e' % e for e in errs]} (dgamma / dbeta limit 2e-5 * sqrt(R) "
+        f"= {2e-5 * R ** 0.5:.3e})")
+    counts = K.launch_counts()
+    return counts, {"max_abs_diff_by_class": worst,
+                    "small_shape_launches": nonzero(small_counts),
+                    "layer_norm_errs": errs}
+
+
+def k4_batches(np, seed):
+    rng = np.random.RandomState(seed + 3)
+    from paddle_tpu_torch.models.resnet import synthetic_image_batch
+
+    return [synthetic_image_batch(rng, 2 * K4_ROWS, RESNET_IMAGE)
+            for _ in range(K4_STEPS)]
+
+
+def k4_velocities(opt, model):
+    states = opt._eager_states
+    return {k: states[id(p)]["velocity"].detach().cpu()
+            for k, p in model.named_parameters() if id(p) in states}
+
+
+def k4_child(argv) -> int:
+    """One rank of k4's gloo world of 2 on one card: the k1 model under
+    ``DataParallel``, its half of each batch; results to
+    ``<dir>/k4.rank<r>.pt``."""
+    out_dir, seed = argv[0], int(argv[1])
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.dygraph as dg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True    # as k4_reference
+    env = dg.prepare_context()
+    rank, n = env.rank, env.nranks
+    init = dict(np.load(os.path.join(out_dir, "k4_init.npz")))
+    sums = []
+    with dg.guard(fluid.CUDAPlace(0)):
+        model = k_resnet50(dg)
+        model.set_dict(init)
+        dp = dg.DataParallel(model)
+        opt = fluid.optimizer.MomentumOptimizer(resnet_lr(2 * K4_ROWS), 0.9)
+        from paddle_tpu_torch.dygraph.base import _trace
+
+        for batch in k4_batches(np, seed):
+            rows = slice(rank * K4_ROWS, (rank + 1) * K4_ROWS)
+            logits = dp(dg.to_variable(batch["image"][rows]))
+            _, per_row = _trace(
+                "softmax_with_cross_entropy",
+                {"Logits": [logits],
+                 "Label": [dg.to_variable(batch["label"][rows])]},
+                ["Softmax", "Loss"], {})
+            loss = dp.scale_loss(fluid.layers.mean(per_row))
+            loss.backward()
+            dp.apply_collective_grads()
+            opt.minimize(loss, parameter_list=model.parameters())
+            model.clear_gradients()
+            mine = _bit_sums(torch, [p.value for p in model.parameters()
+                                     if not p.stop_gradient])
+            parts = [torch.zeros_like(mine) for _ in range(n)]
+            torch.distributed.all_gather(parts, mine)
+            sums.append(all(torch.equal(parts[0], p) for p in parts[1:]))
+        torch.save({"params": {k: torch.as_tensor(v) for k, v in
+                               model.state_dict().items()},
+                    "velocities": k4_velocities(opt, model),
+                    "same_each_step": sums},
+                   os.path.join(out_dir, f"k4.rank{rank}.pt.tmp"))
+    os.replace(os.path.join(out_dir, f"k4.rank{rank}.pt.tmp"),
+               os.path.join(out_dir, f"k4.rank{rank}.pt"))
+    return 0
+
+
+def k4_reference(torch, np, fluid, dg, init, seed):
+    """One process: each step's two halves through ``backward()`` with
+    each loss scaled by 1/2, the gradients accumulated, then one step.
+    cuDNN's deterministic algorithms here and in the ranks: at
+    initialisation ResNet-50 turns a last-bit difference in one step's
+    weight gradients into percents of the next step's (PERF.md §6)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _k4_reference(torch, np, fluid, dg, init, seed)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _k4_reference(torch, np, fluid, dg, init, seed):
+    from paddle_tpu_torch.dygraph.base import _trace
+
+    with dg.guard(fluid.CUDAPlace(0)):
+        model = k_resnet50(dg)
+        model.set_dict(init)
+        opt = fluid.optimizer.MomentumOptimizer(resnet_lr(2 * K4_ROWS), 0.9)
+        for batch in k4_batches(np, seed):
+            last = None
+            for half in range(2):
+                rows = slice(half * K4_ROWS, (half + 1) * K4_ROWS)
+                logits = model(dg.to_variable(batch["image"][rows]))
+                _, per_row = _trace(
+                    "softmax_with_cross_entropy",
+                    {"Logits": [logits],
+                     "Label": [dg.to_variable(batch["label"][rows])]},
+                    ["Softmax", "Loss"], {})
+                last = fluid.layers.mean(per_row) * 0.5
+                last.backward()
+            opt.minimize(last, parameter_list=model.parameters())
+            model.clear_gradients()
+        return ({k: torch.as_tensor(v) for k, v in model.state_dict().items()},
+                k4_velocities(opt, model))
+
+
+def phase_k(torch, np, seed, card, out_dir):
+    """Phase k: the imperative mode. Returns (paths, record)."""
+    t0 = time.perf_counter()
+    rec = {}
+    # the world's files (the initial weights, 100 MB, and the ranks'
+    # results) stay out of ``out_dir``
+    kdir = tempfile.mkdtemp(prefix="chip_smoke_k4_")
+    try:
+        return _phase_k(torch, np, seed, card, out_dir, kdir, t0, rec)
+    finally:
+        shutil.rmtree(kdir, ignore_errors=True)
+
+
+def _phase_k(torch, np, seed, card, out_dir, kdir, t0, rec):
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.dygraph as dg
+
+    with dg.guard(fluid.CUDAPlace(0)):
+        fluid.default_startup_program().random_seed = seed
+        init = k_resnet50(dg).state_dict()
+    np.savez(os.path.join(kdir, "k4_init.npz"), **init)
+    log(f"  k4: a gloo world of 2 on the card started beside k3 (the "
+        f"twin, {K4_ROWS} rows a rank, {K4_STEPS} Momentum steps)")
+
+    def meanwhile():
+        ref = k4_reference(torch, np, fluid, dg, init, seed)
+        counts = k3_classes(torch, np, card)
+        return ref, counts
+
+    rc, err, secs, (ref, (k3_counts, rec["k3"])) = launch_world(
+        ["--k4-child", kdir, str(seed)], kdir, K4_TIMEOUT_S,
+        meanwhile=meanwhile)
+    require(rc == 0, f"k4's world exited {rc}: {err[-3000:]}")
+    ranks = [torch.load(os.path.join(kdir, f"k4.rank{r}.pt"))
+             for r in range(2)]
+    ref_params, ref_vel = ref
+    lr = resnet_lr(2 * K4_ROWS)
+    pworst, pwhere = max(
+        (float((ranks[0]["params"][k] - ref_params[k]).abs().max()), k)
+        for k in ref_params if not k.endswith(("._mean", "._variance")))
+    verr = {k: rel_l2_t(torch, ranks[0]["velocities"][k], ref_vel[k])
+            for k in ref_vel}
+    vworst = max(verr, key=verr.get)
+    same = all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+               for k in ref_params if not k.endswith(("._mean",
+                                                      "._variance")))
+    log(f"  k4: the world took {secs:.1f} s; parameters against the "
+        f"accumulated halves within {pworst:.3e} ({pwhere}; limit 2 * lr * "
+        f"steps = {2 * lr * K4_STEPS:.3e}); velocities at relative L2 "
+        f"{verr[vworst]:.3e} ({vworst}; limit {K_GRAD_RTOL}); the ranks' "
+        f"parameters equal bit for bit every step "
+        f"{ranks[0]['same_each_step']}, at the end {same}. BN running "
+        "statistics are not compared: each rank updates them from its own "
+        "half")
+    require(pworst <= 2 * lr * K4_STEPS, f"k4: parameter {pwhere} {pworst}")
+    require(verr[vworst] <= K_GRAD_RTOL, f"k4: velocity {vworst} "
+            f"{verr[vworst]:.3e}")
+    require(same and all(ranks[0]["same_each_step"])
+            and all(ranks[1]["same_each_step"]),
+            "k4: the ranks' parameters differ")
+    rec["k4"] = {"world_s": secs, "param_max_abs_err": pworst,
+                 "velocity_rel_l2_worst": verr[vworst], "ranks_equal": same}
+    torch.cuda.empty_cache()
+    log("  k1: the dygraph ResNet-50 twin at 224^2, 1000 classes")
+    k1_counts, rec["k1"], model = k1_dygraph(torch, np, seed, card, out_dir)
+    rec["k2"] = k2_traced(torch, np, seed, card, model)
+    del model
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return {"dygraph_resnet": k1_counts, "dygraph_layers": k3_counts}, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9222,6 +9980,14 @@ def main(argv=None) -> int:
         paths.update(jpaths)
         torch.cuda.empty_cache()
     mark("j")
+    if "k" in args.phases:
+        log("phase k: the imperative mode (the dygraph ResNet-50 twin, "
+            "TracedLayer, every dygraph.nn class, DataParallel)")
+        kpaths, record["phase_k"] = phase_k(torch, np, args.seed, card,
+                                            args.out)
+        paths.update(kpaths)
+        torch.cuda.empty_cache()
+    mark("k")
     record["phase_seconds"] = phase_s
     log(f"seconds a phase: {phase_s} [{card}]")
     launches = {name: {p: c.get(name, 0) for p, c in paths.items()}
@@ -9231,7 +9997,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h, i and j)")
+        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h, i, j and k)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"
@@ -9325,6 +10091,8 @@ if __name__ == "__main__":
             sys.exit(h2_elastic_child(sys.argv[2:]))
         if sys.argv[1:2] == ["--i-child"]:
             sys.exit(i_child(sys.argv[2:]))
+        if sys.argv[1:2] == ["--k4-child"]:
+            sys.exit(k4_child(sys.argv[2:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)

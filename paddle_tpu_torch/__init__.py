@@ -176,18 +176,32 @@ op), ``dynamic_lstm`` / ``dynamic_gru``, the sequence, LoD, beam and
 CRF / CTC ops, ``contrib.layers.basic_gru`` / ``basic_lstm``, the beam
 search decoder, ``evaluator`` and ``models.seq2seq``.
 
+The imperative mode (``dygraph``, also ``fluid.dygraph``): an eager
+tracer over the same op lowerings with ``torch.autograd`` gradients,
+``Layer`` and every ``dygraph.nn`` class, the eager optimizers (SGD,
+Momentum, Adam, Lamb) and learning-rate schedulers, ``TracedLayer`` /
+``to_static`` as CUDA graphs, ``declarative``, ``save_dygraph`` /
+``load_dygraph`` and ``DataParallel``;
+
+    with fluid.dygraph.guard(fluid.CUDAPlace(0)):
+        model = fluid.dygraph.Linear(8, 3)
+        loss = fluid.layers.mean(model(fluid.dygraph.to_variable(x)))
+        loss.backward()
+        fluid.optimizer.SGD(0.1).minimize(
+            loss, parameter_list=model.parameters())
+
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
 ported yet (ROADMAP A11): the rest of the long tail (the other fused
-op types, the detection ops with ``models/ssd.py``, ``dygraph/``, the
-parameter server, HDFS, autotune and the rest).
+op types, the detection ops with ``models/ssd.py``, the parameter
+server, HDFS, autotune and the rest).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of
 falling back.
 """
 
-from . import (average, clip, contrib, evaluator, io,  # noqa: F401
-               layers, metrics, nets,
+from . import (average, clip, contrib, dygraph, evaluator,  # noqa: F401
+               io, layers, metrics, nets,
                ops,  # ops: the lowerings
                optimizer, parallel, partition, profiler, regularizer,
                resilience, transpiler)
@@ -197,7 +211,8 @@ from .core.compiler import (BuildStrategy, CompiledProgram,
 from .core.backward import append_backward
 from .core.executor import Executor, Scope, global_scope, scope_guard
 from .core.framework import (Program, Variable, default_main_program,
-                             default_startup_program, program_guard,
+                             default_startup_program, in_dygraph_mode,
+                             program_guard,
                              unique_name)
 from .core.places import CPUPlace, CUDAPlace
 from .data_feeder import DataFeeder
@@ -219,4 +234,4 @@ __all__ = ["resolve_device", "clip", "contrib", "io", "layers", "nets",
            "CPUPlace", "CUDAPlace", "get_flags",
            "set_flags", "ParamAttr", "parallel", "partition", "transpiler",
            "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
-           "ParallelExecutor"]
+           "ParallelExecutor", "dygraph", "in_dygraph_mode"]

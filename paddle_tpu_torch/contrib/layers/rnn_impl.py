@@ -6,10 +6,10 @@ basic_gru:164, basic_lstm:405, BasicLSTMUnit:699).
 Each (layer, direction) of ``basic_gru`` / ``basic_lstm`` is one
 ``fused_gru`` / ``fused_lstm`` op over the precomputed input
 projections, as in the JAX package. ``BasicGRUUnit`` and
-``BasicLSTMUnit`` are the JAX package's dygraph cells; the port has no
-dygraph, so they are ``torch.nn.Module``s over tensors, their
-parameters made at the first call (Xavier-uniform weights, zero
-biases) as the JAX cells make theirs.
+``BasicLSTMUnit`` are dygraph ``Layer``s, as in the JAX package
+(:199, :241): their parameters are made at the first call (Xavier
+weights, zero biases) and the step is computed on the VarBases'
+tensors, so ``backward()`` reaches the parameters.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ from ...layer_helper import LayerHelper
 from ...layers.nn import _out
 from ...layers import concat, dropout as _dropout, reshape, stack
 from ...initializer import XavierInitializer, NumpyArrayInitializer
+from ...dygraph.base import VarBase
+from ...dygraph.layers import Layer
 
 __all__ = ["BasicGRUUnit", "basic_gru", "basic_lstm", "BasicLSTMUnit"]
 
@@ -199,72 +201,72 @@ def basic_lstm(input, init_hidden, init_cell, hidden_size, num_layers=1,
     return x, last_hidden, last_cell
 
 
-class _Cell(torch.nn.Module):
-    def __init__(self, name_scope, hidden_size, dtype):
-        super().__init__()
-        self._name_scope = name_scope
-        self._hidden_size = hidden_size
-        self._dtype = getattr(torch, dtype)
-
-    def _param(self, shape, like, is_bias=False):
-        t = torch.empty(shape, dtype=self._dtype, device=like.device)
-        if is_bias:
-            torch.nn.init.zeros_(t)
-        else:
-            torch.nn.init.xavier_uniform_(t)
-        return torch.nn.Parameter(t)
+def _wrap(t):
+    return VarBase(t, stop_gradient=not t.requires_grad)
 
 
-class BasicGRUUnit(_Cell):
+class BasicGRUUnit(Layer):
     """One GRU step (reference rnn_impl.py:25): gates from [x, h],
     h' = u·h + (1 − u)·c."""
 
     def __init__(self, name_scope, hidden_size, param_attr=None,
                  bias_attr=None, gate_activation=None, activation=None,
                  dtype="float32"):
-        super().__init__(name_scope, hidden_size, dtype)
-        self._gate_w = None
+        super().__init__(name_scope)
+        self._hidden_size = hidden_size
+        self._dtype = dtype
+        self._built = False
 
     def _build_once(self, input):
         D, H = int(input.shape[-1]), self._hidden_size
-        self._gate_w = self._param((D + H, 2 * H), input)
-        self._gate_b = self._param((2 * H,), input, is_bias=True)
-        self._cand_w = self._param((D + H, H), input)
-        self._cand_b = self._param((H,), input, is_bias=True)
+        self._gate_w = self.create_parameter([D + H, 2 * H],
+                                             dtype=self._dtype)
+        self._gate_b = self.create_parameter([2 * H], dtype=self._dtype,
+                                             is_bias=True)
+        self._cand_w = self.create_parameter([D + H, H], dtype=self._dtype)
+        self._cand_b = self.create_parameter([H], dtype=self._dtype,
+                                             is_bias=True)
+        self._built = True
 
     def forward(self, input, pre_hidden):
-        if self._gate_w is None:
+        if not self._built:
             self._build_once(input)
-        h = pre_hidden
-        gates = torch.sigmoid(torch.cat([input, h], -1) @ self._gate_w
-                              + self._gate_b)
+        x, h = input.value, pre_hidden.value
+        gates = torch.sigmoid(torch.cat([x, h], -1) @ self._gate_w.value
+                              + self._gate_b.value)
         r, u = gates.chunk(2, -1)
-        cand = torch.tanh(torch.cat([input, r * h], -1) @ self._cand_w
-                          + self._cand_b)
-        return u * h + (1 - u) * cand
+        cand = torch.tanh(torch.cat([x, r * h], -1) @ self._cand_w.value
+                          + self._cand_b.value)
+        return _wrap(u * h + (1 - u) * cand)
 
 
-class BasicLSTMUnit(_Cell):
+class BasicLSTMUnit(Layer):
     """One LSTM step (reference rnn_impl.py:699), the reference's own
     gate order i, j (cell), f, o with ``forget_bias`` on f."""
 
     def __init__(self, name_scope, hidden_size, param_attr=None,
                  bias_attr=None, gate_activation=None, activation=None,
                  forget_bias=1.0, dtype="float32"):
-        super().__init__(name_scope, hidden_size, dtype)
+        super().__init__(name_scope)
+        self._hidden_size = hidden_size
         self._forget_bias = forget_bias
-        self._weight = None
+        self._dtype = dtype
+        self._built = False
 
     def _build_once(self, input):
         D, H = int(input.shape[-1]), self._hidden_size
-        self._weight = self._param((D + H, 4 * H), input)
-        self._bias = self._param((4 * H,), input, is_bias=True)
+        self._weight = self.create_parameter([D + H, 4 * H],
+                                             dtype=self._dtype)
+        self._bias = self.create_parameter([4 * H], dtype=self._dtype,
+                                           is_bias=True)
+        self._built = True
 
     def forward(self, input, pre_hidden, pre_cell):
-        if self._weight is None:
+        if not self._built:
             self._build_once(input)
-        gates = torch.cat([input, pre_hidden], -1) @ self._weight + self._bias
+        gates = (torch.cat([input.value, pre_hidden.value], -1)
+                 @ self._weight.value + self._bias.value)
         i, j, f, o = gates.chunk(4, -1)
-        new_c = (pre_cell * torch.sigmoid(f + self._forget_bias)
+        new_c = (pre_cell.value * torch.sigmoid(f + self._forget_bias)
                  + torch.sigmoid(i) * torch.tanh(j))
-        return torch.tanh(new_c) * torch.sigmoid(o), new_c
+        return _wrap(torch.tanh(new_c) * torch.sigmoid(o)), _wrap(new_c)

@@ -7,6 +7,7 @@
   - ``control_flow.py``: while, conditional_block, recompute segments
   - ``selected_rows.py``: the sparse row-slice gradient
   - ``places.py``: ``CPUPlace``, ``CUDAPlace``
+  - ``dygraph.py``: the imperative mode's flag and eager device
 """
 
 from . import framework
@@ -15,3 +16,4 @@ from . import places
 from . import executor
 from . import control_flow
 from . import backward
+from . import dygraph

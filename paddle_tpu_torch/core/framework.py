@@ -3,9 +3,9 @@
 The port's own copy of ``paddle_tpu/core/framework.py`` (pure Python and
 numpy), kept line for line where it can be so that a program built by
 the port has the same ops, var names, shapes, attrs and JSON as the one
-the JAX package builds. What differs: no dygraph bridge, and the
-Variable operator sugar covers only the ops the port lowers
-(elementwise add/sub/mul/div and scale).
+the JAX package builds. What differs: the Variable operator sugar
+covers only the ops the port lowers (elementwise add/sub/mul/div and
+scale). ``in_dygraph_mode`` reads the flag of ``core/dygraph.py``.
 
 This is the declarative graph the user builds, equivalent in role to
 Fluid's ProgramDesc protobuf and its Python wrappers. The Executor
@@ -152,6 +152,12 @@ def name_scope(prefix: str):
 
 def _current_name_scope() -> str:
     return "/".join(_name_scope_stack)
+
+
+def in_dygraph_mode() -> bool:
+    from . import dygraph
+
+    return dygraph.in_dygraph_mode()
 
 
 # --------------------------------------------------------------------------

@@ -158,6 +158,42 @@ _SPECS = {
     "sequence_slice": ("sequence_slice",
                        [("input", "X", 1), ("offset", "Offset", 1),
                         ("length", "Length", 1)], [], ["Out"], False),
+    # -- the rows of the ops of ops/vision3d.py and of dygraph.nn's
+    # classes (paddle_tpu/layers/auto.py:197-288)
+    "conv3d": ("conv3d", [("input", "Input", 1), ("filter", "Filter", 1),
+                          ("bias", "Bias", 0)],
+               [("strides", [1, 1, 1]), ("paddings", [0, 0, 0]),
+                ("dilations", [1, 1, 1]), ("groups", 1)],
+               ["Output"], False),
+    "conv3d_transpose": ("conv3d_transpose",
+                         [("input", "Input", 1), ("filter", "Filter", 1),
+                          ("bias", "Bias", 0)],
+                         [("strides", [1, 1, 1]), ("paddings", [0, 0, 0]),
+                          ("dilations", [1, 1, 1])], ["Output"], False),
+    "pool3d": ("pool3d", [("input", "X", 1)],
+               [("pooling_type", "max"), ("ksize", [2, 2, 2]),
+                ("strides", [2, 2, 2]), ("paddings", [0, 0, 0]),
+                ("global_pooling", False), ("exclusive", True)],
+               ["Out"], False),
+    "adaptive_pool3d": ("pool3d", [("input", "X", 1)],
+                        [("pooling_type", "max"), ("ksize", [1, 1, 1]),
+                         ("adaptive", True)], ["Out"], False),
+    "resize_trilinear": ("trilinear_interp", [("input", "X", 1)],
+                         [("out_d", 0), ("out_h", 0), ("out_w", 0),
+                          ("align_corners", True)], ["Out"], False),
+    "spectral_norm": ("spectral_norm",
+                      [("weight", "Weight", 1), ("u", "U", 1),
+                       ("v", "V", 1)],
+                      [("dim", 0), ("power_iters", 1), ("eps", 1e-12)],
+                      ["Out"], False),
+    "bilinear_tensor_product": ("bilinear_tensor_product",
+                                [("x", "X", 1), ("y", "Y", 1),
+                                 ("weight", "Weight", 1),
+                                 ("bias", "Bias", 0)], [], ["Out"], False),
+    "nce": ("nce", [("input", "Input", 1), ("label", "Label", 1),
+                    ("weight", "Weight", 1), ("bias", "Bias", 0)],
+            [("num_total_classes", 2), ("num_neg_samples", 10)],
+            ["Cost", "SampleLogits", "SampleLabels"], False),
 }
 
 

@@ -1,13 +1,19 @@
 """Neural-network layers: the port's copies of the functions of
 ``paddle_tpu/layers/nn.py`` (Fluid's python/paddle/fluid/layers/nn.py):
 fc, embedding, the image layers (``conv2d``, ``conv2d_transpose``,
-``pool2d``, ``adaptive_pool2d``, ``batch_norm``), the activations and
+``pool2d``, ``adaptive_pool2d``, ``batch_norm``, ``group_norm``,
+``prelu``), the activations and
 unary math, the elementwise ops (a scalar operand on either side), the
 reductions, the shape and indexing layers (``flatten`` ... ``cumsum``)
 and the layers of ``paddle_tpu/layers/auto.py`` over the ops the port
 lowers (``sign``, ``logical_*``, ``sum``, ``mul``, ...). Each function
 emits ops into the default main program and sets output shapes itself,
 exactly as the reference does, so both packages build the same program.
+
+``mean`` and ``reshape`` (and its ``act``) are the JAX package's three
+eager call sites (``_maybe_eager``, :117-136): in dygraph mode, on
+VarBase inputs, they run through the eager tracer instead of appending
+ops. No other layer is eager, as in JAX.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ from ..layer_helper import LayerHelper
 
 __all__ = [
     "fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
-    "adaptive_pool2d", "batch_norm", "layer_norm", "dropout", "softmax",
+    "adaptive_pool2d", "batch_norm", "layer_norm", "group_norm", "prelu",
+    "dropout", "softmax",
     "matmul", "log_softmax",
     # activations and unary math
     "relu", "sigmoid", "tanh", "sqrt", "rsqrt", "exp", "log", "square",
@@ -44,6 +51,23 @@ __all__ = [
     "slice", "strided_slice", "shape", "pad", "gather", "gather_nd",
     "scatter", "expand", "expand_as", "stack", "unstack", "cumsum",
 ]
+
+
+def _maybe_eager(op_type, ins, out_slots, attrs):
+    """The dygraph bridge: in dygraph mode with a VarBase input, run the
+    op now through the tracer (``dygraph.base._trace``) and return its
+    flat outputs; None for the graph path."""
+    from ..core.dygraph import in_dygraph_mode
+
+    if not in_dygraph_mode():
+        return None
+    from ..dygraph.base import VarBase, _trace
+
+    if not any(isinstance(v, VarBase)
+               for vs in ins.values() for v in vs if v is not None):
+        return None
+    ins = {s: [v for v in vs if v is not None] for s, vs in ins.items()}
+    return _trace(op_type, ins, list(out_slots), dict(attrs))
 
 
 def _out(helper, x, shape=None, dtype=None, stop_gradient=False):
@@ -496,6 +520,49 @@ def layer_norm(
     return helper.append_activation(out)
 
 
+def group_norm(input, groups, epsilon=1e-5, param_attr=None,
+               bias_attr=None, act=None, name=None):
+    """Reference layers/nn.py group_norm (``paddle_tpu/layers/nn.py:581``):
+    Scale (ones) and Bias (zeros) of the input's channels."""
+    helper = LayerHelper("group_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c = input.shape[1]
+    s = helper.create_parameter(helper.param_attr, [c], input.dtype,
+                                default_initializer=ConstantInitializer(1.0))
+    b = helper.create_parameter(helper.bias_attr, [c], input.dtype,
+                                is_bias=True)
+    out = _out(helper, input, shape=input.shape)
+    mean = _out(helper, input, shape=(input.shape[0], groups),
+                stop_gradient=True)
+    var = _out(helper, input, shape=(input.shape[0], groups),
+               stop_gradient=True)
+    helper.append_op(
+        type="group_norm", inputs={"X": [input], "Scale": [s], "Bias": [b]},
+        outputs={"Y": [out], "Mean": [mean], "Variance": [var]},
+        attrs={"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """Reference layers/nn.py prelu (``paddle_tpu/layers/nn.py:750``):
+    alpha (0.25) of shape [1] (``all``), [C] (``channel``) or x's
+    shape past dim 0 (``element``)."""
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(
+        helper.param_attr, alpha_shape, x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    out = _out(helper, x, shape=x.shape)
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
 def dropout(
     x,
     dropout_prob,
@@ -767,6 +834,9 @@ reduce_any = _make_bool_reduce("reduce_any")
 
 
 def mean(x, name=None):
+    eager = _maybe_eager("mean", {"X": [x]}, ["Out"], {})
+    if eager is not None:
+        return eager[0]
     helper = LayerHelper("mean", name=name)
     out = _out(helper, x, shape=())
     helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
@@ -836,6 +906,13 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
                 "the static-shape build; pass python ints (got "
                 f"{type(s).__name__})")
     shape = coerced
+    eager = _maybe_eager("reshape2", {"X": [x]}, ["Out", "XShape"],
+                         {"shape": shape})
+    if eager is not None:
+        out = eager[0]
+        if act:
+            out = _maybe_eager(act, {"X": [out]}, ["Out"], {})[0]
+        return out
     helper = LayerHelper("reshape2", act=act, name=name)
     new_shape = []
     for i, s in enumerate(shape):

@@ -4,4 +4,4 @@ the same name; only the ops the training path runs are here."""
 
 from . import (beam, collective, control, fused, lod,  # noqa: F401
                loss_ext, math, metrics, misc, moe, nn, optim, quant, random,
-               rnn, sequence, tensor)
+               rnn, sequence, tensor, vision3d)

@@ -404,3 +404,109 @@ def _row_conv(ctx, op, ins):
     for j in range(1, K):
         out = out + xp[:, j:j + T] * w[j][None, None, :]
     return {"Out": [out]}
+
+
+# -- the ops of the dygraph.nn classes (paddle_tpu/ops/nn.py:468, :596,
+# :886, :905, :1036) -----------------------------------------------------------
+
+
+@register_op("prelu", inputs=("X", "Alpha"), outputs=("Out",))
+def _prelu(ctx, op, ins):
+    """x where x > 0, else alpha * x; ``channel`` mode takes one alpha a
+    channel of dim 1, ``all`` and ``element`` broadcast Alpha as it is."""
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    if op.attrs.get("mode", "all") == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return {"Out": [torch.where(x > 0, x, alpha * x)]}
+
+
+@register_op("group_norm", inputs=("X", "Scale", "Bias"),
+             outputs=("Y", "Mean", "Variance"))
+def _group_norm(ctx, op, ins):
+    """Normalise each (sample, group of C / groups channels) over its
+    channels and positions by the biased variance; NCHW or NHWC."""
+    x = ins["X"][0]
+    g = int(op.attrs.get("groups", 1))
+    eps = float(op.attrs.get("epsilon", 1e-5))
+    n = x.shape[0]
+    if op.attrs.get("data_layout", "NCHW") == "NHWC":
+        c = x.shape[-1]
+        xg = x.reshape(tuple(x.shape[:-1]) + (g, c // g))
+        axes = tuple(range(1, xg.dim() - 2)) + (xg.dim() - 1,)
+        bshape = [1] * (x.dim() - 1) + [c]
+    else:
+        c = x.shape[1]
+        xg = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+        axes = tuple(range(2, xg.dim()))
+        bshape = [1, c] + [1] * (x.dim() - 2)
+    var, mean = torch.var_mean(xg, dim=axes, correction=0, keepdim=True)
+    y = ((xg - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+    if ins.get("Scale"):
+        y = y * ins["Scale"][0].reshape(bshape)
+    if ins.get("Bias"):
+        y = y + ins["Bias"][0].reshape(bshape)
+    return {"Y": [y], "Mean": [mean.reshape(n, g)],
+            "Variance": [var.reshape(n, g)]}
+
+
+@register_op("spectral_norm", inputs=("Weight", "U", "V"), outputs=("Out",),
+             no_grad=("U", "V"))
+def _spectral_norm(ctx, op, ins):
+    """W / sigma, sigma = u · W · v after ``power_iters`` power
+    iterations from U and V (reference spectral_norm_op.cc); the
+    gradient runs through the iterations, as JAX's vjp does."""
+    w = ins["Weight"][0]
+    dim = int(op.attrs.get("dim", 0))
+    eps = float(op.attrs.get("eps", 1e-12))
+    wm = w.movedim(dim, 0).reshape(w.shape[dim], -1)
+    u, v = ins["U"][0].reshape(-1), ins["V"][0].reshape(-1)
+    for _ in range(max(int(op.attrs.get("power_iters", 1)), 1)):
+        v = wm.t() @ u
+        v = v / (torch.linalg.vector_norm(v) + eps)
+        u = wm @ v
+        u = u / (torch.linalg.vector_norm(u) + eps)
+    return {"Out": [w / (u @ wm @ v)]}
+
+
+@register_op("bilinear_tensor_product", inputs=("X", "Y", "Weight", "Bias"),
+             outputs=("Out",))
+def _bilinear_tensor_product(ctx, op, ins):
+    """out[b, k] = x[b] · W[k] · y[b] (+ bias[k])."""
+    x, y, w = ins["X"][0], ins["Y"][0], ins["Weight"][0]
+    out = torch.einsum("bm,kmn,bn->bk", x, w, y)
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0].reshape(1, -1)
+    return {"Out": [out]}
+
+
+@register_op("nce", inputs=("Input", "Label", "Weight", "Bias",
+                            "SampleWeight"),
+             outputs=("Cost", "SampleLogits", "SampleLabels"),
+             no_grad=("Label", "SampleWeight"))
+def _nce(ctx, op, ins):
+    """Noise-contrastive estimation (reference nce_op.cc): the label and
+    ``num_neg_samples`` classes drawn uniformly (from the op's
+    generator) a row, a logistic loss each, summed; SampleLabels holds
+    the classes. SampleWeight and ``sampler`` are not read, as in JAX."""
+    x = ins["Input"][0]
+    lbl = ins["Label"][0].reshape(-1).long()
+    w = ins["Weight"][0]
+    num_neg = int(op.attrs.get("num_neg_samples", 10))
+    B = x.shape[0]
+    if x.is_meta:       # shape inference (layers/auto.py): no draw
+        neg = torch.empty((B, num_neg), dtype=torch.long, device=x.device)
+    else:
+        neg = torch.randint(0, w.shape[0], (B, num_neg),
+                            generator=ctx.op_generator(op), device=x.device)
+    cls = torch.cat([lbl[:, None], neg], dim=1)
+    logits = torch.einsum("bd,bkd->bk", x, w[cls])
+    if ins.get("Bias"):
+        logits = logits + ins["Bias"][0].reshape(-1)[cls]
+    labels = torch.zeros_like(logits)
+    labels[:, 0] = 1
+    # softplus as jnp.logaddexp(x, 0)
+    softplus = (torch.clamp(logits, min=0)
+                + torch.log1p(torch.exp(-logits.abs())))
+    ce = softplus - labels * logits
+    return {"Cost": [ce.sum(dim=1, keepdim=True)], "SampleLogits": [logits],
+            "SampleLabels": [cls]}

@@ -39,7 +39,21 @@ gradient collectives when the ``collective_*`` flags ask
 ``PipelineOptimizer`` (:1160-1234) stamps the pipeline cuts, the
 microbatch count and the schedule on the Program; a ``CompiledProgram.
 with_pipeline`` step runs it a stage a rank (``core/pipeline_program.
-py``). Not ported: the dygraph path.
+py``).
+
+The eager (dygraph) path (:228-295): ``minimize(loss_varbase,
+parameter_list=...)`` applies each parameter's update through the
+optimizer's own unfused op lowering (``self.type``: ``sgd``,
+``momentum``, ``adam``, ``lamb``) with the state kept per parameter,
+after ``loss.backward()``. The learning rate is a float, a VarBase or a
+``dygraph.LearningRateDecay`` (stepped once a call). SGD, Momentum,
+Adam and Lamb have an eager path, as in JAX; every other optimizer
+raises ``NotImplementedError`` naming itself (JAX's default eager
+inputs fail with ``KeyError: 'Moment'`` for Adagrad, RMSProp and
+Adamax). ``regularization`` and ``grad_clip`` raise ``ValueError`` in
+eager mode (JAX drops them without a word). Lamb's eager update takes
+its ``lamb_weight_decay`` and ``exclude_from_weight_decay_fn`` (JAX's
+takes the op's default 0.01).
 """
 
 from __future__ import annotations
@@ -239,6 +253,10 @@ class Optimizer:
         self, loss, startup_program=None, parameter_list=None, no_grad_set=None,
         grad_clip=None,
     ) -> Tuple[List, List[Tuple[Variable, Variable]]]:
+        from .dygraph.base import VarBase
+
+        if isinstance(loss, VarBase):
+            return self._eager_minimize(loss, parameter_list, grad_clip)
         if grad_clip is not None:
             self._grad_clip = grad_clip
         self._create_global_learning_rate()
@@ -246,9 +264,70 @@ class Optimizer:
         opt_ops = self.apply_gradients(params_grads)
         return opt_ops, params_grads
 
+    # -- eager (dygraph) path -------------------------------------------------
+    # the optimizers with an eager state (_eager_inputs / _eager_writeback)
+    _eager = False
+
+    def _eager_minimize(self, loss, parameter_list, grad_clip=None):
+        from .core.registry import LoweringContext, get_op_def
+        from .dygraph.base import _PseudoOp
+
+        if not self._eager:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no eager (dygraph) update in "
+                "paddle_tpu_torch: use SGD, Momentum, Adam or Lamb, or "
+                "build a Program")
+        refused = [n for n, v in (("regularization", self.regularization),
+                                  ("grad_clip", grad_clip or self._grad_clip))
+                   if v is not None]
+        if refused:
+            raise ValueError(
+                f"{type(self).__name__}.minimize in dygraph mode does not "
+                f"apply {' or '.join(refused)}: remove "
+                f"{'them' if len(refused) > 1 else 'it'} or build a Program")
+        if parameter_list is None:
+            raise ValueError("dygraph minimize requires parameter_list")
+        lr = self._eager_lr()
+        lr_on = {}      # the rate on each parameter's device, copied once
+        opdef = get_op_def(self.type)
+        states = self.__dict__.setdefault("_eager_states", {})
+        for p in parameter_list:
+            g = p.grad
+            if g is None or p.stop_gradient:
+                continue
+            state = states.setdefault(id(p), {})
+            param = p.value.detach()
+            if param.device not in lr_on:
+                lr_on[param.device] = lr.to(param.device)
+            ins = self._eager_inputs(p, param, g.detach(), state,
+                                     lr_on[param.device])
+            pseudo = _PseudoOp(self.type, self._eager_attrs(p))
+            with torch.no_grad():
+                outs = opdef.lower(LoweringContext(param.device), pseudo, ins)
+            self._eager_writeback(p, state, outs)
+        return [], []
+
+    def _eager_lr(self) -> torch.Tensor:
+        lr = self._learning_rate
+        if hasattr(lr, "value"):
+            return lr.value.detach().float().reshape(1)
+        if callable(lr):
+            lr = lr()
+        return torch.tensor([float(lr)], dtype=torch.float32)
+
+    def _eager_attrs(self, p):
+        return {}
+
+    def _eager_inputs(self, p, param, grad, state, lr):
+        return {"Param": [param], "Grad": [grad], "LearningRate": [lr]}
+
+    def _eager_writeback(self, p, state, outs):
+        p.set_value(outs["ParamOut"][0])
+
 
 class SGDOptimizer(Optimizer):
     type = "sgd"
+    _eager = True
 
     def _append_optimize_op(self, block, pg):
         p, g = pg
@@ -262,11 +341,25 @@ class SGDOptimizer(Optimizer):
 
 class MomentumOptimizer(Optimizer):
     type = "momentum"
+    _eager = True
 
     def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
         super().__init__(learning_rate, **kw)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
+
+    def _eager_attrs(self, p):
+        return {"mu": self._momentum, "use_nesterov": self._use_nesterov}
+
+    def _eager_inputs(self, p, param, grad, state, lr):
+        if "velocity" not in state:
+            state["velocity"] = torch.zeros_like(param)
+        return {"Param": [param], "Grad": [grad],
+                "Velocity": [state["velocity"]], "LearningRate": [lr]}
+
+    def _eager_writeback(self, p, state, outs):
+        p.set_value(outs["ParamOut"][0])
+        state["velocity"] = outs["VelocityOut"][0]
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
@@ -302,6 +395,7 @@ class DGCMomentumOptimizer(MomentumOptimizer):
     passes dense (momentum)."""
 
     type = "dgc_momentum"
+    _eager = False
 
     def __init__(self, learning_rate, momentum, rampup_begin_step=0,
                  rampup_step=1, sparsity=(0.999,), use_nesterov=False,
@@ -358,11 +452,35 @@ class DGCMomentumOptimizer(MomentumOptimizer):
 
 class AdamOptimizer(Optimizer):
     type = "adam"
+    _eager = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
                  lazy_mode=False, **kw):
         super().__init__(learning_rate, **kw)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _eager_attrs(self, p):
+        return {"beta1": self._beta1, "beta2": self._beta2,
+                "epsilon": self._epsilon}
+
+    def _eager_inputs(self, p, param, grad, state, lr):
+        if "m1" not in state:
+            state["m1"] = torch.zeros_like(param)
+            state["m2"] = torch.zeros_like(param)
+            state["b1p"] = torch.full((1,), self._beta1, dtype=torch.float32,
+                                      device=param.device)
+            state["b2p"] = torch.full((1,), self._beta2, dtype=torch.float32,
+                                      device=param.device)
+        return {"Param": [param], "Grad": [grad], "LearningRate": [lr],
+                "Moment1": [state["m1"]], "Moment2": [state["m2"]],
+                "Beta1Pow": [state["b1p"]], "Beta2Pow": [state["b2p"]]}
+
+    def _eager_writeback(self, p, state, outs):
+        p.set_value(outs["ParamOut"][0])
+        state["m1"] = outs["Moment1Out"][0]
+        state["m2"] = outs["Moment2Out"][0]
+        state["b1p"] = outs["Beta1PowOut"][0]
+        state["b2p"] = outs["Beta2PowOut"][0]
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
@@ -642,6 +760,12 @@ class LambOptimizer(AdamOptimizer):
         super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
         self._weight_decay = lamb_weight_decay
         self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _eager_attrs(self, p):
+        wd = self._weight_decay
+        if self._exclude_fn is not None and self._exclude_fn(p):
+            wd = 0.0
+        return dict(super()._eager_attrs(p), weight_decay=wd)
 
     def _append_optimize_op(self, block, pg):
         p, g = pg

@@ -2464,3 +2464,108 @@ def test_linear_chain_crf_gradient_on_cuda(cuda):
                     gt.cpu().numpy()]
     for a, b in zip(res["cpu"], res["cuda"]):
         np.testing.assert_allclose(b, a, rtol=2e-5, atol=2e-5)
+
+
+# -- the imperative mode (dygraph) ----------------------------------------------
+
+
+def _dygraph_step(device_place, state=None, x=None, y=None):
+    """One dygraph Linear -> LayerNorm -> Linear step with K4's loss:
+    (loss, {name: gradient}, state_dict, launches)."""
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.dygraph as dg
+    from paddle_tpu_torch.dygraph.base import _trace
+
+    with dg.guard(device_place):
+        model = dg.Sequential(dg.Linear(16, 32), dg.LayerNorm(32),
+                              dg.Linear(32, 10))
+        if state is not None:
+            model.set_dict(state)
+        sd = model.state_dict()
+        K.reset_launch_counts()
+        _, per_row = _trace("softmax_with_cross_entropy",
+                            {"Logits": [model(x)],
+                             "Label": [dg.to_variable(y)]},
+                            ["Softmax", "Loss"], {})
+        loss = fluid.layers.mean(per_row)
+        loss.backward()
+        grads = {k: p.gradient for k, p in model.named_parameters()}
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        return float(loss.numpy()), grads, sd, K.launch_counts()
+
+
+def test_dygraph_step_on_cuda_launches_each_kernel_once(cuda):
+    import paddle_tpu_torch as fluid
+
+    rng = np.random.RandomState(3)
+    x = rng.randn(64, 16).astype(np.float32)
+    y = rng.randint(0, 10, (64, 1)).astype(np.int64)
+    loss, grads, sd, counts = _dygraph_step(fluid.CUDAPlace(0), x=x, y=y)
+    want = {"layer_norm": 1, "layer_norm_bwd": 1, "softmax_xent_fwd": 1,
+            "softmax_xent_bwd": 1}
+    assert {k: v for k, v in counts.items() if v} == want
+    closs, cgrads, _, ccounts = _dygraph_step(fluid.CPUPlace(), state=sd,
+                                              x=x, y=y)
+    assert not any(ccounts.values())
+    np.testing.assert_allclose(loss, closs, rtol=1e-5)
+    for k in cgrads:
+        np.testing.assert_allclose(grads[k], cgrads[k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+
+
+def test_traced_layer_replay_equals_eager_on_cuda(cuda):
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.dygraph as dg
+
+    rng = np.random.RandomState(4)
+    with dg.guard(fluid.CUDAPlace(0)):
+        model = dg.Sequential(dg.Conv2D(3, 8, 3, padding=1, act="relu"),
+                              dg.BatchNorm(8), dg.Pool2D(2, "max", 2),
+                              dg.LayerNorm([8, 4, 4]))
+        model.eval()
+        _, traced = dg.TracedLayer.trace(
+            model, [rng.randn(4, 3, 8, 8).astype(np.float32)])
+        for _ in range(2):
+            x = dg.to_variable(rng.randn(4, 3, 8, 8).astype(np.float32))
+            with dg.no_grad():
+                want = model(x).value
+            before = K.layer_norm.launches
+            got = traced([x])[0].value
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            # the replay counts the graph's K1 node
+            assert K.layer_norm.launches == before + 1
+
+
+def test_traced_layer_names_the_op_it_cannot_capture(cuda):
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.dygraph as dg
+
+    class HostRead(dg.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = dg.Linear(4, 4)
+
+        def forward(self, x):
+            y = self.fc(x)
+            return y * float(y.numpy().sum())
+
+    with dg.guard(fluid.CUDAPlace(0)):
+        with pytest.raises(RuntimeError, match="cannot be captured"):
+            dg.TracedLayer.trace(HostRead(),
+                                 [np.ones((2, 4), np.float32)])
+
+
+def test_dygraph_guard_with_no_place():
+    """``guard()`` names no place: CUDAPlace(0) on a card, and on a box
+    with none it raises rather than fall back to the CPU."""
+    import paddle_tpu_torch.dygraph as dg
+
+    if torch.cuda.is_available():
+        with dg.guard():
+            assert dg.to_variable(np.ones(2)).value.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            with dg.guard():
+                pass

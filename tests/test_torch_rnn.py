@@ -437,33 +437,37 @@ def test_basic_gru_follows_the_reference_unit_equations():
 
 
 def test_basic_units_match_jax_cells_on_the_same_weights():
-    """BasicLSTMUnit / BasicGRUUnit against JAX's dygraph cells, the
-    port's parameters set to JAX's."""
+    """BasicLSTMUnit / BasicGRUUnit (dygraph Layers in both packages)
+    against JAX's cells, the port's parameters set to JAX's through
+    ``set_dict(state_dict())``; the port's step also reaches its
+    parameters through ``backward()``."""
     import paddle_tpu.contrib.layers as jcl
     from paddle_tpu.dygraph.base import to_variable
+
+    import paddle_tpu_torch.dygraph as dg
 
     x, h, c = f32(2, 4, seed=6), f32(2, 3, seed=7), f32(2, 3, seed=8)
     jl = jcl.BasicLSTMUnit("lstm_u", 3, forget_bias=1.0)
     jh, jc = jl.forward(to_variable(x), to_variable(h), to_variable(c))
-    tl = fluid.contrib.layers.BasicLSTMUnit("lstm_u", 3, forget_bias=1.0)
-    th, tc = tl(torch.from_numpy(x), torch.from_numpy(h), torch.from_numpy(c))
-    with torch.no_grad():
-        tl._weight.copy_(torch.from_numpy(np.array(jl._weight.value)))
-        tl._bias.copy_(torch.from_numpy(np.array(jl._bias.value)))
-    th, tc = tl(torch.from_numpy(x), torch.from_numpy(h), torch.from_numpy(c))
-    np.testing.assert_allclose(th.detach().numpy(), np.asarray(jh.value),
-                               rtol=FWD_RTOL, atol=FWD_ATOL)
-    np.testing.assert_allclose(tc.detach().numpy(), np.asarray(jc.value),
-                               rtol=FWD_RTOL, atol=FWD_ATOL)
-
     jg = jcl.BasicGRUUnit("gru_u", 3)
     jout = jg.forward(to_variable(x), to_variable(h))
-    tg = fluid.contrib.layers.BasicGRUUnit("gru_u", 3)
-    tg(torch.from_numpy(x), torch.from_numpy(h))
-    with torch.no_grad():
-        for n in ("_gate_w", "_gate_b", "_cand_w", "_cand_b"):
-            getattr(tg, n).copy_(torch.from_numpy(
-                np.array(getattr(jg, n).value)))
-    tout = tg(torch.from_numpy(x), torch.from_numpy(h))
-    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout.value),
-                               rtol=FWD_RTOL, atol=FWD_ATOL)
+    with dg.guard(fluid.CPUPlace()):
+        tl = fluid.contrib.layers.BasicLSTMUnit("lstm_u", 3, forget_bias=1.0)
+        assert isinstance(tl, dg.Layer)
+        tl(x, h, c)
+        tl.set_dict(jl.state_dict())
+        th, tc = tl(x, h, c)
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh.value),
+                                   rtol=FWD_RTOL, atol=FWD_ATOL)
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc.value),
+                                   rtol=FWD_RTOL, atol=FWD_ATOL)
+        fluid.layers.mean(th).backward()
+        assert tl._weight.gradient is not None
+
+        tg = fluid.contrib.layers.BasicGRUUnit("gru_u", 3)
+        tg(x, h)
+        assert sorted(tg.state_dict()) == sorted(jg.state_dict())
+        tg.set_dict(jg.state_dict())
+        tout = tg(x, h)
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout.value),
+                                   rtol=FWD_RTOL, atol=FWD_ATOL)
