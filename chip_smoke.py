@@ -6,7 +6,7 @@
                                      #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4,
                                      #   e1, e2 (+ grouped conv share), g2
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789abcdefghijk), no result line
+                                        #   23456789abcdefghijkl), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -142,7 +142,7 @@ Phases, in order; any failure exits non-zero without the result line:
    161 K10, one K4 and one K5 launch a step; mean step, images/s, peak
    memory beside phase 8's.
 a. speculative decoding and the radix prefix cache: gpt3_1p3b with
-   phase 3's weights. Spec: the first 8 of phase 3's 16 prompts (32 new
+   phase 3's weights. Spec: the first 4 of phase 3's 16 prompts (32 new
    tokens, 4
    client threads) with ``spec_tokens=6`` (the JAX bench's ``--spec``)
    and a full-replica ``HostDraft``, a 2-layer one and a draft that
@@ -169,16 +169,16 @@ b. saving and serving Programs over HTTP (``serving.ServingServer`` on
    test, saved by ``io.save_inference_model`` with its softmax as the
    fetch, loaded by ``create_predictor`` with batch buckets 1..32 and
    served by a ``ServingEngine`` (batches of up to 32 rows, 2 worker
-   clones): 32 seeded requests of 1-4 images from 8 client threads, over
+   clones): 16 seeded requests of 1-4 images from 8 client threads, over
    ``/v1/predict`` (JSON nested lists) and in process; every request's
    softmax within 1e-4 of its solo run on the card, two solo runs within
    1e-4 of the CPU's; requests/s, images/s, client latency p50 / p99,
    mean batch rows, padding waste and the bucket hits. b2:
-   ``build_lm_program(gpt3_1p3b, 128)`` at 12 of its 24 layers, saved
-   (2.7 GB of npz), loaded and run as a Program on the card: 49 K1 launches a run,
-   logits within 1e-3 max|logit| of the predictor's module over the
-   same tensors; the same directory quantized at load (int8): 97 K11
-   launches a run, matmul bytes <= 0.30 of float32, logits held to the
+   ``build_lm_program(gpt3_1p3b, 128)`` at 6 of its 24 layers, saved
+   as npz, loaded and run as a Program on the card: 2L + 1 = 13 K1
+   launches a run, logits within 1e-3 max|logit| of the predictor's
+   module over the same tensors; the same directory quantized at load
+   (int8): 4L + 1 = 25 K11 launches a run, matmul bytes <= 0.30 of float32, logits held to the
    quantized module likewise. b3: phase 3's engine (its weights and
    geometry, graphed) behind ``/v1/generate``: phase 3's 16 prompts
    streamed as NDJSON from 4 client threads, every stream's tokens
@@ -269,7 +269,7 @@ e. the conv families and quantization, its own peak printed. e1:
    does at load), 8 batches: one finite positive scale for each distinct
    matmul input, no observer state left, K1 2L+1 and K11 4L+1 a batch.
 f. the serving host tiers on gpt3_1p3b (phase 3's seeded weights and
-   the first 4 of its 16 prompts in f1-f3, default geometry, 32 new
+   the first 2 of its 16 prompts in f1-f3, default geometry, 32 new
    tokens): f1, a PrefillWorker and a
    DecodeWorker (two engines, two graphs, one card) over one predictor,
    a HostPageStore behind PageStoreServer / PageStoreClient on loopback
@@ -280,7 +280,7 @@ f. the serving host tiers on gpt3_1p3b (phase 3's seeded weights and
    int8 engine's, a stream that differs first differing at a near-tie;
    the decode side's spliced pages equal the store's bit for bit; K2
    (K2q) 24 and K1 49 launches every step of both engines, every step a
-   graph replay; 4 handoffs, no store error. f3: the drain spills the
+   graph replay; 2 handoffs, no store error. f3: the drain spills the
    decode side's trie; a fresh DecodeWorker on that store pulls pages
    and gives the cold split's tokens; warm TTFT against cold printed.
    f2: float32 pools over ``int8_block``: wire bytes <= 0.30 of the
@@ -444,6 +444,37 @@ k. the imperative mode (``paddle_tpu_torch.dygraph``), TF32 off. k4
    model in eval mode at batch 32 (a CUDA graph): on 3 fresh batches
    the replay equals the eager forward bit for bit; ms a forward of
    each.
+l. detection, TF32 off. l1: ``models.ssd.build_ssd(image_size=300,
+   num_classes=21, max_gt=8)`` (SSD300's input and VOC's 21 classes:
+   75^2 and 38^2 feature maps, 4 priors a cell, 28,276 priors; 14
+   parameters) under AdamOptimizer(2e-3), fed by
+   ``synthetic_det_batch``: (a) card against CPU at batch 4, 2 steps
+   from the CPU startup's values: losses rtol 1e-3, parameters 2 * lr *
+   steps, Adam's first moments relative L2 1e-4, exactly one K10 a
+   parameter a step and no K4 / K5 (``ssd_loss_dense`` takes its own
+   log-softmax, as JAX's); the first step's hard negatives are mined
+   again on both devices from the fetched confidences, and where they
+   differ the gap at the mining boundary must be a near-tie (printed);
+   (b) 10 steps at batch 32 on the card over 2 cycled batches: finite
+   losses, the mean of the last three below the first; ms a step,
+   images/s, kernels a step and idle share (one profiled step) and peak
+   memory. l2: ``main.clone(for_test=True)`` of the model built without
+   its optimizer, on (b)'s weights, at batch 8 (images (b) trained on)
+   on the card, against the CPU on 2 of the images: per image equal
+   counts and labels, scores and boxes within rtol 1e-5, or the first
+   differing row at a near-tie (a score gap within 1e-6 of the top
+   score, or an IoU within 1e-6 of 0.45), printed;
+   ``evaluator.DetectionMAP`` a image on the card equal to the CPU's
+   within 1e-4 where the detections are equal; the NMS's iterations and
+   a batch's decode + NMS ms. l3: the 10 differentiable detection
+   lowerings forward and backward at the CPU tests' shapes, card
+   against CPU (rtol 1e-4 / atol 1e-5); the proposal chain at Faster
+   R-CNN's RPN size: ``anchor_generator`` over a [1, 1024, 50, 68] map
+   at stride 16 with 15 anchors, ``generate_proposals`` (pre-NMS 6000,
+   post-NMS 1000, NMS 0.7), ``roi_align`` 7 x 7 over the map: equal
+   rois or a printed near-tie, pooled features within 1e-4 of the map's
+   scale and, against a float64 CPU run on 100 rois, the card's error
+   at most twice the float32 CPU's; ms of each op on the card.
 
 Then the seconds each phase took, one JSON line of per-kernel numbers,
 the card line, and last ``{"ok": true, "device": {...}}``.
@@ -509,7 +540,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789abcdefghijk"
+ALL_PHASES = "23456789abcdefghijkl"
 DEVICE = "cuda"
 
 
@@ -3648,7 +3679,7 @@ def same_or_near_tie(np, pred, prompts, streams, base, what):
     return same, diffs
 
 
-SPEC_PROMPTS = 8    # phase a's spec runs: the first 8 of phase 3's prompts
+SPEC_PROMPTS = 4    # phase a's spec runs: the first 4 of phase 3's prompts
 
 
 def serve_spec(torch, np, seed, card, out_dir, base_tokens=None):
@@ -3893,7 +3924,7 @@ def serve_radix(torch, np, seed, card, out_dir):
 # -- phase b: save and serve Programs over HTTP ----------------------------------
 
 RESNET_BUCKETS = (1, 2, 4, 8, 16, 32)
-RESNET_REQUESTS, RESNET_IMAGE = 32, 224
+RESNET_REQUESTS, RESNET_IMAGE = 16, 224
 HTTP_CLIENTS = 8
 # a request's outputs against its solo run on the card and against the
 # CPU: the same weights, float32 sums in another order (cuDNN picks its
@@ -3902,7 +3933,7 @@ HTTP_CLIENTS = 8
 # <= 1), the logits within 1e-4 of the request's max |logit|
 RESNET_PROB_ATOL = RESNET_LOGIT_REL = 1e-4
 LM_PROGRAM_SEQ, LM_PROGRAM_BATCH = 128, 2
-LM_PROGRAM_LAYERS = 12    # b2's depth, of gpt3_1p3b's 24
+LM_PROGRAM_LAYERS = 6     # b2's depth, of gpt3_1p3b's 24
 SWAP_STD = 0.02
 
 
@@ -4102,7 +4133,7 @@ def serve_resnet_http(torch, np, seed, card, tmp):
 
 
 def lm_program_on_card(torch, np, seed, card, tmp):
-    """b2: build_lm_program at gpt3_1p3b widths and 12 of its 24 layers,
+    """b2: build_lm_program at gpt3_1p3b widths and 6 of its 24 layers,
     saved,
     loaded and run as a Program on the card: logits held to the
     predictor's module, with K1's exact launches; then the same
@@ -6534,7 +6565,7 @@ def worker_pool(torch, np, seed, card, tmp):
     return rec
 
 
-F_PROMPTS = 4    # f1-f3: the first 4 of phase 3's 16 prompts
+F_PROMPTS = 2    # f1-f3: the first 2 of phase 3's 16 prompts
 
 
 def phase_f(torch, np, seed, card, out_dir, record):
@@ -9700,6 +9731,673 @@ def _phase_k(torch, np, seed, card, out_dir, kdir, t0, rec):
     return {"dygraph_resnet": k1_counts, "dygraph_layers": k3_counts}, rec
 
 
+# -- phase l: detection ----------------------------------------------------------
+
+L_SIZE, L_CLASSES, L_MAX_GT = 300, 21, 8   # SSD300's input, VOC's classes
+L_LR = 2e-3                 # tests/test_models_ssd.py's Adam
+L_GATE_BATCH, L_GATE_STEPS = 4, 2
+L_TRAIN_BATCH, L_TRAIN_STEPS = 32, 10
+L_DET_BATCH, L_DET_CPU = 8, 2
+L_NMS_IOU = 0.45            # detection_output's nms_threshold
+L_TIE = 1e-6                # a near-tie: a score gap or an IoU this close
+L_RPN = {"feat": (1, 1024, 50, 68), "stride": 16.0,
+         "sizes": [32.0, 64.0, 128.0, 256.0, 512.0],
+         "ratios": [0.5, 1.0, 2.0], "pre": 6000, "post": 1000, "nms": 0.7,
+         "im_info": [800.0, 1088.0, 1.0], "pooled": 7}
+
+
+def l_ssd(fluid, optimizer=None):
+    from paddle_tpu_torch.models.ssd import build_ssd
+
+    return build_ssd(image_size=L_SIZE, num_classes=L_CLASSES,
+                     optimizer=optimizer, max_gt=L_MAX_GT)
+
+
+def l_batches(np, rng, n, batch):
+    from paddle_tpu_torch.models.ssd import synthetic_det_batch
+
+    return [synthetic_det_batch(rng, batch, image_size=L_SIZE,
+                                num_classes=L_CLASSES, max_gt=L_MAX_GT)
+            for _ in range(n)]
+
+
+def l_mining(torch, conf, feed, prior):
+    """The hard negatives ``ssd_loss_dense`` mines from ``conf`` (its
+    own ``match_and_mine``) and, an image, the gap between the last
+    mined loss and the next: [B, P] mask, [B] gaps."""
+    from paddle_tpu_torch.models.ssd import match_and_mine
+
+    dev = conf.device
+    pos, _, loss, mined = match_and_mine(
+        conf, torch.as_tensor(feed["gt_box"], device=dev),
+        torch.as_tensor(feed["gt_label"], device=dev), prior.to(dev))
+    neg = torch.where(pos, torch.full_like(loss, -float("inf")), loss)
+    srt = torch.sort(neg, dim=1, descending=True, stable=True).values
+    k = mined.sum(1, keepdim=True).clamp(min=1)
+    gaps = (torch.gather(srt, 1, k - 1) - torch.gather(srt, 1, k))[:, 0]
+    return mined, gaps
+
+
+def l1_gate(torch, np, seed, card):
+    """l1 (a): 2 Adam steps at batch 4 from the same startup values on
+    the card and the CPU. Returns (record, the startup values)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.io import load_scope_arrays
+
+    fluid.set_flags({"optimizer_fuse": "on"})
+    main, startup, _, fetches = l_ssd(fluid, fluid.optimizer.AdamOptimizer(
+        L_LR))
+    main.random_seed = startup.random_seed = seed
+    params = main.all_parameters()
+    n_adam = [op.type for op in main.global_block().ops].count("fused_adam")
+    log(f"  l1: build_ssd({L_SIZE}, {L_CLASSES} classes, max_gt {L_MAX_GT}):"
+        f" {len(params)} parameters "
+        f"({sum(int(np.prod(p.shape)) for p in params)} values), "
+        f"{n_adam} fused_adam ops")
+    require(n_adam == len(params) == 14,
+            f"l1: {n_adam} fused_adam ops for {len(params)} parameters, "
+            "not 14")
+    cpu, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    init = {v.name: np.array(cpu_scope.get_numpy(v.name))
+            for v in main.list_vars() if v.persistable and not v.is_data}
+    gpu, gpu_scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=gpu_scope)
+    load_scope_arrays(gpu_scope, init, main, DEVICE)
+    batches = l_batches(np, np.random.RandomState(seed), L_GATE_STEPS,
+                        L_GATE_BATCH)
+    loss_op = next(op for op in main.global_block().ops
+                   if op.type == "ssd_loss_dense")
+    conf_name, prior_name = loss_op.input("Conf")[0], loss_op.input("Prior")[0]
+    losses, confs, secs = {}, {}, {}
+    for name, exe, scope in (("cuda", gpu, gpu_scope),
+                             ("cpu", cpu, cpu_scope)):
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        runs = [exe.run(main, feed=b, fetch_list=[fetches["loss"],
+                                                  conf_name, prior_name],
+                        scope=scope) for b in batches]
+        secs[name] = time.perf_counter() - t
+        losses[name] = [float(np.asarray(r[0]).reshape(-1)[0]) for r in runs]
+        dev = DEVICE if name == "cuda" else "cpu"
+        confs[name] = (torch.as_tensor(np.asarray(runs[0][1]), device=dev),
+                       torch.as_tensor(np.asarray(runs[0][2]), device=dev))
+        if name == "cuda":
+            counts = K.launch_counts()
+    # the first step's mining on both devices: where the card and the
+    # CPU mine other negatives, the last mined and the next loss must
+    # sit at a near-tie
+    mined, gaps = {}, {}
+    for name in ("cuda", "cpu"):
+        conf, prior = confs[name]
+        mined[name], gaps[name] = l_mining(torch, conf, batches[0], prior)
+    same_mining = bool(torch.equal(mined["cuda"].cpu(), mined["cpu"]))
+    min_gap = float(gaps["cpu"].min())
+    steps = len(batches)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    worst, worst_name = 0.0, ""
+    for p in params:
+        d = float(np.abs(gpu_scope.get_numpy(p.name)
+                         - cpu_scope.get_numpy(p.name)).max())
+        if d > worst:
+            worst, worst_name = d, p.name
+    m1, m1_name = j_moment_gap(main, gpu_scope, cpu_scope)
+    log(f"  l1 (a) batch {L_GATE_BATCH}: card {losses['cuda']} "
+        f"({secs['cuda']:.1f} s), CPU {losses['cpu']} ({secs['cpu']:.1f} s);"
+        f" losses within {rel:.3e}, parameters {worst:.3e} ({worst_name}), "
+        f"first moments {m1:.3e} ({m1_name}, relative L2); the first step's "
+        f"hard negatives equal: {same_mining} (smallest gap at the mining "
+        f"boundary {min_gap:.3e}); launches "
+        f"{dict((k, v) for k, v in counts.items() if v)}")
+    if not same_mining:
+        diff = (mined["cuda"].cpu() != mined["cpu"]).nonzero().tolist()
+        log(f"  l1 (a): priors mined on one device only (image, prior): "
+            f"{diff[:8]}; boundary gaps {gaps['cpu'].tolist()}")
+        require(min_gap <= L_TIE * float(confs["cpu"][0].abs().max()),
+                f"l1 (a): the card and the CPU mine other negatives away "
+                f"from a near-tie (gap {min_gap:.3e})")
+    j_require_launches(counts, {"fused_adam_update": n_adam * steps,
+                                "softmax_xent_fwd": 0,
+                                "softmax_xent_bwd": 0}, "l1 (a)")
+    require(rel <= 1e-3, f"l1 (a): card vs CPU losses differ by {rel:.3e}")
+    limit = 2 * L_LR * steps
+    require(worst <= limit, f"l1 (a): parameter {worst_name} differs by "
+            f"{worst:.3e} > 2 * lr * steps = {limit:.1e}")
+    require(m1 <= 1e-4, f"l1 (a): first moments differ by {m1:.3e} "
+            "(relative L2) > 1e-4")
+    return ({"losses": losses, "loss_rel_err": rel, "param_max_abs_err": worst,
+             "param_limit": limit, "moment_rel_l2": m1,
+             "same_hard_negatives": same_mining, "mining_gap_min": min_gap,
+             "n_parameters": len(params),
+             "launches": {k: v for k, v in counts.items() if v},
+             "card_s": secs["cuda"], "cpu_s": secs["cpu"]}, init)
+
+
+def l1_train(torch, np, seed, card, out_dir, init):
+    """l1 (b): 10 steps at batch 32 on the card over 2 cycled batches.
+    Returns (launches, record, the trained scope, its first batch)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.io import load_scope_arrays
+
+    main, startup, _, fetches = l_ssd(fluid, fluid.optimizer.AdamOptimizer(
+        L_LR))
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    load_scope_arrays(scope, init, main, DEVICE)
+    data = l_batches(np, np.random.RandomState(seed + 1), 2, L_TRAIN_BATCH)
+    batches = [data[i % 2] for i in range(L_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times = [], []
+    for b in batches:
+        t = time.perf_counter()
+        losses.append(float(np.asarray(exe.run(
+            main, feed=b, fetch_list=[fetches["loss"]],
+            scope=scope)[0]).reshape(-1)[0]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # one more step profiled, on a copy of the state, so the trained
+    # weights stay those of the 10 steps
+    snap = {v.name: scope.find_var(v.name).clone() for v in main.list_vars()
+            if v.persistable and not v.is_data
+            and scope.find_var(v.name) is not None}
+    prof = start_profile(torch)
+    t = time.perf_counter()
+    exe.run(main, feed=batches[0], fetch_list=[fetches["loss"]], scope=scope)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    prof.__exit__(None, None, None)
+    for n, v in snap.items():
+        scope.set_var(n, v)
+    breakdown = trace_breakdown(prof, out_dir, "l1b", wall, steps=1)
+    step_ms = 1e3 * statistics.mean(times[1:])
+    images_s = L_TRAIN_BATCH / (step_ms / 1e3)
+    n_params = len(main.all_parameters())
+    log(f"  l1 (b) batch {L_TRAIN_BATCH} x {L_SIZE}^2, {L_TRAIN_STEPS} steps:"
+        f" losses {losses}; {step_ms:.3f} ms a step (steps 2-10; first "
+        f"{1e3 * times[0]:.1f}), {images_s:.2f} images/s, "
+        f"{breakdown['kernels']} kernels a step (profiled), device idle "
+        f"{breakdown['device_idle_share']:.3f}, peak {peak:.2f} GB [{card}]")
+    require(all(np.isfinite(losses)), f"l1 (b): a loss is not finite: "
+            f"{losses}")
+    require(np.mean(losses[-3:]) < losses[0],
+            f"l1 (b): the last three losses do not fall below the first: "
+            f"{losses}")
+    j_require_launches(counts, {"fused_adam_update": n_params * L_TRAIN_STEPS},
+                       "l1 (b)")
+    return counts, {"losses": losses, "step_ms": step_ms,
+                    "first_step_ms": 1e3 * times[0], "images_s": images_s,
+                    "kernels_a_step": breakdown["kernels"],
+                    "device_idle_share": breakdown["device_idle_share"],
+                    "device_busy_ms": breakdown["device_busy_ms"],
+                    "peak_gb": peak}, scope, data[0]
+
+
+def l_rows_alike(np, a, b, n_a, n_b):
+    """Whether two images' detection rows agree: counts and labels
+    exactly, scores and boxes within rtol 1e-5."""
+    return (n_a == n_b and np.array_equal(a[:, 0], b[:, 0])
+            and np.allclose(a[:, 1:], b[:, 1:], rtol=1e-5, atol=1e-6))
+
+
+def l_iou(np, a, b):
+    ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) \
+        - inter
+    return inter / max(union, 1e-10)
+
+
+def l_near_tie(np, mine, theirs, thr):
+    """The first row where two detection lists differ, and whether it
+    sits at a near-tie: the two rows' scores within ``L_TIE`` of the top
+    score (the order of equal scores), or a box that one list keeps at
+    an IoU within ``L_TIE`` of ``thr`` from an earlier box of its class
+    in the other (its suppression). Returns (row, gap, tie)."""
+    r = next((i for i in range(len(mine))
+              if mine[i, 0] != theirs[i, 0]
+              or not np.allclose(mine[i, 1:], theirs[i, 1:], rtol=1e-5,
+                                 atol=1e-6)), None)
+    if r is None:
+        return None, 0.0, True
+    top = max(abs(float(mine[0, 1])), abs(float(theirs[0, 1])), 1e-30)
+    gap = abs(float(mine[r, 1]) - float(theirs[r, 1]))
+    if gap <= L_TIE * top:
+        return r, gap, True
+    for row, other in ((mine[r], theirs), (theirs[r], mine)):
+        for k in range(r):
+            if other[k, 0] == row[0] and row[0] >= 0:
+                d = abs(l_iou(np, row[2:], other[k, 2:]) - thr)
+                if d <= L_TIE:
+                    return r, d, True
+    return r, gap, False
+
+
+def l_map(np, fluid, place, dets, batch):
+    """``evaluator.DetectionMAP`` over each image's rows on ``place``:
+    (its eval, the per-image mAPs)."""
+    main, startup = fluid.Program(), fluid.Program()
+    K_, G = dets.shape[1], batch["gt_box"].shape[1]
+    with fluid.program_guard(main, startup):
+        det = fluid.layers.data("det", [K_, 6], append_batch_size=False)
+        lab = fluid.layers.data("lab", [G, 1], append_batch_size=False)
+        box = fluid.layers.data("box", [G, 4], append_batch_size=False)
+        ev = fluid.evaluator.DetectionMAP(det, lab, box,
+                                          class_num=L_CLASSES)
+    scope, maps = fluid.Scope(), []
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(place)
+        exe.run(startup)
+        for i in range(dets.shape[0]):
+            (v,) = exe.run(main, feed={
+                "det": dets[i],
+                "lab": batch["gt_label"][i][:, None].astype(np.float32),
+                "box": batch["gt_box"][i]}, fetch_list=[ev.cur_map])
+            maps.append(float(np.asarray(v).reshape(-1)[0]))
+        return float(ev.eval(exe)), maps
+
+
+def l2_detect(torch, np, seed, card, scope, seen):
+    """l2: the for_test clone's detections at batch 8 on the card against
+    the CPU on 2 of the images, DetectionMAP on both; the NMS's
+    iterations and a batch's decode + NMS ms. The images are the first
+    8 of a batch l1 (b) trained on (``seen``): after 10 steps the model
+    finds boxes there, and on fresh images it finds none."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import load_scope_arrays
+    from paddle_tpu_torch.models.ssd import detection_output
+    from paddle_tpu_torch.ops.detection import multiclass_nms_rows
+
+    # the trained state through a clone of the model built without its
+    # optimizer (a clone of the training Program would step Adam)
+    main, _, _, fetches = l_ssd(fluid)
+    infer = main.clone(for_test=True)
+    batch = {k: v[:L_DET_BATCH] for k, v in seen.items()}
+    ops = {op.type: op for op in infer.global_block().ops}
+    nms_op, loss_op, coder = (ops["multiclass_nms"], ops["ssd_loss_dense"],
+                              ops["box_coder"])
+    fetch = [fetches["detections"], fetches["det_nums"],
+             loss_op.input("Loc")[0], loss_op.input("Conf")[0],
+             coder.input("PriorBox")[0], coder.input("PriorBoxVar")[0]]
+    gpu = fluid.Executor(fluid.CUDAPlace(0))
+    out = gpu.run(infer, feed=batch, fetch_list=fetch, scope=scope)
+    torch.cuda.synchronize()
+    dets, nums = np.asarray(out[0]), np.asarray(out[1])
+    loc, conf, prior, pvar = (np.asarray(v) for v in out[2:])
+    # the CPU on the first images, from the card's trained state
+    cpu_scope = fluid.Scope()
+    cpu = fluid.Executor(fluid.CPUPlace())
+    state = {v.name: scope.get_numpy(v.name) for v in infer.list_vars()
+             if v.persistable and not v.is_data}
+    load_scope_arrays(cpu_scope, state, infer, "cpu")
+    small = {k: v[:L_DET_CPU] for k, v in batch.items()}
+    t = time.perf_counter()
+    cdets, cnums = (np.asarray(v) for v in cpu.run(
+        infer, feed=small, fetch_list=fetch[:2], scope=cpu_scope))
+    cpu_s = time.perf_counter() - t
+    alike, ties = [], []
+    for i in range(L_DET_CPU):
+        ok = l_rows_alike(np, dets[i], cdets[i], int(nums[i]), int(cnums[i]))
+        alike.append(ok)
+        if not ok:
+            r, gap, tie = l_near_tie(np, dets[i], cdets[i], L_NMS_IOU)
+            ties.append({"image": i, "row": r, "gap": gap, "tie": tie})
+            log(f"  l2: image {i} first differs at row {r}: card "
+                f"{dets[i][r].tolist()}, CPU {cdets[i][r].tolist()}, gap "
+                f"{gap:.3e} (near-tie: {tie})")
+    # DetectionMAP on both devices over the images they share
+    map_card, maps_card = l_map(np, fluid, fluid.CUDAPlace(0),
+                                dets[:L_DET_CPU], small)
+    map_cpu, maps_cpu = l_map(np, fluid, fluid.CPUPlace(), cdets, small)
+    map_all, _ = l_map(np, fluid, fluid.CUDAPlace(0), dets, batch)
+    # a batch's decode + NMS alone, timed, and the NMS's iterations
+    dmain, dstart = fluid.Program(), fluid.Program()
+    with fluid.program_guard(dmain, dstart):
+        v = [fluid.layers.data(n, list(a.shape), append_batch_size=False)
+             for n, a in (("loc", loc), ("conf", conf), ("prior", prior),
+                          ("pvar", pvar))]
+        d_out, d_nums = detection_output(*v)
+    d_op = next(op for op in dmain.global_block().ops
+                if op.type == "multiclass_nms")
+    dfeed = {"loc": loc, "conf": conf, "prior": prior, "pvar": pvar}
+    dfetch = [d_out, d_nums, d_op.input("BBoxes")[0],
+              d_op.input("Scores")[0]]
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = gpu.run(dmain, feed=dfeed, fetch_list=dfetch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    decode_ms = 1e3 * statistics.median(times[1:])
+    stats = {}
+    bx = torch.as_tensor(np.asarray(r[2]), device=DEVICE)
+    sc = torch.as_tensor(np.asarray(r[3]), device=DEVICE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rows, _, rnum = multiclass_nms_rows(nms_op, bx, sc, stats=stats)
+    torch.cuda.synchronize()
+    nms_ms = 1e3 * (time.perf_counter() - t)
+    require(np.array_equal(np.asarray(r[0]), dets)
+            and np.array_equal(rows.cpu().numpy(), dets),
+            "l2: the decode program or the NMS alone gave other rows than "
+            "the clone's")
+    n_cand = int((sc[:, 1:] >= float(nms_op.attrs["score_threshold"]))
+                 .sum())
+    log(f"  l2 batch {L_DET_BATCH}: detections an image {nums.tolist()} "
+        f"(CPU {cnums.tolist()} on the first {L_DET_CPU}); rows alike "
+        f"{alike}; DetectionMAP card {map_card:.4f} / CPU {map_cpu:.4f} "
+        f"({maps_card} / {maps_cpu}), all {L_DET_BATCH} images "
+        f"{map_all:.4f}; decode + NMS {decode_ms:.3f} ms a batch, the NMS "
+        f"alone {nms_ms:.3f} ms over {stats['nms_iterations']} iterations "
+        f"({n_cand} candidates above the score threshold; JAX's loop would "
+        f"run {prior.shape[0]}), the clone's forward on the CPU "
+        f"{cpu_s:.1f} s [{card}]")
+    require(nums.sum() > 0, "l2: no detection on the card")
+    for t_ in ties:
+        require(t_["tie"], f"l2: image {t_['image']}'s detections differ "
+                f"at row {t_['row']} away from a near-tie (gap "
+                f"{t_['gap']:.3e})")
+    for i, ok in enumerate(alike):
+        if ok:
+            require(abs(maps_card[i] - maps_cpu[i]) <= 1e-4,
+                    f"l2: image {i}'s mAP {maps_card[i]} on the card, "
+                    f"{maps_cpu[i]} on the CPU")
+    return {"detections_an_image": nums.tolist(), "rows_alike": alike,
+            "near_ties": ties, "map_card": map_card, "map_cpu": map_cpu,
+            "maps_card": maps_card, "maps_cpu": maps_cpu,
+            "map_all_images": map_all, "decode_nms_ms": decode_ms,
+            "nms_ms": nms_ms, "nms_iterations": stats["nms_iterations"],
+            "nms_candidates": n_cand, "cpu_forward_s": cpu_s}
+
+
+class _LOp:
+    """An op for a direct lowering call: its type, attrs and ident."""
+
+    def __init__(self, type, attrs):
+        self.type, self.attrs = type, dict(attrs, op_ident=1)
+        self.inputs, self.outputs = {}, {}
+
+
+def l3_cases(np):
+    """The differentiable detection lowerings at the CPU tests' shapes
+    (tests/test_torch_detection.py): (op, inputs, attrs, grad slots)."""
+    rng = np.random.RandomState(3)
+
+    def f(*s, scale=1.0):
+        return (rng.randn(*s) * scale).astype(np.float32)
+
+    def u(*s):
+        return rng.rand(*s).astype(np.float32)
+
+    rois = np.array([[0, 0, 5, 5], [1, 2, 7, 6], [2.5, 1, 4, 7.5]],
+                    np.float32)
+    two_one = np.array([2, 1], np.int32)
+    xy = rng.rand(24, 2) * 0.7
+    prior = np.concatenate([xy, xy + rng.rand(24, 2) * 0.3 + 0.05],
+                           1).astype(np.float32)
+    return [
+        ("roi_align", {"X": f(2, 3, 8, 8), "ROIs": rois, "RoisNum": two_one},
+         {"pooled_height": 2, "pooled_width": 3, "spatial_scale": 0.5},
+         ("X",)),
+        ("roi_pool", {"X": np.concatenate([f(2, 2, 8, 8),
+                                           np.ones((2, 1, 8, 8), np.float32)],
+                                          1),
+                      "ROIs": rois, "RoisNum": two_one},
+         {"pooled_height": 2, "pooled_width": 2}, ("X",)),
+        ("sigmoid_focal_loss", {"X": f(6, 3),
+                                "Label": rng.randint(0, 4, (6, 1)).astype(
+                                    np.int32),
+                                "FgNum": np.array([3], np.int32)}, {},
+         ("X",)),
+        ("yolov3_loss", {"X": f(1, 16, 4, 4, scale=0.1),
+                         "GTBox": np.array([[[0.5, 0.5, 0.3, 0.4],
+                                             [0.2, 0.2, 0.1, 0.1]]],
+                                           np.float32),
+                         "GTLabel": np.array([[1, 2]], np.int32),
+                         "GTScore": np.ones((1, 2), np.float32)},
+         {"anchors": [10, 13, 16, 30], "anchor_mask": [0, 1], "class_num": 3,
+          "ignore_thresh": 0.7, "downsample_ratio": 32}, ("X",)),
+        ("deformable_conv", {"Input": f(2, 4, 5, 5),
+                             "Offset": f(2, 36, 5, 5, scale=0.7),
+                             "Mask": u(2, 18, 5, 5), "Filter": f(6, 2, 3, 3)},
+         {"paddings": [1, 1], "groups": 2, "deformable_groups": 2},
+         ("Input", "Offset", "Mask", "Filter")),
+        ("deformable_conv_v1", {"Input": f(1, 3, 7, 6),
+                                "Offset": f(1, 18, 3, 1, scale=0.6),
+                                "Filter": f(4, 3, 3, 3)},
+         {"strides": [2, 2], "dilations": [1, 2]},
+         ("Input", "Offset", "Filter")),
+        ("psroi_pool", {"X": f(2, 8, 6, 6), "ROIs": rois * 2,
+                        "RoisNum": two_one},
+         {"output_channels": 2, "spatial_scale": 0.5, "pooled_height": 2,
+          "pooled_width": 2}, ("X",)),
+        ("prroi_pool", {"X": f(2, 3, 6, 6), "ROIs": rois,
+                        "BatchRoINums": np.array([1, 2], np.int32)},
+         {"spatial_scale": 0.8, "pooled_height": 2, "pooled_width": 3},
+         ("X",)),
+        ("deformable_psroi_pooling", {"Input": f(2, 8, 6, 6), "ROIs": rois,
+                                      "Trans": f(3, 2, 2, 2),
+                                      "RoisNum": two_one},
+         {"output_dim": 2, "pooled_height": 2, "pooled_width": 2,
+          "spatial_scale": 0.9, "trans_std": 0.2}, ("Input", "Trans")),
+        ("ssd_loss_dense", {"Loc": f(2, 24, 4, scale=0.5), "Conf": f(2, 24, 4),
+                            "GtBox": np.array(
+                                [[[0.1, 0.1, 0.5, 0.6], [0.4, 0.3, 0.9, 0.8],
+                                  [0, 0, 0, 0]],
+                                 [[0.2, 0.5, 0.6, 0.95], [0, 0, 0, 0],
+                                  [0, 0, 0, 0]]], np.float32),
+                            "GtLabel": np.array([[1, 3, 0], [2, 0, 0]],
+                                                np.int64),
+                            "Prior": prior,
+                            "PVar": np.tile(np.array([0.1, 0.1, 0.2, 0.2],
+                                                     np.float32), (24, 1))},
+         {"overlap_threshold": 0.3, "neg_pos_ratio": 2.0}, ("Loc", "Conf")),
+    ]
+
+
+def l_lower(torch, op_type, attrs, ins, dev, grads=(), seed=0):
+    """One lowering on ``dev``: its outputs and, for the ``grads`` slots,
+    the gradients of a seeded weighted sum of its float outputs."""
+    from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
+
+    tins, leaves = {}, []
+    for slot, a in ins.items():
+        t = torch.as_tensor(a, device=dev)
+        if slot in grads:
+            t = t.clone().requires_grad_()
+            leaves.append(t)
+        tins[slot] = [t]
+    with torch.enable_grad():
+        outs = get_op_def(op_type).lower(LoweringContext(dev),
+                                         _LOp(op_type, attrs), tins)
+        flat = [(s, k, v) for s, vs in sorted(outs.items())
+                for k, v in enumerate(vs) if isinstance(v, torch.Tensor)]
+        res = {f"{s}_{k}": v.detach().cpu() for s, k, v in flat}
+        if leaves:
+            g = torch.Generator().manual_seed(seed)
+            terms = [(v * torch.randn(v.shape, generator=g).to(dev)).sum()
+                     for _, _, v in flat
+                     if v.is_floating_point() and v.requires_grad]
+            gs = torch.autograd.grad(sum(terms), leaves, allow_unused=True)
+            for slot, gr in zip([s for s in ins if s in grads], gs):
+                res[f"{slot}@GRAD"] = (gr if gr is not None else
+                                       torch.zeros(ins[slot].shape)).cpu()
+    return res
+
+
+def l3_ops(torch, np, card):
+    """l3: the differentiable lowerings card against CPU, and the
+    proposal chain at Faster R-CNN's RPN size."""
+    from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
+    from paddle_tpu_torch.ops.detection import generate_proposals
+
+    worst = {}
+    for op_type, ins, attrs, grads in l3_cases(np):
+        a = l_lower(torch, op_type, attrs, ins, "cpu", grads)
+        b = l_lower(torch, op_type, attrs, ins, DEVICE, grads)
+        err = 0.0
+        for k in a:
+            x, y = a[k].double(), b[k].double()
+            require(x.shape == y.shape, f"l3 {op_type} {k}: shapes "
+                    f"{tuple(y.shape)} / {tuple(x.shape)}")
+            if not a[k].is_floating_point():
+                require(torch.equal(a[k], b[k]), f"l3 {op_type} {k} differs")
+                continue
+            excess = float(((y - x).abs() - (1e-5 + 1e-4 * x.abs())).max())
+            require(excess <= 0, f"l3 {op_type} {k}: card vs CPU beyond "
+                    f"rtol 1e-4 / atol 1e-5 (by {excess:.3e})")
+            err = max(err, float((y - x).abs().max()))
+        worst[op_type] = err
+    log(f"  l3: the 10 differentiable detection lowerings, forward and "
+        f"backward card vs CPU, max abs error {worst}")
+
+    cfg = L_RPN
+    rng = np.random.RandomState(5)
+    N, Cf, H, W = cfg["feat"]
+    A = len(cfg["sizes"]) * len(cfg["ratios"])
+    feat = rng.randn(N, Cf, H, W).astype(np.float32)
+    scores = rng.rand(N, A, H, W).astype(np.float32)
+    deltas = (rng.randn(N, 4 * A, H, W) * 0.1).astype(np.float32)
+    im_info = np.array([cfg["im_info"]], np.float32)
+    ag_attrs = {"anchor_sizes": cfg["sizes"], "aspect_ratios": cfg["ratios"],
+                "stride": [cfg["stride"]] * 2}
+    gp_attrs = {"pre_nms_topN": cfg["pre"], "post_nms_topN": cfg["post"],
+                "nms_thresh": cfg["nms"], "min_size": 0.1}
+    ra_attrs = {"pooled_height": cfg["pooled"], "pooled_width": cfg["pooled"],
+                "spatial_scale": 1.0 / cfg["stride"]}
+    res, ms, stats = {}, {}, {}
+    for where, dev in (("cpu", "cpu"), ("card", DEVICE)):
+        on_card = where == "card"
+
+        def timed(name, fn):
+            torch.cuda.synchronize() if on_card else None
+            t = time.perf_counter()
+            out = fn()
+            if on_card:
+                torch.cuda.synchronize()
+                ms[name] = ms.get(name, 0.0) + 1e3 * (time.perf_counter() - t)
+            return out
+
+        ctx = LoweringContext(dev)
+        tfeat = torch.as_tensor(feat, device=dev)
+        # on the card twice: the second pass is timed (its first builds
+        # and warms up) and the first counts the NMS's iterations
+        for rep in range(2 if on_card else 1):
+            ms.clear()
+            anc = timed("anchor_generator", lambda: get_op_def(
+                "anchor_generator").lower(ctx, _LOp("anchor_generator",
+                                                    ag_attrs),
+                                          {"Input": [tfeat]}))
+            props = timed("generate_proposals", lambda: generate_proposals(
+                _LOp("generate_proposals", gp_attrs),
+                {"Scores": [torch.as_tensor(scores, device=dev)],
+                 "BboxDeltas": [torch.as_tensor(deltas, device=dev)],
+                 "ImInfo": [torch.as_tensor(im_info, device=dev)],
+                 "Anchors": anc["Anchors"], "Variances": anc["Variances"]},
+                stats=stats if on_card and not rep else {}))
+            rois = props["RpnRois"][0][0]
+            res[where] = {"rois": rois.cpu().numpy(),
+                          "probs": props["RpnRoiProbs"][0][0, :, 0].cpu()
+                          .numpy(), "num": int(props["RpnRoisNum"][0][0])}
+        if on_card:
+            # roi_align over the card's rois, timed warm
+            for _ in range(2):
+                ms.pop("roi_align", None)
+                pooled = timed("roi_align", lambda: get_op_def(
+                    "roi_align").lower(ctx, _LOp("roi_align", ra_attrs),
+                                       {"X": [tfeat], "ROIs": [rois]})[
+                    "Out"][0])
+            res[where]["pooled"] = pooled.cpu()
+    t = time.perf_counter()
+    cpu_pooled = get_op_def("roi_align").lower(
+        LoweringContext("cpu"), _LOp("roi_align", ra_attrs),
+        {"X": [torch.as_tensor(feat)],
+         "ROIs": [torch.as_tensor(res["card"]["rois"])]})["Out"][0]
+    cpu_align_s = time.perf_counter() - t
+    a, b = res["cpu"], res["card"]
+    same = (a["num"] == b["num"]
+            and np.allclose(b["rois"], a["rois"], rtol=1e-5, atol=1e-4)
+            and np.allclose(b["probs"], a["probs"], rtol=1e-6))
+    tie = None
+    if not same:
+        mine = np.concatenate([b["probs"][:, None], b["rois"]], 1)
+        theirs = np.concatenate([a["probs"][:, None], a["rois"]], 1)
+        r = next(i for i in range(len(mine))
+                 if not np.allclose(mine[i], theirs[i], rtol=1e-5, atol=1e-4))
+        top = float(a["probs"][0])
+        gap = abs(float(mine[r, 0]) - float(theirs[r, 0]))
+        off = lambda p, q: l_iou(np, p + np.array([0, 0, 1, 1]),   # noqa: E731
+                                 q + np.array([0, 0, 1, 1]))
+        near_iou = min((abs(off(row[1:], other[k, 1:]) - cfg["nms"])
+                        for row, other in ((mine[r], theirs),
+                                           (theirs[r], mine))
+                        for k in range(r)), default=1.0)
+        tie = {"row": r, "score_gap": gap, "iou_gap": near_iou,
+               "tie": gap <= L_TIE * top or near_iou <= L_TIE}
+        log(f"  l3: the proposals first differ at row {r}: card "
+            f"{mine[r].tolist()}, CPU {theirs[r].tolist()} ({tie})")
+    # float32 rounds a sample's coordinate (about 4e-6 at 50 pixels) and
+    # the randn map's slope reaches 6 a pixel, so a pooled value moves by
+    # 2e-5 where it may be near 0: the features are held relative to the
+    # map's scale, and the card's float32 error against a float64 CPU
+    # run must be the CPU float32's own
+    scale = float(cpu_pooled.abs().max())
+    diff = float((b["pooled"].double() - cpu_pooled.double()).abs().max())
+    n64 = min(100, b["num"])
+    ref64 = get_op_def("roi_align").lower(
+        LoweringContext("cpu"), _LOp("roi_align", ra_attrs),
+        {"X": [torch.as_tensor(feat).double()],
+         "ROIs": [torch.as_tensor(res["card"]["rois"][:n64]).double()]})[
+        "Out"][0]
+    err_card = float((b["pooled"][:n64].double() - ref64).abs().max())
+    err_cpu = float((cpu_pooled[:n64].double() - ref64).abs().max())
+    log(f"  l3 proposal chain: anchor_generator over {list(cfg['feat'])} at "
+        f"stride {cfg['stride']:.0f}, {A} anchors a cell ({A * H * W}); "
+        f"generate_proposals pre {cfg['pre']} / post {cfg['post']} / NMS "
+        f"{cfg['nms']}: {b['num']} rois (CPU {a['num']}), equal {same}, "
+        f"{stats.get('nms_iterations')} NMS iterations; roi_align "
+        f"{cfg['pooled']}x{cfg['pooled']} over the map: card vs CPU "
+        f"{diff:.3e} of a scale {scale:.3f}, against float64 on {n64} rois "
+        f"card {err_card:.3e} / CPU {err_cpu:.3e} (CPU {cpu_align_s:.1f} s);"
+        f" ms on the card "
+        f"{ {k: round(v, 3) for k, v in ms.items()} } [{card}]")
+    require(same or tie["tie"], f"l3: the proposals differ away from a "
+            f"near-tie: {tie}")
+    require(diff <= 1e-4 * scale, f"l3: roi_align card vs CPU {diff:.3e} "
+            f"> 1e-4 of the features' scale {scale:.3f}")
+    require(err_card <= 2 * err_cpu + 1e-7, f"l3: roi_align on the card "
+            f"{err_card:.3e} from float64, the CPU {err_cpu:.3e}")
+    return {"max_abs_err": worst, "rois": b["num"], "rois_equal": same,
+            "near_tie": tie, "nms_iterations": stats.get("nms_iterations"),
+            "ms": ms, "roi_align_max_abs_diff": diff,
+            "roi_align_scale": scale, "roi_align_err64_card": err_card,
+            "roi_align_err64_cpu": err_cpu, "cpu_roi_align_s": cpu_align_s}
+
+
+def phase_l(torch, np, seed, card, out_dir):
+    """Phase l: detection. Returns (paths, record)."""
+    t = time.perf_counter()
+    gate, init = l1_gate(torch, np, seed, card)
+    counts, rec1, scope, seen = l1_train(torch, np, seed, card, out_dir,
+                                         init)
+    rec = {"l1": dict(rec1, gate=gate),
+           "l2": l2_detect(torch, np, seed, card, scope, seen)}
+    del scope
+    torch.cuda.empty_cache()
+    rec["l3"] = l3_ops(torch, np, card)
+    rec["seconds"] = time.perf_counter() - t
+    log(f"  phase l took {rec['seconds']:.1f} s")
+    return {"ssd_train": counts}, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9988,6 +10686,14 @@ def main(argv=None) -> int:
         paths.update(kpaths)
         torch.cuda.empty_cache()
     mark("k")
+    if "l" in args.phases:
+        log("phase l: detection (SSD300 at 21 classes trained and decoded, "
+            "DetectionMAP, the detection lowerings and the proposal chain)")
+        lpaths, record["phase_l"] = phase_l(torch, np, args.seed, card,
+                                            args.out)
+        paths.update(lpaths)
+        torch.cuda.empty_cache()
+    mark("l")
     record["phase_seconds"] = phase_s
     log(f"seconds a phase: {phase_s} [{card}]")
     launches = {name: {p: c.get(name, 0) for p, c in paths.items()}
@@ -9997,7 +10703,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h, i, j and k)")
+        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h, i, j, k and l)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"

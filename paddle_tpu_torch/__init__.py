@@ -190,10 +190,16 @@ Momentum, Adam, Lamb) and learning-rate schedulers, ``TracedLayer`` /
         fluid.optimizer.SGD(0.1).minimize(
             loss, parameter_list=model.parameters())
 
+Detection: the 35 lowerings of the detection ops (box coding, priors
+and anchors, multi-class NMS, ROI pooling and alignment, deformable
+convolution, target assignment and mining, the proposal chain, YOLO,
+``detection_map``), their layers, ``models.ssd`` (``build_ssd``, the
+``ssd_loss_dense`` matching loss, ``detection_output``) and
+``evaluator.DetectionMAP``.
+
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
 ported yet (ROADMAP A11): the rest of the long tail (the other fused
-op types, the detection ops with ``models/ssd.py``, the parameter
-server, HDFS, autotune and the rest).
+op types, the parameter server, HDFS, autotune and the rest).
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of
@@ -208,7 +214,7 @@ from . import (average, clip, contrib, dygraph, evaluator,  # noqa: F401
 from .core import framework
 from .core.compiler import (BuildStrategy, CompiledProgram,
                             ExecutionStrategy, ParallelExecutor)
-from .core.backward import append_backward
+from .core.backward import append_backward, gradients
 from .core.executor import Executor, Scope, global_scope, scope_guard
 from .core.framework import (Program, Variable, default_main_program,
                              default_startup_program, in_dygraph_mode,
@@ -228,7 +234,7 @@ __all__ = ["resolve_device", "clip", "contrib", "io", "layers", "nets",
            "profiler", "DataLoader", "DataFeeder", "LoDTensor",
            "create_lod_tensor", "create_random_int_lodtensor",
            "framework",
-           "append_backward", "Executor", "Scope", "global_scope",
+           "append_backward", "gradients", "Executor", "Scope", "global_scope",
            "scope_guard", "Program", "Variable", "default_main_program",
            "default_startup_program", "program_guard", "unique_name",
            "CPUPlace", "CUDAPlace", "get_flags",

@@ -417,3 +417,30 @@ def append_backward_with_recompute(
         if g is not None:
             result.append((p, block.var(g)))
     return result
+
+
+def gradients(targets, inputs, target_gradients=None,
+              no_grad_set=None) -> List[Optional[Variable]]:
+    """Reference backward.py gradients(), as JAX's
+    (``paddle_tpu/core/backward.py:419``): the gradient Variables of one
+    target with respect to ``inputs`` (None where no gradient reaches),
+    through ``append_backward`` with the inputs made to require
+    gradients while it runs."""
+    if isinstance(targets, Variable):
+        targets = [targets]
+    if isinstance(inputs, Variable):
+        inputs = [inputs]
+    if len(targets) != 1:
+        raise ValueError("gradients() takes one target: sum them first")
+    t = targets[0]
+    saved = [(v, v.stop_gradient) for v in inputs]
+    for v in inputs:
+        v.stop_gradient = False
+    try:
+        append_backward(t, no_grad_set=no_grad_set)
+    finally:
+        for v, s in saved:
+            v.stop_gradient = s
+    block = t.block
+    return [block.var(_grad_name(v.name))
+            if block.has_var(_grad_name(v.name)) else None for v in inputs]

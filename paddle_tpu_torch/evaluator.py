@@ -3,11 +3,9 @@ of ``paddle_tpu/evaluator.py``.
 
 Reference: python/paddle/fluid/evaluator.py:45 (Evaluator base, state
 vars updated per batch inside the main program), :127 ChunkEvaluator,
-:218 EditDistance. The constructor appends the metric op and the
-accumulator updates to the current main program, ``eval(exe)`` reads
-the state vars, ``reset(exe)`` zeroes them. ``DetectionMAP`` needs the
-``detection_map`` op, which is ROADMAP A11's detection item, and is
-refused by name.
+:218 EditDistance, :299 DetectionMAP. The constructor appends the
+metric op and the accumulator updates to the current main program,
+``eval(exe)`` reads the state vars, ``reset(exe)`` zeroes them.
 """
 
 from __future__ import annotations
@@ -203,9 +201,54 @@ def _zeros_like(block, ref, helper):
 
 
 class DetectionMAP(Evaluator):
-    """Refused: the ``detection_map`` op it appends is not ported yet."""
+    """Per-batch mAP through the ``detection_map`` op (reference
+    evaluator.py:299), averaged over batches on the host, as JAX's: the
+    op computes each batch's mAP in full, and ``eval`` returns the mean
+    of the batches' values."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "evaluator.DetectionMAP is not ported to paddle_tpu_torch yet "
-            "(ROADMAP A11: models/ssd.py with the detection ops)")
+    def __init__(self, input, gt_label, gt_box, gt_difficult=None,
+                 class_num=None, background_label=0,
+                 overlap_threshold=0.5, evaluate_difficult=True,
+                 ap_version="integral"):
+        super().__init__("detection_map")
+        block = self.helper.main_program.current_block()
+        label_parts = [gt_label, gt_box]
+        if gt_difficult is not None:
+            label_parts.insert(1, gt_difficult)
+        label = block.create_var(name=f"{self.helper.name}.label",
+                                 stop_gradient=True)
+        block.append_op(type="concat", inputs={"X": label_parts},
+                        outputs={"Out": [label]}, attrs={"axis": 1})
+        outs = {n: [block.create_var(name=f"{self.helper.name}.{n}",
+                                     stop_gradient=True)]
+                for n in ("MAP", "AccumPosCount", "AccumTruePos",
+                          "AccumFalsePos")}
+        block.append_op(
+            type="detection_map",
+            inputs={"DetectRes": [input], "Label": [label]},
+            outputs=outs,
+            attrs={"class_num": class_num or 21,
+                   "overlap_threshold": overlap_threshold,
+                   "ap_type": ap_version,
+                   "background_label": background_label,
+                   "evaluate_difficult": bool(evaluate_difficult),
+                   "has_difficult": gt_difficult is not None})
+        self.cur_map = outs["MAP"][0]
+        self._sum = self._create_state("map_sum")
+        self._count = self._create_state("map_count")
+        self._accumulate(self._sum, self.cur_map)
+        one = block.create_var(name=f"{self.helper.name}.one",
+                               stop_gradient=True)
+        block.append_op(type="fill_constant", outputs={"Out": [one]},
+                        attrs={"shape": [1], "dtype": "float32",
+                               "value": 1.0})
+        self._accumulate(self._count, one)
+        self.metrics = [self.cur_map]
+
+    def eval(self, executor, eval_program=None):
+        from .core.executor import global_scope
+
+        sc = global_scope()
+        s = float(np.asarray(sc.get_numpy(self._sum.name)).reshape(-1)[0])
+        c = float(np.asarray(sc.get_numpy(self._count.name)).reshape(-1)[0])
+        return np.array(s / c if c else 0.0)

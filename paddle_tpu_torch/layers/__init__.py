@@ -2,6 +2,7 @@
 port's ``paddle_tpu/layers/``."""
 
 from .control_flow import *  # noqa: F401,F403
+from .detection import box_coder, iou_similarity, prior_box
 from .extras import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403

@@ -194,6 +194,181 @@ _SPECS = {
                     ("weight", "Weight", 1), ("bias", "Bias", 0)],
             [("num_total_classes", 2), ("num_neg_samples", 10)],
             ["Cost", "SampleLogits", "SampleLabels"], False),
+    # -- the rows of the detection ops of ops/detection.py and
+    # ops/detection2.py (paddle_tpu/layers/auto.py:154-158, 245-280,
+    # 333-464)
+    "sigmoid_focal_loss": ("sigmoid_focal_loss",
+                           [("x", "X", 1), ("label", "Label", 1),
+                            ("fg_num", "FgNum", 1)],
+                           [("gamma", 2.0), ("alpha", 0.25)],
+                           ["Out"], False),
+    "deformable_conv": ("deformable_conv",
+                        [("input", "Input", 1), ("offset", "Offset", 1),
+                         ("mask", "Mask", 0), ("filter", "Filter", 1)],
+                        [("strides", [1, 1]), ("paddings", [0, 0]),
+                         ("dilations", [1, 1]), ("groups", 1),
+                         ("deformable_groups", 1)], ["Output"], False),
+    "deformable_roi_pooling": ("deformable_psroi_pooling",
+                               [("input", "Input", 1), ("rois", "ROIs", 1),
+                                ("trans", "Trans", 0)],
+                               [("spatial_scale", 1.0), ("output_dim", 1),
+                                ("pooled_height", 1), ("pooled_width", 1),
+                                ("trans_std", 0.1)],
+                               ["Output", "TopCount"], False),
+    "psroi_pool": ("psroi_pool", [("input", "X", 1), ("rois", "ROIs", 1)],
+                   [("output_channels", 1), ("spatial_scale", 1.0),
+                    ("pooled_height", 1), ("pooled_width", 1)],
+                   ["Out"], False),
+    "prroi_pool": ("prroi_pool", [("input", "X", 1), ("rois", "ROIs", 1)],
+                   [("spatial_scale", 1.0), ("pooled_height", 1),
+                    ("pooled_width", 1)], ["Out"], False),
+    "roi_align": ("roi_align", [("input", "X", 1), ("rois", "ROIs", 1),
+                                ("rois_num", "RoisNum", 0)],
+                  [("pooled_height", 1), ("pooled_width", 1),
+                   ("spatial_scale", 1.0), ("sampling_ratio", -1)],
+                  ["Out"], False),
+    "roi_pool": ("roi_pool", [("input", "X", 1), ("rois", "ROIs", 1),
+                              ("rois_num", "RoisNum", 0)],
+                 [("pooled_height", 1), ("pooled_width", 1),
+                  ("spatial_scale", 1.0)], ["Out", "Argmax"], False),
+    "roi_perspective_transform": ("roi_perspective_transform",
+                                  [("input", "X", 1), ("rois", "ROIs", 1)],
+                                  [("transformed_height", 1),
+                                   ("transformed_width", 1),
+                                   ("spatial_scale", 1.0)],
+                                  ["Out", "Mask", "TransformMatrix",
+                                   "Out2InIdx", "Out2InWeights"], True),
+    "anchor_generator": ("anchor_generator", [("input", "Input", 1)],
+                         [("anchor_sizes", [64.0]),
+                          ("aspect_ratios", [1.0]),
+                          ("stride", [16.0, 16.0]),
+                          ("variances", [0.1, 0.1, 0.2, 0.2])],
+                         ["Anchors", "Variances"], True),
+    "bipartite_match": ("bipartite_match", [("dist_matrix", "DistMat", 1)],
+                        [],
+                        ["ColToRowMatchIndices", "ColToRowMatchDist"], True),
+    "box_clip": ("box_clip", [("input", "Input", 1),
+                              ("im_info", "ImInfo", 1)], [],
+                 ["Output"], False),
+    "box_decoder_and_assign": ("box_decoder_and_assign",
+                               [("prior_box", "PriorBox", 1),
+                                ("prior_box_var", "PriorBoxVar", 1),
+                                ("target_box", "TargetBox", 1),
+                                ("box_score", "BoxScore", 1)],
+                               [("box_clip", 0.0)],
+                               ["DecodeBox", "OutputAssignBox"], True),
+    "density_prior_box": ("density_prior_box",
+                          [("input", "Input", 1), ("image", "Image", 1)],
+                          [("densities", [1]), ("fixed_sizes", [4.0]),
+                           ("fixed_ratios", [1.0]),
+                           ("variances", [0.1, 0.1, 0.2, 0.2])],
+                          ["Boxes", "Variances"], True),
+    "multiclass_nms": ("multiclass_nms", [("bboxes", "BBoxes", 1),
+                                          ("scores", "Scores", 1)],
+                       [("background_label", 0),
+                        ("score_threshold", 0.01), ("nms_top_k", 100),
+                        ("nms_threshold", 0.45), ("keep_top_k", 100)],
+                       ["Out", "NmsRoisNum"], True),
+    "locality_aware_nms": ("locality_aware_nms",
+                           [("bboxes", "BBoxes", 1),
+                            ("scores", "Scores", 1)],
+                           [("background_label", -1),
+                            ("score_threshold", 0.01), ("nms_top_k", 100),
+                            ("nms_threshold", 0.45), ("keep_top_k", 100)],
+                           ["Out"], True),
+    "yolo_box": ("yolo_box", [("x", "X", 1), ("img_size", "ImgSize", 1)],
+                 [("anchors", []), ("class_num", 1),
+                  ("conf_thresh", 0.01), ("downsample_ratio", 32)],
+                 ["Boxes", "Scores"], True),
+    "yolov3_loss": ("yolov3_loss",
+                    [("x", "X", 1), ("gt_box", "GTBox", 1),
+                     ("gt_label", "GTLabel", 1), ("gt_score", "GTScore", 0)],
+                    [("anchors", []), ("anchor_mask", []),
+                     ("class_num", 1), ("ignore_thresh", 0.7),
+                     ("downsample_ratio", 32)],
+                    ["Loss", "ObjectnessMask", "GTMatchMask"], False),
+    "target_assign": ("target_assign",
+                      [("input", "X", 1),
+                       ("matched_indices", "MatchIndices", 1),
+                       ("negative_indices", "NegIndices", 0)],
+                      [("mismatch_value", 0)],
+                      ["Out", "OutWeight"], True),
+    "rpn_target_assign": ("rpn_target_assign",
+                          [("anchor_box", "Anchor", 1),
+                           ("gt_boxes", "GtBoxes", 1),
+                           ("is_crowd", "IsCrowd", 0),
+                           ("im_info", "ImInfo", 0)],
+                          [("rpn_batch_size_per_im", 256),
+                           ("rpn_positive_overlap", 0.7),
+                           ("rpn_negative_overlap", 0.3)],
+                          ["LocationIndex", "ScoreIndex", "TargetBBox",
+                           "TargetLabel", "BBoxInsideWeight"], True),
+    "retinanet_target_assign": ("retinanet_target_assign",
+                                [("anchor", "Anchor", 1),
+                                 ("gt_boxes", "GtBoxes", 1),
+                                 ("gt_labels", "GtLabels", 1),
+                                 ("is_crowd", "IsCrowd", 0),
+                                 ("im_info", "ImInfo", 0)],
+                                [("positive_overlap", 0.5),
+                                 ("negative_overlap", 0.4)],
+                                ["LocationIndex", "ScoreIndex",
+                                 "TargetLabel", "TargetBBox",
+                                 "BBoxInsideWeight", "ForegroundNumber"],
+                                True),
+    "retinanet_detection_output": ("retinanet_detection_output",
+                                   [("bboxes", "BBoxes", 1),
+                                    ("scores", "Scores", 1),
+                                    ("anchors", "Anchors", 1),
+                                    ("im_info", "ImInfo", 1)],
+                                   [("score_threshold", 0.05),
+                                    ("nms_top_k", 1000),
+                                    ("nms_threshold", 0.3),
+                                    ("keep_top_k", 100)], ["Out"], True),
+    "generate_proposals": ("generate_proposals",
+                           [("scores", "Scores", 1),
+                            ("bbox_deltas", "BboxDeltas", 1),
+                            ("im_info", "ImInfo", 1),
+                            ("anchors", "Anchors", 1),
+                            ("variances", "Variances", 1)],
+                           [("pre_nms_topN", 6000), ("post_nms_topN", 1000),
+                            ("nms_thresh", 0.5), ("min_size", 0.1)],
+                           ["RpnRois", "RpnRoiProbs"], True),
+    "generate_proposal_labels": ("generate_proposal_labels",
+                                 [("rpn_rois", "RpnRois", 1),
+                                  ("gt_classes", "GtClasses", 1),
+                                  ("is_crowd", "IsCrowd", 0),
+                                  ("gt_boxes", "GtBoxes", 1),
+                                  ("im_info", "ImInfo", 0)],
+                                 [("batch_size_per_im", 256),
+                                  ("fg_fraction", 0.25), ("fg_thresh", 0.5),
+                                  ("bg_thresh_hi", 0.5),
+                                  ("bg_thresh_lo", 0.0)],
+                                 ["Rois", "LabelsInt32", "BboxTargets",
+                                  "BboxInsideWeights",
+                                  "BboxOutsideWeights"], True),
+    "generate_mask_labels": ("generate_mask_labels",
+                             [("im_info", "ImInfo", 0),
+                              ("gt_classes", "GtClasses", 1),
+                              ("is_crowd", "IsCrowd", 0),
+                              ("gt_segms", "GtSegms", 1),
+                              ("rois", "Rois", 1),
+                              ("labels_int32", "LabelsInt32", 1)],
+                             [("num_classes", 81), ("resolution", 14)],
+                             ["MaskRois", "RoiHasMaskInt32", "MaskInt32"],
+                             True),
+    "collect_fpn_proposals": ("collect_fpn_proposals",
+                              [("multi_rois", "MultiLevelRois", 1),
+                               ("multi_scores", "MultiLevelScores", 1)],
+                              [("post_nms_top_n", 100)],
+                              ["FpnRois"], True),
+    "distribute_fpn_proposals": ("distribute_fpn_proposals",
+                                 [("fpn_rois", "FpnRois", 1)],
+                                 [("min_level", 2), ("max_level", 5),
+                                  ("refer_level", 4), ("refer_scale", 224)],
+                                 ["MultiFpnRois", "RestoreIndex"], True),
+    "polygon_box_transform": ("polygon_box_transform",
+                              [("input", "Input", 1)], [],
+                              ["Output"], True),
 }
 
 

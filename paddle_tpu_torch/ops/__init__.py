@@ -2,6 +2,6 @@
 ``core/registry.py``. Each module mirrors the JAX package's module of
 the same name; only the ops the training path runs are here."""
 
-from . import (beam, collective, control, fused, lod,  # noqa: F401
-               loss_ext, math, metrics, misc, moe, nn, optim, quant, random,
-               rnn, sequence, tensor, vision3d)
+from . import (beam, collective, control, detection,  # noqa: F401
+               detection2, fused, lod, loss_ext, math, metrics, misc, moe,
+               nn, optim, quant, random, rnn, sequence, tensor, vision3d)

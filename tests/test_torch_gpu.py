@@ -2569,3 +2569,78 @@ def test_dygraph_guard_with_no_place():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             with dg.guard():
                 pass
+
+
+def _det_op(**attrs):
+    class _Op:
+        pass
+
+    op = _Op()
+    op.attrs = dict(attrs, op_ident=1)
+    return op
+
+
+def test_multiclass_nms_on_cuda_matches_the_cpu(cuda):
+    """The batched greedy NMS on the card picks the CPU's boxes: rows,
+    box indices and counts equal, exactly tied scores included."""
+    from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
+
+    rng = np.random.RandomState(8)
+    B, C, M = 3, 6, 1500
+    xy = rng.rand(B, M, 2) * 0.85
+    boxes = np.concatenate([xy, xy + rng.rand(B, M, 2) * 0.15 + 0.01],
+                           -1).astype(np.float32)
+    scores = rng.rand(B, C, M).astype(np.float32)
+    scores[:, :, ::7] = 0.5          # exact ties across boxes and classes
+    op = _det_op(background_label=0, score_threshold=0.05,
+                 nms_threshold=0.45, keep_top_k=40, nms_eta=0.95)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ins = {"BBoxes": [torch.from_numpy(boxes).to(dev)],
+               "Scores": [torch.from_numpy(scores).to(dev)]}
+        r = get_op_def("multiclass_nms2").lower(LoweringContext(dev), op, ins)
+        outs[dev] = {k: v[0].cpu().numpy() for k, v in r.items()}
+    for k in ("Index", "NmsRoisNum"):
+        np.testing.assert_array_equal(outs["cuda"][k], outs["cpu"][k])
+    np.testing.assert_array_equal(outs["cuda"]["Out"][..., 0],
+                                  outs["cpu"]["Out"][..., 0])
+    np.testing.assert_allclose(outs["cuda"]["Out"], outs["cpu"]["Out"],
+                               rtol=1e-5, atol=1e-6)
+    assert (outs["cuda"]["NmsRoisNum"] == 40).all()
+
+
+def test_ssd_loss_dense_on_cuda_matches_the_cpu(cuda):
+    """ssd_loss_dense's loss and its Loc / Conf gradients, card against
+    CPU (rtol 1e-5 / 1e-4): the same positives and mined negatives."""
+    from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
+    import paddle_tpu_torch.models  # noqa: F401 (registers the op)
+
+    rng = np.random.RandomState(9)
+    B, P, G, C = 4, 2000, 5, 21
+    xy = rng.rand(P, 2) * 0.8
+    prior = np.concatenate([xy, xy + rng.rand(P, 2) * 0.2 + 0.02],
+                           -1).astype(np.float32)
+    gxy = rng.rand(B, G, 2) * 0.6
+    gt = np.concatenate([gxy, gxy + rng.rand(B, G, 2) * 0.3 + 0.1],
+                        -1).astype(np.float32)
+    label = rng.randint(0, C, (B, G)).astype(np.int64)
+    loc = (rng.randn(B, P, 4) * 0.5).astype(np.float32)
+    conf = rng.randn(B, P, C).astype(np.float32)
+    pvar = np.tile(np.array([0.1, 0.1, 0.2, 0.2], np.float32), (P, 1))
+    op = _det_op(overlap_threshold=0.5, neg_pos_ratio=3.0)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        l = torch.from_numpy(loc).to(dev).requires_grad_()
+        c = torch.from_numpy(conf).to(dev).requires_grad_()
+        ins = {"Loc": [l], "Conf": [c],
+               "GtBox": [torch.from_numpy(gt).to(dev)],
+               "GtLabel": [torch.from_numpy(label).to(dev)],
+               "Prior": [torch.from_numpy(prior).to(dev)],
+               "PVar": [torch.from_numpy(pvar).to(dev)]}
+        loss = get_op_def("ssd_loss_dense").lower(LoweringContext(dev), op,
+                                                  ins)["Loss"][0]
+        gl, gc = torch.autograd.grad(loss.sum(), [l, c])
+        res[dev] = [t.detach().cpu().numpy() for t in (loss, gl, gc)]
+    np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-5)
+    for a, b in zip(res["cpu"][1:], res["cuda"][1:]):
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-7)

@@ -182,5 +182,25 @@ def test_evaluators_accumulate_like_jax(kind):
 
 
 def test_detection_map_is_refused_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        fluid.evaluator.DetectionMAP(None, None, None)
+    """Once refused by name, ``DetectionMAP`` is ported with the
+    detection slice: two batches of hand-made detections give JAX's
+    per-batch mAPs and their host-side mean."""
+    from test_torch_ssd import detection_map_both
+
+    dets = np.array([[[1, 0.9, 0.1, 0.1, 0.5, 0.5],
+                      [2, 0.8, 0.5, 0.5, 0.9, 0.9],
+                      [1, 0.4, 0.6, 0.1, 0.9, 0.4],
+                      [-1, 0, 0, 0, 0, 0]],
+                     [[2, 0.7, 0.2, 0.2, 0.6, 0.7],
+                      [2, 0.6, 0.0, 0.0, 0.3, 0.3],
+                      [1, 0.5, 0.5, 0.5, 0.8, 0.8],
+                      [1, 0.3, 0.1, 0.1, 0.4, 0.4]]], np.float32)
+    batch = {"gt_label": np.array([[1, 2, 0], [2, 1, 1]], np.int64),
+             "gt_box": np.array([[[0.1, 0.1, 0.5, 0.5], [0.5, 0.5, 0.9, 0.9],
+                                  [0, 0, 0, 0]],
+                                 [[0.2, 0.2, 0.6, 0.6], [0.5, 0.5, 0.8, 0.9],
+                                  [0.6, 0.0, 0.9, 0.3]]], np.float32)}
+    j, t = detection_map_both(dets, batch, 3)
+    np.testing.assert_allclose(t[1], j[1], rtol=1e-6)
+    np.testing.assert_allclose([t[0], t[2]], [j[0], j[2]], rtol=1e-6)
+    assert 0 < t[0] < 100
