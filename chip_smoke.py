@@ -6,7 +6,7 @@
                                      #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4,
                                      #   e1, e2 (+ grouped conv share), g2
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789abcdefghijkl), no result line
+                                        #   23456789abcdefghijklm), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -475,6 +475,25 @@ l. detection, TF32 off. l1: ``models.ssd.build_ssd(image_size=300,
    rois or a printed near-tie, pooled features within 1e-4 of the map's
    scale and, against a float64 CPU run on 100 rois, the card's error
    at most twice the float32 CPU's; ms of each op on the card.
+m. the rest of the layer surface, TF32 off. m1: the slice's lowerings
+   on the card against the CPU at the sweep's rows and the twins' cases
+   (``probes/m1_inputs.npz``, written by tests/test_torch_m1_inputs.py):
+   outputs and the gradients of the rows' grad slots within rtol 1e-4 /
+   atol 1e-5, integer, index and data-movement outputs exact; the random
+   ops by their statistics and own draws, the stateful ones (auc,
+   precision_recall, mean_iou, center_loss, average_accumulates) over 3
+   calls carrying their state, ``py_func`` / ``Print`` / the save and load
+   ops through the card's Executor. m2: CycleGAN's ResNet generator at
+   its published widths (c7s1-64, d128, d256, 9 x R256, u128, u64,
+   c7s1-3; reflection padding, instance norm, 11.38 M parameters) under
+   Adam(2e-4, beta1 0.5) with an L1 loss to a seeded target: (a) 128 x
+   128, 2 steps card against CPU: losses rtol 1e-3, parameters 2 * lr *
+   steps, one K10 a parameter a step; Adam's first moments within
+   relative L2 1e-4 on its tanh twin (relu flips at rounding level, the
+   CPU against itself printed); (b) 256 x 256, 10 steps over 2 cycled
+   images: losses fall; ms a step, images/s, kernels a step, idle share,
+   peak memory. m3: the heavy new ops at a user's sizes card against CPU
+   (an image of a batched op) and timed with CUDA events.
 
 Then the seconds each phase took, one JSON line of per-kernel numbers,
 the card line, and last ``{"ok": true, "device": {...}}``.
@@ -540,7 +559,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789abcdefghijkl"
+ALL_PHASES = "23456789abcdefghijklm"
 DEVICE = "cuda"
 
 
@@ -10118,6 +10137,9 @@ def l2_detect(torch, np, seed, card, scope, seen):
             "nms_candidates": n_cand, "cpu_forward_s": cpu_s}
 
 
+HOLD_RTOL, HOLD_ATOL = 1e-4, 1e-5   # a lowering on the card against the CPU
+
+
 class _LOp:
     """An op for a direct lowering call: its type, attrs and ident."""
 
@@ -10203,34 +10225,76 @@ def l3_cases(np):
     ]
 
 
-def l_lower(torch, op_type, attrs, ins, dev, grads=(), seed=0):
-    """One lowering on ``dev``: its outputs and, for the ``grads`` slots,
-    the gradients of a seeded weighted sum of its float outputs."""
+def lower_op(torch, op_type, attrs, ins, dev, grads=(), seed=0, ident=1,
+            per_image=False):
+    """One lowering on ``dev`` over ``ins`` ({slot: [arrays or tensors]}):
+    its tensor outputs and, for the ``grads`` slots, the gradients of a
+    seeded weighted sum of its float outputs (weights drawn on the CPU;
+    with ``per_image`` one weight array an output's image, the same for
+    every image, so that an image's gradient does not depend on the
+    batch it is in)."""
     from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
 
     tins, leaves = {}, []
-    for slot, a in ins.items():
-        t = torch.as_tensor(a, device=dev)
-        if slot in grads:
-            t = t.clone().requires_grad_()
-            leaves.append(t)
-        tins[slot] = [t]
+    for slot, arrs in ins.items():
+        tins[slot] = []
+        for a in arrs:
+            t = torch.as_tensor(a, device=dev)
+            if slot in grads and t.is_floating_point():
+                t = t.clone().requires_grad_()
+                leaves.append((slot, len(tins[slot]), t))
+            tins[slot].append(t)
+    op = _LOp(op_type, attrs)
+    op.attrs["op_ident"] = ident
     with torch.enable_grad():
-        outs = get_op_def(op_type).lower(LoweringContext(dev),
-                                         _LOp(op_type, attrs), tins)
+        outs = get_op_def(op_type).lower(LoweringContext(dev, seed=seed), op,
+                                         tins)
         flat = [(s, k, v) for s, vs in sorted(outs.items())
                 for k, v in enumerate(vs) if isinstance(v, torch.Tensor)]
         res = {f"{s}_{k}": v.detach().cpu() for s, k, v in flat}
         if leaves:
             g = torch.Generator().manual_seed(seed)
-            terms = [(v * torch.randn(v.shape, generator=g).to(dev)).sum()
-                     for _, _, v in flat
-                     if v.is_floating_point() and v.requires_grad]
-            gs = torch.autograd.grad(sum(terms), leaves, allow_unused=True)
-            for slot, gr in zip([s for s in ins if s in grads], gs):
-                res[f"{slot}@GRAD"] = (gr if gr is not None else
-                                       torch.zeros(ins[slot].shape)).cpu()
+            terms = [(v * torch.randn(v.shape[1:] if per_image else v.shape,
+                                      generator=g).to(
+                device=dev, dtype=v.dtype)).sum()
+                for _, _, v in flat if v.is_floating_point()
+                and v.requires_grad]
+            gs = torch.autograd.grad(sum(terms), [t for *_, t in leaves],
+                                     allow_unused=True)
+            for (slot, k, t), gr in zip(leaves, gs):
+                res[f"{slot}@GRAD_{k}"] = (gr if gr is not None
+                                           else torch.zeros_like(t)).cpu()
     return res
+
+
+def hold_to_cpu(torch, what, got, want, exact=False):
+    """Card against CPU: integer and bool outputs and (``exact``) every
+    forward output bit for bit, the rest within HOLD_RTOL / HOLD_ATOL.
+    Returns the largest float error."""
+    require(sorted(got) == sorted(want), f"{what}: outputs {sorted(got)} "
+            f"on the card, {sorted(want)} on the CPU")
+    worst = 0.0
+    for k in want:
+        a, b = got[k], want[k]
+        require(a.shape == b.shape and a.dtype == b.dtype,
+                f"{what} {k}: {a.dtype}{tuple(a.shape)} on the card, "
+                f"{b.dtype}{tuple(b.shape)} on the CPU")
+        if not b.is_floating_point() or (exact and "@GRAD" not in k):
+            require(torch.equal(a, b), f"{what} {k}: differs from the CPU")
+            continue
+        fin = torch.isfinite(b)
+        require(torch.equal(fin, torch.isfinite(a)),
+                f"{what} {k}: non-finite values differ")
+        a, b = a.double()[fin], b.double()[fin]
+        if a.numel() == 0:
+            continue
+        err = (a - b).abs()
+        bad = err > HOLD_ATOL + HOLD_RTOL * b.abs()
+        require(not bool(bad.any()), f"{what} {k}: {int(bad.sum())} values "
+                f"outside rtol {HOLD_RTOL} / atol {HOLD_ATOL}; max_abs_err "
+                f"{float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+    return worst
 
 
 def l3_ops(torch, np, card):
@@ -10241,21 +10305,11 @@ def l3_ops(torch, np, card):
 
     worst = {}
     for op_type, ins, attrs, grads in l3_cases(np):
-        a = l_lower(torch, op_type, attrs, ins, "cpu", grads)
-        b = l_lower(torch, op_type, attrs, ins, DEVICE, grads)
-        err = 0.0
-        for k in a:
-            x, y = a[k].double(), b[k].double()
-            require(x.shape == y.shape, f"l3 {op_type} {k}: shapes "
-                    f"{tuple(y.shape)} / {tuple(x.shape)}")
-            if not a[k].is_floating_point():
-                require(torch.equal(a[k], b[k]), f"l3 {op_type} {k} differs")
-                continue
-            excess = float(((y - x).abs() - (1e-5 + 1e-4 * x.abs())).max())
-            require(excess <= 0, f"l3 {op_type} {k}: card vs CPU beyond "
-                    f"rtol 1e-4 / atol 1e-5 (by {excess:.3e})")
-            err = max(err, float((y - x).abs().max()))
-        worst[op_type] = err
+        ins = {s: [a] for s, a in ins.items()}
+        worst[op_type] = hold_to_cpu(
+            torch, f"l3 {op_type}",
+            lower_op(torch, op_type, attrs, ins, DEVICE, grads),
+            lower_op(torch, op_type, attrs, ins, "cpu", grads))
     log(f"  l3: the 10 differentiable detection lowerings, forward and "
         f"backward card vs CPU, max abs error {worst}")
 
@@ -10396,6 +10450,588 @@ def phase_l(torch, np, seed, card, out_dir):
     rec["seconds"] = time.perf_counter() - t
     log(f"  phase l took {rec['seconds']:.1f} s")
     return {"ssd_train": counts}, rec
+
+
+# -- phase m: the rest of the layer surface --------------------------------------
+
+M_INPUTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "probes",
+                        "m1_inputs.npz")
+# data movement and selection: the card's forward outputs equal the CPU's
+M_EXACT = {"reshape", "transpose", "tile", "top_k_v2", "pad2d", "reverse",
+           "crop", "crop_tensor", "multiplex", "partial_concat", "diag",
+           "eye", "fill", "fill_any_like", "pad_constant_like", "squeeze",
+           "unsqueeze", "maxout", "pool_with_index", "pixel_shuffle",
+           "space_to_depth", "temporal_shift", "unfold", "shuffle_channel",
+           "nearest_interp", "interp_nearest", "similarity_focus",
+           "filter_by_instag", "expand_pred_like", "logical_print_stub",
+           "print", "brelu", "fill_zeros_like2"}
+M_LR, M_BETA1 = 2e-4, 0.5           # CycleGAN's Adam
+M_NGF, M_BLOCKS = 64, 9             # c7s1-64, d128, d256, 9 x R256, u128,
+                                    # u64, c7s1-3
+M_GATE_SIZE, M_GATE_STEPS = 128, 2
+M_RUN_SIZE, M_RUN_STEPS = 256, 10
+
+
+def m_generator(fluid, size, batch=1, ngf=M_NGF, n_blocks=M_BLOCKS,
+                lr=M_LR, act="relu"):
+    """CycleGAN's ResNet generator (Zhu et al. 2017, appendix) as a Program
+    of layers both packages export: c7s1-ngf (reflection pad 3, 7 x 7
+    convolution, instance norm, relu), two stride-2 3 x 3 downsamplings,
+    ``n_blocks`` residual blocks of two reflection-padded 3 x 3
+    convolutions, two stride-2 3 x 3 transposed convolutions to twice the
+    size, c7s1-3 and tanh; an L1 loss to a target image, Adam(lr, beta1
+    0.5). A convolution an instance norm follows has no bias (the norm
+    takes out any constant; its gradient would be rounding noise, which
+    Adam scales to a full step). ``act`` names the activation layer
+    (relu, as published; m2 (a)'s smooth twin takes tanh). Returns (main,
+    startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        L = fluid.layers
+        shape = [batch, 3, size, size]
+        x = L.data("image", shape, append_batch_size=False)
+        target = L.data("target", shape, append_batch_size=False)
+
+        activation = getattr(L, act)
+
+        def block(h, nf, k, stride, pad, reflect, relu=True):
+            if reflect:
+                h = L.pad2d(h, [pad] * 4, mode="reflect")
+            h = L.conv2d(h, nf, k, stride=stride,
+                         padding=0 if reflect else pad, bias_attr=False)
+            h = L.instance_norm(h)
+            return activation(h) if relu else h
+
+        h = block(x, ngf, 7, 1, 3, True)
+        h = block(h, ngf * 2, 3, 2, 1, False)
+        h = block(h, ngf * 4, 3, 2, 1, False)
+        for _ in range(n_blocks):
+            r = block(h, ngf * 4, 3, 1, 1, True)
+            h = L.elementwise_add(h, block(r, ngf * 4, 3, 1, 1, True,
+                                           relu=False))
+        for nf in (ngf * 2, ngf):
+            up = 2 * int(h.shape[2])
+            h = L.conv2d_transpose(h, nf, output_size=[up, up], filter_size=3,
+                                   stride=2, padding=1, bias_attr=False)
+            h = activation(L.instance_norm(h))
+        h = L.pad2d(h, [3] * 4, mode="reflect")
+        out = L.tanh(L.conv2d(h, 3, 7))
+        loss = L.reduce_mean(L.abs(L.elementwise_sub(out, target)))
+        fluid.optimizer.AdamOptimizer(lr, beta1=M_BETA1).minimize(loss)
+    return main, startup, loss
+
+
+def m_images(np, seed, n, size, batch=1):
+    """``n`` (image, target) feeds: a seeded image in [-1, 1] and its
+    target, a smooth seeded pattern in [-0.9, 0.9]."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, size), np.linspace(0, 1, size),
+                         indexing="ij")
+    feeds = []
+    for _ in range(n):
+        img = rng.uniform(-1, 1, (batch, 3, size, size)).astype(np.float32)
+        f = rng.uniform(1, 4, (batch, 3, 1, 1))
+        ph = rng.uniform(0, np.pi, (batch, 3, 1, 1))
+        tgt = 0.9 * np.sin(f * np.pi * (xx + yy)[None, None] + ph)
+        feeds.append({"image": img, "target": tgt.astype(np.float32)})
+    return feeds
+
+
+def m_cases(np):
+    """{case: (op, {slot: [arrays]}, attrs, grad slots)} of
+    ``probes/m1_inputs.npz``: the sweep rows and the twins' cases
+    (tests/test_torch_m1_inputs.py writes it)."""
+    require(os.path.exists(M_INPUTS), f"m1: {M_INPUTS} is missing")
+    out = {}
+    with np.load(M_INPUTS) as z:
+        for case, c in json.loads(str(z["__cases__"])).items():
+            ins = {s: [z[f"{case}/{s}/{i}"] for i in range(n)]
+                   for s, n in c["inputs"].items()}
+            out[case] = (c["op"], ins, c["attrs"], c["grads"])
+    return out
+
+
+def m1_lowerings(torch, np, seed):
+    """m1: every lowering of the slice on the card against the CPU."""
+    cases = m_cases(np)
+    worst, ops = {}, set()
+    for case, (op, ins, attrs, grads) in sorted(cases.items()):
+        got = lower_op(torch, op, attrs, ins, DEVICE, grads, seed)
+        want = lower_op(torch, op, attrs, ins, "cpu", grads, seed)
+        worst[case] = hold_to_cpu(torch, f"m1 {case}", got, want,
+                             exact=op in M_EXACT)
+        ops.add(op)
+    torch.cuda.synchronize()
+    rec = {"cases": len(cases), "ops": len(ops),
+           "max_abs_err": max(worst.values()),
+           "worst_case": max(worst, key=worst.get)}
+    rec["random"] = m1_random(torch, np, seed)
+    rec["stateful"] = m1_stateful(torch, np, seed)
+    rec["host"] = m1_host(torch, np, seed)
+    log(f"  m1: {len(cases)} cases over {len(ops)} lowerings card against "
+        f"CPU (rtol {HOLD_RTOL} / atol {HOLD_ATOL}, integer and data-movement "
+        f"outputs exact): max_abs_err {rec['max_abs_err']:.3e} "
+        f"({rec['worst_case']})")
+    return rec
+
+
+def m1_random(torch, np, seed):
+    """The random lowerings on the card, by their statistics and their
+    own draws."""
+    rng = np.random.RandomState(seed)
+    out = {}
+
+    def run(op, ins, attrs, ident):
+        return lower_op(torch, op, attrs, ins, DEVICE, seed=seed, ident=ident)
+
+    x = rng.randn(64, 5).astype(np.float32)
+    r = run("shuffle_batch", {"X": [x]}, {}, 11)
+    perm = r["ShuffleIdx_0"].numpy()
+    require(sorted(perm.tolist()) == list(range(64))
+            and np.array_equal(r["Out_0"].numpy(), x[perm]),
+            "m1 shuffle_batch: the rows are not a permutation of X")
+    x = np.arange(2 * 3 * 9 * 8, dtype=np.float32).reshape(2, 3, 9, 8)
+    c = run("random_crop", {"X": [x]}, {"shape": [4, 5]}, 12)["Out_0"]
+    require(any(np.array_equal(c.numpy(), x[:, :, i:i + 4, j:j + 5])
+                for i in range(6) for j in range(4)),
+            "m1 random_crop: the output is not a window of X")
+    r = run("randint", {}, {"shape": [100, 50], "low": 2, "high": 7},
+            13)["Out_0"].numpy()
+    require(r.min() >= 2 and r.max() < 7 and len(np.unique(r)) == 5,
+            "m1 randint: values outside [2, 7) or missing")
+    t = run("truncated_gaussian_random", {}, {"shape": [400, 250]},
+            14)["Out_0"].numpy()
+    out["truncated_std"] = float(t.std())
+    require(np.abs(t).max() <= 2.0 and abs(t.mean()) < 0.02
+            and abs(t.std() - 0.8796) < 0.02,
+            f"m1 truncated_gaussian_random: max {np.abs(t).max():.3f}, "
+            f"mean {t.mean():.4f}, std {t.std():.4f} (0.8796 at +-2)")
+    u = run("uniform_random_batch_size_like",
+            {"Input": [rng.randn(50, 2).astype(np.float32)]},
+            {"shape": [1, 400], "min": -1.0, "max": 1.0}, 15)["Out_0"].numpy()
+    g = run("gaussian_random_batch_size_like",
+            {"Input": [rng.randn(64, 3).astype(np.float32)]},
+            {"shape": [0, 512], "mean": 1.0, "std": 2.0}, 16)["Out_0"].numpy()
+    require(u.shape == (50, 400) and u.min() >= -1 and u.max() <= 1
+            and abs(u.mean()) < 0.05 and g.shape == (64, 512)
+            and abs(g.mean() - 1) < 0.05 and abs(g.std() - 2) < 0.05,
+            "m1 *_batch_size_like: shape or moments off")
+    p = np.array([0.1, 0.0, 0.6, 0.3], np.float32)
+    ids = run("sampling_id", {"X": [np.tile(p, (20000, 1))]}, {},
+              17)["Out_0"].numpy()
+    freq = np.bincount(ids, minlength=4) / 20000.0
+    require(np.all(np.abs(freq - p) <= 4 * np.sqrt(p * (1 - p) / 20000)
+                   + 1e-9) and freq[1] == 0,
+            f"m1 sampling_id: frequencies {freq} for {p}")
+    out["sampling_id_freq"] = freq.tolist()
+    logits = rng.randn(6, 12).astype(np.float32)
+    labels = rng.randint(0, 12, (6, 2)).astype(np.int64)
+    r = run("sample_logits", {"Logits": [logits], "Labels": [labels]},
+            {"num_samples": 5}, 18)
+    samples = r["Samples_0"].numpy()
+    want = np.take_along_axis(logits, samples, 1)
+    hit = (samples[:, None, 2:] == labels[:, :, None]).any(1)
+    want[:, 2:][hit] = -1e20
+    require(np.array_equal(samples[:, :2], labels)
+            and np.array_equal(r["SampledLogits_0"].numpy(), want),
+            "m1 sample_logits: not recomputed from its own samples")
+    return out
+
+
+def m1_stateful(torch, np, seed):
+    """The stateful lowerings over 3 calls, each device carrying its own
+    state: every call card against CPU."""
+    rng = np.random.RandomState(seed + 1)
+    specs = {
+        "auc": ({"StatPos": np.zeros((1, 4096), np.float32),
+                 "StatNeg": np.zeros((1, 4096), np.float32)},
+                lambda: {"Predict": rng.rand(500, 2).astype(np.float32),
+                         "Label": rng.randint(0, 2, (500, 1))},
+                {"num_thresholds": 4095},
+                {"StatPosOut": "StatPos", "StatNegOut": "StatNeg"}),
+        "precision_recall": (
+            {"StatesInfo": np.zeros((5, 4), np.float32)},
+            lambda: {"MaxProbs": rng.rand(40, 1).astype(np.float32),
+                     "Indices": rng.randint(0, 5, (40, 1)),
+                     "Labels": rng.randint(0, 5, (40, 1)),
+                     "Weights": np.ones((40, 1), np.float32)},
+            {"class_number": 5}, {"AccumStatesInfo": "StatesInfo"}),
+        "mean_iou": ({"InWrongs": np.zeros(6, np.float32),
+                      "InCorrects": np.zeros(6, np.float32)},
+                     lambda: {"Predictions": rng.randint(0, 6, 64),
+                              "Labels": rng.randint(0, 6, 64)},
+                     {"num_classes": 6},
+                     {"OutWrong": "InWrongs", "OutCorrect": "InCorrects"}),
+        "center_loss": ({"Centers": rng.randn(4, 8).astype(np.float32)},
+                        lambda: {"X": rng.randn(16, 8).astype(np.float32),
+                                 "Label": rng.randint(0, 4, (16, 1)),
+                                 "CenterUpdateRate": np.full(1, 0.5,
+                                                             np.float32)},
+                        {"need_update": True}, {"CentersOut": "Centers"}),
+        "average_accumulates": (
+            {"in_sum_1": np.zeros(64, np.float32),
+             "in_sum_2": np.zeros(64, np.float32),
+             "in_sum_3": np.zeros(64, np.float32),
+             "in_num_accumulates": np.zeros(1, np.int64),
+             "in_old_num_accumulates": np.zeros(1, np.int64),
+             "in_num_updates": np.zeros(1, np.int64)},
+            lambda: {"param": rng.randn(64).astype(np.float32)},
+            {"average_window": 1.0, "max_average_window": 2,
+             "min_average_window": 1},
+            {f"out_{s}": f"in_{s}" for s in (
+                "sum_1", "sum_2", "sum_3", "num_accumulates",
+                "old_num_accumulates", "num_updates")}),
+    }
+    worst = {}
+    for op, (state0, feed, attrs, carry) in specs.items():
+        state = {d: dict(state0) for d in (DEVICE, "cpu")}
+        worst[op] = 0.0
+        for call in range(3):
+            f = feed()
+            res = {}
+            for dev in (DEVICE, "cpu"):
+                ins = {s: [np.asarray(v)] for s, v in dict(f, **state[dev])
+                       .items()}
+                res[dev] = lower_op(torch, op, attrs, ins, dev, seed=seed)
+                for o, i in carry.items():
+                    state[dev][i] = res[dev][f"{o}_0"].numpy()
+            worst[op] = max(worst[op], hold_to_cpu(
+                torch, f"m1 {op} call {call + 1}", res[DEVICE], res["cpu"]))
+    return worst
+
+
+def m1_host(torch, np, seed):
+    """``py_func`` (forward and its backward_func), ``Print`` and the
+    in-Program ``save`` / ``load`` / ``save_combine`` / ``load_combine``
+    run by the card's Executor."""
+    import paddle_tpu_torch as fluid
+
+    rng = np.random.RandomState(seed + 2)
+    xv = rng.randn(4, 3).astype(np.float32)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        L = fluid.layers
+        x = L.data("x", [4, 3], append_batch_size=False, stop_gradient=False)
+        out = main.global_block().create_var(name="pf_out", shape=(4, 3),
+                                             dtype="float32",
+                                             stop_gradient=False)
+        L.py_func(lambda a: np.tanh(a) * 2.0, x, out,
+                  backward_func=lambda a, g: 2.0 * (1 - np.tanh(a) ** 2) * g)
+        shown = L.Print(out, message="m1 Print of the py_func output:")
+        loss = L.reduce_sum(shown)
+        gx, = fluid.gradients(loss, [x])
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    y, g = exe.run(main, feed={"x": xv}, fetch_list=[out, gx],
+                   scope=fluid.Scope())
+    require(np.allclose(y, np.tanh(xv) * 2, rtol=1e-6, atol=1e-6)
+            and np.allclose(g, 2 * (1 - np.tanh(xv) ** 2), rtol=1e-6,
+                            atol=1e-6), "m1 py_func: forward or backward off")
+    d = tempfile.mkdtemp(prefix="m1_persist_")
+    try:
+        a = rng.randn(3, 5).astype(np.float32)
+        b = rng.randint(0, 9, (7,)).astype(np.int64)
+        main = fluid.Program()
+        with fluid.program_guard(main):
+            blk = main.global_block()
+            av = blk.create_var(name="a", shape=(3, 5), dtype="float32",
+                                is_data=True)
+            bv = blk.create_var(name="b", shape=(7,), dtype="int64",
+                                is_data=True)
+            blk.append_op(type="save", inputs={"X": [av]}, outputs={},
+                          attrs={"file_path": os.path.join(d, "a")})
+            blk.append_op(type="save_combine", inputs={"X": [av, bv]},
+                          outputs={}, attrs={"file_path": os.path.join(
+                              d, "ab")})
+        exe.run(main, feed={"a": a, "b": b}, fetch_list=[])
+        main = fluid.Program()
+        with fluid.program_guard(main):
+            blk = main.global_block()
+            r1 = blk.create_var(name="r1")
+            blk.append_op(type="load", inputs={}, outputs={"Out": [r1]},
+                          attrs={"file_path": os.path.join(d, "a"),
+                                 "shape": [3, 5], "dtype": "float32"})
+            ra, rb = blk.create_var(name="a"), blk.create_var(name="b")
+            blk.append_op(type="load_combine", inputs={},
+                          outputs={"Out": [ra, rb]},
+                          attrs={"file_path": os.path.join(d, "ab"),
+                                 "shape": [[3, 5], [7]],
+                                 "dtype": ["float32", "int64"]})
+        got = exe.run(main, feed={}, fetch_list=[r1, ra, rb])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    require(np.array_equal(got[0], a) and np.array_equal(got[1], a)
+            and np.array_equal(got[2], b) and got[2].dtype == np.int64,
+            "m1 save / load: the round trip changed the values")
+    return {"py_func": True, "persist": True}
+
+
+def m2_pair(torch, np, seed, act, perturb=False):
+    """The generator at 128 x 128 (activation ``act``), 2 Adam steps from
+    the CPU startup's values on the card and on the CPU, and with
+    ``perturb`` a second CPU run from those values times (1 + 1e-7 x a
+    seeded normal): the CPU against itself at float32 rounding. Returns
+    (record, startup values)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.io import load_scope_arrays
+
+    main, startup, loss = m_generator(fluid, M_GATE_SIZE, act=act)
+    main.random_seed = startup.random_seed = seed
+    params = main.all_parameters()
+    n_adam = [op.type for op in main.global_block().ops].count("fused_adam")
+    require(n_adam == len(params), f"m2: {n_adam} fused_adam ops for "
+            f"{len(params)} parameters")
+    cpu = fluid.Executor(fluid.CPUPlace())
+    scopes = {"cpu": fluid.Scope()}
+    cpu.run(startup, scope=scopes["cpu"])
+    init = {v.name: np.array(scopes["cpu"].get_numpy(v.name))
+            for v in main.list_vars() if v.persistable and not v.is_data}
+    gpu = fluid.Executor(fluid.CUDAPlace(0))
+    scopes["cuda"] = fluid.Scope()
+    gpu.run(startup, scope=scopes["cuda"])
+    load_scope_arrays(scopes["cuda"], init, main, DEVICE)
+    runs = [("cuda", gpu), ("cpu", cpu)]
+    if perturb:
+        rng = np.random.RandomState(seed)
+        names = {p.name for p in params}
+        scopes["cpu_perturbed"] = fluid.Scope()
+        cpu.run(startup, scope=scopes["cpu_perturbed"])
+        load_scope_arrays(scopes["cpu_perturbed"], {
+            n: (v * (1 + 1e-7 * rng.randn(*v.shape))).astype(v.dtype)
+            if n in names else v for n, v in init.items()}, main, "cpu")
+        runs.append(("cpu_perturbed", cpu))
+    feeds = m_images(np, seed, M_GATE_STEPS, M_GATE_SIZE)
+    losses, secs = {}, {}
+    for name, exe in runs:
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        losses[name] = [float(np.asarray(exe.run(
+            main, feed=f, fetch_list=[loss], scope=scopes[name])[0])
+            .reshape(-1)[0]) for f in feeds]
+        secs[name] = time.perf_counter() - t
+        if name == "cuda":
+            counts = K.launch_counts()
+
+    def gaps(a, b):
+        rel = max(abs(x - y) / abs(y) for x, y in zip(losses[a], losses[b]))
+        worst = max((float(np.abs(scopes[a].get_numpy(p.name)
+                                  - scopes[b].get_numpy(p.name)).max()),
+                     p.name) for p in params)
+        return rel, worst, j_moment_gap(main, scopes[a], scopes[b])
+
+    rel, (worst, worst_name), (m1, m1_name) = gaps("cuda", "cpu")
+    rec = {"losses": losses, "loss_rel_err": rel, "param_max_abs_err": worst,
+           "param_limit": 2 * M_LR * M_GATE_STEPS, "moment_rel_l2": m1,
+           "moment_worst": m1_name, "n_parameters": len(params),
+           "n_values": sum(int(np.prod(p.shape)) for p in params),
+           "launches": {k: v for k, v in counts.items() if v},
+           "card_s": secs["cuda"], "cpu_s": secs["cpu"]}
+    msg = (f"  m2 (a) {act}, {M_GATE_SIZE}^2, {M_GATE_STEPS} steps: card "
+           f"{losses['cuda']} ({secs['cuda']:.1f} s), CPU {losses['cpu']} "
+           f"({secs['cpu']:.1f} s); losses within {rel:.3e}, parameters "
+           f"{worst:.3e} ({worst_name}), first moments {m1:.3e} ({m1_name},"
+           f" relative L2)")
+    if perturb:
+        prel, (pworst, _), (pm1, pm1_name) = gaps("cpu_perturbed", "cpu")
+        rec["cpu_perturbed"] = {"loss_rel_err": prel,
+                                "param_max_abs_err": pworst,
+                                "moment_rel_l2": pm1, "moment_worst": pm1_name}
+        msg += (f"; the CPU against itself from a start 1e-7 off: losses "
+                f"{prel:.3e}, parameters {pworst:.3e}, first moments "
+                f"{pm1:.3e} ({pm1_name})")
+    log(msg + f"; launches {rec['launches']}")
+    j_require_launches(counts, {"fused_adam_update": n_adam * M_GATE_STEPS},
+                       f"m2 (a) {act}")
+    require(rel <= 1e-3, f"m2 (a) {act}: card vs CPU losses differ by "
+            f"{rel:.3e}")
+    require(worst <= rec["param_limit"], f"m2 (a) {act}: parameter "
+            f"{worst_name} differs by {worst:.3e} > 2 * lr * steps = "
+            f"{rec['param_limit']:.1e}")
+    return rec, init
+
+
+def m2_gate(torch, np, seed, card):
+    """m2 (a): the generator at 128 x 128, 2 Adam steps card against CPU:
+    losses within rtol 1e-3, parameters within 2 lr steps, exactly one
+    K10 a parameter a step. Adam's first moments within relative L2 1e-4
+    are held on the smooth twin (tanh where the published network has
+    relu): with relu a rounding-level change flips a few activations at
+    their kink, and each flip moves a 32 x 32 map's weight gradient by
+    about 1/32 of its norm, so the CPU differs from itself by 1e-3 to 1e-2
+    (printed beside the card's) and no device can be held closer.
+    Returns (record, the relu generator's startup values)."""
+    import paddle_tpu_torch as fluid
+
+    fluid.set_flags({"optimizer_fuse": "on"})
+    rec, init = m2_pair(torch, np, seed, "relu", perturb=True)
+    log(f"  m2: CycleGAN ResNet generator, ngf {M_NGF}, {M_BLOCKS} residual "
+        f"blocks: {rec['n_parameters']} parameters ({rec['n_values']} "
+        f"values)")
+    smooth, _ = m2_pair(torch, np, seed, "tanh")
+    require(smooth["moment_rel_l2"] <= 1e-4,
+            f"m2 (a) tanh: first moments differ by "
+            f"{smooth['moment_rel_l2']:.3e} (relative L2) > 1e-4")
+    rec["smooth_twin"] = smooth
+    return rec, init
+
+
+def m2_train(torch, np, seed, card, out_dir, init):
+    """m2 (b): 256 x 256, 10 steps over 2 cycled seeded images on the card
+    from the gate's startup values (the size-free parameters)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.io import load_scope_arrays
+
+    main, startup, loss = m_generator(fluid, M_RUN_SIZE)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    load_scope_arrays(scope, init, main, DEVICE)
+    data = m_images(np, seed + 1, 2, M_RUN_SIZE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times = [], []
+    for i in range(M_RUN_STEPS):
+        t = time.perf_counter()
+        losses.append(float(np.asarray(exe.run(
+            main, feed=data[i % 2], fetch_list=[loss],
+            scope=scope)[0]).reshape(-1)[0]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    snap = {v.name: scope.find_var(v.name).clone() for v in main.list_vars()
+            if v.persistable and not v.is_data
+            and scope.find_var(v.name) is not None}
+    prof = start_profile(torch)
+    t = time.perf_counter()
+    exe.run(main, feed=data[0], fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    prof.__exit__(None, None, None)
+    for n, v in snap.items():
+        scope.set_var(n, v)
+    breakdown = trace_breakdown(prof, out_dir, "m2b", wall, steps=1)
+    step_ms = 1e3 * statistics.mean(times[1:])
+    n_params = len(main.all_parameters())
+    log(f"  m2 (b) {M_RUN_SIZE}^2, batch 1, {M_RUN_STEPS} steps: losses "
+        f"{losses}; {step_ms:.3f} ms a step (steps 2-10; first "
+        f"{1e3 * times[0]:.1f}), {1e3 / step_ms:.2f} images/s, "
+        f"{breakdown['kernels']} kernels a step (profiled), device idle "
+        f"{breakdown['device_idle_share']:.3f}, peak {peak:.2f} GB [{card}]")
+    require(all(np.isfinite(losses)), f"m2 (b): a loss is not finite: "
+            f"{losses}")
+    require(np.mean(losses[-3:]) < losses[0],
+            f"m2 (b): the last three losses do not fall below the first: "
+            f"{losses}")
+    j_require_launches(counts, {"fused_adam_update": n_params * M_RUN_STEPS},
+                       "m2 (b)")
+    return counts, {"losses": losses, "step_ms": step_ms,
+                    "first_step_ms": 1e3 * times[0],
+                    "images_s": 1e3 / step_ms,
+                    "kernels_a_step": breakdown["kernels"],
+                    "device_idle_share": breakdown["device_idle_share"],
+                    "device_busy_ms": breakdown["device_busy_ms"],
+                    "peak_gb": peak}
+
+
+def m3_heavy(torch, np, seed, card):
+    """m3: the heavy new lowerings at a user's sizes, card against CPU
+    (forward, and the gradient of a seeded weighted sum where the op is
+    differentiable; a batched op on its first image, which the others do
+    not touch), timed on the card with CUDA events (median of 21)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    ids = torch.randint(0, 65536, (1 << 20,), generator=gen, device=DEVICE)
+    theta = (torch.tensor([[0.9, -0.2, 0.05], [0.15, 1.1, -0.1]],
+                          device=DEVICE) + 0.05 * randn(8, 2, 3))
+    grid_ins = {"Theta": [theta.cpu().numpy()]}
+    grid = lower_op(torch, "affine_grid", {"output_shape": [8, 64, 64, 64]},
+                   grid_ins, DEVICE)["Output_0"]
+    cases = [
+        ("bilinear_interp", {"X": randn(8, 256, 64, 64)},
+         {"out_h": 256, "out_w": 256}, ("X",), True),
+        ("nearest_interp", {"X": randn(8, 256, 64, 64)},
+         {"out_h": 256, "out_w": 256}, ("X",), True),
+        ("affine_grid", {"Theta": theta}, {"output_shape": [8, 64, 64, 64]},
+         ("Theta",), True),
+        ("grid_sampler", {"X": randn(8, 64, 64, 64), "Grid": grid.to(DEVICE)},
+         {}, ("X",), True),
+        ("lrn", {"X": randn(32, 96, 55, 55)},
+         {"n": 5, "k": 2.0, "alpha": 1e-4, "beta": 0.75}, ("X",), True),
+        ("pixel_shuffle", {"X": randn(8, 256, 64, 64)},
+         {"upscale_factor": 2}, ("X",), True),
+        ("unfold", {"X": randn(8, 64, 56, 56)},
+         {"kernel_sizes": [3, 3], "paddings": [1, 1, 1, 1]}, ("X",), True),
+        ("instance_norm", {"X": randn(1, 256, 64, 64),
+                           "Scale": 1 + 0.1 * randn(256),
+                           "Bias": 0.1 * randn(256)},
+         {"epsilon": 1e-5}, ("X", "Scale", "Bias"), False),
+        ("hierarchical_sigmoid",
+         {"X": randn(256, 128), "W": 0.1 * randn(9999, 128),
+          "Label": torch.randint(0, 10000, (256, 1), generator=gen,
+                                 device=DEVICE),
+          "Bias": 0.1 * randn(9999)},
+         {"num_classes": 10000}, ("X", "W", "Bias"), False),
+        ("unique_with_counts", {"X": ids}, {}, (), False),
+        ("hash", {"X": ids[:, None]}, {"num_hash": 4, "mod_by": 1000003},
+         (), False),
+        ("auc", {"Predict": torch.rand(100000, 2, generator=gen,
+                                       device=DEVICE),
+                 "Label": torch.randint(0, 2, (100000, 1), generator=gen,
+                                        device=DEVICE),
+                 "StatPos": torch.zeros(1, 4096, device=DEVICE),
+                 "StatNeg": torch.zeros(1, 4096, device=DEVICE)},
+         {"num_thresholds": 4095}, (), False),
+    ]
+    from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
+
+    rec = {}
+    for op, ins, attrs, grads, batched in cases:
+        host = {s: [(t[:1] if batched else t).cpu()] for s, t in ins.items()}
+        got = lower_op(torch, op, attrs, {s: [t] for s, t in ins.items()},
+                      DEVICE, grads, seed, per_image=batched)
+        want = lower_op(torch, op, attrs, host, "cpu", grads, seed,
+                       per_image=batched)
+        if batched:
+            got = {k: v[:1] for k, v in got.items()}
+        err = hold_to_cpu(torch, f"m3 {op}", got, want,
+                     exact=op in ("nearest_interp", "pixel_shuffle",
+                                  "unfold"))
+        lop = _LOp(op, attrs)
+        tins = {s: [t] for s, t in ins.items()}
+        lower = get_op_def(op).lower
+        ctx = LoweringContext(DEVICE)
+        with torch.no_grad():
+            ms = device_ms(torch, lambda: lower(ctx, lop, tins))
+        rec[op] = {"ms": ms, "max_abs_err": err,
+                   "shapes": {s: list(t.shape) for s, t in ins.items()}}
+        log(f"  m3 {op} {rec[op]['shapes']}: {ms:.4f} ms on the card, card "
+            f"vs CPU max_abs_err {err:.3e} [{card}]")
+    return rec
+
+
+def phase_m(torch, np, seed, card, out_dir):
+    """Phase m: the rest of the layer surface. Returns (paths, record)."""
+    t0 = time.perf_counter()
+    rec = {"m1": m1_lowerings(torch, np, seed)}
+    rec["m1_seconds"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    gate, init = m2_gate(torch, np, seed, card)
+    counts, rec2 = m2_train(torch, np, seed, card, out_dir, init)
+    rec["m2"] = dict(rec2, gate=gate)
+    rec["m2_seconds"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rec["m3"] = m3_heavy(torch, np, seed, card)
+    rec["m3_seconds"] = time.perf_counter() - t
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"  phase m took {rec['seconds']:.1f} s (m1 {rec['m1_seconds']:.1f},"
+        f" m2 {rec['m2_seconds']:.1f}, m3 {rec['m3_seconds']:.1f})")
+    return {"cyclegan_train": counts}, rec
 
 
 def main(argv=None) -> int:
@@ -10694,6 +11330,15 @@ def main(argv=None) -> int:
         paths.update(lpaths)
         torch.cuda.empty_cache()
     mark("l")
+    if "m" in args.phases:
+        log("phase m: the rest of the layer surface (the new lowerings card "
+            "against CPU, a CycleGAN ResNet generator trained, the heavy "
+            "ops timed)")
+        mpaths, record["phase_m"] = phase_m(torch, np, args.seed, card,
+                                            args.out)
+        paths.update(mpaths)
+        torch.cuda.empty_cache()
+    mark("m")
     record["phase_seconds"] = phase_s
     log(f"seconds a phase: {phase_s} [{card}]")
     launches = {name: {p: c.get(name, 0) for p, c in paths.items()}
@@ -10703,7 +11348,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h, i, j, k and l)")
+        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h, i, j, k, l and m)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"

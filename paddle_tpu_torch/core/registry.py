@@ -85,9 +85,12 @@ class LoweringContext:
         self.pending: Dict[str, Any] = {}
         self.salt = dist.salt if dist is not None else None
 
-    def op_generator(self, op) -> torch.Generator:
+    def op_generator(self, op) -> Optional[torch.Generator]:
         """A fresh generator for this op in this run, seeded from (run
-        seed, step, op_ident). Grad ops reuse the forward's ident."""
+        seed, step, op_ident). Grad ops reuse the forward's ident. None
+        on the ``meta`` device (shape inference draws nothing)."""
+        if self.device.type == "meta":
+            return None
         ident = int(op.attrs.get("op_ident", 0) or 0)
         gen = torch.Generator(device=self.device)
         vals = [self.seed, self.step, ident]

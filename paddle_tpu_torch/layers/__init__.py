@@ -12,6 +12,8 @@ from .nn import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403
+from .py_func_registry import py_func
 from . import ops  # noqa: F401
+from . import distributions  # noqa: F401
 
 from .auto import *  # noqa: F401,F403

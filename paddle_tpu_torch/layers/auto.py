@@ -5,9 +5,8 @@ Reference: python/paddle/fluid/layers/{nn,detection,tensor,...}.py —
 hundreds of near-identical functions whose body is create_var +
 append_op. One spec row per layer generates a real function (a true
 positional / keyword signature via exec) that emits the op. The rows
-are the JAX package's (``paddle_tpu/layers/auto.py``) whose ops the port
-registers and which no hand-written layer of the port covers; the rows
-whose ops the port lacks are listed in ROADMAP A11.
+are the JAX package's (``paddle_tpu/layers/auto.py``) but those a
+hand-written layer of the port covers.
 
 Spec row: name: (op_type, [(arg, slot, required)], [(attr, default)],
 [outputs], stop_gradient) — a slot not required is fed only when its
@@ -369,6 +368,224 @@ _SPECS = {
     "polygon_box_transform": ("polygon_box_transform",
                               [("input", "Input", 1)], [],
                               ["Output"], True),
+    # the rest of the JAX package's rows (activations, image, tensor,
+    # random, loss and CTR layers)
+    "brelu": ("brelu",
+              [("x", "X", 1)],
+              [("t_min", 0.0), ("t_max", 24.0)],
+              ["Out"],
+              False),
+    "selu": ("selu",
+             [("x", "X", 1)],
+             [("scale", 1.0507009873554805), ("alpha", 1.6732632423543772)],
+             ["Out"],
+             False),
+    "size": ("size", [("input", "Input", 1)], [], ["Out"], True),
+    "reverse": ("reverse", [("x", "X", 1)], [("axis", 0)], ["Out"], False),
+    "lrn": ("lrn",
+            [("input", "X", 1)],
+            [("n", 5), ("k", 1.0), ("alpha", 0.0001), ("beta", 0.75)],
+            ["Out"],
+            False),
+    "label_smooth": ("label_smooth",
+                     [("label", "X", 1), ("prior_dist", "PriorDist", 0)],
+                     [("epsilon", 0.1)],
+                     ["Out"],
+                     False),
+    "pixel_shuffle": ("pixel_shuffle",
+                      [("x", "X", 1)],
+                      [("upscale_factor", 1)],
+                      ["Out"],
+                      False),
+    "space_to_depth": ("space_to_depth",
+                       [("x", "X", 1)],
+                       [("blocksize", 2)],
+                       ["Out"],
+                       False),
+    "temporal_shift": ("temporal_shift",
+                       [("x", "X", 1)],
+                       [("seg_num", 1), ("shift_ratio", 0.25)],
+                       ["Out"],
+                       False),
+    "unfold": ("unfold",
+               [("x", "X", 1)],
+               [("kernel_sizes", [3, 3]),
+                ("strides", [1, 1]),
+                ("paddings", [0, 0]),
+                ("dilations", [1, 1])],
+               ["Y"],
+               False),
+    "diag": ("diag", [("diagonal", "Diagonal", 1)], [], ["Out"], False),
+    "is_empty": ("is_empty", [("x", "X", 1)], [], ["Out"], True),
+    "isfinite": ("isfinite", [("x", "X", 1)], [], ["Out"], True),
+    "has_inf": ("has_inf", [("x", "X", 1)], [], ["Out"], True),
+    "has_nan": ("has_nan", [("x", "X", 1)], [], ["Out"], True),
+    "multiplex": ("multiplex",
+                  [("inputs", "X", 1), ("index", "Ids", 1)],
+                  [],
+                  ["Out"],
+                  False),
+    "scatter_nd_add": ("scatter_nd_add",
+                       [("ref", "X", 1),
+                        ("index", "Index", 1),
+                        ("updates", "Updates", 1)],
+                       [],
+                       ["Out"],
+                       False),
+    "unique": ("unique", [("x", "X", 1)], [], ["Out", "Index"], True),
+    "unique_with_counts": ("unique_with_counts",
+                           [("x", "X", 1)],
+                           [],
+                           ["Out", "Index", "Count"],
+                           True),
+    "sampling_id": ("sampling_id",
+                    [("x", "X", 1)],
+                    [("min", 0.0), ("max", 1.0), ("seed", 0)],
+                    ["Out"],
+                    True),
+    "random_crop": ("random_crop",
+                    [("x", "X", 1)],
+                    [("shape", []), ("seed", 0)],
+                    ["Out"],
+                    False),
+    "crop_tensor": ("crop_tensor",
+                    [("x", "X", 1)],
+                    [("shape", []), ("offsets", None)],
+                    ["Out"],
+                    False),
+    "uniform_random_batch_size_like": ("uniform_random_batch_size_like",
+                                       [("input", "Input", 1)],
+                                       [("shape", []),
+                                        ("min", -1.0),
+                                        ("max", 1.0),
+                                        ("seed", 0),
+                                        ("input_dim_idx", 0),
+                                        ("output_dim_idx", 0)],
+                                       ["Out"],
+                                       True),
+    "gaussian_random_batch_size_like": ("gaussian_random_batch_size_like",
+                                        [("input", "Input", 1)],
+                                        [("shape", []),
+                                         ("mean", 0.0),
+                                         ("std", 1.0),
+                                         ("seed", 0),
+                                         ("input_dim_idx", 0),
+                                         ("output_dim_idx", 0)],
+                                        ["Out"],
+                                        True),
+    "add_position_encoding": ("add_position_encoding",
+                              [("input", "X", 1)],
+                              [("alpha", 1.0), ("beta", 1.0)],
+                              ["Out"],
+                              False),
+    "pad_constant_like": ("pad_constant_like",
+                          [("x", "X", 1), ("y", "Y", 1)],
+                          [("pad_value", 0.0)],
+                          ["Out"],
+                          False),
+    "cos_sim": ("cos_sim", [("X", "X", 1), ("Y", "Y", 1)], [], ["Out"], False),
+    "rank_loss": ("rank_loss",
+                  [("label", "Label", 1),
+                   ("left", "Left", 1),
+                   ("right", "Right", 1)],
+                  [],
+                  ["Out"],
+                  False),
+    "margin_rank_loss": ("margin_rank_loss",
+                         [("label", "Label", 1),
+                          ("left", "X1", 1),
+                          ("right", "X2", 1)],
+                         [("margin", 0.1)],
+                         ["Out"],
+                         False),
+    "bpr_loss": ("bpr_loss",
+                 [("input", "X", 1), ("label", "Label", 1)],
+                 [],
+                 ["Out"],
+                 False),
+    "center_loss": ("center_loss",
+                    [("input", "X", 1),
+                     ("label", "Label", 1),
+                     ("centers", "Centers", 1),
+                     ("update_center", "CenterUpdateRate", 0)],
+                    [("cluster_num", 2), ("alpha", 0.1)],
+                    ["Loss"],
+                    False),
+    "teacher_student_sigmoid_loss": ("teacher_student_sigmoid_loss",
+                                     [("input", "X", 1),
+                                      ("label", "Label", 1)],
+                                     [("soft_max_up_bound", 15.0),
+                                      ("soft_max_lower_bound", -15.0)],
+                                     ["Y"],
+                                     False),
+    "mean_iou": ("mean_iou",
+                 [("input", "Predictions", 1), ("label", "Labels", 1)],
+                 [("num_classes", 2)],
+                 ["OutMeanIou", "OutWrong", "OutCorrect"],
+                 True),
+    "npair_loss": ("npair_loss",
+                   [("anchor", "Anchor", 1),
+                    ("positive", "Positive", 1),
+                    ("labels", "Labels", 1)],
+                   [("l2_reg", 0.002)],
+                   ["Out"],
+                   False),
+    "fsp_matrix": ("fsp", [("x", "X", 1), ("y", "Y", 1)], [], ["Out"], False),
+    "grid_sampler": ("grid_sampler",
+                     [("x", "X", 1), ("grid", "Grid", 1)],
+                     [],
+                     ["Output"],
+                     False),
+    "affine_grid": ("affine_grid",
+                    [("theta", "Theta", 1)],
+                    [("output_shape", [])],
+                    ["Output"],
+                    False),
+    "affine_channel": ("affine_channel",
+                       [("x", "X", 1),
+                        ("scale", "Scale", 1),
+                        ("bias", "Bias", 1)],
+                       [("data_layout", "NCHW")],
+                       ["Out"],
+                       False),
+    "data_norm": ("data_norm",
+                  [("input", "X", 1),
+                   ("batch_size", "BatchSize", 0),
+                   ("batch_sum", "BatchSum", 0),
+                   ("batch_square_sum", "BatchSquareSum", 0)],
+                  [("epsilon", 0.0001)],
+                  ["Y"],
+                  False),
+    "hash": ("hash",
+             [("input", "X", 1)],
+             [("num_hash", 1), ("mod_by", 65536)],
+             ["Out"],
+             True),
+    "hsigmoid": ("hierarchical_sigmoid",
+                 [("input", "X", 1),
+                  ("label", "Label", 1),
+                  ("weight", "W", 1),
+                  ("bias", "Bias", 0)],
+                 [("num_classes", 2)],
+                 ["Out", "PreOut"],
+                 False),
+    "similarity_focus": ("similarity_focus",
+                         [("input", "X", 1)],
+                         [("axis", 1), ("indexes", [0])],
+                         ["Out"],
+                         True),
+    "filter_by_instag": ("filter_by_instag",
+                         [("ins", "Ins", 1),
+                          ("ins_tag", "Ins_tag", 1),
+                          ("filter_tag", "Filter_tag", 1)],
+                         [("is_lod", True)],
+                         ["Out", "LossWeight", "IndexMap"],
+                         False),
+    "continuous_value_model": ("cvm",
+                               [("input", "X", 1), ("cvm", "CVM", 1)],
+                               [("use_cvm", True)],
+                               ["Y"],
+                               False),
 }
 
 

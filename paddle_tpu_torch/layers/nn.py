@@ -2,8 +2,9 @@
 ``paddle_tpu/layers/nn.py`` (Fluid's python/paddle/fluid/layers/nn.py):
 fc, embedding, the image layers (``conv2d``, ``conv2d_transpose``,
 ``pool2d``, ``adaptive_pool2d``, ``batch_norm``, ``group_norm``,
-``prelu``), the activations and
-unary math, the elementwise ops (a scalar operand on either side), the
+``instance_norm``, ``prelu``, ``maxout``, ``l2_normalize``,
+``shuffle_channel``, ``pad2d``, ``image_resize`` and its two forms,
+``shard_index``), the activations and unary math, the elementwise ops (a scalar operand on either side), the
 reductions, the shape and indexing layers (``flatten`` ... ``cumsum``)
 and the layers of ``paddle_tpu/layers/auto.py`` over the ops the port
 lowers (``sign``, ``logical_*``, ``sum``, ``mul``, ...). Each function
@@ -1302,3 +1303,153 @@ def merge_selected_rows(x, name=None):
 
 def get_tensor_from_selected_rows(x, name=None):
     return _emit("get_tensor_from_selected_rows", {"X": x}, {}, ["Out"], True)
+
+
+# -- the image, normalisation and index layers of paddle_tpu/layers/nn.py
+# (:606-1425) ------------------------------------------------------------------
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    """``paddle_tpu/layers/nn.py:606``: a scale (ones) and a bias a
+    channel."""
+    helper = LayerHelper("instance_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    c = input.shape[1]
+    s = helper.create_parameter(
+        helper.param_attr, [c], input.dtype,
+        default_initializer=ConstantInitializer(1.0))
+    b = helper.create_parameter(helper.bias_attr, [c], input.dtype,
+                                is_bias=True)
+    out = _out(helper, input, shape=input.shape)
+    sm = _out(helper, input, shape=(input.shape[0], c), stop_gradient=True)
+    sv = _out(helper, input, shape=(input.shape[0], c), stop_gradient=True)
+    helper.append_op(
+        type="instance_norm",
+        inputs={"X": [input], "Scale": [s], "Bias": [b]},
+        outputs={"Y": [out], "SavedMean": [sm], "SavedVariance": [sv]},
+        attrs={"epsilon": epsilon},
+    )
+    return out
+
+
+def maxout(x, groups, name=None):
+    """:774."""
+    helper = LayerHelper("maxout", name=name)
+    n, c, h, w = x.shape
+    out = _out(helper, x, shape=(n, c // groups, h, w))
+    helper.append_op(type="maxout", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"groups": groups})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """:784."""
+    helper = LayerHelper("l2_normalize", name=name)
+    out = _out(helper, x, shape=x.shape)
+    norm = _out(helper, x, shape=None, stop_gradient=True)
+    helper.append_op(type="l2_normalize", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def shuffle_channel(x, group, name=None):
+    """:797."""
+    helper = LayerHelper("shuffle_channel", name=name)
+    out = _out(helper, x, shape=x.shape)
+    helper.append_op(type="shuffle_channel", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"group": group})
+    return out
+
+
+def pad2d(input, paddings=[0, 0, 0, 0], mode="constant", pad_value=0.0,
+          name=None):
+    """:1206: ``paddings`` (top, bottom, left, right); ``mode``
+    constant, reflect or edge."""
+    helper = LayerHelper("pad2d", name=name)
+    n, c, h, w = input.shape
+    shp = (n, c,
+           h + paddings[0] + paddings[1] if h and h > 0 else -1,
+           w + paddings[2] + paddings[3] if w and w > 0 else -1)
+    out = _out(helper, input, shape=shp)
+    helper.append_op(type="pad2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": pad_value})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, resample="BILINEAR",
+                 name=None, align_corners=True, align_mode=1,
+                 actual_shape=None):
+    """:1326: ``bilinear_interp`` or ``nearest_interp`` to ``out_shape``
+    (or the input's size times ``scale``); align_corners defaults True
+    and align_mode 1, as the reference's interpolate API."""
+    op = ("bilinear_interp" if resample.upper() == "BILINEAR"
+          else "nearest_interp")
+    helper = LayerHelper(op, name=name)
+    n, c = input.shape[0], input.shape[1]
+    if out_shape:
+        oh, ow = out_shape
+    elif scale:
+        oh = int(input.shape[2] * scale)
+        ow = int(input.shape[3] * scale)
+    else:
+        raise NotImplementedError(
+            "image_resize: pass out_shape or scale — a runtime "
+            "actual_shape Variable cannot size a static-shape build")
+    out = _out(helper, input, shape=(n, c, oh, ow))
+    helper.append_op(type=op, inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"out_h": oh, "out_w": ow,
+                            "scale": float(scale or 0.0),
+                            "align_corners": bool(align_corners),
+                            "align_mode": int(align_mode)})
+    return out
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   actual_shape=None, align_corners=True):
+    """:1355."""
+    return image_resize(input, out_shape, scale, "NEAREST", name,
+                        align_corners=align_corners)
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None, align_corners=True, align_mode=1):
+    """:1361."""
+    return image_resize(input, out_shape, scale, "BILINEAR", name,
+                        align_corners=align_corners, align_mode=align_mode)
+
+
+def shard_index(input, index_num, nshards, shard_id, ignore_value=-1):
+    """:1367."""
+    helper = LayerHelper("shard_index")
+    out = _out(helper, input, shape=input.shape, dtype=input.dtype,
+               stop_gradient=True)
+    helper.append_op(type="shard_index", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"index_num": index_num, "nshards": nshards,
+                            "shard_id": shard_id,
+                            "ignore_value": ignore_value})
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="int64"):
+    """:1415: a category a row of probabilities (what
+    ``distributions.Categorical.sample`` calls; the exported
+    ``layers.sampling_id`` is the generated row of ``auto.py``, as in
+    JAX)."""
+    helper = LayerHelper("sampling_id")
+    out = _out(helper, x, shape=tuple(x.shape[:-1]) if x.shape else None,
+               dtype=dtype, stop_gradient=True)
+    helper.append_op(type="sampling_id", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"min": min, "max": max, "seed": seed,
+                            "dtype": dtype})
+    return out
+
+
+__all__ += ["instance_norm", "maxout", "l2_normalize", "shuffle_channel",
+            "pad2d", "image_resize", "resize_nearest", "resize_bilinear",
+            "shard_index"]

@@ -1,13 +1,15 @@
-"""AMP support ops: ``check_finite_and_unscale`` and
+"""AMP support ops and ``print``: ``check_finite_and_unscale`` and
 ``update_loss_scaling``, torch lowerings with the semantics of
-``paddle_tpu/ops/control.py:31-80``. The found-infinite flag, the loss
-scale and the good/bad step counters stay device tensors: nothing here
-reads a value back to the host, so a step pays no sync for them."""
+``paddle_tpu/ops/control.py:18-80``. The found-infinite flag, the loss
+scale and the good/bad step counters stay device tensors: nothing there
+reads a value back to the host, so a step pays no sync for them;
+``print`` reads its input to the host by design."""
 
 from __future__ import annotations
 
 import torch
 
+from ..core.executor import to_numpy
 from ..core.registry import register_op
 
 
@@ -67,3 +69,20 @@ def _update_loss_scaling(ctx, op, ins):
         "OutGoodSteps": [good_new.reshape(1).to(torch.int32)],
         "OutBadSteps": [bad_new.reshape(1).to(torch.int32)],
     }
+
+
+@register_op("print", inputs=("In",), outputs=("Out",))
+def _print(ctx, op, ins):
+    """``paddle_tpu/ops/control.py:18``: ``message`` and the tensor's
+    values printed on the host (a device-to-host copy, as
+    ``jax.debug.print``), then In passed through."""
+    x = ins["In"][0]
+    if not x.is_meta:
+        print(f"{op.attrs.get('message', '')} {to_numpy(x)}", flush=True)
+    return {"Out": [x]}
+
+
+@register_op("logical_print_stub", inputs=("X",), outputs=("Out",))
+def _logical_print_stub(ctx, op, ins):
+    """:26: the identity."""
+    return {"Out": [ins["X"][0]]}

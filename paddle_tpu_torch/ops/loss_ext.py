@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_op
+from .math import _Abs, _maximum, _softplus
 
 LOG_EPSILON = -1e5
 
@@ -248,3 +249,186 @@ def _chunk_eval(ctx, op, ins):
             "NumInferChunks": [n_inf.to(torch.int64)],
             "NumLabelChunks": [n_lbl.to(torch.int64)],
             "NumCorrectChunks": [n_corr.to(torch.int64)]}
+
+
+# -- the ranking, metric-learning and CTR losses (paddle_tpu/ops/loss_ext.py
+# :211-424) --------------------------------------------------------------------
+
+
+@register_op("hinge_loss", inputs=("Logits", "Labels"), outputs=("Loss",),
+             no_grad=("Labels",))
+def _hinge_loss(ctx, op, ins):
+    """:211: max(1 - (2y - 1) x, 0)."""
+    x, y = ins["Logits"][0], ins["Labels"][0]
+    return {"Loss": [_maximum(1.0 - (2.0 * y - 1.0) * x, torch.zeros(
+        (), dtype=x.dtype, device=x.device))]}
+
+
+@register_op("rank_loss", inputs=("Label", "Left", "Right"), outputs=("Out",),
+             no_grad=("Label",))
+def _rank_loss(ctx, op, ins):
+    """:217 (rank_loss_op.cc): sigmoid cross entropy on left - right."""
+    d = ins["Left"][0] - ins["Right"][0]
+    return {"Out": [_softplus(d) - ins["Label"][0] * d]}
+
+
+@register_op("margin_rank_loss", inputs=("Label", "X1", "X2"),
+             outputs=("Out", "Activated"), no_grad=("Label",))
+def _margin_rank_loss(ctx, op, ins):
+    """:225: max(-label (x1 - x2) + margin, 0), and where it is
+    positive."""
+    lbl, x1, x2 = ins["Label"][0], ins["X1"][0], ins["X2"][0]
+    m = float(op.attrs.get("margin", 0.0))
+    out = _maximum(-lbl * (x1 - x2) + m, torch.zeros((), dtype=x1.dtype,
+                                                      device=x1.device))
+    return {"Out": [out], "Activated": [(out > 0).to(x1.dtype)]}
+
+
+@register_op("bpr_loss", inputs=("X", "Label"), outputs=("Y",),
+             no_grad=("Label",))
+def _bpr_loss(ctx, op, ins):
+    """:233 (bpr_loss_op.cc): -mean over j != p of log sigmoid(x_p -
+    x_j), p the row's label."""
+    x = ins["X"][0]
+    lbl = ins["Label"][0].reshape(-1).long()
+    C = x.shape[1]
+    pos = torch.gather(x, 1, lbl[:, None])
+    logsig = -_softplus(-(pos - x))
+    notp = torch.arange(C, device=x.device)[None, :] != lbl[:, None]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return {"Y": [-torch.sum(torch.where(notp, logsig, zero), dim=1,
+                             keepdim=True) / max(C - 1, 1)]}
+
+
+@register_op("modified_huber_loss", inputs=("X", "Y"),
+             outputs=("Out", "IntermediateVal"), no_grad=("Y",))
+def _modified_huber_loss(ctx, op, ins):
+    """:248: on z = (2y - 1) x, -4z below -1, (1 - z)^2 below 1, else
+    0."""
+    z = (2.0 * ins["Y"][0] - 1.0) * ins["X"][0]
+    zero = torch.zeros((), dtype=z.dtype, device=z.device)
+    out = torch.where(z < -1.0, -4.0 * z,
+                      torch.where(z < 1.0, (1.0 - z) ** 2, zero))
+    return {"Out": [out], "IntermediateVal": [z]}
+
+
+@register_op("teacher_student_sigmoid_loss", inputs=("X", "Label"),
+             outputs=("Y",), no_grad=("Label",))
+def _teacher_student_sigmoid_loss(ctx, op, ins):
+    """:257 (teacher_student_sigmoid_loss_op.cc): label < -1 is a
+    non-click without a teacher score, sp(x); < 0 a click without one,
+    sp(x) - x; else a click bit and a teacher score, 2 sp(x) - label x.
+    sp is the reference's own stable softplus, max(x, 0) + log1p(exp(-
+    |x|)), as JAX writes it."""
+    x = ins["X"][0].reshape(-1)
+    lbl = ins["Label"][0].reshape(-1)
+    sp = (_maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+          + torch.log1p(torch.exp(-_Abs.apply(x))))
+    out = torch.where(lbl < -1.0, sp,
+                      torch.where(lbl < 0.0, sp - x, 2.0 * sp - x * lbl))
+    return {"Y": [out.reshape(-1, 1)]}
+
+
+@register_op("cos_sim", inputs=("X", "Y"), outputs=("Out", "XNorm", "YNorm"))
+def _cos_sim(ctx, op, ins):
+    """:276: along the last dim, the norms' product floored at 1e-12."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
+    out = torch.sum(x * y, dim=-1, keepdim=True) / _maximum(
+        xn * yn, torch.full((), 1e-12, dtype=x.dtype, device=x.device))
+    return {"Out": [out], "XNorm": [xn], "YNorm": [yn]}
+
+
+@register_op("center_loss", inputs=("X", "Label", "Centers",
+                                    "CenterUpdateRate"),
+             outputs=("Loss", "SampleCenterDiff", "CentersOut"),
+             no_grad=("Label", "Centers", "CenterUpdateRate"))
+def _center_loss(ctx, op, ins):
+    """:285 (center_loss_op.cc): half the squared distance to the
+    label's centre; with ``need_update`` (the default) CentersOut moves
+    each centre by alpha * (sum of its members' diffs) / (count + 1),
+    the state the next call reads (X's gradient reaches it through the
+    diffs, as in JAX)."""
+    x = ins["X"][0]
+    lbl = ins["Label"][0].reshape(-1).long()
+    centers = ins["Centers"][0]
+    alpha = (ins["CenterUpdateRate"][0].reshape(())
+             if ins.get("CenterUpdateRate") else 0.1)
+    diff = x - centers[lbl]
+    loss = 0.5 * torch.sum(diff * diff, dim=-1, keepdim=True)
+    if bool(op.attrs.get("need_update", True)):
+        cnt = torch.zeros((centers.shape[0],), dtype=x.dtype,
+                          device=x.device).index_add(
+            0, lbl, torch.ones_like(lbl, dtype=x.dtype))
+        upd = torch.zeros_like(centers).index_add(0, lbl, diff)
+        centers = centers + alpha * upd / (cnt[:, None] + 1.0)
+    return {"Loss": [loss], "SampleCenterDiff": [diff],
+            "CentersOut": [centers]}
+
+
+@register_op("mean_iou", inputs=("Predictions", "Labels", "InWrongs",
+                                 "InCorrects", "InMeanIou"),
+             outputs=("OutMeanIou", "OutWrong", "OutCorrect"),
+             stop_gradient=True)
+def _mean_iou(ctx, op, ins):
+    """:304: per-class correct and wrong counts, added to InCorrects /
+    InWrongs (the carried state), and the mean IoU over the classes seen
+    (InMeanIou is not read, as in JAX)."""
+    pred = ins["Predictions"][0].reshape(-1).long()
+    lbl = ins["Labels"][0].reshape(-1).long()
+    C = int(op.attrs["num_classes"])
+    dev = pred.device
+    hit = (pred == lbl).to(torch.float32)
+    miss = (pred != lbl).to(torch.float32)
+    zeros = torch.zeros((C,), dtype=torch.float32, device=dev)
+    correct = zeros.index_add(0, lbl, hit)
+    wrong = zeros.index_add(0, pred, miss) + zeros.index_add(0, lbl, miss)
+    if ins.get("InCorrects"):
+        correct = correct + ins["InCorrects"][0]
+    if ins.get("InWrongs"):
+        wrong = wrong + ins["InWrongs"][0]
+    denom = correct + wrong
+    iou = torch.where(denom > 0, correct / torch.clamp(denom, min=1.0),
+                      torch.zeros((), device=dev))
+    miou = torch.sum(iou) / torch.clamp(torch.sum((denom > 0).to(
+        torch.float32)), min=1.0)
+    return {"OutMeanIou": [miou], "OutWrong": [wrong],
+            "OutCorrect": [correct]}
+
+
+@register_op("positive_negative_pair", inputs=("Score", "Label", "QueryID"),
+             outputs=("PositivePair", "NegativePair", "NeutralPair"),
+             stop_gradient=True)
+def _positive_negative_pair(ctx, op, ins):
+    """:392: over the pairs of one query with different labels, those
+    ordered by score as by label (positive), tied in score (neutral) and
+    the rest (negative); float32 [1] each."""
+    s = ins["Score"][0].reshape(-1)
+    lab = ins["Label"][0].reshape(-1)
+    q = ins["QueryID"][0].reshape(-1)
+    n = s.shape[0]
+    upper = torch.triu(torch.ones((n, n), dtype=torch.bool,
+                                  device=s.device), diagonal=1)
+    m = (q[:, None] == q[None, :]) & upper & (lab[:, None] != lab[None, :])
+    hi_lbl = lab[:, None] > lab[None, :]
+    hi_scr = s[:, None] > s[None, :]
+    eq_scr = s[:, None] == s[None, :]
+    pos = torch.sum(m & (hi_lbl == hi_scr) & ~eq_scr)
+    neu = torch.sum(m & eq_scr)
+    neg = torch.sum(m) - pos - neu
+    return {"PositivePair": [pos.to(torch.float32).reshape(1)],
+            "NegativePair": [neg.to(torch.float32).reshape(1)],
+            "NeutralPair": [neu.to(torch.float32).reshape(1)]}
+
+
+@register_op("cvm", inputs=("X", "CVM"), outputs=("Y",), no_grad=("CVM",))
+def _cvm(ctx, op, ins):
+    """:413 (cvm_op.cc): the show / click columns as log(show + 1) and
+    log(click + 1) - log(show + 1) with ``use_cvm``, dropped without."""
+    x = ins["X"][0]
+    if not bool(op.attrs.get("use_cvm", True)):
+        return {"Y": [x[:, 2:]]}
+    show = torch.log(x[:, :1] + 1.0)
+    ctr = torch.log(x[:, 1:2] + 1.0) - torch.log(x[:, :1] + 1.0)
+    return {"Y": [torch.cat([show, ctr, x[:, 2:]], dim=1)]}

@@ -446,3 +446,28 @@ def _clip(ctx, op, ins):
 def _log_softmax(ctx, op, ins):
     return {"Out": [torch.log_softmax(ins["X"][0],
                                       dim=int(op.attrs.get("axis", -1)))]}
+
+
+@register_op("matmul_v2", inputs=("X", "Y"), outputs=("Out",))
+def _matmul_v2(ctx, op, ins):
+    """``paddle_tpu/ops/math.py:77``: ``trans_x`` / ``trans_y``, no
+    alpha."""
+    x, y = _promote(ins["X"][0], ins["Y"][0])
+    if op.attrs.get("trans_x", False):
+        x = x.transpose(-1, -2)
+    if op.attrs.get("trans_y", False):
+        y = y.transpose(-1, -2)
+    return {"Out": [torch.matmul(x, y)]}
+
+
+@register_op("isfinite", inputs=("X",), outputs=("Out",), stop_gradient=True)
+def _isfinite(ctx, op, ins):
+    """:291 (isfinite_op.cc): one 0-dim bool for the whole tensor."""
+    return {"Out": [torch.isfinite(ins["X"][0]).all()]}
+
+
+@register_op("isfinite_v2", inputs=("X",), outputs=("Out",),
+             stop_gradient=True)
+def _isfinite_v2(ctx, op, ins):
+    """:297: elementwise."""
+    return {"Out": [torch.isfinite(ins["X"][0])]}

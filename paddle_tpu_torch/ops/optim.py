@@ -2,8 +2,9 @@
 chains (semantics of ``paddle_tpu/ops/optim.py:65-108, :133``), the
 other optimizers' dense updates (``lars_momentum``, ``adagrad``,
 ``decayed_adagrad``, ``adadelta``, ``adamax``, ``rmsprop``, ``ftrl``,
-``lamb``, ``dpsgd``, ``proximal_gd``, ``proximal_adagrad``; :111-497,
-in JAX's arithmetic order) and the one-pass ``fused_adam`` /
+``lamb``, ``dpsgd``, ``proximal_gd``, ``proximal_adagrad``, ``adamw``;
+:111-497, in JAX's arithmetic order), ModelAverage's
+``average_accumulates`` (:552) and the one-pass ``fused_adam`` /
 ``fused_adamw`` / ``fused_momentum``
 (``paddle_tpu/kernels/fused_optim.py:345-475``) over the K10 and K10m
 kernels. Output names alias the inputs (ParamOut = Param), and the
@@ -524,3 +525,61 @@ def _dgc_clip_by_norm(ctx, op, ins):
     norm = torch.sqrt(torch.sum(x * x))
     mx = torch.full((), max_norm, dtype=x.dtype, device=x.device)
     return {"Out": [x * (mx / torch.maximum(norm, mx))]}
+
+
+@register_op("adamw", inputs=_ADAM_INS, outputs=_ADAM_OUTS, stop_gradient=True)
+def _adamw(ctx, op, ins):
+    """``paddle_tpu/ops/optim.py:178``: the Adam update, then the
+    decoupled decay ``lr * coeff * param`` of the value before it."""
+    decay = _lr(ins) * float(op.attrs.get("coeff", 0.01)) * ins["Param"][0]
+    out = _adam(ctx, op, ins)
+    out["ParamOut"] = [out["ParamOut"][0] - decay]
+    return out
+
+
+@register_op("average_accumulates",
+             inputs=("param", "in_sum_1", "in_sum_2", "in_sum_3",
+                     "in_num_accumulates", "in_old_num_accumulates",
+                     "in_num_updates"),
+             outputs=("out_sum_1", "out_sum_2", "out_sum_3",
+                      "out_num_accumulates", "out_old_num_accumulates",
+                      "out_num_updates"),
+             stop_gradient=True)
+def _average_accumulates(ctx, op, ins):
+    """:552 (average_accumulates_op.h, ModelAverage): sum_1 += param;
+    every 16384 updates sum_1 spills into sum_2; once the window reaches
+    min(max_average_window, num_updates * average_window) (and at least
+    min_average_window) sums 1 and 2 roll into sum_3 and the window
+    restarts. The counters are carried in float32, returned int64 [1],
+    as JAX's."""
+    p = ins["param"][0]
+    s1, s2, s3 = ins["in_sum_1"][0], ins["in_sum_2"][0], ins["in_sum_3"][0]
+
+    def f32(slot):
+        return ins[slot][0].reshape(()).to(torch.float32)
+
+    num_acc = f32("in_num_accumulates") + 1
+    old_acc = f32("in_old_num_accumulates")
+    num_upd = f32("in_num_updates") + 1
+    avg_win = float(op.attrs.get("average_window", 0.0))
+    max_win = float(op.attrs.get("max_average_window", 2**31 - 1))
+    min_win = float(op.attrs.get("min_average_window", 10000.0))
+    s1 = s1 + p
+    spill = torch.remainder(num_upd, 16384.0) == 0
+    s2 = torch.where(spill, s2 + s1, s2)
+    s1 = torch.where(spill, torch.zeros_like(s1), s1)
+    roll = (num_acc >= min_win) & (
+        num_acc >= torch.clamp(num_upd * avg_win, max=max_win))
+    s3 = torch.where(roll, s1 + s2, s3)
+    s1 = torch.where(roll, torch.zeros_like(s1), s1)
+    s2 = torch.where(roll, torch.zeros_like(s2), s2)
+    old_acc = torch.where(roll, num_acc, old_acc)
+    num_acc = torch.where(roll, torch.zeros_like(num_acc), num_acc)
+
+    def i64(v):
+        return v.to(torch.int64).reshape(1)
+
+    return {"out_sum_1": [s1], "out_sum_2": [s2], "out_sum_3": [s3],
+            "out_num_accumulates": [i64(num_acc)],
+            "out_old_num_accumulates": [i64(old_acc)],
+            "out_num_updates": [i64(num_upd)]}

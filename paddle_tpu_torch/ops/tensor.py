@@ -576,3 +576,355 @@ def _ctc_align(ctx, op, ins):
     out, new_len = _compact(x, in_seq & (x != blank) & (x != prev),
                             torch.int32)
     return {"Output": [out], "OutputLength": [new_len]}
+
+
+# -- the rest of paddle_tpu/ops/tensor.py -------------------------------------
+
+
+@register_op("reshape", inputs=("X",), outputs=("Out",))
+def _reshape(ctx, op, ins):
+    """``paddle_tpu/ops/tensor.py:78``: reshape2 without XShape."""
+    x = ins["X"][0]
+    return {"Out": [x.reshape(_infer_reshape(x, op.attrs.get("shape", [])))]}
+
+
+@register_op("transpose", inputs=("X",), outputs=("Out",))
+def _transpose(ctx, op, ins):
+    """``paddle_tpu/ops/tensor.py:102``."""
+    perm = tuple(int(a) for a in op.attrs.get("axis", []))
+    return {"Out": [ins["X"][0].permute(perm)]}
+
+
+@register_op("tile", inputs=("X",), outputs=("Out",))
+def _tile(ctx, op, ins):
+    """``jnp.tile`` (:199): ``torch.tile`` has numpy's rule for repeats
+    shorter or longer than the rank."""
+    reps = [int(t) for t in op.attrs.get("repeat_times", [])]
+    return {"Out": [torch.tile(ins["X"][0], reps)]}
+
+
+@register_op("top_k_v2", inputs=("X",), outputs=("Out", "Indices"))
+def _top_k_v2(ctx, op, ins):
+    """:338: ``top_k`` (``jax.lax.top_k``'s order of ties)."""
+    return _top_k(ctx, op, ins)
+
+
+@register_op("pad2d", inputs=("X",), outputs=("Out",))
+def _pad2d(ctx, op, ins):
+    """:423: NCHW, ``paddings`` (top, bottom, left, right); ``constant``
+    with ``pad_value``, ``reflect`` (the edge row not repeated) or
+    ``edge``."""
+    x = ins["X"][0]
+    p = [int(v) for v in op.attrs.get("paddings", [0, 0, 0, 0])]
+    mode = op.attrs.get("mode", "constant")
+    flat = [p[2], p[3], p[0], p[1]]
+    if mode == "constant":
+        return {"Out": [torch.nn.functional.pad(
+            x, flat, value=float(op.attrs.get("pad_value", 0.0)))]}
+    return {"Out": [torch.nn.functional.pad(
+        x, flat, mode="reflect" if mode == "reflect" else "replicate")]}
+
+
+@register_op("shard_index", inputs=("X",), outputs=("Out",),
+             stop_gradient=True)
+def _shard_index(ctx, op, ins):
+    """:450 (shard_index_op.cc): a global class id to its shard's local
+    id, ``ignore_value`` outside the shard; floor division and modulo,
+    as ``//`` and ``%`` of jnp."""
+    x = ins["X"][0]
+    nshards = int(op.attrs["nshards"])
+    per = (int(op.attrs["index_num"]) + nshards - 1) // nshards
+    in_shard = torch.div(x, per, rounding_mode="floor") == int(
+        op.attrs["shard_id"])
+    return {"Out": [torch.where(in_shard, torch.remainder(x, per),
+                                torch.full_like(x, int(op.attrs.get(
+                                    "ignore_value", -1))))]}
+
+
+@register_op("size", inputs=("Input",), outputs=("Out",), stop_gradient=True)
+def _size(ctx, op, ins):
+    """:464: the element count, an int64 0-dim tensor."""
+    x = ins["Input"][0]
+    return {"Out": [torch.tensor(x.numel(), dtype=torch.int64,
+                                 device=x.device)]}
+
+
+@register_op("diag", inputs=("Diagonal",), outputs=("Out",))
+def _diag(ctx, op, ins):
+    """:474 (``jnp.diag``): a vector to its diagonal matrix, a matrix to
+    its diagonal."""
+    return {"Out": [torch.diag(ins["Diagonal"][0])]}
+
+
+@register_op("linspace", inputs=("Start", "Stop", "Num"), outputs=("Out",),
+             stop_gradient=True)
+def _linspace(ctx, op, ins):
+    """:479: ``num`` points from Start to Stop, computed as
+    ``jnp.linspace`` computes them: ``start * (1 - s) + stop * s`` with s
+    = i / (num - 1), the last point Stop itself. The count sets the
+    shape, so it is read on the host (the attr, else the Num input)."""
+    n = (int(op.attrs["num"]) if "num" in op.attrs
+         else int(ins["Num"][0].reshape(())))
+    start = ins["Start"][0]
+    dt = start.dtype
+    cdt = dt if dt.is_floating_point else torch.float32
+    s = start.reshape(()).to(cdt)
+    e = ins["Stop"][0].reshape(()).to(cdt)
+    if n > 1:
+        step = (torch.arange(n - 1, dtype=torch.float32, device=s.device)
+                / float(n - 1)).to(cdt)
+        out = torch.cat([s * (1 - step) + e * step, e.reshape(1)])
+    else:
+        out = s.reshape(1)[:n]
+    if not dt.is_floating_point:
+        out = torch.floor(out)
+    return {"Out": [out.to(dt)]}
+
+
+@register_op("eye", inputs=(), outputs=("Out",), stop_gradient=True)
+def _eye(ctx, op, ins):
+    """:505."""
+    n = int(op.attrs["num_rows"])
+    m = int(op.attrs.get("num_columns", -1))
+    return {"Out": [torch.eye(n, m if m > 0 else n, device=ctx.device,
+                              dtype=torch_dtype(op.attrs.get(
+                                  "dtype", "float32")))]}
+
+
+@register_op("fill", inputs=(), outputs=("Out",), stop_gradient=True)
+def _fill(ctx, op, ins):
+    """:513 (fill_op.cc): the listed values in ``shape``."""
+    shape = tuple(int(s) for s in op.attrs["shape"])
+    vals = torch.as_tensor(np.asarray(list(op.attrs["value"])),
+                           dtype=torch_dtype(op.attrs.get("dtype",
+                                                          "float32")))
+    return {"Out": [vals.reshape(shape).to(ctx.device)]}
+
+
+@register_op("fill_any_like", inputs=("X",), outputs=("Out",),
+             stop_gradient=True)
+def _fill_any_like(ctx, op, ins):
+    """:522."""
+    return {"Out": [torch.full_like(ins["X"][0], op.attrs.get("value", 0.0))]}
+
+
+@register_op("reverse", inputs=("X",), outputs=("Out",))
+def _reverse(ctx, op, ins):
+    """:529."""
+    axes = tuple(int(a) for a in op.attrs.get("axis", [0]))
+    return {"Out": [torch.flip(ins["X"][0], axes)]}
+
+
+def _host_ints(t):
+    return [int(v) for v in t.reshape(-1).tolist()]
+
+
+def _crop_to(x, shape, off):
+    return x[tuple(slice(o, o + s) for o, s in zip(off, shape))]
+
+
+@register_op("crop", inputs=("X", "Y", "Offsets"), outputs=("Out",),
+             no_grad=("Y", "Offsets"))
+def _crop(ctx, op, ins):
+    """:538: the window of Y's shape (else the ``shape`` attr) at
+    Offsets (else the ``offsets`` attr); Offsets is read on the host."""
+    x = ins["X"][0]
+    shape = (tuple(ins["Y"][0].shape) if ins.get("Y")
+             else [int(s) for s in op.attrs["shape"]])
+    off = (_host_ints(ins["Offsets"][0]) if ins.get("Offsets")
+           else [int(v) for v in op.attrs.get("offsets", [0] * x.dim())])
+    return {"Out": [_crop_to(x, shape, off)]}
+
+
+@register_op("crop_tensor", inputs=("X", "Shape", "Offsets"), outputs=("Out",),
+             no_grad=("Shape", "Offsets"))
+def _crop_tensor(ctx, op, ins):
+    """:553: as ``crop``, the shape from the Shape tensor or the attr; a
+    -1 takes the rest of the dim past its offset."""
+    x = ins["X"][0]
+    shape = (_host_ints(ins["Shape"][0]) if ins.get("Shape")
+             else [int(s) for s in op.attrs["shape"]])
+    off = (_host_ints(ins["Offsets"][0]) if ins.get("Offsets")
+           else [int(v) for v in op.attrs.get("offsets", [0] * x.dim())])
+    shape = [x.shape[i] - off[i] if s == -1 else s
+             for i, s in enumerate(shape)]
+    return {"Out": [_crop_to(x, shape, off)]}
+
+
+@register_op("pad_constant_like", inputs=("X", "Y"), outputs=("Out",),
+             no_grad=("X",))
+def _pad_constant_like(ctx, op, ins):
+    """:569: Y padded at the end of each dim up to X's shape."""
+    x, y = ins["X"][0], ins["Y"][0]
+    flat = []
+    for xs, ys in reversed(list(zip(x.shape, y.shape))):
+        flat += [0, xs - ys]
+    return {"Out": [torch.nn.functional.pad(
+        y, flat, value=float(op.attrs.get("pad_value", 0.0)))]}
+
+
+@register_op("multiplex", inputs=("Ids", "X"), outputs=("Out",),
+             no_grad=("Ids",))
+def _multiplex(ctx, op, ins):
+    """:578: row i of X[Ids[i]]."""
+    ids = ins["Ids"][0].reshape(-1).long()
+    stacked = torch.stack(ins["X"], dim=0)
+    rows = torch.arange(stacked.shape[1], device=stacked.device)
+    return {"Out": [stacked[ids, rows]]}
+
+
+def _column_window(x, start, length):
+    s = start if start >= 0 else x.shape[1] + start
+    return x[:, s:(x.shape[1] if length < 0 else s + length)]
+
+
+@register_op("partial_concat", inputs=("X",), outputs=("Out",))
+def _partial_concat(ctx, op, ins):
+    """:587: columns [start, start + length) of each input, joined."""
+    start = int(op.attrs.get("start_index", 0))
+    length = int(op.attrs.get("length", -1))
+    return {"Out": [torch.cat([_column_window(x, start, length)
+                               for x in ins["X"]], dim=1)]}
+
+
+@register_op("partial_sum", inputs=("X",), outputs=("Out",))
+def _partial_sum(ctx, op, ins):
+    """:601: the same windows, summed in input order."""
+    start = int(op.attrs.get("start_index", 0))
+    length = int(op.attrs.get("length", -1))
+    tot = None
+    for x in ins["X"]:
+        w = _column_window(x, start, length)
+        tot = w if tot is None else tot + w
+    return {"Out": [tot]}
+
+
+@register_op("is_empty", inputs=("X",), outputs=("Out",), stop_gradient=True)
+def _is_empty(ctx, op, ins):
+    """:614: a 0-dim bool."""
+    x = ins["X"][0]
+    return {"Out": [torch.tensor(x.numel() == 0, device=x.device)]}
+
+
+def _unique_padded(x, counts):
+    """``jnp.unique(x, size=|x|, fill_value=0)``: the sorted distinct
+    values, then zeros up to |x| (the static shape JAX needs; the
+    reference returns the shrunk array), the int32 index of each element
+    into them and, with ``counts``, their counts padded with 0."""
+    x = x.reshape(-1)
+    n = x.shape[0]
+    if x.is_meta:       # shape inference: the padded shapes alone
+        uniq, inv, cnt = x, x.to(torch.int64), x.to(torch.int64)
+    else:
+        uniq, inv, cnt = torch.unique(x, sorted=True, return_inverse=True,
+                                      return_counts=True)
+    pad = n - uniq.shape[0]
+    out = {"Out": [torch.cat([uniq, uniq.new_zeros(pad)])],
+           "Index": [inv.to(torch.int32)]}
+    if counts:
+        out["Count"] = [torch.cat([cnt, cnt.new_zeros(pad)]).to(torch.int32)]
+    return out
+
+
+@register_op("unique", inputs=("X",), outputs=("Out", "Index"),
+             stop_gradient=True)
+def _unique(ctx, op, ins):
+    """:619."""
+    return _unique_padded(ins["X"][0], False)
+
+
+@register_op("unique_with_counts", inputs=("X",),
+             outputs=("Out", "Index", "Count"), stop_gradient=True)
+def _unique_with_counts(ctx, op, ins):
+    """:628."""
+    return _unique_padded(ins["X"][0], True)
+
+
+@register_op("scatter_nd_add", inputs=("X", "Index", "Updates"),
+             outputs=("Out",), no_grad=("Index",))
+def _scatter_nd_add(ctx, op, ins):
+    """:638: ``x.at[index].add(updates)``, Index's last dim addressing
+    X's leading dims; repeated indices add up."""
+    x, idx, upd = ins["X"][0], ins["Index"][0].long(), ins["Updates"][0]
+    keys = tuple(idx[..., k] for k in range(idx.shape[-1]))
+    return {"Out": [torch.index_put(x, keys, upd.to(x.dtype),
+                                    accumulate=True)]}
+
+
+def _seed_out(ctx, ins):
+    return (ins["Seed"][0] if ins.get("Seed")
+            else torch.zeros((1,), dtype=torch.int32, device=ctx.device))
+
+
+@register_op("shuffle_batch", inputs=("X", "Seed"),
+             outputs=("Out", "ShuffleIdx", "SeedOut"), stop_gradient=True)
+def _shuffle_batch(ctx, op, ins):
+    """:675: the rows in an order drawn from the op's generator."""
+    x = ins["X"][0]
+    perm = torch.randperm(x.shape[0], generator=ctx.op_generator(op),
+                          device=ctx.device)
+    return {"Out": [x[perm]], "ShuffleIdx": [perm.to(torch.int32)],
+            "SeedOut": [_seed_out(ctx, ins)]}
+
+
+@register_op("random_crop", inputs=("X", "Seed"), outputs=("Out", "SeedOut"),
+             stop_gradient=True)
+def _random_crop(ctx, op, ins):
+    """:684: a window of ``shape`` over the trailing dims, its corner
+    drawn uniformly from the op's generator, one draw a dim."""
+    x = ins["X"][0]
+    shape = [int(s) for s in op.attrs["shape"]]
+    lead = x.dim() - len(shape)
+    if x.is_meta:       # shape inference draws nothing
+        starts = [0] * len(shape)
+    else:
+        gen = ctx.op_generator(op)
+        starts = [int(torch.randint(0, x.shape[lead + i] - s + 1, (),
+                                    generator=gen, device=ctx.device))
+                  for i, s in enumerate(shape)]
+    idx = tuple([slice(None)] * lead
+                + [slice(st, st + s) for st, s in zip(starts, shape)])
+    return {"Out": [x[idx]], "SeedOut": [_seed_out(ctx, ins)]}
+
+
+@register_op("seed", inputs=(), outputs=("Out",), stop_gradient=True)
+def _seed(ctx, op, ins):
+    """:703."""
+    return {"Out": [torch.tensor([int(op.attrs.get("seed", 0))],
+                                 dtype=torch.int32, device=ctx.device)]}
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a, c):
+    """(a * c) mod 2**32 for int64 ``a`` in [0, 2**32) and a 32-bit
+    constant ``c``, in products below 2**48: the low and high halves of
+    ``a`` apart, so no int64 product overflows."""
+    lo = (a & 0xFFFF) * c
+    hi = ((a >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+@register_op("hash", inputs=("X",), outputs=("Out",), stop_gradient=True)
+def _hash(ctx, op, ins):
+    """:708: JAX's splitmix-style mix in uint32 arithmetic, with its
+    constants, so the two packages hash an id to the same bucket (the
+    reference's hash_op.cc is xxhash: ROADMAP §C). Torch's uint32 has no
+    multiply or shift, so the mix runs in int64, masked to 32 bits after
+    every product (``_mul32``). JAX builds the i-th seed term
+    ``i * 0x85EBCA6B`` as a uint32 from a Python int and raises past
+    i = 1 (num_hash > 2); the port wraps it to 32 bits, the uint32
+    product that term stands for.
+    Out is int64: [..., num_hash, last] for num_hash > 1."""
+    x = ins["X"][0].to(torch.int64) & _M32
+    num_hash = int(op.attrs.get("num_hash", 1))
+    mod_by = int(op.attrs.get("mod_by", 1))
+    outs = []
+    for i in range(num_hash):
+        h = (_mul32(x, 0x9E3779B1) + ((i * 0x85EBCA6B) & _M32)) & _M32
+        h = h ^ (h >> 16)
+        h = _mul32(h, 0xC2B2AE35)
+        h = h ^ (h >> 13)
+        outs.append(torch.remainder(h, mod_by))
+    return {"Out": [torch.stack(outs, dim=-2) if num_hash > 1 else outs[0]]}

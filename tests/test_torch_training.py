@@ -360,7 +360,7 @@ def test_port_registers_the_training_path_ops(fuse_flag):
                              "logical_and", "logical_or", "logical_xor"]:
         assert registry.has_op(t), t
     with pytest.raises(NotImplementedError, match="no registered lowering"):
-        registry.get_op_def("brelu")    # ROADMAP A11e: not ported yet
+        registry.get_op_def("fused_batch_norm_act")  # ROADMAP A11f: not ported
     # the rest of the training path: a MoE GPT under gradient merge over
     # recompute, the meta-optimizers, DeepFM and wide&deep with sparse
     # tables, and the control flow; every op of every block, sub-blocks
