@@ -6,7 +6,7 @@
                                      #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4,
                                      #   e1, e2 (+ grouped conv share), g2
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789abcdefghijklm), no result line
+                                        #   23456789abcdefghijklmn), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -559,7 +559,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789abcdefghijklm"
+ALL_PHASES = "23456789abcdefghijklmn"
 DEVICE = "cuda"
 
 
@@ -11034,6 +11034,970 @@ def phase_m(torch, np, seed, card, out_dir):
     return {"cyclegan_train": counts}, rec
 
 
+# -- phase n: the serving Programs, the fused ops, the parameter server ---------
+
+N_PAGES = 512                       # phase 3's pool: 512 pages of PAGE
+N1_PREFILL_ROWS, N1_PREFILL_SEQ, N1_DECODE_STEPS = 8, 128, 3
+N1_POOL_RTOL = 1e-5                 # of each pool's largest value
+N1_TIE = 1e-3                       # top-2 gap / max|logit|: a near-tie
+N4_VOCAB, N4_STEPS, N4_RTOL = 2 ** 20, 3, 1e-5
+N4_GEO_STEPS, N4_GEO_PUSH = 6, 3
+N4_TIMEOUT_S = 300
+
+
+def _free_ports(n):
+    import socket
+
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _logits_name(prog):
+    """The logits a step Program's argmax reads (through its reshape)."""
+    ops = prog.global_block().ops
+    src = [op for op in ops if op.type == "arg_max"][-1].inputs["X"][0]
+    for op in ops:
+        if op.type in ("reshape", "reshape2") and src in op.outputs.get(
+                "Out", ()):
+            return op.inputs["X"][0]
+    return src
+
+
+def _tokens_or_ties(np, got, want, logits, valid, what):
+    """``got`` equals ``want`` wherever ``valid``, except at a near-tie
+    of ``logits`` (the repo's rule: top-2 gap <= 1e-3 * max|logit|).
+    Returns the positions that differ."""
+    got, want = np.asarray(got).reshape(-1), np.asarray(want).reshape(-1)
+    logits = np.asarray(logits).reshape(got.shape[0], -1)
+    diff = [i for i in range(got.shape[0]) if valid[i] and got[i] != want[i]]
+    for i in diff:
+        top = np.sort(logits[i])[::-1]
+        gap, bound = top[0] - top[1], N1_TIE * np.abs(logits[i]).max()
+        require(gap <= bound, f"{what}: position {i} gives {got[i]} against "
+                f"{want[i]} at a top-2 gap {gap:.3e} > {bound:.3e}")
+    return diff
+
+
+def _pools_close(torch, got, want, what):
+    """Pools within N1_POOL_RTOL of their largest value (int8 pools: one
+    step), page 0 slot 0 (the invalid rows' junk slot) left out."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs()
+        d[:, 0, 0] = 0
+        top = float(w.float().abs().max())
+        err = float(d.max())
+        bound = 1.0 if w.dtype == torch.int8 else N1_POOL_RTOL * top
+        require(err <= bound, f"{what}: pools differ by {err:.3e} > "
+                f"{bound:.3e}")
+        worst = max(worst, err / (1.0 if w.dtype == torch.int8 else top))
+    return worst
+
+
+def _n1_mixed_feed(torch, np, seed, cfg, kv):
+    """One mixed ragged step on phase 3's prompts: two prefill chunks,
+    four decode rows, a partial chunk and an idle lane, over seeded
+    pools."""
+    L, H, D = cfg.num_layers, cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    maxp = cfg.max_position // PAGE
+    lengths, prompts = serving_prompts(np, seed, cfg.vocab_size)
+    starts = [0, 32, int(lengths[2]), int(lengths[3]), int(lengths[4]),
+              int(lengths[5]), 48, 0]
+    nvalid = [CHUNK, CHUNK, 1, 1, 1, 1, 9, 0]
+    rng = np.random.RandomState(seed + 11)
+    free = list(rng.permutation(np.arange(1, N_PAGES)))
+    tables = np.zeros((LANES, maxp), np.int32)
+    tokens = np.zeros((LANES, CHUNK), np.int64)
+    for b in range(LANES):
+        if nvalid[b]:
+            n = -(-(starts[b] + nvalid[b]) // PAGE)
+            tables[b, :n] = [free.pop() for _ in range(n)]
+        src = prompts[b % len(prompts)]
+        for j in range(nvalid[b]):
+            tokens[b, j] = src[(starts[b] + j) % len(src)]
+    pos_ids = np.asarray(starts)[:, None] + np.arange(CHUNK)[None, :]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 12)
+    shape = (H, N_PAGES, PAGE, D)
+    feed = {"gen_tokens": tokens, "gen_pos_ids": pos_ids,
+            "gen_positions": np.asarray(starts, np.int64),
+            "gen_num_valid": np.asarray(nvalid, np.int32),
+            "gen_block_tables": tables}
+    for i in range(L):
+        for s in "kv":
+            if kv == "int8":
+                feed[f"gen_{s}_pages_{i}"] = torch.randint(
+                    -127, 128, shape, generator=gen, device=DEVICE,
+                    dtype=torch.int8)
+                feed[f"gen_{s}_scales_{i}"] = 0.02 * torch.rand(
+                    shape[:3], generator=gen, device=DEVICE)
+            else:
+                feed[f"gen_{s}_pages_{i}"] = torch.randn(
+                    shape, generator=gen, device=DEVICE)
+    valid = [j < nvalid[b] for b in range(LANES) for j in range(CHUNK)]
+    return feed, valid
+
+
+def _run_program(torch, exe, prog, feed, fetches, scope, extra=()):
+    from paddle_tpu_torch import kernels as K
+
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = exe.run(prog, feed=feed, fetch_list=list(fetches) + list(extra),
+                   scope=scope, return_numpy=False)
+    torch.cuda.synchronize()
+    return outs, (time.perf_counter() - t) * 1e3, K.launch_counts()
+
+
+def n1_ragged(torch, np, seed, card, exe, scope, lm, cfg, kv):
+    """(a) / (b): one mixed ragged step through the Program, against
+    ``RaggedStepModel`` on clones of the pools."""
+    from paddle_tpu_torch.generation import (CacheGeometry, RaggedStepModel,
+                                             build_ragged_step_program)
+    from paddle_tpu_torch.generation.model import step_feeds
+
+    L = cfg.num_layers
+    geom = CacheGeometry(N_PAGES, PAGE, cfg.max_position // PAGE)
+    prog, fetches = build_ragged_step_program(cfg, geom, CHUNK, kv)
+    feed, valid = _n1_mixed_feed(torch, np, seed, cfg, kv)
+    kernel = "ragged_paged_attention_q" if kv == "int8" else \
+        "ragged_paged_attention"
+    # the fed pools before the step: the module's (in place) and the
+    # proof that the Program's functional write leaves the feed alone
+    pools = {k: v.clone() for k, v in feed.items() if torch.is_tensor(v)}
+    exe.run(prog, feed=feed, fetch_list=fetches, scope=scope,
+            return_numpy=False)                         # plan and warm up
+    outs, ms, counts = _run_program(torch, exe, prog, feed, fetches, scope,
+                                    [_logits_name(prog)])
+    for k, v in pools.items():
+        require(torch.equal(feed[k], v), f"n1 {kv}: the Program wrote the "
+                f"fed {k}")
+    require(counts[kernel] == L, f"n1 {kv}: {kernel} launched "
+            f"{counts[kernel]} times in the step, want {L}")
+    require(counts["layer_norm"] == 2 * L + 1, f"n1 {kv}: layer_norm "
+            f"launched {counts['layer_norm']} times, want {2 * L + 1}")
+    step = RaggedStepModel(lm, geom, CHUNK)
+    kp = [pools[f"gen_k_pages_{i}"] for i in range(L)]
+    vp = [pools[f"gen_v_pages_{i}"] for i in range(L)]
+    sc = {}
+    if kv == "int8":
+        sc = dict(k_scales=[pools[f"gen_k_scales_{i}"] for i in range(L)],
+                  v_scales=[pools[f"gen_v_scales_{i}"] for i in range(L)])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tok = step(*step_feeds(feed["gen_tokens"], feed["gen_pos_ids"],
+                           feed["gen_positions"], feed["gen_num_valid"],
+                           feed["gen_block_tables"], torch.device(DEVICE)),
+               kp, vp, **sc)
+    torch.cuda.synchronize()
+    module_ms = (time.perf_counter() - t) * 1e3
+    diff = _tokens_or_ties(np, outs[0].cpu().numpy(), tok.cpu().numpy(),
+                           outs[-1].cpu().numpy(), valid, f"n1 {kv}")
+    pool_err = _pools_close(torch, kp + vp, outs[1:1 + 2 * L], f"n1 {kv}")
+    scale_err = [0.0, 0.0]         # the first layer's, the deeper ones'
+    if kv == "int8":
+        # phase 5's rule (QKV_SCALE_RTOL): a deeper layer's rows come
+        # through attention over int8 pools where a value may sit a step
+        # apart
+        for i, (g, w) in enumerate(zip(sc["k_scales"] + sc["v_scales"],
+                                       outs[1 + 2 * L:-1])):
+            d = ((g - w).abs() / w.abs().clamp_min(1e-30))
+            d[:, 0, 0] = 0
+            deep = min(i % L, 1)
+            scale_err[deep] = max(scale_err[deep], float(d.max()))
+            require(float(d.max()) <= QKV_SCALE_RTOL[deep],
+                    f"n1 int8: layer {i % L}'s scale planes differ by "
+                    f"{float(d.max()):.3e} relative > {QKV_SCALE_RTOL[deep]}")
+    log(f"  n1 ({'b' if kv == 'int8' else 'a'}) {kv} pools: Program step "
+        f"{ms:.3f} ms against the module's {module_ms:.3f} ms; tokens "
+        f"equal on {sum(valid) - len(diff)} of {sum(valid)} positions "
+        f"(the rest near-ties); pools within {pool_err:.3e} of their "
+        f"largest (int8: steps); scales {scale_err[0]:.3e} first layer, "
+        f"{scale_err[1]:.3e} deeper; {kernel} {counts[kernel]}, "
+        f"layer_norm {counts['layer_norm']} [{card}]")
+    return counts, {"step_ms": ms, "module_step_ms": module_ms,
+                    "tokens_differ_at_ties": len(diff),
+                    "pool_max_rel_err": pool_err,
+                    "scale_max_rel_err": scale_err}
+
+
+def n1_two_lane(torch, np, seed, card, exe, scope, lm, cfg):
+    """(c): the prefill Program (flash: K6) on a window of phase 3's
+    prompts, then decode Program steps (K13) over its pools, against
+    ``PrefillStepModel`` / ``DecodeStepModel`` on clones."""
+    import dataclasses
+
+    from paddle_tpu_torch.generation import (CacheGeometry, DecodeStepModel,
+                                             PrefillStepModel,
+                                             build_decode_program,
+                                             build_prefill_program)
+
+    L, H, D = cfg.num_layers, cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    fcfg = dataclasses.replace(cfg, use_flash_attention=True)
+    maxp = cfg.max_position // PAGE
+    geom = CacheGeometry(N_PAGES, PAGE, maxp)
+    n, S = N1_PREFILL_ROWS, N1_PREFILL_SEQ
+    lengths, prompts = serving_prompts(np, seed, cfg.vocab_size)
+    lens = np.minimum(lengths[:n], S).astype(np.int32)
+    tokens = np.zeros((n, S), np.int64)
+    for b in range(n):
+        tokens[b, :lens[b]] = prompts[b][:lens[b]]
+    tables = np.zeros((n, maxp), np.int32)
+    per = -(-(S + N1_DECODE_STEPS) // PAGE)
+    for b in range(n):
+        tables[b, :per] = 1 + b * per + np.arange(per)
+    zeros = {f"gen_{s}_pages_{i}": torch.zeros((H, N_PAGES, PAGE, D),
+                                               device=DEVICE)
+             for i in range(L) for s in "kv"}
+    feed = dict(zeros, gen_tokens=tokens,
+                gen_positions=np.zeros(n, np.int64), gen_num_valid=lens,
+                gen_last_index=(lens - 1).astype(np.int64),
+                gen_block_tables=tables)
+    prog, fetches = build_prefill_program(fcfg, S, geom)
+    outs, pre_ms, pre_counts = _run_program(torch, exe, prog, feed, fetches,
+                                            scope, [_logits_name(prog)])
+    require(pre_counts["flash_attention_fwd"] == L,
+            f"n1 (c) prefill: flash launched "
+            f"{pre_counts['flash_attention_fwd']} times, want {L}")
+    kp = [zeros[f"gen_k_pages_{i}"].clone() for i in range(L)]
+    vp = [zeros[f"gen_v_pages_{i}"].clone() for i in range(L)]
+    mtok = PrefillStepModel(lm, geom, use_flash=True)(
+        torch.as_tensor(tokens, device=DEVICE),
+        torch.as_tensor(lens, device=DEVICE),
+        torch.as_tensor(tables, device=DEVICE), kp, vp)
+    diffs = len(_tokens_or_ties(np, outs[0].cpu().numpy(),
+                                mtok.cpu().numpy(), outs[-1].cpu().numpy(),
+                                [True] * n, "n1 (c) prefill"))
+    pool_err = _pools_close(torch, kp + vp, outs[1:1 + 2 * L],
+                            "n1 (c) prefill")
+    dprog, dfetch = build_decode_program(cfg, geom)
+    step = DecodeStepModel(lm, geom)
+    pages = {f"gen_{s}_pages_{i}": outs[1 + i + (L if s == "v" else 0)]
+             for i in range(L) for s in "kv"}
+    kp = [pages[f"gen_k_pages_{i}"].clone() for i in range(L)]
+    vp = [pages[f"gen_v_pages_{i}"].clone() for i in range(L)]
+    nxt = outs[0].cpu().numpy().astype(np.int64)
+    pos = lens.astype(np.int64)
+    dec_ms, dec_counts = [], {}
+    for s in range(N1_DECODE_STEPS):
+        dfeed = dict(pages, gen_tokens=nxt[:, None],
+                     gen_positions=pos, gen_num_valid=np.ones(n, np.int32),
+                     gen_attend_lens=(pos + 1).astype(np.int32),
+                     gen_block_tables=tables)
+        douts, ms, counts = _run_program(torch, exe, dprog, dfeed, dfetch,
+                                         scope, [_logits_name(dprog)])
+        require(counts["paged_attention"] == L, f"n1 (c) decode: K13 "
+                f"launched {counts['paged_attention']} times, want {L}")
+        dec_ms.append(ms)
+        for k, v in counts.items():
+            dec_counts[k] = dec_counts.get(k, 0) + v
+        mtok = step(torch.as_tensor(nxt, device=DEVICE),
+                    torch.as_tensor(pos, device=DEVICE, dtype=torch.int32),
+                    torch.ones(n, dtype=torch.int32, device=DEVICE),
+                    torch.as_tensor(pos + 1, device=DEVICE,
+                                    dtype=torch.int32),
+                    torch.as_tensor(tables, device=DEVICE), kp, vp)
+        diffs += len(_tokens_or_ties(np, douts[0].cpu().numpy(),
+                                     mtok.cpu().numpy(),
+                                     douts[-1].cpu().numpy(), [True] * n,
+                                     f"n1 (c) decode {s}"))
+        pool_err = max(pool_err, _pools_close(
+            torch, kp + vp, douts[1:1 + 2 * L], f"n1 (c) decode {s}"))
+        pages = {f"gen_{s_}_pages_{i}": douts[1 + i + (L if s_ == "v" else 0)]
+                 for i in range(L) for s_ in "kv"}
+        nxt = douts[0].cpu().numpy().astype(np.int64)
+        pos = pos + 1
+    log(f"  n1 (c) two_lane: prefill Program {pre_ms:.3f} ms ({n} x {S}, "
+        f"flash {pre_counts['flash_attention_fwd']}), decode Program "
+        f"{statistics.mean(dec_ms):.3f} ms a step (K13 {L} a step); tokens "
+        f"equal but {diffs} near-ties; pools within {pool_err:.3e} [{card}]")
+    return pre_counts, dec_counts, {
+        "prefill_ms": pre_ms, "decode_ms": dec_ms,
+        "tokens_differ_at_ties": diffs, "pool_max_rel_err": pool_err}
+
+
+def n1_lora(torch, np, seed, card, exe, scope, cfg):
+    """(d): int8 weights, then ``rewrite_for_lora(program, store)`` over
+    the ragged Program with two of phase 7b's adapters (ranks 8, 16)."""
+    from paddle_tpu_torch.adapters import AdapterStore, rewrite_for_lora
+    from paddle_tpu_torch.generation import (CacheGeometry,
+                                             build_ragged_step_program)
+    from paddle_tpu_torch.quantize import rewrite_for_inference
+
+    L = cfg.num_layers
+    geom = CacheGeometry(N_PAGES, PAGE, cfg.max_position // PAGE)
+    feed, valid = _n1_mixed_feed(torch, np, seed, cfg, "float32")
+    rows = [None, "ad0", "ad1", None, "ad0", "ad1", "ad0", None]
+
+    # the unrewritten int8 Program (its quantization converts the scope's
+    # weights; later Programs over the scope repoint onto them)
+    base, bfetch = build_ragged_step_program(cfg, geom, CHUNK)
+    rewrite_for_inference(base, scope, "int8")
+    exe.run(base, feed=feed, fetch_list=bfetch, scope=scope,
+            return_numpy=False)
+    bout, base_ms, _c = _run_program(torch, exe, base, feed, bfetch, scope,
+                                     [_logits_name(base)])
+    child = scope.new_scope()
+    prog, fetches = build_ragged_step_program(cfg, geom, CHUNK)
+    rewrite_for_inference(prog, scope, "int8")
+    store = AdapterStore.for_program(prog, rank_buckets=(8, 16),
+                                     slots_per_bucket=2, device=DEVICE)
+    rep = rewrite_for_lora(prog, store)
+    require(rep.n_repointed == 4 * L + 1 and {r["base_kind"] for r in
+                                              rep.rows} == {"int8"},
+            f"n1 (d): the rewrite repointed {rep.summary()}")
+    before = [(op.type, dict(op.inputs), dict(op.attrs))
+              for op in prog.global_block().ops]
+    again = rewrite_for_lora(prog, store)
+    require(again.n_repointed == 0 and before == [
+        (op.type, dict(op.inputs), dict(op.attrs))
+        for op in prog.global_block().ops],
+        "n1 (d): a second rewrite changed the Program")
+    store.attach(child)
+    ads = adapter_factors(torch, store, seed)[:2]
+    for aid, fac, alpha in ads:
+        store.upload(aid, fac, alpha=alpha)
+    slots = np.stack([store.slots_row(a) for a in rows]).astype(np.int32)
+    lfeed = dict(feed, gen_adapter_slots=slots)
+    exe.run(prog, feed=lfeed, fetch_list=fetches, scope=child,
+            return_numpy=False)
+    outs, ms, counts = _run_program(torch, exe, prog, lfeed, fetches, child,
+                                    [_logits_name(prog)])
+    for k in ("quantized_matmul", "batched_lora_add_"):
+        require(counts[k] == 4 * L + 1, f"n1 (d): {k} launched {counts[k]} "
+                f"times, want {4 * L + 1}")
+    got = outs[0].cpu().numpy().reshape(LANES, CHUNK)
+    want = bout[0].cpu().numpy().reshape(LANES, CHUNK)
+    base_rows = [b for b, a in enumerate(rows) if a is None]
+    vmask = np.asarray(valid).reshape(LANES, CHUNK)
+    logits = outs[-1].cpu().numpy().reshape(LANES, CHUNK, -1)
+    ties = 0
+    for b in base_rows:
+        ties += len(_tokens_or_ties(np, got[b], want[b], logits[b], vmask[b],
+                                    f"n1 (d) base row {b}"))
+    moved = 0
+    for aid, fac, alpha in ads:
+        one = AdapterStore.for_program(prog, rank_buckets=(8, 16),
+                                       slots_per_bucket=2, device=DEVICE)
+        own = scope.new_scope()
+        dprog, dfetch = build_ragged_step_program(cfg, geom, CHUNK)
+        rewrite_for_inference(dprog, scope, "int8")
+        rewrite_for_lora(dprog, one)
+        one.attach(own)
+        one.upload(aid, fac, alpha=alpha)
+        dslots = np.stack([one.slots_row(aid if a == aid else None)
+                           for a in rows]).astype(np.int32)
+        douts = exe.run(dprog, feed=dict(feed, gen_adapter_slots=dslots),
+                        fetch_list=dfetch, scope=own, return_numpy=False)
+        dtok = douts[0].cpu().numpy().reshape(LANES, CHUNK)
+        for b, a in enumerate(rows):
+            if a == aid:
+                ties += len(_tokens_or_ties(np, got[b], dtok[b], logits[b],
+                                            vmask[b], f"n1 (d) {aid} row {b}"))
+                moved += int((got[b][vmask[b]] != want[b][vmask[b]]).sum())
+        del one, own, douts
+    log(f"  n1 (d) LoRA over int8: {rep.n_repointed} ops repointed, a second "
+        f"rewrite none; step {ms:.3f} ms against the unrewritten int8 "
+        f"Program's {base_ms:.3f} ms; base rows equal the unrewritten "
+        f"Program's, adapter rows a dedicated Program's ({ties} near-ties; "
+        f"{moved} adapter-row tokens differ from the base); K11 "
+        f"{counts['quantized_matmul']}, K12 {counts['batched_lora_add_']} "
+        f"[{card}]")
+    return counts, {"step_ms": ms, "base_step_ms": base_ms,
+                    "ops_repointed": rep.n_repointed, "near_ties": ties,
+                    "adapter_tokens_moved": moved}
+
+
+def phase_n1(torch, np, seed, card):
+    """n1: the serving Programs at gpt3_1p3b's full width."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.generation import share_params
+    from paddle_tpu_torch.generation.model import GPTLM
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig.gpt3_1p3b()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    shapes = {n: tuple(p.shape)
+              for n, p in GPTLM(cfg, device="meta").jax_params().items()}
+    params = make_params(torch, shapes, cfg.initializer_range, gen)
+    scope = fluid.Scope()
+    for n, t in params.items():
+        scope.set_var(n, t)
+    lm = GPTLM(cfg, device="meta")
+    share_params(lm, params)         # the module reads the scope's tensors
+    del params
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    paths, rec = {}, {}
+    paths["program_ragged"], rec["a"] = n1_ragged(
+        torch, np, seed, card, exe, scope, lm, cfg, "float32")
+    paths["program_ragged_int8"], rec["b"] = n1_ragged(
+        torch, np, seed, card, exe, scope, lm, cfg, "int8")
+    paths["program_prefill"], paths["program_decode"], rec["c"] = \
+        n1_two_lane(torch, np, seed, card, exe, scope, lm, cfg)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["program_lora"], rec["d"] = n1_lora(torch, np, seed, card, exe,
+                                              scope, cfg)
+    del scope, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, rec
+
+
+def _lower(torch, type_, ins, attrs, dev=DEVICE):
+    from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
+
+    op = _LOp(type_, attrs)
+    return get_op_def(type_).lower(
+        LoweringContext(dev), op,
+        {k: (v if isinstance(v, list) else [v]) for k, v in ins.items()})
+
+
+def _n2_cases(torch, np, seed):
+    """(op, inputs as numpy, attrs, output slot, the unfused graph over
+    torch tensors on a device, tolerance (atol of max|ref|, rtol), the
+    op's bytes and flops)."""
+    rng = np.random.RandomState(seed + 21)
+
+    def f(*s, scale=1.0):
+        return (rng.randn(*s) * scale).astype(np.float32)
+
+    B, S, N, Hd = 8, 128, 12, 64
+    D = N * Hd
+    mask = np.zeros((B, 1, 1, S), np.float32)
+    for b in range(B):
+        mask[b, ..., S - 16 * (b % 4):] = -1e4
+    mh = {"Input": f(B, S, D), "W": f(D, 3, N, Hd, scale=0.02),
+          "Bias": f(3, N, Hd, scale=0.02), "BiasQK": mask}
+    alpha = 1.0 / np.sqrt(Hd)
+
+    def mh_unfused(t):
+        w, b = t["W"], t["Bias"]
+        heads = []
+        for c in range(3):
+            h = _lower(torch, "matmul", {"X": t["Input"], "Y": w[:, c].reshape(
+                D, D)}, {}, t["Input"].device)["Out"][0]
+            h = _lower(torch, "elementwise_add", {"X": h, "Y": b[c].reshape(
+                D)}, {"axis": -1}, h.device)["Out"][0]
+            h = _lower(torch, "reshape2", {"X": h}, {"shape": [B, S, N, Hd]},
+                       h.device)["Out"][0]
+            heads.append(_lower(torch, "transpose2", {"X": h},
+                                {"axis": [0, 2, 1, 3]}, h.device)["Out"][0])
+        q, k, v = heads
+        s = _lower(torch, "matmul", {"X": q, "Y": k},
+                   {"transpose_Y": True, "alpha": alpha}, q.device)["Out"][0]
+        s = _lower(torch, "elementwise_add", {"X": s, "Y": t["BiasQK"]},
+                   {"axis": -1}, s.device)["Out"][0]
+        p = _lower(torch, "softmax", {"X": s}, {"axis": -1}, s.device)["Out"][0]
+        o = _lower(torch, "matmul", {"X": p, "Y": v}, {}, p.device)["Out"][0]
+        o = _lower(torch, "transpose2", {"X": o}, {"axis": [0, 2, 1, 3]},
+                   o.device)["Out"][0]
+        return _lower(torch, "reshape2", {"X": o}, {"shape": [B, S, D]},
+                      o.device)["Out"][0]
+
+    R, E = 8 * 128, 768
+    fe = {"X": f(R, E), "W": f(E, E, scale=0.03), "Bias0": f(E, scale=0.02),
+          "Y": f(R, E), "Scale": 1 + f(E, scale=0.1),
+          "Bias1": f(E, scale=0.1)}
+
+    def fe_unfused(t):
+        h = _lower(torch, "mul", {"X": t["X"], "Y": t["W"]}, {},
+                   t["X"].device)["Out"][0]
+        h = _lower(torch, "elementwise_add", {"X": h, "Y": t["Bias0"]},
+                   {"axis": 1}, h.device)["Out"][0]
+        h = _lower(torch, "elementwise_add", {"X": h, "Y": t["Y"]}, {},
+                   h.device)["Out"][0]
+        return _lower(torch, "layer_norm", {"X": h, "Scale": t["Scale"],
+                                            "Bias": t["Bias1"]},
+                      {"begin_norm_axis": 1, "epsilon": 1e-5},
+                      h.device)["Y"][0]
+
+    Bc, C, HW = 32, 256, 14        # ResNet-50's conv4_x 3 x 3 at batch 32
+    cv = {"Input": f(Bc, C, HW, HW), "Filter": f(C, C, 3, 3, scale=0.02),
+          "Bias": f(C, scale=0.1), "ResidualData": f(Bc, C, HW, HW)}
+    cattrs = {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1],
+              "groups": 1, "activation": "relu"}
+
+    def cv_unfused(t):
+        h = _lower(torch, "conv2d", {"Input": t["Input"],
+                                     "Filter": t["Filter"]}, cattrs,
+                   t["Input"].device)["Output"][0]
+        h = _lower(torch, "elementwise_add", {"X": h, "Y": t["Bias"]},
+                   {"axis": 1}, h.device)["Out"][0]
+        h = _lower(torch, "elementwise_add", {"X": h,
+                                              "Y": t["ResidualData"]}, {},
+                   h.device)["Out"][0]
+        return _lower(torch, "relu", {"X": h}, {}, h.device)["Out"][0]
+
+    def nbytes(ins, out_elems):
+        return 4 * (sum(a.size for a in ins.values()) + out_elems)
+
+    return [
+        ("multihead_matmul", mh, {"alpha": alpha}, "Out", mh_unfused,
+         (1e-5, 1e-4), nbytes(mh, B * S * D),
+         2 * B * S * D * 3 * D + 2 * 2 * B * N * S * S * Hd),
+        ("fused_fc_elementwise_layernorm", fe,
+         {"begin_norm_axis": 1, "epsilon": 1e-5, "x_num_col_dims": 1},
+         "Out", fe_unfused, (1e-5, 1e-4), nbytes(fe, R * E + 2 * R),
+         2 * R * E * E),
+        ("conv2d_fusion", cv, cattrs, "Output", cv_unfused, (1e-5, 1e-4),
+         nbytes(cv, Bc * C * HW * HW), 2 * Bc * C * HW * HW * C * 9),
+    ]
+
+
+def phase_n2(torch, np, seed, card):
+    """n2: three fused inference ops at their users' widths, on the card
+    against their unfused op graphs on the card and against the port's
+    CPU path."""
+    out = {}
+    for op, ins, attrs, slot, unfused, (atol, rtol), nb, flops in _n2_cases(
+            torch, np, seed):
+        dev = {k: torch.as_tensor(v, device=DEVICE) for k, v in ins.items()}
+        cpu = {k: torch.as_tensor(v) for k, v in ins.items()}
+        with torch.no_grad():
+            got = _lower(torch, op, dev, attrs)[slot][0]
+            ref = unfused(dev)
+            host = _lower(torch, op, cpu, attrs, "cpu")[slot][0]
+            top = float(host.abs().max())
+            err_unfused = float((got - ref).abs().max())
+            err_cpu = float((got.cpu() - host).abs().max())
+            bound = atol * top + rtol * top
+            require(err_unfused <= bound and err_cpu <= bound,
+                    f"n2 {op}: card against unfused {err_unfused:.3e}, "
+                    f"against CPU {err_cpu:.3e} > {bound:.3e}")
+            ms = device_ms(torch, lambda: _lower(torch, op, dev, attrs))
+            un_ms = device_ms(torch, lambda: unfused(dev))
+        b_ms, by = bound_ms(nb, flops, "float32")
+        out[op] = {"ms": ms, "unfused_ms": un_ms, "bound_ms": b_ms,
+                   "bound_by": by, "err_vs_unfused": err_unfused,
+                   "err_vs_cpu": err_cpu, "max_abs_ref": top}
+        log(f"  n2 {op}: {ms:.4f} ms, unfused graph {un_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({by}); max err against the unfused graph "
+            f"{err_unfused:.3e}, the CPU {err_cpu:.3e} (bound {bound:.3e} ="
+            f" ({atol} + {rtol}) x max|out| {top:.3e}) [{card}]")
+    return out
+
+
+def _ps_job(torch, np, fluid, seed, opt, batches, eps):
+    """DeepFM at d4's configuration through DistributeTranspiler in
+    pserver mode: the trainer on the card, the servers on threads."""
+    from paddle_tpu_torch.models.ctr import build_deepfm
+    from paddle_tpu_torch.ps.transpile import PSTrainer, launch_pservers
+    from paddle_tpu_torch.transpiler import (DistributeTranspiler,
+                                             DistributeTranspilerConfig)
+
+    main, startup, _, fetches = build_deepfm(optimizer=opt, is_sparse=True,
+                                             **CTR)
+    main.random_seed = startup.random_seed = seed
+    cfg = DistributeTranspilerConfig()
+    cfg.mode = "pserver"
+    t = DistributeTranspiler(cfg)
+    t.transpile(0, program=main, pservers=",".join(eps), trainers=1,
+                sync_mode=True, startup_program=startup)
+    art = t._ps_artifacts
+    require(set(art.sparse_params) == {"fm_v", "fm_w1"},
+            f"n3: sparse tables {sorted(art.sparse_params)}, want fm_v and "
+            "fm_w1 (a dense pull of the table would hide the prefetch path)")
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    init = {n: scope.find_var(n).detach().cpu().numpy().copy()
+            for n in ("fm_v", "fm_w1")}
+    servers = launch_pservers(art, scope)
+    trainer = PSTrainer(art, exe, scope)
+    pushes = []
+    push = trainer.client.push_sparse
+
+    def record(shard_map, name, rows, grad):
+        pushes.append((name, rows.copy(), grad.copy()))
+        return push(shard_map, name, rows, grad)
+
+    trainer.client.push_sparse = record
+    losses, ms, bytes_ = [], [], []
+    for b in batches:
+        s0 = dict(trainer.client.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (l,) = trainer.run_step(b, [fetches["loss"]])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(l).reshape(-1)[0]))
+        bytes_.append({k: trainer.client.stats[k] - s0[k] for k in s0})
+    return dict(art=art, scope=scope, exe=exe, trainer=trainer,
+                servers=servers, losses=losses, ms=ms, bytes=bytes_,
+                init=init, pushes=pushes, loss=fetches["loss"])
+
+
+def _server_rows(job, name, rows):
+    return job["trainer"].client.prefetch_rows(job["art"].shard_map, name,
+                                               rows)
+
+
+def phase_n3(torch, np, seed, card, out_dir):
+    """n3: DeepFM at d4's configuration through the parameter server."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.ctr import build_deepfm, synthetic_ctr_batch
+
+    fluid.set_flags({"optimizer_fuse": "auto"})
+    rng = np.random.RandomState(seed)
+    batches = [synthetic_ctr_batch(rng, CTR_BATCH, CTR["num_fields"],
+                                   CTR["vocab_size"], CTR["dense_dim"])
+               for _ in range(CTR_STEPS)]
+    touched = np.unique(np.concatenate([b["sparse_ids"].reshape(-1)
+                                        for b in batches]))
+    rec = {}
+    # the one-process sparse SGD run on the card
+    main, startup, _, fetches = build_deepfm(
+        optimizer=fluid.optimizer.SGD(0.1), is_sparse=True, **CTR)
+    main.random_seed = startup.random_seed = seed
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    ref_losses = [float(ctr_step(torch, exe, main, b, [fetches["loss"]],
+                                 scope)[0][0].reshape(-1)[0])
+                  for b in batches]
+    ref = {p.name: scope.find_var(p.name) for p in main.all_parameters()}
+    del exe, scope
+    job = _ps_job(torch, np, fluid, seed, fluid.optimizer.SGD(0.1), batches,
+                  [f"127.0.0.1:{p}" for p in _free_ports(2)])
+    try:
+        np.testing.assert_allclose(job["losses"], ref_losses, rtol=SGD_RTOL)
+    except AssertionError as e:
+        raise SmokeFailure(f"n3 SGD: losses {job['losses']} against one "
+                           f"process's {ref_losses}: {e}") from None
+    worst = 0.0
+    for name in ("fm_v", "fm_w1"):
+        got = _server_rows(job, name, touched)
+        want = ref[name][torch.as_tensor(touched, device=DEVICE)].cpu().numpy()
+        tol = SGD_RTOL * float(np.abs(want).max())
+        d = float(np.abs(got - want).max())
+        worst = max(worst, d)
+        require(np.allclose(got, want, rtol=SGD_RTOL, atol=tol),
+                f"n3 SGD: touched rows of {name} differ by {d:.3e}")
+        untouched = np.setdiff1d(rng.randint(0, CTR["vocab_size"], 20000),
+                                 touched)
+        require(np.array_equal(_server_rows(job, name, untouched),
+                               job["init"][name][untouched]),
+                f"n3 SGD: untouched rows of {name} moved")
+    for name, want in ref.items():
+        if name in ("fm_v", "fm_w1"):
+            continue
+        got = job["scope"].find_var(name)
+        d = float((got - want).abs().max())
+        worst = max(worst, d)
+        require(bool(torch.allclose(got, want, rtol=SGD_RTOL,
+                                    atol=SGD_RTOL * float(want.abs().max()))),
+                f"n3 SGD: dense {name} differs by {d:.3e}")
+    # the card's idle share over one more step, traced
+    prof = start_profile(torch)
+    t0 = time.perf_counter()
+    job["trainer"].run_step(batches[0], [job["loss"]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.__exit__(None, None, None)
+    trace = trace_breakdown(prof, out_dir, "ps_step", wall, 1)
+    job["trainer"].client.shutdown_servers()
+    steady = job["ms"][1:]
+    per = job["bytes"][1]
+    rec["sgd"] = {"losses": job["losses"], "step_ms": job["ms"],
+                  "bytes_a_step": per, "max_abs_err": worst,
+                  "idle_share": trace["device_idle_share"],
+                  "kernels_a_step": trace["kernels"]}
+    log(f"  n3 SGD through 2 pservers: losses {job['losses']} equal one "
+        f"process's within rtol {SGD_RTOL}, parameters within {worst:.3e};"
+        f" untouched rows keep their bits; {statistics.mean(steady):.3f} ms "
+        f"a step (first {job['ms'][0]:.3f}), {per['bytes_pushed']} bytes "
+        f"pushed and {per['bytes_pulled']} pulled a step, idle share "
+        f"{trace['device_idle_share']:.3f} over a traced step [{card}]")
+    del job, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    job = _ps_job(torch, np, fluid, seed, fluid.optimizer.AdamOptimizer(1e-3),
+                  batches, [f"127.0.0.1:{p}" for p in _free_ports(2)])
+    try:
+        losses = job["losses"]
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"n3 Adam: losses {losses} not finite and falling")
+        spec = next(s for n, s in job["art"].optimizer_specs.items()
+                    if n == "fm_v")
+        b1, b2 = spec.get("beta1", 0.9), spec.get("beta2", 0.999)
+        eps_ = spec.get("epsilon", 1e-8)
+        lr = float(job["scope"].find_var(spec["lr_var"]).reshape(-1)[0])
+        # a numpy lazy Adam over the merged gradients the trainer pushed
+        v = job["init"]["fm_v"][touched].copy()
+        m1, m2 = np.zeros_like(v), np.zeros_like(v)
+        p1, p2 = b1, b2
+        for name, rows, grad in job["pushes"]:
+            if name != "fm_v":
+                continue
+            loc = np.searchsorted(touched, rows)     # touched is sorted
+            m1[loc] = b1 * m1[loc] + (1 - b1) * grad
+            m2[loc] = b2 * m2[loc] + (1 - b2) * grad * grad
+            lr_t = lr * np.sqrt(1 - p2) / (1 - p1)
+            v[loc] -= (lr_t * m1[loc] / (np.sqrt(m2[loc]) + eps_)).astype(
+                np.float32)
+            p1, p2 = p1 * b1, p2 * b2
+        got = _server_rows(job, "fm_v", touched)
+        d = float(np.abs(got - v).max())
+        require(np.allclose(got, v, rtol=1e-6, atol=1e-7),
+                f"n3 Adam: touched rows differ from a numpy lazy Adam by "
+                f"{d:.3e}")
+    finally:
+        job["trainer"].client.shutdown_servers()
+    rec["adam"] = {"losses": losses, "step_ms": job["ms"],
+                   "touched_rows_max_abs_err": d}
+    log(f"  n3 Adam on the servers: losses {losses}; the {touched.size} "
+        f"touched rows of fm_v equal a numpy lazy Adam within {d:.3e}; "
+        f"{statistics.mean(job['ms'][1:]):.3f} ms a step [{card}]")
+    del job
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _n4_model(fluid, seed, opt):
+    from paddle_tpu_torch.models.ctr import build_deepfm
+
+    main, startup, _, fetches = build_deepfm(
+        optimizer=opt, is_sparse=True, **dict(CTR, vocab_size=N4_VOCAB))
+    main.random_seed = startup.random_seed = seed
+    return main, startup, fetches["loss"]
+
+
+def _n4_batch(np, seed, step, tid):
+    from paddle_tpu_torch.models.ctr import synthetic_ctr_batch
+
+    b = synthetic_ctr_batch(np.random.RandomState(seed * 1000 + step),
+                            CTR_BATCH, CTR["num_fields"], N4_VOCAB,
+                            CTR["dense_dim"])
+    half = CTR_BATCH // 2
+    if tid is None:
+        return b
+    return {k: v[tid * half:(tid + 1) * half] for k, v in b.items()}
+
+
+def n4_child(argv) -> int:
+    """A process of phase n4's parameter-server job, started by ``python
+    -m paddle_tpu_torch.distributed.launch_ps``: ``argv`` is (out dir,
+    seed). Both runs share the processes: a pserver serves the sync
+    SGD run's shards on its endpoint and the geo run's on its endpoint's
+    port + the server count (a thread); a trainer trains on the card,
+    sync first, then geo. Everything starts from the parent's
+    ``init.npz``."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel import fleet as F
+    from paddle_tpu_torch.ps.client import PSClient, wait_server_ready
+    from paddle_tpu_torch.ps.server import ParameterServer
+    from paddle_tpu_torch.ps.transpile import server_shards
+    from paddle_tpu_torch.transpiler import GeoSgdTranspiler
+
+    t0 = time.perf_counter()
+    out_dir, seed = argv[0], int(argv[1])
+    role = F.PaddleCloudRoleMaker(is_collective=False)
+    F.fleet.init(role)
+    server = F.fleet.is_server()
+    dev = "cpu" if server else DEVICE
+    exe = fluid.Executor(fluid.CPUPlace() if server else fluid.CUDAPlace(0))
+    init = np.load(os.path.join(out_dir, "init.npz"))
+    eps = role.get_pserver_endpoints()
+    geo_eps = [f"{h}:{int(p) + len(eps)}"
+               for h, p in (e.rsplit(":", 1) for e in eps)]
+
+    def scope_of(startup):
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        for n in init.files:
+            scope.set_var(n, torch.from_numpy(init[n]).to(dev))
+        return scope
+
+    main, startup, loss = _n4_model(fluid, seed, None)
+    strategy = F.DistributedStrategy()
+    strategy.mode = "pserver"
+    with fluid.program_guard(main, startup):
+        F.fleet.distributed_optimizer(fluid.optimizer.SGD(0.1),
+                                      strategy).minimize(loss)
+    scope = scope_of(startup)
+    gmain, gstartup, gloss = _n4_model(fluid, seed, fluid.optimizer.SGD(0.1))
+    geo = GeoSgdTranspiler()
+    geo.transpile(0 if server else role.worker_index(), program=gmain,
+                  pservers=",".join(geo_eps), trainers=role.worker_num(),
+                  startup_program=gstartup)
+    gart = geo._ps_artifacts
+    gscope = scope_of(gstartup)
+    if server:
+        gep = geo_eps[eps.index(role.get_current_endpoint())]
+        shards, specs = server_shards(gart, gscope, gep)
+        geo_thread = ParameterServer(gep, shards, specs, gart.trainers,
+                                     gart.sync_mode).start_background()
+        print(f"PSERVER_READY {time.perf_counter() - t0:.1f} s", flush=True)
+        F.fleet.run_server(scope=scope)     # until the sync run's end
+        geo_thread.join()                   # until the geo run's end
+        return 0
+    tid = role.worker_index()
+    params = [p.name for p in main.all_parameters()]
+    trainer = F.fleet.init_worker(executor=exe, scope=scope)
+    t_ready = time.perf_counter() - t0
+    losses = [float(np.asarray(trainer.run_step(
+        _n4_batch(np, seed, s, tid), [loss])[0]).reshape(-1)[0])
+        for s in range(N4_STEPS)]
+    trainer._refresh_sparse_rows({n: np.arange(N4_VOCAB) for n in
+                                  trainer.art.sparse_params.values()})
+    out = {n: scope.get_numpy(n) for n in params}
+    F.fleet.stop_worker()
+    t_sync = time.perf_counter() - t0
+    wait_server_ready(gart.endpoints)
+    comm = geo.get_communicator(gscope, need_push_nums=N4_GEO_PUSH)
+    geo_losses = []
+    for s in range(N4_GEO_STEPS):
+        # two batches cycled: the losses of the same batch fall
+        (l,) = exe.run(gmain, feed=_n4_batch(np, seed, s % 2, tid),
+                       fetch_list=[gloss], scope=gscope)
+        geo_losses.append(float(np.asarray(l).reshape(-1)[0]))
+        for g in gart.grad_to_param:
+            comm.send(g, None)
+    client = PSClient(gart.endpoints, tid)
+    client.barrier()                # both trainers pushed their last delta
+    for n in gart.shard_map:
+        gscope.set_var(n, torch.from_numpy(
+            client.get_param(gart.shard_map, n)).to(DEVICE))
+    client.barrier()                # both pulled: the servers may stop
+    if tid == 0:
+        client.shutdown_servers()
+    client.close()
+    out.update({f"geo/{n}": gscope.get_numpy(n) for n in params})
+    np.savez(os.path.join(out_dir, f"trainer{tid}.npz"),
+             losses=np.asarray(losses), geo_losses=np.asarray(geo_losses),
+             seconds=np.asarray([t_ready, t_sync,
+                                 time.perf_counter() - t0]), **out)
+    return 0
+
+
+def phase_n4(torch, np, seed, card, out_dir):
+    """n4: two pservers and two trainers as processes through
+    ``launch_ps``: sync SGD against one process over both trainers'
+    batches, then GeoSgdTranspiler over the same processes."""
+    import paddle_tpu_torch as fluid
+
+    # the checkout holding the package (the launcher's working directory)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(fluid.__file__)))
+    root = tempfile.mkdtemp(prefix="n4_", dir=out_dir)
+    try:
+        main, startup, loss = _n4_model(fluid, seed,
+                                        fluid.optimizer.SGD(0.1))
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        params = [p.name for p in main.all_parameters()]
+        np.savez(os.path.join(root, "init.npz"),
+                 **{n: scope.get_numpy(n) for n in params})
+        logs = os.path.join(root, "logs")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch_ps",
+             "--server_num", "2", "--worker_num", "2", "--started_port",
+             str(_free_ports(1)[0]), "--log_dir", logs,
+             os.path.abspath(__file__), "--n4-child", root, str(seed)],
+            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        # the one-process reference meanwhile: SGD on the full batches
+        for s in range(N4_STEPS):
+            exe.run(main, feed=_n4_batch(np, seed, s, None),
+                    fetch_list=[loss], scope=scope)
+        want = {n: scope.get_numpy(n) for n in params}
+        try:
+            text, _ = proc.communicate(timeout=N4_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        wall = time.perf_counter() - t0
+        texts = {}
+        for f in (sorted(os.listdir(logs)) if os.path.isdir(logs) else []):
+            with open(os.path.join(logs, f)) as fh:
+                texts[f] = fh.read()
+        require(proc.returncode == 0, f"n4: launch_ps exited "
+                f"{proc.returncode}: {text[-2000:]}\n" + "\n".join(
+                    f"--- {f}\n{t[-3000:]}" for f, t in texts.items()))
+        ready = []
+        for i in (0, 1):
+            # the log may hold other lines first: the marker's own line
+            line = next((ln for ln in texts.get(f"pserver.{i}.log",
+                                                "").splitlines()
+                         if ln.startswith("PSERVER_READY")), None)
+            require(line is not None, f"n4: pserver {i} never said "
+                    "PSERVER_READY")
+            ready.append(line.split()[1])
+        outs = [np.load(os.path.join(root, f"trainer{t}.npz"))
+                for t in (0, 1)]
+        worst = 0.0
+        for t in outs:
+            for n in params:
+                top = float(np.abs(want[n]).max())
+                d = float(np.abs(t[n] - want[n]).max())
+                worst = max(worst, d / max(top, 1e-30))
+                require(np.allclose(t[n], want[n], rtol=N4_RTOL,
+                                    atol=N4_RTOL * top),
+                        f"n4 sync: {n} differs from one process by {d:.3e}")
+        for n in params:
+            require(np.array_equal(outs[0][f"geo/{n}"], outs[1][f"geo/{n}"]),
+                    f"n4 geo: the trainers' {n} differ after the final "
+                    "sync")
+        geo_losses = [list(map(float, t["geo_losses"])) for t in outs]
+        require(all(sum(gl[-2:]) < sum(gl[:2]) for gl in geo_losses),
+                f"n4 geo: losses {geo_losses} do not fall (the last two "
+                "against the first two, the same two batches)")
+        sync_losses = [list(map(float, t["losses"])) for t in outs]
+        seconds = [list(map(float, t["seconds"])) for t in outs]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  n4 launch_ps, 2 pservers + 2 trainers (vocabulary cut to "
+        f"{N4_VOCAB} rows): after {N4_STEPS} sync SGD steps both trainers' "
+        f"parameters equal one process over both batches within "
+        f"{worst:.3e} of each one's largest (rtol {N4_RTOL}); losses "
+        f"{sync_losses}; geo over the same processes ({N4_GEO_STEPS} "
+        f"steps, a push every {N4_GEO_PUSH}, 2 batches cycled): losses "
+        f"{geo_losses}, the trainers equal after the final sync; the job "
+        f"{wall:.1f} s (pservers ready at {ready} s, trainers ready / sync "
+        f"done / geo done at {seconds} s of their own) [{card}]")
+    return {"sync_losses": sync_losses, "sync_max_rel_err": worst,
+            "geo_losses": geo_losses, "seconds": wall,
+            "trainer_seconds": seconds}
+
+
+def phase_n(torch, np, seed, card, out_dir):
+    """Phase n: the serving Programs, the fused ops, the parameter
+    server. Returns (paths, record)."""
+    t0 = time.perf_counter()
+    rec = {}
+    paths, rec["n1"] = phase_n1(torch, np, seed, card)
+    rec["n1_seconds"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    rec["n2"] = phase_n2(torch, np, seed, card)
+    rec["n2_seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["n3"] = phase_n3(torch, np, seed, card, out_dir)
+    rec["n3_seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["n4"] = phase_n4(torch, np, seed, card, out_dir)
+    rec["n4_seconds"] = time.perf_counter() - t
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"  phase n took {rec['seconds']:.1f} s (n1 {rec['n1_seconds']:.1f},"
+        f" n2 {rec['n2_seconds']:.1f}, n3 {rec['n3_seconds']:.1f}, n4 "
+        f"{rec['n4_seconds']:.1f})")
+    return paths, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -11339,6 +12303,15 @@ def main(argv=None) -> int:
         paths.update(mpaths)
         torch.cuda.empty_cache()
     mark("m")
+    if "n" in args.phases:
+        log("phase n: the serving Programs at gpt3_1p3b's width, the fused "
+            "inference ops, the parameter server (DeepFM at 2^25 rows, "
+            "launch_ps processes)")
+        npaths, record["phase_n"] = phase_n(torch, np, args.seed, card,
+                                            args.out)
+        paths.update(npaths)
+        torch.cuda.empty_cache()
+    mark("n")
     record["phase_seconds"] = phase_s
     log(f"seconds a phase: {phase_s} [{card}]")
     launches = {name: {p: c.get(name, 0) for p, c in paths.items()}
@@ -11348,7 +12321,7 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h, i, j, k, l and m)")
+        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h, i, j, k, l, m and n)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"
@@ -11444,6 +12417,8 @@ if __name__ == "__main__":
             sys.exit(i_child(sys.argv[2:]))
         if sys.argv[1:2] == ["--k4-child"]:
             sys.exit(k4_child(sys.argv[2:]))
+        if sys.argv[1:2] == ["--n4-child"]:
+            sys.exit(n4_child(sys.argv[2:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)

@@ -199,16 +199,23 @@ convolution, target assignment and mining, the proposal chain, YOLO,
 
 The rest of the layer surface: every public callable of
 ``fluid.layers`` (the SSD layers ``multi_box_head``, ``ssd_loss`` and
-``detection_output`` among them), ``layers.distributions``, and 397 of
-the JAX package's 424 op lowerings (interpolation, grid sampling,
-instance norm, the ranking and CTR losses, the streaming metrics,
-``py_func`` and ``Print`` on the host, the in-Program save / load ops,
-``sync_batch_norm`` over a data-parallel world).
+``detection_output`` among them), ``layers.distributions``,
+``contrib.layers``, and all 424 of the JAX package's op lowerings
+(interpolation, grid sampling, instance norm, the ranking and CTR
+losses, the streaming metrics, ``py_func`` and ``Print`` on the host,
+the in-Program save / load ops, ``sync_batch_norm`` over a
+data-parallel world, the inference fusions, the parameter server's ops,
+and the serving kernels' Program forms behind
+``generation.build_ragged_step_program`` and its two_lane pair).
+
+The parameter server: ``ps/`` (the JAX package's wire, host numpy
+shards and update rules), ``transpiler.DistributeTranspiler`` in
+pserver mode and ``GeoSgdTranspiler``, fleet's PS lifecycle and
+``distributed.launch_ps``.
 
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
-ported yet (ROADMAP A11): the Program forms of the fused ops, the
-parameter server's ops and the serving kernels' ops, ``contrib`` slim,
-the PS transpilers, ``analysis``, HDFS, autotune and the rest.
+ported yet (ROADMAP A11): ``contrib`` slim, ``analysis``, HDFS, autotune
+and the rest.
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of

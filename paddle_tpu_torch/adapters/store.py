@@ -25,7 +25,13 @@ lanes point there.
   adapters are pinned.
 
 ``for_model`` builds the store from the model's target table
-(``rewrite.lora_targets``), the counterpart of ``for_program`` :188.
+(``rewrite.lora_targets``), the counterpart of ``for_program`` :188,
+which is here too for the Program form of the serving step: a store
+``attach``-ed to a Scope puts its pools there under JAX's names
+(``adapter_a__{target}__r{rank}``, ``adapter_b__...``,
+``adapter_scale__r{rank}``, :101-110) as the very tensors the store
+writes, so an upload is seen by the Program's next run with nothing
+pushed.
 """
 
 from __future__ import annotations
@@ -41,9 +47,23 @@ from ..kernels.lora import lora_slot_bytes
 
 __all__ = ["AdapterStore", "AdapterError", "AdapterMissing",
            "AdapterPoolFull", "AdapterQuotaExceeded", "AdapterInUse",
-           "DEFAULT_RANK_BUCKETS"]
+           "SLOTS_FEED", "DEFAULT_RANK_BUCKETS", "a_var_name", "b_var_name",
+           "scale_var_name"]
 
+SLOTS_FEED = "gen_adapter_slots"
 DEFAULT_RANK_BUCKETS = (8, 16)
+
+
+def a_var_name(target: str, rank: int) -> str:
+    return f"adapter_a__{target}__r{int(rank)}"
+
+
+def b_var_name(target: str, rank: int) -> str:
+    return f"adapter_b__{target}__r{int(rank)}"
+
+
+def scale_var_name(rank: int) -> str:
+    return f"adapter_scale__r{int(rank)}"
 
 
 class AdapterError(RuntimeError):
@@ -156,14 +176,40 @@ class AdapterStore:
         return cls({n: (k, nn) for n, (k, nn, _q) in
                     lora_targets(lm).items()}, **kw)
 
+    @classmethod
+    def for_program(cls, program, **kw) -> "AdapterStore":
+        """A store whose targets are exactly the weights
+        ``rewrite_for_lora`` repoints in ``program`` (dense or already
+        quantize-rewritten), JAX's ``for_program``."""
+        from .rewrite import lora_targets
+
+        return cls({n: (k, nn) for n, (k, nn, _q) in
+                    lora_targets(program).items()}, **kw)
+
     @property
     def n_buckets(self) -> int:
         return len(self.rank_buckets)
 
-    def attach(self, device: Union[str, torch.device]) -> None:
-        """Move every pool to ``device`` (once; later uploads write
-        there in place)."""
-        device = torch.device(device)
+    def pool_var_names(self) -> List[Tuple[str, str]]:
+        """Per (target, bucket): the (A, B) scope var names, in the
+        order the Program rewrite wires them."""
+        return [(a_var_name(t, rb), b_var_name(t, rb))
+                for t in sorted(self.targets) for rb in self.rank_buckets]
+
+    def attach(self, target) -> None:
+        """``attach(device)``: move every pool to the device (once;
+        later uploads write there in place). ``attach(scope)`` (a
+        ``Scope``, JAX's form): set every pool and scale vector into the
+        scope under its Program name, the store's own tensors."""
+        if hasattr(target, "set_var"):
+            with self._lock:
+                for bi, rb in enumerate(self.rank_buckets):
+                    for t in self.targets:
+                        target.set_var(a_var_name(t, rb), self._a[(t, bi)])
+                        target.set_var(b_var_name(t, rb), self._b[(t, bi)])
+                    target.set_var(scale_var_name(rb), self._scale[bi])
+            return
+        device = torch.device(target)
         with self._lock:
             if device == self.device:
                 return

@@ -79,11 +79,19 @@ class SelectedRows:
 
     def to_dense(self) -> torch.Tensor:
         """The dense [height, *dims] gradient, for an update without a
-        sparse path. Equal to JAX's scatter-add of zeros."""
-        merged = self.merge()
-        out = torch.zeros(self.shape, dtype=self.values.dtype,
-                          device=self.values.device)
-        return out.index_copy_(0, merged.rows, merged.values)
+        sparse path. Equal to JAX's scatter-add of zeros, whose indices
+        wrap when negative and are dropped past the height (the -1 rows
+        ``split_selected_rows`` gives another shard's slots): such rows
+        are summed into a scratch row past the end."""
+        h = self.height
+        rows = self.rows.reshape(-1)
+        rows = torch.where(rows < 0, rows + h, rows)
+        rows = torch.where((rows >= 0) & (rows < h), rows,
+                           torch.full_like(rows, h))
+        merged = SelectedRows(rows, self.values, h + 1).merge()
+        out = torch.zeros((h + 1,) + tuple(self.values.shape[1:]),
+                          dtype=self.values.dtype, device=self.values.device)
+        return out.index_copy_(0, merged.rows, merged.values)[:h]
 
     def concat(self, other: "SelectedRows") -> "SelectedRows":
         """Both entry lists over the same dense tensor (Fluid's sum_op

@@ -35,6 +35,28 @@ Counterparts of ``paddle_tpu/generation/model.py``:
 * ``build_lm_program`` — the loss-free LM as a Program (``:159`` there,
   with its helpers ``_ln`` ... ``_pos_embed``, :92-156): what
   ``save_inference_model`` writes for the Predictor and the engine.
+* ``build_prefill_program`` / ``build_decode_program`` /
+  ``build_ragged_step_program`` — the serving steps as Programs
+  (:187, :308, :238), with JAX's feed names and fetch order (below).
+  They run through the ``Executor`` on the scope of the LM's weights
+  (the same parameter names): the ops ``kv_cache_write[_q]``,
+  ``ragged_paged_attention[_q]`` and ``paged_attention`` reach K2, K2q
+  and K13, the layer norms K1, and after ``adapters.rewrite_for_lora``
+  the ``batched_lora_*`` ops K12 (K11 under a quantized base). Unlike
+  the modules, a Program step returns NEW pools and leaves the fed ones
+  as they are, as JAX's does.
+
+  Feed names: ``gen_tokens`` [B, S] / [B, 1] / [B, chunk] int64;
+  ``gen_pos_ids`` [B, chunk] int64 (ragged: each token's absolute
+  position); ``gen_positions`` [B] int64 (the first new row's absolute
+  slot: prefill 0, decode the length, ragged the chunk start);
+  ``gen_num_valid`` [B] int32 (real rows of the window);
+  ``gen_attend_lens`` [B] int32 (decode: position + 1);
+  ``gen_last_index`` [B] int64 (prefill: length - 1);
+  ``gen_block_tables`` [B, max_pages_per_seq] int32;
+  ``gen_k_pages_{l}`` / ``gen_v_pages_{l}`` the pools, and for int8
+  pools ``gen_k_scales_{l}`` / ``gen_v_scales_{l}`` [kv_heads, pages,
+  page_size] float32.
 
 Every matmul of the model is a ``Dense`` named by its JAX weight
 (``dec0_qkv.w`` ...). ``quantize.rewrite_for_inference`` replaces them
@@ -75,10 +97,16 @@ from ..kernels import (batched_lora_add_, flash_attention, kv_cache_write,
                        quantized_kv_cache_write, quantized_matmul,
                        ragged_paged_attention)
 from ..kernels.flash_attention import flash_attention_layer
+from ..kernels.paged_attention import (kv_cache_write_layer,
+                                       paged_attention_layer)
+from ..kernels.ragged_paged_attention import (quantized_kv_cache_write_layer,
+                                              ragged_paged_attention_layer)
 from ..models.gpt import GPTConfig, _attr
 from ..param_attr import ParamAttr
 
 __all__ = ["CacheGeometry", "GPTLM", "RaggedStepModel", "PrefillStepModel",
+           "build_prefill_program", "build_decode_program",
+           "build_ragged_step_program",
            "DecodeStepModel", "load_jax_params", "share_params",
            "build_lm_program", "GPTConfig", "LN_EPS", "Dense",
            "QuantizedDense", "LoraBatch"]
@@ -573,6 +601,14 @@ def _pos_embed(ids, cfg: GPTConfig):
         param_attr=_attr("gpt_pos_emb", cfg.initializer_range))
 
 
+def _attention(q, k, v, cfg: GPTConfig):
+    if cfg.use_flash_attention:
+        return flash_attention_layer(q, k, v, cfg.num_heads, causal=True)
+    return nets.scaled_dot_product_attention(q, k, v,
+                                             num_heads=cfg.num_heads,
+                                             causal=True)
+
+
 def build_lm_program(cfg: GPTConfig, seq_len: int):
     """Loss-free causal LM: tokens [B, seq_len] -> logits [B, seq_len,
     V], as (main, startup, feeds, fetches). The positions are baked in
@@ -599,15 +635,149 @@ def build_lm_program(cfg: GPTConfig, seq_len: int):
             pre = f"dec{i}"
             ln1 = _ln(x, f"{pre}_ln1")
             q, k, v = _qkv_split(ln1, cfg, pre)
-            if cfg.use_flash_attention:
-                ctx = flash_attention_layer(q, k, v, cfg.num_heads,
-                                            causal=True)
-            else:
-                ctx = nets.scaled_dot_product_attention(
-                    q, k, v, num_heads=cfg.num_heads, causal=True)
-            x = _proj_ffn(x, ctx, cfg, pre)
+            x = _proj_ffn(x, _attention(q, k, v, cfg), cfg, pre)
         logits = _head(x, cfg)
     return main, startup, {"tokens": tokens}, {"logits": logits}
+
+
+def _page_feeds(cfg: GPTConfig, geom: CacheGeometry, dtype: str = "float32"):
+    shape = [cfg.num_heads, geom.num_pages, geom.page_size,
+             cfg.hidden_size // cfg.num_heads]
+    kps = [layers.data(f"gen_k_pages_{i}", shape, append_batch_size=False,
+                       dtype=dtype) for i in range(cfg.num_layers)]
+    vps = [layers.data(f"gen_v_pages_{i}", shape, append_batch_size=False,
+                       dtype=dtype) for i in range(cfg.num_layers)]
+    return kps, vps
+
+
+def _scale_feeds(cfg: GPTConfig, geom: CacheGeometry):
+    shape = [cfg.num_heads, geom.num_pages, geom.page_size]
+    kss = [layers.data(f"gen_k_scales_{i}", shape, append_batch_size=False)
+           for i in range(cfg.num_layers)]
+    vss = [layers.data(f"gen_v_scales_{i}", shape, append_batch_size=False)
+           for i in range(cfg.num_layers)]
+    return kss, vss
+
+
+def build_prefill_program(cfg: GPTConfig, seq_len: int, geom: CacheGeometry):
+    """The prefill lane: forward a [B, seq_len] prompt window, write its
+    K/V into the pools, take the greedy token of each row's last true
+    position (a one-hot product over the [B, S, V] logits, as JAX).
+    Returns (program, fetches): [next_token, k_pages.., v_pages..]."""
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        tokens = layers.data("gen_tokens", [seq_len], dtype="int64")
+        positions = layers.data("gen_positions", [], dtype="int64")
+        num_valid = layers.data("gen_num_valid", [], dtype="int32")
+        last_index = layers.data("gen_last_index", [], dtype="int64")
+        tables = layers.data("gen_block_tables", [geom.max_pages_per_seq],
+                             dtype="int32")
+        kps, vps = _page_feeds(cfg, geom)
+        x = layers.elementwise_add(
+            _embed(tokens, cfg),
+            _pos_embed(layers.assign(
+                np.arange(seq_len, dtype="int64")[None, :]), cfg))
+        out_pages = []
+        for i in range(cfg.num_layers):
+            pre = f"dec{i}"
+            q, k, v = _qkv_split(_ln(x, f"{pre}_ln1"), cfg, pre)
+            out_pages.append(kv_cache_write_layer(
+                kps[i], vps[i], k, v, tables, positions, num_valid,
+                cfg.num_heads))
+            x = _proj_ffn(x, _attention(q, k, v, cfg), cfg, pre)
+        logits = _head(x, cfg)                                  # [B, S, V]
+        sel = layers.one_hot(layers.unsqueeze(last_index, [1]), seq_len)
+        last_logits = layers.reduce_sum(
+            layers.elementwise_mul(logits, layers.unsqueeze(sel, [2])),
+            dim=[1])                                            # [B, V]
+        next_tok = layers.argmax(last_logits, axis=-1)
+    return main, ([next_tok] + [p[0] for p in out_pages]
+                  + [p[1] for p in out_pages])
+
+
+def build_ragged_step_program(cfg: GPTConfig, geom: CacheGeometry,
+                              chunk: int, kv_dtype: str = "float32"):
+    """One [lanes, chunk] mixed step (prefill chunks, decode rows, idle
+    lanes): per layer the chunk's K/V into the pools (int8-quantized
+    under ``kv_dtype="int8"``), then ragged paged attention over each
+    row's prefix, and the argmax at every position. Returns (program,
+    fetches): [next_tokens (R*C), k_pages.., v_pages.. (, k_scales..,
+    v_scales..)]."""
+    quantized = kv_dtype == "int8"
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        tokens = layers.data("gen_tokens", [chunk], dtype="int64")
+        pos_ids = layers.data("gen_pos_ids", [chunk], dtype="int64")
+        positions = layers.data("gen_positions", [], dtype="int64")
+        num_valid = layers.data("gen_num_valid", [], dtype="int32")
+        tables = layers.data("gen_block_tables", [geom.max_pages_per_seq],
+                             dtype="int32")
+        kps, vps = _page_feeds(cfg, geom, "int8" if quantized else "float32")
+        kss = vss = [None] * cfg.num_layers
+        if quantized:
+            kss, vss = _scale_feeds(cfg, geom)
+        x = layers.elementwise_add(_embed(tokens, cfg),
+                                   _pos_embed(pos_ids, cfg))    # [R, C, H]
+        out_pages = []
+        for i in range(cfg.num_layers):
+            pre = f"dec{i}"
+            q, k, v = _qkv_split(_ln(x, f"{pre}_ln1"), cfg, pre)
+            if quantized:
+                ko, vo, kso, vso = quantized_kv_cache_write_layer(
+                    kps[i], vps[i], kss[i], vss[i], k, v, tables,
+                    positions, num_valid, cfg.num_heads)
+            else:
+                ko, vo = kv_cache_write_layer(
+                    kps[i], vps[i], k, v, tables, positions, num_valid,
+                    cfg.num_heads)
+                kso = vso = None
+            out_pages.append((ko, vo, kso, vso))
+            ctx = ragged_paged_attention_layer(
+                q, ko, vo, tables, positions, num_valid, cfg.num_heads,
+                k_scales_var=kso, v_scales_var=vso)
+            x = _proj_ffn(x, ctx, cfg, pre)
+        logits = _head(x, cfg)                                  # [R, C, V]
+        next_tok = layers.argmax(
+            layers.reshape(logits, [-1, cfg.vocab_size]), axis=-1)
+    fetches = ([next_tok] + [p[0] for p in out_pages]
+               + [p[1] for p in out_pages])
+    if quantized:
+        fetches += [p[2] for p in out_pages] + [p[3] for p in out_pages]
+    return main, fetches
+
+
+def build_decode_program(cfg: GPTConfig, geom: CacheGeometry):
+    """The decode lane: one new token a sequence through the paged
+    cache (K13). Returns (program, fetches): [next_token, k_pages..,
+    v_pages..]."""
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        tokens = layers.data("gen_tokens", [1], dtype="int64")
+        positions = layers.data("gen_positions", [], dtype="int64")
+        num_valid = layers.data("gen_num_valid", [], dtype="int32")
+        attend = layers.data("gen_attend_lens", [], dtype="int32")
+        tables = layers.data("gen_block_tables", [geom.max_pages_per_seq],
+                             dtype="int32")
+        kps, vps = _page_feeds(cfg, geom)
+        x = layers.elementwise_add(
+            layers.unsqueeze(_embed(tokens, cfg), [1]),
+            layers.unsqueeze(_pos_embed(positions, cfg), [1]))  # [B, 1, H]
+        out_pages = []
+        for i in range(cfg.num_layers):
+            pre = f"dec{i}"
+            q, k, v = _qkv_split(_ln(x, f"{pre}_ln1"), cfg, pre)
+            ko, vo = kv_cache_write_layer(
+                kps[i], vps[i], k, v, tables, positions, num_valid,
+                cfg.num_heads)
+            out_pages.append((ko, vo))
+            ctx = paged_attention_layer(q, ko, vo, tables, attend,
+                                        cfg.num_heads)
+            x = _proj_ffn(x, ctx, cfg, pre)
+        logits = _head(x, cfg)                                  # [B, 1, V]
+        next_tok = layers.argmax(
+            layers.reshape(logits, [-1, cfg.vocab_size]), axis=-1)
+    return main, ([next_tok] + [p[0] for p in out_pages]
+                  + [p[1] for p in out_pages])
 
 
 def step_feeds(tokens: np.ndarray, pos_ids: np.ndarray, positions: np.ndarray,

@@ -39,12 +39,15 @@ from .layer_norm import (fused_layer_norm, layer_norm, layer_norm_bwd,
 from .lora import (batched_lora_add_, batched_lora_add_plain_,
                    batched_lora_delta, batched_lora_delta_plain,
                    batched_lora_matmul)
-from .paged_attention import (kv_cache_write, kv_write_targets,
-                              paged_attention, paged_attention_plain)
+from .paged_attention import (kv_cache_write, kv_cache_write_layer,
+                              kv_write_targets, paged_attention,
+                              paged_attention_layer, paged_attention_plain)
 from .quant_matmul import (quantize_weight, quantized_matmul,
                            quantized_matmul_fma, quantized_matmul_plain)
 from .ragged_paged_attention import (quantized_kv_cache_write,
+                                     quantized_kv_cache_write_layer,
                                      ragged_paged_attention,
+                                     ragged_paged_attention_layer,
                                      ragged_paged_attention_plain,
                                      ragged_paged_attention_q)
 from .softmax_xent import (fused_softmax_xent, softmax_xent_bwd,
@@ -68,7 +71,10 @@ __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_fwd",
            "batched_lora_add_plain_", "batched_lora_delta",
            "batched_lora_delta_plain", "batched_lora_matmul",
            "fused_momentum_update", "fused_momentum_update_plain",
-           "paged_attention", "paged_attention_plain", "KERNELS",
+           "paged_attention", "paged_attention_plain",
+           "paged_attention_layer", "kv_cache_write_layer",
+           "ragged_paged_attention_layer", "quantized_kv_cache_write_layer",
+           "KERNELS",
            "GRAPH_NODES", "reset_launch_counts", "launch_counts"]
 
 # the launch-counted wrappers, by kernel name (layer_norm_fwd counts in

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -305,3 +306,51 @@ def batched_lora_matmul(x: torch.Tensor, weight: torch.Tensor,
     out = batched_lora_add_(out, x2.contiguous(), a_pools, b_pools,
                             adapter_scales, slots)
     return out.reshape(*lead, out.shape[-1])
+
+
+# -- the Program forms (``paddle_tpu/kernels/lora.py:284-329``) --------------
+from ..core.registry import register_op  # noqa: E402
+
+_LORA_SLOTS = ("X", "W", "WScale", "A", "B", "AdapterScale", "Slots")
+_LORA_NO_GRAD = ("W", "WScale", "A", "B", "AdapterScale", "Slots")
+
+
+def _lora_args(op, ins):
+    return dict(
+        base_kind=str(op.attrs.get("base_kind", "dense")),
+        weight_scale=(ins.get("WScale") or [None])[0],
+        quant_block=int(op.attrs.get("quant_block", DEFAULT_BLOCK)
+                        or DEFAULT_BLOCK))
+
+
+@register_op("batched_lora_matmul", inputs=_LORA_SLOTS, outputs=("Out",),
+             no_grad=_LORA_NO_GRAD, stop_gradient=True)
+def _batched_lora_matmul_op(ctx, op, ins):
+    """The ``matmul`` twin: X (transposed under ``transpose_X``) through
+    the base product and the rows' adapter deltas (K12; K11 under a
+    quantized base), times ``alpha``."""
+    x = ins["X"][0]
+    if op.attrs.get("transpose_X", False) or op.attrs.get("trans_x", False):
+        x = x.transpose(-1, -2)
+    out = batched_lora_matmul(
+        x.contiguous(), ins["W"][0], ins.get("A", []), ins.get("B", []),
+        ins.get("AdapterScale", []), ins["Slots"][0], **_lora_args(op, ins))
+    alpha = float(op.attrs.get("alpha", 1.0))
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
+
+
+@register_op("batched_lora_fc", inputs=_LORA_SLOTS, outputs=("Out",),
+             no_grad=_LORA_NO_GRAD, stop_gradient=True)
+def _batched_lora_fc_op(ctx, op, ins):
+    """The ``mul`` twin: X flattened at ``x_num_col_dims``, the 2-D base
+    product and deltas (a slot row a chunk of rows), the leading dims
+    restored."""
+    x = ins["X"][0]
+    lead = tuple(x.shape[:int(op.attrs.get("x_num_col_dims", 1))])
+    x2 = x.reshape(math.prod(lead), -1).contiguous()
+    out = batched_lora_matmul(
+        x2, ins["W"][0], ins.get("A", []), ins.get("B", []),
+        ins.get("AdapterScale", []), ins["Slots"][0], **_lora_args(op, ins))
+    return {"Out": [out.reshape(lead + (out.shape[-1],))]}

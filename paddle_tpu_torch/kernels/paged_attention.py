@@ -213,3 +213,93 @@ def kv_cache_write(k_pages: torch.Tensor, v_pages: torch.Tensor,
     page, slot = targets
     k_pages[:, page, slot, :] = k_new.permute(2, 0, 1, 3).to(k_pages.dtype)
     v_pages[:, page, slot, :] = v_new.permute(2, 0, 1, 3).to(v_pages.dtype)
+
+
+# -- the Program forms (``paddle_tpu/kernels/paged_attention.py:190-272``) ---
+
+
+def paged_attention_layer(q_var, k_pages_var, v_pages_var, tables_var,
+                          lengths_var, num_heads: int):
+    """Emit the ``paged_attention`` op: Q [B, 1, H*D] attends over the
+    page pool through the block tables (K13 on the card)."""
+    from ..layer_helper import LayerHelper
+    from ..layers.nn import _out
+
+    helper = LayerHelper("paged_attention")
+    out = _out(helper, q_var, shape=q_var.shape)
+    helper.append_op(
+        type="paged_attention",
+        inputs={"Q": [q_var], "KPages": [k_pages_var],
+                "VPages": [v_pages_var], "BlockTables": [tables_var],
+                "Lengths": [lengths_var]},
+        outputs={"Out": [out]},
+        attrs={"num_heads": num_heads})
+    return out
+
+
+def kv_cache_write_layer(k_pages_var, v_pages_var, k_var, v_var,
+                         tables_var, positions_var, num_valid_var,
+                         num_heads: int):
+    """Emit the ``kv_cache_write`` op; returns the updated page-pool
+    Variables (new pools: the fed ones are left as they are), which the
+    attention ops read and a step fetches back."""
+    from ..layer_helper import LayerHelper
+    from ..layers.nn import _out
+
+    helper = LayerHelper("kv_cache_write")
+    out_k = _out(helper, k_pages_var, shape=k_pages_var.shape)
+    out_v = _out(helper, v_pages_var, shape=v_pages_var.shape)
+    helper.append_op(
+        type="kv_cache_write",
+        inputs={"KPages": [k_pages_var], "VPages": [v_pages_var],
+                "K": [k_var], "V": [v_var], "BlockTables": [tables_var],
+                "Positions": [positions_var], "NumValid": [num_valid_var]},
+        outputs={"OutKPages": [out_k], "OutVPages": [out_v]},
+        attrs={"num_heads": num_heads})
+    return out_k, out_v
+
+
+from ..core.registry import register_op  # noqa: E402
+
+
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+@register_op("paged_attention",
+             inputs=("Q", "KPages", "VPages", "BlockTables", "Lengths"),
+             outputs=("Out",),
+             no_grad=("BlockTables", "Lengths"), stop_gradient=True)
+def _paged_attention_op(ctx, op, ins):
+    q = ins["Q"][0]                       # [B, 1, H*D] layer layout
+    h = int(op.attrs["num_heads"])
+    B, S1, HD = q.shape
+    if S1 != 1:
+        raise ValueError(
+            f"paged_attention is a decode op: Q must be [B, 1, H*D], got "
+            f"seq dim {S1} (use flash_attention for the prefill lane)")
+    o = paged_attention(q.reshape(B, h, HD // h).contiguous(),
+                        ins["KPages"][0], ins["VPages"][0],
+                        _int32(ins["Lengths"][0].reshape(-1)),
+                        _int32(ins["BlockTables"][0]))
+    return {"Out": [o.reshape(B, 1, HD)]}
+
+
+@register_op("kv_cache_write",
+             inputs=("KPages", "VPages", "K", "V", "BlockTables",
+                     "Positions", "NumValid"),
+             outputs=("OutKPages", "OutVPages"),
+             no_grad=("BlockTables", "Positions", "NumValid"),
+             stop_gradient=True)
+def _kv_cache_write_op(ctx, op, ins):
+    """The functional write: the rows go into copies of the pools (JAX
+    returns new pools); a fed pool is never written."""
+    k, v = ins["K"][0], ins["V"][0]       # [B, S, H*D] layer layout
+    h = int(op.attrs["num_heads"])
+    B, S, HD = k.shape
+    kp, vp = ins["KPages"][0].clone(), ins["VPages"][0].clone()
+    kv_cache_write(kp, vp, k.reshape(B, S, h, HD // h),
+                   v.reshape(B, S, h, HD // h), ins["BlockTables"][0],
+                   ins["Positions"][0].reshape(-1),
+                   ins["NumValid"][0].reshape(-1))
+    return {"OutKPages": [kp], "OutVPages": [vp]}

@@ -271,3 +271,120 @@ def quantized_kv_cache_write(k_pages: torch.Tensor, v_pages: torch.Tensor,
         q, s = blockwise_quantize(rows)
         pages[:, page, slot, :] = q.reshape(KVH, B, S, D)
         scales[:, page, slot] = s.reshape(KVH, B, S)
+
+
+# -- the Program forms (``paddle_tpu/kernels/ragged_paged_attention.py:333-441``)
+
+
+def ragged_paged_attention_layer(q_var, k_pages_var, v_pages_var,
+                                 tables_var, positions_var, num_valid_var,
+                                 num_heads: int, k_scales_var=None,
+                                 v_scales_var=None):
+    """Emit the ragged attention op: Q [B, C, H*D] over the page pool
+    (K2 on the card). Passing the scale Variables selects the int8-pool
+    op, ``ragged_paged_attention_q`` (K2q)."""
+    from ..layer_helper import LayerHelper
+    from ..layers.nn import _out
+
+    quantized = k_scales_var is not None
+    op = "ragged_paged_attention_q" if quantized else "ragged_paged_attention"
+    helper = LayerHelper(op)
+    out = _out(helper, q_var, shape=q_var.shape)
+    inputs = {"Q": [q_var], "KPages": [k_pages_var], "VPages": [v_pages_var],
+              "BlockTables": [tables_var], "Positions": [positions_var],
+              "NumValid": [num_valid_var]}
+    if quantized:
+        inputs["KScales"] = [k_scales_var]
+        inputs["VScales"] = [v_scales_var]
+    helper.append_op(type=op, inputs=inputs, outputs={"Out": [out]},
+                     attrs={"num_heads": num_heads})
+    return out
+
+
+def quantized_kv_cache_write_layer(k_pages_var, v_pages_var, k_scales_var,
+                                   v_scales_var, k_var, v_var, tables_var,
+                                   positions_var, num_valid_var,
+                                   num_heads: int):
+    """Emit ``kv_cache_write_q``; returns the updated (k_pages, v_pages,
+    k_scales, v_scales) Variables (new tensors: the fed ones are left as
+    they are)."""
+    from ..layer_helper import LayerHelper
+    from ..layers.nn import _out
+
+    helper = LayerHelper("kv_cache_write_q")
+    outs = [_out(helper, v, shape=v.shape)
+            for v in (k_pages_var, v_pages_var, k_scales_var, v_scales_var)]
+    helper.append_op(
+        type="kv_cache_write_q",
+        inputs={"KPages": [k_pages_var], "VPages": [v_pages_var],
+                "KScales": [k_scales_var], "VScales": [v_scales_var],
+                "K": [k_var], "V": [v_var], "BlockTables": [tables_var],
+                "Positions": [positions_var], "NumValid": [num_valid_var]},
+        outputs={"OutKPages": [outs[0]], "OutVPages": [outs[1]],
+                 "OutKScales": [outs[2]], "OutVScales": [outs[3]]},
+        attrs={"num_heads": num_heads})
+    return tuple(outs)
+
+
+from ..core.registry import register_op  # noqa: E402
+
+
+def _lower_ragged(ins, op, quantized: bool):
+    q = ins["Q"][0]                       # [B, C, H*D] layer layout
+    h = int(op.attrs["num_heads"])
+    B, C, HD = q.shape
+
+    def i32(slot):
+        return ins[slot][0].reshape(-1).to(torch.int32).contiguous()
+
+    scales = {}
+    if quantized:
+        scales = dict(k_scales=ins["KScales"][0], v_scales=ins["VScales"][0])
+    o = ragged_paged_attention(
+        q.reshape(B, C, h, HD // h).contiguous(), ins["KPages"][0],
+        ins["VPages"][0], i32("Positions"), i32("NumValid"),
+        ins["BlockTables"][0].to(torch.int32).contiguous(), **scales)
+    return {"Out": [o.reshape(B, C, HD)]}
+
+
+@register_op("ragged_paged_attention",
+             inputs=("Q", "KPages", "VPages", "BlockTables", "Positions",
+                     "NumValid"),
+             outputs=("Out",),
+             no_grad=("BlockTables", "Positions", "NumValid"),
+             stop_gradient=True)
+def _ragged_paged_attention_op(ctx, op, ins):
+    return _lower_ragged(ins, op, quantized=False)
+
+
+@register_op("ragged_paged_attention_q",
+             inputs=("Q", "KPages", "VPages", "KScales", "VScales",
+                     "BlockTables", "Positions", "NumValid"),
+             outputs=("Out",),
+             no_grad=("KScales", "VScales", "BlockTables", "Positions",
+                      "NumValid"),
+             stop_gradient=True)
+def _ragged_paged_attention_q_op(ctx, op, ins):
+    return _lower_ragged(ins, op, quantized=True)
+
+
+@register_op("kv_cache_write_q",
+             inputs=("KPages", "VPages", "KScales", "VScales", "K", "V",
+                     "BlockTables", "Positions", "NumValid"),
+             outputs=("OutKPages", "OutVPages", "OutKScales", "OutVScales"),
+             no_grad=("BlockTables", "Positions", "NumValid"),
+             stop_gradient=True)
+def _kv_cache_write_q_op(ctx, op, ins):
+    """The functional int8 write into copies of the pools and scale
+    planes; the fed ones are never written."""
+    k, v = ins["K"][0], ins["V"][0]       # [B, S, H*D] layer layout
+    h = int(op.attrs["num_heads"])
+    B, S, HD = k.shape
+    kp, vp, ks, vs = (ins[s][0].clone() for s in
+                      ("KPages", "VPages", "KScales", "VScales"))
+    quantized_kv_cache_write(
+        kp, vp, ks, vs, k.reshape(B, S, h, HD // h),
+        v.reshape(B, S, h, HD // h), ins["BlockTables"][0],
+        ins["Positions"][0].reshape(-1), ins["NumValid"][0].reshape(-1))
+    return {"OutKPages": [kp], "OutVPages": [vp], "OutKScales": [ks],
+            "OutVScales": [vs]}

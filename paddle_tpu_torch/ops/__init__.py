@@ -3,6 +3,6 @@
 the same name."""
 
 from . import (beam, collective, control, detection,  # noqa: F401
-               detection2, fused, lod, loss_ext, math, metrics, misc, moe,
-               nn, optim, persist, quant, random, rnn, sequence, tensor,
-               vision3d)
+               detection2, dist_compute, fused, lod, loss_ext, math,
+               metrics, misc, moe, nn, optim, persist, quant, random, rnn,
+               sequence, tensor, vision3d)

@@ -113,7 +113,8 @@ def _collective_bucket_reduce(ctx, op, ins):
             raise NotImplementedError(
                 f"{n!r} is a SelectedRows gradient: averaging sparse "
                 "gradients over a data-parallel world is the parameter "
-                "server's work (ROADMAP A11)")
+                "server's work (DistributeTranspiler in pserver mode, "
+                "ps.PSTrainer)")
     size = comm.group_size(group)
     quantized = op.attrs.get("quantization", "none") == "int8"
     if not quantized:

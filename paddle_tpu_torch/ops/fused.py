@@ -1,22 +1,39 @@
-"""The sequence fusions of ``paddle_tpu/ops/fused.py``: ``fusion_lstm``,
-``fusion_gru``, ``fused_embedding_fc_lstm``, ``fused_embedding_seq_pool``,
+"""The fused ops of ``paddle_tpu/ops/fused.py``.
+
+The sequence fusions (``fusion_lstm``, ``fusion_gru``,
+``fused_embedding_fc_lstm``, ``fused_embedding_seq_pool``,
 ``fusion_seqconv_eltadd_relu``, ``fusion_seqexpand_concat_fc``,
-``fusion_seqpool_concat`` and ``fusion_seqpool_cvm_concat``.
+``fusion_seqpool_concat``, ``fusion_seqpool_cvm_concat``) and the
+inference fusions (``fc``, ``fused_elemwise_activation``,
+``fused_fc_elementwise_layernorm``, ``fused_batch_norm_act``,
+``fusion_repeated_fc_relu``, ``fusion_squared_mat_sub``,
+``fusion_transpose_flatten_concat``, ``multihead_matmul``,
+``conv2d_fusion``, ``conv2d_inception_fusion``).
 
 These are op types a saved Fluid program may hold (the reference's
-fuse passes write them). As in the JAX package, each is the plain
-composition of the ops it fuses, with the one input projection shared
-between the ``XX`` output and the recurrence.
+fuse passes write them; ``contrib.layers.fused_elemwise_activation``
+emits one). As in the JAX package, each is the plain composition of
+the ops it fuses: none is a Pallas kernel there, and none is a
+hand-written kernel here. The one input projection of a recurrence is
+shared between the ``XX`` output and the recurrence. ``gelu`` in these
+ops is ``jax.nn.gelu``'s default, the tanh approximation (the ``gelu``
+op itself is exact erf).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import get_op_def, register_op
 
 _UNARY = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+          "gelu": lambda x: F.gelu(x, approximate="tanh"),
           "identity": lambda x: x, "": lambda x: x}
+_BINARY = {"elementwise_add": torch.add, "elementwise_sub": torch.sub,
+           "elementwise_mul": torch.mul}
 
 
 def _act(name):
@@ -170,3 +187,183 @@ def _fusion_seqpool_cvm_concat(ctx, op, ins):
     drop = 0 if bool(op.attrs.get("use_cvm", True)) else 2
     return {"Out": [torch.cat([_seq_pool(x, pt)[:, drop:]
                                for x in ins["X"]], -1)]}
+
+
+# -- the inference fusions ---------------------------------------------------
+
+
+def _fc_compute(x, w, bias, in_num_col_dims=1, act=None):
+    lead = tuple(x.shape[:in_num_col_dims])
+    out = x.reshape(math.prod(lead), -1) @ w
+    if bias is not None:
+        out = out + bias.reshape(1, -1)
+    return _act(act)(out).reshape(lead + (w.shape[1],))
+
+
+@register_op("fc", inputs=("Input", "W", "Bias"), outputs=("Out",))
+def _fc(ctx, op, ins):
+    bias = ins["Bias"][0] if ins.get("Bias") else None
+    return {"Out": [_fc_compute(
+        ins["Input"][0], ins["W"][0], bias,
+        int(op.attrs.get("in_num_col_dims", 1)),
+        op.attrs.get("activation_type", ""))]}
+
+
+@register_op("fused_elemwise_activation", inputs=("X", "Y"),
+             outputs=("Out", "IntermediateOut"))
+def _fused_elemwise_activation(ctx, op, ins):
+    """``functor_list = [outer, inner]``: binary(X, unary(Y)) or
+    unary(binary(X, Y)) (reference fused_elemwise_activation_op.h). A
+    ``scale`` attr wins even at 0.0."""
+    x, y = ins["X"][0], ins["Y"][0]
+    outer, inner = list(op.attrs.get("functor_list",
+                                     ["elementwise_add", ""]))
+    has_scale = "scale" in op.attrs
+    scale = float(op.attrs.get("scale", 1.0))
+
+    def unary(name, v):
+        if name.startswith("scale"):
+            return v * (scale if has_scale else 1.0)
+        return _act(name)(v)
+
+    if outer in _BINARY:
+        mid = unary(inner, y)
+        out = _BINARY[outer](x, mid)
+    else:
+        mid = _BINARY[inner](x, y)
+        out = unary(outer, mid)
+    return {"Out": [out], "IntermediateOut": [mid]}
+
+
+@register_op("fused_fc_elementwise_layernorm",
+             inputs=("X", "W", "Bias0", "Y", "Scale", "Bias1"),
+             outputs=("Out", "Mean", "Variance"))
+def _fused_fc_elementwise_layernorm(ctx, op, ins):
+    """fc, + Y, layer norm over the axes from ``begin_norm_axis``
+    (biased variance); Mean and Variance come back flattened."""
+    bias0 = ins["Bias0"][0] if ins.get("Bias0") else None
+    h = _fc_compute(ins["X"][0], ins["W"][0], bias0,
+                    int(op.attrs.get("x_num_col_dims", 1))) + ins["Y"][0]
+    axis = int(op.attrs.get("begin_norm_axis", 1))
+    eps = float(op.attrs.get("epsilon", 1e-5))
+    red = tuple(range(axis, h.dim()))
+    mean = h.mean(dim=red, keepdim=True)
+    var = ((h - mean) ** 2).mean(dim=red, keepdim=True)
+    norm = (h - mean) * torch.rsqrt(var + eps)
+    if ins.get("Scale"):
+        norm = norm * ins["Scale"][0]
+    if ins.get("Bias1"):
+        norm = norm + ins["Bias1"][0]
+    norm = _act(op.attrs.get("activation_type", ""))(norm)
+    return {"Out": [norm], "Mean": [mean.reshape(-1)],
+            "Variance": [var.reshape(-1)]}
+
+
+@register_op("fused_batch_norm_act",
+             inputs=("X", "Scale", "Bias", "Mean", "Variance"),
+             outputs=("Y", "MeanOut", "VarianceOut", "SavedMean",
+                      "SavedVariance", "ReserveSpace"),
+             no_grad=("Mean", "Variance"))
+def _fused_batch_norm_act(ctx, op, ins):
+    bn = dict(get_op_def("batch_norm").lower(ctx, op, ins))
+    bn["Y"] = [_act(op.attrs.get("act_type", "relu"))(bn["Y"][0])]
+    x = ins["X"][0]
+    bn["ReserveSpace"] = [torch.zeros((0,), dtype=torch.float32,
+                                      device=x.device)]
+    return bn
+
+
+@register_op("fusion_repeated_fc_relu", inputs=("X", "W", "Bias"),
+             outputs=("ReluOut", "Out"))
+def _fusion_repeated_fc_relu(ctx, op, ins):
+    """Every layer is fc + relu, the last included (reference
+    fusion_repeated_fc_relu_op.cc)."""
+    x = ins["X"][0]
+    ws, bs = ins["W"], ins["Bias"]
+    relu_outs = []
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        x = _fc_compute(x, w, b, 1, "relu")
+        if i < len(ws) - 1:
+            relu_outs.append(x)
+    return {"ReluOut": relu_outs, "Out": [x]}
+
+
+@register_op("fusion_squared_mat_sub", inputs=("X", "Y"),
+             outputs=("SquaredX", "SquaredY", "SquaredXY", "Out"))
+def _fusion_squared_mat_sub(ctx, op, ins):
+    """Out = scalar * ((X @ Y)^2 - X^2 @ Y^2)."""
+    x, y = ins["X"][0], ins["Y"][0]
+    scalar = float(op.attrs.get("scalar", 1.0))
+    sx, sy = x * x, y * y
+    sxy = (x @ y) ** 2
+    return {"SquaredX": [sx], "SquaredY": [sy], "SquaredXY": [sxy],
+            "Out": [scalar * (sxy - sx @ sy)]}
+
+
+@register_op("fusion_transpose_flatten_concat", inputs=("X",),
+             outputs=("Out",))
+def _fusion_transpose_flatten_concat(ctx, op, ins):
+    """Each X transposed by ``trans_axis``, flattened to 2-D at
+    ``flatten_axis``, concatenated on ``concat_axis % 2`` (as JAX)."""
+    trans = [int(a) for a in op.attrs.get("trans_axis", [])]
+    flat = int(op.attrs.get("flatten_axis", 1))
+    cat = int(op.attrs.get("concat_axis", 1))
+    outs = []
+    for x in ins["X"]:
+        if trans:
+            x = x.permute(*trans)
+        outs.append(x.reshape(math.prod(x.shape[:flat]), -1))
+    return {"Out": [torch.cat(outs, dim=cat % 2)]}
+
+
+@register_op("multihead_matmul", inputs=("Input", "W", "Bias", "BiasQK"),
+             outputs=("Out",), no_grad=("BiasQK",))
+def _multihead_matmul(ctx, op, ins):
+    """Fused QKV attention of the inference transformer fusion
+    (reference fused/multihead_matmul_op.cu): Input [B, S, D], W [D, 3,
+    N, H], Bias [3, N, H], BiasQK broadcastable to [B, N, S, S]; one
+    projection einsum, scores scaled by ``alpha``, float softmax."""
+    x, w, bias = ins["Input"][0], ins["W"][0], ins["Bias"][0]
+    B, S, _D = x.shape
+    _, _three, N, H = w.shape
+    alpha = float(op.attrs.get("alpha", 1.0))
+    qkv = torch.einsum("bsd,dcnh->cbnsh", x, w) + bias.reshape(3, 1, N, 1, H)
+    q, k, v = qkv[0], qkv[1], qkv[2]                       # [B, N, S, H]
+    scores = torch.einsum("bnsh,bnth->bnst", q, k) * alpha
+    if ins.get("BiasQK"):
+        scores = scores + ins["BiasQK"][0]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bnst,bnth->bnsh", probs, v)
+    return {"Out": [out.permute(0, 2, 1, 3).reshape(B, S, N * H)]}
+
+
+@register_op("conv2d_fusion",
+             inputs=("Input", "Filter", "Bias", "ResidualData"),
+             outputs=("Output",))
+def _conv2d_fusion(ctx, op, ins):
+    """conv2d (the port's lowering, the op's attrs) + bias + residual +
+    activation (reference fused/conv_fusion_op.cu)."""
+    r = get_op_def("conv2d").lower(ctx, op, {"Input": ins["Input"],
+                                             "Filter": ins["Filter"]})
+    out = r["Output"][0]
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0].reshape(1, -1, 1, 1)
+    if ins.get("ResidualData"):
+        out = out + ins["ResidualData"][0]
+    return {"Output": [_act(op.attrs.get("activation", "relu"))(out)]}
+
+
+@register_op("conv2d_inception_fusion", inputs=("Input", "Filter", "Bias"),
+             outputs=("Output", "TempOutput"))
+def _conv2d_inception_fusion(ctx, op, ins):
+    """Branch convolutions (stride 1, each padded by k // 2) + bias +
+    relu, concatenated on channels (reference
+    fused/fusion_conv_inception_op.cu); TempOutput is empty."""
+    x = ins["Input"][0]
+    outs = []
+    for w, b in zip(ins["Filter"], ins["Bias"]):
+        o = F.conv2d(x, w, padding=(w.shape[2] // 2, w.shape[3] // 2))
+        outs.append(torch.relu(o + b.reshape(1, -1, 1, 1)))
+    return {"Output": [torch.cat(outs, dim=1)],
+            "TempOutput": [torch.zeros((0,), dtype=x.dtype,
+                                       device=x.device)]}

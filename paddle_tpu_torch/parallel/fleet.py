@@ -11,9 +11,17 @@ through ``shard_optimizer_states`` over the world when
 CompiledProgram. ``fleet.init`` forms the world (``init_parallel_env``)
 when the role maker counts more than one worker.
 
-The parameter-server mode (``PSDistributedOptimizer``, ``init_server``,
-``run_server``, ``init_worker``, ``stop_worker``) is ROADMAP A11
-(``ps/``) and raises, naming it.
+The parameter-server mode: ``distributed_optimizer`` with
+``strategy.mode == "pserver"`` (or pservers named by the role maker and
+a strategy that is not collective) gives a ``PSDistributedOptimizer``,
+whose ``minimize`` runs the inner minimize and ``DistributeTranspiler``
+in pserver mode; ``run_server`` serves this process's endpoint's
+shards (blocking), ``init_worker`` returns the ``ps.PSTrainer`` that
+runs the steps, ``stop_worker`` waits for every trainer (sync mode) and
+has worker 0 shut the pservers down (JAX's lifecycle, :187-235;
+``distributed.launch_ps`` spawns such a job). ``fleet.init`` forms no
+collective world in PS mode (a non-collective role maker that names
+pservers): the trainers meet at the pservers.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from .env import ParallelEnv, get_world_size, init_parallel_env
 
 __all__ = ["Mode", "Role", "RoleMakerBase", "PaddleCloudRoleMaker",
            "UserDefinedRoleMaker", "MPISymetricRoleMaker",
-           "DistributedStrategy", "DistributedOptimizer", "fleet"]
+           "DistributedStrategy", "DistributedOptimizer",
+           "PSDistributedOptimizer", "fleet"]
 
 _log = logging.getLogger("paddle_tpu_torch.fleet")
 
@@ -128,12 +137,6 @@ class DistributedStrategy:
         self.sharding = False
 
 
-def _refuse_ps(what: str):
-    raise NotImplementedError(
-        f"fleet {what}: the parameter-server mode is not ported to "
-        "paddle_tpu_torch yet (ROADMAP A11, ps/)")
-
-
 class _Fleet:
     def __init__(self):
         self._role_maker: Optional[RoleMakerBase] = None
@@ -145,7 +148,9 @@ class _Fleet:
              is_collective: bool = True):
         self._role_maker = role_maker or PaddleCloudRoleMaker(is_collective)
         self._compiled_program = None
-        if self._role_maker.worker_num() > 1:
+        ps_mode = (self._role_maker.server_num() > 0
+                   and not getattr(self._role_maker, "_is_collective", True))
+        if self._role_maker.worker_num() > 1 and not ps_mode:
             init_parallel_env()
         return self
 
@@ -190,20 +195,55 @@ class _Fleet:
                 self._role_maker is not None
                 and self._role_maker.server_num() > 0
                 and strategy.mode != "collective"):
-            _refuse_ps("distributed_optimizer(mode='pserver')")
+            return PSDistributedOptimizer(self, optimizer, strategy)
         return DistributedOptimizer(self, optimizer, strategy)
 
+    # -- the parameter-server lifecycle -----------------------------------
     def init_server(self, model_dir: Optional[str] = None):
-        _refuse_ps("init_server")
+        pass
 
-    def run_server(self):
-        _refuse_ps("run_server")
+    def run_server(self, scope=None):
+        """Serve this process's endpoint's shards, cut from ``scope``
+        (the global scope; run the startup Program first), until a
+        trainer shuts the pservers down."""
+        if not self.is_server():
+            raise RuntimeError("run_server() called on a non-server role")
+        from ..core.executor import global_scope
+        from ..ps.server import ParameterServer
+        from ..ps.transpile import server_shards
 
-    def init_worker(self):
-        _refuse_ps("init_worker")
+        art = self._ps_artifacts
+        ep = self._role_maker.get_current_endpoint()
+        shards, specs = server_shards(art, scope or global_scope(), ep)
+        ParameterServer(ep, shards, specs, art.trainers,
+                        art.sync_mode).serve_forever()
+
+    def init_worker(self, executor=None, scope=None):
+        """The trainer's ``ps.PSTrainer`` over ``executor`` (an Executor
+        on the card unless given) and ``scope`` (the global scope),
+        once every pserver accepts connections."""
+        from ..core.executor import Executor, global_scope
+        from ..ps.client import wait_server_ready
+        from ..ps.transpile import PSTrainer
+
+        wait_server_ready(self._ps_artifacts.endpoints)
+        self._ps_trainer = PSTrainer(
+            self._ps_artifacts, executor or Executor(),
+            scope or global_scope(), trainer_id=self.worker_index())
+        return self._ps_trainer
 
     def stop_worker(self):
-        _refuse_ps("stop_worker")
+        """In sync mode with several trainers, wait for all of them
+        first; then worker 0 shuts the pservers down."""
+        t = getattr(self, "_ps_trainer", None)
+        if t is None:
+            return
+        if t.art.sync_mode and t.art.trainers > 1:
+            t.client.barrier()
+        if self.worker_index() == 0:
+            t.client.shutdown_servers()
+        t.client.close()
+        self._ps_trainer = None
 
     def save_persistables(self, executor, dirname, main_program=None):
         from .. import io
@@ -271,3 +311,37 @@ class DistributedOptimizer:
 
 
 fleet = _Fleet()
+
+
+class PSDistributedOptimizer:
+    """The PS-mode fleet optimizer (reference
+    incubate/fleet/parameter_server/distribute_transpiler/__init__.py:41,
+    which wraps DistributeTranspiler)."""
+
+    def __init__(self, fleet_obj: _Fleet, optimizer,
+                 strategy: DistributedStrategy):
+        self._fleet = fleet_obj
+        self._optimizer = optimizer
+        self._strategy = strategy
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from ..transpiler import (DistributeTranspiler,
+                                  DistributeTranspilerConfig)
+
+        opt_ops, params_grads = self._optimizer.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+        rm = self._fleet._role_maker
+        cfg = DistributeTranspilerConfig()
+        cfg.mode = "pserver"
+        cfg.sync_mode = self._strategy.mode != "async"
+        t = DistributeTranspiler(cfg)
+        t.transpile(rm.worker_index() if rm.is_worker() else 0,
+                    program=loss.block.program,
+                    pservers=",".join(rm.get_pserver_endpoints()),
+                    trainers=max(rm.worker_num(), 1),
+                    sync_mode=cfg.sync_mode,
+                    startup_program=startup_program)
+        self._fleet._ps_artifacts = t._ps_artifacts
+        self._fleet._origin_program = loss.block.program
+        return opt_ops, params_grads

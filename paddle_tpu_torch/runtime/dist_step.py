@@ -320,8 +320,9 @@ class DistStep:
                 if isinstance(v, SelectedRows):
                     raise NotImplementedError(
                         "a SelectedRows gradient averaged over a data-"
-                        "parallel world is the parameter server's work "
-                        "(ROADMAP A11)")
+                        "parallel world is the parameter server's work: "
+                        "train it through DistributeTranspiler in pserver "
+                        "mode (ps.PSTrainer)")
             flat = torch.cat([v.reshape(-1) for v in vals])
             comm.all_reduce(flat, group=group)
             flat.mul_(scale)
@@ -365,7 +366,8 @@ class DistStep:
                 raise NotImplementedError(
                     f"{g!r} is a SelectedRows gradient: averaging sparse "
                     "gradients over a data-parallel world is the "
-                    "parameter server's work (ROADMAP A11)")
+                    "parameter server's work (DistributeTranspiler in "
+                    "pserver mode, ps.PSTrainer)")
             if group is None:
                 # no rank shares this gradient, but its tokens came from
                 # other ranks' batches (alltoall experts at dp 1)

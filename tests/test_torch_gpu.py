@@ -2644,3 +2644,154 @@ def test_ssd_loss_dense_on_cuda_matches_the_cpu(cuda):
     np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-5)
     for a, b in zip(res["cpu"][1:], res["cuda"][1:]):
         np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-7)
+
+
+# -- the serving kernels' Program forms (A11f) ----------------------------------
+
+
+def _tiny_serving_scope(dev, seed=5):
+    """A 2-layer GPT's weights (seeded, on ``dev``) in a Scope."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.generation.model import GPTLM
+
+    cfg = GPTConfig(vocab_size=97, hidden_size=64, num_layers=2, num_heads=4,
+                    ffn_size=128, max_position=128, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    g = torch.Generator().manual_seed(seed)
+    scope = fluid.Scope()
+    for n, p in GPTLM(cfg, device="meta").jax_params().items():
+        scope.set_var(n, (0.05 * torch.randn(tuple(p.shape),
+                                             generator=g)).to(dev))
+    return cfg, scope
+
+
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+def test_ragged_step_program_on_cuda_matches_the_cpu(cuda, kv):
+    """One mixed ragged step through the Program on the card (K2 / K2q,
+    K1) against the CPU Program: tokens equal, pools within 1e-5 (int8
+    pools one step), the fed pools left as they were."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.generation import (CacheGeometry,
+                                             build_ragged_step_program)
+
+    rng = np.random.RandomState(3)
+    R, C, P, ps, maxp = 4, 8, 24, 4, 12
+    tables = np.zeros((R, maxp), np.int32)
+    tables[0, :2], tables[1, :4], tables[2, :3] = [1, 2], [3, 4, 5, 6], \
+        [7, 8, 9]
+    feed = {"gen_tokens": rng.randint(1, 97, (R, C)).astype(np.int64),
+            "gen_positions": np.array([0, 9, 4, 0], np.int64),
+            "gen_num_valid": np.array([8, 1, 5, 0], np.int32),
+            "gen_block_tables": tables}
+    feed["gen_pos_ids"] = feed["gen_positions"][:, None] + np.arange(C)
+    for i in range(2):
+        for s in "kv":
+            if kv == "int8":
+                feed[f"gen_{s}_pages_{i}"] = rng.randint(
+                    -127, 128, (4, P, ps, 16)).astype(np.int8)
+                feed[f"gen_{s}_scales_{i}"] = (
+                    0.02 * rng.rand(4, P, ps)).astype(np.float32)
+            else:
+                feed[f"gen_{s}_pages_{i}"] = rng.randn(4, P, ps, 16).astype(
+                    np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg, scope = _tiny_serving_scope(dev)
+        prog, fetches = build_ragged_step_program(
+            cfg, CacheGeometry(P, ps, maxp), C, kv)
+        tfeed = {k: torch.as_tensor(v).to(dev) for k, v in feed.items()}
+        before = {k: v.clone() for k, v in tfeed.items()}
+        K.reset_launch_counts()
+        res = fluid.Executor(fluid.CPUPlace() if dev == "cpu" else
+                             fluid.CUDAPlace(0)).run(
+            prog, feed=tfeed, fetch_list=fetches, scope=scope)
+        counts = K.launch_counts()
+        for k in tfeed:
+            assert torch.equal(tfeed[k], before[k]), k
+        if dev == "cuda":
+            name = "ragged_paged_attention" + ("_q" if kv == "int8" else "")
+            assert counts[name] == 2 and counts["layer_norm"] == 5
+        out[dev] = [np.asarray(r) for r in res]
+    nv = feed["gen_num_valid"]
+    tg, tc = out["cuda"][0].reshape(R, C), out["cpu"][0].reshape(R, C)
+    for r in range(R):
+        np.testing.assert_array_equal(tg[r, :nv[r]], tc[r, :nv[r]])
+    for a, b in zip(out["cuda"][1:5], out["cpu"][1:5]):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        a[:, 0, 0] = b[:, 0, 0] = 0
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1.0 if kv == "int8" else 1e-5)
+
+
+def test_decode_program_on_cuda_matches_the_cpu(cuda):
+    """The decode Program (K13) on the card against the CPU's."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.generation import (CacheGeometry,
+                                             build_decode_program)
+
+    rng = np.random.RandomState(4)
+    B, P, ps, maxp = 3, 16, 4, 8
+    tables = np.zeros((B, maxp), np.int32)
+    tables[:, :3] = [[1, 2, 3], [4, 5, 6], [7, 8, 9]]
+    feed = {"gen_tokens": rng.randint(1, 97, (B, 1)).astype(np.int64),
+            "gen_positions": np.array([5, 0, 10], np.int64),
+            "gen_num_valid": np.array([1, 1, 0], np.int32),
+            "gen_attend_lens": np.array([6, 1, 0], np.int32),
+            "gen_block_tables": tables}
+    for i in range(2):
+        for s in "kv":
+            feed[f"gen_{s}_pages_{i}"] = rng.randn(4, P, ps, 16).astype(
+                np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg, scope = _tiny_serving_scope(dev)
+        prog, fetches = build_decode_program(cfg, CacheGeometry(P, ps, maxp))
+        K.reset_launch_counts()
+        out[dev] = [np.asarray(r) for r in fluid.Executor(
+            fluid.CPUPlace() if dev == "cpu" else fluid.CUDAPlace(0)).run(
+            prog, feed=feed, fetch_list=fetches, scope=scope)]
+        if dev == "cuda":
+            assert K.launch_counts()["paged_attention"] == 2
+    np.testing.assert_array_equal(out["cuda"][0][:2], out["cpu"][0][:2])
+    for a, b in zip(out["cuda"][1:], out["cpu"][1:]):
+        np.testing.assert_allclose(a[:, 1:], b[:, 1:], atol=1e-5, rtol=0)
+
+
+def test_batched_lora_fc_program_on_cuda_matches_the_cpu(cuda):
+    """The Program rewrite over an int8 base: ``batched_lora_fc`` on the
+    card (K11 + K12) against the CPU, one adapter row and a base row."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.adapters import AdapterStore, rewrite_for_lora
+    from paddle_tpu_torch.quantize import rewrite_for_inference
+
+    rng = np.random.RandomState(6)
+    x = rng.randn(4, 32).astype(np.float32)
+    w = (0.1 * rng.randn(32, 48)).astype(np.float32)
+    fac = {"lf.w": ((0.1 * rng.randn(32, 8)).astype(np.float32),
+                    (0.1 * rng.randn(8, 48)).astype(np.float32))}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            xv = fluid.layers.data("x", [32])
+            y = fluid.layers.fc(xv, 48, bias_attr=False,
+                                param_attr=fluid.ParamAttr(name="lf.w"))
+        scope = fluid.Scope()
+        scope.set_var("lf.w", torch.from_numpy(w.copy()).to(dev))
+        rewrite_for_inference(main, scope, "int8")
+        store = AdapterStore.for_program(main, slots_per_bucket=1, device=dev)
+        assert rewrite_for_lora(main, store).n_repointed == 1
+        store.attach(scope)
+        store.upload("ad", fac, alpha=16.0)
+        slots = np.stack([store.slots_row(a) for a in ("ad", None, "ad",
+                                                       None)])
+        K.reset_launch_counts()
+        (r,) = fluid.Executor(fluid.CPUPlace() if dev == "cpu" else
+                              fluid.CUDAPlace(0)).run(
+            main, feed={"x": x, "gen_adapter_slots": slots.astype(np.int32)},
+            fetch_list=[y], scope=scope)
+        if dev == "cuda":
+            c = K.launch_counts()
+            assert c["quantized_matmul"] == 1 and c["batched_lora_add_"] == 1
+        out[dev] = np.asarray(r)
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-5)

@@ -2,9 +2,11 @@
 port: the module's ``fluid`` (and ``layers``, and ``op_test.fluid``)
 swapped for ``paddle_tpu_torch`` with ``monkeypatch``, as
 ``test_torch_detection.py`` runs the detection OpTests. The modules are
-tests/test_ops_nn.py, test_ops_math.py, test_ops_misc.py,
-test_loss_ext.py and test_ops_persist.py (every OpTest method and test
-function, the parametrized ones at each of their parameters), and the
+tests/test_ops_nn.py, test_ops_math.py, test_ops_misc.py (its parameter
+server cases, ``ops/dist_compute.py``, since A11f), test_loss_ext.py,
+test_ops_persist.py and test_ops_fused.py (A11f; every OpTest method and
+test function, the parametrized ones at each of their parameters), and
+the
 distribution tests of test_beam_and_distributions.py (which import
 ``paddle_tpu.layers.distributions`` inside the test: that module name is
 pointed at the port's for the call).
@@ -17,12 +19,7 @@ central differences are close to their tolerance on some draws
 (TestMatmul.test_grad and TestSoftmaxWithCrossEntropy.test_grad fail on
 the first draw of their module's rng, in JAX too for the first).
 
-Left out:
-
-* test_ops_misc.py's TestSplitMergeIds, TestMergeIds, TestRefByTrainerId,
-  TestCoalesceTensor and test_split_selected_rows: they reach ops
-  outside this slice (the parameter server's ``ops/dist_compute.py``);
-* test_ops_math.py's TestMul.test_grad: its float32 central differences
+Left out: test_ops_math.py's TestMul.test_grad: its float32 central differences
   depend on the data the module's shared rng hands it, and it fails in
   the JAX package too when the module's tests run in another order
   (``pytest tests/test_ops_math.py -k TestMul``); ``mul`` is not this
@@ -37,6 +34,7 @@ import op_test
 import test_beam_and_distributions as jdist
 import test_loss_ext
 import test_ops_math
+import test_ops_fused
 import test_ops_misc
 import test_ops_nn
 import test_ops_persist
@@ -45,10 +43,9 @@ import paddle_tpu_torch as fluid
 import paddle_tpu_torch.layers.distributions as port_distributions
 
 MODULES = {m.__name__: m for m in (test_ops_nn, test_ops_math, test_ops_misc,
-                                   test_loss_ext, test_ops_persist)}
-LEFT_OUT = {"TestSplitMergeIds", "TestMergeIds", "TestRefByTrainerId",
-            "TestCoalesceTensor", "test_split_selected_rows",
-            "TestMul.test_grad"}
+                                   test_loss_ext, test_ops_persist,
+                                   test_ops_fused)}
+LEFT_OUT = {"TestMul.test_grad"}
 
 
 def _cases():
@@ -80,6 +77,23 @@ def _cases():
 
 
 CASES = _cases()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _leave_the_modules_rng_as_found():
+    """The JAX files' module-level ``rng`` is shared with their own run
+    when one process collects both (pytest imports a file once): put it
+    back as this file found it, so a JAX file run after this one in the
+    same worker draws the data it draws alone (TestMul.test_grad and
+    test_activation_grad[square] fail on other draws)."""
+    import numpy as np
+
+    rngs = [m.rng for m in MODULES.values()
+            if isinstance(getattr(m, "rng", None), np.random.RandomState)]
+    states = [r.get_state() for r in rngs]
+    yield
+    for r, st in zip(rngs, states):
+        r.set_state(st)
 
 
 @pytest.mark.parametrize(

@@ -11,11 +11,11 @@ JAX runs without x64: where its shape inference meets an int64 output it
 records int32 (``jax.eval_shape``), where the port records the op's
 int64. The var comparison reads the two as one (``_norm``).
 
-Ratchets: the port registers 397 lowerings, the 424 of JAX but the 27
-named in ``NOT_PORTED`` (the fused ops, the parameter server's and the
+Ratchets: the port registers all 424 of JAX's lowerings (``NOT_PORTED``
+is empty since A11f's 27: the fused ops, the parameter server's and the
 kernels' Program forms); every registered lowering has a JAX parity case
-in a ``test_torch_*`` CPU file that names it in quotes, or is one of the
-slice's ops the sweep twins hold (``test_torch_sweep_tensor.NEW_OPS``).
+in a ``test_torch_*`` CPU file that names it in quotes, or is one of PR
+24's ops the sweep twins hold (``test_torch_sweep_tensor.NEW_OPS``).
 """
 
 import glob
@@ -408,8 +408,14 @@ def test_ssd_layers_train_as_jax():
 
 # -- ratchets ---------------------------------------------------------------------
 
-# the lowerings of the JAX package the port does not register (ROADMAP A11)
-NOT_PORTED = {
+# the lowerings of the JAX package the port does not register: none since
+# A11f ported ops/fused.py's last 10, ops/dist_compute.py's 10 and the
+# serving kernels' 7 Program forms
+NOT_PORTED = set()
+
+# A11f's 27, held to JAX in tests/test_torch_fused_ops.py,
+# test_torch_dist_compute.py and test_torch_gen_programs.py
+A11F_OPS = {
     # ops/fused.py
     "fc", "fused_elemwise_activation", "fused_fc_elementwise_layernorm",
     "fused_batch_norm_act", "fusion_repeated_fc_relu",
@@ -433,12 +439,13 @@ def _registered(reg):
             if "_make_auto_grad" not in d.lower.__qualname__}
 
 
-def test_the_port_registers_397_lowerings():
+def test_the_port_registers_all_424_lowerings():
     port, jax_ops = _registered(_OP_REGISTRY), _registered(JAX_REGISTRY)
     assert len(jax_ops) == 424
-    assert len(port) == 397
-    assert port <= jax_ops
-    assert jax_ops - port == NOT_PORTED
+    assert len(port) == 424
+    assert port == jax_ops
+    assert not NOT_PORTED
+    assert len(A11F_OPS) == 27 and A11F_OPS <= port
 
 
 def test_every_layer_of_jax_is_exported():
@@ -469,8 +476,9 @@ def _parity_text():
 def test_every_registered_lowering_has_a_parity_case():
     """Each lowering the port registers is named, as a string, by a
     ``test_torch_*`` file (the CPU parity files; ``test_torch_gpu.py``
-    runs on the card); the ops of this slice are all in the sweep twins'
-    ``NEW_OPS``."""
+    runs on the card); the layer surface's ops are all in the sweep
+    twins' ``NEW_OPS``, and A11f's 27 must each be named by a parity
+    file itself."""
     from test_torch_sweep_tensor import NEW_OPS
 
     new = {n for ops in NEW_OPS.values() for n in ops}
@@ -481,3 +489,8 @@ def test_every_registered_lowering_has_a_parity_case():
         named |= set(re.findall(r'"([a-z0-9_]+)"', text))
     missing = sorted(_registered(_OP_REGISTRY) - named - new)
     assert not missing, f"registered without a parity case: {missing}"
+    a11f_named = set()
+    for name in ("test_torch_fused_ops.py", "test_torch_dist_compute.py",
+                 "test_torch_gen_programs.py"):
+        a11f_named |= set(re.findall(r'"([a-z0-9_]+)"', texts[name]))
+    assert not sorted(A11F_OPS - a11f_named), sorted(A11F_OPS - a11f_named)

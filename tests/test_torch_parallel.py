@@ -743,11 +743,14 @@ def test_refusals_name_their_roadmap_items():
         fl.CompiledProgram(main).with_sequence_parallel(2)
     with pytest.raises(NotImplementedError, match="A11"):
         fl.CompiledProgram(main).validate()
+    # the parameter-server mode is ported (ps/): a pserver strategy gets
+    # the PS optimizer, no refusal
     strategy = fleet_mod.DistributedStrategy()
     strategy.mode = "pserver"
-    with pytest.raises(NotImplementedError, match="A11"):
+    assert isinstance(
         fleet_mod.fleet.distributed_optimizer(fl.optimizer.SGD(0.1),
-                                              strategy)
+                                              strategy),
+        fleet_mod.PSDistributedOptimizer)
     assert fl.optimizer.PipelineOptimizer(fl.optimizer.SGD(0.1))._schedule \
         == "gpipe"
 

@@ -46,10 +46,14 @@ def family_ops():
     return ops + HELPERS
 
 
-SWEEP = sorted(n for n in family_ops() if n in SPECS)
-
-# ops held to JAX in the other files of this slice (each file names them)
+# ops held to JAX in the other files (each file names them)
 ELSEWHERE = {
+    # the inference fusions of ops/fused.py, their sweep rows included
+    "test_torch_fused_ops.py": [
+        "fc", "fused_elemwise_activation", "fused_fc_elementwise_layernorm",
+        "fused_batch_norm_act", "fusion_repeated_fc_relu",
+        "fusion_squared_mat_sub", "fusion_transpose_flatten_concat",
+        "multihead_matmul", "conv2d_fusion", "conv2d_inception_fusion"],
     "test_torch_rnn.py": ["fused_lstm", "fused_gru", "lstm_unit", "gru_unit",
                           "lstm", "lstmp", "gru", "attention_lstm",
                           "cudnn_lstm", "recurrent"],
@@ -58,6 +62,9 @@ ELSEWHERE = {
                                  "chunk_eval"],
     "test_torch_seq2seq.py": ["beam_search", "beam_search_decode"],
 }
+
+SWEEP = sorted(n for n in family_ops() if n in SPECS
+               and n not in ELSEWHERE["test_torch_fused_ops.py"])
 
 
 def _outs(op_type, n_out=None):

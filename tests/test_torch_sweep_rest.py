@@ -35,15 +35,14 @@ def test_sweep_rows(name, monkeypatch):
 
 
 NOOPS = ["c_comm_init", "c_comm_init_all", "c_gen_nccl_id", "c_wait_comm",
-         "c_wait_compute"]
+         "c_wait_compute", "delete_var"]
 
 
 @pytest.mark.parametrize("pkg", [jfluid, fluid], ids=["jax", "port"])
 def test_comm_setup_noops_lower(pkg):
-    """The comm-setup ops of tests/test_op_sweep.py ``NOOP_OPS`` (its
-    ``delete_var`` is the parameter server's, not ported) lower inside a
-    Program and leave its result alone, as JAX's
-    ``test_comm_setup_noops_lower``."""
+    """The comm-setup ops of tests/test_op_sweep.py ``NOOP_OPS`` and its
+    ``delete_var`` (the parameter server's) lower inside a Program and
+    leave its result alone, as JAX's ``test_comm_setup_noops_lower``."""
     main, startup = pkg.Program(), pkg.Program()
     with pkg.program_guard(main, startup), pkg.unique_name.guard():
         x = pkg.layers.data("x", [2])
