@@ -4,9 +4,10 @@
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + device time by kernel group in
                                      #   phases 3, 3b, 4, 6, 7, 8, 9, c1, d4,
-                                     #   e1, e2 (+ grouped conv share), g2
+                                     #   e1, e2 (+ grouped conv share), g2,
+                                     #   o1, o2 (+ layout transposes)
     python3 chip_smoke.py --phases 28   # build + chosen phases (any of
-                                        #   23456789abcdefghijklmn), no result line
+                                        #   23456789abcdefghijklmno), no result line
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -202,16 +203,19 @@ c. supervised training with checkpoints. c1: phase 6's BERT-large (full
    scales and biases excluded from the decay, and BERT's learning rate
    ``linear_lr_warmup(polynomial_decay(1e-4, 8, 0.0), 2, 0.0, 1e-4)``;
    a ``resilience.Supervisor`` (its steps on the watchdog's worker
-   thread) commits every 4 steps (``keep_last=1``) over 8 steps; the
-   step-4 commit, kept aside, is resumed by a fresh Executor and scope
+   thread) runs 8 steps with one commit, at step 5 (``keep_last=1``, no
+   final commit); that commit is resumed by a fresh Executor and scope
    (startup under another seed) through a new Supervisor on the caller's
-   thread to step 8. Steps 5-8 (losses and the fetched lr) and every
-   persistable at step 8 (parameters, both moments, beta powers,
-   ``@LR_DECAY_COUNTER@``) equal the uninterrupted run bit for bit;
-   exactly 49 K1, 49 K3, one K4, one K5, 24 K6 and 24 K8 (each of its
-   three kernels) every step and no fused Adam. Prints the step beside
-   phase 6's, the checkpoint's bytes, the commit, load and async-save
-   seconds and the peak memory. c2: the same recipe at BERT-large width
+   thread to step 8, committing nothing. Steps 6-8 (losses and the
+   fetched lr) and every persistable at step 8 (parameters, both
+   moments, beta powers, ``@LR_DECAY_COUNTER@``) equal the uninterrupted
+   run bit for bit; exactly 49 K1, 49 K3, one K4, one K5, 24 K6 and 24
+   K8 (each of its three kernels) every step and no fused Adam; the
+   commit loads into a fresh scope on the card, and the resumed scope is
+   saved asynchronously (values copied off the card, written on a
+   background thread) and committed. Prints the step beside phase 6's,
+   the checkpoint's bytes, the commit, load and async-save seconds and
+   the peak memory. c2: the same recipe at BERT-large width
    with 2 layers in three processes (``chip_smoke.py --c2-child``): a
    reference of 10 steps, a run killed by ``kill@6`` with commits every 3
    steps (exit ``KILL_EXIT_CODE``, latest commit 6) and a run that resumes
@@ -296,9 +300,10 @@ f. the serving host tiers on gpt3_1p3b (phase 3's seeded weights and
    completes, one /metrics scrape holds every tier's series, /healthz
    both phases, a traceparent request one connected trace across both
    tiers and the page store, /v1/admin/flight/dump its JSON. f6: ResNet-50
-   saved for inference and served by a WorkerPool of 2 spawned workers on
-   the card over SO_REUSEPORT; clients on 8 threads through a rolling
-   restart (at least 64 requests), none failed, each answer within 1e-4
+   saved for inference and served by a WorkerPool of 1 spawned worker
+   on the card over SO_REUSEPORT; clients on 8 threads through a
+   rolling restart, its replacement listening before the old worker
+   drains (at least 64 requests), none failed, each answer within 1e-4
    of this process's; /metrics/fleet merges the pool and this process
    under worker= labels with the paddle_slo_* gauges. Every engine
    drains with ``check_integrity`` and zero pages in use.
@@ -494,6 +499,35 @@ m. the rest of the layer surface, TF32 off. m1: the slice's lowerings
    images: losses fall; ms a step, images/s, kernels a step, idle share,
    peak memory. m3: the heavy new ops at a user's sizes card against CPU
    (an image of a batched op) and timed with CUDA events.
+n. the serving Programs, the fused inference ops and the parameter
+   server: n1 gpt3_1p3b's ragged, prefill and decode Programs against the
+   step modules on phase 3's weights (exact K1 / K2 / K2q / K6 / K13 /
+   K11 / K12 launches), n2 three fused ops against their unfused graphs
+   and the CPU, n3 DeepFM at 2^25 rows through 2 pservers on threads, n4
+   one ``launch_ps`` job of 2 pservers and 2 trainers
+   (``chip_smoke.py --n4-child``).
+o. the NCHW -> NHWC pass (``transpiler.auto_nhwc``) on the card, TF32
+   off. o1: phase 8's recipe (ResNet-50, batch 64 x 224^2, float32,
+   fused Momentum + L2Decay) built NCHW and rewritten by ``auto_nhwc``
+   before ``minimize``: at least 108 ops flipped (53 conv, 53 batch norm,
+   2 pool) and at most 4 ``transpose2``; one step of the NCHW program and
+   one of the NHWC program from the same startup values and batch: the
+   first loss within rtol 1e-4, the BN running statistics within 1e-3 of
+   their largest entry, every parameter after the first update within
+   2 * lr of the NCHW run's, every velocity after it (the gradient K10m
+   took, plus the decay) within relative L2 0.1 of the NCHW run's leaf
+   by leaf (a zeroed gradient reads about 1; rounding alone moves them
+   2-3 %, printed beside as the NCHW step on the input scaled by
+   1 + 1e-7); the filter gradients cuDNN returned channels-last,
+   counted; then 10 more NHWC steps: losses finite and
+   falling, exactly 161 K10m, one K4 and one K5 a step (K10m takes every
+   gradient contiguous). o2: phase 9's recipe (bfloat16 AMP, fused Adam)
+   through ``auto_nhwc``: 10 steps, finite and falling, exactly 161 K10,
+   one K4 and one K5 a step; the op count beside phase 9's 853. Both
+   print ms a step, images/s and peak memory beside phases 8 and 9 when
+   they ran in the same call; under ``--profile`` the step's convolution
+   and layout-transpose device ms. o3: ``install_check.run_check()`` on
+   the card: its verdict lines.
 
 Then the seconds each phase took, one JSON line of per-kernel numbers,
 the card line, and last ``{"ok": true, "device": {...}}``.
@@ -559,7 +593,7 @@ EARLIER_DESIGN_MS = {
     "batched_lora_add_": {"ffn1": 0.029146, "head": 0.030384},
 }
 SLEEP_CYCLES = 20_000_000          # keeps the card busy while launches queue
-ALL_PHASES = "23456789abcdefghijklmn"
+ALL_PHASES = "23456789abcdefghijklmno"
 DEVICE = "cuda"
 
 
@@ -1741,6 +1775,9 @@ KERNEL_GROUPS = (("ragged_split_kernel<float, signed char",
                  ("elementwise", "elementwise"), ("vectorized", "elementwise"))
 
 
+LAYOUT_KEYS = ("nchwtonhwc", "nhwctonchw")
+
+
 def busy_ms(intervals) -> float:
     """ms covered by the union of (ts, dur) intervals in us."""
     busy, end = 0.0, None
@@ -1774,7 +1811,12 @@ def kernel_breakdown(trace_path, wall_s):
         names[e["name"]] = names.get(e["name"], 0.0) + e["dur"] / 1e3
     groups = {g: busy_ms(iv) for g, iv in spans.items()}
     busy = busy_ms((e["ts"], e["dur"]) for e in kernels)
+    # cuDNN's own NCHW <-> NHWC layout kernels (counted in the convolution
+    # group above too)
+    layout = sum(e["dur"] / 1e3 for e in kernels
+                 if any(k in e["name"].lower() for k in LAYOUT_KEYS))
     return {"kernels": len(kernels), "kernel_ms_by_group": groups,
+            "layout_transpose_ms": layout,
             "top_kernels_ms": dict(sorted(names.items(),
                                           key=lambda kv: -kv[1])[:8]),
             "device_busy_ms": busy, "wall_ms": wall_s * 1e3,
@@ -2302,7 +2344,7 @@ def train_bert(torch, np, seed, card, out_dir, profile=False, steps=10):
 # -- phase c: BERT-large under Lamb, checkpointed, killed and resumed ---------------
 
 
-C_STEPS, C_EVERY = 8, 4          # c1: steps, checkpoint cadence
+C_STEPS, C_EVERY = 8, 5          # c1: steps, the one commit's step
 C2_STEPS, C2_EVERY, C2_KILL = 10, 3, 6
 C2_LAYERS = 2
 CKPT_ROOT = "chip_smoke_ckpt"    # in the checkout; removed after phase c
@@ -2347,9 +2389,11 @@ def dir_bytes(path) -> int:
 
 def supervised(fluid, main, startup, loss, lr, batch, ckpt_dir, place,
                startup_seed, steps, every, keep_last, watchdog_s=0.0,
-               fault="", on_commit=None, on_loss=None, check=None):
+               fault="", on_commit=None, on_loss=None, check=None,
+               final_checkpoint=True):
     """``steps`` steps of ``main`` through a ``resilience.Supervisor``
-    (``every``-step commits, ``keep_last`` retention, resumed from
+    (``every``-step commits, 0 for none, ``keep_last`` retention, a
+    commit at the end unless ``final_checkpoint`` is False, resumed from
     ``ckpt_dir``'s latest commit if any) on a fresh Executor and scope
     whose startup ran under ``startup_seed``. ``check(step)`` reads the
     step's kernel launches (the counts are reset before each step).
@@ -2390,7 +2434,7 @@ def supervised(fluid, main, startup, loss, lr, batch, ckpt_dir, place,
         on_step=on_step, on_checkpoint=on_checkpoint)
     K.reset_launch_counts()
     mark[0] = time.perf_counter()
-    stats = sup.run_loop(steps)
+    stats = sup.run_loop(steps, final_checkpoint=final_checkpoint)
     return exe, scope, out, stats, {"step_ms": step_ms, "save_s": save_s}
 
 
@@ -2398,10 +2442,12 @@ def train_bert_lamb(torch, np, seed, card, out_dir, phase6=None,
                     profile=False):
     """c1: BertConfig.large() at full size under AMP + Lamb + warmup /
     decay through the Supervisor (its steps on the watchdog's worker
-    thread), commits every 4 steps; the step-4 commit kept aside; then a
-    fresh Executor and scope (startup under another seed) resume from it
-    on the caller's thread to step 8: losses, lr and every persistable
-    equal bit for bit, exact kernel launches every step. With
+    thread), 8 steps with one commit, at step 5; then a fresh Executor
+    and scope (startup under another seed) resume from it on the
+    caller's thread to step 8, committing nothing: losses, lr and every
+    persistable equal bit for bit, exact kernel launches every step; the
+    commit is loaded into a fresh scope on the card and the resumed scope
+    saved asynchronously at step 8, both timed. With
     ``profile``, two more steps of the resumed run are traced. Returns
     the path's launch totals and its numbers."""
     import paddle_tpu_torch as fluid
@@ -2445,24 +2491,19 @@ def train_bert_lamb(torch, np, seed, card, out_dir, phase6=None,
             totals[n] += c
 
     root = os.path.abspath(os.path.join(CKPT_ROOT, "c1"))
-    first, aside = os.path.join(root, "run"), os.path.join(root, "resume")
-
-    def keep_step4(s, path):
-        if s == C_EVERY:   # hard links: the retention GC drops 4 at 8
-            shutil.copytree(path, os.path.join(aside, str(s)),
-                            copy_function=os.link)
-
     place = fluid.CUDAPlace(0)
     torch.cuda.reset_peak_memory_stats()
     _, ref_scope, ref, ref_stats, ref_t = supervised(
-        fluid, main, startup, loss, lr, batch, first, place, seed, C_STEPS,
-        C_EVERY, 1, watchdog_s=600.0, on_commit=keep_step4, check=check)
+        fluid, main, startup, loss, lr, batch, root, place, seed, C_STEPS,
+        C_EVERY, 1, watchdog_s=600.0, check=check, final_checkpoint=False)
     require(ref_stats["steps_completed"] == C_STEPS
             and ref_stats["watchdog_fires"] == 0, f"c1 run: {ref_stats}")
-    require(io.latest_checkpoint(aside) == C_EVERY, "the step-4 commit")
+    require(io.latest_checkpoint(root) == C_EVERY
+            and len(ref_t["save_s"]) == 1, "c1: one commit, at step "
+            f"{C_EVERY}")
     exe, scope, got, stats, t = supervised(
-        fluid, main, startup, loss, lr, batch, aside, place, seed + 1,
-        C_STEPS, C_EVERY, 1, check=check)
+        fluid, main, startup, loss, lr, batch, root, place, seed + 1,
+        C_STEPS, 0, 1, check=check, final_checkpoint=False)
     peak = torch.cuda.max_memory_allocated()
     require(stats["resumed_from"] == C_EVERY, f"resumed from "
             f"{stats['resumed_from']}")
@@ -2483,19 +2524,20 @@ def train_bert_lamb(torch, np, seed, card, out_dir, phase6=None,
     require(all(np.isfinite(losses)), f"non-finite loss {losses}")
     require(float(scope.get_numpy("@LR_DECAY_COUNTER@")[0]) == C_STEPS,
             "the lr counter")
-    require(io.latest_checkpoint(aside) == C_STEPS
-            and io.is_committed_checkpoint(os.path.join(aside,
-                                                        str(C_STEPS))),
-            "c1: the resumed run's step-8 commit")
-    ckpt = os.path.join(aside, str(C_STEPS))
-    nbytes = dir_bytes(ckpt)
+    require(io.latest_checkpoint(root) == C_EVERY and not t["save_s"],
+            "c1: the resumed run committed")
+    nbytes = dir_bytes(os.path.join(root, str(C_EVERY)))
 
-    # load into a fresh scope on the card, then an async save of it
+    # the commit loaded into a fresh scope on the card, then an async
+    # save of the resumed scope
     t0 = time.perf_counter()
-    io.load_checkpoint(aside, main, fluid.Scope(), step=C_STEPS,
-                       device="cuda")
+    loaded = fluid.Scope()
+    io.load_checkpoint(root, main, loaded, step=C_EVERY, device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    require(float(loaded.get_numpy("@LR_DECAY_COUNTER@")[0]) == C_EVERY,
+            "c1: the loaded commit's lr counter")
+    del loaded
     t0 = time.perf_counter()
     handle = io.save_checkpoint(os.path.join(root, "async"), main, scope,
                                 step=C_STEPS, async_save=True)
@@ -2521,7 +2563,7 @@ def train_bert_lamb(torch, np, seed, card, out_dir, phase6=None,
             "step_ms_mean": mean_ms,
             "tokens_per_s": BERT_BATCH * BERT_SEQ / (mean_ms / 1e3),
             "adam_step_ms_mean": (phase6 or {}).get("step_ms_mean"),
-            "checkpoint_bytes": nbytes, "save_s": ref_t["save_s"] + t["save_s"],
+            "checkpoint_bytes": nbytes, "save_s": ref_t["save_s"],
             "load_s": load_s, "async_return_s": async_return_s,
             "async_s": async_s, "max_memory_allocated_gb": peak / 1e9,
             "launches_per_step": want, "card": card,
@@ -2537,8 +2579,8 @@ def train_bert_lamb(torch, np, seed, card, out_dir, phase6=None,
         f"first ({perf['tokens_per_s']:.2f} tokens/s; phase 6's fused-Adam "
         f"step in this run: {perf['adam_step_ms_mean']} ms), max_memory_"
         f"allocated {peak / 1e9:.2f} GB [{card}]")
-    log(f"  checkpoint {nbytes} bytes; sync commits "
-        f"{[round(s, 3) for s in perf['save_s']]} s, load {load_s:.3f} s, "
+    log(f"  checkpoint {nbytes} bytes; commit "
+        f"{[round(s, 3) for s in perf['save_s']]} s, load {load_s:.3f} s; "
         f"async save returned in {async_return_s:.3f} s and committed in "
         f"{async_s:.3f} s [{card}]")
     return totals, perf
@@ -6434,12 +6476,16 @@ def traffic_http(torch, np, pred, svc, cfg, seed, card):
     return rec
 
 
+# f6's pool: one worker, so the rolling restart boots one replacement
+F6_WORKERS = 1
+
+
 def worker_pool(torch, np, seed, card, tmp):
-    """f6: ResNet-50 saved for inference, served by 2 spawned workers on
-    the card behind SO_REUSEPORT; requests from 8 threads run through a
-    rolling restart with none failed; the fleet view merges the pool's
-    and this process's exposition under worker= labels with the SLO
-    gauges."""
+    """f6: ResNet-50 saved for inference, served by ``F6_WORKERS``
+    spawned workers on the card behind SO_REUSEPORT; requests from 8
+    threads run through a rolling restart with none failed; the fleet
+    view merges the pool's and this process's exposition under worker=
+    labels with the SLO gauges."""
     import http.client
     import re
 
@@ -6470,7 +6516,8 @@ def worker_pool(torch, np, seed, card, tmp):
               for x in images]
     t0 = time.perf_counter()
     # batch 1 requests, served one a batch: a worker warms one shape
-    pool = WorkerPool(d, num_workers=2, use_reuseport=True, device=DEVICE,
+    pool = WorkerPool(d, num_workers=F6_WORKERS, use_reuseport=True,
+                      device=DEVICE,
                       batch_buckets=[1],
                       warmup_shapes={"image": [1, 3, RESNET_IMAGE,
                                                RESNET_IMAGE]},
@@ -6571,8 +6618,8 @@ def worker_pool(torch, np, seed, card, tmp):
                                     report["cold"] + report["replacements"]],
                "served_by_drained_workers": served,
                "fleet_workers": workers, "card": card}
-        log(f"  f6: {len(results)} requests through a rolling restart of 2 "
-            f"workers ({restart_s:.1f} s), none failed ({len(retries)} "
+        log(f"  f6: {len(results)} requests through a rolling restart of "
+            f"{F6_WORKERS} worker(s) ({restart_s:.1f} s), none failed ({len(retries)} "
             f"connections reset before a response, retried), softmax within "
             f"{max(results):.2e} of this process's; workers booted in "
             f"{rec['worker_boot_s']} s (pool up in {boot:.1f} s), the drained "
@@ -11998,6 +12045,271 @@ def phase_n(torch, np, seed, card, out_dir):
     return paths, rec
 
 
+# -- phase o: the NCHW -> NHWC pass on the card -----------------------------------
+
+NHWC_LOSS_RTOL = 1e-4
+# o1's velocities, leaf by leaf (relative L2): ResNet-50's first-step
+# gradients move 2-3 % under a 1e-7 nudge of the input, while a zeroed
+# gradient reads about 1 and a lost 1/n 0.5
+NHWC_VELOCITY_RTOL = 1e-1
+
+
+def nhwc_resnet(fluid, optimizer):
+    """Phase 8's ResNet-50 built NCHW, rewritten by ``auto_nhwc`` before
+    ``optimizer`` minimizes it (the pass's contract: the forward
+    program); the names are those of the NCHW build under the same
+    unique-name scope. Returns main, startup, fetches and the count of
+    flipped ops."""
+    from paddle_tpu_torch.models.resnet import build_resnet50
+    from paddle_tpu_torch.transpiler import auto_nhwc
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_resnet50(1000, RESNET_IMAGE,
+                                                   data_format="NCHW")
+        with fluid.program_guard(main, startup):
+            flipped = auto_nhwc(main)
+            optimizer.minimize(fetches["loss"])
+    ops = main.global_block().ops
+    transposes = sum(op.type == "transpose2" for op in ops)
+    require(flipped >= 108 and transposes <= 4, f"auto_nhwc flipped "
+            f"{flipped} ops (want >= 108) with {transposes} transpose2 "
+            "(want <= 4)")
+    return main, startup, fetches, flipped, transposes
+
+
+def _beside(perf, other, name, card):
+    if other is None:
+        log(f"  ({name} did not run in this call)")
+        return
+    log(f"  beside {name} (NCHW): mean step {other['step_ms_mean']:.3f} ms, "
+        f"{other['images_per_s']:.2f} images/s, max_memory_allocated "
+        f"{other['max_memory_allocated_gb']:.2f} GB; NHWC here "
+        f"{perf['step_ms_mean']:.3f} ms, {perf['images_per_s']:.2f} "
+        f"images/s, {perf['max_memory_allocated_gb']:.2f} GB [{card}]")
+
+
+def nhwc_momentum(torch, np, seed, card, out_dir, phase8=None,
+                  profile=False, steps=10):
+    """o1: phase 8's recipe through ``auto_nhwc``, held to the NCHW
+    program's first step from the same values, then trained."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.core.framework import Parameter
+    from paddle_tpu_torch.core.registry import get_op_def
+    from paddle_tpu_torch.models.resnet import (build_resnet50,
+                                                synthetic_image_batch)
+
+    fluid.set_flags({"optimizer_fuse": "auto"})   # on: a CUDA device exists
+    with fluid.unique_name.guard():
+        ref_main, ref_startup, _, ref_fetches = build_resnet50(
+            1000, RESNET_IMAGE, resnet_optimizer(fluid), data_format="NCHW")
+    main, startup, fetches, flipped, transposes = nhwc_resnet(
+        fluid, resnet_optimizer(fluid))
+    types = [op.type for op in main.global_block().ops]
+    require(types.count("fused_momentum") == 161, "fused_momentum ops")
+    ref_exe, ref_scope, n_params = startup_on_card(torch, np, fluid,
+                                                   ref_main, ref_startup,
+                                                   seed)
+    persist = [v for v in ref_main.list_vars()
+               if v.persistable and not v.is_data]
+    require({v.name for v in persist} == {
+        v.name for v in main.list_vars() if v.persistable and not v.is_data},
+        "the NHWC program's persistables differ from the NCHW one's")
+    scope, nudge_scope = fluid.Scope(), fluid.Scope()
+    for v in persist:
+        scope.set_var(v.name, ref_scope.find_var(v.name).clone())
+        nudge_scope.set_var(v.name, ref_scope.find_var(v.name).clone())
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    batch = synthetic_image_batch(np.random.RandomState(seed), RESNET_BATCH,
+                                  RESNET_IMAGE)
+    (ref_loss,) = ref_exe.run(ref_main, feed=batch,
+                              fetch_list=[ref_fetches["loss"]],
+                              scope=ref_scope)
+    # the NCHW step again on the input scaled by 1 + 1e-7: how far
+    # rounding alone moves the first step's gradients (phase 5's nudge)
+    ref_exe.run(ref_main, feed=dict(batch, image=batch["image"]
+                                    * np.float32(1 + 1e-7)),
+                fetch_list=[ref_fetches["loss"]], scope=nudge_scope)
+    # the first NHWC step, watching the gradients that reach the fused
+    # update: cuDNN returns filter gradients channels-last
+    opdef = get_op_def("fused_momentum")
+    lower, channels_last = opdef.lower, []
+
+    def watch(ctx, op, ins):
+        g = ins["Grad"][0]
+        if not g.is_contiguous():
+            channels_last.append(op.inputs["Grad"][0])
+        return lower(ctx, op, ins)
+
+    opdef.lower = watch
+    try:
+        K.reset_launch_counts()
+        (loss0,) = exe.run(main, feed=batch, fetch_list=[fetches["loss"]],
+                           scope=scope)
+        torch.cuda.synchronize()
+        first = K.launch_counts()
+    finally:
+        opdef.lower = lower
+    want = {name: 0 for name in K.KERNELS}
+    want.update(fused_momentum_update=161, softmax_xent_fwd=1,
+                softmax_xent_bwd=1)
+    require(first == want, f"o1: the first NHWC step launched {first}, "
+            f"want {want}")
+    a = float(np.asarray(ref_loss).reshape(-1)[0])
+    b = float(np.asarray(loss0).reshape(-1)[0])
+    rel = abs(a - b) / abs(a)
+    require(rel <= NHWC_LOSS_RTOL, f"o1: the NHWC first loss {b} differs "
+            f"from NCHW's {a} by {rel:.3e} > {NHWC_LOSS_RTOL}")
+    lr = resnet_lr(RESNET_BATCH)
+    bn = {}     # running statistic -> its difference / its largest entry
+    p_worst, p_name = -1.0, ""
+    for v in persist:
+        nchw = ref_scope.find_var(v.name).float()
+        d = float((scope.find_var(v.name).float() - nchw).abs().max())
+        if v.name.endswith((".bn.mean", ".bn.var")):
+            bn[v.name] = d / float(nchw.abs().max())
+        elif isinstance(v, Parameter) and d > p_worst:
+            p_worst, p_name = d, v.name
+    require(len(bn) == 106, f"o1: {len(bn)} running statistics, want 106")
+    bn_name = max(bn, key=bn.get)
+    bn_worst = bn[bn_name]
+    require(bn_worst <= BN_STATS_RTOL, f"o1: running statistic {bn_name} "
+            f"differs by {bn_worst:.3e} of its largest entry")
+    # the velocities after the first step are the gradients K10m took
+    # (plus the L2 decay): held leaf by leaf, as the 2 * lr rule cannot
+    vel, vel_nudge = {}, {}
+    for v in persist:
+        if getattr(v, "is_accumulator", False) and "velocity" in v.name:
+            nchw = ref_scope.find_var(v.name).float()
+            norm = nchw.norm().clamp_min(1e-30)
+            vel[v.name] = float((scope.find_var(v.name).float() - nchw)
+                                .norm() / norm)
+            vel_nudge[v.name] = float(
+                (nudge_scope.find_var(v.name).float() - nchw).norm() / norm)
+    require(len(vel) == 161, f"o1: {len(vel)} velocities, want 161")
+    v_name = max(vel, key=vel.get)
+    v_worst = vel[v_name]
+    n_name = max(vel_nudge, key=vel_nudge.get)
+    fc = [n for n in vel if n.startswith("fc")]
+    log(f"  {flipped} ops flipped, {transposes} transpose2, {len(types)} "
+        f"ops; first loss NHWC {b:.6f} against NCHW {a:.6f} (rel "
+        f"{rel:.3e}, limit {NHWC_LOSS_RTOL}); BN running statistics within "
+        f"{bn_worst:.3e} of their largest ({bn_name}); parameters after the "
+        f"first update within {p_worst:.3e} ({p_name}; limit 2 * lr = "
+        f"{2 * lr:.3e}); velocities at relative L2 {v_worst:.3e} at worst "
+        f"({v_name}; median {statistics.median(vel.values()):.3e}, least "
+        f"{min(vel.values()):.3e}, {fc} {[f'{vel[n]:.3e}' for n in fc]}; "
+        f"limit {NHWC_VELOCITY_RTOL}), the NCHW step on the nudged input's "
+        f"{vel_nudge[n_name]:.3e} at worst ({n_name}; median "
+        f"{statistics.median(vel_nudge.values()):.3e}, least "
+        f"{min(vel_nudge.values()):.3e}, fc "
+        f"{[f'{vel_nudge[n]:.3e}' for n in fc]}); {len(channels_last)} of "
+        f"161 gradients "
+        f"reached the update channels-last, e.g. {channels_last[:3]} "
+        f"[{card}]")
+    require(p_worst <= 2 * lr, f"o1: parameter {p_name} differs by "
+            f"{p_worst:.3e} after the first update > 2 * lr = {2 * lr:.3e}")
+    require(v_worst <= NHWC_VELOCITY_RTOL, f"o1: velocity {v_name} differs "
+            f"by {v_worst:.3e} (relative L2) > {NHWC_VELOCITY_RTOL}")
+    del ref_exe, ref_scope, nudge_scope
+    torch.cuda.empty_cache()
+    totals, perf = run_steps(torch, np, K, exe, main, scope, batch,
+                             fetches["loss"], want, steps, RESNET_BATCH, card,
+                             out_dir, "resnet_nhwc", profile, unit="images")
+    for n, c in first.items():
+        totals[n] += c
+    perf.update(parameters=n_params, flipped=flipped, transposes=transposes,
+                ops=len(types), first_loss_nchw=a, first_loss_nhwc=b,
+                first_loss_rel_err=rel, bn_stats_max_rel_err=bn_worst,
+                param_max_abs_err_first_step=p_worst, param_limit=2 * lr,
+                velocity_rel_l2_worst=v_worst,
+                velocity_rel_l2_median=statistics.median(vel.values()),
+                nudge_velocity_rel_l2_worst=vel_nudge[n_name],
+                nudge_velocity_rel_l2_median=statistics.median(
+                    vel_nudge.values()),
+                velocity_rel_l2_limit=NHWC_VELOCITY_RTOL,
+                channels_last_grads=len(channels_last))
+    _beside(perf, phase8, "phase 8", card)
+    return totals, perf
+
+
+def nhwc_amp(torch, np, seed, card, out_dir, phase9=None, profile=False,
+             steps=10):
+    """o2: phase 9's recipe (bfloat16 AMP, fused Adam) through
+    ``auto_nhwc``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models.resnet import synthetic_image_batch
+
+    fluid.set_flags({"optimizer_fuse": "auto"})   # on: a CUDA device exists
+    main, startup, fetches, flipped, transposes = nhwc_resnet(
+        fluid, amp_adam(fluid, 1e-4))
+    types = [op.type for op in main.global_block().ops]
+    require(types.count("fused_adam") == 161 and "adam" not in types,
+            f"{types.count('fused_adam')} fused_adam ops")
+    log(f"  {flipped} ops flipped, {transposes} transpose2; {len(types)} ops "
+        f"({types.count('cast')} casts) beside phase 9's 853 (158 casts)")
+    exe, scope, n_params = startup_on_card(torch, np, fluid, main, startup,
+                                           seed)
+    batch = synthetic_image_batch(np.random.RandomState(seed), RESNET_BATCH,
+                                  RESNET_IMAGE)
+    want = {name: 0 for name in K.KERNELS}
+    want.update(fused_adam_update=161, softmax_xent_fwd=1,
+                softmax_xent_bwd=1)
+    totals, perf = run_steps(torch, np, K, exe, main, scope, batch,
+                             fetches["loss"], want, steps, RESNET_BATCH, card,
+                             out_dir, "resnet_nhwc_amp", profile,
+                             unit="images")
+    perf.update(parameters=n_params, flipped=flipped, transposes=transposes,
+                ops=len(types), casts=types.count("cast"), amp="bfloat16")
+    if profile:
+        groups = perf["profile"]["kernel_ms_a_step_by_group"]
+        log(f"  a step's convolution device ms "
+            f"{groups.get('convolution (cuDNN)', 0.0):.3f} (phase 9, NCHW: "
+            f"6.84, of which cuDNN's layout transposes about 2.5; PERF.md "
+            f"section 5), layout transposes "
+            f"{perf['profile']['layout_transpose_ms'] / 2:.3f}, copies and "
+            f"casts {groups.get('copies and casts', 0.0):.3f} [{card}]")
+    _beside(perf, phase9, "phase 9", card)
+    return totals, perf
+
+
+def run_check_on_card(card):
+    """o3: ``install_check.run_check()`` on the card: its verdict lines."""
+    import contextlib
+    import io as _io
+
+    import paddle_tpu_torch as fluid
+
+    buf = _io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        fluid.install_check.run_check()
+    lines = buf.getvalue().splitlines()
+    require(lines[-1] == "install check passed."
+            and lines[-2].startswith("Your paddle_tpu_torch works well on"),
+            f"o3: run_check printed {lines}")
+    log(f"  run_check in {time.perf_counter() - t0:.1f} s: {lines} [{card}]")
+    return {"lines": lines}
+
+
+def phase_o(torch, np, seed, card, out_dir, record, profile=False):
+    paths, out = {}, {}
+    log("phase o1: ResNet-50 through auto_nhwc, float32, fused Momentum")
+    paths["resnet_nhwc"], out["o1"] = nhwc_momentum(
+        torch, np, seed, card, out_dir, record.get("resnet"), profile)
+    torch.cuda.empty_cache()
+    log("phase o2: ResNet-50 through auto_nhwc under bfloat16 AMP, fused "
+        "Adam")
+    paths["resnet_nhwc_amp"], out["o2"] = nhwc_amp(
+        torch, np, seed, card, out_dir, record.get("resnet_amp"), profile)
+    torch.cuda.empty_cache()
+    log("phase o3: install_check.run_check() on the card")
+    out["o3"] = run_check_on_card(card)
+    return paths, out
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -12312,6 +12624,14 @@ def main(argv=None) -> int:
         paths.update(npaths)
         torch.cuda.empty_cache()
     mark("n")
+    if "o" in args.phases:
+        log("phase o: ResNet-50 through the NCHW -> NHWC pass (auto_nhwc), "
+            "float32 and bfloat16 AMP; install_check on the card")
+        opaths, record["phase_o"] = phase_o(torch, np, args.seed, card,
+                                            args.out, record, args.profile)
+        paths.update(opaths)
+        torch.cuda.empty_cache()
+    mark("o")
     record["phase_seconds"] = phase_s
     log(f"seconds a phase: {phase_s} [{card}]")
     launches = {name: {p: c.get(name, 0) for p, c in paths.items()}
@@ -12321,7 +12641,8 @@ def main(argv=None) -> int:
         json.dump(record, f, indent=1)
 
     log("summary: kernels at the main paths' shapes (launches: phases 3, "
-        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h, i, j, k, l, m and n)")
+        "3b, 4, 6, 7, 8, 9, a, b, c1, d, e, f, g, h, i, j, k, l, m, n and "
+        "o)")
     for name, by_dt in rows.items():
         for key, row in by_dt.items():
             dt = "bfloat16" if "bfloat16" in key else "float32"

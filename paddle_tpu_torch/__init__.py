@@ -213,9 +213,33 @@ shards and update rules), ``transpiler.DistributeTranspiler`` in
 pserver mode and ``GeoSgdTranspiler``, fleet's PS lifecycle and
 ``distributed.launch_ps``.
 
+The rest of the public surface: the top-level names of JAX's
+``paddle_tpu/__init__.py`` (``Block``, ``Operator``, ``Parameter``,
+``name_scope``, ``Place`` and the place helpers, the initializer
+aliases, ``WeightNormParamAttr``, ``require_version``,
+``load_op_library``, ``save`` / ``load`` and their params and
+persistables forms, ``debugger``, ``install_check.run_check()`` on the
+card, ``__version__``), ``transpiler.auto_nhwc`` (an NCHW Program
+trained channels-last: cuDNN's NHWC kernels), ``contrib``'s
+``extend_optimizer`` (decoupled weight decay), ``memory_usage``,
+``summary`` and ``op_freq_statistic``, ``layers.collective``,
+``incubate.data_generator``, ``incubate.fleet.utils.FleetUtil`` and
+``fs.HDFSClient``;
+
+    main, startup, feeds, fetches = models.resnet.build_resnet50()
+    with fluid.program_guard(main, startup):
+        fluid.transpiler.auto_nhwc(main)      # before minimize
+        fluid.optimizer.Momentum(0.1, 0.9).minimize(fetches["loss"])
+
 Every TPU kernel of the JAX package has its CUDA counterpart. Not
-ported yet (ROADMAP A11): ``contrib`` slim, ``analysis``, HDFS, autotune
-and the rest.
+ported yet: ``analysis`` (ROADMAP A11h), ``contrib.slim``'s NAS, prune
+and distillation (A11i), the autotune profiles of ``flags`` and the
+kernel geometry table (A11k), ``capi`` and ``go`` (A11l). JAX's
+TPU-only names have a CUDA counterpart or are refused by name:
+``TPUPlace`` names ``CUDAPlace``, ``Place.jax_device`` is
+``Place.torch_device``, ``Executor.aot_compile`` names
+``Executor.bind``, ``kernels.layer_norm_pallas`` names K1's
+``kernels.layer_norm``; ``is_compiled_with_tpu()`` is False.
 
 Entry points run on CUDA unless the caller names the CPU
 (``device="cpu"``, ``CPUPlace()``); with no GPU they raise instead of
@@ -223,7 +247,7 @@ falling back.
 """
 
 from . import (average, clip, contrib, dygraph, evaluator,  # noqa: F401
-               io, layers, metrics, nets,
+               initializer, io, layers, metrics, nets,
                ops,  # ops: the lowerings
                optimizer, parallel, partition, profiler, regularizer,
                resilience, transpiler)
@@ -232,18 +256,29 @@ from .core.compiler import (BuildStrategy, CompiledProgram,
                             ExecutionStrategy, ParallelExecutor)
 from .core.backward import append_backward, gradients
 from .core.executor import Executor, Scope, global_scope, scope_guard
-from .core.framework import (Program, Variable, default_main_program,
-                             default_startup_program, in_dygraph_mode,
-                             program_guard,
+from .core.framework import (Block, Operator, Parameter, Program, Variable,
+                             default_main_program, default_startup_program,
+                             in_dygraph_mode, name_scope, program_guard,
                              unique_name)
-from .core.places import CPUPlace, CUDAPlace
+from .core.places import (TPU_PLACE_REFUSAL, CPUPlace, CUDAPlace, Place,
+                          cpu_places, cuda_pinned_places, cuda_places,
+                          device_guard, is_compiled_with_cuda,
+                          is_compiled_with_tpu)
 from .data_feeder import DataFeeder
 from .device import resolve_device
 from .flags import get_flags, set_flags
+from .initializer import (Bilinear, Constant, MSRA, Normal,
+                          NumpyArrayInitializer, TruncatedNormal, Uniform,
+                          Xavier)
+from .io import (load, load_params, load_persistables, save, save_params,
+                 save_persistables)
 from .lod_tensor import (LoDTensor, create_lod_tensor,
                          create_random_int_lodtensor)
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 from .reader import DataLoader
+from . import flags, observability, serving  # noqa: F401,E402
+from .version import commit as __git_commit__  # noqa: E402
+from .version import full_version as __version__  # noqa: E402
 
 __all__ = ["resolve_device", "clip", "contrib", "io", "layers", "nets",
            "optimizer", "regularizer", "resilience", "average", "metrics",
@@ -251,9 +286,70 @@ __all__ = ["resolve_device", "clip", "contrib", "io", "layers", "nets",
            "create_lod_tensor", "create_random_int_lodtensor",
            "framework",
            "append_backward", "gradients", "Executor", "Scope", "global_scope",
-           "scope_guard", "Program", "Variable", "default_main_program",
+           "scope_guard", "Program", "Block", "Operator", "Variable",
+           "Parameter", "default_main_program",
            "default_startup_program", "program_guard", "unique_name",
-           "CPUPlace", "CUDAPlace", "get_flags",
-           "set_flags", "ParamAttr", "parallel", "partition", "transpiler",
+           "name_scope", "Place", "CPUPlace", "CUDAPlace", "cpu_places",
+           "cuda_places", "cuda_pinned_places", "device_guard",
+           "is_compiled_with_cuda", "is_compiled_with_tpu", "get_flags",
+           "set_flags", "ParamAttr", "WeightNormParamAttr", "parallel",
+           "partition", "transpiler",
            "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
-           "ParallelExecutor", "dygraph", "in_dygraph_mode"]
+           "ParallelExecutor", "dygraph", "in_dygraph_mode", "initializer",
+           "Constant", "Uniform", "Normal", "TruncatedNormal", "Xavier",
+           "MSRA", "Bilinear", "NumpyArrayInitializer", "save", "load",
+           "save_params", "load_params", "save_persistables",
+           "load_persistables", "require_version", "load_op_library",
+           "debugger", "flags", "generation", "incubate", "install_check",
+           "observability", "quantize", "serving", "traffic"]
+
+
+# imported on first use, so that ``import paddle_tpu_torch`` loads no
+# more modules than the names above need
+_LAZY_MODULES = ("debugger", "generation", "incubate", "install_check",
+                 "quantize", "traffic")
+
+
+def __getattr__(name):
+    if name == "TPUPlace":
+        raise AttributeError(TPU_PLACE_REFUSAL)
+    if name in _LAZY_MODULES:
+        import importlib
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def require_version(min_version, max_version=None):
+    """Reference framework.py ``require_version``, with JAX's parse: a
+    version pads to three parts, so '0.1' admits any 0.1.x."""
+    def parse(s):
+        parts = []
+        for x in str(s).split(".")[:3]:
+            digits = "".join(ch for ch in x if ch.isdigit())
+            parts.append(int(digits or 0))
+        while len(parts) < 3:
+            parts.append(0)
+        return tuple(parts)
+
+    cur = parse(__version__)
+    if parse(min_version) > cur:
+        raise Exception(
+            f"paddle_tpu_torch version {__version__} < required {min_version}")
+    if max_version is not None and parse(max_version) < cur:
+        raise Exception(
+            f"paddle_tpu_torch version {__version__} > allowed {max_version}")
+
+
+def load_op_library(lib_path):
+    """Reference framework.py ``load_op_library`` (a custom op's .so).
+    A custom op of the port is a Python module that calls
+    ``core.registry.register_op``: a path to a ``.py`` runs it, which
+    registers its ops; any other path is loaded with ``ctypes`` (host
+    code for a ``py_func``) and returned."""
+    import ctypes
+    import runpy
+
+    if str(lib_path).endswith(".py"):
+        runpy.run_path(str(lib_path))
+        return None
+    return ctypes.CDLL(str(lib_path))

@@ -1,9 +1,10 @@
 """Gradient clipping: the port's copy of ``paddle_tpu/clip.py``
 (Fluid's python/paddle/fluid/clip.py): ``GradientClipByValue``,
 ``GradientClipByNorm``, ``GradientClipByGlobalNorm``,
-``set_gradient_clip`` and ``append_gradient_clip_ops``, emitting the
-reference's ops. ``GradientClipByGlobalNorm._append_scale_op`` emits only
-the global-norm factor, which the fused optimizer ops take as their
+``ErrorClipByValue``, ``set_gradient_clip`` and
+``append_gradient_clip_ops``, emitting the reference's ops.
+``GradientClipByGlobalNorm._append_scale_op`` emits only the
+global-norm factor, which the fused optimizer ops take as their
 ``ClipScale`` operand (the multiply then happens inside the K10 / K10m
 pass)."""
 
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 __all__ = ["BaseGradientClipAttr", "GradientClipByValue",
            "GradientClipByNorm", "GradientClipByGlobalNorm",
+           "ErrorClipByValue",
            "set_gradient_clip",
            "append_gradient_clip_ops"]
 
@@ -67,6 +69,29 @@ class GradientClipByGlobalNorm(BaseGradientClipAttr):
 
         factor = self._append_scale_op(params_grads)
         return [(p, elementwise_mul(g, factor, axis=-1)) for p, g in params_grads]
+
+
+class ErrorClipByValue:
+    """Clips the gradient of one variable (reference clip.py
+    ``ErrorClipByValue``), attached as ``var.error_clip``.
+    ``append_backward`` appends a ``clip`` op on the var's ``@GRAD`` right
+    after the op that produces it, as the reference's
+    ``error_clip_callback`` does, so the clipped error is what flows on
+    to the ops before it. JAX's class is accepted and then ignored
+    (``paddle_tpu/clip.py:72-79``: nothing reads ``error_clip``); the
+    port does not copy that."""
+
+    def __init__(self, max, min=None):
+        self.max = float(max)
+        self.min = float(min) if min is not None else -float(max)
+
+    def _append_clip_op(self, block, grad_name):
+        from .core.framework import OpRole
+
+        block.append_op(type="clip", inputs={"X": [grad_name]},
+                        outputs={"Out": [grad_name]},
+                        attrs={"min": self.min, "max": self.max,
+                               "op_role": OpRole.Backward})
 
 
 def set_gradient_clip(clip, param_list=None, program=None):

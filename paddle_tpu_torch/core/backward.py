@@ -47,6 +47,19 @@ def _create_grad_var(block: Block, fwd_name: str) -> Variable:
     )
 
 
+def _error_clip(block: Block, names) -> None:
+    """The reference's ``error_clip_callback``: a ``clip`` op on each
+    ``<var>@GRAD`` just produced whose forward var has an
+    ``error_clip`` (``clip.ErrorClipByValue``)."""
+    for gname in names:
+        if not gname.endswith("@GRAD"):
+            continue
+        fwd = _var_or_none(block, gname[: -len("@GRAD")])
+        clip = getattr(fwd, "error_clip", None)
+        if clip is not None:
+            clip._append_clip_op(block, gname)
+
+
 def append_backward(
     loss: Variable,
     parameter_list: Optional[Sequence] = None,
@@ -207,6 +220,7 @@ def append_backward(
             outputs=g_outputs,
             attrs=attrs,
         )
+        _error_clip(block, [n for ns in g_outputs.values() for n in ns])
         for final, old, new in pending_sums:
             block.append_op(
                 type="sum",
@@ -214,6 +228,7 @@ def append_backward(
                 outputs={"Out": [final]},
                 attrs={"op_role": OpRole.Backward},
             )
+            _error_clip(block, [final])
             grad_map_key = final[: -len("@GRAD")]
             grad_map[grad_map_key] = final
         for n, new in pending_replace:

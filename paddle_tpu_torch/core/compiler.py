@@ -40,7 +40,7 @@ rank's own value.
   ``dp`` shard of it with ``dp``).
 
 Each compile takes exactly one ``with_*`` strategy. ``validate`` needs
-the static analyzer (ROADMAP A11).
+the static analyzer (ROADMAP A11h).
 """
 
 from __future__ import annotations
@@ -364,7 +364,7 @@ class CompiledProgram:
         raise NotImplementedError(
             "CompiledProgram.validate needs the static program analyzer "
             "(paddle_tpu/analysis), not ported to paddle_tpu_torch yet "
-            "(ROADMAP A11)")
+            "(ROADMAP A11h)")
 
     @property
     def program(self):

@@ -382,6 +382,12 @@ def _check_transpiled(program: Program) -> None:
             "(torch.distributed)")
 
 
+AOT_COMPILE_REFUSAL = (
+    "Executor.aot_compile compiles the JAX package's step for a TPU "
+    "topology with no chip attached; paddle_tpu_torch builds its CUDA "
+    "kernels at their first launch and binds a step with Executor.bind")
+
+
 class Executor:
     """Reference API: ``Executor(place).run(program, feed, fetch_list,
     scope)``. The place defaults to ``CUDAPlace(0)``, which raises when
@@ -597,6 +603,36 @@ class Executor:
         out["graph_captures"] = 0
         out["graph_replays"] = 0
         return out
+
+    def export_fn(self, program, feed, fetch_list, scope=None):
+        """JAX's ``export_fn`` (:1191) hands ``__graft_entry__`` and
+        ``bench.py`` the pure step function of a program with concrete
+        arguments. The port's counterpart: ``(fn, args, meta)``, where
+        ``fn(args)`` runs the bound step (``bind``) on a feed dict and
+        returns its fetches as tensors, ``args`` is ``feed`` as tensors
+        on this executor's device and ``meta`` names the feeds, the
+        state the step reads, the persistables it writes and the
+        fetches."""
+        from ..runtime.dispatch import host_tensor
+
+        bound = self.bind(program, feed, fetch_list, scope)
+        args = {n: host_tensor(feed[n], dt).to(self.device)
+                for n, dt in bound.feed_plan}
+
+        def fn(feed_args):
+            return bound.run(feed_args, return_numpy=False)
+
+        meta = {"feed_names": [n for n, _ in bound.feed_plan],
+                "state_names": list(bound.plan.state_names),
+                "written_names": list(bound.plan.written),
+                "fetch_names": list(bound.fetch_names)}
+        return fn, args, meta
+
+    def __getattr__(self, name):
+        if name == "aot_compile":
+            raise AttributeError(AOT_COMPILE_REFUSAL)
+        raise AttributeError(
+            f"{type(self).__name__!r} object has no attribute {name!r}")
 
     def close(self):
         self._plans.clear()

@@ -215,6 +215,12 @@ class Variable:
     def ndim(self):
         return len(self.shape) if self.shape is not None else None
 
+    def astype(self, dtype):
+        """A ``cast`` of this variable to ``dtype`` (JAX's :220-223)."""
+        from .. import layers
+
+        return layers.cast(self, dtype)
+
     def __repr__(self):
         return (
             f"Variable(name={self.name!r}, shape={self.shape}, "

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from .core.framework import Program, program_guard
+from .core.framework import (Program,  # noqa: F401
+                             default_main_program, program_guard)
 from .layer_helper import LayerHelper
 
 __all__ = ["Evaluator", "ChunkEvaluator", "EditDistance", "DetectionMAP"]

@@ -12,7 +12,7 @@ pinned set, :337-366) and ``get_flags`` / ``set_flags`` / ``flag`` /
 ``generation`` (:368-395). ``set_flags`` bumps the generation, which
 ``Executor.bind`` keys on, so a flag change re-binds a step. Only what
 the ported slices read is here (``observability_xla_analysis`` has no
-XLA to analyse); the autotune profiles (:399-570) are ROADMAP A11.
+XLA to analyse); the autotune profiles (:399-570) are ROADMAP A11k.
 """
 
 from __future__ import annotations

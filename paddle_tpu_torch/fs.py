@@ -1,14 +1,16 @@
-"""Filesystem helpers: the port's copy of ``paddle_tpu/fs.py``
-(:20-143), the ``FS`` interface, its errors and ``LocalFS`` (the
-crash-safe ``atomic_rename`` that ``resilience.CheckpointPolicy``
-commits through included). ``HDFSClient``, which drives the ``hadoop
-fs`` command line, is ROADMAP A11 and refused by name."""
+"""Filesystem helpers: the port's copy of ``paddle_tpu/fs.py``, the
+``FS`` interface, its errors, ``LocalFS`` (the crash-safe
+``atomic_rename`` that ``resilience.CheckpointPolicy`` commits through
+included) and ``HDFSClient``, which drives the ``hadoop fs`` command
+line and raises ``ExecuteError`` where there is no hadoop binary."""
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import List, Tuple
+import subprocess
+import time
+from typing import List, Optional, Tuple
 
 __all__ = ["FS", "LocalFS", "HDFSClient", "ExecuteError",
            "FSFileExistsError", "FSFileNotExistsError"]
@@ -138,9 +140,136 @@ class LocalFS(FS):
 
 
 class HDFSClient(FS):
-    """The reference's ``hadoop fs`` client: not ported (ROADMAP A11)."""
+    """Reference incubate/fleet/utils/hdfs.py:45: every operation is a
+    ``hadoop fs -<cmd>`` subprocess with bounded retries."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, hadoop_home: Optional[str] = None, configs=None,
+                 time_out=5 * 60 * 1000, sleep_inter=1000):
+        self._hadoop_home = hadoop_home or os.environ.get("HADOOP_HOME", "")
+        self._configs = configs or {}
+        self._time_out = time_out
+        self._sleep_inter = sleep_inter
+        pre = []
+        for k, v in self._configs.items():
+            pre.append(f"-D{k}={v}")
+        binpath = (
+            os.path.join(self._hadoop_home, "bin", "hadoop")
+            if self._hadoop_home else "hadoop"
+        )
+        self._base_cmd = [binpath, "fs"] + pre
+
+    def _hadoop_available(self) -> bool:
+        return shutil.which(self._base_cmd[0]) is not None
+
+    def _cmd(self, *args) -> List[str]:
+        return self._base_cmd + list(args)
+
+    def _run(self, args, retry_times=5) -> Tuple[int, str]:
+        """Reference __run_hdfs_cmd: retry transient failures."""
+        if not self._hadoop_available():
+            raise ExecuteError(
+                f"hadoop binary not found ({self._base_cmd[0]!r}) — set "
+                "hadoop_home or HADOOP_HOME, or use LocalFS"
+            )
+        last = ""
+        for i in range(retry_times):
+            try:
+                proc = subprocess.run(
+                    self._cmd(*args), capture_output=True, text=True,
+                    timeout=self._time_out / 1000.0,
+                )
+                if proc.returncode == 0:
+                    return 0, proc.stdout
+                last = proc.stderr
+            except subprocess.TimeoutExpired:
+                last = f"timed out after {self._time_out}ms"
+            if i < retry_times - 1:
+                time.sleep(self._sleep_inter / 1000.0)
+        raise ExecuteError(f"hadoop fs {' '.join(args)} failed: {last[-500:]}")
+
+    # -- operations (each mirrors a reference method) -----------------------
+    def is_exist(self, path) -> bool:
+        try:
+            self._run(["-test", "-e", path], retry_times=1)
+            return True
+        except ExecuteError as e:
+            if "hadoop binary not found" in str(e):
+                raise
+            return False
+
+    def is_dir(self, path) -> bool:
+        try:
+            self._run(["-test", "-d", path], retry_times=1)
+            return True
+        except ExecuteError as e:
+            if "hadoop binary not found" in str(e):
+                raise
+            return False
+
+    def is_file(self, path) -> bool:
+        return self.is_exist(path) and not self.is_dir(path)
+
+    def ls_dir(self, path):
+        _, out = self._run(["-ls", path])
+        dirs, files = [], []
+        for line in out.splitlines():
+            parts = line.split()
+            if len(parts) < 8:
+                continue
+            name = parts[-1]
+            (dirs if parts[0].startswith("d") else files).append(
+                os.path.basename(name))
+        return dirs, files
+
+    def mkdirs(self, path):
+        self._run(["-mkdir", "-p", path])
+
+    def delete(self, path):
+        self._run(["-rm", "-r", "-f", path])
+
+    def rename(self, src, dst, overwrite=False):
+        if overwrite:
+            self._run(["-rm", "-r", "-f", dst])
+        self._run(["-mv", src, dst])
+
+    def atomic_rename(self, src, dst):
         raise NotImplementedError(
-            "fs.HDFSClient is not ported to paddle_tpu_torch yet "
-            "(ROADMAP A11); use LocalFS")
+            "HDFSClient.atomic_rename: `hadoop fs -mv` gives no "
+            "atomicity or durability guarantee when dst exists (it can "
+            "move src INSIDE a dst directory), so it cannot implement "
+            "the checkpoint commit protocol — write checkpoints to a "
+            "LocalFS staging dir and upload() the committed result"
+        )
+
+    def cat(self, path) -> str:
+        _, out = self._run(["-cat", path])
+        return out
+
+    def upload(self, hdfs_path, local_path, overwrite=False, retry_times=5):
+        if overwrite:
+            self._run(["-rm", "-r", "-f", hdfs_path], retry_times=1)
+        self._run(["-put", local_path, hdfs_path], retry_times)
+
+    def download(self, hdfs_path, local_path, overwrite=False, retry_times=5):
+        if overwrite and os.path.exists(local_path):
+            LocalFS().delete(local_path)
+        self._run(["-get", hdfs_path, local_path], retry_times)
+
+    def need_upload_download(self) -> bool:
+        return True
+
+    @staticmethod
+    def split_files(files: List[str], trainer_id: int, trainers: int):
+        """Reference hdfs.py:396 — contiguous file partition per
+        trainer."""
+        remainder = len(files) % trainers
+        blocksize = len(files) // trainers
+        blocks = [blocksize] * trainers
+        for i in range(remainder):
+            blocks[i] += 1
+        trainer_files = [[]] * trainers
+        begin = 0
+        for i in range(trainers):
+            trainer_files[i] = files[begin:begin + blocks[i]]
+            begin += blocks[i]
+        return trainer_files[trainer_id]

@@ -221,6 +221,22 @@ class PagedKVCache:
         self._ensure_buffers()
         return self._v_scales
 
+    def set_buffers(self, k_pages: List[torch.Tensor],
+                    v_pages: List[torch.Tensor],
+                    k_scales: Optional[List[torch.Tensor]] = None,
+                    v_scales: Optional[List[torch.Tensor]] = None) -> None:
+        """Swap in pools a step returned (JAX's :231, whose steps write
+        functionally); the int8 pool takes its scale planes too."""
+        if len(k_pages) != self.num_layers or len(v_pages) != self.num_layers:
+            raise ValueError("set_buffers: wrong layer count")
+        self._k_pages = list(k_pages)
+        self._v_pages = list(v_pages)
+        if self.quantized:
+            if k_scales is None or v_scales is None:
+                raise ValueError("set_buffers: int8 pool needs scale planes")
+            self._k_scales = list(k_scales)
+            self._v_scales = list(v_scales)
+
     @staticmethod
     def page_bytes(num_kv_heads: int, head_dim: int, page_size: int,
                    dtype: Union[str, torch.dtype]) -> int:
@@ -248,6 +264,9 @@ class PagedKVCache:
         """Pool capacity available to sequences (junk page excluded)."""
         return self.num_pages - 1
 
+    def free_pages(self) -> int:
+        return len(self._free)
+
     def can_fit_ever(self, n_tokens: int) -> bool:
         """Could a sequence of n_tokens EVER be served by this pool —
         the admission-time check (Overloaded before any prefill)."""
@@ -255,6 +274,11 @@ class PagedKVCache:
         return (need <= self.usable_pages
                 and need <= self.max_pages_per_seq
                 and n_tokens <= self.max_pages_per_seq * self.page_size)
+
+    def can_allocate(self, n_tokens: int) -> bool:
+        """``n_tokens`` of pages fit the free list now (the trie's
+        reclaimable pages not counted: ``can_acquire`` counts them)."""
+        return self.pages_needed(n_tokens) <= len(self._free)
 
     def can_acquire(self, n_tokens: int, prompt=None) -> bool:
         """Could ``n_tokens`` of pages be allocated now: the free list
@@ -745,6 +769,9 @@ class PagedKVCache:
 
     def is_active(self, slot: int) -> bool:
         return self._active[slot]
+
+    def active_slots(self) -> List[int]:
+        return [i for i, a in enumerate(self._active) if a]
 
     # -- introspection -------------------------------------------------------
     def stats(self) -> Dict[str, Any]:

@@ -53,7 +53,8 @@ import numpy as np
 import torch
 
 from .core import framework
-from .core.executor import global_scope, to_numpy, torch_dtype
+from .core.executor import (Executor, Scope,  # noqa: F401  (JAX's io re-exports)
+                            global_scope, to_numpy, torch_dtype)
 from .core.framework import Parameter, Program, Variable
 from .device import resolve_device
 from .flags import flag

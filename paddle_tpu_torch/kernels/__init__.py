@@ -25,6 +25,13 @@ its kernel here.
 quantize) is plain torch, as in JAX.
 The library is built by ``_build`` at the first launch on a CUDA
 tensor; importing this package builds nothing.
+
+JAX's package-level helpers are here too: ``dequantize_weight`` and
+``quantized_weight_bytes`` (K11's weight format), ``lora_slot_bytes``,
+``lora_pool_shapes`` and ``lora_rank_geometry_issue`` (K12's pools and
+rank rule) and ``optimizer_fuse_enabled``. JAX's ``layer_norm_pallas``
+(the Pallas call itself) has no counterpart: the name is refused,
+naming K1's launcher ``layer_norm``.
 """
 
 from .flash_attention import (flash_attention, flash_attention_bwd,
@@ -36,14 +43,17 @@ from .fused_optim import (fused_adam_update, fused_adam_update_plain,
 from .layer_norm import (fused_layer_norm, layer_norm, layer_norm_bwd,
                          layer_norm_bwd_plain, layer_norm_fwd,
                          layer_norm_fwd_plain, layer_norm_plain)
+from ..flags import optimizer_fuse_enabled
 from .lora import (batched_lora_add_, batched_lora_add_plain_,
                    batched_lora_delta, batched_lora_delta_plain,
-                   batched_lora_matmul)
+                   batched_lora_matmul, lora_pool_shapes,
+                   lora_rank_geometry_issue, lora_slot_bytes)
 from .paged_attention import (kv_cache_write, kv_cache_write_layer,
                               kv_write_targets, paged_attention,
                               paged_attention_layer, paged_attention_plain)
-from .quant_matmul import (quantize_weight, quantized_matmul,
-                           quantized_matmul_fma, quantized_matmul_plain)
+from .quant_matmul import (dequantize_weight, quantize_weight,
+                           quantized_matmul, quantized_matmul_fma,
+                           quantized_matmul_plain, quantized_weight_bytes)
 from .ragged_paged_attention import (quantized_kv_cache_write,
                                      quantized_kv_cache_write_layer,
                                      ragged_paged_attention,
@@ -74,7 +84,9 @@ __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_fwd",
            "paged_attention", "paged_attention_plain",
            "paged_attention_layer", "kv_cache_write_layer",
            "ragged_paged_attention_layer", "quantized_kv_cache_write_layer",
-           "KERNELS",
+           "dequantize_weight", "quantized_weight_bytes", "lora_slot_bytes",
+           "lora_pool_shapes", "lora_rank_geometry_issue",
+           "optimizer_fuse_enabled", "KERNELS",
            "GRAPH_NODES", "reset_launch_counts", "launch_counts"]
 
 # the launch-counted wrappers, by kernel name (layer_norm_fwd counts in
@@ -109,6 +121,19 @@ GRAPH_NODES = {
     "batched_lora_add_": r"\blora_expand_kernel\(",
     "paged_attention": r"\bpaged_attention_kernel<",
 }
+
+
+LAYER_NORM_PALLAS_REFUSAL = (
+    "kernels.layer_norm_pallas is the JAX package's Pallas call for the "
+    "TPU; its CUDA counterpart is K1, launched by kernels.layer_norm "
+    "(kernels/csrc/layer_norm.cu)")
+
+
+def __getattr__(name):
+    if name == "layer_norm_pallas":
+        raise AttributeError(LAYER_NORM_PALLAS_REFUSAL)
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_launch_counts() -> None:

@@ -62,7 +62,7 @@ from .quant_matmul import DEFAULT_BLOCK, quantized_matmul
 
 __all__ = ["LORA_BASE_KINDS", "MAX_BUCKETS", "MAX_RANK_SUM",
            "LoraGeometry", "lora_geometry", "lora_pool_shapes",
-           "lora_slot_bytes", "batched_lora_delta_plain",
+           "lora_slot_bytes", "lora_rank_geometry_issue", "batched_lora_delta_plain",
            "batched_lora_delta", "batched_lora_add_",
            "batched_lora_add_plain_", "batched_lora_matmul"]
 
@@ -106,6 +106,26 @@ def lora_geometry(K: int, N: int, r: int) -> LoraGeometry:
     slice_rows = stage * -(-need // stage)
     return LoraGeometry(slice_rows, stage, -(-K // slice_rows),
                         -(-r // RANK_CHUNK), -(-N // CHUNK_COLS))
+
+
+def lora_rank_geometry_issue(rank) -> Optional[str]:
+    """K12's rank rule, where JAX's names Mosaic's (a multiple of 8,
+    ``paddle_tpu/kernels/lora.py:82-101``). Both kernels take any rank:
+    a bucket's ranks run in passes of RANK_CHUNK, the last pass masked,
+    and ``csrc/lora.cu`` refuses a rank below 1. What bounds a rank is
+    shared memory: the shrink's partials and the expand's u keep every
+    bucket's ranks beside their staging, so the ranks of one call sum
+    to at most MAX_RANK_SUM. None for a rank K12 takes, else the message
+    the kernel's own guard (``_check_pools``) raises."""
+    if rank is None:
+        return None
+    rank = int(rank)
+    if 1 <= rank <= MAX_RANK_SUM:
+        return None
+    return (f"LoRA bucket rank {rank} is not one K12 (kernels/csrc/lora.cu) "
+            f"takes: a bucket's rank must be a positive integer of at most "
+            f"{MAX_RANK_SUM}, the ranks the kernels' shared memory holds a "
+            "call")
 
 
 def lora_pool_shapes(K: int, N: int, rank: int, slots: int
@@ -166,6 +186,9 @@ def _check_pools(x2, out, a_pools, b_pools, scales, n):
     for j in range(n):
         a, b, sc = a_pools[j], b_pools[j], scales[j]
         S, r = a.shape[0], a.shape[2]
+        issue = lora_rank_geometry_issue(r)
+        if issue is not None:
+            raise ValueError(issue)
         if (a.dim() != 3 or tuple(a.shape[:2]) != (S, K)
                 or tuple(b.shape) != (S, r, N) or tuple(sc.shape) != (S,)):
             raise ValueError(

@@ -1,6 +1,8 @@
 """Layer functions that append ops to the default main program: the
 port's ``paddle_tpu/layers/``."""
 
+from .collective import (_c_allgather, _c_allreduce,  # noqa: F401
+                         _c_broadcast, _c_reducescatter)
 from .control_flow import *  # noqa: F401,F403
 from .detection import box_coder, iou_similarity, prior_box
 from .extras import *  # noqa: F401,F403

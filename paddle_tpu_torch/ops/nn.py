@@ -163,7 +163,14 @@ def _pair(v):
 
 
 def _nchw(x, fmt):
-    return x if fmt == "NCHW" else x.permute(0, 3, 1, 2)
+    """An NHWC value as the channels-last NCHW tensor cuDNN's NHWC
+    kernels take: a view when ``x`` is a contiguous NHWC tensor, else one
+    copy into that layout. A bare permute of a value whose memory is NCHW
+    (the view a ``transpose2`` returns) would hand cuDNN NCHW memory, and
+    the region would run NCHW kernels."""
+    if fmt == "NCHW":
+        return x
+    return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
 
 def _from_nchw(x, fmt):

@@ -73,6 +73,7 @@ from .core.framework import (
     Parameter,
     Variable,
     default_main_program,
+    default_startup_program,  # noqa: F401  (JAX's optimizer re-exports it)
     unique_name,
 )
 from .flags import optimizer_fuse_enabled
@@ -189,8 +190,11 @@ class Optimizer:
 
     def _fusion_active(self, params_grads) -> bool:
         # exact optimizer classes whose update the fused one-pass op can
-        # replace — exact, not isinstance, as in the reference
-        if type(self).__name__ not in ("AdamOptimizer", "MomentumOptimizer"):
+        # replace — exact, not isinstance, as in the reference; a class
+        # that keeps its base's update names it in ``_update_type``
+        # (contrib.extend_optimizer)
+        name = getattr(type(self), "_update_type", type(self).__name__)
+        if name not in ("AdamOptimizer", "MomentumOptimizer"):
             return False
         return optimizer_fuse_enabled()
 

@@ -81,6 +81,10 @@ class QuantizeReport:
         self.mode = mode
         self.block = block
         self.rows: List[Dict[str, Any]] = []
+        # the partition tags each quantized weight and its scale plane
+        # inherited (or dropped), one row a (weight, tag kind), as JAX's
+        # ``tag_rows``; also on the program as ``_quant_tag_record``
+        self.tag_rows: List[Dict[str, Any]] = []
 
     def quantized(self, name, shape, dtype, q_bytes):
         self.rows.append({
@@ -118,8 +122,20 @@ class QuantizeReport:
             "weight_bytes_ratio": round(after / before, 4) if before else 1.0,
         }
 
+    def tag_record(self, name, qname, sname, kind, original, inherited,
+                   dropped_reason=None):
+        row = {
+            "name": name, "qname": qname, "sname": sname, "kind": kind,
+            "original": list(original),
+            "inherited": list(inherited) if inherited is not None else None,
+            "dropped_reason": dropped_reason,
+        }
+        self.tag_rows.append(row)
+        return row
+
     def to_dict(self) -> Dict[str, Any]:
-        return {"summary": self.summary(), "vars": list(self.rows)}
+        return {"summary": self.summary(), "vars": list(self.rows),
+                "partition_tags": list(self.tag_rows)}
 
 
 def _check_wdtype(wdtype: str) -> None:
@@ -265,15 +281,30 @@ def _rewrite_program(program, scope, wdtype: str = "int8",
             # tensor parallelism composes: the quantized weight inherits
             # the float weight's partition tags, and its scale plane
             # shards with the output-channel axis (its last dim tracks
-            # N), as the JAX rewrite stamps them (:310-335)
+            # N), as the JAX rewrite stamps them and records each
+            # inheritance or drop (:310-335)
             src = gb.var(name) if gb.has_var(name) else None
+            tag_rec = getattr(program, "_quant_tag_record", None)
+            if tag_rec is None:
+                tag_rec = program._quant_tag_record = []
             for kind in ("logical_axes", "sharding"):
                 tags = getattr(src, kind, None)
-                if tags is not None and len(tags) == 2:
+                if tags is None:
+                    continue
+                if len(tags) == 2:
                     setattr(qv, kind, tuple(tags))
                     setattr(sv, kind, ((None, tags[1])
                                        if wdtype == "int8_block"
                                        else (tags[1],)))
+                    tag_rec.append(report.tag_record(
+                        name, qname, sname, kind, tags, tuple(tags)))
+                else:
+                    tag_rec.append(report.tag_record(
+                        name, qname, sname, kind, tags, None,
+                        dropped_reason=(
+                            f"{kind} arity {len(tags)} does not match the "
+                            "2-D weight — tags dropped by the quantize "
+                            "rewrite")))
         for op, _role in consumers:
             if op.type == "mul":
                 op.type = "quantized_fc"

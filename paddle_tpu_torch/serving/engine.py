@@ -39,7 +39,7 @@ and ``serving/batch_execute`` spans (:327, :612) and completes futures
 through ``ServingFuture.add_done_callback`` (:119), the traffic tier's
 hook. Left out: the autotune seam that pre-tunes the ``serving_*`` knobs
 from a recorded profile (:195-202 there, ``autotune_for_program``),
-which belongs to ROADMAP A11 with the other autotune equivalents.
+which belongs to ROADMAP A11k with the other autotune equivalents.
 """
 
 from __future__ import annotations

@@ -34,7 +34,8 @@ from paddle_tpu_torch import dataset as tdataset
 from paddle_tpu_torch import datasets as tdatasets
 from paddle_tpu_torch import lod_tensor as tlod
 from paddle_tpu_torch import metrics as tmetrics
-from paddle_tpu_torch.fs import (FSFileExistsError, FSFileNotExistsError,
+from paddle_tpu_torch.fs import (ExecuteError, FSFileExistsError,
+                                 FSFileNotExistsError,
                                  HDFSClient, LocalFS)
 from paddle_tpu_torch.native import datafeed as tfeed
 
@@ -636,6 +637,8 @@ def test_local_fs_shell_helpers(tmp_path):
     assert not fs.is_exist(d)
 
 
-def test_hdfs_client_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="A11"):
-        HDFSClient()
+def test_hdfs_client_is_refused_by_name(tmp_path):
+    """Ported (A11j): with no hadoop binary the client refuses each
+    operation, naming the binary it lacks."""
+    with pytest.raises(ExecuteError, match="hadoop binary not found"):
+        HDFSClient(hadoop_home=str(tmp_path)).is_exist("/x")

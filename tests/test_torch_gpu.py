@@ -2795,3 +2795,102 @@ def test_batched_lora_fc_program_on_cuda_matches_the_cpu(cuda):
             assert c["quantized_matmul"] == 1 and c["batched_lora_add_"] == 1
         out[dev] = np.asarray(r)
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-5)
+
+
+# -- the NCHW -> NHWC pass (transpiler.auto_nhwc) -----------------------------------
+
+
+def _small_resnet_nhwc(fluid, flip, optimizer, size=16):
+    """The two-bottleneck net of ``tests/test_torch_resnet.py`` built
+    NCHW, through ``auto_nhwc`` when ``flip``, then minimized."""
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.transpiler import auto_nhwc
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("image", [3, size, size])
+        label = fluid.layers.data("label", [1], dtype="int64")
+        x = resnet._conv_bn(img, 8, 3, stride=2, name="stem")
+        x = fluid.layers.pool2d(x, 3, "max", pool_stride=2, pool_padding=1)
+        x = resnet._bottleneck(x, 4, 1, "a")
+        x = resnet._bottleneck(x, 4, 1, "c")
+        x = resnet._bottleneck(x, 4, 2, "b")
+        pool = fluid.layers.pool2d(x, 2, "avg", global_pooling=True)
+        logits = fluid.layers.fc(pool, 5,
+                                 param_attr=fluid.ParamAttr(name="head.w"))
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        if flip:
+            assert auto_nhwc(main) >= 20
+        optimizer.minimize(loss)
+    return main, startup, loss
+
+
+@pytest.mark.parametrize("opt", ["momentum", "adam"])
+def test_auto_nhwc_step_on_cuda_matches_nchw(cuda, opt):
+    """The two-bottleneck ResNet through ``auto_nhwc``: one fused step on
+    the card (K10m or K10, once a parameter, every gradient handed to the
+    kernel contiguous) from the NCHW program's values: the loss within
+    rtol 1e-4 of the NCHW step's, the update's state (Momentum's
+    velocities, Adam's first moments: the gradients) within relative L2
+    1e-4, the parameters within 2 * lr."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import optim
+
+    lr = 0.01 if opt == "momentum" else 1e-3
+    wrapper = ("fused_momentum_update" if opt == "momentum"
+               else "fused_adam_update")
+    state = "velocity" if opt == "momentum" else "moment1"
+
+    def make():
+        return (fluid.optimizer.MomentumOptimizer(lr, 0.9) if opt == "momentum"
+                else fluid.optimizer.AdamOptimizer(lr))
+
+    handed = []
+    update = getattr(optim, wrapper)
+
+    def spy(p, g, *a, **kw):
+        handed.append(g.is_contiguous())
+        return update(p, g, *a, **kw)
+
+    rng = np.random.RandomState(0)
+    batch = {"image": rng.randn(16, 3, 16, 16).astype("float32"),
+             "label": rng.randint(0, 5, (16, 1)).astype("int64")}
+    fluid.set_flags({"optimizer_fuse": "on"})
+    try:
+        progs = {flip: _small_resnet_nhwc(fluid, flip, make())
+                 for flip in (False, True)}
+        main, startup, _ = progs[False]
+        n_params = len(main.all_parameters())
+        scope0 = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope0)
+        names = [v.name for v in main.list_vars()
+                 if v.persistable and not v.is_data]
+        out = {}
+        for flip in (False, True):
+            prog, _, loss = progs[flip]
+            scope = fluid.Scope()
+            for n in names:
+                scope.set_var(n, scope0.find_var(n).clone())
+            K.reset_launch_counts()
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(optim, wrapper, spy)
+                (lv,) = exe.run(prog, feed=batch, fetch_list=[loss],
+                                scope=scope)
+            torch.cuda.synchronize()
+            assert getattr(K, wrapper).launches == n_params
+            out[flip] = (float(np.asarray(lv).reshape(-1)[0]),
+                         {n: scope.find_var(n) for n in names})
+        assert len(handed) == 2 * n_params and all(handed)
+        np.testing.assert_allclose(out[True][0], out[False][0], rtol=1e-4)
+        for v in main.global_block().vars.values():
+            if getattr(v, "is_accumulator", False) and state in v.name:
+                a, b = out[True][1][v.name], out[False][1][v.name]
+                err = float((a - b).norm() / b.norm().clamp_min(1e-30))
+                assert err <= 1e-4, (v.name, err)
+        for p in main.all_parameters():
+            d = float((out[True][1][p.name] - out[False][1][p.name]).abs().max())
+            assert d <= 2 * lr, (p.name, d)
+    finally:
+        fluid.set_flags({"optimizer_fuse": "auto"})

@@ -1,7 +1,7 @@
 """The port's supervised training (``paddle_tpu_torch.resilience``) on
 the CPU: twins of the single-process tests of tests/test_resilience.py
 (the reader-position round trip is in ``tests/test_torch_reader.py``;
-the atomic-rename test without its ``HDFSClient`` line, A11).
+the atomic-rename test with its ``HDFSClient`` line).
 
 The model is the twin of tools/chaos_train.py's: a small MLP with
 dropout under Adam, whose dropout masks come from each op's generator
@@ -159,6 +159,10 @@ def test_atomic_rename_local(tmp_path):
     with pytest.raises(Exception):
         fs.atomic_rename(str(tmp_path / "missing"), dst)
     assert fs.ls_dir(str(tmp_path)) == (["dst"], [])
+    from paddle_tpu_torch.fs import HDFSClient
+
+    with pytest.raises(NotImplementedError, match="LocalFS staging"):
+        HDFSClient(hadoop_home="/nonexistent").atomic_rename("a", "b")
 
 
 # -- fault spec -------------------------------------------------------------
